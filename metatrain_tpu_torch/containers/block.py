@@ -42,11 +42,22 @@ class TensorBlock:
     def gradient(self, parameter: str) -> "TensorBlock":
         return self._gradients[parameter]
 
+    def has_gradient(self, parameter: str) -> bool:
+        return parameter in self._gradients
+
     def gradients(self) -> Iterator[Tuple[str, "TensorBlock"]]:
         return iter(sorted(self._gradients.items()))
 
     def gradients_list(self) -> List[str]:
         return sorted(self._gradients)
+
+    def map_values(self, fn) -> "TensorBlock":
+        """New block with ``fn`` applied to values (and gradient values)."""
+        new = TensorBlock(fn(self.values), self.samples, self.components, self.properties,
+                          self.mask)
+        for name, grad in self._gradients.items():
+            new.add_gradient(name, grad.map_values(fn))
+        return new
 
     def __repr__(self) -> str:
         return (

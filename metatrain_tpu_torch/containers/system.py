@@ -11,7 +11,7 @@ always masked (the fused transformer layer stores the center token there).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,12 +26,15 @@ class System:
     :param cell: ``(3, 3)`` float64 cell matrix (rows are cell vectors);
         zero rows for non-periodic directions.
     :param pbc: ``(3,)`` booleans, one per cell vector.
+    :param extra: named per-system data read with the system (the info
+        fields and extra per-atom columns of an extended-xyz frame).
     """
 
     positions: np.ndarray
     types: np.ndarray
     cell: np.ndarray
     pbc: np.ndarray
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         self.positions = np.ascontiguousarray(self.positions, dtype=np.float64)
@@ -133,6 +136,11 @@ class SystemBatch:
     @property
     def max_neighbors(self) -> int:
         return int(self.nbr_indices.shape[1])
+
+    @property
+    def n_atoms_per_system(self) -> torch.Tensor:
+        """(S,) int64 count of real atoms in each system slot."""
+        return torch.bincount(self.system_index[self.atom_mask], minlength=self.n_systems_padded)
 
     def system_onehot(self, dtype) -> torch.Tensor:
         """(A, S) one-hot of ``system_index``. Per-system gathers and sums

@@ -416,4 +416,93 @@ __device__ __forceinline__ void cf_softmax_rows(float* __restrict__ S, int lds, 
     }
 }
 
+// ---- weight gradients: per-block partials, summed in a fixed order ----
+// (sum_partials_kernel lives in an anonymous namespace per translation
+// unit: every .cu file that includes this header gets its own copy.)
+//
+// A weight-gradient kernel runs a fixed grid (one block per SM); each
+// block owns a contiguous range of the work and its own float partial of
+// all the weight gradients in global memory. Every element of a partial
+// is always updated by the same thread, in the block's program order, so
+// no atomics are needed; sum_partials then adds the partials in block
+// order. Both orders are fixed for a grid, so the result is the same in
+// every run.
+
+// P[i, j] += sum_{r < R} A[r, i] * B'[r, j] for i < K, j < N, where B' is
+// B rounded to T (ROUND_B) or B itself. A 4 x 4 register tile per thread;
+// consecutive threads take consecutive column quads, so the A loads of a
+// warp are broadcasts and the read-modify-write of P is coalesced.
+// K % 4 == 0, N % 4 == 0, lda, ldb and ldp % 4 == 0, all 16-byte aligned.
+template <typename T, bool ROUND_B>
+__device__ __forceinline__ void accum_atb(
+    float* __restrict__ P, int ldp, const float* __restrict__ A, int lda,
+    const float* __restrict__ B, int ldb, int R, int K, int N) {
+    const int nq = N / 4, tiles = (K / 4) * nq;
+    for (int t = threadIdx.x; t < tiles; t += blockDim.x) {
+        const int i0 = 4 * (t / nq), j0 = 4 * (t % nq);
+        float acc[4][4] = {};
+        for (int r = 0; r < R; ++r) {
+            const float4 a = *reinterpret_cast<const float4*>(A + (size_t)r * lda + i0);
+            float4 b = *reinterpret_cast<const float4*>(B + (size_t)r * ldb + j0);
+            if (ROUND_B) {
+                b.x = rnd<T>(b.x);
+                b.y = rnd<T>(b.y);
+                b.z = rnd<T>(b.z);
+                b.w = rnd<T>(b.w);
+            }
+            const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+            for (int ii = 0; ii < 4; ++ii) {
+                acc[ii][0] = fmaf(av[ii], b.x, acc[ii][0]);
+                acc[ii][1] = fmaf(av[ii], b.y, acc[ii][1]);
+                acc[ii][2] = fmaf(av[ii], b.z, acc[ii][2]);
+                acc[ii][3] = fmaf(av[ii], b.w, acc[ii][3]);
+            }
+        }
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+            float4* p = reinterpret_cast<float4*>(P + (size_t)(i0 + ii) * ldp + j0);
+            float4 v = *p;
+            v.x += acc[ii][0];
+            v.y += acc[ii][1];
+            v.z += acc[ii][2];
+            v.w += acc[ii][3];
+            *p = v;
+        }
+    }
+}
+
+// P[j] += sum_{r < R} B[r, j] for j < N (one thread per column).
+__device__ __forceinline__ void accum_colsum(float* __restrict__ P, const float* __restrict__ B, int ldb, int R, int N) {
+    for (int j = threadIdx.x; j < N; j += blockDim.x) {
+        float s = 0.f;
+        for (int r = 0; r < R; ++r) s += B[(size_t)r * ldb + j];
+        P[j] += s;
+    }
+}
+
+__device__ __forceinline__ void zero_floats(float* __restrict__ P, long long n) {
+    for (long long i = threadIdx.x; i < n; i += blockDim.x) P[i] = 0.f;
+}
+
+namespace {
+
+// out[e] = sum_{b < blocks} partials[b, e], b in order.
+__global__ void __launch_bounds__(256) sum_partials_kernel(
+    const float* __restrict__ partials, int blocks, long long n, float* __restrict__ out) {
+    const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= n) return;
+    float s = 0.f;
+    for (int b = 0; b < blocks; ++b) s += partials[(size_t)b * n + e];
+    out[e] = s;
+}
+
+inline int launch_sum_partials(const float* partials, int blocks, long long n, float* out, cudaStream_t stream) {
+    const unsigned grid = (unsigned)((n + 255) / 256);
+    sum_partials_kernel<<<grid, 256, 0, stream>>>(partials, blocks, n, out);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 }  // namespace mtt

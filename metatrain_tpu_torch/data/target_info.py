@@ -7,7 +7,7 @@ which the sample kind and the requested gradients are read.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, Iterable, List, Sequence, Set
 
 import numpy as np
 import torch
@@ -108,6 +108,16 @@ class DatasetInfo:
         self.atomic_types = sorted(set(int(t) for t in atomic_types))
         self.targets = dict(targets)
 
+    def to_dict(self) -> dict:
+        """The ``dataset_info`` section of a checkpoint, in the JAX
+        package's format."""
+        return {
+            "length_unit": self.length_unit,
+            "atomic_types": self.atomic_types,
+            "targets": {k: _target_info_to_dict(v) for k, v in self.targets.items()},
+            "extra_data": {},
+        }
+
     @staticmethod
     def from_dict(data: dict) -> "DatasetInfo":
         """Read the ``dataset_info`` section of a checkpoint."""
@@ -118,6 +128,37 @@ class DatasetInfo:
                 k: _target_info_from_dict(v) for k, v in data["targets"].items()
             },
         )
+
+
+def collect_atomic_types(systems: Iterable) -> Set[int]:
+    types: Set[int] = set()
+    for system in systems:
+        types.update(int(t) for t in np.unique(system.types))
+    return types
+
+
+def _labels_to_dict(labels: Labels) -> dict:
+    return {"names": list(labels.names), "values": np.asarray(labels.values).tolist()}
+
+
+def _target_info_to_dict(info: TargetInfo) -> dict:
+    def block_dict(block):
+        return {
+            "samples": list(block.samples.names),
+            "components": [_labels_to_dict(c) for c in block.components],
+            "properties": _labels_to_dict(block.properties),
+        }
+
+    return {
+        "quantity": info.quantity,
+        "unit": info.unit,
+        "keys": _labels_to_dict(info.layout.keys),
+        "blocks": [
+            {**block_dict(block),
+             "gradients": {name: block_dict(g) for name, g in block.gradients()}}
+            for _, block in info.layout.items()
+        ],
+    }
 
 
 def _labels_from_dict(d: dict) -> Labels:

@@ -6,23 +6,23 @@
   becomes ``weight``; ``nn.RMSNorm``/``nn.LayerNorm`` ``scale`` becomes
   ``weight``; raw leaves (the fused layer's ``w_qkv`` ...) keep their name
   and their (in, out) layout.
-- :func:`load_checkpoint_file` reads the JAX package's checkpoint pickle
-  (``metatrain_tpu/utils/io.py``), a tree of dicts and numpy arrays. The
-  trainer sections may reference optax/flax classes; those load as opaque
-  placeholders, so unpickling imports nothing of JAX.
+- :func:`state_dict_to_flax` is its inverse: the port's parameters as
+  the flax tree the JAX package stores in a checkpoint.
+- :func:`load_checkpoint_file` (from ``utils/io.py``) reads the JAX
+  package's checkpoint pickle without importing JAX.
 - :func:`pet_from_checkpoint` builds the port's PET with the checkpoint's
   weights, composition weights and scales.
 """
 
 from __future__ import annotations
 
-import gzip
-import pickle
-from pathlib import Path
 from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch import nn
+
+from ..utils.io import load_checkpoint_file
 
 _DENSE = {"kernel", "bias"}
 _NORM = {"scale", "bias"}
@@ -58,32 +58,31 @@ def flax_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
-class _Opaque:
-    """Placeholder for any class outside numpy and the standard library."""
+def state_dict_to_flax(module: nn.Module) -> Dict[str, Any]:
+    """The flax parameter tree holding ``module``'s weights, as numpy
+    arrays under a top-level ``params`` key (the inverse of
+    :func:`flax_to_state_dict`)."""
+    from ..models.pet.modules import RMSNorm
 
-    def __init__(self, *args, **kwargs):
-        pass
-
-    def __setstate__(self, state):
-        pass
-
-
-class _NumpyOnlyUnpickler(pickle.Unpickler):
-    _ALLOWED = ("numpy", "builtins", "collections", "copyreg", "_codecs")
-
-    def find_class(self, module, name):
-        if module.split(".")[0] in self._ALLOWED:
-            return super().find_class(module, name)
-        return _Opaque
-
-
-def load_checkpoint_file(path) -> Dict[str, Any]:
-    """Read a (optionally gzipped) checkpoint pickle written by the JAX
-    package, without importing JAX."""
-    path = Path(path)
-    opener = gzip.open if path.suffix == ".gz" else open
-    with opener(path, "rb") as f:
-        return _NumpyOnlyUnpickler(f).load()
+    tree: Dict[str, Any] = {}
+    for name, p in module.named_parameters():
+        owner_name, _, leaf = name.rpartition(".")
+        owner = module.get_submodule(owner_name)
+        value = p.detach().cpu().numpy().copy()
+        if isinstance(owner, nn.Linear):
+            path, key = owner_name.split("."), "kernel" if leaf == "weight" else "bias"
+            value = value.T.copy() if leaf == "weight" else value
+        elif isinstance(owner, nn.Embedding):
+            path, key = owner_name.split("."), "embedding"
+        elif isinstance(owner, (nn.LayerNorm, RMSNorm)):
+            path, key = owner_name.split("."), "scale" if leaf == "weight" else "bias"
+        else:
+            path, key = name.split(".")[:-1], leaf
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[key] = value
+    return {"params": tree}
 
 
 def pet_from_checkpoint(checkpoint, compute_dtype=torch.float32,
@@ -106,4 +105,5 @@ def pet_from_checkpoint(checkpoint, compute_dtype=torch.float32,
     model.module.load_state_dict(flax_to_state_dict(checkpoint["params"]))
     model.composition.load_checkpoint_weights(checkpoint["composition"])
     model.scaler.load_checkpoint_scales(checkpoint["scaler"])
+    model.weights_initialized = True
     return model.to(device)

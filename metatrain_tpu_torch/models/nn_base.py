@@ -1,13 +1,15 @@
 """Shared base of the port's neural-network architectures.
 
-Counterpart of ``metatrain_tpu/models/nn_base.py``, reduced to the force
-call: species lookup, per-target output shapes, assembly of the network's
-per-atom predictions into per-structure energy TensorMaps, and the
-evaluation-time scaler and composition baselines (energy targets only).
+Counterpart of ``metatrain_tpu/models/nn_base.py``, for energy targets:
+species lookup, per-target output shapes, assembly of the network's
+per-atom predictions into per-structure energy TensorMaps, the
+evaluation-time scaler and composition baselines, and the model part of a
+checkpoint in the JAX package's layout.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Sequence
 
 import numpy as np
@@ -39,8 +41,13 @@ class AtomisticNNModel(nn.Module):
     implement :meth:`preprocess`.
     """
 
+    ARCHITECTURE_NAME = ""
+    __checkpoint_version__ = 1
+
     def __init__(self, hypers: Dict[str, Any], dataset_info: DatasetInfo, compute_dtype):
         super().__init__()
+        # False until random or checkpoint weights are in
+        self.weights_initialized = False
         self.hypers = hypers
         self.dataset_info = dataset_info
         self.compute_dtype = compute_dtype
@@ -108,3 +115,18 @@ class AtomisticNNModel(nn.Module):
 
     def supported_outputs(self) -> Dict[str, TargetInfo]:
         return dict(self.target_infos)
+
+    def get_checkpoint(self) -> Dict[str, Any]:
+        """The model part of a checkpoint, in the JAX package's layout:
+        ``metatrain_tpu.utils.io.model_from_checkpoint`` loads it."""
+        from ..interop.jax_params import state_dict_to_flax
+
+        return {
+            "architecture_name": self.ARCHITECTURE_NAME,
+            "model_ckpt_version": self.__checkpoint_version__,
+            "hypers": copy.deepcopy(dict(self.hypers)),
+            "dataset_info": self.dataset_info.to_dict(),
+            "params": state_dict_to_flax(self.module),
+            "composition": self.composition.get_checkpoint(),
+            "scaler": self.scaler.get_checkpoint(),
+        }

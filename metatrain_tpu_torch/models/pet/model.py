@@ -57,6 +57,9 @@ class PET(AtomisticNNModel):
         reference the kernel path is compared against).
     """
 
+    ARCHITECTURE_NAME = "pet"
+    __checkpoint_version__ = 3
+
     def __init__(self, hypers: Dict[str, Any], dataset_info: DatasetInfo,
                  compute_dtype=torch.float32, plain: bool = False):
         full = copy.deepcopy(DEFAULT_MODEL_HYPERS)
@@ -82,6 +85,7 @@ class PET(AtomisticNNModel):
         self.to("cpu")
         init_flax_like(self.module, generator)
         self.to(device)
+        self.weights_initialized = True
 
     def requested_neighbor_cutoff(self) -> float:
         return self.cutoff

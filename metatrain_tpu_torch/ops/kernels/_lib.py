@@ -1,14 +1,16 @@
 """Build, load and launch the port's CUDA kernels (``metatrain_tpu_torch/csrc``).
 
-The four kernels are compiled at first use with ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface, written to the
-git-ignored ``metatrain_tpu_torch/_build/``, and bound with ctypes. Every
+The kernels are compiled at first use with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source file, all at once, linked into one shared library
+with a plain C interface, written to the git-ignored
+``metatrain_tpu_torch/_build/``, and bound with ctypes. Every
 pointer argument is a ``c_void_p``; each C entry point launches on the
 current PyTorch stream and returns ``cudaGetLastError()``, which
 :func:`check` turns into an exception.
 
 ``LAUNCHES`` counts kernel launches by name; each wrapper adds one where
-it launches its kernel, and nowhere else.
+it launches its kernel, and nowhere else. ``REPLAYS`` counts the
+second-order replays (plain PyTorch, no kernel) by the op they replay.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ LIBRARY = "libmtt_kernels.so"
 MAX_SHARED_BYTES = 232448  # per block on sm_90 (227 KB)
 
 LAUNCHES: collections.Counter = collections.Counter()
+REPLAYS: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,33 +45,36 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "mtt_fused_layer_fwd": [_I] + [_P] * 15 + [_L, _I, _I, _I, _I, _F, _F, _P],
-    "mtt_fused_layer_bwd": [_I] + [_P] * 20 + [_L, _I, _I, _I, _I, _F, _F, _P],
+    "mtt_fused_layer_bwd": [_I] + [_P] * 21 + [_I, _P] + [_L, _I, _I, _I, _I, _F, _F, _P],
     "mtt_rowblock_fwd": [_I, _I, _P, _P, _P, _I] + [_P] * 7 + [_L, _I, _I, _I, _I, _P],
-    "mtt_rowblock_bwd": [_I, _I, _P, _P, _P, _I] + [_P] * 12 + [_L, _I, _I, _I, _I, _P],
+    "mtt_rowblock_bwd": [_I, _I, _P, _P, _P, _I] + [_P] * 13 + [_I, _P] + [_L, _I, _I, _I, _I, _P],
     "mtt_fused_layer_fwd_smem": [_I, _I, _I],
-    "mtt_fused_layer_bwd_smem": [_I, _I, _I, _I],
+    "mtt_fused_layer_bwd_smem": [_I, _I, _I, _I, _I],
     "mtt_rowblock_fwd_smem": [_I, _I],
-    "mtt_rowblock_bwd_smem": [_I, _I, _I, _I],
+    "mtt_rowblock_bwd_smem": [_I, _I, _I, _I, _I],
 }
 
 
-def nvcc_command() -> list:
+def nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    nvcc = shutil.which("nvcc") or str(Path(cuda_home) / "bin" / "nvcc")
+    return shutil.which("nvcc") or str(Path(cuda_home) / "bin" / "nvcc")
+
+
+def nvcc_compile_command() -> list:
+    """Compile one source to an object (the source and ``-o`` follow)."""
     return [
-        nvcc,
-        "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-Xptxas", "-v",
-        *[str(CSRC / s) for s in SOURCES],
+        nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+        "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
     ]
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
     """Build (if stale) and load the kernel library."""
-    sources = [CSRC / s for s in SOURCES] + [CSRC / "common.cuh"]
-    path = build_library(nvcc_command(), sources, LIBRARY, timeout=900)
+    units = [CSRC / s for s in SOURCES]
+    link = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
+    path = build_library(link, units + [CSRC / "common.cuh"], LIBRARY, timeout=900,
+                         compile_command=nvcc_compile_command(), units=units)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -117,6 +123,14 @@ def require(tensors: dict, device: torch.device, dtype: torch.dtype) -> None:
             raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def dw_blocks(work_items: int, device: torch.device) -> int:
+    """Blocks of a weight-gradient kernel: one per SM (one block fits an
+    SM for shared memory), fewer when there are fewer work items. Fixed
+    for a card and a shape, so the partial sums and their order are too."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(int(work_items), sms))
 
 
 def ptr(t):

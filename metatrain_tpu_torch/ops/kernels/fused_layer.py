@@ -12,12 +12,16 @@ returning ``(edge_out, center_attn)`` where ``center_attn`` is the
 attention output of slot M-1.
 
 - :func:`layer_math` and :func:`layer_bwd_math` are the plain PyTorch
-  versions (forward, and backward for input gradients).
+  versions (forward, and backward for input gradients plus, with
+  ``weight_grads=True``, the weight gradients summed over atoms).
 - :func:`fused_transformer_layer` is the ``autograd.Function`` entry: a
   tensor on the CPU runs the plain versions; a CUDA tensor launches K1
   (``csrc/fused_layer_fwd.cu``) and, for its gradient, K2
-  (``csrc/fused_layer_bwd.cu``), or raises. Weight gradients belong to the
-  training slice: the backward raises when a weight requires grad.
+  (``csrc/fused_layer_bwd.cu``): the input-gradient variant, or the
+  weight-gradient variant K2-dW when a weight requires grad. The backward
+  is itself differentiable (training with forces): its gradient replays
+  :func:`layer_bwd_math` under autograd, chunk by chunk over atoms
+  (:func:`replay_layer_bwd`, the port of ``_chunked_replay_bwd``).
 
 Weights keep the JAX package's (in, out) layout and are cast to the
 compute dtype (the dtype of ``edges``); accumulation is float32 (float64
@@ -128,13 +132,21 @@ def layer_math(edges, center, cf, w: LayerWeights, num_heads: int, scale: float)
 
 
 def layer_bwd_math(
-    edges, center, cf, w: LayerWeights, g_edge, g_center, num_heads: int, scale: float
+    edges, center, cf, w: LayerWeights, g_edge, g_center, num_heads: int, scale: float,
+    weight_grads: bool = False,
 ):
-    """Plain PyTorch backward of :func:`layer_math` for input gradients:
-    ``(d_edges, d_center, d_cf)`` with ``d_edges[:, M-1] == 0`` and
-    ``d_cf`` in float32 (float64 for float64 inputs). Every cotangent is
-    rounded to the compute dtype before the product that consumes it, as
-    K2 does."""
+    """Plain PyTorch backward of :func:`layer_math`: ``(d_edges, d_center,
+    d_cf)`` with ``d_edges[:, M-1] == 0`` and ``d_cf`` in float32 (float64
+    for float64 inputs). Every cotangent is rounded to the compute dtype
+    before the product that consumes it, as K2 does.
+
+    With ``weight_grads=True`` a fourth output holds the gradients of the
+    10 weights summed over atoms (:class:`LayerWeights`, float32; float64
+    for float64 inputs), with the casts of the JAX package's
+    ``_layer_bwd_math(..., weight_grads=True)``: products of compute-dtype
+    operands, norm-scale and bias sums of the unrounded cotangents where
+    JAX takes them. This is the plain version of K2-dW, and the function
+    that the second-order replay differentiates."""
     A, M, D = edges.shape
     cd = edges.dtype
     acc = accumulation_dtype(cd)
@@ -188,7 +200,32 @@ def layer_bwd_math(
     d_n1 = (d_qkv.to(acc) @ wa.w_qkv.T).reshape(A, M, D)
     gs1 = d_n1 * (r1 * wa.norm_attn)
     d_tokens = d_res + gs1 - x1 * (r1 * r1 * torch.sum(gs1 * x1, dim=-1, keepdim=True) / D)
-    return _zero_last_slot(d_tokens).to(cd), d_tokens[:, M - 1].to(cd), d_cf
+    d_inputs = (_zero_last_slot(d_tokens).to(cd), d_tokens[:, M - 1].to(cd), d_cf)
+    if not weight_grads:
+        return d_inputs
+
+    def rows_t(a, b):
+        """a^T b over all A*M rows, operands in the compute dtype."""
+        return a.reshape(A * M, -1).to(acc).T @ b.reshape(A * M, -1).to(acc)
+
+    def colsum(x):
+        return x.reshape(A * M, -1).to(acc).sum(0)
+
+    d_attn_out_c = d_attn_out.to(cd)
+    ffn_h = (value * sig).to(cd)
+    dw = LayerWeights(
+        norm_attn=colsum(d_n1 * (x1 * r1)),
+        w_qkv=rows_t(n1, d_qkv),
+        b_qkv=colsum(d_qkv),
+        w_out=rows_t(attn, d_attn_out_c),
+        b_out=colsum(d_attn_out_c),
+        norm_mlp=colsum(d_h * (x2 * r2)),
+        w_in=rows_t(h_norm, d_vg),
+        b_in=colsum(d_vg),
+        w_ffn_out=rows_t(ffn_h, g_eo),
+        b_ffn_out=colsum(g_eo),
+    )
+    return (*d_inputs, dw)
 
 
 # ---------------------------------------------------------------------------
@@ -243,8 +280,16 @@ def fused_layer_fwd_cuda(edges, center, cf, w: LayerWeights, num_heads, scale):
     return edge_out, center_out
 
 
-def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, num_heads, scale):
-    """Launch K2: ``(d_edges, d_center, d_cf)`` with ``d_cf`` float32."""
+def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, num_heads, scale,
+                         weight_grads: bool = False):
+    """Launch K2: ``(d_edges, d_center, d_cf)`` with ``d_cf`` float32.
+
+    With ``weight_grads=True`` launch K2-dW instead, which also returns the
+    float32 weight gradients summed over atoms as a fourth output
+    (:class:`LayerWeights`). K2-dW runs one block per SM over a contiguous
+    range of atoms, each block summing into its own float32 partial; a
+    second pass adds the partials in block order, so the sum is the same
+    from run to run."""
     A, M, D, F = _check_shapes(edges, center, cf, w, num_heads)
     cd = edges.dtype
     code = _lib.dtype_code(cd)
@@ -256,11 +301,19 @@ def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, n
         edges.device, cd,
     )
     _lib.require({"cf": cf}, edges.device, torch.float32)
+    name = "fused_layer_bwd_dw" if weight_grads else "fused_layer_bwd"
     lib = _lib.library()
-    _lib.check_shared(lib.mtt_fused_layer_bwd_smem(M, D, num_heads, F), "fused_layer_bwd")
+    _lib.check_shared(lib.mtt_fused_layer_bwd_smem(M, D, num_heads, F, int(weight_grads)), name)
     d_edges = torch.empty_like(edges)
     d_center = torch.empty_like(center)
     d_cf = torch.empty_like(cf)
+    partials = dw = None
+    blocks = 0
+    if weight_grads:
+        sizes = [x.numel() for x in wc]
+        blocks = _lib.dw_blocks(A, edges.device)
+        partials = torch.empty((blocks, sum(sizes)), dtype=torch.float32, device=edges.device)
+        dw = torch.empty(sum(sizes), dtype=torch.float32, device=edges.device)
     _lib.check(
         lib.mtt_fused_layer_bwd(
             code, edges.data_ptr(), center.data_ptr(), cf.data_ptr(),
@@ -268,47 +321,140 @@ def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, n
             *(x.data_ptr() for x in transposed),
             g_edge.data_ptr(), g_center.data_ptr(),
             d_edges.data_ptr(), d_center.data_ptr(), d_cf.data_ptr(),
+            _lib.ptr(partials), blocks, _lib.ptr(dw),
             A, M, D, num_heads, F, float(scale), rmsnorm_eps(cd),
             _lib.stream_ptr(edges.device),
         ),
-        "fused_layer_bwd",
+        name,
     )
-    _lib.LAUNCHES["fused_layer_bwd"] += 1
-    return d_edges, d_center, d_cf
+    _lib.LAUNCHES[name] += 1
+    if not weight_grads:
+        return d_edges, d_center, d_cf
+    parts = torch.split(dw, sizes)
+    return d_edges, d_center, d_cf, LayerWeights(*(p.view(x.shape) for p, x in zip(parts, wc)))
+
+
+def _first_backward(edges, center, cf, w, g_edge, g_center, num_heads, scale, weight_grads):
+    """K2 / K2-dW on the card, :func:`layer_bwd_math` on the CPU."""
+    if edges.is_cuda:
+        return fused_layer_bwd_cuda(edges, center, cf, w, g_edge, g_center, num_heads, scale,
+                                    weight_grads)
+    return layer_bwd_math(edges, center, cf, w, g_edge, g_center, num_heads, scale, weight_grads)
+
+
+def replay_layer_bwd(inputs, w: LayerWeights, cotangents, ct_dw, num_heads, scale, chunk):
+    """The vector-Jacobian product of :func:`layer_bwd_math`, computed by
+    replaying it under autograd over chunks of ``chunk`` atoms (port of
+    ``_chunked_replay_bwd``).
+
+    :param inputs: ``(edges, center, cf, g_edge, g_center)``.
+    :param cotangents: cotangents of ``(d_edges, d_center, d_cf)``, each
+        ``None`` where the output has none.
+    :param ct_dw: cotangents of the weight gradients (a sequence of 10,
+        ``None`` entries allowed), or ``None``: then the replay skips the
+        weight-gradient products.
+    :return: the cotangents of the five inputs and of the 10 weights.
+
+    Atoms are independent rows and the weight gradients are sums over
+    them, so the chunked sum is exact. Each chunk recomputes its forward
+    and frees its graph before the next, so only one chunk's temporaries
+    are alive. The last chunk is simply shorter: no padding, so no padded
+    window with all-zero cutoff weights (whose 0/0 would poison the weight
+    cotangents) ever exists.
+    """
+    weight_grads = ct_dw is not None and any(c is not None for c in ct_dw)
+    A = inputs[0].shape[0]
+    wl = [x.detach().requires_grad_(True) for x in w]
+    d_rows = [[] for _ in inputs]
+    d_w = [torch.zeros_like(x) for x in w]
+    _lib.REPLAYS["fused_layer"] += 1
+    for a0 in range(0, A, chunk):
+        xs = [t[a0:a0 + chunk].detach().requires_grad_(True) for t in inputs]
+        outs, cts = [], []
+        with torch.enable_grad():
+            res = layer_bwd_math(xs[0], xs[1], xs[2], LayerWeights(*wl), xs[3], xs[4],
+                                 num_heads, scale, weight_grads)
+            for out, ct in zip(res[:3], cotangents):
+                if ct is not None:
+                    outs.append(out)
+                    cts.append(ct[a0:a0 + chunk].to(out.dtype))
+            if weight_grads:
+                for out, ct in zip(res[3], ct_dw):
+                    if ct is not None:
+                        outs.append(out)
+                        cts.append(ct.to(out.dtype))
+            grads = torch.autograd.grad(outs, xs + wl, cts, allow_unused=True) if outs else (
+                [None] * (len(xs) + len(wl)))
+        for i, (x, g) in enumerate(zip(xs, grads[:len(xs)])):
+            d_rows[i].append(torch.zeros_like(x) if g is None else g)
+        for i, g in enumerate(grads[len(xs):]):
+            if g is not None:
+                d_w[i] = d_w[i] + g
+    return [torch.cat(parts) for parts in d_rows], d_w
+
+
+class _FusedLayerBwd(torch.autograd.Function):
+    """The layer's first backward as a function of its own: forward is K2
+    or K2-dW (the twin on the CPU), backward the chunked replay."""
+
+    @staticmethod
+    def forward(ctx, edges, center, cf, g_edge, g_center, num_heads, scale, chunk, weight_grads,
+                *weights):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(edges, center, cf, g_edge, g_center, *weights)
+        ctx.num_heads, ctx.scale, ctx.chunk = num_heads, scale, chunk
+        ctx.weight_grads = weight_grads
+        out = _first_backward(edges, center, cf, LayerWeights(*weights), g_edge, g_center,
+                              num_heads, scale, weight_grads)
+        return (*out[:3], *out[3]) if weight_grads else out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, ct_edges, ct_center, ct_cf, *ct_dw):
+        edges, center, cf, g_edge, g_center, *weights = ctx.saved_tensors
+        d_inputs, d_w = replay_layer_bwd(
+            (edges, center, cf, g_edge, g_center), LayerWeights(*weights),
+            (ct_edges, ct_center, ct_cf), ct_dw if ctx.weight_grads else None,
+            ctx.num_heads, ctx.scale, ctx.chunk,
+        )
+        needs = ctx.needs_input_grad
+        d_inputs = [d if needs[i] else None for i, d in enumerate(d_inputs)]
+        d_w = [d.to(x.dtype) if needs[9 + i] else None
+               for i, (d, x) in enumerate(zip(d_w, weights))]
+        return (*d_inputs, None, None, None, None, *d_w)
 
 
 class _FusedLayer(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, edges, center, cf, num_heads, scale, *weights):
+    def forward(ctx, edges, center, cf, num_heads, scale, chunk, *weights):
         w = LayerWeights(*weights)
         ctx.save_for_backward(edges, center, cf, *weights)
-        ctx.num_heads, ctx.scale = num_heads, scale
+        ctx.num_heads, ctx.scale, ctx.chunk = num_heads, scale, chunk
         if edges.is_cuda:
             return fused_layer_fwd_cuda(edges, center, cf, w, num_heads, scale)
         return layer_math(edges, center, cf, w, num_heads, scale)
 
     @staticmethod
     def backward(ctx, g_edge, g_center):
-        if any(ctx.needs_input_grad[5:]):
-            raise NotImplementedError("weight gradients: training slice")
         edges, center, cf, *weights = ctx.saved_tensors
-        w = LayerWeights(*weights)
-        g_edge = g_edge.to(edges.dtype).contiguous()
-        g_center = g_center.to(edges.dtype).contiguous()
-        if edges.is_cuda:
-            d_edges, d_center, d_cf = fused_layer_bwd_cuda(
-                edges, center, cf, w, g_edge, g_center, ctx.num_heads, ctx.scale
-            )
-        else:
-            d_edges, d_center, d_cf = layer_bwd_math(
-                edges, center, cf, w, g_edge, g_center, ctx.num_heads, ctx.scale
-            )
-        return (d_edges, d_center.to(center.dtype), d_cf.to(cf.dtype),
-                None, None, *([None] * len(weights)))
+        # as the JAX package's _fused_bwd: the weight gradients come with
+        # the first backward whenever a weight requires grad (fixed when
+        # the forward ran), also in the backward that builds the forces
+        weight_grads = any(ctx.needs_input_grad[6:])
+        out = _FusedLayerBwd.apply(
+            edges, center, cf, g_edge.to(edges.dtype).contiguous(),
+            g_center.to(edges.dtype).contiguous(), ctx.num_heads, ctx.scale, ctx.chunk,
+            weight_grads, *weights,
+        )
+        d_edges, d_center, d_cf = out[:3]
+        d_w = [d.to(x.dtype) for d, x in zip(out[3:], weights)] if weight_grads else [None] * 10
+        return (d_edges, d_center.to(center.dtype), d_cf.to(cf.dtype), None, None, None, *d_w)
 
 
-def fused_transformer_layer(edges, center, cf, w: LayerWeights, num_heads: int, scale: float):
-    """The fused layer with its hand-written backward (input gradients
-    only). CPU tensors run :func:`layer_math` / :func:`layer_bwd_math`;
-    CUDA tensors launch K1 / K2."""
-    return _FusedLayer.apply(edges, center, cf, num_heads, scale, *w)
+def fused_transformer_layer(edges, center, cf, w: LayerWeights, num_heads: int, scale: float,
+                            chunk: int = 1024):
+    """The fused layer with its hand-written backward. CPU tensors run
+    :func:`layer_math` / :func:`layer_bwd_math`; CUDA tensors launch K1 /
+    K2 (K2-dW when a weight requires grad). ``chunk`` is the number of
+    atoms per step of the second-order replay (:func:`replay_layer_bwd`)."""
+    return _FusedLayer.apply(edges, center, cf, num_heads, scale, chunk, *w)

@@ -10,7 +10,7 @@ from metatrain_tpu.containers import batch_from_systems as jax_batch_from_system
 from metatrain_tpu.engine.evaluate import evaluate_model as jax_evaluate_model
 from metatrain_tpu_torch.containers import System, batch_from_systems
 from metatrain_tpu_torch.engine.evaluate import evaluate_model
-from metatrain_tpu_torch.models.pet.modules import RMSNorm
+from metatrain_tpu_torch.interop.jax_params import state_dict_to_flax as flax_tree  # noqa: F401
 from metatrain_tpu_torch.ops.inference import no_param_grads
 from metatrain_tpu_torch.ops.neighbors import compute_neighbor_data
 
@@ -18,30 +18,6 @@ from metatrain_tpu_torch.ops.neighbors import compute_neighbor_data
 # one thread per core in each of them oversubscribes the cores many times
 # over and slows these small CPU problems tenfold.
 torch.set_num_threads(1)
-
-
-def flax_tree(module: torch.nn.Module) -> dict:
-    """The flax parameter tree holding ``module``'s weights (the inverse of
-    ``interop.jax_params.flax_to_state_dict``)."""
-    tree: dict = {}
-    for name, p in module.named_parameters():
-        owner_name, _, leaf = name.rpartition(".")
-        owner = module.get_submodule(owner_name)
-        value = p.detach().numpy().copy()
-        if isinstance(owner, torch.nn.Linear):
-            path, key = owner_name.split("."), "kernel" if leaf == "weight" else "bias"
-            value = value.T.copy() if leaf == "weight" else value
-        elif isinstance(owner, torch.nn.Embedding):
-            path, key = owner_name.split("."), "embedding"
-        elif isinstance(owner, (torch.nn.LayerNorm, RMSNorm)):
-            path, key = owner_name.split("."), "scale" if leaf == "weight" else "bias"
-        else:
-            path, key = name.split(".")[:-1], leaf
-        node = tree
-        for part in path:
-            node = node.setdefault(part, {})
-        node[key] = value
-    return {"params": tree}
 
 
 def neighbors_and_batches(system, cutoff):

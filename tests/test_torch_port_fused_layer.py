@@ -113,13 +113,30 @@ def test_autograd_function_on_cpu_matches_jax_vjp():
 
 
 def test_weight_gradients_raise():
-    edges, center, cf, w, _, _ = _inputs(np.float64)
-    tw = _torch_weights(w)
-    tw = tw._replace(w_qkv=tw.w_qkv.clone().requires_grad_(True))
+    """Weight gradients now run on the CPU (through the plain version) and
+    equal JAX's vjp with respect to the weights; the K2-dW wrapper raises
+    for CPU tensors instead of falling back to the plain version."""
+    edges, center, cf, w, g_edge, g_center = _inputs(np.float64, seed=3)
+    jw = _jax_weights(w)
+    _, vjp = jax.vjp(
+        lambda ww: jfl._layer_math(jnp.asarray(edges), jnp.asarray(center), jnp.asarray(cf), ww,
+                                   H, SCALE),
+        jw,
+    )
+    (j_dw,) = vjp((jnp.asarray(g_edge), jnp.asarray(g_center)))
+    tw = [torch.from_numpy(a).requires_grad_(True) for a in w]
     e = torch.from_numpy(edges).requires_grad_(True)
-    edge_out, _ = tfl.fused_transformer_layer(e, torch.from_numpy(center), torch.from_numpy(cf), tw, H, SCALE)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        edge_out.sum().backward()
+    out = tfl.fused_transformer_layer(e, torch.from_numpy(center), torch.from_numpy(cf),
+                                      tfl.LayerWeights(*tw), H, SCALE)
+    grads = torch.autograd.grad(out, tw, (torch.from_numpy(g_edge), torch.from_numpy(g_center)))
+    for t, j in zip(grads, j_dw):
+        assert rel(t, j) < 1e-12
+    args = [torch.from_numpy(a) for a in (edges.astype(np.float32), center.astype(np.float32),
+                                          cf.astype(np.float32))]
+    w32 = tfl.LayerWeights(*(torch.from_numpy(a.astype(np.float32)) for a in w))
+    with pytest.raises(ValueError, match="cuda"):
+        tfl.fused_layer_bwd_cuda(*args, w32, torch.zeros_like(args[0]), torch.zeros_like(args[1]),
+                                 H, SCALE, weight_grads=True)
 
 
 def test_cuda_wrappers_reject_cpu_tensors_and_bad_shapes():

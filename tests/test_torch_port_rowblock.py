@@ -99,12 +99,22 @@ def test_rowblock_function_on_cpu_matches_jax_vjp(name):
 
 
 def test_weight_gradients_raise():
-    inputs, weights, _, (_, _, stage) = _case("head", np.float64)
-    t_w = _torch(weights)
-    t_w = (t_w[0].clone().requires_grad_(True),) + t_w[1:]
+    """Weight gradients now run on the CPU (through the plain version) and
+    equal JAX's vjp with respect to the weights; the K4-dW wrapper raises
+    for CPU tensors instead of falling back to the plain version."""
+    inputs, weights, g, (j_math, _, stage) = _case("head", np.float64, seed=4)
+    j_in = tuple(jnp.asarray(a) for a in inputs)
+    _, vjp = jax.vjp(lambda *ww: j_math(j_in, ww)[0], *(jnp.asarray(a) for a in weights))
+    j_dw = vjp(jnp.asarray(g))
+    t_w = _torch(weights, requires_grad=True)
     out = trb.rowblock(stage, _torch(inputs, requires_grad=True), t_w)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+    grads = torch.autograd.grad(out, t_w, torch.from_numpy(g))
+    for t, j in zip(grads, j_dw):
+        assert rel(t, j) < 1e-12
+    inputs, weights, g, _ = _case("head", np.float32)
+    with pytest.raises(ValueError, match="cuda"):
+        trb.rowblock_bwd_cuda(stage, _torch(inputs), _torch(weights), torch.from_numpy(g),
+                              weight_grads=True)
 
 
 def test_cuda_wrappers_reject_cpu_tensors_and_bad_shapes():

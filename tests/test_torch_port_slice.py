@@ -56,8 +56,11 @@ def test_port_imports_no_jax():
         "import metatrain_tpu_torch.calculator, metatrain_tpu_torch.models.pet\n"
         "import metatrain_tpu_torch.ops.kernels.fused_layer, metatrain_tpu_torch.ops.kernels.rowblock\n"
         "import metatrain_tpu_torch.ops.kernels._lib, metatrain_tpu_torch.interop.jax_params\n"
+        "import metatrain_tpu_torch.cli.train, metatrain_tpu_torch.engine.trainer\n"
+        "import metatrain_tpu_torch.data.readers, metatrain_tpu_torch.utils.config\n"
         "new = set(sys.modules) - before\n"
-        "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'metatrain_tpu'))\n"
+        "banned = ('jax', 'jaxlib', 'flax', 'metatrain_tpu', 'pydantic', 'yaml')\n"
+        "bad = sorted(m for m in new if m.split('.')[0] in banned)\n"
         "print(bad)\n"
         "assert not bad and 'metatrain_tpu_torch' in new\n"
     )
