@@ -33,8 +33,15 @@ _PRECISION_DTYPES = {16: torch.bfloat16, 32: torch.float32, 64: torch.float64}
 
 
 def _device(name: str) -> torch.device:
+    """``"auto"`` is the first CUDA device; without one it raises rather than
+    train on the CPU unasked."""
     if name == "auto":
-        return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                'device "auto" trains on the first CUDA device and none was found; '
+                'pass device: "cpu" to train on the CPU'
+            )
+        return torch.device("cuda", 0)
     return torch.device(name)
 
 

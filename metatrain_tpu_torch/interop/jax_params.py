@@ -11,7 +11,9 @@
 - :func:`load_checkpoint_file` (from ``utils/io.py``) reads the JAX
   package's checkpoint pickle without importing JAX.
 - :func:`pet_from_checkpoint` builds the port's PET with the checkpoint's
-  weights, composition weights and scales.
+  weights, composition weights and scales, from a checkpoint of any
+  version (1 to 3), upgraded as the JAX package's ``model_from_checkpoint``
+  upgrades it.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..utils.io import load_checkpoint_file
+from ..utils.io import load_checkpoint_file, upgrade_chain
 
 _DENSE = {"kernel", "bias"}
 _NORM = {"scale", "bias"}
@@ -86,8 +88,9 @@ def state_dict_to_flax(module: nn.Module) -> Dict[str, Any]:
 
 
 def pet_from_checkpoint(checkpoint, compute_dtype=torch.float32,
-                        device="cpu", plain: bool = False):
-    """The port's PET from a JAX PET checkpoint (dict or path), format v3."""
+                        device="cuda", plain: bool = False):
+    """The port's PET from a JAX PET checkpoint (dict or path) of version 1,
+    2 or 3, on ``device`` (the card unless the caller asks otherwise)."""
     from ..data.target_info import DatasetInfo
     from ..models.pet import PET
 
@@ -95,11 +98,7 @@ def pet_from_checkpoint(checkpoint, compute_dtype=torch.float32,
         checkpoint = load_checkpoint_file(checkpoint)
     if checkpoint.get("architecture_name") != "pet":
         raise ValueError(f"not a PET checkpoint: {checkpoint.get('architecture_name')!r}")
-    if int(checkpoint.get("model_ckpt_version", 1)) != 3:
-        raise NotImplementedError(
-            "the port reads PET checkpoints of version 3; upgrade older ones "
-            "with the JAX package first"
-        )
+    checkpoint = upgrade_chain(PET, dict(checkpoint))
     model = PET(checkpoint["hypers"], DatasetInfo.from_dict(checkpoint["dataset_info"]),
                 compute_dtype=compute_dtype, plain=plain)
     model.module.load_state_dict(flax_to_state_dict(checkpoint["params"]))

@@ -1,9 +1,10 @@
-"""PET: Point Edge Transformer (PyTorch port, fused-layer slice).
+"""PET: Point Edge Transformer (PyTorch port).
 
 Counterpart of ``metatrain_tpu/models/pet/model.py``: the PET defaults,
 ``preprocess`` (edge vectors through the gather-only position gather,
-cutoff factors, NEF species indices) and the network. Forces and virial
-come from ``engine/evaluate.py``.
+cutoff factors, NEF species indices), the network (fused or unfused
+layers, feedforward or residual featurizer) and the upgrades of older
+checkpoints. Forces and virial come from ``engine/evaluate.py``.
 """
 
 from __future__ import annotations
@@ -86,6 +87,25 @@ class PET(AtomisticNNModel):
         init_flax_like(self.module, generator)
         self.to(device)
         self.weights_initialized = True
+
+    @classmethod
+    def upgrade_v1_v2(cls, checkpoint):
+        """v1 checkpoints predate the ``fused_layers`` default flip: their
+        parameters have the unfused layers' structure. Pin the hypers that
+        select the layout they were saved with."""
+        hypers = dict(checkpoint["hypers"])
+        hypers.setdefault("fused_layers", False)
+        hypers.setdefault("remat", False)
+        return dict(checkpoint, hypers=hypers)
+
+    @classmethod
+    def upgrade_v2_v3(cls, checkpoint):
+        """v3 records ``fused_attention``; v2 models behaved as ``True``.
+        The parameters are unchanged (the scaler section upgrades itself
+        when it is read)."""
+        hypers = dict(checkpoint["hypers"])
+        hypers.setdefault("fused_attention", True)
+        return dict(checkpoint, hypers=hypers)
 
     def requested_neighbor_cutoff(self) -> float:
         return self.cutoff

@@ -1,19 +1,29 @@
 """PET neural modules (PyTorch), on the plain NEF layout.
 
-Counterpart of ``metatrain_tpu/models/pet/modules.py``, fused-layer path
-only: PreLN/RMSNorm/SwiGLU transformer layers (``FusedTransformerLayer``),
-the feedforward featurizer, and the heads. Module and parameter names
-follow the flax tree, so ``interop/jax_params.py`` maps a flax parameter
-tree onto ``state_dict`` keys one to one. Raw fused-layer leaves keep the
-flax (in, out) layout; ``nn.Linear`` weights are (out, in).
+Counterpart of ``metatrain_tpu/models/pet/modules.py``:
+
+- the fused layer path (``FusedTransformerLayer``, PreLN/RMSNorm/SwiGLU,
+  the center token in slot M-1, K1/K2 on the card);
+- the unfused layer path (``TransformerLayer``: PreLN or PostLN, RMSNorm
+  or LayerNorm, SwiGLU or SiLU, the center token first in a window of
+  M + 1 tokens, the window attention kernels on the card), taken for
+  ``fused_layers: false`` and for any layer the fused kernel does not
+  cover, as in the JAX package;
+- the feedforward and residual featurizers, and the heads.
+
+Module and parameter names follow the flax tree, so
+``interop/jax_params.py`` maps a flax parameter tree onto ``state_dict``
+keys one to one. Raw fused-layer leaves keep the flax (in, out) layout;
+``nn.Linear`` weights are (out, in).
 
 Parameters stay float32; each module computes in ``dtype`` (float32,
 bfloat16 or float64), casting weights at use as flax does.
 
 ``plain=True`` runs the plain PyTorch versions of the kernels under
-autograd (``layer_math`` and the stage math): the reference that the
-tests and ``chip_smoke.py`` compare the kernel path against. The default
-runs the kernels' ``autograd.Function``s.
+autograd (``layer_math``, the stage math, ``attention_math`` and the
+index_select permute): the reference that the tests and ``chip_smoke.py``
+compare the kernel path against. The default runs the kernels'
+``autograd.Function``s.
 """
 
 from __future__ import annotations
@@ -25,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.involution import permute_rows
+from ...ops.kernels.attention import attention_math, window_attention
 from ...ops.kernels.fused_layer import (
     LayerWeights,
     accumulation_dtype,
@@ -33,10 +43,12 @@ from ...ops.kernels.fused_layer import (
     layer_math,
     rmsnorm_eps,
 )
+from ...ops.kernels.permute import permute_math, reverse_pair
 from ...ops.kernels.rowblock import rowblock
-from .fused_stages import COMBINATION, COMPRESS, HEAD
+from .fused_stages import COMBINATION, COMPRESS, EPS_LAYERNORM, HEAD
 
 _TRUNC_NORMAL_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
+EPSILON_ATTN = 1e-15  # floor of the cutoff factor under the attention's log
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -108,17 +120,47 @@ class RMSNorm(nn.Module):
         return (x32 * r * self.weight.to(x.dtype).to(acc)).to(x.dtype)
 
 
-class SwiGLU(nn.Module):
-    """Gated feed-forward ``w_out(v * sigmoid(g))`` with ``[v | g] = w_in(x)``."""
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm(epsilon=1e-5)``: mean and fast variance
+    (``E[x^2] - E[x]^2``, clipped at 0) in float32 (float64), the scale and
+    bias applied in that dtype, output in the input dtype."""
 
-    def __init__(self, d_model: int, d_feedforward: int):
+    def __init__(self, width: int):
+        super().__init__(width, eps=EPS_LAYERNORM)
+
+    def forward(self, x):
+        acc = accumulation_dtype(x.dtype)
+        x32 = x.to(acc)
+        mean = torch.mean(x32, dim=-1, keepdim=True)
+        var = torch.clamp_min(torch.mean(x32 * x32, dim=-1, keepdim=True) - mean * mean, 0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(acc)
+        return ((x32 - mean) * mul + self.bias.to(acc)).to(x.dtype)
+
+
+def make_norm(kind: str, width: int) -> nn.Module:
+    """The JAX package's ``_norm``: RMSNorm, or LayerNorm for any other name."""
+    return RMSNorm(width) if kind == "RMSNorm" else LayerNorm(width)
+
+
+class FeedForward(nn.Module):
+    """SwiGLU gated unit ``w_out(v * sigmoid(g))`` with ``[v | g] =
+    w_in(x)``, or the SiLU MLP ``w_out(silu(w_in(x)))`` for any other
+    activation name."""
+
+    def __init__(self, d_model: int, d_feedforward: int, activation: str = "SwiGLU"):
         super().__init__()
-        self.w_in = nn.Linear(d_model, 2 * d_feedforward)
+        self.gated = activation.lower() == "swiglu"
+        self.w_in = nn.Linear(d_model, (2 if self.gated else 1) * d_feedforward)
         self.w_out = nn.Linear(d_feedforward, d_model)
 
     def forward(self, x, dtype):
-        v, g = torch.chunk(dense(self.w_in, x, dtype), 2, dim=-1)
-        return dense(self.w_out, v * torch.sigmoid(g), dtype)
+        h = dense(self.w_in, x, dtype)
+        if self.gated:
+            v, g = torch.chunk(h, 2, dim=-1)
+            h = v * torch.sigmoid(g)
+        else:
+            h = F.silu(h)
+        return dense(self.w_out, h, dtype)
 
 
 class FusedTransformerLayer(nn.Module):
@@ -144,7 +186,7 @@ class FusedTransformerLayer(nn.Module):
             self.center_contraction = nn.Linear(d_node, D)
             self.center_expansion = nn.Linear(D, d_node)
             self.norm_center_features = RMSNorm(d_node)
-            self.center_mlp = SwiGLU(d_node, 2 * d_node)
+            self.center_mlp = FeedForward(d_node, 2 * d_node)
 
     def forward(self, node, edges, cf_tokens):
         cd = self.dtype
@@ -162,14 +204,91 @@ class FusedTransformerLayer(nn.Module):
         return out_node, edge_out
 
 
+class AttentionBlock(nn.Module):
+    """Multi-head attention over each atom's window of tokens, with an
+    additive (A, T) bias on the keys. ``fused`` (the ``fused_attention``
+    hyper) runs :func:`window_attention`, the kernels on the card;
+    otherwise, or with ``plain``, the plain version under autograd on any
+    device, as the JAX package's pure-XLA choice."""
+
+    def __init__(self, total_dim, num_heads, temperature, fused, plain):
+        super().__init__()
+        self.num_heads, self.fused, self.plain = num_heads, fused, plain
+        self.scale = 1.0 / ((total_dim // num_heads) ** 0.5 * temperature)
+        self.input_linear = nn.Linear(total_dim, 3 * total_dim)
+        self.output_linear = nn.Linear(total_dim, total_dim)
+
+    def forward(self, x, attn_bias, dtype):
+        q, k, v = torch.chunk(dense(self.input_linear, x, dtype), 3, dim=-1)
+        if self.fused and not self.plain:
+            # the kernels take the bias in float32, as the Pallas call does
+            if q.dtype != torch.float64:
+                attn_bias = attn_bias.to(torch.float32)
+            out = window_attention(q, k, v, attn_bias, self.num_heads, self.scale)
+        else:
+            out = attention_math(q, k, v, attn_bias, self.num_heads, self.scale)
+        return dense(self.output_linear, out.to(x.dtype), dtype)
+
+
+class TransformerLayer(nn.Module):
+    """One unfused transformer layer over [center token | edge tokens]:
+    PreLN or PostLN, RMSNorm or LayerNorm, SwiGLU or SiLU. Node features
+    live in ``d_node`` and are contracted to ``d_model`` for attention when
+    the widths differ."""
+
+    def __init__(self, hp: Dict[str, Any], dtype, plain):
+        super().__init__()
+        D, d_node = hp["d_pet"], hp["d_node"]
+        self.dtype = dtype
+        self.post_ln = hp["transformer_type"] != "PreLN"
+        self.expanded = d_node != D
+        self.attention = AttentionBlock(D, hp["num_heads"], hp["attention_temperature"],
+                                        hp.get("fused_attention", True), plain)
+        self.norm_attention = make_norm(hp["normalization"], D)
+        self.norm_mlp = make_norm(hp["normalization"], D)
+        self.mlp = FeedForward(D, hp["d_feedforward"], hp["activation"])
+        if self.expanded:
+            self.center_contraction = nn.Linear(d_node, D)
+            self.center_expansion = nn.Linear(D, d_node)
+            self.norm_center_features = make_norm(hp["normalization"], d_node)
+            self.center_mlp = FeedForward(d_node, 2 * d_node, hp["activation"])
+
+    def forward(self, node, edges, attn_bias):
+        cd = self.dtype
+        center = dense(self.center_contraction, node, cd) if self.expanded else node
+        tokens = torch.cat([center.to(cd)[:, None], edges.to(cd)], dim=1)
+        if self.post_ln:
+            tokens = self.norm_attention(tokens + self.attention(tokens, attn_bias, cd))
+            tokens = self.norm_mlp(tokens + self.mlp(tokens, cd))
+            out_center, out_edges = tokens[:, 0], tokens[:, 1:]
+        else:
+            new_tokens = self.attention(self.norm_attention(tokens), attn_bias, cd)
+            out_center, out_edges = new_tokens[:, 0], new_tokens[:, 1:]
+            out_edges = edges + out_edges
+            out_edges = out_edges + self.mlp(self.norm_mlp(out_edges), cd)
+        if not self.expanded:
+            # reference parity: the center takes the raw layer output
+            return out_center, out_edges
+        out_node = node + dense(self.center_expansion, out_center, cd)
+        out_node = out_node + self.center_mlp(self.norm_center_features(out_node), cd)
+        return out_node, out_edges
+
+
+def uses_fused_layer(hp: Dict[str, Any]) -> bool:
+    """The JAX package's choice: the fused layer covers PreLN/RMSNorm/SwiGLU
+    layers with ``fused_layers`` on; every other layer runs unfused."""
+    return (hp.get("fused_layers", True) and hp["normalization"] == "RMSNorm"
+            and hp["activation"] == "SwiGLU" and hp["transformer_type"] == "PreLN")
+
+
 def run_stage(stage, inputs, weights, plain: bool):
     """A row-block stage through K3/K4 (``plain=False``) or its plain math."""
     return stage.math(inputs, weights) if plain else rowblock(stage, inputs, weights)
 
 
 class CartesianTransformer(nn.Module):
-    """One GNN layer: geometric edge tokens -> compress stage -> fused
-    transformer layers over each atom's neighbor window."""
+    """One GNN layer: geometric edge tokens -> compress stage -> transformer
+    layers over each atom's neighbor window (fused or unfused)."""
 
     def __init__(self, hp: Dict[str, Any], num_species: int, is_first: bool, dtype, plain):
         super().__init__()
@@ -180,11 +299,12 @@ class CartesianTransformer(nn.Module):
             self.neighbor_embedder = nn.Embedding(num_species, d_pet)
         self.compress_0 = nn.Linear((2 if is_first else 3) * d_pet, d_pet)
         self.compress_1 = nn.Linear(d_pet, d_pet)
+        self.fused = uses_fused_layer(hp)
         for i in range(hp["num_attention_layers"]):
             self.add_module(f"layer_{i}", FusedTransformerLayer(
                 d_pet, hp["num_heads"], hp["d_node"], hp["d_feedforward"],
                 hp["attention_temperature"], dtype, plain,
-            ))
+            ) if self.fused else TransformerLayer(hp, dtype, plain))
         self.num_attention_layers = hp["num_attention_layers"]
 
     def forward(self, node, input_messages, nbr_species_index, edge_vectors,
@@ -202,49 +322,73 @@ class CartesianTransformer(nn.Module):
         weights = (*dense_kernel(self.compress_0), *dense_kernel(self.compress_1))
         edges = run_stage(COMPRESS, flat, weights, self.plain).reshape(A, M, D)
 
-        # padded edges weigh 0; the center token (slot M-1) weighs 1
         cf = torch.where(nbr_mask, cutoff_factors, 0.0)
-        cf_tokens = torch.cat([cf[:, :-1], torch.ones_like(cf[:, :1])], dim=1)
+        if self.fused:
+            # multiplicative weights: padded edges 0, the center token
+            # (slot M-1) 1
+            attn = torch.cat([cf[:, :-1], torch.ones_like(cf[:, :1])], dim=1)
+        else:
+            # additive log-cutoff bias over [center | edges]
+            attn = torch.log(torch.clamp(
+                torch.cat([torch.ones_like(cf[:, :1]), cf], dim=1), min=EPSILON_ATTN))
         for i in range(self.num_attention_layers):
-            node, edges = getattr(self, f"layer_{i}")(node, edges, cf_tokens)
+            node, edges = getattr(self, f"layer_{i}")(node, edges, attn)
         return node, edges
 
 
-def reverse_pair(x, nbr_reverse):
-    """``(x, x reversed over edges)`` on the plain NEF layout: the reversed
-    edge of each slot, through the involutive gather whose adjoint is the
-    same gather."""
+def reverse_edges(x, nbr_reverse, plain: bool):
+    """``(x, x reversed over edges)``: the permute kernel's pair (its
+    backward fuses the cotangent add), or with ``plain`` the index_select
+    under autograd."""
+    if not plain:
+        return reverse_pair(x, nbr_reverse)
     A, M = x.shape[:2]
     flat = x.reshape((A * M,) + x.shape[2:])
-    return x, permute_rows(flat, nbr_reverse.reshape(-1)).reshape(x.shape)
+    return x, permute_math(flat, nbr_reverse.reshape(-1)).reshape(x.shape)
 
 
 class PETBackbone(nn.Module):
-    """Species embeddings -> stacked GNN layers (feedforward featurizer)."""
+    """Species embeddings -> stacked GNN layers. Returns per-readout-layer
+    node features (A, d_node) and edge features (A, M, d_pet): one pair for
+    the ``feedforward`` featurizer, one per GNN layer for ``residual``."""
 
     def __init__(self, hp: Dict[str, Any], num_species: int, dtype, plain):
         super().__init__()
         d_pet, d_node = hp["d_pet"], hp["d_node"]
         self.dtype, self.plain = dtype, plain
         self.num_gnn = hp["num_gnn_layers"]
-        self.node_embedder_0 = nn.Embedding(num_species, d_node)
+        self.feedforward = hp["featurizer_type"] == "feedforward"
+        for i in range(1 if self.feedforward else self.num_gnn):
+            self.add_module(f"node_embedder_{i}", nn.Embedding(num_species, d_node))
         self.edge_species_embedder = nn.Embedding(num_species, d_pet)
         for i in range(self.num_gnn):
             self.add_module(f"gnn_layer_{i}", CartesianTransformer(hp, num_species, i == 0, dtype, plain))
-            self.add_module(f"combination_norm_{i}", nn.LayerNorm(2 * d_pet))
-            self.add_module(f"combination_mlp_{i}_0", nn.Linear(2 * d_pet, 2 * d_pet))
-            self.add_module(f"combination_mlp_{i}_1", nn.Linear(2 * d_pet, d_pet))
+            if self.feedforward:
+                self.add_module(f"combination_norm_{i}", nn.LayerNorm(2 * d_pet))
+                self.add_module(f"combination_mlp_{i}_0", nn.Linear(2 * d_pet, 2 * d_pet))
+                self.add_module(f"combination_mlp_{i}_1", nn.Linear(2 * d_pet, d_pet))
 
     def forward(self, bd: Dict[str, Any]):
         cd = self.dtype
         nbr_species = bd["neighbor_species_index"]
         input_messages = embed(self.edge_species_embedder, nbr_species, cd)
-        node = embed(self.node_embedder_0, bd["species_index"], cd)
         common = (nbr_species, bd["edge_vectors"], bd["edge_distances"],
                   bd["nbr_mask"], bd["cutoff_factors"])
+        if not self.feedforward:
+            node_features, edge_features = [], []
+            for i in range(self.num_gnn):
+                node = embed(getattr(self, f"node_embedder_{i}"), bd["species_index"], cd)
+                node, out_edges = getattr(self, f"gnn_layer_{i}")(node, input_messages, *common)
+                node_features.append(node)
+                out_edges, reversed_edges = reverse_edges(out_edges, bd["nbr_reverse"], self.plain)
+                edge_features.append(out_edges)
+                input_messages = 0.5 * (input_messages + reversed_edges)
+            return node_features, edge_features
+
+        node = embed(self.node_embedder_0, bd["species_index"], cd)
         for i in range(self.num_gnn):
             node, out_edges = getattr(self, f"gnn_layer_{i}")(node, input_messages, *common)
-            out_edges, reversed_edges = reverse_pair(out_edges, bd["nbr_reverse"])
+            out_edges, reversed_edges = reverse_edges(out_edges, bd["nbr_reverse"], self.plain)
             ln = getattr(self, f"combination_norm_{i}")
             weights = (ln.weight, ln.bias,
                        *dense_kernel(getattr(self, f"combination_mlp_{i}_0")),
@@ -272,7 +416,8 @@ class Head(nn.Module):
 
 
 class PETModule(nn.Module):
-    """Backbone + per-target node/edge heads and last layers.
+    """Backbone + per-target node/edge heads and last layers, one set per
+    readout layer of the backbone.
 
     ``output_shapes``: target name -> {block key string -> flat size}.
     Returns, per requested target, the per-atom prediction of each block
@@ -284,11 +429,6 @@ class PETModule(nn.Module):
                  output_shapes: Dict[str, Dict[str, int]], dtype, plain: bool = False):
         super().__init__()
         unsupported = {
-            "featurizer_type": hp["featurizer_type"] != "feedforward",
-            "fused_layers": not hp.get("fused_layers", True),
-            "normalization": hp["normalization"] != "RMSNorm",
-            "activation": hp["activation"] != "SwiGLU",
-            "transformer_type": hp["transformer_type"] != "PreLN",
             "long_range": bool(hp.get("long_range", {}).get("enable")),
             "system_conditioning": bool(hp.get("system_conditioning")),
         }
@@ -296,20 +436,21 @@ class PETModule(nn.Module):
         if off_slice:
             raise NotImplementedError(
                 f"PET configuration off the ported slice: {off_slice} (the port "
-                "runs the feedforward featurizer with fused PreLN/RMSNorm/SwiGLU "
-                "layers, without long range or system conditioning)"
+                "runs PET without long range or system conditioning)"
             )
         self.dtype, self.plain = dtype, plain
         self.output_shapes = output_shapes
         self.backbone = PETBackbone(hp, num_species, dtype, plain)
         d_head = hp["d_head"]
+        readouts = 1 if hp["featurizer_type"] == "feedforward" else hp["num_gnn_layers"]
         for target, shapes in output_shapes.items():
             safe = target.replace(":", "_")
-            self.add_module(f"node_head_{safe}_0", Head(hp["d_node"], d_head))
-            self.add_module(f"edge_head_{safe}_0", Head(hp["d_pet"], d_head))
-            for key, size in shapes.items():
-                self.add_module(f"node_last_{safe}_0_{key}", nn.Linear(d_head, size))
-                self.add_module(f"edge_last_{safe}_0_{key}", nn.Linear(d_head, size))
+            for i in range(readouts):
+                self.add_module(f"node_head_{safe}_{i}", Head(hp["d_node"], d_head))
+                self.add_module(f"edge_head_{safe}_{i}", Head(hp["d_pet"], d_head))
+                for key, size in shapes.items():
+                    self.add_module(f"node_last_{safe}_{i}_{key}", nn.Linear(d_head, size))
+                    self.add_module(f"edge_last_{safe}_{i}_{key}", nn.Linear(d_head, size))
 
     def forward(self, bd: Dict[str, Any], requested: Sequence[str]):
         cd = self.dtype

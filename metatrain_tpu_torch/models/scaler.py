@@ -89,9 +89,20 @@ class Scaler:
         return new_samples
 
     def load_checkpoint_scales(self, checkpoint: dict) -> None:
-        """Read the ``scaler`` section (format version 2) of a model checkpoint."""
+        """Read the ``scaler`` section of a model checkpoint. Version 1 kept
+        one (P,) scale shared by all blocks: it is broadcast to each block,
+        and the per-target scale is its RMS (1 where that is 0)."""
         for name, blocks in checkpoint["scales"].items():
-            if name in self.scales:
+            if name not in self.scales:
+                continue
+            if isinstance(blocks, np.ndarray) and blocks.ndim == 1:
+                self.scales[name] = [np.broadcast_to(blocks, s.shape).astype(np.float64)
+                                     for s in self.scales[name]]
+                self.per_target[name] = np.full(
+                    self.per_target[name].shape,
+                    float(np.sqrt(np.mean(np.square(blocks)))) or 1.0,
+                )
+            else:
                 self.scales[name] = [np.asarray(x, np.float64) for x in blocks]
         for name, v in checkpoint.get("per_target", {}).items():
             if name in self.per_target:

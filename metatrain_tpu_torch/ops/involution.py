@@ -1,7 +1,8 @@
 """Involutive row permutations with gather-only adjoints.
 
-Counterpart of ``metatrain_tpu/ops/involution.py``. PET's reversed-edge
-lookup and the neighbor-position gather would back-propagate through
+Counterpart of ``metatrain_tpu/ops/involution.py``. The neighbor-position
+gather (PET's reversed-edge lookup runs through the permute kernel of
+``ops/kernels/permute.py`` instead) would back-propagate through
 ``index_add_`` (a scatter with atomics, nondeterministic in its summation
 order on the GPU). The reversal index ``rev`` is an involutive
 permutation (``rev[rev] == arange``), so the exact adjoint of ``x[rev]``

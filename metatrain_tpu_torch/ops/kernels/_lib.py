@@ -32,6 +32,9 @@ SOURCES = (
     "fused_layer_bwd.cu",
     "rowblock_fwd.cu",
     "rowblock_bwd.cu",
+    "permute.cu",
+    "window_attention_fwd.cu",
+    "window_attention_bwd.cu",
 )
 LIBRARY = "libmtt_kernels.so"
 MAX_SHARED_BYTES = 232448  # per block on sm_90 (227 KB)
@@ -48,10 +51,15 @@ _SIGNATURES = {
     "mtt_fused_layer_bwd": [_I] + [_P] * 21 + [_I, _P] + [_L, _I, _I, _I, _I, _F, _F, _P],
     "mtt_rowblock_fwd": [_I, _I, _P, _P, _P, _I] + [_P] * 7 + [_L, _I, _I, _I, _I, _P],
     "mtt_rowblock_bwd": [_I, _I, _P, _P, _P, _I] + [_P] * 13 + [_I, _P] + [_L, _I, _I, _I, _I, _P],
+    "mtt_permute": [_I, _P, _P, _P, _P, _L, _I, _P],
+    "mtt_window_attention_fwd": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _L, _I, _I, _I, _F, _P],
+    "mtt_window_attention_bwd": [_I] + [_P] * 4 + [_I] * 4 + [_P] * 5 + [_L, _I, _I, _I, _F, _P],
     "mtt_fused_layer_fwd_smem": [_I, _I, _I],
     "mtt_fused_layer_bwd_smem": [_I, _I, _I, _I, _I],
     "mtt_rowblock_fwd_smem": [_I, _I],
     "mtt_rowblock_bwd_smem": [_I, _I, _I, _I, _I],
+    "mtt_window_attention_fwd_smem": [_I, _I, _I, _I],
+    "mtt_window_attention_bwd_smem": [_I, _I, _I, _I],
 }
 
 
@@ -73,7 +81,8 @@ def library() -> ctypes.CDLL:
     """Build (if stale) and load the kernel library."""
     units = [CSRC / s for s in SOURCES]
     link = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
-    path = build_library(link, units + [CSRC / "common.cuh"], LIBRARY, timeout=900,
+    headers = [CSRC / "common.cuh", CSRC / "attention.cuh"]
+    path = build_library(link, units + headers, LIBRARY, timeout=900,
                          compile_command=nvcc_compile_command(), units=units)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():

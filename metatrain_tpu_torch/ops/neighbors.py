@@ -1,15 +1,17 @@
 """Host-side neighbor lists, emitted directly in the plain NEF layout.
 
 Counterpart of ``metatrain_tpu/ops/neighbors.py`` (uncolored path). The
-pair search runs in the repository's C++ cell list
-(``metatrain_tpu/native/neighbors.cpp``), compiled by path with g++ into
-``metatrain_tpu_torch/_build/`` and loaded with ctypes; scipy's cKDTree
-is the fallback when no compiler is available. Nothing here imports the
-JAX package: only the C++ source file is shared.
+pair search runs in the port's C++ cell list (``native/neighbors.cpp``, the
+port's own copy of the JAX package's source), compiled with g++ into
+``metatrain_tpu_torch/_build/`` at first use and loaded with ctypes.
+scipy's cKDTree finds the same pairs on the host when no compiler is
+available. ``BACKENDS`` counts the pair searches by the backend that ran
+them (``"native"`` or ``"kdtree"``).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -25,7 +27,9 @@ from ..containers.system import NeighborData, System
 
 logger = logging.getLogger(__name__)
 
-NATIVE_SOURCE = PACKAGE_DIR.parent / "metatrain_tpu" / "native" / "neighbors.cpp"
+NATIVE_SOURCE = PACKAGE_DIR / "native" / "neighbors.cpp"
+
+BACKENDS: collections.Counter = collections.Counter()
 
 
 @functools.cache
@@ -133,8 +137,10 @@ def neighbor_pairs(
     if len(positions):
         result = _native_pairs(positions, cell, pbc, cutoff)
         if result is not None:
+            BACKENDS["native"] += 1
             keep = _half_list_keep(*result)
             return tuple(x[keep] for x in result)
+    BACKENDS["kdtree"] += 1
     return _neighbor_pairs_kdtree(positions, cell, pbc, cutoff)
 
 

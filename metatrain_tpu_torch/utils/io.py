@@ -1,7 +1,7 @@
 """Checkpoint files: the JAX package's numpy-only pickle.
 
-Counterpart of ``save_checkpoint_file`` / ``load_checkpoint_file`` in
-``metatrain_tpu/utils/io.py``. A checkpoint is one pickle of a tree of
+Counterpart of ``save_checkpoint_file`` / ``load_checkpoint_file`` and
+``_upgrade_chain`` in ``metatrain_tpu/utils/io.py``. A checkpoint is one pickle of a tree of
 dicts, lists, strings, numbers and numpy arrays: torch tensors are
 converted to numpy on save, so the JAX package reads a port-written file
 and the port reads the JAX package's. Loading imports nothing of JAX: any
@@ -64,3 +64,23 @@ def load_checkpoint_file(path) -> Dict[str, Any]:
     with opener(path, "rb") as f:
         return _NumpyOnlyUnpickler(f).load()
 
+
+def upgrade_chain(cls, checkpoint: Dict[str, Any], version_key: str = "model_ckpt_version"):
+    """Bring ``checkpoint`` to ``cls.__checkpoint_version__`` through the
+    class's ``upgrade_v{n}_v{n+1}`` steps, one version at a time; a
+    checkpoint newer than the code raises."""
+    current = int(checkpoint.get(version_key, 1))
+    target = int(cls.__checkpoint_version__)
+    if current > target:
+        raise ValueError(
+            f"checkpoint {version_key}={current} is newer than this version of "
+            f"the code supports ({target}); please update"
+        )
+    while current < target:
+        upgrader = getattr(cls, f"upgrade_v{current}_v{current + 1}", None)
+        if upgrader is None:
+            raise ValueError(f"no upgrade of {cls.__name__} checkpoints from version {current}")
+        checkpoint = upgrader(checkpoint)
+        current += 1
+        checkpoint[version_key] = current
+    return checkpoint

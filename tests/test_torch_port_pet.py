@@ -72,7 +72,7 @@ def test_random_init_force_call_matches_jax(system):
 
 def test_v3_checkpoint_force_call_matches_jax():
     checkpoint = load_checkpoint_file(CHECKPOINT)
-    port = pet_from_checkpoint(checkpoint, compute_dtype=torch.float64)
+    port = pet_from_checkpoint(checkpoint, compute_dtype=torch.float64, device="cpu")
 
     with gzip.open(CHECKPOINT, "rb") as f:
         loaded = model_from_checkpoint(pickle.load(f), context="export")

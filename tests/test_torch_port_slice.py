@@ -55,6 +55,7 @@ def test_port_imports_no_jax():
         "before = set(sys.modules)\n"
         "import metatrain_tpu_torch.calculator, metatrain_tpu_torch.models.pet\n"
         "import metatrain_tpu_torch.ops.kernels.fused_layer, metatrain_tpu_torch.ops.kernels.rowblock\n"
+        "import metatrain_tpu_torch.ops.kernels.attention, metatrain_tpu_torch.ops.kernels.permute\n"
         "import metatrain_tpu_torch.ops.kernels._lib, metatrain_tpu_torch.interop.jax_params\n"
         "import metatrain_tpu_torch.cli.train, metatrain_tpu_torch.engine.trainer\n"
         "import metatrain_tpu_torch.data.readers, metatrain_tpu_torch.utils.config\n"
@@ -206,9 +207,11 @@ def test_bf16_force_call_within_bounds():
 
 
 @pytest.mark.parametrize("change", [
-    {"featurizer_type": "residual"}, {"fused_layers": False}, {"normalization": "LayerNorm"},
     {"long_range": {"enable": True}}, {"system_conditioning": True},
     {"num_neighbors_adaptive": 8}, {"zbl": True},
+    {"featurizer_type": "residual", "long_range": {"enable": True}},
+    {"fused_layers": False, "system_conditioning": True},
+    {"normalization": "LayerNorm", "zbl": True},
 ])
 def test_off_slice_configurations_are_refused(change):
     info = DatasetInfo("angstrom", [1], {"energy": get_energy_target_info("eV")})

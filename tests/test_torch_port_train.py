@@ -422,7 +422,7 @@ def test_port_checkpoint_evaluates_in_jax(trained):
     loaded = model_from_checkpoint(copy.deepcopy(checkpoint), context="export")
     jax_model = JaxPET(loaded.hypers, loaded.dataset_info, compute_dtype=jnp.float64)
     jax_model.composition, jax_model.scaler = loaded.composition, loaded.scaler
-    port = pet_from_checkpoint(checkpoint, compute_dtype=torch.float64)
+    port = pet_from_checkpoint(checkpoint, compute_dtype=torch.float64, device="cpu")
 
     system = make_crystal(n_cells=2, seed=11, jitter=0.1)
     system.types[:] = 29
