@@ -19,6 +19,10 @@ device and exits non-zero without one. Phases (any failure propagates):
    the f32 plain path (energy rel <= 1e-5, force rel-RMSE <= 1e-4). Then ms
    per force call and atom-steps/s of the kernel and plain paths in both
    dtypes, and a torch.profiler breakdown of the bf16 kernel path.
+   GNN block: the same for PET with ``fused_gnn=True``, each GNN layer's
+   fused layers and node stream as one block: the block's forward and
+   backward kernels must launch twice per call each (one GNN layer each)
+   and K1/K2 not at all; the plain paths run the block's plain version.
 4. unfused slice: the same for PET with ``fused_layers: false`` (the
    layout of a v1 checkpoint at the default widths): the window attention
    forward and backward, both permutes and the row-block stages must
@@ -35,15 +39,18 @@ device and exits non-zero without one. Phases (any failure propagates):
    finite; ``model.ckpt`` must reload into a PET that gives the trained
    model's energy.
 6. training parity: one step's loss and parameter gradients on 2 frames,
-   float32 kernel path vs float32 plain path, for the trained fused model
-   and for a random unfused one (whose step must launch the attention and
-   permute kernels and replay the attention's backward): loss rel <=
-   1e-5, global gradient rel L2 <= 1e-4, each parameter tensor rel L2 <=
-   1e-3.
+   float32 kernel path vs float32 plain path, for the trained fused model,
+   for a random unfused one (whose step must launch the attention and
+   permute kernels and replay the attention's backward) and for the
+   trained model with ``fused_gnn=True`` (whose step must launch the
+   block's forward and weight-gradient kernels and replay the block's
+   backward): loss rel <= 1e-5, global gradient rel L2 <= 1e-4, each
+   parameter tensor rel L2 <= 1e-3.
 7. training timing: ms per step and atom-steps/s (host clock around
    synchronised steps after a warm-up step) with the peak device memory,
-   for the kernel and plain paths on the 2 x 2,048-atom batch and for the
-   kernel path on the 10,976-atom crystal as a batch of one.
+   for the kernel, plain and GNN-block paths on the 2 x 2,048-atom batch
+   (the kernel paths with a torch.profiler breakdown of one step) and for
+   the kernel path on the 10,976-atom crystal as a batch of one.
 8. kernel vs plain at the shapes the served calls gave the kernels (the
    calculator's padded atom count A and slot count M, D = 128, 8 heads,
    d_ff = 256; rows = A * M for the row-block stages and the permutes;
@@ -54,10 +61,13 @@ device and exits non-zero without one. Phases (any failure propagates):
    plain| <= 1e-4 max |plain| (sums are reassociated); bfloat16: relative
    RMS <= 2e-2 (the plain version rounds at the same points, but products
    and sums run in another order). The permutes must equal index_select
-   (+ add) bit for bit. The weight gradients of K2-dW and K4-dW sum over
-   up to A * M rows: float32 max |kernel - plain| <= 1e-3 max |plain| per
-   tensor, bfloat16 relative RMS <= 2e-2; two launches on the same inputs
-   must give bitwise-equal weight gradients.
+   (+ add) bit for bit. The weight gradients of K2-dW, K4-dW and the GNN
+   block's dW variant sum over up to A * M rows: float32 max |kernel -
+   plain| <= 1e-3 max |plain| per tensor, bfloat16 relative RMS <= 2e-2;
+   two launches on the same inputs must give bitwise-equal weight
+   gradients. The GNN block (2 attention layers, d_node = 256) also gets
+   the time of the per-layer path it replaces (``per_layer_ms``: K1 or K2
+   per layer and the node stream in PyTorch ops).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Details also go to
@@ -261,6 +271,179 @@ def check_fused_layer(A, M, D, H, F, gen, device, report):
                 fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale, weight_grads=True)),
             3, report,
         )
+        torch.cuda.empty_cache()
+
+
+def gnn_case(A, M, D, H, F, N, L, gen, device, expanded=True):
+    """Inputs of the GNN block: L layers' weights as :func:`layer_case` and,
+    with the expansion, the node stream's (lecun-scaled matrices, small
+    biases, norm scales near 1; without it the node width is D), node
+    features, cotangents."""
+    from metatrain_tpu_torch.ops.kernels.gnn_block import CenterWeights, flatten_gnn_weights
+
+    def lecun(*shape):
+        return (torch.randn(*shape, generator=gen) / math.sqrt(shape[0])).to(device)
+
+    def vec(n, base=0.0):
+        return (base + 0.1 * torch.randn(n, generator=gen)).to(device)
+
+    edges, _, cf, _, g_edge, _ = layer_case(A, M, D, H, F, gen, device)
+    lws = [layer_case(1, M, D, H, F, gen, device)[3] for _ in range(L)]
+    cws = [CenterWeights(lecun(N, D), vec(D), lecun(D, N), vec(N), vec(N, 1.0), lecun(N, 4 * N),
+                         vec(4 * N), lecun(2 * N, N), vec(N)) if expanded else None
+           for _ in range(L)]
+    node = torch.randn(A, N if expanded else D, generator=gen).to(device)
+    g_node = torch.randn(*node.shape, generator=gen).to(device)
+    return edges, node, cf, lws, cws, flatten_gnn_weights(lws, cws, expanded), g_edge, g_node
+
+
+def check_gnn_block_variants(M, D, H, F, N, gen, device, A=256):
+    """The block's kernels vs their plain versions in the configurations
+    the default model does not run: without the node expansion (d_node ==
+    d_pet) over 3 layers (two edge-cotangent buffers) and with it over one
+    layer; float32 and bfloat16, the bounds of :func:`compare` and
+    :func:`compare_dw`. Returns the errors; raises past a bound."""
+    from metatrain_tpu_torch.ops.kernels import gnn_block as gb
+
+    scale = 1.0 / math.sqrt(D // H)
+    report = {}
+    for expanded, L in ((False, 3), (True, 1)):
+        edges, node, cf, lws, cws, flat, g_edge, g_node = gnn_case(A, M, D, H, F, N, L, gen,
+                                                                   device, expanded)
+        for dtype in (torch.float32, torch.bfloat16):
+            e, n, ge, gn = (x.to(dtype) for x in (edges, node, g_edge, g_node))
+            fwd = compare(gb.gnn_block_fwd_cuda(e, n, cf, flat, H, scale, L, expanded),
+                          gb.gnn_block_math(e, n, cf, lws, cws, H, scale, expanded), dtype)
+            k = gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, expanded, True)
+            p = gb.gnn_block_bwd_math(e, n, cf, lws, cws, ge, gn, H, scale, expanded, True)
+            torch.cuda.synchronize()
+            bwd = compare(k[:3], p[:3], dtype)
+            dw = compare_dw(k[3], p[3], dtype)
+            key = f"{'expanded' if expanded else 'plain_node'}_L{L}_{dtype}".replace("torch.", "")
+            report[key] = {"fwd": fwd, "bwd": bwd, "dw": dw}
+    return report
+
+
+def per_layer_layers(lws, cws, H, N, dtype, device):
+    """The per-layer fused path of the same GNN layer: one
+    ``FusedTransformerLayer`` (K1/K2 and the node stream in PyTorch ops) per
+    attention layer, holding the block's weights. Its time is the block's
+    yardstick ``per_layer_ms``."""
+    from metatrain_tpu_torch.models.pet.modules import FusedTransformerLayer
+
+    layers = []
+    for lw, cw in zip(lws, cws):
+        D, F = lw.w_qkv.shape[0], lw.w_ffn_out.shape[0]
+        layer = FusedTransformerLayer(D, H, N, F, 1.0, dtype, plain=False).to(device)
+        with torch.no_grad():
+            for name, w in lw._asdict().items():
+                getattr(layer, name).copy_(w)
+            layer.center_contraction.weight.copy_(cw.w_contr.T)
+            layer.center_contraction.bias.copy_(cw.b_contr)
+            layer.center_expansion.weight.copy_(cw.w_exp.T)
+            layer.center_expansion.bias.copy_(cw.b_exp)
+            layer.norm_center_features.weight.copy_(cw.norm_c)
+            layer.center_mlp.w_in.weight.copy_(cw.w_in_c.T)
+            layer.center_mlp.w_in.bias.copy_(cw.b_in_c)
+            layer.center_mlp.w_out.weight.copy_(cw.w_out_c.T)
+            layer.center_mlp.w_out.bias.copy_(cw.b_out_c)
+        layers.append(layer)
+    return layers
+
+
+def per_layer_fns(layers, edges, node, cf, g_edge, g_node):
+    """(forward, backward, backward with weight gradients) callables of the
+    per-layer path: the forward; ``autograd.grad`` of its outputs to the
+    inputs (2 x K2 and the node stream's backward); and to the inputs and
+    the weights (2 x K2-dW), on a retained graph."""
+    def fwd():
+        n, e = node, edges
+        for layer in layers:
+            n, e = layer(n, e, cf)
+        return e, n
+
+    params = [p for layer in layers for p in layer.parameters()]
+    x = [t.detach().requires_grad_(True) for t in (edges, node)]
+
+    def graph(weights):
+        for p in params:
+            p.requires_grad_(weights)
+        n, e = x[1], x[0]
+        for layer in layers:
+            n, e = layer(n, e, cf)
+        return e, n
+
+    def bwd_fn(weights):
+        outs = graph(weights)
+        inputs = x + (params if weights else [])
+        return lambda: torch.autograd.grad(outs, inputs, (g_edge, g_node), retain_graph=True)
+
+    return fwd, bwd_fn(False), bwd_fn(True)
+
+
+def check_gnn_block(A, M, D, H, F, N, gen, device, report, L=2):
+    """The GNN block's kernels vs their plain versions at the served shape,
+    float32 and bfloat16, with the per-layer path's time beside them."""
+    from metatrain_tpu_torch.ops.kernels import gnn_block as gb
+
+    edges, node, cf, lws, cws, flat, g_edge, g_node = gnn_case(A, M, D, H, F, N, L, gen, device)
+    scale = 1.0 / math.sqrt(D // H)
+    # products per attention layer, as check_fused_layer counts them, and
+    # the node stream's per atom (contraction, expansion, center MLP)
+    dense = A * M * (8 * D * D + 6 * D * F)
+    attention = 4 * A * H * M * M * (D // H)
+    center = 2 * A * (2 * N * D + 6 * N * N)
+    n_weights = sum(x.numel() for x in flat)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        s_ = torch.tensor([], dtype=dtype).element_size()
+        act = A * M * D * s_ + A * N * s_  # one (edges, node) pair
+        for name, nbytes, flops in (
+            ("gnn_block_fwd", 2 * act + A * M * 4 + n_weights * s_,
+             L * (dense + attention + center)),
+            ("gnn_block_bwd", 4 * act + 2 * A * M * 4 + n_weights * s_,
+             L * (2 * dense + 3 * attention + 2 * center)),
+            ("gnn_block_bwd_dw", 4 * act + 2 * A * M * 4 + n_weights * (s_ + 4),
+             L * (3 * dense + 3 * attention + 3 * center)),
+        ):
+            entry = report.setdefault(name, {"library_ms": None})
+            record_bound(entry, tag, nbytes, flops, dtype)
+        e, n, ge, gn = (x.to(dtype) for x in (edges, node, g_edge, g_node))
+        plain_ws = (lws, cws)
+        cases = (
+            ("gnn_block_fwd",
+             lambda: gb.gnn_block_fwd_cuda(e, n, cf, flat, H, scale, L, True),
+             lambda: gb.gnn_block_math(e, n, cf, *plain_ws, H, scale, True)),
+            ("gnn_block_bwd",
+             lambda: gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, True),
+             lambda: gb.gnn_block_bwd_math(e, n, cf, *plain_ws, ge, gn, H, scale, True)),
+        )
+        for name, k_fn, p_fn in cases:
+            k_out, p_out = k_fn(), p_fn()
+            torch.cuda.synchronize()
+            err, worst = compare(k_out, p_out, dtype)
+            del k_out, p_out
+            torch.cuda.empty_cache()
+            entry = report[name]
+            entry[f"max_abs_err_{tag}"] = err
+            entry[f"bound_ratio_{tag}"] = worst
+            entry[f"ms_{tag}"] = cuda_ms(k_fn)
+            entry[f"plain_ms_{tag}"] = cuda_ms(p_fn)
+        check_dw(
+            "gnn_block_bwd_dw", tag, dtype,
+            lambda: (lambda o: (*o[:3], *o[3]))(
+                gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, True, True)),
+            lambda: (lambda o: (*o[:3], *o[3]))(
+                gb.gnn_block_bwd_math(e, n, cf, *plain_ws, ge, gn, H, scale, True, True)),
+            3, report,
+        )
+        torch.cuda.empty_cache()
+        layers = per_layer_layers(lws, cws, H, N, dtype, device)
+        fns = per_layer_fns(layers, e, n, cf, ge, gn)
+        for name, fn in zip(("gnn_block_fwd", "gnn_block_bwd", "gnn_block_bwd_dw"), fns):
+            with torch.no_grad() if name == "gnn_block_fwd" else torch.enable_grad():
+                report[name][f"per_layer_ms_{tag}"] = cuda_ms(fn)
+        del layers, fns
         torch.cuda.empty_cache()
 
 
@@ -478,9 +661,10 @@ UNFUSED = {"fused_layers": False}
 UNFUSED_ALT = {"fused_layers": False, "normalization": "LayerNorm", "activation": "SiLU",
                "transformer_type": "PostLN", "featurizer_type": "residual",
                "num_gnn_layers": 2, "num_attention_layers": 1}
-FUSED_KERNELS = ["fused_layer_fwd", "fused_layer_bwd", "permute", "permute_acc"] + [
-    f"rowblock_{d}[{s}]" for d in ("fwd", "bwd") for s in ("compress", "combination", "head")
-]
+ROWBLOCK_KERNELS = [f"rowblock_{d}[{s}]" for d in ("fwd", "bwd")
+                    for s in ("compress", "combination", "head")]
+FUSED_KERNELS = ["fused_layer_fwd", "fused_layer_bwd", "permute", "permute_acc"] + ROWBLOCK_KERNELS
+GNN_KERNELS = ["gnn_block_fwd", "gnn_block_bwd", "permute", "permute_acc"] + ROWBLOCK_KERNELS
 UNFUSED_KERNELS = ["window_attention_fwd", "window_attention_bwd", "permute", "permute_acc",
                    "rowblock_fwd[compress]", "rowblock_bwd[compress]",
                    "rowblock_fwd[head]", "rowblock_bwd[head]"]
@@ -501,10 +685,11 @@ def random_state(hypers):
     return seed_model.module.state_dict()
 
 
-def make_pet(dtype, plain, state, device, hypers=None):
+def make_pet(dtype, plain, state, device, hypers=None, fused_gnn=False):
     from metatrain_tpu_torch.models.pet import PET
 
-    model = PET(hypers or {}, energy_info(), compute_dtype=dtype, plain=plain).to(device)
+    model = PET(hypers or {}, energy_info(), compute_dtype=dtype, plain=plain,
+                fused_gnn=fused_gnn).to(device)
     model.module.load_state_dict(state)
     return model
 
@@ -516,18 +701,18 @@ def rel_errors(res, ref):
     return e_rel, f_rel
 
 
-def profile_calls(calc, system, calls=2):
-    """Device time per force call by kernel from a ``torch.profiler`` trace
-    of ``calls`` calls, the device's busy time and its idle share of the
-    host-clock time of the traced calls."""
+def profile_calls(fn, calls=2):
+    """Device time per call of ``fn`` by kernel from a ``torch.profiler``
+    trace of ``calls`` calls after a warm-up call, the device's busy time
+    and its idle share of the host-clock time of the traced calls."""
     from torch.profiler import ProfilerActivity, profile
 
-    calc.compute(system, forces=True)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
-            calc.compute(system, forces=True)
+            fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / calls * 1e3
     kernels = {}
@@ -542,19 +727,22 @@ def profile_calls(calc, system, calls=2):
             "idle_share": 1.0 - busy / wall, "kernels_ms_per_call": dict(top)}
 
 
-def check_slice(device, hypers, expected, n_cells=14, steps=3, timing=True):
-    """Serve the force call of PET with ``hypers`` (random weights); returns
-    its report, with the served batch's (A, M) under ``padded``."""
+def check_slice(device, hypers, expected, n_cells=14, steps=3, timing=True, fused_gnn=False):
+    """Serve the force call of PET with ``hypers`` (random weights; with
+    ``fused_gnn``, each GNN layer as one block); returns its report, with
+    the served batch's (A, M) under ``padded``."""
     from metatrain_tpu_torch.calculator import Calculator
     from metatrain_tpu_torch.containers import System
     from metatrain_tpu_torch.ops.kernels import _lib
 
     state = random_state(hypers)
     calcs = {
-        "kernel_bf16": Calculator(make_pet(torch.bfloat16, False, state, device, hypers)),
-        "kernel_f32": Calculator(make_pet(torch.float32, False, state, device, hypers)),
-        "plain_f32": Calculator(make_pet(torch.float32, True, state, device, hypers)),
-        "plain_bf16": Calculator(make_pet(torch.bfloat16, True, state, device, hypers)),
+        f"{path}_{tag}": Calculator(make_pet(dtype, path == "plain", state, device, hypers,
+                                             fused_gnn))
+        for path, tag, dtype in (("kernel", "bf16", torch.bfloat16),
+                                 ("kernel", "f32", torch.float32),
+                                 ("plain", "f32", torch.float32),
+                                 ("plain", "bf16", torch.bfloat16))
     }
     system = bench_crystal(n_cells)
     n = len(system)
@@ -629,7 +817,8 @@ def check_slice(device, hypers, expected, n_cells=14, steps=3, timing=True):
               "atom_steps_per_s": n / (float(np.mean(ms)) * 1e-3)}
         for key, ms in samples.items()
     }
-    report["profile_kernel_bf16"] = profile_calls(calcs["kernel_bf16"], final)
+    report["profile_kernel_bf16"] = profile_calls(
+        lambda: calcs["kernel_bf16"].compute(final, forces=True))
     return report
 
 
@@ -739,7 +928,7 @@ def check_training(device, report, workdir):
     return model
 
 
-def training_setup(path, state, plain, device, samples, hypers=None):
+def training_setup(path, state, plain, device, samples, hypers=None, fused_gnn=False):
     """A PET in float32 (kernel or plain path) with ``state``, its
     parameters, loss function and one collated batch of ``samples``."""
     from metatrain_tpu_torch.data.collate import CollateFn
@@ -751,7 +940,8 @@ def training_setup(path, state, plain, device, samples, hypers=None):
 
     dataset, infos = get_dataset(expand_dataset_config(dataset_section(path)))
     info = get_dataset_info([dataset], infos, "angstrom")
-    model = PET(hypers or {}, info, compute_dtype=torch.float32, plain=plain).to(device)
+    model = PET(hypers or {}, info, compute_dtype=torch.float32, plain=plain,
+                fused_gnn=fused_gnn).to(device)
     model.module.load_state_dict(state)
     batch = CollateFn(model.cutoff, infos, dtype=torch.float32, device=device)(
         [dataset[i] for i in samples])
@@ -766,7 +956,8 @@ def training_setup(path, state, plain, device, samples, hypers=None):
     return model, params, loss_and_errors, batch, n_atoms
 
 
-def check_training_parity(path, state, device, hypers=None, expected=(), replayed=()):
+def check_training_parity(path, state, device, hypers=None, expected=(), replayed=(),
+                          fused_gnn=False):
     """One step's loss and gradients: float32 kernel path vs plain path.
     Every counter starts at 0 before the kernel path's step; the kernels
     ``expected`` must launch in it and the ops ``replayed`` must run their
@@ -776,7 +967,7 @@ def check_training_parity(path, state, device, hypers=None, expected=(), replaye
     results, report = {}, {}
     for key, plain in (("kernel", False), ("plain", True)):
         model, params, loss_fn, batch, _ = training_setup(path, state, plain, device, [0, 1],
-                                                          hypers)
+                                                          hypers, fused_gnn)
         if not plain:
             _lib.LAUNCHES.clear()
             _lib.REPLAYS.clear()
@@ -813,20 +1004,23 @@ def check_training_parity(path, state, device, hypers=None, expected=(), replaye
 
 
 def time_training(workdir, state, device, report, steps=3):
-    """ms per training step, atom-steps/s and peak device memory."""
+    """ms per training step, atom-steps/s and peak device memory; a
+    profile of one step of each kernel path on 2 x 2,048 atoms."""
     from metatrain_tpu_torch.engine.trainer import make_optimizer, train_step
 
     bench_path = workdir / "bench_lj.xyz"
     write_labelled(bench_path, [bench_crystal()])
     timing = {}
-    for key, path, plain, samples in (
-        ("kernel_f32_2x2048", workdir / "cu_lj.xyz", False, [0, 1]),
-        ("plain_f32_2x2048", workdir / "cu_lj.xyz", True, [0, 1]),
-        ("kernel_f32_10976", bench_path, False, [0]),
+    for key, path, plain, samples, fused_gnn in (
+        ("kernel_f32_2x2048", workdir / "cu_lj.xyz", False, [0, 1], False),
+        ("plain_f32_2x2048", workdir / "cu_lj.xyz", True, [0, 1], False),
+        ("kernel_gnn_block_f32_2x2048", workdir / "cu_lj.xyz", False, [0, 1], True),
+        ("kernel_f32_10976", bench_path, False, [0], False),
     ):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
-        model, params, loss_fn, batch, n_atoms = training_setup(path, state, plain, device, samples)
+        model, params, loss_fn, batch, n_atoms = training_setup(path, state, plain, device, samples,
+                                                                fused_gnn=fused_gnn)
         optimizer = make_optimizer(params, None)
         train_step(params, optimizer, loss_fn, batch, 1e-5, 1.0)  # warm-up
         torch.cuda.synchronize()
@@ -840,6 +1034,9 @@ def time_training(workdir, state, device, report, steps=3):
         timing[key] = {"ms_per_step": ms, "atoms": n_atoms,
                        "atom_steps_per_s": n_atoms / (ms * 1e-3),
                        "max_memory_allocated_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+        if key.startswith("kernel") and key.endswith("2x2048"):
+            timing[key]["profile"] = profile_calls(
+                lambda: train_step(params, optimizer, loss_fn, batch, 1e-5, 1.0), calls=1)
         del model, params, optimizer, batch, loss
     torch.cuda.empty_cache()
     report["training_timing"] = timing
@@ -866,8 +1063,29 @@ SOURCES = {
                              "metatrain_tpu/ops/pallas/attention.py:412"),
     "window_attention_bwd": ("metatrain_tpu_torch/csrc/window_attention_bwd.cu",
                              "metatrain_tpu/ops/pallas/attention.py:500"),
+    "gnn_block_fwd": ("metatrain_tpu_torch/csrc/gnn_block_fwd.cu",
+                      "metatrain_tpu/ops/pallas/fused_layer.py:1759"),
+    "gnn_block_bwd": ("metatrain_tpu_torch/csrc/gnn_block_bwd.cu",
+                      "metatrain_tpu/ops/pallas/fused_layer.py:1805"),
+    "gnn_block_bwd_dw": ("metatrain_tpu_torch/csrc/gnn_block_bwd.cu",
+                         "metatrain_tpu/ops/pallas/fused_layer.py:1805 (weight_grads=True)"),
 }
 UNFUSED_PATH = ("permute", "permute_acc", "window_attention_fwd", "window_attention_bwd")
+N_ENTRIES = 19
+
+
+def launch_count(report, name):
+    """Launches of ``name`` in the run of its path: the block's force calls
+    and training step for the GNN block's kernels, the training run for the
+    other weight-gradient kernels, the unfused force calls for the kernels
+    that path added, the fused force calls for the rest."""
+    if name.startswith("gnn_block"):
+        source = report["training_parity_gnn" if "_dw" in name else "slice_gnn"]["launches"]
+    elif "_dw" in name:
+        source = report["train_launches"]
+    else:
+        source = report["unfused" if name in UNFUSED_PATH else "slice"]["launches"]
+    return source[name]
 
 
 def check_neighbor_backend(report):
@@ -911,6 +1129,20 @@ def main() -> int:
     print("force call profile:", json.dumps(report["slice"]["profile_kernel_bf16"]), flush=True)
     torch.cuda.empty_cache()
 
+    # each GNN layer as one block: the block's kernels replace K1 and K2,
+    # two launches each per force call (one per GNN layer)
+    report["slice_gnn"] = check_slice(device, {}, GNN_KERNELS, fused_gnn=True)
+    gnn = report["slice_gnn"]
+    per_call = gnn["launches_per_call"]
+    if any(k in gnn["launches"] for k in ("fused_layer_fwd", "fused_layer_bwd")) or not (
+            per_call["gnn_block_fwd"] == per_call["gnn_block_bwd"] == 2):
+        fail(f"the block's force call launched {gnn['launches']}")
+    print("GNN block slice:", json.dumps({k: gnn[k] for k in ("padded", "launches", "parity")}),
+          flush=True)
+    print(f"GNN block force call ({card}):", json.dumps(gnn["timing"]), flush=True)
+    print("GNN block force call profile:", json.dumps(gnn["profile_kernel_bf16"]), flush=True)
+    torch.cuda.empty_cache()
+
     for key, hypers, kwargs in (("unfused", UNFUSED, {}),
                                 ("unfused_alt", UNFUSED_ALT, {"steps": 2, "timing": False})):
         report[key] = check_slice(device, hypers, UNFUSED_KERNELS, **kwargs)
@@ -937,6 +1169,11 @@ def main() -> int:
             replayed=("window_attention",))
         print("training parity, unfused:", json.dumps(report["training_parity_unfused"]),
               flush=True)
+        report["training_parity_gnn"] = check_training_parity(
+            workdir / "cu_lj.xyz", state, device, expected=("gnn_block_fwd", "gnn_block_bwd_dw"),
+            replayed=("gnn_block",), fused_gnn=True)
+        print("training parity, GNN block:", json.dumps(report["training_parity_gnn"]),
+              flush=True)
         torch.cuda.empty_cache()
         time_training(workdir, state, device, report)
         print(f"training step ({card}):", json.dumps(report["training_timing"]), flush=True)
@@ -946,6 +1183,11 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     kernels: dict = {}
     check_fused_layer(A, M, D, H, F, gen, device, kernels)
+    check_gnn_block(A, M, D, H, F, hp["d_node"], gen, device, kernels,
+                    hp["num_attention_layers"])
+    report["gnn_block_variants"] = check_gnn_block_variants(M, D, H, F, hp["d_node"], gen, device)
+    print("GNN block variants (max abs error, bound ratio):",
+          json.dumps(report["gnn_block_variants"]), flush=True)
     check_rowblock(A * M, D, gen, device, kernels)
     check_permute(A_u * M_u, D, gen, device, kernels)
     check_attention(A_u, M_u + 1, D, H, gen, device, kernels)
@@ -965,11 +1207,9 @@ def main() -> int:
         source, replaces = SOURCES[name.split("[")[0]]
         trains = "_dw" in name
         lead, other = ("f32", "bf16") if trains else ("bf16", "f32")
-        path = ("train_launches" if trains else
-                "unfused" if name in UNFUSED_PATH else "slice")
-        launches = (report[path] if trains else report[path]["launches"])[name]
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-               "launches": launches, "dtype": "float32" if trains else "bfloat16"}
+               "launches": launch_count(report, name),
+               "dtype": "float32" if trains else "bfloat16"}
         for tag, suffix in ((lead, ""), (other, f"_{other}")):
             out[f"max_abs_err{suffix}"] = entry[f"max_abs_err_{tag}"]
             out[f"ms{suffix}"] = entry[f"ms_{tag}"]
@@ -977,9 +1217,11 @@ def main() -> int:
             out[f"bound_ms{suffix}"] = entry[f"bound_ms_{tag}"]
             out[f"bound_by{suffix}"] = entry[f"bound_by_{tag}"]
             out[f"library_ms{suffix}"] = entry.get(f"library_ms_{tag}", entry.get("library_ms"))
+            if f"per_layer_ms_{tag}" in entry:
+                out[f"per_layer_ms{suffix}"] = entry[f"per_layer_ms_{tag}"]
         entries.append(out)
-    if len(entries) != 16:
-        fail(f"expected 16 kernel entries, got {sorted(kernels)}")
+    if len(entries) != N_ENTRIES:
+        fail(f"expected {N_ENTRIES} kernel entries, got {sorted(kernels)}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

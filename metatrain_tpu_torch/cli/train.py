@@ -50,9 +50,11 @@ def train_model(
     output_dir: str = ".",
     checkpoint_dir: str = ".",
     restart_from: Optional[str] = None,
+    fused_gnn: bool = False,
 ):
     """Train from an options dict; returns ``(model, trainer)``. The final
-    checkpoint is ``checkpoint_dir/model.ckpt``."""
+    checkpoint is ``checkpoint_dir/model.ckpt``. ``fused_gnn`` runs each GNN
+    layer's fused layers as one GNN block (``PET(fused_gnn=...)``)."""
     if restart_from is not None:
         raise NotImplementedError("restarting a training run is not ported yet")
     options = validate_base_options(options)
@@ -117,7 +119,8 @@ def train_model(
     checkpoint_dir.mkdir(parents=True, exist_ok=True)
     save_expanded_options(options, checkpoint_dir / "options_restart.yaml")
 
-    model = architecture.__model__(hypers["model"], dataset_info, compute_dtype=compute_dtype)
+    model = architecture.__model__(hypers["model"], dataset_info, compute_dtype=compute_dtype,
+                                   fused_gnn=fused_gnn)
     model.to(device)
     trainer = architecture.__trainer__(hypers["training"])
     real_vals = [ds for ds in val_datasets if len(ds)]

@@ -32,6 +32,10 @@ namespace mtt {
 
 constexpr int kThreads = 512;
 
+// Row stride of the q|k|v buffer of the fused layer kernels (3D + 4 floats:
+// 16-byte aligned rows that do not all start in the same bank).
+__host__ __device__ inline int qkv_stride(int D) { return 3 * D + 4; }
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 

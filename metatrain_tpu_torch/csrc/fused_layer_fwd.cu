@@ -7,6 +7,8 @@
 // with multiplicative cutoff weights (cf * e^s / sum cf * e^s), output
 // projection and residual, RMSNorm, SwiGLU and residual; slot M-1 of the
 // edge output is zeroed and its attention output is the center output.
+// The per-atom body is layer_fwd.cuh's layer_fwd_atom, which the GNN block
+// (gnn_block_fwd.cu, gnn_block_bwd.cu) runs too.
 //
 // What bounds it on the H100: the layer does ~23 MFLOP per atom at M=64
 // (the QKV, out-projection and SwiGLU products are ~90 % of it) on 64 x 128
@@ -22,51 +24,30 @@
 // to hide the latency of the L2 weight loads. Next steps: wgmma with weight
 // tiles staged by TMA, and several atoms per block to share each tile.
 
-#include "common.cuh"
+#include "layer_fwd.cuh"
 
 namespace mtt {
 namespace {
 
 template <typename T>
 struct LayerArgs {
-    const T* edges;      // (A, M, D)
-    const T* center;     // (A, D)
-    const float* cf;     // (A, M), cf[:, M-1] == 1
-    const T* norm_attn;  // (D,)
-    const T* w_qkv;      // (D, 3D)
-    const T* b_qkv;      // (3D,)
-    const T* w_out;      // (D, D)
-    const T* b_out;      // (D,)
-    const T* norm_mlp;   // (D,)
-    const T* w_in;       // (D, 2F)
-    const T* b_in;       // (2F,)
-    const T* w_ffn_out;  // (F, D)
-    const T* b_ffn_out;  // (D,)
-    T* edge_out;         // (A, M, D)
-    T* center_out;       // (A, D)
+    const T* edges;   // (A, M, D)
+    const T* center;  // (A, D)
+    const float* cf;  // (A, M), cf[:, M-1] == 1
+    LayerW<T> w;
+    T* edge_out;      // (A, M, D)
+    T* center_out;    // (A, D)
     int M, D, H, F;
     float scale, eps;
 };
 
-__host__ __device__ inline int qkv_stride(int D) { return 3 * D + 4; }
-
-__host__ __device__ inline size_t smem_floats(int M, int D, int F) {
-    const int LQ = qkv_stride(D);
-    return 2 * (size_t)M * D + (size_t)M * (LQ > F ? LQ : F) + (size_t)M * (M + 1) + M;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads) fused_layer_fwd_kernel(LayerArgs<T> p) {
     extern __shared__ __align__(16) float smem[];
-    const int M = p.M, D = p.D, F = p.F, hd = D / p.H;
-    const int LQ = qkv_stride(D), LP = M + 1;
+    const int M = p.M, D = p.D;
     const long long a = blockIdx.x;
-    float* X = smem;                                  // tokens, then res
-    float* N = X + M * D;                             // normed, attn, h_norm
-    float* Q = N + M * D;                             // q|k|v, then ffn_h
-    float* P = Q + M * (LQ > F ? LQ : F);             // one head's scores (M x LP)
-    float* CF = P + M * LP;
-
+    float* X = smem;
+    float* CF = layer_fwd_cf(smem, M, D, p.F);
     const T* e = p.edges + a * M * D;
     for (int i = threadIdx.x; i < M * D; i += blockDim.x) {
         const int m = i / D;
@@ -74,53 +55,13 @@ __global__ void __launch_bounds__(kThreads) fused_layer_fwd_kernel(LayerArgs<T> 
     }
     for (int i = threadIdx.x; i < M; i += blockDim.x) CF[i] = p.cf[a * M + i];
     __syncthreads();
-
-    rmsnorm_rows<T>(X, N, nullptr, M, D, p.norm_attn, p.eps);
-    __syncthreads();
-    block_mm<16>(N, D, M, D, p.w_qkv, 3 * D, 3 * D, [&](int m, int n, float acc) {
-        Q[m * LQ + n] = rnd<T>(acc + to_f(p.b_qkv[n]));
-    });
-    __syncthreads();
-
-    for (int h = 0; h < p.H; ++h) {
-        smem_abt(Q + h * hd, LQ, Q + D + h * hd, LQ, M, M, hd,
-                 [&](int q, int k, float s) { P[q * LP + k] = s * p.scale; });
-        __syncthreads();
-        cf_softmax_rows(P, LP, CF, M);
-        __syncthreads();
-        smem_awb(P, LP, CF, Q + 2 * D + h * hd, LQ, M, hd, M,
-                 [&](int q, int d, float o) { N[q * D + h * hd + d] = rnd<T>(o); });
-        __syncthreads();
-    }
-
-    T* center_out = p.center_out + a * D;
-    block_mm<16>(N, D, M, D, p.w_out, D, D, [&](int m, int n, float acc) {
-        const float o = rnd<T>(acc + to_f(p.b_out[n]));
-        if (m == M - 1) center_out[n] = from_f<T>(o);
-        X[m * D + n] = rnd<T>(X[m * D + n] + o);
-    });
-    __syncthreads();
-
-    rmsnorm_rows<T>(X, N, nullptr, M, D, p.norm_mlp, p.eps);
-    __syncthreads();
-    // value = vg[:, :F], gate = vg[:, F:]; vg itself stays in float
-    block_mm_glu<16>(N, D, M, D, p.w_in, F, [&](int m, int n, float v, float g) {
-        v += to_f(p.b_in[n]);
-        g += to_f(p.b_in[F + n]);
-        Q[m * F + n] = rnd<T>(v * sigmoidf_(g));
-    });
-    __syncthreads();
-
-    T* out = p.edge_out + a * M * D;
-    block_mm<16>(Q, F, M, F, p.w_ffn_out, D, D, [&](int m, int n, float acc) {
-        const float o = rnd<T>(acc + to_f(p.b_ffn_out[n]));
-        out[m * D + n] = m == M - 1 ? from_f<T>(0.f) : from_f<T>(X[m * D + n] + o);
-    });
+    layer_fwd_atom<T>(smem, p.w, M, D, p.H, p.F, p.scale, p.eps, p.center_out + a * D, nullptr,
+                      p.edge_out + a * M * D, false);
 }
 
 template <typename T>
 int launch(const LayerArgs<T>& p, long long A, cudaStream_t stream) {
-    const size_t bytes = smem_floats(p.M, p.D, p.F) * sizeof(float);
+    const size_t bytes = layer_fwd_floats(p.M, p.D, p.F) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
         fused_layer_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
@@ -132,7 +73,7 @@ int launch(const LayerArgs<T>& p, long long A, cudaStream_t stream) {
 }  // namespace mtt
 
 extern "C" size_t mtt_fused_layer_fwd_smem(int M, int D, int F) {
-    return mtt::smem_floats(M, D, F) * sizeof(float);
+    return mtt::layer_fwd_floats(M, D, F) * sizeof(float);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Returns the CUDA error code (0 = ok).
@@ -144,10 +85,12 @@ extern "C" int mtt_fused_layer_fwd(
     void* edge_out, void* center_out,
     long long A, int M, int D, int H, int F, float scale, float eps, void* stream) {
 #define MTT_ARGS(T)                                                                   \
-    mtt::LayerArgs<T>{(const T*)edges, (const T*)center, cf, (const T*)norm_attn,     \
-                      (const T*)w_qkv, (const T*)b_qkv, (const T*)w_out,              \
-                      (const T*)b_out, (const T*)norm_mlp, (const T*)w_in,            \
-                      (const T*)b_in, (const T*)w_ffn_out, (const T*)b_ffn_out,       \
+    mtt::LayerArgs<T>{(const T*)edges, (const T*)center, cf,                          \
+                      mtt::LayerW<T>{(const T*)norm_attn, (const T*)w_qkv,            \
+                                     (const T*)b_qkv, (const T*)w_out,                \
+                                     (const T*)b_out, (const T*)norm_mlp,             \
+                                     (const T*)w_in, (const T*)b_in,                  \
+                                     (const T*)w_ffn_out, (const T*)b_ffn_out},       \
                       (T*)edge_out, (T*)center_out, M, D, H, F, scale, eps}
     if (A == 0) return 0;
     if (dtype == 0) return mtt::launch(MTT_ARGS(float), A, (cudaStream_t)stream);

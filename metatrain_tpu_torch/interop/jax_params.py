@@ -88,9 +88,10 @@ def state_dict_to_flax(module: nn.Module) -> Dict[str, Any]:
 
 
 def pet_from_checkpoint(checkpoint, compute_dtype=torch.float32,
-                        device="cuda", plain: bool = False):
+                        device="cuda", plain: bool = False, fused_gnn: bool = False):
     """The port's PET from a JAX PET checkpoint (dict or path) of version 1,
-    2 or 3, on ``device`` (the card unless the caller asks otherwise)."""
+    2 or 3, on ``device`` (the card unless the caller asks otherwise);
+    ``plain`` and ``fused_gnn`` as for ``PET``."""
     from ..data.target_info import DatasetInfo
     from ..models.pet import PET
 
@@ -100,7 +101,7 @@ def pet_from_checkpoint(checkpoint, compute_dtype=torch.float32,
         raise ValueError(f"not a PET checkpoint: {checkpoint.get('architecture_name')!r}")
     checkpoint = upgrade_chain(PET, dict(checkpoint))
     model = PET(checkpoint["hypers"], DatasetInfo.from_dict(checkpoint["dataset_info"]),
-                compute_dtype=compute_dtype, plain=plain)
+                compute_dtype=compute_dtype, plain=plain, fused_gnn=fused_gnn)
     model.module.load_state_dict(flax_to_state_dict(checkpoint["params"]))
     model.composition.load_checkpoint_weights(checkpoint["composition"])
     model.scaler.load_checkpoint_scales(checkpoint["scaler"])

@@ -56,13 +56,17 @@ class PET(AtomisticNNModel):
         float32, or float64 for float64 compute).
     :param plain: run the plain PyTorch versions of the kernels (the
         reference the kernel path is compared against).
+    :param fused_gnn: run the fused layers of each GNN layer, and the node
+        stream between them, as one GNN block (the JAX package's
+        ``MTT_FUSED_GNN=1``; not a hyper, not saved). Unfused
+        configurations ignore it.
     """
 
     ARCHITECTURE_NAME = "pet"
     __checkpoint_version__ = 3
 
     def __init__(self, hypers: Dict[str, Any], dataset_info: DatasetInfo,
-                 compute_dtype=torch.float32, plain: bool = False):
+                 compute_dtype=torch.float32, plain: bool = False, fused_gnn: bool = False):
         full = copy.deepcopy(DEFAULT_MODEL_HYPERS)
         full.update(hypers or {})
         super().__init__(full, dataset_info, compute_dtype)
@@ -75,7 +79,7 @@ class PET(AtomisticNNModel):
         self.cutoff_width = float(hp["cutoff_width"])
         self.cutoff_function = hp["cutoff_function"].lower()
         self.module = PETModule(hp, len(self.atomic_types), self.output_shapes,
-                                compute_dtype, plain)
+                                compute_dtype, plain, fused_gnn)
         if compute_dtype == torch.float64:
             self.double()  # float64 runs keep float64 weights, as JAX's x64 mode
 

@@ -3,7 +3,10 @@
 Counterpart of ``metatrain_tpu/models/pet/modules.py``:
 
 - the fused layer path (``FusedTransformerLayer``, PreLN/RMSNorm/SwiGLU,
-  the center token in slot M-1, K1/K2 on the card);
+  the center token in slot M-1, K1/K2 on the card), and with
+  ``fused_gnn=True`` all the fused layers of a GNN layer and the node
+  stream between them as one block (``fused_gnn_block``, the GNN block
+  kernels on the card; the same parameters);
 - the unfused layer path (``TransformerLayer``: PreLN or PostLN, RMSNorm
   or LayerNorm, SwiGLU or SiLU, the center token first in a window of
   M + 1 tokens, the window attention kernels on the card), taken for
@@ -20,10 +23,10 @@ Parameters stay float32; each module computes in ``dtype`` (float32,
 bfloat16 or float64), casting weights at use as flax does.
 
 ``plain=True`` runs the plain PyTorch versions of the kernels under
-autograd (``layer_math``, the stage math, ``attention_math`` and the
-index_select permute): the reference that the tests and ``chip_smoke.py``
-compare the kernel path against. The default runs the kernels'
-``autograd.Function``s.
+autograd (``layer_math`` or ``gnn_block_math``, the stage math,
+``attention_math`` and the index_select permute): the reference that the
+tests and ``chip_smoke.py`` compare the kernel path against. The default
+runs the kernels' ``autograd.Function``s.
 """
 
 from __future__ import annotations
@@ -42,6 +45,12 @@ from ...ops.kernels.fused_layer import (
     fused_transformer_layer,
     layer_math,
     rmsnorm_eps,
+)
+from ...ops.kernels.gnn_block import (
+    CenterWeights,
+    flatten_gnn_weights,
+    fused_gnn_block,
+    gnn_block_math,
 )
 from ...ops.kernels.permute import permute_math, reverse_pair
 from ...ops.kernels.rowblock import rowblock
@@ -188,6 +197,21 @@ class FusedTransformerLayer(nn.Module):
             self.norm_center_features = RMSNorm(d_node)
             self.center_mlp = FeedForward(d_node, 2 * d_node)
 
+    def gnn_weights(self):
+        """``(LayerWeights, CenterWeights or None)``: this layer's weights
+        for the fused GNN block, in the (in, out) layout."""
+        lw = LayerWeights(*(getattr(self, f) for f in LayerWeights._fields))
+        if not self.expanded:
+            return lw, None
+        mlp = self.center_mlp
+        return lw, CenterWeights(
+            w_contr=self.center_contraction.weight.T, b_contr=self.center_contraction.bias,
+            w_exp=self.center_expansion.weight.T, b_exp=self.center_expansion.bias,
+            norm_c=self.norm_center_features.weight,
+            w_in_c=mlp.w_in.weight.T, b_in_c=mlp.w_in.bias,
+            w_out_c=mlp.w_out.weight.T, b_out_c=mlp.w_out.bias,
+        )
+
     def forward(self, node, edges, cf_tokens):
         cd = self.dtype
         center = dense(self.center_contraction, node, cd) if self.expanded else node
@@ -288,9 +312,12 @@ def run_stage(stage, inputs, weights, plain: bool):
 
 class CartesianTransformer(nn.Module):
     """One GNN layer: geometric edge tokens -> compress stage -> transformer
-    layers over each atom's neighbor window (fused or unfused)."""
+    layers over each atom's neighbor window (fused or unfused). With
+    ``fused_gnn`` the fused layers and the node stream run as one GNN block
+    (unfused configurations ignore it, as in the JAX package)."""
 
-    def __init__(self, hp: Dict[str, Any], num_species: int, is_first: bool, dtype, plain):
+    def __init__(self, hp: Dict[str, Any], num_species: int, is_first: bool, dtype, plain,
+                 fused_gnn: bool = False):
         super().__init__()
         d_pet = hp["d_pet"]
         self.dtype, self.plain, self.is_first = dtype, plain, is_first
@@ -306,6 +333,22 @@ class CartesianTransformer(nn.Module):
                 hp["attention_temperature"], dtype, plain,
             ) if self.fused else TransformerLayer(hp, dtype, plain))
         self.num_attention_layers = hp["num_attention_layers"]
+        self.fused_gnn = fused_gnn and self.fused
+
+    def gnn_block(self, node, edges, cf_tokens):
+        """Every layer of this GNN layer as one block: ``(node, edges)``."""
+        layers = [getattr(self, f"layer_{i}") for i in range(self.num_attention_layers)]
+        lws, cws = zip(*(layer.gnn_weights() for layer in layers))
+        first = layers[0]
+        args = (edges.to(self.dtype), node.to(self.dtype), cf_tokens)
+        if self.plain:
+            edges, node = gnn_block_math(*args, lws, cws, first.num_heads, first.scale,
+                                         first.expanded)
+        else:
+            edges, node = fused_gnn_block(*args, flatten_gnn_weights(lws, cws, first.expanded),
+                                          first.num_heads, first.scale, len(layers),
+                                          first.expanded)
+        return node, edges
 
     def forward(self, node, input_messages, nbr_species_index, edge_vectors,
                 edge_distances, nbr_mask, cutoff_factors):
@@ -331,6 +374,8 @@ class CartesianTransformer(nn.Module):
             # additive log-cutoff bias over [center | edges]
             attn = torch.log(torch.clamp(
                 torch.cat([torch.ones_like(cf[:, :1]), cf], dim=1), min=EPSILON_ATTN))
+        if self.fused_gnn:
+            return self.gnn_block(node, edges, attn)
         for i in range(self.num_attention_layers):
             node, edges = getattr(self, f"layer_{i}")(node, edges, attn)
         return node, edges
@@ -352,7 +397,7 @@ class PETBackbone(nn.Module):
     node features (A, d_node) and edge features (A, M, d_pet): one pair for
     the ``feedforward`` featurizer, one per GNN layer for ``residual``."""
 
-    def __init__(self, hp: Dict[str, Any], num_species: int, dtype, plain):
+    def __init__(self, hp: Dict[str, Any], num_species: int, dtype, plain, fused_gnn=False):
         super().__init__()
         d_pet, d_node = hp["d_pet"], hp["d_node"]
         self.dtype, self.plain = dtype, plain
@@ -362,7 +407,8 @@ class PETBackbone(nn.Module):
             self.add_module(f"node_embedder_{i}", nn.Embedding(num_species, d_node))
         self.edge_species_embedder = nn.Embedding(num_species, d_pet)
         for i in range(self.num_gnn):
-            self.add_module(f"gnn_layer_{i}", CartesianTransformer(hp, num_species, i == 0, dtype, plain))
+            self.add_module(f"gnn_layer_{i}", CartesianTransformer(hp, num_species, i == 0, dtype,
+                                                                   plain, fused_gnn))
             if self.feedforward:
                 self.add_module(f"combination_norm_{i}", nn.LayerNorm(2 * d_pet))
                 self.add_module(f"combination_mlp_{i}_0", nn.Linear(2 * d_pet, 2 * d_pet))
@@ -426,7 +472,8 @@ class PETModule(nn.Module):
     """
 
     def __init__(self, hp: Dict[str, Any], num_species: int,
-                 output_shapes: Dict[str, Dict[str, int]], dtype, plain: bool = False):
+                 output_shapes: Dict[str, Dict[str, int]], dtype, plain: bool = False,
+                 fused_gnn: bool = False):
         super().__init__()
         unsupported = {
             "long_range": bool(hp.get("long_range", {}).get("enable")),
@@ -440,7 +487,7 @@ class PETModule(nn.Module):
             )
         self.dtype, self.plain = dtype, plain
         self.output_shapes = output_shapes
-        self.backbone = PETBackbone(hp, num_species, dtype, plain)
+        self.backbone = PETBackbone(hp, num_species, dtype, plain, fused_gnn)
         d_head = hp["d_head"]
         readouts = 1 if hp["featurizer_type"] == "feedforward" else hp["num_gnn_layers"]
         for target, shapes in output_shapes.items():

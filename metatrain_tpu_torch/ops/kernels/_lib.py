@@ -35,6 +35,8 @@ SOURCES = (
     "permute.cu",
     "window_attention_fwd.cu",
     "window_attention_bwd.cu",
+    "gnn_block_fwd.cu",
+    "gnn_block_bwd.cu",
 )
 LIBRARY = "libmtt_kernels.so"
 MAX_SHARED_BYTES = 232448  # per block on sm_90 (227 KB)
@@ -46,6 +48,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
 _SIGNATURES = {
     "mtt_fused_layer_fwd": [_I] + [_P] * 15 + [_L, _I, _I, _I, _I, _F, _F, _P],
     "mtt_fused_layer_bwd": [_I] + [_P] * 21 + [_I, _P] + [_L, _I, _I, _I, _I, _F, _F, _P],
@@ -54,12 +57,18 @@ _SIGNATURES = {
     "mtt_permute": [_I, _P, _P, _P, _P, _L, _I, _P],
     "mtt_window_attention_fwd": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _L, _I, _I, _I, _F, _P],
     "mtt_window_attention_bwd": [_I] + [_P] * 4 + [_I] * 4 + [_P] * 5 + [_L, _I, _I, _I, _F, _P],
+    "mtt_gnn_block_fwd": [_I, _P, _P, _P, _PP, _PP, _P, _P, _L] + [_I] * 7 + [_F, _F, _P],
+    "mtt_gnn_block_bwd": [_I, _P, _P, _P, _PP, _PP, _PP] + [_P] * 7 + [_I] + [_P] * 3 + [_I, _P, _L]
+    + [_I] * 7 + [_F, _F, _P],
     "mtt_fused_layer_fwd_smem": [_I, _I, _I],
     "mtt_fused_layer_bwd_smem": [_I, _I, _I, _I, _I],
     "mtt_rowblock_fwd_smem": [_I, _I],
     "mtt_rowblock_bwd_smem": [_I, _I, _I, _I, _I],
     "mtt_window_attention_fwd_smem": [_I, _I, _I, _I],
     "mtt_window_attention_bwd_smem": [_I, _I, _I, _I],
+    "mtt_gnn_block_fwd_smem": [_I] * 4,
+    "mtt_gnn_block_bwd_smem": [_I] * 6,
+    "mtt_gnn_block_row_floats": [_I, _I],
 }
 
 
@@ -81,14 +90,15 @@ def library() -> ctypes.CDLL:
     """Build (if stale) and load the kernel library."""
     units = [CSRC / s for s in SOURCES]
     link = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
-    headers = [CSRC / "common.cuh", CSRC / "attention.cuh"]
+    headers = sorted(CSRC.glob("*.cuh"))
     path = build_library(link, units + headers, LIBRARY, timeout=900,
                          compile_command=nvcc_compile_command(), units=units)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_size_t if name.endswith("_smem") else ctypes.c_int
+        fn.restype = (ctypes.c_size_t if name.endswith("_smem") else
+                      ctypes.c_longlong if name.endswith("_floats") else ctypes.c_int)
     return lib
 
 
@@ -144,3 +154,10 @@ def dw_blocks(work_items: int, device: torch.device) -> int:
 
 def ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def pointer_array(tensors):
+    """A host array of the tensors' device pointers (an argument of type
+    ``_PP``), or ``None`` for no tensors."""
+    tensors = list(tensors)
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors)) if tensors else None

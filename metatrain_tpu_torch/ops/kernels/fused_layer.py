@@ -233,7 +233,9 @@ def layer_bwd_math(
 # ---------------------------------------------------------------------------
 
 
-def _check_shapes(edges, center, cf, w: LayerWeights, num_heads):
+def check_layer_shapes(edges, cf, w: LayerWeights, num_heads):
+    """``(A, M, D, F)``; raises where the fused layer's kernel body (K1/K2,
+    and the GNN block that runs it) does not take the shapes."""
     A, M, D = edges.shape
     F = w.w_ffn_out.shape[0]
     # bfloat16 products run on the tensor cores in 16-wide tiles
@@ -244,7 +246,14 @@ def _check_shapes(edges, center, cf, w: LayerWeights, num_heads):
             f"{width} and a head width divisible by 4; got M={M}, D={D}, F={F}, "
             f"heads={num_heads}"
         )
-    if center.shape != (A, D) or cf.shape != (A, M):
+    if cf.shape != (A, M):
+        raise ValueError(f"cf {tuple(cf.shape)} does not match edges {tuple(edges.shape)}")
+    return A, M, D, F
+
+
+def _check_shapes(edges, center, cf, w: LayerWeights, num_heads):
+    A, M, D, F = check_layer_shapes(edges, cf, w, num_heads)
+    if center.shape != (A, D):
         raise ValueError(f"center {tuple(center.shape)} / cf {tuple(cf.shape)} "
                          f"do not match edges {tuple(edges.shape)}")
     return A, M, D, F
@@ -362,24 +371,40 @@ def replay_layer_bwd(inputs, w: LayerWeights, cotangents, ct_dw, num_heads, scal
     window with all-zero cutoff weights (whose 0/0 would poison the weight
     cotangents) ever exists.
     """
+    _lib.REPLAYS["fused_layer"] += 1
+    return chunked_replay(
+        lambda xs, ws, weight_grads: layer_bwd_math(xs[0], xs[1], xs[2], LayerWeights(*ws), xs[3],
+                                                    xs[4], num_heads, scale, weight_grads),
+        inputs, w, cotangents, ct_dw, chunk,
+    )
+
+
+def chunked_replay(math, inputs, weights, cotangents, ct_dw, chunk):
+    """The vector-Jacobian product of a row-independent backward ``math(xs,
+    ws, weight_grads)``, which returns one output per cotangent in
+    ``cotangents`` (rows of the atoms in ``xs``) and, with ``weight_grads``,
+    a last output of weight gradients summed over those atoms. Replayed
+    under autograd over chunks of ``chunk`` atoms of ``inputs``; returns the
+    cotangents of the inputs and of ``weights``. ``ct_dw`` (the weight
+    gradients' cotangents, ``None`` entries allowed) or ``None``: then the
+    replay skips the weight-gradient products."""
     weight_grads = ct_dw is not None and any(c is not None for c in ct_dw)
     A = inputs[0].shape[0]
-    wl = [x.detach().requires_grad_(True) for x in w]
+    wl = [x.detach().requires_grad_(True) for x in weights]
     d_rows = [[] for _ in inputs]
-    d_w = [torch.zeros_like(x) for x in w]
-    _lib.REPLAYS["fused_layer"] += 1
+    d_w = [torch.zeros_like(x) for x in weights]
+    n_rows = len(cotangents)
     for a0 in range(0, A, chunk):
         xs = [t[a0:a0 + chunk].detach().requires_grad_(True) for t in inputs]
         outs, cts = [], []
         with torch.enable_grad():
-            res = layer_bwd_math(xs[0], xs[1], xs[2], LayerWeights(*wl), xs[3], xs[4],
-                                 num_heads, scale, weight_grads)
-            for out, ct in zip(res[:3], cotangents):
+            res = math(xs, wl, weight_grads)
+            for out, ct in zip(res[:n_rows], cotangents):
                 if ct is not None:
                     outs.append(out)
                     cts.append(ct[a0:a0 + chunk].to(out.dtype))
             if weight_grads:
-                for out, ct in zip(res[3], ct_dw):
+                for out, ct in zip(res[n_rows], ct_dw):
                     if ct is not None:
                         outs.append(out)
                         cts.append(ct.to(out.dtype))
