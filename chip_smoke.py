@@ -29,6 +29,20 @@ device and exits non-zero without one. Phases (any failure propagates):
    launch; then, with the same gates and no timing, LayerNorm / SiLU /
    PostLN layers with the residual featurizer (2 GNN layers of 1
    attention layer).
+4b. W8A8 slice: the fused model of phase 3 built with
+   ``int8_static=True`` in bfloat16, ``calibrate_int8`` on the crystal's
+   served batch (the calibration carried to the W8A8 plain model with
+   ``int8_calib_from_jax(int8_calib_to_jax(...))``), then the same served
+   calls: every counter starts at 0 just before them; K1-W8A8 and K2-W8A8
+   must launch 4 times per call each (2 GNN x 2 layers) and K1/K2 never,
+   K3, K4 and both permutes as on the fused path. Gates: finite outputs;
+   W8A8 kernel path vs W8A8 plain path (both bf16) energy rel <= 1 %,
+   force rel-RMSE <= 5 %; the W8A8 forces differ from the exact bf16 kernel
+   path's (rel-RMSE > 1e-4: quantization ran). Reported, not gated: the
+   errors of the W8A8 and exact bf16 paths against the f32 exact plain
+   path, relative and in ``bench.py``'s MAE-gate terms (meV/atom, meV/A,
+   virial meV/atom); ms per call and atom-steps/s of the W8A8 and exact bf16
+   kernel paths; a torch.profiler breakdown of the W8A8 call.
 5. training: 8 frames of Cu FCC 8^3 * 4 = 2,048 atoms (a = 3.6 A, jitter
    0.1 A, ``default_rng(2)``) labelled with a Lennard-Jones energy and its
    analytic forces, written as extended xyz, then the port's
@@ -37,7 +51,10 @@ device and exits non-zero without one. Phases (any failure propagates):
    before it; K1, K3, K2-dW and K4-dW (all three stages) must launch in it
    and the second-order replays must run; every logged loss must be
    finite; ``model.ckpt`` must reload into a PET that gives the trained
-   model's energy.
+   model's energy. Then W8A8 at the trained weights: ``model.ckpt``
+   loaded by ``pet_from_checkpoint(..., int8_static=True)`` (composition
+   and scaler included), calibrated on the crystal and served once, with
+   phase 4b's gates and errors (no timing).
 6. training parity: one step's loss and parameter gradients on 2 frames,
    float32 kernel path vs float32 plain path, for the trained fused model,
    for a random unfused one (whose step must launch the attention and
@@ -67,11 +84,15 @@ device and exits non-zero without one. Phases (any failure propagates):
    two launches on the same inputs must give bitwise-equal weight
    gradients. The GNN block (2 attention layers, d_node = 256) also gets
    the time of the per-layer path it replaces (``per_layer_ms``: K1 or K2
-   per layer and the node stream in PyTorch ops).
+   per layer and the node stream in PyTorch ops). K1-W8A8 and K2-W8A8 at
+   the served shape in bfloat16 only (relative RMS <= 2e-2 per output), a
+   calibration from the plain probe on the same inputs; their bound counts
+   the int8 products at 1,979 TOPS and the bf16 ones at 989 TFLOP/s.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Details also go to
-``chiprun_out/chip_smoke.json``.
+The second-to-last line is a JSON object with one entry per kernel (21);
+the last line is ``{"ok": true, "device": {...}}``. Details also go to
+``chiprun_out/chip_smoke.json``, the compiler's ``-Xptxas -v`` output to
+``chiprun_out/chip_smoke_build.log``.
 """
 
 from __future__ import annotations
@@ -160,16 +181,18 @@ def compare_dw(kernel_dw, plain_dw, dtype):
 
 
 # H100 SXM peaks (NVIDIA data sheet): memory, and dense float32 off the
-# tensor cores and bfloat16 on them
+# tensor cores, bfloat16 and int8 on them
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_INT8_OPS_PER_S = 1979e12
 
 
-def record_bound(entry, tag, nbytes, flops, dtype):
+def record_bound(entry, tag, nbytes, flops, dtype, int8_ops=0):
     """The least time the card could take for ``nbytes`` moved and
-    ``flops`` done: the larger of the two over their peaks."""
+    ``flops`` (in ``dtype``) plus ``int8_ops`` done: the larger of the
+    bytes' time and the operations' time over their peaks."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_OPS_PER_S[dtype] * 1e3
+    t_ops = (flops / PEAK_OPS_PER_S[dtype] + int8_ops / PEAK_INT8_OPS_PER_S) * 1e3
     entry[f"bound_ms_{tag}"] = max(t_bytes, t_ops)
     entry[f"bound_by_{tag}"] = "bytes" if t_bytes >= t_ops else "operations"
 
@@ -272,6 +295,58 @@ def check_fused_layer(A, M, D, H, F, gen, device, report):
             3, report,
         )
         torch.cuda.empty_cache()
+
+
+def check_w8a8_layer(A, M, D, H, F, gen, device, report):
+    """K1-W8A8 and K2-W8A8 vs their plain versions (bfloat16, a
+    calibration from the plain probe on the same inputs), CUDA-event times
+    and bounds: int8 products at 1,979 TOPS, the bf16 ones at 989 TFLOP/s."""
+    from metatrain_tpu_torch.ops.kernels import fused_layer as fl
+
+    edges, center, cf, w, g_edge, g_center = layer_case(A, M, D, H, F, gen, device)
+    e, c, ge, gc = (x.to(torch.bfloat16) for x in (edges, center, g_edge, g_center))
+    scale = 1.0 / math.sqrt(D // H)
+    calib = fl.Int8Calib.from_stats(fl.layer_probe_stats(e, c, cf, w, H, scale).tolist(), w)
+    w8a8 = (calib, fl.quantize_layer_weights(w, calib))
+    # products per atom (2 operations per multiply-add): int8 QKV, scores,
+    # FFN-in and FFN-out; bf16 AV and out-projection; the backward
+    # recomputes all but FFN-out, then runs eight bf16 products
+    qkv, ffn_in, ffn_out = 2 * M * D * 3 * D, 2 * M * D * 2 * F, 2 * M * F * D
+    head, out = 2 * H * M * M * (D // H), 2 * M * D * D
+    # bytes: activations in bf16, cf and d_cf in f32, the bf16 weights and
+    # the int8 ones each kernel reads (K2-W8A8 does not read FFN-out's)
+    n_w, n_i8 = sum(x.numel() for x in w), 3 * D * D + 2 * D * F
+    act = A * M * D * 2 + A * D * 2
+    sizes = {
+        "fused_layer_fwd_w8a8": (2 * act + A * M * 4 + n_w * 2 + n_i8 + F * D,
+                                 A * (head + out), A * (qkv + head + ffn_in + ffn_out)),
+        "fused_layer_bwd_w8a8": (4 * act + 2 * A * M * 4 + n_w * 2 + n_i8,
+                                 A * (5 * head + 2 * out + ffn_out + ffn_in + qkv),
+                                 A * (qkv + head + ffn_in)),
+    }
+    cases = (
+        ("fused_layer_fwd_w8a8", lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale, w8a8=w8a8),
+         lambda: fl.layer_math(e, c, cf, w, H, scale, w8a8=w8a8)),
+        ("fused_layer_bwd_w8a8",
+         lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, w8a8=w8a8),
+         lambda: fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale, w8a8=w8a8)),
+    )
+    for name, k_fn, p_fn in cases:
+        k_out, p_out = k_fn(), p_fn()
+        torch.cuda.synchronize()
+        err, worst = compare(k_out, p_out, torch.bfloat16)
+        del k_out, p_out
+        torch.cuda.empty_cache()
+        entry = report.setdefault(name, {"library_ms": None})
+        nbytes, flops, int8_ops = sizes[name]
+        record_bound(entry, "bf16", nbytes, flops, torch.bfloat16, int8_ops)
+        entry["max_abs_err_bf16"] = err
+        entry["bound_ratio_bf16"] = worst
+        entry["ms_bf16"] = cuda_ms(k_fn)
+        entry["plain_ms_bf16"] = cuda_ms(p_fn)
+    report["fused_layer_bwd_w8a8"]["smem_bytes"] = \
+        fl._lib.library().mtt_fused_layer_bwd_w8a8_smem(M, D, H, F)
+    torch.cuda.empty_cache()
 
 
 def gnn_case(A, M, D, H, F, N, L, gen, device, expanded=True):
@@ -685,11 +760,11 @@ def random_state(hypers):
     return seed_model.module.state_dict()
 
 
-def make_pet(dtype, plain, state, device, hypers=None, fused_gnn=False):
+def make_pet(dtype, plain, state, device, hypers=None, fused_gnn=False, int8_static=False):
     from metatrain_tpu_torch.models.pet import PET
 
     model = PET(hypers or {}, energy_info(), compute_dtype=dtype, plain=plain,
-                fused_gnn=fused_gnn).to(device)
+                fused_gnn=fused_gnn, int8_static=int8_static).to(device)
     model.module.load_state_dict(state)
     return model
 
@@ -725,6 +800,25 @@ def profile_calls(fn, calls=2):
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:16]
     return {"wall_ms_per_call": wall, "device_busy_ms_per_call": busy,
             "idle_share": 1.0 - busy / wall, "kernels_ms_per_call": dict(top)}
+
+
+def time_force_calls(calcs, system, reps=5):
+    """ms per force call and atom-steps/s of each calculator on ``system``:
+    host clock around synchronised calls, each path warmed up; two rounds
+    in opposite orders so that no path always runs first."""
+    samples = {key: [] for key in calcs}
+    for order in (list(calcs), list(calcs)[::-1]):
+        for key in order:
+            calcs[key].compute(system, forces=True, stress=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                calcs[key].compute(system, forces=True, stress=False)
+            torch.cuda.synchronize()
+            samples[key].append((time.perf_counter() - t0) / reps * 1e3)
+    return {key: {"ms_per_force_call": float(np.mean(ms)), "rounds_ms": ms,
+                  "atom_steps_per_s": len(system) / (float(np.mean(ms)) * 1e-3)}
+            for key, ms in samples.items()}
 
 
 def check_slice(device, hypers, expected, n_cells=14, steps=3, timing=True, fused_gnn=False):
@@ -799,26 +893,106 @@ def check_slice(device, hypers, expected, n_cells=14, steps=3, timing=True, fuse
     if not timing:
         return report
 
-    # host clock around synchronised calls, each path warmed up; two
-    # rounds in opposite orders so that no path always runs first
-    samples = {key: [] for key in calcs}
-    for order in (list(calcs), list(calcs)[::-1]):
-        for key in order:
-            calcs[key].compute(final, forces=True, stress=False)
-            torch.cuda.synchronize()
-            reps = 5
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                calcs[key].compute(final, forces=True, stress=False)
-            torch.cuda.synchronize()
-            samples[key].append((time.perf_counter() - t0) / reps * 1e3)
-    report["timing"] = {
-        key: {"ms_per_force_call": float(np.mean(ms)), "rounds_ms": ms,
-              "atom_steps_per_s": n / (float(np.mean(ms)) * 1e-3)}
-        for key, ms in samples.items()
-    }
+    report["timing"] = time_force_calls(calcs, final)
     report["profile_kernel_bf16"] = profile_calls(
         lambda: calcs["kernel_bf16"].compute(final, forces=True))
+    return report
+
+
+W8A8_KERNELS = ["fused_layer_fwd_w8a8", "fused_layer_bwd_w8a8", "permute", "permute_acc"] + \
+    ROWBLOCK_KERNELS
+
+
+def mae_terms(res, ref, n):
+    """``bench.py``'s MAE-gate terms of ``res`` against ``ref`` (eV, A):
+    energy and virial meV/atom, forces meV/A, beside their relative errors."""
+    e_rel, f_rel = rel_errors(res, ref)
+    return {"energy_mev_per_atom": abs(res["energy"] - ref["energy"]) / n * 1e3,
+            "force_mev_per_ang": float(np.abs(res["forces"] - ref["forces"]).mean() * 1e3),
+            "virial_mev_per_atom": float(np.abs(res["virial"] - ref["virial"]).sum() / n * 1e3),
+            "energy_rel": e_rel, "force_rel_rmse": f_rel}
+
+
+def check_w8a8_slice(device, make, steps=3, timing=True):
+    """Serve the static W8A8 force call: ``make(dtype, plain, int8_static)``
+    builds PET (the same weights each time). The W8A8 kernel model is
+    calibrated on the served batch of the 10,976-atom crystal (its
+    calibration carried to the W8A8 plain model); every counter starts at 0
+    just before its served calls, where K1-W8A8 and K2-W8A8 must launch 4
+    times per call and K1/K2 never. Gates: finite outputs; W8A8 kernel vs
+    W8A8 plain energy rel <= 1 %, force rel-RMSE <= 5 %; the W8A8 forces
+    differ from the exact bf16 kernel path's. Reported: both bf16 paths'
+    errors against the f32 exact plain path and, with ``timing``, ms per
+    call of both and a profile of the W8A8 call."""
+    from metatrain_tpu_torch.calculator import Calculator
+    from metatrain_tpu_torch.containers import System
+    from metatrain_tpu_torch.interop.jax_params import int8_calib_from_jax, int8_calib_to_jax
+    from metatrain_tpu_torch.ops.kernels import _lib
+
+    system = bench_crystal()
+    n = len(system)
+    calcs = {"exact_kernel_bf16": Calculator(make(torch.bfloat16, False, False)),
+             "exact_plain_f32": Calculator(make(torch.float32, True, False))}
+    # the calculator's padded batch of the crystal, which calibration takes
+    calcs["exact_kernel_bf16"].compute(system, forces=True, stress=True)
+    batch = calcs["exact_kernel_bf16"]._last_batch
+    w8_kernel, w8_plain = make(torch.bfloat16, False, True), make(torch.bfloat16, True, True)
+    n_cal = w8_kernel.calibrate_int8(batch)
+    int8_calib_from_jax(w8_plain, int8_calib_to_jax(w8_kernel))
+    calcs["w8a8_kernel_bf16"], calcs["w8a8_plain_bf16"] = Calculator(w8_kernel), Calculator(w8_plain)
+    report = {"atoms": n, "layers_calibrated": n_cal,
+              "calibration": int8_calib_to_jax(w8_kernel)}
+
+    # the served force calls: every counter starts at 0 here
+    calc = calcs["w8a8_kernel_bf16"]
+    rng = np.random.default_rng(1)
+    _lib.LAUNCHES.clear()
+    positions = system.positions.copy()
+    for _ in range(steps):
+        res = calc.compute(System(positions, system.types, system.cell, system.pbc),
+                           forces=True, stress=True)
+        if not (math.isfinite(res["energy"]) and res["forces"].shape == (n, 3)
+                and all(np.isfinite(res[k]).all() for k in ("forces", "stress", "virial"))):
+            fail("W8A8 force call: non-finite output or forces of the wrong shape")
+        positions = positions + rng.normal(0.0, 0.01, positions.shape)
+    torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    per_call = {k: v / steps for k, v in launches.items()}
+    missing = [k for k in W8A8_KERNELS if launches.get(k, 0) == 0]
+    if (missing or launches.get("fused_layer_fwd", 0) or launches.get("fused_layer_bwd", 0)
+            or per_call.get("fused_layer_fwd_w8a8") != 4 or per_call.get("fused_layer_bwd_w8a8") != 4):
+        fail(f"the W8A8 force calls launched {launches} (not launched: {missing})")
+    report.update(launches=launches, launches_per_call=per_call,
+                  padded=[calc._last_batch.n_atoms_padded, calc._last_batch.max_neighbors])
+
+    final = System(positions, system.types, system.cell, system.pbc)
+    results = {k: c.compute(final, forces=True, stress=True) for k, c in calcs.items()}
+    for key, res in results.items():
+        if not (math.isfinite(res["energy"]) and np.isfinite(res["forces"]).all()
+                and np.isfinite(res["virial"]).all()):
+            fail(f"{key}: non-finite output")
+    e_kp, f_kp = rel_errors(results["w8a8_kernel_bf16"], results["w8a8_plain_bf16"])
+    _, f_q = rel_errors(results["w8a8_kernel_bf16"], results["exact_kernel_bf16"])
+    ref = results["exact_plain_f32"]
+    report["parity"] = {
+        "w8a8_kernel_vs_w8a8_plain": {"energy_rel": e_kp, "force_rel_rmse": f_kp},
+        "w8a8_kernel_vs_exact_bf16_kernel_force_rel_rmse": f_q,
+        "w8a8_kernel_vs_f32_plain": mae_terms(results["w8a8_kernel_bf16"], ref, n),
+        "w8a8_plain_vs_f32_plain": mae_terms(results["w8a8_plain_bf16"], ref, n),
+        "exact_bf16_kernel_vs_f32_plain": mae_terms(results["exact_kernel_bf16"], ref, n),
+        "energy_f32_plain": ref["energy"],
+    }
+    if not (e_kp <= 1e-2 and f_kp <= 5e-2):
+        fail(f"W8A8 kernel path vs W8A8 plain: energy {e_kp:.3g}, forces {f_kp:.3g}")
+    if not f_q > 1e-4:
+        fail(f"the W8A8 forces equal the exact bf16 path's (rel-RMSE {f_q:.3g}): no quantization")
+    if not timing:
+        return report
+
+    report["timing"] = time_force_calls(
+        {key: calcs[key] for key in ("w8a8_kernel_bf16", "exact_kernel_bf16")}, final)
+    report["profile_w8a8_kernel_bf16"] = profile_calls(
+        lambda: calcs["w8a8_kernel_bf16"].compute(final, forces=True))
     return report
 
 
@@ -1069,17 +1243,24 @@ SOURCES = {
                       "metatrain_tpu/ops/pallas/fused_layer.py:1805"),
     "gnn_block_bwd_dw": ("metatrain_tpu_torch/csrc/gnn_block_bwd.cu",
                          "metatrain_tpu/ops/pallas/fused_layer.py:1805 (weight_grads=True)"),
+    "fused_layer_fwd_w8a8": ("metatrain_tpu_torch/csrc/fused_layer_fwd.cu",
+                             "metatrain_tpu/ops/pallas/fused_layer.py:1161 (calib, W8A8)"),
+    "fused_layer_bwd_w8a8": ("metatrain_tpu_torch/csrc/fused_layer_bwd.cu",
+                             "metatrain_tpu/ops/pallas/fused_layer.py:1269 (calib, W8A8)"),
 }
 UNFUSED_PATH = ("permute", "permute_acc", "window_attention_fwd", "window_attention_bwd")
-N_ENTRIES = 19
+N_ENTRIES = 21
 
 
 def launch_count(report, name):
     """Launches of ``name`` in the run of its path: the block's force calls
     and training step for the GNN block's kernels, the training run for the
     other weight-gradient kernels, the unfused force calls for the kernels
-    that path added, the fused force calls for the rest."""
-    if name.startswith("gnn_block"):
+    that path added, the W8A8 force calls for the W8A8 kernels, the fused
+    force calls for the rest."""
+    if name.endswith("_w8a8"):
+        source = report["slice_w8a8"]["launches"]
+    elif name.startswith("gnn_block"):
         source = report["training_parity_gnn" if "_dw" in name else "slice_gnn"]["launches"]
     elif "_dw" in name:
         source = report["train_launches"]
@@ -1102,6 +1283,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from metatrain_tpu_torch._build import BUILD_DIR
+    from metatrain_tpu_torch.interop.jax_params import pet_from_checkpoint
     from metatrain_tpu_torch.models.pet import DEFAULT_MODEL_HYPERS
     from metatrain_tpu_torch.ops import neighbors
     from metatrain_tpu_torch.ops.kernels import _lib
@@ -1117,6 +1300,12 @@ def main() -> int:
     _lib.library()
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s", flush=True)
+    out_dir = Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    # the compiler's registers and spills per kernel (nvcc -Xptxas -v)
+    build_log = BUILD_DIR / f"{_lib.LIBRARY}.log"
+    if build_log.exists():
+        (out_dir / "chip_smoke_build.log").write_text(build_log.read_text())
 
     report = {"card": card, "build_s": build_s}
     neighbors.BACKENDS.clear()
@@ -1154,6 +1343,18 @@ def main() -> int:
           flush=True)
     A_u, M_u = report["unfused"]["padded"]
 
+    # the static W8A8 layers: K1-W8A8 and K2-W8A8 replace K1 and K2, four
+    # launches each per force call
+    state = random_state({})
+    report["slice_w8a8"] = check_w8a8_slice(
+        device, lambda dtype, plain, int8: make_pet(dtype, plain, state, device, int8_static=int8))
+    w8 = report["slice_w8a8"]
+    print("W8A8 slice:", json.dumps({k: w8[k] for k in ("padded", "launches", "parity")}),
+          flush=True)
+    print(f"W8A8 force call ({card}):", json.dumps(w8["timing"]), flush=True)
+    print("W8A8 force call profile:", json.dumps(w8["profile_w8a8_kernel_bf16"]), flush=True)
+    torch.cuda.empty_cache()
+
     with tempfile.TemporaryDirectory() as tmp:
         workdir = Path(tmp)
         trained = check_training(device, report, workdir)
@@ -1161,6 +1362,16 @@ def main() -> int:
         del trained
         print("training:", json.dumps({k: report[k] for k in ("train_launches", "train_replays")}
                                       | {"seconds": report["training"]["seconds"]}), flush=True)
+        # W8A8 at the trained weights: model.ckpt served as a user would
+        # (composition and scaler included), calibrated on the crystal
+        ckpt = workdir / "model.ckpt"
+        report["w8a8_trained"] = check_w8a8_slice(
+            device, lambda dtype, plain, int8: pet_from_checkpoint(
+                ckpt, compute_dtype=dtype, device=device, plain=plain, int8_static=int8),
+            steps=1, timing=False)
+        print("W8A8 at the trained weights:", json.dumps(report["w8a8_trained"]["parity"]),
+              flush=True)
+        torch.cuda.empty_cache()
         report["training_parity"] = check_training_parity(workdir / "cu_lj.xyz", state, device)
         print("training parity:", json.dumps(report["training_parity"]), flush=True)
         report["training_parity_unfused"] = check_training_parity(
@@ -1191,11 +1402,10 @@ def main() -> int:
     check_rowblock(A * M, D, gen, device, kernels)
     check_permute(A_u * M_u, D, gen, device, kernels)
     check_attention(A_u, M_u + 1, D, H, gen, device, kernels)
+    check_w8a8_layer(A, M, D, H, F, gen, device, kernels)
     report["kernels"] = kernels
     print(f"kernel vs plain ({card}):", json.dumps(kernels), flush=True)
 
-    out_dir = Path("chiprun_out")
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     # the served paths run in bfloat16 and the training path in float32:
@@ -1211,6 +1421,8 @@ def main() -> int:
                "launches": launch_count(report, name),
                "dtype": "float32" if trains else "bfloat16"}
         for tag, suffix in ((lead, ""), (other, f"_{other}")):
+            if f"ms_{tag}" not in entry:  # the W8A8 kernels run in bfloat16 only
+                continue
             out[f"max_abs_err{suffix}"] = entry[f"max_abs_err_{tag}"]
             out[f"ms{suffix}"] = entry[f"ms_{tag}"]
             out[f"plain_ms{suffix}"] = entry[f"plain_ms_{tag}"]

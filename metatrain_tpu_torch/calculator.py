@@ -11,6 +11,15 @@ the plain NEF layout:
 
 Serving is inference: the calculator freezes the model's parameters
 (``requires_grad=False``), so the kernels compute input gradients only.
+
+Serving with the static W8A8 layers (the JAX package's
+``MTT_INT8_STATIC=1``): build the model in bfloat16 with
+``int8_static=True`` (``PET(..., compute_dtype=torch.bfloat16,
+int8_static=True)`` or ``pet_from_checkpoint(..., int8_static=True)``),
+call its ``calibrate_int8`` once on a representative batch (or carry a
+JAX calibration over with ``interop.jax_params.int8_calib_from_jax``),
+then hand it to :class:`Calculator`: its force calls run K1-W8A8 and
+K2-W8A8.
 """
 
 from __future__ import annotations

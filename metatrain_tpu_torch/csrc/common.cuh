@@ -19,6 +19,10 @@
 //   rounded to the compute dtype first, so X holds bf16-exact floats and
 //   converting its fragments to bf16 is exact: the product is the FMA
 //   body's up to summation order.
+//
+// block_mm_s8 is the int8 product of the W8A8 layer (s8 tensor cores,
+// int32 sums): X is a float tile quantized as its fragments are loaded,
+// W an int8 matrix stored transposed.
 
 #pragma once
 
@@ -259,6 +263,184 @@ __device__ __forceinline__ void block_mm_glu_tc(
     }
 }
 
+// ---- int8: tensor cores (the W8A8 layer) ------------------------------
+//
+// A float x quantizes to clamp(rint(x * inv), -127, 127): x * inv rounded
+// once to float, then to the nearest integer with ties to even (as
+// jnp.round and torch.round; never roundf). The float tiles stay in shared
+// memory and are quantized as the A fragments are loaded, the way tc_tile
+// rounds to bf16. The int8 weights come transposed, (N, K), so that the
+// four consecutive k a lane needs are one 32-bit load. The int32 sums are
+// exact (|sum| <= K 127^2 < 2^24 for K <= 1040), and so is their
+// conversion to float.
+
+// The W8A8 layer's int8 weights, transposed to (out, in), and its static
+// scales: 127 / absmax of each quantized activation, and each product's
+// dequantization factor (absmax_x / 127) (absmax_w / 127), the scores' with
+// the attention scale folded in; every factor rounded once to float.
+struct LayerI8 {
+    const int8_t* w_qkv_t = nullptr;  // (3D, D)
+    const int8_t* w_in_t = nullptr;   // (2F, D): value rows, then gate rows
+    const int8_t* w_fo_t = nullptr;   // (D, F)
+    float inv_normed = 0.f, inv_q = 0.f, inv_k = 0.f, inv_hnorm = 0.f, inv_ffn = 0.f;
+    float deq_q = 0.f, deq_k = 0.f, deq_v = 0.f, deq_in = 0.f, deq_fo = 0.f, deq_scores = 0.f;
+};
+
+// The scales in the order of the wrappers' array: the five inverses
+// (normed, q, k, h_norm, ffn_h), then the six factors (q, k, v, FFN-in,
+// FFN-out, scores).
+inline LayerI8 layer_i8(const void* w_qkv_t, const void* w_in_t, const void* w_fo_t,
+                        const float* s) {
+    return LayerI8{(const int8_t*)w_qkv_t, (const int8_t*)w_in_t, (const int8_t*)w_fo_t,
+                   s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10]};
+}
+
+// x * deq + b with two roundings, as the plain version (no fused FMA)
+__device__ __forceinline__ float dequant(int acc, float deq, float b) {
+    return __fadd_rn(__fmul_rn((float)acc, deq), b);
+}
+
+__device__ __forceinline__ uint32_t quant_s8(float x, float inv) {
+    const int q = __float2int_rn(__fmul_rn(x, inv));
+    return (uint32_t)(min(127, max(-127, q)) & 0xff);
+}
+
+// four floats quantized and packed, x.x in the low byte
+__device__ __forceinline__ uint32_t quant4_s8(float4 x, float inv) {
+    return quant_s8(x.x, inv) | quant_s8(x.y, inv) << 8 | quant_s8(x.z, inv) << 16 |
+           quant_s8(x.w, inv) << 24;
+}
+
+// c += a @ b for one m16n8k32 tile: a row-major 16 x 32, b column-major
+// 32 x 8, both int8; c int32.
+__device__ __forceinline__ void mma_s8_16832(int (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a @ b for one m16n8k16 tile of int8 (a 16 x 16, b 16 x 8).
+__device__ __forceinline__ void mma_s8_16816(int (&c)[4], const uint32_t (&a)[2], uint32_t b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+        "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// acc[mt][j] = q(X[m0 + 16 mt + (0..15), :K]) @ Wt[c0 + 8 j + (0..7), :K]^T
+// for mt < mt_n <= 4, j < 2: one warp's 64 x 16 tile, k in steps of 32. In
+// the A fragment lane l holds rows l / 4 (and +8) at columns 4 (l % 4) ..
+// +3 (and +16); in the B fragment column l / 4 at rows 4 (l % 4) .. +3 (and
+// +16); the C fragment is tc_tile's.
+__device__ __forceinline__ void tc_tile_s8(
+    const float* __restrict__ X, int ldx, int m0, int mt_n, int K, float inv,
+    const int8_t* __restrict__ Wt, int c0, int (&acc)[4][2][4]) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0;
+#pragma unroll 2
+    for (int k0 = 0; k0 < K; k0 += 32) {
+        uint32_t b[2][2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+            const int8_t* w = Wt + (size_t)(c0 + 8 * j + g) * K + k0 + 4 * t;
+            b[j][0] = *reinterpret_cast<const uint32_t*>(w);
+            b[j][1] = *reinterpret_cast<const uint32_t*>(w + 16);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+            if (mt < mt_n) {
+                const float* x = X + (size_t)(m0 + 16 * mt + g) * ldx + k0 + 4 * t;
+                const uint32_t a[4] = {
+                    quant4_s8(*reinterpret_cast<const float4*>(x), inv),
+                    quant4_s8(*reinterpret_cast<const float4*>(x + 8 * ldx), inv),
+                    quant4_s8(*reinterpret_cast<const float4*>(x + 16), inv),
+                    quant4_s8(*reinterpret_cast<const float4*>(x + 8 * ldx + 16), inv),
+                };
+                mma_s8_16832(acc[mt][0], a, b[0]);
+                mma_s8_16832(acc[mt][1], a, b[1]);
+            }
+        }
+    }
+}
+
+// Y[m, n] = epi(m, n, sum_k q(X[m, k]) Wt[n, k]) (an int32 sum) for m <
+// rows, n < N, with q(x) = clamp(rint(x inv), -127, 127). rows % 16 == 0,
+// K % 32 == 0, N % 16 == 0, ldx % 4 == 0, X 16-byte aligned.
+template <typename Epi>
+__device__ __forceinline__ void block_mm_s8(
+    const float* __restrict__ X, int ldx, int rows, int K, float inv,
+    const int8_t* __restrict__ Wt, int N, Epi epi) {
+    const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+    const int col_tiles = N / 16, tiles = col_tiles * ((rows + 63) / 64);
+    for (int tile = warp; tile < tiles; tile += nw) {
+        const int n0 = (tile % col_tiles) * 16, m0 = (tile / col_tiles) * 64;
+        const int mt_n = min(4, (rows - m0) / 16);
+        int acc[4][2][4];
+        tc_tile_s8(X, ldx, m0, mt_n, K, inv, Wt, n0, acc);
+        tc_tile_store(m0, mt_n, n0, [&](int mt, int j, int i, int m, int n) {
+            epi(m, n, acc[mt][j][i]);
+        });
+    }
+}
+
+// Gated variant (Wt of shape (2N, K): value rows, then gate rows): calls
+// epi(m, n, value, gate) with both int32 sums.
+template <typename Epi>
+__device__ __forceinline__ void block_mm_glu_s8(
+    const float* __restrict__ X, int ldx, int rows, int K, float inv,
+    const int8_t* __restrict__ Wt, int N, Epi epi) {
+    const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+    const int col_tiles = N / 16, tiles = col_tiles * ((rows + 63) / 64);
+    for (int tile = warp; tile < tiles; tile += nw) {
+        const int n0 = (tile % col_tiles) * 16, m0 = (tile / col_tiles) * 64;
+        const int mt_n = min(4, (rows - m0) / 16);
+        int av[4][2][4], ag[4][2][4];
+        tc_tile_s8(X, ldx, m0, mt_n, K, inv, Wt, n0, av);
+        tc_tile_s8(X, ldx, m0, mt_n, K, inv, Wt, N + n0, ag);
+        tc_tile_store(m0, mt_n, n0, [&](int mt, int j, int i, int m, int n) {
+            epi(m, n, av[mt][j][i], ag[mt][j][i]);
+        });
+    }
+}
+
+// S[q, k] = epi(q, k, sum_{d < hd} q(Qh[q, d]) q(Kh[k, d])) for q, k < M,
+// q and k quantized by inv_q and inv_k: one head's scores (m16n8k16, one
+// warp per 16 x 8 tile). M % 16 == 0, hd % 16 == 0, ld % 4 == 0, Qh and Kh
+// 16-byte aligned.
+template <typename Epi>
+__device__ __forceinline__ void scores_s8(
+    const float* __restrict__ Qh, float inv_q, const float* __restrict__ Kh, float inv_k,
+    int ld, int M, int hd, Epi epi) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+    const int col_tiles = M / 8, tiles = (M / 16) * col_tiles;
+    for (int tile = warp; tile < tiles; tile += nw) {
+        const int m0 = (tile / col_tiles) * 16, n0 = (tile % col_tiles) * 8;
+        int c[4] = {0, 0, 0, 0};
+        for (int d0 = 0; d0 < hd; d0 += 16) {
+            const float* x = Qh + (size_t)(m0 + g) * ld + d0 + 4 * t;
+            const uint32_t a[2] = {
+                quant4_s8(*reinterpret_cast<const float4*>(x), inv_q),
+                quant4_s8(*reinterpret_cast<const float4*>(x + 8 * ld), inv_q),
+            };
+            const float* y = Kh + (size_t)(n0 + g) * ld + d0 + 4 * t;
+            mma_s8_16816(c, a, quant4_s8(*reinterpret_cast<const float4*>(y), inv_k));
+        }
+        epi(m0 + g, n0 + 2 * t, c[0]);
+        epi(m0 + g, n0 + 2 * t + 1, c[1]);
+        epi(m0 + g + 8, n0 + 2 * t, c[2]);
+        epi(m0 + g + 8, n0 + 2 * t + 1, c[3]);
+    }
+}
+
 // ---- dispatch on the storage type -------------------------------------
 
 // Y[m, n] = epi(m, n, sum_k X[m, k] W[k, n]) for m < rows, n < N.
@@ -289,9 +471,10 @@ __device__ __forceinline__ void block_mm_glu(
     }
 }
 
-// Y[m] = rnd(X[m] * rsqrt(mean(X[m]^2) + eps) * scale), one warp per row;
+// Y[m] = rnd(X[m] * rsqrt(mean(X[m]^2) + eps) * scale), one warp per row
+// (ROUND = false: the float value, which the W8A8 layer quantizes);
 // rs_out[m] (optional) receives the row's rsqrt factor.
-template <typename T>
+template <typename T, bool ROUND = true>
 __device__ __forceinline__ void rmsnorm_rows(
     const float* __restrict__ X, float* __restrict__ Y, float* rs_out,
     int rows, int D, const T* __restrict__ scale, float eps) {
@@ -303,7 +486,10 @@ __device__ __forceinline__ void rmsnorm_rows(
         s = warp_sum(s);
         const float r = rsqrtf(s / D + eps);
         if (rs_out != nullptr && lane == 0) rs_out[m] = r;
-        for (int k = lane; k < D; k += 32) Y[(size_t)m * D + k] = rnd<T>(x[k] * r * to_f(scale[k]));
+        for (int k = lane; k < D; k += 32) {
+            const float y = x[k] * r * to_f(scale[k]);
+            Y[(size_t)m * D + k] = ROUND ? rnd<T>(y) : y;
+        }
     }
 }
 
@@ -417,6 +603,38 @@ __device__ __forceinline__ void cf_softmax_rows(float* __restrict__ S, int lds, 
         z = warp_sum(z);
         const float inv = 1.f / z;
         for (int k = lane; k < M; k += 32) row[k] *= inv;
+    }
+}
+
+// The W8A8 layer's softmax rows (the JAX package's _qside_tail): cf * e is
+// rounded to the compute dtype before the AV product and the denominator.
+// With m the row max and e = exp(S[q, k] - m), S[q, k] <- w / z with w =
+// rnd<T>(cf[k] e) and z = sum_k w: the AV weights, cf included. With E,
+// also E[q, k] = e / z (row stride lds), which the straight-through
+// backward's softmax gradient takes. One warp per row.
+template <typename T>
+__device__ __forceinline__ void cf_softmax_rows_w8(float* __restrict__ S, int lds, const float* __restrict__ cf,
+                                                   int M, float* __restrict__ E) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+    for (int q = warp; q < M; q += nw) {
+        float* row = S + (size_t)q * lds;
+        float mx = -INFINITY;
+        for (int k = lane; k < M; k += 32) mx = fmaxf(mx, row[k]);
+        mx = warp_max(mx);
+        float z = 0.f;
+        for (int k = lane; k < M; k += 32) {
+            const float e = expf(row[k] - mx);
+            const float w = rnd<T>(cf[k] * e);
+            row[k] = w;
+            if (E != nullptr) E[(size_t)q * lds + k] = e;
+            z += w;
+        }
+        z = warp_sum(z);
+        const float inv = 1.f / z;
+        for (int k = lane; k < M; k += 32) {
+            row[k] *= inv;
+            if (E != nullptr) E[(size_t)q * lds + k] *= inv;
+        }
     }
 }
 

@@ -47,6 +47,13 @@
 // tokens are recomputed at the end into the free scratch. The products
 // run on FMA register tiles in both dtypes; the partials' traffic
 // (2 x 661 KB per atom, mostly L2) is the price of determinism here.
+//
+// K2-W8A8 (mtt_fused_layer_bwd_w8a8, bfloat16 only) is K2 with the body's
+// W8 flag: the TPU kernel's `_bwd_kernel` with `calib`, input gradients by
+// straight-through estimation. Its recompute runs the W8A8 forward's int8
+// products (QKV, scores per head, FFN-in); the gradient products are K2's.
+// The AV weights rnd(cf e) / z and the softmax gradient's e / z differ in
+// the W8A8 layer, so one more M x (M + 1) buffer: ~224 KB at M=64.
 
 #include "layer_bwd.cuh"
 
@@ -68,6 +75,7 @@ struct LayerBwdArgs {
     long long A;
     int M, D, H, F;
     float scale, eps;
+    LayerI8 s8;            // K2-W8A8: the int8 weights and scales
 };
 
 template <typename T>
@@ -78,15 +86,15 @@ __device__ AtomIO<T> atom_io(const LayerBwdArgs<T>& p, long long a) {
                      p.d_cf + a * p.M, false};
 }
 
-// K2: one block per atom. K2-dW: a fixed grid, block b walks atoms
-// [b A / grid, (b + 1) A / grid) and sums their weight gradients into
-// partial b.
-template <typename T, bool DW>
+// K2 and K2-W8A8: one block per atom. K2-dW: a fixed grid, block b walks
+// atoms [b A / grid, (b + 1) A / grid) and sums their weight gradients
+// into partial b.
+template <typename T, bool DW, bool W8 = false>
 __global__ void __launch_bounds__(kThreads) fused_layer_bwd_kernel(LayerBwdArgs<T> p) {
     extern __shared__ __align__(16) float smem[];
     if constexpr (!DW) {
-        layer_bwd_atom<T, false>(p.w, atom_io(p, blockIdx.x), p.M, p.D, p.H, p.F, p.scale, p.eps,
-                                 smem, nullptr);
+        layer_bwd_atom<T, false, W8>(p.w, atom_io(p, blockIdx.x), p.M, p.D, p.H, p.F, p.scale,
+                                     p.eps, smem, nullptr, p.s8);
     } else {
         const long long total = DwLayout(p.D, p.F).total;
         float* P = p.partials + blockIdx.x * total;
@@ -100,13 +108,13 @@ __global__ void __launch_bounds__(kThreads) fused_layer_bwd_kernel(LayerBwdArgs<
     }
 }
 
-template <typename T, bool DW>
+template <typename T, bool DW, bool W8 = false>
 int launch(const LayerBwdArgs<T>& p, unsigned grid, cudaStream_t stream) {
-    const size_t bytes = layer_bwd_floats(p.M, p.D, p.H, p.F, DW) * sizeof(float);
+    const size_t bytes = layer_bwd_floats(p.M, p.D, p.H, p.F, DW, W8) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
-        fused_layer_bwd_kernel<T, DW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        fused_layer_bwd_kernel<T, DW, W8>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    fused_layer_bwd_kernel<T, DW><<<grid, kThreads, bytes, stream>>>(p);
+    fused_layer_bwd_kernel<T, DW, W8><<<grid, kThreads, bytes, stream>>>(p);
     return (int)cudaGetLastError();
 }
 
@@ -153,4 +161,35 @@ extern "C" int mtt_fused_layer_bwd(
     if (dtype == 0) return mtt::dispatch(MTT_ARGS(float), dw_blocks, dw, (cudaStream_t)stream);
     return mtt::dispatch(MTT_ARGS(__nv_bfloat16), dw_blocks, dw, (cudaStream_t)stream);
 #undef MTT_ARGS
+}
+
+extern "C" size_t mtt_fused_layer_bwd_w8a8_smem(int M, int D, int H, int F) {
+    return mtt::layer_bwd_floats(M, D, H, F, false, true) * sizeof(float);
+}
+
+// K2-W8A8, bfloat16 only: K2's arguments (no weight gradients), the int8
+// copies of w_qkv and w_in transposed to (out, in), and the 11 static scales
+// in LayerI8's order (the recompute's scores take the last, with the
+// attention scale folded in; the gradient products take scale).
+extern "C" int mtt_fused_layer_bwd_w8a8(
+    const void* edges, const void* center, const float* cf,
+    const void* norm_attn, const void* w_qkv, const void* b_qkv,
+    const void* w_out, const void* b_out, const void* norm_mlp,
+    const void* w_in, const void* b_in,
+    const void* w_qkv_t, const void* w_out_t, const void* w_in_t, const void* w_ffn_out_t,
+    const void* w_qkv_i8_t, const void* w_in_i8_t, const float* scales,
+    const void* g_edge, const void* g_center,
+    void* d_edges, void* d_center, float* d_cf,
+    long long A, int M, int D, int H, int F, float scale, float eps, void* stream) {
+    using T = __nv_bfloat16;
+    const mtt::LayerBwdArgs<T> p{
+        (const T*)edges, (const T*)center, cf,
+        mtt::LayerBwdW<T>{(const T*)norm_attn, (const T*)w_qkv, (const T*)b_qkv, (const T*)w_out,
+                          (const T*)b_out, (const T*)norm_mlp, (const T*)w_in, (const T*)b_in,
+                          (const T*)w_qkv_t, (const T*)w_out_t, (const T*)w_in_t,
+                          (const T*)w_ffn_out_t},
+        (const T*)g_edge, (const T*)g_center, (T*)d_edges, (T*)d_center, d_cf, nullptr, A, M, D, H,
+        F, scale, eps, mtt::layer_i8(w_qkv_i8_t, w_in_i8_t, nullptr, scales)};
+    if (A == 0) return 0;
+    return mtt::launch<T, false, true>(p, (unsigned)A, (cudaStream_t)stream);
 }

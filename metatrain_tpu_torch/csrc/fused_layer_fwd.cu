@@ -23,6 +23,18 @@
 // register tiles (common.cuh smem_abt / smem_awb), 512 threads per block
 // to hide the latency of the L2 weight loads. Next steps: wgmma with weight
 // tiles staged by TMA, and several atoms per block to share each tile.
+//
+// K1-W8A8 (mtt_fused_layer_fwd_w8a8, bfloat16 only): the same kernel with
+// the body's W8 flag, the TPU kernel's static W8A8 branch (`_fwd_kernel`
+// with `calib`, `_layer_math` with w8a8). The QKV, score, FFN-in and
+// FFN-out products run on int8 tensor cores (mma.sync m16n8k32, the scores
+// m16n8k16 over a head of 16) against int8 weights quantized once per call
+// by the wrapper and stored transposed; the activations are quantized by
+// static scales as their fragments are loaded from shared memory, so it
+// needs no more shared memory than K1. Bound on the H100: ~20 M int8
+// products per atom at M=64 (at 1,979 TOPS) and ~3 M bf16 ones (AV,
+// out-projection); the FMA softmax and AV loops and the L2 weight stream
+// are where K1's time goes, and they stay.
 
 #include "layer_fwd.cuh"
 
@@ -39,9 +51,10 @@ struct LayerArgs {
     T* center_out;    // (A, D)
     int M, D, H, F;
     float scale, eps;
+    LayerI8 s8;       // the W8A8 variant's int8 weights and scales
 };
 
-template <typename T>
+template <typename T, bool W8>
 __global__ void __launch_bounds__(kThreads) fused_layer_fwd_kernel(LayerArgs<T> p) {
     extern __shared__ __align__(16) float smem[];
     const int M = p.M, D = p.D;
@@ -55,17 +68,17 @@ __global__ void __launch_bounds__(kThreads) fused_layer_fwd_kernel(LayerArgs<T> 
     }
     for (int i = threadIdx.x; i < M; i += blockDim.x) CF[i] = p.cf[a * M + i];
     __syncthreads();
-    layer_fwd_atom<T>(smem, p.w, M, D, p.H, p.F, p.scale, p.eps, p.center_out + a * D, nullptr,
-                      p.edge_out + a * M * D, false);
+    layer_fwd_atom<T, W8>(smem, p.w, M, D, p.H, p.F, p.scale, p.eps, p.center_out + a * D, nullptr,
+                          p.edge_out + a * M * D, false, p.s8);
 }
 
-template <typename T>
+template <typename T, bool W8 = false>
 int launch(const LayerArgs<T>& p, long long A, cudaStream_t stream) {
     const size_t bytes = layer_fwd_floats(p.M, p.D, p.F) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
-        fused_layer_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        fused_layer_fwd_kernel<T, W8>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    fused_layer_fwd_kernel<T><<<(unsigned)A, kThreads, bytes, stream>>>(p);
+    fused_layer_fwd_kernel<T, W8><<<(unsigned)A, kThreads, bytes, stream>>>(p);
     return (int)cudaGetLastError();
 }
 
@@ -96,4 +109,28 @@ extern "C" int mtt_fused_layer_fwd(
     if (dtype == 0) return mtt::launch(MTT_ARGS(float), A, (cudaStream_t)stream);
     return mtt::launch(MTT_ARGS(__nv_bfloat16), A, (cudaStream_t)stream);
 #undef MTT_ARGS
+}
+
+// K1-W8A8, bfloat16 only: the weights as for mtt_fused_layer_fwd (w_qkv,
+// w_in and w_ffn_out are not read), their int8 copies transposed to (out,
+// in), and the 11 static scales in LayerI8's order. The shared memory is
+// mtt_fused_layer_fwd_smem's.
+extern "C" int mtt_fused_layer_fwd_w8a8(
+    const void* edges, const void* center, const float* cf,
+    const void* norm_attn, const void* w_qkv, const void* b_qkv,
+    const void* w_out, const void* b_out, const void* norm_mlp,
+    const void* w_in, const void* b_in, const void* w_ffn_out, const void* b_ffn_out,
+    const void* w_qkv_i8_t, const void* w_in_i8_t, const void* w_fo_i8_t, const float* scales,
+    void* edge_out, void* center_out, long long A, int M, int D, int H, int F, float eps,
+    void* stream) {
+    using T = __nv_bfloat16;
+    const mtt::LayerArgs<T> p{
+        (const T*)edges, (const T*)center, cf,
+        mtt::LayerW<T>{(const T*)norm_attn, (const T*)w_qkv, (const T*)b_qkv, (const T*)w_out,
+                       (const T*)b_out, (const T*)norm_mlp, (const T*)w_in, (const T*)b_in,
+                       (const T*)w_ffn_out, (const T*)b_ffn_out},
+        (T*)edge_out, (T*)center_out, M, D, H, F, 1.f, eps,
+        mtt::layer_i8(w_qkv_i8_t, w_in_i8_t, w_fo_i8_t, scales)};
+    if (A == 0) return 0;
+    return mtt::launch<T, true>(p, A, (cudaStream_t)stream);
 }

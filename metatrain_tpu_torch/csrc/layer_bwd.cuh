@@ -1,6 +1,13 @@
 // The per-atom body of K2 / K2-dW (one fused PET transformer layer,
 // backward), shared by K2 (fused_layer_bwd.cu) and the GNN block's
 // backward (gnn_block_bwd.cu). fused_layer_bwd.cu describes the design.
+//
+// W8 = true is K2-W8A8, the input gradients of the W8A8 layer
+// (layer_fwd.cuh) by straight-through estimation, as the JAX package's
+// _layer_bwd_math with w8a8: the recompute reproduces the quantized
+// forward (int8 QKV, scores and FFN-in; cf * e rounded), and every
+// gradient product takes the T weights and q, k rounded to T, as if the
+// quantizers were the identity. No weight gradients.
 
 #pragma once
 
@@ -63,17 +70,19 @@ struct DwLayout {
 
 // Scratch: n1 / attn / d_attn_out (M x D), the SwiGLU row chunk (with
 // K2-dW's two extra row buffers), or one head's attention backward (E, T:
-// M x (M + 1); dq: M x hd), whichever is largest.
-__host__ __device__ inline size_t scratch_floats(int M, int D, int H, int F, bool dw) {
+// M x (M + 1); dq: M x hd; W8A8: the AV weights, M x (M + 1)), whichever is
+// largest.
+__host__ __device__ inline size_t scratch_floats(int M, int D, int H, int F, bool dw, bool w8 = false) {
     const size_t ffn = (size_t)kRowChunk * (D + 2 * F + (dw ? D + F : 0));
-    const size_t att = 2 * (size_t)M * (M + 1) + (size_t)M * (D / H);
+    const size_t att = (w8 ? 3 : 2) * (size_t)M * (M + 1) + (size_t)M * (D / H);
     const size_t rows = (size_t)M * D;
     const size_t big = ffn > att ? ffn : att;
     return big > rows ? big : rows;
 }
 
-__host__ __device__ inline size_t layer_bwd_floats(int M, int D, int H, int F, bool dw) {
-    return 2 * (size_t)M * D + (size_t)M * qkv_stride(D) + scratch_floats(M, D, H, F, dw) + 4 * (size_t)M;
+__host__ __device__ inline size_t layer_bwd_floats(int M, int D, int H, int F, bool dw, bool w8 = false) {
+    return 2 * (size_t)M * D + (size_t)M * qkv_stride(D) + scratch_floats(M, D, H, F, dw, w8) +
+           4 * (size_t)M;
 }
 
 // d_x of y = rnd(x * r * w) given dy, for one row (one warp): returns the
@@ -86,10 +95,13 @@ __device__ __forceinline__ float rms_bwd_sum(const float* x, const float* dy, fl
 }
 
 // One atom's backward; with DW, its weight gradients are added to the
-// block's partial P.
-template <typename T, bool DW>
+// block's partial P; with W8, the W8A8 layer's (s8: its int8 weights and
+// scales).
+template <typename T, bool DW, bool W8 = false>
 __device__ void layer_bwd_atom(const LayerBwdW<T>& p, const AtomIO<T>& io, int M, int D, int H,
-                               int F, float scale, float eps, float* smem, float* P) {
+                               int F, float scale, float eps, float* smem, float* P,
+                               LayerI8 s8 = {}) {
+    static_assert(!(DW && W8), "the W8A8 layer has no weight gradients");
     const int hd = D / H;
     const int LQ = qkv_stride(D), LP = M + 1;  // M < D: the scores fit in RES
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
@@ -99,7 +111,7 @@ __device__ void layer_bwd_atom(const LayerBwdW<T>& p, const AtomIO<T>& io, int M
     float* QKV = X + M * D;       // q|k|v, then dq|dk|dv
     float* RES = QKV + M * LQ;    // one head's softmax, then res, then d_res
     float* SCR = RES + M * D;     // n1, attn, SwiGLU chunk, d_attn_out, attention bwd, n1 (DW)
-    float* RS1 = SCR + scratch_floats(M, D, H, F, DW);
+    float* RS1 = SCR + scratch_floats(M, D, H, F, DW, W8);
     float* RS2 = RS1 + M;
     float* CF = RS2 + M;
     float* DCF = CF + M;
@@ -119,19 +131,36 @@ __device__ void layer_bwd_atom(const LayerBwdW<T>& p, const AtomIO<T>& io, int M
     __syncthreads();
 
     // ---- forward recompute up to the residual ----------------------------
-    rmsnorm_rows<T>(X, SCR, RS1, M, D, p.norm_attn, eps);
+    rmsnorm_rows<T, !W8>(X, SCR, RS1, M, D, p.norm_attn, eps);
     __syncthreads();
-    block_mm<16>(SCR, D, M, D, p.w_qkv, 3 * D, 3 * D, [&](int m, int n, float acc) {
-        QKV[m * LQ + n] = rnd<T>(acc + to_f(p.b_qkv[n]));
-    });
+    if constexpr (W8) {
+        // q and k stay float until each head's scores are recomputed below
+        block_mm_s8(SCR, D, M, D, s8.inv_normed, s8.w_qkv_t, 3 * D, [&](int m, int n, int acc) {
+            const int part = n / D;
+            const float o = dequant(acc, part == 0 ? s8.deq_q : part == 1 ? s8.deq_k : s8.deq_v,
+                                    to_f(p.b_qkv[n]));
+            QKV[m * LQ + n] = part == 2 ? rnd<T>(o) : o;
+        });
+    } else {
+        block_mm<16>(SCR, D, M, D, p.w_qkv, 3 * D, 3 * D, [&](int m, int n, float acc) {
+            QKV[m * LQ + n] = rnd<T>(acc + to_f(p.b_qkv[n]));
+        });
+    }
     __syncthreads();
     for (int h = 0; h < H; ++h) {
-        smem_abt(QKV + h * hd, LQ, QKV + D + h * hd, LQ, M, M, hd,
-                 [&](int q, int k, float s) { RES[q * LP + k] = s * scale; });
+        if constexpr (W8) {
+            scores_s8(QKV + h * hd, s8.inv_q, QKV + D + h * hd, s8.inv_k, LQ, M, hd,
+                      [&](int q, int k, int s) { RES[q * LP + k] = __fmul_rn((float)s, s8.deq_scores); });
+            __syncthreads();
+            cf_softmax_rows_w8<T>(RES, LP, CF, M, nullptr);
+        } else {
+            smem_abt(QKV + h * hd, LQ, QKV + D + h * hd, LQ, M, M, hd,
+                     [&](int q, int k, float s) { RES[q * LP + k] = s * scale; });
+            __syncthreads();
+            cf_softmax_rows(RES, LP, CF, M);
+        }
         __syncthreads();
-        cf_softmax_rows(RES, LP, CF, M);
-        __syncthreads();
-        smem_awb(RES, LP, CF, QKV + 2 * D + h * hd, LQ, M, hd, M,
+        smem_awb(RES, LP, W8 ? nullptr : CF, QKV + 2 * D + h * hd, LQ, M, hd, M,
                  [&](int q, int d, float o) { SCR[q * D + h * hd + d] = rnd<T>(o); });
         __syncthreads();
     }
@@ -151,11 +180,17 @@ __device__ void layer_bwd_atom(const LayerBwdW<T>& p, const AtomIO<T>& io, int M
     float* GE = DW ? VG + kRowChunk * 2 * F : HN;  // (16, D): g_eo, then d_h
     float* FH = GE + kRowChunk * D;    // DW: (16, F) ffn_h
     for (int c0 = 0; c0 < M; c0 += kRowChunk) {
-        rmsnorm_rows<T>(RES + c0 * D, HN, RS2 + c0, kRowChunk, D, p.norm_mlp, eps);
+        rmsnorm_rows<T, !W8>(RES + c0 * D, HN, RS2 + c0, kRowChunk, D, p.norm_mlp, eps);
         __syncthreads();
-        block_mm<16>(HN, D, kRowChunk, D, p.w_in, 2 * F, 2 * F, [&](int m, int n, float acc) {
-            VG[m * 2 * F + n] = acc + to_f(p.b_in[n]);
-        });
+        if constexpr (W8) {
+            block_mm_s8(HN, D, kRowChunk, D, s8.inv_hnorm, s8.w_in_t, 2 * F, [&](int m, int n, int acc) {
+                VG[m * 2 * F + n] = dequant(acc, s8.deq_in, to_f(p.b_in[n]));
+            });
+        } else {
+            block_mm<16>(HN, D, kRowChunk, D, p.w_in, 2 * F, 2 * F, [&](int m, int n, float acc) {
+                VG[m * 2 * F + n] = acc + to_f(p.b_in[n]);
+            });
+        }
         __syncthreads();
         for (int i = threadIdx.x; i < kRowChunk * D; i += blockDim.x) {
             const int m = c0 + i / D;
@@ -230,18 +265,33 @@ __device__ void layer_bwd_atom(const LayerBwdW<T>& p, const AtomIO<T>& io, int M
     float* E = SCR;             // exp(s - max) / sum cf exp(s - max)   (M x LP)
     float* Tm = E + M * LP;     // dP, then E * (dP - delta)            (M x LP)
     float* DQ = Tm + M * LP;    // (M, hd): dq of this head
+    float* PW = DQ + M * hd;    // W8: the AV weights rnd(cf e) / z     (M x LP)
     for (int h = 0; h < H; ++h) {
         float* qh = QKV + h * hd;
         float* kh = QKV + D + h * hd;
         float* vh = QKV + 2 * D + h * hd;
-        smem_abt(qh, LQ, kh, LQ, M, M, hd, [&](int q, int k, float s) { E[q * LP + k] = s * scale; });
-        __syncthreads();
-        cf_softmax_rows(E, LP, CF, M);
+        if constexpr (W8) {
+            scores_s8(qh, s8.inv_q, kh, s8.inv_k, LQ, M, hd,
+                      [&](int q, int k, int s) { PW[q * LP + k] = __fmul_rn((float)s, s8.deq_scores); });
+            __syncthreads();
+            cf_softmax_rows_w8<T>(PW, LP, CF, M, E);
+            // straight through: the gradient products take q and k in T
+            for (int idx = threadIdx.x; idx < M * hd; idx += blockDim.x) {
+                const int m = idx / hd, d = idx % hd;
+                qh[m * LQ + d] = rnd<T>(qh[m * LQ + d]);
+                kh[m * LQ + d] = rnd<T>(kh[m * LQ + d]);
+            }
+        } else {
+            smem_abt(qh, LQ, kh, LQ, M, M, hd, [&](int q, int k, float s) { E[q * LP + k] = s * scale; });
+            __syncthreads();
+            cf_softmax_rows(E, LP, CF, M);
+        }
         smem_abt(DAT + h * hd, D, vh, LQ, M, M, hd, [&](int q, int k, float s) { Tm[q * LP + k] = s; });
         __syncthreads();
         for (int q = warp; q < M; q += nw) {
             float delta = 0.f;
-            for (int k = lane; k < M; k += 32) delta = fmaf(CF[k] * E[q * LP + k], Tm[q * LP + k], delta);
+            for (int k = lane; k < M; k += 32)
+                delta = fmaf(W8 ? PW[q * LP + k] : CF[k] * E[q * LP + k], Tm[q * LP + k], delta);
             delta = warp_sum(delta);
             for (int k = lane; k < M; k += 32) Tm[q * LP + k] = E[q * LP + k] * (Tm[q * LP + k] - delta);
         }
@@ -254,8 +304,13 @@ __device__ void layer_bwd_atom(const LayerBwdW<T>& p, const AtomIO<T>& io, int M
             DCF[k] += s;
         }
         smem_awb(Tm, LP, CF, kh, LQ, M, hd, M, [&](int q, int d, float s) { DQ[q * hd + d] = s * scale; });
-        smem_atb(E, LP, DAT + h * hd, D, M, hd, M,
-                 [&](int k, int d, float s) { vh[k * LQ + d] = rnd<T>(s * CF[k]); });
+        if constexpr (W8) {
+            smem_atb(PW, LP, DAT + h * hd, D, M, hd, M,
+                     [&](int k, int d, float s) { vh[k * LQ + d] = rnd<T>(s); });
+        } else {
+            smem_atb(E, LP, DAT + h * hd, D, M, hd, M,
+                     [&](int k, int d, float s) { vh[k * LQ + d] = rnd<T>(s * CF[k]); });
+        }
         __syncthreads();
         // dk[k] = scale cf_k sum_q T[q, k] q_q (q still intact), then dq -> q
         smem_atb(Tm, LP, qh, LQ, M, hd, M,

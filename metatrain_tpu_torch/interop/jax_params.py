@@ -14,6 +14,9 @@
   weights, composition weights and scales, from a checkpoint of any
   version (1 to 3), upgraded as the JAX package's ``model_from_checkpoint``
   upgrades it.
+- :func:`int8_calib_from_jax` and :func:`int8_calib_to_jax` carry the
+  W8A8 calibrations between the JAX package's registry (``_INT8_CALIB``,
+  keyed by the layer's scope path) and the port's fused layers.
 """
 
 from __future__ import annotations
@@ -88,10 +91,12 @@ def state_dict_to_flax(module: nn.Module) -> Dict[str, Any]:
 
 
 def pet_from_checkpoint(checkpoint, compute_dtype=torch.float32,
-                        device="cuda", plain: bool = False, fused_gnn: bool = False):
+                        device="cuda", plain: bool = False, fused_gnn: bool = False,
+                        int8_static: bool = False):
     """The port's PET from a JAX PET checkpoint (dict or path) of version 1,
     2 or 3, on ``device`` (the card unless the caller asks otherwise);
-    ``plain`` and ``fused_gnn`` as for ``PET``."""
+    ``plain``, ``fused_gnn`` and ``int8_static`` as for ``PET`` (a W8A8
+    model still needs ``calibrate_int8`` or :func:`int8_calib_from_jax`)."""
     from ..data.target_info import DatasetInfo
     from ..models.pet import PET
 
@@ -101,9 +106,36 @@ def pet_from_checkpoint(checkpoint, compute_dtype=torch.float32,
         raise ValueError(f"not a PET checkpoint: {checkpoint.get('architecture_name')!r}")
     checkpoint = upgrade_chain(PET, dict(checkpoint))
     model = PET(checkpoint["hypers"], DatasetInfo.from_dict(checkpoint["dataset_info"]),
-                compute_dtype=compute_dtype, plain=plain, fused_gnn=fused_gnn)
+                compute_dtype=compute_dtype, plain=plain, fused_gnn=fused_gnn,
+                int8_static=int8_static)
     model.module.load_state_dict(flax_to_state_dict(checkpoint["params"]))
     model.composition.load_checkpoint_weights(checkpoint["composition"])
     model.scaler.load_checkpoint_scales(checkpoint["scaler"])
     model.weights_initialized = True
     return model.to(device)
+
+
+def int8_calib_from_jax(model, registry: Dict[str, Any]) -> int:
+    """Set the port's W8A8 calibrations from the JAX package's registry
+    (``fused_layer._INT8_CALIB``: scope path -> ``Int8Calib``, or any
+    sequence of its 10 floats). The scope path ``backbone/gnn_layer_0/
+    layer_1`` names the fused layer ``backbone.gnn_layer_0.layer_1`` of
+    ``model`` (a PET), as the parameter names map. Returns the number of
+    layers set; raises ``KeyError`` for a path that names no fused layer."""
+    from ..ops.kernels.fused_layer import Int8Calib
+
+    layers = model.fused_layers()
+    for key, calib in registry.items():
+        name = key.replace("/", ".")
+        if name not in layers:
+            raise KeyError(f"the calibration {key!r} names no fused layer of the model")
+        layers[name].int8_calib = Int8Calib(*(float(x) for x in calib))
+    return len(registry)
+
+
+def int8_calib_to_jax(model) -> Dict[str, tuple]:
+    """The inverse of :func:`int8_calib_from_jax`: the calibrated fused
+    layers of ``model`` as the JAX package's registry, scope path -> the
+    10 floats of ``Int8Calib`` in its field order."""
+    return {name.replace(".", "/"): tuple(layer.int8_calib)
+            for name, layer in model.fused_layers().items() if layer.int8_calib is not None}

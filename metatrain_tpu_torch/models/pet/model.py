@@ -16,8 +16,15 @@ import torch
 
 from ...containers import SystemBatch
 from ...data.target_info import DatasetInfo
+from ...ops.kernels.fused_layer import Int8Calib
 from ..nn_base import AtomisticNNModel
-from .modules import PETModule, cutoff_func_bump, cutoff_func_cosine, init_flax_like
+from .modules import (
+    FusedTransformerLayer,
+    PETModule,
+    cutoff_func_bump,
+    cutoff_func_cosine,
+    init_flax_like,
+)
 
 DEFAULT_MODEL_HYPERS: Dict[str, Any] = {
     "cutoff": 4.5,
@@ -60,13 +67,19 @@ class PET(AtomisticNNModel):
         stream between them, as one GNN block (the JAX package's
         ``MTT_FUSED_GNN=1``; not a hyper, not saved). Unfused
         configurations ignore it.
+    :param int8_static: serve the fused layers as the static W8A8 layer
+        (the JAX package's ``MTT_INT8_STATIC=1``; not a hyper, not saved):
+        in bfloat16 inference calls, after :meth:`calibrate_int8`.
+        Training, float32 and float64 calls run the exact layer; the GNN
+        block and the unfused layers ignore it.
     """
 
     ARCHITECTURE_NAME = "pet"
     __checkpoint_version__ = 3
 
     def __init__(self, hypers: Dict[str, Any], dataset_info: DatasetInfo,
-                 compute_dtype=torch.float32, plain: bool = False, fused_gnn: bool = False):
+                 compute_dtype=torch.float32, plain: bool = False, fused_gnn: bool = False,
+                 int8_static: bool = False):
         full = copy.deepcopy(DEFAULT_MODEL_HYPERS)
         full.update(hypers or {})
         super().__init__(full, dataset_info, compute_dtype)
@@ -82,6 +95,39 @@ class PET(AtomisticNNModel):
                                 compute_dtype, plain, fused_gnn)
         if compute_dtype == torch.float64:
             self.double()  # float64 runs keep float64 weights, as JAX's x64 mode
+        for name, layer in self.fused_layers().items():
+            layer.path, layer.int8_static = name, int8_static
+
+    def fused_layers(self) -> Dict[str, FusedTransformerLayer]:
+        """The fused layers by module name (``backbone.gnn_layer_0.layer_1``)."""
+        return {name: m for name, m in self.module.named_modules()
+                if isinstance(m, FusedTransformerLayer)}
+
+    def calibrate_int8(self, batch: SystemBatch) -> int:
+        """Calibrate the static W8A8 layers on ``batch`` (the JAX package's
+        probe run under ``MTT_INT8_CALIBRATE=1`` and ``calibrate_from_sow``):
+        one exact forward without gradients, in which every fused layer
+        records the absmaxes of ``layer_probe_stats`` on its inputs; with
+        the absmaxes of its float32 weights they become its ``int8_calib``.
+        Returns the number of layers calibrated (0 with the GNN block, whose
+        layers are not called one by one)."""
+        layers = self.fused_layers()
+        for layer in layers.values():
+            layer.int8_probe = []
+        try:
+            with torch.no_grad():
+                self.module(self.preprocess(batch), tuple(self.output_shapes))
+            probes = {name: layer.int8_probe for name, layer in layers.items()}
+        finally:
+            for layer in layers.values():
+                layer.int8_probe = None
+        count = 0
+        for name, layer in layers.items():
+            if probes[name]:
+                layer.int8_calib = Int8Calib.from_stats(probes[name][0].tolist(),
+                                                        layer.layer_weights())
+                count += 1
+        return count
 
     def init_weights(self, generator: torch.Generator) -> None:
         """Random weights from flax's initializer families, drawn from

@@ -44,7 +44,10 @@ from ...ops.kernels.fused_layer import (
     accumulation_dtype,
     fused_transformer_layer,
     layer_math,
+    layer_probe_stats,
     rmsnorm_eps,
+    w8a8_applicable,
+    w8a8_transformer_layer,
 )
 from ...ops.kernels.gnn_block import (
     CenterWeights,
@@ -175,7 +178,16 @@ class FeedForward(nn.Module):
 class FusedTransformerLayer(nn.Module):
     """PreLN/RMSNorm/SwiGLU layer over [edges | center in slot M-1], run by
     the fused layer (K1/K2 on the card). The node stream (center
-    contraction/expansion, center MLP) is plain PyTorch."""
+    contraction/expansion, center MLP) is plain PyTorch.
+
+    With ``int8_static`` (set by ``PET(..., int8_static=True)``) and
+    ``int8_calib`` (an ``Int8Calib``, set by ``PET.calibrate_int8`` or
+    ``interop.jax_params.int8_calib_from_jax``; neither is a parameter nor
+    saved, as the JAX package's registry), a bfloat16 call with no weight
+    that requires grad runs the static W8A8 layer (K1-W8A8/K2-W8A8 on the
+    card) under the JAX package's gate; without a calibration it raises.
+    While ``int8_probe`` is a list, the layer runs exact and appends its
+    ``layer_probe_stats`` to it."""
 
     def __init__(self, d_model, num_heads, d_node, d_feedforward, temperature, dtype, plain):
         super().__init__()
@@ -196,11 +208,31 @@ class FusedTransformerLayer(nn.Module):
             self.center_expansion = nn.Linear(D, d_node)
             self.norm_center_features = RMSNorm(d_node)
             self.center_mlp = FeedForward(d_node, 2 * d_node)
+        self.int8_static = False
+        self.int8_calib = None
+        self.int8_probe = None
+        self.path = ""  # the module's name in PET, for messages
+
+    def layer_weights(self) -> LayerWeights:
+        return LayerWeights(*(getattr(self, f) for f in LayerWeights._fields))
+
+    def _int8_calib(self, dtype, w: LayerWeights):
+        """The calibration the W8A8 path takes, or None for the exact
+        layer; raises where the JAX package's ``MTT_INT8_STATIC=1`` raises."""
+        if not (self.int8_static and self.int8_probe is None and dtype == torch.bfloat16
+                and not any(x.requires_grad for x in w)):
+            return None
+        if self.int8_calib is None:
+            raise RuntimeError(
+                f"int8_static=True but no int8 calibration is registered for layer "
+                f"{self.path!r}; run PET.calibrate_int8 on a representative batch first"
+            )
+        return self.int8_calib
 
     def gnn_weights(self):
         """``(LayerWeights, CenterWeights or None)``: this layer's weights
         for the fused GNN block, in the (in, out) layout."""
-        lw = LayerWeights(*(getattr(self, f) for f in LayerWeights._fields))
+        lw = self.layer_weights()
         if not self.expanded:
             return lw, None
         mlp = self.center_mlp
@@ -215,11 +247,16 @@ class FusedTransformerLayer(nn.Module):
     def forward(self, node, edges, cf_tokens):
         cd = self.dtype
         center = dense(self.center_contraction, node, cd) if self.expanded else node
-        w = LayerWeights(*(getattr(self, f) for f in LayerWeights._fields))
-        layer = layer_math if self.plain else fused_transformer_layer
-        edge_out, center_attn = layer(
-            edges.to(cd), center.to(cd), cf_tokens, w, self.num_heads, self.scale
-        )
+        w = self.layer_weights()
+        args = (edges.to(cd), center.to(cd), cf_tokens, w, self.num_heads, self.scale)
+        if self.int8_probe is not None:
+            self.int8_probe.append(layer_probe_stats(*args))
+        calib = self._int8_calib(cd, w)
+        if w8a8_applicable(args[0], w, self.num_heads, calib):
+            edge_out, center_attn = w8a8_transformer_layer(*args, calib, self.plain)
+        else:
+            layer = layer_math if self.plain else fused_transformer_layer
+            edge_out, center_attn = layer(*args)
         if not self.expanded:
             # d_node == d_pet: the center takes the raw attention output
             return center_attn, edge_out

@@ -2,10 +2,15 @@
 
 Counterpart of ``metatrain_tpu/ops/inference.py``. The JAX package traces
 inference under a flag so that its backward kernels skip weight
-gradients. In PyTorch the flag is the parameters' own ``requires_grad``:
-the kernels' ``autograd.Function``s read ``ctx.needs_input_grad`` and
-compute input gradients only, and they raise when a weight requires grad
-(weight gradients belong to the training slice).
+gradients. In PyTorch the flag is the parameters' own ``requires_grad``,
+read by the kernels' ``autograd.Function``s (``ctx.needs_input_grad``):
+with no weight that requires grad the backward launches the
+input-gradient kernel (K2, K4, the GNN block's and the window attention's
+backward); when one does, it launches the weight-gradient variant (K2-dW,
+K4-dW, the block's dW variant), which returns the weight gradients too.
+The static W8A8 layer (``PET(..., int8_static=True)``) is inference only,
+as the JAX package's ``use_int8_static``: it runs only while no weight of
+the layer requires grad; otherwise the exact layer runs.
 """
 
 from __future__ import annotations

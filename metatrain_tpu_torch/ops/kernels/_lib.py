@@ -49,9 +49,12 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
+_FP = ctypes.POINTER(ctypes.c_float)  # a host array of floats
 _SIGNATURES = {
     "mtt_fused_layer_fwd": [_I] + [_P] * 15 + [_L, _I, _I, _I, _I, _F, _F, _P],
     "mtt_fused_layer_bwd": [_I] + [_P] * 21 + [_I, _P] + [_L, _I, _I, _I, _I, _F, _F, _P],
+    "mtt_fused_layer_fwd_w8a8": [_P] * 16 + [_FP, _P, _P, _L, _I, _I, _I, _I, _F, _P],
+    "mtt_fused_layer_bwd_w8a8": [_P] * 17 + [_FP] + [_P] * 5 + [_L, _I, _I, _I, _I, _F, _F, _P],
     "mtt_rowblock_fwd": [_I, _I, _P, _P, _P, _I] + [_P] * 7 + [_L, _I, _I, _I, _I, _P],
     "mtt_rowblock_bwd": [_I, _I, _P, _P, _P, _I] + [_P] * 13 + [_I, _P] + [_L, _I, _I, _I, _I, _P],
     "mtt_permute": [_I, _P, _P, _P, _P, _L, _I, _P],
@@ -62,6 +65,7 @@ _SIGNATURES = {
     + [_I] * 7 + [_F, _F, _P],
     "mtt_fused_layer_fwd_smem": [_I, _I, _I],
     "mtt_fused_layer_bwd_smem": [_I, _I, _I, _I, _I],
+    "mtt_fused_layer_bwd_w8a8_smem": [_I, _I, _I, _I],
     "mtt_rowblock_fwd_smem": [_I, _I],
     "mtt_rowblock_bwd_smem": [_I, _I, _I, _I, _I],
     "mtt_window_attention_fwd_smem": [_I, _I, _I, _I],

@@ -23,6 +23,15 @@ attention output of slot M-1.
   :func:`layer_bwd_math` under autograd, chunk by chunk over atoms
   (:func:`replay_layer_bwd`, the port of ``_chunked_replay_bwd``).
 
+The static W8A8 layer (the JAX package's ``MTT_INT8_STATIC=1``,
+inference in bfloat16 only) runs the QKV, score, FFN-in and FFN-out
+products in int8 with static scales (:class:`Int8Calib`, from
+:func:`layer_probe_stats` on a probe forward and from the weights);
+``layer_math`` and ``layer_bwd_math`` take it as ``w8a8=(calib,
+int8_weights)``, the backward by straight-through estimation.
+:func:`w8a8_transformer_layer` is its ``autograd.Function``: K1-W8A8 and
+K2-W8A8 on the card (the same sources), the plain versions on the CPU.
+
 Weights keep the JAX package's (in, out) layout and are cast to the
 compute dtype (the dtype of ``edges``); accumulation is float32 (float64
 for float64 inputs).
@@ -30,8 +39,10 @@ for float64 inputs).
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _lib
@@ -94,15 +105,128 @@ def _attention_probs(q, k, cf, scale, acc):
     return e / torch.sum(cf_k * e, dim=-1, keepdim=True), cf_k
 
 
-def layer_math(edges, center, cf, w: LayerWeights, num_heads: int, scale: float):
-    """Plain PyTorch forward: ``(edge_out, center_attn)``.
+class Int8Calib(NamedTuple):
+    """Static absmax calibration of one layer for the W8A8 path (Python
+    floats): the activations' from a probe forward (:func:`layer_probe_stats`),
+    the weights' from the float32 parameters. The JAX package's
+    ``Int8Calib``: the same fields in the same order."""
 
-    :param edges: (A, M, D) edge tokens; slot M-1 is ignored and replaced
-        by the center token.
-    :param center: (A, D) center tokens.
-    :param cf: (A, M) multiplicative attention weights on the keys, with
-        ``cf[:, M-1] == 1`` (the center).
-    """
+    normed: float  # RMSNorm(attn) output
+    q: float  # q after bias
+    k: float  # k after bias
+    h_norm: float  # RMSNorm(mlp) output
+    ffn_h: float  # value * sigmoid(gate)
+    w_q: float
+    w_k: float
+    w_v: float
+    w_in: float
+    w_fo: float
+
+    @classmethod
+    def from_stats(cls, stats, w: LayerWeights) -> "Int8Calib":
+        """The calibration of a layer from its probe absmaxes (the five of
+        :func:`layer_probe_stats`) and its float32 weights: the body of the
+        JAX package's ``calibrate_from_sow`` for one layer."""
+        D = w.w_qkv.shape[0]
+
+        def am(x):
+            return float(x.detach().abs().max())
+
+        return cls(*(float(x) for x in stats), am(w.w_qkv[:, :D]), am(w.w_qkv[:, D:2 * D]),
+                   am(w.w_qkv[:, 2 * D:]), am(w.w_in), am(w.w_ffn_out))
+
+
+def _f32(x: float) -> float:
+    """A Python float rounded once to float32, as JAX rounds a static scale
+    when it meets a float32 array."""
+    return float(np.float32(x))
+
+
+def qs_static(x, absmax: float):
+    """Static-scale int8 quantization: ``clamp(round(x * 127 / absmax),
+    -127, 127)``, ``x * inv`` in float32 and rounded half to even."""
+    inv = _f32(127.0 / max(float(absmax), 1e-12))
+    return torch.clamp(torch.round(x.to(torch.float32) * inv), -127.0, 127.0).to(torch.int8)
+
+
+def rms_norm_q(x, scale, absmax: float, eps=None):
+    """RMSNorm in float32, quantized without a rounding to the compute dtype
+    first (the JAX package's ``_rms_norm_q``)."""
+    if eps is None:
+        eps = rmsnorm_eps(x.dtype)
+    x32, r = _rms_stats(x, torch.float32, eps)
+    return qs_static(x32 * r * scale.to(torch.float32), absmax)
+
+
+def deq(a: float, b: float) -> float:
+    """Dequantization factor of a product of two int8 operands."""
+    return (max(float(a), 1e-12) / 127.0) * (max(float(b), 1e-12) / 127.0)
+
+
+def dot_i8(x_i8, w_i8, factor: float, b):
+    """int8 x int8 product, dequantized and biased, float32: the int32 sums
+    are formed exactly (in float64) and converted to float32."""
+    out = (x_i8.to(torch.float64) @ w_i8.to(torch.float64)).to(torch.float32)
+    return out * _f32(factor) + b.to(torch.float32)
+
+
+def quantize_layer_weights(w: LayerWeights, calib: Int8Calib):
+    """int8 copies of the quantized weights (``w_q``, ``w_k``, ``w_v``,
+    ``w_in``, ``w_ffn_out``; (in, out) layout), from the float32
+    parameters."""
+    D = w.w_qkv.shape[0]
+    return (
+        qs_static(w.w_qkv[:, :D], calib.w_q),
+        qs_static(w.w_qkv[:, D:2 * D], calib.w_k),
+        qs_static(w.w_qkv[:, 2 * D:], calib.w_v),
+        qs_static(w.w_in, calib.w_in),
+        qs_static(w.w_ffn_out, calib.w_fo),
+    )
+
+
+def _w8a8_attention(tokens, cf, wc: LayerWeights, w8a8, H, scale):
+    """The W8A8 layer up to the attention weights: ``(normed_i8, q_i8,
+    k_i8)``, q and k (float32 rounded to the compute dtype, the
+    straight-through operands), v, E = e / z and the AV weights P = rnd(cf
+    e) / z, with e = exp(s - max) of the int8 scores and z = sum rnd(cf e):
+    cf e is rounded to the compute dtype before the AV product and the
+    denominator, as the JAX package's ``_qside_tail``."""
+    calib, (wq, wk, wv, _, _) = w8a8
+    A, M, D = tokens.shape
+    cd, f32 = tokens.dtype, torch.float32
+    if cd == torch.float64:
+        raise ValueError("the W8A8 layer computes in float32 or bfloat16")
+    n_i8 = rms_norm_q(tokens, wc.norm_attn, calib.normed).reshape(A * M, D)
+    b = wc.b_qkv.to(f32)
+    q_f = dot_i8(n_i8, wq, deq(calib.normed, calib.w_q), b[:D])
+    k_f = dot_i8(n_i8, wk, deq(calib.normed, calib.w_k), b[D:2 * D])
+    v = dot_i8(n_i8, wv, deq(calib.normed, calib.w_v), b[2 * D:]).to(cd)
+    q_i8, k_i8 = qs_static(q_f, calib.q), qs_static(k_f, calib.k)
+
+    def heads(x):
+        return x.reshape(A, M, H, D // H)
+
+    s_int = torch.einsum("aqhd,akhd->ahqk", heads(q_i8).double(), heads(k_i8).double())
+    s = s_int.to(f32) * _f32(deq(calib.q, calib.k) * scale)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    e_cf = (e * cf.to(f32)[:, None, None, :]).to(cd).to(f32)
+    z = torch.sum(e_cf, dim=-1, keepdim=True)
+    return ((n_i8, q_i8, k_i8), heads(q_f.to(cd)), heads(k_f.to(cd)), heads(v), e / z, e_cf / z)
+
+
+def _w8a8_ffn_in(res, wc: LayerWeights, w8a8):
+    """The W8A8 layer's quantized h_norm and its FFN-in product vg (float32)."""
+    calib, (_, _, _, w_in, _) = w8a8
+    A, M, D = res.shape
+    h_i8 = rms_norm_q(res, wc.norm_mlp, calib.h_norm).reshape(A * M, D)
+    return h_i8, dot_i8(h_i8, w_in, deq(calib.h_norm, calib.w_in), wc.b_in.to(torch.float32))
+
+
+def _layer_forward(edges, center, cf, w: LayerWeights, num_heads: int, scale: float, w8a8=None):
+    """``(edge_out, center_attn, operands)``: the operands are the five
+    activations the W8A8 path quantizes (normed, q, k, h_norm, ffn_h), as
+    the exact layer computes them (ffn_h in float32, the others in the
+    compute dtype) or, with ``w8a8``, as their int8 quantizations."""
     A, M, D = edges.shape
     cd = edges.dtype
     acc = accumulation_dtype(cd)
@@ -111,29 +235,69 @@ def layer_math(edges, center, cf, w: LayerWeights, num_heads: int, scale: float)
     wc = LayerWeights(*(x.to(cd) for x in w))
 
     tokens = _with_center(edges, center)
-    x1, r1 = _rms_stats(tokens, acc, eps)
-    normed = (x1 * r1 * wc.norm_attn.to(acc)).to(cd)
-    qkv = _matmul_bias(normed.reshape(A * M, D), wc.w_qkv, wc.b_qkv, cd)
-    q, k, v = qkv.reshape(A, M, 3, num_heads, hd).unbind(2)
-    probs, cf_k = _attention_probs(q, k, cf, scale, acc)
-    attn = torch.einsum("ahqk,akhd->aqhd", cf_k * probs, v.to(acc))
+    if w8a8 is None:
+        x1, r1 = _rms_stats(tokens, acc, eps)
+        normed = (x1 * r1 * wc.norm_attn.to(acc)).to(cd)
+        qkv = _matmul_bias(normed.reshape(A * M, D), wc.w_qkv, wc.b_qkv, cd)
+        q, k, v = qkv.reshape(A, M, 3, num_heads, hd).unbind(2)
+        probs, cf_k = _attention_probs(q, k, cf, scale, acc)
+        p_attn = cf_k * probs
+        operands = [normed, q.reshape(A, M, D), k.reshape(A, M, D)]
+    else:
+        operands, _, _, v, _, p_attn = _w8a8_attention(tokens, cf, wc, w8a8, num_heads, scale)
+        operands = list(operands)
+    attn = torch.einsum("ahqk,akhd->aqhd", p_attn, v.to(p_attn.dtype))
     attn = attn.reshape(A * M, D).to(cd)
     attn_out = _matmul_bias(attn, wc.w_out, wc.b_out, cd).reshape(A, M, D)
     center_attn = attn_out[:, M - 1]
 
     res = tokens + attn_out
-    x2, r2 = _rms_stats(res, acc, eps)
-    h_norm = (x2 * r2 * wc.norm_mlp.to(acc)).to(cd)
     d_ff = wc.w_ffn_out.shape[0]
-    vg = _matmul_bias(h_norm.reshape(A * M, D), wc.w_in, wc.b_in)
-    ffn_h = (vg[:, :d_ff] * torch.sigmoid(vg[:, d_ff:])).to(cd)
-    ffn_out = _matmul_bias(ffn_h, wc.w_ffn_out, wc.b_ffn_out, cd).reshape(A, M, D)
-    return _zero_last_slot(res + ffn_out), center_attn
+    if w8a8 is None:
+        x2, r2 = _rms_stats(res, acc, eps)
+        h_norm = (x2 * r2 * wc.norm_mlp.to(acc)).to(cd)
+        vg = _matmul_bias(h_norm.reshape(A * M, D), wc.w_in, wc.b_in)
+        ffn_f = vg[:, :d_ff] * torch.sigmoid(vg[:, d_ff:])
+        ffn_out = _matmul_bias(ffn_f.to(cd), wc.w_ffn_out, wc.b_ffn_out, cd)
+        operands += [h_norm, ffn_f]
+    else:
+        calib, (_, _, _, _, w_fo) = w8a8
+        h_i8, vg = _w8a8_ffn_in(res, wc, w8a8)
+        ffn_i8 = qs_static(vg[:, :d_ff] * torch.sigmoid(vg[:, d_ff:]), calib.ffn_h)
+        ffn_out = dot_i8(ffn_i8, w_fo, deq(calib.ffn_h, calib.w_fo),
+                         wc.b_ffn_out.to(torch.float32)).to(cd)
+        operands += [h_i8, ffn_i8]
+    edge_out = _zero_last_slot(res + ffn_out.reshape(A, M, D))
+    return edge_out, center_attn, operands
+
+
+def layer_math(edges, center, cf, w: LayerWeights, num_heads: int, scale: float, w8a8=None):
+    """Plain PyTorch forward: ``(edge_out, center_attn)``.
+
+    :param edges: (A, M, D) edge tokens; slot M-1 is ignored and replaced
+        by the center token.
+    :param center: (A, D) center tokens.
+    :param cf: (A, M) multiplicative attention weights on the keys, with
+        ``cf[:, M-1] == 1`` (the center).
+    :param w8a8: ``(Int8Calib, quantize_layer_weights(w, calib))`` for the
+        static W8A8 layer (float32 or bfloat16): QKV, scores, FFN-in and
+        FFN-out in int8, AV and out-projection in the compute dtype.
+    """
+    return _layer_forward(edges, center, cf, w, num_heads, scale, w8a8)[:2]
+
+
+def layer_probe_stats(edges, center, cf, w: LayerWeights, num_heads: int, scale: float):
+    """float32 absmaxes of the activations the W8A8 path quantizes, from an
+    exact forward: ``[normed, q, k, h_norm, ffn_h]`` (the first four
+    rounded to the compute dtype, ffn_h in float32), as the JAX package's
+    ``layer_probe_stats``."""
+    operands = _layer_forward(edges, center, cf, w, num_heads, scale)[2]
+    return torch.stack([x.to(torch.float32).abs().max() for x in operands])
 
 
 def layer_bwd_math(
     edges, center, cf, w: LayerWeights, g_edge, g_center, num_heads: int, scale: float,
-    weight_grads: bool = False,
+    weight_grads: bool = False, w8a8=None,
 ):
     """Plain PyTorch backward of :func:`layer_math`: ``(d_edges, d_center,
     d_cf)`` with ``d_edges[:, M-1] == 0`` and ``d_cf`` in float32 (float64
@@ -146,7 +310,14 @@ def layer_bwd_math(
     ``_layer_bwd_math(..., weight_grads=True)``: products of compute-dtype
     operands, norm-scale and bias sums of the unrounded cotangents where
     JAX takes them. This is the plain version of K2-dW, and the function
-    that the second-order replay differentiates."""
+    that the second-order replay differentiates.
+
+    With ``w8a8`` (input gradients only), the plain version of K2-W8A8: the
+    recompute reproduces the W8A8 forward (its softmax weights and vg come
+    from the int8 products), and every gradient product takes the weights
+    and q, k in the compute dtype (straight-through estimation)."""
+    if w8a8 is not None and weight_grads:
+        raise ValueError("the W8A8 layer is inference only: it has no weight gradients")
     A, M, D = edges.shape
     cd = edges.dtype
     acc = accumulation_dtype(cd)
@@ -159,18 +330,25 @@ def layer_bwd_math(
     # forward recompute
     tokens = _with_center(edges, center)
     x1, r1 = _rms_stats(tokens, acc, eps)
-    n1 = (x1 * r1 * wa.norm_attn).to(cd)
-    qkv = _matmul_bias(n1.reshape(A * M, D), wc.w_qkv, wc.b_qkv, cd)
-    q, k, v = qkv.reshape(A, M, 3, H, hd).unbind(2)
-    probs, cf_k = _attention_probs(q, k, cf, scale, acc)
-    p_attn = cf_k * probs
+    if w8a8 is None:
+        n1 = (x1 * r1 * wa.norm_attn).to(cd)
+        qkv = _matmul_bias(n1.reshape(A * M, D), wc.w_qkv, wc.b_qkv, cd)
+        q, k, v = qkv.reshape(A, M, 3, H, hd).unbind(2)
+        probs, cf_k = _attention_probs(q, k, cf, scale, acc)
+        p_attn = cf_k * probs
+    else:
+        _, q, k, v, probs, p_attn = _w8a8_attention(tokens, cf, wc, w8a8, H, scale)
+        cf_k = cf.to(acc)[:, None, None, :]
     attn = torch.einsum("ahqk,akhd->aqhd", p_attn, v.to(acc)).reshape(A * M, D).to(cd)
     attn_out = _matmul_bias(attn, wc.w_out, wc.b_out, cd).reshape(A, M, D)
     res = tokens + attn_out
     x2, r2 = _rms_stats(res, acc, eps)
-    h_norm = (x2 * r2 * wa.norm_mlp).to(cd)
     d_ff = wc.w_ffn_out.shape[0]
-    vg = _matmul_bias(h_norm.reshape(A * M, D), wc.w_in, wc.b_in)
+    if w8a8 is None:
+        h_norm = (x2 * r2 * wa.norm_mlp).to(cd)
+        vg = _matmul_bias(h_norm.reshape(A * M, D), wc.w_in, wc.b_in)
+    else:
+        vg = _w8a8_ffn_in(res, wc, w8a8)[1]
     value, sig = vg[:, :d_ff], torch.sigmoid(vg[:, d_ff:])
 
     # SwiGLU and norm_mlp backward
@@ -263,9 +441,36 @@ def _cuda_weights(w: LayerWeights, cd) -> LayerWeights:
     return LayerWeights(*(x.detach().to(cd).contiguous() for x in w))
 
 
-def fused_layer_fwd_cuda(edges, center, cf, w: LayerWeights, num_heads, scale):
-    """Launch K1. ``edges``/``center`` float32 or bfloat16, ``cf`` float32."""
+def _w8a8_kernel_args(edges, w8a8, num_heads, scale):
+    """The W8A8 kernels' extra arguments: the int8 weights transposed to
+    (out, in) (``w_qkv``, ``w_in``, ``w_ffn_out``) and the 11 static scales
+    (``LayerI8`` in ``csrc/common.cuh``), each rounded once to float32.
+    Raises where the kernels do not take the dtype or the shapes."""
+    calib, (wq, wk, wv, w_in, w_fo) = w8a8
+    if edges.dtype != torch.bfloat16:
+        raise TypeError(f"the W8A8 kernels take bfloat16, got {edges.dtype}")
+    D, F = wq.shape[0], w_fo.shape[0]
+    if (D // num_heads) % 16 or D % 32 or F % 32:
+        raise ValueError(f"the W8A8 kernels need a head width divisible by 16 and D, F divisible "
+                         f"by 32; got D={D}, F={F}, heads={num_heads}")
+    int8 = [torch.cat([wq, wk, wv], dim=1), w_in, w_fo]
+    _lib.require({f"int8 weight {i}": x for i, x in enumerate(int8)}, edges.device, torch.int8)
+    inv = [127.0 / max(float(a), 1e-12) for a in calib[:5]]
+    factors = [deq(calib.normed, calib.w_q), deq(calib.normed, calib.w_k),
+               deq(calib.normed, calib.w_v), deq(calib.h_norm, calib.w_in),
+               deq(calib.ffn_h, calib.w_fo), deq(calib.q, calib.k) * scale]
+    scales = (ctypes.c_float * 11)(*inv, *factors)
+    return [x.t().contiguous() for x in int8], scales
+
+
+def fused_layer_fwd_cuda(edges, center, cf, w: LayerWeights, num_heads, scale, w8a8=None):
+    """Launch K1. ``edges``/``center`` float32 or bfloat16, ``cf`` float32.
+
+    With ``w8a8`` (``(Int8Calib, quantize_layer_weights(...))``, int8
+    weights on the device) launch K1-W8A8 instead: bfloat16 only."""
     A, M, D, F = _check_shapes(edges, center, cf, w, num_heads)
+    if w8a8 is not None:
+        int8_t, scales = _w8a8_kernel_args(edges, w8a8, num_heads, scale)
     cd = edges.dtype
     code = _lib.dtype_code(cd)
     wc = _cuda_weights(w, cd)
@@ -275,6 +480,18 @@ def fused_layer_fwd_cuda(edges, center, cf, w: LayerWeights, num_heads, scale):
     _lib.check_shared(lib.mtt_fused_layer_fwd_smem(M, D, F), "fused_layer_fwd")
     edge_out = torch.empty_like(edges)
     center_out = torch.empty_like(center)
+    if w8a8 is not None:
+        _lib.check(
+            lib.mtt_fused_layer_fwd_w8a8(
+                edges.data_ptr(), center.data_ptr(), cf.data_ptr(),
+                *(x.data_ptr() for x in wc), *(x.data_ptr() for x in int8_t), scales,
+                edge_out.data_ptr(), center_out.data_ptr(),
+                A, M, D, num_heads, F, rmsnorm_eps(cd), _lib.stream_ptr(edges.device),
+            ),
+            "fused_layer_fwd_w8a8",
+        )
+        _lib.LAUNCHES["fused_layer_fwd_w8a8"] += 1
+        return edge_out, center_out
     _lib.check(
         lib.mtt_fused_layer_fwd(
             code, edges.data_ptr(), center.data_ptr(), cf.data_ptr(),
@@ -290,8 +507,11 @@ def fused_layer_fwd_cuda(edges, center, cf, w: LayerWeights, num_heads, scale):
 
 
 def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, num_heads, scale,
-                         weight_grads: bool = False):
+                         weight_grads: bool = False, w8a8=None):
     """Launch K2: ``(d_edges, d_center, d_cf)`` with ``d_cf`` float32.
+
+    With ``w8a8`` launch K2-W8A8 (bfloat16, input gradients only): the W8A8
+    layer's straight-through backward.
 
     With ``weight_grads=True`` launch K2-dW instead, which also returns the
     float32 weight gradients summed over atoms as a fourth output
@@ -310,6 +530,11 @@ def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, n
         edges.device, cd,
     )
     _lib.require({"cf": cf}, edges.device, torch.float32)
+    if w8a8 is not None:
+        if weight_grads:
+            raise ValueError("the W8A8 layer is inference only: it has no weight gradients")
+        return _fused_layer_bwd_w8a8(edges, center, cf, wc, transposed, g_edge, g_center,
+                                     num_heads, scale, w8a8)
     name = "fused_layer_bwd_dw" if weight_grads else "fused_layer_bwd"
     lib = _lib.library()
     _lib.check_shared(lib.mtt_fused_layer_bwd_smem(M, D, num_heads, F, int(weight_grads)), name)
@@ -341,6 +566,32 @@ def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, n
         return d_edges, d_center, d_cf
     parts = torch.split(dw, sizes)
     return d_edges, d_center, d_cf, LayerWeights(*(p.view(x.shape) for p, x in zip(parts, wc)))
+
+
+def _fused_layer_bwd_w8a8(edges, center, cf, wc, transposed, g_edge, g_center, num_heads, scale,
+                          w8a8):
+    A, M, D = edges.shape
+    F = wc.w_ffn_out.shape[0]
+    int8_t, scales = _w8a8_kernel_args(edges, w8a8, num_heads, scale)
+    lib = _lib.library()
+    _lib.check_shared(lib.mtt_fused_layer_bwd_w8a8_smem(M, D, num_heads, F), "fused_layer_bwd_w8a8")
+    d_edges = torch.empty_like(edges)
+    d_center = torch.empty_like(center)
+    d_cf = torch.empty_like(cf)
+    _lib.check(
+        lib.mtt_fused_layer_bwd_w8a8(
+            edges.data_ptr(), center.data_ptr(), cf.data_ptr(),
+            *(x.data_ptr() for x in wc[:8]), *(x.data_ptr() for x in transposed),
+            int8_t[0].data_ptr(), int8_t[1].data_ptr(), scales,
+            g_edge.data_ptr(), g_center.data_ptr(),
+            d_edges.data_ptr(), d_center.data_ptr(), d_cf.data_ptr(),
+            A, M, D, num_heads, F, float(scale), rmsnorm_eps(edges.dtype),
+            _lib.stream_ptr(edges.device),
+        ),
+        "fused_layer_bwd_w8a8",
+    )
+    _lib.LAUNCHES["fused_layer_bwd_w8a8"] += 1
+    return d_edges, d_center, d_cf
 
 
 def _first_backward(edges, center, cf, w, g_edge, g_center, num_heads, scale, weight_grads):
@@ -483,3 +734,55 @@ def fused_transformer_layer(edges, center, cf, w: LayerWeights, num_heads: int, 
     K2 (K2-dW when a weight requires grad). ``chunk`` is the number of
     atoms per step of the second-order replay (:func:`replay_layer_bwd`)."""
     return _FusedLayer.apply(edges, center, cf, num_heads, scale, chunk, *w)
+
+
+def w8a8_applicable(edges, w: LayerWeights, num_heads: int, calib) -> bool:
+    """The JAX package's gate of the static W8A8 layer (``use_int8_static``
+    and ``_w8a8_applicable``): a calibration, bfloat16 compute, no weight
+    that requires grad (inference), and the shapes of its q-side layout (M
+    % 8 == 0, an even number of heads dividing D). Elsewhere the exact
+    layer runs."""
+    M, D = edges.shape[1:]
+    return (calib is not None and edges.dtype == torch.bfloat16
+            and not any(x.requires_grad for x in w)
+            and M % 8 == 0 and D % num_heads == 0 and num_heads % 2 == 0)
+
+
+class _W8A8Layer(torch.autograd.Function):
+    """The static W8A8 layer: forward K1-W8A8, backward K2-W8A8 (input
+    gradients, straight through), or their plain versions on the CPU or
+    with ``plain``. The weights are quantized from the float32 parameters
+    at each call. Inference only: no weight gradients, no second order."""
+
+    @staticmethod
+    def forward(ctx, edges, center, cf, num_heads, scale, calib, plain, *weights):
+        w = LayerWeights(*weights)
+        wi8 = quantize_layer_weights(w, calib)
+        ctx.save_for_backward(edges, center, cf, *weights, *wi8)
+        ctx.num_heads, ctx.scale, ctx.calib, ctx.plain = num_heads, scale, calib, plain
+        if edges.is_cuda and not plain:
+            return fused_layer_fwd_cuda(edges, center, cf, w, num_heads, scale, w8a8=(calib, wi8))
+        return layer_math(edges, center, cf, w, num_heads, scale, w8a8=(calib, wi8))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_edge, g_center):
+        edges, center, cf, *rest = ctx.saved_tensors
+        args = (edges, center, cf, LayerWeights(*rest[:10]), g_edge.to(edges.dtype).contiguous(),
+                g_center.to(edges.dtype).contiguous(), ctx.num_heads, ctx.scale)
+        w8a8 = (ctx.calib, tuple(rest[10:]))
+        if edges.is_cuda and not ctx.plain:
+            d_edges, d_center, d_cf = fused_layer_bwd_cuda(*args, w8a8=w8a8)
+        else:
+            d_edges, d_center, d_cf = layer_bwd_math(*args, w8a8=w8a8)
+        return (d_edges, d_center.to(center.dtype), d_cf.to(cf.dtype), None, None, None, None,
+                *([None] * 10))
+
+
+def w8a8_transformer_layer(edges, center, cf, w: LayerWeights, num_heads: int, scale: float,
+                           calib: Int8Calib, plain: bool = False):
+    """The static W8A8 layer with its straight-through backward: CUDA
+    tensors launch K1-W8A8 / K2-W8A8 (bfloat16; a kernel that fails raises),
+    CPU tensors or ``plain`` run ``layer_math`` / ``layer_bwd_math`` with
+    ``w8a8``. Callers take it under :func:`w8a8_applicable`."""
+    return _W8A8Layer.apply(edges, center, cf, num_heads, scale, calib, plain, *w)
