@@ -43,6 +43,19 @@ device and exits non-zero without one. Phases (any failure propagates):
    path, relative and in ``bench.py``'s MAE-gate terms (meV/atom, meV/A,
    virial meV/atom); ms per call and atom-steps/s of the W8A8 and exact bf16
    kernel paths; a torch.profiler breakdown of the W8A8 call.
+4c. larger windows and widths: the fused model of phase 3 with a 5.5 A
+   cutoff (the calculator's buckets give M = 96 on the crystal; any M >= 80
+   passes, a smaller one fails) and with d_pet 256, d_ff 512, 8 heads of 32,
+   each served as phase 3 (its launches and gates, 2 steps), the kernel
+   paths timed.
+4d. int8 scores: the fused model built with ``int8_scores=True`` in
+   bfloat16: every counter starts at 0 just before its served calls; the
+   absmax pass, K1-int8 and K2-int8 must launch 4 times per call each and
+   K1/K2 never. Gates: finite outputs; the int8 kernel path vs its plain
+   path energy rel <= 1 %, force rel-RMSE <= 5 %; its forces differ from
+   the exact bf16 kernel path's (rel-RMSE > 1e-4). Reported, not gated: its
+   error against the f32 exact plain path (relative, MAE terms), ms per
+   call beside the exact bf16 path's, a profile.
 5. training: 8 frames of Cu FCC 8^3 * 4 = 2,048 atoms (a = 3.6 A, jitter
    0.1 A, ``default_rng(2)``) labelled with a Lennard-Jones energy and its
    analytic forces, written as extended xyz, then the port's
@@ -62,7 +75,10 @@ device and exits non-zero without one. Phases (any failure propagates):
    trained model with ``fused_gnn=True`` (whose step must launch the
    block's forward and weight-gradient kernels and replay the block's
    backward): loss rel <= 1e-5, global gradient rel L2 <= 1e-4, each
-   parameter tensor rel L2 <= 1e-3.
+   parameter tensor rel L2 <= 1e-3. Then one bfloat16 step with the int8
+   scores (the trained model), kernel vs plain path: the absmax pass, K1-int8
+   and K2-dW-int8 must launch and the layer's replay run; loss rel <= 2e-2,
+   global gradient rel L2 <= 0.1, finite gradients.
 7. training timing: ms per step and atom-steps/s (host clock around
    synchronised steps after a warm-up step) with the peak device memory,
    for the kernel, plain and GNN-block paths on the 2 x 2,048-atom batch
@@ -87,9 +103,20 @@ device and exits non-zero without one. Phases (any failure propagates):
    per layer and the node stream in PyTorch ops). K1-W8A8 and K2-W8A8 at
    the served shape in bfloat16 only (relative RMS <= 2e-2 per output), a
    calibration from the plain probe on the same inputs; their bound counts
-   the int8 products at 1,979 TOPS and the bf16 ones at 989 TFLOP/s.
+   the int8 products at 1,979 TOPS and the bf16 ones at 989 TFLOP/s. The
+   int8 scores' absmax pass (scales within one bf16 ulp of the plain
+   version's), K1-int8, K2-int8 and K2-dW-int8 at the served shape and at
+   M = 48 (A = 11,000: blocks of 128, the last one partial), bfloat16,
+   relative RMS <= 2e-2.
+9. shapes: the C side's layout plans (shared bytes, workspace floats, row
+   tiles) equal ``_lib``'s Python plans for M = 16..256 and D of 64 to 256;
+   K1, K2, K2-dW, the block's three kernels and, in bf16, K1-W8A8 and
+   K2-W8A8 vs plain at M = 80, 96, 128 (D 128) and M = 64, 128 (D 256), A =
+   256; K3, K4 and K4-dW at D = 256; the attention pair, K1, K2, K2-dW (and
+   W8A8) at head widths 8, 12, 24 and 64; the bounds of phase 8, times under
+   each entry's ``shapes``.
 
-The second-to-last line is a JSON object with one entry per kernel (21);
+The second-to-last line is a JSON object with one entry per kernel (25);
 the last line is ``{"ok": true, "device": {...}}``. Details also go to
 ``chiprun_out/chip_smoke.json``, the compiler's ``-Xptxas -v`` output to
 ``chiprun_out/chip_smoke_build.log``.
@@ -344,9 +371,289 @@ def check_w8a8_layer(A, M, D, H, F, gen, device, report):
         entry["bound_ratio_bf16"] = worst
         entry["ms_bf16"] = cuda_ms(k_fn)
         entry["plain_ms_bf16"] = cuda_ms(p_fn)
-    report["fused_layer_bwd_w8a8"]["smem_bytes"] = \
-        fl._lib.library().mtt_fused_layer_bwd_w8a8_smem(M, D, H, F)
+    report["fused_layer_bwd_w8a8"]["smem_bytes"] = fl._lib.plan_query(
+        fl._lib.library().mtt_fused_layer_bwd_w8a8_smem, M, D, H, F)[0]
     torch.cuda.empty_cache()
+
+
+def check_int8_layer(A, M, D, H, F, gen, device, report, tag=None):
+    """The dynamic int8 scores' kernels vs their plain versions (bfloat16):
+    the absmax pass (scales within one bf16 ulp of the plain version's),
+    K1-int8, K2-int8 and K2-dW-int8 (relative RMS <= 2e-2 per output) at
+    (A, M), with CUDA-event times and bounds (the score products at 1,979
+    TOPS, the rest at 989 TFLOP/s). ``tag`` keys a second shape's numbers
+    under ``shapes`` instead of the entries' own."""
+    from metatrain_tpu_torch.ops.kernels import fused_layer as fl
+
+    edges, center, cf, w, g_edge, g_center = layer_case(A, M, D, H, F, gen, device)
+    e, c, ge, gc = (x.to(torch.bfloat16) for x in (edges, center, g_edge, g_center))
+    scale = 1.0 / math.sqrt(D // H)
+    BA = fl.int8_block_atoms(M)
+    k_blocks = fl.int8_absmax_cuda(e, c, w, BA)
+    p_blocks = fl.int8_block_scales(e, c, w, BA)
+    torch.cuda.synchronize()
+    # one bf16 ulp of the absmax (2^-7 relative), the scales' quotient by 127
+    ulps = ((k_blocks - p_blocks).abs() / (p_blocks.abs() * 2.0 ** -7)).max().item()
+    if not ulps <= 1.0:
+        fail(f"int8 absmax scales differ from the plain version's by {ulps:.3g} bf16 ulps")
+    scales = fl.int8_atom_scales(k_blocks, A, BA)
+    qkv, ffn, head, out = 2 * M * D * 3 * D, 2 * M * D * 3 * F, 2 * H * M * M * (D // H), \
+        2 * M * D * D
+    n_w = sum(x.numel() for x in w)
+    act = A * M * D * 2 + A * D * 2
+    sizes = {  # bytes, bf16 flops, int8 ops
+        "int8_absmax": (A * M * D * 2 + A * D * 2 + 3 * D * D * 2, A * 2 * qkv // 3, 0),
+        "fused_layer_fwd_int8": (2 * act + A * M * 4 + A * 8 + n_w * 2,
+                                 A * (qkv + head + out + ffn), A * head),
+        "fused_layer_bwd_int8": (4 * act + 2 * A * M * 4 + A * 8 + n_w * 2,
+                                 A * (2 * qkv + 5 * head + 2 * out + 2 * ffn), A * head),
+        "fused_layer_bwd_dw_int8": (4 * act + 2 * A * M * 4 + A * 8 + n_w * 6,
+                                    A * (3 * qkv + 5 * head + 3 * out + 3 * ffn), A * head),
+    }
+    cases = (
+        ("int8_absmax", lambda: (fl.int8_absmax_cuda(e, c, w, BA),),
+         lambda: (fl.int8_block_scales(e, c, w, BA),)),
+        ("fused_layer_fwd_int8",
+         lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale, int8_scales=scales),
+         lambda: fl.layer_math(e, c, cf, w, H, scale, int8_scales=scales)),
+        ("fused_layer_bwd_int8",
+         lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, int8_scales=scales),
+         lambda: fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale, int8_scales=scales)),
+    )
+    results = {}
+    for name, k_fn, p_fn in cases:
+        k_out, p_out = k_fn(), p_fn()
+        torch.cuda.synchronize()
+        err, worst = compare(k_out, p_out, torch.bfloat16)
+        del k_out, p_out
+        results[name] = {"max_abs_err_bf16": err, "bound_ratio_bf16": worst,
+                         "ms_bf16": cuda_ms(k_fn), "plain_ms_bf16": cuda_ms(p_fn)}
+        torch.cuda.empty_cache()
+    dw_report = {}
+    check_dw(
+        "fused_layer_bwd_dw_int8", "bf16", torch.bfloat16,
+        lambda: (lambda o: (*o[:3], *o[3]))(fl.fused_layer_bwd_cuda(
+            e, c, cf, w, ge, gc, H, scale, weight_grads=True, int8_scales=scales)),
+        lambda: (lambda o: (*o[:3], *o[3]))(fl.layer_bwd_math(
+            e, c, cf, w, ge, gc, H, scale, weight_grads=True, int8_scales=scales)),
+        3, dw_report,
+    )
+    results.update(dw_report)
+    results["int8_absmax"]["scale_ulps_bf16"] = ulps
+    for name, entry in results.items():
+        record_bound(entry, "bf16", *sizes[name][:2], torch.bfloat16, sizes[name][2])
+        entry["library_ms"] = None
+        if tag is None:
+            report.setdefault(name, {}).update(entry)
+        else:
+            report.setdefault(name, {}).setdefault("shapes", {})[tag] = entry
+    torch.cuda.empty_cache()
+
+
+# the shapes of the repairs: windows above 64 slots and d_pet 256 (the
+# fused-layer kernels and the block), and head widths 8, 12, 24 and 64
+# (K1/K2, the attention pair, W8A8 where D and F are multiples of 32)
+WINDOW_SHAPES = [(80, 128, 8, 256), (96, 128, 8, 256), (128, 128, 8, 256), (64, 256, 8, 512),
+                 (128, 256, 8, 512)]
+HEAD_SHAPES = [(64, 128, 16, 256), (64, 96, 8, 192), (64, 192, 8, 384), (64, 256, 4, 512)]
+
+
+def plan_table():
+    """The C side's shared bytes and workspace floats of every planned
+    kernel against ``_lib``'s Python plan, for M = 16..256 (step 16), D of
+    64, 96, 128, 192 and 256 (F = 2D, heads of 16, d_node 2D), and the row
+    blocks' tiles at their PET widths. Raises on any difference."""
+    import ctypes
+
+    from metatrain_tpu_torch.ops.kernels import _lib
+
+    lib = _lib.library()
+    checked = 0
+    for D in (64, 96, 128, 192, 256):
+        F, N, H = 2 * D, 2 * D, max(D // 16, 1)
+        for M in range(16, 257, 16):
+            fwd = _lib.layer_fwd_plan(M, D, F)
+            pairs = [
+                (_lib.plan_query(lib.mtt_fused_layer_fwd_smem, M, D, F),
+                 (4 * fwd.smem_floats, fwd.ws_floats)),
+                (_lib.plan_query(lib.mtt_gnn_block_fwd_smem, M, D, F, N),
+                 _lib.gnn_block_sizes(M, D, H, F, N, False, False)),
+            ]
+            for dw in (0, 1):
+                for query, q8 in ((lib.mtt_fused_layer_bwd_smem, False),
+                                  (lib.mtt_fused_layer_bwd_int8_smem, True)):
+                    b = _lib.layer_bwd_plan(M, D, H, F, bool(dw), q8)
+                    pairs.append((_lib.plan_query(query, M, D, H, F, dw),
+                                  (4 * b.smem_floats, b.ws_floats)))
+                pairs.append((_lib.plan_query(lib.mtt_gnn_block_bwd_smem, M, D, H, F, N, dw),
+                              _lib.gnn_block_sizes(M, D, H, F, N, bool(dw), True)))
+            b = _lib.layer_bwd_plan(M, D, H, F, False, True)
+            pairs.append((_lib.plan_query(lib.mtt_fused_layer_bwd_w8a8_smem, M, D, H, F),
+                          (4 * b.smem_floats, b.ws_floats)))
+            for c_side, py_side in pairs:
+                if tuple(c_side) != tuple(py_side):
+                    fail(f"layout plan at M={M}, D={D}: C {c_side} != Python {py_side}")
+                checked += 1
+        for stage, w_in, w_hid, w_out in ((0, 3 * D, D, D), (1, 2 * D, 2 * D, D), (2, D, D, D)):
+            rows = ctypes.c_int(0)
+            nbytes = lib.mtt_rowblock_fwd_smem(w_in, w_hid, ctypes.byref(rows))
+            tile = _lib.rowblock_fwd_rows(w_in, w_hid)
+            if (rows.value, nbytes) != (tile, 4 * tile * (w_in + w_hid)):
+                fail(f"row block fwd tile at D={D}: C {rows.value} != Python {tile}")
+            for dw in (0, 1):
+                nbytes = lib.mtt_rowblock_bwd_smem(stage, w_in, w_hid, w_out, dw, ctypes.byref(rows))
+                tile = _lib.rowblock_bwd_rows(stage, w_in, w_hid, w_out, bool(dw))
+                want = 4 * _lib.rowblock_bwd_floats(stage, w_in, w_hid, w_out, bool(dw), tile)
+                if (rows.value, nbytes) != (tile, want):
+                    fail(f"row block bwd tile at D={D}: C {rows.value} != Python {tile}")
+                checked += 1
+    return {"plans_checked": checked}
+
+
+def shape_entry(report, name, key, dtype, err, worst, ms, plain_ms):
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    report.setdefault(name, {}).setdefault("shapes", {})[f"{key}_{tag}"] = {
+        "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err, "bound_ratio": worst,
+        "ms": ms, "plain_ms": plain_ms}
+
+
+def check_layer_shapes_on_card(gen, device, report, A=256):
+    """K1, K2, K2-dW, the GNN block's three kernels and (bf16) K1-W8A8 and
+    K2-W8A8 vs their plain versions at the windows and widths of
+    WINDOW_SHAPES and the head widths of HEAD_SHAPES, float32 and bfloat16,
+    A atoms; errors at the existing bounds and CUDA-event ms under each
+    entry's ``shapes``."""
+    from metatrain_tpu_torch.ops.kernels import fused_layer as fl
+    from metatrain_tpu_torch.ops.kernels import gnn_block as gb
+
+    for M, D, H, F in WINDOW_SHAPES + HEAD_SHAPES:
+        edges, center, cf, w, g_edge, g_center = layer_case(A, M, D, H, F, gen, device)
+        scale = 1.0 / math.sqrt(D // H)
+        key = f"M{M}_D{D}_H{H}"
+        for dtype in (torch.float32, torch.bfloat16):
+            e, c, ge, gc = (x.to(dtype) for x in (edges, center, g_edge, g_center))
+            cases = [
+                ("fused_layer_fwd", lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale),
+                 lambda: fl.layer_math(e, c, cf, w, H, scale)),
+                ("fused_layer_bwd",
+                 lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale),
+                 lambda: fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale)),
+            ]
+            if dtype == torch.bfloat16 and D % 32 == 0 and F % 32 == 0 and H % 2 == 0:
+                calib = fl.Int8Calib.from_stats(
+                    fl.layer_probe_stats(e, c, cf, w, H, scale).tolist(), w)
+                w8a8 = (calib, fl.quantize_layer_weights(w, calib))
+                cases += [
+                    ("fused_layer_fwd_w8a8",
+                     lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale, w8a8=w8a8),
+                     lambda: fl.layer_math(e, c, cf, w, H, scale, w8a8=w8a8)),
+                    ("fused_layer_bwd_w8a8",
+                     lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, w8a8=w8a8),
+                     lambda: fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale, w8a8=w8a8)),
+                ]
+            for name, k_fn, p_fn in cases:
+                err, worst = compare(k_fn(), p_fn(), dtype)
+                shape_entry(report, name, key, dtype, err, worst, cuda_ms(k_fn, 3),
+                            cuda_ms(p_fn, 2))
+            sub = {}
+            check_dw(
+                "fused_layer_bwd_dw", "x", dtype,
+                lambda: (lambda o: (*o[:3], *o[3]))(
+                    fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, weight_grads=True)),
+                lambda: (lambda o: (*o[:3], *o[3]))(
+                    fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale, weight_grads=True)),
+                3, sub,
+            )
+            x = sub["fused_layer_bwd_dw"]
+            shape_entry(report, "fused_layer_bwd_dw", key, dtype, x["max_abs_err_x"],
+                        x["bound_ratio_x"], x["ms_x"], x["plain_ms_x"])
+            torch.cuda.empty_cache()
+        if (M, D, H, F) not in WINDOW_SHAPES:
+            continue
+        # the block: 2 layers with the node expansion (d_node = 2D)
+        edges_b, node, cf_b, lws, cws, flat, g_edge_b, g_node = gnn_case(A, M, D, H, F, 2 * D, 2,
+                                                                         gen, device)
+        for dtype in (torch.float32, torch.bfloat16):
+            e, n, ge, gn = (x.to(dtype) for x in (edges_b, node, g_edge_b, g_node))
+            for name, k_fn, p_fn in (
+                ("gnn_block_fwd", lambda: gb.gnn_block_fwd_cuda(e, n, cf_b, flat, H, scale, 2, True),
+                 lambda: gb.gnn_block_math(e, n, cf_b, lws, cws, H, scale, True)),
+                ("gnn_block_bwd",
+                 lambda: gb.gnn_block_bwd_cuda(e, n, cf_b, flat, ge, gn, H, scale, 2, True),
+                 lambda: gb.gnn_block_bwd_math(e, n, cf_b, lws, cws, ge, gn, H, scale, True)),
+            ):
+                err, worst = compare(k_fn(), p_fn(), dtype)
+                shape_entry(report, name, key, dtype, err, worst, cuda_ms(k_fn, 3),
+                            cuda_ms(p_fn, 2))
+            sub = {}
+            check_dw(
+                "gnn_block_bwd_dw", "x", dtype,
+                lambda: (lambda o: (*o[:3], *o[3]))(
+                    gb.gnn_block_bwd_cuda(e, n, cf_b, flat, ge, gn, H, scale, 2, True, True)),
+                lambda: (lambda o: (*o[:3], *o[3]))(
+                    gb.gnn_block_bwd_math(e, n, cf_b, lws, cws, ge, gn, H, scale, True, True)),
+                3, sub,
+            )
+            x = sub["gnn_block_bwd_dw"]
+            shape_entry(report, "gnn_block_bwd_dw", key, dtype, x["max_abs_err_x"],
+                        x["bound_ratio_x"], x["ms_x"], x["plain_ms_x"])
+            torch.cuda.empty_cache()
+
+
+def check_wide_rowblocks(rows, D, gen, device, report):
+    """K3, K4 and K4-dW at d_pet D (the combination's 2D x 2D stage takes
+    tiles of 32 rows at D = 256) vs their plain versions, both dtypes."""
+    from metatrain_tpu_torch.ops.kernels import rowblock as rb
+
+    key = f"D{D}"
+    for stage, inputs, weights in stage_cases(rows, D, gen, device):
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = tuple(t.to(dtype) for t in inputs)
+            g = torch.randn(rows, weights[-1].shape[0], generator=gen).to(device, dtype)
+            name = f"{stage.name}{len(xs)}" if stage.name == "compress" else stage.name
+            for kind, k_fn, p_fn in (
+                ("fwd", lambda: (rb.rowblock_fwd_cuda(stage, xs, weights),),
+                 lambda: (stage.math(xs, weights),)),
+                ("bwd", lambda: rb.rowblock_bwd_cuda(stage, xs, weights, g),
+                 lambda: stage.bwd(xs, weights, g)),
+            ):
+                err, worst = compare(k_fn(), p_fn(), dtype)
+                shape_entry(report, f"rowblock_{kind}[{stage.name}]", f"{key}_{name}", dtype, err,
+                            worst, cuda_ms(k_fn, 3), cuda_ms(p_fn, 2))
+            sub = {}
+            check_dw(
+                "dw", "x", dtype, lambda: rb.rowblock_bwd_cuda(stage, xs, weights, g,
+                                                               weight_grads=True),
+                lambda: stage.bwd(xs, weights, g, weight_grads=True), len(xs), sub,
+            )
+            shape_entry(report, f"rowblock_bwd_dw[{stage.name}]", f"{key}_{name}", dtype,
+                        sub["dw"]["max_abs_err_x"], sub["dw"]["bound_ratio_x"], sub["dw"]["ms_x"],
+                        sub["dw"]["plain_ms_x"])
+        torch.cuda.empty_cache()
+
+
+def check_attention_heads(A, gen, device, report):
+    """The window-attention pair at the head widths of HEAD_SHAPES (8, 12,
+    24, 64), windows of T = 65, both dtypes."""
+    from metatrain_tpu_torch.ops.kernels import attention as ak
+
+    for M, D, H, _ in HEAD_SHAPES:
+        q, k, v, g, bias = attention_case(A, M + 1, D, gen, device)
+        scale = 1.0 / math.sqrt(D // H)
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd, gd = (x.to(dtype) for x in (q, k, v, g))
+            for name, k_fn, p_fn in (
+                ("window_attention_fwd",
+                 lambda: (ak.window_attention_fwd_cuda(qd, kd, vd, bias, H, scale),),
+                 lambda: (ak.attention_math(qd, kd, vd, bias, H, scale),)),
+                ("window_attention_bwd",
+                 lambda: ak.window_attention_bwd_cuda(qd, kd, vd, bias, gd, H, scale),
+                 lambda: ak.attention_bwd_math(qd, kd, vd, bias, gd, H, scale)),
+            ):
+                err, worst = compare(k_fn(), p_fn(), dtype)
+                shape_entry(report, name, f"T{M + 1}_D{D}_H{H}", dtype, err, worst,
+                            cuda_ms(k_fn, 3), cuda_ms(p_fn, 2))
+        torch.cuda.empty_cache()
 
 
 def gnn_case(A, M, D, H, F, N, L, gen, device, expanded=True):
@@ -730,6 +1037,8 @@ def bench_crystal(n_cells: int = 14):
 
 
 UNFUSED = {"fused_layers": False}
+M96 = {"cutoff": 5.5}  # the crystal's windows above 64 slots
+D256 = {"d_pet": 256, "d_feedforward": 512, "num_heads": 8}
 # LayerNorm / SiLU / PostLN layers and the residual featurizer; two GNN
 # layers of one attention layer each, so the residual message mix (and the
 # accumulate permute of its backward) is on the path
@@ -760,11 +1069,12 @@ def random_state(hypers):
     return seed_model.module.state_dict()
 
 
-def make_pet(dtype, plain, state, device, hypers=None, fused_gnn=False, int8_static=False):
+def make_pet(dtype, plain, state, device, hypers=None, fused_gnn=False, int8_static=False,
+             int8_scores=False):
     from metatrain_tpu_torch.models.pet import PET
 
     model = PET(hypers or {}, energy_info(), compute_dtype=dtype, plain=plain,
-                fused_gnn=fused_gnn, int8_static=int8_static).to(device)
+                fused_gnn=fused_gnn, int8_static=int8_static, int8_scores=int8_scores).to(device)
     model.module.load_state_dict(state)
     return model
 
@@ -821,10 +1131,12 @@ def time_force_calls(calcs, system, reps=5):
             for key, ms in samples.items()}
 
 
-def check_slice(device, hypers, expected, n_cells=14, steps=3, timing=True, fused_gnn=False):
+def check_slice(device, hypers, expected, n_cells=14, steps=3, timing=True, fused_gnn=False,
+                time_plain=True):
     """Serve the force call of PET with ``hypers`` (random weights; with
     ``fused_gnn``, each GNN layer as one block); returns its report, with
-    the served batch's (A, M) under ``padded``."""
+    the served batch's (A, M) under ``padded``. ``time_plain=False`` times
+    the kernel paths only and skips the profile."""
     from metatrain_tpu_torch.calculator import Calculator
     from metatrain_tpu_torch.containers import System
     from metatrain_tpu_torch.ops.kernels import _lib
@@ -893,9 +1205,11 @@ def check_slice(device, hypers, expected, n_cells=14, steps=3, timing=True, fuse
     if not timing:
         return report
 
-    report["timing"] = time_force_calls(calcs, final)
-    report["profile_kernel_bf16"] = profile_calls(
-        lambda: calcs["kernel_bf16"].compute(final, forces=True))
+    timed = calcs if time_plain else {k: c for k, c in calcs.items() if k.startswith("kernel")}
+    report["timing"] = time_force_calls(timed, final)
+    if time_plain:
+        report["profile_kernel_bf16"] = profile_calls(
+            lambda: calcs["kernel_bf16"].compute(final, forces=True))
     return report
 
 
@@ -993,6 +1307,87 @@ def check_w8a8_slice(device, make, steps=3, timing=True):
         {key: calcs[key] for key in ("w8a8_kernel_bf16", "exact_kernel_bf16")}, final)
     report["profile_w8a8_kernel_bf16"] = profile_calls(
         lambda: calcs["w8a8_kernel_bf16"].compute(final, forces=True))
+    return report
+
+
+INT8_KERNELS = ["int8_absmax", "fused_layer_fwd_int8", "fused_layer_bwd_int8", "permute",
+                "permute_acc"] + ROWBLOCK_KERNELS
+
+
+def check_int8_slice(device, state, steps=3):
+    """Serve the dynamic int8 scores' force call (PET at its defaults with
+    ``int8_scores=True``, bfloat16) on the 10,976-atom crystal: every
+    counter starts at 0 just before its served calls, where the absmax
+    pass, K1-int8 and K2-int8 must launch 4 times per call each (2 GNN x 2
+    layers) and K1/K2 never. Gates: finite outputs; the int8 kernel path vs
+    its plain path (both bf16) energy rel <= 1 %, force rel-RMSE <= 5 %; the
+    int8 forces differ from the exact bf16 kernel path's (rel-RMSE > 1e-4).
+    Reported: both bf16 paths' errors against the f32 exact plain path,
+    relative and in ``bench.py``'s MAE terms; ms per call of the int8 and
+    exact bf16 kernel paths; a profile of the int8 call."""
+    from metatrain_tpu_torch.calculator import Calculator
+    from metatrain_tpu_torch.containers import System
+    from metatrain_tpu_torch.ops.kernels import _lib
+
+    system = bench_crystal()
+    n = len(system)
+    calcs = {
+        "int8_kernel_bf16": Calculator(make_pet(torch.bfloat16, False, state, device,
+                                                int8_scores=True)),
+        "int8_plain_bf16": Calculator(make_pet(torch.bfloat16, True, state, device,
+                                               int8_scores=True)),
+        "exact_kernel_bf16": Calculator(make_pet(torch.bfloat16, False, state, device)),
+        "exact_plain_f32": Calculator(make_pet(torch.float32, True, state, device)),
+    }
+    calc = calcs["int8_kernel_bf16"]
+    rng = np.random.default_rng(1)
+    calc.compute(system, forces=True)  # the neighbor list, outside the counted calls
+    torch.cuda.synchronize()
+    # the served force calls: every counter starts at 0 here
+    _lib.LAUNCHES.clear()
+    positions = system.positions.copy()
+    for _ in range(steps):
+        res = calc.compute(System(positions, system.types, system.cell, system.pbc),
+                           forces=True, stress=True)
+        if not (math.isfinite(res["energy"]) and res["forces"].shape == (n, 3)
+                and all(np.isfinite(res[k]).all() for k in ("forces", "stress", "virial"))):
+            fail("int8 force call: non-finite output or forces of the wrong shape")
+        positions = positions + rng.normal(0.0, 0.01, positions.shape)
+    torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    per_call = {k: v / steps for k, v in launches.items()}
+    missing = [k for k in INT8_KERNELS if launches.get(k, 0) == 0]
+    if (missing or launches.get("fused_layer_fwd", 0) or launches.get("fused_layer_bwd", 0)
+            or any(per_call.get(k) != 4 for k in INT8_KERNELS[:3])):
+        fail(f"the int8 force calls launched {launches} (not launched: {missing})")
+    report = {"atoms": n, "launches": launches, "launches_per_call": per_call,
+              "padded": [calc._last_batch.n_atoms_padded, calc._last_batch.max_neighbors]}
+
+    final = System(positions, system.types, system.cell, system.pbc)
+    results = {k: c.compute(final, forces=True, stress=True) for k, c in calcs.items()}
+    for key, res in results.items():
+        if not (math.isfinite(res["energy"]) and np.isfinite(res["forces"]).all()
+                and np.isfinite(res["virial"]).all()):
+            fail(f"{key}: non-finite output")
+    e_kp, f_kp = rel_errors(results["int8_kernel_bf16"], results["int8_plain_bf16"])
+    _, f_q = rel_errors(results["int8_kernel_bf16"], results["exact_kernel_bf16"])
+    ref = results["exact_plain_f32"]
+    report["parity"] = {
+        "int8_kernel_vs_int8_plain": {"energy_rel": e_kp, "force_rel_rmse": f_kp},
+        "int8_kernel_vs_exact_bf16_kernel_force_rel_rmse": f_q,
+        "int8_kernel_vs_f32_plain": mae_terms(results["int8_kernel_bf16"], ref, n),
+        "int8_plain_vs_f32_plain": mae_terms(results["int8_plain_bf16"], ref, n),
+        "exact_bf16_kernel_vs_f32_plain": mae_terms(results["exact_kernel_bf16"], ref, n),
+        "energy_f32_plain": ref["energy"],
+    }
+    if not (e_kp <= 1e-2 and f_kp <= 5e-2):
+        fail(f"int8 kernel path vs int8 plain: energy {e_kp:.3g}, forces {f_kp:.3g}")
+    if not f_q > 1e-4:
+        fail(f"the int8 forces equal the exact bf16 path's (rel-RMSE {f_q:.3g}): no quantization")
+    report["timing"] = time_force_calls(
+        {key: calcs[key] for key in ("int8_kernel_bf16", "exact_kernel_bf16")}, final)
+    report["profile_int8_kernel_bf16"] = profile_calls(
+        lambda: calcs["int8_kernel_bf16"].compute(final, forces=True))
     return report
 
 
@@ -1102,8 +1497,9 @@ def check_training(device, report, workdir):
     return model
 
 
-def training_setup(path, state, plain, device, samples, hypers=None, fused_gnn=False):
-    """A PET in float32 (kernel or plain path) with ``state``, its
+def training_setup(path, state, plain, device, samples, hypers=None, fused_gnn=False,
+                   dtype=torch.float32, int8_scores=False):
+    """A PET in ``dtype`` (kernel or plain path) with ``state``, its
     parameters, loss function and one collated batch of ``samples``."""
     from metatrain_tpu_torch.data.collate import CollateFn
     from metatrain_tpu_torch.data.dataset import get_dataset, get_dataset_info
@@ -1114,8 +1510,8 @@ def training_setup(path, state, plain, device, samples, hypers=None, fused_gnn=F
 
     dataset, infos = get_dataset(expand_dataset_config(dataset_section(path)))
     info = get_dataset_info([dataset], infos, "angstrom")
-    model = PET(hypers or {}, info, compute_dtype=torch.float32, plain=plain,
-                fused_gnn=fused_gnn).to(device)
+    model = PET(hypers or {}, info, compute_dtype=dtype, plain=plain,
+                fused_gnn=fused_gnn, int8_scores=int8_scores).to(device)
     model.module.load_state_dict(state)
     batch = CollateFn(model.cutoff, infos, dtype=torch.float32, device=device)(
         [dataset[i] for i in samples])
@@ -1131,17 +1527,21 @@ def training_setup(path, state, plain, device, samples, hypers=None, fused_gnn=F
 
 
 def check_training_parity(path, state, device, hypers=None, expected=(), replayed=(),
-                          fused_gnn=False):
+                          fused_gnn=False, int8_scores=False):
     """One step's loss and gradients: float32 kernel path vs plain path.
     Every counter starts at 0 before the kernel path's step; the kernels
     ``expected`` must launch in it and the ops ``replayed`` must run their
-    second-order replay."""
+    second-order replay. With ``int8_scores``, a bfloat16 step with the
+    dynamic int8 scores: gates of loss rel <= 2e-2 and global gradient rel
+    L2 <= 0.1 (both paths round to bf16 at their own places; the worst
+    tensor is reported)."""
     from metatrain_tpu_torch.ops.kernels import _lib
 
     results, report = {}, {}
     for key, plain in (("kernel", False), ("plain", True)):
-        model, params, loss_fn, batch, _ = training_setup(path, state, plain, device, [0, 1],
-                                                          hypers, fused_gnn)
+        model, params, loss_fn, batch, _ = training_setup(
+            path, state, plain, device, [0, 1], hypers, fused_gnn,
+            torch.bfloat16 if int8_scores else torch.float32, int8_scores)
         if not plain:
             _lib.LAUNCHES.clear()
             _lib.REPLAYS.clear()
@@ -1172,7 +1572,11 @@ def check_training_parity(path, state, device, hypers=None, expected=(), replaye
                    "loss_rel": loss_rel, "grad_global_rel_l2": global_rel,
                    "grad_worst_tensor": worst_name,
                    "grad_worst_tensor_rel_l2": per_tensor[worst_name]})
-    if not (loss_rel <= 1e-5 and global_rel <= 1e-4 and per_tensor[worst_name] <= 1e-3):
+    finite = all(torch.isfinite(g).all() for g in gk)
+    if int8_scores:
+        if not (finite and loss_rel <= 2e-2 and global_rel <= 0.1):
+            fail(f"int8 training step, bf16 kernel vs plain: {report}")
+    elif not (loss_rel <= 1e-5 and global_rel <= 1e-4 and per_tensor[worst_name] <= 1e-3):
         fail(f"training step, f32 kernel vs plain: {report}")
     return report
 
@@ -1247,9 +1651,18 @@ SOURCES = {
                              "metatrain_tpu/ops/pallas/fused_layer.py:1161 (calib, W8A8)"),
     "fused_layer_bwd_w8a8": ("metatrain_tpu_torch/csrc/fused_layer_bwd.cu",
                              "metatrain_tpu/ops/pallas/fused_layer.py:1269 (calib, W8A8)"),
+    "int8_absmax": ("metatrain_tpu_torch/csrc/int8_absmax.cu",
+                    "metatrain_tpu/ops/pallas/fused_layer.py:163 (_quantize_i8, per block)"),
+    "fused_layer_fwd_int8": ("metatrain_tpu_torch/csrc/fused_layer_fwd.cu",
+                             "metatrain_tpu/ops/pallas/fused_layer.py:1161 (int8 scores)"),
+    "fused_layer_bwd_int8": ("metatrain_tpu_torch/csrc/fused_layer_bwd.cu",
+                             "metatrain_tpu/ops/pallas/fused_layer.py:1269 (int8 scores)"),
+    "fused_layer_bwd_dw_int8": ("metatrain_tpu_torch/csrc/fused_layer_bwd.cu",
+                                "metatrain_tpu/ops/pallas/fused_layer.py:1269 "
+                                "(weight_grads=True, int8 scores)"),
 }
 UNFUSED_PATH = ("permute", "permute_acc", "window_attention_fwd", "window_attention_bwd")
-N_ENTRIES = 21
+N_ENTRIES = 25
 
 
 def launch_count(report, name):
@@ -1257,8 +1670,13 @@ def launch_count(report, name):
     and training step for the GNN block's kernels, the training run for the
     other weight-gradient kernels, the unfused force calls for the kernels
     that path added, the W8A8 force calls for the W8A8 kernels, the fused
-    force calls for the rest."""
-    if name.endswith("_w8a8"):
+    force calls for the rest; the int8 scores' from their force calls and
+    (K2-dW-int8) their training step."""
+    if name == "fused_layer_bwd_dw_int8":
+        source = report["training_parity_int8"]["launches"]
+    elif name.endswith("_int8") or name == "int8_absmax":
+        source = report["slice_int8"]["launches"]
+    elif name.endswith("_w8a8"):
         source = report["slice_w8a8"]["launches"]
     elif name.startswith("gnn_block"):
         source = report["training_parity_gnn" if "_dw" in name else "slice_gnn"]["launches"]
@@ -1355,6 +1773,28 @@ def main() -> int:
     print("W8A8 force call profile:", json.dumps(w8["profile_w8a8_kernel_bf16"]), flush=True)
     torch.cuda.empty_cache()
 
+    # windows above 64 slots: a 5.5 A cutoff on the crystal (78 neighbours
+    # within 6.0 A); then d_pet 256 (8 heads of 32); kernel paths timed
+    for key, hypers in (("slice_m96", M96), ("slice_d256", D256)):
+        report[key] = check_slice(device, hypers, FUSED_KERNELS, steps=2, time_plain=False)
+        M_served = report[key]["padded"][1]
+        if key == "slice_m96" and M_served < 80:
+            fail(f"the 5.5 A cutoff served M = {M_served}, expected at least 80")
+        print(f"{key} (M = {M_served}):", json.dumps({k: report[key][k] for k in (
+            "padded", "launches", "parity")}), flush=True)
+        print(f"{key} force call ({card}):", json.dumps(report[key]["timing"]), flush=True)
+        torch.cuda.empty_cache()
+
+    # the dynamic int8 scores: the absmax pass, K1-int8 and K2-int8 replace
+    # K1 and K2, four launches each per force call
+    report["slice_int8"] = check_int8_slice(device, state)
+    i8 = report["slice_int8"]
+    print("int8 slice:", json.dumps({k: i8[k] for k in ("padded", "launches", "parity")}),
+          flush=True)
+    print(f"int8 force call ({card}):", json.dumps(i8["timing"]), flush=True)
+    print("int8 force call profile:", json.dumps(i8["profile_int8_kernel_bf16"]), flush=True)
+    torch.cuda.empty_cache()
+
     with tempfile.TemporaryDirectory() as tmp:
         workdir = Path(tmp)
         trained = check_training(device, report, workdir)
@@ -1385,6 +1825,12 @@ def main() -> int:
             replayed=("gnn_block",), fused_gnn=True)
         print("training parity, GNN block:", json.dumps(report["training_parity_gnn"]),
               flush=True)
+        report["training_parity_int8"] = check_training_parity(
+            workdir / "cu_lj.xyz", state, device,
+            expected=("int8_absmax", "fused_layer_fwd_int8", "fused_layer_bwd_dw_int8"),
+            replayed=("fused_layer",), int8_scores=True)
+        print("training step, int8 scores (bf16):", json.dumps(report["training_parity_int8"]),
+              flush=True)
         torch.cuda.empty_cache()
         time_training(workdir, state, device, report)
         print(f"training step ({card}):", json.dumps(report["training_timing"]), flush=True)
@@ -1403,6 +1849,13 @@ def main() -> int:
     check_permute(A_u * M_u, D, gen, device, kernels)
     check_attention(A_u, M_u + 1, D, H, gen, device, kernels)
     check_w8a8_layer(A, M, D, H, F, gen, device, kernels)
+    check_int8_layer(A, M, D, H, F, gen, device, kernels)
+    check_int8_layer(11000, 48, D, H, F, gen, device, kernels, tag="A11000_M48")
+    report["plans"] = plan_table()
+    print("layout plans, C vs Python:", json.dumps(report["plans"]), flush=True)
+    check_layer_shapes_on_card(gen, device, kernels)
+    check_wide_rowblocks(256 * 64, 256, gen, device, kernels)
+    check_attention_heads(256, gen, device, kernels)
     report["kernels"] = kernels
     print(f"kernel vs plain ({card}):", json.dumps(kernels), flush=True)
 
@@ -1415,7 +1868,7 @@ def main() -> int:
     entries = []
     for name, entry in kernels.items():
         source, replaces = SOURCES[name.split("[")[0]]
-        trains = "_dw" in name
+        trains = "_dw" in name and "ms_f32" in entry
         lead, other = ("f32", "bf16") if trains else ("bf16", "f32")
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": launch_count(report, name),
@@ -1431,6 +1884,8 @@ def main() -> int:
             out[f"library_ms{suffix}"] = entry.get(f"library_ms_{tag}", entry.get("library_ms"))
             if f"per_layer_ms_{tag}" in entry:
                 out[f"per_layer_ms{suffix}"] = entry[f"per_layer_ms_{tag}"]
+        if "shapes" in entry:
+            out["shapes"] = entry["shapes"]
         entries.append(out)
     if len(entries) != N_ENTRIES:
         fail(f"expected {N_ENTRIES} kernel entries, got {sorted(kernels)}")

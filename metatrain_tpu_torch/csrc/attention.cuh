@@ -49,6 +49,54 @@ __device__ __forceinline__ void stage_window(float* __restrict__ S, const T* __r
     }
 }
 
+// The register width of a head of hd columns in the float kernels: 8, 16,
+// 32 or 64 (0: wider than the kernels take).
+__host__ __device__ inline int head_regs(int hd) {
+    return hd <= 8 ? 8 : hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : 0;
+}
+
+// r[d] = p[d] for d < hd, 0 for hd <= d < HD: a head of hd columns padded
+// with zero columns to the HD registers of the kernel; hd == HD takes
+// load_row's vectors.
+template <int HD, typename T>
+__device__ __forceinline__ void load_head(const T* __restrict__ p, int hd, float (&r)[HD]) {
+    if (hd == HD) {
+        load_row<HD>(p, r);
+        return;
+    }
+#pragma unroll
+    for (int d = 0; d < HD; ++d) r[d] = d < hd ? to_f(p[d]) : 0.f;
+}
+
+// p[d] = T(r[d] * s) for d < hd (store_row where hd == HD).
+template <int HD, typename T>
+__device__ __forceinline__ void store_head(T* __restrict__ p, int hd, const float (&r)[HD], float s) {
+    if (hd == HD) {
+        store_row<HD>(p, r, s);
+        return;
+    }
+#pragma unroll
+    for (int d = 0; d < HD; ++d)
+        if (d < hd) p[d] = from_f<T>(r[d] * s);
+}
+
+// S[t * H HD + h HD + d] = float(x[t * ld + h hd + d]) for d < hd and 0 for
+// hd <= d < HD: the T x D window x with each of its H heads padded to HD
+// columns (stage_window where hd == HD).
+template <typename T>
+__device__ __forceinline__ void stage_heads(float* __restrict__ S, const T* __restrict__ x, int ld,
+                                            int T_, int H, int hd, int HD) {
+    if (hd == HD) {
+        stage_window(S, x, ld, T_, H * hd);
+        return;
+    }
+    const int DP = H * HD;
+    for (int i = threadIdx.x; i < T_ * DP; i += blockDim.x) {
+        const int t = i / DP, c = i - t * DP, h = c / HD, d = c - h * HD;
+        S[i] = d < hd ? to_f(x[(size_t)t * ld + h * hd + d]) : 0.f;
+    }
+}
+
 // sum_d a[d] * b[d], d in order
 template <int HD>
 __device__ __forceinline__ float dot_row(const float (&a)[HD], const float* __restrict__ b) {

@@ -23,6 +23,9 @@
 // block_mm_s8 is the int8 product of the W8A8 layer (s8 tensor cores,
 // int32 sums): X is a float tile quantized as its fragments are loaded,
 // W an int8 matrix stored transposed.
+//
+// SmemPlan places a kernel's per-atom buffers: in shared memory where they
+// fit, else in the block's own slice of a global workspace.
 
 #pragma once
 
@@ -39,6 +42,61 @@ constexpr int kThreads = 512;
 // Row stride of the q|k|v buffer of the fused layer kernels (3D + 4 floats:
 // 16-byte aligned rows that do not all start in the same bank).
 __host__ __device__ inline int qkv_stride(int D) { return 3 * D + 4; }
+
+// ---- shared-memory layout plans -----------------------------------------
+//
+// A body's buffers claim shared memory in the order of its `keep` list, each
+// where it still fits under the 227 KB a block may have; the others go to
+// the block's slice of a global workspace (ws_floats per block, allocated
+// by the caller; L2-resident at moderate sizes, and read and written only
+// by its block). Offsets keep the body's layout order in both regions, so
+// where every buffer fits the layout is the one the kernels always had.
+// Every size is rounded up to 4 floats (16-byte aligned buffers).
+// ops/kernels/_lib.py mirrors make_plan for the CPU tests.
+
+constexpr long long kMaxSharedFloats = 232448 / 4;
+constexpr int kMaxPlanBufs = 8;
+
+struct SmemPlan {
+    int n = 0;
+    long long off[kMaxPlanBufs] = {};
+    bool shared[kMaxPlanBufs] = {};
+    long long smem_floats = 0, ws_floats = 0;
+    __device__ float* at(int i, float* smem, float* ws) const {
+        return (shared[i] ? smem : ws) + off[i];
+    }
+};
+
+// Buffer i of a plan. SH (every buffer shared, ws_floats == 0): smem + its
+// offset, so that the compiler keeps shared-memory loads and stores for it;
+// otherwise a generic pointer into shared memory or the workspace.
+template <bool SH>
+__device__ __forceinline__ float* plan_ptr(const SmemPlan& p, int i, float* smem, float* ws) {
+    if constexpr (SH) {
+        return smem + p.off[i];
+    } else {
+        return p.at(i, smem, ws);
+    }
+}
+
+inline SmemPlan make_plan(const long long* sizes, const int* keep, int n, long long cap) {
+    SmemPlan p;
+    p.n = n;
+    long long used = 0;
+    for (int j = 0; j < n; ++j) {
+        const long long s = (sizes[keep[j]] + 3) / 4 * 4;
+        if (used + s <= cap) {
+            p.shared[keep[j]] = true;
+            used += s;
+        }
+    }
+    for (int i = 0; i < n; ++i) {
+        long long& end = p.shared[i] ? p.smem_floats : p.ws_floats;
+        p.off[i] = end;
+        end += (sizes[i] + 3) / 4 * 4;
+    }
+    return p;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -295,20 +353,48 @@ inline LayerI8 layer_i8(const void* w_qkv_t, const void* w_in_t, const void* w_f
                    s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10]};
 }
 
+// The dynamic int8 scores of one atom (the JAX package's MTT_INT8_SCORES=1):
+// q and k quantize as rint(x / s) with the absmax scales s_q, s_k of the
+// atom's block of atoms, and the int32 products dequantize by factor =
+// (s_q s_k) scale, each product rounded once to float.
+struct ScoresI8 {
+    float s_q = 0.f, s_k = 0.f, factor = 0.f;
+};
+
+__device__ __forceinline__ ScoresI8 scores_i8(const float* s, float scale) {
+    return ScoresI8{s[0], s[1], __fmul_rn(__fmul_rn(s[0], s[1]), scale)};
+}
+
 // x * deq + b with two roundings, as the plain version (no fused FMA)
 __device__ __forceinline__ float dequant(int acc, float deq, float b) {
     return __fadd_rn(__fmul_rn((float)acc, deq), b);
 }
 
-__device__ __forceinline__ uint32_t quant_s8(float x, float inv) {
-    const int q = __float2int_rn(__fmul_rn(x, inv));
+// clamp(rint(x * p), -127, 127) with p the inverse scale (static scales),
+// or with DIV clamp(rint(x / p), -127, 127) with p the scale itself (the
+// dynamic scores, as the JAX package's _quantize_i8 divides).
+template <bool DIV = false>
+__device__ __forceinline__ uint32_t quant_s8(float x, float p) {
+    const int q = __float2int_rn(DIV ? __fdiv_rn(x, p) : __fmul_rn(x, p));
     return (uint32_t)(min(127, max(-127, q)) & 0xff);
 }
 
 // four floats quantized and packed, x.x in the low byte
-__device__ __forceinline__ uint32_t quant4_s8(float4 x, float inv) {
-    return quant_s8(x.x, inv) | quant_s8(x.y, inv) << 8 | quant_s8(x.z, inv) << 16 |
-           quant_s8(x.w, inv) << 24;
+template <bool DIV = false>
+__device__ __forceinline__ uint32_t quant4_s8(float4 x, float p) {
+    return quant_s8<DIV>(x.x, p) | quant_s8<DIV>(x.y, p) << 8 | quant_s8<DIV>(x.z, p) << 16 |
+           quant_s8<DIV>(x.w, p) << 24;
+}
+
+// x[0..3] quantized and packed, where column d + i >= n is a zero column
+// (a head padded to the tile's width); scalar loads, any alignment.
+template <bool DIV>
+__device__ __forceinline__ uint32_t quant4_s8_tail(const float* x, int d, int n, float p) {
+    uint32_t r = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+        if (d + i < n) r |= quant_s8<DIV>(x[i], p) << (8 * i);
+    return r;
 }
 
 // c += a @ b for one m16n8k32 tile: a row-major 16 x 32, b column-major
@@ -412,27 +498,37 @@ __device__ __forceinline__ void block_mm_glu_s8(
 }
 
 // S[q, k] = epi(q, k, sum_{d < hd} q(Qh[q, d]) q(Kh[k, d])) for q, k < M,
-// q and k quantized by inv_q and inv_k: one head's scores (m16n8k16, one
-// warp per 16 x 8 tile). M % 16 == 0, hd % 16 == 0, ld % 4 == 0, Qh and Kh
-// 16-byte aligned.
-template <typename Epi>
+// q and k quantized by p_q and p_k (inverse scales, or with DIV scales):
+// one head's scores (m16n8k16, one warp per 16 x 8 tile). M % 16 == 0, ld
+// % 4 == 0. A head width that is not a multiple of 16 is padded to one in
+// registers with zero columns (exact zeros in the int32 sums); with hd %
+// 16 == 0, Qh and Kh must be 16-byte aligned.
+template <bool DIV = false, typename Epi>
 __device__ __forceinline__ void scores_s8(
-    const float* __restrict__ Qh, float inv_q, const float* __restrict__ Kh, float inv_k,
+    const float* __restrict__ Qh, float p_q, const float* __restrict__ Kh, float p_k,
     int ld, int M, int hd, Epi epi) {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
     const int col_tiles = M / 8, tiles = (M / 16) * col_tiles;
+    const bool vec = hd % 16 == 0;
     for (int tile = warp; tile < tiles; tile += nw) {
         const int m0 = (tile / col_tiles) * 16, n0 = (tile % col_tiles) * 8;
         int c[4] = {0, 0, 0, 0};
         for (int d0 = 0; d0 < hd; d0 += 16) {
-            const float* x = Qh + (size_t)(m0 + g) * ld + d0 + 4 * t;
-            const uint32_t a[2] = {
-                quant4_s8(*reinterpret_cast<const float4*>(x), inv_q),
-                quant4_s8(*reinterpret_cast<const float4*>(x + 8 * ld), inv_q),
-            };
-            const float* y = Kh + (size_t)(n0 + g) * ld + d0 + 4 * t;
-            mma_s8_16816(c, a, quant4_s8(*reinterpret_cast<const float4*>(y), inv_k));
+            const int d = d0 + 4 * t;
+            const float* x = Qh + (size_t)(m0 + g) * ld + d;
+            const float* y = Kh + (size_t)(n0 + g) * ld + d;
+            uint32_t a[2], b;
+            if (vec) {
+                a[0] = quant4_s8<DIV>(*reinterpret_cast<const float4*>(x), p_q);
+                a[1] = quant4_s8<DIV>(*reinterpret_cast<const float4*>(x + 8 * ld), p_q);
+                b = quant4_s8<DIV>(*reinterpret_cast<const float4*>(y), p_k);
+            } else {
+                a[0] = quant4_s8_tail<DIV>(x, d, hd, p_q);
+                a[1] = quant4_s8_tail<DIV>(x + 8 * ld, d, hd, p_q);
+                b = quant4_s8_tail<DIV>(y, d, hd, p_k);
+            }
+            mma_s8_16816(c, a, b);
         }
         epi(m0 + g, n0 + 2 * t, c[0]);
         epi(m0 + g, n0 + 2 * t + 1, c[1]);
@@ -498,15 +594,26 @@ __device__ __forceinline__ void rmsnorm_rows(
 // Each thread computes a small register tile and reuses every shared load
 // across it. Score matrices use a row stride of M + 1 floats, so that the
 // threads of a warp reading one column of eight rows hit eight banks.
+// A head width (K of smem_abt, Dc of the others) that is not a multiple of
+// 4 takes a scalar loop, one output per thread: any width, any alignment.
 
 // C[i, j] = sum_k A[i, k] B[j, k] for i < R, j < C: 2 x 4 outputs per
 // thread; consecutive threads take consecutive row pairs, so a warp shares
-// its B rows (broadcast loads). R % 2 == 0, C % 4 == 0, K % 4 == 0, lda and
-// ldb % 4 == 0, A and B 16-byte aligned.
+// its B rows (broadcast loads). R % 2 == 0, C % 4 == 0; with K % 4 == 0,
+// lda and ldb % 4 == 0 and A and B 16-byte aligned.
 template <typename Epi>
 __device__ __forceinline__ void smem_abt(
     const float* __restrict__ A, int lda, const float* __restrict__ B, int ldb,
     int R, int C, int K, Epi epi) {
+    if (K & 3) {
+        for (int t = threadIdx.x; t < R * C; t += blockDim.x) {
+            const int i = t % R, j = t / R;
+            float acc = 0.f;
+            for (int k = 0; k < K; ++k) acc = fmaf(A[(size_t)i * lda + k], B[(size_t)j * ldb + k], acc);
+            epi(i, j, acc);
+        }
+        return;
+    }
     const int row_pairs = R / 2, tiles = row_pairs * (C / 4);
     for (int t = threadIdx.x; t < tiles; t += blockDim.x) {
         const int i0 = 2 * (t % row_pairs), j0 = 4 * (t / row_pairs);
@@ -534,12 +641,23 @@ __device__ __forceinline__ void smem_abt(
 }
 
 // C[i, d] = sum_k A[i, k] w[k] B[k, d] for i < R, d < Dc (w == nullptr: no
-// weights): one row and four columns per thread. Dc % 4 == 0, ldb % 4 == 0,
-// B 16-byte aligned.
+// weights): one row and four columns per thread. With Dc % 4 == 0, ldb % 4
+// == 0 and B 16-byte aligned.
 template <typename Epi>
 __device__ __forceinline__ void smem_awb(
     const float* __restrict__ A, int lda, const float* __restrict__ w,
     const float* __restrict__ B, int ldb, int R, int Dc, int K, Epi epi) {
+    if (Dc & 3) {
+        for (int t = threadIdx.x; t < R * Dc; t += blockDim.x) {
+            const int i = t / Dc, d = t % Dc;
+            const float* a = A + (size_t)i * lda;
+            float acc = 0.f;
+            for (int k = 0; k < K; ++k)
+                acc = fmaf(w == nullptr ? a[k] : w[k] * a[k], B[(size_t)k * ldb + d], acc);
+            epi(i, d, acc);
+        }
+        return;
+    }
     const int quads = Dc / 4, tiles = R * quads;
     for (int t = threadIdx.x; t < tiles; t += blockDim.x) {
         const int i = t / quads, d0 = 4 * (t % quads);
@@ -559,12 +677,21 @@ __device__ __forceinline__ void smem_awb(
 }
 
 // C[j, d] = sum_i A[i, j] B[i, d] for j < R, d < Dc (A transposed, i < K):
-// one row and four columns per thread. Dc % 4 == 0, ldb % 4 == 0, B
-// 16-byte aligned.
+// one row and four columns per thread. With Dc % 4 == 0, ldb % 4 == 0 and
+// B 16-byte aligned.
 template <typename Epi>
 __device__ __forceinline__ void smem_atb(
     const float* __restrict__ A, int lda, const float* __restrict__ B, int ldb,
     int R, int Dc, int K, Epi epi) {
+    if (Dc & 3) {
+        for (int t = threadIdx.x; t < R * Dc; t += blockDim.x) {
+            const int j = t / Dc, d = t % Dc;
+            float acc = 0.f;
+            for (int i = 0; i < K; ++i) acc = fmaf(A[(size_t)i * lda + j], B[(size_t)i * ldb + d], acc);
+            epi(j, d, acc);
+        }
+        return;
+    }
     const int quads = Dc / 4, tiles = R * quads;
     for (int t = threadIdx.x; t < tiles; t += blockDim.x) {
         const int j = t / quads, d0 = 4 * (t % quads);

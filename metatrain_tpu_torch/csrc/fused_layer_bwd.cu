@@ -54,6 +54,19 @@
 // products (QKV, scores per head, FFN-in); the gradient products are K2's.
 // The AV weights rnd(cf e) / z and the softmax gradient's e / z differ in
 // the W8A8 layer, so one more M x (M + 1) buffer: ~224 KB at M=64.
+//
+// K2-int8 and K2-dW-int8 (mtt_fused_layer_bwd_int8, bfloat16 only): the
+// body's I8 flag, the TPU kernel's `_bwd_kernel` with `int8`: the recompute
+// quantizes each head's scores with the block scales K1-int8 took (the
+// same (A, 2) array), so the softmax is K1-int8's; the softmax gradient
+// and the gradient products are K2-W8A8's, straight through on the bf16 q
+// and k. K2-dW-int8 adds K2-dW's weight gradients. One more M x (M + 1)
+// buffer than K2 / K2-dW.
+//
+// Windows that do not fit (K2-dW from M = 80 at D = 128, K2 from M = 96,
+// every variant at D = 256): layer_bwd_plan moves the scratch, then RES,
+// then q|k|v to the block's workspace slice, and K2 runs one block per SM
+// looping over the atoms (K2-dW's grid already does).
 
 #include "layer_bwd.cuh"
 
@@ -76,6 +89,9 @@ struct LayerBwdArgs {
     int M, D, H, F;
     float scale, eps;
     LayerI8 s8;            // K2-W8A8: the int8 weights and scales
+    const float* i8_scales;  // int8 scores: (A, 2) s_q, s_k
+    SmemPlan plan;         // layer_bwd_plan
+    float* ws;             // (gridDim.x, plan.ws_floats) or nullptr
 };
 
 template <typename T>
@@ -86,57 +102,94 @@ __device__ AtomIO<T> atom_io(const LayerBwdArgs<T>& p, long long a) {
                      p.d_cf + a * p.M, false};
 }
 
-// K2 and K2-W8A8: one block per atom. K2-dW: a fixed grid, block b walks
-// atoms [b A / grid, (b + 1) A / grid) and sums their weight gradients
-// into partial b.
-template <typename T, bool DW, bool W8 = false>
+// K2 and its variants without dW: block b runs atoms b, b + grid, ... (one
+// atom per block where every buffer is shared: grid = A). K2-dW: a fixed
+// grid, block b walks atoms [b A / grid, (b + 1) A / grid) and sums their
+// weight gradients into partial b.
+template <typename T, bool DW, bool W8, bool I8, bool SH>
 __global__ void __launch_bounds__(kThreads) fused_layer_bwd_kernel(LayerBwdArgs<T> p) {
     extern __shared__ __align__(16) float smem[];
-    if constexpr (!DW) {
-        layer_bwd_atom<T, false, W8>(p.w, atom_io(p, blockIdx.x), p.M, p.D, p.H, p.F, p.scale,
-                                     p.eps, smem, nullptr, p.s8);
-    } else {
+    const BwdBufs b = BwdBufs::make<SH>(p.plan, smem, p.ws + blockIdx.x * p.plan.ws_floats);
+    float* P = nullptr;
+    long long a0 = blockIdx.x, a1 = p.A, step = gridDim.x;
+    if constexpr (DW) {
         const long long total = DwLayout(p.D, p.F).total;
-        float* P = p.partials + blockIdx.x * total;
+        P = p.partials + blockIdx.x * total;
         zero_floats(P, total);
         __syncthreads();
-        const long long a0 = p.A * blockIdx.x / gridDim.x, a1 = p.A * (blockIdx.x + 1) / gridDim.x;
-        for (long long a = a0; a < a1; ++a) {
-            layer_bwd_atom<T, true>(p.w, atom_io(p, a), p.M, p.D, p.H, p.F, p.scale, p.eps, smem, P);
-            __syncthreads();
-        }
+        a0 = p.A * blockIdx.x / gridDim.x, a1 = p.A * (blockIdx.x + 1) / gridDim.x, step = 1;
+    }
+    for (long long a = a0; a < a1; a += step) {
+        ScoresI8 i8;
+        if constexpr (I8) i8 = scores_i8(p.i8_scales + 2 * a, p.scale);
+        layer_bwd_atom<T, DW, W8, I8>(p.w, atom_io(p, a), p.M, p.D, p.H, p.F, p.scale, p.eps, b,
+                                      P, p.s8, i8);
+        __syncthreads();
     }
 }
 
-template <typename T, bool DW, bool W8 = false>
-int launch(const LayerBwdArgs<T>& p, unsigned grid, cudaStream_t stream) {
-    const size_t bytes = layer_bwd_floats(p.M, p.D, p.H, p.F, DW, W8) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_layer_bwd_kernel<T, DW, W8>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+template <typename T, bool DW, bool W8, bool I8, bool SH>
+int launch_plan(const LayerBwdArgs<T>& p, unsigned grid, cudaStream_t stream) {
+    const size_t bytes = p.plan.smem_floats * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(fused_layer_bwd_kernel<T, DW, W8, I8, SH>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    fused_layer_bwd_kernel<T, DW, W8><<<grid, kThreads, bytes, stream>>>(p);
+    fused_layer_bwd_kernel<T, DW, W8, I8, SH><<<grid, kThreads, bytes, stream>>>(p);
     return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const LayerBwdArgs<T>& p, int dw_blocks, float* dw, cudaStream_t stream) {
-    if (dw == nullptr) return launch<T, false>(p, (unsigned)p.A, stream);
-    const int err = launch<T, true>(p, (unsigned)dw_blocks, stream);
+template <typename T, bool DW, bool W8 = false, bool I8 = false>
+int launch(LayerBwdArgs<T> p, unsigned grid, float* ws, cudaStream_t stream) {
+    p.plan = layer_bwd_plan(p.M, p.D, p.H, p.F, DW, W8 || I8);
+    p.ws = ws;
+    if (p.plan.ws_floats == 0) return launch_plan<T, DW, W8, I8, true>(p, grid, stream);
+    return launch_plan<T, DW, W8, I8, false>(p, grid, stream);
+}
+
+// grid: the blocks of K2 (A, or fewer with a workspace), or of K2-dW.
+template <typename T, bool I8 = false>
+int dispatch(const LayerBwdArgs<T>& p, int grid, float* ws, float* dw, cudaStream_t stream) {
+    if (dw == nullptr) return launch<T, false, false, I8>(p, (unsigned)grid, ws, stream);
+    const int err = launch<T, true, false, I8>(p, (unsigned)grid, ws, stream);
     if (err != 0) return err;
-    return launch_sum_partials(p.partials, dw_blocks, DwLayout(p.D, p.F).total, dw, stream);
+    return launch_sum_partials(p.partials, grid, DwLayout(p.D, p.F).total, dw, stream);
+}
+
+size_t plan_bytes(int M, int D, int H, int F, bool dw, bool q8, long long* ws_floats) {
+    const SmemPlan plan = layer_bwd_plan(M, D, H, F, dw, q8);
+    if (ws_floats != nullptr) *ws_floats = plan.ws_floats;
+    return plan.smem_floats * sizeof(float);
 }
 
 }  // namespace
 }  // namespace mtt
 
-extern "C" size_t mtt_fused_layer_bwd_smem(int M, int D, int H, int F, int dw) {
-    return mtt::layer_bwd_floats(M, D, H, F, dw != 0) * sizeof(float);
+// Shared-memory bytes of K2 (dw = 0) or K2-dW (dw = 1); with ws_floats, the
+// floats of workspace per block (0: every buffer is shared).
+extern "C" size_t mtt_fused_layer_bwd_smem(int M, int D, int H, int F, int dw, long long* ws_floats) {
+    return mtt::plan_bytes(M, D, H, F, dw != 0, false, ws_floats);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. dw == nullptr launches K2; otherwise
-// K2-dW with dw_blocks blocks, partials (dw_blocks, n_dw) floats of
+extern "C" size_t mtt_fused_layer_bwd_w8a8_smem(int M, int D, int H, int F, long long* ws_floats) {
+    return mtt::plan_bytes(M, D, H, F, false, true, ws_floats);
+}
+
+extern "C" size_t mtt_fused_layer_bwd_int8_smem(int M, int D, int H, int F, int dw,
+                                                long long* ws_floats) {
+    return mtt::plan_bytes(M, D, H, F, dw != 0, true, ws_floats);
+}
+
+#define MTT_BWD_W(T)                                                                          \
+    mtt::LayerBwdW<T>{(const T*)norm_attn, (const T*)w_qkv, (const T*)b_qkv, (const T*)w_out, \
+                      (const T*)b_out, (const T*)norm_mlp, (const T*)w_in, (const T*)b_in,    \
+                      (const T*)w_qkv_t, (const T*)w_out_t, (const T*)w_in_t,                 \
+                      (const T*)w_ffn_out_t}
+
+// dtype: 0 = float32, 1 = bfloat16. dw == nullptr launches K2 with grid
+// blocks; otherwise K2-dW with grid blocks, partials (grid, n_dw) floats of
 // scratch, and dw (n_dw floats, LayerWeights order) receiving the weight
-// gradients. Returns the CUDA error code (0 = ok).
+// gradients. ws: grid x the ws_floats of mtt_fused_layer_bwd_smem, or null
+// when it is 0. Returns the CUDA error code (0 = ok).
 extern "C" int mtt_fused_layer_bwd(
     int dtype, const void* edges, const void* center, const float* cf,
     const void* norm_attn, const void* w_qkv, const void* b_qkv,
@@ -145,26 +198,16 @@ extern "C" int mtt_fused_layer_bwd(
     const void* w_qkv_t, const void* w_out_t, const void* w_in_t, const void* w_ffn_out_t,
     const void* g_edge, const void* g_center,
     void* d_edges, void* d_center, float* d_cf,
-    float* partials, int dw_blocks, float* dw,
-    long long A, int M, int D, int H, int F, float scale, float eps, void* stream) {
-#define MTT_ARGS(T)                                                                      \
-    mtt::LayerBwdArgs<T>{(const T*)edges, (const T*)center, cf,                          \
-                         mtt::LayerBwdW<T>{(const T*)norm_attn, (const T*)w_qkv,         \
-                                           (const T*)b_qkv, (const T*)w_out,             \
-                                           (const T*)b_out, (const T*)norm_mlp,          \
-                                           (const T*)w_in, (const T*)b_in,               \
-                                           (const T*)w_qkv_t, (const T*)w_out_t,         \
-                                           (const T*)w_in_t, (const T*)w_ffn_out_t},     \
-                         (const T*)g_edge, (const T*)g_center, (T*)d_edges,              \
+    float* partials, float* dw,
+    long long A, int M, int D, int H, int F, float scale, float eps, int grid, float* ws,
+    void* stream) {
+#define MTT_ARGS(T)                                                                     \
+    mtt::LayerBwdArgs<T>{(const T*)edges, (const T*)center, cf, MTT_BWD_W(T),           \
+                         (const T*)g_edge, (const T*)g_center, (T*)d_edges,             \
                          (T*)d_center, d_cf, partials, A, M, D, H, F, scale, eps}
     if (A == 0) return dw == nullptr ? 0 : (int)cudaMemsetAsync(dw, 0, mtt::DwLayout(D, F).total * sizeof(float), (cudaStream_t)stream);
-    if (dtype == 0) return mtt::dispatch(MTT_ARGS(float), dw_blocks, dw, (cudaStream_t)stream);
-    return mtt::dispatch(MTT_ARGS(__nv_bfloat16), dw_blocks, dw, (cudaStream_t)stream);
-#undef MTT_ARGS
-}
-
-extern "C" size_t mtt_fused_layer_bwd_w8a8_smem(int M, int D, int H, int F) {
-    return mtt::layer_bwd_floats(M, D, H, F, false, true) * sizeof(float);
+    if (dtype == 0) return mtt::dispatch(MTT_ARGS(float), grid, ws, dw, (cudaStream_t)stream);
+    return mtt::dispatch(MTT_ARGS(__nv_bfloat16), grid, ws, dw, (cudaStream_t)stream);
 }
 
 // K2-W8A8, bfloat16 only: K2's arguments (no weight gradients), the int8
@@ -180,16 +223,35 @@ extern "C" int mtt_fused_layer_bwd_w8a8(
     const void* w_qkv_i8_t, const void* w_in_i8_t, const float* scales,
     const void* g_edge, const void* g_center,
     void* d_edges, void* d_center, float* d_cf,
-    long long A, int M, int D, int H, int F, float scale, float eps, void* stream) {
+    long long A, int M, int D, int H, int F, float scale, float eps, int grid, float* ws,
+    void* stream) {
     using T = __nv_bfloat16;
-    const mtt::LayerBwdArgs<T> p{
-        (const T*)edges, (const T*)center, cf,
-        mtt::LayerBwdW<T>{(const T*)norm_attn, (const T*)w_qkv, (const T*)b_qkv, (const T*)w_out,
-                          (const T*)b_out, (const T*)norm_mlp, (const T*)w_in, (const T*)b_in,
-                          (const T*)w_qkv_t, (const T*)w_out_t, (const T*)w_in_t,
-                          (const T*)w_ffn_out_t},
-        (const T*)g_edge, (const T*)g_center, (T*)d_edges, (T*)d_center, d_cf, nullptr, A, M, D, H,
-        F, scale, eps, mtt::layer_i8(w_qkv_i8_t, w_in_i8_t, nullptr, scales)};
+    float* partials = nullptr;  // no weight gradients
+    mtt::LayerBwdArgs<T> p = MTT_ARGS(T);
+    p.s8 = mtt::layer_i8(w_qkv_i8_t, w_in_i8_t, nullptr, scales);
     if (A == 0) return 0;
-    return mtt::launch<T, false, true>(p, (unsigned)A, (cudaStream_t)stream);
+    return mtt::launch<T, false, true>(p, (unsigned)grid, ws, (cudaStream_t)stream);
 }
+
+// K2-int8 (dw == nullptr) and K2-dW-int8, bfloat16 only: mtt_fused_layer_bwd's
+// arguments and the (A, 2) float32 scales K1-int8 took. The shared memory is
+// mtt_fused_layer_bwd_int8_smem's.
+extern "C" int mtt_fused_layer_bwd_int8(
+    const void* edges, const void* center, const float* cf,
+    const void* norm_attn, const void* w_qkv, const void* b_qkv,
+    const void* w_out, const void* b_out, const void* norm_mlp,
+    const void* w_in, const void* b_in,
+    const void* w_qkv_t, const void* w_out_t, const void* w_in_t, const void* w_ffn_out_t,
+    const float* i8_scales, const void* g_edge, const void* g_center,
+    void* d_edges, void* d_center, float* d_cf,
+    float* partials, float* dw,
+    long long A, int M, int D, int H, int F, float scale, float eps, int grid, float* ws,
+    void* stream) {
+    using T = __nv_bfloat16;
+    if (A == 0) return dw == nullptr ? 0 : (int)cudaMemsetAsync(dw, 0, mtt::DwLayout(D, F).total * sizeof(float), (cudaStream_t)stream);
+    mtt::LayerBwdArgs<T> p = MTT_ARGS(T);
+    p.i8_scales = i8_scales;
+    return mtt::dispatch<T, true>(p, grid, ws, dw, (cudaStream_t)stream);
+}
+#undef MTT_ARGS
+#undef MTT_BWD_W

@@ -35,6 +35,19 @@
 // products per atom at M=64 (at 1,979 TOPS) and ~3 M bf16 ones (AV,
 // out-projection); the FMA softmax and AV loops and the L2 weight stream
 // are where K1's time goes, and they stay.
+//
+// K1-int8 (mtt_fused_layer_fwd_int8, bfloat16 only): the body's I8 flag,
+// the TPU kernel's dynamic int8 scores (`_fwd_kernel` with `int8`,
+// `_qside_scores`): K1, but each head's scores are the s8 mma.sync product
+// of q and k quantized, as their fragments load, by the scales of the
+// atom's block of atoms (int8_absmax.cu computes them in a pass before),
+// then the W8A8 softmax. Its bound is K1's less a tenth (the score
+// products at the int8 rate); its time is K1's.
+//
+// Windows that do not fit: layer_fwd_plan moves q|k|v (then the scores, N,
+// X) to a per-block slice of a global workspace, and the grid becomes one
+// block per SM looping over the atoms, so every M up to 256 and D up to 256
+// runs; below ~227 KB the layout and the grid are unchanged.
 
 #include "layer_fwd.cuh"
 
@@ -49,65 +62,90 @@ struct LayerArgs {
     LayerW<T> w;
     T* edge_out;      // (A, M, D)
     T* center_out;    // (A, D)
+    long long A;
     int M, D, H, F;
     float scale, eps;
-    LayerI8 s8;       // the W8A8 variant's int8 weights and scales
+    LayerI8 s8;                // the W8A8 variant's int8 weights and scales
+    const float* i8_scales;    // the int8-scores variant's (A, 2) s_q, s_k
+    SmemPlan plan;             // layer_fwd_plan
+    float* ws;                 // (gridDim.x, plan.ws_floats) or nullptr
 };
 
-template <typename T, bool W8>
+// Block b runs atoms b, b + grid, ...: one atom per block where every
+// buffer fits in shared memory (grid = A), else a grid of resident blocks,
+// each with its workspace slice.
+template <typename T, bool W8, bool I8, bool SH>
 __global__ void __launch_bounds__(kThreads) fused_layer_fwd_kernel(LayerArgs<T> p) {
     extern __shared__ __align__(16) float smem[];
     const int M = p.M, D = p.D;
-    const long long a = blockIdx.x;
-    float* X = smem;
-    float* CF = layer_fwd_cf(smem, M, D, p.F);
-    const T* e = p.edges + a * M * D;
-    for (int i = threadIdx.x; i < M * D; i += blockDim.x) {
-        const int m = i / D;
-        X[i] = m == M - 1 ? to_f(p.center[a * D + i % D]) : to_f(e[i]);
+    const FwdBufs b = FwdBufs::make<SH>(p.plan, smem, p.ws + blockIdx.x * p.plan.ws_floats);
+    for (long long a = blockIdx.x; a < p.A; a += gridDim.x) {
+        const T* e = p.edges + a * M * D;
+        for (int i = threadIdx.x; i < M * D; i += blockDim.x) {
+            const int m = i / D;
+            b.X[i] = m == M - 1 ? to_f(p.center[a * D + i % D]) : to_f(e[i]);
+        }
+        for (int i = threadIdx.x; i < M; i += blockDim.x) b.CF[i] = p.cf[a * M + i];
+        __syncthreads();
+        ScoresI8 i8;
+        if constexpr (I8) i8 = scores_i8(p.i8_scales + 2 * a, p.scale);
+        layer_fwd_atom<T, W8, I8>(b, p.w, M, D, p.H, p.F, p.scale, p.eps, p.center_out + a * D,
+                                  nullptr, p.edge_out + a * M * D, false, p.s8, i8);
+        __syncthreads();
     }
-    for (int i = threadIdx.x; i < M; i += blockDim.x) CF[i] = p.cf[a * M + i];
-    __syncthreads();
-    layer_fwd_atom<T, W8>(smem, p.w, M, D, p.H, p.F, p.scale, p.eps, p.center_out + a * D, nullptr,
-                          p.edge_out + a * M * D, false, p.s8);
 }
 
-template <typename T, bool W8 = false>
-int launch(const LayerArgs<T>& p, long long A, cudaStream_t stream) {
-    const size_t bytes = layer_fwd_floats(p.M, p.D, p.F) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_layer_fwd_kernel<T, W8>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+template <typename T, bool W8, bool I8, bool SH>
+int launch_plan(const LayerArgs<T>& p, int grid, cudaStream_t stream) {
+    const size_t bytes = p.plan.smem_floats * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(fused_layer_fwd_kernel<T, W8, I8, SH>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    fused_layer_fwd_kernel<T, W8><<<(unsigned)A, kThreads, bytes, stream>>>(p);
+    fused_layer_fwd_kernel<T, W8, I8, SH><<<(unsigned)grid, kThreads, bytes, stream>>>(p);
     return (int)cudaGetLastError();
+}
+
+template <typename T, bool W8 = false, bool I8 = false>
+int launch(LayerArgs<T> p, int grid, float* ws, cudaStream_t stream) {
+    p.plan = layer_fwd_plan(p.M, p.D, p.F);
+    p.ws = ws;
+    if (p.plan.ws_floats == 0) return launch_plan<T, W8, I8, true>(p, grid, stream);
+    return launch_plan<T, W8, I8, false>(p, grid, stream);
 }
 
 }  // namespace
 }  // namespace mtt
 
-extern "C" size_t mtt_fused_layer_fwd_smem(int M, int D, int F) {
-    return mtt::layer_fwd_floats(M, D, F) * sizeof(float);
+// Shared-memory bytes of K1 and its variants (all take the same plan); with
+// ws_floats, the floats of workspace per block (0: every buffer is shared).
+extern "C" size_t mtt_fused_layer_fwd_smem(int M, int D, int F, long long* ws_floats) {
+    const mtt::SmemPlan plan = mtt::layer_fwd_plan(M, D, F);
+    if (ws_floats != nullptr) *ws_floats = plan.ws_floats;
+    return plan.smem_floats * sizeof(float);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the CUDA error code (0 = ok).
+#define MTT_LAYER_W(T)                                                                       \
+    mtt::LayerW<T>{(const T*)norm_attn, (const T*)w_qkv, (const T*)b_qkv, (const T*)w_out,  \
+                   (const T*)b_out,     (const T*)norm_mlp, (const T*)w_in, (const T*)b_in,  \
+                   (const T*)w_ffn_out, (const T*)b_ffn_out}
+
+// dtype: 0 = float32, 1 = bfloat16. grid: A, or with a workspace (ws:
+// grid x the ws_floats of mtt_fused_layer_fwd_smem) the blocks that loop
+// over the atoms. Returns the CUDA error code (0 = ok).
 extern "C" int mtt_fused_layer_fwd(
     int dtype, const void* edges, const void* center, const float* cf,
     const void* norm_attn, const void* w_qkv, const void* b_qkv,
     const void* w_out, const void* b_out, const void* norm_mlp,
     const void* w_in, const void* b_in, const void* w_ffn_out, const void* b_ffn_out,
     void* edge_out, void* center_out,
-    long long A, int M, int D, int H, int F, float scale, float eps, void* stream) {
-#define MTT_ARGS(T)                                                                   \
-    mtt::LayerArgs<T>{(const T*)edges, (const T*)center, cf,                          \
-                      mtt::LayerW<T>{(const T*)norm_attn, (const T*)w_qkv,            \
-                                     (const T*)b_qkv, (const T*)w_out,                \
-                                     (const T*)b_out, (const T*)norm_mlp,             \
-                                     (const T*)w_in, (const T*)b_in,                  \
-                                     (const T*)w_ffn_out, (const T*)b_ffn_out},       \
-                      (T*)edge_out, (T*)center_out, M, D, H, F, scale, eps}
+    long long A, int M, int D, int H, int F, float scale, float eps, int grid, float* ws,
+    void* stream) {
+#define MTT_ARGS(T)                                                                 \
+    mtt::LayerArgs<T>{(const T*)edges, (const T*)center, cf, MTT_LAYER_W(T),        \
+                      (T*)edge_out, (T*)center_out, A, M, D, H, F, scale, eps}
     if (A == 0) return 0;
-    if (dtype == 0) return mtt::launch(MTT_ARGS(float), A, (cudaStream_t)stream);
-    return mtt::launch(MTT_ARGS(__nv_bfloat16), A, (cudaStream_t)stream);
+    if (dtype == 0) return mtt::launch(MTT_ARGS(float), grid, ws, (cudaStream_t)stream);
+    return mtt::launch(MTT_ARGS(__nv_bfloat16), grid, ws, (cudaStream_t)stream);
 #undef MTT_ARGS
 }
 
@@ -122,15 +160,31 @@ extern "C" int mtt_fused_layer_fwd_w8a8(
     const void* w_in, const void* b_in, const void* w_ffn_out, const void* b_ffn_out,
     const void* w_qkv_i8_t, const void* w_in_i8_t, const void* w_fo_i8_t, const float* scales,
     void* edge_out, void* center_out, long long A, int M, int D, int H, int F, float eps,
-    void* stream) {
+    int grid, float* ws, void* stream) {
     using T = __nv_bfloat16;
     const mtt::LayerArgs<T> p{
-        (const T*)edges, (const T*)center, cf,
-        mtt::LayerW<T>{(const T*)norm_attn, (const T*)w_qkv, (const T*)b_qkv, (const T*)w_out,
-                       (const T*)b_out, (const T*)norm_mlp, (const T*)w_in, (const T*)b_in,
-                       (const T*)w_ffn_out, (const T*)b_ffn_out},
-        (T*)edge_out, (T*)center_out, M, D, H, F, 1.f, eps,
-        mtt::layer_i8(w_qkv_i8_t, w_in_i8_t, w_fo_i8_t, scales)};
+        (const T*)edges, (const T*)center, cf, MTT_LAYER_W(T), (T*)edge_out, (T*)center_out, A, M,
+        D, H, F, 1.f, eps, mtt::layer_i8(w_qkv_i8_t, w_in_i8_t, w_fo_i8_t, scales)};
     if (A == 0) return 0;
-    return mtt::launch<T, true>(p, A, (cudaStream_t)stream);
+    return mtt::launch<T, true>(p, grid, ws, (cudaStream_t)stream);
 }
+
+// K1-int8, bfloat16 only: K1's arguments and the (A, 2) float32 scales s_q,
+// s_k of each atom's block (mtt_int8_absmax). The shared memory is
+// mtt_fused_layer_fwd_smem's.
+extern "C" int mtt_fused_layer_fwd_int8(
+    const void* edges, const void* center, const float* cf,
+    const void* norm_attn, const void* w_qkv, const void* b_qkv,
+    const void* w_out, const void* b_out, const void* norm_mlp,
+    const void* w_in, const void* b_in, const void* w_ffn_out, const void* b_ffn_out,
+    const float* i8_scales, void* edge_out, void* center_out,
+    long long A, int M, int D, int H, int F, float scale, float eps, int grid, float* ws,
+    void* stream) {
+    using T = __nv_bfloat16;
+    mtt::LayerArgs<T> p{(const T*)edges, (const T*)center, cf, MTT_LAYER_W(T), (T*)edge_out,
+                        (T*)center_out, A, M, D, H, F, scale, eps};
+    p.i8_scales = i8_scales;
+    if (A == 0) return 0;
+    return mtt::launch<T, false, true>(p, grid, ws, (cudaStream_t)stream);
+}
+#undef MTT_LAYER_W

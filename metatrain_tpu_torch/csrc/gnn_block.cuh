@@ -149,6 +149,12 @@ __host__ __device__ inline size_t center_fwd_floats(int N, int D) {
     return (size_t)N + D + N + N + 4 * N + 2 * N + 4 + gemv_red_floats(4 * N);
 }
 
+// K1's plan in what the node stream (after it in shared memory) leaves:
+// the block's forward and its backward's forward recompute.
+inline SmemPlan gnn_fwd_plan(int M, int D, int F, int Nn) {
+    return layer_fwd_plan(M, D, F, kMaxSharedFloats - (long long)center_fwd_floats(Nn, D));
+}
+
 struct CenterSmem {
     float *node, *cattn, *nmid, *hn, *vg, *h, *sc, *red;
     __device__ CenterSmem(float* base, int N, int D) {

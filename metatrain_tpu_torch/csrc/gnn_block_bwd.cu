@@ -60,6 +60,8 @@ struct GnnBwdArgs {
     int L, M, D, H, F, Nn, nbuf;
     bool expanded;
     float scale, eps;
+    SmemPlan fwd_plan, bwd_plan;  // the two phases' buffers, one shared region
+    float* ws;                    // (gridDim.x, gnn_bwd_ws_floats) or nullptr
 };
 
 // The node stream's backward in shared memory (floats).
@@ -82,11 +84,17 @@ struct CenterBwdSmem {
 
 __host__ __device__ inline size_t center_bwd_floats(int N, int D) { return 16 * (size_t)N + D + 4; }
 
-__host__ __device__ inline size_t gnn_bwd_floats(int M, int D, int H, int F, int Nn, bool dw) {
-    size_t n = layer_fwd_floats(M, D, F) + center_fwd_floats(Nn, D);
-    const size_t lb = layer_bwd_floats(M, D, H, F, dw), cb = center_bwd_floats(Nn, D);
-    n = n > lb ? n : lb;
-    return n > cb ? n : cb;
+// The shared floats and the workspace floats per block of the backward: the
+// larger of its phases' (K1's body with the node stream, K2's body, the node
+// stream's backward), which reuse one region.
+inline void gnn_bwd_sizes(int M, int D, int H, int F, int Nn, bool dw, long long* smem_floats,
+                          long long* ws_floats) {
+    const SmemPlan f = gnn_fwd_plan(M, D, F, Nn), b = layer_bwd_plan(M, D, H, F, dw, false);
+    long long n = f.smem_floats + (long long)center_fwd_floats(Nn, D);
+    n = n > b.smem_floats ? n : b.smem_floats;
+    const long long cb = (long long)center_bwd_floats(Nn, D);
+    *smem_floats = n > cb ? n : cb;
+    *ws_floats = f.ws_floats > b.ws_floats ? f.ws_floats : b.ws_floats;
 }
 
 // Node stream backward of one layer, from b.dn (the node features'
@@ -159,17 +167,18 @@ __device__ void center_bwd_tail(const CenterW<T>& cw, const CenterBwdSmem& b, in
     __syncthreads();
 }
 
-template <typename T, bool DW>
-__device__ void gnn_bwd_atom(const GnnBwdArgs<T>& p, long long a, float* smem, float* P) {
+template <typename T, bool DW, bool SH>
+__device__ void gnn_bwd_atom(const GnnBwdArgs<T>& p, long long a, float* smem, float* ws, float* P) {
     const int M = p.M, D = p.D, Nn = p.Nn, L = p.L;
     const long long rows_md = (long long)M * D;
     const CenterRows R(Nn, D);
 
     // ---- forward recompute: K1's layout and the node stream ---------------
     {
-        float* X = smem;
-        float* CF = layer_fwd_cf(smem, M, D, p.F);
-        const CenterSmem c(smem + layer_fwd_floats(M, D, p.F), Nn, D);
+        const FwdBufs fb = FwdBufs::make<SH>(p.fwd_plan, smem, ws);
+        float* X = fb.X;
+        float* CF = fb.CF;
+        const CenterSmem c(smem + p.fwd_plan.smem_floats, Nn, D);
         const T* e = p.edges + a * rows_md;
         for (int i = threadIdx.x; i < (M - 1) * D; i += blockDim.x) X[i] = to_f(e[i]);
         for (int i = threadIdx.x; i < M; i += blockDim.x) CF[i] = p.cf[a * M + i];
@@ -191,7 +200,7 @@ __device__ void gnn_bwd_atom(const GnnBwdArgs<T>& p, long long a, float* smem, f
             __syncthreads();
             const bool last = l == L - 1;
             T* e_next = last ? nullptr : p.escr + (a * (L - 1) + l) * rows_md;
-            layer_fwd_atom<T>(smem, p.layer[l], M, D, p.H, p.F, p.scale, p.eps, nullptr, c.cattn,
+            layer_fwd_atom<T>(fb, p.layer[l], M, D, p.H, p.F, p.scale, p.eps, nullptr, c.cattn,
                               e_next, !last);
             __syncthreads();
             if (p.expanded) {
@@ -206,6 +215,7 @@ __device__ void gnn_bwd_atom(const GnnBwdArgs<T>& p, long long a, float* smem, f
 
     // ---- backward, last layer first -----------------------------------------
     const CenterBwdSmem b(smem, Nn, D);
+    const BwdBufs bb = BwdBufs::make<SH>(p.bwd_plan, smem, ws);
     for (int i = threadIdx.x; i < Nn; i += blockDim.x) b.dn[i] = to_f(p.g_node[a * Nn + i]);
     __syncthreads();
     const long long plane = p.A * rows_md;
@@ -228,7 +238,7 @@ __device__ void gnn_bwd_atom(const GnnBwdArgs<T>& p, long long a, float* smem, f
         io.d_center = vec + 2 * D;
         io.d_cf = p.d_cf + a * M;
         io.add_dcf = l < L - 1;
-        layer_bwd_atom<T, DW>(p.lbwd[l], io, M, D, p.H, p.F, p.scale, p.eps, smem,
+        layer_bwd_atom<T, DW>(p.lbwd[l], io, M, D, p.H, p.F, p.scale, p.eps, bb,
                               DW ? P + l * DwLayout(D, p.F).total : nullptr);
         __syncthreads();
         if (p.expanded) {
@@ -241,14 +251,20 @@ __device__ void gnn_bwd_atom(const GnnBwdArgs<T>& p, long long a, float* smem, f
     for (int i = threadIdx.x; i < Nn; i += blockDim.x) p.d_node[a * Nn + i] = from_f<T>(b.dn[i]);
 }
 
-// One block per atom; with DW a fixed grid, block b walks atoms
-// [b A / grid, (b + 1) A / grid) and sums the layer weight gradients into
-// partial b.
-template <typename T, bool DW>
+// Block b runs atoms b, b + grid, ... (grid = A where every buffer is
+// shared); with DW a fixed grid, block b walks atoms [b A / grid, (b + 1) A
+// / grid) and sums the layer weight gradients into partial b.
+template <typename T, bool DW, bool SH>
 __global__ void __launch_bounds__(kThreads) gnn_block_bwd_kernel(GnnBwdArgs<T> p) {
     extern __shared__ __align__(16) float smem[];
+    long long ws_floats = p.fwd_plan.ws_floats > p.bwd_plan.ws_floats ? p.fwd_plan.ws_floats
+                                                                       : p.bwd_plan.ws_floats;
+    float* ws = p.ws + blockIdx.x * ws_floats;
     if constexpr (!DW) {
-        gnn_bwd_atom<T, false>(p, blockIdx.x, smem, nullptr);
+        for (long long a = blockIdx.x; a < p.A; a += gridDim.x) {
+            gnn_bwd_atom<T, false, SH>(p, a, smem, ws, nullptr);
+            __syncthreads();
+        }
     } else {
         const long long total = p.L * DwLayout(p.D, p.F).total;
         float* P = p.partials + blockIdx.x * total;
@@ -256,7 +272,7 @@ __global__ void __launch_bounds__(kThreads) gnn_block_bwd_kernel(GnnBwdArgs<T> p
         __syncthreads();
         const long long a0 = p.A * blockIdx.x / gridDim.x, a1 = p.A * (blockIdx.x + 1) / gridDim.x;
         for (long long a = a0; a < a1; ++a) {
-            gnn_bwd_atom<T, true>(p, a, smem, P);
+            gnn_bwd_atom<T, true, SH>(p, a, smem, ws, P);
             __syncthreads();
         }
     }
@@ -363,18 +379,28 @@ int launch_center_dw(const float* rows, long long A, int L, int N, int D, float*
     return (int)cudaGetLastError();
 }
 
-template <typename T, bool DW>
-int launch(const GnnBwdArgs<T>& p, unsigned grid, cudaStream_t stream) {
-    const size_t bytes = gnn_bwd_floats(p.M, p.D, p.H, p.F, p.Nn, DW) * sizeof(float);
+template <typename T, bool DW, bool SH>
+int launch_plan(const GnnBwdArgs<T>& p, unsigned grid, size_t bytes, cudaStream_t stream) {
     cudaError_t err = cudaFuncSetAttribute(
-        gnn_block_bwd_kernel<T, DW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        gnn_block_bwd_kernel<T, DW, SH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    gnn_block_bwd_kernel<T, DW><<<grid, kThreads, bytes, stream>>>(p);
+    gnn_block_bwd_kernel<T, DW, SH><<<grid, kThreads, bytes, stream>>>(p);
     return (int)cudaGetLastError();
 }
 
+template <typename T, bool DW>
+int launch(GnnBwdArgs<T>& p, unsigned grid, cudaStream_t stream) {
+    p.fwd_plan = gnn_fwd_plan(p.M, p.D, p.F, p.Nn);
+    p.bwd_plan = layer_bwd_plan(p.M, p.D, p.H, p.F, DW, false);
+    long long smem_floats, ws_floats;
+    gnn_bwd_sizes(p.M, p.D, p.H, p.F, p.Nn, DW, &smem_floats, &ws_floats);
+    const size_t bytes = smem_floats * sizeof(float);
+    if (ws_floats == 0) return launch_plan<T, DW, true>(p, grid, bytes, stream);
+    return launch_plan<T, DW, false>(p, grid, bytes, stream);
+}
+
 template <typename T>
-int run(int dw_blocks, float* dw, const void* edges, const void* node, const float* cf,
+int run(int grid, float* ws, float* dw, const void* edges, const void* node, const float* cf,
         const void* const* layer_w, const void* const* layer_t, const void* const* center_w,
         const void* g_edge, const void* g_node, void* d_edges, void* d_node, float* d_cf,
         void* escr, void* dscr, int nbuf, void* vecs, float* rows, float* partials, long long A,
@@ -409,10 +435,11 @@ int run(int dw_blocks, float* dw, const void* edges, const void* node, const flo
     p.L = L, p.M = M, p.D = D, p.H = H, p.F = F, p.Nn = Nn, p.nbuf = nbuf > 0 ? nbuf : 1;
     p.expanded = expanded != 0;
     p.scale = scale, p.eps = eps;
-    if (dw == nullptr) return launch<T, false>(p, (unsigned)A, stream);
-    int err = launch<T, true>(p, (unsigned)dw_blocks, stream);
+    p.ws = ws;
+    if (dw == nullptr) return launch<T, false>(p, (unsigned)grid, stream);
+    int err = launch<T, true>(p, (unsigned)grid, stream);
     if (err != 0) return err;
-    err = launch_sum_partials(partials, dw_blocks, L * DwLayout(D, F).total, dw, stream);
+    err = launch_sum_partials(partials, grid, L * DwLayout(D, F).total, dw, stream);
     if (err != 0 || !expanded) return err;
     return launch_center_dw(rows, A, L, Nn, D, dw + L * DwLayout(D, F).total, stream);
 }
@@ -420,8 +447,14 @@ int run(int dw_blocks, float* dw, const void* edges, const void* node, const flo
 }  // namespace
 }  // namespace mtt
 
-extern "C" size_t mtt_gnn_block_bwd_smem(int M, int D, int H, int F, int Nn, int dw) {
-    return mtt::gnn_bwd_floats(M, D, H, F, Nn, dw != 0) * sizeof(float);
+// Shared-memory bytes of the block's backward (dw = 1: its weight-gradient
+// variant); with ws_floats, the floats of workspace per block.
+extern "C" size_t mtt_gnn_block_bwd_smem(int M, int D, int H, int F, int Nn, int dw,
+                                         long long* ws_floats) {
+    long long smem_floats, ws;
+    mtt::gnn_bwd_sizes(M, D, H, F, Nn, dw != 0, &smem_floats, &ws);
+    if (ws_floats != nullptr) *ws_floats = ws;
+    return smem_floats * sizeof(float);
 }
 
 // Floats per atom and layer of the node stream's row scratch.
@@ -433,19 +466,21 @@ extern "C" long long mtt_gnn_block_row_floats(int Nn, int D) { return mtt::Cente
 // expanded. Scratch from the caller: escr (A, L-1, M, D), dscr (nbuf, A, M,
 // D) with nbuf = min(L - 1, 2), vecs (A, L, 3, D) of the compute dtype;
 // rows (A, L, mtt_gnn_block_row_floats) floats with expanded. dw ==
-// nullptr launches the input-gradient variant; otherwise the weight-
-// gradient variant with dw_blocks blocks, partials (dw_blocks, L x n_dw)
-// floats, and dw receiving the float gradients of every weight in the
-// JAX package's flat order (L x LayerWeights, then L x CenterWeights).
-// 1 <= L <= 8. Returns the CUDA error code (0 = ok).
+// nullptr launches the input-gradient variant with grid blocks (A, or
+// fewer with a workspace); otherwise the weight-gradient variant with grid
+// blocks, partials (grid, L x n_dw) floats, and dw receiving the float
+// gradients of every weight in the JAX package's flat order (L x
+// LayerWeights, then L x CenterWeights). ws: grid x the ws_floats of
+// mtt_gnn_block_bwd_smem, or null when it is 0. 1 <= L <= 8. Returns the
+// CUDA error code (0 = ok).
 extern "C" int mtt_gnn_block_bwd(
     int dtype, const void* edges, const void* node, const float* cf,
     const void* const* layer_w, const void* const* layer_t, const void* const* center_w,
     const void* g_edge, const void* g_node, void* d_edges, void* d_node, float* d_cf,
     void* escr, void* dscr, int nbuf, void* vecs, float* rows,
-    float* partials, int dw_blocks, float* dw,
+    float* partials, float* dw,
     long long A, int L, int M, int D, int H, int F, int Nn, int expanded, float scale, float eps,
-    void* stream) {
+    int grid, float* ws, void* stream) {
     if (L < 1 || L > mtt::kMaxGnnLayers) return (int)cudaErrorInvalidValue;
     if (A == 0) {
         if (dw == nullptr) return 0;
@@ -454,7 +489,7 @@ extern "C" int mtt_gnn_block_bwd(
         return (int)cudaMemsetAsync(dw, 0, n * sizeof(float), (cudaStream_t)stream);
     }
 #define MTT_RUN(T)                                                                            \
-    mtt::run<T>(dw_blocks, dw, edges, node, cf, layer_w, layer_t, center_w, g_edge, g_node,   \
+    mtt::run<T>(grid, ws, dw, edges, node, cf, layer_w, layer_t, center_w, g_edge, g_node,   \
                 d_edges, d_node, d_cf, escr, dscr, nbuf, vecs, rows, partials, A, L, M, D, H, \
                 F, Nn, expanded, scale, eps, (cudaStream_t)stream)
     if (dtype == 0) return MTT_RUN(float);

@@ -8,6 +8,17 @@
 // forward (int8 QKV, scores and FFN-in; cf * e rounded), and every
 // gradient product takes the T weights and q, k rounded to T, as if the
 // quantizers were the identity. No weight gradients.
+//
+// I8 = true is the backward of the dynamic int8 scores (layer_fwd.cuh),
+// as _layer_bwd_math with int8: the recompute quantizes each head's scores
+// with the same block scales as the forward, so it reproduces K1-int8's
+// softmax; the softmax and every gradient product are K2-W8A8's (q and k
+// are already in T). With DW as well, the weight gradients.
+//
+// Buffers (layer_bwd_plan): X (M x D), QKV (M x (3D + 4)), RES (M x max(D,
+// M + 1)), SCR (scratch_floats), RS1, RS2, CF, DCF (M each); all in shared
+// memory up to ~231 KB (K2-dW at M = 64, D = 128), else the scratch, then
+// RES, then q|k|v move to the block's workspace slice.
 
 #pragma once
 
@@ -70,20 +81,40 @@ struct DwLayout {
 
 // Scratch: n1 / attn / d_attn_out (M x D), the SwiGLU row chunk (with
 // K2-dW's two extra row buffers), or one head's attention backward (E, T:
-// M x (M + 1); dq: M x hd; W8A8: the AV weights, M x (M + 1)), whichever is
-// largest.
-__host__ __device__ inline size_t scratch_floats(int M, int D, int H, int F, bool dw, bool w8 = false) {
+// M x (M + 1); dq: M x hd; with int8 scores (q8): the AV weights, M x (M +
+// 1)), whichever is largest.
+__host__ __device__ inline size_t scratch_floats(int M, int D, int H, int F, bool dw, bool q8 = false) {
     const size_t ffn = (size_t)kRowChunk * (D + 2 * F + (dw ? D + F : 0));
-    const size_t att = (w8 ? 3 : 2) * (size_t)M * (M + 1) + (size_t)M * (D / H);
+    const size_t att = (q8 ? 3 : 2) * (size_t)M * (M + 1) + (size_t)M * (D / H);
     const size_t rows = (size_t)M * D;
     const size_t big = ffn > att ? ffn : att;
     return big > rows ? big : rows;
 }
 
-__host__ __device__ inline size_t layer_bwd_floats(int M, int D, int H, int F, bool dw, bool w8 = false) {
-    return 2 * (size_t)M * D + (size_t)M * qkv_stride(D) + scratch_floats(M, D, H, F, dw, w8) +
-           4 * (size_t)M;
+enum BwdBuf { kBwdX, kBwdQKV, kBwdRES, kBwdSCR, kBwdRS1, kBwdRS2, kBwdCF, kBwdDCF, kBwdBufs };
+
+// The body's buffers placed under `cap` floats of shared memory: the four
+// row vectors and X first, then q|k|v, RES and the scratch.
+inline SmemPlan layer_bwd_plan(int M, int D, int H, int F, bool dw, bool q8,
+                               long long cap = kMaxSharedFloats) {
+    const long long md = (long long)M * D, mp = (long long)M * (M + 1);
+    const long long sizes[kBwdBufs] = {md, (long long)M * qkv_stride(D), md > mp ? md : mp,
+                                       (long long)scratch_floats(M, D, H, F, dw, q8), M, M, M, M};
+    const int keep[kBwdBufs] = {kBwdRS1, kBwdRS2, kBwdCF, kBwdDCF, kBwdX, kBwdQKV, kBwdRES, kBwdSCR};
+    return make_plan(sizes, keep, kBwdBufs, cap);
 }
+
+struct BwdBufs {
+    float *X, *QKV, *RES, *SCR, *RS1, *RS2, *CF, *DCF;
+    // SH: the plan keeps every buffer shared (plan_ptr)
+    template <bool SH>
+    __device__ static BwdBufs make(const SmemPlan& p, float* smem, float* ws) {
+        return BwdBufs{plan_ptr<SH>(p, kBwdX, smem, ws),   plan_ptr<SH>(p, kBwdQKV, smem, ws),
+                       plan_ptr<SH>(p, kBwdRES, smem, ws), plan_ptr<SH>(p, kBwdSCR, smem, ws),
+                       plan_ptr<SH>(p, kBwdRS1, smem, ws), plan_ptr<SH>(p, kBwdRS2, smem, ws),
+                       plan_ptr<SH>(p, kBwdCF, smem, ws),  plan_ptr<SH>(p, kBwdDCF, smem, ws)};
+    }
+};
 
 // d_x of y = rnd(x * r * w) given dy, for one row (one warp): returns the
 // row sum s = sum(gs * x) with gs = dy * r * w, so d_x = gs - x r^2 s / D.
@@ -96,25 +127,27 @@ __device__ __forceinline__ float rms_bwd_sum(const float* x, const float* dy, fl
 
 // One atom's backward; with DW, its weight gradients are added to the
 // block's partial P; with W8, the W8A8 layer's (s8: its int8 weights and
-// scales).
-template <typename T, bool DW, bool W8 = false>
-__device__ void layer_bwd_atom(const LayerBwdW<T>& p, const AtomIO<T>& io, int M, int D, int H,
-                               int F, float scale, float eps, float* smem, float* P,
-                               LayerI8 s8 = {}) {
+// scales); with I8, the dynamic int8 scores' (i8: the atom's scales).
+template <typename T, bool DW, bool W8 = false, bool I8 = false>
+__device__ __forceinline__ void layer_bwd_atom(const LayerBwdW<T>& p, const AtomIO<T>& io, int M, int D, int H,
+                               int F, float scale, float eps, const BwdBufs& bufs, float* P,
+                               LayerI8 s8 = {}, ScoresI8 i8 = {}) {
     static_assert(!(DW && W8), "the W8A8 layer has no weight gradients");
+    static_assert(!(W8 && I8), "one int8 variant at a time");
+    constexpr bool Q8 = W8 || I8;  // int8 scores and the rounded softmax
     const int hd = D / H;
-    const int LQ = qkv_stride(D), LP = M + 1;  // M < D: the scores fit in RES
+    const int LQ = qkv_stride(D), LP = M + 1;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
     const DwLayout L(D, F);
 
-    float* X = smem;              // tokens, later attn (DW), d_attn, d_n1
-    float* QKV = X + M * D;       // q|k|v, then dq|dk|dv
-    float* RES = QKV + M * LQ;    // one head's softmax, then res, then d_res
-    float* SCR = RES + M * D;     // n1, attn, SwiGLU chunk, d_attn_out, attention bwd, n1 (DW)
-    float* RS1 = SCR + scratch_floats(M, D, H, F, DW, W8);
-    float* RS2 = RS1 + M;
-    float* CF = RS2 + M;
-    float* DCF = CF + M;
+    float* X = bufs.X;      // tokens, later attn (DW), d_attn, d_n1
+    float* QKV = bufs.QKV;  // q|k|v, then dq|dk|dv
+    float* RES = bufs.RES;  // one head's softmax, then res, then d_res
+    float* SCR = bufs.SCR;  // n1, attn, SwiGLU chunk, d_attn_out, attention bwd, n1 (DW)
+    float* RS1 = bufs.RS1;
+    float* RS2 = bufs.RS2;
+    float* CF = bufs.CF;
+    float* DCF = bufs.DCF;
 
     const T* e = io.e;
     const T* ge = io.ge;
@@ -151,16 +184,21 @@ __device__ void layer_bwd_atom(const LayerBwdW<T>& p, const AtomIO<T>& io, int M
         if constexpr (W8) {
             scores_s8(QKV + h * hd, s8.inv_q, QKV + D + h * hd, s8.inv_k, LQ, M, hd,
                       [&](int q, int k, int s) { RES[q * LP + k] = __fmul_rn((float)s, s8.deq_scores); });
-            __syncthreads();
-            cf_softmax_rows_w8<T>(RES, LP, CF, M, nullptr);
+        } else if constexpr (I8) {
+            scores_s8<true>(QKV + h * hd, i8.s_q, QKV + D + h * hd, i8.s_k, LQ, M, hd,
+                            [&](int q, int k, int s) { RES[q * LP + k] = __fmul_rn((float)s, i8.factor); });
         } else {
             smem_abt(QKV + h * hd, LQ, QKV + D + h * hd, LQ, M, M, hd,
                      [&](int q, int k, float s) { RES[q * LP + k] = s * scale; });
-            __syncthreads();
+        }
+        __syncthreads();
+        if constexpr (Q8) {
+            cf_softmax_rows_w8<T>(RES, LP, CF, M, nullptr);
+        } else {
             cf_softmax_rows(RES, LP, CF, M);
         }
         __syncthreads();
-        smem_awb(RES, LP, W8 ? nullptr : CF, QKV + 2 * D + h * hd, LQ, M, hd, M,
+        smem_awb(RES, LP, Q8 ? nullptr : CF, QKV + 2 * D + h * hd, LQ, M, hd, M,
                  [&](int q, int d, float o) { SCR[q * D + h * hd + d] = rnd<T>(o); });
         __syncthreads();
     }
@@ -265,7 +303,7 @@ __device__ void layer_bwd_atom(const LayerBwdW<T>& p, const AtomIO<T>& io, int M
     float* E = SCR;             // exp(s - max) / sum cf exp(s - max)   (M x LP)
     float* Tm = E + M * LP;     // dP, then E * (dP - delta)            (M x LP)
     float* DQ = Tm + M * LP;    // (M, hd): dq of this head
-    float* PW = DQ + M * hd;    // W8: the AV weights rnd(cf e) / z     (M x LP)
+    float* PW = DQ + M * hd;    // Q8: the AV weights rnd(cf e) / z     (M x LP)
     for (int h = 0; h < H; ++h) {
         float* qh = QKV + h * hd;
         float* kh = QKV + D + h * hd;
@@ -281,6 +319,12 @@ __device__ void layer_bwd_atom(const LayerBwdW<T>& p, const AtomIO<T>& io, int M
                 qh[m * LQ + d] = rnd<T>(qh[m * LQ + d]);
                 kh[m * LQ + d] = rnd<T>(kh[m * LQ + d]);
             }
+        } else if constexpr (I8) {
+            // straight through: q and k are in T already
+            scores_s8<true>(qh, i8.s_q, kh, i8.s_k, LQ, M, hd,
+                            [&](int q, int k, int s) { PW[q * LP + k] = __fmul_rn((float)s, i8.factor); });
+            __syncthreads();
+            cf_softmax_rows_w8<T>(PW, LP, CF, M, E);
         } else {
             smem_abt(qh, LQ, kh, LQ, M, M, hd, [&](int q, int k, float s) { E[q * LP + k] = s * scale; });
             __syncthreads();
@@ -291,7 +335,7 @@ __device__ void layer_bwd_atom(const LayerBwdW<T>& p, const AtomIO<T>& io, int M
         for (int q = warp; q < M; q += nw) {
             float delta = 0.f;
             for (int k = lane; k < M; k += 32)
-                delta = fmaf(W8 ? PW[q * LP + k] : CF[k] * E[q * LP + k], Tm[q * LP + k], delta);
+                delta = fmaf(Q8 ? PW[q * LP + k] : CF[k] * E[q * LP + k], Tm[q * LP + k], delta);
             delta = warp_sum(delta);
             for (int k = lane; k < M; k += 32) Tm[q * LP + k] = E[q * LP + k] * (Tm[q * LP + k] - delta);
         }
@@ -304,7 +348,7 @@ __device__ void layer_bwd_atom(const LayerBwdW<T>& p, const AtomIO<T>& io, int M
             DCF[k] += s;
         }
         smem_awb(Tm, LP, CF, kh, LQ, M, hd, M, [&](int q, int d, float s) { DQ[q * hd + d] = s * scale; });
-        if constexpr (W8) {
+        if constexpr (Q8) {
             smem_atb(PW, LP, DAT + h * hd, D, M, hd, M,
                      [&](int k, int d, float s) { vh[k * LQ + d] = rnd<T>(s); });
         } else {

@@ -2,9 +2,12 @@
 // shared by K1 (fused_layer_fwd.cu) and the GNN block (gnn_block_fwd.cu,
 // and the forward recompute of gnn_block_bwd.cu).
 //
-// Shared-memory layout of the body (floats): X (M x D, the tokens, then
-// the residual), N (M x D: normed, attn, h_norm), Q (M x max(3D + 4, F):
-// q|k|v, then ffn_h), P (M x (M + 1): one head's scores) and CF (M).
+// Buffers of the body (floats): X (M x D, the tokens, then the residual),
+// N (M x D: normed, attn, h_norm), Q (M x max(3D + 4, F): q|k|v, then
+// ffn_h), P (M x (M + 1): one head's scores) and CF (M). layer_fwd_plan
+// places them (common.cuh SmemPlan): all in shared memory up to ~181 KB
+// (M = 64, D = 128); for larger windows or widths q|k|v moves first to the
+// block's workspace slice, then the scores, N and X.
 //
 // W8 = true is the W8A8 layer (the JAX package's _layer_math with w8a8):
 // the QKV, score, FFN-in and FFN-out products run on int8 tensor cores
@@ -12,7 +15,12 @@
 // products stay in T. Where the exact layer rounds to T, the W8A8 layer
 // keeps the float the quantizer takes: the two RMSNorm outputs, q and k
 // (quantized again for the scores) and ffn_h; v is rounded to T. The
-// softmax rounds cf * e to T (cf_softmax_rows_w8). Same shared memory.
+// softmax rounds cf * e to T (cf_softmax_rows_w8). Same buffers.
+//
+// I8 = true is the dynamic int8 scores (_layer_math with int8, q-side):
+// the exact layer, but each head's scores are the int8 product of q and k
+// quantized by their block's absmax scales (common.cuh ScoresI8), followed
+// by the W8A8 layer's softmax (_qside_tail). Same buffers.
 
 #pragma once
 
@@ -35,34 +43,50 @@ struct LayerW {
     const T* b_ffn_out;  // (D,)
 };
 
-__host__ __device__ inline size_t layer_fwd_floats(int M, int D, int F) {
+enum FwdBuf { kFwdX, kFwdN, kFwdQ, kFwdP, kFwdCF, kFwdBufs };
+
+// The body's buffers placed under `cap` floats of shared memory: the cutoff
+// weights and the products' operands X and N first, then the scores, then
+// q|k|v.
+inline SmemPlan layer_fwd_plan(int M, int D, int F, long long cap = kMaxSharedFloats) {
     const int LQ = qkv_stride(D);
-    return 2 * (size_t)M * D + (size_t)M * (LQ > F ? LQ : F) + (size_t)M * (M + 1) + M;
+    const long long sizes[kFwdBufs] = {(long long)M * D, (long long)M * D,
+                                       (long long)M * (LQ > F ? LQ : F), (long long)M * (M + 1), M};
+    const int keep[kFwdBufs] = {kFwdCF, kFwdX, kFwdN, kFwdP, kFwdQ};
+    return make_plan(sizes, keep, kFwdBufs, cap);
 }
 
-// The cutoff weights' place in the layout.
-__host__ __device__ inline float* layer_fwd_cf(float* smem, int M, int D, int F) {
-    return smem + layer_fwd_floats(M, D, F) - M;
-}
+struct FwdBufs {
+    float *X, *N, *Q, *P, *CF;
+    // SH: the plan keeps every buffer shared (plan_ptr)
+    template <bool SH>
+    __device__ static FwdBufs make(const SmemPlan& p, float* smem, float* ws) {
+        return FwdBufs{plan_ptr<SH>(p, kFwdX, smem, ws), plan_ptr<SH>(p, kFwdN, smem, ws),
+                       plan_ptr<SH>(p, kFwdQ, smem, ws), plan_ptr<SH>(p, kFwdP, smem, ws),
+                       plan_ptr<SH>(p, kFwdCF, smem, ws)};
+    }
+};
 
-// One layer on one atom. On entry X (the first M * D floats of smem) holds
-// the tokens with the center token in slot M-1, and CF the cutoff weights
-// (cf[M-1] == 1). The attention output of slot M-1 goes to center_out
-// (global, T) or center_s (shared, float rounded to T), whichever is not
-// null. With edge_out or keep, the rest of the layer runs and its edge
-// output (slot M-1 zeroed) goes to edge_out (global) and, with keep, back
-// into X; with neither the body stops after the out-projection.
-template <typename T, bool W8 = false>
-__device__ void layer_fwd_atom(float* smem, const LayerW<T>& w, int M, int D, int H, int F,
-                               float scale, float eps, T* center_out, float* center_s,
-                               T* edge_out, bool keep, LayerI8 s8 = {}) {
+// One layer on one atom. On entry X holds the tokens with the center token
+// in slot M-1, and CF the cutoff weights (cf[M-1] == 1). The attention
+// output of slot M-1 goes to center_out (global, T) or center_s (shared,
+// float rounded to T), whichever is not null. With edge_out or keep, the
+// rest of the layer runs and its edge output (slot M-1 zeroed) goes to
+// edge_out (global) and, with keep, back into X; with neither the body
+// stops after the out-projection.
+template <typename T, bool W8 = false, bool I8 = false>
+__device__ __forceinline__ void layer_fwd_atom(
+    const FwdBufs& b, const LayerW<T>& w, int M, int D, int H, int F, float scale, float eps,
+    T* center_out, float* center_s, T* edge_out, bool keep, LayerI8 s8 = {}, ScoresI8 i8 = {}) {
+    static_assert(!(W8 && I8), "one int8 variant at a time");
+    constexpr bool Q8 = W8 || I8;  // int8 scores and the rounded softmax
     const int hd = D / H;
     const int LQ = qkv_stride(D), LP = M + 1;
-    float* X = smem;
-    float* N = X + M * D;
-    float* Q = N + M * D;
-    float* P = Q + M * (LQ > F ? LQ : F);
-    float* CF = P + M * LP;
+    float* X = b.X;
+    float* N = b.N;
+    float* Q = b.Q;
+    float* P = b.P;
+    float* CF = b.CF;
 
     rmsnorm_rows<T, !W8>(X, N, nullptr, M, D, w.norm_attn, eps);
     __syncthreads();
@@ -84,17 +108,22 @@ __device__ void layer_fwd_atom(float* smem, const LayerW<T>& w, int M, int D, in
         if constexpr (W8) {
             scores_s8(Q + h * hd, s8.inv_q, Q + D + h * hd, s8.inv_k, LQ, M, hd,
                       [&](int q, int k, int s) { P[q * LP + k] = __fmul_rn((float)s, s8.deq_scores); });
-            __syncthreads();
-            cf_softmax_rows_w8<T>(P, LP, CF, M, nullptr);
+        } else if constexpr (I8) {
+            scores_s8<true>(Q + h * hd, i8.s_q, Q + D + h * hd, i8.s_k, LQ, M, hd,
+                            [&](int q, int k, int s) { P[q * LP + k] = __fmul_rn((float)s, i8.factor); });
         } else {
             smem_abt(Q + h * hd, LQ, Q + D + h * hd, LQ, M, M, hd,
                      [&](int q, int k, float s) { P[q * LP + k] = s * scale; });
-            __syncthreads();
+        }
+        __syncthreads();
+        if constexpr (Q8) {
+            cf_softmax_rows_w8<T>(P, LP, CF, M, nullptr);
+        } else {
             cf_softmax_rows(P, LP, CF, M);
         }
         __syncthreads();
-        // the W8A8 weights hold cf already
-        smem_awb(P, LP, W8 ? nullptr : CF, Q + 2 * D + h * hd, LQ, M, hd, M,
+        // the rounded softmax weights hold cf already
+        smem_awb(P, LP, Q8 ? nullptr : CF, Q + 2 * D + h * hd, LQ, M, hd, M,
                  [&](int q, int d, float o) { N[q * D + h * hd + d] = rnd<T>(o); });
         __syncthreads();
     }

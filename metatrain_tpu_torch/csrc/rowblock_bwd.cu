@@ -18,7 +18,8 @@
 //
 // What bounds it on the H100: about twice K3's products per row, with the
 // recomputed pre-activations held in shared memory next to the cotangent
-// tile (up to 164 KB at 64 rows); the caller passes transposed weight
+// tile (up to 164 KB at 64 rows; wider stages take tiles of 32 or 16 rows,
+// rowblock_bwd_rows, as K3); the caller passes transposed weight
 // copies so that every product is common.cuh's block_mm (FMA in f32,
 // tensor cores in bf16). K4-dW adds as many FLOPs again for the X^T dY
 // products (FMA register tiles, common.cuh accum_atb) and keeps the hidden
@@ -37,7 +38,6 @@
 namespace mtt {
 namespace {
 
-constexpr int kRows = 64;
 enum Stage { kCompress = 0, kCombination = 1, kHead = 2 };
 
 template <typename T>
@@ -61,11 +61,21 @@ struct RowBwdArgs {
     float* partials;  // K4-dW: (gridDim.x, n_dw) per-block weight gradients
     long long rows;
     int d_part, w_in, w_hid, w_out;
+    int tile;  // rows per tile (rowblock_bwd_rows)
 };
 
-__host__ __device__ inline size_t smem_floats(int stage, int w_in, int w_hid, int w_out, bool dw) {
-    if (stage == kHead) return (size_t)kRows * (w_in + 3 * w_hid);
-    return (size_t)kRows * (w_in + w_hid + w_out + (dw ? w_hid : 0)) + 2 * kRows;
+__host__ __device__ inline size_t smem_floats(int stage, int w_in, int w_hid, int w_out, bool dw,
+                                              int tile) {
+    if (stage == kHead) return (size_t)tile * (w_in + 3 * w_hid);
+    return (size_t)tile * (w_in + w_hid + w_out + (dw ? w_hid : 0)) + 2 * tile;
+}
+
+// Rows per tile: 64, or 32 or 16 where 64 do not fit in shared memory.
+inline int rowblock_bwd_rows(int stage, int w_in, int w_hid, int w_out, bool dw) {
+    int tile = 64;
+    while (tile > 16 && (long long)smem_floats(stage, w_in, w_hid, w_out, dw, tile) > kMaxSharedFloats)
+        tile /= 2;
+    return tile;
 }
 
 // Offsets of the weight gradients in a partial, in the order of the
@@ -84,34 +94,34 @@ struct DwLayout {
     }
 };
 
-// One tile of 64 rows from row0; with DW, its weight gradients are added
-// to the block's partial P.
+// One tile of rows from row0; with DW, its weight gradients are added to
+// the block's partial P.
 template <typename T, int STAGE, bool DW>
 __device__ void rowblock_bwd_tile(const RowBwdArgs<T>& p, long long row0, float* smem, float* P) {
-    const int Win = p.w_in, Wh = p.w_hid, Wo = p.w_out, Dp = p.d_part;
-    const int valid = (int)min((long long)kRows, p.rows - row0);
+    const int Win = p.w_in, Wh = p.w_hid, Wo = p.w_out, Dp = p.d_part, tile = p.tile;
+    const int valid = (int)min((long long)tile, p.rows - row0);
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
     const T* parts[3] = {p.x0, p.x1, p.x2};
     T* douts[3] = {p.d0, p.d1, p.d2};
     const DwLayout L(STAGE, Win, Wh, Wo);
 
     if (STAGE == kHead) {
-        float* X = smem;                 // (64, Win)
-        float* PRE0 = X + kRows * Win;   // (64, Wh)
-        float* H0 = PRE0 + kRows * Wh;   // h0, then d_pre0 (rounded unless DW)
-        float* DP1 = H0 + kRows * Wh;    // d_pre1 (rounded unless DW)
-        for (int i = threadIdx.x; i < kRows * Win; i += blockDim.x) {
+        float* X = smem;                 // (tile, Win)
+        float* PRE0 = X + tile * Win;   // (tile, Wh)
+        float* H0 = PRE0 + tile * Wh;   // h0, then d_pre0 (rounded unless DW)
+        float* DP1 = H0 + tile * Wh;    // d_pre1 (rounded unless DW)
+        for (int i = threadIdx.x; i < tile * Win; i += blockDim.x) {
             const int r = i / Win;
             X[i] = r < valid ? to_f(p.x0[(row0 + r) * Win + i % Win]) : 0.f;
         }
         __syncthreads();
-        block_mm<16>(X, Win, kRows, Win, p.w0, Wh, Wh, [&](int m, int n, float acc) {
+        block_mm<16>(X, Win, tile, Win, p.w0, Wh, Wh, [&](int m, int n, float acc) {
             const float pre = acc + to_f(p.b0[n]);
             PRE0[m * Wh + n] = pre;
             H0[m * Wh + n] = rnd<T>(siluf_(pre));
         });
         __syncthreads();
-        block_mm<16>(H0, Wh, kRows, Wh, p.w1, Wh, Wh, [&](int m, int n, float acc) {
+        block_mm<16>(H0, Wh, tile, Wh, p.w1, Wh, Wh, [&](int m, int n, float acc) {
             const float g = m < valid ? to_f(p.g[(row0 + m) * Wh + n]) : 0.f;
             const float d = g * silu_grad(acc + to_f(p.b1[n]));
             DP1[m * Wh + n] = DW ? d : rnd<T>(d);
@@ -122,7 +132,7 @@ __device__ void rowblock_bwd_tile(const RowBwdArgs<T>& p, long long row0, float*
             accum_colsum(P + L.b1, DP1, Wh, valid, Wh);
             __syncthreads();
         }
-        block_mm<16>(DP1, Wh, kRows, Wh, p.w1_t, Wh, Wh, [&](int m, int n, float acc) {
+        block_mm<16>(DP1, Wh, tile, Wh, p.w1_t, Wh, Wh, [&](int m, int n, float acc) {
             const float d = acc * silu_grad(PRE0[m * Wh + n]);
             H0[m * Wh + n] = DW ? d : rnd<T>(d);
         });
@@ -131,21 +141,21 @@ __device__ void rowblock_bwd_tile(const RowBwdArgs<T>& p, long long row0, float*
             accum_atb<T, true>(P + L.w0, Wh, X, Win, H0, Wh, valid, Win, Wh);
             accum_colsum(P + L.b0, H0, Wh, valid, Wh);
         }
-        block_mm<16>(H0, Wh, kRows, Wh, p.w0_t, Win, Win, [&](int m, int n, float acc) {
+        block_mm<16>(H0, Wh, tile, Wh, p.w0_t, Win, Win, [&](int m, int n, float acc) {
             if (m < valid) p.d0[(row0 + m) * Win + n] = from_f<T>(acc);
         });
         return;
     }
 
-    float* IN = smem;                  // (64, Win): inputs or xn; later d_xn0 (DW: d_xn)
-    float* PRE = IN + kRows * Win;     // (64, Wh): pre-activation, then d_pre (rounded unless DW)
-    float* G = PRE + kRows * Wh;       // (64, Wo): cotangent
-    float* MEAN = G + kRows * Wo;
-    float* RS = MEAN + kRows;
-    float* HH = RS + kRows;            // DW: (64, Wh) hidden activation h
+    float* IN = smem;                  // (tile, Win): inputs or xn; later d_xn0 (DW: d_xn)
+    float* PRE = IN + tile * Win;     // (tile, Wh): pre-activation, then d_pre (rounded unless DW)
+    float* G = PRE + tile * Wh;       // (tile, Wo): cotangent
+    float* MEAN = G + tile * Wo;
+    float* RS = MEAN + tile;
+    float* HH = RS + tile;            // DW: (tile, Wh) hidden activation h
 
     if (STAGE == kCombination) {
-        for (int r = warp; r < kRows; r += nw) {
+        for (int r = warp; r < tile; r += nw) {
             float* x = IN + r * Win;
             float s = 0.f;
             for (int c = lane; c < Win; c += 32) {
@@ -164,17 +174,17 @@ __device__ void rowblock_bwd_tile(const RowBwdArgs<T>& p, long long row0, float*
                 x[c] = rnd<T>((x[c] - mean) * rs * to_f(p.ln_scale[c]) + to_f(p.ln_bias[c]));
         }
     } else {
-        for (int i = threadIdx.x; i < kRows * Win; i += blockDim.x) {
+        for (int i = threadIdx.x; i < tile * Win; i += blockDim.x) {
             const int r = i / Win, c = i % Win;
             IN[i] = r < valid ? to_f(parts[c / Dp][(row0 + r) * Dp + c % Dp]) : 0.f;
         }
     }
-    for (int i = threadIdx.x; i < kRows * Wo; i += blockDim.x) {
+    for (int i = threadIdx.x; i < tile * Wo; i += blockDim.x) {
         const int r = i / Wo;
         G[i] = r < valid ? to_f(p.g[(row0 + r) * Wo + i % Wo]) : 0.f;
     }
     __syncthreads();
-    block_mm<16>(IN, Win, kRows, Win, p.w0, Wh, Wh, [&](int m, int n, float acc) {
+    block_mm<16>(IN, Win, tile, Win, p.w0, Wh, Wh, [&](int m, int n, float acc) {
         const float pre = acc + to_f(p.b0[n]);
         PRE[m * Wh + n] = pre;
         if (DW) HH[m * Wh + n] = rnd<T>(siluf_(pre));
@@ -184,7 +194,7 @@ __device__ void rowblock_bwd_tile(const RowBwdArgs<T>& p, long long row0, float*
         accum_atb<T, false>(P + L.w1, Wo, HH, Wh, G, Wo, valid, Wh, Wo);
         accum_colsum(P + L.b1, G, Wo, valid, Wo);
     }
-    block_mm<16>(G, Wo, kRows, Wo, p.w1_t, Wh, Wh, [&](int m, int n, float acc) {
+    block_mm<16>(G, Wo, tile, Wo, p.w1_t, Wh, Wh, [&](int m, int n, float acc) {
         const float d = acc * silu_grad(PRE[m * Wh + n]);
         PRE[m * Wh + n] = DW ? d : rnd<T>(d);
     });
@@ -195,7 +205,7 @@ __device__ void rowblock_bwd_tile(const RowBwdArgs<T>& p, long long row0, float*
     }
 
     if (STAGE == kCompress) {
-        block_mm<16>(PRE, Wh, kRows, Wh, p.w0_t, Win, Win, [&](int m, int n, float acc) {
+        block_mm<16>(PRE, Wh, tile, Wh, p.w0_t, Win, Win, [&](int m, int n, float acc) {
             if (m < valid) douts[n / Dp][(row0 + m) * Dp + n % Dp] = from_f<T>(acc);
         });
         return;
@@ -203,7 +213,7 @@ __device__ void rowblock_bwd_tile(const RowBwdArgs<T>& p, long long row0, float*
 
     // combination: d_xn0 = (d_pre @ w0^T) * ln_scale, then LayerNorm backward
     if (DW) __syncthreads();  // the products above read IN (xn)
-    block_mm<16>(PRE, Wh, kRows, Wh, p.w0_t, Win, Win, [&](int m, int n, float acc) {
+    block_mm<16>(PRE, Wh, tile, Wh, p.w0_t, Win, Win, [&](int m, int n, float acc) {
         IN[m * Win + n] = DW ? acc : acc * to_f(p.ln_scale[n]);
     });
     __syncthreads();
@@ -242,23 +252,23 @@ __device__ void rowblock_bwd_tile(const RowBwdArgs<T>& p, long long row0, float*
     }
 }
 
-// K4: one block per 64-row tile. K4-dW: a fixed grid, block b walks tiles
-// [b n / grid, (b + 1) n / grid) and sums their weight gradients into
-// partial b.
+// K4: one block per tile. K4-dW: a fixed grid, block b walks tiles [b n /
+// grid, (b + 1) n / grid) and sums their weight gradients into partial b.
 template <typename T, int STAGE, bool DW>
 __global__ void __launch_bounds__(kThreads) rowblock_bwd_kernel(RowBwdArgs<T> p) {
     extern __shared__ __align__(16) float smem[];
+    const int tile = p.tile;
     if constexpr (!DW) {
-        rowblock_bwd_tile<T, STAGE, false>(p, (long long)blockIdx.x * kRows, smem, nullptr);
+        rowblock_bwd_tile<T, STAGE, false>(p, (long long)blockIdx.x * tile, smem, nullptr);
     } else {
         const long long total = DwLayout(STAGE, p.w_in, p.w_hid, p.w_out).total;
         float* P = p.partials + blockIdx.x * total;
         zero_floats(P, total);
         __syncthreads();
-        const long long tiles = (p.rows + kRows - 1) / kRows;
+        const long long tiles = (p.rows + tile - 1) / tile;
         const long long t0 = tiles * blockIdx.x / gridDim.x, t1 = tiles * (blockIdx.x + 1) / gridDim.x;
         for (long long t = t0; t < t1; ++t) {
-            rowblock_bwd_tile<T, STAGE, true>(p, t * kRows, smem, P);
+            rowblock_bwd_tile<T, STAGE, true>(p, t * tile, smem, P);
             __syncthreads();
         }
     }
@@ -266,7 +276,7 @@ __global__ void __launch_bounds__(kThreads) rowblock_bwd_kernel(RowBwdArgs<T> p)
 
 template <typename T, int STAGE, bool DW>
 int launch(const RowBwdArgs<T>& p, unsigned grid, cudaStream_t stream) {
-    const size_t bytes = smem_floats(STAGE, p.w_in, p.w_hid, p.w_out, DW) * sizeof(float);
+    const size_t bytes = smem_floats(STAGE, p.w_in, p.w_hid, p.w_out, DW, p.tile) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
         rowblock_bwd_kernel<T, STAGE, DW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
@@ -275,8 +285,9 @@ int launch(const RowBwdArgs<T>& p, unsigned grid, cudaStream_t stream) {
 }
 
 template <typename T, int STAGE>
-int launch_stage(const RowBwdArgs<T>& p, int dw_blocks, float* dw, cudaStream_t stream) {
-    if (dw == nullptr) return launch<T, STAGE, false>(p, (unsigned)((p.rows + kRows - 1) / kRows), stream);
+int launch_stage(RowBwdArgs<T> p, int dw_blocks, float* dw, cudaStream_t stream) {
+    p.tile = rowblock_bwd_rows(STAGE, p.w_in, p.w_hid, p.w_out, dw != nullptr);
+    if (dw == nullptr) return launch<T, STAGE, false>(p, (unsigned)((p.rows + p.tile - 1) / p.tile), stream);
     const int err = launch<T, STAGE, true>(p, (unsigned)dw_blocks, stream);
     if (err != 0) return err;
     const long long total = DwLayout(STAGE, p.w_in, p.w_hid, p.w_out).total;
@@ -293,8 +304,13 @@ int dispatch(int stage, const RowBwdArgs<T>& p, int dw_blocks, float* dw, cudaSt
 }  // namespace
 }  // namespace mtt
 
-extern "C" size_t mtt_rowblock_bwd_smem(int stage, int w_in, int w_hid, int w_out, int dw) {
-    return mtt::smem_floats(stage, w_in, w_hid, w_out, dw != 0) * sizeof(float);
+// Shared-memory bytes of K4 (dw = 0) or K4-dW (dw = 1); with rows, the rows
+// per tile (K4-dW's blocks walk ceil(rows / tile) tiles).
+extern "C" size_t mtt_rowblock_bwd_smem(int stage, int w_in, int w_hid, int w_out, int dw,
+                                        int* rows) {
+    const int tile = mtt::rowblock_bwd_rows(stage, w_in, w_hid, w_out, dw != 0);
+    if (rows != nullptr) *rows = tile;
+    return mtt::smem_floats(stage, w_in, w_hid, w_out, dw != 0, tile) * sizeof(float);
 }
 
 // Same stage codes and inputs as mtt_rowblock_fwd; g is the output

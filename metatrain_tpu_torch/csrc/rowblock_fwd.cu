@@ -13,19 +13,28 @@
 // What bounds it on the H100: rows = atoms x neighbor slots (~528k at the
 // 11k-atom bench), each a few hundred FLOPs per byte of input, so the
 // products dominate. A block takes a tile of 64 rows; the concatenated
-// input and the hidden layer stay in shared memory (up to 128 KB), so
-// device memory sees each input row once and each output row once. The
-// weights stream from L2; 64 rows per tile amortise each weight read over
-// 64 rows. The products are common.cuh block_mm: FMA loops in f32,
-// mma.sync tensor cores in bf16.
+// input and the hidden layer stay in shared memory (up to 128 KB at d_pet
+// 128), so device memory sees each input row once and each output row
+// once. The weights stream from L2; 64 rows per tile amortise each weight
+// read over 64 rows. Wider stages take tiles of 32 or 16 rows, the most
+// that fit (rowblock_fwd_rows: the combination at d_pet 256, 2 x 512
+// floats per row, takes 32). The products are common.cuh block_mm: FMA
+// loops in f32, mma.sync tensor cores in bf16.
 
 #include "common.cuh"
 
 namespace mtt {
 namespace {
 
-constexpr int kRows = 64;
 enum Stage { kCompress = 0, kCombination = 1, kHead = 2 };
+
+// Rows per tile: 64, or 32 or 16 where 64 rows of the input and hidden
+// layer do not fit in shared memory.
+inline int rowblock_fwd_rows(int w_in, int w_hid) {
+    int rows = 64;
+    while (rows > 16 && (long long)rows * (w_in + w_hid) > kMaxSharedFloats) rows /= 2;
+    return rows;
+}
 
 template <typename T>
 struct RowArgs {
@@ -42,21 +51,22 @@ struct RowArgs {
     T* out;
     long long rows;
     int d_part, w_in, w_hid, w_out;
+    int tile;  // rows per block (rowblock_fwd_rows)
 };
 
 template <typename T, int STAGE>
 __global__ void __launch_bounds__(kThreads) rowblock_fwd_kernel(RowArgs<T> p) {
     extern __shared__ __align__(16) float smem[];
-    const int Win = p.w_in, Wh = p.w_hid, Wo = p.w_out, Dp = p.d_part;
-    const long long row0 = (long long)blockIdx.x * kRows;
-    const int valid = (int)min((long long)kRows, p.rows - row0);
+    const int Win = p.w_in, Wh = p.w_hid, Wo = p.w_out, Dp = p.d_part, tile = p.tile;
+    const long long row0 = (long long)blockIdx.x * tile;
+    const int valid = (int)min((long long)tile, p.rows - row0);
     float* IN = smem;
-    float* HID = IN + kRows * Win;
+    float* HID = IN + tile * Win;
     const T* parts[3] = {p.x0, p.x1, p.x2};
 
     if (STAGE == kCombination) {
         const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-        for (int r = warp; r < kRows; r += nw) {
+        for (int r = warp; r < tile; r += nw) {
             float* x = IN + r * Win;
             float s = 0.f;
             for (int c = lane; c < Win; c += 32) {
@@ -71,19 +81,19 @@ __global__ void __launch_bounds__(kThreads) rowblock_fwd_kernel(RowArgs<T> p) {
                 x[c] = rnd<T>((x[c] - mean) * rs * to_f(p.ln_scale[c]) + to_f(p.ln_bias[c]));
         }
     } else {
-        for (int i = threadIdx.x; i < kRows * Win; i += blockDim.x) {
+        for (int i = threadIdx.x; i < tile * Win; i += blockDim.x) {
             const int r = i / Win, c = i % Win;
             IN[i] = r < valid ? to_f(parts[c / Dp][(row0 + r) * Dp + c % Dp]) : 0.f;
         }
     }
     __syncthreads();
 
-    block_mm<16>(IN, Win, kRows, Win, p.w0, Wh, Wh, [&](int m, int n, float acc) {
+    block_mm<16>(IN, Win, tile, Win, p.w0, Wh, Wh, [&](int m, int n, float acc) {
         HID[m * Wh + n] = rnd<T>(siluf_(acc + to_f(p.b0[n])));
     });
     __syncthreads();
 
-    block_mm<16>(HID, Wh, kRows, Wh, p.w1, Wo, Wo, [&](int m, int n, float acc) {
+    block_mm<16>(HID, Wh, tile, Wh, p.w1, Wo, Wo, [&](int m, int n, float acc) {
         if (m >= valid) return;
         const long long o = (row0 + m) * Wo + n;
         float y = acc + to_f(p.b1[n]);
@@ -94,12 +104,14 @@ __global__ void __launch_bounds__(kThreads) rowblock_fwd_kernel(RowArgs<T> p) {
 }
 
 template <typename T, int STAGE>
-int launch(const RowArgs<T>& p, cudaStream_t stream) {
-    const size_t bytes = (size_t)kRows * (p.w_in + p.w_hid) * sizeof(float);
+int launch(RowArgs<T> p, cudaStream_t stream) {
+    p.tile = rowblock_fwd_rows(p.w_in, p.w_hid);
+    const int tile = p.tile;
+    const size_t bytes = (size_t)tile * (p.w_in + p.w_hid) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
         rowblock_fwd_kernel<T, STAGE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    const unsigned blocks = (unsigned)((p.rows + kRows - 1) / kRows);
+    const unsigned blocks = (unsigned)((p.rows + tile - 1) / tile);
     rowblock_fwd_kernel<T, STAGE><<<blocks, kThreads, bytes, stream>>>(p);
     return (int)cudaGetLastError();
 }
@@ -114,8 +126,11 @@ int dispatch(int stage, const RowArgs<T>& p, cudaStream_t stream) {
 }  // namespace
 }  // namespace mtt
 
-extern "C" size_t mtt_rowblock_fwd_smem(int w_in, int w_hid) {
-    return (size_t)mtt::kRows * (w_in + w_hid) * sizeof(float);
+// Shared-memory bytes of K3; with rows, the rows per tile.
+extern "C" size_t mtt_rowblock_fwd_smem(int w_in, int w_hid, int* rows) {
+    const int tile = mtt::rowblock_fwd_rows(w_in, w_hid);
+    if (rows != nullptr) *rows = tile;
+    return (size_t)tile * (w_in + w_hid) * sizeof(float);
 }
 
 // stage: 0 = compress (x0..x{n_parts-1} concatenated), 1 = combination

@@ -27,7 +27,9 @@
 // Two kernels: bf16 with heads of 16 (the served shape) on tensor cores,
 // one warp per (head, 16-row tile); otherwise float on the CUDA cores, one
 // thread per (head, row), with q and g replacing k and v in shared memory
-// between the phases (its operations bound it). T is odd (65 at the
+// between the phases (its operations bound it); a head of a width other
+// than 8, 16, 32 or 64 (up to 64) is padded with zero columns in registers
+// and in the staged rows, as the forward's. T is odd (65 at the
 // served shapes): the tensor-core kernel pads to whole tiles with zero
 // rows and bias -inf, the float kernel needs no tiles. Both take ex2.approx
 // exponentials (__expf) and divide once per row.
@@ -37,26 +39,29 @@ namespace mtt {
 namespace {
 
 template <int HD>
-constexpr int bwd_max_threads() { return HD <= 8 ? 1024 : (HD <= 16 ? 640 : 320); }
+constexpr int bwd_max_threads() { return HD <= 8 ? 1024 : (HD <= 16 ? 640 : (HD <= 32 ? 320 : 256)); }
 
+// HD: the register width of a head (head_regs(hd)); the staged rows are DP
+// = H HD floats.
 template <typename T, int HD>
-__global__ void __launch_bounds__(HD <= 8 ? 1024 : (HD <= 16 ? 640 : 320)) window_attention_bwd_kernel(
+__global__ void __launch_bounds__(bwd_max_threads<HD>()) window_attention_bwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ g,
     int ldq, int ldk, int ldv, int ldg, const float* __restrict__ bias, T* __restrict__ dq,
     T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dbias, int Tn, int D, int H,
     float scale) {
     extern __shared__ __align__(16) float smem[];
+    const int hd = D / H, DP = H * HD;
     float* X = smem;               // k, then q
-    float* Y = X + Tn * D;         // v, then g
-    float* B = Y + Tn * D;         // bias
+    float* Y = X + Tn * DP;        // v, then g
+    float* B = Y + Tn * DP;        // bias
     float* RM = B + Tn;            // per (h, t): row max
     float* RL = RM + H * Tn;       // 1 / row denominator
     float* RD = RL + H * Tn;       // delta = sum_u w dw
     float* DB = RD + H * Tn;       // per (h, u): the head's dbias
     const long long a = blockIdx.x;
     const int items = H * Tn;
-    stage_window(X, k + a * Tn * ldk, ldk, Tn, D);
-    stage_window(Y, v + a * Tn * ldv, ldv, Tn, D);
+    stage_heads(X, k + a * Tn * ldk, ldk, Tn, H, hd, HD);
+    stage_heads(Y, v + a * Tn * ldv, ldv, Tn, H, hd, HD);
     for (int u = threadIdx.x; u < Tn; u += blockDim.x) B[u] = bias[a * Tn + u];
     __syncthreads();
 
@@ -64,19 +69,19 @@ __global__ void __launch_bounds__(HD <= 8 ? 1024 : (HD <= 16 ? 640 : 320)) windo
     for (int item = threadIdx.x; item < items; item += blockDim.x) {
         const int h = item / Tn, t = item - h * Tn;
         float qr[HD], gr[HD], acc[HD];
-        load_row<HD>(q + (a * Tn + t) * ldq + h * HD, qr);
-        load_row<HD>(g + (a * Tn + t) * ldg + h * HD, gr);
+        load_head<HD>(q + (a * Tn + t) * ldq + h * hd, hd, qr);
+        load_head<HD>(g + (a * Tn + t) * ldg + h * hd, hd, gr);
         const float* Kh = X + h * HD;
         const float* Vh = Y + h * HD;
         float m = -INFINITY;
-        for (int u = 0; u < Tn; ++u) m = fmaxf(m, dot_row(qr, Kh + u * D) * scale + B[u]);
+        for (int u = 0; u < Tn; ++u) m = fmaxf(m, dot_row(qr, Kh + u * DP) * scale + B[u]);
         float l = 0.f;
 #pragma unroll
         for (int d = 0; d < HD; ++d) acc[d] = 0.f;
         for (int u = 0; u < Tn; ++u) {
-            const float e = __expf(dot_row(qr, Kh + u * D) * scale + B[u] - m);
+            const float e = __expf(dot_row(qr, Kh + u * DP) * scale + B[u] - m);
             l += e;
-            const float* vr = Vh + u * D;
+            const float* vr = Vh + u * DP;
 #pragma unroll
             for (int d = 0; d < HD; ++d) acc[d] = fmaf(e, vr[d], acc[d]);
         }
@@ -88,28 +93,28 @@ __global__ void __launch_bounds__(HD <= 8 ? 1024 : (HD <= 16 ? 640 : 320)) windo
 #pragma unroll
         for (int d = 0; d < HD; ++d) acc[d] = 0.f;
         for (int u = 0; u < Tn; ++u) {
-            const float w = __expf(dot_row(qr, Kh + u * D) * scale + B[u] - m) * l;
-            const float ds = w * (dot_row(gr, Vh + u * D) - delta);
-            const float* kr = Kh + u * D;
+            const float w = __expf(dot_row(qr, Kh + u * DP) * scale + B[u] - m) * l;
+            const float ds = w * (dot_row(gr, Vh + u * DP) - delta);
+            const float* kr = Kh + u * DP;
 #pragma unroll
             for (int d = 0; d < HD; ++d) acc[d] = fmaf(ds, kr[d], acc[d]);
         }
-        store_row<HD>(dq + (a * Tn + t) * D + h * HD, acc, scale);
+        store_head<HD>(dq + (a * Tn + t) * D + h * hd, hd, acc, scale);
         RM[item] = m;
         RL[item] = l;
         RD[item] = delta;
     }
     __syncthreads();
-    stage_window(X, q + a * Tn * ldq, ldq, Tn, D);
-    stage_window(Y, g + a * Tn * ldg, ldg, Tn, D);
+    stage_heads(X, q + a * Tn * ldq, ldq, Tn, H, hd, HD);
+    stage_heads(Y, g + a * Tn * ldg, ldg, Tn, H, hd, HD);
     __syncthreads();
 
     // columns
     for (int item = threadIdx.x; item < items; item += blockDim.x) {
         const int h = item / Tn, u = item - h * Tn;
         float kr[HD], vr[HD], ak[HD], av[HD];
-        load_row<HD>(k + (a * Tn + u) * ldk + h * HD, kr);
-        load_row<HD>(v + (a * Tn + u) * ldv + h * HD, vr);
+        load_head<HD>(k + (a * Tn + u) * ldk + h * hd, hd, kr);
+        load_head<HD>(v + (a * Tn + u) * ldv + h * hd, hd, vr);
 #pragma unroll
         for (int d = 0; d < HD; ++d) ak[d] = av[d] = 0.f;
         const float* Qh = X + h * HD;
@@ -118,8 +123,8 @@ __global__ void __launch_bounds__(HD <= 8 ? 1024 : (HD <= 16 ? 640 : 320)) windo
         float db = 0.f;
         for (int t = 0; t < Tn; ++t) {
             const int row = h * Tn + t;
-            const float* qt = Qh + t * D;
-            const float* gt = Gh + t * D;
+            const float* qt = Qh + t * DP;
+            const float* gt = Gh + t * DP;
             const float w = __expf(dot_row(qt, kr) * scale + bu - RM[row]) * RL[row];
             const float ds = w * (dot_row(gt, vr) - RD[row]);
             db += ds;
@@ -129,8 +134,8 @@ __global__ void __launch_bounds__(HD <= 8 ? 1024 : (HD <= 16 ? 640 : 320)) windo
                 ak[d] = fmaf(ds, qt[d], ak[d]);
             }
         }
-        store_row<HD>(dk + (a * Tn + u) * D + h * HD, ak, scale);
-        store_row<HD>(dv + (a * Tn + u) * D + h * HD, av, 1.f);
+        store_head<HD>(dk + (a * Tn + u) * D + h * hd, hd, ak, scale);
+        store_head<HD>(dv + (a * Tn + u) * D + h * hd, hd, av, 1.f);
         DB[item] = db;
     }
     __syncthreads();
@@ -142,7 +147,7 @@ __global__ void __launch_bounds__(HD <= 8 ? 1024 : (HD <= 16 ? 640 : 320)) windo
 }
 
 size_t smem_bytes(int Tn, int D, int H) {
-    return (2 * (size_t)Tn * D + Tn + 4 * (size_t)H * Tn) * sizeof(float);
+    return (2 * (size_t)Tn * H * head_regs(D / H) + Tn + 4 * (size_t)H * Tn) * sizeof(float);
 }
 
 // bf16, head width 16, T <= 16 KT: tensor cores, the same two phases with
@@ -398,10 +403,11 @@ int dispatch(int hd, const void* q, const void* k, const void* v, const void* g,
              long long A, int Tn, int D, int H, float scale, cudaStream_t s) {
 #define MTT_LAUNCH(HD) \
     launch<T, HD>(q, k, v, g, ldq, ldk, ldv, ldg, bias, dq, dk, dv, dbias, A, Tn, D, H, scale, s)
-    switch (hd) {
+    switch (head_regs(hd)) {
         case 8: return MTT_LAUNCH(8);
         case 16: return MTT_LAUNCH(16);
         case 32: return MTT_LAUNCH(32);
+        case 64: return MTT_LAUNCH(64);
     }
 #undef MTT_LAUNCH
     return (int)cudaErrorInvalidValue;
@@ -418,7 +424,7 @@ extern "C" size_t mtt_window_attention_bwd_smem(int dtype, int T, int D, int H) 
 }
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v, g: (A, T, ld*) with rows ld*
-// elements apart (windows T * ld* apart), head width D / H in {8, 16, 32};
+// elements apart (windows T * ld* apart), any head width D / H up to 64;
 // bias (A, T) float32. dq, dk, dv: (A, T, D) contiguous; dbias (A, T)
 // float32. Returns the CUDA error code.
 extern "C" int mtt_window_attention_bwd(

@@ -30,7 +30,10 @@
 //   warp's rows are
 //   shared-memory broadcasts. Its operations bound it. In float the
 //   denominator and the weights times values share one pass (no rounding
-//   of the weights), so the keys are walked twice.
+//   of the weights), so the keys are walked twice. The registers hold 8,
+//   16, 32 or 64 columns: a head of another width up to 64 (12, 24, ...)
+//   is padded with zero columns, in the registers and in the staged k and
+//   v rows (H x 64 floats per row at most), which add exact zeros.
 // Both subtract each row's max before the exponential, as the TPU kernel
 // does, and take ex2.approx exponentials (__expf) and one division per row.
 // Next step: several windows per block.
@@ -41,32 +44,35 @@ namespace mtt {
 namespace {
 
 template <int HD>
-constexpr int fwd_max_threads() { return HD <= 16 ? 1024 : 512; }
+constexpr int fwd_max_threads() { return HD <= 16 ? 1024 : HD <= 32 ? 512 : 256; }
 
+// HD: the register width of a head (head_regs(hd)); the staged rows are DP
+// = H HD floats.
 template <typename T, int HD>
-__global__ void __launch_bounds__(HD <= 16 ? 1024 : 512) window_attention_fwd_kernel(
+__global__ void __launch_bounds__(fwd_max_threads<HD>()) window_attention_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, int ldq, int ldk,
     int ldv, const float* __restrict__ bias, T* __restrict__ out, int Tn, int D, int H,
     float scale) {
     extern __shared__ __align__(16) float smem[];
+    const int hd = D / H, DP = H * HD;
     float* K = smem;
-    float* V = K + Tn * D;
-    float* B = V + Tn * D;
+    float* V = K + Tn * DP;
+    float* B = V + Tn * DP;
     const long long a = blockIdx.x;
-    stage_window(K, k + a * Tn * ldk, ldk, Tn, D);
-    stage_window(V, v + a * Tn * ldv, ldv, Tn, D);
+    stage_heads(K, k + a * Tn * ldk, ldk, Tn, H, hd, HD);
+    stage_heads(V, v + a * Tn * ldv, ldv, Tn, H, hd, HD);
     for (int u = threadIdx.x; u < Tn; u += blockDim.x) B[u] = bias[a * Tn + u];
     __syncthreads();
 
     for (int item = threadIdx.x; item < H * Tn; item += blockDim.x) {
         const int h = item / Tn, t = item - h * Tn;
         float qr[HD], o[HD];
-        load_row<HD>(q + (a * Tn + t) * ldq + h * HD, qr);
+        load_head<HD>(q + (a * Tn + t) * ldq + h * hd, hd, qr);
         const float* Kh = K + h * HD;
         const float* Vh = V + h * HD;
 
         float m = -INFINITY;
-        for (int u = 0; u < Tn; ++u) m = fmaxf(m, dot_row(qr, Kh + u * D) * scale + B[u]);
+        for (int u = 0; u < Tn; ++u) m = fmaxf(m, dot_row(qr, Kh + u * DP) * scale + B[u]);
 #pragma unroll
         for (int d = 0; d < HD; ++d) o[d] = 0.f;
         float l = 0.f;
@@ -74,28 +80,30 @@ __global__ void __launch_bounds__(HD <= 16 ? 1024 : 512) window_attention_fwd_ke
             // float weights need no rounding: the denominator and P V
             // share one pass
             for (int u = 0; u < Tn; ++u) {
-                const float e = __expf(dot_row(qr, Kh + u * D) * scale + B[u] - m);
+                const float e = __expf(dot_row(qr, Kh + u * DP) * scale + B[u] - m);
                 l += e;
-                const float* vr = Vh + u * D;
+                const float* vr = Vh + u * DP;
 #pragma unroll
                 for (int d = 0; d < HD; ++d) o[d] = fmaf(e, vr[d], o[d]);
             }
-            store_row<HD>(out + (a * Tn + t) * D + h * HD, o, 1.f / l);
+            store_head<HD>(out + (a * Tn + t) * D + h * hd, hd, o, 1.f / l);
         } else {
-            for (int u = 0; u < Tn; ++u) l += __expf(dot_row(qr, Kh + u * D) * scale + B[u] - m);
+            for (int u = 0; u < Tn; ++u) l += __expf(dot_row(qr, Kh + u * DP) * scale + B[u] - m);
             const float inv = 1.f / l;
             for (int u = 0; u < Tn; ++u) {
-                const float p = rnd<T>(__expf(dot_row(qr, Kh + u * D) * scale + B[u] - m) * inv);
-                const float* vr = Vh + u * D;
+                const float p = rnd<T>(__expf(dot_row(qr, Kh + u * DP) * scale + B[u] - m) * inv);
+                const float* vr = Vh + u * DP;
 #pragma unroll
                 for (int d = 0; d < HD; ++d) o[d] = fmaf(p, vr[d], o[d]);
             }
-            store_row<HD>(out + (a * Tn + t) * D + h * HD, o, 1.f);
+            store_head<HD>(out + (a * Tn + t) * D + h * hd, hd, o, 1.f);
         }
     }
 }
 
-size_t smem_bytes(int Tn, int D) { return (2 * (size_t)Tn * D + Tn) * sizeof(float); }
+size_t smem_bytes(int Tn, int D, int H) {
+    return (2 * (size_t)Tn * H * head_regs(D / H) + Tn) * sizeof(float);
+}
 
 // bf16, head width 16, T <= 16 KT: tensor cores. One warp per (head,
 // 16-query tile): S = Q K^T over KT key tiles (2 KT mma, head width 16 is
@@ -232,7 +240,7 @@ template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, int ldq, int ldk, int ldv,
            const float* bias, void* out, long long A, int Tn, int D, int H, float scale,
            cudaStream_t stream) {
-    const size_t bytes = smem_bytes(Tn, D);
+    const size_t bytes = smem_bytes(Tn, D, H);
     auto kernel = window_attention_fwd_kernel<T, HD>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
@@ -246,10 +254,11 @@ template <typename T>
 int dispatch(int hd, const void* q, const void* k, const void* v, int ldq, int ldk, int ldv,
              const float* bias, void* out, long long A, int Tn, int D, int H, float scale,
              cudaStream_t s) {
-    switch (hd) {
+    switch (head_regs(hd)) {
         case 8: return launch<T, 8>(q, k, v, ldq, ldk, ldv, bias, out, A, Tn, D, H, scale, s);
         case 16: return launch<T, 16>(q, k, v, ldq, ldk, ldv, bias, out, A, Tn, D, H, scale, s);
         case 32: return launch<T, 32>(q, k, v, ldq, ldk, ldv, bias, out, A, Tn, D, H, scale, s);
+        case 64: return launch<T, 64>(q, k, v, ldq, ldk, ldv, bias, out, A, Tn, D, H, scale, s);
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -265,11 +274,11 @@ extern "C" int mtt_window_attention_tc(int dtype, int T, int D, int H) {
 
 extern "C" size_t mtt_window_attention_fwd_smem(int dtype, int T, int D, int H) {
     return mtt_window_attention_tc(dtype, T, D, H) ? mtt::tc_smem_bytes((T + 15) / 16, D)
-                                                    : mtt::smem_bytes(T, D);
+                                                    : mtt::smem_bytes(T, D, H);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v: (A, T, ld*) with rows ld*
-// elements apart (windows T * ld* apart), head width D / H in {8, 16, 32};
+// elements apart (windows T * ld* apart), any head width D / H up to 64;
 // bias (A, T) float32; out (A, T, D) contiguous. Returns the CUDA error code.
 extern "C" int mtt_window_attention_fwd(
     int dtype, const void* q, const void* k, const void* v, int ldq, int ldk, int ldv,

@@ -92,11 +92,12 @@ def state_dict_to_flax(module: nn.Module) -> Dict[str, Any]:
 
 def pet_from_checkpoint(checkpoint, compute_dtype=torch.float32,
                         device="cuda", plain: bool = False, fused_gnn: bool = False,
-                        int8_static: bool = False):
+                        int8_static: bool = False, int8_scores: bool = False):
     """The port's PET from a JAX PET checkpoint (dict or path) of version 1,
     2 or 3, on ``device`` (the card unless the caller asks otherwise);
-    ``plain``, ``fused_gnn`` and ``int8_static`` as for ``PET`` (a W8A8
-    model still needs ``calibrate_int8`` or :func:`int8_calib_from_jax`)."""
+    ``plain``, ``fused_gnn``, ``int8_static`` and ``int8_scores`` as for
+    ``PET`` (a W8A8 model still needs ``calibrate_int8`` or
+    :func:`int8_calib_from_jax`)."""
     from ..data.target_info import DatasetInfo
     from ..models.pet import PET
 
@@ -107,7 +108,7 @@ def pet_from_checkpoint(checkpoint, compute_dtype=torch.float32,
     checkpoint = upgrade_chain(PET, dict(checkpoint))
     model = PET(checkpoint["hypers"], DatasetInfo.from_dict(checkpoint["dataset_info"]),
                 compute_dtype=compute_dtype, plain=plain, fused_gnn=fused_gnn,
-                int8_static=int8_static)
+                int8_static=int8_static, int8_scores=int8_scores)
     model.module.load_state_dict(flax_to_state_dict(checkpoint["params"]))
     model.composition.load_checkpoint_weights(checkpoint["composition"])
     model.scaler.load_checkpoint_scales(checkpoint["scaler"])

@@ -72,6 +72,13 @@ class PET(AtomisticNNModel):
         in bfloat16 inference calls, after :meth:`calibrate_int8`.
         Training, float32 and float64 calls run the exact layer; the GNN
         block and the unfused layers ignore it.
+    :param int8_scores: the fused layers' dynamic int8 scores (the JAX
+        package's ``MTT_INT8_SCORES=1``; not a hyper, not saved): q and k
+        quantized by one absmax scale per block of atoms for the score
+        products, in bfloat16 calls of the q-side layout (M % 8 == 0, an
+        even head count), inference and training alike; a W8A8 layer that
+        applies wins. float32 and float64 calls, the GNN block and the
+        unfused layers ignore it.
     """
 
     ARCHITECTURE_NAME = "pet"
@@ -79,7 +86,7 @@ class PET(AtomisticNNModel):
 
     def __init__(self, hypers: Dict[str, Any], dataset_info: DatasetInfo,
                  compute_dtype=torch.float32, plain: bool = False, fused_gnn: bool = False,
-                 int8_static: bool = False):
+                 int8_static: bool = False, int8_scores: bool = False):
         full = copy.deepcopy(DEFAULT_MODEL_HYPERS)
         full.update(hypers or {})
         super().__init__(full, dataset_info, compute_dtype)
@@ -96,7 +103,7 @@ class PET(AtomisticNNModel):
         if compute_dtype == torch.float64:
             self.double()  # float64 runs keep float64 weights, as JAX's x64 mode
         for name, layer in self.fused_layers().items():
-            layer.path, layer.int8_static = name, int8_static
+            layer.path, layer.int8_static, layer.int8_scores = name, int8_static, int8_scores
 
     def fused_layers(self) -> Dict[str, FusedTransformerLayer]:
         """The fused layers by module name (``backbone.gnn_layer_0.layer_1``)."""

@@ -43,6 +43,8 @@ from ...ops.kernels.fused_layer import (
     LayerWeights,
     accumulation_dtype,
     fused_transformer_layer,
+    int8_scales_for,
+    int8_scores_applicable,
     layer_math,
     layer_probe_stats,
     rmsnorm_eps,
@@ -187,7 +189,14 @@ class FusedTransformerLayer(nn.Module):
     that requires grad runs the static W8A8 layer (K1-W8A8/K2-W8A8 on the
     card) under the JAX package's gate; without a calibration it raises.
     While ``int8_probe`` is a list, the layer runs exact and appends its
-    ``layer_probe_stats`` to it."""
+    ``layer_probe_stats`` to it.
+
+    With ``int8_scores`` (set by ``PET(..., int8_scores=True)``), a
+    bfloat16 call in the q-side layout that W8A8 does not take runs the
+    dynamic int8 scores (the absmax pass, K1-int8 and K2-int8 / K2-dW-int8
+    on the card; with ``plain``, ``layer_math`` with the plain scales under
+    autograd), in inference and in training; the calibration probe runs
+    exact."""
 
     def __init__(self, d_model, num_heads, d_node, d_feedforward, temperature, dtype, plain):
         super().__init__()
@@ -211,6 +220,7 @@ class FusedTransformerLayer(nn.Module):
         self.int8_static = False
         self.int8_calib = None
         self.int8_probe = None
+        self.int8_scores = False
         self.path = ""  # the module's name in PET, for messages
 
     def layer_weights(self) -> LayerWeights:
@@ -254,6 +264,13 @@ class FusedTransformerLayer(nn.Module):
         calib = self._int8_calib(cd, w)
         if w8a8_applicable(args[0], w, self.num_heads, calib):
             edge_out, center_attn = w8a8_transformer_layer(*args, calib, self.plain)
+        elif (self.int8_scores and self.int8_probe is None
+              and int8_scores_applicable(args[0], self.num_heads)):
+            if self.plain:
+                scales = int8_scales_for(args[0], args[1], w, plain=True)
+                edge_out, center_attn = layer_math(*args, int8_scales=scales)
+            else:
+                edge_out, center_attn = fused_transformer_layer(*args, int8_scores=True)
         else:
             layer = layer_math if self.plain else fused_transformer_layer
             edge_out, center_attn = layer(*args)

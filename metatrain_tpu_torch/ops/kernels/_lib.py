@@ -11,6 +11,13 @@ current PyTorch stream and returns ``cudaGetLastError()``, which
 ``LAUNCHES`` counts kernel launches by name; each wrapper adds one where
 it launches its kernel, and nowhere else. ``REPLAYS`` counts the
 second-order replays (plain PyTorch, no kernel) by the op they replay.
+
+The fused-layer kernels (K1, K2 and their variants, the GNN block) place
+their per-atom buffers with a layout plan (``csrc/common.cuh``
+``SmemPlan``): in shared memory where they fit, else in the block's slice
+of a global workspace that the wrapper allocates. :func:`make_plan` and
+the ``*_plan`` functions below mirror the C side, so that the CPU tests
+can check every shape; ``chip_smoke.py`` checks that both agree.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import functools
 import os
 import shutil
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -37,9 +45,11 @@ SOURCES = (
     "window_attention_bwd.cu",
     "gnn_block_fwd.cu",
     "gnn_block_bwd.cu",
+    "int8_absmax.cu",
 )
 LIBRARY = "libmtt_kernels.so"
 MAX_SHARED_BYTES = 232448  # per block on sm_90 (227 KB)
+MAX_SHARED_FLOATS = MAX_SHARED_BYTES // 4
 
 LAUNCHES: collections.Counter = collections.Counter()
 REPLAYS: collections.Counter = collections.Counter()
@@ -50,28 +60,37 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
 _FP = ctypes.POINTER(ctypes.c_float)  # a host array of floats
+_LP = ctypes.POINTER(ctypes.c_longlong)  # an output argument
+_IP = ctypes.POINTER(ctypes.c_int)
+# A, M, D, H, F, scale, eps, grid, workspace, stream
+_LAYER_TAIL = [_L, _I, _I, _I, _I, _F, _F, _I, _P, _P]
 _SIGNATURES = {
-    "mtt_fused_layer_fwd": [_I] + [_P] * 15 + [_L, _I, _I, _I, _I, _F, _F, _P],
-    "mtt_fused_layer_bwd": [_I] + [_P] * 21 + [_I, _P] + [_L, _I, _I, _I, _I, _F, _F, _P],
-    "mtt_fused_layer_fwd_w8a8": [_P] * 16 + [_FP, _P, _P, _L, _I, _I, _I, _I, _F, _P],
-    "mtt_fused_layer_bwd_w8a8": [_P] * 17 + [_FP] + [_P] * 5 + [_L, _I, _I, _I, _I, _F, _F, _P],
+    "mtt_fused_layer_fwd": [_I] + [_P] * 15 + _LAYER_TAIL,
+    "mtt_fused_layer_bwd": [_I] + [_P] * 22 + _LAYER_TAIL,
+    "mtt_fused_layer_fwd_w8a8": [_P] * 16 + [_FP, _P, _P, _L, _I, _I, _I, _I, _F, _I, _P, _P],
+    "mtt_fused_layer_bwd_w8a8": [_P] * 17 + [_FP] + [_P] * 5 + _LAYER_TAIL,
+    "mtt_fused_layer_fwd_int8": [_P] * 16 + _LAYER_TAIL,
+    "mtt_fused_layer_bwd_int8": [_P] * 23 + _LAYER_TAIL,
+    "mtt_int8_absmax": [_P] * 6 + [_L, _I, _I, _I, _F, _P],
     "mtt_rowblock_fwd": [_I, _I, _P, _P, _P, _I] + [_P] * 7 + [_L, _I, _I, _I, _I, _P],
     "mtt_rowblock_bwd": [_I, _I, _P, _P, _P, _I] + [_P] * 13 + [_I, _P] + [_L, _I, _I, _I, _I, _P],
     "mtt_permute": [_I, _P, _P, _P, _P, _L, _I, _P],
     "mtt_window_attention_fwd": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _L, _I, _I, _I, _F, _P],
     "mtt_window_attention_bwd": [_I] + [_P] * 4 + [_I] * 4 + [_P] * 5 + [_L, _I, _I, _I, _F, _P],
-    "mtt_gnn_block_fwd": [_I, _P, _P, _P, _PP, _PP, _P, _P, _L] + [_I] * 7 + [_F, _F, _P],
-    "mtt_gnn_block_bwd": [_I, _P, _P, _P, _PP, _PP, _PP] + [_P] * 7 + [_I] + [_P] * 3 + [_I, _P, _L]
-    + [_I] * 7 + [_F, _F, _P],
-    "mtt_fused_layer_fwd_smem": [_I, _I, _I],
-    "mtt_fused_layer_bwd_smem": [_I, _I, _I, _I, _I],
-    "mtt_fused_layer_bwd_w8a8_smem": [_I, _I, _I, _I],
-    "mtt_rowblock_fwd_smem": [_I, _I],
-    "mtt_rowblock_bwd_smem": [_I, _I, _I, _I, _I],
+    "mtt_gnn_block_fwd": [_I, _P, _P, _P, _PP, _PP, _P, _P, _L] + [_I] * 7 + [_F, _F, _I, _P, _P],
+    "mtt_gnn_block_bwd": [_I, _P, _P, _P, _PP, _PP, _PP] + [_P] * 7 + [_I] + [_P] * 4 + [_L]
+    + [_I] * 7 + [_F, _F, _I, _P, _P],
+    "mtt_fused_layer_fwd_smem": [_I, _I, _I, _LP],
+    "mtt_fused_layer_bwd_smem": [_I, _I, _I, _I, _I, _LP],
+    "mtt_fused_layer_bwd_w8a8_smem": [_I, _I, _I, _I, _LP],
+    "mtt_fused_layer_bwd_int8_smem": [_I, _I, _I, _I, _I, _LP],
+    "mtt_int8_absmax_smem": [_I],
+    "mtt_rowblock_fwd_smem": [_I, _I, _IP],
+    "mtt_rowblock_bwd_smem": [_I, _I, _I, _I, _I, _IP],
     "mtt_window_attention_fwd_smem": [_I, _I, _I, _I],
     "mtt_window_attention_bwd_smem": [_I, _I, _I, _I],
-    "mtt_gnn_block_fwd_smem": [_I] * 4,
-    "mtt_gnn_block_bwd_smem": [_I] * 6,
+    "mtt_gnn_block_fwd_smem": [_I] * 4 + [_LP],
+    "mtt_gnn_block_bwd_smem": [_I] * 6 + [_LP],
     "mtt_gnn_block_row_floats": [_I, _I],
 }
 
@@ -154,6 +173,133 @@ def dw_blocks(work_items: int, device: torch.device) -> int:
     for a card and a shape, so the partial sums and their order are too."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(int(work_items), sms))
+
+
+def plan_query(fn, *args):
+    """``(shared bytes, workspace floats per block)`` of a kernel's layout
+    plan, from its C query ``fn(*args, &ws_floats)``."""
+    ws = ctypes.c_longlong(0)
+    nbytes = int(fn(*args, ctypes.byref(ws)))
+    check_shared(nbytes, fn.__name__)
+    return nbytes, ws.value
+
+
+def layer_grid(atoms: int, ws_floats: int, device: torch.device) -> int:
+    """Blocks of a fused-layer kernel without weight gradients: one per atom
+    where every buffer is shared, else one per SM, each looping over atoms
+    with its workspace slice."""
+    return int(atoms) if ws_floats == 0 else dw_blocks(atoms, device)
+
+
+def workspace(grid: int, ws_floats: int, device: torch.device):
+    """The global workspace of ``grid`` blocks (``None`` when the plan puts
+    every buffer in shared memory)."""
+    if ws_floats == 0:
+        return None
+    return torch.empty(grid * ws_floats, dtype=torch.float32, device=device)
+
+
+# ---- layout plans (the C side's, csrc/common.cuh and the bodies) ----------
+
+
+class Plan(NamedTuple):
+    smem_floats: int
+    ws_floats: int
+    shared: tuple  # per buffer, in layout order: in shared memory or not
+
+
+def make_plan(sizes, keep, cap: int = MAX_SHARED_FLOATS) -> Plan:
+    """``common.cuh`` ``make_plan``: buffers claim shared memory in the
+    order of ``keep`` where they still fit under ``cap`` floats, the rest go
+    to the workspace; every size rounded up to 4 floats."""
+    sizes = [(int(s) + 3) // 4 * 4 for s in sizes]
+    shared = [False] * len(sizes)
+    used = 0
+    for i in keep:
+        if used + sizes[i] <= cap:
+            shared[i] = True
+            used += sizes[i]
+    smem = sum(s for s, sh in zip(sizes, shared) if sh)
+    return Plan(smem, sum(sizes) - smem, tuple(shared))
+
+
+def qkv_stride(D: int) -> int:
+    return 3 * D + 4
+
+
+def layer_fwd_plan(M: int, D: int, F: int, cap: int = MAX_SHARED_FLOATS) -> Plan:
+    """K1's buffers X, N, Q, P, CF (``layer_fwd.cuh``)."""
+    sizes = [M * D, M * D, M * max(qkv_stride(D), F), M * (M + 1), M]
+    return make_plan(sizes, [4, 0, 1, 3, 2], cap)
+
+
+def scratch_floats(M: int, D: int, H: int, F: int, dw: bool, q8: bool) -> int:
+    ffn = 16 * (D + 2 * F + (D + F if dw else 0))
+    att = (3 if q8 else 2) * M * (M + 1) + M * (D // H)
+    return max(ffn, att, M * D)
+
+
+def layer_bwd_plan(M: int, D: int, H: int, F: int, dw: bool, q8: bool,
+                   cap: int = MAX_SHARED_FLOATS) -> Plan:
+    """K2's buffers X, QKV, RES, SCR, RS1, RS2, CF, DCF (``layer_bwd.cuh``);
+    ``q8``: the int8-score variants' extra softmax buffer."""
+    sizes = [M * D, M * qkv_stride(D), max(M * D, M * (M + 1)),
+             scratch_floats(M, D, H, F, dw, q8), M, M, M, M]
+    return make_plan(sizes, [4, 5, 6, 7, 0, 1, 2, 3], cap)
+
+
+def center_fwd_floats(N: int, D: int) -> int:
+    return 9 * N + D + 4 + max(4 * N, 2 * 512)
+
+
+def center_bwd_floats(N: int, D: int) -> int:
+    return 16 * N + D + 4
+
+
+def gnn_fwd_plan(M: int, D: int, F: int, N: int) -> Plan:
+    return layer_fwd_plan(M, D, F, MAX_SHARED_FLOATS - center_fwd_floats(N, D))
+
+
+def gnn_block_sizes(M: int, D: int, H: int, F: int, N: int, dw: bool, backward: bool):
+    """``(shared bytes, workspace floats per block)`` of the GNN block's
+    forward or backward."""
+    f = gnn_fwd_plan(M, D, F, N)
+    if not backward:
+        return 4 * (f.smem_floats + center_fwd_floats(N, D)), f.ws_floats
+    b = layer_bwd_plan(M, D, H, F, dw, False)
+    smem = max(f.smem_floats + center_fwd_floats(N, D), b.smem_floats, center_bwd_floats(N, D))
+    return 4 * smem, max(f.ws_floats, b.ws_floats)
+
+
+def rowblock_fwd_rows(w_in: int, w_hid: int) -> int:
+    """K3's rows per tile: 64, or 32 or 16 where 64 do not fit."""
+    rows = 64
+    while rows > 16 and rows * (w_in + w_hid) > MAX_SHARED_FLOATS:
+        rows //= 2
+    return rows
+
+
+def rowblock_bwd_floats(stage: int, w_in: int, w_hid: int, w_out: int, dw: bool, rows: int) -> int:
+    if stage == 2:  # head
+        return rows * (w_in + 3 * w_hid)
+    return rows * (w_in + w_hid + w_out + (w_hid if dw else 0)) + 2 * rows
+
+
+def rowblock_bwd_rows(stage: int, w_in: int, w_hid: int, w_out: int, dw: bool) -> int:
+    """K4's (K4-dW's) rows per tile."""
+    rows = 64
+    while rows > 16 and rowblock_bwd_floats(stage, w_in, w_hid, w_out, dw, rows) > MAX_SHARED_FLOATS:
+        rows //= 2
+    return rows
+
+
+def head_regs(hd: int) -> int:
+    """The register width of a head in the window-attention float kernels
+    (0: wider than they take)."""
+    for width in (8, 16, 32, 64):
+        if hd <= width:
+            return width
+    return 0
 
 
 def ptr(t):

@@ -25,7 +25,8 @@ log-cutoff ``log(clip([1 | cf], 1e-15))``).
 
 The kernels take q, k, v (A, T, D) in float32 or bfloat16, with rows
 evenly spaced (the q, k and v slices of one (A, T, 3D) projection need no
-copy), and the bias (A, T) in float32.
+copy), and the bias (A, T) in float32; any head width up to 64 (the float
+kernels pad a head to 8, 16, 32 or 64 columns with zeros).
 """
 
 from __future__ import annotations
@@ -82,9 +83,9 @@ def _rows(x: torch.Tensor):
 
 def _check(q, k, v, bias, num_heads, extra=None):
     A, T, D = q.shape
-    if D % num_heads or D // num_heads not in (8, 16, 32):
-        raise ValueError(f"window attention kernels take head widths 8, 16 or 32; "
-                         f"got D={D}, heads={num_heads}")
+    if D % num_heads or not _lib.head_regs(D // num_heads):
+        raise ValueError(f"window attention kernels take a head count that divides D into heads "
+                         f"of at most 64; got D={D}, heads={num_heads}")
     for name, x in (("k", k), ("v", v), ("g", extra)):
         if x is not None and x.shape != q.shape:
             raise ValueError(f"{name} {tuple(x.shape)} does not match q {tuple(q.shape)}")

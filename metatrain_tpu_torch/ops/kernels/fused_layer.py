@@ -32,6 +32,15 @@ int8_weights)``, the backward by straight-through estimation.
 :func:`w8a8_transformer_layer` is its ``autograd.Function``: K1-W8A8 and
 K2-W8A8 on the card (the same sources), the plain versions on the CPU.
 
+The dynamic int8 scores (the JAX package's ``MTT_INT8_SCORES=1``,
+bfloat16 in the q-side layout) quantize q and k with one absmax scale per
+block of atoms (:func:`int8_block_scales`, the plain version of the absmax
+pass ``csrc/int8_absmax.cu``; the blocks are the JAX forward's,
+:func:`int8_block_atoms`), computed once per layer call and handed to the
+forward, the backward and the second-order replay alike as per-atom
+``int8_scales`` (A, 2). ``fused_transformer_layer(..., int8_scores=True)``
+runs K1-int8 and K2-int8 / K2-dW-int8 on the card.
+
 Weights keep the JAX package's (in, out) layout and are cast to the
 compute dtype (the dtype of ``edges``); accumulation is float32 (float64
 for float64 inputs).
@@ -93,6 +102,17 @@ def _with_center(edges, center):
 
 def _zero_last_slot(x):
     return torch.cat([x[:, :-1], torch.zeros_like(x[:, -1:])], dim=1)
+
+
+def _rounded_softmax(s, cf, cd):
+    """The softmax of the int8 score paths (the JAX package's
+    ``_qside_tail``): ``(E, P)`` with e = exp(s - max), E = e / z and the AV
+    weights P = rnd(cf e) / z, z = sum_k rnd(cf e); cf e is rounded to the
+    compute dtype ``cd`` before the AV product and the denominator."""
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True).detach())
+    e_cf = (e * cf.to(s.dtype)[:, None, None, :]).to(cd).to(s.dtype)
+    z = torch.sum(e_cf, dim=-1, keepdim=True)
+    return e / z, e_cf / z
 
 
 def _attention_probs(q, k, cf, scale, acc):
@@ -184,6 +204,78 @@ def quantize_layer_weights(w: LayerWeights, calib: Int8Calib):
     )
 
 
+def int8_block_atoms(M: int) -> int:
+    """Atoms that share one pair of int8 score scales: the JAX package's
+    forward blocks, ``_block_atoms(M)``."""
+    if M <= 48:
+        return 128
+    return 8 if M <= 96 else 4
+
+
+def quantize_i8(x, s):
+    """``_quantize_i8`` at given scales: ``clamp(round(x / s), -127, 127)``
+    in float32, x / s rounded once, half to even (the int8 values as
+    floats; ``s`` broadcasts against ``x``)."""
+    return torch.clamp(torch.round(x.to(torch.float32) / s), -127.0, 127.0)
+
+
+def _exact_qk(edges, center, w: LayerWeights):
+    """q and k of the layer, (A, M, D) each, as the exact forward rounds
+    them."""
+    A, M, D = edges.shape
+    cd = edges.dtype
+    acc = accumulation_dtype(cd)
+    wc = LayerWeights(*(x.to(cd) for x in w))
+    x1, r1 = _rms_stats(_with_center(edges, center), acc, rmsnorm_eps(cd))
+    normed = (x1 * r1 * wc.norm_attn.to(acc)).to(cd)
+    qkv = _matmul_bias(normed.reshape(A * M, D), wc.w_qkv, wc.b_qkv, cd).reshape(A, M, 3, D)
+    return qkv[:, :, 0], qkv[:, :, 1]
+
+
+def int8_block_scales(edges, center, w: LayerWeights, block_atoms: int = None):
+    """Plain version of the absmax pass: ``(n_blocks, 2)`` float32 scales
+    ``s = max(absmax, 1e-12) / 127`` of q and of k per block of
+    ``block_atoms`` atoms (:func:`int8_block_atoms` by default), the absmax
+    over every slot and column of the block's atoms, as the JAX package's
+    ``_quantize_i8`` takes it over one kernel block. A partial last block
+    is padded there with atoms whose tokens are 0: their q rows are b_q and
+    their k rows b_k, so its absmax takes ``max |b_q|`` and ``max |b_k|``."""
+    A, M, D = edges.shape
+    BA = block_atoms or int8_block_atoms(M)
+    with torch.no_grad():
+        q, k = _exact_qk(edges, center, w)
+        am = torch.stack([x.to(torch.float32).abs().amax(dim=(1, 2)) for x in (q, k)], dim=1)
+        n_blocks = -(-A // BA)
+        pad = n_blocks * BA - A
+        am = torch.cat([am, am.new_zeros(pad, 2)]).reshape(n_blocks, BA, 2).amax(dim=1)
+        if pad:
+            b = w.b_qkv.to(edges.dtype).to(torch.float32).abs()
+            am[-1] = torch.maximum(am[-1], torch.stack([b[:D].amax(), b[D:2 * D].amax()]))
+        return torch.clamp_min(am, 1e-12) / 127.0
+
+
+def int8_atom_scales(block_scales, A: int, block_atoms: int):
+    """The (A, 2) per-atom view of per-block scales."""
+    return block_scales.repeat_interleave(block_atoms, dim=0)[:A].contiguous()
+
+
+def _int8_scores(q, k, scales, scale: float, acc):
+    """(A, H, Mq, Mk) scores of the dynamic int8 path (``_qside_scores``
+    with int8): q and k (A, M, H, hd) quantized per atom by ``scales`` (A,
+    2), their exact int32 products times ``(s_q * s_k) * scale`` in
+    float32. The value is the quantized one; the gradient is the exact
+    product's (straight through), as the JAX package's replay takes it."""
+    f32 = torch.float32
+    s_q, s_k = (scales[:, i].to(f32)[:, None, None, None] for i in (0, 1))
+    qi = quantize_i8(q.detach(), s_q)
+    ki = quantize_i8(k.detach(), s_k)
+    s_int = torch.einsum("aqhd,akhd->ahqk", qi.double(), ki.double()).to(f32)
+    factor = (scales[:, 0].to(f32) * scales[:, 1].to(f32)) * torch.tensor(scale, dtype=f32)
+    quant = (s_int * factor[:, None, None, None]).to(acc)
+    exact = torch.einsum("aqhd,akhd->ahqk", q.to(acc), k.to(acc)) * scale
+    return quant + (exact - exact.detach())
+
+
 def _w8a8_attention(tokens, cf, wc: LayerWeights, w8a8, H, scale):
     """The W8A8 layer up to the attention weights: ``(normed_i8, q_i8,
     k_i8)``, q and k (float32 rounded to the compute dtype, the
@@ -208,10 +300,8 @@ def _w8a8_attention(tokens, cf, wc: LayerWeights, w8a8, H, scale):
 
     s_int = torch.einsum("aqhd,akhd->ahqk", heads(q_i8).double(), heads(k_i8).double())
     s = s_int.to(f32) * _f32(deq(calib.q, calib.k) * scale)
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    e_cf = (e * cf.to(f32)[:, None, None, :]).to(cd).to(f32)
-    z = torch.sum(e_cf, dim=-1, keepdim=True)
-    return ((n_i8, q_i8, k_i8), heads(q_f.to(cd)), heads(k_f.to(cd)), heads(v), e / z, e_cf / z)
+    return ((n_i8, q_i8, k_i8), heads(q_f.to(cd)), heads(k_f.to(cd)), heads(v),
+            *_rounded_softmax(s, cf, cd))
 
 
 def _w8a8_ffn_in(res, wc: LayerWeights, w8a8):
@@ -222,11 +312,13 @@ def _w8a8_ffn_in(res, wc: LayerWeights, w8a8):
     return h_i8, dot_i8(h_i8, w_in, deq(calib.h_norm, calib.w_in), wc.b_in.to(torch.float32))
 
 
-def _layer_forward(edges, center, cf, w: LayerWeights, num_heads: int, scale: float, w8a8=None):
+def _layer_forward(edges, center, cf, w: LayerWeights, num_heads: int, scale: float, w8a8=None,
+                   int8_scales=None):
     """``(edge_out, center_attn, operands)``: the operands are the five
     activations the W8A8 path quantizes (normed, q, k, h_norm, ffn_h), as
     the exact layer computes them (ffn_h in float32, the others in the
-    compute dtype) or, with ``w8a8``, as their int8 quantizations."""
+    compute dtype) or, with ``w8a8``, as their int8 quantizations. With
+    ``int8_scales`` the scores are the dynamic int8 ones."""
     A, M, D = edges.shape
     cd = edges.dtype
     acc = accumulation_dtype(cd)
@@ -240,8 +332,11 @@ def _layer_forward(edges, center, cf, w: LayerWeights, num_heads: int, scale: fl
         normed = (x1 * r1 * wc.norm_attn.to(acc)).to(cd)
         qkv = _matmul_bias(normed.reshape(A * M, D), wc.w_qkv, wc.b_qkv, cd)
         q, k, v = qkv.reshape(A, M, 3, num_heads, hd).unbind(2)
-        probs, cf_k = _attention_probs(q, k, cf, scale, acc)
-        p_attn = cf_k * probs
+        if int8_scales is None:
+            probs, cf_k = _attention_probs(q, k, cf, scale, acc)
+            p_attn = cf_k * probs
+        else:
+            p_attn = _rounded_softmax(_int8_scores(q, k, int8_scales, scale, acc), cf, cd)[1]
         operands = [normed, q.reshape(A, M, D), k.reshape(A, M, D)]
     else:
         operands, _, _, v, _, p_attn = _w8a8_attention(tokens, cf, wc, w8a8, num_heads, scale)
@@ -271,7 +366,8 @@ def _layer_forward(edges, center, cf, w: LayerWeights, num_heads: int, scale: fl
     return edge_out, center_attn, operands
 
 
-def layer_math(edges, center, cf, w: LayerWeights, num_heads: int, scale: float, w8a8=None):
+def layer_math(edges, center, cf, w: LayerWeights, num_heads: int, scale: float, w8a8=None,
+               int8_scales=None):
     """Plain PyTorch forward: ``(edge_out, center_attn)``.
 
     :param edges: (A, M, D) edge tokens; slot M-1 is ignored and replaced
@@ -282,8 +378,13 @@ def layer_math(edges, center, cf, w: LayerWeights, num_heads: int, scale: float,
     :param w8a8: ``(Int8Calib, quantize_layer_weights(w, calib))`` for the
         static W8A8 layer (float32 or bfloat16): QKV, scores, FFN-in and
         FFN-out in int8, AV and out-projection in the compute dtype.
+    :param int8_scales: (A, 2) float32 ``s_q, s_k`` of each atom
+        (:func:`int8_atom_scales` of :func:`int8_block_scales`) for the
+        dynamic int8 scores, the plain version of K1-int8: the exact layer
+        with int8 scores and the rounded softmax of :func:`_rounded_softmax`
+        (differentiable straight through).
     """
-    return _layer_forward(edges, center, cf, w, num_heads, scale, w8a8)[:2]
+    return _layer_forward(edges, center, cf, w, num_heads, scale, w8a8, int8_scales)[:2]
 
 
 def layer_probe_stats(edges, center, cf, w: LayerWeights, num_heads: int, scale: float):
@@ -297,7 +398,7 @@ def layer_probe_stats(edges, center, cf, w: LayerWeights, num_heads: int, scale:
 
 def layer_bwd_math(
     edges, center, cf, w: LayerWeights, g_edge, g_center, num_heads: int, scale: float,
-    weight_grads: bool = False, w8a8=None,
+    weight_grads: bool = False, w8a8=None, int8_scales=None,
 ):
     """Plain PyTorch backward of :func:`layer_math`: ``(d_edges, d_center,
     d_cf)`` with ``d_edges[:, M-1] == 0`` and ``d_cf`` in float32 (float64
@@ -315,7 +416,13 @@ def layer_bwd_math(
     With ``w8a8`` (input gradients only), the plain version of K2-W8A8: the
     recompute reproduces the W8A8 forward (its softmax weights and vg come
     from the int8 products), and every gradient product takes the weights
-    and q, k in the compute dtype (straight-through estimation)."""
+    and q, k in the compute dtype (straight-through estimation).
+
+    With ``int8_scales`` (as :func:`layer_math` takes them), the plain
+    version of K2-int8 (K2-dW-int8 with ``weight_grads``): the recompute
+    quantizes the scores with the same scales, so its softmax is the
+    forward's; the gradient products are K2-W8A8's, on the bf16 q and k.
+    It is differentiable straight through (the second-order replay)."""
     if w8a8 is not None and weight_grads:
         raise ValueError("the W8A8 layer is inference only: it has no weight gradients")
     A, M, D = edges.shape
@@ -334,8 +441,12 @@ def layer_bwd_math(
         n1 = (x1 * r1 * wa.norm_attn).to(cd)
         qkv = _matmul_bias(n1.reshape(A * M, D), wc.w_qkv, wc.b_qkv, cd)
         q, k, v = qkv.reshape(A, M, 3, H, hd).unbind(2)
-        probs, cf_k = _attention_probs(q, k, cf, scale, acc)
-        p_attn = cf_k * probs
+        if int8_scales is None:
+            probs, cf_k = _attention_probs(q, k, cf, scale, acc)
+            p_attn = cf_k * probs
+        else:
+            probs, p_attn = _rounded_softmax(_int8_scores(q, k, int8_scales, scale, acc), cf, cd)
+            cf_k = cf.to(acc)[:, None, None, :]
     else:
         _, q, k, v, probs, p_attn = _w8a8_attention(tokens, cf, wc, w8a8, H, scale)
         cf_k = cf.to(acc)[:, None, None, :]
@@ -413,15 +524,17 @@ def layer_bwd_math(
 
 def check_layer_shapes(edges, cf, w: LayerWeights, num_heads):
     """``(A, M, D, F)``; raises where the fused layer's kernel body (K1/K2,
-    and the GNN block that runs it) does not take the shapes."""
+    and the GNN block that runs it) does not take the shapes: any window
+    M % 16 == 0 (up to 256: the layout plan moves what does not fit in
+    shared memory to a workspace) and any head width that divides D."""
     A, M, D = edges.shape
     F = w.w_ffn_out.shape[0]
     # bfloat16 products run on the tensor cores in 16-wide tiles
     width = 16 if edges.dtype == torch.bfloat16 else 4
-    if M % 16 or M >= D or D % width or F % width or D % num_heads or (D // num_heads) % 4:
+    if M % 16 or not 16 <= M <= 256 or D % width or F % width or D % num_heads:
         raise ValueError(
-            f"fused layer kernels need M % 16 == 0, M < D, D and F divisible by "
-            f"{width} and a head width divisible by 4; got M={M}, D={D}, F={F}, "
+            f"fused layer kernels need M % 16 == 0 with 16 <= M <= 256, D and F divisible by "
+            f"{width} and a head count that divides D; got M={M}, D={D}, F={F}, "
             f"heads={num_heads}"
         )
     if cf.shape != (A, M):
@@ -441,6 +554,15 @@ def _cuda_weights(w: LayerWeights, cd) -> LayerWeights:
     return LayerWeights(*(x.detach().to(cd).contiguous() for x in w))
 
 
+def check_w8a8_shapes(D: int, F: int, num_heads: int) -> None:
+    """Raises where the W8A8 kernels do not take the widths: their int8
+    products run in k-steps of 32 (any head width: the score tiles pad a
+    head to 16 columns)."""
+    if D % 32 or F % 32 or D % num_heads:
+        raise ValueError(f"the W8A8 kernels need D and F divisible by 32 and a head count that "
+                         f"divides D; got D={D}, F={F}, heads={num_heads}")
+
+
 def _w8a8_kernel_args(edges, w8a8, num_heads, scale):
     """The W8A8 kernels' extra arguments: the int8 weights transposed to
     (out, in) (``w_qkv``, ``w_in``, ``w_ffn_out``) and the 11 static scales
@@ -449,10 +571,7 @@ def _w8a8_kernel_args(edges, w8a8, num_heads, scale):
     calib, (wq, wk, wv, w_in, w_fo) = w8a8
     if edges.dtype != torch.bfloat16:
         raise TypeError(f"the W8A8 kernels take bfloat16, got {edges.dtype}")
-    D, F = wq.shape[0], w_fo.shape[0]
-    if (D // num_heads) % 16 or D % 32 or F % 32:
-        raise ValueError(f"the W8A8 kernels need a head width divisible by 16 and D, F divisible "
-                         f"by 32; got D={D}, F={F}, heads={num_heads}")
+    check_w8a8_shapes(wq.shape[0], w_fo.shape[0], num_heads)
     int8 = [torch.cat([wq, wk, wv], dim=1), w_in, w_fo]
     _lib.require({f"int8 weight {i}": x for i, x in enumerate(int8)}, edges.device, torch.int8)
     inv = [127.0 / max(float(a), 1e-12) for a in calib[:5]]
@@ -463,55 +582,118 @@ def _w8a8_kernel_args(edges, w8a8, num_heads, scale):
     return [x.t().contiguous() for x in int8], scales
 
 
-def fused_layer_fwd_cuda(edges, center, cf, w: LayerWeights, num_heads, scale, w8a8=None):
+def _int8_kernel_scales(edges, int8_scales):
+    """The (A, 2) float32 scales the int8-score kernels read; raises where
+    they do not take the dtype."""
+    if edges.dtype != torch.bfloat16:
+        raise TypeError(f"the int8-score kernels take bfloat16, got {edges.dtype}")
+    if int8_scales.shape != (edges.shape[0], 2):
+        raise ValueError(f"int8 scales {tuple(int8_scales.shape)} do not match "
+                         f"{edges.shape[0]} atoms")
+    _lib.require({"int8_scales": int8_scales}, edges.device, torch.float32)
+    return int8_scales
+
+
+def int8_absmax_cuda(edges, center, w: LayerWeights, block_atoms: int = None):
+    """Launch the absmax pass (``csrc/int8_absmax.cu``, bfloat16): the
+    ``(n_blocks, 2)`` float32 scales of :func:`int8_block_scales`."""
+    A, M, D = edges.shape
+    if center.shape != (A, D) or w.w_qkv.shape != (D, 3 * D):
+        raise ValueError(f"center {tuple(center.shape)} or w_qkv {tuple(w.w_qkv.shape)} do not "
+                         f"match edges {tuple(edges.shape)}")
+    if edges.dtype != torch.bfloat16:
+        raise TypeError(f"the absmax pass takes bfloat16, got {edges.dtype}")
+    cd = edges.dtype
+    wc = [x.detach().to(cd).contiguous() for x in (w.norm_attn, w.w_qkv, w.b_qkv)]
+    _lib.require({"edges": edges, "center": center, "norm_attn": wc[0], "w_qkv": wc[1],
+                  "b_qkv": wc[2]}, edges.device, cd)
+    if M % 16 or D % 16:
+        raise ValueError(f"the absmax pass needs M and D divisible by 16; got M={M}, D={D}")
+    BA = block_atoms or int8_block_atoms(M)
+    lib = _lib.library()
+    _lib.check_shared(lib.mtt_int8_absmax_smem(D), "int8_absmax")
+    scales = torch.empty((-(-A // BA), 2), dtype=torch.float32, device=edges.device)
+    _lib.check(
+        lib.mtt_int8_absmax(edges.data_ptr(), center.data_ptr(), *(x.data_ptr() for x in wc),
+                            scales.data_ptr(), A, M, D, BA, rmsnorm_eps(cd),
+                            _lib.stream_ptr(edges.device)),
+        "int8_absmax",
+    )
+    _lib.LAUNCHES["int8_absmax"] += 1
+    return scales
+
+
+def int8_scales_for(edges, center, w: LayerWeights, plain: bool = False):
+    """The (A, 2) per-atom int8 score scales of one layer call: the absmax
+    pass on the card (its plain version on the CPU or with ``plain``),
+    expanded from the blocks of :func:`int8_block_atoms` to their atoms."""
+    A, M = edges.shape[:2]
+    BA = int8_block_atoms(M)
+    if edges.is_cuda and not plain:
+        blocks = int8_absmax_cuda(edges, center, w, BA)
+    else:
+        blocks = int8_block_scales(edges, center, w, BA)
+    return int8_atom_scales(blocks, A, BA)
+
+
+def fused_layer_fwd_cuda(edges, center, cf, w: LayerWeights, num_heads, scale, w8a8=None,
+                         int8_scales=None):
     """Launch K1. ``edges``/``center`` float32 or bfloat16, ``cf`` float32.
 
     With ``w8a8`` (``(Int8Calib, quantize_layer_weights(...))``, int8
-    weights on the device) launch K1-W8A8 instead: bfloat16 only."""
+    weights on the device) launch K1-W8A8 instead: bfloat16 only. With
+    ``int8_scales`` ((A, 2) float32, :func:`int8_scales_for`) launch
+    K1-int8: bfloat16 only.
+
+    Windows whose buffers do not fit in shared memory run with a global
+    workspace (one block per SM looping over the atoms)."""
     A, M, D, F = _check_shapes(edges, center, cf, w, num_heads)
     if w8a8 is not None:
         int8_t, scales = _w8a8_kernel_args(edges, w8a8, num_heads, scale)
+    if int8_scales is not None:
+        _int8_kernel_scales(edges, int8_scales)
     cd = edges.dtype
-    code = _lib.dtype_code(cd)
+    dtype_code = _lib.dtype_code(cd)
     wc = _cuda_weights(w, cd)
     _lib.require({"edges": edges, "center": center, **wc._asdict()}, edges.device, cd)
     _lib.require({"cf": cf}, edges.device, torch.float32)
     lib = _lib.library()
-    _lib.check_shared(lib.mtt_fused_layer_fwd_smem(M, D, F), "fused_layer_fwd")
+    _, ws_floats = _lib.plan_query(lib.mtt_fused_layer_fwd_smem, M, D, F)
+    grid = _lib.layer_grid(A, ws_floats, edges.device)
+    ws = _lib.workspace(grid, ws_floats, edges.device)
+    tail = (A, M, D, num_heads, F)
+    launch = (grid, _lib.ptr(ws), _lib.stream_ptr(edges.device))
     edge_out = torch.empty_like(edges)
     center_out = torch.empty_like(center)
+    io = (edges.data_ptr(), center.data_ptr(), cf.data_ptr())
+    weights = [x.data_ptr() for x in wc]
     if w8a8 is not None:
-        _lib.check(
-            lib.mtt_fused_layer_fwd_w8a8(
-                edges.data_ptr(), center.data_ptr(), cf.data_ptr(),
-                *(x.data_ptr() for x in wc), *(x.data_ptr() for x in int8_t), scales,
-                edge_out.data_ptr(), center_out.data_ptr(),
-                A, M, D, num_heads, F, rmsnorm_eps(cd), _lib.stream_ptr(edges.device),
-            ),
-            "fused_layer_fwd_w8a8",
-        )
-        _lib.LAUNCHES["fused_layer_fwd_w8a8"] += 1
-        return edge_out, center_out
-    _lib.check(
-        lib.mtt_fused_layer_fwd(
-            code, edges.data_ptr(), center.data_ptr(), cf.data_ptr(),
-            *(x.data_ptr() for x in wc),
-            edge_out.data_ptr(), center_out.data_ptr(),
-            A, M, D, num_heads, F, float(scale), rmsnorm_eps(cd),
-            _lib.stream_ptr(edges.device),
-        ),
-        "fused_layer_fwd",
-    )
-    _lib.LAUNCHES["fused_layer_fwd"] += 1
+        name = "fused_layer_fwd_w8a8"
+        code = lib.mtt_fused_layer_fwd_w8a8(
+            *io, *weights, *(x.data_ptr() for x in int8_t), scales,
+            edge_out.data_ptr(), center_out.data_ptr(), *tail, rmsnorm_eps(cd), *launch)
+    elif int8_scales is not None:
+        name = "fused_layer_fwd_int8"
+        code = lib.mtt_fused_layer_fwd_int8(
+            *io, *weights, int8_scales.data_ptr(), edge_out.data_ptr(), center_out.data_ptr(),
+            *tail, float(scale), rmsnorm_eps(cd), *launch)
+    else:
+        name = "fused_layer_fwd"
+        code = lib.mtt_fused_layer_fwd(
+            dtype_code, *io, *weights, edge_out.data_ptr(), center_out.data_ptr(),
+            *tail, float(scale), rmsnorm_eps(cd), *launch)
+    _lib.check(code, name)
+    _lib.LAUNCHES[name] += 1
     return edge_out, center_out
 
 
 def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, num_heads, scale,
-                         weight_grads: bool = False, w8a8=None):
+                         weight_grads: bool = False, w8a8=None, int8_scales=None):
     """Launch K2: ``(d_edges, d_center, d_cf)`` with ``d_cf`` float32.
 
     With ``w8a8`` launch K2-W8A8 (bfloat16, input gradients only): the W8A8
-    layer's straight-through backward.
+    layer's straight-through backward. With ``int8_scales`` (the forward's)
+    launch K2-int8 (bfloat16), or K2-dW-int8 with ``weight_grads``.
 
     With ``weight_grads=True`` launch K2-dW instead, which also returns the
     float32 weight gradients summed over atoms as a fourth output
@@ -521,9 +703,8 @@ def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, n
     from run to run."""
     A, M, D, F = _check_shapes(edges, center, cf, w, num_heads)
     cd = edges.dtype
-    code = _lib.dtype_code(cd)
+    dtype_code = _lib.dtype_code(cd)
     wc = _cuda_weights(w, cd)
-    transposed = [x.t().contiguous() for x in (wc.w_qkv, wc.w_out, wc.w_in, wc.w_ffn_out)]
     _lib.require(
         {"edges": edges, "center": center, "g_edge": g_edge, "g_center": g_center,
          **wc._asdict()},
@@ -533,34 +714,49 @@ def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, n
     if w8a8 is not None:
         if weight_grads:
             raise ValueError("the W8A8 layer is inference only: it has no weight gradients")
-        return _fused_layer_bwd_w8a8(edges, center, cf, wc, transposed, g_edge, g_center,
-                                     num_heads, scale, w8a8)
-    name = "fused_layer_bwd_dw" if weight_grads else "fused_layer_bwd"
+        int8_t, scales = _w8a8_kernel_args(edges, w8a8, num_heads, scale)
+    if int8_scales is not None:
+        _int8_kernel_scales(edges, int8_scales)
+    transposed = [x.t().contiguous() for x in (wc.w_qkv, wc.w_out, wc.w_in, wc.w_ffn_out)]
     lib = _lib.library()
-    _lib.check_shared(lib.mtt_fused_layer_bwd_smem(M, D, num_heads, F, int(weight_grads)), name)
+    dw_flag = int(weight_grads)
+    if w8a8 is not None:
+        name = "fused_layer_bwd_w8a8"
+        query = (lib.mtt_fused_layer_bwd_w8a8_smem, M, D, num_heads, F)
+    elif int8_scales is not None:
+        name = f"fused_layer_bwd{'_dw' if weight_grads else ''}_int8"
+        query = (lib.mtt_fused_layer_bwd_int8_smem, M, D, num_heads, F, dw_flag)
+    else:
+        name = "fused_layer_bwd_dw" if weight_grads else "fused_layer_bwd"
+        query = (lib.mtt_fused_layer_bwd_smem, M, D, num_heads, F, dw_flag)
+    _, ws_floats = _lib.plan_query(*query)
+    grid = _lib.dw_blocks(A, edges.device) if weight_grads else _lib.layer_grid(
+        A, ws_floats, edges.device)
+    ws = _lib.workspace(grid, ws_floats, edges.device)
     d_edges = torch.empty_like(edges)
     d_center = torch.empty_like(center)
     d_cf = torch.empty_like(cf)
     partials = dw = None
-    blocks = 0
     if weight_grads:
         sizes = [x.numel() for x in wc]
-        blocks = _lib.dw_blocks(A, edges.device)
-        partials = torch.empty((blocks, sum(sizes)), dtype=torch.float32, device=edges.device)
+        partials = torch.empty((grid, sum(sizes)), dtype=torch.float32, device=edges.device)
         dw = torch.empty(sum(sizes), dtype=torch.float32, device=edges.device)
-    _lib.check(
-        lib.mtt_fused_layer_bwd(
-            code, edges.data_ptr(), center.data_ptr(), cf.data_ptr(),
-            *(x.data_ptr() for x in wc[:8]),
-            *(x.data_ptr() for x in transposed),
-            g_edge.data_ptr(), g_center.data_ptr(),
-            d_edges.data_ptr(), d_center.data_ptr(), d_cf.data_ptr(),
-            _lib.ptr(partials), blocks, _lib.ptr(dw),
-            A, M, D, num_heads, F, float(scale), rmsnorm_eps(cd),
-            _lib.stream_ptr(edges.device),
-        ),
-        name,
-    )
+    inputs = (edges.data_ptr(), center.data_ptr(), cf.data_ptr(),
+              *(x.data_ptr() for x in wc[:8]), *(x.data_ptr() for x in transposed))
+    cots = (g_edge.data_ptr(), g_center.data_ptr())
+    outs = (d_edges.data_ptr(), d_center.data_ptr(), d_cf.data_ptr())
+    tail = (A, M, D, num_heads, F, float(scale), rmsnorm_eps(cd), grid, _lib.ptr(ws),
+            _lib.stream_ptr(edges.device))
+    if w8a8 is not None:
+        code = lib.mtt_fused_layer_bwd_w8a8(
+            *inputs, int8_t[0].data_ptr(), int8_t[1].data_ptr(), scales, *cots, *outs, *tail)
+    elif int8_scales is not None:
+        code = lib.mtt_fused_layer_bwd_int8(
+            *inputs, int8_scales.data_ptr(), *cots, *outs, _lib.ptr(partials), _lib.ptr(dw), *tail)
+    else:
+        code = lib.mtt_fused_layer_bwd(
+            dtype_code, *inputs, *cots, *outs, _lib.ptr(partials), _lib.ptr(dw), *tail)
+    _lib.check(code, name)
     _lib.LAUNCHES[name] += 1
     if not weight_grads:
         return d_edges, d_center, d_cf
@@ -568,41 +764,19 @@ def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, n
     return d_edges, d_center, d_cf, LayerWeights(*(p.view(x.shape) for p, x in zip(parts, wc)))
 
 
-def _fused_layer_bwd_w8a8(edges, center, cf, wc, transposed, g_edge, g_center, num_heads, scale,
-                          w8a8):
-    A, M, D = edges.shape
-    F = wc.w_ffn_out.shape[0]
-    int8_t, scales = _w8a8_kernel_args(edges, w8a8, num_heads, scale)
-    lib = _lib.library()
-    _lib.check_shared(lib.mtt_fused_layer_bwd_w8a8_smem(M, D, num_heads, F), "fused_layer_bwd_w8a8")
-    d_edges = torch.empty_like(edges)
-    d_center = torch.empty_like(center)
-    d_cf = torch.empty_like(cf)
-    _lib.check(
-        lib.mtt_fused_layer_bwd_w8a8(
-            edges.data_ptr(), center.data_ptr(), cf.data_ptr(),
-            *(x.data_ptr() for x in wc[:8]), *(x.data_ptr() for x in transposed),
-            int8_t[0].data_ptr(), int8_t[1].data_ptr(), scales,
-            g_edge.data_ptr(), g_center.data_ptr(),
-            d_edges.data_ptr(), d_center.data_ptr(), d_cf.data_ptr(),
-            A, M, D, num_heads, F, float(scale), rmsnorm_eps(edges.dtype),
-            _lib.stream_ptr(edges.device),
-        ),
-        "fused_layer_bwd_w8a8",
-    )
-    _lib.LAUNCHES["fused_layer_bwd_w8a8"] += 1
-    return d_edges, d_center, d_cf
-
-
-def _first_backward(edges, center, cf, w, g_edge, g_center, num_heads, scale, weight_grads):
-    """K2 / K2-dW on the card, :func:`layer_bwd_math` on the CPU."""
+def _first_backward(edges, center, cf, w, g_edge, g_center, num_heads, scale, weight_grads,
+                    int8_scales=None):
+    """K2 / K2-dW (their int8-score variants with ``int8_scales``) on the
+    card, :func:`layer_bwd_math` on the CPU."""
     if edges.is_cuda:
         return fused_layer_bwd_cuda(edges, center, cf, w, g_edge, g_center, num_heads, scale,
-                                    weight_grads)
-    return layer_bwd_math(edges, center, cf, w, g_edge, g_center, num_heads, scale, weight_grads)
+                                    weight_grads, int8_scales=int8_scales)
+    return layer_bwd_math(edges, center, cf, w, g_edge, g_center, num_heads, scale, weight_grads,
+                          int8_scales=int8_scales)
 
 
-def replay_layer_bwd(inputs, w: LayerWeights, cotangents, ct_dw, num_heads, scale, chunk):
+def replay_layer_bwd(inputs, w: LayerWeights, cotangents, ct_dw, num_heads, scale, chunk,
+                     int8_scales=None):
     """The vector-Jacobian product of :func:`layer_bwd_math`, computed by
     replaying it under autograd over chunks of ``chunk`` atoms (port of
     ``_chunked_replay_bwd``).
@@ -613,6 +787,9 @@ def replay_layer_bwd(inputs, w: LayerWeights, cotangents, ct_dw, num_heads, scal
     :param ct_dw: cotangents of the weight gradients (a sequence of 10,
         ``None`` entries allowed), or ``None``: then the replay skips the
         weight-gradient products.
+    :param int8_scales: the (A, 2) scales of the dynamic int8 scores, the
+        forward's, sliced per chunk of atoms (constants: the JAX package's
+        replay takes its absmax per chunk instead).
     :return: the cotangents of the five inputs and of the 10 weights.
 
     Atoms are independent rows and the weight gradients are sums over
@@ -623,11 +800,15 @@ def replay_layer_bwd(inputs, w: LayerWeights, cotangents, ct_dw, num_heads, scal
     cotangents) ever exists.
     """
     _lib.REPLAYS["fused_layer"] += 1
-    return chunked_replay(
-        lambda xs, ws, weight_grads: layer_bwd_math(xs[0], xs[1], xs[2], LayerWeights(*ws), xs[3],
-                                                    xs[4], num_heads, scale, weight_grads),
-        inputs, w, cotangents, ct_dw, chunk,
-    )
+    rows = tuple(inputs) + (() if int8_scales is None else (int8_scales,))
+
+    def math(xs, ws, weight_grads):
+        return layer_bwd_math(xs[0], xs[1], xs[2], LayerWeights(*ws), xs[3], xs[4], num_heads,
+                              scale, weight_grads,
+                              int8_scales=None if int8_scales is None else xs[5].detach())
+
+    d_rows, d_w = chunked_replay(math, rows, w, cotangents, ct_dw, chunk)
+    return d_rows[:5], d_w
 
 
 def chunked_replay(math, inputs, weights, cotangents, ct_dw, chunk):
@@ -671,69 +852,78 @@ def chunked_replay(math, inputs, weights, cotangents, ct_dw, chunk):
 
 class _FusedLayerBwd(torch.autograd.Function):
     """The layer's first backward as a function of its own: forward is K2
-    or K2-dW (the twin on the CPU), backward the chunked replay."""
+    or K2-dW (their int8-score variants with scales; the twin on the CPU),
+    backward the chunked replay."""
 
     @staticmethod
-    def forward(ctx, edges, center, cf, g_edge, g_center, num_heads, scale, chunk, weight_grads,
-                *weights):
+    def forward(ctx, edges, center, cf, g_edge, g_center, int8_scales, num_heads, scale, chunk,
+                weight_grads, *weights):
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(edges, center, cf, g_edge, g_center, *weights)
+        ctx.save_for_backward(edges, center, cf, g_edge, g_center, int8_scales, *weights)
         ctx.num_heads, ctx.scale, ctx.chunk = num_heads, scale, chunk
         ctx.weight_grads = weight_grads
         out = _first_backward(edges, center, cf, LayerWeights(*weights), g_edge, g_center,
-                              num_heads, scale, weight_grads)
+                              num_heads, scale, weight_grads, int8_scales)
         return (*out[:3], *out[3]) if weight_grads else out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, ct_edges, ct_center, ct_cf, *ct_dw):
-        edges, center, cf, g_edge, g_center, *weights = ctx.saved_tensors
+        edges, center, cf, g_edge, g_center, int8_scales, *weights = ctx.saved_tensors
         d_inputs, d_w = replay_layer_bwd(
             (edges, center, cf, g_edge, g_center), LayerWeights(*weights),
             (ct_edges, ct_center, ct_cf), ct_dw if ctx.weight_grads else None,
-            ctx.num_heads, ctx.scale, ctx.chunk,
+            ctx.num_heads, ctx.scale, ctx.chunk, int8_scales,
         )
         needs = ctx.needs_input_grad
         d_inputs = [d if needs[i] else None for i, d in enumerate(d_inputs)]
-        d_w = [d.to(x.dtype) if needs[9 + i] else None
+        d_w = [d.to(x.dtype) if needs[10 + i] else None
                for i, (d, x) in enumerate(zip(d_w, weights))]
-        return (*d_inputs, None, None, None, None, *d_w)
+        return (*d_inputs, None, None, None, None, None, *d_w)
 
 
 class _FusedLayer(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, edges, center, cf, num_heads, scale, chunk, *weights):
+    def forward(ctx, edges, center, cf, num_heads, scale, chunk, int8_scores, *weights):
         w = LayerWeights(*weights)
-        ctx.save_for_backward(edges, center, cf, *weights)
+        # the dynamic int8 scores' scales: once per call, for the forward,
+        # the backward and the replay alike (constants)
+        int8_scales = int8_scales_for(edges, center, w) if int8_scores else None
+        ctx.save_for_backward(edges, center, cf, int8_scales, *weights)
         ctx.num_heads, ctx.scale, ctx.chunk = num_heads, scale, chunk
         if edges.is_cuda:
-            return fused_layer_fwd_cuda(edges, center, cf, w, num_heads, scale)
-        return layer_math(edges, center, cf, w, num_heads, scale)
+            return fused_layer_fwd_cuda(edges, center, cf, w, num_heads, scale,
+                                        int8_scales=int8_scales)
+        return layer_math(edges, center, cf, w, num_heads, scale, int8_scales=int8_scales)
 
     @staticmethod
     def backward(ctx, g_edge, g_center):
-        edges, center, cf, *weights = ctx.saved_tensors
+        edges, center, cf, int8_scales, *weights = ctx.saved_tensors
         # as the JAX package's _fused_bwd: the weight gradients come with
         # the first backward whenever a weight requires grad (fixed when
         # the forward ran), also in the backward that builds the forces
-        weight_grads = any(ctx.needs_input_grad[6:])
+        weight_grads = any(ctx.needs_input_grad[7:])
         out = _FusedLayerBwd.apply(
             edges, center, cf, g_edge.to(edges.dtype).contiguous(),
-            g_center.to(edges.dtype).contiguous(), ctx.num_heads, ctx.scale, ctx.chunk,
-            weight_grads, *weights,
+            g_center.to(edges.dtype).contiguous(), int8_scales, ctx.num_heads, ctx.scale,
+            ctx.chunk, weight_grads, *weights,
         )
         d_edges, d_center, d_cf = out[:3]
         d_w = [d.to(x.dtype) for d, x in zip(out[3:], weights)] if weight_grads else [None] * 10
-        return (d_edges, d_center.to(center.dtype), d_cf.to(cf.dtype), None, None, None, *d_w)
+        return (d_edges, d_center.to(center.dtype), d_cf.to(cf.dtype), None, None, None, None,
+                *d_w)
 
 
 def fused_transformer_layer(edges, center, cf, w: LayerWeights, num_heads: int, scale: float,
-                            chunk: int = 1024):
+                            chunk: int = 1024, int8_scores: bool = False):
     """The fused layer with its hand-written backward. CPU tensors run
     :func:`layer_math` / :func:`layer_bwd_math`; CUDA tensors launch K1 /
     K2 (K2-dW when a weight requires grad). ``chunk`` is the number of
-    atoms per step of the second-order replay (:func:`replay_layer_bwd`)."""
-    return _FusedLayer.apply(edges, center, cf, num_heads, scale, chunk, *w)
+    atoms per step of the second-order replay (:func:`replay_layer_bwd`).
+    With ``int8_scores`` (callers take it under
+    :func:`int8_scores_applicable`), the dynamic int8 scores: the absmax
+    pass, then K1-int8 and K2-int8 / K2-dW-int8 on the card."""
+    return _FusedLayer.apply(edges, center, cf, num_heads, scale, chunk, int8_scores, *w)
 
 
 def w8a8_applicable(edges, w: LayerWeights, num_heads: int, calib) -> bool:
@@ -746,6 +936,16 @@ def w8a8_applicable(edges, w: LayerWeights, num_heads: int, calib) -> bool:
     return (calib is not None and edges.dtype == torch.bfloat16
             and not any(x.requires_grad for x in w)
             and M % 8 == 0 and D % num_heads == 0 and num_heads % 2 == 0)
+
+
+def int8_scores_applicable(edges, num_heads: int) -> bool:
+    """The JAX package's gate of the dynamic int8 scores
+    (``_use_int8_scores`` and the q-side layout that alone takes them):
+    bfloat16 compute, M % 8 == 0, an even number of heads dividing D; in
+    training too. The static W8A8 layer wins where it applies (its callers
+    ask :func:`w8a8_applicable` first)."""
+    M, D = edges.shape[1:]
+    return edges.dtype == torch.bfloat16 and M % 8 == 0 and D % num_heads == 0 and num_heads % 2 == 0
 
 
 class _W8A8Layer(torch.autograd.Function):

@@ -266,7 +266,9 @@ def gnn_block_fwd_cuda(edges, node, cf, flat_w, num_heads, scale, n_layers, expa
     A, M, D, F, Nn = _check_shapes(edges, node, cf, layer_ws, center_ws, num_heads, expanded)
     _require(edges, node, cf, layer_ws, center_ws)
     lib = _lib.library()
-    _lib.check_shared(lib.mtt_gnn_block_fwd_smem(M, D, F, Nn), "gnn_block_fwd")
+    _, ws_floats = _lib.plan_query(lib.mtt_gnn_block_fwd_smem, M, D, F, Nn)
+    grid = _lib.layer_grid(A, ws_floats, edges.device)
+    ws = _lib.workspace(grid, ws_floats, edges.device)
     edge_out = torch.empty_like(edges)
     node_out = torch.empty_like(node)
     _lib.check(
@@ -276,7 +278,7 @@ def gnn_block_fwd_cuda(edges, node, cf, flat_w, num_heads, scale, n_layers, expa
             _lib.pointer_array(x for cw in center_ws for x in cw),
             edge_out.data_ptr(), node_out.data_ptr(),
             A, n_layers, M, D, num_heads, F, Nn, int(expanded), float(scale), rmsnorm_eps(cd),
-            _lib.stream_ptr(edges.device),
+            grid, _lib.ptr(ws), _lib.stream_ptr(edges.device),
         ),
         "gnn_block_fwd",
     )
@@ -306,8 +308,11 @@ def gnn_block_bwd_cuda(edges, node, cf, flat_w, g_edge, g_node, num_heads, scale
                   for x in (w.w_qkv, w.w_out, w.w_in, w.w_ffn_out)]
     name = "gnn_block_bwd_dw" if weight_grads else "gnn_block_bwd"
     lib = _lib.library()
-    _lib.check_shared(lib.mtt_gnn_block_bwd_smem(M, D, num_heads, F, Nn, int(weight_grads)), name)
+    _, ws_floats = _lib.plan_query(lib.mtt_gnn_block_bwd_smem, M, D, num_heads, F, Nn,
+                                   int(weight_grads))
     dev = edges.device
+    grid = _lib.dw_blocks(A, dev) if weight_grads else _lib.layer_grid(A, ws_floats, dev)
+    ws = _lib.workspace(grid, ws_floats, dev)
     d_edges = torch.empty_like(edges)
     d_node = torch.empty_like(node)
     d_cf = torch.empty_like(cf)
@@ -321,12 +326,10 @@ def gnn_block_bwd_cuda(edges, node, cf, flat_w, g_edge, g_node, num_heads, scale
                         device=dev) if expanded else None)
     cuda_flat = flatten_gnn_weights(layer_ws, center_ws, expanded)
     partials = dw = None
-    blocks = 0
     if weight_grads:
         sizes = [x.numel() for x in cuda_flat]
-        blocks = _lib.dw_blocks(A, dev)
         per_layer = sum(x.numel() for x in layer_ws[0])
-        partials = torch.empty((blocks, L * per_layer), dtype=torch.float32, device=dev)
+        partials = torch.empty((grid, L * per_layer), dtype=torch.float32, device=dev)
         dw = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     _lib.check(
         lib.mtt_gnn_block_bwd(
@@ -336,9 +339,9 @@ def gnn_block_bwd_cuda(edges, node, cf, flat_w, g_edge, g_node, num_heads, scale
             _lib.pointer_array(x for cw in center_ws for x in cw),
             g_edge.data_ptr(), g_node.data_ptr(), d_edges.data_ptr(), d_node.data_ptr(),
             d_cf.data_ptr(), _lib.ptr(escr), _lib.ptr(dscr), nbuf, vecs.data_ptr(),
-            _lib.ptr(rows), _lib.ptr(partials), blocks, _lib.ptr(dw),
+            _lib.ptr(rows), _lib.ptr(partials), _lib.ptr(dw),
             A, L, M, D, num_heads, F, Nn, int(expanded), float(scale), rmsnorm_eps(cd),
-            _lib.stream_ptr(dev),
+            grid, _lib.ptr(ws), _lib.stream_ptr(dev),
         ),
         name,
     )

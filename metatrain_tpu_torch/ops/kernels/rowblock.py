@@ -21,6 +21,7 @@ compute dtype (the dtype of ``inputs[0]``).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, NamedTuple, Sequence
 
 import torch
@@ -94,7 +95,7 @@ def rowblock_fwd_cuda(stage: Stage, inputs: Sequence[torch.Tensor], weights):
     code, parts, (ln_s, ln_b, w0, b0, w1, b1), geometry = _prepare(stage, inputs, weights)
     rows, d_part, w_in, w_hid, w_out = geometry
     lib = _lib.library()
-    _lib.check_shared(lib.mtt_rowblock_fwd_smem(w_in, w_hid), "rowblock_fwd")
+    _lib.check_shared(lib.mtt_rowblock_fwd_smem(w_in, w_hid, None), "rowblock_fwd")
     out = torch.empty((rows, w_out), dtype=inputs[0].dtype, device=inputs[0].device)
     _lib.check(
         lib.mtt_rowblock_fwd(
@@ -116,7 +117,8 @@ def rowblock_bwd_cuda(stage: Stage, inputs: Sequence[torch.Tensor], weights, g,
     weight gradients summed over rows, in the order of ``weights``: one
     block per SM over a contiguous range of 64-row tiles, each block
     summing into its own float32 partial, then a second pass that adds the
-    partials in block order (the same sum in every run)."""
+    partials in block order (the same sum in every run). Tiles are 64 rows,
+    or 32 or 16 for stages too wide for 64 (``_lib.rowblock_bwd_rows``)."""
     code, parts, (ln_s, ln_b, w0, b0, w1, b1), geometry = _prepare(stage, inputs, weights)
     rows, d_part, w_in, w_hid, w_out = geometry
     _lib.require({"g": g}, g.device, inputs[0].dtype)
@@ -124,9 +126,9 @@ def rowblock_bwd_cuda(stage: Stage, inputs: Sequence[torch.Tensor], weights, g,
         raise ValueError(f"cotangent {tuple(g.shape)} != output {(rows, w_out)}")
     name = f"rowblock_bwd{'_dw' if weight_grads else ''}[{stage.name}]"
     lib = _lib.library()
-    _lib.check_shared(
-        lib.mtt_rowblock_bwd_smem(stage.code, w_in, w_hid, w_out, int(weight_grads)), name
-    )
+    tile = ctypes.c_int(0)
+    _lib.check_shared(lib.mtt_rowblock_bwd_smem(stage.code, w_in, w_hid, w_out,
+                                                int(weight_grads), ctypes.byref(tile)), name)
     n_grads = 2 if stage.code == COMBINATION_CODE else len(inputs)
     d = [torch.empty_like(inputs[i]) for i in range(n_grads)]
     w0_t, w1_t = w0.t().contiguous(), w1.t().contiguous()
@@ -136,7 +138,7 @@ def rowblock_bwd_cuda(stage: Stage, inputs: Sequence[torch.Tensor], weights, g,
     if weight_grads:
         shapes = [tuple(x.shape) for x in weights]
         sizes = [x.numel() for x in weights]
-        blocks = _lib.dw_blocks(-(-rows // 64), g.device)
+        blocks = _lib.dw_blocks(-(-rows // tile.value), g.device)
         partials = torch.empty((blocks, sum(sizes)), dtype=torch.float32, device=g.device)
         dw = torch.empty(sum(sizes), dtype=torch.float32, device=g.device)
     _lib.check(

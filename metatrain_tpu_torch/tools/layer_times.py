@@ -1,0 +1,95 @@
+"""CUDA-event times of the fused-layer kernels K1, K2 and K2-dW at one shape.
+
+Usage, on a machine with a CUDA device::
+
+    python metatrain_tpu_torch/tools/layer_times.py [--root DIR] [--A 11392] [--M 64]
+        [--D 128] [--H 8] [--F 256] [--reps 10]
+
+``--root`` is the checkout whose ``metatrain_tpu_torch`` is timed (the
+current directory by default), so that two trees can be compared on one
+card: run the script once per tree, in the order A, B, B, A. Inputs are
+made from a seeded generator, as ``chip_smoke.py``'s kernel checks make
+them. Prints one JSON line: the card (``nvidia-smi`` name and power limit),
+the shape and, per kernel and dtype, the mean ms over ``--reps`` launches
+after one warm-up launch.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=".")
+    for name, default in (("A", 11392), ("M", 64), ("D", 128), ("H", 8), ("F", 256),
+                          ("reps", 10)):
+        parser.add_argument(f"--{name}", type=int, default=default)
+    args = parser.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))
+
+    import torch
+
+    from metatrain_tpu_torch.ops.kernels import fused_layer as fl
+
+    if not torch.cuda.is_available():
+        print("layer_times: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    A, M, D, H, F = args.A, args.M, args.D, args.H, args.F
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(0)
+
+    def lecun(*shape):
+        return torch.randn(*shape, generator=gen) / math.sqrt(shape[0])
+
+    w = fl.LayerWeights(
+        1 + 0.1 * torch.randn(D, generator=gen), lecun(D, 3 * D),
+        0.1 * torch.randn(3 * D, generator=gen), lecun(D, D), 0.1 * torch.randn(D, generator=gen),
+        1 + 0.1 * torch.randn(D, generator=gen), lecun(D, 2 * F),
+        0.1 * torch.randn(2 * F, generator=gen), lecun(F, D), 0.1 * torch.randn(D, generator=gen))
+    w = fl.LayerWeights(*(x.to(dev) for x in w))
+    n_real = torch.randint(M // 2, M - 1, (A, 1), generator=gen)
+    cf = torch.rand(A, M, generator=gen) * (torch.arange(M)[None] < n_real)
+    cf[:, M - 1] = 1.0
+    cf = cf.to(dev)
+    tensors = [torch.randn(A, M, D, generator=gen), torch.randn(A, D, generator=gen),
+               torch.randn(A, M, D, generator=gen), torch.randn(A, D, generator=gen)]
+    scale = 1.0 / math.sqrt(D // H)
+
+    def cuda_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(args.reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / args.reps
+
+    times = {}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        e, c, ge, gc = (x.to(dev, dtype) for x in tensors)
+        for name, fn in (
+            ("fused_layer_fwd", lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale)),
+            ("fused_layer_bwd", lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale)),
+            ("fused_layer_bwd_dw", lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale,
+                                                                   weight_grads=True)),
+        ):
+            times[f"{name}_ms_{tag}"] = cuda_ms(fn)
+        del e, c, ge, gc
+        torch.cuda.empty_cache()
+    print(json.dumps({"card": card, "root": args.root, "shape": [A, M, D, H, F], **times}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
