@@ -10,8 +10,10 @@ device and exits non-zero without one. Phases (any failure propagates):
    generator) on the 10,976-atom Cu FCC crystal of ``bench.py``, served in
    bfloat16 by ``Calculator.compute(forces=True, stress=True)`` for a few
    MD-style steps with Verlet reuse. Every launch counter starts at 0 just
-   before those calls, and every kernel of the path (K1-K4, the permute
-   and the accumulate permute) must have launched in them; the pair
+   before those calls, and every kernel of the path (K1, the Hopper K2 of
+   ``csrc/fused_layer_bwd_sm90.cu`` 4 times per call and the general K2
+   never, K3, K4, the permute and the accumulate permute) must have
+   launched in them; the pair
    searches must have run in the native neighbor library. Energy, forces
    and virial must be finite; the bf16 kernel path must match the f32
    plain path (energy rel <= 1 %, force rel-RMSE <= 5 %, or 1.25 x the bf16
@@ -107,9 +109,15 @@ device and exits non-zero without one. Phases (any failure propagates):
    int8 scores' absmax pass (scales within one bf16 ulp of the plain
    version's), K1-int8, K2-int8 and K2-dW-int8 at the served shape and at
    M = 48 (A = 11,000: blocks of 128, the last one partial), bfloat16,
-   relative RMS <= 2e-2.
+   relative RMS <= 2e-2. K2 in bf16 at the served shape is the Hopper K2:
+   its d_cf must be bitwise equal across two launches, the general body
+   (``sm90=False``) is held to the same twin and timed beside it
+   (``general_ms``), its ``-Xptxas -v`` registers and spills are
+   reported; the same at M = 64, 48, 16 (A = 11,000) and M = 32 (A =
+   1,000) under ``shapes``.
 9. shapes: the C side's layout plans (shared bytes, workspace floats, row
-   tiles) equal ``_lib``'s Python plans for M = 16..256 and D of 64 to 256;
+   tiles) and the Hopper K2's dispatch rule and budget equal ``_lib``'s
+   Python ones for M = 16..256 and D of 64 to 256;
    K1, K2, K2-dW, the block's three kernels and, in bf16, K1-W8A8 and
    K2-W8A8 vs plain at M = 80, 96, 128 (D 128) and M = 64, 128 (D 256), A =
    256; K3, K4 and K4-dW at D = 256; the attention pair, K1, K2, K2-dW (and
@@ -293,10 +301,20 @@ def check_fused_layer(A, M, D, H, F, gen, device, report):
         e, c, ge, gc = (x.to(dtype) for x in (edges, center, g_edge, g_center))
         fwd_k = fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale)
         fwd_p = fl.layer_math(e, c, cf, w, H, scale)
+        before = fl._lib.LAUNCHES["fused_layer_bwd_sm90"]
         bwd_k = fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale)
         bwd_p = fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale)
         torch.cuda.synchronize()
         tag = "f32" if dtype == torch.float32 else "bf16"
+        # which K2 ran: the Hopper one takes the served bf16 shape
+        sm90 = fl._lib.LAUNCHES["fused_layer_bwd_sm90"] > before
+        if sm90 != fl._lib.k2_sm90_takes(dtype, M, D, H, F):
+            fail(f"K2 {dtype} at M={M}: the Hopper kernel ran: {sm90}, the rule says otherwise")
+        report.setdefault("fused_layer_bwd", {})[f"kernel_{tag}"] = (
+            "fused_layer_bwd_sm90" if sm90 else "fused_layer_bwd")
+        if sm90:
+            check_k2_sm90_entry(report["fused_layer_bwd"], e, c, cf, w, ge, gc, H, scale, bwd_k,
+                                bwd_p)
         for name, k_out, p_out, k_fn, p_fn in (
             ("fused_layer_fwd", fwd_k, fwd_p,
              lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale),
@@ -321,6 +339,70 @@ def check_fused_layer(A, M, D, H, F, gen, device, report):
                 fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale, weight_grads=True)),
             3, report,
         )
+        torch.cuda.empty_cache()
+
+
+def ptxas_usage(log: str, kernel: str):
+    """Registers and spill bytes that ``-Xptxas -v`` reported for the
+    entry functions whose names contain ``kernel``."""
+    import re
+
+    found = []
+    for block in log.split("Compiling entry function")[1:]:
+        name = block.split("'")[1] if "'" in block else ""
+        if kernel not in name:
+            continue
+        regs = re.search(r"Used (\d+) registers", block)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        found.append({"registers": int(regs.group(1)) if regs else None,
+                      "spill_stores": int(spills.group(1)) if spills else None,
+                      "spill_loads": int(spills.group(2)) if spills else None})
+    return found
+
+
+def check_k2_sm90_entry(entry, e, c, cf, w, ge, gc, H, scale, k_out, p_out):
+    """The Hopper K2's extras at one shape into ``entry``: d_cf bitwise
+    equal across two launches, the general body (``sm90=False``) against
+    the same twin and its time."""
+    from metatrain_tpu_torch.ops.kernels import fused_layer as fl
+
+    again = fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale)
+    torch.cuda.synchronize()
+    if not torch.equal(k_out[2], again[2]):
+        fail("the Hopper K2 gave different d_cf in two launches")
+    entry["bitwise_dcf_repeat_bf16"] = True
+    entry["bitwise_repeat_all_bf16"] = all(torch.equal(a, b) for a, b in zip(k_out, again))
+    general = lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, sm90=False)  # noqa: E731
+    _, worst = compare(general(), p_out, torch.bfloat16)
+    entry["general_bound_ratio_bf16"] = worst
+    entry["general_ms_bf16"] = cuda_ms(general)
+
+
+def check_k2_sm90(gen, device, report, D=128, H=8, F=256):
+    """The Hopper K2 against its twin beyond the served shape: M = 64, 48
+    and 16 at A = 11,000 (any atom count: one block per atom) and M = 32 at
+    A = 1,000; bf16 relative RMS <= 2e-2, d_cf bitwise equal across two
+    launches, CUDA-event ms beside the general body's, under ``shapes``."""
+    from metatrain_tpu_torch.ops.kernels import fused_layer as fl
+
+    for A, M in ((11000, 64), (11000, 48), (11000, 16), (1000, 32)):
+        edges, center, cf, w, g_edge, g_center = layer_case(A, M, D, H, F, gen, device)
+        e, c, ge, gc = (x.to(torch.bfloat16) for x in (edges, center, g_edge, g_center))
+        scale = 1.0 / math.sqrt(D // H)
+        before = fl._lib.LAUNCHES["fused_layer_bwd_sm90"]
+        k_out = fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale)
+        torch.cuda.synchronize()
+        if fl._lib.LAUNCHES["fused_layer_bwd_sm90"] != before + 1:
+            fail(f"the Hopper K2 did not take A={A}, M={M}")
+        p_out = fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale)
+        err, worst = compare(k_out, p_out, torch.bfloat16)
+        sub = {}
+        check_k2_sm90_entry(sub, e, c, cf, w, ge, gc, H, scale, k_out, p_out)
+        sub.update(max_abs_err=err, bound_ratio=worst,
+                   ms=cuda_ms(lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale)))
+        report.setdefault("fused_layer_bwd", {}).setdefault("shapes", {})[
+            f"sm90_A{A}_M{M}_bf16"] = sub
+        del k_out, p_out
         torch.cuda.empty_cache()
 
 
@@ -490,6 +572,13 @@ def plan_table():
             b = _lib.layer_bwd_plan(M, D, H, F, False, True)
             pairs.append((_lib.plan_query(lib.mtt_fused_layer_bwd_w8a8_smem, M, D, H, F),
                           (4 * b.smem_floats, b.ws_floats)))
+            # the Hopper K2's dispatch rule and budget, C vs Python, at
+            # heads of 16 and of 8
+            for heads in (H, 2 * H):
+                pairs.append(((bool(lib.mtt_fused_layer_bwd_sm90_ok(M, D, heads, F)),
+                               lib.mtt_fused_layer_bwd_sm90_smem(M, D, heads, F)),
+                              (_lib.k2_sm90_takes(torch.bfloat16, M, D, heads, F),
+                               _lib.k2_sm90_smem(M, D, heads, F))))
             for c_side, py_side in pairs:
                 if tuple(c_side) != tuple(py_side):
                     fail(f"layout plan at M={M}, D={D}: C {c_side} != Python {py_side}")
@@ -1048,6 +1137,9 @@ UNFUSED_ALT = {"fused_layers": False, "normalization": "LayerNorm", "activation"
 ROWBLOCK_KERNELS = [f"rowblock_{d}[{s}]" for d in ("fwd", "bwd")
                     for s in ("compress", "combination", "head")]
 FUSED_KERNELS = ["fused_layer_fwd", "fused_layer_bwd", "permute", "permute_acc"] + ROWBLOCK_KERNELS
+# the served shape (M = 64, D = 128) in bf16 takes the Hopper K2
+FUSED_SM90_KERNELS = ["fused_layer_fwd", "fused_layer_bwd_sm90", "permute",
+                      "permute_acc"] + ROWBLOCK_KERNELS
 GNN_KERNELS = ["gnn_block_fwd", "gnn_block_bwd", "permute", "permute_acc"] + ROWBLOCK_KERNELS
 UNFUSED_KERNELS = ["window_attention_fwd", "window_attention_bwd", "permute", "permute_acc",
                    "rowblock_fwd[compress]", "rowblock_bwd[compress]",
@@ -1274,6 +1366,7 @@ def check_w8a8_slice(device, make, steps=3, timing=True):
     per_call = {k: v / steps for k, v in launches.items()}
     missing = [k for k in W8A8_KERNELS if launches.get(k, 0) == 0]
     if (missing or launches.get("fused_layer_fwd", 0) or launches.get("fused_layer_bwd", 0)
+            or launches.get("fused_layer_bwd_sm90", 0)
             or per_call.get("fused_layer_fwd_w8a8") != 4 or per_call.get("fused_layer_bwd_w8a8") != 4):
         fail(f"the W8A8 force calls launched {launches} (not launched: {missing})")
     report.update(launches=launches, launches_per_call=per_call,
@@ -1358,6 +1451,7 @@ def check_int8_slice(device, state, steps=3):
     per_call = {k: v / steps for k, v in launches.items()}
     missing = [k for k in INT8_KERNELS if launches.get(k, 0) == 0]
     if (missing or launches.get("fused_layer_fwd", 0) or launches.get("fused_layer_bwd", 0)
+            or launches.get("fused_layer_bwd_sm90", 0)
             or any(per_call.get(k) != 4 for k in INT8_KERNELS[:3])):
         fail(f"the int8 force calls launched {launches} (not launched: {missing})")
     report = {"atoms": n, "launches": launches, "launches_per_call": per_call,
@@ -1623,8 +1717,9 @@ def time_training(workdir, state, device, report, steps=3):
 SOURCES = {
     "fused_layer_fwd": ("metatrain_tpu_torch/csrc/fused_layer_fwd.cu",
                         "metatrain_tpu/ops/pallas/fused_layer.py:1161"),
-    "fused_layer_bwd": ("metatrain_tpu_torch/csrc/fused_layer_bwd.cu",
-                        "metatrain_tpu/ops/pallas/fused_layer.py:1269"),
+    "fused_layer_bwd": ("metatrain_tpu_torch/csrc/fused_layer_bwd_sm90.cu",
+                        "metatrain_tpu/ops/pallas/fused_layer.py:1269 (exact bf16; f32: "
+                        "csrc/fused_layer_bwd.cu)"),
     "rowblock_fwd": ("metatrain_tpu_torch/csrc/rowblock_fwd.cu",
                      "metatrain_tpu/ops/pallas/rowblock.py:113"),
     "rowblock_bwd": ("metatrain_tpu_torch/csrc/rowblock_bwd.cu",
@@ -1684,6 +1779,8 @@ def launch_count(report, name):
         source = report["train_launches"]
     else:
         source = report["unfused" if name in UNFUSED_PATH else "slice"]["launches"]
+    if name == "fused_layer_bwd":  # the served bf16 calls run the Hopper K2
+        return source["fused_layer_bwd_sm90"]
     return source[name]
 
 
@@ -1727,8 +1824,12 @@ def main() -> int:
 
     report = {"card": card, "build_s": build_s}
     neighbors.BACKENDS.clear()
-    report["slice"] = check_slice(device, {}, FUSED_KERNELS)
+    report["slice"] = check_slice(device, {}, FUSED_SM90_KERNELS)
     check_neighbor_backend(report)
+    served = report["slice"]
+    if served["launches"].get("fused_layer_bwd", 0) or served["launches_per_call"].get(
+            "fused_layer_bwd_sm90") != 4:
+        fail(f"the bf16 force calls launched {served['launches']}: 4 Hopper K2 per call expected")
     A, M = report["slice"]["padded"]
     print("slice:", json.dumps({k: report["slice"][k] for k in ("padded", "launches", "parity")}
                                | {"neighbor_backends": report["neighbor_backends"]}), flush=True)
@@ -1741,7 +1842,8 @@ def main() -> int:
     report["slice_gnn"] = check_slice(device, {}, GNN_KERNELS, fused_gnn=True)
     gnn = report["slice_gnn"]
     per_call = gnn["launches_per_call"]
-    if any(k in gnn["launches"] for k in ("fused_layer_fwd", "fused_layer_bwd")) or not (
+    if any(k in gnn["launches"] for k in ("fused_layer_fwd", "fused_layer_bwd",
+                                          "fused_layer_bwd_sm90")) or not (
             per_call["gnn_block_fwd"] == per_call["gnn_block_bwd"] == 2):
         fail(f"the block's force call launched {gnn['launches']}")
     print("GNN block slice:", json.dumps({k: gnn[k] for k in ("padded", "launches", "parity")}),
@@ -1840,6 +1942,14 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     kernels: dict = {}
     check_fused_layer(A, M, D, H, F, gen, device, kernels)
+    check_k2_sm90(gen, device, kernels, D, H, F)
+    if build_log.exists():
+        kernels["fused_layer_bwd"]["ptxas_bf16"] = ptxas_usage(build_log.read_text(),
+                                                               "k2_sm90_kernel")
+    print("Hopper K2 (general body's ms beside):", json.dumps(
+        {k: kernels["fused_layer_bwd"].get(k) for k in (
+            "ms_bf16", "general_ms_bf16", "bound_ratio_bf16", "ptxas_bf16", "shapes")}),
+        flush=True)
     check_gnn_block(A, M, D, H, F, hp["d_node"], gen, device, kernels,
                     hp["num_attention_layers"])
     report["gnn_block_variants"] = check_gnn_block_variants(M, D, H, F, hp["d_node"], gen, device)
@@ -1884,6 +1994,8 @@ def main() -> int:
             out[f"library_ms{suffix}"] = entry.get(f"library_ms_{tag}", entry.get("library_ms"))
             if f"per_layer_ms_{tag}" in entry:
                 out[f"per_layer_ms{suffix}"] = entry[f"per_layer_ms_{tag}"]
+            if f"general_ms_{tag}" in entry:  # the Hopper K2's general body
+                out[f"general_ms{suffix}"] = entry[f"general_ms_{tag}"]
         if "shapes" in entry:
             out["shapes"] = entry["shapes"]
         entries.append(out)

@@ -1,8 +1,9 @@
 """Build, load and launch the port's CUDA kernels (``metatrain_tpu_torch/csrc``).
 
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a``, one
-``nvcc`` per source file, all at once, linked into one shared library
-with a plain C interface, written to the git-ignored
+object per source file (compiled again only when the source or a header it
+includes changed; the stale ones all at once), linked into one shared
+library with a plain C interface, written to the git-ignored
 ``metatrain_tpu_torch/_build/``, and bound with ctypes. Every
 pointer argument is a ``c_void_p``; each C entry point launches on the
 current PyTorch stream and returns ``cudaGetLastError()``, which
@@ -38,6 +39,7 @@ CSRC = PACKAGE_DIR / "csrc"
 SOURCES = (
     "fused_layer_fwd.cu",
     "fused_layer_bwd.cu",
+    "fused_layer_bwd_sm90.cu",
     "rowblock_fwd.cu",
     "rowblock_bwd.cu",
     "permute.cu",
@@ -67,6 +69,7 @@ _LAYER_TAIL = [_L, _I, _I, _I, _I, _F, _F, _I, _P, _P]
 _SIGNATURES = {
     "mtt_fused_layer_fwd": [_I] + [_P] * 15 + _LAYER_TAIL,
     "mtt_fused_layer_bwd": [_I] + [_P] * 22 + _LAYER_TAIL,
+    "mtt_fused_layer_bwd_sm90": [_P] * 20 + [_L, _I, _I, _I, _I, _F, _F, _P],
     "mtt_fused_layer_fwd_w8a8": [_P] * 16 + [_FP, _P, _P, _L, _I, _I, _I, _I, _F, _I, _P, _P],
     "mtt_fused_layer_bwd_w8a8": [_P] * 17 + [_FP] + [_P] * 5 + _LAYER_TAIL,
     "mtt_fused_layer_fwd_int8": [_P] * 16 + _LAYER_TAIL,
@@ -85,6 +88,8 @@ _SIGNATURES = {
     "mtt_fused_layer_bwd_w8a8_smem": [_I, _I, _I, _I, _LP],
     "mtt_fused_layer_bwd_int8_smem": [_I, _I, _I, _I, _I, _LP],
     "mtt_int8_absmax_smem": [_I],
+    "mtt_fused_layer_bwd_sm90_smem": [_I] * 4,
+    "mtt_fused_layer_bwd_sm90_ok": [_I] * 4,
     "mtt_rowblock_fwd_smem": [_I, _I, _IP],
     "mtt_rowblock_bwd_smem": [_I, _I, _I, _I, _I, _IP],
     "mtt_window_attention_fwd_smem": [_I, _I, _I, _I],
@@ -113,8 +118,7 @@ def library() -> ctypes.CDLL:
     """Build (if stale) and load the kernel library."""
     units = [CSRC / s for s in SOURCES]
     link = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
-    headers = sorted(CSRC.glob("*.cuh"))
-    path = build_library(link, units + headers, LIBRARY, timeout=900,
+    path = build_library(link, units, LIBRARY, timeout=900,
                          compile_command=nvcc_compile_command(), units=units)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
@@ -246,6 +250,36 @@ def layer_bwd_plan(M: int, D: int, H: int, F: int, dw: bool, q8: bool,
     sizes = [M * D, M * qkv_stride(D), max(M * D, M * (M + 1)),
              scratch_floats(M, D, H, F, dw, q8), M, M, M, M]
     return make_plan(sizes, [4, 5, 6, 7, 0, 1, 2, 3], cap)
+
+
+# ---- the Hopper K2 (csrc/fused_layer_bwd_sm90.cu) ---------------------------
+
+def k2_sm90_takes(dtype: torch.dtype, M: int, D: int, H: int, F: int, weight_grads: bool = False,
+                  w8a8: bool = False, int8: bool = False) -> bool:
+    """Whether ``fused_layer_bwd_cuda`` launches the Hopper K2: the exact
+    bfloat16 input-gradient variant at D = 128 with heads of 16, 16 <= M <=
+    64 with M % 16 == 0, F a multiple of 128 (the shape rule is the C
+    side's ``mtt_fused_layer_bwd_sm90_ok``)."""
+    return (dtype == torch.bfloat16 and not (weight_grads or w8a8 or int8) and D == 128
+            and H * 16 == D and 16 <= M <= 64 and M % 16 == 0 and F >= 128 and F % 128 == 0)
+
+
+def k2_sm90_smem(M: int, D: int, H: int, F: int) -> int:
+    """``mtt_fused_layer_bwd_sm90_smem``: its shared bytes per block (one
+    atom, padded to 64 rows), 0 for a shape it does not take. The C
+    source's layout: q|k|v (bf16 rows of 3D + 8), the operand tile (n1,
+    attn, h_norm, d_attn_out, dq; rows of D + 8), res and g_eo then d_res
+    (float rows of D + 8), the d_vg tile then d_attn (rows of 2D + 8), three
+    weight chunks of 128 x 64 bf16, and floats: cf, r1, r2, the
+    softmax max, sum and delta per head, d_cf's column sums per (head,
+    query tile) and the row-sum scratch."""
+    if not k2_sm90_takes(torch.bfloat16, M, D, H, F):
+        return 0
+    rows, heads = 64, 8
+    tiles = rows * (3 * D + 8) * 2 + rows * (D + 8) * 2 + rows * (D + 8) * 4 + rows * (2 * D + 8) * 2
+    ring = 3 * 128 * 64 * 2
+    stats = 3 * rows + 3 * heads * rows + heads * 4 * rows + 4 * rows
+    return tiles + ring + 4 * stats
 
 
 def center_fwd_floats(N: int, D: int) -> int:

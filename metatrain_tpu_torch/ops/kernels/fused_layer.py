@@ -688,8 +688,14 @@ def fused_layer_fwd_cuda(edges, center, cf, w: LayerWeights, num_heads, scale, w
 
 
 def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, num_heads, scale,
-                         weight_grads: bool = False, w8a8=None, int8_scales=None):
+                         weight_grads: bool = False, w8a8=None, int8_scales=None, *,
+                         sm90: bool = True):
     """Launch K2: ``(d_edges, d_center, d_cf)`` with ``d_cf`` float32.
+
+    The exact bfloat16 variant at the shapes of :func:`_lib.k2_sm90_takes`
+    (the served ones) launches the Hopper K2 (``csrc/fused_layer_bwd_sm90.cu``,
+    counter ``fused_layer_bwd_sm90``); ``sm90=False`` keeps the general body
+    there too, for comparisons.
 
     With ``w8a8`` launch K2-W8A8 (bfloat16, input gradients only): the W8A8
     layer's straight-through backward. With ``int8_scales`` (the forward's)
@@ -717,6 +723,9 @@ def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, n
         int8_t, scales = _w8a8_kernel_args(edges, w8a8, num_heads, scale)
     if int8_scales is not None:
         _int8_kernel_scales(edges, int8_scales)
+    if sm90 and _lib.k2_sm90_takes(cd, M, D, num_heads, F, weight_grads, w8a8 is not None,
+                                   int8_scales is not None):
+        return _k2_sm90(edges, center, cf, wc, g_edge, g_center, num_heads, scale)
     transposed = [x.t().contiguous() for x in (wc.w_qkv, wc.w_out, wc.w_in, wc.w_ffn_out)]
     lib = _lib.library()
     dw_flag = int(weight_grads)
@@ -762,6 +771,29 @@ def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, n
         return d_edges, d_center, d_cf
     parts = torch.split(dw, sizes)
     return d_edges, d_center, d_cf, LayerWeights(*(p.view(x.shape) for p, x in zip(parts, wc)))
+
+
+def _k2_sm90(edges, center, cf, wc: LayerWeights, g_edge, g_center, num_heads, scale):
+    """The Hopper K2 on checked bfloat16 tensors (``wc`` in the compute
+    dtype): one block per atom, no workspace."""
+    A, M, D = edges.shape
+    F = wc.w_ffn_out.shape[0]
+    lib = _lib.library()
+    _lib.check_shared(lib.mtt_fused_layer_bwd_sm90_smem(M, D, num_heads, F), "fused_layer_bwd_sm90")
+    transposed = [x.t().contiguous() for x in (wc.w_qkv, wc.w_out, wc.w_in)]
+    d_edges = torch.empty_like(edges)
+    d_center = torch.empty_like(center)
+    d_cf = torch.empty_like(cf)
+    _lib.check(
+        lib.mtt_fused_layer_bwd_sm90(
+            edges.data_ptr(), center.data_ptr(), cf.data_ptr(), *(x.data_ptr() for x in wc[:9]),
+            *(x.data_ptr() for x in transposed), g_edge.data_ptr(), g_center.data_ptr(),
+            d_edges.data_ptr(), d_center.data_ptr(), d_cf.data_ptr(), A, M, D, num_heads, F,
+            float(scale), rmsnorm_eps(edges.dtype), _lib.stream_ptr(edges.device)),
+        "fused_layer_bwd_sm90",
+    )
+    _lib.LAUNCHES["fused_layer_bwd_sm90"] += 1
+    return d_edges, d_center, d_cf
 
 
 def _first_backward(edges, center, cf, w, g_edge, g_center, num_heads, scale, weight_grads,

@@ -11,12 +11,16 @@ card: run the script once per tree, in the order A, B, B, A. Inputs are
 made from a seeded generator, as ``chip_smoke.py``'s kernel checks make
 them. Prints one JSON line: the card (``nvidia-smi`` name and power limit),
 the shape and, per kernel and dtype, the mean ms over ``--reps`` launches
-after one warm-up launch.
+after one warm-up launch. Where the tree has the Hopper K2
+(``fused_layer_bwd_cuda(..., sm90=)``), ``fused_layer_bwd_ms_bf16`` is
+its time at shapes it takes and ``fused_layer_bwd_general_ms_bf16`` the
+general body's.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import math
 import subprocess
@@ -76,8 +80,12 @@ def main() -> int:
         return start.elapsed_time(end) / args.reps
 
     times = {}
+    has_sm90 = "sm90" in inspect.signature(fl.fused_layer_bwd_cuda).parameters
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         e, c, ge, gc = (x.to(dev, dtype) for x in tensors)
+        if has_sm90 and dtype == torch.bfloat16:
+            times["fused_layer_bwd_general_ms_bf16"] = cuda_ms(
+                lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, sm90=False))
         for name, fn in (
             ("fused_layer_fwd", lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale)),
             ("fused_layer_bwd", lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale)),
