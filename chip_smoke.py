@@ -10,10 +10,11 @@ device and exits non-zero without one. Phases (any failure propagates):
    generator) on the 10,976-atom Cu FCC crystal of ``bench.py``, served in
    bfloat16 by ``Calculator.compute(forces=True, stress=True)`` for a few
    MD-style steps with Verlet reuse. Every launch counter starts at 0 just
-   before those calls, and every kernel of the path (K1, the Hopper K2 of
-   ``csrc/fused_layer_bwd_sm90.cu`` 4 times per call and the general K2
-   never, K3, K4, the permute and the accumulate permute) must have
-   launched in them; the pair
+   before those calls, and every kernel of the path (the Hopper K1 of
+   ``csrc/fused_layer_fwd_sm90.cu`` and the Hopper K2 of
+   ``csrc/fused_layer_bwd_sm90.cu`` 4 times per call each and the general
+   K1 and K2 never, K3, K4, the permute and the accumulate permute) must
+   have launched in them; the pair
    searches must have run in the native neighbor library. Energy, forces
    and virial must be finite; the bf16 kernel path must match the f32
    plain path (energy rel <= 1 %, force rel-RMSE <= 5 %, or 1.25 x the bf16
@@ -114,17 +115,21 @@ device and exits non-zero without one. Phases (any failure propagates):
    (``sm90=False``) is held to the same twin and timed beside it
    (``general_ms``), its ``-Xptxas -v`` registers and spills are
    reported; the same at M = 64, 48, 16 (A = 11,000) and M = 32 (A =
-   1,000) under ``shapes``.
+   1,000) under ``shapes``. K1 in bf16 at those shapes is the Hopper K1,
+   an entry of its own (``fused_layer_fwd_sm90``) with the same checks
+   (both outputs bitwise equal across two launches); the entry of K1
+   (``fused_layer_fwd``) keeps the general body, in bf16 with
+   ``sm90=False``, and its launches are the training run's.
 9. shapes: the C side's layout plans (shared bytes, workspace floats, row
-   tiles) and the Hopper K2's dispatch rule and budget equal ``_lib``'s
-   Python ones for M = 16..256 and D of 64 to 256;
+   tiles) and the Hopper K1's and K2's dispatch rules and budgets equal
+   ``_lib``'s Python ones for M = 16..256 and D of 64 to 256;
    K1, K2, K2-dW, the block's three kernels and, in bf16, K1-W8A8 and
    K2-W8A8 vs plain at M = 80, 96, 128 (D 128) and M = 64, 128 (D 256), A =
    256; K3, K4 and K4-dW at D = 256; the attention pair, K1, K2, K2-dW (and
    W8A8) at head widths 8, 12, 24 and 64; the bounds of phase 8, times under
    each entry's ``shapes``.
 
-The second-to-last line is a JSON object with one entry per kernel (25);
+The second-to-last line is a JSON object with one entry per kernel (26);
 the last line is ``{"ok": true, "device": {...}}``. Details also go to
 ``chiprun_out/chip_smoke.json``, the compiler's ``-Xptxas -v`` output to
 ``chiprun_out/chip_smoke_build.log``.
@@ -298,7 +303,10 @@ def check_fused_layer(A, M, D, H, F, gen, device, report):
         ):
             entry = report.setdefault(name, {"library_ms": None})
             record_bound(entry, "f32" if dtype == torch.float32 else "bf16", nbytes, flops, dtype)
+            if name == "fused_layer_fwd":  # the Hopper K1 computes the same function
+                k1_bound = (nbytes, flops, dtype)
         e, c, ge, gc = (x.to(dtype) for x in (edges, center, g_edge, g_center))
+        before_k1 = fl._lib.LAUNCHES["fused_layer_fwd_sm90"]
         fwd_k = fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale)
         fwd_p = fl.layer_math(e, c, cf, w, H, scale)
         before = fl._lib.LAUNCHES["fused_layer_bwd_sm90"]
@@ -306,7 +314,10 @@ def check_fused_layer(A, M, D, H, F, gen, device, report):
         bwd_p = fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale)
         torch.cuda.synchronize()
         tag = "f32" if dtype == torch.float32 else "bf16"
-        # which K2 ran: the Hopper one takes the served bf16 shape
+        # which K1 and K2 ran: the Hopper ones take the served bf16 shape
+        k1_sm90 = fl._lib.LAUNCHES["fused_layer_fwd_sm90"] > before_k1
+        if k1_sm90 != fl._lib.k1_sm90_takes(dtype, M, D, H, F):
+            fail(f"K1 {dtype} at M={M}: the Hopper kernel ran: {k1_sm90}, the rule says otherwise")
         sm90 = fl._lib.LAUNCHES["fused_layer_bwd_sm90"] > before
         if sm90 != fl._lib.k2_sm90_takes(dtype, M, D, H, F):
             fail(f"K2 {dtype} at M={M}: the Hopper kernel ran: {sm90}, the rule says otherwise")
@@ -315,10 +326,18 @@ def check_fused_layer(A, M, D, H, F, gen, device, report):
         if sm90:
             check_k2_sm90_entry(report["fused_layer_bwd"], e, c, cf, w, ge, gc, H, scale, bwd_k,
                                 bwd_p)
+        general = lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale, sm90=False)  # noqa: E731
+        fwd_checks = [("fused_layer_fwd", general() if k1_sm90 else fwd_k, fwd_p, general,
+                       lambda: fl.layer_math(e, c, cf, w, H, scale))]
+        if k1_sm90:
+            k1_entry = report.setdefault("fused_layer_fwd_sm90", {"library_ms": None})
+            record_bound(k1_entry, tag, *k1_bound)
+            check_k1_sm90_entry(k1_entry, e, c, cf, w, H, scale, fwd_k, fwd_p)
+            fwd_checks.append(("fused_layer_fwd_sm90", fwd_k, fwd_p,
+                               lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale),
+                               lambda: fl.layer_math(e, c, cf, w, H, scale)))
         for name, k_out, p_out, k_fn, p_fn in (
-            ("fused_layer_fwd", fwd_k, fwd_p,
-             lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale),
-             lambda: fl.layer_math(e, c, cf, w, H, scale)),
+            *fwd_checks,
             ("fused_layer_bwd", bwd_k, bwd_p,
              lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale),
              lambda: fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale)),
@@ -329,7 +348,7 @@ def check_fused_layer(A, M, D, H, F, gen, device, report):
             entry[f"bound_ratio_{tag}"] = worst
             entry[f"ms_{tag}"] = cuda_ms(k_fn)
             entry[f"plain_ms_{tag}"] = cuda_ms(p_fn)
-        del fwd_k, fwd_p, bwd_k, bwd_p
+        del fwd_k, fwd_p, bwd_k, bwd_p, fwd_checks
         torch.cuda.empty_cache()
         check_dw(
             "fused_layer_bwd_dw", tag, dtype,
@@ -378,17 +397,49 @@ def check_k2_sm90_entry(entry, e, c, cf, w, ge, gc, H, scale, k_out, p_out):
     entry["general_ms_bf16"] = cuda_ms(general)
 
 
-def check_k2_sm90(gen, device, report, D=128, H=8, F=256):
-    """The Hopper K2 against its twin beyond the served shape: M = 64, 48
-    and 16 at A = 11,000 (any atom count: one block per atom) and M = 32 at
-    A = 1,000; bf16 relative RMS <= 2e-2, d_cf bitwise equal across two
-    launches, CUDA-event ms beside the general body's, under ``shapes``."""
+def check_k1_sm90_entry(entry, e, c, cf, w, H, scale, k_out, p_out):
+    """The Hopper K1's extras at one shape into ``entry``: both outputs
+    bitwise equal across two launches, the general body (``sm90=False``)
+    against the same twin and its time."""
+    from metatrain_tpu_torch.ops.kernels import fused_layer as fl
+
+    again = fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(k_out, again)):
+        fail("the Hopper K1 gave different outputs in two launches")
+    entry["bitwise_repeat_bf16"] = True
+    general = lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale, sm90=False)  # noqa: E731
+    _, worst = compare(general(), p_out, torch.bfloat16)
+    entry["general_bound_ratio_bf16"] = worst
+    entry["general_ms_bf16"] = cuda_ms(general)
+
+
+def check_sm90_shapes(gen, device, report, D=128, H=8, F=256):
+    """The Hopper K1 and K2 against their twins beyond the served shape: M =
+    64, 48 and 16 at A = 11,000 (any atom count: one block per atom or per
+    pair of atoms) and M = 32 at A = 1,000; bf16 relative RMS <= 2e-2, K1's
+    outputs and K2's d_cf bitwise equal across two launches, CUDA-event ms
+    beside the general bodies', under each entry's ``shapes``."""
     from metatrain_tpu_torch.ops.kernels import fused_layer as fl
 
     for A, M in ((11000, 64), (11000, 48), (11000, 16), (1000, 32)):
         edges, center, cf, w, g_edge, g_center = layer_case(A, M, D, H, F, gen, device)
         e, c, ge, gc = (x.to(torch.bfloat16) for x in (edges, center, g_edge, g_center))
         scale = 1.0 / math.sqrt(D // H)
+        before = fl._lib.LAUNCHES["fused_layer_fwd_sm90"]
+        k_out = fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale)
+        torch.cuda.synchronize()
+        if fl._lib.LAUNCHES["fused_layer_fwd_sm90"] != before + 1:
+            fail(f"the Hopper K1 did not take A={A}, M={M}")
+        p_out = fl.layer_math(e, c, cf, w, H, scale)
+        err, worst = compare(k_out, p_out, torch.bfloat16)
+        sub = {}
+        check_k1_sm90_entry(sub, e, c, cf, w, H, scale, k_out, p_out)
+        sub.update(max_abs_err=err, bound_ratio=worst,
+                   ms=cuda_ms(lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale)))
+        report.setdefault("fused_layer_fwd_sm90", {}).setdefault("shapes", {})[
+            f"A{A}_M{M}_bf16"] = sub
+        del k_out, p_out
         before = fl._lib.LAUNCHES["fused_layer_bwd_sm90"]
         k_out = fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale)
         torch.cuda.synchronize()
@@ -572,13 +623,17 @@ def plan_table():
             b = _lib.layer_bwd_plan(M, D, H, F, False, True)
             pairs.append((_lib.plan_query(lib.mtt_fused_layer_bwd_w8a8_smem, M, D, H, F),
                           (4 * b.smem_floats, b.ws_floats)))
-            # the Hopper K2's dispatch rule and budget, C vs Python, at
-            # heads of 16 and of 8
+            # the Hopper K1's and K2's dispatch rules and budgets, C vs
+            # Python, at heads of 16 and of 8
             for heads in (H, 2 * H):
                 pairs.append(((bool(lib.mtt_fused_layer_bwd_sm90_ok(M, D, heads, F)),
                                lib.mtt_fused_layer_bwd_sm90_smem(M, D, heads, F)),
                               (_lib.k2_sm90_takes(torch.bfloat16, M, D, heads, F),
                                _lib.k2_sm90_smem(M, D, heads, F))))
+                pairs.append(((bool(lib.mtt_fused_layer_fwd_sm90_ok(M, D, heads, F)),
+                               lib.mtt_fused_layer_fwd_sm90_smem(M, D, heads, F)),
+                              (_lib.k1_sm90_takes(torch.bfloat16, M, D, heads, F),
+                               _lib.k1_sm90_smem(M, D, heads, F))))
             for c_side, py_side in pairs:
                 if tuple(c_side) != tuple(py_side):
                     fail(f"layout plan at M={M}, D={D}: C {c_side} != Python {py_side}")
@@ -1137,8 +1192,8 @@ UNFUSED_ALT = {"fused_layers": False, "normalization": "LayerNorm", "activation"
 ROWBLOCK_KERNELS = [f"rowblock_{d}[{s}]" for d in ("fwd", "bwd")
                     for s in ("compress", "combination", "head")]
 FUSED_KERNELS = ["fused_layer_fwd", "fused_layer_bwd", "permute", "permute_acc"] + ROWBLOCK_KERNELS
-# the served shape (M = 64, D = 128) in bf16 takes the Hopper K2
-FUSED_SM90_KERNELS = ["fused_layer_fwd", "fused_layer_bwd_sm90", "permute",
+# the served shape (M = 64, D = 128) in bf16 takes the Hopper K1 and K2
+FUSED_SM90_KERNELS = ["fused_layer_fwd_sm90", "fused_layer_bwd_sm90", "permute",
                       "permute_acc"] + ROWBLOCK_KERNELS
 GNN_KERNELS = ["gnn_block_fwd", "gnn_block_bwd", "permute", "permute_acc"] + ROWBLOCK_KERNELS
 UNFUSED_KERNELS = ["window_attention_fwd", "window_attention_bwd", "permute", "permute_acc",
@@ -1366,7 +1421,7 @@ def check_w8a8_slice(device, make, steps=3, timing=True):
     per_call = {k: v / steps for k, v in launches.items()}
     missing = [k for k in W8A8_KERNELS if launches.get(k, 0) == 0]
     if (missing or launches.get("fused_layer_fwd", 0) or launches.get("fused_layer_bwd", 0)
-            or launches.get("fused_layer_bwd_sm90", 0)
+            or launches.get("fused_layer_bwd_sm90", 0) or launches.get("fused_layer_fwd_sm90", 0)
             or per_call.get("fused_layer_fwd_w8a8") != 4 or per_call.get("fused_layer_bwd_w8a8") != 4):
         fail(f"the W8A8 force calls launched {launches} (not launched: {missing})")
     report.update(launches=launches, launches_per_call=per_call,
@@ -1451,7 +1506,7 @@ def check_int8_slice(device, state, steps=3):
     per_call = {k: v / steps for k, v in launches.items()}
     missing = [k for k in INT8_KERNELS if launches.get(k, 0) == 0]
     if (missing or launches.get("fused_layer_fwd", 0) or launches.get("fused_layer_bwd", 0)
-            or launches.get("fused_layer_bwd_sm90", 0)
+            or launches.get("fused_layer_bwd_sm90", 0) or launches.get("fused_layer_fwd_sm90", 0)
             or any(per_call.get(k) != 4 for k in INT8_KERNELS[:3])):
         fail(f"the int8 force calls launched {launches} (not launched: {missing})")
     report = {"atoms": n, "launches": launches, "launches_per_call": per_call,
@@ -1717,6 +1772,8 @@ def time_training(workdir, state, device, report, steps=3):
 SOURCES = {
     "fused_layer_fwd": ("metatrain_tpu_torch/csrc/fused_layer_fwd.cu",
                         "metatrain_tpu/ops/pallas/fused_layer.py:1161"),
+    "fused_layer_fwd_sm90": ("metatrain_tpu_torch/csrc/fused_layer_fwd_sm90.cu",
+                             "metatrain_tpu/ops/pallas/fused_layer.py:1161 (exact bf16)"),
     "fused_layer_bwd": ("metatrain_tpu_torch/csrc/fused_layer_bwd_sm90.cu",
                         "metatrain_tpu/ops/pallas/fused_layer.py:1269 (exact bf16; f32: "
                         "csrc/fused_layer_bwd.cu)"),
@@ -1757,13 +1814,14 @@ SOURCES = {
                                 "(weight_grads=True, int8 scores)"),
 }
 UNFUSED_PATH = ("permute", "permute_acc", "window_attention_fwd", "window_attention_bwd")
-N_ENTRIES = 25
+N_ENTRIES = 26
 
 
 def launch_count(report, name):
     """Launches of ``name`` in the run of its path: the block's force calls
     and training step for the GNN block's kernels, the training run for the
-    other weight-gradient kernels, the unfused force calls for the kernels
+    other weight-gradient kernels and for K1's general body (the served bf16
+    calls run the Hopper K1), the unfused force calls for the kernels
     that path added, the W8A8 force calls for the W8A8 kernels, the fused
     force calls for the rest; the int8 scores' from their force calls and
     (K2-dW-int8) their training step."""
@@ -1775,7 +1833,7 @@ def launch_count(report, name):
         source = report["slice_w8a8"]["launches"]
     elif name.startswith("gnn_block"):
         source = report["training_parity_gnn" if "_dw" in name else "slice_gnn"]["launches"]
-    elif "_dw" in name:
+    elif "_dw" in name or name == "fused_layer_fwd":
         source = report["train_launches"]
     else:
         source = report["unfused" if name in UNFUSED_PATH else "slice"]["launches"]
@@ -1827,9 +1885,11 @@ def main() -> int:
     report["slice"] = check_slice(device, {}, FUSED_SM90_KERNELS)
     check_neighbor_backend(report)
     served = report["slice"]
-    if served["launches"].get("fused_layer_bwd", 0) or served["launches_per_call"].get(
-            "fused_layer_bwd_sm90") != 4:
-        fail(f"the bf16 force calls launched {served['launches']}: 4 Hopper K2 per call expected")
+    if (served["launches"].get("fused_layer_fwd", 0) or served["launches"].get("fused_layer_bwd", 0)
+            or any(served["launches_per_call"].get(k) != 4
+                   for k in ("fused_layer_fwd_sm90", "fused_layer_bwd_sm90"))):
+        fail(f"the bf16 force calls launched {served['launches']}: 4 Hopper K1 and 4 Hopper K2 "
+             "per call expected")
     A, M = report["slice"]["padded"]
     print("slice:", json.dumps({k: report["slice"][k] for k in ("padded", "launches", "parity")}
                                | {"neighbor_backends": report["neighbor_backends"]}), flush=True)
@@ -1842,7 +1902,7 @@ def main() -> int:
     report["slice_gnn"] = check_slice(device, {}, GNN_KERNELS, fused_gnn=True)
     gnn = report["slice_gnn"]
     per_call = gnn["launches_per_call"]
-    if any(k in gnn["launches"] for k in ("fused_layer_fwd", "fused_layer_bwd",
+    if any(k in gnn["launches"] for k in ("fused_layer_fwd", "fused_layer_bwd", "fused_layer_fwd_sm90",
                                           "fused_layer_bwd_sm90")) or not (
             per_call["gnn_block_fwd"] == per_call["gnn_block_bwd"] == 2):
         fail(f"the block's force call launched {gnn['launches']}")
@@ -1942,14 +2002,16 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     kernels: dict = {}
     check_fused_layer(A, M, D, H, F, gen, device, kernels)
-    check_k2_sm90(gen, device, kernels, D, H, F)
+    check_sm90_shapes(gen, device, kernels, D, H, F)
     if build_log.exists():
-        kernels["fused_layer_bwd"]["ptxas_bf16"] = ptxas_usage(build_log.read_text(),
-                                                               "k2_sm90_kernel")
-    print("Hopper K2 (general body's ms beside):", json.dumps(
-        {k: kernels["fused_layer_bwd"].get(k) for k in (
-            "ms_bf16", "general_ms_bf16", "bound_ratio_bf16", "ptxas_bf16", "shapes")}),
-        flush=True)
+        for name, kernel in (("fused_layer_fwd_sm90", "k1_sm90_kernel"),
+                             ("fused_layer_bwd", "k2_sm90_kernel")):
+            kernels[name]["ptxas_bf16"] = ptxas_usage(build_log.read_text(), kernel)
+    for title, name in (("Hopper K1", "fused_layer_fwd_sm90"), ("Hopper K2", "fused_layer_bwd")):
+        print(f"{title} (general body's ms beside):", json.dumps(
+            {k: kernels[name].get(k) for k in (
+                "ms_bf16", "general_ms_bf16", "bound_ratio_bf16", "ptxas_bf16", "shapes")}),
+            flush=True)
     check_gnn_block(A, M, D, H, F, hp["d_node"], gen, device, kernels,
                     hp["num_attention_layers"])
     report["gnn_block_variants"] = check_gnn_block_variants(M, D, H, F, hp["d_node"], gen, device)
@@ -1978,7 +2040,7 @@ def main() -> int:
     entries = []
     for name, entry in kernels.items():
         source, replaces = SOURCES[name.split("[")[0]]
-        trains = "_dw" in name and "ms_f32" in entry
+        trains = ("_dw" in name or name == "fused_layer_fwd") and "ms_f32" in entry
         lead, other = ("f32", "bf16") if trains else ("bf16", "f32")
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": launch_count(report, name),

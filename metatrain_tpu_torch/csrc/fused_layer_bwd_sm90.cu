@@ -52,16 +52,17 @@
 // d_cf is summed over queries and heads in a fixed order (per (head, query
 // tile) column sums, then a fixed sum over them): no atomics, the same
 // bits in every launch.
+//
+// The recompute up to h_norm is layer_sm90.cuh's forward phases, which the
+// Hopper K1 (fused_layer_fwd_sm90.cu) runs too: the served bf16 call's
+// forces are the gradient of the function whose energy K1 computes.
 
-#include "layer_bwd_sm90.cuh"
+#include "layer_sm90.cuh"
 
 namespace mtt {
 namespace sm90 {
 namespace {
 
-constexpr int D = 128, HD = 16, H = 8;
-constexpr int LQ = 3 * D + 8;  // q|k|v row (bf16)
-constexpr int LA = D + 8;      // 64 x 128 bf16 operand rows
 constexpr int LV = 2 * D + 8;  // the d_vg tile: 128 value | 128 gate columns
 constexpr int LR = D + 8;      // d_res (float)
 
@@ -129,36 +130,6 @@ struct Chunks {
 
 __host__ __device__ constexpr int chunk_count(int F) { return 16 + 10 * (F / kChunkN); }
 
-__device__ __forceinline__ float2 ld2(const bf16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-// Row q's scores against the atom's keys for one head: s[j] holds keys 8 j
-// + 2 (lane % 4) (+1) of rows lane / 4 and lane / 4 + 8 of the query tile
-// whose A fragment is qa; key tiles from M on are left unset.
-__device__ __forceinline__ void head_scores(float (&s)[8][4], const uint32_t (&qa)[4], const bf16* K, int M) {
-#pragma unroll
-    for (int kp = 0; kp < 4; ++kp) {
-        if (16 * kp < M) {
-            uint32_t b[4];
-            load_b_nk(b, K, LQ, 16 * kp, 0);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) s[2 * kp][i] = s[2 * kp + 1][i] = 0.f;
-            mma_pair(s[2 * kp], s[2 * kp + 1], qa, b);
-        }
-    }
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-    v += __shfl_xor_sync(0xffffffffu, v, 1);
-    return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-    return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
 __global__ void __launch_bounds__(kThreads, 1)
     k2_sm90_kernel(Args p, Chunks chunks) {
     extern __shared__ __align__(1024) unsigned char smem[];
@@ -193,123 +164,35 @@ __global__ void __launch_bounds__(kThreads, 1)
     auto token = [&](int m) { return m == M - 1 ? c_in : e + (size_t)m * D; };
 
     // ---- recompute: r1, n1 = rnd(x1 r1 w) ---------------------------------
-    for (int m = warp; m < M; m += kThreads / 32) {
-        const bf16* x = token(m) + 4 * lane;
-        const float2 x0 = ld2(x), x1 = ld2(x + 2);
-        const float r = rsqrtf(warp_sum(x0.x * x0.x + x0.y * x0.y + x1.x * x1.x + x1.y * x1.y) / D + p.eps);
-        if (lane == 0) RS1[m] = r;
-        const float2 w0 = ld2(p.norm_attn + 4 * lane), w1 = ld2(p.norm_attn + 4 * lane + 2);
-        bf16* y = OP + m * LA + 4 * lane;
-        store2(y, x0.x * r * w0.x, x0.y * r * w0.y);
-        store2(y + 2, x1.x * r * w1.x, x1.y * r * w1.y);
-    }
+    rms_rows(token, p.norm_attn, RS1, OP, M, p.eps, [](int) {});
     for (int m = threadIdx.x; m < M; m += kThreads) CF[m] = p.cf[a * M + m];
 
     auto op_cols = [&](int r, int& ld) { ld = LA; return (const bf16*)OP + r * kChunkK; };
 
     // q|k|v = rnd(n1 w_qkv + b)
-    for (int pn = 0; pn < 3; ++pn) {
-        float acc[4][4];
-        zero(acc);
-        panel_mm<2>(ring, c, op_cols, acc);
-        panel_pairs([&](int j, int h, int m, int n) {
-            const int col = pn * kChunkN + n;
-            const float2 b = ld2(p.b_qkv + col);
-            store2(QKV + m * LQ + col, acc[j][2 * h] + b.x, acc[j][2 * h + 1] + b.y);
-        });
-    }
+    qkv_panels(ring, c, OP, QKV, p.b_qkv);
     __syncthreads();
 
     // ---- recompute: attention, one warp per (head, 16-row query tile) ----
-    for (int task = warp; task < H * QT; task += kThreads / 32) {
-        const int h = task / QT, q0 = 16 * (task % QT);
-        uint32_t qa[4];
-        load_a(qa, QKV, LQ, q0, h * HD);
-        float s[8][4];
-        head_scores(s, qa, QKV + D + h * HD, M);
-        float mx[2] = {-INFINITY, -INFINITY}, z[2] = {0.f, 0.f};
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-            if (8 * j < M)
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    s[j][i] *= scale;
-                    mx[i >> 1] = fmaxf(mx[i >> 1], s[j][i]);
-                }
-        mx[0] = quad_max(mx[0]);
-        mx[1] = quad_max(mx[1]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-            if (8 * j < M)
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    s[j][i] = expf(s[j][i] - mx[i >> 1]);
-                    z[i >> 1] = fmaf(CF[8 * j + 2 * t + (i & 1)], s[j][i], z[i >> 1]);
-                }
-        z[0] = quad_sum(z[0]);
-        z[1] = quad_sum(z[1]);
-        if (t == 0) {
-            SMAX[h * kRows + q0 + g] = mx[0];
-            SMAX[h * kRows + q0 + g + 8] = mx[1];
-            SZ[h * kRows + q0 + g] = z[0];
-            SZ[h * kRows + q0 + g + 8] = z[1];
-        }
-        // attn = rnd(P v) with P = cf e / z rounded to bf16
-        float o[2][4] = {};
-#pragma unroll
-        for (int kp = 0; kp < 4; ++kp) {
-            if (16 * kp < M) {
-                float p0[4], p1[4];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    const int k = 16 * kp + 2 * t + (i & 1);
-                    p0[i] = CF[k] * (s[2 * kp][i] / z[i >> 1]);
-                    p1[i] = CF[k + 8] * (s[2 * kp + 1][i] / z[i >> 1]);
-                }
-                uint32_t pa[4], b[4];
-                acc_to_a(pa, p0, p1);
-                load_b_kn(b, QKV + 2 * D + h * HD, LQ, 0, 16 * kp);
-                mma_pair(o[0], o[1], pa, b);
-            }
-        }
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-            bf16* y = OP + (q0 + g) * LA + h * HD + 8 * nt + 2 * t;
-            store2(y, o[nt][0], o[nt][1]);
-            store2(y + 8 * LA, o[nt][2], o[nt][3]);
-        }
-    }
+    attention_fwd(QKV, OP, CF, M, scale, [&](int h, int row, const float (&mx)[2], const float (&z)[2]) {
+        SMAX[h * kRows + row] = mx[0];
+        SMAX[h * kRows + row + 8] = mx[1];
+        SZ[h * kRows + row] = z[0];
+        SZ[h * kRows + row + 8] = z[1];
+    });
     __syncthreads();
 
     // res = rnd(x1 + rnd(attn w_out + b))
-    {
-        float acc[4][4];
-        zero(acc);
-        panel_mm<2>(ring, c, op_cols, acc);
-        panel_pairs([&](int j, int h, int m, int n) {
-            if (m >= M) return;
-            const float2 x = ld2(token(m) + n), b = ld2(p.b_out + n);
-            store2(RES + m * LA + n, x.x + rnd<bf16>(acc[j][2 * h] + b.x),
-                   x.y + rnd<bf16>(acc[j][2 * h + 1] + b.y));
-        });
-    }
+    out_proj_res(ring, c, OP, RES, token, p.b_out, M, [](int, int, float, float) {});
     __syncthreads();
 
     // r2, h_norm = rnd(res r2 w); g_eo = rnd(g_edge), row M-1 zero
-    for (int m = warp; m < M; m += kThreads / 32) {
-        const bf16* x = RES + m * LA + 4 * lane;
-        const float2 x0 = ld2(x), x1 = ld2(x + 2);
-        const float r = rsqrtf(warp_sum(x0.x * x0.x + x0.y * x0.y + x1.x * x1.x + x1.y * x1.y) / D + p.eps);
-        if (lane == 0) RS2[m] = r;
-        const float2 w0 = ld2(p.norm_mlp + 4 * lane), w1 = ld2(p.norm_mlp + 4 * lane + 2);
-        bf16* y = OP + m * LA + 4 * lane;
-        store2(y, x0.x * r * w0.x, x0.y * r * w0.y);
-        store2(y + 2, x1.x * r * w1.x, x1.y * r * w1.y);
+    rms_rows([&](int m) { return (const bf16*)RES + m * LA; }, p.norm_mlp, RS2, OP, M, p.eps, [&](int m) {
         const float2 g0 = m == M - 1 ? make_float2(0.f, 0.f) : ld2(ge + (size_t)m * D + 4 * lane);
         const float2 g1 = m == M - 1 ? make_float2(0.f, 0.f) : ld2(ge + (size_t)m * D + 4 * lane + 2);
         store2(GEO + m * LA + 4 * lane, g0.x, g0.y);
         store2(GEO + m * LA + 4 * lane + 2, g1.x, g1.y);
-    }
+    });
 
     // ---- SwiGLU backward over F tiles of 128 columns -> d_h (registers) --
     float dh[4][4];

@@ -38,6 +38,7 @@ from ..._build import PACKAGE_DIR, build_library
 CSRC = PACKAGE_DIR / "csrc"
 SOURCES = (
     "fused_layer_fwd.cu",
+    "fused_layer_fwd_sm90.cu",
     "fused_layer_bwd.cu",
     "fused_layer_bwd_sm90.cu",
     "rowblock_fwd.cu",
@@ -69,6 +70,7 @@ _LAYER_TAIL = [_L, _I, _I, _I, _I, _F, _F, _I, _P, _P]
 _SIGNATURES = {
     "mtt_fused_layer_fwd": [_I] + [_P] * 15 + _LAYER_TAIL,
     "mtt_fused_layer_bwd": [_I] + [_P] * 22 + _LAYER_TAIL,
+    "mtt_fused_layer_fwd_sm90": [_P] * 15 + [_L, _I, _I, _I, _I, _F, _F, _P],
     "mtt_fused_layer_bwd_sm90": [_P] * 20 + [_L, _I, _I, _I, _I, _F, _F, _P],
     "mtt_fused_layer_fwd_w8a8": [_P] * 16 + [_FP, _P, _P, _L, _I, _I, _I, _I, _F, _I, _P, _P],
     "mtt_fused_layer_bwd_w8a8": [_P] * 17 + [_FP] + [_P] * 5 + _LAYER_TAIL,
@@ -88,6 +90,8 @@ _SIGNATURES = {
     "mtt_fused_layer_bwd_w8a8_smem": [_I, _I, _I, _I, _LP],
     "mtt_fused_layer_bwd_int8_smem": [_I, _I, _I, _I, _I, _LP],
     "mtt_int8_absmax_smem": [_I],
+    "mtt_fused_layer_fwd_sm90_smem": [_I] * 4,
+    "mtt_fused_layer_fwd_sm90_ok": [_I] * 4,
     "mtt_fused_layer_bwd_sm90_smem": [_I] * 4,
     "mtt_fused_layer_bwd_sm90_ok": [_I] * 4,
     "mtt_rowblock_fwd_smem": [_I, _I, _IP],
@@ -252,7 +256,35 @@ def layer_bwd_plan(M: int, D: int, H: int, F: int, dw: bool, q8: bool,
     return make_plan(sizes, [4, 5, 6, 7, 0, 1, 2, 3], cap)
 
 
-# ---- the Hopper K2 (csrc/fused_layer_bwd_sm90.cu) ---------------------------
+# ---- the Hopper K1 and K2 (csrc/fused_layer_{fwd,bwd}_sm90.cu) --------------
+
+def sm90_shape(M: int, D: int, H: int, F: int) -> bool:
+    """The shapes both Hopper kernels take (their C queries
+    ``mtt_fused_layer_{fwd,bwd}_sm90_ok``): D = 128 with heads of 16, 16 <= M
+    <= 64 with M % 16 == 0, F a multiple of 128."""
+    return D == 128 and H * 16 == D and 16 <= M <= 64 and M % 16 == 0 and F >= 128 and F % 128 == 0
+
+
+def k1_sm90_takes(dtype: torch.dtype, M: int, D: int, H: int, F: int, w8a8: bool = False,
+                  int8: bool = False) -> bool:
+    """Whether ``fused_layer_fwd_cuda`` launches the Hopper K1: the exact
+    bfloat16 variant at the shapes of :func:`sm90_shape`."""
+    return dtype == torch.bfloat16 and not (w8a8 or int8) and sm90_shape(M, D, H, F)
+
+
+def k1_sm90_smem(M: int, D: int, H: int, F: int) -> int:
+    """``mtt_fused_layer_fwd_sm90_smem``: its shared bytes per block (two
+    atoms, each padded to 64 rows), 0 for a shape it does not take. The C
+    source's layout: per atom q|k|v, where res and the ffn_h tile go later
+    (bf16 rows of 3D + 8), and the operand tile (n1, attn, h_norm; bf16 rows
+    of D + 8); three weight chunks of 128 x 64 bf16; per atom the floats
+    cf, r1, r2."""
+    if not k1_sm90_takes(torch.bfloat16, M, D, H, F):
+        return 0
+    rows = 64
+    atom = rows * (3 * D + 8) * 2 + rows * (D + 8) * 2
+    return 2 * atom + 3 * 128 * 64 * 2 + 2 * 4 * 3 * rows
+
 
 def k2_sm90_takes(dtype: torch.dtype, M: int, D: int, H: int, F: int, weight_grads: bool = False,
                   w8a8: bool = False, int8: bool = False) -> bool:
@@ -260,8 +292,7 @@ def k2_sm90_takes(dtype: torch.dtype, M: int, D: int, H: int, F: int, weight_gra
     bfloat16 input-gradient variant at D = 128 with heads of 16, 16 <= M <=
     64 with M % 16 == 0, F a multiple of 128 (the shape rule is the C
     side's ``mtt_fused_layer_bwd_sm90_ok``)."""
-    return (dtype == torch.bfloat16 and not (weight_grads or w8a8 or int8) and D == 128
-            and H * 16 == D and 16 <= M <= 64 and M % 16 == 0 and F >= 128 and F % 128 == 0)
+    return dtype == torch.bfloat16 and not (weight_grads or w8a8 or int8) and sm90_shape(M, D, H, F)
 
 
 def k2_sm90_smem(M: int, D: int, H: int, F: int) -> int:

@@ -16,8 +16,10 @@ attention output of slot M-1.
   ``weight_grads=True``, the weight gradients summed over atoms).
 - :func:`fused_transformer_layer` is the ``autograd.Function`` entry: a
   tensor on the CPU runs the plain versions; a CUDA tensor launches K1
-  (``csrc/fused_layer_fwd.cu``) and, for its gradient, K2
-  (``csrc/fused_layer_bwd.cu``): the input-gradient variant, or the
+  (``csrc/fused_layer_fwd.cu``; the exact bfloat16 one at the served
+  shapes ``csrc/fused_layer_fwd_sm90.cu``) and, for its gradient, K2
+  (``csrc/fused_layer_bwd.cu``; likewise ``csrc/fused_layer_bwd_sm90.cu``):
+  the input-gradient variant, or the
   weight-gradient variant K2-dW when a weight requires grad. The backward
   is itself differentiable (training with forces): its gradient replays
   :func:`layer_bwd_math` under autograd, chunk by chunk over atoms
@@ -637,8 +639,14 @@ def int8_scales_for(edges, center, w: LayerWeights, plain: bool = False):
 
 
 def fused_layer_fwd_cuda(edges, center, cf, w: LayerWeights, num_heads, scale, w8a8=None,
-                         int8_scales=None):
+                         int8_scales=None, *, sm90: bool = True):
     """Launch K1. ``edges``/``center`` float32 or bfloat16, ``cf`` float32.
+
+    The exact bfloat16 variant at the shapes of :func:`_lib.k1_sm90_takes`
+    (the served ones) launches the Hopper K1 (``csrc/fused_layer_fwd_sm90.cu``,
+    counter ``fused_layer_fwd_sm90``), which rounds the softmax weights to
+    bfloat16 before P V as the Hopper K2's recompute and the JAX package
+    do; ``sm90=False`` keeps the general body there too, for comparisons.
 
     With ``w8a8`` (``(Int8Calib, quantize_layer_weights(...))``, int8
     weights on the device) launch K1-W8A8 instead: bfloat16 only. With
@@ -657,6 +665,9 @@ def fused_layer_fwd_cuda(edges, center, cf, w: LayerWeights, num_heads, scale, w
     wc = _cuda_weights(w, cd)
     _lib.require({"edges": edges, "center": center, **wc._asdict()}, edges.device, cd)
     _lib.require({"cf": cf}, edges.device, torch.float32)
+    if sm90 and _lib.k1_sm90_takes(cd, M, D, num_heads, F, w8a8 is not None,
+                                   int8_scales is not None):
+        return _k1_sm90(edges, center, cf, wc, num_heads, scale)
     lib = _lib.library()
     _, ws_floats = _lib.plan_query(lib.mtt_fused_layer_fwd_smem, M, D, F)
     grid = _lib.layer_grid(A, ws_floats, edges.device)
@@ -684,6 +695,40 @@ def fused_layer_fwd_cuda(edges, center, cf, w: LayerWeights, num_heads, scale, w
             *tail, float(scale), rmsnorm_eps(cd), *launch)
     _lib.check(code, name)
     _lib.LAUNCHES[name] += 1
+    return edge_out, center_out
+
+
+def k1_sm90_w_vg(w_in):
+    """w_in (D, 2F) as the Hopper K1 reads it: transposed to (2F, D) with the
+    rows in blocks of 64, value columns 64 i .. 64 i + 63 then the same gate
+    columns, so that one staged chunk holds both halves of a 64-column F
+    tile."""
+    D, F = w_in.shape[0], w_in.shape[1] // 2
+    return w_in.t().reshape(2, F // 64, 64, D).transpose(0, 1).reshape(2 * F, D).contiguous()
+
+
+def _k1_sm90(edges, center, cf, wc: LayerWeights, num_heads, scale):
+    """The Hopper K1 on checked bfloat16 tensors (``wc`` in the compute
+    dtype): one block per two atoms, no workspace. Its weights go in as
+    w_qkv^T, w_out^T, :func:`k1_sm90_w_vg` and w_ffn_out^T."""
+    A, M, D = edges.shape
+    F = wc.w_ffn_out.shape[0]
+    lib = _lib.library()
+    _lib.check_shared(lib.mtt_fused_layer_fwd_sm90_smem(M, D, num_heads, F), "fused_layer_fwd_sm90")
+    vectors = (wc.norm_attn, wc.b_qkv, wc.b_out, wc.norm_mlp, wc.b_in, wc.b_ffn_out)
+    matrices = (wc.w_qkv.t().contiguous(), wc.w_out.t().contiguous(), k1_sm90_w_vg(wc.w_in),
+                wc.w_ffn_out.t().contiguous())
+    edge_out = torch.empty_like(edges)
+    center_out = torch.empty_like(center)
+    _lib.check(
+        lib.mtt_fused_layer_fwd_sm90(
+            edges.data_ptr(), center.data_ptr(), cf.data_ptr(), *(x.data_ptr() for x in vectors),
+            *(x.data_ptr() for x in matrices), edge_out.data_ptr(), center_out.data_ptr(),
+            A, M, D, num_heads, F, float(scale), rmsnorm_eps(edges.dtype),
+            _lib.stream_ptr(edges.device)),
+        "fused_layer_fwd_sm90",
+    )
+    _lib.LAUNCHES["fused_layer_fwd_sm90"] += 1
     return edge_out, center_out
 
 

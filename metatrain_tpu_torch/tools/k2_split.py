@@ -1,11 +1,15 @@
-"""Phase split of K2 in bfloat16 by ``clock64()`` stamps, on a CUDA device.
+"""Phase split of K2, or of the Hopper K1, in bfloat16 by ``clock64()`` stamps,
+on a CUDA device.
 
 Usage, on a machine with a CUDA device and nvcc::
 
-    python metatrain_tpu_torch/tools/k2_split.py --body hopper|general [--A 11392] [--M 64]
+    python metatrain_tpu_torch/tools/k2_split.py --body hopper|general|k1-hopper [--A 11392]
+        [--M 64]
 
-Copies the body's sources (``--body hopper``: ``csrc/fused_layer_bwd_sm90.cu``;
-``general``: ``csrc/layer_bwd.cuh`` with a one-kernel launcher) into a
+Copies the body's sources (``--body hopper``: the Hopper K2,
+``csrc/fused_layer_bwd_sm90.cu``; ``general``: K2's general body,
+``csrc/layer_bwd.cuh`` with a one-kernel launcher; ``k1-hopper``: the
+Hopper K1, ``csrc/fused_layer_fwd_sm90.cu``) into a
 temporary directory, inserts after each phase's closing barrier a stamp of
 thread 0's ``clock64()`` that adds the phase's cycles to a device counter,
 builds that copy alone with nvcc, runs it on a seeded case (D = 128, 8
@@ -42,7 +46,7 @@ COUNTERS = ('\nextern "C" int split_read(unsigned long long* out) '
 # (text, stamp before it rather than after, the stamp): each text occurs
 # once; a stamp of None is the next phase's SPLIT
 HOPPER = (
-    ('#include "layer_bwd_sm90.cuh"\n', False, STAMP),
+    ('#include "layer_sm90.cuh"\n', False, STAMP),
     ("    int c = 0;\n", False, "    long long t_prev = clock64();\n"),
     ("    // ---- recompute: attention", True, None),
     ("    // res = rnd(x1 + rnd(attn w_out + b))", True, None),
@@ -54,6 +58,16 @@ HOPPER = (
 )
 HOPPER_PHASES = ["norm, QKV", "recompute attention", "out-projection, h_norm", "SwiGLU tiles",
                  "d_res, d_attn", "attention backward, d_cf", "d_n1, final norm"]
+K1_HOPPER = (
+    ('#include "layer_sm90.cuh"\n', False, STAMP),
+    ("    int c = 0;\n", False, "    long long t_prev = clock64();\n"),
+    ("    // ---- attention, one warp per", True, None),
+    ("    // ---- res = rnd(x1", True, None),
+    ("    // ---- SwiGLU over F tiles", True, None),
+    ("    // ---- edge_out = rnd(", True, None),
+    ("}\n\n}  // namespace\n", True, None),
+)
+K1_HOPPER_PHASES = ["norm, QKV", "attention", "out-projection, h_norm", "SwiGLU tiles", "edge_out"]
 GENERAL = (
     ('#include "common.cuh"\n', False, STAMP),
     ("    const DwLayout L(D, F);\n", False, "    long long t_prev = clock64();\n"),
@@ -116,11 +130,13 @@ def instrument(text: str, marks) -> str:
 
 
 def build(work: Path, body: str) -> Path:
-    for name in ("common.cuh", "layer_bwd.cuh", "layer_bwd_sm90.cuh", "fused_layer_bwd_sm90.cu"):
+    for name in ("common.cuh", "layer_bwd.cuh", "layer_sm90.cuh", "fused_layer_bwd_sm90.cu",
+                 "fused_layer_fwd_sm90.cu"):
         shutil.copy(CSRC / name, work / name)
-    if body == "hopper":
-        unit = work / "fused_layer_bwd_sm90.cu"
-        unit.write_text(instrument(unit.read_text(), HOPPER) + COUNTERS)
+    if body in ("hopper", "k1-hopper"):
+        unit = work / ("fused_layer_bwd_sm90.cu" if body == "hopper" else "fused_layer_fwd_sm90.cu")
+        marks = HOPPER if body == "hopper" else K1_HOPPER
+        unit.write_text(instrument(unit.read_text(), marks) + COUNTERS)
     else:
         header = work / "layer_bwd.cuh"
         header.write_text(instrument(header.read_text(), GENERAL))
@@ -136,7 +152,7 @@ def build(work: Path, body: str) -> Path:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--body", choices=("hopper", "general"), required=True)
+    parser.add_argument("--body", choices=("hopper", "general", "k1-hopper"), required=True)
     parser.add_argument("--A", type=int, default=11392)
     parser.add_argument("--M", type=int, default=64)
     args = parser.parse_args()
@@ -180,6 +196,17 @@ def main() -> int:
             def run():
                 return lib.mtt_fused_layer_bwd_sm90(*(x.data_ptr() for x in ptrs), A, M, D, H, F,
                                                     scale, eps, stream)
+        elif args.body == "k1-hopper":
+            # w_in^T with value and gate rows interleaved in blocks of 64, as
+            # fused_layer.k1_sm90_w_vg arranges it
+            w_vg = w[6].t().reshape(2, F // 64, 64, D).transpose(0, 1).reshape(2 * F, D).contiguous()
+            ptrs = [e, c, cf, *(w[i] for i in (0, 2, 4, 5, 7, 9)), w[1].t().contiguous(),
+                    w[3].t().contiguous(), w_vg, w[8].t().contiguous(), de, dc]
+            lib.mtt_fused_layer_fwd_sm90.argtypes = [P] * 15 + [L, I, I, I, I, F_, F_, P]
+
+            def run():
+                return lib.mtt_fused_layer_fwd_sm90(*(x.data_ptr() for x in ptrs), A, M, D, H, F,
+                                                    scale, eps, stream)
         else:
             wl = w[:8] + [w[i].t().contiguous() for i in (1, 3, 6, 8)]
             arr = (ctypes.c_void_p * 12)(*(x.data_ptr() for x in wl))
@@ -203,7 +230,8 @@ def main() -> int:
             run()
         end.record()
         torch.cuda.synchronize()
-    names = HOPPER_PHASES if args.body == "hopper" else GENERAL_PHASES
+    names = {"hopper": HOPPER_PHASES, "general": GENERAL_PHASES,
+             "k1-hopper": K1_HOPPER_PHASES}[args.body]
     cycles = list(counts)[:len(names)]
     total = sum(cycles)
     print(json.dumps({"card": card, "body": args.body, "shape": [A, M, D, H, F],

@@ -14,12 +14,17 @@ the shape and, per kernel and dtype, the mean ms over ``--reps`` launches
 after one warm-up launch. Where the tree has the Hopper K2
 (``fused_layer_bwd_cuda(..., sm90=)``), ``fused_layer_bwd_ms_bf16`` is
 its time at shapes it takes and ``fused_layer_bwd_general_ms_bf16`` the
-general body's.
+general body's; likewise ``fused_layer_fwd_ms_bf16`` and
+``fused_layer_fwd_general_ms_bf16`` where it has the Hopper K1. Under
+``digests``, a SHA-256 prefix of each output's bytes per kernel and dtype,
+from the first launch: two trees whose digests agree computed the same
+bits.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import json
 import math
@@ -79,10 +84,19 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / args.reps
 
-    times = {}
+    def digest(outs):
+        flat = [*outs[:3], *outs[3]] if len(outs) == 4 else outs
+        return [hashlib.sha256(x.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+                .hexdigest()[:16] for x in flat]
+
+    times, digests = {}, {}
     has_sm90 = "sm90" in inspect.signature(fl.fused_layer_bwd_cuda).parameters
+    has_k1_sm90 = "sm90" in inspect.signature(fl.fused_layer_fwd_cuda).parameters
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         e, c, ge, gc = (x.to(dev, dtype) for x in tensors)
+        if has_k1_sm90 and dtype == torch.bfloat16:
+            times["fused_layer_fwd_general_ms_bf16"] = cuda_ms(
+                lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale, sm90=False))
         if has_sm90 and dtype == torch.bfloat16:
             times["fused_layer_bwd_general_ms_bf16"] = cuda_ms(
                 lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, sm90=False))
@@ -92,10 +106,12 @@ def main() -> int:
             ("fused_layer_bwd_dw", lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale,
                                                                    weight_grads=True)),
         ):
+            digests[f"{name}_{tag}"] = digest(fn())
             times[f"{name}_ms_{tag}"] = cuda_ms(fn)
         del e, c, ge, gc
         torch.cuda.empty_cache()
-    print(json.dumps({"card": card, "root": args.root, "shape": [A, M, D, H, F], **times}))
+    print(json.dumps({"card": card, "root": args.root, "shape": [A, M, D, H, F], **times,
+                      "digests": digests}))
     return 0
 
 

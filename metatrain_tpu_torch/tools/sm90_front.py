@@ -1,0 +1,166 @@
+"""Check on a CUDA device that the Hopper K1 and the Hopper K2's recompute
+compute attn, res and h_norm to the same bits.
+
+Usage, on a machine with a CUDA device and nvcc::
+
+    python metatrain_tpu_torch/tools/sm90_front.py [--A 2047] [--M 64]
+
+Both kernels run the forward phases of ``csrc/layer_sm90.cuh`` up to
+h_norm, K1 in its two-atom layout (m64n64k16 panels) and K2 in its
+one-atom layout (m64n32k16). The tool copies the sources into a temporary
+directory, inserts into each kernel a copy of the atom's attn (after the
+attention) and of res and h_norm (after the second norm) to a global
+buffer, builds each copy alone with nvcc, runs both on one seeded case
+(D = 128, 8 heads, F = 256, inputs as ``layer_times.py`` makes them; an
+odd A, so that K1's last block holds one atom) and prints one JSON line:
+the card (``nvidia-smi`` name and power limit), the shape, and per
+activation whether the two kernels' copies are bitwise equal. The
+checkout's sources are not changed: they carry no such copies.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+
+# g_dump is (A, M, 3, D) bf16: attn, res, h_norm of each atom's rows
+DUMP = '__device__ __nv_bfloat16* g_dump;\n'
+SETTER = ('\nextern "C" int dump_set(void* p) '
+          '{ return (int)cudaMemcpyToSymbol(g_dump, &p, sizeof(p)); }\n')
+
+
+def _copy(slot: int, rows: str, src: str) -> str:
+    """Code that copies ``src`` rows (bf16, rows of LA) of atom ``rows`` into
+    slot ``slot`` of g_dump; ``rows`` names the atom index expression."""
+    return (f"    __syncthreads();\n"
+            f"    for (int i_ = threadIdx.x; i_ < M * D; i_ += blockDim.x)\n"
+            f"        g_dump[(({rows}) * M + i_ / D) * 3 * D + {slot} * D + i_ % D] = "
+            f"{src}[(i_ / D) * LA + i_ % D];\n")
+
+
+def _k1_copy(slot: int, buf: str) -> str:
+    # both atoms of the block, atom 1 only where it exists
+    return (_copy(slot, "a0", buf)
+            + "    if (has1) {\n" + _copy(slot, "a1", f"({buf} + kStride)") + "    }\n")
+
+
+# (text, insert before it, code): each text occurs once in its source
+K1_MARKS = (
+    ('#include "layer_sm90.cuh"\n', False, DUMP),
+    ("    // ---- res = rnd(x1", True, _k1_copy(0, "OP")),
+    ("    // ---- SwiGLU over F tiles", True, _k1_copy(1, "RES") + _k1_copy(2, "OP")),
+)
+K2_MARKS = (
+    ('#include "layer_sm90.cuh"\n', False, DUMP),
+    ("    // res = rnd(x1 + rnd(attn w_out + b))", True, _copy(0, "a", "OP")),
+    ("    // ---- SwiGLU backward", True, _copy(1, "a", "RES") + _copy(2, "a", "OP")),
+)
+
+
+def instrument(text: str, marks) -> str:
+    for mark, before, code in marks:
+        if text.count(mark) != 1:
+            raise RuntimeError(f"mark not found once in the source: {mark!r}")
+        at = text.index(mark) + (0 if before else len(mark))
+        text = text[:at] + code + text[at:]
+    return text + SETTER
+
+
+def build(work: Path) -> dict:
+    for name in ("common.cuh", "layer_sm90.cuh"):
+        shutil.copy(CSRC / name, work / name)
+    nvcc = shutil.which("nvcc") or str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
+    procs = {}
+    for key, source, marks in (("k1", "fused_layer_fwd_sm90.cu", K1_MARKS),
+                               ("k2", "fused_layer_bwd_sm90.cu", K2_MARKS)):
+        unit = work / source
+        unit.write_text(instrument((CSRC / source).read_text(), marks))
+        procs[key] = subprocess.Popen(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler",
+             "-fPIC", "-shared", str(unit), "-o", str(work / f"{key}.so")])
+    for key, proc in procs.items():
+        if proc.wait(timeout=600) != 0:
+            raise RuntimeError(f"nvcc failed on the {key} copy")
+    return {key: ctypes.CDLL(str(work / f"{key}.so")) for key in procs}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--A", type=int, default=2047)
+    parser.add_argument("--M", type=int, default=64)
+    args = parser.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("sm90_front: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    A, M, D, H, F = args.A, args.M, 128, 8, 256
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(0)
+
+    def lecun(*shape):
+        return torch.randn(*shape, generator=gen) / math.sqrt(shape[0])
+
+    w = [1 + 0.1 * torch.randn(D, generator=gen), lecun(D, 3 * D),
+         0.1 * torch.randn(3 * D, generator=gen), lecun(D, D), 0.1 * torch.randn(D, generator=gen),
+         1 + 0.1 * torch.randn(D, generator=gen), lecun(D, 2 * F),
+         0.1 * torch.randn(2 * F, generator=gen), lecun(F, D), 0.1 * torch.randn(D, generator=gen)]
+    w = [x.to(dev, torch.bfloat16).contiguous() for x in w]
+    n_real = torch.randint(M // 2, M - 1, (A, 1), generator=gen)
+    cf = torch.rand(A, M, generator=gen) * (torch.arange(M)[None] < n_real)
+    cf[:, M - 1] = 1.0
+    cf = cf.to(dev)
+    e, c, ge, gc = (torch.randn(*s, generator=gen).to(dev, torch.bfloat16)
+                    for s in ((A, M, D), (A, D), (A, M, D), (A, D)))
+    scale, eps = 1.0 / math.sqrt(D // H), float(torch.finfo(torch.float32).eps)
+    # w_in^T with value and gate rows interleaved in blocks of 64, as
+    # fused_layer.k1_sm90_w_vg arranges it
+    w_vg = w[6].t().reshape(2, F // 64, 64, D).transpose(0, 1).reshape(2 * F, D).contiguous()
+    t = {i: w[i].t().contiguous() for i in (1, 3, 6, 8)}
+    P, I, L, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    dumps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build(Path(tmp))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        runs = {
+            "k1": ("mtt_fused_layer_fwd_sm90", [P] * 15,
+                   [e, c, cf, *(w[i] for i in (0, 2, 4, 5, 7, 9)), t[1], t[3], w_vg, t[8],
+                    torch.empty_like(e), torch.empty_like(c)]),
+            "k2": ("mtt_fused_layer_bwd_sm90", [P] * 20,
+                   [e, c, cf, *w[:9], t[1], t[3], t[6], ge, gc, torch.empty_like(e),
+                    torch.empty_like(c), torch.empty_like(cf)]),
+        }
+        for key, (entry, ptypes, ptrs) in runs.items():
+            dump = torch.zeros(A, M, 3, D, dtype=torch.bfloat16, device=dev)
+            lib = libs[key]
+            fn = getattr(lib, entry)
+            fn.argtypes = ptypes + [L, I, I, I, I, F_, F_, P]
+            lib.dump_set.argtypes = [P]
+            if lib.dump_set(dump.data_ptr()) != 0:
+                raise RuntimeError("could not set the dump buffer")
+            if fn(*(x.data_ptr() for x in ptrs), A, M, D, H, F, scale, eps, stream) != 0:
+                raise RuntimeError(f"{entry} failed to launch")
+            torch.cuda.synchronize()
+            dumps[key] = dump
+    equal = {name: torch.equal(dumps["k1"][:, :, i], dumps["k2"][:, :, i])
+             for i, name in enumerate(("attn", "res", "h_norm"))}
+    print(json.dumps({"card": card, "shape": [A, M, D, H, F], "bitwise_equal": equal,
+                      "finite": bool(torch.isfinite(dumps["k1"].float()).all())}))
+    return 0 if all(equal.values()) else 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())
