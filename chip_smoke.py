@@ -13,8 +13,10 @@ device and exits non-zero without one. Phases (any failure propagates):
    before those calls, and every kernel of the path (the Hopper K1 of
    ``csrc/fused_layer_fwd_sm90.cu`` and the Hopper K2 of
    ``csrc/fused_layer_bwd_sm90.cu`` 4 times per call each and the general
-   K1 and K2 never, K3, K4, the permute and the accumulate permute) must
-   have launched in them; the pair
+   K1 and K2 never, K3, the Hopper K4 of ``csrc/rowblock_bwd_sm90.cu`` for
+   the compress and combination backward 2 times per call each and the
+   general K4 for them never, the general K4 for the head once per call, the
+   permute and the accumulate permute) must have launched in them; the pair
    searches must have run in the native neighbor library. Energy, forces
    and virial must be finite; the bf16 kernel path must match the f32
    plain path (energy rel <= 1 %, force rel-RMSE <= 5 %, or 1.25 x the bf16
@@ -29,16 +31,18 @@ device and exits non-zero without one. Phases (any failure propagates):
 4. unfused slice: the same for PET with ``fused_layers: false`` (the
    layout of a v1 checkpoint at the default widths): the window attention
    forward and backward, both permutes and the row-block stages must
-   launch; then, with the same gates and no timing, LayerNorm / SiLU /
-   PostLN layers with the residual featurizer (2 GNN layers of 1
-   attention layer).
+   launch, the row-block backward as on the fused path; then, with the same
+   gates and no timing, LayerNorm / SiLU / PostLN layers with the residual
+   featurizer (2 GNN layers of 1 attention layer: the Hopper K4 for the
+   compress 2 times per call, no combination, the head twice).
 4b. W8A8 slice: the fused model of phase 3 built with
    ``int8_static=True`` in bfloat16, ``calibrate_int8`` on the crystal's
    served batch (the calibration carried to the W8A8 plain model with
    ``int8_calib_from_jax(int8_calib_to_jax(...))``), then the same served
    calls: every counter starts at 0 just before them; K1-W8A8 and K2-W8A8
    must launch 4 times per call each (2 GNN x 2 layers) and K1/K2 never,
-   K3, K4 and both permutes as on the fused path. Gates: finite outputs;
+   K3, K4 (the Hopper K4 included) and both permutes as on the fused path.
+   Gates: finite outputs;
    W8A8 kernel path vs W8A8 plain path (both bf16) energy rel <= 1 %,
    force rel-RMSE <= 5 %; the W8A8 forces differ from the exact bf16 kernel
    path's (rel-RMSE > 1e-4: quantization ran). Reported, not gated: the
@@ -49,12 +53,14 @@ device and exits non-zero without one. Phases (any failure propagates):
 4c. larger windows and widths: the fused model of phase 3 with a 5.5 A
    cutoff (the calculator's buckets give M = 96 on the crystal; any M >= 80
    passes, a smaller one fails) and with d_pet 256, d_ff 512, 8 heads of 32,
-   each served as phase 3 (its launches and gates, 2 steps), the kernel
-   paths timed.
+   each served as phase 3 (its launches and gates, 2 steps; the general K1
+   and K2 bodies; at M = 96 the Hopper K4, at d_pet 256 the general K4 for
+   the compress and combination, 2 per call each), the kernel paths timed.
 4d. int8 scores: the fused model built with ``int8_scores=True`` in
    bfloat16: every counter starts at 0 just before its served calls; the
    absmax pass, K1-int8 and K2-int8 must launch 4 times per call each and
-   K1/K2 never. Gates: finite outputs; the int8 kernel path vs its plain
+   K1/K2 never, the row-block backward as on the fused path. Gates: finite
+   outputs; the int8 kernel path vs its plain
    path energy rel <= 1 %, force rel-RMSE <= 5 %; its forces differ from
    the exact bf16 kernel path's (rel-RMSE > 1e-4). Reported, not gated: its
    error against the f32 exact plain path (relative, MAE terms), ms per
@@ -81,7 +87,10 @@ device and exits non-zero without one. Phases (any failure propagates):
    parameter tensor rel L2 <= 1e-3. Then one bfloat16 step with the int8
    scores (the trained model), kernel vs plain path: the absmax pass, K1-int8
    and K2-dW-int8 must launch and the layer's replay run; loss rel <= 2e-2,
-   global gradient rel L2 <= 0.1, finite gradients.
+   global gradient rel L2 <= 0.1, finite gradients. Then one exact bfloat16
+   step (the trained model), kernel vs plain path, with the same gates: a
+   weight requires grad, so the general K1, K2-dW and K4-dW must launch and
+   the Hopper K1, K2 and K4 never.
 7. training timing: ms per step and atom-steps/s (host clock around
    synchronised steps after a warm-up step) with the peak device memory,
    for the kernel, plain and GNN-block paths on the 2 x 2,048-atom batch
@@ -119,9 +128,19 @@ device and exits non-zero without one. Phases (any failure propagates):
    an entry of its own (``fused_layer_fwd_sm90``) with the same checks
    (both outputs bitwise equal across two launches); the entry of K1
    (``fused_layer_fwd``) keeps the general body, in bf16 with
-   ``sm90=False``, and its launches are the training run's.
+   ``sm90=False``, and its launches are the training run's. K4's compress
+   and combination in bf16 are the Hopper K4, entries of their own
+   (``rowblock_bwd_sm90[<stage>]``): every output within relative RMS 2e-2
+   of the plain version and bitwise equal across two launches, the general
+   body (``sm90=False``) timed beside it (``general_ms``), its ``-Xptxas
+   -v`` registers and spills; the same for the 2-part compress and at A x M
+   rows for M = 48 and 16 (A = 11,000) and at 100,003 rows under
+   ``shapes``. ``rowblock_bwd[<stage>]`` keeps the general body in bf16
+   (``sm90=False``), its launches the d_pet 256 calls'. K4's bound counts
+   the inputs it reads (not the combination's messages), g, its outputs and
+   its three products.
 9. shapes: the C side's layout plans (shared bytes, workspace floats, row
-   tiles) and the Hopper K1's and K2's dispatch rules and budgets equal
+   tiles) and the Hopper K1's, K2's and K4's dispatch rules and budgets equal
    ``_lib``'s Python ones for M = 16..256 and D of 64 to 256;
    K1, K2, K2-dW, the block's three kernels and, in bf16, K1-W8A8 and
    K2-W8A8 vs plain at M = 80, 96, 128 (D 128) and M = 64, 128 (D 256), A =
@@ -129,7 +148,7 @@ device and exits non-zero without one. Phases (any failure propagates):
    W8A8) at head widths 8, 12, 24 and 64; the bounds of phase 8, times under
    each entry's ``shapes``.
 
-The second-to-last line is a JSON object with one entry per kernel (26);
+The second-to-last line is a JSON object with one entry per kernel (28);
 the last line is ``{"ok": true, "device": {...}}``. Details also go to
 ``chiprun_out/chip_smoke.json``, the compiler's ``-Xptxas -v`` output to
 ``chiprun_out/chip_smoke_build.log``.
@@ -638,6 +657,20 @@ def plan_table():
                 if tuple(c_side) != tuple(py_side):
                     fail(f"layout plan at M={M}, D={D}: C {c_side} != Python {py_side}")
                 checked += 1
+        # the Hopper K4's dispatch rule and budget, C vs Python, for every
+        # stage at d_part D, w_in of 1-4 parts, w_hid D or 2D, w_out D or 128
+        for stage in (0, 1, 2):
+            for w_in in range(D, 4 * D + 1, D):
+                for w_hid in (D, 2 * D):
+                    for w_out in sorted({D, 128}):
+                        c_side = (bool(lib.mtt_rowblock_bwd_sm90_ok(stage, D, w_in, w_hid, w_out)),
+                                  lib.mtt_rowblock_bwd_sm90_smem(stage, D, w_in, w_hid, w_out))
+                        py_side = (_lib.k4_sm90_takes(torch.bfloat16, stage, D, w_in, w_hid, w_out),
+                                   _lib.k4_sm90_smem(stage, D, w_in, w_hid, w_out))
+                        if c_side != py_side:
+                            fail(f"Hopper K4 rule at stage {stage}, D={D}, {w_in}/{w_hid}/{w_out}: "
+                                 f"C {c_side} != Python {py_side}")
+                        checked += 1
         for stage, w_in, w_hid, w_out in ((0, 3 * D, D, D), (1, 2 * D, 2 * D, D), (2, D, D, D)):
             rows = ctypes.c_int(0)
             nbytes = lib.mtt_rowblock_fwd_smem(w_in, w_hid, ctypes.byref(rows))
@@ -995,7 +1028,65 @@ def stage_cases(rows, D, gen, device):
     ]
 
 
+def rowblock_sizes(stage, xs, weights, g):
+    """(bytes, operations) of K3, K4 (and the Hopper K4) and K4-dW at these
+    inputs. K4 reads the inputs it differentiates (compress: the parts;
+    combination: edges and reversed, not the messages), g and the weights
+    but b1, writes one cotangent per input it reads, and runs three products
+    (pre, g w1^T, d_pre w0^T); the head recomputes both layers (b1 read,
+    four products)."""
+    from metatrain_tpu_torch.ops.kernels import rowblock as rb
+
+    (_, _), (w0, _, w1, b1) = rb._split_weights(stage, weights)
+    rows_, d_part = xs[0].shape
+    s_ = xs[0].element_size()
+    w_in, w_hid = w0.shape
+    w_out = w1.shape[1]
+    flops = 2 * rows_ * (w_in * w_hid + w_hid * w_out)
+    n_w = sum(x.numel() for x in weights)
+    io_in = len(xs) * rows_ * d_part * s_
+    io_g = rows_ * w_out * s_
+    n_grads = rb._n_input_grads(stage, len(xs))
+    io_d = n_grads * rows_ * d_part * s_
+    head = stage.code == rb.HEAD_CODE
+    k4 = (2 * io_d + io_g + (n_w - (0 if head else b1.numel())) * s_,
+          2 * flops if head else 2 * rows_ * (w_in * w_hid + w_out * w_hid + w_hid * w_in))
+    return {f"rowblock_fwd[{stage.name}]": (io_in + io_g + n_w * s_, flops),
+            f"rowblock_bwd[{stage.name}]": k4,
+            f"rowblock_bwd_sm90[{stage.name}]": k4,
+            f"rowblock_bwd_dw[{stage.name}]": (io_in + io_g + io_d + n_w * (s_ + 4), 3 * flops)}
+
+
+def check_k4_sm90(stage, xs, weights, g, k_out, p_out, size):
+    """The Hopper K4's checks at one shape (bf16): relative RMS <= 2e-2 of
+    the plain version for every output, the outputs bitwise equal across
+    two launches, the general body (``sm90=False``) against the same plain
+    version; its time, the general body's and the bound of ``size``
+    (bytes, operations)."""
+    from metatrain_tpu_torch.ops.kernels import rowblock as rb
+
+    again = rb.rowblock_bwd_cuda(stage, xs, weights, g)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(k_out, again)):
+        fail(f"the Hopper K4 ({stage.name}) gave different outputs in two launches")
+    err, worst = compare(k_out, p_out, torch.bfloat16)
+    general = lambda: rb.rowblock_bwd_cuda(stage, xs, weights, g, sm90=False)  # noqa: E731
+    _, g_worst = compare(general(), p_out, torch.bfloat16)
+    bound = {}
+    record_bound(bound, "x", *size, torch.bfloat16)
+    return {"max_abs_err": err, "bound_ratio": worst, "bitwise_repeat": True,
+            "ms": cuda_ms(lambda: rb.rowblock_bwd_cuda(stage, xs, weights, g)),
+            "general_ms": cuda_ms(general), "general_bound_ratio": g_worst,
+            "bound_ms": bound["bound_ms_x"], "bound_by": bound["bound_by_x"]}
+
+
 def check_rowblock(rows, D, gen, device, report):
+    """K3, K4 and K4-dW vs their plain versions at ``rows``, both dtypes; in
+    bf16 the compress and combination backward of K4 are the Hopper K4, an
+    entry of its own (``rowblock_bwd_sm90[<stage>]``, the 2-part compress
+    under its ``shapes``), while ``rowblock_bwd[<stage>]`` keeps the general
+    body (``sm90=False``)."""
+    from metatrain_tpu_torch.ops.kernels import _lib
     from metatrain_tpu_torch.ops.kernels import rowblock as rb
 
     for stage, inputs, weights in stage_cases(rows, D, gen, device):
@@ -1003,29 +1094,24 @@ def check_rowblock(rows, D, gen, device, report):
             xs = tuple(t.to(dtype) for t in inputs)
             g = torch.randn(rows, weights[-1].shape[0], generator=gen).to(device, dtype)
             tag = "f32" if dtype == torch.float32 else "bf16"
+            sm90_name = f"rowblock_bwd_sm90[{stage.name}]"
+            before = _lib.LAUNCHES[sm90_name]
+            bwd_k = rb.rowblock_bwd_cuda(stage, xs, weights, g)
+            torch.cuda.synchronize()
+            sm90 = _lib.LAUNCHES[sm90_name] > before
+            (_, _), (w0, _, w1, _) = rb._split_weights(stage, weights)
+            if sm90 != _lib.k4_sm90_takes(dtype, stage.code, D, w0.shape[0], w0.shape[1],
+                                          w1.shape[1]):
+                fail(f"K4 {stage.name} {dtype}: the Hopper kernel ran: {sm90}, the rule says otherwise")
+            sizes = rowblock_sizes(stage, xs, weights, g)
             cases = (
                 (f"rowblock_fwd[{stage.name}]",
                  lambda: (rb.rowblock_fwd_cuda(stage, xs, weights),),
                  lambda: (stage.math(xs, weights),)),
                 (f"rowblock_bwd[{stage.name}]",
-                 lambda: rb.rowblock_bwd_cuda(stage, xs, weights, g),
+                 lambda: rb.rowblock_bwd_cuda(stage, xs, weights, g, sm90=False),
                  lambda: stage.bwd(xs, weights, g)),
             )
-            (_, _), (w0, _, w1, _) = rb._split_weights(stage, weights)
-            rows_, d_part = xs[0].shape
-            s_ = xs[0].element_size()
-            flops = 2 * rows_ * (w0.shape[0] * w0.shape[1] + w1.shape[0] * w1.shape[1])
-            n_w = sum(x.numel() for x in weights)
-            io_in = len(xs) * rows_ * d_part * s_
-            io_g = rows_ * w1.shape[1] * s_
-            n_grads = rb._n_input_grads(stage, len(xs))
-            sizes = {
-                f"rowblock_fwd[{stage.name}]": (io_in + io_g + n_w * s_, flops),
-                f"rowblock_bwd[{stage.name}]": (
-                    io_in + io_g + n_grads * rows_ * d_part * s_ + n_w * s_, 2 * flops),
-                f"rowblock_bwd_dw[{stage.name}]": (
-                    io_in + io_g + n_grads * rows_ * d_part * s_ + n_w * (s_ + 4), 3 * flops),
-            }
             for name, k_fn, p_fn in cases:
                 k_out, p_out = k_fn(), p_fn()
                 torch.cuda.synchronize()
@@ -1039,6 +1125,17 @@ def check_rowblock(rows, D, gen, device, report):
                 entry[f"bound_ratio_{tag}"] = worst
                 entry[f"ms_{tag}"] = cuda_ms(k_fn)
                 entry[f"plain_ms_{tag}"] = cuda_ms(p_fn)
+            if sm90:
+                p_out = stage.bwd(xs, weights, g)
+                sub = check_k4_sm90(stage, xs, weights, g, bwd_k, p_out, sizes[sm90_name])
+                entry = report.setdefault(sm90_name, {"library_ms": None})
+                if len(xs) < 3 and stage.name == "compress":
+                    entry.setdefault("shapes", {})[f"rows{rows}_compress2"] = sub
+                else:
+                    entry.update({f"{k}_{tag}": v for k, v in sub.items()})
+                    entry[f"plain_ms_{tag}"] = cuda_ms(lambda: stage.bwd(xs, weights, g))
+                del p_out
+            del bwd_k
             # the 2-part compress is checked too; the 3-part one's numbers stay
             dw_report = {} if len(xs) < 3 and stage.name == "compress" else report
             dw_name = f"rowblock_bwd_dw[{stage.name}]"
@@ -1050,6 +1147,36 @@ def check_rowblock(rows, D, gen, device, report):
                 lambda: stage.bwd(xs, weights, g, weight_grads=True),
                 len(xs), dw_report,
             )
+        torch.cuda.empty_cache()
+
+
+def check_k4_sm90_shapes(gen, device, report, D=128):
+    """The Hopper K4 against the plain versions beyond the served rows: A x
+    M rows at M = 48 and 16 (A = 11,000) and a row count that is not a
+    multiple of 64 (its last tile partial), all three stages it takes
+    (bf16); the checks of ``check_k4_sm90`` and the bound, under each
+    entry's ``shapes``."""
+    from metatrain_tpu_torch.ops.kernels import _lib
+    from metatrain_tpu_torch.ops.kernels import rowblock as rb
+
+    for rows in (11000 * 48, 11000 * 16, 100003):
+        for stage, inputs, weights in stage_cases(rows, D, gen, device):
+            if stage.name == "head":
+                continue
+            xs = tuple(t.to(torch.bfloat16) for t in inputs)
+            g = torch.randn(rows, weights[-1].shape[0], generator=gen).to(device, torch.bfloat16)
+            name = f"rowblock_bwd_sm90[{stage.name}]"
+            before = _lib.LAUNCHES[name]
+            k_out = rb.rowblock_bwd_cuda(stage, xs, weights, g)
+            torch.cuda.synchronize()
+            if _lib.LAUNCHES[name] != before + 1:
+                fail(f"the Hopper K4 did not take {stage.name} at {rows} rows")
+            sub = check_k4_sm90(stage, xs, weights, g, k_out, stage.bwd(xs, weights, g),
+                                rowblock_sizes(stage, xs, weights, g)[name])
+            key = f"rows{rows}_{stage.name}{len(xs) if stage.name == 'compress' else ''}"
+            report.setdefault(name, {}).setdefault("shapes", {})[key] = sub
+            del k_out
+        torch.cuda.empty_cache()
 
 
 def involution(rows, gen):
@@ -1191,14 +1318,38 @@ UNFUSED_ALT = {"fused_layers": False, "normalization": "LayerNorm", "activation"
                "num_gnn_layers": 2, "num_attention_layers": 1}
 ROWBLOCK_KERNELS = [f"rowblock_{d}[{s}]" for d in ("fwd", "bwd")
                     for s in ("compress", "combination", "head")]
-FUSED_KERNELS = ["fused_layer_fwd", "fused_layer_bwd", "permute", "permute_acc"] + ROWBLOCK_KERNELS
+# bf16 at d_pet 128: the compress and combination backward run the Hopper K4
+ROWBLOCK_SM90_KERNELS = [f"rowblock_fwd[{s}]" for s in ("compress", "combination", "head")] + [
+    "rowblock_bwd_sm90[compress]", "rowblock_bwd_sm90[combination]", "rowblock_bwd[head]"]
+FUSED_KERNELS = ["fused_layer_fwd", "fused_layer_bwd", "permute", "permute_acc"]
 # the served shape (M = 64, D = 128) in bf16 takes the Hopper K1 and K2
 FUSED_SM90_KERNELS = ["fused_layer_fwd_sm90", "fused_layer_bwd_sm90", "permute",
-                      "permute_acc"] + ROWBLOCK_KERNELS
-GNN_KERNELS = ["gnn_block_fwd", "gnn_block_bwd", "permute", "permute_acc"] + ROWBLOCK_KERNELS
+                      "permute_acc"] + ROWBLOCK_SM90_KERNELS
+GNN_KERNELS = ["gnn_block_fwd", "gnn_block_bwd", "permute", "permute_acc"] + ROWBLOCK_SM90_KERNELS
 UNFUSED_KERNELS = ["window_attention_fwd", "window_attention_bwd", "permute", "permute_acc",
-                   "rowblock_fwd[compress]", "rowblock_bwd[compress]",
+                   "rowblock_fwd[compress]", "rowblock_bwd_sm90[compress]",
                    "rowblock_fwd[head]", "rowblock_bwd[head]"]
+# the row-block backward's launches per bf16 force call (two GNN layers:
+# the 2- and the 3-part compress, one combination each, one head; the
+# residual featurizer no combination and a head per GNN layer): at d_pet
+# 128 the Hopper K4 for the compress and combination and never the general
+# body, at d_pet 256 the general body
+K4_SM90_PER_CALL = {"rowblock_bwd_sm90[compress]": 2, "rowblock_bwd_sm90[combination]": 2,
+                    "rowblock_bwd[compress]": 0, "rowblock_bwd[combination]": 0,
+                    "rowblock_bwd[head]": 1}
+K4_RESIDUAL_PER_CALL = {**K4_SM90_PER_CALL, "rowblock_bwd_sm90[combination]": 0,
+                        "rowblock_bwd[head]": 2}
+K4_D256_PER_CALL = {"rowblock_bwd_sm90[compress]": 0, "rowblock_bwd_sm90[combination]": 0,
+                    "rowblock_bwd[compress]": 2, "rowblock_bwd[combination]": 2,
+                    "rowblock_bwd[head]": 1}
+
+
+def check_k4_launches(key, report, expected):
+    """The row-block backward's launches per force call of a served path
+    (``report``'s ``launches_per_call``) equal ``expected``."""
+    got = {k: report["launches_per_call"].get(k, 0) for k in expected}
+    if got != expected:
+        fail(f"{key}: the row-block backward launched {got} per force call, expected {expected}")
 
 
 def energy_info():
@@ -1361,7 +1512,7 @@ def check_slice(device, hypers, expected, n_cells=14, steps=3, timing=True, fuse
 
 
 W8A8_KERNELS = ["fused_layer_fwd_w8a8", "fused_layer_bwd_w8a8", "permute", "permute_acc"] + \
-    ROWBLOCK_KERNELS
+    ROWBLOCK_SM90_KERNELS
 
 
 def mae_terms(res, ref, n):
@@ -1459,7 +1610,7 @@ def check_w8a8_slice(device, make, steps=3, timing=True):
 
 
 INT8_KERNELS = ["int8_absmax", "fused_layer_fwd_int8", "fused_layer_bwd_int8", "permute",
-                "permute_acc"] + ROWBLOCK_KERNELS
+                "permute_acc"] + ROWBLOCK_SM90_KERNELS
 
 
 def check_int8_slice(device, state, steps=3):
@@ -1676,21 +1827,22 @@ def training_setup(path, state, plain, device, samples, hypers=None, fused_gnn=F
 
 
 def check_training_parity(path, state, device, hypers=None, expected=(), replayed=(),
-                          fused_gnn=False, int8_scores=False):
+                          fused_gnn=False, int8_scores=False, dtype=torch.float32, absent=()):
     """One step's loss and gradients: float32 kernel path vs plain path.
     Every counter starts at 0 before the kernel path's step; the kernels
-    ``expected`` must launch in it and the ops ``replayed`` must run their
-    second-order replay. With ``int8_scores``, a bfloat16 step with the
-    dynamic int8 scores: gates of loss rel <= 2e-2 and global gradient rel
-    L2 <= 0.1 (both paths round to bf16 at their own places; the worst
-    tensor is reported)."""
+    ``expected`` must launch in it, those ``absent`` must not, and the ops
+    ``replayed`` must run their second-order replay. In bfloat16 (``dtype``,
+    always with ``int8_scores``, the dynamic int8 scores): gates of loss rel
+    <= 2e-2 and global gradient rel L2 <= 0.1 (both paths round to bf16 at
+    their own places; the worst tensor is reported)."""
     from metatrain_tpu_torch.ops.kernels import _lib
 
+    if int8_scores:
+        dtype = torch.bfloat16
     results, report = {}, {}
     for key, plain in (("kernel", False), ("plain", True)):
         model, params, loss_fn, batch, _ = training_setup(
-            path, state, plain, device, [0, 1], hypers, fused_gnn,
-            torch.bfloat16 if int8_scores else torch.float32, int8_scores)
+            path, state, plain, device, [0, 1], hypers, fused_gnn, dtype, int8_scores)
         if not plain:
             _lib.LAUNCHES.clear()
             _lib.REPLAYS.clear()
@@ -1703,6 +1855,9 @@ def check_training_parity(path, state, device, hypers=None, expected=(), replaye
             missing += [f"replay {k}" for k in replayed if _lib.REPLAYS.get(k, 0) == 0]
             if missing:
                 fail(f"not run in the training step: {missing}")
+            ran = [k for k in absent if _lib.LAUNCHES.get(k, 0)]
+            if ran:
+                fail(f"launched in the training step, expected never: {ran}")
         results[key] = (loss.detach(), [g.detach() for g in grads],
                         [n for n, p in model.named_parameters() if p.requires_grad])
         del model, params, batch
@@ -1722,9 +1877,9 @@ def check_training_parity(path, state, device, hypers=None, expected=(), replaye
                    "grad_worst_tensor": worst_name,
                    "grad_worst_tensor_rel_l2": per_tensor[worst_name]})
     finite = all(torch.isfinite(g).all() for g in gk)
-    if int8_scores:
+    if dtype == torch.bfloat16:
         if not (finite and loss_rel <= 2e-2 and global_rel <= 0.1):
-            fail(f"int8 training step, bf16 kernel vs plain: {report}")
+            fail(f"bf16 training step (int8 scores: {int8_scores}), kernel vs plain: {report}")
     elif not (loss_rel <= 1e-5 and global_rel <= 1e-4 and per_tensor[worst_name] <= 1e-3):
         fail(f"training step, f32 kernel vs plain: {report}")
     return report
@@ -1781,6 +1936,8 @@ SOURCES = {
                      "metatrain_tpu/ops/pallas/rowblock.py:113"),
     "rowblock_bwd": ("metatrain_tpu_torch/csrc/rowblock_bwd.cu",
                      "metatrain_tpu/ops/pallas/rowblock.py:279"),
+    "rowblock_bwd_sm90": ("metatrain_tpu_torch/csrc/rowblock_bwd_sm90.cu",
+                          "metatrain_tpu/ops/pallas/rowblock.py:279 (exact bf16, d_part 128)"),
     "fused_layer_bwd_dw": ("metatrain_tpu_torch/csrc/fused_layer_bwd.cu",
                            "metatrain_tpu/ops/pallas/fused_layer.py:1269 (weight_grads=True)"),
     "rowblock_bwd_dw": ("metatrain_tpu_torch/csrc/rowblock_bwd.cu",
@@ -1814,14 +1971,16 @@ SOURCES = {
                                 "(weight_grads=True, int8 scores)"),
 }
 UNFUSED_PATH = ("permute", "permute_acc", "window_attention_fwd", "window_attention_bwd")
-N_ENTRIES = 26
+N_ENTRIES = 28
 
 
 def launch_count(report, name):
     """Launches of ``name`` in the run of its path: the block's force calls
     and training step for the GNN block's kernels, the training run for the
     other weight-gradient kernels and for K1's general body (the served bf16
-    calls run the Hopper K1), the unfused force calls for the kernels
+    calls run the Hopper K1), the d_pet 256 force calls for the general K4's
+    compress and combination (the served d_pet 128 calls run the Hopper
+    K4), the unfused force calls for the kernels
     that path added, the W8A8 force calls for the W8A8 kernels, the fused
     force calls for the rest; the int8 scores' from their force calls and
     (K2-dW-int8) their training step."""
@@ -1835,6 +1994,8 @@ def launch_count(report, name):
         source = report["training_parity_gnn" if "_dw" in name else "slice_gnn"]["launches"]
     elif "_dw" in name or name == "fused_layer_fwd":
         source = report["train_launches"]
+    elif name in ("rowblock_bwd[compress]", "rowblock_bwd[combination]"):
+        source = report["slice_d256"]["launches"]
     else:
         source = report["unfused" if name in UNFUSED_PATH else "slice"]["launches"]
     if name == "fused_layer_bwd":  # the served bf16 calls run the Hopper K2
@@ -1890,6 +2051,7 @@ def main() -> int:
                    for k in ("fused_layer_fwd_sm90", "fused_layer_bwd_sm90"))):
         fail(f"the bf16 force calls launched {served['launches']}: 4 Hopper K1 and 4 Hopper K2 "
              "per call expected")
+    check_k4_launches("slice", served, K4_SM90_PER_CALL)
     A, M = report["slice"]["padded"]
     print("slice:", json.dumps({k: report["slice"][k] for k in ("padded", "launches", "parity")}
                                | {"neighbor_backends": report["neighbor_backends"]}), flush=True)
@@ -1906,6 +2068,7 @@ def main() -> int:
                                           "fused_layer_bwd_sm90")) or not (
             per_call["gnn_block_fwd"] == per_call["gnn_block_bwd"] == 2):
         fail(f"the block's force call launched {gnn['launches']}")
+    check_k4_launches("slice_gnn", gnn, K4_SM90_PER_CALL)
     print("GNN block slice:", json.dumps({k: gnn[k] for k in ("padded", "launches", "parity")}),
           flush=True)
     print(f"GNN block force call ({card}):", json.dumps(gnn["timing"]), flush=True)
@@ -1915,6 +2078,8 @@ def main() -> int:
     for key, hypers, kwargs in (("unfused", UNFUSED, {}),
                                 ("unfused_alt", UNFUSED_ALT, {"steps": 2, "timing": False})):
         report[key] = check_slice(device, hypers, UNFUSED_KERNELS, **kwargs)
+        check_k4_launches(key, report[key],
+                          K4_SM90_PER_CALL if key == "unfused" else K4_RESIDUAL_PER_CALL)
         print(f"{key} slice:", json.dumps({k: report[key][k] for k in ("padded", "launches",
                                                                         "parity")}), flush=True)
         torch.cuda.empty_cache()
@@ -1929,6 +2094,7 @@ def main() -> int:
     report["slice_w8a8"] = check_w8a8_slice(
         device, lambda dtype, plain, int8: make_pet(dtype, plain, state, device, int8_static=int8))
     w8 = report["slice_w8a8"]
+    check_k4_launches("slice_w8a8", w8, K4_SM90_PER_CALL)
     print("W8A8 slice:", json.dumps({k: w8[k] for k in ("padded", "launches", "parity")}),
           flush=True)
     print(f"W8A8 force call ({card}):", json.dumps(w8["timing"]), flush=True)
@@ -1937,8 +2103,11 @@ def main() -> int:
 
     # windows above 64 slots: a 5.5 A cutoff on the crystal (78 neighbours
     # within 6.0 A); then d_pet 256 (8 heads of 32); kernel paths timed
-    for key, hypers in (("slice_m96", M96), ("slice_d256", D256)):
-        report[key] = check_slice(device, hypers, FUSED_KERNELS, steps=2, time_plain=False)
+    for key, hypers, rowblocks, k4 in (("slice_m96", M96, ROWBLOCK_SM90_KERNELS, K4_SM90_PER_CALL),
+                                       ("slice_d256", D256, ROWBLOCK_KERNELS, K4_D256_PER_CALL)):
+        report[key] = check_slice(device, hypers, FUSED_KERNELS + rowblocks, steps=2,
+                                  time_plain=False)
+        check_k4_launches(key, report[key], k4)
         M_served = report[key]["padded"][1]
         if key == "slice_m96" and M_served < 80:
             fail(f"the 5.5 A cutoff served M = {M_served}, expected at least 80")
@@ -1951,6 +2120,7 @@ def main() -> int:
     # K1 and K2, four launches each per force call
     report["slice_int8"] = check_int8_slice(device, state)
     i8 = report["slice_int8"]
+    check_k4_launches("slice_int8", i8, K4_SM90_PER_CALL)
     print("int8 slice:", json.dumps({k: i8[k] for k in ("padded", "launches", "parity")}),
           flush=True)
     print(f"int8 force call ({card}):", json.dumps(i8["timing"]), flush=True)
@@ -1971,6 +2141,7 @@ def main() -> int:
             device, lambda dtype, plain, int8: pet_from_checkpoint(
                 ckpt, compute_dtype=dtype, device=device, plain=plain, int8_static=int8),
             steps=1, timing=False)
+        check_k4_launches("w8a8_trained", report["w8a8_trained"], K4_SM90_PER_CALL)
         print("W8A8 at the trained weights:", json.dumps(report["w8a8_trained"]["parity"]),
               flush=True)
         torch.cuda.empty_cache()
@@ -1993,6 +2164,17 @@ def main() -> int:
             replayed=("fused_layer",), int8_scores=True)
         print("training step, int8 scores (bf16):", json.dumps(report["training_parity_int8"]),
               flush=True)
+        # the exact bf16 step: a weight requires grad, so the general K1
+        # (P float, as K2-dW and the replay keep it) and never the Hopper
+        # kernels, K4-dW for the row blocks
+        report["training_parity_bf16"] = check_training_parity(
+            workdir / "cu_lj.xyz", state, device,
+            expected=("fused_layer_fwd", "fused_layer_bwd_dw", "rowblock_bwd_dw[compress]",
+                      "rowblock_bwd_dw[combination]"),
+            replayed=("fused_layer",), dtype=torch.bfloat16,
+            absent=("fused_layer_fwd_sm90", "fused_layer_bwd_sm90", "rowblock_bwd_sm90[compress]",
+                    "rowblock_bwd_sm90[combination]"))
+        print("training step, exact bf16:", json.dumps(report["training_parity_bf16"]), flush=True)
         torch.cuda.empty_cache()
         time_training(workdir, state, device, report)
         print(f"training step ({card}):", json.dumps(report["training_timing"]), flush=True)
@@ -2018,6 +2200,16 @@ def main() -> int:
     print("GNN block variants (max abs error, bound ratio):",
           json.dumps(report["gnn_block_variants"]), flush=True)
     check_rowblock(A * M, D, gen, device, kernels)
+    check_k4_sm90_shapes(gen, device, kernels, D)
+    if build_log.exists():  # the instantiations per stage (mangled names)
+        for name, kernel in (("rowblock_bwd_sm90[compress]", "k4_sm90_kernelILi0E"),
+                             ("rowblock_bwd_sm90[combination]", "k4_sm90_kernelILi1E")):
+            kernels[name]["ptxas_bf16"] = ptxas_usage(build_log.read_text(), kernel)
+    for name in ("rowblock_bwd_sm90[compress]", "rowblock_bwd_sm90[combination]"):
+        print(f"Hopper K4 {name} (general body's ms beside):", json.dumps(
+            {k: kernels[name].get(k) for k in (
+                "ms_bf16", "general_ms_bf16", "bound_ms_bf16", "bound_ratio_bf16", "ptxas_bf16",
+                "shapes")}), flush=True)
     check_permute(A_u * M_u, D, gen, device, kernels)
     check_attention(A_u, M_u + 1, D, H, gen, device, kernels)
     check_w8a8_layer(A, M, D, H, F, gen, device, kernels)
@@ -2056,7 +2248,7 @@ def main() -> int:
             out[f"library_ms{suffix}"] = entry.get(f"library_ms_{tag}", entry.get("library_ms"))
             if f"per_layer_ms_{tag}" in entry:
                 out[f"per_layer_ms{suffix}"] = entry[f"per_layer_ms_{tag}"]
-            if f"general_ms_{tag}" in entry:  # the Hopper K2's general body
+            if f"general_ms_{tag}" in entry:  # the Hopper kernels' general bodies
                 out[f"general_ms{suffix}"] = entry[f"general_ms_{tag}"]
         if "shapes" in entry:
             out["shapes"] = entry["shapes"]

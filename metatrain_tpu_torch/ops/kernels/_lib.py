@@ -43,6 +43,7 @@ SOURCES = (
     "fused_layer_bwd_sm90.cu",
     "rowblock_fwd.cu",
     "rowblock_bwd.cu",
+    "rowblock_bwd_sm90.cu",
     "permute.cu",
     "window_attention_fwd.cu",
     "window_attention_bwd.cu",
@@ -79,6 +80,7 @@ _SIGNATURES = {
     "mtt_int8_absmax": [_P] * 6 + [_L, _I, _I, _I, _F, _P],
     "mtt_rowblock_fwd": [_I, _I, _P, _P, _P, _I] + [_P] * 7 + [_L, _I, _I, _I, _I, _P],
     "mtt_rowblock_bwd": [_I, _I, _P, _P, _P, _I] + [_P] * 13 + [_I, _P] + [_L, _I, _I, _I, _I, _P],
+    "mtt_rowblock_bwd_sm90": [_I, _P, _P, _P, _I] + [_P] * 10 + [_L, _I, _I, _I, _I, _I, _P],
     "mtt_permute": [_I, _P, _P, _P, _P, _L, _I, _P],
     "mtt_window_attention_fwd": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _L, _I, _I, _I, _F, _P],
     "mtt_window_attention_bwd": [_I] + [_P] * 4 + [_I] * 4 + [_P] * 5 + [_L, _I, _I, _I, _F, _P],
@@ -96,6 +98,8 @@ _SIGNATURES = {
     "mtt_fused_layer_bwd_sm90_ok": [_I] * 4,
     "mtt_rowblock_fwd_smem": [_I, _I, _IP],
     "mtt_rowblock_bwd_smem": [_I, _I, _I, _I, _I, _IP],
+    "mtt_rowblock_bwd_sm90_ok": [_I] * 5,
+    "mtt_rowblock_bwd_sm90_smem": [_I] * 5,
     "mtt_window_attention_fwd_smem": [_I, _I, _I, _I],
     "mtt_window_attention_bwd_smem": [_I, _I, _I, _I],
     "mtt_gnn_block_fwd_smem": [_I] * 4 + [_LP],
@@ -266,10 +270,15 @@ def sm90_shape(M: int, D: int, H: int, F: int) -> bool:
 
 
 def k1_sm90_takes(dtype: torch.dtype, M: int, D: int, H: int, F: int, w8a8: bool = False,
-                  int8: bool = False) -> bool:
+                  int8: bool = False, weight_grads: bool = False) -> bool:
     """Whether ``fused_layer_fwd_cuda`` launches the Hopper K1: the exact
-    bfloat16 variant at the shapes of :func:`sm90_shape`."""
-    return dtype == torch.bfloat16 and not (w8a8 or int8) and sm90_shape(M, D, H, F)
+    bfloat16 variant at the shapes of :func:`sm90_shape`, where no weight
+    requires grad. It rounds the softmax weights P to bf16 as the Hopper K2
+    does; with ``weight_grads`` the backward is K2-dW's general body and
+    the replay, which keep P float, so the forward is the general K1 too
+    and the energy and its gradient come from one function."""
+    return (dtype == torch.bfloat16 and not (w8a8 or int8 or weight_grads)
+            and sm90_shape(M, D, H, F))
 
 
 def k1_sm90_smem(M: int, D: int, H: int, F: int) -> int:
@@ -311,6 +320,46 @@ def k2_sm90_smem(M: int, D: int, H: int, F: int) -> int:
     ring = 3 * 128 * 64 * 2
     stats = 3 * rows + 3 * heads * rows + heads * 4 * rows + 4 * rows
     return tiles + ring + 4 * stats
+
+
+# ---- the Hopper K4 (csrc/rowblock_bwd_sm90.cu) -------------------------------
+
+def k4_sm90_shape(stage: int, d_part: int, w_in: int, w_hid: int, w_out: int) -> bool:
+    """The stages and widths the Hopper K4 takes (its C query
+    ``mtt_rowblock_bwd_sm90_ok``): d_part = w_out = 128; the compress
+    (stage 0) with 2 or 3 parts and w_hid 128; the combination (stage 1)
+    with w_in = w_hid = 256."""
+    if d_part != 128 or w_out != 128:
+        return False
+    if stage == 0:
+        return w_in in (2 * d_part, 3 * d_part) and w_hid == d_part
+    if stage == 1:
+        return w_in == 2 * d_part and w_hid == 2 * d_part
+    return False
+
+
+def k4_sm90_takes(dtype: torch.dtype, stage: int, d_part: int, w_in: int, w_hid: int, w_out: int,
+                  weight_grads: bool = False) -> bool:
+    """Whether ``rowblock_bwd_cuda`` launches the Hopper K4: bfloat16, no
+    weight gradients, a stage and widths of :func:`k4_sm90_shape`."""
+    return (dtype == torch.bfloat16 and not weight_grads
+            and k4_sm90_shape(stage, d_part, w_in, w_hid, w_out))
+
+
+def k4_sm90_smem(stage: int, d_part: int, w_in: int, w_hid: int, w_out: int) -> int:
+    """``mtt_rowblock_bwd_sm90_smem``: its shared bytes per block, 0 where
+    it does not take the stage. The C source's layout: three weight chunks
+    of 128 x 64 bf16, two input tiles (bf16 rows of w_in + 8), two g tiles
+    (rows of 136), the d_pre tile (rows of w_hid + 8); the combination also
+    the xn tile and 6 x 64 floats (mean, rs, row-sum scratch)."""
+    if not k4_sm90_shape(stage, d_part, w_in, w_hid, w_out):
+        return 0
+    rows = 64
+    nbytes = 3 * 128 * 64 * 2 + 2 * rows * (w_in + 8) * 2 + 2 * rows * (d_part + 8) * 2
+    nbytes += rows * (w_hid + 8) * 2
+    if stage == 1:
+        nbytes += rows * (w_in + 8) * 2 + 6 * rows * 4
+    return nbytes
 
 
 def center_fwd_floats(N: int, D: int) -> int:

@@ -17,7 +17,8 @@ attention output of slot M-1.
 - :func:`fused_transformer_layer` is the ``autograd.Function`` entry: a
   tensor on the CPU runs the plain versions; a CUDA tensor launches K1
   (``csrc/fused_layer_fwd.cu``; the exact bfloat16 one at the served
-  shapes ``csrc/fused_layer_fwd_sm90.cu``) and, for its gradient, K2
+  shapes, where no weight requires grad, ``csrc/fused_layer_fwd_sm90.cu``)
+  and, for its gradient, K2
   (``csrc/fused_layer_bwd.cu``; likewise ``csrc/fused_layer_bwd_sm90.cu``):
   the input-gradient variant, or the
   weight-gradient variant K2-dW when a weight requires grad. The backward
@@ -639,7 +640,7 @@ def int8_scales_for(edges, center, w: LayerWeights, plain: bool = False):
 
 
 def fused_layer_fwd_cuda(edges, center, cf, w: LayerWeights, num_heads, scale, w8a8=None,
-                         int8_scales=None, *, sm90: bool = True):
+                         int8_scales=None, *, sm90: bool = True, weight_grads: bool = False):
     """Launch K1. ``edges``/``center`` float32 or bfloat16, ``cf`` float32.
 
     The exact bfloat16 variant at the shapes of :func:`_lib.k1_sm90_takes`
@@ -647,6 +648,8 @@ def fused_layer_fwd_cuda(edges, center, cf, w: LayerWeights, num_heads, scale, w
     counter ``fused_layer_fwd_sm90``), which rounds the softmax weights to
     bfloat16 before P V as the Hopper K2's recompute and the JAX package
     do; ``sm90=False`` keeps the general body there too, for comparisons.
+    ``weight_grads`` (a weight requires grad, so the backward is K2-dW and
+    the replay, which keep P float) keeps the general body as well.
 
     With ``w8a8`` (``(Int8Calib, quantize_layer_weights(...))``, int8
     weights on the device) launch K1-W8A8 instead: bfloat16 only. With
@@ -666,7 +669,7 @@ def fused_layer_fwd_cuda(edges, center, cf, w: LayerWeights, num_heads, scale, w
     _lib.require({"edges": edges, "center": center, **wc._asdict()}, edges.device, cd)
     _lib.require({"cf": cf}, edges.device, torch.float32)
     if sm90 and _lib.k1_sm90_takes(cd, M, D, num_heads, F, w8a8 is not None,
-                                   int8_scales is not None):
+                                   int8_scales is not None, weight_grads):
         return _k1_sm90(edges, center, cf, wc, num_heads, scale)
     lib = _lib.library()
     _, ws_floats = _lib.plan_query(lib.mtt_fused_layer_fwd_smem, M, D, F)
@@ -959,6 +962,16 @@ class _FusedLayerBwd(torch.autograd.Function):
         return (*d_inputs, None, None, None, None, None, *d_w)
 
 
+def _first_forward(edges, center, cf, w, num_heads, scale, int8_scales, weight_grads):
+    """K1 on the card, :func:`layer_math` on the CPU. ``weight_grads``: a
+    weight requires grad, so the backward will be K2-dW and the replay;
+    the Hopper K1, which rounds P where they do not, is then not taken."""
+    if edges.is_cuda:
+        return fused_layer_fwd_cuda(edges, center, cf, w, num_heads, scale,
+                                    int8_scales=int8_scales, weight_grads=weight_grads)
+    return layer_math(edges, center, cf, w, num_heads, scale, int8_scales=int8_scales)
+
+
 class _FusedLayer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, edges, center, cf, num_heads, scale, chunk, int8_scores, *weights):
@@ -968,10 +981,9 @@ class _FusedLayer(torch.autograd.Function):
         int8_scales = int8_scales_for(edges, center, w) if int8_scores else None
         ctx.save_for_backward(edges, center, cf, int8_scales, *weights)
         ctx.num_heads, ctx.scale, ctx.chunk = num_heads, scale, chunk
-        if edges.is_cuda:
-            return fused_layer_fwd_cuda(edges, center, cf, w, num_heads, scale,
-                                        int8_scales=int8_scales)
-        return layer_math(edges, center, cf, w, num_heads, scale, int8_scales=int8_scales)
+        # the test backward makes for the weight gradients
+        return _first_forward(edges, center, cf, w, num_heads, scale, int8_scales,
+                              any(ctx.needs_input_grad[7:]))
 
     @staticmethod
     def backward(ctx, g_edge, g_center):

@@ -10,7 +10,10 @@ summed over rows, only with ``weight_grads=True``). :func:`rowblock` runs
 a stage with its hand-written backward: on the CPU through those plain
 versions, on the card through K3 (``csrc/rowblock_fwd.cu``) and K4
 (``csrc/rowblock_bwd.cu``), one templated kernel instantiated per stage;
-K4-dW, its weight-gradient variant, runs when a weight requires grad.
+K4-dW, its weight-gradient variant, runs when a weight requires grad. The
+bfloat16 compress and combination backward at d_part 128 (every served
+bf16 call's) runs the Hopper K4 (``csrc/rowblock_bwd_sm90.cu``,
+``_lib.k4_sm90_takes``).
 The backward is differentiable again (training with forces): its
 gradient replays ``stage.bwd`` under autograd, as the JAX package's
 ``bwd_op_bwd`` differentiates ``_bwd_math_reference``.
@@ -110,9 +113,13 @@ def rowblock_fwd_cuda(stage: Stage, inputs: Sequence[torch.Tensor], weights):
 
 
 def rowblock_bwd_cuda(stage: Stage, inputs: Sequence[torch.Tensor], weights, g,
-                      weight_grads: bool = False):
+                      weight_grads: bool = False, *, sm90: bool = True):
     """Launch K4 for ``stage``: returns the input cotangents (for the
-    combination, the messages' cotangent is ``g`` itself). With
+    combination, the messages' cotangent is ``g`` itself). In bfloat16
+    without weight gradients the compress and combination stages at the
+    widths of :func:`_lib.k4_sm90_takes` (d_part 128) launch the Hopper K4
+    (``csrc/rowblock_bwd_sm90.cu``, counter ``rowblock_bwd_sm90[<stage>]``);
+    ``sm90=False`` keeps the general body there too, for comparisons. With
     ``weight_grads=True`` launch K4-dW, which also returns the float32
     weight gradients summed over rows, in the order of ``weights``: one
     block per SM over a contiguous range of 64-row tiles, each block
@@ -124,6 +131,9 @@ def rowblock_bwd_cuda(stage: Stage, inputs: Sequence[torch.Tensor], weights, g,
     _lib.require({"g": g}, g.device, inputs[0].dtype)
     if g.shape != (rows, w_out):
         raise ValueError(f"cotangent {tuple(g.shape)} != output {(rows, w_out)}")
+    if sm90 and _lib.k4_sm90_takes(inputs[0].dtype, stage.code, d_part, w_in, w_hid, w_out,
+                                   weight_grads):
+        return _k4_sm90(stage, inputs, (ln_s, ln_b, w0, b0, w1), g, geometry)
     name = f"rowblock_bwd{'_dw' if weight_grads else ''}[{stage.name}]"
     lib = _lib.library()
     tile = ctypes.c_int(0)
@@ -157,6 +167,38 @@ def rowblock_bwd_cuda(stage: Stage, inputs: Sequence[torch.Tensor], weights, g,
     if weight_grads:
         d.extend(p.view(s) for p, s in zip(torch.split(dw, sizes), shapes))
     return tuple(d)
+
+
+def _k4_sm90(stage: Stage, inputs, weights, g, geometry):
+    """The Hopper K4 on checked bfloat16 tensors (``weights`` = ln_scale,
+    ln_bias, w0, b0, w1 in the compute dtype; ln_scale and ln_bias None
+    but for the combination): one persistent block per SM, no scratch. Its
+    weights go in as w0^T (the forward product), w1 and w0 (the backward
+    ones)."""
+    rows, d_part, w_in, w_hid, w_out = geometry
+    ln_s, ln_b, w0, b0, w1 = weights
+    name = f"rowblock_bwd_sm90[{stage.name}]"
+    n_grads = _n_input_grads(stage, len(inputs))
+    d = [torch.empty_like(inputs[i]) for i in range(n_grads)]
+    if rows == 0:
+        return (*d, g) if stage.code == COMBINATION_CODE else tuple(d)
+    if any(x.data_ptr() % 16 for x in (*inputs[:n_grads], g)):
+        raise ValueError(f"{name} copies rows in 16-byte pieces: its inputs must start on 16 bytes")
+    lib = _lib.library()
+    _lib.check_shared(lib.mtt_rowblock_bwd_sm90_smem(stage.code, d_part, w_in, w_hid, w_out), name)
+    w0_t = w0.t().contiguous()  # held here until the launch
+    _lib.check(
+        lib.mtt_rowblock_bwd_sm90(
+            stage.code, *(x.data_ptr() for x in inputs[:n_grads]), *[None] * (3 - n_grads),
+            len(inputs), *(_lib.ptr(x) for x in (ln_s, ln_b, w0, b0, w1)), w0_t.data_ptr(),
+            g.data_ptr(), *(x.data_ptr() for x in d), *[None] * (3 - n_grads),
+            rows, d_part, w_in, w_hid, w_out, _lib.dw_blocks(-(-rows // 64), g.device),
+            _lib.stream_ptr(g.device),
+        ),
+        name,
+    )
+    _lib.LAUNCHES[name] += 1
+    return (*d, g) if stage.code == COMBINATION_CODE else tuple(d)
 
 
 def _n_input_grads(stage: Stage, n_inputs: int) -> int:

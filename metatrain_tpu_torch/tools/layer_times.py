@@ -1,4 +1,5 @@
-"""CUDA-event times of the fused-layer kernels K1, K2 and K2-dW at one shape.
+"""CUDA-event times of the fused-layer kernels K1, K2 and K2-dW at one shape,
+and of K4's bf16 compress and combination backward at A x M rows.
 
 Usage, on a machine with a CUDA device::
 
@@ -15,10 +16,13 @@ after one warm-up launch. Where the tree has the Hopper K2
 (``fused_layer_bwd_cuda(..., sm90=)``), ``fused_layer_bwd_ms_bf16`` is
 its time at shapes it takes and ``fused_layer_bwd_general_ms_bf16`` the
 general body's; likewise ``fused_layer_fwd_ms_bf16`` and
-``fused_layer_fwd_general_ms_bf16`` where it has the Hopper K1. Under
-``digests``, a SHA-256 prefix of each output's bytes per kernel and dtype,
-from the first launch: two trees whose digests agree computed the same
-bits.
+``fused_layer_fwd_general_ms_bf16`` where it has the Hopper K1. Then K4
+(``rowblock_bwd_cuda``) in bfloat16 at A x M rows for the 3-part and the
+2-part compress and the combination (``rowblock_bwd[<stage>]_ms_bf16``:
+the Hopper K4 where the tree has it, ``rowblock_bwd_cuda(..., sm90=)``;
+``..._general_ms_bf16`` its general body there). Under ``digests``, a
+SHA-256 prefix of each output's bytes per kernel and dtype, from the first
+launch: two trees whose digests agree computed the same bits.
 """
 
 from __future__ import annotations
@@ -109,6 +113,32 @@ def main() -> int:
             digests[f"{name}_{tag}"] = digest(fn())
             times[f"{name}_ms_{tag}"] = cuda_ms(fn)
         del e, c, ge, gc
+        torch.cuda.empty_cache()
+    # K4's bf16 compress and combination at the row-block stages' rows
+    from metatrain_tpu_torch.models.pet.fused_stages import COMBINATION, COMPRESS
+    from metatrain_tpu_torch.ops.kernels import rowblock as rb
+
+    rows, bf = A * M, torch.bfloat16
+    has_k4_sm90 = "sm90" in inspect.signature(rb.rowblock_bwd_cuda).parameters
+
+    def vec(n, base=0.0):
+        return (base + 0.1 * torch.randn(n, generator=gen)).to(dev)
+
+    for key, stage, n_parts in (("compress3", COMPRESS, 3), ("compress2", COMPRESS, 2),
+                                ("combination", COMBINATION, 3)):
+        xs = tuple(torch.randn(rows, D, generator=gen).to(dev, bf) for _ in range(n_parts))
+        if stage is COMPRESS:
+            weights = (lecun(n_parts * D, D).to(dev), vec(D), lecun(D, D).to(dev), vec(D))
+        else:
+            weights = (vec(2 * D, 1.0), vec(2 * D), lecun(2 * D, 2 * D).to(dev), vec(2 * D),
+                       lecun(2 * D, D).to(dev), vec(D))
+        g = torch.randn(rows, D, generator=gen).to(dev, bf)
+        variants = [("", {})] + ([("_general", {"sm90": False})] if has_k4_sm90 else [])
+        for suffix, kw in variants:
+            fn = lambda: rb.rowblock_bwd_cuda(stage, xs, weights, g, **kw)  # noqa: E731
+            digests[f"rowblock_bwd[{key}]{suffix}_bf16"] = digest(fn())
+            times[f"rowblock_bwd[{key}]{suffix}_ms_bf16"] = cuda_ms(fn)
+        del xs, g
         torch.cuda.empty_cache()
     print(json.dumps({"card": card, "root": args.root, "shape": [A, M, D, H, F], **times,
                       "digests": digests}))

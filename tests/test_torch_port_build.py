@@ -130,12 +130,14 @@ def test_includes_follows_headers(tree):
 
 
 def test_kernel_library_builds_every_cuda_source():
-    """Every ``csrc/*.cu`` is a unit of the kernel library, the Hopper K1's
-    and K2's among them, and each unit's headers are found in ``csrc``."""
+    """Every ``csrc/*.cu`` is a unit of the kernel library, the Hopper K1's,
+    K2's and K4's among them, and each unit's headers are found in
+    ``csrc``: an edit of ``layer_sm90.cuh`` recompiles all three."""
     assert sorted(_lib.SOURCES) == sorted(p.name for p in _lib.CSRC.glob("*.cu"))
-    for unit in ("fused_layer_fwd_sm90.cu", "fused_layer_bwd_sm90.cu"):
+    for unit in ("fused_layer_fwd_sm90.cu", "fused_layer_bwd_sm90.cu", "rowblock_bwd_sm90.cu"):
         assert unit in _lib.SOURCES
         deps = {p.name for p in _build.includes(_lib.CSRC / unit)}
         assert deps == {unit, "layer_sm90.cuh", "common.cuh"}
-    deps = {p.name for p in _build.includes(_lib.CSRC / "fused_layer_bwd.cu")}
-    assert "layer_sm90.cuh" not in deps and "layer_bwd.cuh" in deps
+    for unit, body in (("fused_layer_bwd.cu", "layer_bwd.cuh"), ("rowblock_bwd.cu", None)):
+        deps = {p.name for p in _build.includes(_lib.CSRC / unit)}
+        assert "layer_sm90.cuh" not in deps and (body is None or body in deps)
