@@ -13,9 +13,10 @@ device and exits non-zero without one. Phases (any failure propagates):
    before those calls, and every kernel of the path (the Hopper K1 of
    ``csrc/fused_layer_fwd_sm90.cu`` and the Hopper K2 of
    ``csrc/fused_layer_bwd_sm90.cu`` 4 times per call each and the general
-   K1 and K2 never, K3, the Hopper K4 of ``csrc/rowblock_bwd_sm90.cu`` for
-   the compress and combination backward 2 times per call each and the
-   general K4 for them never, the general K4 for the head once per call, the
+   K1 and K2 never, the Hopper K3 of ``csrc/rowblock_fwd_sm90.cu`` and the
+   Hopper K4 of ``csrc/rowblock_bwd_sm90.cu`` for the compress and
+   combination 2 times per call each and the general K3 and K4 for them
+   never, the general K3 and K4 for the head once per call each, the
    permute and the accumulate permute) must have launched in them; the pair
    searches must have run in the native neighbor library. Energy, forces
    and virial must be finite; the bf16 kernel path must match the f32
@@ -31,17 +32,18 @@ device and exits non-zero without one. Phases (any failure propagates):
 4. unfused slice: the same for PET with ``fused_layers: false`` (the
    layout of a v1 checkpoint at the default widths): the window attention
    forward and backward, both permutes and the row-block stages must
-   launch, the row-block backward as on the fused path; then, with the same
+   launch, the row-block kernels as on the fused path; then, with the same
    gates and no timing, LayerNorm / SiLU / PostLN layers with the residual
-   featurizer (2 GNN layers of 1 attention layer: the Hopper K4 for the
-   compress 2 times per call, no combination, the head twice).
+   featurizer (2 GNN layers of 1 attention layer: the Hopper K3 and K4 for
+   the compress 2 times per call each, no combination, the head twice).
 4b. W8A8 slice: the fused model of phase 3 built with
    ``int8_static=True`` in bfloat16, ``calibrate_int8`` on the crystal's
    served batch (the calibration carried to the W8A8 plain model with
    ``int8_calib_from_jax(int8_calib_to_jax(...))``), then the same served
    calls: every counter starts at 0 just before them; K1-W8A8 and K2-W8A8
    must launch 4 times per call each (2 GNN x 2 layers) and K1/K2 never,
-   K3, K4 (the Hopper K4 included) and both permutes as on the fused path.
+   K3, K4 (the Hopper K3 and K4 included) and both permutes as on the
+   fused path.
    Gates: finite outputs;
    W8A8 kernel path vs W8A8 plain path (both bf16) energy rel <= 1 %,
    force rel-RMSE <= 5 %; the W8A8 forces differ from the exact bf16 kernel
@@ -54,8 +56,9 @@ device and exits non-zero without one. Phases (any failure propagates):
    cutoff (the calculator's buckets give M = 96 on the crystal; any M >= 80
    passes, a smaller one fails) and with d_pet 256, d_ff 512, 8 heads of 32,
    each served as phase 3 (its launches and gates, 2 steps; the general K1
-   and K2 bodies; at M = 96 the Hopper K4, at d_pet 256 the general K4 for
-   the compress and combination, 2 per call each), the kernel paths timed.
+   and K2 bodies; at M = 96 the Hopper K3 and K4, at d_pet 256 the general
+   K3 and K4 for the compress and combination, 2 per call each), the kernel
+   paths timed.
 4d. int8 scores: the fused model built with ``int8_scores=True`` in
    bfloat16: every counter starts at 0 just before its served calls; the
    absmax pass, K1-int8 and K2-int8 must launch 4 times per call each and
@@ -90,7 +93,7 @@ device and exits non-zero without one. Phases (any failure propagates):
    global gradient rel L2 <= 0.1, finite gradients. Then one exact bfloat16
    step (the trained model), kernel vs plain path, with the same gates: a
    weight requires grad, so the general K1, K2-dW and K4-dW must launch and
-   the Hopper K1, K2 and K4 never.
+   the Hopper K1, K2, K3 and K4 never.
 7. training timing: ms per step and atom-steps/s (host clock around
    synchronised steps after a warm-up step) with the peak device memory,
    for the kernel, plain and GNN-block paths on the 2 x 2,048-atom batch
@@ -138,9 +141,15 @@ device and exits non-zero without one. Phases (any failure propagates):
    ``shapes``. ``rowblock_bwd[<stage>]`` keeps the general body in bf16
    (``sm90=False``), its launches the d_pet 256 calls'. K4's bound counts
    the inputs it reads (not the combination's messages), g, its outputs and
-   its three products.
+   its three products. K3's compress and combination in bf16 are the
+   Hopper K3, entries of their own (``rowblock_fwd_sm90[<stage>]``) with
+   the same checks, and whether the output equals the general body's bit
+   for bit (reported, not gated); the same for the 2-part compress and at
+   A x M rows for M = 64, 48 and 16 (A = 11,000) and at 100,003 rows under
+   ``shapes``. ``rowblock_fwd[<stage>]`` keeps the general body in bf16
+   (``sm90=False``), its launches the d_pet 256 calls'.
 9. shapes: the C side's layout plans (shared bytes, workspace floats, row
-   tiles) and the Hopper K1's, K2's and K4's dispatch rules and budgets equal
+   tiles) and the Hopper K1's, K2's, K3's and K4's dispatch rules and budgets equal
    ``_lib``'s Python ones for M = 16..256 and D of 64 to 256;
    K1, K2, K2-dW, the block's three kernels and, in bf16, K1-W8A8 and
    K2-W8A8 vs plain at M = 80, 96, 128 (D 128) and M = 64, 128 (D 256), A =
@@ -148,7 +157,7 @@ device and exits non-zero without one. Phases (any failure propagates):
    W8A8) at head widths 8, 12, 24 and 64; the bounds of phase 8, times under
    each entry's ``shapes``.
 
-The second-to-last line is a JSON object with one entry per kernel (28);
+The second-to-last line is a JSON object with one entry per kernel (30);
 the last line is ``{"ok": true, "device": {...}}``. Details also go to
 ``chiprun_out/chip_smoke.json``, the compiler's ``-Xptxas -v`` output to
 ``chiprun_out/chip_smoke_build.log``.
@@ -657,20 +666,26 @@ def plan_table():
                 if tuple(c_side) != tuple(py_side):
                     fail(f"layout plan at M={M}, D={D}: C {c_side} != Python {py_side}")
                 checked += 1
-        # the Hopper K4's dispatch rule and budget, C vs Python, for every
-        # stage at d_part D, w_in of 1-4 parts, w_hid D or 2D, w_out D or 128
+        # the Hopper K3's and K4's dispatch rules and budgets, C vs Python,
+        # for every stage at d_part D, w_in of 1-4 parts, w_hid D or 2D,
+        # w_out D or 128
+        hopper_rowblocks = (
+            ("K3", lib.mtt_rowblock_fwd_sm90_ok, lib.mtt_rowblock_fwd_sm90_smem,
+             _lib.k3_sm90_takes, _lib.k3_sm90_smem),
+            ("K4", lib.mtt_rowblock_bwd_sm90_ok, lib.mtt_rowblock_bwd_sm90_smem,
+             _lib.k4_sm90_takes, _lib.k4_sm90_smem))
         for stage in (0, 1, 2):
             for w_in in range(D, 4 * D + 1, D):
                 for w_hid in (D, 2 * D):
                     for w_out in sorted({D, 128}):
-                        c_side = (bool(lib.mtt_rowblock_bwd_sm90_ok(stage, D, w_in, w_hid, w_out)),
-                                  lib.mtt_rowblock_bwd_sm90_smem(stage, D, w_in, w_hid, w_out))
-                        py_side = (_lib.k4_sm90_takes(torch.bfloat16, stage, D, w_in, w_hid, w_out),
-                                   _lib.k4_sm90_smem(stage, D, w_in, w_hid, w_out))
-                        if c_side != py_side:
-                            fail(f"Hopper K4 rule at stage {stage}, D={D}, {w_in}/{w_hid}/{w_out}: "
-                                 f"C {c_side} != Python {py_side}")
-                        checked += 1
+                        for kernel, c_ok, c_smem, py_takes, py_smem in hopper_rowblocks:
+                            widths = (stage, D, w_in, w_hid, w_out)
+                            c_side = (bool(c_ok(*widths)), c_smem(*widths))
+                            py_side = (py_takes(torch.bfloat16, *widths), py_smem(*widths))
+                            if c_side != py_side:
+                                fail(f"Hopper {kernel} rule at stage {stage}, D={D}, "
+                                     f"{w_in}/{w_hid}/{w_out}: C {c_side} != Python {py_side}")
+                            checked += 1
         for stage, w_in, w_hid, w_out in ((0, 3 * D, D, D), (1, 2 * D, 2 * D, D), (2, D, D, D)):
             rows = ctypes.c_int(0)
             nbytes = lib.mtt_rowblock_fwd_smem(w_in, w_hid, ctypes.byref(rows))
@@ -1029,8 +1044,9 @@ def stage_cases(rows, D, gen, device):
 
 
 def rowblock_sizes(stage, xs, weights, g):
-    """(bytes, operations) of K3, K4 (and the Hopper K4) and K4-dW at these
-    inputs. K4 reads the inputs it differentiates (compress: the parts;
+    """(bytes, operations) of K3 (and the Hopper K3), K4 (and the Hopper K4)
+    and K4-dW at these inputs. K3 reads every input and writes the output,
+    and runs the stage's two products. K4 reads the inputs it differentiates (compress: the parts;
     combination: edges and reversed, not the messages), g and the weights
     but b1, writes one cotangent per input it reads, and runs three products
     (pre, g w1^T, d_pre w0^T); the head recomputes both layers (b1 read,
@@ -1052,40 +1068,50 @@ def rowblock_sizes(stage, xs, weights, g):
     k4 = (2 * io_d + io_g + (n_w - (0 if head else b1.numel())) * s_,
           2 * flops if head else 2 * rows_ * (w_in * w_hid + w_out * w_hid + w_hid * w_in))
     return {f"rowblock_fwd[{stage.name}]": (io_in + io_g + n_w * s_, flops),
+            f"rowblock_fwd_sm90[{stage.name}]": (io_in + io_g + n_w * s_, flops),
             f"rowblock_bwd[{stage.name}]": k4,
             f"rowblock_bwd_sm90[{stage.name}]": k4,
             f"rowblock_bwd_dw[{stage.name}]": (io_in + io_g + io_d + n_w * (s_ + 4), 3 * flops)}
 
 
-def check_k4_sm90(stage, xs, weights, g, k_out, p_out, size):
-    """The Hopper K4's checks at one shape (bf16): relative RMS <= 2e-2 of
-    the plain version for every output, the outputs bitwise equal across
-    two launches, the general body (``sm90=False``) against the same plain
-    version; its time, the general body's and the bound of ``size``
-    (bytes, operations)."""
+def check_rowblock_sm90(kind, stage, xs, weights, g, k_out, p_out, size):
+    """The Hopper K3's (``kind`` "fwd") or K4's ("bwd") checks at one shape
+    (bf16): relative RMS <= 2e-2 of the plain version for every output, the
+    outputs bitwise equal across two launches, the general body
+    (``sm90=False``) against the same plain version; its time, the general
+    body's, the bound of ``size`` (bytes, operations) and, reported and not
+    gated, whether its outputs equal the general body's bit for bit."""
     from metatrain_tpu_torch.ops.kernels import rowblock as rb
 
-    again = rb.rowblock_bwd_cuda(stage, xs, weights, g)
+    def run(**kw):
+        if kind == "fwd":
+            return (rb.rowblock_fwd_cuda(stage, xs, weights, **kw),)
+        return rb.rowblock_bwd_cuda(stage, xs, weights, g, **kw)
+
+    title = "the Hopper K3" if kind == "fwd" else "the Hopper K4"
+    again = run()
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(k_out, again)):
-        fail(f"the Hopper K4 ({stage.name}) gave different outputs in two launches")
+        fail(f"{title} ({stage.name}) gave different outputs in two launches")
     err, worst = compare(k_out, p_out, torch.bfloat16)
-    general = lambda: rb.rowblock_bwd_cuda(stage, xs, weights, g, sm90=False)  # noqa: E731
-    _, g_worst = compare(general(), p_out, torch.bfloat16)
+    g_out = run(sm90=False)
+    _, g_worst = compare(g_out, p_out, torch.bfloat16)
     bound = {}
     record_bound(bound, "x", *size, torch.bfloat16)
     return {"max_abs_err": err, "bound_ratio": worst, "bitwise_repeat": True,
-            "ms": cuda_ms(lambda: rb.rowblock_bwd_cuda(stage, xs, weights, g)),
-            "general_ms": cuda_ms(general), "general_bound_ratio": g_worst,
+            "equal_general": all(torch.equal(a, b) for a, b in zip(k_out, g_out)),
+            "ms": cuda_ms(run), "general_ms": cuda_ms(lambda: run(sm90=False)),
+            "general_bound_ratio": g_worst,
             "bound_ms": bound["bound_ms_x"], "bound_by": bound["bound_by_x"]}
 
 
 def check_rowblock(rows, D, gen, device, report):
     """K3, K4 and K4-dW vs their plain versions at ``rows``, both dtypes; in
-    bf16 the compress and combination backward of K4 are the Hopper K4, an
-    entry of its own (``rowblock_bwd_sm90[<stage>]``, the 2-part compress
-    under its ``shapes``), while ``rowblock_bwd[<stage>]`` keeps the general
-    body (``sm90=False``)."""
+    bf16 the compress and combination of K3 and K4 are the Hopper K3 and
+    K4, entries of their own (``rowblock_fwd_sm90[<stage>]``,
+    ``rowblock_bwd_sm90[<stage>]``, the 2-part compress under their
+    ``shapes``), while ``rowblock_fwd[<stage>]`` and
+    ``rowblock_bwd[<stage>]`` keep the general bodies (``sm90=False``)."""
     from metatrain_tpu_torch.ops.kernels import _lib
     from metatrain_tpu_torch.ops.kernels import rowblock as rb
 
@@ -1094,19 +1120,26 @@ def check_rowblock(rows, D, gen, device, report):
             xs = tuple(t.to(dtype) for t in inputs)
             g = torch.randn(rows, weights[-1].shape[0], generator=gen).to(device, dtype)
             tag = "f32" if dtype == torch.float32 else "bf16"
-            sm90_name = f"rowblock_bwd_sm90[{stage.name}]"
-            before = _lib.LAUNCHES[sm90_name]
+            k4_name = f"rowblock_bwd_sm90[{stage.name}]"
+            k3_name = f"rowblock_fwd_sm90[{stage.name}]"
+            before = _lib.LAUNCHES[k4_name], _lib.LAUNCHES[k3_name]
             bwd_k = rb.rowblock_bwd_cuda(stage, xs, weights, g)
+            fwd_k = rb.rowblock_fwd_cuda(stage, xs, weights)
             torch.cuda.synchronize()
-            sm90 = _lib.LAUNCHES[sm90_name] > before
+            k4_sm90 = _lib.LAUNCHES[k4_name] > before[0]
+            k3_sm90 = _lib.LAUNCHES[k3_name] > before[1]
             (_, _), (w0, _, w1, _) = rb._split_weights(stage, weights)
-            if sm90 != _lib.k4_sm90_takes(dtype, stage.code, D, w0.shape[0], w0.shape[1],
-                                          w1.shape[1]):
-                fail(f"K4 {stage.name} {dtype}: the Hopper kernel ran: {sm90}, the rule says otherwise")
+            widths = (D, w0.shape[0], w0.shape[1], w1.shape[1])
+            if k4_sm90 != _lib.k4_sm90_takes(dtype, stage.code, *widths):
+                fail(f"K4 {stage.name} {dtype}: the Hopper kernel ran: {k4_sm90}, "
+                     "the rule says otherwise")
+            if k3_sm90 != _lib.k3_sm90_takes(dtype, stage.code, *widths):
+                fail(f"K3 {stage.name} {dtype}: the Hopper kernel ran: {k3_sm90}, "
+                     "the rule says otherwise")
             sizes = rowblock_sizes(stage, xs, weights, g)
             cases = (
                 (f"rowblock_fwd[{stage.name}]",
-                 lambda: (rb.rowblock_fwd_cuda(stage, xs, weights),),
+                 lambda: (rb.rowblock_fwd_cuda(stage, xs, weights, sm90=False),),
                  lambda: (stage.math(xs, weights),)),
                 (f"rowblock_bwd[{stage.name}]",
                  lambda: rb.rowblock_bwd_cuda(stage, xs, weights, g, sm90=False),
@@ -1125,17 +1158,19 @@ def check_rowblock(rows, D, gen, device, report):
                 entry[f"bound_ratio_{tag}"] = worst
                 entry[f"ms_{tag}"] = cuda_ms(k_fn)
                 entry[f"plain_ms_{tag}"] = cuda_ms(p_fn)
-            if sm90:
-                p_out = stage.bwd(xs, weights, g)
-                sub = check_k4_sm90(stage, xs, weights, g, bwd_k, p_out, sizes[sm90_name])
-                entry = report.setdefault(sm90_name, {"library_ms": None})
+            for kind, ran, name, k_out, p_fn in (
+                    ("bwd", k4_sm90, k4_name, bwd_k, lambda: stage.bwd(xs, weights, g)),
+                    ("fwd", k3_sm90, k3_name, (fwd_k,), lambda: (stage.math(xs, weights),))):
+                if not ran:
+                    continue
+                sub = check_rowblock_sm90(kind, stage, xs, weights, g, k_out, p_fn(), sizes[name])
+                entry = report.setdefault(name, {"library_ms": None})
                 if len(xs) < 3 and stage.name == "compress":
                     entry.setdefault("shapes", {})[f"rows{rows}_compress2"] = sub
                 else:
                     entry.update({f"{k}_{tag}": v for k, v in sub.items()})
-                    entry[f"plain_ms_{tag}"] = cuda_ms(lambda: stage.bwd(xs, weights, g))
-                del p_out
-            del bwd_k
+                    entry[f"plain_ms_{tag}"] = cuda_ms(p_fn)
+            del bwd_k, fwd_k
             # the 2-part compress is checked too; the 3-part one's numbers stay
             dw_report = {} if len(xs) < 3 and stage.name == "compress" else report
             dw_name = f"rowblock_bwd_dw[{stage.name}]"
@@ -1150,32 +1185,39 @@ def check_rowblock(rows, D, gen, device, report):
         torch.cuda.empty_cache()
 
 
-def check_k4_sm90_shapes(gen, device, report, D=128):
-    """The Hopper K4 against the plain versions beyond the served rows: A x
-    M rows at M = 48 and 16 (A = 11,000) and a row count that is not a
-    multiple of 64 (its last tile partial), all three stages it takes
-    (bf16); the checks of ``check_k4_sm90`` and the bound, under each
-    entry's ``shapes``."""
+def check_rowblock_sm90_shapes(gen, device, report, D=128):
+    """The Hopper K3 and K4 against the plain versions beyond the served
+    rows: A x M rows at M = 64 (K3 only), 48 and 16 (A = 11,000) and a row
+    count that is not a multiple of 64 (its last tile partial), all three
+    stages they take (bf16); the checks of ``check_rowblock_sm90`` and the
+    bound, under each entry's ``shapes``."""
     from metatrain_tpu_torch.ops.kernels import _lib
     from metatrain_tpu_torch.ops.kernels import rowblock as rb
 
-    for rows in (11000 * 48, 11000 * 16, 100003):
+    for rows in (11000 * 64, 11000 * 48, 11000 * 16, 100003):
         for stage, inputs, weights in stage_cases(rows, D, gen, device):
             if stage.name == "head":
                 continue
             xs = tuple(t.to(torch.bfloat16) for t in inputs)
             g = torch.randn(rows, weights[-1].shape[0], generator=gen).to(device, torch.bfloat16)
-            name = f"rowblock_bwd_sm90[{stage.name}]"
-            before = _lib.LAUNCHES[name]
-            k_out = rb.rowblock_bwd_cuda(stage, xs, weights, g)
-            torch.cuda.synchronize()
-            if _lib.LAUNCHES[name] != before + 1:
-                fail(f"the Hopper K4 did not take {stage.name} at {rows} rows")
-            sub = check_k4_sm90(stage, xs, weights, g, k_out, stage.bwd(xs, weights, g),
-                                rowblock_sizes(stage, xs, weights, g)[name])
             key = f"rows{rows}_{stage.name}{len(xs) if stage.name == 'compress' else ''}"
-            report.setdefault(name, {}).setdefault("shapes", {})[key] = sub
-            del k_out
+            sizes = rowblock_sizes(stage, xs, weights, g)
+            kinds = [("fwd", lambda: (rb.rowblock_fwd_cuda(stage, xs, weights),),
+                      lambda: (stage.math(xs, weights),))]
+            if rows != 11000 * 64:
+                kinds.append(("bwd", lambda: rb.rowblock_bwd_cuda(stage, xs, weights, g),
+                              lambda: stage.bwd(xs, weights, g)))
+            for kind, k_fn, p_fn in kinds:
+                name = f"rowblock_{kind}_sm90[{stage.name}]"
+                before = _lib.LAUNCHES[name]
+                k_out = k_fn()
+                torch.cuda.synchronize()
+                if _lib.LAUNCHES[name] != before + 1:
+                    fail(f"the Hopper K{3 if kind == 'fwd' else 4} did not take {stage.name} "
+                         f"at {rows} rows")
+                sub = check_rowblock_sm90(kind, stage, xs, weights, g, k_out, p_fn(), sizes[name])
+                report.setdefault(name, {}).setdefault("shapes", {})[key] = sub
+                del k_out
         torch.cuda.empty_cache()
 
 
@@ -1318,16 +1360,17 @@ UNFUSED_ALT = {"fused_layers": False, "normalization": "LayerNorm", "activation"
                "num_gnn_layers": 2, "num_attention_layers": 1}
 ROWBLOCK_KERNELS = [f"rowblock_{d}[{s}]" for d in ("fwd", "bwd")
                     for s in ("compress", "combination", "head")]
-# bf16 at d_pet 128: the compress and combination backward run the Hopper K4
-ROWBLOCK_SM90_KERNELS = [f"rowblock_fwd[{s}]" for s in ("compress", "combination", "head")] + [
-    "rowblock_bwd_sm90[compress]", "rowblock_bwd_sm90[combination]", "rowblock_bwd[head]"]
+# bf16 at d_pet 128: the compress and combination run the Hopper K3 and K4
+ROWBLOCK_SM90_KERNELS = [f"rowblock_{d}_sm90[{s}]" for d in ("fwd", "bwd")
+                         for s in ("compress", "combination")] + [
+    "rowblock_fwd[head]", "rowblock_bwd[head]"]
 FUSED_KERNELS = ["fused_layer_fwd", "fused_layer_bwd", "permute", "permute_acc"]
 # the served shape (M = 64, D = 128) in bf16 takes the Hopper K1 and K2
 FUSED_SM90_KERNELS = ["fused_layer_fwd_sm90", "fused_layer_bwd_sm90", "permute",
                       "permute_acc"] + ROWBLOCK_SM90_KERNELS
 GNN_KERNELS = ["gnn_block_fwd", "gnn_block_bwd", "permute", "permute_acc"] + ROWBLOCK_SM90_KERNELS
 UNFUSED_KERNELS = ["window_attention_fwd", "window_attention_bwd", "permute", "permute_acc",
-                   "rowblock_fwd[compress]", "rowblock_bwd_sm90[compress]",
+                   "rowblock_fwd_sm90[compress]", "rowblock_bwd_sm90[compress]",
                    "rowblock_fwd[head]", "rowblock_bwd[head]"]
 # the row-block backward's launches per bf16 force call (two GNN layers:
 # the 2- and the 3-part compress, one combination each, one head; the
@@ -1342,14 +1385,28 @@ K4_RESIDUAL_PER_CALL = {**K4_SM90_PER_CALL, "rowblock_bwd_sm90[combination]": 0,
 K4_D256_PER_CALL = {"rowblock_bwd_sm90[compress]": 0, "rowblock_bwd_sm90[combination]": 0,
                     "rowblock_bwd[compress]": 2, "rowblock_bwd[combination]": 2,
                     "rowblock_bwd[head]": 1}
+# the row-block forward's, likewise: the Hopper K3 for the compress and
+# combination at d_pet 128 and never the general body, at d_pet 256 the
+# general body
+K3_SM90_PER_CALL = {"rowblock_fwd_sm90[compress]": 2, "rowblock_fwd_sm90[combination]": 2,
+                    "rowblock_fwd[compress]": 0, "rowblock_fwd[combination]": 0,
+                    "rowblock_fwd[head]": 1}
+K3_RESIDUAL_PER_CALL = {**K3_SM90_PER_CALL, "rowblock_fwd_sm90[combination]": 0,
+                        "rowblock_fwd[head]": 2}
+K3_D256_PER_CALL = {"rowblock_fwd_sm90[compress]": 0, "rowblock_fwd_sm90[combination]": 0,
+                    "rowblock_fwd[compress]": 2, "rowblock_fwd[combination]": 2,
+                    "rowblock_fwd[head]": 1}
+ROWBLOCK_SM90_PER_CALL = {**K3_SM90_PER_CALL, **K4_SM90_PER_CALL}
+ROWBLOCK_RESIDUAL_PER_CALL = {**K3_RESIDUAL_PER_CALL, **K4_RESIDUAL_PER_CALL}
+ROWBLOCK_D256_PER_CALL = {**K3_D256_PER_CALL, **K4_D256_PER_CALL}
 
 
-def check_k4_launches(key, report, expected):
-    """The row-block backward's launches per force call of a served path
+def check_rowblock_launches(key, report, expected):
+    """The row-block kernels' launches per force call of a served path
     (``report``'s ``launches_per_call``) equal ``expected``."""
     got = {k: report["launches_per_call"].get(k, 0) for k in expected}
     if got != expected:
-        fail(f"{key}: the row-block backward launched {got} per force call, expected {expected}")
+        fail(f"{key}: the row-block kernels launched {got} per force call, expected {expected}")
 
 
 def energy_info():
@@ -1934,6 +1991,8 @@ SOURCES = {
                         "csrc/fused_layer_bwd.cu)"),
     "rowblock_fwd": ("metatrain_tpu_torch/csrc/rowblock_fwd.cu",
                      "metatrain_tpu/ops/pallas/rowblock.py:113"),
+    "rowblock_fwd_sm90": ("metatrain_tpu_torch/csrc/rowblock_fwd_sm90.cu",
+                          "metatrain_tpu/ops/pallas/rowblock.py:113 (exact bf16, d_part 128)"),
     "rowblock_bwd": ("metatrain_tpu_torch/csrc/rowblock_bwd.cu",
                      "metatrain_tpu/ops/pallas/rowblock.py:279"),
     "rowblock_bwd_sm90": ("metatrain_tpu_torch/csrc/rowblock_bwd_sm90.cu",
@@ -1971,16 +2030,16 @@ SOURCES = {
                                 "(weight_grads=True, int8 scores)"),
 }
 UNFUSED_PATH = ("permute", "permute_acc", "window_attention_fwd", "window_attention_bwd")
-N_ENTRIES = 28
+N_ENTRIES = 30
 
 
 def launch_count(report, name):
     """Launches of ``name`` in the run of its path: the block's force calls
     and training step for the GNN block's kernels, the training run for the
     other weight-gradient kernels and for K1's general body (the served bf16
-    calls run the Hopper K1), the d_pet 256 force calls for the general K4's
-    compress and combination (the served d_pet 128 calls run the Hopper
-    K4), the unfused force calls for the kernels
+    calls run the Hopper K1), the d_pet 256 force calls for the general K3's
+    and K4's compress and combination (the served d_pet 128 calls run the
+    Hopper K3 and K4), the unfused force calls for the kernels
     that path added, the W8A8 force calls for the W8A8 kernels, the fused
     force calls for the rest; the int8 scores' from their force calls and
     (K2-dW-int8) their training step."""
@@ -1994,7 +2053,8 @@ def launch_count(report, name):
         source = report["training_parity_gnn" if "_dw" in name else "slice_gnn"]["launches"]
     elif "_dw" in name or name == "fused_layer_fwd":
         source = report["train_launches"]
-    elif name in ("rowblock_bwd[compress]", "rowblock_bwd[combination]"):
+    elif name in ("rowblock_fwd[compress]", "rowblock_fwd[combination]",
+                  "rowblock_bwd[compress]", "rowblock_bwd[combination]"):
         source = report["slice_d256"]["launches"]
     else:
         source = report["unfused" if name in UNFUSED_PATH else "slice"]["launches"]
@@ -2051,7 +2111,7 @@ def main() -> int:
                    for k in ("fused_layer_fwd_sm90", "fused_layer_bwd_sm90"))):
         fail(f"the bf16 force calls launched {served['launches']}: 4 Hopper K1 and 4 Hopper K2 "
              "per call expected")
-    check_k4_launches("slice", served, K4_SM90_PER_CALL)
+    check_rowblock_launches("slice", served, ROWBLOCK_SM90_PER_CALL)
     A, M = report["slice"]["padded"]
     print("slice:", json.dumps({k: report["slice"][k] for k in ("padded", "launches", "parity")}
                                | {"neighbor_backends": report["neighbor_backends"]}), flush=True)
@@ -2068,7 +2128,7 @@ def main() -> int:
                                           "fused_layer_bwd_sm90")) or not (
             per_call["gnn_block_fwd"] == per_call["gnn_block_bwd"] == 2):
         fail(f"the block's force call launched {gnn['launches']}")
-    check_k4_launches("slice_gnn", gnn, K4_SM90_PER_CALL)
+    check_rowblock_launches("slice_gnn", gnn, ROWBLOCK_SM90_PER_CALL)
     print("GNN block slice:", json.dumps({k: gnn[k] for k in ("padded", "launches", "parity")}),
           flush=True)
     print(f"GNN block force call ({card}):", json.dumps(gnn["timing"]), flush=True)
@@ -2078,8 +2138,8 @@ def main() -> int:
     for key, hypers, kwargs in (("unfused", UNFUSED, {}),
                                 ("unfused_alt", UNFUSED_ALT, {"steps": 2, "timing": False})):
         report[key] = check_slice(device, hypers, UNFUSED_KERNELS, **kwargs)
-        check_k4_launches(key, report[key],
-                          K4_SM90_PER_CALL if key == "unfused" else K4_RESIDUAL_PER_CALL)
+        check_rowblock_launches(key, report[key], ROWBLOCK_SM90_PER_CALL if key == "unfused"
+                                else ROWBLOCK_RESIDUAL_PER_CALL)
         print(f"{key} slice:", json.dumps({k: report[key][k] for k in ("padded", "launches",
                                                                         "parity")}), flush=True)
         torch.cuda.empty_cache()
@@ -2094,7 +2154,7 @@ def main() -> int:
     report["slice_w8a8"] = check_w8a8_slice(
         device, lambda dtype, plain, int8: make_pet(dtype, plain, state, device, int8_static=int8))
     w8 = report["slice_w8a8"]
-    check_k4_launches("slice_w8a8", w8, K4_SM90_PER_CALL)
+    check_rowblock_launches("slice_w8a8", w8, ROWBLOCK_SM90_PER_CALL)
     print("W8A8 slice:", json.dumps({k: w8[k] for k in ("padded", "launches", "parity")}),
           flush=True)
     print(f"W8A8 force call ({card}):", json.dumps(w8["timing"]), flush=True)
@@ -2103,11 +2163,12 @@ def main() -> int:
 
     # windows above 64 slots: a 5.5 A cutoff on the crystal (78 neighbours
     # within 6.0 A); then d_pet 256 (8 heads of 32); kernel paths timed
-    for key, hypers, rowblocks, k4 in (("slice_m96", M96, ROWBLOCK_SM90_KERNELS, K4_SM90_PER_CALL),
-                                       ("slice_d256", D256, ROWBLOCK_KERNELS, K4_D256_PER_CALL)):
+    for key, hypers, rowblocks, per_call in (
+            ("slice_m96", M96, ROWBLOCK_SM90_KERNELS, ROWBLOCK_SM90_PER_CALL),
+            ("slice_d256", D256, ROWBLOCK_KERNELS, ROWBLOCK_D256_PER_CALL)):
         report[key] = check_slice(device, hypers, FUSED_KERNELS + rowblocks, steps=2,
                                   time_plain=False)
-        check_k4_launches(key, report[key], k4)
+        check_rowblock_launches(key, report[key], per_call)
         M_served = report[key]["padded"][1]
         if key == "slice_m96" and M_served < 80:
             fail(f"the 5.5 A cutoff served M = {M_served}, expected at least 80")
@@ -2120,7 +2181,7 @@ def main() -> int:
     # K1 and K2, four launches each per force call
     report["slice_int8"] = check_int8_slice(device, state)
     i8 = report["slice_int8"]
-    check_k4_launches("slice_int8", i8, K4_SM90_PER_CALL)
+    check_rowblock_launches("slice_int8", i8, ROWBLOCK_SM90_PER_CALL)
     print("int8 slice:", json.dumps({k: i8[k] for k in ("padded", "launches", "parity")}),
           flush=True)
     print(f"int8 force call ({card}):", json.dumps(i8["timing"]), flush=True)
@@ -2141,7 +2202,7 @@ def main() -> int:
             device, lambda dtype, plain, int8: pet_from_checkpoint(
                 ckpt, compute_dtype=dtype, device=device, plain=plain, int8_static=int8),
             steps=1, timing=False)
-        check_k4_launches("w8a8_trained", report["w8a8_trained"], K4_SM90_PER_CALL)
+        check_rowblock_launches("w8a8_trained", report["w8a8_trained"], ROWBLOCK_SM90_PER_CALL)
         print("W8A8 at the trained weights:", json.dumps(report["w8a8_trained"]["parity"]),
               flush=True)
         torch.cuda.empty_cache()
@@ -2172,7 +2233,8 @@ def main() -> int:
             expected=("fused_layer_fwd", "fused_layer_bwd_dw", "rowblock_bwd_dw[compress]",
                       "rowblock_bwd_dw[combination]"),
             replayed=("fused_layer",), dtype=torch.bfloat16,
-            absent=("fused_layer_fwd_sm90", "fused_layer_bwd_sm90", "rowblock_bwd_sm90[compress]",
+            absent=("fused_layer_fwd_sm90", "fused_layer_bwd_sm90", "rowblock_fwd_sm90[compress]",
+                    "rowblock_fwd_sm90[combination]", "rowblock_bwd_sm90[compress]",
                     "rowblock_bwd_sm90[combination]"))
         print("training step, exact bf16:", json.dumps(report["training_parity_bf16"]), flush=True)
         torch.cuda.empty_cache()
@@ -2200,16 +2262,18 @@ def main() -> int:
     print("GNN block variants (max abs error, bound ratio):",
           json.dumps(report["gnn_block_variants"]), flush=True)
     check_rowblock(A * M, D, gen, device, kernels)
-    check_k4_sm90_shapes(gen, device, kernels, D)
-    if build_log.exists():  # the instantiations per stage (mangled names)
-        for name, kernel in (("rowblock_bwd_sm90[compress]", "k4_sm90_kernelILi0E"),
-                             ("rowblock_bwd_sm90[combination]", "k4_sm90_kernelILi1E")):
-            kernels[name]["ptxas_bf16"] = ptxas_usage(build_log.read_text(), kernel)
-    for name in ("rowblock_bwd_sm90[compress]", "rowblock_bwd_sm90[combination]"):
-        print(f"Hopper K4 {name} (general body's ms beside):", json.dumps(
-            {k: kernels[name].get(k) for k in (
-                "ms_bf16", "general_ms_bf16", "bound_ms_bf16", "bound_ratio_bf16", "ptxas_bf16",
-                "shapes")}), flush=True)
+    check_rowblock_sm90_shapes(gen, device, kernels, D)
+    for k in (3, 4):
+        kind = "fwd" if k == 3 else "bwd"
+        for code, stage in enumerate(("compress", "combination")):
+            name = f"rowblock_{kind}_sm90[{stage}]"
+            if build_log.exists():  # the instantiations per stage (mangled names)
+                kernels[name]["ptxas_bf16"] = ptxas_usage(build_log.read_text(),
+                                                          f"k{k}_sm90_kernelILi{code}E")
+            print(f"Hopper K{k} {name} (general body's ms beside):", json.dumps(
+                {key: kernels[name].get(key) for key in (
+                    "ms_bf16", "general_ms_bf16", "bound_ms_bf16", "bound_ratio_bf16",
+                    "equal_general_bf16", "ptxas_bf16", "shapes")}), flush=True)
     check_permute(A_u * M_u, D, gen, device, kernels)
     check_attention(A_u, M_u + 1, D, H, gen, device, kernels)
     check_w8a8_layer(A, M, D, H, F, gen, device, kernels)

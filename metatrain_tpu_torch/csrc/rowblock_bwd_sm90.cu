@@ -42,9 +42,10 @@
 //   next tile's inputs (parts or edges | reversed, and g) are copied with
 //   16-byte cp.async into a second buffer while this tile's products run,
 //   in as many pieces as the tile has weight chunks minus two, each riding
-//   in the cp.async group of one chunk (StreamRing), so the ring's own
-//   waits complete them by the tile's last chunk. Rows past the end are
-//   zero-filled and never stored.
+//   in the cp.async group of one chunk (rowblock_sm90.cuh StreamRing,
+//   shared with the Hopper K3), so the ring's own waits complete them by
+//   the tile's last chunk. Rows past the end are zero-filled and never
+//   stored.
 // - weights fetched from L2 for every mma.sync: every weight reaches the
 //   tensor cores through layer_sm90.cuh's ring of three staged chunks (128
 //   x 64 bf16, 128-byte swizzle), one fixed sequence per tile (Chunks):
@@ -59,7 +60,9 @@
 //   a bf16 tile, the A operand of the last product; the combination's d_xn
 //   stays in registers (2 panels x 16 floats per thread), its row sums come
 //   from panel_row_sums in a fixed order, and xn0 is recomputed from the x
-//   tile and the per-row mean and rs.
+//   tile and the per-row mean and rs. xn itself comes from the Hopper K3's
+//   LayerNorm (rowblock_sm90.cuh layer_norm_rows), so the served forward
+//   and this recompute round it the same way.
 // Shared memory (bytes): the ring 49,152; two input tiles 2 x 64 x (w_in +
 // 8) x 2; two g tiles 2 x 17,408; the d_pre tile 64 x (w_hid + 8) x 2; the
 // combination also the xn tile and its row statistics. 201,728 at 3 parts,
@@ -70,16 +73,13 @@
 // No atomics: every output element is written once by one thread, and the
 // row sums run in a fixed order, so every launch gives the same bits.
 
-#include "layer_sm90.cuh"
+#include "rowblock_sm90.cuh"
 
 namespace mtt {
 namespace sm90 {
 namespace {
 
 enum Stage { kCompress = 0, kCombination = 1 };
-
-constexpr int kPart = 128;  // d_part: every input, g and output row
-constexpr int kPieces = kPart * 2 / 16;  // 16-byte copies per row of one array
 
 // The layout of one instantiation: NP arrays make up the input tile X
 // (compress: the parts; combination: edges and reversed), g is one more.
@@ -90,8 +90,6 @@ struct Geo {
     static constexpr int LX = W_IN + 8;   // X and xn rows (bf16)
     static constexpr int LP = W_HID + 8;  // d_pre rows
     static constexpr int NCH = STAGE == kCompress ? 4 * NP + 2 : 20;  // chunks per tile
-    static constexpr int UNITS = kRows * (NP + 1) * kPieces;  // 16-byte copies per tile
-    static constexpr int PIECE = (UNITS + NCH - 3) / (NCH - 2);  // per chunk 2 .. NCH - 1
     static constexpr int kRing = kStages * kChunkElems * 2;
     static constexpr int kX = kRows * LX * 2;
     static constexpr int kG = kRows * LA * 2;
@@ -153,81 +151,6 @@ struct Chunks {
     }
 };
 
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int bytes) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-                 "r"(bytes)
-                 : "memory");
-}
-
-// The block's input tiles: tile t (of the block's T, from global tile t0)
-// goes to buffer t % 2. Chunk c = t NCH + r of the block's sequence carries
-// piece r - 2 of tile t + 1 (2 <= r < NCH), chunk 0 all of tile 0. Unit u
-// of a tile is 16-byte piece u % 16 of row u / 16 % 64 of array u / 1024
-// (array NP is g).
-template <int STAGE, int NP>
-struct TileInputs {
-    const bf16* src[NP + 1];
-    bf16* X;  // buffer 0; buffer 1 follows
-    bf16* G;
-    long long rows, t0;
-    int T;
-
-    __device__ void copy(int t, int lo, int hi) const {
-        using Gm = Geo<STAGE, NP>;
-        const long long row0 = (t0 + t) * kRows;
-        bf16* X1 = X + (t & 1) * kRows * Gm::LX;
-        bf16* G1 = G + (t & 1) * kRows * LA;
-        for (int u = lo + threadIdx.x; u < hi; u += kThreads) {
-            const int a = u / (kRows * kPieces), row = (u / kPieces) % kRows, piece = u % kPieces;
-            const bool valid = row0 + row < rows;
-            const bf16* s = src[0];
-#pragma unroll
-            for (int k = 1; k <= NP; ++k)
-                if (a == k) s = src[k];  // a select, not an indexed (local-memory) load
-            s += valid ? (row0 + row) * kPart + piece * 8 : 0;
-            bf16* d = a < NP ? X1 + row * Gm::LX + a * kPart + piece * 8 : G1 + row * LA + piece * 8;
-            cp_async16_zfill(d, s, valid ? 16 : 0);
-        }
-    }
-
-    __device__ void operator()(int c) const {
-        using Gm = Geo<STAGE, NP>;
-        const int t = c / Gm::NCH, r = c % Gm::NCH;
-        if (c == 0) {
-            copy(0, 0, Gm::UNITS);
-        } else if (r >= 2 && t + 1 < T) {
-            const int lo = (r - 2) * Gm::PIECE;
-            copy(t + 1, lo, min(Gm::UNITS, lo + Gm::PIECE));
-        }
-    }
-};
-
-// layer_sm90.cuh's WeightRing whose every issue also copies the input
-// pieces of its chunk (inputs(c)) into the same cp.async group, so the
-// ring's waits complete them too: the pieces of chunk c are in shared
-// memory for every thread after consume(c).
-template <typename Src, typename In>
-struct StreamRing : WeightRing<Src> {
-    In inputs;
-
-    __device__ void issue(int c) {
-        inputs(c);
-        WeightRing<Src>::issue(c);
-    }
-
-    __device__ void start() {
-        for (int c = 0; c < kStages - 1; ++c) issue(c);
-    }
-
-    __device__ const bf16* consume(int c) {
-        cp_async_wait<kStages - 2>();
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        __syncthreads();
-        issue(c + kStages - 1);
-        return this->ring + (c % kStages) * kChunkElems;
-    }
-};
-
 // d_pre = d_h silu'(pre), pre with its bias (rounded by the caller's store)
 __device__ __forceinline__ float d_pre(float dh, float pre) { return dh * silu_grad(pre); }
 
@@ -266,39 +189,10 @@ __device__ __forceinline__ void combination_tile(Ring& ring, int& c, const Args&
                                                  const bf16* Gt, bf16* XN, bf16* DP, float* MEAN,
                                                  float* RS, float* RED, long long row0, int valid) {
     using G = Geo<kCombination, 2>;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-    // LayerNorm statistics and xn = rnd(xn0 ln_scale + ln_bias), one warp
-    // per row, lane l on columns 8 l .. 8 l + 7
-    for (int m = warp; m < kRows; m += kThreads / 32) {
-        const bf16* x = X + m * G::LX + 8 * lane;
-        float v[8];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            const float2 f = ld2(x + 2 * k);
-            v[2 * k] = f.x;
-            v[2 * k + 1] = f.y;
-        }
-        float s = 0.f;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) s += v[k];
-        const float mean = warp_sum(s) / G::W_IN;
-        float var = 0.f;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) var = fmaf(v[k] - mean, v[k] - mean, var);
-        const float rs = rsqrtf(warp_sum(var) / G::W_IN + 1e-5f);
-        if (lane == 0) {
-            MEAN[m] = mean;
-            RS[m] = rs;
-        }
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            const int col = 8 * lane + 2 * k;
-            const float2 ls = ld2(p.ln_scale + col), lb = ld2(p.ln_bias + col);
-            store2(XN + m * G::LX + col, (v[2 * k] - mean) * rs * ls.x + lb.x,
-                   (v[2 * k + 1] - mean) * rs * ls.y + lb.y);
-        }
-    }
+    // LayerNorm statistics and xn = rnd(xn0 ln_scale + ln_bias): the Hopper
+    // K3's own (rowblock_sm90.cuh)
+    layer_norm_rows(X, p.ln_scale, p.ln_bias, XN, MEAN, RS);
     // (the first consume's barrier orders these stores before the reads)
 
     // per hidden panel q: pre = xn w0 + b0 and d_h = g w1^T (columns 128 q
@@ -366,11 +260,12 @@ __global__ void __launch_bounds__(kThreads, 1) k4_sm90_kernel(Args p, Chunks<STA
     const long long tiles = (p.rows + kRows - 1) / kRows;
     const long long t0 = tiles * blockIdx.x / gridDim.x, t1 = tiles * (blockIdx.x + 1) / gridDim.x;
     const int T = (int)(t1 - t0);
-    TileInputs<STAGE, NP> inputs{{}, XB, GB, p.rows, t0, T};
+    using In = TileInputs<NP, 1, G::NCH>;
+    In inputs{{}, XB, GB, p.rows, t0, T};
 #pragma unroll
     for (int a = 0; a < NP; ++a) inputs.src[a] = p.x[a];
     inputs.src[NP] = p.g;
-    StreamRing<Chunks<STAGE, NP>, TileInputs<STAGE, NP>> ring{
+    StreamRing<Chunks<STAGE, NP>, In> ring{
         {reinterpret_cast<bf16*>(smem), chunks, T * G::NCH}, inputs};
     ring.start();
     cp_async_wait<0>();  // tile 0
@@ -404,14 +299,9 @@ int launch(const Args& a, const Chunks<STAGE, NP>& chunks, int blocks, cudaStrea
 }  // namespace mtt
 
 // Whether the Hopper K4 takes a stage (0 compress, 1 combination) and its
-// widths: d_part = w_out = 128; compress w_in 256 or 384 with w_hid 128;
-// combination w_in = w_hid = 256 (the wrapper checks the variant: bfloat16,
-// no weight gradients).
+// widths (rowblock_sm90.cuh rowblock_sm90_ok).
 extern "C" int mtt_rowblock_bwd_sm90_ok(int stage, int d_part, int w_in, int w_hid, int w_out) {
-    if (d_part != mtt::sm90::kPart || w_out != mtt::sm90::kPart) return 0;
-    if (stage == mtt::sm90::kCompress) return (w_in == 2 * d_part || w_in == 3 * d_part) && w_hid == d_part;
-    if (stage == mtt::sm90::kCombination) return w_in == 2 * d_part && w_hid == 2 * d_part;
-    return 0;
+    return mtt::sm90::rowblock_sm90_ok(stage, d_part, w_in, w_hid, w_out);
 }
 
 // Its shared memory per block, 0 where it does not take the stage.

@@ -10,16 +10,20 @@
 //                 out = rnd(messages + edges + h @ w1 + b1)
 //   head        : h = rnd(silu(x @ w0 + b0)); out = rnd(silu(h @ w1 + b1))
 //
-// What bounds it on the H100: rows = atoms x neighbor slots (~528k at the
-// 11k-atom bench), each a few hundred FLOPs per byte of input, so the
-// products dominate. A block takes a tile of 64 rows; the concatenated
-// input and the hidden layer stay in shared memory (up to 128 KB at d_pet
-// 128), so device memory sees each input row once and each output row
-// once. The weights stream from L2; 64 rows per tile amortise each weight
-// read over 64 rows. Wider stages take tiles of 32 or 16 rows, the most
-// that fit (rowblock_fwd_rows: the combination at d_pet 256, 2 x 512
-// floats per row, takes 32). The products are common.cuh block_mm: FMA
-// loops in f32, mma.sync tensor cores in bf16.
+// What bounds it on the H100: rows = atoms x neighbor slots (729,088 at the
+// bench crystal's served batch, A = 11,392 x M = 64). At d_pet 128 a row
+// does about 128 operations per byte it moves (the 3-part compress 131 k
+// for 1,024 B), below the card's 295 in bf16, so bytes bound it. A block
+// takes a tile of 64 rows; the concatenated input and the hidden layer
+// stay in shared memory (up to 128 KB at d_pet 128), so device memory sees
+// each input row once and each output row once. The weights stream from
+// L2; 64 rows per tile amortise each weight read over 64 rows. Wider
+// stages take tiles of 32 or 16 rows, the most that fit (rowblock_fwd_rows:
+// the combination at d_pet 256, 2 x 512 floats per row, takes 32). The
+// products are common.cuh block_mm: FMA loops in f32, mma.sync tensor
+// cores in bf16. The served bf16 compress and combination at d_part 128
+// run the Hopper K3 (rowblock_fwd_sm90.cu) instead; this body keeps the
+// head, float32, d_pet 256 and every call whose weights require grad.
 
 #include "common.cuh"
 

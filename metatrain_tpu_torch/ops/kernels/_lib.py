@@ -42,6 +42,7 @@ SOURCES = (
     "fused_layer_bwd.cu",
     "fused_layer_bwd_sm90.cu",
     "rowblock_fwd.cu",
+    "rowblock_fwd_sm90.cu",
     "rowblock_bwd.cu",
     "rowblock_bwd_sm90.cu",
     "permute.cu",
@@ -79,6 +80,7 @@ _SIGNATURES = {
     "mtt_fused_layer_bwd_int8": [_P] * 23 + _LAYER_TAIL,
     "mtt_int8_absmax": [_P] * 6 + [_L, _I, _I, _I, _F, _P],
     "mtt_rowblock_fwd": [_I, _I, _P, _P, _P, _I] + [_P] * 7 + [_L, _I, _I, _I, _I, _P],
+    "mtt_rowblock_fwd_sm90": [_I, _P, _P, _P, _I] + [_P] * 7 + [_L, _I, _I, _I, _I, _I, _P],
     "mtt_rowblock_bwd": [_I, _I, _P, _P, _P, _I] + [_P] * 13 + [_I, _P] + [_L, _I, _I, _I, _I, _P],
     "mtt_rowblock_bwd_sm90": [_I, _P, _P, _P, _I] + [_P] * 10 + [_L, _I, _I, _I, _I, _I, _P],
     "mtt_permute": [_I, _P, _P, _P, _P, _L, _I, _P],
@@ -97,6 +99,8 @@ _SIGNATURES = {
     "mtt_fused_layer_bwd_sm90_smem": [_I] * 4,
     "mtt_fused_layer_bwd_sm90_ok": [_I] * 4,
     "mtt_rowblock_fwd_smem": [_I, _I, _IP],
+    "mtt_rowblock_fwd_sm90_ok": [_I] * 5,
+    "mtt_rowblock_fwd_sm90_smem": [_I] * 5,
     "mtt_rowblock_bwd_smem": [_I, _I, _I, _I, _I, _IP],
     "mtt_rowblock_bwd_sm90_ok": [_I] * 5,
     "mtt_rowblock_bwd_sm90_smem": [_I] * 5,
@@ -359,6 +363,41 @@ def k4_sm90_smem(stage: int, d_part: int, w_in: int, w_hid: int, w_out: int) -> 
     nbytes += rows * (w_hid + 8) * 2
     if stage == 1:
         nbytes += rows * (w_in + 8) * 2 + 6 * rows * 4
+    return nbytes
+
+
+# ---- the Hopper K3 (csrc/rowblock_fwd_sm90.cu) -------------------------------
+
+def k3_sm90_shape(stage: int, d_part: int, w_in: int, w_hid: int, w_out: int) -> bool:
+    """The stages and widths the Hopper K3 takes (its C query
+    ``mtt_rowblock_fwd_sm90_ok``): those of the Hopper K4,
+    :func:`k4_sm90_shape`."""
+    return k4_sm90_shape(stage, d_part, w_in, w_hid, w_out)
+
+
+def k3_sm90_takes(dtype: torch.dtype, stage: int, d_part: int, w_in: int, w_hid: int, w_out: int,
+                  weight_grads: bool = False) -> bool:
+    """Whether ``rowblock_fwd_cuda`` launches the Hopper K3: bfloat16, a
+    stage and widths of :func:`k3_sm90_shape`, and no weight that requires
+    grad. With ``weight_grads`` the backward is K4-dW and the replay, and
+    the training step keeps the general K3 it was measured with."""
+    return (dtype == torch.bfloat16 and not weight_grads
+            and k3_sm90_shape(stage, d_part, w_in, w_hid, w_out))
+
+
+def k3_sm90_smem(stage: int, d_part: int, w_in: int, w_hid: int, w_out: int) -> int:
+    """``mtt_rowblock_fwd_sm90_smem``: its shared bytes per block, 0 where
+    it does not take the stage. The C source's layout: three weight chunks
+    of 128 x 64 bf16, two input tiles (bf16 rows of w_in + 8), the h tile
+    (rows of w_hid + 8); the combination also two messages tiles (rows of
+    d_part + 8), the xn tile (rows of w_in + 8) and 2 x 64 floats (mean,
+    rs)."""
+    if not k3_sm90_shape(stage, d_part, w_in, w_hid, w_out):
+        return 0
+    rows = 64
+    nbytes = 3 * 128 * 64 * 2 + 2 * rows * (w_in + 8) * 2 + rows * (w_hid + 8) * 2
+    if stage == 1:
+        nbytes += 2 * rows * (d_part + 8) * 2 + rows * (w_in + 8) * 2 + 2 * rows * 4
     return nbytes
 
 

@@ -11,9 +11,14 @@ a stage with its hand-written backward: on the CPU through those plain
 versions, on the card through K3 (``csrc/rowblock_fwd.cu``) and K4
 (``csrc/rowblock_bwd.cu``), one templated kernel instantiated per stage;
 K4-dW, its weight-gradient variant, runs when a weight requires grad. The
-bfloat16 compress and combination backward at d_part 128 (every served
-bf16 call's) runs the Hopper K4 (``csrc/rowblock_bwd_sm90.cu``,
-``_lib.k4_sm90_takes``).
+bfloat16 compress and combination at d_part 128 (every served bf16
+call's) run the Hopper kernels: the forward the Hopper K3
+(``csrc/rowblock_fwd_sm90.cu``, ``_lib.k3_sm90_takes``: only where no
+weight requires grad, so a training step keeps the general K3), the
+backward the Hopper K4 (``csrc/rowblock_bwd_sm90.cu``,
+``_lib.k4_sm90_takes``). Both share ``csrc/rowblock_sm90.cuh``: the
+streamed row tiles and the combination's LayerNorm, so the served
+forward's xn and the backward's recompute round alike.
 The backward is differentiable again (training with forces): its
 gradient replays ``stage.bwd`` under autograd, as the JAX package's
 ``bwd_op_bwd`` differentiates ``_bwd_math_reference``.
@@ -93,10 +98,20 @@ def _prepare(stage: Stage, inputs, weights):
     return _lib.dtype_code(cd), parts, wc, geometry
 
 
-def rowblock_fwd_cuda(stage: Stage, inputs: Sequence[torch.Tensor], weights):
-    """Launch K3 for ``stage``: returns the (rows, w_out) output."""
+def rowblock_fwd_cuda(stage: Stage, inputs: Sequence[torch.Tensor], weights, *,
+                      weight_grads: bool = False, sm90: bool = True):
+    """Launch K3 for ``stage``: returns the (rows, w_out) output. In
+    bfloat16 the compress and combination stages at the widths of
+    :func:`_lib.k3_sm90_takes` (d_part 128) launch the Hopper K3
+    (``csrc/rowblock_fwd_sm90.cu``, counter ``rowblock_fwd_sm90[<stage>]``)
+    unless ``weight_grads`` (a weight requires grad: the backward is then
+    K4-dW, and the training step keeps the general K3); ``sm90=False``
+    keeps the general body there too, for comparisons."""
     code, parts, (ln_s, ln_b, w0, b0, w1, b1), geometry = _prepare(stage, inputs, weights)
     rows, d_part, w_in, w_hid, w_out = geometry
+    if sm90 and _lib.k3_sm90_takes(inputs[0].dtype, stage.code, d_part, w_in, w_hid, w_out,
+                                   weight_grads):
+        return _k3_sm90(stage, inputs, (ln_s, ln_b, w0, b0, w1, b1), geometry)
     lib = _lib.library()
     _lib.check_shared(lib.mtt_rowblock_fwd_smem(w_in, w_hid, None), "rowblock_fwd")
     out = torch.empty((rows, w_out), dtype=inputs[0].dtype, device=inputs[0].device)
@@ -109,6 +124,35 @@ def rowblock_fwd_cuda(stage: Stage, inputs: Sequence[torch.Tensor], weights):
         "rowblock_fwd",
     )
     _lib.LAUNCHES[f"rowblock_fwd[{stage.name}]"] += 1
+    return out
+
+
+def _k3_sm90(stage: Stage, inputs, weights, geometry):
+    """The Hopper K3 on checked bfloat16 tensors (``weights`` = ln_scale,
+    ln_bias, w0, b0, w1, b1 in the compute dtype; ln_scale and ln_bias None
+    but for the combination): one persistent block per SM, no scratch. Its
+    weights go in as w0^T and w1^T, the (N, K) layouts its products take."""
+    rows, d_part, w_in, w_hid, w_out = geometry
+    ln_s, ln_b, w0, b0, w1, b1 = weights
+    name = f"rowblock_fwd_sm90[{stage.name}]"
+    out = torch.empty((rows, w_out), dtype=inputs[0].dtype, device=inputs[0].device)
+    if rows == 0:
+        return out
+    if any(x.data_ptr() % 16 for x in inputs):
+        raise ValueError(f"{name} copies rows in 16-byte pieces: its inputs must start on 16 bytes")
+    lib = _lib.library()
+    _lib.check_shared(lib.mtt_rowblock_fwd_sm90_smem(stage.code, d_part, w_in, w_hid, w_out), name)
+    w0_t, w1_t = w0.t().contiguous(), w1.t().contiguous()  # held here until the launch
+    _lib.check(
+        lib.mtt_rowblock_fwd_sm90(
+            stage.code, *(x.data_ptr() for x in inputs), *[None] * (3 - len(inputs)),
+            len(inputs), _lib.ptr(ln_s), _lib.ptr(ln_b), w0_t.data_ptr(), b0.data_ptr(),
+            w1_t.data_ptr(), b1.data_ptr(), out.data_ptr(), rows, d_part, w_in, w_hid, w_out,
+            _lib.dw_blocks(-(-rows // 64), out.device), _lib.stream_ptr(out.device),
+        ),
+        name,
+    )
+    _lib.LAUNCHES[name] += 1
     return out
 
 
@@ -275,15 +319,24 @@ class _RowBlockBwd(torch.autograd.Function):
         ])
 
 
+def _first_forward(stage: Stage, inputs, weights, weight_grads):
+    """K3 on the card, ``stage.math`` on the CPU. ``weight_grads``: a
+    weight requires grad, so the backward will be K4-dW and the replay;
+    the Hopper K3 is then not taken and the training step keeps the
+    general K3."""
+    if inputs[0].is_cuda:
+        return rowblock_fwd_cuda(stage, inputs, weights, weight_grads=weight_grads)
+    return stage.math(inputs, weights)
+
+
 class _RowBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, stage, n_inputs, *args):
-        inputs, weights = args[:n_inputs], args[n_inputs:]
         ctx.stage, ctx.n_inputs = stage, n_inputs
         ctx.save_for_backward(*args)
-        if inputs[0].is_cuda:
-            return rowblock_fwd_cuda(stage, inputs, weights)
-        return stage.math(inputs, weights)
+        # the test backward makes for the weight gradients
+        return _first_forward(stage, args[:n_inputs], args[n_inputs:],
+                              any(ctx.needs_input_grad[2 + n_inputs:]))
 
     @staticmethod
     def backward(ctx, g):

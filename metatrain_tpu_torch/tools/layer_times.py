@@ -1,5 +1,5 @@
 """CUDA-event times of the fused-layer kernels K1, K2 and K2-dW at one shape,
-and of K4's bf16 compress and combination backward at A x M rows.
+and of K3's and K4's bf16 compress and combination at A x M rows.
 
 Usage, on a machine with a CUDA device::
 
@@ -20,6 +20,9 @@ general body's; likewise ``fused_layer_fwd_ms_bf16`` and
 (``rowblock_bwd_cuda``) in bfloat16 at A x M rows for the 3-part and the
 2-part compress and the combination (``rowblock_bwd[<stage>]_ms_bf16``:
 the Hopper K4 where the tree has it, ``rowblock_bwd_cuda(..., sm90=)``;
+``..._general_ms_bf16`` its general body there), then K3
+(``rowblock_fwd_cuda``) on the same inputs (``rowblock_fwd[<stage>]_ms_bf16``:
+the Hopper K3 where the tree has it, ``rowblock_fwd_cuda(..., sm90=)``;
 ``..._general_ms_bf16`` its general body there). Under ``digests``, a
 SHA-256 prefix of each output's bytes per kernel and dtype, from the first
 launch: two trees whose digests agree computed the same bits.
@@ -114,12 +117,13 @@ def main() -> int:
             times[f"{name}_ms_{tag}"] = cuda_ms(fn)
         del e, c, ge, gc
         torch.cuda.empty_cache()
-    # K4's bf16 compress and combination at the row-block stages' rows
+    # K3's and K4's bf16 compress and combination at the row-block stages' rows
     from metatrain_tpu_torch.models.pet.fused_stages import COMBINATION, COMPRESS
     from metatrain_tpu_torch.ops.kernels import rowblock as rb
 
     rows, bf = A * M, torch.bfloat16
     has_k4_sm90 = "sm90" in inspect.signature(rb.rowblock_bwd_cuda).parameters
+    has_k3_sm90 = "sm90" in inspect.signature(rb.rowblock_fwd_cuda).parameters
 
     def vec(n, base=0.0):
         return (base + 0.1 * torch.randn(n, generator=gen)).to(dev)
@@ -138,6 +142,11 @@ def main() -> int:
             fn = lambda: rb.rowblock_bwd_cuda(stage, xs, weights, g, **kw)  # noqa: E731
             digests[f"rowblock_bwd[{key}]{suffix}_bf16"] = digest(fn())
             times[f"rowblock_bwd[{key}]{suffix}_ms_bf16"] = cuda_ms(fn)
+        variants = [("", {})] + ([("_general", {"sm90": False})] if has_k3_sm90 else [])
+        for suffix, kw in variants:
+            fn = lambda: (rb.rowblock_fwd_cuda(stage, xs, weights, **kw),)  # noqa: E731
+            digests[f"rowblock_fwd[{key}]{suffix}_bf16"] = digest(fn())
+            times[f"rowblock_fwd[{key}]{suffix}_ms_bf16"] = cuda_ms(fn)
         del xs, g
         torch.cuda.empty_cache()
     print(json.dumps({"card": card, "root": args.root, "shape": [A, M, D, H, F], **times,

@@ -131,13 +131,20 @@ def test_includes_follows_headers(tree):
 
 def test_kernel_library_builds_every_cuda_source():
     """Every ``csrc/*.cu`` is a unit of the kernel library, the Hopper K1's,
-    K2's and K4's among them, and each unit's headers are found in
-    ``csrc``: an edit of ``layer_sm90.cuh`` recompiles all three."""
+    K2's, K3's and K4's among them, and each unit's headers are found in
+    ``csrc``: an edit of ``layer_sm90.cuh`` recompiles all four, one of
+    ``rowblock_sm90.cuh`` the Hopper K3 and K4."""
     assert sorted(_lib.SOURCES) == sorted(p.name for p in _lib.CSRC.glob("*.cu"))
-    for unit in ("fused_layer_fwd_sm90.cu", "fused_layer_bwd_sm90.cu", "rowblock_bwd_sm90.cu"):
+    for unit in ("fused_layer_fwd_sm90.cu", "fused_layer_bwd_sm90.cu"):
         assert unit in _lib.SOURCES
         deps = {p.name for p in _build.includes(_lib.CSRC / unit)}
         assert deps == {unit, "layer_sm90.cuh", "common.cuh"}
-    for unit, body in (("fused_layer_bwd.cu", "layer_bwd.cuh"), ("rowblock_bwd.cu", None)):
+    for unit in ("rowblock_fwd_sm90.cu", "rowblock_bwd_sm90.cu"):
+        assert unit in _lib.SOURCES
         deps = {p.name for p in _build.includes(_lib.CSRC / unit)}
-        assert "layer_sm90.cuh" not in deps and (body is None or body in deps)
+        assert deps == {unit, "rowblock_sm90.cuh", "layer_sm90.cuh", "common.cuh"}
+    for unit, body in (("fused_layer_bwd.cu", "layer_bwd.cuh"), ("rowblock_bwd.cu", None),
+                       ("rowblock_fwd.cu", None)):
+        deps = {p.name for p in _build.includes(_lib.CSRC / unit)}
+        assert not deps & {"layer_sm90.cuh", "rowblock_sm90.cuh"}
+        assert body is None or body in deps
