@@ -15,16 +15,16 @@ device and exits non-zero without one. Phases (any failure propagates):
    ``csrc/fused_layer_bwd_sm90.cu`` 4 times per call each and the general
    K1 and K2 never, the Hopper K3 of ``csrc/rowblock_fwd_sm90.cu`` and the
    Hopper K4 of ``csrc/rowblock_bwd_sm90.cu`` for the compress and
-   combination 2 times per call each and the general K3 and K4 for them
-   never, the general K3 and K4 for the head once per call each, the
-   permute and the accumulate permute) must have launched in them; the pair
-   searches must have run in the native neighbor library. Energy, forces
-   and virial must be finite; the bf16 kernel path must match the f32
-   plain path (energy rel <= 1 %, force rel-RMSE <= 5 %, or 1.25 x the bf16
-   plain path's own error where that is larger) and the f32 kernel path
-   the f32 plain path (energy rel <= 1e-5, force rel-RMSE <= 1e-4). Then ms
-   per force call and atom-steps/s of the kernel and plain paths in both
-   dtypes, and a torch.profiler breakdown of the bf16 kernel path.
+   combination 2 times per call each and for the head once each, the
+   general K3 and K4 never, the permute and the accumulate permute) must
+   have launched in them; the pair searches must have run in the native
+   neighbor library. Energy, forces and virial must be finite; the bf16
+   kernel path must match the f32 plain path (energy rel <= 1 %, force
+   rel-RMSE <= 5 %, or 1.25 x the bf16 plain path's own error where that
+   is larger) and the f32 kernel path the f32 plain path (energy rel <=
+   1e-5, force rel-RMSE <= 1e-4). Then ms per force call and atom-steps/s
+   of the kernel and plain paths in both dtypes, and a torch.profiler
+   breakdown of the bf16 kernel path.
    GNN block: the same for PET with ``fused_gnn=True``, each GNN layer's
    fused layers and node stream as one block: the block's forward and
    backward kernels must launch twice per call each (one GNN layer each)
@@ -35,7 +35,8 @@ device and exits non-zero without one. Phases (any failure propagates):
    launch, the row-block kernels as on the fused path; then, with the same
    gates and no timing, LayerNorm / SiLU / PostLN layers with the residual
    featurizer (2 GNN layers of 1 attention layer: the Hopper K3 and K4 for
-   the compress 2 times per call each, no combination, the head twice).
+   the compress 2 times per call each, no combination, the Hopper heads
+   twice).
 4b. W8A8 slice: the fused model of phase 3 built with
    ``int8_static=True`` in bfloat16, ``calibrate_int8`` on the crystal's
    served batch (the calibration carried to the W8A8 plain model with
@@ -57,8 +58,8 @@ device and exits non-zero without one. Phases (any failure propagates):
    passes, a smaller one fails) and with d_pet 256, d_ff 512, 8 heads of 32,
    each served as phase 3 (its launches and gates, 2 steps; the general K1
    and K2 bodies; at M = 96 the Hopper K3 and K4, at d_pet 256 the general
-   K3 and K4 for the compress and combination, 2 per call each), the kernel
-   paths timed.
+   K3 and K4: the compress and combination 2 per call each, the head 1),
+   the kernel paths timed.
 4d. int8 scores: the fused model built with ``int8_scores=True`` in
    bfloat16: every counter starts at 0 just before its served calls; the
    absmax pass, K1-int8 and K2-int8 must launch 4 times per call each and
@@ -147,7 +148,13 @@ device and exits non-zero without one. Phases (any failure propagates):
    for bit (reported, not gated); the same for the 2-part compress and at
    A x M rows for M = 64, 48 and 16 (A = 11,000) and at 100,003 rows under
    ``shapes``. ``rowblock_fwd[<stage>]`` keeps the general body in bf16
-   (``sm90=False``), its launches the d_pet 256 calls'.
+   (``sm90=False``), its launches the d_pet 256 calls'. The head is a
+   stage of both (``rowblock_{fwd,bwd}_sm90[head]``, its weights resident
+   in shared memory), with the same checks and shapes; its entries also
+   report the shared bytes per block, and the Hopper K4 head's recompute
+   of the forward (``rowblock.k4_sm90_head_front``) must equal the Hopper
+   K3 head's output bit for bit at every shape (one ``head_front``: the
+   served h and the backward's h0 round alike).
 9. shapes: the C side's layout plans (shared bytes, workspace floats, row
    tiles) and the Hopper K1's, K2's, K3's and K4's dispatch rules and budgets equal
    ``_lib``'s Python ones for M = 16..256 and D of 64 to 256;
@@ -157,7 +164,7 @@ device and exits non-zero without one. Phases (any failure propagates):
    W8A8) at head widths 8, 12, 24 and 64; the bounds of phase 8, times under
    each entry's ``shapes``.
 
-The second-to-last line is a JSON object with one entry per kernel (30);
+The second-to-last line is a JSON object with one entry per kernel (32);
 the last line is ``{"ok": true, "device": {...}}``. Details also go to
 ``chiprun_out/chip_smoke.json``, the compiler's ``-Xptxas -v`` output to
 ``chiprun_out/chip_smoke_build.log``.
@@ -1080,7 +1087,10 @@ def check_rowblock_sm90(kind, stage, xs, weights, g, k_out, p_out, size):
     outputs bitwise equal across two launches, the general body
     (``sm90=False``) against the same plain version; its time, the general
     body's, the bound of ``size`` (bytes, operations) and, reported and not
-    gated, whether its outputs equal the general body's bit for bit."""
+    gated, whether its outputs equal the general body's bit for bit. For
+    the head's backward also the shared front: the Hopper K4 head's
+    recompute of the forward must equal the Hopper K3 head's output bit
+    for bit, and its d_x this launch's."""
     from metatrain_tpu_torch.ops.kernels import rowblock as rb
 
     def run(**kw):
@@ -1098,7 +1108,16 @@ def check_rowblock_sm90(kind, stage, xs, weights, g, k_out, p_out, size):
     _, g_worst = compare(g_out, p_out, torch.bfloat16)
     bound = {}
     record_bound(bound, "x", *size, torch.bfloat16)
-    return {"max_abs_err": err, "bound_ratio": worst, "bitwise_repeat": True,
+    front = {}
+    if kind == "bwd" and stage.code == rb.HEAD_CODE:
+        d_x, recomputed = rb.k4_sm90_head_front(stage, xs, weights, g)
+        served = rb.rowblock_fwd_cuda(stage, xs, weights)
+        torch.cuda.synchronize()
+        if not (torch.equal(recomputed, served) and torch.equal(d_x, k_out[0])):
+            fail("the Hopper K4 head's recomputed forward differs from the Hopper K3 head's "
+                 f"output at {xs[0].shape[0]} rows")
+        front["front_equal_k3"] = True
+    return {**front, "max_abs_err": err, "bound_ratio": worst, "bitwise_repeat": True,
             "equal_general": all(torch.equal(a, b) for a, b in zip(k_out, g_out)),
             "ms": cuda_ms(run), "general_ms": cuda_ms(lambda: run(sm90=False)),
             "general_bound_ratio": g_worst,
@@ -1188,16 +1207,14 @@ def check_rowblock(rows, D, gen, device, report):
 def check_rowblock_sm90_shapes(gen, device, report, D=128):
     """The Hopper K3 and K4 against the plain versions beyond the served
     rows: A x M rows at M = 64 (K3 only), 48 and 16 (A = 11,000) and a row
-    count that is not a multiple of 64 (its last tile partial), all three
-    stages they take (bf16); the checks of ``check_rowblock_sm90`` and the
+    count that is not a multiple of 64 (its last tile partial), every
+    stage they take (bf16); the checks of ``check_rowblock_sm90`` and the
     bound, under each entry's ``shapes``."""
     from metatrain_tpu_torch.ops.kernels import _lib
     from metatrain_tpu_torch.ops.kernels import rowblock as rb
 
     for rows in (11000 * 64, 11000 * 48, 11000 * 16, 100003):
         for stage, inputs, weights in stage_cases(rows, D, gen, device):
-            if stage.name == "head":
-                continue
             xs = tuple(t.to(torch.bfloat16) for t in inputs)
             g = torch.randn(rows, weights[-1].shape[0], generator=gen).to(device, torch.bfloat16)
             key = f"rows{rows}_{stage.name}{len(xs) if stage.name == 'compress' else ''}"
@@ -1358,12 +1375,9 @@ D256 = {"d_pet": 256, "d_feedforward": 512, "num_heads": 8}
 UNFUSED_ALT = {"fused_layers": False, "normalization": "LayerNorm", "activation": "SiLU",
                "transformer_type": "PostLN", "featurizer_type": "residual",
                "num_gnn_layers": 2, "num_attention_layers": 1}
-ROWBLOCK_KERNELS = [f"rowblock_{d}[{s}]" for d in ("fwd", "bwd")
-                    for s in ("compress", "combination", "head")]
-# bf16 at d_pet 128: the compress and combination run the Hopper K3 and K4
-ROWBLOCK_SM90_KERNELS = [f"rowblock_{d}_sm90[{s}]" for d in ("fwd", "bwd")
-                         for s in ("compress", "combination")] + [
-    "rowblock_fwd[head]", "rowblock_bwd[head]"]
+ROWBLOCK_KERNELS = [f"rowblock_{d}[{s}]" for d in ("fwd", "bwd") for s in STAGE_NAMES]
+# bf16 at d_pet 128: every stage runs the Hopper K3 and K4
+ROWBLOCK_SM90_KERNELS = [f"rowblock_{d}_sm90[{s}]" for d in ("fwd", "bwd") for s in STAGE_NAMES]
 FUSED_KERNELS = ["fused_layer_fwd", "fused_layer_bwd", "permute", "permute_acc"]
 # the served shape (M = 64, D = 128) in bf16 takes the Hopper K1 and K2
 FUSED_SM90_KERNELS = ["fused_layer_fwd_sm90", "fused_layer_bwd_sm90", "permute",
@@ -1371,34 +1385,27 @@ FUSED_SM90_KERNELS = ["fused_layer_fwd_sm90", "fused_layer_bwd_sm90", "permute",
 GNN_KERNELS = ["gnn_block_fwd", "gnn_block_bwd", "permute", "permute_acc"] + ROWBLOCK_SM90_KERNELS
 UNFUSED_KERNELS = ["window_attention_fwd", "window_attention_bwd", "permute", "permute_acc",
                    "rowblock_fwd_sm90[compress]", "rowblock_bwd_sm90[compress]",
-                   "rowblock_fwd[head]", "rowblock_bwd[head]"]
-# the row-block backward's launches per bf16 force call (two GNN layers:
-# the 2- and the 3-part compress, one combination each, one head; the
-# residual featurizer no combination and a head per GNN layer): at d_pet
-# 128 the Hopper K4 for the compress and combination and never the general
+                   "rowblock_fwd_sm90[head]", "rowblock_bwd_sm90[head]"]
+# the row-block kernels' launches per bf16 force call (two GNN layers: the
+# 2- and the 3-part compress, one combination each, one head; the residual
+# featurizer no combination and a head per GNN layer), K3's and K4's alike:
+# at d_pet 128 the Hopper kernels for every stage and never the general
 # body, at d_pet 256 the general body
-K4_SM90_PER_CALL = {"rowblock_bwd_sm90[compress]": 2, "rowblock_bwd_sm90[combination]": 2,
-                    "rowblock_bwd[compress]": 0, "rowblock_bwd[combination]": 0,
-                    "rowblock_bwd[head]": 1}
-K4_RESIDUAL_PER_CALL = {**K4_SM90_PER_CALL, "rowblock_bwd_sm90[combination]": 0,
-                        "rowblock_bwd[head]": 2}
-K4_D256_PER_CALL = {"rowblock_bwd_sm90[compress]": 0, "rowblock_bwd_sm90[combination]": 0,
-                    "rowblock_bwd[compress]": 2, "rowblock_bwd[combination]": 2,
-                    "rowblock_bwd[head]": 1}
-# the row-block forward's, likewise: the Hopper K3 for the compress and
-# combination at d_pet 128 and never the general body, at d_pet 256 the
-# general body
-K3_SM90_PER_CALL = {"rowblock_fwd_sm90[compress]": 2, "rowblock_fwd_sm90[combination]": 2,
-                    "rowblock_fwd[compress]": 0, "rowblock_fwd[combination]": 0,
-                    "rowblock_fwd[head]": 1}
-K3_RESIDUAL_PER_CALL = {**K3_SM90_PER_CALL, "rowblock_fwd_sm90[combination]": 0,
-                        "rowblock_fwd[head]": 2}
-K3_D256_PER_CALL = {"rowblock_fwd_sm90[compress]": 0, "rowblock_fwd_sm90[combination]": 0,
-                    "rowblock_fwd[compress]": 2, "rowblock_fwd[combination]": 2,
-                    "rowblock_fwd[head]": 1}
-ROWBLOCK_SM90_PER_CALL = {**K3_SM90_PER_CALL, **K4_SM90_PER_CALL}
-ROWBLOCK_RESIDUAL_PER_CALL = {**K3_RESIDUAL_PER_CALL, **K4_RESIDUAL_PER_CALL}
-ROWBLOCK_D256_PER_CALL = {**K3_D256_PER_CALL, **K4_D256_PER_CALL}
+STAGES_PER_CALL = {"compress": 2, "combination": 2, "head": 1}
+RESIDUAL_PER_CALL = {"compress": 2, "combination": 0, "head": 2}
+
+
+def rowblock_per_call(per_stage, sm90=True):
+    """Launches per call of the K3 and K4 kernels: ``per_stage`` on the
+    Hopper kernels (``sm90``) or on the general bodies, none on the
+    other."""
+    return {f"rowblock_{d}{v}[{s}]": n if (v == "_sm90") == sm90 else 0
+            for d in ("fwd", "bwd") for v in ("_sm90", "") for s, n in per_stage.items()}
+
+
+ROWBLOCK_SM90_PER_CALL = rowblock_per_call(STAGES_PER_CALL)
+ROWBLOCK_RESIDUAL_PER_CALL = rowblock_per_call(RESIDUAL_PER_CALL)
+ROWBLOCK_D256_PER_CALL = rowblock_per_call(STAGES_PER_CALL, sm90=False)
 
 
 def check_rowblock_launches(key, report, expected):
@@ -2030,16 +2037,16 @@ SOURCES = {
                                 "(weight_grads=True, int8 scores)"),
 }
 UNFUSED_PATH = ("permute", "permute_acc", "window_attention_fwd", "window_attention_bwd")
-N_ENTRIES = 30
+N_ENTRIES = 32
 
 
 def launch_count(report, name):
     """Launches of ``name`` in the run of its path: the block's force calls
     and training step for the GNN block's kernels, the training run for the
     other weight-gradient kernels and for K1's general body (the served bf16
-    calls run the Hopper K1), the d_pet 256 force calls for the general K3's
-    and K4's compress and combination (the served d_pet 128 calls run the
-    Hopper K3 and K4), the unfused force calls for the kernels
+    calls run the Hopper K1), the d_pet 256 force calls for the general K3
+    and K4 (the served d_pet 128 calls run the Hopper K3 and K4 for every
+    stage), the unfused force calls for the kernels
     that path added, the W8A8 force calls for the W8A8 kernels, the fused
     force calls for the rest; the int8 scores' from their force calls and
     (K2-dW-int8) their training step."""
@@ -2053,8 +2060,7 @@ def launch_count(report, name):
         source = report["training_parity_gnn" if "_dw" in name else "slice_gnn"]["launches"]
     elif "_dw" in name or name == "fused_layer_fwd":
         source = report["train_launches"]
-    elif name in ("rowblock_fwd[compress]", "rowblock_fwd[combination]",
-                  "rowblock_bwd[compress]", "rowblock_bwd[combination]"):
+    elif name in ROWBLOCK_KERNELS:
         source = report["slice_d256"]["launches"]
     else:
         source = report["unfused" if name in UNFUSED_PATH else "slice"]["launches"]
@@ -2233,9 +2239,7 @@ def main() -> int:
             expected=("fused_layer_fwd", "fused_layer_bwd_dw", "rowblock_bwd_dw[compress]",
                       "rowblock_bwd_dw[combination]"),
             replayed=("fused_layer",), dtype=torch.bfloat16,
-            absent=("fused_layer_fwd_sm90", "fused_layer_bwd_sm90", "rowblock_fwd_sm90[compress]",
-                    "rowblock_fwd_sm90[combination]", "rowblock_bwd_sm90[compress]",
-                    "rowblock_bwd_sm90[combination]"))
+            absent=("fused_layer_fwd_sm90", "fused_layer_bwd_sm90", *ROWBLOCK_SM90_KERNELS))
         print("training step, exact bf16:", json.dumps(report["training_parity_bf16"]), flush=True)
         torch.cuda.empty_cache()
         time_training(workdir, state, device, report)
@@ -2263,17 +2267,26 @@ def main() -> int:
           json.dumps(report["gnn_block_variants"]), flush=True)
     check_rowblock(A * M, D, gen, device, kernels)
     check_rowblock_sm90_shapes(gen, device, kernels, D)
+    lib = _lib.library()
     for k in (3, 4):
         kind = "fwd" if k == 3 else "bwd"
-        for code, stage in enumerate(("compress", "combination")):
+        for code, stage in enumerate(STAGE_NAMES):
             name = f"rowblock_{kind}_sm90[{stage}]"
+            # the shared bytes per block from the C side's query, at the
+            # served widths (the 3-part compress)
+            w_in, w_hid = {"compress": (3 * D, D), "combination": (2 * D, 2 * D),
+                           "head": (D, D)}[stage]
+            kernels[name]["smem_bytes"] = getattr(lib, f"mtt_rowblock_{kind}_sm90_smem")(
+                code, D, w_in, w_hid, D)
             if build_log.exists():  # the instantiations per stage (mangled names)
-                kernels[name]["ptxas_bf16"] = ptxas_usage(build_log.read_text(),
-                                                          f"k{k}_sm90_kernelILi{code}E")
+                kernels[name]["ptxas_bf16"] = ptxas_usage(
+                    build_log.read_text(),
+                    f"k{k}_head_sm90_kernel" if stage == "head" else f"k{k}_sm90_kernelILi{code}E")
             print(f"Hopper K{k} {name} (general body's ms beside):", json.dumps(
                 {key: kernels[name].get(key) for key in (
                     "ms_bf16", "general_ms_bf16", "bound_ms_bf16", "bound_ratio_bf16",
-                    "equal_general_bf16", "ptxas_bf16", "shapes")}), flush=True)
+                    "equal_general_bf16", "front_equal_k3_bf16", "ptxas_bf16", "smem_bytes",
+                    "shapes")}), flush=True)
     check_permute(A_u * M_u, D, gen, device, kernels)
     check_attention(A_u, M_u + 1, D, H, gen, device, kernels)
     check_w8a8_layer(A, M, D, H, F, gen, device, kernels)

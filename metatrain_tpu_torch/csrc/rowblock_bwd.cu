@@ -31,7 +31,10 @@
 // The unrounded d_pre tiles are kept where the bias sums need them: the
 // products that consume them round on their own (bf16 fragments are
 // packed with round-to-nearest-even, the same as rnd), so the input
-// cotangents are those of K4.
+// cotangents are those of K4. The served bf16 compress, combination and
+// head at d_part 128 without weight gradients run the Hopper K4
+// (rowblock_bwd_sm90.cu) instead; this body keeps K4-dW, float32 and
+// d_pet 256.
 
 #include "common.cuh"
 

@@ -1,13 +1,13 @@
-// K4 on Hopper: the exact bfloat16 backward of PET's compress and
-// combination row-block stages, redesigned for the H100.
+// K4 on Hopper: the exact bfloat16 backward of PET's compress, combination
+// and head row-block stages, redesigned for the H100.
 //
 // Replaces the TPU kernel metatrain_tpu/ops/pallas/rowblock.py
-// `_make_bwd_op` (pallas_call at :279) with weight_grads=False, in
-// bfloat16, for two of its three stages: the hand-written backwards
-// `compress_bwd` (:112) and `combination_bwd` (:148) of
+// `_make_bwd_op` (:213; pallas_call at :279) with weight_grads=False, in
+// bfloat16, for its three stages: the hand-written backwards
+// `compress_bwd` (:112), `combination_bwd` (:148) and `head_bwd` (:198) of
 // metatrain_tpu/models/pet/fused_stages.py. It computes the same function
 // as K4's general body (rowblock_bwd.cu) and the plain versions
-// `compress_bwd` / `combination_bwd` of
+// `compress_bwd` / `combination_bwd` / `head_bwd` of
 // metatrain_tpu_torch/models/pet/fused_stages.py, at d_part = 128:
 //   compress    (2 or 3 parts: w_in 256 or 384, w_hid = w_out = 128)
 //                 pre = X w0 + b0, d_pre = rnd((g w1^T) silu'(pre)),
@@ -19,13 +19,17 @@
 //                 mean(d xn0)), d_edges = rnd(d_x[:, :128] + g),
 //                 d_reversed = rnd(d_x[:, 128:]); d_messages = g is
 //                 returned by the caller without a launch
+//   head        (w_in = w_hid = w_out = 128; its own kernel, below)
+//                 pre0 = x w0 + b0, h0 = rnd(silu(pre0)), pre1 = h0 w1 + b1,
+//                 d_pre1 = rnd(g silu'(pre1)), d_pre0 = rnd((d_pre1 w1^T)
+//                 silu'(pre0)), d_x = rnd(d_pre0 w0^T)
 // It rounds where the plain version rounds and nowhere else: g (already
-// bf16), xn, d_pre and the outputs. pre, g w1^T, d_pre w0^T and the
-// LayerNorm backward stay in float, so K3, this kernel, K4-dW and the
-// second-order replay compute one function; products accumulate in float,
-// only their summation order differs from the plain version's.
-// mtt_rowblock_bwd_sm90_ok is the shape rule; the wrapper sends every
-// other shape, K4-dW, float32 and the head stage to rowblock_bwd.cu.
+// bf16), xn, h0, d_pre (d_pre0, d_pre1) and the outputs. pre, g w1^T,
+// d_pre w0^T and the LayerNorm backward stay in float, so K3, this kernel,
+// K4-dW and the second-order replay compute one function; products
+// accumulate in float, only their summation order differs from the plain
+// version's. mtt_rowblock_bwd_sm90_ok is the shape rule; the wrapper sends
+// every other shape, K4-dW and float32 to rowblock_bwd.cu.
 //
 // What bounds it on the H100: bytes. At the served rows (A = 11,392 atoms
 // x M = 64 = 729,088) the 3-part compress reads 3 parts and g and writes
@@ -70,6 +74,27 @@
 // What is left: one barrier and one full wgmma wait per staged chunk, as in
 // the Hopper K1 and K2.
 //
+// The head (k4_head_sm90_kernel) reads x and g and writes d_x, 768 B per
+// row: 0.167 ms at the served rows (four 128 x 128 products, 95.6 GFLOP:
+// 0.097 ms). The general head took 25x that, for the causes above; the
+// ring would still cost one barrier and one full wgmma wait per chunk per
+// tile, 8 chunks a tile. Its weights are small enough to stay: w0^T and
+// w1^T for the recompute, w1 and w0 for d_h0 = d_pre1 w1^T and d_x =
+// d_pre0 w0^T, eight chunks, 131,072 B, loaded once per block into shared
+// memory in the ring's swizzle (rowblock_sm90.cuh ResidentWeights) and
+// read there by every tile: no ring, no per-chunk barrier, no weight
+// traffic from L2 after the first tile. x and g are double-buffered
+// (RowTiles): at the start of tile t their 2 x 1,024 16-byte pieces of
+// tile t + 1 are issued as one cp.async group, waited for at the end of
+// tile t. A tile: head_front (pre0 in registers, h0 to the one bf16 tile,
+// pre1 in registers: the Hopper K3 head's own code, so the served h and
+// this h0 round the same way), then d_pre1 from pre1 and the g tile into
+// that tile, d_h0 on it, d_pre0 = d_h0 silu'(pre0) into it again, d_x
+// rounded and stored from registers; five barriers a tile order the tile's
+// reuse. Shared memory: 131,072 + 2 x 17,408 (x) + 2 x 17,408 (g) + 17,408
+// (h0 / d_pre) = 218,112 B, one block per SM (a second bf16 tile would
+// take it to 235,520, over the 232,448 a block may have).
+//
 // No atomics: every output element is written once by one thread, and the
 // row sums run in a fixed order, so every launch gives the same bits.
 
@@ -79,7 +104,7 @@ namespace mtt {
 namespace sm90 {
 namespace {
 
-enum Stage { kCompress = 0, kCombination = 1 };
+enum Stage { kCompress = 0, kCombination = 1, kHead = 2 };
 
 // The layout of one instantiation: NP arrays make up the input tile X
 // (compress: the parts; combination: edges and reversed), g is one more.
@@ -284,6 +309,81 @@ __global__ void __launch_bounds__(kThreads, 1) k4_sm90_kernel(Args p, Chunks<STA
     }
 }
 
+// ---- the head: resident weights (chunks 0, 1 w0^T; 2, 3 w1^T; 4, 5 w1;
+// 6, 7 w0), no ring ----
+constexpr int kHeadOffX = 8 * kChunkElems * 2;  // 131,072
+constexpr int kHeadOffG = kHeadOffX + 2 * kRows * LA * 2;
+constexpr int kHeadOffH = kHeadOffG + 2 * kRows * LA * 2;
+constexpr int kHeadSmem = kHeadOffH + kRows * LA * 2;
+static_assert(kHeadSmem == 218112, "the layout _lib.k4_sm90_smem mirrors");
+
+struct HeadArgs {
+    const bf16 *x, *g, *w0_t, *b0, *w1_t, *b1, *w1, *w0;
+    bf16* d_x;        // (rows, 128)
+    bf16* front_out;  // null, or (rows, 128): the recomputed rnd(silu(pre1)), for checks
+    long long rows;
+};
+
+// head, one tile: X and g (rows of LA) in shared memory, H the block's own
+__device__ __forceinline__ void head_tile(const ResidentWeights& W, const HeadArgs& p, const bf16* X,
+                                          const bf16* Gt, bf16* H, long long row0, int valid) {
+    float pre0[4][4], acc[4][4];
+    head_front(W, X, H, p.b0, p.b1, pre0, acc);  // acc: pre1
+    if (p.front_out) head_out(acc, p.front_out + row0 * kPart, valid);
+    __syncthreads();  // every warp has read h0
+    panel_pairs([&](int j, int h, int m, int n) {  // d_pre1 = rnd(g silu'(pre1))
+        const float2 g = ld2(Gt + m * LA + n);
+        store2(H + m * LA + n, d_pre(g.x, acc[j][2 * h]), d_pre(g.y, acc[j][2 * h + 1]));
+    });
+    __syncthreads();
+    int c = 4;
+    zero(acc);  // d_h0 = d_pre1 w1^T
+    panel_mm<2>(W, c, [&](int r, int& ld) { ld = LA; return (const bf16*)H + r * kChunkK; }, acc);
+    __syncthreads();  // every warp has read d_pre1
+    panel_pairs([&](int j, int h, int m, int n) {  // d_pre0 = rnd(d_h0 silu'(pre0))
+        store2(H + m * LA + n, d_pre(acc[j][2 * h], pre0[j][2 * h]),
+               d_pre(acc[j][2 * h + 1], pre0[j][2 * h + 1]));
+    });
+    __syncthreads();
+    zero(acc);  // d_x = rnd(d_pre0 w0^T)
+    panel_mm<2>(W, c, [&](int r, int& ld) { ld = LA; return (const bf16*)H + r * kChunkK; }, acc);
+    bf16* out = p.d_x + row0 * kPart;
+    panel_pairs([&](int j, int h, int m, int n) {
+        if (m < valid) store2(out + (size_t)m * kPart + n, acc[j][2 * h], acc[j][2 * h + 1]);
+    });
+}
+
+__global__ void __launch_bounds__(kThreads, 1) k4_head_sm90_kernel(HeadArgs p) {
+    extern __shared__ __align__(1024) unsigned char smem[];
+    const ResidentWeights W{reinterpret_cast<bf16*>(smem)};
+    bf16* H = reinterpret_cast<bf16*>(smem + kHeadOffH);
+    const long long tiles = (p.rows + kRows - 1) / kRows;
+    const long long t0 = tiles * blockIdx.x / gridDim.x, t1 = tiles * (blockIdx.x + 1) / gridDim.x;
+    const int T = (int)(t1 - t0);
+    if (T == 0) return;
+    const RowTiles<2> in{{p.x, p.g},
+                         {reinterpret_cast<bf16*>(smem + kHeadOffX), reinterpret_cast<bf16*>(smem + kHeadOffG)},
+                         p.rows, t0};
+    W.load(0, p.w0_t);
+    W.load(1, p.w1_t);
+    W.load(2, p.w1);
+    W.load(3, p.w0);
+    in.load(0);  // one cp.async group with the weights
+    cp_async_wait<0>();
+    // written through the generic proxy; wgmma reads the weights through
+    // the async one
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+#pragma unroll 1
+    for (int t = 0; t < T; ++t) {
+        if (t + 1 < T) in.load(t + 1);  // into the buffers tile t - 1 left
+        const long long row0 = (t0 + t) * kRows;
+        head_tile(W, p, in.tile(0, t), in.tile(1, t), H, row0, (int)min((long long)kRows, p.rows - row0));
+        cp_async_wait<0>();
+        __syncthreads();  // tile t + 1 in; H and tile t's buffers free
+    }
+}
+
 template <int STAGE, int NP>
 int launch(const Args& a, const Chunks<STAGE, NP>& chunks, int blocks, cudaStream_t stream) {
     const int bytes = Geo<STAGE, NP>::kSmem;
@@ -298,8 +398,8 @@ int launch(const Args& a, const Chunks<STAGE, NP>& chunks, int blocks, cudaStrea
 }  // namespace sm90
 }  // namespace mtt
 
-// Whether the Hopper K4 takes a stage (0 compress, 1 combination) and its
-// widths (rowblock_sm90.cuh rowblock_sm90_ok).
+// Whether the Hopper K4 takes a stage (0 compress, 1 combination, 2 head)
+// and its widths (rowblock_sm90.cuh rowblock_sm90_ok).
 extern "C" int mtt_rowblock_bwd_sm90_ok(int stage, int d_part, int w_in, int w_hid, int w_out) {
     return mtt::sm90::rowblock_sm90_ok(stage, d_part, w_in, w_hid, w_out);
 }
@@ -308,31 +408,47 @@ extern "C" int mtt_rowblock_bwd_sm90_ok(int stage, int d_part, int w_in, int w_h
 extern "C" size_t mtt_rowblock_bwd_sm90_smem(int stage, int d_part, int w_in, int w_hid, int w_out) {
     using namespace mtt::sm90;
     if (!mtt_rowblock_bwd_sm90_ok(stage, d_part, w_in, w_hid, w_out)) return 0;
+    if (stage == kHead) return kHeadSmem;
     if (stage == kCombination) return Geo<kCombination, 2>::kSmem;
     return w_in == 3 * kPart ? Geo<kCompress, 3>::kSmem : Geo<kCompress, 2>::kSmem;
 }
 
-// bfloat16 tensors. x0..x2: the compress parts (n_parts of them) or edges
-// and reversed; w0 (w_in, w_hid) and its transpose w0_t, w1 (w_hid, w_out);
-// g (rows, w_out); d0..d2 receive the input cotangents (one per part, or
-// d_edges and d_reversed). `blocks` persistent blocks (one per SM) walk
-// contiguous ranges of 64-row tiles on `stream`. Returns the CUDA error
-// code (cudaErrorInvalidValue for a shape it does not take).
+// bfloat16 tensors. x0..x2: the compress parts (n_parts of them), edges
+// and reversed, or the head's x; w0 (w_in, w_hid) and its transpose w0_t,
+// w1 (w_hid, w_out) and (the head only) its transpose w1_t and b1; g (rows,
+// w_out); d0..d2 receive the input cotangents (one per part, d_edges and
+// d_reversed, or the head's d_x). front_out (the head only, null in the
+// served calls): where given, receives the head's recomputed forward
+// output, for holding it against the Hopper K3 head's. `blocks` persistent
+// blocks (one per SM) walk contiguous ranges of 64-row tiles on `stream`.
+// Returns the CUDA error code (cudaErrorInvalidValue for a shape it does
+// not take).
 extern "C" int mtt_rowblock_bwd_sm90(
     int stage, const void* x0, const void* x1, const void* x2, int n_parts,
     const void* ln_scale, const void* ln_bias, const void* w0, const void* b0, const void* w1,
-    const void* w0_t, const void* g, void* d0, void* d1, void* d2,
-    long long rows, int d_part, int w_in, int w_hid, int w_out, int blocks, void* stream) {
+    const void* b1, const void* w0_t, const void* w1_t, const void* g, void* d0, void* d1, void* d2,
+    void* front_out, long long rows, int d_part, int w_in, int w_hid, int w_out, int blocks,
+    void* stream) {
     using namespace mtt::sm90;
     if (!mtt_rowblock_bwd_sm90_ok(stage, d_part, w_in, w_hid, w_out) || blocks <= 0 ||
-        (stage == kCompress && n_parts * d_part != w_in))
+        (stage == kCompress && n_parts * d_part != w_in) || (stage == kHead && n_parts != 1))
         return (int)cudaErrorInvalidValue;
     if (rows == 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (stage == kHead) {
+        cudaError_t err = cudaFuncSetAttribute(k4_head_sm90_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, kHeadSmem);
+        if (err != cudaSuccess) return (int)err;
+        const HeadArgs h{(const bf16*)x0, (const bf16*)g, (const bf16*)w0_t, (const bf16*)b0,
+                         (const bf16*)w1_t, (const bf16*)b1, (const bf16*)w1, (const bf16*)w0,
+                         (bf16*)d0, (bf16*)front_out, rows};
+        k4_head_sm90_kernel<<<(unsigned)blocks, kThreads, kHeadSmem, s>>>(h);
+        return (int)cudaGetLastError();
+    }
     const Args a{{(const bf16*)x0, (const bf16*)x1, (const bf16*)x2}, (const bf16*)g,
                  (const bf16*)ln_scale, (const bf16*)ln_bias, (const bf16*)b0,
                  {(bf16*)d0, (bf16*)d1, (bf16*)d2}, rows};
     const bf16 *wt = (const bf16*)w0_t, *v1 = (const bf16*)w1, *v0 = (const bf16*)w0;
-    cudaStream_t s = (cudaStream_t)stream;
     if (stage == kCombination) return launch<kCombination, 2>(a, {wt, v1, v0}, blocks, s);
     if (w_in == 3 * kPart) return launch<kCompress, 3>(a, {wt, v1, v0}, blocks, s);
     return launch<kCompress, 2>(a, {wt, v1, v0}, blocks, s);

@@ -21,9 +21,9 @@
 // stages take tiles of 32 or 16 rows, the most that fit (rowblock_fwd_rows:
 // the combination at d_pet 256, 2 x 512 floats per row, takes 32). The
 // products are common.cuh block_mm: FMA loops in f32, mma.sync tensor
-// cores in bf16. The served bf16 compress and combination at d_part 128
-// run the Hopper K3 (rowblock_fwd_sm90.cu) instead; this body keeps the
-// head, float32, d_pet 256 and every call whose weights require grad.
+// cores in bf16. The served bf16 compress, combination and head at d_part
+// 128 run the Hopper K3 (rowblock_fwd_sm90.cu) instead; this body keeps
+// float32, d_pet 256 and every call whose weights require grad.
 
 #include "common.cuh"
 

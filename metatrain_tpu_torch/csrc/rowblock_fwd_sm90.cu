@@ -1,12 +1,13 @@
-// K3 on Hopper: the exact bfloat16 forward of PET's compress and
-// combination row-block stages, redesigned for the H100.
+// K3 on Hopper: the exact bfloat16 forward of PET's compress, combination
+// and head row-block stages, redesigned for the H100.
 //
 // Replaces the TPU kernel metatrain_tpu/ops/pallas/rowblock.py
-// `_forward_impl` (:93; pallas_call at :113), in bfloat16, for two of the
-// three math functions it is traced over: `compress_math` (:26) and
-// `combination_math` (:45) of metatrain_tpu/models/pet/fused_stages.py. It
-// computes the same function as K3's general body (rowblock_fwd.cu) and the
-// plain versions `compress_math` / `combination_math` of
+// `_forward_impl` (:93; pallas_call at :113), in bfloat16, for the three
+// math functions it is traced over: `compress_math` (:26),
+// `combination_math` (:45) and `head_math` (:66) of
+// metatrain_tpu/models/pet/fused_stages.py. It computes the same function
+// as K3's general body (rowblock_fwd.cu) and the plain versions
+// `compress_math` / `combination_math` / `head_math` of
 // metatrain_tpu_torch/models/pet/fused_stages.py, at d_part = 128:
 //   compress    (2 or 3 parts: w_in 256 or 384, w_hid = w_out = 128)
 //                 pre = sum_i X_i w0_i + b0, h = rnd(silu(pre)),
@@ -16,14 +17,17 @@
 //                 xn = rnd(xn0 ln_scale + ln_bias), h = rnd(silu(xn w0 +
 //                 b0)), out = rnd(messages + edges + (h w1 + b1)), added in
 //                 that order
+//   head        (w_in = w_hid = w_out = 128; its own kernel, below)
+//                 h = rnd(silu(x w0 + b0)), out = rnd(silu(h w1 + b1))
 // It rounds where the plain version rounds and nowhere else: xn, h and the
 // output. Products accumulate in float; only their summation order differs
-// from the plain version's. The LayerNorm is the Hopper K4's recompute
-// (rowblock_sm90.cuh layer_norm_rows), so the served forward's xn and the
-// backward's round the same way (the general K3 sums its rows in another
-// order). mtt_rowblock_fwd_sm90_ok is the shape rule; the wrapper sends
-// every other shape, float32, the head stage and any call whose weights
-// require grad (training keeps the general K3) to rowblock_fwd.cu.
+// from the plain version's. The LayerNorm and the head's front are the
+// Hopper K4's recompute (rowblock_sm90.cuh layer_norm_rows, head_front),
+// so the served forward's xn and h and the backward's round the same way
+// (the general K3 sums its rows in another order).
+// mtt_rowblock_fwd_sm90_ok is the shape rule; the wrapper sends every other
+// shape, float32 and any call whose weights require grad (training keeps
+// the general K3) to rowblock_fwd.cu.
 //
 // What bounds it on the H100: bytes. At the served rows (A = 11,392 atoms
 // x M = 64 = 729,088) the 3-part compress reads 3 parts and writes the
@@ -61,6 +65,20 @@
 // 166,912 at 3 parts, 134,144 at 2, 219,648 for the combination: one block
 // per SM.
 //
+// The head (k3_head_sm90_kernel) reads x and writes the output, 512 B per
+// row: 0.111 ms at the served rows (two 128 x 128 products, 47.8 GFLOP:
+// 0.048 ms). The general head took 23x that, for the causes above, and the
+// ring would still cost one barrier and one full wgmma wait per chunk per
+// tile. Its weights are small enough to stay: w0^T and w1^T, 65,536 B, are
+// loaded once per block into shared memory in the ring's swizzle
+// (rowblock_sm90.cuh ResidentWeights) and read there by every tile, with no
+// ring, no per-chunk barrier and no weight traffic from L2 after the first
+// tile. x is double-buffered (RowTiles): at the start of tile t its 1,024
+// 16-byte pieces of tile t + 1 are issued as one cp.async group, waited for
+// at the end of tile t. A tile is head_front (pre0, h to the h tile, pre1)
+// and head_out (SiLU, rounded, stored from registers). Shared memory:
+// 65,536 + 2 x 17,408 (x) + 17,408 (h) = 117,760 B, one block per SM.
+//
 // No atomics: every output element is written once by one thread, so every
 // launch gives the same bits.
 
@@ -70,7 +88,7 @@ namespace mtt {
 namespace sm90 {
 namespace {
 
-enum Stage { kCompress = 0, kCombination = 1 };
+enum Stage { kCompress = 0, kCombination = 1, kHead = 2 };
 
 // The layout of one instantiation: NX arrays make up the input tile X
 // (compress: the NP parts; combination: edges and reversed), the
@@ -228,6 +246,47 @@ __global__ void __launch_bounds__(kThreads, 1) k3_sm90_kernel(Args p, Chunks<STA
     }
 }
 
+// ---- the head: resident weights (chunks 0, 1 w0^T; 2, 3 w1^T), no ring ----
+constexpr int kHeadOffX = 4 * kChunkElems * 2;  // 65,536
+constexpr int kHeadOffH = kHeadOffX + 2 * kRows * LA * 2;
+constexpr int kHeadSmem = kHeadOffH + kRows * LA * 2;
+static_assert(kHeadSmem == 117760, "the layout _lib.k3_sm90_smem mirrors");
+
+struct HeadArgs {
+    const bf16 *x, *w0_t, *b0, *w1_t, *b1;
+    bf16* out;  // (rows, 128)
+    long long rows;
+};
+
+__global__ void __launch_bounds__(kThreads, 1) k3_head_sm90_kernel(HeadArgs p) {
+    extern __shared__ __align__(1024) unsigned char smem[];
+    const ResidentWeights W{reinterpret_cast<bf16*>(smem)};
+    bf16* H = reinterpret_cast<bf16*>(smem + kHeadOffH);
+    const long long tiles = (p.rows + kRows - 1) / kRows;
+    const long long t0 = tiles * blockIdx.x / gridDim.x, t1 = tiles * (blockIdx.x + 1) / gridDim.x;
+    const int T = (int)(t1 - t0);
+    if (T == 0) return;
+    const RowTiles<1> X{{p.x}, {reinterpret_cast<bf16*>(smem + kHeadOffX)}, p.rows, t0};
+    W.load(0, p.w0_t);
+    W.load(1, p.w1_t);
+    X.load(0);  // one cp.async group with the weights
+    cp_async_wait<0>();
+    // written through the generic proxy; wgmma reads the weights through
+    // the async one
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+#pragma unroll 1
+    for (int t = 0; t < T; ++t) {
+        if (t + 1 < T) X.load(t + 1);  // into the buffer tile t - 1 left
+        const long long row0 = (t0 + t) * kRows;
+        float pre0[4][4], pre1[4][4];
+        head_front(W, X.tile(0, t), H, p.b0, p.b1, pre0, pre1);
+        head_out(pre1, p.out + row0 * kPart, (int)min((long long)kRows, p.rows - row0));
+        cp_async_wait<0>();
+        __syncthreads();  // tile t + 1 in; H and tile t's buffer free
+    }
+}
+
 template <int STAGE, int NP>
 int launch(const Args& a, const Chunks<STAGE, NP>& chunks, int blocks, cudaStream_t stream) {
     const int bytes = Geo<STAGE, NP>::kSmem;
@@ -242,8 +301,8 @@ int launch(const Args& a, const Chunks<STAGE, NP>& chunks, int blocks, cudaStrea
 }  // namespace sm90
 }  // namespace mtt
 
-// Whether the Hopper K3 takes a stage (0 compress, 1 combination) and its
-// widths (rowblock_sm90.cuh rowblock_sm90_ok).
+// Whether the Hopper K3 takes a stage (0 compress, 1 combination, 2 head)
+// and its widths (rowblock_sm90.cuh rowblock_sm90_ok).
 extern "C" int mtt_rowblock_fwd_sm90_ok(int stage, int d_part, int w_in, int w_hid, int w_out) {
     return mtt::sm90::rowblock_sm90_ok(stage, d_part, w_in, w_hid, w_out);
 }
@@ -252,15 +311,17 @@ extern "C" int mtt_rowblock_fwd_sm90_ok(int stage, int d_part, int w_in, int w_h
 extern "C" size_t mtt_rowblock_fwd_sm90_smem(int stage, int d_part, int w_in, int w_hid, int w_out) {
     using namespace mtt::sm90;
     if (!mtt_rowblock_fwd_sm90_ok(stage, d_part, w_in, w_hid, w_out)) return 0;
+    if (stage == kHead) return kHeadSmem;
     if (stage == kCombination) return Geo<kCombination, 2>::kSmem;
     return w_in == 3 * kPart ? Geo<kCompress, 3>::kSmem : Geo<kCompress, 2>::kSmem;
 }
 
-// bfloat16 tensors. x0..x2: the compress parts (n_parts of them) or edges,
-// reversed and messages; w0_t (w_hid, w_in) and w1_t (w_out, w_hid), the
-// transposes of w0 and w1; out (rows, w_out). `blocks` persistent blocks
-// (one per SM) walk contiguous ranges of 64-row tiles on `stream`. Returns
-// the CUDA error code (cudaErrorInvalidValue for a shape it does not take).
+// bfloat16 tensors. x0..x2: the compress parts (n_parts of them), edges,
+// reversed and messages, or the head's x; w0_t (w_hid, w_in) and w1_t
+// (w_out, w_hid), the transposes of w0 and w1; out (rows, w_out). `blocks`
+// persistent blocks (one per SM) walk contiguous ranges of 64-row tiles on
+// `stream`. Returns the CUDA error code (cudaErrorInvalidValue for a shape
+// it does not take).
 extern "C" int mtt_rowblock_fwd_sm90(
     int stage, const void* x0, const void* x1, const void* x2, int n_parts,
     const void* ln_scale, const void* ln_bias, const void* w0_t, const void* b0, const void* w1_t,
@@ -268,13 +329,23 @@ extern "C" int mtt_rowblock_fwd_sm90(
     void* stream) {
     using namespace mtt::sm90;
     if (!mtt_rowblock_fwd_sm90_ok(stage, d_part, w_in, w_hid, w_out) || blocks <= 0 ||
-        (stage == kCompress && n_parts * d_part != w_in) || (stage == kCombination && n_parts != 3))
+        (stage == kCompress && n_parts * d_part != w_in) || (stage == kCombination && n_parts != 3) ||
+        (stage == kHead && n_parts != 1))
         return (int)cudaErrorInvalidValue;
     if (rows == 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (stage == kHead) {
+        cudaError_t err = cudaFuncSetAttribute(k3_head_sm90_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, kHeadSmem);
+        if (err != cudaSuccess) return (int)err;
+        const HeadArgs h{(const bf16*)x0, (const bf16*)w0_t, (const bf16*)b0, (const bf16*)w1_t,
+                         (const bf16*)b1, (bf16*)out, rows};
+        k3_head_sm90_kernel<<<(unsigned)blocks, kThreads, kHeadSmem, s>>>(h);
+        return (int)cudaGetLastError();
+    }
     const Args a{{(const bf16*)x0, (const bf16*)x1, (const bf16*)x2}, (const bf16*)ln_scale,
                  (const bf16*)ln_bias, (const bf16*)b0, (const bf16*)b1, (bf16*)out, rows};
     const bf16 *v0 = (const bf16*)w0_t, *v1 = (const bf16*)w1_t;
-    cudaStream_t s = (cudaStream_t)stream;
     if (stage == kCombination) return launch<kCombination, 2>(a, {v0, v1}, blocks, s);
     if (w_in == 3 * kPart) return launch<kCompress, 3>(a, {v0, v1}, blocks, s);
     return launch<kCompress, 2>(a, {v0, v1}, blocks, s);

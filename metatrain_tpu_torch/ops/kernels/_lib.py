@@ -82,7 +82,7 @@ _SIGNATURES = {
     "mtt_rowblock_fwd": [_I, _I, _P, _P, _P, _I] + [_P] * 7 + [_L, _I, _I, _I, _I, _P],
     "mtt_rowblock_fwd_sm90": [_I, _P, _P, _P, _I] + [_P] * 7 + [_L, _I, _I, _I, _I, _I, _P],
     "mtt_rowblock_bwd": [_I, _I, _P, _P, _P, _I] + [_P] * 13 + [_I, _P] + [_L, _I, _I, _I, _I, _P],
-    "mtt_rowblock_bwd_sm90": [_I, _P, _P, _P, _I] + [_P] * 10 + [_L, _I, _I, _I, _I, _I, _P],
+    "mtt_rowblock_bwd_sm90": [_I, _P, _P, _P, _I] + [_P] * 13 + [_L, _I, _I, _I, _I, _I, _P],
     "mtt_permute": [_I, _P, _P, _P, _P, _L, _I, _P],
     "mtt_window_attention_fwd": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _L, _I, _I, _I, _F, _P],
     "mtt_window_attention_bwd": [_I] + [_P] * 4 + [_I] * 4 + [_P] * 5 + [_L, _I, _I, _I, _F, _P],
@@ -332,13 +332,15 @@ def k4_sm90_shape(stage: int, d_part: int, w_in: int, w_hid: int, w_out: int) ->
     """The stages and widths the Hopper K4 takes (its C query
     ``mtt_rowblock_bwd_sm90_ok``): d_part = w_out = 128; the compress
     (stage 0) with 2 or 3 parts and w_hid 128; the combination (stage 1)
-    with w_in = w_hid = 256."""
+    with w_in = w_hid = 256; the head (stage 2) with w_in = w_hid = 128."""
     if d_part != 128 or w_out != 128:
         return False
     if stage == 0:
         return w_in in (2 * d_part, 3 * d_part) and w_hid == d_part
     if stage == 1:
         return w_in == 2 * d_part and w_hid == 2 * d_part
+    if stage == 2:
+        return w_in == d_part and w_hid == d_part
     return False
 
 
@@ -355,10 +357,15 @@ def k4_sm90_smem(stage: int, d_part: int, w_in: int, w_hid: int, w_out: int) -> 
     it does not take the stage. The C source's layout: three weight chunks
     of 128 x 64 bf16, two input tiles (bf16 rows of w_in + 8), two g tiles
     (rows of 136), the d_pre tile (rows of w_hid + 8); the combination also
-    the xn tile and 6 x 64 floats (mean, rs, row-sum scratch)."""
+    the xn tile and 6 x 64 floats (mean, rs, row-sum scratch). The head
+    holds its four 128 x 128 weights (w0^T, w1^T, w1, w0) whole instead of
+    the ring, then two x and two g tiles and the h0 / d_pre tile (rows of
+    136 each)."""
     if not k4_sm90_shape(stage, d_part, w_in, w_hid, w_out):
         return 0
     rows = 64
+    if stage == 2:
+        return 4 * 128 * 128 * 2 + 5 * rows * (d_part + 8) * 2
     nbytes = 3 * 128 * 64 * 2 + 2 * rows * (w_in + 8) * 2 + 2 * rows * (d_part + 8) * 2
     nbytes += rows * (w_hid + 8) * 2
     if stage == 1:
@@ -391,10 +398,14 @@ def k3_sm90_smem(stage: int, d_part: int, w_in: int, w_hid: int, w_out: int) -> 
     of 128 x 64 bf16, two input tiles (bf16 rows of w_in + 8), the h tile
     (rows of w_hid + 8); the combination also two messages tiles (rows of
     d_part + 8), the xn tile (rows of w_in + 8) and 2 x 64 floats (mean,
-    rs)."""
+    rs). The head holds its two 128 x 128 weights (w0^T, w1^T) whole
+    instead of the ring, then two x tiles and the h tile (rows of 136
+    each)."""
     if not k3_sm90_shape(stage, d_part, w_in, w_hid, w_out):
         return 0
     rows = 64
+    if stage == 2:
+        return 2 * 128 * 128 * 2 + 3 * rows * (d_part + 8) * 2
     nbytes = 3 * 128 * 64 * 2 + 2 * rows * (w_in + 8) * 2 + rows * (w_hid + 8) * 2
     if stage == 1:
         nbytes += 2 * rows * (d_part + 8) * 2 + rows * (w_in + 8) * 2 + 2 * rows * 4

@@ -11,14 +11,15 @@ a stage with its hand-written backward: on the CPU through those plain
 versions, on the card through K3 (``csrc/rowblock_fwd.cu``) and K4
 (``csrc/rowblock_bwd.cu``), one templated kernel instantiated per stage;
 K4-dW, its weight-gradient variant, runs when a weight requires grad. The
-bfloat16 compress and combination at d_part 128 (every served bf16
+bfloat16 compress, combination and head at d_part 128 (every served bf16
 call's) run the Hopper kernels: the forward the Hopper K3
 (``csrc/rowblock_fwd_sm90.cu``, ``_lib.k3_sm90_takes``: only where no
 weight requires grad, so a training step keeps the general K3), the
 backward the Hopper K4 (``csrc/rowblock_bwd_sm90.cu``,
 ``_lib.k4_sm90_takes``). Both share ``csrc/rowblock_sm90.cuh``: the
-streamed row tiles and the combination's LayerNorm, so the served
-forward's xn and the backward's recompute round alike.
+streamed row tiles, the combination's LayerNorm and the head's forward
+up to pre1 (its weights resident in shared memory), so the served
+forward's xn and h and the backward's recompute round alike.
 The backward is differentiable again (training with forces): its
 gradient replays ``stage.bwd`` under autograd, as the JAX package's
 ``bwd_op_bwd`` differentiates ``_bwd_math_reference``.
@@ -101,7 +102,7 @@ def _prepare(stage: Stage, inputs, weights):
 def rowblock_fwd_cuda(stage: Stage, inputs: Sequence[torch.Tensor], weights, *,
                       weight_grads: bool = False, sm90: bool = True):
     """Launch K3 for ``stage``: returns the (rows, w_out) output. In
-    bfloat16 the compress and combination stages at the widths of
+    bfloat16 the compress, combination and head stages at the widths of
     :func:`_lib.k3_sm90_takes` (d_part 128) launch the Hopper K3
     (``csrc/rowblock_fwd_sm90.cu``, counter ``rowblock_fwd_sm90[<stage>]``)
     unless ``weight_grads`` (a weight requires grad: the backward is then
@@ -160,8 +161,8 @@ def rowblock_bwd_cuda(stage: Stage, inputs: Sequence[torch.Tensor], weights, g,
                       weight_grads: bool = False, *, sm90: bool = True):
     """Launch K4 for ``stage``: returns the input cotangents (for the
     combination, the messages' cotangent is ``g`` itself). In bfloat16
-    without weight gradients the compress and combination stages at the
-    widths of :func:`_lib.k4_sm90_takes` (d_part 128) launch the Hopper K4
+    without weight gradients the compress, combination and head stages at
+    the widths of :func:`_lib.k4_sm90_takes` (d_part 128) launch the Hopper K4
     (``csrc/rowblock_bwd_sm90.cu``, counter ``rowblock_bwd_sm90[<stage>]``);
     ``sm90=False`` keeps the general body there too, for comparisons. With
     ``weight_grads=True`` launch K4-dW, which also returns the float32
@@ -177,7 +178,7 @@ def rowblock_bwd_cuda(stage: Stage, inputs: Sequence[torch.Tensor], weights, g,
         raise ValueError(f"cotangent {tuple(g.shape)} != output {(rows, w_out)}")
     if sm90 and _lib.k4_sm90_takes(inputs[0].dtype, stage.code, d_part, w_in, w_hid, w_out,
                                    weight_grads):
-        return _k4_sm90(stage, inputs, (ln_s, ln_b, w0, b0, w1), g, geometry)
+        return _k4_sm90(stage, inputs, (ln_s, ln_b, w0, b0, w1, b1), g, geometry)
     name = f"rowblock_bwd{'_dw' if weight_grads else ''}[{stage.name}]"
     lib = _lib.library()
     tile = ctypes.c_int(0)
@@ -213,14 +214,16 @@ def rowblock_bwd_cuda(stage: Stage, inputs: Sequence[torch.Tensor], weights, g,
     return tuple(d)
 
 
-def _k4_sm90(stage: Stage, inputs, weights, g, geometry):
+def _k4_sm90(stage: Stage, inputs, weights, g, geometry, front_out=None):
     """The Hopper K4 on checked bfloat16 tensors (``weights`` = ln_scale,
-    ln_bias, w0, b0, w1 in the compute dtype; ln_scale and ln_bias None
+    ln_bias, w0, b0, w1, b1 in the compute dtype; ln_scale and ln_bias None
     but for the combination): one persistent block per SM, no scratch. Its
     weights go in as w0^T (the forward product), w1 and w0 (the backward
-    ones)."""
+    ones), and for the head also w1^T (its recompute of the second layer).
+    ``front_out`` (the head only): a (rows, 128) bf16 tensor that receives
+    the kernel's recomputed forward output."""
     rows, d_part, w_in, w_hid, w_out = geometry
-    ln_s, ln_b, w0, b0, w1 = weights
+    ln_s, ln_b, w0, b0, w1, b1 = weights
     name = f"rowblock_bwd_sm90[{stage.name}]"
     n_grads = _n_input_grads(stage, len(inputs))
     d = [torch.empty_like(inputs[i]) for i in range(n_grads)]
@@ -230,19 +233,39 @@ def _k4_sm90(stage: Stage, inputs, weights, g, geometry):
         raise ValueError(f"{name} copies rows in 16-byte pieces: its inputs must start on 16 bytes")
     lib = _lib.library()
     _lib.check_shared(lib.mtt_rowblock_bwd_sm90_smem(stage.code, d_part, w_in, w_hid, w_out), name)
-    w0_t = w0.t().contiguous()  # held here until the launch
+    # held here until the launch
+    w0_t = w0.t().contiguous()
+    w1_t = w1.t().contiguous() if stage.code == HEAD_CODE else None
     _lib.check(
         lib.mtt_rowblock_bwd_sm90(
             stage.code, *(x.data_ptr() for x in inputs[:n_grads]), *[None] * (3 - n_grads),
-            len(inputs), *(_lib.ptr(x) for x in (ln_s, ln_b, w0, b0, w1)), w0_t.data_ptr(),
+            len(inputs), *(_lib.ptr(x) for x in (ln_s, ln_b, w0, b0, w1, b1, w0_t, w1_t)),
             g.data_ptr(), *(x.data_ptr() for x in d), *[None] * (3 - n_grads),
-            rows, d_part, w_in, w_hid, w_out, _lib.dw_blocks(-(-rows // 64), g.device),
-            _lib.stream_ptr(g.device),
+            _lib.ptr(front_out), rows, d_part, w_in, w_hid, w_out,
+            _lib.dw_blocks(-(-rows // 64), g.device), _lib.stream_ptr(g.device),
         ),
         name,
     )
     _lib.LAUNCHES[name] += 1
     return (*d, g) if stage.code == COMBINATION_CODE else tuple(d)
+
+
+def k4_sm90_head_front(stage: Stage, inputs, weights, g):
+    """The Hopper K4 head on CUDA bfloat16 tensors at the widths it takes,
+    with its recomputed forward written out: returns ``(d_x, out)``, out =
+    rnd(silu(pre1)) from the device code (``csrc/rowblock_sm90.cuh``
+    ``head_front``) that the Hopper K3 head runs as its forward, so ``out``
+    must equal ``rowblock_fwd_cuda``'s output bit for bit. A check of the
+    shared front, not a path of the model."""
+    _, _, (ln_s, ln_b, w0, b0, w1, b1), geometry = _prepare(stage, inputs, weights)
+    _lib.require({"g": g}, g.device, inputs[0].dtype)
+    if stage.code != HEAD_CODE or not _lib.k4_sm90_takes(inputs[0].dtype, stage.code, *geometry[1:]):
+        raise ValueError("the Hopper K4 head takes bfloat16 heads at d_part 128")
+    if g.shape != inputs[0].shape:
+        raise ValueError(f"cotangent {tuple(g.shape)} != output {tuple(inputs[0].shape)}")
+    out = torch.empty_like(inputs[0])
+    (d_x,) = _k4_sm90(stage, inputs, (ln_s, ln_b, w0, b0, w1, b1), g, geometry, front_out=out)
+    return d_x, out
 
 
 def _n_input_grads(stage: Stage, n_inputs: int) -> int:

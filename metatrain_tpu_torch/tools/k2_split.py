@@ -1,23 +1,25 @@
-"""Phase split of K2, or of the Hopper K1, in bfloat16 by ``clock64()`` stamps,
-on a CUDA device.
+"""Phase split of K2, of the Hopper K1, or of the Hopper K3 and K4 heads, in
+bfloat16 by ``clock64()`` stamps, on a CUDA device.
 
 Usage, on a machine with a CUDA device and nvcc::
 
-    python metatrain_tpu_torch/tools/k2_split.py --body hopper|general|k1-hopper [--A 11392]
-        [--M 64]
+    python metatrain_tpu_torch/tools/k2_split.py --body hopper|general|k1-hopper|k3-head|k4-head
+        [--A 11392] [--M 64]
 
 Copies the body's sources (``--body hopper``: the Hopper K2,
 ``csrc/fused_layer_bwd_sm90.cu``; ``general``: K2's general body,
 ``csrc/layer_bwd.cuh`` with a one-kernel launcher; ``k1-hopper``: the
-Hopper K1, ``csrc/fused_layer_fwd_sm90.cu``) into a
+Hopper K1, ``csrc/fused_layer_fwd_sm90.cu``; ``k3-head`` / ``k4-head``: the
+Hopper K3 / K4 head, ``csrc/rowblock_{fwd,bwd}_sm90.cu`` with the shared
+``head_front`` of ``csrc/rowblock_sm90.cuh``) into a
 temporary directory, inserts after each phase's closing barrier a stamp of
 thread 0's ``clock64()`` that adds the phase's cycles to a device counter,
 builds that copy alone with nvcc, runs it on a seeded case (D = 128, 8
-heads, F = 256, inputs as ``layer_times.py`` makes them) and prints one
-JSON line: the card (``nvidia-smi`` name and power limit), the cycles per
-atom, each phase's share of them and the instrumented launch's mean
-CUDA-event ms. The checkout's sources are not changed: they carry no
-instrumentation.
+heads, F = 256, inputs as ``layer_times.py`` makes them; the heads at A x M
+rows) and prints one JSON line: the card (``nvidia-smi`` name and power
+limit), the cycles per atom (the heads: per 64-row tile of a block), each
+phase's share of them and the instrumented launch's mean CUDA-event ms.
+The checkout's sources are not changed: they carry no instrumentation.
 """
 
 from __future__ import annotations
@@ -83,6 +85,33 @@ GENERAL = (
 )
 GENERAL_PHASES = ["norm, QKV", "recompute attention", "out-projection", "SwiGLU row chunks",
                   "out-projection backward", "attention backward", "QKV backward, final norm"]
+# the heads: head_front's phases (rowblock_sm90.cuh), then the kernel's own
+HEAD_FRONT = (
+    ("    int c = 0;\n", False, "    long long t_prev = clock64();\n"),
+    ("    panel_pairs([&](int j, int h, int m, int n) {\n        const float2 b = ld2(b0 + n);", True,
+     None),
+    ("    zero(pre1);\n", True, None),
+    ("}\n\n// The head's output", True, None),
+)
+K3_HEAD = (
+    ("        head_out(pre1,", True, "        long long t_prev = clock64();\n"),
+    ("        cp_async_wait<0>();\n", True, None),
+    ("        __syncthreads();  // tile t + 1 in; H and tile t's buffer free\n", False, None),
+)
+K3_HEAD_PHASES = ["pre0 product", "h epilogue", "pre1 product", "out epilogue, store",
+                  "wait for the next tile"]
+K4_HEAD = (
+    ("    head_front(W, X, H, p.b0, p.b1, pre0, acc);  // acc: pre1\n", False,
+     "    long long t_prev = clock64();\n"),
+    ("    int c = 4;\n", True, None),
+    ("    __syncthreads();  // every warp has read d_pre1\n", True, None),
+    ("    zero(acc);  // d_x = rnd(d_pre0 w0^T)\n", True, None),
+    ("}\n\n__global__ void __launch_bounds__(kThreads, 1) k4_head_sm90_kernel", True, None),
+    ("        cp_async_wait<0>();\n", True, "        long long t_prev = clock64();\n"),
+    ("        __syncthreads();  // tile t + 1 in; H and tile t's buffers free\n", False, None),
+)
+K4_HEAD_PHASES = ["pre0 product", "h0 epilogue", "pre1 product", "d_pre1 epilogue",
+                  "d_h0 product", "d_pre0 epilogue", "d_x product, store", "wait for the next tile"]
 GENERAL_LAUNCHER = '''#include "layer_bwd.cuh"
 using namespace mtt;
 using T = __nv_bfloat16;
@@ -114,10 +143,10 @@ extern "C" int k2_general_launch(const void** wp, const void* e, const void* c, 
 '''
 
 
-def instrument(text: str, marks) -> str:
+def instrument(text: str, marks, phase: int = 0) -> str:
     """``text`` with a stamp at each mark: the given text, or phase i's
-    ``SPLIT(i)`` (a barrier first, so that the phase's slowest warp counts)."""
-    phase = 0
+    ``SPLIT(i)`` (a barrier first, so that the phase's slowest warp counts),
+    phases numbered from ``phase``."""
     for mark, before, stamp in marks:
         if text.count(mark) != 1:
             raise RuntimeError(f"phase mark not found once in the source: {mark!r}")
@@ -131,12 +160,22 @@ def instrument(text: str, marks) -> str:
 
 def build(work: Path, body: str) -> Path:
     for name in ("common.cuh", "layer_bwd.cuh", "layer_sm90.cuh", "fused_layer_bwd_sm90.cu",
-                 "fused_layer_fwd_sm90.cu"):
+                 "fused_layer_fwd_sm90.cu", "rowblock_sm90.cuh", "rowblock_fwd_sm90.cu",
+                 "rowblock_bwd_sm90.cu"):
         shutil.copy(CSRC / name, work / name)
     if body in ("hopper", "k1-hopper"):
         unit = work / ("fused_layer_bwd_sm90.cu" if body == "hopper" else "fused_layer_fwd_sm90.cu")
         marks = HOPPER if body == "hopper" else K1_HOPPER
         unit.write_text(instrument(unit.read_text(), marks) + COUNTERS)
+    elif body in ("k3-head", "k4-head"):
+        header = work / "rowblock_sm90.cuh"
+        text = instrument(header.read_text(), HEAD_FRONT)
+        header.write_text(text.replace('#include "layer_sm90.cuh"\n',
+                                       '#include "layer_sm90.cuh"\n' + STAMP))
+        unit = work / ("rowblock_fwd_sm90.cu" if body == "k3-head" else "rowblock_bwd_sm90.cu")
+        marks = K3_HEAD if body == "k3-head" else K4_HEAD
+        front_phases = sum(stamp is None for _, _, stamp in HEAD_FRONT)
+        unit.write_text(instrument(unit.read_text(), marks, front_phases) + COUNTERS)
     else:
         header = work / "layer_bwd.cuh"
         header.write_text(instrument(header.read_text(), GENERAL))
@@ -152,7 +191,8 @@ def build(work: Path, body: str) -> Path:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--body", choices=("hopper", "general", "k1-hopper"), required=True)
+    parser.add_argument("--body", choices=("hopper", "general", "k1-hopper", "k3-head", "k4-head"),
+                        required=True)
     parser.add_argument("--A", type=int, default=11392)
     parser.add_argument("--M", type=int, default=64)
     args = parser.parse_args()
@@ -188,7 +228,30 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         lib = ctypes.CDLL(str(build(Path(tmp), args.body)))
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if args.body == "hopper":
+        if args.body in ("k3-head", "k4-head"):
+            # the head at A x M rows: x, g and its weights in their (N, K)
+            # layouts, one persistent block per SM
+            rows, blocks = A * M, torch.cuda.get_device_properties(dev).multi_processor_count
+            hw = [lecun(D, D), 0.1 * torch.randn(D, generator=gen), lecun(D, D),
+                  0.1 * torch.randn(D, generator=gen)]
+            w0, b0, w1, b1 = (x.to(dev, torch.bfloat16).contiguous() for x in hw)
+            x, g = (torch.randn(rows, D, generator=gen).to(dev, torch.bfloat16) for _ in range(2))
+            out = torch.empty_like(x)
+            w0_t, w1_t = w0.t().contiguous(), w1.t().contiguous()
+            # (stage 2, x0..x2, n_parts 1, ..., out or g and d_x, ...) as
+            # rowblock.py passes them
+            if args.body == "k3-head":
+                fn, ptrs = lib.mtt_rowblock_fwd_sm90, [x, None, None, 1, None, None, w0_t, b0,
+                                                       w1_t, b1, out]
+            else:
+                fn, ptrs = lib.mtt_rowblock_bwd_sm90, [x, None, None, 1, None, None, w0, b0, w1,
+                                                       b1, w0_t, w1_t, g, out, None, None, None]
+            fn.argtypes = [I, P, P, P, I] + [P] * (len(ptrs) - 4) + [L] + [I] * 5 + [P]
+            vals = [v if v is None or isinstance(v, int) else v.data_ptr() for v in ptrs]
+
+            def run():
+                return fn(2, *vals, rows, D, D, D, D, blocks, stream)
+        elif args.body == "hopper":
             ptrs = [e, c, cf, *w[:9], *(w[i].t().contiguous() for i in (1, 3, 6)), ge, gc, de, dc,
                     dcf]
             lib.mtt_fused_layer_bwd_sm90.argtypes = [P] * 20 + [L, I, I, I, I, F_, F_, P]
@@ -230,12 +293,14 @@ def main() -> int:
             run()
         end.record()
         torch.cuda.synchronize()
-    names = {"hopper": HOPPER_PHASES, "general": GENERAL_PHASES,
-             "k1-hopper": K1_HOPPER_PHASES}[args.body]
+    names = {"hopper": HOPPER_PHASES, "general": GENERAL_PHASES, "k1-hopper": K1_HOPPER_PHASES,
+             "k3-head": K3_HEAD_PHASES, "k4-head": K4_HEAD_PHASES}[args.body]
     cycles = list(counts)[:len(names)]
     total = sum(cycles)
-    print(json.dumps({"card": card, "body": args.body, "shape": [A, M, D, H, F],
-                      "cycles_per_atom": total / A,
+    # the heads' stamps count per 64-row tile of a block
+    per = {"cycles_per_tile": total / -(-A * M // 64)} if args.body.endswith("-head") else {
+        "cycles_per_atom": total / A}
+    print(json.dumps({"card": card, "body": args.body, "shape": [A, M, D, H, F], **per,
                       "share": {n: x / total for n, x in zip(names, cycles)},
                       "instrumented_ms": start.elapsed_time(end) / 5}))
     return 0

@@ -1,5 +1,5 @@
 """CUDA-event times of the fused-layer kernels K1, K2 and K2-dW at one shape,
-and of K3's and K4's bf16 compress and combination at A x M rows.
+and of K3's and K4's bf16 compress, combination and head at A x M rows.
 
 Usage, on a machine with a CUDA device::
 
@@ -18,7 +18,8 @@ its time at shapes it takes and ``fused_layer_bwd_general_ms_bf16`` the
 general body's; likewise ``fused_layer_fwd_ms_bf16`` and
 ``fused_layer_fwd_general_ms_bf16`` where it has the Hopper K1. Then K4
 (``rowblock_bwd_cuda``) in bfloat16 at A x M rows for the 3-part and the
-2-part compress and the combination (``rowblock_bwd[<stage>]_ms_bf16``:
+2-part compress, the combination and the head
+(``rowblock_bwd[<stage>]_ms_bf16``:
 the Hopper K4 where the tree has it, ``rowblock_bwd_cuda(..., sm90=)``;
 ``..._general_ms_bf16`` its general body there), then K3
 (``rowblock_fwd_cuda``) on the same inputs (``rowblock_fwd[<stage>]_ms_bf16``:
@@ -117,8 +118,8 @@ def main() -> int:
             times[f"{name}_ms_{tag}"] = cuda_ms(fn)
         del e, c, ge, gc
         torch.cuda.empty_cache()
-    # K3's and K4's bf16 compress and combination at the row-block stages' rows
-    from metatrain_tpu_torch.models.pet.fused_stages import COMBINATION, COMPRESS
+    # K3's and K4's bf16 stages at the row-block stages' rows
+    from metatrain_tpu_torch.models.pet.fused_stages import COMBINATION, COMPRESS, HEAD
     from metatrain_tpu_torch.ops.kernels import rowblock as rb
 
     rows, bf = A * M, torch.bfloat16
@@ -128,10 +129,12 @@ def main() -> int:
     def vec(n, base=0.0):
         return (base + 0.1 * torch.randn(n, generator=gen)).to(dev)
 
+    # (the head last, so the earlier stages' inputs are those of trees
+    # without it)
     for key, stage, n_parts in (("compress3", COMPRESS, 3), ("compress2", COMPRESS, 2),
-                                ("combination", COMBINATION, 3)):
+                                ("combination", COMBINATION, 3), ("head", HEAD, 1)):
         xs = tuple(torch.randn(rows, D, generator=gen).to(dev, bf) for _ in range(n_parts))
-        if stage is COMPRESS:
+        if stage is not COMBINATION:
             weights = (lecun(n_parts * D, D).to(dev), vec(D), lecun(D, D).to(dev), vec(D))
         else:
             weights = (vec(2 * D, 1.0), vec(2 * D), lecun(2 * D, 2 * D).to(dev), vec(2 * D),

@@ -6,17 +6,17 @@ The kernel itself runs only on the card (``chip_smoke.py`` holds it
 against the plain versions there). Here:
 
 - the dispatch rule ``_lib.k3_sm90_takes``: bfloat16, no weight that
-  requires grad, the compress with 2 or 3 parts and the combination at
-  d_part 128;
+  requires grad, the compress with 2 or 3 parts, the combination and the
+  head at d_part 128;
 - its budget ``_lib.k3_sm90_smem`` (the C side's layout, mirrored) fits
   the 232,448 bytes a block may have wherever the rule takes;
 - on the CPU ``rowblock`` still runs the plain versions, and the wrapper
   still refuses CPU tensors at the shapes the new kernel takes;
 - the row-block forward hands the rule the test its backward makes for
   the weight gradients, so a training step keeps the general K3;
-- the plain versions ``compress_math`` and ``combination_math``, whose
-  rounding points the kernel copies, agree in bfloat16 at the served
-  widths with the JAX package's ``fused_rowblock`` (its Pallas kernel in
+- the plain versions ``compress_math``, ``combination_math`` and
+  ``head_math``, whose rounding points the kernel copies, agree in
+  bfloat16 at the served widths with the JAX package's ``fused_rowblock`` (its Pallas kernel in
   interpret mode).
 """
 
@@ -44,7 +44,12 @@ COMPRESS, COMBINATION, HEAD = trb.COMPRESS_CODE, trb.COMBINATION_CODE, trb.HEAD_
     (BF16, COMPRESS, 128, 384, 128, 128, True, False),     # a training step's
     (BF16, COMPRESS, 128, 256, 128, 128, True, False),
     (BF16, COMBINATION, 128, 256, 256, 128, True, False),
-    (BF16, HEAD, 128, 128, 128, 128, False, False),
+    (BF16, HEAD, 128, 128, 128, 128, False, True),         # the served head
+    (BF16, HEAD, 128, 128, 128, 128, True, False),         # a training step's
+    (torch.float32, HEAD, 128, 128, 128, 128, False, False),
+    (BF16, HEAD, 256, 256, 256, 256, False, False),        # d_pet 256
+    (BF16, HEAD, 128, 128, 256, 256, False, False),        # another d_head
+    (BF16, HEAD, 128, 128, 64, 64, False, False),
     (BF16, COMPRESS, 256, 768, 256, 256, False, False),    # d_pet 256
     (BF16, COMBINATION, 256, 512, 512, 256, False, False),  # d_pet 256
     (BF16, COMPRESS, 128, 128, 128, 128, False, False),    # one part
@@ -76,16 +81,19 @@ def test_smem_budget_fits_wherever_the_rule_takes():
                         taken[(stage, w_in)] = nbytes
     # the C source's Geo: the ring 49,152, two input tiles 2 x 64 x (w_in +
     # 8) x 2, the h tile 64 x (w_hid + 8) x 2; the combination also two
-    # messages tiles 2 x 64 x 136 x 2, the xn tile and 2 x 64 floats
+    # messages tiles 2 x 64 x 136 x 2, the xn tile and 2 x 64 floats; the
+    # head its two 128 x 128 weights whole instead of the ring, two x tiles
+    # and the h tile
     ring, tile = 3 * 128 * 64 * 2, 64 * 2
     expected = {
         (COMPRESS, 256): ring + 2 * tile * 264 + tile * 136,
         (COMPRESS, 384): ring + 2 * tile * 392 + tile * 136,
         (COMBINATION, 256): ring + 2 * tile * 264 + tile * 264 + 2 * tile * 136 + tile * 264
         + 2 * 64 * 4,
+        (HEAD, 128): 2 * 128 * 128 * 2 + 2 * tile * 136 + tile * 136,
     }
     assert taken == expected == {(COMPRESS, 256): 134144, (COMPRESS, 384): 166912,
-                                 (COMBINATION, 256): 219648}
+                                 (COMBINATION, 256): 219648, (HEAD, 128): 117760}
 
 
 def _bf16_values(a):
@@ -105,12 +113,15 @@ def _case(name, rows=200, D=128, seed=0):
     def vec(n, base=0.0):
         return base + 0.1 * rng.normal(size=n)
 
-    n_parts = {"compress2": 2, "compress3": 3, "combination": 3}[name]
+    n_parts = {"compress2": 2, "compress3": 3, "combination": 3, "head": 1}[name]
     inputs = [rng.normal(size=(rows, D)) for _ in range(n_parts)]
     if name == "combination":
         weights = [vec(2 * D, 1.0), vec(2 * D), lecun(2 * D, 2 * D), vec(2 * D),
                    lecun(2 * D, D), vec(D)]
         stages = (jst.combination_math, tst.COMBINATION)
+    elif name == "head":
+        weights = [lecun(D, D), vec(D), lecun(D, D), vec(D)]
+        stages = (jst.head_math, tst.HEAD)
     else:
         weights = [lecun(n_parts * D, D), vec(D), lecun(D, D), vec(D)]
         stages = (jst.compress_math, tst.COMPRESS)
@@ -126,7 +137,7 @@ def _rel_rms(a, b):
     return float(np.sqrt(np.mean((a - b) ** 2)) / np.sqrt(np.mean(b ** 2)))
 
 
-STAGES = ["compress2", "compress3", "combination"]
+STAGES = ["compress2", "compress3", "combination", "head"]
 
 
 @pytest.mark.parametrize("name", STAGES)

@@ -6,15 +6,15 @@ The kernel itself runs only on the card (``chip_smoke.py`` holds it
 against the plain versions there). Here:
 
 - the dispatch rule ``_lib.k4_sm90_takes``: bfloat16 without weight
-  gradients, the compress with 2 or 3 parts and the combination at
-  d_part 128;
+  gradients, the compress with 2 or 3 parts, the combination and the head
+  at d_part 128;
 - its budget ``_lib.k4_sm90_smem`` (the C side's layout, mirrored) fits
   the 232,448 bytes a block may have wherever the rule takes;
 - on the CPU ``rowblock`` still runs the plain versions, and the wrapper
   still refuses CPU tensors at the shapes the new kernel takes;
-- the plain versions ``compress_bwd`` and ``combination_bwd``, whose
-  rounding points the kernel copies, agree with the JAX package's in
-  bfloat16 at the served widths;
+- the plain versions ``compress_bwd``, ``combination_bwd`` and
+  ``head_bwd``, whose rounding points the kernel copies, agree with the JAX
+  package's in bfloat16 at the served widths;
 - ``k1_sm90_takes`` refuses a call whose weights require grad, and the
   fused layer's forward tells it so.
 """
@@ -44,7 +44,12 @@ COMPRESS, COMBINATION, HEAD = trb.COMPRESS_CODE, trb.COMBINATION_CODE, trb.HEAD_
     (torch.float32, COMBINATION, 128, 256, 256, 128, False, False),
     (BF16, COMPRESS, 128, 384, 128, 128, True, False),     # K4-dW
     (BF16, COMBINATION, 128, 256, 256, 128, True, False),  # K4-dW
-    (BF16, HEAD, 128, 128, 128, 128, False, False),
+    (BF16, HEAD, 128, 128, 128, 128, False, True),         # the served head
+    (BF16, HEAD, 128, 128, 128, 128, True, False),         # K4-dW
+    (torch.float32, HEAD, 128, 128, 128, 128, False, False),
+    (BF16, HEAD, 256, 256, 256, 256, False, False),        # d_pet 256
+    (BF16, HEAD, 128, 128, 256, 256, False, False),        # another d_head
+    (BF16, HEAD, 128, 128, 64, 64, False, False),
     (BF16, COMPRESS, 256, 768, 256, 256, False, False),    # d_pet 256
     (BF16, COMBINATION, 256, 512, 512, 256, False, False),  # d_pet 256
     (BF16, COMPRESS, 128, 128, 128, 128, False, False),    # one part
@@ -69,9 +74,11 @@ def test_smem_budget_fits_wherever_the_rule_takes():
                         assert nbytes <= _lib.MAX_SHARED_BYTES
                         taken[(stage, w_in)] = nbytes
     # the ring, two input and two g tiles, d_pre; the combination also xn
-    # and its row statistics
+    # and its row statistics; the head its four 128 x 128 weights whole
+    # instead of the ring, two x and two g tiles and the h0 / d_pre tile
+    assert 4 * 128 * 128 * 2 + 5 * 64 * 136 * 2 == 218112
     assert taken == {(COMPRESS, 256): 168960, (COMPRESS, 384): 201728,
-                     (COMBINATION, 256): 220672}
+                     (COMBINATION, 256): 220672, (HEAD, 128): 218112}
 
 
 def _bf16_values(a):
@@ -91,12 +98,15 @@ def _case(name, rows=200, D=128, seed=0):
     def vec(n, base=0.0):
         return base + 0.1 * rng.normal(size=n)
 
-    n_parts = {"compress2": 2, "compress3": 3, "combination": 3}[name]
+    n_parts = {"compress2": 2, "compress3": 3, "combination": 3, "head": 1}[name]
     inputs = [rng.normal(size=(rows, D)) for _ in range(n_parts)]
     if name == "combination":
         weights = [vec(2 * D, 1.0), vec(2 * D), lecun(2 * D, 2 * D), vec(2 * D),
                    lecun(2 * D, D), vec(D)]
         stages = (jst.combination_bwd, tst.COMBINATION)
+    elif name == "head":
+        weights = [lecun(D, D), vec(D), lecun(D, D), vec(D)]
+        stages = (jst.head_bwd, tst.HEAD)
     else:
         weights = [lecun(n_parts * D, D), vec(D), lecun(D, D), vec(D)]
         stages = (jst.compress_bwd, tst.COMPRESS)
@@ -114,7 +124,7 @@ def _rel_rms(a, b):
     return float(np.sqrt(np.mean((a - b) ** 2)) / np.sqrt(np.mean(b ** 2)))
 
 
-STAGES = ["compress2", "compress3", "combination"]
+STAGES = ["compress2", "compress3", "combination", "head"]
 
 
 @pytest.mark.parametrize("name", STAGES)
@@ -141,8 +151,8 @@ def test_cpu_backward_runs_the_plain_version_at_the_served_widths(name):
 @pytest.mark.parametrize("name", STAGES)
 def test_plain_backward_matches_jax_in_bf16_at_the_served_widths(name):
     """The plain versions round where the JAX package's hand-written
-    backwards do (g, xn, d_pre, the outputs; pre and the LayerNorm backward
-    in float), so in bfloat16 at D = 128 the two agree to float32
+    backwards do (g, xn, h0, d_pre, the outputs; pre and the LayerNorm
+    backward in float), so in bfloat16 at D = 128 the two agree to float32
     summation order: relative RMS <= 1e-2 per output. The Hopper K4 copies
     these rounding points."""
     inputs, weights, g, (j_bwd, stage) = _case(name, seed=7)
