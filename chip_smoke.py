@@ -100,6 +100,36 @@ device and exits non-zero without one. Phases (any failure propagates):
    for the kernel, plain and GNN-block paths on the 2 x 2,048-atom batch
    (the kernel paths with a torch.profiler breakdown of one step) and for
    the kernel path on the 10,976-atom crystal as a batch of one.
+7b. user entry points, ``metatrain_tpu_torch.__main__.main`` called in
+   this process from a temporary directory: ``train`` on phase 5's frames
+   (options written as JSON, 1 epoch, float32; every counter starts at 0
+   just before it: K1, K3, K2-dW and K4-dW must launch; the final
+   evaluation's logged train and validation metrics must be finite);
+   ``export`` of its ``model.ckpt`` (the exported and the trained
+   ``model.mtt``'s weights must equal the checkpoint's best weights bit for
+   bit); ``eval model.mtt`` on the frames with ``-o preds.xyz`` (the f32
+   kernel path's metrics within 1e-4 relative of the same eval on a
+   ``plain=True`` model). Then ``Calculator("model.mtt")`` on the crystal,
+   f32 kernel vs f32 plain path with phase 3's f32 gates; ``run_md_nve``
+   with the trained weights in bf16 (``pet_from_checkpoint(...,
+   compute_dtype=torch.bfloat16)``) on the crystal, 100 steps of 1 fs with
+   ``check_interval`` 10 after a 10-step warm-up: every counter starts at
+   0 just before it, and the Hopper K1 and K2 must launch 4 times per force
+   call (101 calls) and the general K1 and K2 never; the first 10 steps'
+   positions within 1e-3 A of the f32 plain path's ``run_md_nve``, or
+   within 1.25 x the bf16 plain path's own distance where that is larger
+   (phase 3's rule for the force call). The MD weights are the trained
+   run's restarted (``--restart auto``) to 30 epochs at a learning rate
+   of 1e-3: after one epoch the network's forces are ~100 eV/A and the
+   crystal does not stay one (the slot count outgrows the Hopper kernels'
+   M <= 64 within 100 fs).
+   Reported: ms per MD step and atom-steps/s (host clock around the
+   synchronised 100-step run, its first list update and batch build
+   included),
+   the list rebuilds, ``Calculator.compute``'s ms per call on the same
+   model, and the times of one forced list rebuild
+   (``compute_neighbor_data`` at cutoff + skin) and one
+   ``batch_from_systems`` on the crystal (three each).
 8. kernel vs plain at the shapes the served calls gave the kernels (the
    calculator's padded atom count A and slot count M, D = 128, 8 heads,
    d_ff = 256; rows = A * M for the row-block stages and the permutes;
@@ -1988,6 +2018,240 @@ def time_training(workdir, state, device, report, steps=3):
     report["training_timing"] = timing
 
 
+FS = 0.09822694788464063  # one femtosecond in ASE time units (eV, A, amu)
+MD_EPOCHS = 30
+
+
+class CapturedLog:
+    """The messages of the logger ``name`` while the block runs."""
+
+    def __init__(self, name):
+        import logging
+
+        self.logger, self.messages = logging.getLogger(name), []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda record: self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self.messages
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def logged_metrics(messages, prefix=""):
+    """``{key: value}`` of the logged ``<prefix><key>: <value>`` lines."""
+    out = {}
+    for message in messages:
+        key, sep, value = message.rpartition(": ")
+        if sep and key.startswith(prefix):
+            try:
+                out[key[len(prefix):]] = float(value)
+            except ValueError:
+                pass
+    return out
+
+
+def check_entry_points(device, report, workdir):
+    """Phase 7b: the user's entry points, ``python -m metatrain_tpu_torch``
+    called in this process (``__main__.main``), on phase 5's frames; then
+    ``Calculator`` from the exported file and ``run_md_nve`` on the crystal."""
+    import glob
+    import os
+
+    from metatrain_tpu_torch.__main__ import main as cli
+    from metatrain_tpu_torch.calculator import Calculator
+    from metatrain_tpu_torch.cli.eval import eval_model
+    from metatrain_tpu_torch.containers import batch_from_systems, bucket_atoms, bucket_neighbors
+    from metatrain_tpu_torch.interop.jax_params import pet_from_checkpoint
+    from metatrain_tpu_torch.ops.kernels import _lib
+    from metatrain_tpu_torch.ops.neighbors import compute_neighbor_data
+    from metatrain_tpu_torch.utils.io import load_checkpoint_file, load_model
+
+    out = {}
+    frames = str(workdir / "cu_lj.xyz")
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        # train (1 epoch, float32, options as JSON): every counter starts at 0
+        options = {
+            "seed": 0, "base_precision": 32, "device": "auto",
+            "architecture": {"name": "pet", "training": {
+                "batch_size": 2, "num_epochs": 1, "loss": TRAIN_LOSS}},
+            "training_set": dataset_section(frames), "validation_set": 0.25, "test_set": 0.0,
+        }
+        Path("options.json").write_text(json.dumps(options))
+        _lib.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with CapturedLog("metatrain_tpu_torch.train") as messages:
+            cli(["train", "options.json"])
+        torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t0
+        launches = dict(_lib.LAUNCHES)
+        expected = ["fused_layer_fwd", "fused_layer_bwd_dw"] + [
+            f"rowblock_{d}[{s}]" for d in ("fwd", "bwd_dw") for s in STAGE_NAMES]
+        missing = [k for k in expected if launches.get(k, 0) == 0]
+        if missing:
+            fail(f"kernels not launched by the train command: {missing}")
+        out["train_launches"] = launches
+        final = {split: logged_metrics(messages, split + " ") for split in ("train", "validation")}
+        values = [v for metrics in final.values() for v in metrics.values()]
+        if not all(final.values()) or not all(math.isfinite(v) for v in values):
+            fail(f"the train command's final evaluation logged {final}")
+        out["final_evaluation"] = final
+
+        # export: model.ckpt's weights (its best ones) bit for bit in the file
+        ckpt = Path(glob.glob("outputs/*/*/model.ckpt")[0])
+        cli(["export", str(ckpt), "-o", "exported.mtt"])
+        raw = load_checkpoint_file(ckpt)
+        best = raw["params"] if raw["best_params"] is None else raw["best_params"]
+        for name in ("exported.mtt", "model.mtt"):
+            flat = dict(flatten(load_checkpoint_file(name)["checkpoint"]["params"]))
+            ref = dict(flatten(best))
+            if flat.keys() != ref.keys() or not all(
+                    flat[k].dtype == ref[k].dtype and np.array_equal(flat[k], ref[k]) for k in ref):
+                fail(f"{name}: its weights are not model.ckpt's best weights bit for bit")
+
+        # eval model.mtt (f32 kernels) against the same eval on the plain path
+        Path("eval.json").write_text(json.dumps(dataset_section(frames)))
+        _lib.LAUNCHES.clear()
+        with CapturedLog("metatrain_tpu_torch.eval") as messages:
+            cli(["eval", "model.mtt", "eval.json", "-o", "preds.xyz"])
+        torch.cuda.synchronize()
+        out["eval_launches"] = dict(_lib.LAUNCHES)
+        kernel = logged_metrics([m for m in messages if not m.startswith("Evaluation time")])
+        plain = eval_model("model.mtt", dataset_section(frames), device=device, plain=True)
+        worst = max(abs(kernel[k] - plain[k]) / abs(plain[k]) for k in plain)
+        if kernel.keys() != plain.keys() or not worst <= 1e-4:
+            fail(f"eval: kernel path {kernel} vs plain path {plain}")
+        if not Path("preds.xyz").exists():
+            fail("eval wrote no preds.xyz")
+        out["eval"] = {"kernel": kernel, "plain": plain, "worst_rel": worst}
+        torch.cuda.empty_cache()
+
+        # Calculator("model.mtt") on the crystal: f32 kernel vs f32 plain path
+        crystal = bench_crystal()
+        n = len(crystal)
+        calc = Calculator("model.mtt")
+        plain_calc = Calculator(load_model("model.mtt", device=device, plain=True))
+        res = calc.compute(crystal, forces=True, stress=True)
+        ref = plain_calc.compute(crystal, forces=True, stress=True)
+        e32, f32 = rel_errors(res, ref)
+        if not (e32 <= 1e-5 and f32 <= 1e-4):
+            fail(f"Calculator(model.mtt), f32 kernel path vs f32 plain: energy {e32:.3g}, "
+                 f"forces {f32:.3g}")
+        out["mtt_f32"] = {"energy_rel": e32, "force_rel_rmse": f32}
+        del plain_calc
+        torch.cuda.empty_cache()
+
+        # the MD weights: the run restarted (--restart auto) to 30 epochs at
+        # a learning rate of 1e-3; one epoch leaves the network's forces
+        # at ~100 eV/A, under which the crystal does not stay a crystal
+        t0 = time.perf_counter()
+        cli(["train", "options.json", "--restart", "auto",
+             "-r", f"architecture.training.num_epochs={MD_EPOCHS}",
+             "-r", "architecture.training.learning_rate=0.001"])
+        torch.cuda.synchronize()
+        out["restart_s"] = time.perf_counter() - t0
+        ckpt = Path(max(glob.glob("outputs/*/*/model.ckpt"), key=os.path.getmtime))
+        if load_checkpoint_file(ckpt)["epoch"] != MD_EPOCHS:
+            fail(f"the restarted run did not reach epoch {MD_EPOCHS}")
+
+        # run_md_nve, bf16 at the trained weights: the Hopper K1 and K2
+        # four times per force call, the general ones never
+        model16 = pet_from_checkpoint(ckpt, compute_dtype=torch.bfloat16, device=device)
+        md = Calculator(model16)
+        masses = np.full(n, 63.546)
+        md.run_md_nve(crystal, masses, FS, 10, check_interval=10)  # warm-up
+        torch.cuda.synchronize()
+        updates, slots = {"n": 0}, []
+        update, force_call = md._vnl.update, md._force_call
+
+        def counted(system):
+            updates["n"] += 1
+            return update(system)
+
+        def recorded(batch, forces, stress):
+            slots.append(batch.max_neighbors)
+            return force_call(batch, forces, stress)
+
+        md._vnl.update, md._force_call = counted, recorded
+        _lib.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        md.run_md_nve(crystal, masses, FS, 100, check_interval=10)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        md_launches = dict(_lib.LAUNCHES)
+        calls = len(slots)  # the first step's forces, then one force call per step
+        if (calls != 101 or md_launches.get("fused_layer_fwd", 0)
+                or md_launches.get("fused_layer_bwd", 0)
+                or md_launches.get("fused_layer_fwd_sm90") != 4 * calls
+                or md_launches.get("fused_layer_bwd_sm90") != 4 * calls):
+            fail(f"run_md_nve launched {md_launches} in {calls} force calls at M = "
+                 f"{sorted(set(slots))}: 4 Hopper K1 and 4 Hopper K2 per call expected, the "
+                 "general K1 and K2 never")
+        out["md"] = {"steps": 100, "seconds": seconds, "ms_per_step": seconds / 100 * 1e3,
+                     "atom_steps_per_s": n * 100 / seconds, "rebuilds": updates["n"] - 1,
+                     "launches": md_launches, "atoms": n, "max_neighbors": sorted(set(slots))}
+        md._vnl.update, md._force_call = update, force_call
+        out["compute_bf16"] = time_force_calls({"kernel_bf16": md}, crystal)["kernel_bf16"]
+
+        # the first 10 steps against the f32 plain path's: within 1e-3 A, or,
+        # where the plain path in bf16 is itself further off (the model's own
+        # bf16 rounding), within 1.25 x its distance (phase 3's rule)
+        rms = lambda x: float(np.sqrt(np.mean(x**2)))  # noqa: E731
+        short = md.run_md_nve(crystal, masses, FS, 10, check_interval=10)
+        paths = {}
+        for key, dtype in (("plain_f32", torch.float32), ("plain_bf16", torch.bfloat16)):
+            plain_md = Calculator(load_model(ckpt, device=device, plain=True,
+                                             compute_dtype=dtype))
+            paths[key] = plain_md.run_md_nve(crystal, masses, FS, 10, check_interval=10)
+            if key == "plain_f32":
+                out["md_forces_rms_eV_per_A"] = rms(plain_md.compute(crystal)["forces"])
+            del plain_md
+            torch.cuda.empty_cache()
+        ref = paths["plain_f32"].positions
+        drift = float(np.abs(short.positions - ref).max())
+        drift_plain = float(np.abs(paths["plain_bf16"].positions - ref).max())
+        out["md_vs_f32_plain"] = {
+            "max_abs_A": drift, "rms_A": rms(short.positions - ref),
+            "plain_bf16_max_abs_A": drift_plain,
+            "plain_bf16_rms_A": rms(paths["plain_bf16"].positions - ref),
+            "moved_max_A": float(np.abs(ref - crystal.positions).max()),
+            "moved_rms_A": rms(ref - crystal.positions)}
+        if not drift <= max(1e-3, 1.25 * drift_plain):
+            fail(f"run_md_nve bf16 kernels vs f32 plain: positions {drift:.3g} A apart "
+                 f"after 10 steps ({out['md_vs_f32_plain']})")
+
+        # one forced list rebuild and one batch build on the crystal
+        rebuild, build = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            nbr = compute_neighbor_data(crystal, md.cutoff + md.skin)
+            rebuild.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch_from_systems([crystal], [nbr], device, n_atoms_padded=bucket_atoms(n, 1.1),
+                               n_systems_padded=2,
+                               max_neighbors=bucket_neighbors(nbr.max_neighbors, 1.1))
+            torch.cuda.synchronize()
+            build.append((time.perf_counter() - t0) * 1e3)
+        out["host"] = {"list_rebuild_ms": rebuild, "batch_build_ms": build}
+    finally:
+        os.chdir(cwd)
+    report["entry_points"] = out
+
+
+def flatten(tree, prefix=""):
+    """``(path, array)`` pairs of a nested dict of arrays."""
+    if isinstance(tree, dict):
+        for key, value in tree.items():
+            yield from flatten(value, f"{prefix}/{key}")
+    else:
+        yield prefix, np.asarray(tree)
+
+
 SOURCES = {
     "fused_layer_fwd": ("metatrain_tpu_torch/csrc/fused_layer_fwd.cu",
                         "metatrain_tpu/ops/pallas/fused_layer.py:1161"),
@@ -2244,6 +2508,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         time_training(workdir, state, device, report)
         print(f"training step ({card}):", json.dumps(report["training_timing"]), flush=True)
+        torch.cuda.empty_cache()
+        check_entry_points(device, report, workdir)
+        print(f"entry points ({card}):", json.dumps(report["entry_points"]), flush=True)
 
     hp = DEFAULT_MODEL_HYPERS
     D, H, F = hp["d_pet"], hp["num_heads"], hp["d_feedforward"]

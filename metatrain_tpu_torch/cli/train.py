@@ -1,11 +1,13 @@
 """``train``: training orchestration on one device.
 
-Counterpart of ``metatrain_tpu/cli/train.py`` up to the final checkpoint:
-validate options -> import the architecture -> merge hypers -> seed ->
-build datasets (fraction split or explicit files) -> DatasetInfo ->
-instantiate the model -> train -> save ``model.ckpt`` (the model part in
-the JAX package's layout). Not ported yet: restarting, finetuning from a
-checkpoint, the export after training and the final evaluation.
+Counterpart of ``metatrain_tpu/cli/train.py``: validate options -> import
+the architecture -> merge hypers -> seed -> build datasets (fraction split
+or explicit files) -> DatasetInfo -> a fresh model, or one restarted from a
+checkpoint (``restart_from``: the model and the trainer's state) or
+finetuned from one (``finetune.read_from``: the model, a new trainer) ->
+train -> save ``model.ckpt`` (the model part in the JAX package's layout)
+-> export ``output_name`` (the best weights) -> evaluate the train,
+validation and test sets.
 
 Precision: ``base_precision`` sets the dtype of the batches as in the JAX
 package; the network computes in float32, or in float64 for
@@ -25,6 +27,8 @@ import torch
 from ..data.dataset import get_dataset, get_dataset_info, get_stats, train_val_test_split
 from ..utils.architectures import import_architecture
 from ..utils.config import merge_architecture_hypers, save_expanded_options, validate_base_options
+from ..utils.devices import resolve_device
+from ..utils.io import load_checkpoint_file, model_from_checkpoint, trainer_from_checkpoint
 from ..utils.logging import ROOT_LOGGER
 
 logger = logging.getLogger(ROOT_LOGGER + ".train")
@@ -32,17 +36,8 @@ logger = logging.getLogger(ROOT_LOGGER + ".train")
 _PRECISION_DTYPES = {16: torch.bfloat16, 32: torch.float32, 64: torch.float64}
 
 
-def _device(name: str) -> torch.device:
-    """``"auto"`` is the first CUDA device; without one it raises rather than
-    train on the CPU unasked."""
-    if name == "auto":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                'device "auto" trains on the first CUDA device and none was found; '
-                'pass device: "cpu" to train on the CPU'
-            )
-        return torch.device("cuda", 0)
-    return torch.device(name)
+# the train options' ``device``: "auto" is the first card, and raises without one
+_device = resolve_device
 
 
 def train_model(
@@ -50,13 +45,13 @@ def train_model(
     output_dir: str = ".",
     checkpoint_dir: str = ".",
     restart_from: Optional[str] = None,
+    output_name: str = "model.mtt",
     fused_gnn: bool = False,
 ):
     """Train from an options dict; returns ``(model, trainer)``. The final
-    checkpoint is ``checkpoint_dir/model.ckpt``. ``fused_gnn`` runs each GNN
-    layer's fused layers as one GNN block (``PET(fused_gnn=...)``)."""
-    if restart_from is not None:
-        raise NotImplementedError("restarting a training run is not ported yet")
+    checkpoint is ``checkpoint_dir/model.ckpt``, the exported model
+    ``output_dir/output_name``. ``fused_gnn`` runs each GNN layer's fused
+    layers as one GNN block (``PET(fused_gnn=...)``)."""
     options = validate_base_options(options)
     arch_name = options["architecture"]["name"]
     architecture = import_architecture(arch_name)
@@ -64,8 +59,6 @@ def train_model(
         "model": options["architecture"]["model"],
         "training": options["architecture"]["training"],
     })
-    if (hypers["training"].get("finetune") or {}).get("read_from"):
-        raise NotImplementedError("finetuning from a checkpoint is not ported yet")
 
     seed = int(options["seed"])
     random.seed(seed)
@@ -92,19 +85,24 @@ def train_model(
     val_conf = options["validation_set"]
     test_conf = options["test_set"]
     val_datasets: list = []
+    test_datasets: list = []
     if isinstance(val_conf, (int, float)):
         test_fraction = float(test_conf) if isinstance(test_conf, (int, float)) else 0.0
         split_trains = []
         for dataset in train_datasets:
-            train_part, val_part, _ = train_val_test_split(
+            train_part, val_part, test_part = train_val_test_split(
                 dataset, val_fraction=float(val_conf), test_fraction=test_fraction, seed=seed,
             )
             split_trains.append(train_part)
             val_datasets.append(val_part)
+            test_datasets.append(test_part)
         train_datasets = split_trains
     else:
         for conf in val_conf if isinstance(val_conf, list) else [val_conf]:
             val_datasets.append(get_dataset(conf)[0])
+        if not isinstance(test_conf, (int, float)):
+            for conf in test_conf if isinstance(test_conf, list) else [test_conf]:
+                test_datasets.append(get_dataset(conf)[0])
 
     dataset_info = get_dataset_info(train_datasets + val_datasets, target_infos, length_unit)
     for i, dataset in enumerate(train_datasets):
@@ -119,10 +117,26 @@ def train_model(
     checkpoint_dir.mkdir(parents=True, exist_ok=True)
     save_expanded_options(options, checkpoint_dir / "options_restart.yaml")
 
-    model = architecture.__model__(hypers["model"], dataset_info, compute_dtype=compute_dtype,
-                                   fused_gnn=fused_gnn)
-    model.to(device)
-    trainer = architecture.__trainer__(hypers["training"])
+    # ---- model + trainer (fresh / restart / finetune) --------------------
+    finetune_path = (hypers["training"].get("finetune") or {}).get("read_from")
+    load = {"device": device, "compute_dtype": compute_dtype, "fused_gnn": fused_gnn}
+    if restart_from is not None:
+        logger.info("Restarting training from %s", restart_from)
+        checkpoint = load_checkpoint_file(restart_from)
+        model = model_from_checkpoint(checkpoint, context="restart", **load)
+        model = model.restart(dataset_info)
+        trainer = trainer_from_checkpoint(checkpoint, hypers["training"], context="restart")
+    elif finetune_path:
+        logger.info("Finetuning from %s", finetune_path)
+        model = model_from_checkpoint(finetune_path, context="finetune", **load)
+        model = model.restart(dataset_info)
+        trainer = architecture.__trainer__(hypers["training"])
+    else:
+        model = architecture.__model__(hypers["model"], dataset_info,
+                                       compute_dtype=compute_dtype, fused_gnn=fused_gnn)
+        model.to(device)
+        trainer = architecture.__trainer__(hypers["training"])
+
     real_vals = [ds for ds in val_datasets if len(ds)]
     trainer.train(
         model=model,
@@ -135,4 +149,29 @@ def train_model(
     final_ckpt = checkpoint_dir / "model.ckpt"
     trainer.save_checkpoint(model, final_ckpt)
     logger.info("Saved checkpoint to %s", final_ckpt)
+
+    from .export import export_model_object
+
+    export_path = Path(output_dir) / output_name
+    export_model_object(model, trainer, str(export_path))
+    logger.info("Exported model to %s", export_path)
+
+    # ---- final evaluation of the train, validation and test sets ------------
+    from .eval import evaluate_datasets
+
+    for split_name, datasets in (("train", train_datasets), ("validation", val_datasets),
+                                 ("test", test_datasets)):
+        for i, dataset in enumerate(datasets):
+            if not len(dataset):
+                continue
+            tag = f" #{i}" if len(datasets) > 1 else ""
+            metrics = evaluate_datasets(model, dataset, dataset_info)
+            for key, value in metrics.items():
+                logger.info("%s%s %s: %.6g", split_name, tag, key, value)
     return model, trainer
+
+
+def find_latest_checkpoint(outputs_root: str = "outputs") -> Optional[str]:
+    """``--restart auto``: the most recently modified ``outputs/*/*/*.ckpt``."""
+    candidates = sorted(Path(outputs_root).glob("*/*/*.ckpt"), key=lambda p: p.stat().st_mtime)
+    return str(candidates[-1]) if candidates else None

@@ -65,6 +65,22 @@ class TargetInfo:
             f"per_atom={self.per_atom}, gradients={self.gradients})"
         )
 
+    def __eq__(self, other) -> bool:
+        if not isinstance(other, TargetInfo):
+            return NotImplemented
+        return (
+            self.quantity == other.quantity
+            and self.unit == other.unit
+            and self.layout.keys == other.layout.keys
+            and all(
+                a.samples.names == b.samples.names
+                and a.components == b.components
+                and a.properties == b.properties
+                and a.gradients_list() == b.gradients_list()
+                for a, b in zip(self.layout.blocks(), other.layout.blocks())
+            )
+        )
+
 
 def get_energy_target_info(
     unit: str = "",
@@ -107,6 +123,30 @@ class DatasetInfo:
         self.length_unit = length_unit or ""
         self.atomic_types = sorted(set(int(t) for t in atomic_types))
         self.targets = dict(targets)
+
+    def __eq__(self, other) -> bool:
+        if not isinstance(other, DatasetInfo):
+            return NotImplemented
+        return (
+            self.length_unit == other.length_unit
+            and self.atomic_types == other.atomic_types
+            and self.targets == other.targets
+        )
+
+    def union(self, other: "DatasetInfo") -> "DatasetInfo":
+        """Both infos' atomic types and targets (the length units and any
+        shared target must agree)."""
+        if self.length_unit != other.length_unit:
+            raise ValueError(
+                f"length units differ: '{self.length_unit}' vs '{other.length_unit}'"
+            )
+        targets = dict(self.targets)
+        for name, info in other.targets.items():
+            if name in targets and targets[name] != info:
+                raise ValueError(f"target '{name}' differs between datasets")
+            targets[name] = info
+        return DatasetInfo(self.length_unit, set(self.atomic_types) | set(other.atomic_types),
+                           targets)
 
     def to_dict(self) -> dict:
         """The ``dataset_info`` section of a checkpoint, in the JAX

@@ -11,8 +11,11 @@ The optax chain of the JAX package becomes ``torch.optim.Adam`` (or
 ``AdamW`` when ``weight_decay`` is set) behind optax's global-norm clip,
 with the learning rate of ``optax.warmup_cosine_decay_schedule`` set
 before every step at the number of updates done so far, as optax
-evaluates it. Not ported yet, and refused: data parallelism and the
-``heads``/``lora`` finetuning methods.
+evaluates it. A restarted trainer (``load_checkpoint``) carries on from
+its epoch, best model and optimizer state: ``opt_state`` holds the torch
+optimizer's ``state_dict`` as numpy, and its step count is the schedule's.
+Not ported yet, and refused: data parallelism and the ``heads``/``lora``
+finetuning methods.
 """
 
 from __future__ import annotations
@@ -167,6 +170,29 @@ def make_optimizer(params: List[torch.Tensor], weight_decay: Optional[float]):
     return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
 
 
+def load_optimizer_state(optimizer, opt_state) -> int:
+    """Load ``opt_state`` (a torch optimizer's ``state_dict`` as numpy, as
+    :meth:`NNTrainer.save_checkpoint` writes it) into ``optimizer`` on its
+    parameters' device; returns the updates done so far."""
+    if not (isinstance(opt_state, dict) and set(opt_state) == {"state", "param_groups"}):
+        raise ValueError(
+            "the checkpoint's optimizer state is not a torch optimizer's (a checkpoint of "
+            "the JAX package holds optax's): restart from a checkpoint the port wrote, or "
+            "start a new run from this one with architecture.training.finetune.read_from"
+        )
+    state = {
+        int(index): {
+            key: torch.tensor(float(value), dtype=torch.float32) if key == "step"
+            else torch.from_numpy(np.array(value))
+            for key, value in entry.items()
+        }
+        for index, entry in opt_state["state"].items()
+    }
+    optimizer.load_state_dict({"state": state,
+                               "param_groups": copy.deepcopy(opt_state["param_groups"])})
+    return max((int(entry["step"]) for entry in state.values()), default=0)
+
+
 class NNTrainer:
     """Gradient-descent trainer shared by the NN architectures."""
 
@@ -256,7 +282,8 @@ class NNTrainer:
 
         optimizer = make_optimizer(params, hp["weight_decay"])
         self.optimizer = optimizer
-        steps_done = self.epoch * steps_per_epoch
+        steps_done = 0 if self.opt_state is None else load_optimizer_state(optimizer,
+                                                                           self.opt_state)
 
         loss_agg = LossAggregator(target_infos, hp["loss"])
         per_structure = list(hp["per_structure_targets"])

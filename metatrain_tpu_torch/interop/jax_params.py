@@ -12,8 +12,7 @@
   package's checkpoint pickle without importing JAX.
 - :func:`pet_from_checkpoint` builds the port's PET with the checkpoint's
   weights, composition weights and scales, from a checkpoint of any
-  version (1 to 3), upgraded as the JAX package's ``model_from_checkpoint``
-  upgrades it.
+  version (1 to 3), through ``utils.io.model_from_checkpoint``.
 - :func:`int8_calib_from_jax` and :func:`int8_calib_to_jax` carry the
   W8A8 calibrations between the JAX package's registry (``_INT8_CALIB``,
   keyed by the layer's scope path) and the port's fused layers.
@@ -27,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..utils.io import load_checkpoint_file, upgrade_chain
+from ..utils.io import load_checkpoint_file
 
 _DENSE = {"kernel", "bias"}
 _NORM = {"scale", "bias"}
@@ -93,27 +92,20 @@ def state_dict_to_flax(module: nn.Module) -> Dict[str, Any]:
 def pet_from_checkpoint(checkpoint, compute_dtype=torch.float32,
                         device="cuda", plain: bool = False, fused_gnn: bool = False,
                         int8_static: bool = False, int8_scores: bool = False):
-    """The port's PET from a JAX PET checkpoint (dict or path) of version 1,
-    2 or 3, on ``device`` (the card unless the caller asks otherwise);
+    """The port's PET from a PET checkpoint (dict or path) of version 1, 2
+    or 3, on ``device`` (the card unless the caller asks otherwise);
     ``plain``, ``fused_gnn``, ``int8_static`` and ``int8_scores`` as for
     ``PET`` (a W8A8 model still needs ``calibrate_int8`` or
-    :func:`int8_calib_from_jax`)."""
-    from ..data.target_info import DatasetInfo
-    from ..models.pet import PET
+    :func:`int8_calib_from_jax`). The loader of ``utils.io.model_from_checkpoint``."""
+    from ..utils.io import model_from_checkpoint
 
     if not isinstance(checkpoint, dict):
         checkpoint = load_checkpoint_file(checkpoint)
     if checkpoint.get("architecture_name") != "pet":
         raise ValueError(f"not a PET checkpoint: {checkpoint.get('architecture_name')!r}")
-    checkpoint = upgrade_chain(PET, dict(checkpoint))
-    model = PET(checkpoint["hypers"], DatasetInfo.from_dict(checkpoint["dataset_info"]),
-                compute_dtype=compute_dtype, plain=plain, fused_gnn=fused_gnn,
-                int8_static=int8_static, int8_scores=int8_scores)
-    model.module.load_state_dict(flax_to_state_dict(checkpoint["params"]))
-    model.composition.load_checkpoint_weights(checkpoint["composition"])
-    model.scaler.load_checkpoint_scales(checkpoint["scaler"])
-    model.weights_initialized = True
-    return model.to(device)
+    return model_from_checkpoint(checkpoint, context="export", device=device,
+                                 compute_dtype=compute_dtype, plain=plain, fused_gnn=fused_gnn,
+                                 int8_static=int8_static, int8_scores=int8_scores)
 
 
 def int8_calib_from_jax(model, registry: Dict[str, Any]) -> int:

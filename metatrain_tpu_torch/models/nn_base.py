@@ -3,8 +3,9 @@
 Counterpart of ``metatrain_tpu/models/nn_base.py``, for energy targets:
 species lookup, per-target output shapes, assembly of the network's
 per-atom predictions into per-structure energy TensorMaps, the
-evaluation-time scaler and composition baselines, and the model part of a
-checkpoint in the JAX package's layout.
+evaluation-time scaler and composition baselines, the model part of a
+checkpoint in the JAX package's layout, loading one (``load_checkpoint``)
+and carrying a model over to another dataset (``restart``).
 """
 
 from __future__ import annotations
@@ -44,8 +45,12 @@ class AtomisticNNModel(nn.Module):
     ARCHITECTURE_NAME = ""
     __checkpoint_version__ = 1
 
-    def __init__(self, hypers: Dict[str, Any], dataset_info: DatasetInfo, compute_dtype):
+    def __init__(self, hypers: Dict[str, Any], dataset_info: DatasetInfo, compute_dtype,
+                 **build_options):
         super().__init__()
+        # the constructor's keywords beyond the checkpoint's (PET's plain,
+        # fused_gnn, ...), for a model rebuilt by restart
+        self.build_options = dict(build_options)
         # False until random or checkpoint weights are in
         self.weights_initialized = False
         self.hypers = hypers
@@ -130,3 +135,48 @@ class AtomisticNNModel(nn.Module):
             "composition": self.composition.get_checkpoint(),
             "scaler": self.scaler.get_checkpoint(),
         }
+
+    @classmethod
+    def load_checkpoint(cls, checkpoint: Dict[str, Any], context: str = "restart",
+                        device="auto", compute_dtype=torch.float32, **build_options):
+        """The model of an (upgraded) checkpoint of either package, its
+        network in ``compute_dtype`` (float32 unless asked otherwise, as the
+        JAX package loads it), on ``device`` (the card unless the caller
+        asks otherwise). ``context`` (restart, finetune, export) changes
+        nothing for these architectures."""
+        from ..interop.jax_params import flax_to_state_dict
+        from ..utils.devices import resolve_device
+
+        device = resolve_device(device)
+        model = cls(checkpoint["hypers"], DatasetInfo.from_dict(checkpoint["dataset_info"]),
+                    compute_dtype=compute_dtype, **build_options)
+        model.module.load_state_dict(flax_to_state_dict(checkpoint["params"]))
+        model.composition.load_checkpoint_weights(checkpoint["composition"])
+        model.scaler.load_checkpoint_scales(checkpoint["scaler"])
+        model.weights_initialized = True
+        return model.to(device)
+
+    def restart(self, dataset_info: DatasetInfo) -> "AtomisticNNModel":
+        """This model for training on ``dataset_info``: itself when nothing
+        changes; with new targets, a model of the merged info whose new
+        heads are drawn fresh (the seed from numpy's global state, which
+        the train command seeds) and whose other weights are these."""
+        if dataset_info == self.dataset_info:
+            return self
+        merged = self.dataset_info.union(dataset_info)
+        if set(merged.atomic_types) != set(self.atomic_types):
+            raise ValueError(
+                f"{type(self).__name__} cannot be restarted with new atomic types; missing "
+                f"{set(merged.atomic_types) - set(self.atomic_types)}"
+            )
+        device = next(self.parameters()).device
+        new = type(self)(self.hypers, merged, self.compute_dtype, **self.build_options)
+        new.init_weights(torch.Generator().manual_seed(int(np.random.randint(0, 2**31 - 1))))
+        state = new.module.state_dict()
+        for key, value in self.module.state_dict().items():
+            if key in state and state[key].shape == value.shape:
+                state[key] = value
+        new.module.load_state_dict(state)
+        new.composition.load_checkpoint_weights(self.composition.get_checkpoint())
+        new.scaler.load_checkpoint_scales(self.scaler.get_checkpoint())
+        return new.to(device)

@@ -83,13 +83,23 @@ class PET(AtomisticNNModel):
 
     ARCHITECTURE_NAME = "pet"
     __checkpoint_version__ = 3
+    # the exported envelope's metadata, as the JAX package writes it
+    __default_metadata__ = {
+        "references": {
+            "architecture": [
+                "https://arxiv.org/abs/2305.19302",  # PET
+                "https://arxiv.org/abs/2504.12353",  # PET-MAD
+            ]
+        }
+    }
 
     def __init__(self, hypers: Dict[str, Any], dataset_info: DatasetInfo,
                  compute_dtype=torch.float32, plain: bool = False, fused_gnn: bool = False,
                  int8_static: bool = False, int8_scores: bool = False):
         full = copy.deepcopy(DEFAULT_MODEL_HYPERS)
         full.update(hypers or {})
-        super().__init__(full, dataset_info, compute_dtype)
+        super().__init__(full, dataset_info, compute_dtype, plain=plain, fused_gnn=fused_gnn,
+                         int8_static=int8_static, int8_scores=int8_scores)
         hp = self.hypers
         if hp["num_neighbors_adaptive"] is not None:
             raise NotImplementedError("adaptive cutoffs are not ported yet")

@@ -5,9 +5,11 @@ machine with the card has neither pydantic nor PyYAML): the same
 defaults, the same expansion of shorthands (a bare string dataset section
 becomes ``{systems: {read_from: ...}}``, a target section gets
 quantity/key/unit defaults, ``forces: on`` becomes ``{key: "forces"}``)
-and a :class:`MetatrainConfigError` for the same mistakes. ``load_options``
-imports ``yaml`` only when it is called; the expanded options are saved
-as JSON, which YAML readers read too.
+and a :class:`MetatrainConfigError` for the same mistakes. JSON is YAML
+too: ``load_options`` reads a ``.json`` file, and a ``-r key=value``
+override whose value is JSON, with the standard library; other files and
+values need PyYAML, imported only then. The expanded options are saved as
+JSON.
 """
 
 from __future__ import annotations
@@ -35,12 +37,46 @@ class MetatrainConfigError(ValueError):
     """User-facing configuration error."""
 
 
-def load_options(path: Union[str, Path]) -> Dict[str, Any]:
-    """Read an options file (YAML) and resolve its interpolations."""
-    import yaml
+def _needs_yaml(what: str) -> MetatrainConfigError:
+    return MetatrainConfigError(
+        f"{what} is not JSON and reading it needs PyYAML, which is not installed; "
+        "write it as JSON (a .json options file, a JSON override value such as '\"cpu\"')"
+    )
 
-    with open(path) as f:
-        options = yaml.safe_load(f)
+
+def read_mapping_file(path: Union[str, Path]) -> Any:
+    """A ``.json`` file through ``json``; any other through PyYAML, or
+    through ``json`` where PyYAML is missing and the text is JSON."""
+    text = Path(path).read_text()
+    if str(path).endswith(".json"):
+        return json.loads(text)
+    try:
+        import yaml
+    except ImportError:
+        try:
+            return json.loads(text)
+        except ValueError:
+            raise _needs_yaml(f"options file {path}") from None
+    return yaml.safe_load(text)
+
+
+def parse_override_value(value: str) -> Any:
+    """The value of a ``-r key=value`` override: JSON through ``json``,
+    anything else through PyYAML."""
+    try:
+        return json.loads(value)
+    except ValueError:
+        pass
+    try:
+        import yaml
+    except ImportError:
+        raise _needs_yaml(f"override value {value!r}") from None
+    return yaml.safe_load(value)
+
+
+def load_options(path: Union[str, Path]) -> Dict[str, Any]:
+    """Read an options file (JSON or YAML) and resolve its interpolations."""
+    options = read_mapping_file(path)
     if not isinstance(options, dict):
         raise MetatrainConfigError(f"options file {path} is not a mapping")
     return resolve_interpolations(options)

@@ -1,18 +1,44 @@
 """Logging: the package logger, structured CSV metrics and the epoch line.
 
-Counterpart of ``metatrain_tpu/utils/logging.py``: ``CSVMetricsWriter``
-writes one row per logged epoch; ``MetricLogger`` prints one aligned
-``|``-separated line per interval and forwards the row to the CSV file.
+Counterpart of ``metatrain_tpu/utils/logging.py``: ``setup_logging``
+sends the package logger to the console and a log file for the length of
+a command; ``CSVMetricsWriter`` writes one row per logged epoch;
+``MetricLogger`` prints one aligned ``|``-separated line per interval and
+forwards the row to the CSV file.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import logging
+import sys
 from pathlib import Path
 from typing import Dict, List, Optional
 
 ROOT_LOGGER = "metatrain_tpu_torch"
+
+
+@contextlib.contextmanager
+def setup_logging(log_file: Optional[str] = None, level: int = logging.INFO):
+    """The package logger at ``level`` on stdout and, if given, in
+    ``log_file``; the handlers are removed and closed on exit."""
+    logger = logging.getLogger(ROOT_LOGGER)
+    logger.setLevel(level)
+    formatter = logging.Formatter("[%(asctime)s][%(levelname)s] - %(message)s")
+    handlers: List[logging.Handler] = [logging.StreamHandler(sys.stdout)]
+    if log_file:
+        Path(log_file).parent.mkdir(parents=True, exist_ok=True)
+        handlers.append(logging.FileHandler(log_file))
+    for handler in handlers:
+        handler.setFormatter(formatter)
+        logger.addHandler(handler)
+    try:
+        yield logger
+    finally:
+        for handler in handlers:
+            logger.removeHandler(handler)
+            handler.close()
 
 
 class CSVMetricsWriter:
