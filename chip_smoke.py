@@ -29,6 +29,22 @@ device and exits non-zero without one. Phases (any failure propagates):
    fused layers and node stream as one block: the block's forward and
    backward kernels must launch twice per call each (one GNN layer each)
    and K1/K2 not at all; the plain paths run the block's plain version.
+3b. physics options: two PETs at the defaults on the crystal, served as
+   phase 3 in bf16 and f32, kernel and plain, with phase 3's launch counts
+   (the Hopper K1/K2, K3/K4 and heads, the general bodies never, both
+   permutes) and accuracy gates: (a) ``zbl``, Ewald long range (n_kmax 4)
+   and ``system_conditioning`` (its zero-initialised gate drawn from a
+   seeded generator); (b) ``num_neighbors_adaptive: 16`` (the solver) with
+   PME long range (mesh 32). Each option must have acted: ZBL's energy
+   and the long-range features non-zero, a batch with charge 1 and spin
+   multiplicity 2 (``extra_keys``, ``evaluate_model``) another energy than
+   the neutral singlet, the adaptive cutoffs in [0.5, 4.5] and not 4.5.
+   One f32 training step of each on phase 5's first two frames (a charge
+   and a spin each), kernel vs plain with phase 6's gates: K1, K2-dW, K3
+   and K4-dW must launch and the layer's replay run. Reported, not gated:
+   ms per call and atom-steps/s beside phase 3's, each option's own
+   CUDA-event time (forward and backward to the positions) and whether
+   the long-range featurizer repeats bit for bit, a profile of (b).
 4. unfused slice: the same for PET with ``fused_layers: false`` (the
    layout of a v1 checkpoint at the default widths): the window attention
    forward and backward, both permutes and the row-block stages must
@@ -1524,16 +1540,17 @@ def time_force_calls(calcs, system, reps=5):
 
 
 def check_slice(device, hypers, expected, n_cells=14, steps=3, timing=True, fused_gnn=False,
-                time_plain=True):
-    """Serve the force call of PET with ``hypers`` (random weights; with
-    ``fused_gnn``, each GNN layer as one block); returns its report, with
-    the served batch's (A, M) under ``padded``. ``time_plain=False`` times
-    the kernel paths only and skips the profile."""
+                time_plain=True, state=None, calcs_out=None):
+    """Serve the force call of PET with ``hypers`` (random weights, or
+    ``state``; with ``fused_gnn``, each GNN layer as one block); returns
+    its report, with the served batch's (A, M) under ``padded``.
+    ``time_plain=False`` times the kernel paths only and skips the
+    profile; ``calcs_out``, a dict, receives the four calculators."""
     from metatrain_tpu_torch.calculator import Calculator
     from metatrain_tpu_torch.containers import System
     from metatrain_tpu_torch.ops.kernels import _lib
 
-    state = random_state(hypers)
+    state = random_state(hypers) if state is None else state
     calcs = {
         f"{path}_{tag}": Calculator(make_pet(dtype, path == "plain", state, device, hypers,
                                              fused_gnn))
@@ -1542,6 +1559,8 @@ def check_slice(device, hypers, expected, n_cells=14, steps=3, timing=True, fuse
                                  ("plain", "f32", torch.float32),
                                  ("plain", "bf16", torch.bfloat16))
     }
+    if calcs_out is not None:
+        calcs_out.update(calcs)
     system = bench_crystal(n_cells)
     n = len(system)
     rng = np.random.default_rng(1)
@@ -1603,6 +1622,166 @@ def check_slice(device, hypers, expected, n_cells=14, steps=3, timing=True, fuse
         report["profile_kernel_bf16"] = profile_calls(
             lambda: calcs["kernel_bf16"].compute(final, forces=True))
     return report
+
+
+# phase 3b: PET's physics options on the served call. (a) ZBL, Ewald long
+# range and charge/spin conditioning (its zero-initialised gate drawn);
+# (b) adaptive cutoffs (the solver) with PME long range
+LONG_RANGE = {"enable": True, "smearing": 1.4, "n_kmax": 4, "method": "ewald", "mesh": 32}
+PHYSICS = {
+    "physics_a": {"zbl": True, "system_conditioning": True, "long_range": LONG_RANGE},
+    "physics_b": {"num_neighbors_adaptive": 16, "adaptive_cutoff_method": "solver",
+                  "long_range": {**LONG_RANGE, "method": "pme"}},
+}
+# the charge and spin multiplicity of the conditioned batches and frames
+CHARGED = ({"charge": 1, "spin_multiplicity": 2}, {"charge": -1, "spin_multiplicity": 3})
+
+
+def physics_state(hypers):
+    """Random weights for ``hypers``, the conditioning gate drawn from a
+    seeded generator (at zero it would hide the option)."""
+    state = random_state(hypers)
+    if hypers.get("system_conditioning"):
+        key = "system_conditioning.gate.weight"
+        state[key] = torch.randn(state[key].shape,
+                                 generator=torch.Generator().manual_seed(3)) * 0.5
+    return state
+
+
+def check_hopper_launches(key, report):
+    """A served bf16 call at d_pet 128: the Hopper K1 and K2 4 times per
+    call and their general bodies never, the Hopper K3 and K4 2 times per
+    call for the compress and the combination and once for the head."""
+    launches, per_call = report["launches"], report["launches_per_call"]
+    if (launches.get("fused_layer_fwd", 0) or launches.get("fused_layer_bwd", 0)
+            or any(per_call.get(k) != 4 for k in ("fused_layer_fwd_sm90", "fused_layer_bwd_sm90"))):
+        fail(f"{key}: the bf16 force calls launched {launches}: 4 Hopper K1 and 4 Hopper K2 "
+             "per call expected")
+    check_rowblock_launches(key, report, ROWBLOCK_SM90_PER_CALL)
+
+
+def check_options_acted(key, hypers, calcs, report):
+    """Each option of ``hypers`` changed the served call: ZBL's energy and
+    the long-range features are non-zero, a batch with a charge and a spin
+    gives another energy than the neutral singlet, the adaptive cutoffs lie
+    in [0.5, cutoff] and are not the cutoff."""
+    from metatrain_tpu_torch.containers import System, batch_from_systems
+    from metatrain_tpu_torch.engine.evaluate import evaluate_model
+    from metatrain_tpu_torch.ops.inference import no_param_grads
+    from metatrain_tpu_torch.ops.neighbors import compute_neighbor_data
+
+    calc = calcs["kernel_bf16"]
+    model, batch = calc.model, calc._last_batch
+    acted = {}
+    with torch.no_grad():
+        if model.zbl is not None:
+            acted["zbl_energy"] = model.zbl.forward(batch, ["energy"])["energy"][0, 0].item()
+            if not (math.isfinite(acted["zbl_energy"]) and acted["zbl_energy"] != 0):
+                fail(f"{key}: ZBL energy {acted['zbl_energy']}")
+        if model.num_neighbors_adaptive is not None:
+            r = model.preprocess(batch)["atomic_cutoffs"][batch.atom_mask]
+            acted["adaptive_cutoffs"] = [r.min().item(), r.mean().item(), r.max().item()]
+            if not (0.5 <= r.min().item() and r.max().item() <= model.cutoff + 1e-6
+                    and (model.cutoff - r).abs().max().item() > 0.01):
+                fail(f"{key}: adaptive cutoffs {acted['adaptive_cutoffs']}")
+    if model.module.long_range is not None:
+        seen = []
+        hook = model.module.long_range.register_forward_hook(
+            lambda mod, args, out: seen.append(out.detach().float().abs().max()))
+        calc.compute(bench_crystal(), forces=False)
+        hook.remove()
+        acted["long_range_max_abs"] = seen[0].item()
+        if not (math.isfinite(acted["long_range_max_abs"]) and acted["long_range_max_abs"] > 0):
+            fail(f"{key}: long-range features {acted['long_range_max_abs']}")
+    if model.requested_extra_system_keys():
+        crystal = bench_crystal()
+        charged = System(crystal.positions, crystal.types, crystal.cell, crystal.pbc,
+                         dict(CHARGED[0]))
+        nbr = compute_neighbor_data(charged, model.cutoff)
+        energies = []
+        for keys in ((), model.requested_extra_system_keys()):
+            b = batch_from_systems([charged], [nbr], batch.device, extra_keys=keys)
+            with no_param_grads(model):
+                energies.append(evaluate_model(model.forward_eval, b, {
+                    "energy": energy_info().targets["energy"]})["energy"].block(0)
+                    .values[0, 0].item())
+        acted["energy_neutral_singlet"], acted["energy_charge_1_spin_2"] = energies
+        if not all(map(math.isfinite, energies)) or energies[0] == energies[1]:
+            fail(f"{key}: charge and spin did not change the energy: {energies}")
+    report["acted"] = acted
+
+
+def option_times(calcs):
+    """ms of each option's own work in the served force call (its forward
+    and its backward to the positions, CUDA events), on the served batch:
+    ZBL, the long-range featurizer and the adaptive cutoffs; and whether
+    two runs of the featurizer give the same bits (PME's spread and its
+    gather's adjoint add with atomics)."""
+    from metatrain_tpu_torch.models.pet.adaptive import get_adaptive_cutoffs
+
+    model, batch = calcs["kernel_bf16"].model, calcs["kernel_bf16"]._last_batch
+    pos = batch.positions.detach().requires_grad_(True)
+    live = batch.replace(positions=pos)
+    times = {}
+    if model.zbl is not None:
+        times["zbl_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            model.zbl.forward(live, ["energy"])["energy"].sum(), pos))
+    lr = model.module.long_range
+    if lr is not None:
+        bd = model.preprocess(live)
+        nf = torch.randn((batch.n_atoms_padded, model.hypers["d_node"]), device=pos.device,
+                         generator=torch.Generator(pos.device).manual_seed(0)).to(lr.dtype)
+        def featurize():
+            out = lr(nf, bd)
+            return out, torch.autograd.grad(out.float().sum(), pos, retain_graph=True)[0]
+
+        times[f"long_range_{lr.method}_ms"] = cuda_ms(featurize)
+        (o1, g1), (o2, g2) = featurize(), featurize()
+        times["long_range_repeat_bitwise"] = bool(torch.equal(o1, o2) and torch.equal(g1, g2))
+        times["long_range_repeat_max_abs_diff"] = max(
+            (o1 - o2).abs().max().item(), (g1 - g2).abs().max().item())
+    if model.num_neighbors_adaptive is not None:
+        def solve():
+            _, distances = live.edge_vectors()
+            r = get_adaptive_cutoffs(distances, live.nbr_mask, float(model.num_neighbors_adaptive),
+                                     model.cutoff, model.cutoff_width_adaptive)
+            return torch.autograd.grad(r.sum(), pos)
+        times["adaptive_solver_ms"] = cuda_ms(solve)
+    return times
+
+
+def physics_frames(path):
+    """Phase 5's first two frames (the same generator), LJ-labelled, with a
+    charge and a spin multiplicity each, as extended xyz."""
+    from metatrain_tpu_torch.data.readers.extxyz import write_xyz
+
+    rng = np.random.default_rng(2)
+    frames = [fcc_frame(8, rng, 0.1) for _ in range(2)]
+    labels = [lennard_jones(f) for f in frames]
+    write_xyz(str(path), frames, per_atom_arrays=[{"forces": f} for _, f in labels],
+              info=[{"energy": e, **q} for (e, _), q in zip(labels, CHARGED)])
+
+
+def check_physics(device, report, workdir):
+    """Phase 3b: each physics model served as phase 3 (the Hopper kernels'
+    launches, its gates), its options shown to act, their own times, and
+    one f32 training step, kernel vs plain, with phase 6's gates."""
+    physics_frames(workdir / "cu_lj_charged.xyz")
+    for key, hypers in PHYSICS.items():
+        state = physics_state(hypers)
+        calcs = {}
+        report[key] = check_slice(device, hypers, FUSED_SM90_KERNELS, time_plain=key == "physics_b",
+                                  state=state, calcs_out=calcs)
+        check_hopper_launches(key, report[key])
+        check_options_acted(key, hypers, calcs, report[key])
+        report[key]["option_times"] = option_times(calcs)
+        del calcs
+        torch.cuda.empty_cache()
+        report[f"training_parity_{key}"] = check_training_parity(
+            workdir / "cu_lj_charged.xyz", state, device, hypers,
+            expected=("fused_layer_fwd", "fused_layer_bwd_dw", "rowblock_fwd[compress]",
+                      "rowblock_bwd_dw[compress]"), replayed=("fused_layer",))
+        torch.cuda.empty_cache()
 
 
 W8A8_KERNELS = ["fused_layer_fwd_w8a8", "fused_layer_bwd_w8a8", "permute", "permute_acc"] + \
@@ -1907,7 +2086,8 @@ def training_setup(path, state, plain, device, samples, hypers=None, fused_gnn=F
     model = PET(hypers or {}, info, compute_dtype=dtype, plain=plain,
                 fused_gnn=fused_gnn, int8_scores=int8_scores).to(device)
     model.module.load_state_dict(state)
-    batch = CollateFn(model.cutoff, infos, dtype=torch.float32, device=device)(
+    batch = CollateFn(model.cutoff, infos, dtype=torch.float32, device=device,
+                      extra_system_keys=model.requested_extra_system_keys())(
         [dataset[i] for i in samples])
     loss_agg = LossAggregator(infos, TRAIN_LOSS)
     scales = {"energy": [torch.ones(1, device=device)]}
@@ -2375,19 +2555,27 @@ def main() -> int:
     neighbors.BACKENDS.clear()
     report["slice"] = check_slice(device, {}, FUSED_SM90_KERNELS)
     check_neighbor_backend(report)
-    served = report["slice"]
-    if (served["launches"].get("fused_layer_fwd", 0) or served["launches"].get("fused_layer_bwd", 0)
-            or any(served["launches_per_call"].get(k) != 4
-                   for k in ("fused_layer_fwd_sm90", "fused_layer_bwd_sm90"))):
-        fail(f"the bf16 force calls launched {served['launches']}: 4 Hopper K1 and 4 Hopper K2 "
-             "per call expected")
-    check_rowblock_launches("slice", served, ROWBLOCK_SM90_PER_CALL)
+    check_hopper_launches("slice", report["slice"])
     A, M = report["slice"]["padded"]
     print("slice:", json.dumps({k: report["slice"][k] for k in ("padded", "launches", "parity")}
                                | {"neighbor_backends": report["neighbor_backends"]}), flush=True)
     print(f"force call ({card}):", json.dumps(report["slice"]["timing"]), flush=True)
     print("force call profile:", json.dumps(report["slice"]["profile_kernel_bf16"]), flush=True)
     torch.cuda.empty_cache()
+
+    # PET's physics options on the served call, beside phase 3's
+    with tempfile.TemporaryDirectory() as tmp:
+        check_physics(device, report, Path(tmp))
+    for key in PHYSICS:
+        print(f"{key}:", json.dumps({k: report[key][k] for k in (
+            "hypers", "padded", "launches", "parity", "acted")}), flush=True)
+        print(f"{key} force call ({card}), phase 3 beside:", json.dumps({
+            "timing": report[key]["timing"], "option_times": report[key]["option_times"],
+            "phase_3": report["slice"]["timing"]}), flush=True)
+        print(f"{key} training step, f32 kernel vs plain:",
+              json.dumps(report[f"training_parity_{key}"]), flush=True)
+    print("physics_b force call profile:", json.dumps(report["physics_b"]["profile_kernel_bf16"]),
+          flush=True)
 
     # each GNN layer as one block: the block's kernels replace K1 and K2,
     # two launches each per force call (one per GNN layer)

@@ -3,7 +3,9 @@
 Counterpart of ``metatrain_tpu/ase_calculator.py``: wraps
 :class:`metatrain_tpu_torch.calculator.Calculator` (Verlet-skin neighbor
 reuse, cached device batches) in a standard ``ase.calculators`` object,
-so ASE's dynamics drivers and optimizers run against it unchanged.
+so ASE's dynamics drivers and optimizers run against it unchanged. As
+the wrapped calculator, it ships no charge or spin multiplicity: a PET
+with ``system_conditioning`` serves a neutral singlet.
 
 ASE is optional: importing this module without ``ase`` works, and
 building the calculator then raises a clear error; nothing else in the

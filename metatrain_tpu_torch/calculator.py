@@ -17,6 +17,13 @@ Counterpart of ``metatrain_tpu/calculator.py`` on the plain NEF layout
 Serving is inference: the calculator freezes the model's parameters
 (``requires_grad=False``), so the kernels compute input gradients only.
 
+PET's physics options serve unchanged (ZBL, long range, adaptive
+cutoffs). The calculator ships no per-system extra data, as the JAX
+calculator does: a PET with ``system_conditioning`` serves a neutral
+singlet (charge 0, spin multiplicity 1). For another charge or spin,
+evaluate a batch built with ``batch_from_systems(..., extra_keys=
+model.requested_extra_system_keys())`` through ``evaluate_model``.
+
 Serving with the static W8A8 layers (the JAX package's
 ``MTT_INT8_STATIC=1``): build the model in bfloat16 with
 ``int8_static=True`` (``PET(..., compute_dtype=torch.bfloat16,

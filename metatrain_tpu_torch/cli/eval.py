@@ -40,7 +40,8 @@ def _loader(model, dataset, target_infos, batch_size: int) -> DataLoader:
     param = next(model.parameters())
     dtype = torch.float64 if param.dtype == torch.float64 else torch.float32
     collate = CollateFn(model.requested_neighbor_cutoff(), target_infos, dtype=dtype,
-                        device=param.device)
+                        device=param.device,
+                        extra_system_keys=model.requested_extra_system_keys())
     return DataLoader(dataset, BatchSampler(len(dataset), batch_size, shuffle=False), collate)
 
 

@@ -103,7 +103,9 @@ class SystemBatch:
     ``nbr_indices`` (A, M) int64 (padding -> the center atom),
     ``nbr_shifts`` (A, M, 3) int32, ``nbr_mask`` (A, M) bool,
     ``nbr_reverse`` (A, M) int64 flat index into A*M of the reversed edge
-    (padding -> the slot itself).
+    (padding -> the slot itself), ``extra`` named per-system (S, ...) or
+    per-atom (A, ...) data (``charge``, ``spin_multiplicity`` for system
+    conditioning), 0 in padded slots.
     """
 
     positions: torch.Tensor
@@ -117,6 +119,7 @@ class SystemBatch:
     nbr_shifts: torch.Tensor
     nbr_mask: torch.Tensor
     nbr_reverse: torch.Tensor
+    extra: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
     def replace(self, **updates) -> "SystemBatch":
         return dataclasses.replace(self, **updates)
@@ -192,10 +195,14 @@ def batch_from_systems(
     max_neighbors: Optional[int] = None,
     dtype=torch.float32,
     bucket_ratio: float = 1.25,
+    extra_keys: Sequence[str] = (),
 ) -> SystemBatch:
     """Assemble host systems and NEF neighbor data into one padded batch
     on ``device``. Padded atoms point at a padded system slot; padded
-    neighbor slots self-reference so every gather stays in bounds."""
+    neighbor slots self-reference so every gather stays in bounds.
+    ``extra_keys`` name entries of ``System.extra`` to ship in
+    ``SystemBatch.extra``: a scalar per system becomes (S,), a per-atom
+    array (A, ...); padding is 0."""
     n_systems = len(systems)
     if n_systems == 0:
         raise ValueError("cannot batch zero systems")
@@ -265,6 +272,20 @@ def batch_from_systems(
         nbr_reverse[sl, :m] = np.where(nbr.mask, remapped, own_flat)
         offset += n
 
+    extra: Dict[str, np.ndarray] = {}
+    for key in extra_keys:
+        missing = [i for i, system in enumerate(systems) if key not in system.extra]
+        if missing:
+            raise KeyError(f"system {missing[0]} is missing extra data '{key}'")
+        values = [np.asarray(system.extra[key]) for system in systems]
+        if values[0].ndim == 0:  # one scalar per system
+            arr = np.zeros((S,), dtype=values[0].dtype)
+            arr[:n_systems] = values
+        else:  # one row per atom
+            arr = np.zeros((A,) + values[0].shape[1:], dtype=values[0].dtype)
+            arr[:total_atoms] = np.concatenate(values)
+        extra[key] = arr
+
     def dev(x, dt=None):
         return torch.as_tensor(x, dtype=dt, device=device)
 
@@ -280,4 +301,5 @@ def batch_from_systems(
         nbr_shifts=dev(nbr_shifts),
         nbr_mask=dev(nbr_mask),
         nbr_reverse=dev(nbr_reverse),
+        extra={key: dev(value) for key, value in extra.items()},
     )

@@ -77,6 +77,9 @@ class CollateFn:
     :param device: the device every tensor of a batch is built on.
     :param bucket_ratio: geometric bucket growth factor.
     :param max_neighbors: optional fixed NEF width (otherwise bucketed).
+    :param extra_system_keys: names of ``System.extra`` entries to ship in
+        ``SystemBatch.extra`` (``charge`` and ``spin_multiplicity`` for
+        system conditioning; the model's ``requested_extra_system_keys``).
     :param transforms: host-side batch transforms applied in order (O3
         augmentation, additive-baseline removal), each
         ``(samples) -> samples``.
@@ -92,6 +95,7 @@ class CollateFn:
         device=torch.device("cpu"),
         bucket_ratio: float = 1.25,
         max_neighbors: Optional[int] = None,
+        extra_system_keys: Sequence[str] = (),
         transforms: Sequence[Callable[[List[Sample]], List[Sample]]] = (),
         n_atoms_padded: Optional[int] = None,
         n_systems_padded: Optional[int] = None,
@@ -102,6 +106,7 @@ class CollateFn:
         self.device = torch.device(device)
         self.bucket_ratio = bucket_ratio
         self.max_neighbors = max_neighbors
+        self.extra_system_keys = tuple(extra_system_keys)
         self.transforms = list(transforms)
         self.n_atoms_padded = n_atoms_padded
         self.n_systems_padded = n_systems_padded
@@ -125,6 +130,7 @@ class CollateFn:
         system_batch = batch_from_systems(
             systems, neighbor_data, self.device,
             n_atoms_padded=A, n_systems_padded=S, max_neighbors=M, dtype=self.dtype,
+            extra_keys=self.extra_system_keys,
         )
         targets = {
             name: batch_targets([s.targets[name] for s in samples], systems, A, S,

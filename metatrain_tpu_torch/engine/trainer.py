@@ -238,6 +238,8 @@ class NNTrainer:
             fixed_weights=None if isinstance(atomic_baseline, str) else (atomic_baseline or None),
         )
         baseline_transforms = [composition.remove_transform]
+        if model.zbl is not None:  # the ZBL baseline comes off after composition's
+            baseline_transforms.append(model.zbl.remove_transform)
         removed_datasets = [_RemovedView(ds, baseline_transforms) for ds in train_datasets]
         fixed_scaling = hp["fixed_scaling_weights"]
         scaler = train_or_load_scaler(
@@ -258,10 +260,11 @@ class NNTrainer:
             # augment before removal: gradient blocks rotate before scaling
             train_transforms = [O3Augmenter(seed=hp["seed"])] + train_transforms
         cutoff = model.requested_neighbor_cutoff() or 5.0
+        extra_keys = model.requested_extra_system_keys()
         train_collate = CollateFn(cutoff, target_infos, dtype=dtype, device=device,
-                                  transforms=train_transforms)
+                                  extra_system_keys=extra_keys, transforms=train_transforms)
         val_collate = CollateFn(cutoff, target_infos, dtype=dtype, device=device,
-                                transforms=removal_transforms)
+                                extra_system_keys=extra_keys, transforms=removal_transforms)
         # host collation in a background thread, ahead of the steps
         train_loader = PrefetchingLoader(
             _build_loader(train_datasets, train_collate, hp, shuffle=True))

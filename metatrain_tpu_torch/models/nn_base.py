@@ -75,6 +75,7 @@ class AtomisticNNModel(nn.Module):
         self._species_lookup = lookup
         self.composition = CompositionModel(dataset_info)
         self.scaler = Scaler(dataset_info)
+        self.zbl = None  # the ZBL baseline, set by a subclass whose hypers ask for it
 
     def preprocess(self, batch: SystemBatch) -> Dict[str, Any]:
         raise NotImplementedError
@@ -93,11 +94,16 @@ class AtomisticNNModel(nn.Module):
         return {name: self._assemble_target(name, raw[name], batch) for name in requested}
 
     def forward_eval(self, batch: SystemBatch, outputs: Sequence[str]) -> Dict[str, TensorMap]:
-        """Evaluation predictions: scaler and composition baseline applied."""
+        """Evaluation predictions: scaler, composition baseline and (where
+        the model has one) the ZBL baseline applied, in that order."""
         results = self.scaler.apply_scales(self.forward(batch, outputs))
-        for name, contribution in self.composition.forward(batch, list(results)).items():
-            block = results[name].block(0)
-            block.values = block.values + contribution.to(block.values.dtype)
+        additive = [self.composition.forward(batch, list(results))]
+        if self.zbl is not None:
+            additive.append(self.zbl.forward(batch, list(results)))
+        for contributions in additive:
+            for name, contribution in contributions.items():
+                block = results[name].block(0)
+                block.values = block.values + contribution.to(block.values.dtype)
         return results
 
     def _assemble_target(self, name: str, per_block: Dict[str, torch.Tensor],
@@ -117,6 +123,10 @@ class AtomisticNNModel(nn.Module):
                 )
             )
         return TensorMap(info.layout.keys, blocks)
+
+    def requested_extra_system_keys(self) -> Sequence[str]:
+        """``System.extra`` entries the model reads from ``SystemBatch.extra``."""
+        return ()
 
     def supported_outputs(self) -> Dict[str, TargetInfo]:
         return dict(self.target_infos)

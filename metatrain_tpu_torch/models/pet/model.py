@@ -2,22 +2,27 @@
 
 Counterpart of ``metatrain_tpu/models/pet/model.py``: the PET defaults,
 ``preprocess`` (edge vectors through the gather-only position gather,
-cutoff factors, NEF species indices), the network (fused or unfused
-layers, feedforward or residual featurizer) and the upgrades of older
-checkpoints. Forces and virial come from ``engine/evaluate.py``.
+fixed or adaptive cutoffs and their cutoff factors, NEF species indices,
+the inputs of long range and system conditioning), the network (fused or
+unfused layers, feedforward or residual featurizer, long range, system
+conditioning), the ZBL baseline and the upgrades of older checkpoints.
+Forces and virial come from ``engine/evaluate.py``.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict
+from typing import Any, Dict, Sequence
 
 import torch
 
 from ...containers import SystemBatch
 from ...data.target_info import DatasetInfo
+from ...ops.involution import nbr_gather
 from ...ops.kernels.fused_layer import Int8Calib
 from ..nn_base import AtomisticNNModel
+from ..zbl import ZBL
+from .adaptive import get_adaptive_cutoffs, get_probe_adaptive_cutoffs
 from .modules import (
     FusedTransformerLayer,
     PETModule,
@@ -101,13 +106,13 @@ class PET(AtomisticNNModel):
         super().__init__(full, dataset_info, compute_dtype, plain=plain, fused_gnn=fused_gnn,
                          int8_static=int8_static, int8_scores=int8_scores)
         hp = self.hypers
-        if hp["num_neighbors_adaptive"] is not None:
-            raise NotImplementedError("adaptive cutoffs are not ported yet")
-        if hp["zbl"]:
-            raise NotImplementedError("the ZBL baseline is not ported yet")
         self.cutoff = float(hp["cutoff"])
         self.cutoff_width = float(hp["cutoff_width"])
         self.cutoff_function = hp["cutoff_function"].lower()
+        self.num_neighbors_adaptive = hp["num_neighbors_adaptive"]
+        self.cutoff_width_adaptive = float(hp["cutoff_width_adaptive"])
+        if hp["zbl"]:
+            self.zbl = ZBL(dataset_info, self.cutoff, self.cutoff_width)
         self.module = PETModule(hp, len(self.atomic_types), self.output_shapes,
                                 compute_dtype, plain, fused_gnn)
         if compute_dtype == torch.float64:
@@ -177,19 +182,53 @@ class PET(AtomisticNNModel):
     def requested_neighbor_cutoff(self) -> float:
         return self.cutoff
 
+    def requested_extra_system_keys(self) -> Sequence[str]:
+        if self.hypers["system_conditioning"]:
+            return ("charge", "spin_multiplicity")
+        return ()
+
     def preprocess(self, batch: SystemBatch) -> Dict[str, Any]:
+        """Edge vectors, distances, cutoff factors, NEF indices, and the
+        inputs of long range and system conditioning (charge 0 and spin
+        multiplicity 1, a neutral singlet, where the batch has none).
+        Adaptive cutoffs act through the cutoff factors, with the pair
+        cutoff ``0.5 (r_i + r_j)``; no edge is dropped."""
         vectors, distances = batch.edge_vectors()
         species_index = self.species_index(batch)
-        if self.cutoff_function == "bump":
-            cutoff_factors = cutoff_func_bump(distances, self.cutoff, self.cutoff_width)
+        if self.num_neighbors_adaptive is not None:
+            adaptive = (get_probe_adaptive_cutoffs
+                        if self.hypers["adaptive_cutoff_method"] == "probe"
+                        else get_adaptive_cutoffs)
+            atomic_cutoffs = adaptive(distances, batch.nbr_mask,
+                                      float(self.num_neighbors_adaptive), self.cutoff,
+                                      self.cutoff_width_adaptive)
+            nbr_cutoffs = nbr_gather(atomic_cutoffs, batch.nbr_indices, batch.nbr_reverse)
+            cutoff = 0.5 * (atomic_cutoffs[:, None] + nbr_cutoffs)
         else:
-            cutoff_factors = cutoff_func_cosine(distances, self.cutoff, self.cutoff_width)
+            atomic_cutoffs = torch.full((batch.n_atoms_padded,), self.cutoff,
+                                        dtype=distances.dtype, device=distances.device)
+            cutoff = self.cutoff
+        if self.cutoff_function == "bump":
+            cutoff_factors = cutoff_func_bump(distances, cutoff, self.cutoff_width)
+        else:
+            cutoff_factors = cutoff_func_cosine(distances, cutoff, self.cutoff_width)
+        S = batch.n_systems_padded
         return {
             "species_index": species_index,
             "neighbor_species_index": species_index[batch.nbr_indices],
             "edge_vectors": vectors,
             "edge_distances": distances,
             "nbr_mask": batch.nbr_mask,
+            "nbr_indices": batch.nbr_indices,
             "nbr_reverse": batch.nbr_reverse,
             "cutoff_factors": torch.where(batch.nbr_mask, cutoff_factors, 0.0),
+            "atomic_cutoffs": atomic_cutoffs,
+            "positions": batch.positions,
+            "cells": batch.cells,
+            "pbc": batch.pbc,
+            "system_index": batch.system_index,
+            "atom_mask": batch.atom_mask,
+            "charge": batch.extra.get("charge", torch.zeros(S, device=batch.device)),
+            "spin_multiplicity": batch.extra.get("spin_multiplicity",
+                                                 torch.ones(S, device=batch.device)),
         }

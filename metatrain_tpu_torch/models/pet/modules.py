@@ -12,7 +12,10 @@ Counterpart of ``metatrain_tpu/models/pet/modules.py``:
   M + 1 tokens, the window attention kernels on the card), taken for
   ``fused_layers: false`` and for any layer the fused kernel does not
   cover, as in the JAX package;
-- the feedforward and residual featurizers, and the heads.
+- the feedforward and residual featurizers, and the heads;
+- system conditioning (``SystemConditioningEmbedding``, added to the node
+  stream after every GNN layer) and the long-range featurizer
+  (``engine/long_range.py``, mixed into every readout's node features).
 
 Module and parameter names follow the flax tree, so
 ``interop/jax_params.py`` maps a flax parameter tree onto ``state_dict``
@@ -74,13 +77,16 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> N
 
 def init_flax_like(module: nn.Module, generator: torch.Generator) -> None:
     """Initialise every parameter with flax's default family, in
-    ``named_parameters`` order: Dense kernels lecun_normal, biases zeros,
-    norm scales ones, embeddings normal with variance 1 / features."""
+    ``named_parameters`` order: Dense kernels lecun_normal (zeros for a
+    Linear marked ``zero_init``, flax's ``kernel_init=zeros``), biases
+    zeros, norm scales ones, embeddings normal with variance 1 / features."""
     with torch.no_grad():
         for name, p in module.named_parameters():
             owner_name, _, leaf = name.rpartition(".")
             owner = module.get_submodule(owner_name)
-            if isinstance(owner, nn.Embedding):
+            if getattr(owner, "zero_init", False):
+                p.zero_()
+            elif isinstance(owner, nn.Embedding):
                 p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=generator)
             elif leaf == "bias" or leaf.startswith("b_"):
                 p.zero_()
@@ -93,14 +99,15 @@ def init_flax_like(module: nn.Module, generator: torch.Generator) -> None:
 
 
 def cutoff_func_bump(values, cutoff, width):
-    """C-infinity bump switching function."""
+    """C-infinity bump switching function. ``cutoff`` is a number or a
+    tensor that broadcasts against ``values`` (per-pair adaptive cutoffs)."""
     scaled = (values - (cutoff - width)) / width
     clamped = torch.clamp(scaled, 1e-6, 1.0 - 1e-6)
     return 0.5 * (1.0 + torch.tanh(1.0 / torch.tan(math.pi * clamped)))
 
 
 def cutoff_func_cosine(values, cutoff, width):
-    """Cosine switching function."""
+    """Cosine switching function; ``cutoff`` as in :func:`cutoff_func_bump`."""
     scaled = (values - (cutoff - width)) / width
     return 0.5 * (1.0 + torch.cos(math.pi * torch.clamp(scaled, 0.0, 1.0)))
 
@@ -469,7 +476,10 @@ class PETBackbone(nn.Module):
                 self.add_module(f"combination_mlp_{i}_1", nn.Linear(2 * d_pet, d_pet))
 
     def forward(self, bd: Dict[str, Any]):
+        """``bd["conditioning"]`` (A, d_node), where present, is added to the
+        node features after every GNN layer."""
         cd = self.dtype
+        conditioning = bd.get("conditioning")
         nbr_species = bd["neighbor_species_index"]
         input_messages = embed(self.edge_species_embedder, nbr_species, cd)
         common = (nbr_species, bd["edge_vectors"], bd["edge_distances"],
@@ -479,6 +489,8 @@ class PETBackbone(nn.Module):
             for i in range(self.num_gnn):
                 node = embed(getattr(self, f"node_embedder_{i}"), bd["species_index"], cd)
                 node, out_edges = getattr(self, f"gnn_layer_{i}")(node, input_messages, *common)
+                if conditioning is not None:
+                    node = node + conditioning
                 node_features.append(node)
                 out_edges, reversed_edges = reverse_edges(out_edges, bd["nbr_reverse"], self.plain)
                 edge_features.append(out_edges)
@@ -488,6 +500,8 @@ class PETBackbone(nn.Module):
         node = embed(self.node_embedder_0, bd["species_index"], cd)
         for i in range(self.num_gnn):
             node, out_edges = getattr(self, f"gnn_layer_{i}")(node, input_messages, *common)
+            if conditioning is not None:
+                node = node + conditioning
             out_edges, reversed_edges = reverse_edges(out_edges, bd["nbr_reverse"], self.plain)
             ln = getattr(self, f"combination_norm_{i}")
             weights = (ln.weight, ln.bias,
@@ -498,6 +512,30 @@ class PETBackbone(nn.Module):
                     input_messages.to(out_edges.dtype).reshape(A * M, D))
             input_messages = run_stage(COMBINATION, flat, weights, self.plain).reshape(A, M, D)
         return [node], [input_messages]
+
+
+class SystemConditioningEmbedding(nn.Module):
+    """Charge and spin-multiplicity conditioning, broadcast to the atoms:
+    per-system embeddings of the integer charge (clipped to [-max_charge,
+    max_charge]) and spin multiplicity (clipped to [1, max_spin]), summed,
+    SiLU, and a zero-initialised ``gate``, so that a model is unchanged by
+    it at initialisation. The broadcast to atoms is a one-hot product."""
+
+    def __init__(self, d_out: int, max_charge: int = 10, max_spin_multiplicity: int = 10):
+        super().__init__()
+        self.max_charge, self.max_spin = int(max_charge), int(max_spin_multiplicity)
+        self.charge_embedding = nn.Embedding(2 * self.max_charge + 1, d_out)
+        self.spin_embedding = nn.Embedding(self.max_spin, d_out)
+        self.gate = nn.Linear(d_out, d_out)
+        self.gate.zero_init = True
+
+    def forward(self, charge, spin_multiplicity, system_index, dtype):
+        charge_idx = torch.clamp(charge.to(torch.int32) + self.max_charge, 0, 2 * self.max_charge)
+        spin_idx = torch.clamp(spin_multiplicity.to(torch.int32) - 1, 0, self.max_spin - 1)
+        combined = F.silu(embed(self.charge_embedding, charge_idx.long(), dtype)
+                          + embed(self.spin_embedding, spin_idx.long(), dtype))
+        gated = dense(self.gate, combined, dtype)  # (S, d_out)
+        return F.one_hot(system_index, gated.shape[0]).to(dtype) @ gated
 
 
 class Head(nn.Module):
@@ -517,7 +555,10 @@ class Head(nn.Module):
 
 class PETModule(nn.Module):
     """Backbone + per-target node/edge heads and last layers, one set per
-    readout layer of the backbone.
+    readout layer of the backbone; with ``system_conditioning``, the
+    conditioning embedding; with ``long_range.enable``, the long-range
+    featurizer on the last node features, every readout's node features
+    becoming ``(nf + lr) / sqrt(2)``.
 
     ``output_shapes``: target name -> {block key string -> flat size}.
     Returns, per requested target, the per-atom prediction of each block
@@ -529,19 +570,22 @@ class PETModule(nn.Module):
                  output_shapes: Dict[str, Dict[str, int]], dtype, plain: bool = False,
                  fused_gnn: bool = False):
         super().__init__()
-        unsupported = {
-            "long_range": bool(hp.get("long_range", {}).get("enable")),
-            "system_conditioning": bool(hp.get("system_conditioning")),
-        }
-        off_slice = [k for k, bad in unsupported.items() if bad]
-        if off_slice:
-            raise NotImplementedError(
-                f"PET configuration off the ported slice: {off_slice} (the port "
-                "runs PET without long range or system conditioning)"
-            )
         self.dtype, self.plain = dtype, plain
         self.output_shapes = output_shapes
+        self.system_conditioning = None
+        if hp.get("system_conditioning"):
+            self.system_conditioning = SystemConditioningEmbedding(
+                hp["d_node"], hp.get("max_charge", 10), hp.get("max_spin_multiplicity", 10))
         self.backbone = PETBackbone(hp, num_species, dtype, plain, fused_gnn)
+        self.long_range = None
+        lr = hp.get("long_range") or {}
+        if lr.get("enable"):
+            from ...engine.long_range import LongRangeFeaturizer
+
+            self.long_range = LongRangeFeaturizer(
+                hp["d_node"], hp["d_node"], dtype, smearing=float(lr.get("smearing", 1.4)),
+                n_kmax=int(lr.get("n_kmax", 4)), method=str(lr.get("method", "ewald")),
+                mesh=int(lr.get("mesh", 32)))
         d_head = hp["d_head"]
         readouts = 1 if hp["featurizer_type"] == "feedforward" else hp["num_gnn_layers"]
         for target, shapes in output_shapes.items():
@@ -555,7 +599,13 @@ class PETModule(nn.Module):
 
     def forward(self, bd: Dict[str, Any], requested: Sequence[str]):
         cd = self.dtype
+        if self.system_conditioning is not None:
+            bd = dict(bd, conditioning=self.system_conditioning(
+                bd["charge"], bd["spin_multiplicity"], bd["system_index"], cd))
         node_features, edge_features = self.backbone(bd)
+        if self.long_range is not None:
+            lr_features = self.long_range(node_features[-1], bd)
+            node_features = [(nf + lr_features) * (0.5**0.5) for nf in node_features]
         cf = torch.where(bd["nbr_mask"], bd["cutoff_factors"], 0.0)
         results: Dict[str, Dict[str, torch.Tensor]] = {}
         for target, shapes in self.output_shapes.items():

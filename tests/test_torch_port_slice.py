@@ -6,7 +6,8 @@ its cKDTree fallback equals its cell list), the gather-only adjoints are
 exact, forces are the derivative of the energy,
 the calculator's Verlet reuse changes nothing, random weights follow
 flax's initializer families, bf16 stays within the JAX package's bf16
-bounds, and configurations off the slice are refused.
+bounds, the configurations it refused before PET's physics options were
+ported match the JAX package, and what it still refuses raises.
 """
 
 import subprocess
@@ -17,8 +18,19 @@ import numpy as np
 import pytest
 import torch
 
-import _torch_port_helpers  # noqa: F401  (one torch thread per test worker)
+import jax.numpy as jnp
+
+from _torch_port_helpers import (
+    flax_tree,
+    jax_energy_forces_virial,
+    neighbors_and_batches,
+    port_energy_forces_virial,
+    rel,
+)
 from conftest import make_crystal, make_molecule
+from metatrain_tpu.data.target_info import DatasetInfo as JaxDatasetInfo
+from metatrain_tpu.data.target_info import get_energy_target_info as jax_energy_info
+from metatrain_tpu.models.pet import PET as JaxPET
 from metatrain_tpu.ops.neighbors import compute_neighbor_data as jax_neighbor_data
 from metatrain_tpu_torch.calculator import Calculator
 from metatrain_tpu_torch.containers import System, batch_from_systems
@@ -63,6 +75,8 @@ def test_port_imports_no_jax():
         "import metatrain_tpu_torch.cli.export, metatrain_tpu_torch.ase_calculator\n"
         "import metatrain_tpu_torch.data.writers, metatrain_tpu_torch.utils.consistency\n"
         "import metatrain_tpu_torch.utils.profiling, metatrain_tpu_torch.utils.io\n"
+        "import metatrain_tpu_torch.ops.ewald, metatrain_tpu_torch.engine.long_range\n"
+        "import metatrain_tpu_torch.models.zbl, metatrain_tpu_torch.models.pet.adaptive\n"
         "new = set(sys.modules) - before\n"
         "banned = ('jax', 'jaxlib', 'flax', 'metatrain_tpu', 'pydantic', 'yaml')\n"
         "bad = sorted(m for m in new if m.split('.')[0] in banned)\n"
@@ -217,7 +231,48 @@ def test_bf16_force_call_within_bounds():
     {"fused_layers": False, "system_conditioning": True},
     {"normalization": "LayerNorm", "zbl": True},
 ])
-def test_off_slice_configurations_are_refused(change):
-    info = DatasetInfo("angstrom", [1], {"energy": get_energy_target_info("eV")})
-    with pytest.raises(NotImplementedError):
-        PET({**HYPERS, **change}, info)
+def test_once_refused_configurations_match_jax(change):
+    """The option sets the port refused before it served PET's physics
+    options: energy, forces and virial against the JAX package with the
+    same weights (the conditioning gate drawn), on the crystal (a charge of
+    1 and a spin multiplicity of 2 where conditioned), to 1e-10; the
+    adaptive solver to 1e-7 (its last bisection bracket,
+    ``test_torch_port_physics_ops.py``)."""
+    hypers = {**HYPERS, **change}
+    system = make_crystal(seed=2, jitter=0.1)
+    port = _model([29], hypers=hypers)
+    if change.get("system_conditioning"):
+        gate = port.module.system_conditioning.gate
+        with torch.no_grad():
+            gate.weight.normal_(0.0, 0.5, generator=torch.Generator().manual_seed(1))
+    params = flax_tree(port.module)
+    jax_info = JaxDatasetInfo("angstrom", [29], {"energy": jax_energy_info("eV", True, True)})
+    jax_model = JaxPET(hypers, jax_info, compute_dtype=jnp.float64)
+    jax_batch, batch = neighbors_and_batches(system, port.cutoff)
+    if change.get("system_conditioning"):
+        charge = {"charge": np.array([1.0, 0.0]), "spin_multiplicity": np.array([2.0, 1.0])}
+        jax_batch = jax_batch.replace(extra={k: jnp.asarray(v) for k, v in charge.items()})
+        batch = batch.replace(extra={k: torch.as_tensor(v) for k, v in charge.items()})
+    expected = jax_energy_forces_virial(jax_model, params, jax_batch, dict(jax_info.targets))
+    got = port_energy_forces_virial(port, batch, {"energy": get_energy_target_info("eV", True,
+                                                                                    True)})
+    bound = 1e-7 if "num_neighbors_adaptive" in change else 1e-10
+    for g, e in zip(got, expected):
+        assert g.shape == e.shape and rel(g, e) <= bound
+    assert np.abs(expected[1]).max() > 0
+
+
+def test_unported_targets_and_outputs_are_refused():
+    """What the port still refuses: a target other than a per-structure
+    energy, and PET's ``mtt::aux::cutoff_stats`` output."""
+    from metatrain_tpu_torch.containers import Labels, TensorMap
+    from metatrain_tpu_torch.data.target_info import TargetInfo, _empty_block
+
+    per_atom = TargetInfo(TensorMap(Labels.single(), [_empty_block(
+        ["system", "atom"], [], Labels(["charge"], np.zeros((1, 1), dtype=np.int32)))]), "charge")
+    with pytest.raises(NotImplementedError, match="energy"):
+        PET(HYPERS, DatasetInfo("angstrom", [1], {"charges": per_atom}))
+    model = _model([29], hypers={**HYPERS, "num_neighbors_adaptive": 8})
+    _, batch = neighbors_and_batches(make_crystal(), model.cutoff)
+    with pytest.raises(NotImplementedError, match="cutoff_stats"):
+        model(batch, ["energy", "mtt::aux::cutoff_stats"])
