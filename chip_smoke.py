@@ -45,6 +45,35 @@ device and exits non-zero without one. Phases (any failure propagates):
    ms per call and atom-steps/s beside phase 3's, each option's own
    CUDA-event time (forward and backward to the positions) and whether
    the long-range featurizer repeats bit for bit, a profile of (b).
+3c. generic targets: PET at the defaults (random weights from a seeded
+   generator) with six targets: the energy with forces and virial, a
+   4-member ensemble with its own forces (LLPR's layout), per-atom
+   charges, a dipole (Cartesian rank 1), a polarizability (spherical (0,
+   1) and (2, 1)) and the non-conservative stress, plus the aux outputs
+   ``features`` and the energy's last-layer features, all in one bf16
+   call (``evaluate_model(forward_eval)``) on the crystal's served batch
+   (the calculator's list and padding). Every counter starts at 0 just
+   before two such calls; the launches per call must equal
+   ``GENERIC_PER_CALL`` (the Hopper K1 4, K2 20: one backward pass for
+   the energy and one per member; K3 compress, combination and heads 2 /
+   2 / 6; K4 10 / 10 / 5; permute 2, accumulate permute 10; the general
+   bodies never). Gates against the f32 plain path: phase 3's for the
+   energy (1 %) and for forces and virial (5 %), 5 % relative RMS for
+   every other output, or 1.25 x the bf16 plain path's own error; the f32
+   kernel path 1e-5 (energy) and 1e-4. Each member's forces equal a call
+   seeding that member alone to 1e-6 relative (f32 kernel path). Timed:
+   the all-outputs call, the same without the members' forces (their
+   difference is the property loop) and the energy-only force call. One
+   f32 training step on phase 5's first two frames with generic labels
+   from their positions (mse energy and forces, huber charges, mae
+   dipole, shift-agnostic mse polarizability; both batches rotated by an
+   O3 augmenter of seed 0), kernel vs plain with phase 6's gates, the
+   general K1, K3, K2-dW and K4-dW launched, a K3 head per target and at
+   least one K4-dW head per target. ``mtt::aux::cutoff_stats`` of phase
+   3b's adaptive model (b), bf16 kernel vs f32 plain path, 1e-5. The
+   ``eval`` command in this process on the model saved as ``.mtt`` and the
+   two frames: its ``.xyz`` read back equals the in-process predictions to
+   1e-5 relative.
 4. unfused slice: the same for PET with ``fused_layers: false`` (the
    layout of a v1 checkpoint at the default widths): the window attention
    forward and backward, both permutes and the row-block stages must
@@ -1750,6 +1779,32 @@ def option_times(calcs):
     return times
 
 
+def check_cutoff_stats(calcs):
+    """Phase 3c's ``mtt::aux::cutoff_stats`` of the adaptive model on its
+    served batch, bf16 kernel path against the f32 plain path (both solve
+    the cutoffs in the batch's float32): within 1e-5 relative, the cutoffs
+    in [0.5, cutoff] and not all the cutoff."""
+    from metatrain_tpu_torch.models.pet.model import CUTOFF_STATS
+
+    batch = calcs["kernel_bf16"]._last_batch
+    stats = {}
+    for key in ("kernel_bf16", "plain_f32"):
+        with torch.no_grad():
+            block = calcs[key].model.forward(batch, [CUTOFF_STATS])[CUTOFF_STATS].block(0)
+        stats[key] = block.values[batch.atom_mask].double()
+    k, p = stats["kernel_bf16"], stats["plain_f32"]
+    worst = float(((k - p).abs().max(dim=0).values / p.abs().max(dim=0).values).max())
+    cutoff = calcs["kernel_bf16"].model.cutoff
+    out = {"worst_rel": worst, "cutoff_min_mean_max": [k[:, 0].min().item(), k[:, 0].mean().item(),
+                                                        k[:, 0].max().item()],
+           "smooth_count_mean": k[:, 1].mean().item()}
+    if not (worst <= 1e-5 and 0.5 <= out["cutoff_min_mean_max"][0]
+            and out["cutoff_min_mean_max"][2] <= cutoff + 1e-6
+            and out["cutoff_min_mean_max"][0] < cutoff - 0.01):
+        fail(f"cutoff_stats of the adaptive model: {out}")
+    return out
+
+
 def physics_frames(path):
     """Phase 5's first two frames (the same generator), LJ-labelled, with a
     charge and a spin multiplicity each, as extended xyz."""
@@ -1775,6 +1830,8 @@ def check_physics(device, report, workdir):
         check_hopper_launches(key, report[key])
         check_options_acted(key, hypers, calcs, report[key])
         report[key]["option_times"] = option_times(calcs)
+        if hypers.get("num_neighbors_adaptive"):
+            report[key]["cutoff_stats"] = check_cutoff_stats(calcs)
         del calcs
         torch.cuda.empty_cache()
         report[f"training_parity_{key}"] = check_training_parity(
@@ -1782,6 +1839,427 @@ def check_physics(device, report, workdir):
             expected=("fused_layer_fwd", "fused_layer_bwd_dw", "rowblock_fwd[compress]",
                       "rowblock_bwd_dw[compress]"), replayed=("fused_layer",))
         torch.cuda.empty_cache()
+
+
+# phase 3c: generic targets on PET at its defaults. Targets (6): the energy
+# with forces and virial, a 4-member ensemble with its own forces (LLPR's
+# layout), per-atom charges, a dipole (Cartesian rank 1), a polarizability
+# (spherical (0, 1) and (2, 1)) and the non-conservative stress; with the
+# aux outputs ``features`` and the energy's last-layer features
+ENSEMBLE = "mtt::energy_ensemble"
+GENERIC_AUX = ("features", "mtt::aux::energy_last_layer_features")
+POLAR_IRREPS = [{"o3_lambda": 0, "o3_sigma": 1}, {"o3_lambda": 2, "o3_sigma": 1}]
+# the launches the code implies (a prediction, held to every run): per
+# all-outputs call, one forward (the Hopper K1 4 times, K3's compress and
+# combination 2 each, one K3 head per target: 6) and 5 backward passes
+# (the energy's, then one per ensemble member), each with phase 3's
+# backward (the Hopper K2 4 times, K4's compress and combination 2 each,
+# the accumulate permute 2) and the K4 head of the target it seeds
+GENERIC_PER_CALL = {
+    "fused_layer_fwd_sm90": 4, "fused_layer_bwd_sm90": 20, "fused_layer_fwd": 0,
+    "fused_layer_bwd": 0, "permute": 2, "permute_acc": 10,
+    **{f"rowblock_{d}{v}[{s}]": n if v == "_sm90" else 0
+       for d, per_stage in (("fwd", {"compress": 2, "combination": 2, "head": 6}),
+                            ("bwd", {"compress": 10, "combination": 10, "head": 5}))
+       for v in ("_sm90", "") for s, n in per_stage.items()},
+}
+
+
+def generic_info():
+    """The DatasetInfo of phase 3c's targets."""
+    from metatrain_tpu_torch.containers import Labels
+    from metatrain_tpu_torch.data.target_info import (
+        DatasetInfo,
+        _empty_block,
+        get_energy_target_info,
+        get_generic_target_info,
+    )
+
+    ensemble = get_generic_target_info("scalar", num_properties=4, quantity="energy", unit="eV")
+    block = ensemble.layout.block(0)
+    block.add_gradient("positions", _empty_block(
+        ["sample", "system", "atom"], [Labels(["xyz"], np.arange(3).reshape(-1, 1))],
+        block.properties))
+    return DatasetInfo("angstrom", [29], {
+        "energy": get_energy_target_info("eV", True, True),
+        ENSEMBLE: ensemble,
+        "mtt::charges": get_generic_target_info("scalar", per_atom=True),
+        "mtt::dipole": get_generic_target_info("cartesian", rank=1),
+        "mtt::polarizability": get_generic_target_info("spherical", irreps=POLAR_IRREPS),
+        "non_conservative_stress": get_generic_target_info("cartesian", rank=2),
+    })
+
+
+def served_batch(system, cutoff, device):
+    """The calculator's batch of ``system``: the list at cutoff + 0.5 A
+    skin, atoms and slots padded by its buckets (A = 11,392, M = 64 on the
+    crystal)."""
+    from metatrain_tpu_torch.containers import batch_from_systems, bucket_atoms, bucket_neighbors
+    from metatrain_tpu_torch.ops.neighbors import VerletNeighborList
+
+    nbr = VerletNeighborList(cutoff, 0.5).update(system)
+    return batch_from_systems([system], [nbr], device, n_atoms_padded=bucket_atoms(len(system), 1.1),
+                              n_systems_padded=2,
+                              max_neighbors=bucket_neighbors(nbr.max_neighbors, 1.1),
+                              dtype=torch.float32)
+
+
+def generic_outputs(model, batch, infos, aux=GENERIC_AUX):
+    """Every output of ``infos`` (forces, virial and the ensemble's forces
+    attached) and the aux outputs, in one served call: ``{output/block/
+    field: tensor}`` on the device."""
+    from metatrain_tpu_torch.engine.evaluate import evaluate_model
+    from metatrain_tpu_torch.ops.inference import no_param_grads
+
+    with no_param_grads(model):
+        preds = evaluate_model(model.forward_eval, batch, infos, outputs=list(infos) + list(aux))
+    out = {}
+    for name, tmap in preds.items():
+        for b, block in enumerate(tmap.blocks()):
+            out[f"{name}/{b}/values"] = block.values.detach()
+            for gname, grad in block.gradients():
+                out[f"{name}/{b}/{gname}"] = grad.values.detach()
+    return out
+
+
+def rel_rms(a, b):
+    a, b = a.double(), b.double()
+    return float(torch.sqrt(torch.mean((a - b) ** 2)) / torch.sqrt(torch.mean(b**2)))
+
+
+def generic_errors(res, ref, n):
+    """Energy relative error, forces and virial relative RMS, and every
+    other output's relative RMS, of ``res`` against ``ref``."""
+    errors = {}
+    for key, value in ref.items():
+        if key == "energy/0/values":
+            errors["energy"] = float(abs(res[key][0, 0].double() - value[0, 0].double())
+                                     / abs(value[0, 0].double()))
+        elif key == "energy/0/positions":
+            errors["forces"] = rel_rms(res[key][:n], value[:n])
+        elif key == "energy/0/strain":
+            errors["virial"] = rel_rms(res[key][0], value[0])
+        else:
+            errors[key] = rel_rms(res[key], value)
+    return errors
+
+
+def generic_frames(path):
+    """Phase 5's first two frames with deterministic generic labels from
+    their positions: the LJ energy and forces, per-atom charges from each
+    atom's distance to the centre, their dipole, and a polarizability from
+    the second moment of the positions (its trace and five traceless
+    components)."""
+    from metatrain_tpu_torch.data.readers.extxyz import write_xyz
+
+    rng = np.random.default_rng(2)
+    frames = [fcc_frame(8, rng, 0.1) for _ in range(2)]
+    info, arrays = [], []
+    for frame in frames:
+        energy, forces = lennard_jones(frame)
+        r = frame.positions - frame.positions.mean(0)
+        charges = np.tanh(np.linalg.norm(r, axis=1) / 10.0)
+        charges -= charges.mean()
+        t = r.T @ r / len(r)
+        polar = [np.trace(t) / 3, t[0, 1], t[1, 2], (2 * t[2, 2] - t[0, 0] - t[1, 1]) / 2,
+                 t[0, 2], (t[0, 0] - t[1, 1]) / 2]
+        info.append({"energy": energy, "dipole": charges @ r, "polarizability": np.array(polar)})
+        arrays.append({"forces": forces, "charges": charges[:, None]})
+    write_xyz(str(path), frames, per_atom_arrays=arrays, info=info)
+    return frames
+
+
+GENERIC_LOSS = {
+    "energy": {"type": "mse", "weight": 1.0, "gradients": {"positions": {"weight": 10.0}}},
+    "mtt::charges": {"type": "huber", "delta": 0.1},
+    "mtt::dipole": "mae",
+    "mtt::polarizability": "shift_agnostic_mse",
+}
+
+
+def generic_dataset_section(path):
+    return {"systems": {"read_from": str(path), "length_unit": "angstrom"}, "targets": {
+        "energy": {"key": "energy", "unit": "eV", "forces": "on"},
+        "mtt::charges": {"key": "charges", "per_atom": True},
+        "mtt::dipole": {"key": "dipole", "type": {"cartesian": {"rank": 1}}},
+        "mtt::polarizability": {"key": "polarizability",
+                                "type": {"spherical": {"irreps": POLAR_IRREPS}}}}}
+
+
+def check_generic_training(path, device):
+    """One f32 training step on the generic frames, kernel vs plain path,
+    with phase 6's gates; both batches rotated by an O3 augmenter of seed
+    0 (the same rotations: the Wigner D on the card's machine)."""
+    from metatrain_tpu_torch.data.collate import CollateFn
+    from metatrain_tpu_torch.data.dataset import get_dataset, get_dataset_info
+    from metatrain_tpu_torch.engine.augmentation import O3Augmenter
+    from metatrain_tpu_torch.engine.loss import LossAggregator
+    from metatrain_tpu_torch.engine.trainer import _compute_loss_and_errors
+    from metatrain_tpu_torch.models.pet import PET
+    from metatrain_tpu_torch.ops.kernels import _lib
+    from metatrain_tpu_torch.utils.config import expand_dataset_config
+
+    dataset, infos = get_dataset(expand_dataset_config(generic_dataset_section(path)))
+    info = get_dataset_info([dataset], infos, "angstrom")
+    seed_model = PET({}, info)
+    seed_model.init_weights(torch.Generator().manual_seed(0))
+    state = seed_model.module.state_dict()
+    results, report = {}, {}
+    for key, plain in (("kernel", False), ("plain", True)):
+        model = PET({}, info, compute_dtype=torch.float32, plain=plain).to(device)
+        model.module.load_state_dict(state)
+        batch = CollateFn(model.cutoff, infos, dtype=torch.float32, device=device,
+                          transforms=[O3Augmenter(seed=0)])([dataset[0], dataset[1]])
+        scales = {name: [torch.ones(1, device=device)] * len(i.layout) for name, i in infos.items()}
+        params = [p for p in model.parameters() if p.requires_grad]
+        if not plain:
+            _lib.LAUNCHES.clear()
+            _lib.REPLAYS.clear()
+        loss, _ = _compute_loss_and_errors(model, LossAggregator(infos, GENERIC_LOSS), infos, [],
+                                           scales, batch, True)
+        grads = torch.autograd.grad(loss, params)
+        if not plain:
+            torch.cuda.synchronize()
+            report["launches"], report["replays"] = dict(_lib.LAUNCHES), dict(_lib.REPLAYS)
+        results[key] = (loss.detach(), [g.detach() for g in grads],
+                        [n for n, p in model.named_parameters() if p.requires_grad],
+                        batch.targets["mtt::polarizability"].block(1).values.detach())
+        del model, batch, params
+        torch.cuda.empty_cache()
+    (lk, gk, names, polar_k), (lp, gp, _, polar_p) = results["kernel"], results["plain"]
+    launches = report["launches"]
+    # the general K1 and K3, K2-dW and K4-dW; a K3 head per target and at
+    # least one K4-dW head per target
+    missing = [k for k in ("fused_layer_fwd", "fused_layer_bwd_dw", "rowblock_fwd[compress]",
+                           "rowblock_bwd_dw[compress]") if not launches.get(k)]
+    if (missing or launches.get("rowblock_fwd[head]") != len(infos)
+            or launches.get("rowblock_bwd_dw[head]", 0) < len(infos)):
+        fail(f"generic training step launched {launches}; missing {missing}, expected "
+             f"{len(infos)} K3 heads and at least {len(infos)} K4-dW heads")
+    if not torch.equal(polar_k, polar_p):
+        fail("the two paths' augmented polarizabilities differ")
+    loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    flat_k, flat_p = torch.cat([g.flatten() for g in gk]), torch.cat([g.flatten() for g in gp])
+    global_rel = ((flat_k - flat_p).norm() / flat_p.norm()).item()
+    per_tensor = {n: ((a - b).norm() / b.norm()).item() if b.norm() > 0 else (a - b).norm().item()
+                  for n, a, b in zip(names, gk, gp)}
+    worst = max(per_tensor, key=per_tensor.get)
+    report.update({"loss_kernel": lk.item(), "loss_plain": lp.item(), "loss_rel": loss_rel,
+                   "grad_global_rel_l2": global_rel, "grad_worst_tensor": worst,
+                   "grad_worst_tensor_rel_l2": per_tensor[worst]})
+    if not (loss_rel <= 1e-5 and global_rel <= 1e-4 and per_tensor[worst] <= 1e-3):
+        fail(f"generic training step, f32 kernel vs plain: {report}")
+    return report
+
+
+def check_member_gradients(model, batch, res):
+    """Each ensemble member's position gradient from the all-outputs call
+    (one backward pass per member) equals, to 1e-6 relative, a call that
+    seeds that member alone."""
+    from metatrain_tpu_torch.containers import TensorBlock, TensorMap
+    from metatrain_tpu_torch.data.target_info import get_energy_target_info
+    from metatrain_tpu_torch.engine.evaluate import evaluate_model
+    from metatrain_tpu_torch.ops.inference import no_param_grads
+
+    info = get_energy_target_info("eV", add_position_gradients=True)
+    worst = 0.0
+    for p in range(4):
+        def member(b, names, p=p):
+            out = model.forward_eval(b, [ENSEMBLE])[ENSEMBLE]
+            block = out.block(0)
+            return {"m": TensorMap(out.keys, [TensorBlock(
+                block.values[:, p:p + 1], block.samples, [], info.layout.block(0).properties,
+                block.mask)])}
+
+        with no_param_grads(model):
+            alone = evaluate_model(member, batch, {"m": info})["m"].block(0)
+        ref = res[f"{ENSEMBLE}/0/positions"][..., p].double()
+        diff = (alone.gradient("positions").values[..., 0].double() - ref).abs().max()
+        worst = max(worst, float(diff / ref.abs().max()))
+    if not worst <= 1e-6:
+        fail(f"ensemble member gradients differ from single-member calls by {worst:.3g}")
+    return worst
+
+
+def time_generic_calls(model, batch, infos, reps=5):
+    """ms per call and atom-steps/s (host clock around synchronised calls,
+    after a warm-up) of the all-outputs call, of the same without the
+    ensemble's forces (the property loop's four backward passes), and of
+    phase 3's energy-only force call, on one model and batch, two rounds in
+    opposite orders."""
+    from metatrain_tpu_torch.data.target_info import (
+        get_energy_target_info,
+        get_generic_target_info,
+    )
+
+    no_ensemble_forces = dict(infos, **{ENSEMBLE: get_generic_target_info(
+        "scalar", num_properties=4, quantity="energy", unit="eV")})
+    calls = {
+        "all_outputs": lambda: generic_outputs(model, batch, infos),
+        "all_outputs_no_ensemble_forces": lambda: generic_outputs(model, batch,
+                                                                  no_ensemble_forces),
+        "energy_forces_only": lambda: generic_outputs(
+            model, batch, {"energy": get_energy_target_info("eV", True)}, aux=()),
+    }
+    samples = {key: [] for key in calls}
+    for order in (list(calls), list(calls)[::-1]):
+        for key in order:
+            calls[key]()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                calls[key]()
+            torch.cuda.synchronize()
+            samples[key].append((time.perf_counter() - t0) / reps * 1e3)
+    n = int(batch.atom_mask.sum())
+    out = {key: {"ms_per_call": float(np.mean(ms)), "rounds_ms": ms,
+                 "atom_steps_per_s": n / (float(np.mean(ms)) * 1e-3)}
+           for key, ms in samples.items()}
+    out["property_loop_ms"] = (out["all_outputs"]["ms_per_call"]
+                               - out["all_outputs_no_ensemble_forces"]["ms_per_call"])
+    return out
+
+
+def check_generic_eval(model, frames_path, device, workdir):
+    """``__main__.main(["eval", ...])`` in this process on the model saved
+    as ``generic.mtt`` and the two frames: its ``preds.xyz`` read back
+    equals the in-process predictions (f32 kernel path) of the same
+    file's model, to 1e-5 relative."""
+    import os
+
+    from metatrain_tpu_torch.__main__ import main as cli
+    from metatrain_tpu_torch.cli.export import export_model_object
+    from metatrain_tpu_torch.containers import batch_from_systems
+    from metatrain_tpu_torch.data.readers.extxyz import read_xyz
+    from metatrain_tpu_torch.data.writers import xyz_column
+    from metatrain_tpu_torch.ops.neighbors import compute_neighbor_data
+    from metatrain_tpu_torch.utils.io import load_model
+
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        export_model_object(model, None, "generic.mtt")
+        Path("generic_eval.json").write_text(json.dumps(generic_dataset_section(frames_path)))
+        if cli(["eval", "generic.mtt", "generic_eval.json", "-o", "generic_preds.xyz",
+                "--device", str(device)]) not in (0, None):
+            fail("the eval command failed on the generic model")
+        written = read_xyz("generic_preds.xyz")
+        loaded = load_model("generic.mtt", device=device)
+        infos = {n: i for n, i in loaded.supported_outputs().items()
+                 if n in generic_dataset_section(frames_path)["targets"]}
+        worst = 0.0
+        for index, system in enumerate(read_xyz(str(frames_path))):
+            nbr = compute_neighbor_data(system, loaded.requested_neighbor_cutoff())
+            batch = batch_from_systems([system], [nbr], device, dtype=torch.float32)
+            res = generic_outputs(loaded, batch, infos, aux=())
+            n = len(system)
+            got = written[index]
+            pairs = {
+                "energy": (got.extra["energy"], res["energy/0/values"][0, 0]),
+                "forces": (got.extra[xyz_column("energy_forces")],
+                           -res["energy/0/positions"][:n, :, 0]),
+                "charges": (got.extra[xyz_column("mtt::charges")],
+                            res["mtt::charges/0/values"][:n, 0]),
+                "dipole": (got.extra["mtt::dipole"], res["mtt::dipole/0/values"][0]),
+                "polarizability": (got.extra["mtt::polarizability"], torch.cat(
+                    [res[f"mtt::polarizability/{b}/values"][0].reshape(-1) for b in (0, 1)])),
+            }
+            for key, (file_value, value) in pairs.items():
+                value = value.double().cpu().numpy().reshape(-1)
+                file_value = np.asarray(file_value, dtype=np.float64).reshape(-1)
+                if file_value.shape != value.shape:
+                    fail(f"eval wrote {key} of shape {file_value.shape}, expected {value.shape}")
+                worst = max(worst, float(np.abs(file_value - value).max()
+                                         / max(np.abs(value).max(), 1e-30)))
+        if not worst <= 1e-5:
+            fail(f"eval's preds.xyz differs from the in-process predictions by {worst:.3g}")
+        return {"worst_rel": worst, "systems": len(written)}
+    finally:
+        os.chdir(cwd)
+
+
+def check_generic(device, report, workdir):
+    """Phase 3c: PET at its defaults with phase 3c's targets on the
+    crystal, served in bf16 (all outputs in one call) against the f32
+    plain path, with the launch counts held to ``GENERIC_PER_CALL``; the
+    ensemble members' gradients against single-member calls; the times;
+    one f32 training step on generic labels; the cutoff statistics of
+    phase 3b's adaptive model (in ``check_physics``); the eval command's
+    round trip."""
+    from metatrain_tpu_torch.models.pet import PET
+    from metatrain_tpu_torch.ops.kernels import _lib
+
+    info = generic_info()
+    infos = dict(info.targets)
+    seed_model = PET({}, info)
+    seed_model.init_weights(torch.Generator().manual_seed(0))
+    state = seed_model.module.state_dict()
+    models = {}
+    for path, tag, dtype in (("kernel", "bf16", torch.bfloat16), ("kernel", "f32", torch.float32),
+                             ("plain", "f32", torch.float32), ("plain", "bf16", torch.bfloat16)):
+        model = PET({}, info, compute_dtype=dtype, plain=path == "plain").to(device)
+        model.module.load_state_dict(state)
+        models[f"{path}_{tag}"] = model
+    crystal = bench_crystal()
+    n = len(crystal)
+    batch = served_batch(crystal, models["kernel_bf16"].cutoff, device)
+    out = {"padded": [batch.n_atoms_padded, batch.max_neighbors]}
+
+    # the served all-outputs calls: every counter starts at 0 here
+    steps = 2
+    _lib.LAUNCHES.clear()
+    for _ in range(steps):
+        res = generic_outputs(models["kernel_bf16"], batch, infos)
+    torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    per_call = {k: launches.get(k, 0) / steps for k in GENERIC_PER_CALL}
+    out["launches"], out["launches_per_call"] = launches, per_call
+    out["launches_predicted"] = GENERIC_PER_CALL
+    if per_call != {k: float(v) for k, v in GENERIC_PER_CALL.items()}:
+        fail(f"generic targets: launches per call {per_call}, predicted {GENERIC_PER_CALL}")
+    for key, value in res.items():
+        if not torch.isfinite(value).all():
+            fail(f"generic targets: {key} not finite")
+    if res["non_conservative_stress/0/values"][0].abs().max() == 0:
+        fail("generic targets: the non-conservative stress is zero")
+
+    results = {key: generic_outputs(m, batch, infos) for key, m in models.items()}
+    bf16 = generic_errors(results["kernel_bf16"], results["plain_f32"], n)
+    f32 = generic_errors(results["kernel_f32"], results["plain_f32"], n)
+    bf16_plain = generic_errors(results["plain_bf16"], results["plain_f32"], n)
+    out["errors"] = {"bf16_kernel_vs_f32_plain": bf16, "f32_kernel_vs_f32_plain": f32,
+                     "bf16_plain_vs_f32_plain": bf16_plain}
+    # bf16: phase 3's rule for energy (1 %), forces and virial (5 %), 5 %
+    # relative RMS for every other output, or 1.25 x the bf16 plain path's
+    # own error where that is larger; f32: 1e-5 (energy), 1e-4 (the rest)
+    for key, err in bf16.items():
+        bound = max(1e-2 if key == "energy" else 5e-2, 1.25 * bf16_plain[key])
+        if not err <= bound:
+            fail(f"generic targets, bf16 kernel vs f32 plain: {key} {err:.3g} > {bound:.3g}")
+    for key, err in f32.items():
+        if not err <= (1e-5 if key == "energy" else 1e-4):
+            fail(f"generic targets, f32 kernel vs f32 plain: {key} {err:.3g}")
+    out["member_gradients_worst_rel"] = check_member_gradients(
+        models["kernel_f32"], batch, results["kernel_f32"])
+    del results, res
+    for key in ("kernel_f32", "plain_f32", "plain_bf16"):
+        del models[key]
+    torch.cuda.empty_cache()
+    out["timing"] = time_generic_calls(models["kernel_bf16"], batch, infos)
+    del models
+    torch.cuda.empty_cache()
+
+    frames_path = workdir / "cu_generic.xyz"
+    generic_frames(frames_path)
+    out["training_parity"] = check_generic_training(frames_path, device)
+    torch.cuda.empty_cache()
+    eval_model = PET({}, info, compute_dtype=torch.float32).to(device)
+    eval_model.module.load_state_dict(state)
+    eval_model.weights_initialized = True
+    out["eval_round_trip"] = check_generic_eval(eval_model, frames_path, device, workdir)
+    del eval_model
+    torch.cuda.empty_cache()
+    report["generic"] = out
 
 
 W8A8_KERNELS = ["fused_layer_fwd_w8a8", "fused_layer_bwd_w8a8", "permute", "permute_acc"] + \
@@ -2576,6 +3054,21 @@ def main() -> int:
               json.dumps(report[f"training_parity_{key}"]), flush=True)
     print("physics_b force call profile:", json.dumps(report["physics_b"]["profile_kernel_bf16"]),
           flush=True)
+    print("physics_b cutoff_stats, bf16 kernel vs f32 plain:",
+          json.dumps(report["physics_b"]["cutoff_stats"]), flush=True)
+
+    # generic targets: every output of phase 3c's PET in one served call
+    with tempfile.TemporaryDirectory() as tmp:
+        check_generic(device, report, Path(tmp))
+    generic = report["generic"]
+    print("generic targets:", json.dumps({k: generic[k] for k in (
+        "padded", "launches_per_call", "errors", "member_gradients_worst_rel")}), flush=True)
+    print(f"generic targets call ({card}), phase 3 beside:", json.dumps({
+        "timing": generic["timing"], "phase_3": report["slice"]["timing"]}), flush=True)
+    print("generic targets training step, f32 kernel vs plain:",
+          json.dumps(generic["training_parity"]), flush=True)
+    print("generic targets eval round trip:", json.dumps(generic["eval_round_trip"]), flush=True)
+    torch.cuda.empty_cache()
 
     # each GNN layer as one block: the block's kernels replace K1 and K2,
     # two launches each per force call (one per GNN layer)

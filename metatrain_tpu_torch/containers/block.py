@@ -1,15 +1,19 @@
 """Block-sparse labeled tensors (metatensor's ``TensorMap``, minimal).
 
-Counterpart of ``metatrain_tpu/containers/block.py``, reduced to what an
-energy target with ``positions``/``strain`` gradients needs: blocks of
-dense tensors with sample/component/property labels, an optional boolean
-``mask`` over padded sample rows, and gradient blocks keyed by parameter.
+Counterpart of ``metatrain_tpu/containers/block.py``: blocks of dense
+tensors with sample/component/property labels (components such as
+``xyz``, ``xyz_1``/``xyz_2`` or ``o3_mu``), an optional boolean ``mask``
+over padded sample rows, gradient blocks keyed by parameter, and maps of
+blocks keyed by labels such as ``o3_lambda``/``o3_sigma`` or
+``atom_type``, with lookup of a block by its key. Metatensor interop and
+joins are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from .labels import Labels
@@ -85,11 +89,46 @@ class TensorMap:
     def items(self) -> Iterator[Tuple[Tuple[int, ...], TensorBlock]]:
         return iter(zip(self.keys.as_tuples(), self._blocks))
 
+    def __iter__(self) -> Iterator[TensorBlock]:
+        return iter(self._blocks)
+
     def blocks(self) -> List[TensorBlock]:
         return list(self._blocks)
 
-    def block(self, index: int = 0) -> TensorBlock:
-        return self._blocks[index]
+    def block(self, key: Union[int, Sequence[int], None] = None, **selection: int) -> TensorBlock:
+        """The block of ``key``: with no key the only block; an int with
+        one-column keys the block whose key is that value, with several
+        columns the block at that position; a sequence the block whose key
+        it is; keywords the one block whose key columns match them."""
+        if key is None and not selection:
+            if len(self._blocks) != 1:
+                raise ValueError("TensorMap has multiple blocks, pass a key")
+            return self._blocks[0]
+        if selection:
+            idx = self._key_position_by_names(selection)
+        elif isinstance(key, int) and len(self.keys.names) != 1:
+            idx = key
+        else:
+            idx = self.keys.position([key] if isinstance(key, int) else list(key))
+        if idx < 0 or idx >= len(self._blocks):
+            raise KeyError(f"no block for key {key}{selection or ''}")
+        return self._blocks[idx]
+
+    def _key_position_by_names(self, selection: Dict[str, int]) -> int:
+        values = np.asarray(self.keys.values)
+        match = np.ones(len(values), dtype=bool)
+        for name, value in selection.items():
+            match &= values[:, self.keys.names.index(name)] == value
+        positions = np.nonzero(match)[0]
+        if len(positions) != 1:
+            raise KeyError(f"selection {selection} matched {len(positions)} blocks")
+        return int(positions[0])
+
+    def has_key(self, key: Sequence[int]) -> bool:
+        return self.keys.position(list(key)) >= 0
+
+    def map_blocks(self, fn) -> "TensorMap":
+        return TensorMap(self.keys, [fn(b) for b in self._blocks])
 
     def __repr__(self) -> str:
         return f"TensorMap(keys={self.keys.names}, n_blocks={len(self._blocks)})"

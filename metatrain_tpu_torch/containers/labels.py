@@ -70,6 +70,9 @@ class Labels:
     def __hash__(self) -> int:
         return hash((self.names, _host(self.values).tobytes()))
 
+    def column(self, name: str) -> Array:
+        return self.values[:, self.names.index(name)]
+
     def position(self, entry: Sequence[int]) -> int:
         """Index of ``entry`` in these labels, or -1."""
         values = _host(self.values)

@@ -171,8 +171,9 @@ def batch_targets(
     """Pad and stack per-system target TensorMaps into one batch TensorMap.
 
     Per-structure blocks become ``(S, *components, P)`` with the system
-    mask; per-atom blocks become ``(A, *components, P)`` with the atom
-    mask. Scalar-target gradients follow: ``positions`` -> ``(A, 3, P)``,
+    mask; per-atom blocks become ``(A, *components, P)`` with the mask of
+    the atoms they hold (all real atoms, or an atomic-basis block's atoms
+    of its type). Scalar-target gradients follow: ``positions`` -> ``(A, 3, P)``,
     ``strain`` -> ``(S, 3, 3, P)``. Padding is zero with mask False.
     """
     template = per_system[0]
@@ -196,11 +197,15 @@ def batch_targets(
         n_props = len(block_template.properties)
         if per_atom:
             values = np.zeros((A,) + comp_shape + (n_props,), dtype=np.float64)
+            # atomic-basis blocks hold a subset of each system's atoms
+            # (those of the block's atom type): their rows go to the
+            # atoms their "atom" samples name, and only those are unmasked
+            mask = np.zeros((A,), dtype=bool)
             for sys_i, tmap in enumerate(per_system):
-                values[offsets[sys_i] : offsets[sys_i + 1]] = np.asarray(
-                    tmap.blocks()[key_idx].values
-                )
-            mask = atom_mask
+                b = tmap.blocks()[key_idx]
+                rows = offsets[sys_i] + np.asarray(b.samples.column("atom"), dtype=np.int64)
+                values[rows] = np.asarray(b.values)
+                mask[rows] = True
         else:
             values = np.zeros((S,) + comp_shape + (n_props,), dtype=np.float64)
             for sys_i, tmap in enumerate(per_system):

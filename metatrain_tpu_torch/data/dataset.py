@@ -251,13 +251,12 @@ def get_stats(dataset: Dataset, dataset_info: DatasetInfo) -> str:
     names = dataset_target_names(dataset)
     acc = {name: [0.0, 0.0, 0] for name in names}  # sum, sumsq, n
     for sample in iter_samples(dataset):
-        for name in names:
-            values = np.asarray(
-                sample.targets[name].block(0).values
-            ).reshape(-1)
-            acc[name][0] += float(values.sum())
-            acc[name][1] += float((values**2).sum())
-            acc[name][2] += values.size
+        for name in names:  # every block of the target
+            for block in sample.targets[name].blocks():
+                values = np.asarray(block.values).reshape(-1)
+                acc[name][0] += float(values.sum())
+                acc[name][1] += float((values**2).sum())
+                acc[name][2] += values.size
     for name in names:
         info = dataset_info.targets.get(name)
         unit = f" [{info.unit}]" if info and info.unit else ""

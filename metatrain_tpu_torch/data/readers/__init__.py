@@ -1,8 +1,10 @@
-"""Readers: systems and energy targets from files.
+"""Readers: systems and targets from files.
 
 Counterpart of ``metatrain_tpu/data/readers/__init__.py`` (a copy: the JAX
-package cannot be imported here), reduced to the extended-xyz reader and
-energy targets; all numeric data is float64 on the host.
+package cannot be imported here) for the extended-xyz reader: energy
+targets and generic scalar, Cartesian and spherical targets, per structure
+or per atom; all numeric data is float64 on the host. The metatensor
+(``.mts``) target reader is not ported.
 
 Sign conventions (as the JAX package's):
 
@@ -20,10 +22,11 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 
 from ...containers import Labels, System, TensorBlock, TensorMap
-from ..target_info import TargetInfo, get_energy_target_info
+from ..target_info import TargetInfo, get_energy_target_info, get_generic_target_info
 from .extxyz import read_xyz, write_xyz
 
-__all__ = ["read_energy_target", "read_systems", "read_targets", "read_xyz", "write_xyz"]
+__all__ = ["read_energy_target", "read_generic_target", "read_systems", "read_targets",
+           "read_xyz", "write_xyz"]
 
 
 def read_systems(path: str) -> List[System]:
@@ -133,11 +136,78 @@ def read_energy_target(
     return tensor_maps, info
 
 
+def generic_target_info(config: Dict[str, Any]) -> TargetInfo:
+    """The TargetInfo of an expanded generic target section: ``type``
+    ``scalar``, ``{"cartesian": {"rank": r}}`` or ``{"spherical":
+    {"irreps": [...]}}`` (a list, or the atomic-basis ``{atom_type:
+    [...]}`` dict, with ``"product": "cartesian"`` for the uncoupled rank-2
+    form), ``per_atom`` and ``num_subtargets``."""
+    args = (int(config.get("num_subtargets", 1)), config.get("unit") or "",
+            config.get("quantity") or "", bool(config.get("per_atom", False)))
+    type_spec = config.get("type", "scalar")
+    if type_spec == "scalar":
+        return get_generic_target_info("scalar", *args)
+    if isinstance(type_spec, dict) and "cartesian" in type_spec:
+        return get_generic_target_info("cartesian", *args,
+                                       rank=int(type_spec["cartesian"].get("rank", 1)))
+    if isinstance(type_spec, dict) and "spherical" in type_spec:
+        spec = type_spec["spherical"]
+        return get_generic_target_info("spherical", *args, irreps=spec["irreps"],
+                                       product=spec.get("product"))
+    raise ValueError(f"unknown target type {type_spec!r}")
+
+
+def read_generic_target(
+    systems: List[System],
+    config: Dict[str, Any],
+) -> Tuple[List[TensorMap], TargetInfo]:
+    """A generic target from the systems' ``extra`` data (extxyz ``info``
+    for per-structure targets, per-atom arrays for per-atom ones): each
+    sample row holds the flattened (components x properties) values of
+    every block in the layout's order. An atomic-basis block (an
+    ``atom_type`` key) keeps the rows of the atoms of its type, with their
+    indices as its ``atom`` samples."""
+    info = generic_target_info(config)
+    key = config["key"]
+    per_atom = info.per_atom
+    type_col = (info.layout.keys.names.index("atom_type") if info.is_atomic_basis else None)
+    tensor_maps: List[TensorMap] = []
+    for i, system in enumerate(systems):
+        n_samples = len(system) if per_atom else 1
+        flat = _require_extra(system, key, f"target '{key}'", i).reshape(n_samples, -1)
+        blocks, offset = [], 0
+        for key_tuple, layout_block in info.layout.items():
+            comp_shape = tuple(len(c) for c in layout_block.components)
+            n_props = len(layout_block.properties)
+            size = int(np.prod(comp_shape, initial=1)) * n_props
+            chunk = flat[:, offset:offset + size]
+            offset += size
+            rows = np.arange(n_samples)
+            if type_col is not None:
+                rows = np.nonzero(np.asarray(system.types) == key_tuple[type_col])[0]
+            if per_atom:
+                samples = Labels(["system", "atom"], np.stack(
+                    [np.full(len(rows), i, dtype=np.int32), rows.astype(np.int32)], axis=1))
+            else:
+                samples = Labels(["system"], np.array([[i]], dtype=np.int32))
+            blocks.append(TensorBlock(
+                values=chunk[rows].reshape((len(rows),) + comp_shape + (n_props,)),
+                samples=samples,
+                components=layout_block.components,
+                properties=layout_block.properties,
+            ))
+        if offset != flat.shape[1]:
+            raise ValueError(f"target '{key}' of system {i} has {flat.shape[1]} values per "
+                             f"sample, its layout {offset}")
+        tensor_maps.append(TensorMap(info.layout.keys, blocks))
+    return tensor_maps, info
+
+
 def read_targets(
     systems: List[System],
     target_configs: Dict[str, Dict[str, Any]],
 ) -> Tuple[Dict[str, List[TensorMap]], Dict[str, TargetInfo]]:
-    """Read every configured target (energy targets only in the port).
+    """Read every configured target.
 
     Targets whose ``read_from`` differs from the systems file are read from
     that file's frames instead (frame count must match).
@@ -152,10 +222,6 @@ def read_targets(
         )
         if read_from and read_from.endswith(".mts"):
             raise NotImplementedError("the metatensor (.mts) target reader is not ported yet")
-        if not is_energy:
-            raise NotImplementedError(
-                f"target '{name}': the port reads energy targets only"
-            )
         if read_from:
             source_systems = read_systems(read_from)
             if len(source_systems) != len(systems):
@@ -163,5 +229,6 @@ def read_targets(
                     f"target '{name}' file {read_from!r} has "
                     f"{len(source_systems)} frames, expected {len(systems)}"
                 )
-        targets[name], infos[name] = read_energy_target(source_systems, config)
+        reader = read_energy_target if is_energy else read_generic_target
+        targets[name], infos[name] = reader(source_systems, config)
     return targets, infos

@@ -3,9 +3,17 @@
 Counterpart of ``metatrain_tpu/data/writers.py`` for ``.xyz`` /
 ``.extxyz`` (extended xyz with the predictions as info fields and
 columns, forces as ``<target>_forces``) and ``.npz`` (one array per
-system, target and field, keyed ``<index>/<target>/<field>``). The
-``.zip`` (disk dataset), ``.mts`` and memmap-directory (trailing ``/``)
-writers wait for the port of the disk datasets and the ``.mts`` format.
+system, target and field, keyed ``<index>/<target>/<field>``). Per-atom
+outputs become per-atom arrays and per-structure outputs info fields,
+each flattened per sample; a target of several blocks writes them side by
+side in its layout's order (the layout the reader reads back), where the
+JAX package writes the first block only. The ``.zip`` (disk dataset),
+``.mts`` and memmap-directory (trailing ``/``) writers wait for the port
+of the disk datasets and the ``.mts`` format. An extended-xyz column
+name holds no ``:`` (the ``Properties`` field separates with it): a
+per-atom output's column takes its name with each ``:`` as ``_``
+(``mtt::charges`` -> ``mtt__charges``), where the JAX package writes a
+file its reader cannot read back.
 """
 
 from __future__ import annotations
@@ -38,8 +46,11 @@ def _split_batch_predictions(batch, predictions: Dict[str, TensorMap]):
 
     per_system: List[Dict[str, Dict[str, np.ndarray]]] = [{} for _ in real_systems]
     for name, tmap in predictions.items():
-        block = tmap.block(0)
+        block = tmap.blocks()[0]
         values = _host(block.values)
+        if len(tmap) > 1:  # the blocks side by side, each flattened per sample
+            values = np.concatenate([_host(b.values).reshape(len(values), -1)
+                                     for b in tmap.blocks()], axis=1)
         per_atom = "atom" in block.samples.names
         gradients = {gname: _host(grad.values) for gname, grad in block.gradients()}
         for slot, (sys_i, sel) in enumerate(zip(real_systems, atoms_of)):
@@ -50,6 +61,11 @@ def _split_batch_predictions(batch, predictions: Dict[str, TensorMap]):
                 entry["strain_grad"] = gradients["strain"][sys_i]
             per_system[slot][name] = entry
     return systems, per_system
+
+
+def xyz_column(name: str) -> str:
+    """The extended-xyz column of a per-atom output named ``name``."""
+    return name.replace(":", "_")
 
 
 def write_predictions(path: str,
@@ -80,12 +96,12 @@ def _write_xyz_predictions(path, batches_and_predictions):
             for name, entry in preds.items():
                 values = entry["values"]
                 if values.ndim >= 1 and values.shape[0] == len(system):
-                    arrays[name] = values.reshape(len(system), -1)
+                    arrays[xyz_column(name)] = values.reshape(len(system), -1)
                 else:
                     flat = values.reshape(-1)
                     info[name] = flat[0] if flat.size == 1 else flat
                 if "positions_grad" in entry:  # the gradient is dE/dr
-                    arrays[f"{name}_forces"] = -entry["positions_grad"].reshape(len(system), -1)
+                    arrays[xyz_column(f"{name}_forces")] = -entry["positions_grad"].reshape(len(system), -1)
                 if "strain_grad" in entry:
                     info[f"{name}_strain_gradient"] = entry["strain_grad"].reshape(-1)
             all_systems.append(system)

@@ -10,10 +10,19 @@ product or a gather, never a scatter with atomics.
 
 Inference (``is_training=False``) builds no graph for the gradients and
 expects parameters that do not require grad (``ops.inference``).
+
+A target of P > 1 properties (an LLPR ensemble) gets each property's
+gradients from a backward pass of its own, seeded with that property
+alone: P passes over one retained graph, where the JAX package pulls one
+vmapped backward over the property basis. ``autograd.grad`` with
+``is_grads_batched=True`` would vmap the backward, and the port's
+``autograd.Function``s that launch the kernels through ctypes have no
+vmap rule.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -30,18 +39,29 @@ _STRAIN_COMPONENTS = (
 
 
 def evaluate_model(
-    forward_fn: Callable[[SystemBatch, List[str]], Dict[str, TensorMap]],
+    forward_fn: Callable[..., Dict[str, TensorMap]],
     batch: SystemBatch,
     target_infos: Dict[str, TargetInfo],
     is_training: bool = False,
     outputs: Optional[List[str]] = None,
+    selected_atoms: Optional[torch.Tensor] = None,
 ) -> Dict[str, TensorMap]:
     """Run ``forward_fn(batch, names)`` and attach the requested
-    ``positions`` gradients (A, 3, 1) and ``strain`` gradients
-    (S, 3, 3, 1) to the targets that ask for them."""
+    ``positions`` gradients (A, 3, P) and ``strain`` gradients
+    (S, 3, 3, P) to the targets that ask for them. ``outputs`` may name
+    outputs beyond the targets (aux outputs such as ``features``): they
+    get no gradients.
+
+    :param selected_atoms: optional (A,) boolean mask restricting the
+        outputs, and so their gradients, to a subset of the atoms (passed
+        on to ``forward_fn``).
+    """
     names = list(outputs) if outputs is not None else list(target_infos)
-    needs_pos = [n for n in names if "positions" in target_infos[n].gradients]
-    needs_strain = [n for n in names if "strain" in target_infos[n].gradients]
+    if selected_atoms is not None:
+        forward_fn = functools.partial(forward_fn, selected_atoms=selected_atoms)
+    gradients = {n: target_infos[n].gradients if n in target_infos else [] for n in names}
+    needs_pos = [n for n in names if "positions" in gradients[n]]
+    needs_strain = [n for n in names if "strain" in gradients[n]]
     grad_targets = sorted(set(needs_pos) | set(needs_strain))
     if not grad_targets:
         return forward_fn(batch, names)
@@ -56,24 +76,29 @@ def evaluate_model(
         cells_s = torch.einsum("scd,sde->sce", batch.cells, strain)
         predictions = forward_fn(batch.replace(positions=pos_s, cells=cells_s), names)
 
-    for i, name in enumerate(grad_targets):
+    passes = [(name, p) for name in grad_targets
+              for p in range(predictions[name].block(0).values.shape[-1])]
+    d_pos: Dict[str, list] = {name: [] for name in grad_targets}
+    d_strain: Dict[str, list] = {name: [] for name in grad_targets}
+    for i, (name, p) in enumerate(passes):
         block = predictions[name].block(0)
-        if block.values.shape[-1] != 1:
-            raise NotImplementedError(
-                f"target '{name}' has {block.values.shape[-1]} properties; "
-                "multi-property gradients are not ported yet"
-            )
-        seed = torch.ones_like(block.values)
+        seed = torch.zeros_like(block.values)
+        seed[..., p] = 1.0
         if block.mask is not None:
             seed = torch.where(block.mask.reshape((-1,) + (1,) * (seed.ndim - 1)), seed, 0.0)
-        d_pos, d_strain = torch.autograd.grad(
+        g_pos, g_strain = torch.autograd.grad(
             block.values, (positions, strain), grad_outputs=seed,
             create_graph=is_training,
-            retain_graph=is_training or i + 1 < len(grad_targets),
+            retain_graph=is_training or i + 1 < len(passes),
         )
+        d_pos[name].append(g_pos)
+        d_strain[name].append(g_strain)
+
+    for name in grad_targets:
+        block = predictions[name].block(0)
         if name in needs_pos:
             block.add_gradient("positions", TensorBlock(
-                values=d_pos[:, :, None],
+                values=torch.stack(d_pos[name], dim=-1),
                 samples=Labels(["system", "atom"], torch.stack([
                     batch.system_index,
                     torch.arange(batch.n_atoms_padded, device=batch.device),
@@ -84,7 +109,7 @@ def evaluate_model(
             ))
         if name in needs_strain:
             block.add_gradient("strain", TensorBlock(
-                values=d_strain[:, :, :, None],
+                values=torch.stack(d_strain[name], dim=-1),
                 samples=Labels.range("sample", S),
                 components=_STRAIN_COMPONENTS,
                 properties=block.properties,

@@ -4,9 +4,10 @@ Counterpart of ``metatrain_tpu/engine/long_range.py``: charges are
 predicted from the short-range node features (``charges_map``), their
 electrostatic potential comes from Ewald or PME (``ops/ewald.py``) for
 periodic systems and from the direct smeared sum over the neighbor list
-for the others, and the potential is projected back into feature space
-(``project_0``, SiLU, ``project_1``). Module names follow the flax scopes,
-so ``interop/jax_params.py`` carries the weights both ways.
+for the others (its pairs within the model's neighbor-list cutoff), and
+the potential is projected back into feature space (``project_0``, SiLU,
+``project_1``). Module names follow the flax scopes, so
+``interop/jax_params.py`` carries the weights both ways.
 
 The JAX package vmaps the periodic potential over the batch's systems;
 the port passes the batch's cells and ``system_index`` to the potential,
@@ -38,13 +39,14 @@ class LongRangeFeaturizer(nn.Module):
 
     ``method="ewald"`` uses the dense k-space products over the static
     half space |n_i| <= ``n_kmax``; ``method="pme"`` the FFT-mesh solver on
-    a ``mesh^3`` grid.
+    a ``mesh^3`` grid. ``cutoff`` is the model's neighbor-list cutoff: the
+    direct sum of non-periodic systems takes the pairs within it.
     """
 
-    def __init__(self, d_in: int, d_out: int, dtype, smearing: float = 1.4, n_kmax: int = 4,
-                 method: str = "ewald", mesh: int = 32):
+    def __init__(self, d_in: int, d_out: int, dtype, cutoff: float, smearing: float = 1.4,
+                 n_kmax: int = 4, method: str = "ewald", mesh: int = 32):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.cutoff = dtype, float(cutoff)
         self.smearing, self.method, self.mesh = float(smearing), str(method), int(mesh)
         self.register_buffer("k_triples", torch.as_tensor(half_space_triples(int(n_kmax))),
                              persistent=False)
@@ -74,7 +76,7 @@ class LongRangeFeaturizer(nn.Module):
                 system_index=system_index)
         phi_direct = direct_potential_nonperiodic(
             bd["edge_distances"], bd["nbr_indices"], bd["nbr_reverse"], bd["nbr_mask"],
-            charges, self.smearing)
+            charges, self.smearing, self.cutoff)
 
         is_periodic = bd["pbc"].all(dim=1)[system_index]
         phi = torch.where(is_periodic, phi_periodic, phi_direct)

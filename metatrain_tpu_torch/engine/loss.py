@@ -8,22 +8,22 @@ returns ``(sum, count)`` pairs internally.
 Config shape as the JAX package's: per target a ``{"type", "weight",
 "reduction", "gradients": {name: {...}}}`` dict, with string shorthands
 expanded and ``forces``/``stress``/``virial`` as aliases of the
-``positions``/``strain`` gradients. The ensemble and classification kinds
-(``shift_agnostic_mse``, ``gaussian_nll``, ``crps``, ``cross_entropy``)
-are not ported yet.
+``positions``/``strain`` gradients. Kinds: ``mse``, ``mae``, ``huber``
+(``delta``), ``shift_agnostic_mse``, the ensemble kinds ``gaussian_nll``
+and ``crps``, ``cross_entropy``, and any kind given to
+:func:`register_loss`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Union
+import math
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
 from ..containers import TensorBlock, TensorMap
 from ..data.target_info import TargetInfo
-
-_NOT_PORTED = ("shift_agnostic_mse", "gaussian_nll", "crps", "cross_entropy")
 
 
 def _pointwise(kind: str, diff, **kw):
@@ -35,9 +35,72 @@ def _pointwise(kind: str, diff, **kw):
         delta = float(kw.get("delta", 1.0))
         abs_diff = torch.abs(diff)
         return torch.where(abs_diff <= delta, 0.5 * diff * diff, delta * (abs_diff - 0.5 * delta))
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(f"loss type {kind!r} is not ported yet")
     raise ValueError(f"unknown loss type {kind!r}")
+
+
+# custom loss kinds: name -> fn(prediction values, target values, valid
+# mask, **kwargs) returning (loss sum, count); usable wherever a builtin
+# kind is (per-target and per-gradient specs)
+_CUSTOM_LOSSES: Dict[str, Callable] = {}
+
+
+def register_loss(kind: str, fn: Callable) -> None:
+    """Register a custom loss kind for use in loss configs.
+
+    :param fn: ``(pred_values, target_values, valid_mask, **kwargs) ->
+        (sum, count)``; ``valid_mask`` combines the padding, NaN and extra
+        masks.
+    """
+    _CUSTOM_LOSSES[kind] = fn
+
+
+def _sample_count(valid: torch.Tensor, dtype) -> torch.Tensor:
+    """The samples (rows) with at least one valid element."""
+    return torch.sum(valid.reshape(valid.shape[0], -1).any(dim=1).to(dtype))
+
+
+def _shift_agnostic_mse(pred, tgt, valid):
+    """MSE after removing each sample's mean difference (targets defined
+    up to a constant shift, a density of states)."""
+    diff = torch.where(valid, pred - torch.nan_to_num(tgt), 0.0)
+    counts = torch.clamp(valid.reshape(valid.shape[0], -1).sum(dim=1), min=1).to(diff.dtype)
+    mean_shift = diff.reshape(diff.shape[0], -1).sum(dim=1) / counts
+    shifted = torch.where(valid, diff - mean_shift.reshape((-1,) + (1,) * (diff.ndim - 1)), 0.0)
+    return torch.sum(shifted * shifted), torch.sum(valid.to(diff.dtype))
+
+
+def _gaussian_nll(pred, tgt, valid):
+    """Gaussian negative log-likelihood of the target under the ensemble
+    over the property axis (its mean and population variance)."""
+    mean = torch.mean(pred, dim=-1, keepdim=True)
+    var = torch.clamp(torch.var(pred, dim=-1, keepdim=True, unbiased=False), min=1e-10)
+    nll = 0.5 * (torch.log(2.0 * math.pi * var) + (torch.nan_to_num(tgt)[..., :1] - mean) ** 2 / var)
+    nll = torch.where(valid[..., :1], nll, 0.0)
+    return torch.sum(nll), _sample_count(valid, nll.dtype)
+
+
+def _crps(pred, tgt, valid):
+    """Empirical CRPS of the ensemble over the property axis against the
+    target: E|X - y| - 0.5 E|X - X'|."""
+    y = torch.nan_to_num(tgt)[..., :1]
+    n_members = pred.shape[-1]
+    term1 = torch.mean(torch.abs(pred - y), dim=-1, keepdim=True)
+    pairwise = torch.abs(pred[..., :, None] - pred[..., None, :])
+    term2 = 0.5 * torch.sum(pairwise, dim=(-2, -1)) / (n_members * n_members)
+    crps = torch.where(valid[..., 0], term1[..., 0] - term2, 0.0)
+    return torch.sum(crps), _sample_count(valid, crps.dtype)
+
+
+def _cross_entropy(pred, tgt, valid):
+    """Softmax cross entropy over the property axis against class
+    probabilities (soft or one-hot)."""
+    log_probs = torch.log_softmax(pred, dim=-1)
+    per_elem = torch.where(valid, -torch.nan_to_num(tgt) * log_probs, 0.0)
+    return torch.sum(per_elem), _sample_count(valid, per_elem.dtype)
+
+
+_MASKED_KINDS = {"shift_agnostic_mse": _shift_agnostic_mse, "gaussian_nll": _gaussian_nll,
+                 "crps": _crps, "cross_entropy": _cross_entropy}
 
 
 def block_loss_terms(
@@ -47,7 +110,7 @@ def block_loss_terms(
     extra_mask: Optional[TensorBlock] = None,
     **kw,
 ):
-    """``(sum, count)`` of the pointwise loss over one block.
+    """``(sum, count)`` of the loss over one block.
 
     Elements are dropped when (a) the block's padding mask is False on
     their sample row, (b) the target value is NaN, or (c) an explicit
@@ -60,6 +123,10 @@ def block_loss_terms(
         valid = valid & target.mask.reshape(target.mask.shape + (1,) * (tgt.ndim - 1))
     if extra_mask is not None:
         valid = valid & extra_mask.values.bool()
+    if kind in _CUSTOM_LOSSES:
+        return _CUSTOM_LOSSES[kind](pred, tgt, valid, **kw)
+    if kind in _MASKED_KINDS:
+        return _MASKED_KINDS[kind](pred, tgt, valid)
     diff = torch.where(valid, pred - torch.nan_to_num(tgt), 0.0)
     loss = _pointwise(kind, diff, **kw)
     return torch.sum(loss), torch.sum(valid.to(loss.dtype))

@@ -290,9 +290,10 @@ class NNTrainer:
 
         loss_agg = LossAggregator(target_infos, hp["loss"])
         per_structure = list(hp["per_structure_targets"])
-        # metrics in physical units: each block's own scale row (one row
-        # per block for per-structure targets)
-        scales = {name: [torch.as_tensor(rows[0], device=device) for rows in blocks]
+        # metrics in physical units: each block's own scales, (R, P) with a
+        # row per atomic type for per-atom targets (each atom's row, where
+        # the JAX package takes the first type's for every atom)
+        scales = {name: [torch.as_tensor(rows, device=device) for rows in blocks]
                   for name, blocks in scaler.scales.items()}
 
         def loss_and_errors(batch: Batch, is_training: bool):
@@ -445,10 +446,23 @@ def _build_loader(datasets: List, collate: CollateFn, hp: Dict[str, Any], shuffl
     return CombinedDataLoader(loaders, shuffle=shuffle, seed=hp["seed"])
 
 
-def _unscale(tmap: TensorMap, block_scales) -> TensorMap:
-    return TensorMap(tmap.keys, [
-        b.map_values(lambda v, s=s: v * s.to(v.dtype)) for b, s in zip(tmap.blocks(), block_scales)
-    ])
+def _unscale(tmap: TensorMap, block_scales, species_index: torch.Tensor) -> TensorMap:
+    """``tmap`` times its blocks' scales: a (P,) or (1, P) scale on the last
+    axis, an (R, P) one with R > 1 (a per-atom target's rows by atomic
+    type) by the row of each atom's type (``species_index``)."""
+    blocks = []
+    for block, scale in zip(tmap.blocks(), block_scales):
+        if scale.ndim == 2 and scale.shape[0] > 1:
+            rows = scale[species_index]  # (A, P)
+
+            def by_row(v, rows=rows):
+                return v * rows.reshape(rows.shape[:1] + (1,) * (v.ndim - 2)
+                                        + rows.shape[1:]).to(v.dtype)
+
+            blocks.append(block.map_values(by_row))
+        else:
+            blocks.append(block.map_values(lambda v, s=scale.reshape(-1): v * s.to(v.dtype)))
+    return TensorMap(tmap.keys, blocks)
 
 
 def _compute_loss_and_errors(model, loss_agg, target_infos, per_structure, scales,
@@ -461,9 +475,12 @@ def _compute_loss_and_errors(model, loss_agg, target_infos, per_structure, scale
     targets = average_by_num_atoms(batch.targets, batch.systems, per_structure)
     loss = loss_agg(predictions, targets, batch.extra_data)
     with torch.no_grad():
+        species = model.species_index(batch.systems)
         errors = batch_errors(
-            {n: _unscale(t, scales[n]) if n in scales else t for n, t in predictions.items()},
-            {n: _unscale(t, scales[n]) if n in scales else t for n, t in targets.items()},
+            {n: _unscale(t, scales[n], species) if n in scales else t
+             for n, t in predictions.items()},
+            {n: _unscale(t, scales[n], species) if n in scales else t
+             for n, t in targets.items()},
             batch.extra_data,
         )
     return loss, errors

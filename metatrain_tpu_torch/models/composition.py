@@ -1,12 +1,16 @@
-"""Composition baseline: per-species least-squares ``E = sum_i w[z_i]``.
+"""Composition baseline: per-species least-squares ``y = sum_i w[z_i]``.
 
-Counterpart of ``metatrain_tpu/models/composition.py`` for energy
-targets. Fitting accumulates the normal equations ``X^T X`` / ``X^T Y``
-over the dataset on the host in float64 and solves them (the same
-arithmetic as the JAX package); during training the baseline is removed
-from the host targets (a collate transform) and at evaluation it is added
-back on the device. As in the JAX package, the device weights are float32
-and the per-system sum is taken in float32.
+Counterpart of ``metatrain_tpu/models/composition.py``. It applies to the
+invariant scalar targets (``_is_valid_target``): scalars, per structure or
+per atom, with any number of properties, and spherical targets whose only
+block is the (0, 1) irrep; Cartesian, other spherical and atomic-basis
+targets get no baseline. Fitting accumulates the normal equations
+``X^T X`` / ``X^T Y`` over the dataset on the host in float64 and solves
+them (the same arithmetic as the JAX package; a per-atom target makes each
+atom one sample); during training the baseline is removed from the host
+targets (a collate transform) and at evaluation it is added back on the
+device. As in the JAX package, the device weights are float32 and the
+per-system sum is taken in float32.
 """
 
 from __future__ import annotations
@@ -18,9 +22,22 @@ import torch
 
 from ..containers import SystemBatch, TensorBlock, TensorMap
 from ..data.dataset import Sample, dataset_target_names, iter_samples
-from ..data.target_info import DatasetInfo
+from ..data.target_info import DatasetInfo, TargetInfo
 
 FixedWeights = Dict[str, Union[float, Dict[int, float]]]
+
+
+def _is_valid_target(info: TargetInfo) -> bool:
+    """Invariant scalars: scalar targets, or spherical targets whose only
+    block is the (0, 1) irrep; never an atomic-basis target."""
+    if info.is_atomic_basis:
+        return False
+    if info.is_scalar:
+        return True
+    if info.is_spherical:
+        keys = np.asarray(info.layout.keys.values)
+        return len(keys) == 1 and keys[0][0] == 0 and keys[0][1] == 1
+    return False
 
 
 class CompositionModel:
@@ -34,10 +51,11 @@ class CompositionModel:
         self._type_to_index = {z: i for i, z in enumerate(self.atomic_types)}
         self._lookup = np.zeros((max(self.atomic_types) + 1,), dtype=np.int64)
         self._lookup[self.atomic_types] = np.arange(len(self.atomic_types))
+        self.target_infos = {name: info for name, info in dataset_info.targets.items()
+                             if _is_valid_target(info)}
         self.weights: Dict[str, np.ndarray] = {
             name: np.zeros((len(self.atomic_types), len(info.layout.block(0).properties)))
-            for name, info in dataset_info.targets.items()
-            if info.is_energy
+            for name, info in self.target_infos.items()
         }
 
     def fit(self, datasets: Sequence, fixed_weights: Optional[FixedWeights] = None) -> None:
@@ -76,8 +94,16 @@ class CompositionModel:
                             counts[idx] += 1.0
                     if xty is None:
                         xty = np.zeros((n_types, values.shape[-1]))
-                    xtx += np.outer(counts, counts)
-                    xty += counts[:, None] * values.reshape(1, -1)
+                    if self.target_infos[name].per_atom:
+                        # each atom is one sample with a one-hot row
+                        flat = values.reshape(len(system), -1)
+                        for a, z in enumerate(system.types):
+                            idx = self._type_to_index[int(z)]
+                            xtx[idx, idx] += 1.0
+                            xty[idx] += flat[a]
+                    else:
+                        xtx += np.outer(counts, counts)
+                        xty += counts[:, None] * values.reshape(1, -1)
             if xty is None:
                 continue
             # tiny Tikhonov term guards rank-deficient systems (e.g. a
@@ -108,14 +134,16 @@ class CompositionModel:
         }
 
     def predict_host(self, system) -> Dict[str, np.ndarray]:
-        """Per-target (1, P) baseline of one host system (float64)."""
+        """Per-target baseline of one host system (float64): (N, P) per
+        atom for per-atom targets, else (1, P)."""
         out = {}
         for name, w in self.weights.items():
             idx = np.array([self._type_to_index.get(int(z), -1) for z in system.types])
             valid = idx >= 0
             per_atom = np.zeros((len(system), w.shape[1]))
             per_atom[valid] = w[idx[valid]]
-            out[name] = per_atom.sum(0, keepdims=True)
+            out[name] = (per_atom if self.target_infos[name].per_atom
+                         else per_atom.sum(0, keepdims=True))
         return out
 
     def remove_transform(self, samples: List[Sample]) -> List[Sample]:
@@ -140,19 +168,23 @@ class CompositionModel:
             new_samples.append(Sample(sample.system, new_targets, sample.extra_data))
         return new_samples
 
-    def forward(self, batch: SystemBatch, outputs: Sequence[str]) -> Dict[str, torch.Tensor]:
-        """Per-system (S, P) float32 contributions of the requested targets."""
+    def forward(self, batch: SystemBatch, outputs: Sequence[str],
+                selected_atoms: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """float32 contributions of the requested targets: (A, P) per atom
+        for per-atom targets, else (S, P) per system; only the atoms of
+        ``selected_atoms`` (an (A,) mask) where it is given."""
         type_index = torch.as_tensor(self._lookup, device=batch.device)[
             torch.clamp(batch.types.long(), 0, len(self._lookup) - 1)
         ]
+        amask = batch.atom_mask if selected_atoms is None else batch.atom_mask & selected_atoms
         onehot = batch.system_onehot(torch.float32)
         out = {}
         for name in outputs:
             if name not in self.weights:
                 continue
             w = torch.as_tensor(self.weights[name], dtype=torch.float32, device=batch.device)
-            per_atom = torch.where(batch.atom_mask[:, None], w[type_index], 0.0)
-            out[name] = onehot.T @ per_atom
+            per_atom = torch.where(amask[:, None], w[type_index], 0.0)
+            out[name] = per_atom if self.target_infos[name].per_atom else onehot.T @ per_atom
         return out
 
 

@@ -1,17 +1,22 @@
 """Shared base of the port's neural-network architectures.
 
-Counterpart of ``metatrain_tpu/models/nn_base.py``, for energy targets:
-species lookup, per-target output shapes, assembly of the network's
-per-atom predictions into per-structure energy TensorMaps, the
-evaluation-time scaler and composition baselines, the model part of a
-checkpoint in the JAX package's layout, loading one (``load_checkpoint``)
-and carrying a model over to another dataset (``restart``).
+Counterpart of ``metatrain_tpu/models/nn_base.py``: species lookup,
+per-target output sizes (components x properties per block), assembly of
+the network's per-atom predictions into target TensorMaps (per atom or
+per structure, several blocks, ``atom_type`` blocks masked to their type,
+``non_conservative_stress`` symmetrised and divided by the volume), the
+aux outputs ``features`` and ``mtt::aux::{target}_last_layer_features``,
+a selection of atoms, the evaluation-time scaler, composition and ZBL
+baselines, the model part of a checkpoint in the JAX package's layout,
+loading one (``load_checkpoint``) and carrying a model over to another
+dataset (``restart``). The diagnostic ``mtt::feature::`` outputs are not
+ported.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -22,9 +27,15 @@ from ..data.target_info import DatasetInfo, TargetInfo
 from .composition import CompositionModel
 from .scaler import Scaler
 
+DIAGNOSTIC_PREFIX = "mtt::feature::"
+
 
 def block_key_str(key_tuple) -> str:
     return "_".join(str(int(v)) for v in key_tuple)
+
+
+def last_layer_features_name(target: str) -> str:
+    return f"mtt::aux::{target}_last_layer_features"
 
 
 def sum_over_atoms(values: torch.Tensor, batch: SystemBatch, amask: torch.Tensor) -> torch.Tensor:
@@ -34,11 +45,63 @@ def sum_over_atoms(values: torch.Tensor, batch: SystemBatch, amask: torch.Tensor
     return batch.system_onehot(values.dtype).T @ values
 
 
+def selection_mask(batch: SystemBatch, pairs) -> torch.Tensor:
+    """(A,) boolean mask of the ``(system, atom slot)`` pairs in ``pairs``
+    (a (K, 2) integer array, the convention of per-atom sample labels):
+    the ``selected_atoms`` argument of :meth:`AtomisticNNModel.forward`."""
+    mask = np.zeros(batch.n_atoms_padded, dtype=bool)
+    system_index = batch.system_index.cpu().numpy()
+    for sys_i, slot in np.asarray(pairs, dtype=np.int64).reshape(-1, 2):
+        if 0 <= slot < mask.shape[0] and system_index[slot] == sys_i:
+            mask[slot] = True
+    return torch.as_tensor(mask, device=batch.device)
+
+
+def atom_samples(batch: SystemBatch) -> Labels:
+    """The ``(system, atom)`` sample labels of per-atom blocks."""
+    return Labels(["system", "atom"], torch.stack([
+        batch.system_index, torch.arange(batch.n_atoms_padded, device=batch.device)], dim=1))
+
+
+def cell_volumes(cells: torch.Tensor) -> torch.Tensor:
+    """|det| of (S, 3, 3) cells as the triple product (a polynomial: its
+    gradient is finite on the zero cells of padded and non-periodic
+    systems)."""
+    return torch.abs(torch.sum(cells[:, 0] * torch.linalg.cross(cells[:, 1], cells[:, 2]), -1))
+
+
+def process_stress_like(flat: torch.Tensor, batch: SystemBatch, n_props: int) -> torch.Tensor:
+    """Rank-2 outputs (A, 9 P) symmetrised and divided by their system's
+    cell volume, (A, 3, 3, P). A volume of zero (non-periodic and padded
+    systems) counts as infinite, as in the JAX package: the output is 0
+    there, with finite gradients, in every dtype."""
+    t = flat.reshape(flat.shape[0], 3, 3, n_props)
+    volumes = cell_volumes(batch.cells).to(t.dtype)
+    empty = volumes == 0.0
+    inverse = torch.where(empty, 0.0, 1.0 / torch.where(empty, 1.0, volumes))
+    t = t * (batch.system_onehot(t.dtype) @ inverse)[:, None, None, None]
+    return 0.5 * (t + t.transpose(1, 2))
+
+
+def concat_node_edge_features(node_list, edge_list, cutoff_factors) -> torch.Tensor:
+    """Per readout layer, the node features and the cutoff-weighted sum of
+    the edge features, concatenated (A, F) in at least float32: the
+    ``features`` output, the last-layer features and LLPR's covariances."""
+    parts = []
+    for node_f, edge_f in zip(node_list, edge_list):
+        dtype = torch.promote_types(torch.float32, node_f.dtype)
+        parts.append(node_f.to(dtype))
+        parts.append(torch.sum(edge_f.to(dtype) * cutoff_factors[:, :, None].to(dtype), dim=1))
+    return torch.cat(parts, dim=-1)
+
+
 class AtomisticNNModel(nn.Module):
     """Network + baselines + TensorMap assembly.
 
     Subclasses set ``self.module`` (a module mapping preprocessed batch
-    data and requested names to ``{target: {block key: (A, size)}}``) and
+    data and requested target names to ``{target: {block key: (A,
+    size)}}``, ``{"_ll_features::<target>": (node list, edge list)}`` for
+    each target and ``"_node_features"``/``"_edge_features"``) and
     implement :meth:`preprocess`.
     """
 
@@ -58,17 +121,13 @@ class AtomisticNNModel(nn.Module):
         self.compute_dtype = compute_dtype
         self.atomic_types = list(dataset_info.atomic_types)
         self.target_infos: Dict[str, TargetInfo] = dict(dataset_info.targets)
-        self.output_shapes: Dict[str, Dict[str, int]] = {}
-        for name, info in self.target_infos.items():
-            if not info.is_energy:
-                raise NotImplementedError(
-                    f"target '{name}': the port handles per-structure scalar "
-                    "(energy) targets only"
-                )
-            self.output_shapes[name] = {
-                block_key_str(key): len(block.properties)
-                for key, block in info.layout.items()
-            }
+        # per target and block: components x properties
+        self.output_shapes: Dict[str, Dict[str, int]] = {
+            name: {block_key_str(key): int(np.prod([len(c) for c in block.components],
+                                                   initial=1)) * len(block.properties)
+                   for key, block in info.layout.items()}
+            for name, info in self.target_infos.items()
+        }
         lookup = np.zeros((max(self.atomic_types) + 1,), dtype=np.int64)
         for i, z in enumerate(self.atomic_types):
             lookup[z] = i
@@ -84,45 +143,117 @@ class AtomisticNNModel(nn.Module):
         lookup = torch.as_tensor(self._species_lookup, device=batch.device)
         return lookup[torch.clamp(batch.types.long(), 0, lookup.shape[0] - 1)]
 
-    def forward(self, batch: SystemBatch, outputs: Sequence[str]) -> Dict[str, TensorMap]:
-        """Training-space predictions (no scaler, no baselines)."""
-        requested = tuple(n for n in outputs if n in self.output_shapes)
-        unknown = [n for n in outputs if n not in self.output_shapes]
-        if unknown:
-            raise NotImplementedError(f"outputs {unknown} are not ported")
-        raw = self.module(self.preprocess(batch), requested)
-        return {name: self._assemble_target(name, raw[name], batch) for name in requested}
+    def forward(self, batch: SystemBatch, outputs: Sequence[str],
+                selected_atoms: Optional[torch.Tensor] = None) -> Dict[str, TensorMap]:
+        """Training-space predictions (no scaler, no baselines) of the
+        requested targets and aux outputs: ``features`` (the per-atom
+        representation) and ``mtt::aux::{target}_last_layer_features``.
 
-    def forward_eval(self, batch: SystemBatch, outputs: Sequence[str]) -> Dict[str, TensorMap]:
+        :param selected_atoms: optional (A,) boolean mask over the padded
+            atom slots (:func:`selection_mask`): per-atom outputs are zero
+            outside it and per-structure outputs sum the selected atoms only.
+        """
+        requested = [n for n in outputs if n in self.output_shapes]
+        ll_requests = {}
+        for name in outputs:
+            if name in self.output_shapes or name == "features":
+                continue
+            target = name.removeprefix("mtt::aux::").removesuffix("_last_layer_features")
+            if name == last_layer_features_name(target) and target in self.output_shapes:
+                ll_requests[name] = target
+            elif name.startswith(DIAGNOSTIC_PREFIX):
+                raise NotImplementedError(f"the diagnostic outputs ({name}) are not ported")
+            else:
+                raise ValueError(f"unknown output {name!r}")
+        amask = batch.atom_mask if selected_atoms is None else batch.atom_mask & selected_atoms
+        batch_data = self.preprocess(batch)
+        raw = self.module(batch_data, tuple(dict.fromkeys(requested + list(ll_requests.values()))))
+        results = {name: self._assemble_target(name, raw[name], batch, amask)
+                   for name in requested}
+        if "features" in outputs:
+            results["features"] = self._per_atom_feature_map(concat_node_edge_features(
+                raw["_node_features"], raw["_edge_features"], batch_data["cutoff_factors"]),
+                batch, amask)
+        for name, target in ll_requests.items():
+            results[name] = self._per_atom_feature_map(concat_node_edge_features(
+                *raw[f"_ll_features::{target}"], batch_data["cutoff_factors"]), batch, amask)
+        return results
+
+    def _per_atom_feature_map(self, features: torch.Tensor, batch: SystemBatch,
+                              amask: torch.Tensor) -> TensorMap:
+        features = features.to(torch.promote_types(torch.float32, features.dtype))
+        block = TensorBlock(
+            values=torch.where(amask[:, None], features, 0.0),
+            samples=atom_samples(batch),
+            components=(),
+            properties=Labels.range("property", int(features.shape[-1])),
+            mask=amask,
+        )
+        return TensorMap(Labels.single(), [block])
+
+    def forward_eval(self, batch: SystemBatch, outputs: Sequence[str],
+                     selected_atoms: Optional[torch.Tensor] = None) -> Dict[str, TensorMap]:
         """Evaluation predictions: scaler, composition baseline and (where
         the model has one) the ZBL baseline applied, in that order."""
-        results = self.scaler.apply_scales(self.forward(batch, outputs))
-        additive = [self.composition.forward(batch, list(results))]
+        results = self.scaler.apply_scales(self.forward(batch, outputs, selected_atoms), batch)
+        additive = [self.composition.forward(batch, list(results), selected_atoms)]
         if self.zbl is not None:
-            additive.append(self.zbl.forward(batch, list(results)))
+            additive.append(self.zbl.forward(batch, list(results), selected_atoms))
         for contributions in additive:
             for name, contribution in contributions.items():
                 block = results[name].block(0)
-                block.values = block.values + contribution.to(block.values.dtype)
+                block.values = block.values + contribution.to(block.values.dtype).reshape(
+                    block.values.shape[:1] + (1,) * (block.values.ndim - contribution.ndim)
+                    + contribution.shape[1:])
         return results
 
     def _assemble_target(self, name: str, per_block: Dict[str, torch.Tensor],
-                         batch: SystemBatch) -> TensorMap:
+                         batch: SystemBatch, amask: Optional[torch.Tensor] = None) -> TensorMap:
+        """The target's TensorMap from the network's per-atom (A, size)
+        predictions of each block: per-atom blocks masked to ``amask`` (an
+        ``atom_type`` block also to its type), per-structure blocks summed
+        over those atoms."""
         info = self.target_infos[name]
+        A, S = batch.n_atoms_padded, batch.n_systems_padded
+        amask = batch.atom_mask if amask is None else amask
+        type_col = (info.layout.keys.names.index("atom_type") if info.is_atomic_basis else None)
         blocks = []
         for key, layout_block in info.layout.items():
             flat = per_block[block_key_str(key)]
             flat = flat.to(torch.promote_types(torch.float32, flat.dtype))
-            blocks.append(
-                TensorBlock(
-                    values=sum_over_atoms(flat, batch, batch.atom_mask),
-                    samples=Labels.range("system", batch.n_systems_padded),
-                    components=layout_block.components,
-                    properties=layout_block.properties,
-                    mask=batch.system_mask,
-                )
-            )
+            comp_shape = tuple(len(c) for c in layout_block.components)
+            n_props = len(layout_block.properties)
+            if name == "non_conservative_stress":
+                flat = process_stress_like(flat, batch, n_props).reshape(A, -1)
+            block_mask = amask
+            if type_col is not None:
+                block_mask = amask & (batch.types == int(key[type_col]))
+            if info.per_atom:
+                values = flat.reshape((A,) + comp_shape + (n_props,))
+                values = torch.where(block_mask.reshape((A,) + (1,) * (values.ndim - 1)),
+                                     values, 0.0)
+                samples, mask = atom_samples(batch), block_mask
+            else:
+                values = sum_over_atoms(flat, batch, block_mask).reshape(
+                    (S,) + comp_shape + (n_props,))
+                samples, mask = Labels.range("system", S), batch.system_mask
+            blocks.append(TensorBlock(values=values, samples=samples,
+                                      components=layout_block.components,
+                                      properties=layout_block.properties, mask=mask))
         return TensorMap(info.layout.keys, blocks)
+
+    def last_layer_features(self, batch: SystemBatch, target_name: str) -> torch.Tensor:
+        """Per-atom last-layer features (A, F) of one target."""
+        batch_data = self.preprocess(batch)
+        raw = self.module(batch_data, (target_name,))
+        return concat_node_edge_features(*raw[f"_ll_features::{target_name}"],
+                                         batch_data["cutoff_factors"])
+
+    @property
+    def last_layer_feature_size(self) -> int:
+        """Width of the last-layer feature vector: per readout layer, the
+        node head's and the edge head's widths."""
+        return int(self.module.last_layer_feature_size)
 
     def requested_extra_system_keys(self) -> Sequence[str]:
         """``System.extra`` entries the model reads from ``SystemBatch.extra``."""

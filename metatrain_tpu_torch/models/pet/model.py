@@ -5,14 +5,14 @@ Counterpart of ``metatrain_tpu/models/pet/model.py``: the PET defaults,
 fixed or adaptive cutoffs and their cutoff factors, NEF species indices,
 the inputs of long range and system conditioning), the network (fused or
 unfused layers, feedforward or residual featurizer, long range, system
-conditioning), the ZBL baseline and the upgrades of older checkpoints.
-Forces and virial come from ``engine/evaluate.py``.
+conditioning), the ``mtt::aux::cutoff_stats`` output, the ZBL baseline
+and the upgrades of older checkpoints. Forces and virial come from ``engine/evaluate.py``.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
@@ -30,6 +30,8 @@ from .modules import (
     cutoff_func_cosine,
     init_flax_like,
 )
+
+CUTOFF_STATS = "mtt::aux::cutoff_stats"
 
 DEFAULT_MODEL_HYPERS: Dict[str, Any] = {
     "cutoff": 4.5,
@@ -178,6 +180,22 @@ class PET(AtomisticNNModel):
         hypers = dict(checkpoint["hypers"])
         hypers.setdefault("fused_attention", True)
         return dict(checkpoint, hypers=hypers)
+
+    def forward(self, batch: SystemBatch, outputs: Sequence[str],
+                selected_atoms: Optional[torch.Tensor] = None):
+        """Adds ``mtt::aux::cutoff_stats`` to the shared outputs: per atom,
+        column 0 the cutoff (the adaptive one, or the uniform cutoff of a
+        non-adaptive PET) and column 1 the smoothed neighbor count (the sum
+        of its cutoff factors)."""
+        names = [n for n in outputs if n != CUTOFF_STATS]
+        results = super().forward(batch, names, selected_atoms) if names else {}
+        if CUTOFF_STATS in outputs:
+            amask = batch.atom_mask if selected_atoms is None else batch.atom_mask & selected_atoms
+            bd = self.preprocess(batch)
+            smooth_counts = torch.sum(torch.where(bd["nbr_mask"], bd["cutoff_factors"], 0.0), dim=1)
+            results[CUTOFF_STATS] = self._per_atom_feature_map(
+                torch.stack([bd["atomic_cutoffs"], smooth_counts], dim=1), batch, amask)
+        return results
 
     def requested_neighbor_cutoff(self) -> float:
         return self.cutoff

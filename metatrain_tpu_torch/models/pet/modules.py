@@ -563,7 +563,9 @@ class PETModule(nn.Module):
     ``output_shapes``: target name -> {block key string -> flat size}.
     Returns, per requested target, the per-atom prediction of each block
     (A, size): node predictions plus cutoff-weighted sums of edge
-    predictions.
+    predictions; under ``_ll_features::<target>`` its heads' outputs (the
+    node and the edge head's, one of each per readout layer), and under
+    ``_node_features``/``_edge_features`` the backbone's readout features.
     """
 
     def __init__(self, hp: Dict[str, Any], num_species: int,
@@ -583,11 +585,13 @@ class PETModule(nn.Module):
             from ...engine.long_range import LongRangeFeaturizer
 
             self.long_range = LongRangeFeaturizer(
-                hp["d_node"], hp["d_node"], dtype, smearing=float(lr.get("smearing", 1.4)),
+                hp["d_node"], hp["d_node"], dtype, float(hp["cutoff"]),
+                smearing=float(lr.get("smearing", 1.4)),
                 n_kmax=int(lr.get("n_kmax", 4)), method=str(lr.get("method", "ewald")),
                 mesh=int(lr.get("mesh", 32)))
         d_head = hp["d_head"]
         readouts = 1 if hp["featurizer_type"] == "feedforward" else hp["num_gnn_layers"]
+        self.last_layer_feature_size = 2 * d_head * readouts
         for target, shapes in output_shapes.items():
             safe = target.replace(":", "_")
             for i in range(readouts):
@@ -607,12 +611,14 @@ class PETModule(nn.Module):
             lr_features = self.long_range(node_features[-1], bd)
             node_features = [(nf + lr_features) * (0.5**0.5) for nf in node_features]
         cf = torch.where(bd["nbr_mask"], bd["cutoff_factors"], 0.0)
-        results: Dict[str, Dict[str, torch.Tensor]] = {}
+        results: Dict[str, Any] = {"_node_features": node_features,
+                                   "_edge_features": edge_features}
         for target, shapes in self.output_shapes.items():
             if target not in requested:
                 continue
             safe = target.replace(":", "_")
             sums: Dict[str, torch.Tensor] = {}
+            node_lls, edge_lls = [], []
             for layer_i, (nf, ef) in enumerate(zip(node_features, edge_features)):
                 node_ll = getattr(self, f"node_head_{safe}_{layer_i}")(nf, cd)
                 edge_head = getattr(self, f"edge_head_{safe}_{layer_i}")
@@ -620,10 +626,13 @@ class PETModule(nn.Module):
                 edge_ll = run_stage(
                     HEAD, (ef.to(cd).reshape(A * M, D),), edge_head.stage_weights(), self.plain
                 ).reshape(A, M, -1)
+                node_lls.append(node_ll)
+                edge_lls.append(edge_ll)
                 for key in shapes:
                     node_pred = dense(getattr(self, f"node_last_{safe}_{layer_i}_{key}"), node_ll, cd)
                     edge_pred = dense(getattr(self, f"edge_last_{safe}_{layer_i}_{key}"), edge_ll, cd)
                     total = node_pred + torch.sum(edge_pred * cf[:, :, None], dim=1)
                     sums[key] = sums[key] + total if key in sums else total
             results[target] = sums
+            results[f"_ll_features::{target}"] = (node_lls, edge_lls)
         return results

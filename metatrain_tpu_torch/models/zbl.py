@@ -18,7 +18,7 @@ so forces and virial come through the autograd engine. The host side
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,6 +32,10 @@ COULOMB_EV_ANGSTROM = 14.399645478425668
 
 _PHI_COEFFS = (0.18175, 0.50986, 0.28022, 0.02817)
 _PHI_EXPONENTS = (3.19980, 0.94229, 0.40290, 0.20162)
+
+
+# the target gradients ZBL's removal subtracts -> predict_host's keys
+_HOST_GRADIENTS = {"positions": "position_gradient", "strain": "strain_gradient"}
 
 
 def _phi(x):
@@ -83,27 +87,34 @@ class ZBL:
         pair_e = torch.where(batch.nbr_mask, pair_e, 0.0)
         return 0.5 * torch.sum(pair_e, dim=1)
 
-    def forward(self, batch: SystemBatch, outputs: Sequence[str]) -> Dict[str, torch.Tensor]:
+    def forward(self, batch: SystemBatch, outputs: Sequence[str],
+                selected_atoms: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Per-system (S, 1) energies of the requested targets it applies to,
-        in the geometry dtype."""
+        in the geometry dtype: the atoms of ``selected_atoms`` (an (A,)
+        mask) only, where it is given."""
         names = [name for name in outputs if name in self.target_names]
         if not names:
             return {}
-        atom_e = torch.where(batch.atom_mask, self.atomic_energies(batch), 0.0)
+        amask = batch.atom_mask if selected_atoms is None else batch.atom_mask & selected_atoms
+        atom_e = torch.where(amask, self.atomic_energies(batch), 0.0)
         per_system = (batch.system_onehot(atom_e.dtype).T @ atom_e)[:, None]
         return {name: per_system for name in names}
 
     # -- host removal ---------------------------------------------------------
 
     def predict_host(self, system) -> Dict[str, np.ndarray]:
-        """Per-system ZBL energy and its position gradient (float64) for the
-        removal. Each pair once (the half list), with its full energy."""
+        """Per-system ZBL energy, its position gradient (N, 3) and its strain
+        gradient (3, 3) (float64) for the removal. Each pair once (the half
+        list), with its full energy. The strain gradient is dE/dstrain, the
+        sign the readers store (the negative virial, or the stress times
+        the volume): the sum over pairs of r_vec (x) dE/dr_vec."""
         from ..ops.neighbors import neighbor_pairs
 
         centers, neighbors, shifts = neighbor_pairs(
             system.positions, system.cell, system.pbc, self.cutoff)
         if len(centers) == 0:
-            return {"energy": 0.0, "position_gradient": np.zeros((len(system), 3))}
+            return {"energy": 0.0, "position_gradient": np.zeros((len(system), 3)),
+                    "strain_gradient": np.zeros((3, 3))}
         r_vec = system.positions[neighbors] - system.positions[centers] + shifts @ system.cell
         r = np.linalg.norm(r_vec, axis=1)
         z = system.types.astype(np.float64)
@@ -125,15 +136,16 @@ class ZBL:
             0.0,
         )
         de_dr = prefactor * ((-phi / r**2 + dphi / r) * fc + phi / r * dfc)
-        unit = r_vec / r[:, None]
+        de_dvec = de_dr[:, None] * r_vec / r[:, None]  # dE/dr_vec, r_vec = r_j - r_i + shift
         grad = np.zeros((len(system), 3))
-        np.add.at(grad, centers, -de_dr[:, None] * unit)
-        np.add.at(grad, neighbors, de_dr[:, None] * unit)
-        return {"energy": energy, "position_gradient": grad}
+        np.add.at(grad, centers, -de_dvec)
+        np.add.at(grad, neighbors, de_dvec)
+        return {"energy": energy, "position_gradient": grad,
+                "strain_gradient": r_vec.T @ de_dvec}
 
     def remove_transform(self, samples: List[Sample]) -> List[Sample]:
-        """Collate transform subtracting the ZBL energies and position
-        gradients from the host targets."""
+        """Collate transform subtracting the ZBL energies, position
+        gradients and strain gradients from the host targets."""
         out = []
         for sample in samples:
             prediction = self.predict_host(sample.system)
@@ -148,9 +160,10 @@ class ZBL:
                     block.samples, block.components, block.properties, block.mask,
                 )
                 for gname, grad in block.gradients():
-                    if gname == "positions":
+                    if gname in _HOST_GRADIENTS:
+                        removed = prediction[_HOST_GRADIENTS[gname]]
                         grad = TensorBlock(
-                            np.asarray(grad.values) - prediction["position_gradient"][:, :, None],
+                            np.asarray(grad.values) - removed.reshape(grad.values.shape[:-1] + (1,)),
                             grad.samples, grad.components, grad.properties, grad.mask,
                         )
                     new_block.add_gradient(gname, grad)

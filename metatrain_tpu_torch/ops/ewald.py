@@ -230,12 +230,16 @@ def direct_potential_nonperiodic(
     nbr_mask: torch.Tensor,
     charges: torch.Tensor,  # (A,)
     smearing: float,
+    cutoff: float,
 ) -> torch.Tensor:
-    """Smeared direct Coulomb sum over the neighbor list, (A,). The
-    neighbors' charges come through the gather-only ``nbr_gather``."""
+    """Smeared direct Coulomb sum over the listed pairs within ``cutoff``
+    (the model's neighbor-list cutoff), (A,). Pairs beyond it are dropped,
+    so a list that reaches further (a calculator's cutoff + skin) gives the
+    sum a list at the cutoff gives. The neighbors' charges come through
+    the gather-only ``nbr_gather``."""
     from .involution import nbr_gather
 
     q_j = nbr_gather(charges, nbr_indices, nbr_reverse)
     pair = q_j * torch.erf(distances / (smearing * math.sqrt(2.0))) / torch.clamp_min(
         distances, 1e-10)
-    return torch.sum(torch.where(nbr_mask, pair, 0.0), dim=1)
+    return torch.sum(torch.where(nbr_mask & (distances <= cutoff), pair, 0.0), dim=1)

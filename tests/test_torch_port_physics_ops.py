@@ -197,7 +197,7 @@ def test_direct_potential_matches_jax():
     def tfn(q):
         _, dist = batch.edge_vectors()
         return tewald.direct_potential_nonperiodic(dist, batch.nbr_indices, batch.nbr_reverse,
-                                                   batch.nbr_mask, q, SMEARING)
+                                                   batch.nbr_mask, q, SMEARING, 4.0)
 
     expected, j_grads, w = _grads_jax(jfn, jnp.asarray(charges))
     got, t_grads = _grads_torch(tfn, [charges], w)

@@ -8,6 +8,13 @@
 - ``device: "auto"`` trains on the first CUDA device and raises without one.
 - ``pet_from_checkpoint`` puts the model on the card unless the caller
   passes another device.
+- The direct long-range sum of non-periodic systems takes the pairs within
+  the model's cutoff: a list that reaches 0.5 A further (a calculator's
+  skin) gives the same energy, forces and virial.
+- ZBL's host prediction has a strain gradient (it agrees with finite
+  differences of its energy under a strain), its removal subtracts it, and
+  ``forward_eval`` adds it back: the removed virial plus what the served
+  call adds is the virial read from the file.
 """
 
 import ast
@@ -15,14 +22,24 @@ import inspect
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import metatrain_tpu_torch
-from conftest import make_crystal
+from conftest import make_crystal, make_molecule
 from metatrain_tpu_torch.cli import train as ttrain
+from metatrain_tpu_torch.containers import System, batch_from_systems
+from metatrain_tpu_torch.data import dataset as tdataset
+from metatrain_tpu_torch.data.readers.extxyz import write_xyz
+from metatrain_tpu_torch.data.target_info import DatasetInfo, get_energy_target_info
+from metatrain_tpu_torch.engine.evaluate import evaluate_model
 from metatrain_tpu_torch.interop.jax_params import pet_from_checkpoint
+from metatrain_tpu_torch.models.pet import PET
 from metatrain_tpu_torch.ops import neighbors
+from metatrain_tpu_torch.ops.inference import no_param_grads
+from metatrain_tpu_torch.ops.neighbors import compute_neighbor_data
+from metatrain_tpu_torch.utils import config as tconfig
 
 PORT = Path(metatrain_tpu_torch.__file__).resolve().parent
 ROOT = PORT.parent
@@ -115,3 +132,97 @@ def test_pet_from_checkpoint_defaults_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError)):
             pet_from_checkpoint(path)
+
+
+# ---- the direct long-range sum's reach ------------------------------------------------
+
+SMALL = {"cutoff": 4.0, "d_pet": 16, "d_head": 16, "d_node": 24, "d_feedforward": 16,
+         "num_heads": 2, "num_gnn_layers": 2, "num_attention_layers": 1}
+ENERGY = {"energy": get_energy_target_info("eV", True, True)}
+
+
+def _energy_forces_virial(model, system, list_cutoff):
+    nbr = compute_neighbor_data(system, list_cutoff)
+    batch = batch_from_systems([system], [nbr], torch.device("cpu"), dtype=torch.float64)
+    with no_param_grads(model):
+        block = evaluate_model(model.forward_eval, batch, ENERGY)["energy"].block(0)
+    n = len(system)
+    return (block.values[0].detach().numpy(), block.gradient("positions").values[:n].numpy(),
+            block.gradient("strain").values[0].numpy(), nbr.max_neighbors)
+
+
+def test_direct_sum_is_the_same_with_a_longer_list():
+    model = PET({**SMALL, "long_range": {"enable": True, "method": "ewald", "smearing": 1.4}},
+                DatasetInfo("angstrom", [1, 6, 8], ENERGY), compute_dtype=torch.float64)
+    model.init_weights(torch.Generator().manual_seed(1))
+    system = make_molecule(n_atoms=12, seed=2)
+    at_cutoff = _energy_forces_virial(model, system, SMALL["cutoff"])
+    with_skin = _energy_forces_virial(model, system, SMALL["cutoff"] + 0.5)
+    assert with_skin[3] > at_cutoff[3]  # the longer list holds more pairs
+    for a, b in zip(at_cutoff[:3], with_skin[:3]):
+        assert np.abs(a - b).max() <= 1e-12 * np.abs(a).max()
+
+
+# ---- ZBL's strain gradient ----------------------------------------------------------------
+
+
+def _close_pair_crystal():
+    crystal = make_crystal(n_cells=2, seed=4, jitter=0.1)
+    crystal.positions[1] = crystal.positions[0] + np.array([0.9, 0.3, 0.1])
+    return System(crystal.positions, crystal.types, crystal.cell, crystal.pbc)
+
+
+def test_zbl_strain_gradient_matches_finite_differences():
+    from metatrain_tpu_torch.models.zbl import ZBL
+
+    zbl = ZBL(DatasetInfo("angstrom", [29], ENERGY), 4.5, 0.5)
+    system = _close_pair_crystal()
+    got = zbl.predict_host(system)["strain_gradient"]
+    h = 1e-6
+    expected = np.zeros((3, 3))
+    for a in range(3):
+        for b in range(3):
+            energies = []
+            for sign in (1, -1):
+                strain = np.eye(3)
+                strain[a, b] += sign * h
+                strained = System(system.positions @ strain, system.types,
+                                  system.cell @ strain, system.pbc)
+                energies.append(zbl.predict_host(strained)["energy"])
+            expected[a, b] = (energies[0] - energies[1]) / (2 * h)
+    assert np.abs(got).max() > 1.0
+    assert np.abs(got - expected).max() <= 1e-6 * np.abs(expected).max()
+
+
+@pytest.mark.parametrize("form", ["virial", "stress"])
+def test_zbl_removal_and_serving_give_the_virial_back(form, tmp_path):
+    system = _close_pair_crystal()
+    rng = np.random.default_rng(0)
+    virial = rng.normal(size=(3, 3))
+    path = str(tmp_path / "frame.xyz")
+    write_xyz(path, [system], per_atom_arrays=[{"forces": rng.normal(size=(len(system), 3))}],
+              info=[{"energy": 1.0, form: virial.reshape(-1)}])
+    conf = {"systems": {"read_from": path, "length_unit": "angstrom"},
+            "targets": {"energy": {"key": "energy", "unit": "eV", "forces": "on", form: "on"}}}
+    data, infos = tdataset.get_dataset(tconfig.expand_dataset_config(conf))
+    system = data[0].system  # as read (the file keeps 10 decimal places)
+    model = PET({**SMALL, "cutoff": 4.5, "zbl": True},
+                DatasetInfo("angstrom", [29], infos), compute_dtype=torch.float64)
+    model.init_weights(torch.Generator().manual_seed(2))
+    original = data[0].targets["energy"].block(0).gradient("strain").values[0, :, :, 0]
+    removed = model.zbl.remove_transform([data[0]])[0].targets["energy"].block(0)
+    removed = removed.gradient("strain").values[0, :, :, 0]
+    zbl_part = model.zbl.predict_host(system)["strain_gradient"]
+    np.testing.assert_allclose(removed, original - zbl_part, rtol=1e-14, atol=1e-14)
+    # what serving adds to the network's strain gradient is ZBL's (the
+    # scaler is 1 and the composition has none)
+    nbr = compute_neighbor_data(system, model.cutoff)
+    batch = batch_from_systems([system], [nbr], torch.device("cpu"), dtype=torch.float64)
+    with no_param_grads(model):
+        served, network = (evaluate_model(fn, batch, infos)["energy"].block(0)
+                           .gradient("strain").values[0, :, :, 0].numpy()
+                           for fn in (model.forward_eval, model.forward))
+    added = served - network
+    assert np.abs(added - zbl_part).max() <= 1e-10 * np.abs(zbl_part).max()
+    np.testing.assert_allclose(removed + added, original, rtol=0,
+                               atol=1e-10 * np.abs(original).max())

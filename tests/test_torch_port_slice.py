@@ -263,16 +263,22 @@ def test_once_refused_configurations_match_jax(change):
 
 
 def test_unported_targets_and_outputs_are_refused():
-    """What the port still refuses: a target other than a per-structure
-    energy, and PET's ``mtt::aux::cutoff_stats`` output."""
+    """What the port still refuses: the diagnostic ``mtt::feature::``
+    outputs and an output that names nothing. A per-atom target and PET's
+    ``mtt::aux::cutoff_stats`` are served (``test_torch_port_targets.py``
+    holds them to the JAX package)."""
     from metatrain_tpu_torch.containers import Labels, TensorMap
     from metatrain_tpu_torch.data.target_info import TargetInfo, _empty_block
 
     per_atom = TargetInfo(TensorMap(Labels.single(), [_empty_block(
         ["system", "atom"], [], Labels(["charge"], np.zeros((1, 1), dtype=np.int32)))]), "charge")
-    with pytest.raises(NotImplementedError, match="energy"):
-        PET(HYPERS, DatasetInfo("angstrom", [1], {"charges": per_atom}))
+    charges = PET(HYPERS, DatasetInfo("angstrom", [1], {"charges": per_atom}))
+    assert charges.output_shapes == {"charges": {"0": 1}}
     model = _model([29], hypers={**HYPERS, "num_neighbors_adaptive": 8})
     _, batch = neighbors_and_batches(make_crystal(), model.cutoff)
-    with pytest.raises(NotImplementedError, match="cutoff_stats"):
-        model(batch, ["energy", "mtt::aux::cutoff_stats"])
+    stats = model(batch, ["energy", "mtt::aux::cutoff_stats"])["mtt::aux::cutoff_stats"]
+    assert stats.block(0).values.shape == (batch.n_atoms_padded, 2)
+    with pytest.raises(NotImplementedError, match="diagnostic"):
+        model(batch, ["energy", "mtt::feature::backbone.gnn_layer_0"])
+    with pytest.raises(ValueError, match="unknown output"):
+        model(batch, ["energy", "mtt::aux::nothing"])
