@@ -120,6 +120,7 @@ device and exits non-zero without one. Phases (any failure propagates):
    ``train_model`` at the PET defaults in float32 (batch 2, 2 epochs,
    validation 0.25, forces weight 10). Every counter starts at 0 just
    before it; K1, K3, K2-dW and K4-dW (all three stages) must launch in it
+   (K2-dW: the two-pass kernels, ``K2DW``, and never the accumulate body)
    and the second-order replays must run; every logged loss must be
    finite; ``model.ckpt`` must reload into a PET that gives the trained
    model's energy. Then W8A8 at the trained weights: ``model.ckpt``
@@ -133,13 +134,18 @@ device and exits non-zero without one. Phases (any failure propagates):
    trained model with ``fused_gnn=True`` (whose step must launch the
    block's forward and weight-gradient kernels and replay the block's
    backward): loss rel <= 1e-5, global gradient rel L2 <= 1e-4, each
-   parameter tensor rel L2 <= 1e-3. Then one bfloat16 step with the int8
-   scores (the trained model), kernel vs plain path: the absmax pass, K1-int8
-   and K2-dW-int8 must launch and the layer's replay run; loss rel <= 2e-2,
-   global gradient rel L2 <= 0.1, finite gradients. Then one exact bfloat16
-   step (the trained model), kernel vs plain path, with the same gates: a
-   weight requires grad, so the general K1, K2-dW and K4-dW must launch and
-   the Hopper K1, K2, K3 and K4 never.
+   parameter tensor rel L2 <= 1e-3; the fused step must launch the
+   two-pass K2-dW's kernels 8 times each (4 layers, in the forces'
+   backward and in the loss's) and the accumulate body never. Then one
+   bfloat16 step with the int8 scores (the trained model), kernel vs plain
+   path: the absmax pass, K1-int8 and the two-pass K2-dW-int8 (8 each) must
+   launch, the accumulate K2-dW-int8 never, and the layer's replay run;
+   loss rel <= 2e-2, global gradient rel L2 <= 0.1, finite gradients. Then
+   one exact bfloat16 step (the trained model), kernel vs plain path, with
+   the same gates: a weight requires grad, so the general K1, the two-pass
+   K2-dW (8 each) and K4-dW must launch and the Hopper K1, K2, K3 and K4
+   and the accumulate K2-dW never. Phases 3b and 3c's f32 steps hold the
+   same K2-dW counts.
 7. training timing: ms per step and atom-steps/s (host clock around
    synchronised steps after a warm-up step) with the peak device memory,
    for the kernel, plain and GNN-block paths on the 2 x 2,048-atom batch
@@ -148,7 +154,8 @@ device and exits non-zero without one. Phases (any failure propagates):
 7b. user entry points, ``metatrain_tpu_torch.__main__.main`` called in
    this process from a temporary directory: ``train`` on phase 5's frames
    (options written as JSON, 1 epoch, float32; every counter starts at 0
-   just before it: K1, K3, K2-dW and K4-dW must launch; the final
+   just before it: K1, K3, the two-pass K2-dW and K4-dW must launch, the
+   accumulate K2-dW never; the final
    evaluation's logged train and validation metrics must be finite);
    ``export`` of its ``model.ckpt`` (the exported and the trained
    ``model.mtt``'s weights must equal the checkpoint's best weights bit for
@@ -185,7 +192,14 @@ device and exits non-zero without one. Phases (any failure propagates):
    plain| <= 1e-4 max |plain| (sums are reassociated); bfloat16: relative
    RMS <= 2e-2 (the plain version rounds at the same points, but products
    and sums run in another order). The permutes must equal index_select
-   (+ add) bit for bit. The weight gradients of K2-dW, K4-dW and the GNN
+   (+ add) bit for bit. K2-dW and K2-dW-int8 are the two-pass kernels
+   (``csrc/fused_layer_bwd_dw_sm90.cu``): their input gradients must equal
+   the accumulate body's (``sm90=False``) bit for bit, that body is timed
+   beside them (``general_ms``), the bytes of their spill, partials and
+   workspace are reported (``workspace_bytes``), and their second pass
+   alone (``layer_dw_product_cuda``) on one chunk's rows is held to
+   ``dw_from_operands`` at the weight-gradient bounds below and timed
+   (``product_ms``). The weight gradients of K2-dW, K4-dW and the GNN
    block's dW variant sum over up to A * M rows: float32 max |kernel -
    plain| <= 1e-3 max |plain| per tensor, bfloat16 relative RMS <= 2e-2;
    two launches on the same inputs must give bitwise-equal weight
@@ -231,7 +245,8 @@ device and exits non-zero without one. Phases (any failure propagates):
    K3 head's output bit for bit at every shape (one ``head_front``: the
    served h and the backward's h0 round alike).
 9. shapes: the C side's layout plans (shared bytes, workspace floats, row
-   tiles) and the Hopper K1's, K2's, K3's and K4's dispatch rules and budgets equal
+   tiles) and the Hopper K1's, K2's, K3's and K4's dispatch rules and budgets,
+   and the two-pass K2-dW's rule, chunk plan and slices, equal
    ``_lib``'s Python ones for M = 16..256 and D of 64 to 256;
    K1, K2, K2-dW, the block's three kernels and, in bf16, K1-W8A8 and
    K2-W8A8 vs plain at M = 80, 96, 128 (D 128) and M = 64, 128 (D 256), A =
@@ -260,6 +275,23 @@ import torch
 
 F32_BOUND, BF16_BOUND, DW_F32_BOUND = 1e-4, 2e-2, 1e-3
 STAGE_NAMES = ("compress", "combination", "head")
+# the two-pass K2-dW's counters (its first pass, exact or int8 scores, and
+# its product), launched 8 times a training step (4 layers, each in the
+# forces' backward and in the loss's); the accumulate body's counters, which
+# the training paths no longer launch
+K2DW = ("fused_layer_bwd_dw_sm90", "layer_dw_product")
+K2DW_INT8 = ("fused_layer_bwd_dw_int8_sm90", "layer_dw_product")
+K2DW_PER_STEP = 8
+
+
+def check_k2dw_launches(launches, kernels=K2DW, accumulate="fused_layer_bwd_dw", per_step=None):
+    """The two-pass K2-dW's kernels launched (``per_step`` times each where
+    given) and the accumulate body never."""
+    counts = {k: launches.get(k, 0) for k in kernels}
+    if (not all(counts.values()) or launches.get(accumulate, 0)
+            or (per_step is not None and set(counts.values()) != {per_step})):
+        fail(f"K2-dW launches {counts}, the accumulate body {launches.get(accumulate, 0)}: "
+             f"expected {per_step or 'some'} each and 0")
 
 
 def fail(message: str):
@@ -366,6 +398,58 @@ def check_dw(name, tag, dtype, k_fn, p_fn, n_inputs, report):
     entry[f"plain_ms_{tag}"] = cuda_ms(p_fn)
 
 
+def check_k2dw_entry(entry, tag, e, c, cf, w, ge, gc, H, scale, int8_scales=None):
+    """The two-pass K2-dW's extras at one shape into ``entry``: the rule's
+    kernels ran, its input gradients equal the accumulate body's
+    (``sm90=False``) bit for bit, that body's weight gradients within the
+    weight-gradient bounds of its own and its time (``general_ms``); the
+    bytes of its spill, partials and workspace; and its second pass alone
+    (``layer_dw_product_cuda``) on one chunk of rows against
+    ``dw_from_operands`` at the same bounds, both timed (``product_ms``,
+    ``product_plain_ms``, per chunk of ``chunk_atoms``)."""
+    from metatrain_tpu_torch.ops.kernels import _lib
+    from metatrain_tpu_torch.ops.kernels import fused_layer as fl
+
+    A, M, D = e.shape
+    F = w.w_ffn_out.shape[0]
+    kw = dict(weight_grads=True, int8_scales=int8_scales)
+    counter = K2DW[0] if int8_scales is None else K2DW_INT8[0]
+    before = _lib.LAUNCHES[counter]
+    k_out = fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, **kw)
+    ran = _lib.LAUNCHES[counter] > before
+    if ran != _lib.k2dw_sm90_takes(e.dtype, M, D, H, F, int8_scales is not None):
+        fail(f"K2-dW {e.dtype} at M={M}, D={D}: the two-pass kernels ran: {ran}, the rule says "
+             "otherwise")
+    general = lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, sm90=False, **kw)  # noqa: E731
+    g_out = general()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(k_out[:3], g_out[:3])):
+        fail("the two-pass K2-dW's input gradients differ from the accumulate body's")
+    entry[f"inputs_equal_general_{tag}"] = True
+    entry[f"general_dw_vs_two_pass_ratio_{tag}"] = compare_dw(g_out[3], k_out[3], e.dtype)[1]
+    del k_out, g_out
+    entry[f"general_ms_{tag}"] = cuda_ms(general, 3)
+    entry[f"workspace_bytes_{tag}"] = fl.k2dw_workspace_bytes(e, H, F, int8_scales is not None)
+    plan = _lib.k2dw_plan(e.element_size(), A, M, D, F, _lib.sm_count(e.device))
+    n = plan.chunk_atoms
+    sub = [x[:n] for x in (e, c, cf, ge, gc)] + [None if int8_scales is None else int8_scales[:n]]
+    ops = fl.layer_dw_operands(*sub[:3], w, *sub[3:5], H, scale, int8_scales=sub[5])
+    one = _lib.k2dw_plan(e.element_size(), n, M, D, F, plan.sms, cap=1 << 62)
+    spill, vectors = fl.pack_dw_operands(ops)
+    k_dw = fl.layer_dw_product_cuda(spill, vectors, sub[3], plan.sms)
+    p_dw = fl.dw_from_operands(ops, sub[3], one)
+    torch.cuda.synchronize()
+    err, worst = compare_dw(k_dw, p_dw, e.dtype)
+    entry[f"product_max_abs_err_{tag}"] = err
+    entry[f"product_bound_ratio_{tag}"] = worst
+    entry[f"product_ms_{tag}"] = cuda_ms(
+        lambda: fl.layer_dw_product_cuda(spill, vectors, sub[3], plan.sms))
+    entry[f"product_plain_ms_{tag}"] = cuda_ms(lambda: fl.dw_from_operands(ops, sub[3], one), 2)
+    entry[f"chunks_{tag}"], entry[f"chunk_atoms_{tag}"] = plan.chunks, plan.chunk_atoms
+    del ops, spill, vectors
+    torch.cuda.empty_cache()
+
+
 def layer_case(A, M, D, H, F, gen, device):
     from metatrain_tpu_torch.ops.kernels.fused_layer import LayerWeights
 
@@ -469,6 +553,7 @@ def check_fused_layer(A, M, D, H, F, gen, device, report):
             3, report,
         )
         torch.cuda.empty_cache()
+        check_k2dw_entry(report["fused_layer_bwd_dw"], tag, e, c, cf, w, ge, gc, H, scale)
 
 
 def ptxas_usage(log: str, kernel: str):
@@ -681,6 +766,9 @@ def check_int8_layer(A, M, D, H, F, gen, device, report, tag=None):
             e, c, cf, w, ge, gc, H, scale, weight_grads=True, int8_scales=scales)),
         3, dw_report,
     )
+    torch.cuda.empty_cache()
+    check_k2dw_entry(dw_report["fused_layer_bwd_dw_int8"], "bf16", e, c, cf, w, ge, gc, H, scale,
+                     scales)
     results.update(dw_report)
     results["int8_absmax"]["scale_ulps_bf16"] = ulps
     for name, entry in results.items():
@@ -744,6 +832,23 @@ def plan_table():
                                lib.mtt_fused_layer_fwd_sm90_smem(M, D, heads, F)),
                               (_lib.k1_sm90_takes(torch.bfloat16, M, D, heads, F),
                                _lib.k1_sm90_smem(M, D, heads, F))))
+            # the two-pass K2-dW's rule (both dtypes, int8 scores or not), its
+            # chunk plan and its slices, C vs Python
+            for heads in (H, 2 * H):
+                for code, dt in ((0, torch.float32), (1, torch.bfloat16)):
+                    for i8 in (0, 1):
+                        pairs.append(((bool(lib.mtt_fused_layer_bwd_dw_sm90_ok(
+                            code, M, D, heads, F, i8)),),
+                            (_lib.k2dw_sm90_takes(dt, M, D, heads, F, bool(i8)),)))
+            for elem in (4, 2):
+                for atoms in (1, 7, 2048, 11392):
+                    out = (ctypes.c_longlong * 5)()
+                    lib.mtt_fused_layer_bwd_dw_sm90_plan(elem, atoms, M, D, F, 132, out)
+                    pairs.append((tuple(out), _lib.k2dw_plan(elem, atoms, M, D, F, 132)[:5]))
+            for rows in (M, 300 * M, 1140 * M):
+                out = (ctypes.c_longlong * 2)()
+                lib.mtt_layer_dw_slices(rows, D, F, 132, out)
+                pairs.append((tuple(out), _lib.k2dw_slices(rows, D, F, 132)))
             for c_side, py_side in pairs:
                 if tuple(c_side) != tuple(py_side):
                     fail(f"layout plan at M={M}, D={D}: C {c_side} != Python {py_side}")
@@ -1836,8 +1941,9 @@ def check_physics(device, report, workdir):
         torch.cuda.empty_cache()
         report[f"training_parity_{key}"] = check_training_parity(
             workdir / "cu_lj_charged.xyz", state, device, hypers,
-            expected=("fused_layer_fwd", "fused_layer_bwd_dw", "rowblock_fwd[compress]",
-                      "rowblock_bwd_dw[compress]"), replayed=("fused_layer",))
+            expected=("fused_layer_fwd", *K2DW, "rowblock_fwd[compress]",
+                      "rowblock_bwd_dw[compress]"), replayed=("fused_layer",),
+            absent=("fused_layer_bwd_dw",), per_step={k: K2DW_PER_STEP for k in K2DW})
         torch.cuda.empty_cache()
 
 
@@ -2030,7 +2136,8 @@ def check_generic_training(path, device):
     launches = report["launches"]
     # the general K1 and K3, K2-dW and K4-dW; a K3 head per target and at
     # least one K4-dW head per target
-    missing = [k for k in ("fused_layer_fwd", "fused_layer_bwd_dw", "rowblock_fwd[compress]",
+    check_k2dw_launches(launches, per_step=K2DW_PER_STEP)
+    missing = [k for k in ("fused_layer_fwd", "rowblock_fwd[compress]",
                            "rowblock_bwd_dw[compress]") if not launches.get(k)]
     if (missing or launches.get("rowblock_fwd[head]") != len(infos)
             or launches.get("rowblock_bwd_dw[head]", 0) < len(infos)):
@@ -2517,12 +2624,13 @@ def check_training(device, report, workdir):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches, replays = dict(_lib.LAUNCHES), dict(_lib.REPLAYS)
-    expected = ["fused_layer_fwd", "fused_layer_bwd_dw"] + [
+    expected = ["fused_layer_fwd", *K2DW] + [
         f"rowblock_{d}[{s}]" for d in ("fwd", "bwd_dw") for s in STAGE_NAMES
     ]
     missing = [k for k in expected if launches.get(k, 0) == 0]
     if missing:
         fail(f"kernels not launched in the training run: {missing}")
+    check_k2dw_launches(launches)
     no_replay = [k for k in ["fused_layer"] + [f"rowblock[{s}]" for s in STAGE_NAMES]
                  if replays.get(k, 0) == 0]
     if no_replay:
@@ -2579,10 +2687,12 @@ def training_setup(path, state, plain, device, samples, hypers=None, fused_gnn=F
 
 
 def check_training_parity(path, state, device, hypers=None, expected=(), replayed=(),
-                          fused_gnn=False, int8_scores=False, dtype=torch.float32, absent=()):
+                          fused_gnn=False, int8_scores=False, dtype=torch.float32, absent=(),
+                          per_step=None):
     """One step's loss and gradients: float32 kernel path vs plain path.
     Every counter starts at 0 before the kernel path's step; the kernels
-    ``expected`` must launch in it, those ``absent`` must not, and the ops
+    ``expected`` must launch in it (``per_step``: exactly so many times
+    each of those it names), those ``absent`` must not, and the ops
     ``replayed`` must run their second-order replay. In bfloat16 (``dtype``,
     always with ``int8_scores``, the dynamic int8 scores): gates of loss rel
     <= 2e-2 and global gradient rel L2 <= 0.1 (both paths round to bf16 at
@@ -2610,6 +2720,10 @@ def check_training_parity(path, state, device, hypers=None, expected=(), replaye
             ran = [k for k in absent if _lib.LAUNCHES.get(k, 0)]
             if ran:
                 fail(f"launched in the training step, expected never: {ran}")
+            wrong = {k: _lib.LAUNCHES.get(k, 0) for k, n in (per_step or {}).items()
+                     if _lib.LAUNCHES.get(k, 0) != n}
+            if wrong:
+                fail(f"launches in the training step {wrong}, expected {per_step}")
         results[key] = (loss.detach(), [g.detach() for g in grads],
                         [n for n, p in model.named_parameters() if p.requires_grad])
         del model, params, batch
@@ -2747,11 +2861,12 @@ def check_entry_points(device, report, workdir):
         torch.cuda.synchronize()
         out["train_s"] = time.perf_counter() - t0
         launches = dict(_lib.LAUNCHES)
-        expected = ["fused_layer_fwd", "fused_layer_bwd_dw"] + [
+        expected = ["fused_layer_fwd", *K2DW] + [
             f"rowblock_{d}[{s}]" for d in ("fwd", "bwd_dw") for s in STAGE_NAMES]
         missing = [k for k in expected if launches.get(k, 0) == 0]
         if missing:
             fail(f"kernels not launched by the train command: {missing}")
+        check_k2dw_launches(launches)
         out["train_launches"] = launches
         final = {split: logged_metrics(messages, split + " ") for split in ("train", "validation")}
         values = [v for metrics in final.values() for v in metrics.values()]
@@ -2926,7 +3041,7 @@ SOURCES = {
                      "metatrain_tpu/ops/pallas/rowblock.py:279"),
     "rowblock_bwd_sm90": ("metatrain_tpu_torch/csrc/rowblock_bwd_sm90.cu",
                           "metatrain_tpu/ops/pallas/rowblock.py:279 (exact bf16, d_part 128)"),
-    "fused_layer_bwd_dw": ("metatrain_tpu_torch/csrc/fused_layer_bwd.cu",
+    "fused_layer_bwd_dw": ("metatrain_tpu_torch/csrc/fused_layer_bwd_dw_sm90.cu",
                            "metatrain_tpu/ops/pallas/fused_layer.py:1269 (weight_grads=True)"),
     "rowblock_bwd_dw": ("metatrain_tpu_torch/csrc/rowblock_bwd.cu",
                         "metatrain_tpu/ops/pallas/rowblock.py:279 (weight_grads=True)"),
@@ -2954,7 +3069,7 @@ SOURCES = {
                              "metatrain_tpu/ops/pallas/fused_layer.py:1161 (int8 scores)"),
     "fused_layer_bwd_int8": ("metatrain_tpu_torch/csrc/fused_layer_bwd.cu",
                              "metatrain_tpu/ops/pallas/fused_layer.py:1269 (int8 scores)"),
-    "fused_layer_bwd_dw_int8": ("metatrain_tpu_torch/csrc/fused_layer_bwd.cu",
+    "fused_layer_bwd_dw_int8": ("metatrain_tpu_torch/csrc/fused_layer_bwd_dw_sm90.cu",
                                 "metatrain_tpu/ops/pallas/fused_layer.py:1269 "
                                 "(weight_grads=True, int8 scores)"),
 }
@@ -2971,10 +3086,13 @@ def launch_count(report, name):
     stage), the unfused force calls for the kernels
     that path added, the W8A8 force calls for the W8A8 kernels, the fused
     force calls for the rest; the int8 scores' from their force calls and
-    (K2-dW-int8) their training step."""
+    (K2-dW-int8) their training step. K2-dW and K2-dW-int8 count the
+    two-pass kernels' launches."""
     if name == "fused_layer_bwd_dw_int8":
-        source = report["training_parity_int8"]["launches"]
-    elif name.endswith("_int8") or name == "int8_absmax":
+        return report["training_parity_int8"]["launches"]["fused_layer_bwd_dw_int8_sm90"]
+    if name == "fused_layer_bwd_dw":
+        return report["train_launches"]["fused_layer_bwd_dw_sm90"]
+    if name.endswith("_int8") or name == "int8_absmax":
         source = report["slice_int8"]["launches"]
     elif name.endswith("_w8a8"):
         source = report["slice_w8a8"]["launches"]
@@ -3157,7 +3275,9 @@ def main() -> int:
         print("W8A8 at the trained weights:", json.dumps(report["w8a8_trained"]["parity"]),
               flush=True)
         torch.cuda.empty_cache()
-        report["training_parity"] = check_training_parity(workdir / "cu_lj.xyz", state, device)
+        report["training_parity"] = check_training_parity(
+            workdir / "cu_lj.xyz", state, device, expected=K2DW, absent=("fused_layer_bwd_dw",),
+            per_step={k: K2DW_PER_STEP for k in K2DW})
         print("training parity:", json.dumps(report["training_parity"]), flush=True)
         report["training_parity_unfused"] = check_training_parity(
             workdir / "cu_lj.xyz", random_state(UNFUSED), device, UNFUSED,
@@ -3172,8 +3292,9 @@ def main() -> int:
               flush=True)
         report["training_parity_int8"] = check_training_parity(
             workdir / "cu_lj.xyz", state, device,
-            expected=("int8_absmax", "fused_layer_fwd_int8", "fused_layer_bwd_dw_int8"),
-            replayed=("fused_layer",), int8_scores=True)
+            expected=("int8_absmax", "fused_layer_fwd_int8", *K2DW_INT8),
+            replayed=("fused_layer",), int8_scores=True, absent=("fused_layer_bwd_dw_int8",),
+            per_step={k: K2DW_PER_STEP for k in K2DW_INT8})
         print("training step, int8 scores (bf16):", json.dumps(report["training_parity_int8"]),
               flush=True)
         # the exact bf16 step: a weight requires grad, so the general K1
@@ -3181,10 +3302,12 @@ def main() -> int:
         # kernels, K4-dW for the row blocks
         report["training_parity_bf16"] = check_training_parity(
             workdir / "cu_lj.xyz", state, device,
-            expected=("fused_layer_fwd", "fused_layer_bwd_dw", "rowblock_bwd_dw[compress]",
+            expected=("fused_layer_fwd", *K2DW, "rowblock_bwd_dw[compress]",
                       "rowblock_bwd_dw[combination]"),
             replayed=("fused_layer",), dtype=torch.bfloat16,
-            absent=("fused_layer_fwd_sm90", "fused_layer_bwd_sm90", *ROWBLOCK_SM90_KERNELS))
+            absent=("fused_layer_fwd_sm90", "fused_layer_bwd_sm90", "fused_layer_bwd_dw",
+                    *ROWBLOCK_SM90_KERNELS),
+            per_step={k: K2DW_PER_STEP for k in K2DW})
         print("training step, exact bf16:", json.dumps(report["training_parity_bf16"]), flush=True)
         torch.cuda.empty_cache()
         time_training(workdir, state, device, report)
@@ -3275,6 +3398,12 @@ def main() -> int:
                 out[f"per_layer_ms{suffix}"] = entry[f"per_layer_ms_{tag}"]
             if f"general_ms_{tag}" in entry:  # the Hopper kernels' general bodies
                 out[f"general_ms{suffix}"] = entry[f"general_ms_{tag}"]
+            if f"workspace_bytes_{tag}" in entry:  # the two-pass K2-dW's spill
+                out[f"workspace_bytes{suffix}"] = entry[f"workspace_bytes_{tag}"]
+        if name.startswith("fused_layer_bwd_dw"):  # the two-pass K2-dW's second kernel
+            out["product_launches"] = (
+                report["training_parity_int8"]["launches"] if name.endswith("_int8")
+                else report["train_launches"])["layer_dw_product"]
         if "shapes" in entry:
             out["shapes"] = entry["shapes"]
         entries.append(out)

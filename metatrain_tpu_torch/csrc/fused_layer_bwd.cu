@@ -33,20 +33,29 @@
 // K2-dW adds the four X^T dY products (w_qkv, w_out, w_in, w_ffn_out: as
 // many FLOPs again as the forward's products), the bias column sums and
 // the two RMSNorm scale sums, and 661 KB of float gradients (D=128,
-// F=256) per atom to accumulate. One partial per atom would be ~7.5 GB,
-// and atomics would sum in an order that changes from run to run. So
-// K2-dW runs a fixed grid of one block per SM; each block walks a
-// contiguous range of atoms and adds each atom's products into its own
-// float partial in global memory (common.cuh accum_atb: every element
-// always updated by the same thread), and a second pass adds the partials
-// in block order: the same sum in every run. The products read operands
-// the backward already holds in shared memory: the attention output is
-// kept in the token buffer (free after the residual), the SwiGLU chunk
-// gets two more 16-row buffers (g_eo and the gated activation, so that
-// h_norm survives until d_vg exists; 231 KB at M=64), and the normed
-// tokens are recomputed at the end into the free scratch. The products
-// run on FMA register tiles in both dtypes; the partials' traffic
-// (2 x 661 KB per atom, mostly L2) is the price of determinism here.
+// F=256) per atom to accumulate. The shapes of mtt_fused_layer_bwd_dw_sm90_ok
+// (D 128 or 256, F % 128 == 0, float32 and bf16, the int8 scores too) run
+// the two-pass K2-dW of fused_layer_bwd_dw_sm90.cu instead (the body's
+// spill mode, then a split-K product in layer_dw_sm90.cuh); the
+// accumulate body below serves the other shapes, and any shape with
+// sm90=False. One partial per atom would be ~7.5 GB, and atomics would sum
+// in an order that changes from run to run. So the accumulate body runs a
+// fixed grid of one block per SM; each block walks a contiguous range of
+// atoms and adds each atom's products into its own float partial in
+// global memory (common.cuh accum_atb: every element always updated by
+// the same thread), and a second pass adds the partials in block order:
+// the same sum in every run. The products read operands the backward
+// already holds in shared memory: the attention output is kept in the
+// token buffer (free after the residual), the SwiGLU chunk gets two more
+// 16-row buffers (g_eo and the gated activation, so that h_norm survives
+// until d_vg exists; 231 KB at M=64), and the normed tokens are
+// recomputed at the end into the free scratch. The products run on FMA
+// register tiles 16 or M rows deep in both dtypes, and their traffic is
+// the partials': the SwiGLU's run once per 16-row chunk, so at M = 64 each
+// atom reads and writes w_in's and w_ffn_out's partials 4 times and w_qkv's
+// and w_out's once, ~460 K floats each way (~3.7 MB an atom, ~42 GB a
+// launch at A = 11,392); the 132 partials of 661 KB (87 MB) do not fit the
+// 50 MB L2, so that traffic goes to device memory (~12.5 ms at 3.35 TB/s).
 //
 // K2-W8A8 (mtt_fused_layer_bwd_w8a8, bfloat16 only) is K2 with the body's
 // W8 flag: the TPU kernel's `_bwd_kernel` with `calib`, input gradients by

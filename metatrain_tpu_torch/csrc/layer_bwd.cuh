@@ -9,6 +9,13 @@
 // gradient product takes the T weights and q, k rounded to T, as if the
 // quantizers were the identity. No weight gradients.
 //
+// SP = true (with DW) is K2-dW's spill mode (fused_layer_bwd_dw_sm90.cu):
+// instead of adding each atom's weight-gradient products into a block
+// partial, the body writes the products' operand rows to global memory
+// (DwSpill, in T, rounded where the plain version rounds them) and the
+// atom's norm-scale and bias sums to its own float row (DwLayout(D, F,
+// true)); a second pass forms the products. Its buffers are K2's.
+//
 // I8 = true is the backward of the dynamic int8 scores (layer_fwd.cuh),
 // as _layer_bwd_math with int8: the recompute quantizes each head's scores
 // with the same block scales as the forward, so it reproduces K1-int8's
@@ -61,23 +68,88 @@ struct AtomIO {
 };
 
 // Offsets of the weight gradients in a partial, in LayerWeights order
-// (all multiples of 4 floats: D % 4 == 0 and F % 4 == 0).
+// (all multiples of 4 floats: D % 4 == 0 and F % 4 == 0). With vectors,
+// the six vectors alone in the same order (the matrices take no room): the
+// per-atom row of the spill mode.
 struct DwLayout {
     long long norm_attn, w_qkv, b_qkv, w_out, b_out, norm_mlp, w_in, b_in, w_ffn_out, b_ffn_out, total;
-    __host__ __device__ DwLayout(int D, int F) {
+    __host__ __device__ DwLayout(int D, int F, bool vectors = false) {
+        const long long m = vectors ? 0 : 1;
         norm_attn = 0;
         w_qkv = norm_attn + D;
-        b_qkv = w_qkv + 3LL * D * D;
+        b_qkv = w_qkv + m * 3LL * D * D;
         w_out = b_qkv + 3 * D;
-        b_out = w_out + (long long)D * D;
+        b_out = w_out + m * D * D;
         norm_mlp = b_out + D;
         w_in = norm_mlp + D;
-        b_in = w_in + 2LL * D * F;
+        b_in = w_in + m * 2LL * D * F;
         w_ffn_out = b_in + 2 * F;
-        b_ffn_out = w_ffn_out + (long long)F * D;
+        b_ffn_out = w_ffn_out + m * F * D;
         total = b_ffn_out + D;
     }
 };
+
+// The spill mode's output for one chunk of atoms: R rows of operands in T,
+// seven (R, width) arrays one after another (the X and dY of dW = X^T dY
+// for w_qkv: n1 (D), d_qkv (3D); w_out: attn (D), d_attn_out (D, rounded);
+// w_in: h_norm (D), d_vg (2F); w_ffn_out: ffn_h (F), whose dY, g_eo, is
+// the cotangent itself), and one float row of vector sums per atom. The
+// body reads it through a pointer into the kernel's (grid-constant)
+// parameters, so that none of it stays in registers across the phases.
+enum DwArray { kDwN1, kDwQkv, kDwAttn, kDwDao, kDwHnorm, kDwVg, kDwFfnH };
+
+template <typename T>
+struct DwSpill {
+    T* rows;         // (R, 7D + 3F) as seven column blocks
+    float* vec;      // (atoms, DwLayout(D, F, true).total)
+    long long R;     // the rows the spill holds
+
+    // row r of array k (widths D, 3D, D, D, D, 2F, F)
+    __host__ __device__ __forceinline__ T* at(int k, long long r, int D, int F) const {
+        const int c0[7] = {0, D, 4 * D, 5 * D, 6 * D, 7 * D, 7 * D + 2 * F};
+        const int w[7] = {D, 3 * D, D, D, D, 2 * F, F};
+        return rows + R * c0[k] + r * w[k];
+    }
+};
+
+// Four values to d in T (4 T-aligned), marked evict-first: the spill is
+// read once, by the next pass, and must not push the weights the body
+// re-reads out of L2.
+template <typename T>
+__device__ __forceinline__ void spill4(T* d, float4 v) {
+    if constexpr (sizeof(T) == 4) {
+        __stcs(reinterpret_cast<float4*>(d), v);
+    } else {
+        __stcs(reinterpret_cast<uint2*>(d),
+               make_uint2(pack_bf16(make_float2(v.x, v.y)), pack_bf16(make_float2(v.z, v.w))));
+    }
+}
+
+// The spill mode's vector sums: P[j] = sum_{r < R} B[r, j] (first) or P[j]
+// += it, j < N; the old value is loaded before the sum, so its latency
+// hides behind it. Element j is always written by the same thread.
+__device__ __forceinline__ void vec_colsum(float* __restrict__ P, const float* __restrict__ B, int ldb, int R,
+                                           int N, bool first) {
+    for (int j = threadIdx.x; j < N; j += blockDim.x) {
+        const float old = first ? 0.f : P[j];
+        float s = 0.f;
+        for (int r = 0; r < R; ++r) s += B[(size_t)r * ldb + j];
+        P[j] = old + s;
+    }
+}
+
+// dst[r, c] = src[r, c] in T for r < rows, c < cols, four columns at a time
+// (the values already rounded to T where the plain version rounds them;
+// cols, ldd and lds multiples of 4, src 16-byte aligned, dst 4 T-aligned).
+template <typename T>
+__device__ __forceinline__ void spill_rows(T* __restrict__ dst, int ldd, const float* __restrict__ src,
+                                           int lds, int rows, int cols) {
+    const int q = cols / 4;
+    for (int i = threadIdx.x; i < rows * q; i += blockDim.x) {
+        const int r = i / q, c = 4 * (i - r * q);
+        spill4(dst + (size_t)r * ldd + c, *reinterpret_cast<const float4*>(src + (size_t)r * lds + c));
+    }
+}
 
 // Scratch: n1 / attn / d_attn_out (M x D), the SwiGLU row chunk (with
 // K2-dW's two extra row buffers), or one head's attention backward (E, T:
@@ -126,19 +198,38 @@ __device__ __forceinline__ float rms_bwd_sum(const float* x, const float* dy, fl
 }
 
 // One atom's backward; with DW, its weight gradients are added to the
-// block's partial P; with W8, the W8A8 layer's (s8: its int8 weights and
+// block's partial P (with SP, its operand rows go to atom j of the chunk's
+// spill `sp`, and its vector sums to the spill's row j, written whole; P
+// is not read); with W8, the W8A8 layer's (s8: its int8 weights and
 // scales); with I8, the dynamic int8 scores' (i8: the atom's scales).
-template <typename T, bool DW, bool W8 = false, bool I8 = false>
+template <typename T, bool DW, bool W8 = false, bool I8 = false, bool SP = false>
 __device__ __forceinline__ void layer_bwd_atom(const LayerBwdW<T>& p, const AtomIO<T>& io, int M, int D, int H,
                                int F, float scale, float eps, const BwdBufs& bufs, float* P,
-                               LayerI8 s8 = {}, ScoresI8 i8 = {}) {
+                               LayerI8 s8 = {}, ScoresI8 i8 = {}, const DwSpill<T>* sp = nullptr,
+                               int j = 0) {
     static_assert(!(DW && W8), "the W8A8 layer has no weight gradients");
     static_assert(!(W8 && I8), "one int8 variant at a time");
+    static_assert(!SP || DW, "the spill mode is a weight-gradient mode");
     constexpr bool Q8 = W8 || I8;  // int8 scores and the rounded softmax
+    constexpr bool ACC = DW && !SP;  // the products accumulate into P here
     const int hd = D / H;
     const int LQ = qkv_stride(D), LP = M + 1;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-    const DwLayout L(D, F);
+    const DwLayout L(D, F, SP);
+    // where the vector sums go (sums over all rows, or over each 16-row
+    // chunk in turn: the first call writes); the spill's rows of array k
+    auto vec = [&]() -> float* {
+        if constexpr (SP) return sp->vec + (long long)j * L.total;
+        return P;
+    };
+    auto colsum = [&](long long off, const float* B, int ldb, int R, int N, bool first) {
+        if constexpr (SP) {
+            vec_colsum(vec() + off, B, ldb, R, N, first);
+        } else {
+            accum_colsum(P + off, B, ldb, R, N);
+        }
+    };
+    auto rows = [&](int k, int r) -> T* { return sp->at(k, (long long)j * M + r, D, F); };
 
     float* X = bufs.X;      // tokens, later attn (DW), d_attn, d_n1
     float* QKV = bufs.QKV;  // q|k|v, then dq|dk|dv
@@ -166,6 +257,7 @@ __device__ __forceinline__ void layer_bwd_atom(const LayerBwdW<T>& p, const Atom
     // ---- forward recompute up to the residual ----------------------------
     rmsnorm_rows<T, !W8>(X, SCR, RS1, M, D, p.norm_attn, eps);
     __syncthreads();
+    if constexpr (SP) spill_rows(rows(kDwN1, 0), D, SCR, D, M, D);
     if constexpr (W8) {
         // q and k stay float until each head's scores are recomputed below
         block_mm_s8(SCR, D, M, D, s8.inv_normed, s8.w_qkv_t, 3 * D, [&](int m, int n, int acc) {
@@ -202,11 +294,12 @@ __device__ __forceinline__ void layer_bwd_atom(const LayerBwdW<T>& p, const Atom
                  [&](int q, int d, float o) { SCR[q * D + h * hd + d] = rnd<T>(o); });
         __syncthreads();
     }
+    if constexpr (SP) spill_rows(rows(kDwAttn, 0), D, SCR, D, M, D);
     block_mm<16>(SCR, D, M, D, p.w_out, D, D, [&](int m, int n, float acc) {
         RES[m * D + n] = rnd<T>(X[m * D + n] + rnd<T>(acc + to_f(p.b_out[n])));
     });
     __syncthreads();
-    if (DW) {
+    if (ACC) {
         // keep attn for w_out's gradient: the tokens are not read again
         for (int i = threadIdx.x; i < M * D; i += blockDim.x) X[i] = SCR[i];
         __syncthreads();
@@ -215,11 +308,12 @@ __device__ __forceinline__ void layer_bwd_atom(const LayerBwdW<T>& p, const Atom
     // ---- SwiGLU + norm_mlp backward, 16 rows at a time -> RES = d_res ------
     float* HN = SCR;                   // (16, D): h_norm (K2: then g_eo, d_h)
     float* VG = SCR + kRowChunk * D;   // (16, 2F): vg, then d_vg
-    float* GE = DW ? VG + kRowChunk * 2 * F : HN;  // (16, D): g_eo, then d_h
-    float* FH = GE + kRowChunk * D;    // DW: (16, F) ffn_h
+    float* GE = ACC ? VG + kRowChunk * 2 * F : HN;  // (16, D): g_eo, then d_h
+    float* FH = GE + kRowChunk * D;    // accumulate mode: (16, F) ffn_h
     for (int c0 = 0; c0 < M; c0 += kRowChunk) {
         rmsnorm_rows<T, !W8>(RES + c0 * D, HN, RS2 + c0, kRowChunk, D, p.norm_mlp, eps);
         __syncthreads();
+        if constexpr (SP) spill_rows(rows(kDwHnorm, c0), D, HN, D, kRowChunk, D);
         if constexpr (W8) {
             block_mm_s8(HN, D, kRowChunk, D, s8.inv_hnorm, s8.w_in_t, 2 * F, [&](int m, int n, int acc) {
                 VG[m * 2 * F + n] = dequant(acc, s8.deq_in, to_f(p.b_in[n]));
@@ -234,27 +328,32 @@ __device__ __forceinline__ void layer_bwd_atom(const LayerBwdW<T>& p, const Atom
             const int m = c0 + i / D;
             GE[i] = m == M - 1 ? 0.f : to_f(ge[(size_t)m * D + i % D]);
         }
-        if (DW) {
+        if constexpr (SP) {
+            for (int i = threadIdx.x; i < kRowChunk * F / 4; i += blockDim.x) {
+                const int m = 4 * i / F, j = 4 * i - m * F;
+                const float* v = VG + m * 2 * F + j;
+                spill4(rows(kDwFfnH, c0 + m) + j,
+                       make_float4(rnd<T>(v[0] * sigmoidf_(v[F])), rnd<T>(v[1] * sigmoidf_(v[F + 1])),
+                                   rnd<T>(v[2] * sigmoidf_(v[F + 2])), rnd<T>(v[3] * sigmoidf_(v[F + 3]))));
+            }
+        } else if (DW) {
             for (int i = threadIdx.x; i < kRowChunk * F; i += blockDim.x) {
                 const int m = i / F, j = i % F;
                 FH[i] = rnd<T>(VG[m * 2 * F + j] * sigmoidf_(VG[m * 2 * F + F + j]));
             }
         }
         __syncthreads();
-        if (DW) {
-            accum_atb<T, false>(P + L.w_ffn_out, D, FH, F, GE, D, kRowChunk, F, D);
-            accum_colsum(P + L.b_ffn_out, GE, D, kRowChunk, D);
-        }
+        if (ACC) accum_atb<T, false>(P + L.w_ffn_out, D, FH, F, GE, D, kRowChunk, F, D);
+        if (DW) colsum(L.b_ffn_out, GE, D, kRowChunk, D, c0 == 0);
         block_mm<16>(GE, D, kRowChunk, D, p.w_ffn_out_t, F, F, [&](int m, int j, float dfh) {
             const float v = VG[m * 2 * F + j], s = sigmoidf_(VG[m * 2 * F + F + j]);
             VG[m * 2 * F + j] = rnd<T>(dfh * s);
             VG[m * 2 * F + F + j] = rnd<T>(dfh * v * s * (1.f - s));
         });
         __syncthreads();
-        if (DW) {
-            accum_atb<T, false>(P + L.w_in, 2 * F, HN, D, VG, 2 * F, kRowChunk, D, 2 * F);
-            accum_colsum(P + L.b_in, VG, 2 * F, kRowChunk, 2 * F);
-        }
+        if (ACC) accum_atb<T, false>(P + L.w_in, 2 * F, HN, D, VG, 2 * F, kRowChunk, D, 2 * F);
+        if constexpr (SP) spill_rows(rows(kDwVg, c0), 2 * F, VG, 2 * F, kRowChunk, 2 * F);
+        if (DW) colsum(L.b_in, VG, 2 * F, kRowChunk, 2 * F, c0 == 0);
         block_mm<16>(VG, 2 * F, kRowChunk, 2 * F, p.w_in_t, D, D, [&](int m, int n, float acc) {
             GE[m * D + n] = acc;
         });
@@ -262,10 +361,12 @@ __device__ __forceinline__ void layer_bwd_atom(const LayerBwdW<T>& p, const Atom
         if (DW) {
             // norm_mlp: sum over rows of d_h * (x2 * r2), before RES turns into d_res
             for (int k = threadIdx.x; k < D; k += blockDim.x) {
+                float* v = vec() + L.norm_mlp + k;
+                const float old = SP && c0 == 0 ? 0.f : *v;
                 float s = 0.f;
                 for (int r = 0; r < kRowChunk; ++r)
                     s = fmaf(GE[r * D + k], RES[(c0 + r) * D + k] * RS2[c0 + r], s);
-                P[L.norm_mlp + k] += s;
+                *v = old + s;
             }
             __syncthreads();
         }
@@ -291,8 +392,12 @@ __device__ __forceinline__ void layer_bwd_atom(const LayerBwdW<T>& p, const Atom
     }
     __syncthreads();
     if (DW) {
-        accum_atb<T, false>(P + L.w_out, D, X, D, SCR, D, M, D, D);
-        accum_colsum(P + L.b_out, SCR, D, M, D);
+        if constexpr (SP) {
+            spill_rows(rows(kDwDao, 0), D, SCR, D, M, D);
+        } else {
+            accum_atb<T, false>(P + L.w_out, D, X, D, SCR, D, M, D, D);
+        }
+        colsum(L.b_out, SCR, D, M, D, true);
         __syncthreads();
     }
     float* DAT = X;
@@ -368,7 +473,14 @@ __device__ __forceinline__ void layer_bwd_atom(const LayerBwdW<T>& p, const Atom
     // ---- QKV + norm_attn backward -> d_tokens -----------------------------
     float* DN1 = X;
     block_mm<16>(QKV, LQ, M, 3 * D, p.w_qkv_t, D, D, [&](int m, int n, float acc) { DN1[m * D + n] = acc; });
-    if (DW) {
+    if constexpr (SP) {
+        // the tokens again, into the free scratch, for norm_attn's sum
+        for (int i = threadIdx.x; i < M * D; i += blockDim.x) {
+            const int m = i / D;
+            SCR[i] = m == M - 1 ? to_f(c_in[i % D]) : to_f(e[i]);
+        }
+    }
+    if (ACC) {
         // n1 again, as the forward's rmsnorm_rows rounded it
         for (int i = threadIdx.x; i < M * D; i += blockDim.x) {
             const int m = i / D, k = i % D;
@@ -378,16 +490,25 @@ __device__ __forceinline__ void layer_bwd_atom(const LayerBwdW<T>& p, const Atom
     }
     __syncthreads();
     if (DW) {
-        accum_atb<T, false>(P + L.w_qkv, 3 * D, SCR, D, QKV, LQ, M, D, 3 * D);
-        accum_colsum(P + L.b_qkv, QKV, LQ, M, 3 * D);
+        if constexpr (SP) {
+            spill_rows(rows(kDwQkv, 0), 3 * D, QKV, LQ, M, 3 * D);
+        } else {
+            accum_atb<T, false>(P + L.w_qkv, 3 * D, SCR, D, QKV, LQ, M, D, 3 * D);
+        }
+        colsum(L.b_qkv, QKV, LQ, M, 3 * D, true);
         // norm_attn: sum over rows of d_n1 * (x1 * r1)
         for (int k = threadIdx.x; k < D; k += blockDim.x) {
             float s = 0.f;
             for (int m = 0; m < M; ++m) {
-                const float x1 = m == M - 1 ? to_f(c_in[k]) : to_f(e[(size_t)m * D + k]);
+                const float x1 = SP ? SCR[m * D + k]
+                                    : m == M - 1 ? to_f(c_in[k]) : to_f(e[(size_t)m * D + k]);
                 s = fmaf(DN1[m * D + k], x1 * RS1[m], s);
             }
-            P[L.norm_attn + k] += s;
+            if constexpr (SP) {
+                vec()[L.norm_attn + k] = s;
+            } else {
+                P[L.norm_attn + k] += s;
+            }
         }
     }
     // the tokens are read again from global memory (same values as X held)

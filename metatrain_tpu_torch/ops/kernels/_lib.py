@@ -41,6 +41,7 @@ SOURCES = (
     "fused_layer_fwd_sm90.cu",
     "fused_layer_bwd.cu",
     "fused_layer_bwd_sm90.cu",
+    "fused_layer_bwd_dw_sm90.cu",
     "rowblock_fwd.cu",
     "rowblock_fwd_sm90.cu",
     "rowblock_bwd.cu",
@@ -74,6 +75,14 @@ _SIGNATURES = {
     "mtt_fused_layer_bwd": [_I] + [_P] * 22 + _LAYER_TAIL,
     "mtt_fused_layer_fwd_sm90": [_P] * 15 + [_L, _I, _I, _I, _I, _F, _F, _P],
     "mtt_fused_layer_bwd_sm90": [_P] * 20 + [_L, _I, _I, _I, _I, _F, _F, _P],
+    # dtype, 25 pointers (the inputs, 12 weights, int8 scales, cotangents,
+    # outputs, dw, spill, partials, workspace), A, M, D, H, F, scale, eps,
+    # workspace blocks, SMs, stream
+    "mtt_fused_layer_bwd_dw_sm90": [_I] + [_P] * 25 + [_L, _I, _I, _I, _I, _F, _F, _I, _I, _P],
+    "mtt_fused_layer_bwd_dw_sm90_ok": [_I] * 6,
+    "mtt_fused_layer_bwd_dw_sm90_plan": [_I, _L, _I, _I, _I, _I, _LP],
+    "mtt_layer_dw_slices": [_L, _I, _I, _I, _LP],
+    "mtt_layer_dw_product": [_I, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P],
     "mtt_fused_layer_fwd_w8a8": [_P] * 16 + [_FP, _P, _P, _L, _I, _I, _I, _I, _F, _I, _P, _P],
     "mtt_fused_layer_bwd_w8a8": [_P] * 17 + [_FP] + [_P] * 5 + _LAYER_TAIL,
     "mtt_fused_layer_fwd_int8": [_P] * 16 + _LAYER_TAIL,
@@ -183,12 +192,15 @@ def require(tensors: dict, device: torch.device, dtype: torch.dtype) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def dw_blocks(work_items: int, device: torch.device) -> int:
     """Blocks of a weight-gradient kernel: one per SM (one block fits an
     SM for shared memory), fewer when there are fewer work items. Fixed
     for a card and a shape, so the partial sums and their order are too."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(int(work_items), sms))
+    return max(1, min(int(work_items), sm_count(device)))
 
 
 def plan_query(fn, *args):
@@ -324,6 +336,97 @@ def k2_sm90_smem(M: int, D: int, H: int, F: int) -> int:
     ring = 3 * 128 * 64 * 2
     stats = 3 * rows + 3 * heads * rows + heads * 4 * rows + 4 * rows
     return tiles + ring + 4 * stats
+
+
+# ---- the two-pass K2-dW (csrc/fused_layer_bwd_dw_sm90.cu, layer_dw_sm90.cuh) --
+
+K2DW_SPILL_CAP = 512 << 20  # bytes of spill per chunk, at most (dwp::kSpillCap)
+DW_TILE = 128
+DW_STEP_ROWS = 64
+DW_MIN_SLICE_ROWS = 256
+
+
+def k2dw_sm90_takes(dtype: torch.dtype, M: int, D: int, H: int, F: int, int8: bool = False) -> bool:
+    """Whether ``fused_layer_bwd_cuda(..., weight_grads=True)`` launches the
+    two-pass K2-dW (its C query ``mtt_fused_layer_bwd_dw_sm90_ok``): float32
+    or bfloat16 (the int8 scores: bfloat16), the body's windows (M % 16 ==
+    0, 16 <= M <= 256, heads dividing D) and the products' 128-wide tiles
+    (D 128 or 256, F a multiple of 128). Other shapes keep the accumulate
+    body."""
+    dtypes = (torch.bfloat16,) if int8 else (torch.float32, torch.bfloat16)
+    return (dtype in dtypes and M % 16 == 0 and 16 <= M <= 256 and H > 0 and D % H == 0
+            and D % DW_TILE == 0 and 0 < D <= 256 and F > 0 and F % DW_TILE == 0)
+
+
+def dw_product_tiles(D: int, F: int) -> int:
+    """The 128 x 128 output tiles of the four products (w_qkv, w_out, w_in,
+    w_ffn_out)."""
+    nD = D // DW_TILE
+    return nD * 3 * nD + nD * nD + nD * (2 * F // DW_TILE) + (F // DW_TILE) * nD
+
+
+def dw_floats(D: int, F: int) -> int:
+    """The 10 weights' gradients of one layer (``DwLayout(D, F).total``)."""
+    return 4 * D * D + 3 * D * F + 7 * D + 2 * F
+
+
+def dw_vector_floats(D: int, F: int) -> int:
+    """The per-atom vector row: norm_attn, b_qkv, b_out, norm_mlp, b_in,
+    b_ffn_out."""
+    return 7 * D + 2 * F
+
+
+def dw_slice_target(R: int, D: int, F: int, sms: int) -> int:
+    s = 2 * sms // max(dw_product_tiles(D, F), 1)
+    return max(1, min(s, R // DW_MIN_SLICE_ROWS))
+
+
+def k2dw_slices(R: int, D: int, F: int, sms: int):
+    """``(step, slices)`` of a chunk of R rows (``mtt_layer_dw_slices``):
+    as many slices as fill two blocks per SM in one wave (2 SMs / tiles, at
+    least 1), fewer where one would hold under 256 rows, of ``step`` rows
+    each (a multiple of 64), the last one shorter."""
+    per_slice = -(-R // dw_slice_target(R, D, F, sms))
+    step = -(-per_slice // DW_STEP_ROWS) * DW_STEP_ROWS
+    return step, -(-R // step)
+
+
+class K2dwPlan(NamedTuple):
+    chunk_atoms: int   # atoms per chunk (the last one may hold fewer)
+    chunks: int
+    vec_offset: int    # bytes: the per-atom vector rows start here in the spill
+    spill_bytes: int   # the spill of one chunk: operand rows, then vector rows
+    max_slices: int    # rows of the partials
+    sms: int           # the card's SMs, which the slices depend on
+
+
+def k2dw_plan(elem_bytes: int, A: int, M: int, D: int, F: int, sms: int,
+              cap: int = K2DW_SPILL_CAP) -> K2dwPlan:
+    """The two-pass K2-dW's chunks (``mtt_fused_layer_bwd_dw_sm90_plan``):
+    as many atoms a chunk as keep the spill (7D + 3F values a row in the
+    compute dtype, ``elem_bytes`` each, and 7D + 2F floats an atom) under
+    ``cap`` bytes; where that is not all of them, a multiple of ``sms``
+    (whole waves of the first pass, one atom per SM), the last chunk
+    holding the rest."""
+    row_bytes = (7 * D + 3 * F) * elem_bytes
+    atom_bytes = M * row_bytes + dw_vector_floats(D, F) * 4
+    if A <= 0:
+        return K2dwPlan(0, 0, 0, 0, 0, sms)
+    per = max(cap // atom_bytes, 1)
+    if sms < per < A:
+        per = per // sms * sms
+    per = min(per, A)
+    chunks = -(-A // per)
+    vec_offset = -(-per * M * row_bytes // 256) * 256
+    return K2dwPlan(per, chunks, vec_offset, vec_offset + per * dw_vector_floats(D, F) * 4,
+                    dw_slice_target(per * M, D, F, sms), sms)
+
+
+def k2dw_chunks(plan: K2dwPlan, A: int):
+    """The chunks' atoms ``[(a0, a1), ...]``, in the order they run."""
+    return [(a0, min(a0 + plan.chunk_atoms, A)) for a0 in range(0, A, plan.chunk_atoms)] \
+        if plan.chunks else []
+
 
 
 # ---- the Hopper K4 (csrc/rowblock_bwd_sm90.cu) -------------------------------

@@ -52,6 +52,7 @@ for float64 inputs).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -426,6 +427,42 @@ def layer_bwd_math(
     quantizes the scores with the same scales, so its softmax is the
     forward's; the gradient products are K2-W8A8's, on the bf16 q and k.
     It is differentiable straight through (the second-order replay)."""
+    d_inputs, t = _layer_bwd(edges, center, cf, w, g_edge, g_center, num_heads, scale,
+                             weight_grads, w8a8, int8_scales)
+    if not weight_grads:
+        return d_inputs
+    A, M = edges.shape[:2]
+    acc = accumulation_dtype(edges.dtype)
+
+    def rows_t(a, b):
+        """a^T b over all A*M rows, operands in the compute dtype."""
+        return a.reshape(A * M, -1).to(acc).T @ b.reshape(A * M, -1).to(acc)
+
+    def colsum(x):
+        return x.reshape(A * M, -1).to(acc).sum(0)
+
+    dw = LayerWeights(
+        norm_attn=colsum(t["norm_attn"]),
+        w_qkv=rows_t(t["n1"], t["d_qkv"]),
+        b_qkv=colsum(t["d_qkv"]),
+        w_out=rows_t(t["attn"], t["d_attn_out"]),
+        b_out=colsum(t["d_attn_out"]),
+        norm_mlp=colsum(t["norm_mlp"]),
+        w_in=rows_t(t["h_norm"], t["d_vg"]),
+        b_in=colsum(t["d_vg"]),
+        w_ffn_out=rows_t(t["ffn_h"], t["g_eo"]),
+        b_ffn_out=colsum(t["g_eo"]),
+    )
+    return (*d_inputs, dw)
+
+
+def _layer_bwd(edges, center, cf, w: LayerWeights, g_edge, g_center, num_heads, scale,
+               weight_grads, w8a8, int8_scales):
+    """:func:`layer_bwd_math`'s input gradients and, with
+    ``weight_grads``, the rows its weight gradients sum: the products'
+    operands (n1, d_qkv, attn, d_attn_out, h_norm, d_vg, ffn_h, g_eo in the
+    compute dtype, as the products take them) and the norm scales' terms
+    (norm_attn, norm_mlp: (A, M, D), unrounded); else ``None``."""
     if w8a8 is not None and weight_grads:
         raise ValueError("the W8A8 layer is inference only: it has no weight gradients")
     A, M, D = edges.shape
@@ -494,30 +531,87 @@ def layer_bwd_math(
     d_tokens = d_res + gs1 - x1 * (r1 * r1 * torch.sum(gs1 * x1, dim=-1, keepdim=True) / D)
     d_inputs = (_zero_last_slot(d_tokens).to(cd), d_tokens[:, M - 1].to(cd), d_cf)
     if not weight_grads:
-        return d_inputs
+        return d_inputs, None
+    return d_inputs, {
+        "norm_attn": d_n1 * (x1 * r1), "n1": n1, "d_qkv": d_qkv, "attn": attn,
+        "d_attn_out": d_attn_out.to(cd), "norm_mlp": d_h * (x2 * r2), "h_norm": h_norm,
+        "d_vg": d_vg, "ffn_h": (value * sig).to(cd), "g_eo": g_eo,
+    }
 
-    def rows_t(a, b):
-        """a^T b over all A*M rows, operands in the compute dtype."""
-        return a.reshape(A * M, -1).to(acc).T @ b.reshape(A * M, -1).to(acc)
 
-    def colsum(x):
-        return x.reshape(A * M, -1).to(acc).sum(0)
+def dw_shapes(D: int, F: int):
+    """The shapes of the 10 weights (:class:`LayerWeights` order)."""
+    return ((D,), (D, 3 * D), (3 * D,), (D, D), (D,), (D,), (D, 2 * F), (2 * F,), (F, D), (D,))
 
-    d_attn_out_c = d_attn_out.to(cd)
-    ffn_h = (value * sig).to(cd)
-    dw = LayerWeights(
-        norm_attn=colsum(d_n1 * (x1 * r1)),
-        w_qkv=rows_t(n1, d_qkv),
-        b_qkv=colsum(d_qkv),
-        w_out=rows_t(attn, d_attn_out_c),
-        b_out=colsum(d_attn_out_c),
-        norm_mlp=colsum(d_h * (x2 * r2)),
-        w_in=rows_t(h_norm, d_vg),
-        b_in=colsum(d_vg),
-        w_ffn_out=rows_t(ffn_h, g_eo),
-        b_ffn_out=colsum(g_eo),
-    )
-    return (*d_inputs, dw)
+
+class DwOperands(NamedTuple):
+    """What the two-pass K2-dW's first pass writes: per row (A * M rows, the
+    compute dtype) the operands of dW = X^T dY, and per atom its vector sums
+    (A, 7D + 2F) in the accumulation dtype: norm_attn, b_qkv, b_out,
+    norm_mlp, b_in, b_ffn_out summed over the atom's rows."""
+
+    n1: torch.Tensor  # (A*M, D)
+    d_qkv: torch.Tensor  # (A*M, 3D)
+    attn: torch.Tensor  # (A*M, D)
+    d_attn_out: torch.Tensor  # (A*M, D)
+    h_norm: torch.Tensor  # (A*M, D)
+    d_vg: torch.Tensor  # (A*M, 2F)
+    ffn_h: torch.Tensor  # (A*M, F)
+    vectors: torch.Tensor  # (A, 7D + 2F)
+
+
+def layer_dw_operands(edges, center, cf, w: LayerWeights, g_edge, g_center, num_heads: int,
+                      scale: float, int8_scales=None) -> DwOperands:
+    """Plain version of the two-pass K2-dW's first pass: the rows it spills
+    and the per-atom vector sums (:class:`DwOperands`), from the same
+    backward as :func:`layer_bwd_math` (``int8_scales`` as it takes them).
+    :func:`dw_from_operands` sums them as the second pass does."""
+    A, M = edges.shape[:2]
+    acc = accumulation_dtype(edges.dtype)
+    _, t = _layer_bwd(edges, center, cf, w, g_edge, g_center, num_heads, scale, True, None,
+                      int8_scales)
+
+    def per_atom(x):
+        return x.reshape(A, M, -1).to(acc).sum(1)
+
+    vectors = torch.cat([per_atom(t[k]) for k in (
+        "norm_attn", "d_qkv", "d_attn_out", "norm_mlp", "d_vg", "g_eo")], dim=1)
+    return DwOperands(*(t[k].reshape(A * M, -1) for k in (
+        "n1", "d_qkv", "attn", "d_attn_out", "h_norm", "d_vg", "ffn_h")), vectors)
+
+
+def dw_from_operands(ops: DwOperands, g_edge, plan: "_lib.K2dwPlan") -> LayerWeights:
+    """Plain version of the two-pass K2-dW's second pass: the weight
+    gradients (the accumulation dtype) of the rows of ``ops`` (A atoms of
+    ``g_edge``'s M slots; the cotangent of w_ffn_out's product is ``g_edge``
+    with slot M-1 zeroed), summed in the kernel's order: per chunk of
+    ``plan`` (:func:`_lib.k2dw_plan`) and per slice of it
+    (:func:`_lib.k2dw_slices`) a partial, the slices added in order, then
+    the chunks in order."""
+    A, M, D = g_edge.shape
+    F = ops.ffn_h.shape[1]
+    acc = ops.vectors.dtype
+    g_eo = _zero_last_slot(g_edge.to(ops.n1.dtype)).reshape(A * M, D)
+    pairs = ((ops.n1, ops.d_qkv), (ops.attn, ops.d_attn_out), (ops.h_norm, ops.d_vg),
+             (ops.ffn_h, g_eo))
+    sizes = [D, 3 * D, D, D, 2 * F, D]  # the vectors' widths
+    total = None
+    for a0, a1 in _lib.k2dw_chunks(plan, A):
+        rows = (a1 - a0) * M
+        step, slices = _lib.k2dw_slices(rows, D, F, plan.sms)
+        chunk = None
+        for s in range(slices):
+            r0, r1 = a0 * M + s * step, a0 * M + min(rows, (s + 1) * step)
+            b0, b1 = a0 + (a1 - a0) * s // slices, a0 + (a1 - a0) * (s + 1) // slices
+            mats = [x[r0:r1].to(acc).T @ y[r0:r1].to(acc) for x, y in pairs]
+            vec = torch.split(ops.vectors[b0:b1].sum(0), sizes)
+            part = (vec[0], mats[0], vec[1], mats[1], vec[2], vec[3], mats[2], vec[4], mats[3],
+                    vec[5])
+            chunk = part if chunk is None else tuple(c + p for c, p in zip(chunk, part))
+        total = chunk if total is None else tuple(t + c for t, c in zip(total, chunk))
+    if total is None:  # no atoms
+        return LayerWeights(*(torch.zeros(n, dtype=acc) for n in dw_shapes(D, F)))
+    return LayerWeights(*total)
 
 
 # ---------------------------------------------------------------------------
@@ -751,9 +845,16 @@ def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, n
 
     With ``weight_grads=True`` launch K2-dW instead, which also returns the
     float32 weight gradients summed over atoms as a fourth output
-    (:class:`LayerWeights`). K2-dW runs one block per SM over a contiguous
-    range of atoms, each block summing into its own float32 partial; a
-    second pass adds the partials in block order, so the sum is the same
+    (:class:`LayerWeights`). At the shapes of :func:`_lib.k2dw_sm90_takes`
+    (float32 or bfloat16, with or without ``int8_scales``) that is the
+    two-pass K2-dW (``csrc/fused_layer_bwd_dw_sm90.cu``, counters
+    ``fused_layer_bwd_dw_sm90`` or ``fused_layer_bwd_dw_int8_sm90``, and
+    ``layer_dw_product``): the body spills each row's weight-gradient
+    operands, then a split-K product sums them (:func:`layer_dw_operands`
+    and :func:`dw_from_operands` are its plain halves). Elsewhere, or with
+    ``sm90=False``, the accumulate body: one block per SM over a contiguous
+    range of atoms, each block summing into its own float32 partial, a
+    second pass adding the partials in block order. Either sum is the same
     from run to run."""
     A, M, D, F = _check_shapes(edges, center, cf, w, num_heads)
     cd = edges.dtype
@@ -774,6 +875,9 @@ def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, n
     if sm90 and _lib.k2_sm90_takes(cd, M, D, num_heads, F, weight_grads, w8a8 is not None,
                                    int8_scales is not None):
         return _k2_sm90(edges, center, cf, wc, g_edge, g_center, num_heads, scale)
+    if sm90 and weight_grads and _lib.k2dw_sm90_takes(cd, M, D, num_heads, F,
+                                                      int8_scales is not None):
+        return _k2dw_sm90(edges, center, cf, wc, g_edge, g_center, num_heads, scale, int8_scales)
     transposed = [x.t().contiguous() for x in (wc.w_qkv, wc.w_out, wc.w_in, wc.w_ffn_out)]
     lib = _lib.library()
     dw_flag = int(weight_grads)
@@ -842,6 +946,108 @@ def _k2_sm90(edges, center, cf, wc: LayerWeights, g_edge, g_center, num_heads, s
     )
     _lib.LAUNCHES["fused_layer_bwd_sm90"] += 1
     return d_edges, d_center, d_cf
+
+
+def _k2dw_sm90(edges, center, cf, wc: LayerWeights, g_edge, g_center, num_heads, scale,
+               int8_scales=None):
+    """The two-pass K2-dW on checked tensors (``wc`` in the compute dtype):
+    per chunk of :func:`_lib.k2dw_plan`, the body on K2's grid and layout
+    plan, then the split-K product."""
+    A, M, D = edges.shape
+    F = wc.w_ffn_out.shape[0]
+    cd = edges.dtype
+    device = edges.device
+    plan, ws_floats, ws_blocks = _k2dw_plan(edges, num_heads, F, int8_scales is not None)
+    ws = _lib.workspace(ws_blocks, ws_floats, device)
+    spill = torch.empty(plan.spill_bytes, dtype=torch.uint8, device=device)
+    sizes = [x.numel() for x in wc]
+    partials = torch.empty((max(plan.max_slices, 1), sum(sizes)), dtype=torch.float32,
+                           device=device)
+    dw = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    transposed = [x.t().contiguous() for x in (wc.w_qkv, wc.w_out, wc.w_in, wc.w_ffn_out)]
+    d_edges = torch.empty_like(edges)
+    d_center = torch.empty_like(center)
+    d_cf = torch.empty_like(cf)
+    lib = _lib.library()
+    _lib.check(
+        lib.mtt_fused_layer_bwd_dw_sm90(
+            _lib.dtype_code(cd), edges.data_ptr(), center.data_ptr(), cf.data_ptr(),
+            *(x.data_ptr() for x in wc[:8]), *(x.data_ptr() for x in transposed),
+            _lib.ptr(int8_scales), g_edge.data_ptr(), g_center.data_ptr(), d_edges.data_ptr(),
+            d_center.data_ptr(), d_cf.data_ptr(), dw.data_ptr(), spill.data_ptr(),
+            partials.data_ptr(), _lib.ptr(ws), A, M, D, num_heads, F, float(scale),
+            rmsnorm_eps(cd), ws_blocks, plan.sms, _lib.stream_ptr(device)),
+        "fused_layer_bwd_dw_sm90",
+    )
+    _lib.LAUNCHES["fused_layer_bwd_dw_sm90" if int8_scales is None
+                  else "fused_layer_bwd_dw_int8_sm90"] += 1
+    _lib.LAUNCHES["layer_dw_product"] += 1
+    parts = torch.split(dw, sizes)
+    return d_edges, d_center, d_cf, LayerWeights(*(p.view(x.shape) for p, x in zip(parts, wc)))
+
+
+def _k2dw_plan(edges, num_heads: int, F: int, int8: bool):
+    """``(plan, workspace floats per block, workspace blocks)`` of the
+    two-pass K2-dW on these edges: its chunks and K2's layout plan (the C
+    query) for the first pass."""
+    A, M, D = edges.shape
+    lib = _lib.library()
+    query = lib.mtt_fused_layer_bwd_int8_smem if int8 else lib.mtt_fused_layer_bwd_smem
+    _, ws_floats = _lib.plan_query(query, M, D, num_heads, F, 0)
+    plan = _lib.k2dw_plan(edges.element_size(), A, M, D, F, _lib.sm_count(edges.device))
+    return plan, ws_floats, _lib.layer_grid(plan.chunk_atoms, ws_floats, edges.device)
+
+
+def k2dw_workspace_bytes(edges, num_heads: int, F: int, int8: bool = False) -> int:
+    """The device bytes the two-pass K2-dW allocates for one call besides its
+    outputs: the spill of one chunk, the slices' partials and, where the
+    body's plan moves buffers out of shared memory, its workspace."""
+    plan, ws_floats, ws_blocks = _k2dw_plan(edges, num_heads, F, int8)
+    D = edges.shape[2]
+    return (plan.spill_bytes + 4 * max(plan.max_slices, 1) * _lib.dw_floats(D, F)
+            + 4 * ws_blocks * ws_floats)
+
+
+def pack_dw_operands(ops: DwOperands):
+    """``(spill, vectors)``: the rows of ``ops`` as the first pass spills one
+    chunk (the seven arrays one after another, flat, in the compute dtype)
+    and the per-atom vector rows in float32, both contiguous."""
+    spill = torch.cat([x.reshape(-1) for x in ops[:7]]).to(ops.n1.dtype).contiguous()
+    return spill, ops.vectors.to(torch.float32).contiguous()
+
+
+def layer_dw_product_cuda(spill, vectors, g_edge, sms: int = None) -> LayerWeights:
+    """The two-pass K2-dW's second pass alone (``mtt_layer_dw_product``) on
+    one chunk of rows (:func:`pack_dw_operands`; ``g_edge`` its atoms'
+    cotangent): float32 weight gradients, the plain version
+    :func:`dw_from_operands` with a one-chunk plan. For checks on the card;
+    the training path runs it inside :func:`_k2dw_sm90`."""
+    A, M, D = g_edge.shape
+    F = (vectors.shape[1] - 7 * D) // 2
+    cd = spill.dtype
+    device = g_edge.device
+    ge = g_edge.to(cd).contiguous()
+    _lib.require({"spill": spill, "g_edge": ge}, device, cd)
+    _lib.require({"vectors": vectors}, device, torch.float32)
+    if spill.numel() != A * M * (7 * D + 3 * F) or vectors.shape[0] != A:
+        raise ValueError(f"spill {tuple(spill.shape)} / vectors {tuple(vectors.shape)} do not "
+                         f"match g_edge {tuple(g_edge.shape)}")
+    sms = sms or _lib.sm_count(device)
+    n = _lib.dw_floats(D, F)
+    partials = torch.empty((_lib.dw_slice_target(A * M, D, F, sms), n), dtype=torch.float32,
+                           device=device)
+    dw = torch.empty(n, dtype=torch.float32, device=device)
+    lib = _lib.library()
+    _lib.check(
+        lib.mtt_layer_dw_product(_lib.dtype_code(cd), spill.data_ptr(), vectors.data_ptr(),
+                                 ge.data_ptr(), A, M, D, F, sms, partials.data_ptr(),
+                                 dw.data_ptr(), _lib.stream_ptr(device)),
+        "layer_dw_product",
+    )
+    _lib.LAUNCHES["layer_dw_product"] += 1
+    shapes = dw_shapes(D, F)
+    return LayerWeights(*(p.view(s) for p, s in zip(
+        torch.split(dw, [math.prod(s) for s in shapes]), shapes)))
 
 
 def _first_backward(edges, center, cf, w, g_edge, g_center, num_heads, scale, weight_grads,

@@ -72,11 +72,11 @@ K1_HOPPER = (
 K1_HOPPER_PHASES = ["norm, QKV", "attention", "out-projection, h_norm", "SwiGLU tiles", "edge_out"]
 GENERAL = (
     ('#include "common.cuh"\n', False, STAMP),
-    ("    const DwLayout L(D, F);\n", False, "    long long t_prev = clock64();\n"),
+    ("    const DwLayout L(D, F, SP);\n", False, "    long long t_prev = clock64();\n"),
     ("            QKV[m * LQ + n] = rnd<T>(acc + to_f(p.b_qkv[n]));\n        });\n    }\n"
      "    __syncthreads();\n", False, None),
     ("    block_mm<16>(SCR, D, M, D, p.w_out, D, D,", True, None),
-    ("    if (DW) {\n        // keep attn", True, None),
+    ("    if (ACC) {\n        // keep attn", True, None),
     ("    // ---- out-projection backward", True, None),
     ("    block_mm<16>(SCR, D, M, D, p.w_out_t, D, D, [&](int m, int n, float acc) "
      "{ DAT[m * D + n] = acc; });\n    __syncthreads();\n", False, None),
