@@ -18,7 +18,9 @@ device and exits non-zero without one. Phases (any failure propagates):
    combination 2 times per call each and for the head once each, the
    general K3 and K4 never, the permute and the accumulate permute) must
    have launched in them; the pair searches must have run in the native
-   neighbor library. Energy, forces and virial must be finite; the bf16
+   neighbor library. One call of the f32 kernel path, every counter at 0
+   just before it, must launch the Hopper float32 K2 of
+   ``csrc/fused_layer_bwd_f32_sm90.cu`` 4 times and the general K2 never. Energy, forces and virial must be finite; the bf16
    kernel path must match the f32 plain path (energy rel <= 1 %, force
    rel-RMSE <= 5 %, or 1.25 x the bf16 plain path's own error where that
    is larger) and the f32 kernel path the f32 plain path (energy rel <=
@@ -120,7 +122,9 @@ device and exits non-zero without one. Phases (any failure propagates):
    ``train_model`` at the PET defaults in float32 (batch 2, 2 epochs,
    validation 0.25, forces weight 10). Every counter starts at 0 just
    before it; K1, K3, K2-dW and K4-dW (all three stages) must launch in it
-   (K2-dW: the two-pass kernels, ``K2DW``, and never the accumulate body)
+   (K2-dW: the two-pass kernels with the Hopper float32 K2's spill mode as
+   first pass, ``K2DW_F32``, and never the accumulate body or the general
+   body's first pass)
    and the second-order replays must run; every logged loss must be
    finite; ``model.ckpt`` must reload into a PET that gives the trained
    model's energy. Then W8A8 at the trained weights: ``model.ckpt``
@@ -135,27 +139,30 @@ device and exits non-zero without one. Phases (any failure propagates):
    block's forward and weight-gradient kernels and replay the block's
    backward): loss rel <= 1e-5, global gradient rel L2 <= 1e-4, each
    parameter tensor rel L2 <= 1e-3; the fused step must launch the
-   two-pass K2-dW's kernels 8 times each (4 layers, in the forces'
-   backward and in the loss's) and the accumulate body never. Then one
+   two-pass K2-dW's kernels (``K2DW_F32``) 8 times each (4 layers, in the
+   forces' backward and in the loss's) and the accumulate body and the
+   general body's first pass never. Then one
    bfloat16 step with the int8 scores (the trained model), kernel vs plain
    path: the absmax pass, K1-int8 and the two-pass K2-dW-int8 (8 each) must
    launch, the accumulate K2-dW-int8 never, and the layer's replay run;
    loss rel <= 2e-2, global gradient rel L2 <= 0.1, finite gradients. Then
    one exact bfloat16 step (the trained model), kernel vs plain path, with
    the same gates: a weight requires grad, so the general K1, the two-pass
-   K2-dW (8 each) and K4-dW must launch and the Hopper K1, K2, K3 and K4
-   and the accumulate K2-dW never. Phases 3b and 3c's f32 steps hold the
-   same K2-dW counts.
+   K2-dW (8 each; its first pass the general body, ``K2DW``) and K4-dW must
+   launch and the Hopper K1, K2, K3 and K4 and the accumulate K2-dW never.
+   Phases 3b and 3c's f32 steps hold the f32 step's K2-dW counts.
 7. training timing: ms per step and atom-steps/s (host clock around
    synchronised steps after a warm-up step) with the peak device memory,
    for the kernel, plain and GNN-block paths on the 2 x 2,048-atom batch
    (the kernel paths with a torch.profiler breakdown of one step) and for
-   the kernel path on the 10,976-atom crystal as a batch of one.
+   the kernel path on the 10,976-atom crystal as a batch of one; the timed
+   steps of the (non-block) kernel paths must launch ``K2DW_F32`` 8 times a
+   step each, the general first pass and the accumulate body never.
 7b. user entry points, ``metatrain_tpu_torch.__main__.main`` called in
    this process from a temporary directory: ``train`` on phase 5's frames
    (options written as JSON, 1 epoch, float32; every counter starts at 0
-   just before it: K1, K3, the two-pass K2-dW and K4-dW must launch, the
-   accumulate K2-dW never; the final
+   just before it: K1, K3, the two-pass K2-dW (``K2DW_F32``) and K4-dW must
+   launch, the accumulate K2-dW and the general first pass never; the final
    evaluation's logged train and validation metrics must be finite);
    ``export`` of its ``model.ckpt`` (the exported and the trained
    ``model.mtt``'s weights must equal the checkpoint's best weights bit for
@@ -194,7 +201,10 @@ device and exits non-zero without one. Phases (any failure propagates):
    and sums run in another order). The permutes must equal index_select
    (+ add) bit for bit. K2-dW and K2-dW-int8 are the two-pass kernels
    (``csrc/fused_layer_bwd_dw_sm90.cu``): their input gradients must equal
-   the accumulate body's (``sm90=False``) bit for bit, that body is timed
+   those of the body their first pass runs, bit for bit (float32 at the
+   served shape: the Hopper float32 K2's, the accumulate body then held to
+   the float32 bound of the plain version; else the accumulate body's,
+   ``sm90=False``), that body is timed
    beside them (``general_ms``), the bytes of their spill, partials and
    workspace are reported (``workspace_bytes``), and their second pass
    alone (``layer_dw_product_cuda``) on one chunk's rows is held to
@@ -217,7 +227,16 @@ device and exits non-zero without one. Phases (any failure propagates):
    (``sm90=False``) is held to the same twin and timed beside it
    (``general_ms``), its ``-Xptxas -v`` registers and spills are
    reported; the same at M = 64, 48, 16 (A = 11,000) and M = 32 (A =
-   1,000) under ``shapes``. K1 in bf16 at those shapes is the Hopper K1,
+   1,000) under ``shapes``. K2 in float32 at those shapes is the Hopper
+   float32 K2, an entry of its own (``fused_layer_bwd_f32_sm90``): max
+   |kernel - plain| <= 1e-4 max |plain|, all three outputs bitwise equal
+   across two launches, the general body (``sm90=False``) held to the same
+   bound and timed beside it (``general_ms``), its ``-Xptxas -v``
+   registers and spills and its shared bytes per block, its bound at the
+   3xTF32 tensor-core peak (495 / 3 TFLOP/s, ``bound_ms``) and on the FFMA
+   pipes (``bound_ms_ffma``), with the same shapes; the entry of K2
+   (``fused_layer_bwd``) keeps the general body in float32. K1 in bf16 at
+   those shapes is the Hopper K1,
    an entry of its own (``fused_layer_fwd_sm90``) with the same checks
    (both outputs bitwise equal across two launches); the entry of K1
    (``fused_layer_fwd``) keeps the general body, in bf16 with
@@ -247,14 +266,15 @@ device and exits non-zero without one. Phases (any failure propagates):
 9. shapes: the C side's layout plans (shared bytes, workspace floats, row
    tiles) and the Hopper K1's, K2's, K3's and K4's dispatch rules and budgets,
    and the two-pass K2-dW's rule, chunk plan and slices, equal
-   ``_lib``'s Python ones for M = 16..256 and D of 64 to 256;
+   ``_lib``'s Python ones (the Hopper float32 K2's too) for M = 16..256 and
+   D of 64 to 256;
    K1, K2, K2-dW, the block's three kernels and, in bf16, K1-W8A8 and
    K2-W8A8 vs plain at M = 80, 96, 128 (D 128) and M = 64, 128 (D 256), A =
    256; K3, K4 and K4-dW at D = 256; the attention pair, K1, K2, K2-dW (and
    W8A8) at head widths 8, 12, 24 and 64; the bounds of phase 8, times under
    each entry's ``shapes``.
 
-The second-to-last line is a JSON object with one entry per kernel (32);
+The second-to-last line is a JSON object with one entry per kernel (33);
 the last line is ``{"ok": true, "device": {...}}``. Details also go to
 ``chiprun_out/chip_smoke.json``, the compiler's ``-Xptxas -v`` output to
 ``chiprun_out/chip_smoke_build.log``.
@@ -281,17 +301,25 @@ STAGE_NAMES = ("compress", "combination", "head")
 # the training paths no longer launch
 K2DW = ("fused_layer_bwd_dw_sm90", "layer_dw_product")
 K2DW_INT8 = ("fused_layer_bwd_dw_int8_sm90", "layer_dw_product")
+# in float32 at the served shapes (M <= 64, D = 128) the first pass is the
+# Hopper float32 K2's spill mode
+K2DW_F32 = ("fused_layer_bwd_dw_f32_sm90", "layer_dw_product")
 K2DW_PER_STEP = 8
+# what a float32 step at those shapes never launches: the accumulate body
+# and the general body's first pass
+K2DW_F32_NEVER = ("fused_layer_bwd_dw", "fused_layer_bwd_dw_sm90")
 
 
-def check_k2dw_launches(launches, kernels=K2DW, accumulate="fused_layer_bwd_dw", per_step=None):
+def check_k2dw_launches(launches, kernels=K2DW_F32, never=K2DW_F32_NEVER, per_step=None):
     """The two-pass K2-dW's kernels launched (``per_step`` times each where
-    given) and the accumulate body never."""
+    given) and those of ``never`` (the accumulate body; in float32 also the
+    general body's first pass) not at all."""
     counts = {k: launches.get(k, 0) for k in kernels}
-    if (not all(counts.values()) or launches.get(accumulate, 0)
+    ran = {k: launches[k] for k in never if launches.get(k, 0)}
+    if (not all(counts.values()) or ran
             or (per_step is not None and set(counts.values()) != {per_step})):
-        fail(f"K2-dW launches {counts}, the accumulate body {launches.get(accumulate, 0)}: "
-             f"expected {per_step or 'some'} each and 0")
+        fail(f"K2-dW launches {counts}, {ran}: expected {per_step or 'some'} each and none of "
+             f"{never}")
 
 
 def fail(message: str):
@@ -367,14 +395,18 @@ def compare_dw(kernel_dw, plain_dw, dtype):
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_INT8_OPS_PER_S = 1979e12
+# float32 products on the TF32 tensor cores as three products each (3xTF32:
+# a_hi b_hi + a_hi b_lo + a_lo b_hi), 495 TFLOP/s dense TF32
+PEAK_3XTF32_OPS_PER_S = 495e12 / 3
 
 
-def record_bound(entry, tag, nbytes, flops, dtype, int8_ops=0):
+def record_bound(entry, tag, nbytes, flops, dtype, int8_ops=0, peak=None):
     """The least time the card could take for ``nbytes`` moved and
-    ``flops`` (in ``dtype``) plus ``int8_ops`` done: the larger of the
-    bytes' time and the operations' time over their peaks."""
+    ``flops`` (in ``dtype``, or at ``peak`` operations a second) plus
+    ``int8_ops`` done: the larger of the bytes' time and the operations'
+    time over their peaks."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (flops / PEAK_OPS_PER_S[dtype] + int8_ops / PEAK_INT8_OPS_PER_S) * 1e3
+    t_ops = (flops / (peak or PEAK_OPS_PER_S[dtype]) + int8_ops / PEAK_INT8_OPS_PER_S) * 1e3
     entry[f"bound_ms_{tag}"] = max(t_bytes, t_ops)
     entry[f"bound_by_{tag}"] = "bytes" if t_bytes >= t_ops else "operations"
 
@@ -400,20 +432,23 @@ def check_dw(name, tag, dtype, k_fn, p_fn, n_inputs, report):
 
 def check_k2dw_entry(entry, tag, e, c, cf, w, ge, gc, H, scale, int8_scales=None):
     """The two-pass K2-dW's extras at one shape into ``entry``: the rule's
-    kernels ran, its input gradients equal the accumulate body's
-    (``sm90=False``) bit for bit, that body's weight gradients within the
-    weight-gradient bounds of its own and its time (``general_ms``); the
-    bytes of its spill, partials and workspace; and its second pass alone
-    (``layer_dw_product_cuda``) on one chunk of rows against
-    ``dw_from_operands`` at the same bounds, both timed (``product_ms``,
-    ``product_plain_ms``, per chunk of ``chunk_atoms``)."""
+    kernels ran; its input gradients equal, bit for bit, those of the body
+    its first pass runs: the Hopper float32 K2's (float32 at its shapes;
+    the accumulate body, ``sm90=False``, then within the float32 bound of
+    ``layer_bwd_math``) or the accumulate body's; that body's weight
+    gradients within the weight-gradient bounds of its own and its time
+    (``general_ms``); the bytes of its spill, partials and workspace; and
+    its second pass alone (``layer_dw_product_cuda``) on one chunk of rows
+    against ``dw_from_operands`` at the same bounds, both timed
+    (``product_ms``, ``product_plain_ms``, per chunk of ``chunk_atoms``)."""
     from metatrain_tpu_torch.ops.kernels import _lib
     from metatrain_tpu_torch.ops.kernels import fused_layer as fl
 
     A, M, D = e.shape
     F = w.w_ffn_out.shape[0]
     kw = dict(weight_grads=True, int8_scales=int8_scales)
-    counter = K2DW[0] if int8_scales is None else K2DW_INT8[0]
+    hopper_f32 = int8_scales is None and _lib.k2_f32_sm90_takes(e.dtype, M, D, H, F, True)
+    counter = K2DW_INT8[0] if int8_scales is not None else K2DW_F32[0] if hopper_f32 else K2DW[0]
     before = _lib.LAUNCHES[counter]
     k_out = fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, **kw)
     ran = _lib.LAUNCHES[counter] > before
@@ -423,9 +458,19 @@ def check_k2dw_entry(entry, tag, e, c, cf, w, ge, gc, H, scale, int8_scales=None
     general = lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, sm90=False, **kw)  # noqa: E731
     g_out = general()
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(k_out[:3], g_out[:3])):
-        fail("the two-pass K2-dW's input gradients differ from the accumulate body's")
-    entry[f"inputs_equal_general_{tag}"] = True
+    if hopper_f32:
+        same = fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(k_out[:3], same)):
+            fail("the two-pass K2-dW's input gradients differ from the Hopper float32 K2's")
+        entry[f"inputs_equal_hopper_f32_k2_{tag}"] = True
+        entry[f"general_inputs_bound_ratio_{tag}"] = compare(
+            g_out[:3], fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale), e.dtype)[1]
+        del same
+    else:
+        if not all(torch.equal(a, b) for a, b in zip(k_out[:3], g_out[:3])):
+            fail("the two-pass K2-dW's input gradients differ from the accumulate body's")
+        entry[f"inputs_equal_general_{tag}"] = True
     entry[f"general_dw_vs_two_pass_ratio_{tag}"] = compare_dw(g_out[3], k_out[3], e.dtype)[1]
     del k_out, g_out
     entry[f"general_ms_{tag}"] = cuda_ms(general, 3)
@@ -482,8 +527,11 @@ def check_fused_layer(A, M, D, H, F, gen, device, report):
 
     edges, center, cf, w, g_edge, g_center = layer_case(A, M, D, H, F, gen, device)
     scale = 1.0 / math.sqrt(D // H)
-    # products per layer: the dense ones over A * M rows and the attention
+    # products per layer: the dense ones over A * M rows and the attention;
+    # a backward recomputes the forward but its FFN-out product, which no
+    # gradient needs
     dense = A * M * (8 * D * D + 6 * D * F)
+    ffn_out = 2 * A * M * D * F
     attention = 4 * A * H * M * M * (D // H)
     n_weights = sum(x.numel() for x in w)
     for dtype in (torch.float32, torch.bfloat16):
@@ -491,14 +539,17 @@ def check_fused_layer(A, M, D, H, F, gen, device, report):
         act = A * M * D * s_ + A * D * s_  # one (edges, center) pair
         for name, nbytes, flops in (
             ("fused_layer_fwd", 2 * act + A * M * 4 + n_weights * s_, dense + attention),
-            ("fused_layer_bwd", 4 * act + 2 * A * M * 4 + n_weights * s_, 2 * dense + 3 * attention),
+            ("fused_layer_bwd", 4 * act + 2 * A * M * 4 + n_weights * s_,
+             2 * dense - ffn_out + 3 * attention),
             ("fused_layer_bwd_dw", 4 * act + 2 * A * M * 4 + n_weights * (s_ + 4),
-             3 * dense + 3 * attention),
+             3 * dense - ffn_out + 3 * attention),
         ):
             entry = report.setdefault(name, {"library_ms": None})
             record_bound(entry, "f32" if dtype == torch.float32 else "bf16", nbytes, flops, dtype)
             if name == "fused_layer_fwd":  # the Hopper K1 computes the same function
                 k1_bound = (nbytes, flops, dtype)
+            if name == "fused_layer_bwd":  # and the Hopper float32 K2
+                k2_bound = (nbytes, flops)
         e, c, ge, gc = (x.to(dtype) for x in (edges, center, g_edge, g_center))
         before_k1 = fl._lib.LAUNCHES["fused_layer_fwd_sm90"]
         fwd_k = fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale)
@@ -520,6 +571,12 @@ def check_fused_layer(A, M, D, H, F, gen, device, report):
         if sm90:
             check_k2_sm90_entry(report["fused_layer_bwd"], e, c, cf, w, ge, gc, H, scale, bwd_k,
                                 bwd_p)
+        k2_f32 = fl._lib.k2_f32_sm90_takes(dtype, M, D, H, F)
+        if k2_f32:
+            # the Hopper float32 K2: an entry of its own; K2's entry keeps the
+            # general body in float32
+            check_k2_f32_sm90_entry(report, e, c, cf, w, ge, gc, H, scale, bwd_k, bwd_p, k2_bound)
+            bwd_k = fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, sm90=False)
         general = lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale, sm90=False)  # noqa: E731
         fwd_checks = [("fused_layer_fwd", general() if k1_sm90 else fwd_k, fwd_p, general,
                        lambda: fl.layer_math(e, c, cf, w, H, scale))]
@@ -533,7 +590,7 @@ def check_fused_layer(A, M, D, H, F, gen, device, report):
         for name, k_out, p_out, k_fn, p_fn in (
             *fwd_checks,
             ("fused_layer_bwd", bwd_k, bwd_p,
-             lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale),
+             lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, sm90=not k2_f32),
              lambda: fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale)),
         ):
             err, worst = compare(k_out, p_out, dtype)
@@ -592,6 +649,45 @@ def check_k2_sm90_entry(entry, e, c, cf, w, ge, gc, H, scale, k_out, p_out):
     entry["general_ms_bf16"] = cuda_ms(general)
 
 
+def check_k2_f32_sm90_entry(report, e, c, cf, w, ge, gc, H, scale, k_out, p_out, bound):
+    """The Hopper float32 K2 (``fused_layer_bwd_f32_sm90``) at the served
+    shape (``check_k2_f32_sm90_shape``), its plain version's ms and its
+    bound at the 3xTF32 tensor-core peak (``bound_ms``) and on the FFMA
+    pipes (``bound_ms_ffma``)."""
+    from metatrain_tpu_torch.ops.kernels import fused_layer as fl
+
+    entry = report.setdefault("fused_layer_bwd_f32_sm90", {"library_ms": None})
+    sub = check_k2_f32_sm90_shape(e, c, cf, w, ge, gc, H, scale, k_out, p_out)
+    for key, value in sub.items():
+        entry[f"{key}_f32"] = value
+    record_bound(entry, "f32", *bound, torch.float32, peak=PEAK_3XTF32_OPS_PER_S)
+    ffma = {}
+    record_bound(ffma, "f32", *bound, torch.float32)
+    entry["bound_ms_ffma_f32"] = ffma["bound_ms_f32"]
+    entry["plain_ms_f32"] = cuda_ms(lambda: fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale))
+
+
+def check_k2_f32_sm90_shape(e, c, cf, w, ge, gc, H, scale, k_out, p_out):
+    """The Hopper float32 K2's checks at one shape (``k_out`` from the
+    default path, ``p_out`` the plain version's): max |kernel - plain| <=
+    1e-4 max |plain|, the three outputs bitwise equal across two launches,
+    CUDA-event ms beside the general body's (``sm90=False``,
+    ``general_ms``, itself held to the same bound)."""
+    from metatrain_tpu_torch.ops.kernels import fused_layer as fl
+
+    err, worst = compare(k_out, p_out, torch.float32)
+    again = fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(k_out, again)):
+        fail("the Hopper float32 K2 gave different outputs in two launches")
+    del again
+    general = lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, sm90=False)  # noqa: E731
+    return {"max_abs_err": err, "bound_ratio": worst, "bitwise_repeat": True,
+            "general_bound_ratio": compare(general(), p_out, torch.float32)[1],
+            "ms": cuda_ms(lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale)),
+            "general_ms": cuda_ms(general)}
+
+
 def check_k1_sm90_entry(entry, e, c, cf, w, H, scale, k_out, p_out):
     """The Hopper K1's extras at one shape into ``entry``: both outputs
     bitwise equal across two launches, the general body (``sm90=False``)
@@ -614,7 +710,9 @@ def check_sm90_shapes(gen, device, report, D=128, H=8, F=256):
     64, 48 and 16 at A = 11,000 (any atom count: one block per atom or per
     pair of atoms) and M = 32 at A = 1,000; bf16 relative RMS <= 2e-2, K1's
     outputs and K2's d_cf bitwise equal across two launches, CUDA-event ms
-    beside the general bodies', under each entry's ``shapes``."""
+    beside the general bodies', under each entry's ``shapes``; the Hopper
+    float32 K2 at the same shapes with its own checks
+    (``check_k2_f32_sm90_shape``)."""
     from metatrain_tpu_torch.ops.kernels import fused_layer as fl
 
     for A, M in ((11000, 64), (11000, 48), (11000, 16), (1000, 32)):
@@ -648,6 +746,16 @@ def check_sm90_shapes(gen, device, report, D=128, H=8, F=256):
                    ms=cuda_ms(lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale)))
         report.setdefault("fused_layer_bwd", {}).setdefault("shapes", {})[
             f"sm90_A{A}_M{M}_bf16"] = sub
+        del k_out, p_out, e, c, ge, gc
+        before = fl._lib.LAUNCHES["fused_layer_bwd_f32_sm90"]
+        k_out = fl.fused_layer_bwd_cuda(edges, center, cf, w, g_edge, g_center, H, scale)
+        torch.cuda.synchronize()
+        if fl._lib.LAUNCHES["fused_layer_bwd_f32_sm90"] != before + 1:
+            fail(f"the Hopper float32 K2 did not take A={A}, M={M}")
+        p_out = fl.layer_bwd_math(edges, center, cf, w, g_edge, g_center, H, scale)
+        report.setdefault("fused_layer_bwd_f32_sm90", {}).setdefault("shapes", {})[
+            f"A{A}_M{M}_f32"] = check_k2_f32_sm90_shape(edges, center, cf, w, g_edge, g_center, H,
+                                                        scale, k_out, p_out)
         del k_out, p_out
         torch.cuda.empty_cache()
 
@@ -727,6 +835,7 @@ def check_int8_layer(A, M, D, H, F, gen, device, report, tag=None):
     scales = fl.int8_atom_scales(k_blocks, A, BA)
     qkv, ffn, head, out = 2 * M * D * 3 * D, 2 * M * D * 3 * F, 2 * H * M * M * (D // H), \
         2 * M * D * D
+    ffn_out = 2 * M * F * D  # the backward's recompute skips it
     n_w = sum(x.numel() for x in w)
     act = A * M * D * 2 + A * D * 2
     sizes = {  # bytes, bf16 flops, int8 ops
@@ -734,9 +843,10 @@ def check_int8_layer(A, M, D, H, F, gen, device, report, tag=None):
         "fused_layer_fwd_int8": (2 * act + A * M * 4 + A * 8 + n_w * 2,
                                  A * (qkv + head + out + ffn), A * head),
         "fused_layer_bwd_int8": (4 * act + 2 * A * M * 4 + A * 8 + n_w * 2,
-                                 A * (2 * qkv + 5 * head + 2 * out + 2 * ffn), A * head),
+                                 A * (2 * qkv + 5 * head + 2 * out + 2 * ffn - ffn_out), A * head),
         "fused_layer_bwd_dw_int8": (4 * act + 2 * A * M * 4 + A * 8 + n_w * 6,
-                                    A * (3 * qkv + 5 * head + 3 * out + 3 * ffn), A * head),
+                                    A * (3 * qkv + 5 * head + 3 * out + 3 * ffn - ffn_out),
+                                    A * head),
     }
     cases = (
         ("int8_absmax", lambda: (fl.int8_absmax_cuda(e, c, w, BA),),
@@ -832,6 +942,10 @@ def plan_table():
                                lib.mtt_fused_layer_fwd_sm90_smem(M, D, heads, F)),
                               (_lib.k1_sm90_takes(torch.bfloat16, M, D, heads, F),
                                _lib.k1_sm90_smem(M, D, heads, F))))
+                pairs.append(((bool(lib.mtt_fused_layer_bwd_f32_sm90_ok(M, D, heads, F)),
+                               lib.mtt_fused_layer_bwd_f32_sm90_smem(M, D, heads, F)),
+                              (_lib.k2_f32_sm90_takes(torch.float32, M, D, heads, F),
+                               _lib.k2_f32_sm90_smem(M, D, heads, F))))
             # the two-pass K2-dW's rule (both dtypes, int8 scores or not), its
             # chunk plan and its slices, C vs Python
             for heads in (H, 2 * H):
@@ -1723,7 +1837,13 @@ def check_slice(device, hypers, expected, n_cells=14, steps=3, timing=True, fuse
     report["padded"] = [calc._last_batch.n_atoms_padded, calc._last_batch.max_neighbors]
 
     final = System(positions, system.types, system.cell, system.pbc)
-    results = {k: c.compute(final, forces=True, stress=True) for k, c in calcs.items()}
+    # the f32 kernel path's launches in one call: every counter at 0 here
+    _lib.LAUNCHES.clear()
+    results = {"kernel_f32": calcs["kernel_f32"].compute(final, forces=True, stress=True)}
+    torch.cuda.synchronize()
+    report["launches_f32_per_call"] = dict(_lib.LAUNCHES)
+    results.update({k: c.compute(final, forces=True, stress=True) for k, c in calcs.items()
+                    if k != "kernel_f32"})
     for key, res in results.items():
         if not (math.isfinite(res["energy"]) and np.isfinite(res["forces"]).all()
                 and np.isfinite(res["virial"]).all()):
@@ -1941,9 +2061,9 @@ def check_physics(device, report, workdir):
         torch.cuda.empty_cache()
         report[f"training_parity_{key}"] = check_training_parity(
             workdir / "cu_lj_charged.xyz", state, device, hypers,
-            expected=("fused_layer_fwd", *K2DW, "rowblock_fwd[compress]",
+            expected=("fused_layer_fwd", *K2DW_F32, "rowblock_fwd[compress]",
                       "rowblock_bwd_dw[compress]"), replayed=("fused_layer",),
-            absent=("fused_layer_bwd_dw",), per_step={k: K2DW_PER_STEP for k in K2DW})
+            absent=K2DW_F32_NEVER, per_step={k: K2DW_PER_STEP for k in K2DW_F32})
         torch.cuda.empty_cache()
 
 
@@ -2624,7 +2744,7 @@ def check_training(device, report, workdir):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches, replays = dict(_lib.LAUNCHES), dict(_lib.REPLAYS)
-    expected = ["fused_layer_fwd", *K2DW] + [
+    expected = ["fused_layer_fwd", *K2DW_F32] + [
         f"rowblock_{d}[{s}]" for d in ("fwd", "bwd_dw") for s in STAGE_NAMES
     ]
     missing = [k for k in expected if launches.get(k, 0) == 0]
@@ -2755,6 +2875,7 @@ def time_training(workdir, state, device, report, steps=3):
     """ms per training step, atom-steps/s and peak device memory; a
     profile of one step of each kernel path on 2 x 2,048 atoms."""
     from metatrain_tpu_torch.engine.trainer import make_optimizer, train_step
+    from metatrain_tpu_torch.ops.kernels import _lib
 
     bench_path = workdir / "bench_lj.xyz"
     write_labelled(bench_path, [bench_crystal()])
@@ -2772,11 +2893,14 @@ def time_training(workdir, state, device, report, steps=3):
         optimizer = make_optimizer(params, None)
         train_step(params, optimizer, loss_fn, batch, 1e-5, 1.0)  # warm-up
         torch.cuda.synchronize()
+        _lib.LAUNCHES.clear()
         t0 = time.perf_counter()
         for _ in range(steps):
             loss, _ = train_step(params, optimizer, loss_fn, batch, 1e-5, 1.0)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / steps * 1e3
+        if key.startswith("kernel") and not fused_gnn:
+            check_k2dw_launches(dict(_lib.LAUNCHES), per_step=K2DW_PER_STEP * steps)
         if not math.isfinite(loss.item()):
             fail(f"{key}: training loss not finite")
         timing[key] = {"ms_per_step": ms, "atoms": n_atoms,
@@ -2861,7 +2985,7 @@ def check_entry_points(device, report, workdir):
         torch.cuda.synchronize()
         out["train_s"] = time.perf_counter() - t0
         launches = dict(_lib.LAUNCHES)
-        expected = ["fused_layer_fwd", *K2DW] + [
+        expected = ["fused_layer_fwd", *K2DW_F32] + [
             f"rowblock_{d}[{s}]" for d in ("fwd", "bwd_dw") for s in STAGE_NAMES]
         missing = [k for k in expected if launches.get(k, 0) == 0]
         if missing:
@@ -3041,6 +3165,8 @@ SOURCES = {
                      "metatrain_tpu/ops/pallas/rowblock.py:279"),
     "rowblock_bwd_sm90": ("metatrain_tpu_torch/csrc/rowblock_bwd_sm90.cu",
                           "metatrain_tpu/ops/pallas/rowblock.py:279 (exact bf16, d_part 128)"),
+    "fused_layer_bwd_f32_sm90": ("metatrain_tpu_torch/csrc/fused_layer_bwd_f32_sm90.cu",
+                                 "metatrain_tpu/ops/pallas/fused_layer.py:1269 (float32)"),
     "fused_layer_bwd_dw": ("metatrain_tpu_torch/csrc/fused_layer_bwd_dw_sm90.cu",
                            "metatrain_tpu/ops/pallas/fused_layer.py:1269 (weight_grads=True)"),
     "rowblock_bwd_dw": ("metatrain_tpu_torch/csrc/rowblock_bwd.cu",
@@ -3074,7 +3200,7 @@ SOURCES = {
                                 "(weight_grads=True, int8 scores)"),
 }
 UNFUSED_PATH = ("permute", "permute_acc", "window_attention_fwd", "window_attention_bwd")
-N_ENTRIES = 32
+N_ENTRIES = 33
 
 
 def launch_count(report, name):
@@ -3087,11 +3213,15 @@ def launch_count(report, name):
     that path added, the W8A8 force calls for the W8A8 kernels, the fused
     force calls for the rest; the int8 scores' from their force calls and
     (K2-dW-int8) their training step. K2-dW and K2-dW-int8 count the
-    two-pass kernels' launches."""
+    two-pass kernels' launches (K2-dW in the float32 training run: the
+    Hopper float32 K2's spill mode); the Hopper float32 K2 its launches in
+    one call of phase 3's float32 kernel path."""
     if name == "fused_layer_bwd_dw_int8":
         return report["training_parity_int8"]["launches"]["fused_layer_bwd_dw_int8_sm90"]
     if name == "fused_layer_bwd_dw":
-        return report["train_launches"]["fused_layer_bwd_dw_sm90"]
+        return report["train_launches"][K2DW_F32[0]]
+    if name == "fused_layer_bwd_f32_sm90":
+        return report["slice"]["launches_f32_per_call"][name]
     if name.endswith("_int8") or name == "int8_absmax":
         source = report["slice_int8"]["launches"]
     elif name.endswith("_w8a8"):
@@ -3152,9 +3282,14 @@ def main() -> int:
     report["slice"] = check_slice(device, {}, FUSED_SM90_KERNELS)
     check_neighbor_backend(report)
     check_hopper_launches("slice", report["slice"])
+    f32_call = report["slice"]["launches_f32_per_call"]
+    if f32_call.get("fused_layer_bwd_f32_sm90") != 4 or f32_call.get("fused_layer_bwd", 0):
+        fail(f"the f32 force call launched {f32_call}: 4 Hopper float32 K2 and no general K2 "
+             "expected")
     A, M = report["slice"]["padded"]
-    print("slice:", json.dumps({k: report["slice"][k] for k in ("padded", "launches", "parity")}
-                               | {"neighbor_backends": report["neighbor_backends"]}), flush=True)
+    print("slice:", json.dumps({k: report["slice"][k] for k in (
+        "padded", "launches", "launches_f32_per_call", "parity")}
+        | {"neighbor_backends": report["neighbor_backends"]}), flush=True)
     print(f"force call ({card}):", json.dumps(report["slice"]["timing"]), flush=True)
     print("force call profile:", json.dumps(report["slice"]["profile_kernel_bf16"]), flush=True)
     torch.cuda.empty_cache()
@@ -3276,8 +3411,8 @@ def main() -> int:
               flush=True)
         torch.cuda.empty_cache()
         report["training_parity"] = check_training_parity(
-            workdir / "cu_lj.xyz", state, device, expected=K2DW, absent=("fused_layer_bwd_dw",),
-            per_step={k: K2DW_PER_STEP for k in K2DW})
+            workdir / "cu_lj.xyz", state, device, expected=K2DW_F32, absent=K2DW_F32_NEVER,
+            per_step={k: K2DW_PER_STEP for k in K2DW_F32})
         print("training parity:", json.dumps(report["training_parity"]), flush=True)
         report["training_parity_unfused"] = check_training_parity(
             workdir / "cu_lj.xyz", random_state(UNFUSED), device, UNFUSED,
@@ -3326,11 +3461,19 @@ def main() -> int:
         for name, kernel in (("fused_layer_fwd_sm90", "k1_sm90_kernel"),
                              ("fused_layer_bwd", "k2_sm90_kernel")):
             kernels[name]["ptxas_bf16"] = ptxas_usage(build_log.read_text(), kernel)
-    for title, name in (("Hopper K1", "fused_layer_fwd_sm90"), ("Hopper K2", "fused_layer_bwd")):
+        # the plain and the spill-mode instantiation
+        kernels["fused_layer_bwd_f32_sm90"]["ptxas_f32"] = ptxas_usage(
+            build_log.read_text(), "k2_f32_sm90_kernel")
+    kernels["fused_layer_bwd_f32_sm90"]["smem_bytes"] = _lib.library(
+    ).mtt_fused_layer_bwd_f32_sm90_smem(M, D, H, F)
+    for title, name, tag in (("Hopper K1", "fused_layer_fwd_sm90", "bf16"),
+                             ("Hopper K2", "fused_layer_bwd", "bf16"),
+                             ("Hopper float32 K2", "fused_layer_bwd_f32_sm90", "f32")):
         print(f"{title} (general body's ms beside):", json.dumps(
             {k: kernels[name].get(k) for k in (
-                "ms_bf16", "general_ms_bf16", "bound_ratio_bf16", "ptxas_bf16", "shapes")}),
-            flush=True)
+                f"ms_{tag}", f"general_ms_{tag}", f"bound_ratio_{tag}", f"bound_ms_{tag}",
+                "bound_ms_ffma_f32", f"ptxas_{tag}", "smem_bytes", "shapes")
+             if k in kernels[name]}), flush=True)
     check_gnn_block(A, M, D, H, F, hp["d_node"], gen, device, kernels,
                     hp["num_attention_layers"])
     report["gnn_block_variants"] = check_gnn_block_variants(M, D, H, F, hp["d_node"], gen, device)
@@ -3380,7 +3523,10 @@ def main() -> int:
     entries = []
     for name, entry in kernels.items():
         source, replaces = SOURCES[name.split("[")[0]]
-        trains = ("_dw" in name or name == "fused_layer_fwd") and "ms_f32" in entry
+        # the float32 kernels lead with float32 (the Hopper float32 K2 has
+        # no bf16 numbers)
+        trains = (("_dw" in name or name == "fused_layer_fwd") and "ms_f32" in entry
+                  or "ms_bf16" not in entry and "ms_f32" in entry)
         lead, other = ("f32", "bf16") if trains else ("bf16", "f32")
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": launch_count(report, name),
@@ -3400,6 +3546,8 @@ def main() -> int:
                 out[f"general_ms{suffix}"] = entry[f"general_ms_{tag}"]
             if f"workspace_bytes_{tag}" in entry:  # the two-pass K2-dW's spill
                 out[f"workspace_bytes{suffix}"] = entry[f"workspace_bytes_{tag}"]
+            if f"bound_ms_ffma_{tag}" in entry:  # the Hopper float32 K2 on FFMA pipes
+                out[f"bound_ms_ffma{suffix}"] = entry[f"bound_ms_ffma_{tag}"]
         if name.startswith("fused_layer_bwd_dw"):  # the two-pass K2-dW's second kernel
             out["product_launches"] = (
                 report["training_parity_int8"]["launches"] if name.endswith("_int8")

@@ -14,7 +14,7 @@
 //
 // What bounds it on the H100: operations (at A = 11,392 atoms, M = 64, D =
 // 128, F = 256: the recompute, the input-gradient products and the four
-// X^T dY products, 11.8 ms in float32 at 67 TFLOP/s, 0.80 ms in bf16 at
+// X^T dY products, 11.1 ms in float32 at 67 TFLOP/s, 0.75 ms in bf16 at
 // 989). The accumulate body adds each atom's products into its block's
 // float partial in global memory (4 updates per atom of w_in and w_ffn_out
 // at M = 64, ~3.7 MB of traffic per atom, ~42 GB a launch: 132 partials of
@@ -27,7 +27,10 @@
 //   attn, d_attn_out, h_norm, d_vg and ffn_h written once in the compute
 //   dtype (7D + 3F values a row: 6.5 KB in float32, 3.3 KB in bf16), plus
 //   one float row per atom of its norm-scale and bias sums. g_eo is not
-//   copied: pass 2 reads the cotangent with slot M - 1 as zero.
+//   copied: pass 2 reads the cotangent with slot M - 1 as zero. In float32
+//   at the Hopper float32 K2's shapes (k2_f32_sm90.cuh: D = 128, heads of
+//   16, M <= 64) pass 1 is that kernel's spill mode instead, which writes
+//   the same spill.
 // - pass 2 (layer_dw_sm90.cuh) cuts the chunk's rows into a fixed number
 //   of slices; block (tile, slice) writes the partial of one 128 x 128
 //   output tile over one slice: float32 on 8 x 8 FFMA register tiles
@@ -42,6 +45,7 @@
 // launch at the shape above) is this design's own cost; the bound stays
 // the function's.
 
+#include "k2_f32_sm90.cuh"
 #include "layer_dw_sm90.cuh"
 
 namespace mtt {
@@ -97,12 +101,26 @@ int launch_pass1(const Pass1Args<T>& p, unsigned grid, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
+// The Hopper float32 K2's spill mode on the chunk's atoms (float32 only).
+template <typename T>
+int pass1_f32(const k2f32::Args& f32, const Pass1Args<T>& p, long long atoms, cudaStream_t stream) {
+    if constexpr (std::is_same_v<T, float>) {
+        k2f32::Args a = f32;
+        a.sp = p.sp;
+        a.a0 = p.a0;
+        return k2f32::launch(a, atoms, true, stream);
+    } else {
+        return (int)cudaErrorInvalidValue;
+    }
+}
+
 // Every chunk: pass 1 (grid: one block per atom where the plan keeps every
-// buffer shared, else at most ws_blocks blocks over the chunk's atoms),
-// then pass 2 into dw.
+// buffer shared, else at most ws_blocks blocks over the chunk's atoms; with
+// f32, the Hopper float32 K2's spill mode, one block per atom), then pass 2
+// into dw.
 template <typename T, bool I8>
 int run(Pass1Args<T> p, long long A, int ws_blocks, int sms, float* partials, float* dw,
-        unsigned char* spill, cudaStream_t stream) {
+        unsigned char* spill, cudaStream_t stream, const k2f32::Args* f32 = nullptr) {
     p.plan = layer_bwd_plan(p.M, p.D, p.H, p.F, false, I8);
     const dwp::Plan plan = dwp::make_plan((int)sizeof(T), A, p.M, p.D, p.F, sms);
     p.sp = DwSpill<T>{reinterpret_cast<T*>(spill), reinterpret_cast<float*>(spill + plan.vec_offset),
@@ -112,7 +130,9 @@ int run(Pass1Args<T> p, long long A, int ws_blocks, int sms, float* partials, fl
         p.a1 = p.a0 + plan.chunk_atoms < A ? p.a0 + plan.chunk_atoms : A;
         const long long atoms = p.a1 - p.a0;
         int err;
-        if (p.plan.ws_floats == 0) {
+        if (f32 != nullptr) {
+            err = pass1_f32(*f32, p, atoms, stream);
+        } else if (p.plan.ws_floats == 0) {
             err = launch_pass1<T, I8, true>(p, (unsigned)atoms, stream);
         } else {
             const long long grid = atoms < ws_blocks ? atoms : ws_blocks;
@@ -166,24 +186,30 @@ extern "C" void mtt_layer_dw_slices(long long R, int D, int F, int sms, long lon
                       (const T*)w_qkv_t, (const T*)w_out_t, (const T*)w_in_t,                 \
                       (const T*)w_ffn_out_t}
 
-// dtype: 0 = float32, 1 = bfloat16; i8_scales: (A, 2) float32 for the
+// dtype: 0 = float32, 1 = bfloat16; hopper_f32: 1 = pass 1 is the Hopper
+// float32 K2's spill mode (float32 at k2f32::takes's shapes, else an
+// error: the caller chooses, so the caller's count names what ran), 0 =
+// the general body; w_ffn_out: (F, D), read by the float32 Hopper pass 1
+// only; i8_scales: (A, 2) float32 for the
 // int8 scores (bfloat16), else null. dw: n_dw floats (LayerWeights order)
 // receiving the weight gradients. spill: the plan's spill_bytes; partials:
 // (max_slices, n_dw) floats; ws: ws_blocks x K2's workspace floats
 // (mtt_fused_layer_bwd_smem / _int8_smem with dw = 0), or null when that is
 // 0. Returns the CUDA error code (0 = ok).
 extern "C" int mtt_fused_layer_bwd_dw_sm90(
-    int dtype, const void* edges, const void* center, const float* cf,
+    int dtype, int hopper_f32, const void* edges, const void* center, const float* cf,
     const void* norm_attn, const void* w_qkv, const void* b_qkv,
     const void* w_out, const void* b_out, const void* norm_mlp,
     const void* w_in, const void* b_in,
     const void* w_qkv_t, const void* w_out_t, const void* w_in_t, const void* w_ffn_out_t,
-    const float* i8_scales, const void* g_edge, const void* g_center,
+    const void* w_ffn_out, const float* i8_scales, const void* g_edge, const void* g_center,
     void* d_edges, void* d_center, float* d_cf, float* dw,
     void* spill, float* partials, float* ws,
     long long A, int M, int D, int H, int F, float scale, float eps, int ws_blocks, int sms,
     void* stream) {
     if (!mtt::takes(dtype, M, D, H, F, i8_scales != nullptr)) return (int)cudaErrorInvalidValue;
+    if (hopper_f32 && (dtype != 0 || i8_scales != nullptr || !mtt::k2f32::takes(M, D, H, F)))
+        return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
     if (A == 0) return (int)cudaMemsetAsync(dw, 0, mtt::DwLayout(D, F).total * sizeof(float), s);
 #define MTT_PASS1(T)                                                                              \
@@ -191,7 +217,18 @@ extern "C" int mtt_fused_layer_bwd_dw_sm90(
                       (const T*)g_center, (T*)d_edges, (T*)d_center, d_cf, i8_scales, 0, 0, M, D, \
                       H, F, scale, eps, {}, {}, ws}
     unsigned char* sp = (unsigned char*)spill;
-    if (dtype == 0) return mtt::run<float, false>(MTT_PASS1(float), A, ws_blocks, sms, partials, dw, sp, s);
+    if (dtype == 0) {
+        // at the Hopper float32 K2's shapes its spill mode is pass 1
+        const mtt::k2f32::Args f32{(const float*)edges, (const float*)center, cf, (const float*)norm_attn,
+                                   (const float*)b_qkv, (const float*)b_out, (const float*)norm_mlp,
+                                   (const float*)b_in, (const float*)w_qkv_t, (const float*)w_out_t,
+                                   (const float*)w_in_t, (const float*)w_ffn_out, (const float*)w_in,
+                                   (const float*)w_out, (const float*)w_qkv, (const float*)g_edge,
+                                   (const float*)g_center, (float*)d_edges, (float*)d_center, d_cf,
+                                   {}, 0, M, F, scale, eps};
+        return mtt::run<float, false>(MTT_PASS1(float), A, ws_blocks, sms, partials, dw, sp, s,
+                                      hopper_f32 ? &f32 : nullptr);
+    }
     if (i8_scales == nullptr)
         return mtt::run<__nv_bfloat16, false>(MTT_PASS1(__nv_bfloat16), A, ws_blocks, sms, partials, dw, sp, s);
     return mtt::run<__nv_bfloat16, true>(MTT_PASS1(__nv_bfloat16), A, ws_blocks, sms, partials, dw, sp, s);

@@ -11,9 +11,10 @@
 // other shape, and every other variant, to fused_layer_bwd.cu).
 //
 // What bounds it on the H100: operations. At the served shape (A = 11,392
-// atoms, M = 64, F = 256) the ten dense products and the attention's
-// products are 549 GFLOP: 0.556 ms at 989 TFLOP/s. The old body took 30 ms
-// (54 x its bound); the design answers its four causes:
+// atoms, M = 64, F = 256) the dense products (16 D^2 + 10 D F a row: the
+// forward recomputed but for FFN-out, then the input gradients) and the
+// attention's products are 502 GFLOP: 0.507 ms at 989 TFLOP/s. The old
+// body took 30 ms (59 x its bound); the design answers its four causes:
 // - one atom per SM, one phase at a time: the old body kept every
 //   activation in float (207 KB). Here every activation the plain version
 //   rounds to bf16 is stored in bf16 (tokens' norm, q|k|v, attn, res,

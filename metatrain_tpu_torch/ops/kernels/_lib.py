@@ -41,6 +41,7 @@ SOURCES = (
     "fused_layer_fwd_sm90.cu",
     "fused_layer_bwd.cu",
     "fused_layer_bwd_sm90.cu",
+    "fused_layer_bwd_f32_sm90.cu",
     "fused_layer_bwd_dw_sm90.cu",
     "rowblock_fwd.cu",
     "rowblock_fwd_sm90.cu",
@@ -75,10 +76,11 @@ _SIGNATURES = {
     "mtt_fused_layer_bwd": [_I] + [_P] * 22 + _LAYER_TAIL,
     "mtt_fused_layer_fwd_sm90": [_P] * 15 + [_L, _I, _I, _I, _I, _F, _F, _P],
     "mtt_fused_layer_bwd_sm90": [_P] * 20 + [_L, _I, _I, _I, _I, _F, _F, _P],
-    # dtype, 25 pointers (the inputs, 12 weights, int8 scales, cotangents,
-    # outputs, dw, spill, partials, workspace), A, M, D, H, F, scale, eps,
-    # workspace blocks, SMs, stream
-    "mtt_fused_layer_bwd_dw_sm90": [_I] + [_P] * 25 + [_L, _I, _I, _I, _I, _F, _F, _I, _I, _P],
+    "mtt_fused_layer_bwd_f32_sm90": [_P] * 20 + [_L, _I, _I, _I, _I, _F, _F, _P],
+    # dtype, the Hopper float32 first pass or not, 26 pointers (the inputs,
+    # 13 weights, int8 scales, cotangents, outputs, dw, spill, partials,
+    # workspace), A, M, D, H, F, scale, eps, workspace blocks, SMs, stream
+    "mtt_fused_layer_bwd_dw_sm90": [_I, _I] + [_P] * 26 + [_L, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     "mtt_fused_layer_bwd_dw_sm90_ok": [_I] * 6,
     "mtt_fused_layer_bwd_dw_sm90_plan": [_I, _L, _I, _I, _I, _I, _LP],
     "mtt_layer_dw_slices": [_L, _I, _I, _I, _LP],
@@ -107,6 +109,8 @@ _SIGNATURES = {
     "mtt_fused_layer_fwd_sm90_ok": [_I] * 4,
     "mtt_fused_layer_bwd_sm90_smem": [_I] * 4,
     "mtt_fused_layer_bwd_sm90_ok": [_I] * 4,
+    "mtt_fused_layer_bwd_f32_sm90_smem": [_I] * 4,
+    "mtt_fused_layer_bwd_f32_sm90_ok": [_I] * 4,
     "mtt_rowblock_fwd_smem": [_I, _I, _IP],
     "mtt_rowblock_fwd_sm90_ok": [_I] * 5,
     "mtt_rowblock_fwd_sm90_smem": [_I] * 5,
@@ -336,6 +340,30 @@ def k2_sm90_smem(M: int, D: int, H: int, F: int) -> int:
     ring = 3 * 128 * 64 * 2
     stats = 3 * rows + 3 * heads * rows + heads * 4 * rows + 4 * rows
     return tiles + ring + 4 * stats
+
+
+def k2_f32_sm90_takes(dtype: torch.dtype, M: int, D: int, H: int, F: int,
+                      weight_grads: bool = False, w8a8: bool = False, int8: bool = False) -> bool:
+    """Whether the Hopper float32 K2 (``csrc/fused_layer_bwd_f32_sm90.cu``)
+    runs: float32 at the shapes of :func:`sm90_shape` (its C query
+    ``mtt_fused_layer_bwd_f32_sm90_ok``), without W8A8 or the int8 scores.
+    Without ``weight_grads`` it is ``fused_layer_bwd_cuda``'s kernel
+    (counter ``fused_layer_bwd_f32_sm90``); with them, the two-pass K2-dW's
+    first pass (counter ``fused_layer_bwd_dw_f32_sm90``)."""
+    return dtype == torch.float32 and not (w8a8 or int8) and sm90_shape(M, D, H, F)
+
+
+def k2_f32_sm90_smem(M: int, D: int, H: int, F: int) -> int:
+    """``mtt_fused_layer_bwd_f32_sm90_smem``: its shared bytes per block (one
+    atom, padded to 64 rows), 0 for a shape it does not take. The C source's
+    layout, every buffer float: q|k|v (rows of 3D + 4), the operand tile,
+    res / g_eo / the attention backward's statistics, the d_vg tile / d_attn
+    (rows of D + 4 each), three weight chunks of 128 x 16, and cf, r1, r2
+    and 4 x 64 of row-sum scratch."""
+    if not k2_f32_sm90_takes(torch.float32, M, D, H, F):
+        return 0
+    rows = 64
+    return 4 * (rows * (3 * D + 4) + 3 * rows * (D + 4) + 3 * 128 * 16 + 7 * rows)
 
 
 # ---- the two-pass K2-dW (csrc/fused_layer_bwd_dw_sm90.cu, layer_dw_sm90.cuh) --

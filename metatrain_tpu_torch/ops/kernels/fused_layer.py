@@ -19,7 +19,8 @@ attention output of slot M-1.
   (``csrc/fused_layer_fwd.cu``; the exact bfloat16 one at the served
   shapes, where no weight requires grad, ``csrc/fused_layer_fwd_sm90.cu``)
   and, for its gradient, K2
-  (``csrc/fused_layer_bwd.cu``; likewise ``csrc/fused_layer_bwd_sm90.cu``):
+  (``csrc/fused_layer_bwd.cu``; likewise ``csrc/fused_layer_bwd_sm90.cu``,
+  and in float32 at those shapes ``csrc/fused_layer_bwd_f32_sm90.cu``):
   the input-gradient variant, or the
   weight-gradient variant K2-dW when a weight requires grad. The backward
   is itself differentiable (training with forces): its gradient replays
@@ -836,8 +837,12 @@ def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, n
 
     The exact bfloat16 variant at the shapes of :func:`_lib.k2_sm90_takes`
     (the served ones) launches the Hopper K2 (``csrc/fused_layer_bwd_sm90.cu``,
-    counter ``fused_layer_bwd_sm90``); ``sm90=False`` keeps the general body
-    there too, for comparisons.
+    counter ``fused_layer_bwd_sm90``), float32 at the same shapes
+    (:func:`_lib.k2_f32_sm90_takes`) the Hopper float32 K2
+    (``csrc/fused_layer_bwd_f32_sm90.cu``, counter
+    ``fused_layer_bwd_f32_sm90``: its products as three TF32 tensor-core
+    products each); ``sm90=False`` keeps the general body there too, for
+    comparisons.
 
     With ``w8a8`` launch K2-W8A8 (bfloat16, input gradients only): the W8A8
     layer's straight-through backward. With ``int8_scales`` (the forward's)
@@ -851,7 +856,10 @@ def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, n
     ``fused_layer_bwd_dw_sm90`` or ``fused_layer_bwd_dw_int8_sm90``, and
     ``layer_dw_product``): the body spills each row's weight-gradient
     operands, then a split-K product sums them (:func:`layer_dw_operands`
-    and :func:`dw_from_operands` are its plain halves). Elsewhere, or with
+    and :func:`dw_from_operands` are its plain halves); in float32 at the
+    shapes of :func:`_lib.k2_f32_sm90_takes` the first pass is the Hopper
+    float32 K2's spill mode (counter ``fused_layer_bwd_dw_f32_sm90``), whose
+    input gradients equal that kernel's bit for bit. Elsewhere, or with
     ``sm90=False``, the accumulate body: one block per SM over a contiguous
     range of atoms, each block summing into its own float32 partial, a
     second pass adding the partials in block order. Either sum is the same
@@ -875,6 +883,10 @@ def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, n
     if sm90 and _lib.k2_sm90_takes(cd, M, D, num_heads, F, weight_grads, w8a8 is not None,
                                    int8_scales is not None):
         return _k2_sm90(edges, center, cf, wc, g_edge, g_center, num_heads, scale)
+    if sm90 and not weight_grads and _lib.k2_f32_sm90_takes(
+            cd, M, D, num_heads, F, w8a8=w8a8 is not None, int8=int8_scales is not None):
+        return _k2_sm90(edges, center, cf, wc, g_edge, g_center, num_heads, scale,
+                        "fused_layer_bwd_f32_sm90")
     if sm90 and weight_grads and _lib.k2dw_sm90_takes(cd, M, D, num_heads, F,
                                                       int8_scales is not None):
         return _k2dw_sm90(edges, center, cf, wc, g_edge, g_center, num_heads, scale, int8_scales)
@@ -925,26 +937,29 @@ def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, n
     return d_edges, d_center, d_cf, LayerWeights(*(p.view(x.shape) for p, x in zip(parts, wc)))
 
 
-def _k2_sm90(edges, center, cf, wc: LayerWeights, g_edge, g_center, num_heads, scale):
-    """The Hopper K2 on checked bfloat16 tensors (``wc`` in the compute
-    dtype): one block per atom, no workspace."""
+def _k2_sm90(edges, center, cf, wc: LayerWeights, g_edge, g_center, num_heads, scale,
+             name="fused_layer_bwd_sm90"):
+    """The Hopper K2 on checked bfloat16 tensors, or (``name``
+    ``fused_layer_bwd_f32_sm90``) the Hopper float32 K2 on float32 ones
+    (``wc`` in the compute dtype): one block per atom, no workspace. Both
+    take the same arguments."""
     A, M, D = edges.shape
     F = wc.w_ffn_out.shape[0]
     lib = _lib.library()
-    _lib.check_shared(lib.mtt_fused_layer_bwd_sm90_smem(M, D, num_heads, F), "fused_layer_bwd_sm90")
+    _lib.check_shared(getattr(lib, f"mtt_{name}_smem")(M, D, num_heads, F), name)
     transposed = [x.t().contiguous() for x in (wc.w_qkv, wc.w_out, wc.w_in)]
     d_edges = torch.empty_like(edges)
     d_center = torch.empty_like(center)
     d_cf = torch.empty_like(cf)
     _lib.check(
-        lib.mtt_fused_layer_bwd_sm90(
+        getattr(lib, f"mtt_{name}")(
             edges.data_ptr(), center.data_ptr(), cf.data_ptr(), *(x.data_ptr() for x in wc[:9]),
             *(x.data_ptr() for x in transposed), g_edge.data_ptr(), g_center.data_ptr(),
             d_edges.data_ptr(), d_center.data_ptr(), d_cf.data_ptr(), A, M, D, num_heads, F,
             float(scale), rmsnorm_eps(edges.dtype), _lib.stream_ptr(edges.device)),
-        "fused_layer_bwd_sm90",
+        name,
     )
-    _lib.LAUNCHES["fused_layer_bwd_sm90"] += 1
+    _lib.LAUNCHES[name] += 1
     return d_edges, d_center, d_cf
 
 
@@ -952,7 +967,9 @@ def _k2dw_sm90(edges, center, cf, wc: LayerWeights, g_edge, g_center, num_heads,
                int8_scales=None):
     """The two-pass K2-dW on checked tensors (``wc`` in the compute dtype):
     per chunk of :func:`_lib.k2dw_plan`, the body on K2's grid and layout
-    plan, then the split-K product."""
+    plan (in float32 at the shapes of :func:`_lib.k2_f32_sm90_takes`, the
+    Hopper float32 K2's spill mode, one block per atom), then the split-K
+    product."""
     A, M, D = edges.shape
     F = wc.w_ffn_out.shape[0]
     cd = edges.dtype
@@ -968,19 +985,27 @@ def _k2dw_sm90(edges, center, cf, wc: LayerWeights, g_edge, g_center, num_heads,
     d_edges = torch.empty_like(edges)
     d_center = torch.empty_like(center)
     d_cf = torch.empty_like(cf)
+    hopper_f32 = int8_scales is None and _lib.k2_f32_sm90_takes(cd, M, D, num_heads, F, True)
     lib = _lib.library()
     _lib.check(
         lib.mtt_fused_layer_bwd_dw_sm90(
-            _lib.dtype_code(cd), edges.data_ptr(), center.data_ptr(), cf.data_ptr(),
+            _lib.dtype_code(cd), int(hopper_f32), edges.data_ptr(), center.data_ptr(),
+            cf.data_ptr(),
             *(x.data_ptr() for x in wc[:8]), *(x.data_ptr() for x in transposed),
-            _lib.ptr(int8_scales), g_edge.data_ptr(), g_center.data_ptr(), d_edges.data_ptr(),
-            d_center.data_ptr(), d_cf.data_ptr(), dw.data_ptr(), spill.data_ptr(),
-            partials.data_ptr(), _lib.ptr(ws), A, M, D, num_heads, F, float(scale),
+            wc.w_ffn_out.data_ptr(), _lib.ptr(int8_scales), g_edge.data_ptr(),
+            g_center.data_ptr(), d_edges.data_ptr(), d_center.data_ptr(), d_cf.data_ptr(),
+            dw.data_ptr(), spill.data_ptr(), partials.data_ptr(), _lib.ptr(ws), A, M, D,
+            num_heads, F, float(scale),
             rmsnorm_eps(cd), ws_blocks, plan.sms, _lib.stream_ptr(device)),
         "fused_layer_bwd_dw_sm90",
     )
-    _lib.LAUNCHES["fused_layer_bwd_dw_sm90" if int8_scales is None
-                  else "fused_layer_bwd_dw_int8_sm90"] += 1
+    if int8_scales is not None:
+        name = "fused_layer_bwd_dw_int8_sm90"
+    elif hopper_f32:
+        name = "fused_layer_bwd_dw_f32_sm90"
+    else:
+        name = "fused_layer_bwd_dw_sm90"
+    _lib.LAUNCHES[name] += 1
     _lib.LAUNCHES["layer_dw_product"] += 1
     parts = torch.split(dw, sizes)
     return d_edges, d_center, d_cf, LayerWeights(*(p.view(x.shape) for p, x in zip(parts, wc)))

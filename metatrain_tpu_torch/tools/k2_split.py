@@ -1,21 +1,25 @@
-"""Phase split of K2, of the Hopper K1, or of the Hopper K3 and K4 heads, in
-bfloat16 by ``clock64()`` stamps, on a CUDA device.
+"""Phase split of K2, of the Hopper K1, or of the Hopper K3 and K4 heads, by
+``clock64()`` stamps, on a CUDA device.
 
 Usage, on a machine with a CUDA device and nvcc::
 
-    python metatrain_tpu_torch/tools/k2_split.py --body hopper|general|k1-hopper|k3-head|k4-head
-        [--A 11392] [--M 64]
+    python metatrain_tpu_torch/tools/k2_split.py
+        --body hopper|general|f32-hopper|k1-hopper|k3-head|k4-head
+        [--dtype bfloat16|float32] [--A 11392] [--M 64]
 
 Copies the body's sources (``--body hopper``: the Hopper K2,
 ``csrc/fused_layer_bwd_sm90.cu``; ``general``: K2's general body,
-``csrc/layer_bwd.cuh`` with a one-kernel launcher; ``k1-hopper``: the
+``csrc/layer_bwd.cuh`` with a one-kernel launcher, in ``--dtype``;
+``f32-hopper``: the Hopper float32 K2,
+``csrc/fused_layer_bwd_f32_sm90.cu``; ``k1-hopper``: the
 Hopper K1, ``csrc/fused_layer_fwd_sm90.cu``; ``k3-head`` / ``k4-head``: the
 Hopper K3 / K4 head, ``csrc/rowblock_{fwd,bwd}_sm90.cu`` with the shared
 ``head_front`` of ``csrc/rowblock_sm90.cuh``) into a
 temporary directory, inserts after each phase's closing barrier a stamp of
 thread 0's ``clock64()`` that adds the phase's cycles to a device counter,
 builds that copy alone with nvcc, runs it on a seeded case (D = 128, 8
-heads, F = 256, inputs as ``layer_times.py`` makes them; the heads at A x M
+heads, F = 256, inputs as ``layer_times.py`` makes them, in bfloat16 but
+for ``f32-hopper`` and ``--dtype float32``; the heads at A x M
 rows) and prints one JSON line: the card (``nvidia-smi`` name and power
 limit), the cycles per atom (the heads: per 64-row tile of a block), each
 phase's share of them and the instrumented launch's mean CUDA-event ms.
@@ -60,6 +64,20 @@ HOPPER = (
 )
 HOPPER_PHASES = ["norm, QKV", "recompute attention", "out-projection, h_norm", "SwiGLU tiles",
                  "d_res, d_attn", "attention backward, d_cf", "d_n1, final norm"]
+F32_HOPPER = (
+    ('#include "layer_sm90.cuh"\n', False, STAMP),
+    ("    int c = 0;\n", False, "    long long t_prev = clock64();\n"),
+    ("    // ---- recompute: attention", True, None),
+    ("    // res = x1 + (attn w_out + b)", True, None),
+    ("    // ---- SwiGLU backward", True, None),
+    ("    // ---- norm_mlp backward", True, None),
+    ("    // ---- attention backward, pass 1", True, None),
+    ("    // ---- QKV + norm_attn backward", True, None),
+    ("}\n\ntemplate <bool SP>\nint launch_mode", True, None),
+)
+F32_HOPPER_PHASES = ["norm, QKV", "recompute attention", "out-projection, h_norm, g_eo",
+                     "SwiGLU tiles", "d_res, d_attn", "attention backward, d_cf",
+                     "d_n1, final norm"]
 K1_HOPPER = (
     ('#include "layer_sm90.cuh"\n', False, STAMP),
     ("    int c = 0;\n", False, "    long long t_prev = clock64();\n"),
@@ -114,7 +132,7 @@ K4_HEAD_PHASES = ["pre0 product", "h0 epilogue", "pre1 product", "d_pre1 epilogu
                   "d_h0 product", "d_pre0 epilogue", "d_x product, store", "wait for the next tile"]
 GENERAL_LAUNCHER = '''#include "layer_bwd.cuh"
 using namespace mtt;
-using T = __nv_bfloat16;
+using T = STORAGE;
 
 __global__ void __launch_bounds__(kThreads) k2_general(LayerBwdW<T> w, const T* e, const T* c,
         const float* cf, const T* ge, const T* gc, T* de, T* dc, float* dcf, int M, int D, int H,
@@ -158,14 +176,16 @@ def instrument(text: str, marks, phase: int = 0) -> str:
     return text
 
 
-def build(work: Path, body: str) -> Path:
+def build(work: Path, body: str, dtype: str) -> Path:
     for name in ("common.cuh", "layer_bwd.cuh", "layer_sm90.cuh", "fused_layer_bwd_sm90.cu",
                  "fused_layer_fwd_sm90.cu", "rowblock_sm90.cuh", "rowblock_fwd_sm90.cu",
-                 "rowblock_bwd_sm90.cu"):
+                 "rowblock_bwd_sm90.cu", "k2_f32_sm90.cuh", "fused_layer_bwd_f32_sm90.cu"):
         shutil.copy(CSRC / name, work / name)
-    if body in ("hopper", "k1-hopper"):
-        unit = work / ("fused_layer_bwd_sm90.cu" if body == "hopper" else "fused_layer_fwd_sm90.cu")
-        marks = HOPPER if body == "hopper" else K1_HOPPER
+    if body in ("hopper", "k1-hopper", "f32-hopper"):
+        unit, marks = {"hopper": ("fused_layer_bwd_sm90.cu", HOPPER),
+                       "k1-hopper": ("fused_layer_fwd_sm90.cu", K1_HOPPER),
+                       "f32-hopper": ("fused_layer_bwd_f32_sm90.cu", F32_HOPPER)}[body]
+        unit = work / unit
         unit.write_text(instrument(unit.read_text(), marks) + COUNTERS)
     elif body in ("k3-head", "k4-head"):
         header = work / "rowblock_sm90.cuh"
@@ -180,7 +200,8 @@ def build(work: Path, body: str) -> Path:
         header = work / "layer_bwd.cuh"
         header.write_text(instrument(header.read_text(), GENERAL))
         unit = work / "launcher.cu"
-        unit.write_text(GENERAL_LAUNCHER + COUNTERS)
+        storage = "float" if dtype == "float32" else "__nv_bfloat16"
+        unit.write_text(GENERAL_LAUNCHER.replace("STORAGE", storage) + COUNTERS)
     lib = work / "split.so"
     nvcc = shutil.which("nvcc") or str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
     subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -191,8 +212,10 @@ def build(work: Path, body: str) -> Path:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--body", choices=("hopper", "general", "k1-hopper", "k3-head", "k4-head"),
-                        required=True)
+    parser.add_argument("--body", choices=("hopper", "general", "f32-hopper", "k1-hopper", "k3-head",
+                                           "k4-head"), required=True)
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"), default=None,
+                        help="the general body's storage type (the Hopper bodies have one each)")
     parser.add_argument("--A", type=int, default=11392)
     parser.add_argument("--M", type=int, default=64)
     args = parser.parse_args()
@@ -204,6 +227,11 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()[0]
+    own = "float32" if args.body == "f32-hopper" else "bfloat16"
+    if args.dtype not in (None, own) and args.body != "general":
+        parser.error(f"--body {args.body} runs in {own}")
+    args.dtype = args.dtype or own
+    dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
     A, M, D, H, F = args.A, args.M, 128, 8, 256
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
@@ -215,18 +243,18 @@ def main() -> int:
          0.1 * torch.randn(3 * D, generator=gen), lecun(D, D), 0.1 * torch.randn(D, generator=gen),
          1 + 0.1 * torch.randn(D, generator=gen), lecun(D, 2 * F),
          0.1 * torch.randn(2 * F, generator=gen), lecun(F, D), 0.1 * torch.randn(D, generator=gen)]
-    w = [x.to(dev, torch.bfloat16).contiguous() for x in w]
+    w = [x.to(dev, dtype).contiguous() for x in w]
     n_real = torch.randint(M // 2, M - 1, (A, 1), generator=gen)
     cf = torch.rand(A, M, generator=gen) * (torch.arange(M)[None] < n_real)
     cf[:, M - 1] = 1.0
     cf = cf.to(dev)
-    e, c, ge, gc = (torch.randn(*s, generator=gen).to(dev, torch.bfloat16)
+    e, c, ge, gc = (torch.randn(*s, generator=gen).to(dev, dtype)
                     for s in ((A, M, D), (A, D), (A, M, D), (A, D)))
     de, dc, dcf = torch.empty_like(e), torch.empty_like(c), torch.empty_like(cf)
     scale, eps = 1.0 / math.sqrt(D // H), float(torch.finfo(torch.float32).eps)
     P, I, L, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     with tempfile.TemporaryDirectory() as tmp:
-        lib = ctypes.CDLL(str(build(Path(tmp), args.body)))
+        lib = ctypes.CDLL(str(build(Path(tmp), args.body, args.dtype)))
         stream = torch.cuda.current_stream(dev).cuda_stream
         if args.body in ("k3-head", "k4-head"):
             # the head at A x M rows: x, g and its weights in their (N, K)
@@ -251,14 +279,14 @@ def main() -> int:
 
             def run():
                 return fn(2, *vals, rows, D, D, D, D, blocks, stream)
-        elif args.body == "hopper":
+        elif args.body in ("hopper", "f32-hopper"):
             ptrs = [e, c, cf, *w[:9], *(w[i].t().contiguous() for i in (1, 3, 6)), ge, gc, de, dc,
                     dcf]
-            lib.mtt_fused_layer_bwd_sm90.argtypes = [P] * 20 + [L, I, I, I, I, F_, F_, P]
+            fn = lib.mtt_fused_layer_bwd_sm90 if args.body == "hopper" else lib.mtt_fused_layer_bwd_f32_sm90
+            fn.argtypes = [P] * 20 + [L, I, I, I, I, F_, F_, P]
 
             def run():
-                return lib.mtt_fused_layer_bwd_sm90(*(x.data_ptr() for x in ptrs), A, M, D, H, F,
-                                                    scale, eps, stream)
+                return fn(*(x.data_ptr() for x in ptrs), A, M, D, H, F, scale, eps, stream)
         elif args.body == "k1-hopper":
             # w_in^T with value and gate rows interleaved in blocks of 64, as
             # fused_layer.k1_sm90_w_vg arranges it
@@ -293,14 +321,16 @@ def main() -> int:
             run()
         end.record()
         torch.cuda.synchronize()
-    names = {"hopper": HOPPER_PHASES, "general": GENERAL_PHASES, "k1-hopper": K1_HOPPER_PHASES,
+    names = {"hopper": HOPPER_PHASES, "general": GENERAL_PHASES, "f32-hopper": F32_HOPPER_PHASES,
+             "k1-hopper": K1_HOPPER_PHASES,
              "k3-head": K3_HEAD_PHASES, "k4-head": K4_HEAD_PHASES}[args.body]
     cycles = list(counts)[:len(names)]
     total = sum(cycles)
     # the heads' stamps count per 64-row tile of a block
     per = {"cycles_per_tile": total / -(-A * M // 64)} if args.body.endswith("-head") else {
         "cycles_per_atom": total / A}
-    print(json.dumps({"card": card, "body": args.body, "shape": [A, M, D, H, F], **per,
+    print(json.dumps({"card": card, "body": args.body, "dtype": args.dtype,
+                      "shape": [A, M, D, H, F], **per,
                       "share": {n: x / total for n, x in zip(names, cycles)},
                       "instrumented_ms": start.elapsed_time(end) / 5}))
     return 0
