@@ -20,7 +20,9 @@ device and exits non-zero without one. Phases (any failure propagates):
    have launched in them; the pair searches must have run in the native
    neighbor library. One call of the f32 kernel path, every counter at 0
    just before it, must launch the Hopper float32 K2 of
-   ``csrc/fused_layer_bwd_f32_sm90.cu`` 4 times and the general K2 never. Energy, forces and virial must be finite; the bf16
+   ``csrc/fused_layer_bwd_f32_sm90.cu`` 4 times and the general K2 never,
+   and the Hopper float32 K4 of ``csrc/rowblock_bwd_f32_sm90.cu`` (``K4_F32``)
+   2 + 2 times and the general compress and combination K4 never. Energy, forces and virial must be finite; the bf16
    kernel path must match the f32 plain path (energy rel <= 1 %, force
    rel-RMSE <= 5 %, or 1.25 x the bf16 plain path's own error where that
    is larger) and the f32 kernel path the f32 plain path (energy rel <=
@@ -124,7 +126,9 @@ device and exits non-zero without one. Phases (any failure propagates):
    before it; K1, K3, K2-dW and K4-dW (all three stages) must launch in it
    (K2-dW: the two-pass kernels with the Hopper float32 K2's spill mode as
    first pass, ``K2DW_F32``, and never the accumulate body or the general
-   body's first pass)
+   body's first pass; the compress and combination K4-dW: the two-pass
+   kernels with the Hopper float32 K4's spill mode as first pass,
+   ``K4DW_F32``, and never the general body)
    and the second-order replays must run; every logged loss must be
    finite; ``model.ckpt`` must reload into a PET that gives the trained
    model's energy. Then W8A8 at the trained weights: ``model.ckpt``
@@ -141,7 +145,8 @@ device and exits non-zero without one. Phases (any failure propagates):
    parameter tensor rel L2 <= 1e-3; the fused step must launch the
    two-pass K2-dW's kernels (``K2DW_F32``) 8 times each (4 layers, in the
    forces' backward and in the loss's) and the accumulate body and the
-   general body's first pass never. Then one
+   general body's first pass never, and ``K4DW_F32`` 4 + 4 times (8 products)
+   and the general compress and combination K4-dW never. Then one
    bfloat16 step with the int8 scores (the trained model), kernel vs plain
    path: the absmax pass, K1-int8 and the two-pass K2-dW-int8 (8 each) must
    launch, the accumulate K2-dW-int8 never, and the layer's replay run;
@@ -149,20 +154,25 @@ device and exits non-zero without one. Phases (any failure propagates):
    one exact bfloat16 step (the trained model), kernel vs plain path, with
    the same gates: a weight requires grad, so the general K1, the two-pass
    K2-dW (8 each; its first pass the general body, ``K2DW``) and K4-dW must
-   launch and the Hopper K1, K2, K3 and K4 and the accumulate K2-dW never.
-   Phases 3b and 3c's f32 steps hold the f32 step's K2-dW counts.
+   launch and the Hopper K1, K2, K3 and K4, the float32 K4 and K4-dW and
+   the accumulate K2-dW never. Phase 3b's f32 steps hold the f32 step's
+   K2-dW and K4-dW counts, phase 3c's its K2-dW counts and K4-dW's kernels.
 7. training timing: ms per step and atom-steps/s (host clock around
    synchronised steps after a warm-up step) with the peak device memory,
    for the kernel, plain and GNN-block paths on the 2 x 2,048-atom batch
    (the kernel paths with a torch.profiler breakdown of one step) and for
    the kernel path on the 10,976-atom crystal as a batch of one; the timed
    steps of the (non-block) kernel paths must launch ``K2DW_F32`` 8 times a
-   step each, the general first pass and the accumulate body never.
+   step each, the general first pass and the accumulate body never, and
+   ``K4DW_F32`` 4 + 4 (+ 8) times a step, the general K4-dW compress and
+   combination never.
 7b. user entry points, ``metatrain_tpu_torch.__main__.main`` called in
    this process from a temporary directory: ``train`` on phase 5's frames
    (options written as JSON, 1 epoch, float32; every counter starts at 0
-   just before it: K1, K3, the two-pass K2-dW (``K2DW_F32``) and K4-dW must
-   launch, the accumulate K2-dW and the general first pass never; the final
+   just before it: K1, K3, the two-pass K2-dW (``K2DW_F32``), the two-pass
+   K4-dW (``K4DW_F32``) and the K4-dW head must launch, the accumulate
+   K2-dW, the general first pass and the general compress and combination
+   K4-dW never; the final
    evaluation's logged train and validation metrics must be finite);
    ``export`` of its ``model.ckpt`` (the exported and the trained
    ``model.mtt``'s weights must equal the checkpoint's best weights bit for
@@ -250,7 +260,20 @@ device and exits non-zero without one. Phases (any failure propagates):
    ``shapes``. ``rowblock_bwd[<stage>]`` keeps the general body in bf16
    (``sm90=False``), its launches the d_pet 256 calls'. K4's bound counts
    the inputs it reads (not the combination's messages), g, its outputs and
-   its three products. K3's compress and combination in bf16 are the
+   its three products; K4-dW's (compress, combination) the same bytes, the
+   float weight gradients and five products. K4 and K4-dW's compress and
+   combination in float32 are the Hopper float32 K4 and the two-pass K4-dW,
+   entries of their own (``rowblock_bwd_f32_sm90[<stage>]``,
+   ``rowblock_bwd_dw_f32_sm90[<stage>]``): input cotangents within 1e-4 of
+   max |plain|, weight gradients at ``compare_dw``'s bounds, every output
+   bitwise equal across two launches, K4-dW's input cotangents equal to
+   K4's, the general body (``sm90=False``) timed beside (``general_ms``),
+   the second pass alone on one chunk of the plan (``product_ms``), bounds
+   at the 3xTF32 peak and on the FFMA pipes, registers and shared bytes;
+   the same for the 2-part compress, and for the 3-part compress and the
+   combination at A = 11,000 x M = 48 and at 100,003 rows, under
+   ``shapes``. ``rowblock_bwd_dw[<stage>]`` keeps the general body
+   (``sm90=False``), its launches the exact bf16 step's. K3's compress and combination in bf16 are the
    Hopper K3, entries of their own (``rowblock_fwd_sm90[<stage>]``) with
    the same checks, and whether the output equals the general body's bit
    for bit (reported, not gated); the same for the 2-part compress and at
@@ -308,6 +331,16 @@ K2DW_PER_STEP = 8
 # what a float32 step at those shapes never launches: the accumulate body
 # and the general body's first pass
 K2DW_F32_NEVER = ("fused_layer_bwd_dw", "fused_layer_bwd_dw_sm90")
+# the float32 compress and combination at d_part 128: the Hopper float32 K4
+# (2 + 2 a force call) and the two-pass K4-dW, its spill mode (4 + 4 a
+# training step: 2 + 2 in the forces' backward and in the loss's) and its
+# product (8); never the general body's compress and combination
+K4_F32 = ("rowblock_bwd_f32_sm90[compress]", "rowblock_bwd_f32_sm90[combination]")
+K4DW_F32 = ("rowblock_bwd_dw_f32_sm90[compress]", "rowblock_bwd_dw_f32_sm90[combination]",
+            "rowblock_dw_product")
+K4DW_F32_PER_STEP = dict(zip(K4DW_F32, (4, 4, 8)))
+K4_F32_NEVER = ("rowblock_bwd[compress]", "rowblock_bwd[combination]",
+                "rowblock_bwd_dw[compress]", "rowblock_bwd_dw[combination]")
 
 
 def check_k2dw_launches(launches, kernels=K2DW_F32, never=K2DW_F32_NEVER, per_step=None):
@@ -320,6 +353,19 @@ def check_k2dw_launches(launches, kernels=K2DW_F32, never=K2DW_F32_NEVER, per_st
             or (per_step is not None and set(counts.values()) != {per_step})):
         fail(f"K2-dW launches {counts}, {ran}: expected {per_step or 'some'} each and none of "
              f"{never}")
+
+
+def check_k4dw_launches(launches, steps=None):
+    """The two-pass K4-dW's kernels launched (``steps`` x K4DW_F32_PER_STEP
+    times each where given) and the general body's compress and combination
+    not at all."""
+    counts = {k: launches.get(k, 0) for k in K4DW_F32}
+    ran = {k: launches[k] for k in K4_F32_NEVER if launches.get(k, 0)}
+    if (not all(counts.values()) or ran or (
+            steps is not None and counts != {k: n * steps for k, n in K4DW_F32_PER_STEP.items()})):
+        fail(f"K4-dW launches {counts}, {ran}: expected "
+             f"{'some' if steps is None else {k: n * steps for k, n in K4DW_F32_PER_STEP.items()}} "
+             f"and none of {K4_F32_NEVER}")
 
 
 def fail(message: str):
@@ -970,19 +1016,32 @@ def plan_table():
         # the Hopper K3's and K4's dispatch rules and budgets, C vs Python,
         # for every stage at d_part D, w_in of 1-4 parts, w_hid D or 2D,
         # w_out D or 128
+        # (the float32 K4 in float32, and its two-pass K4-dW's plan)
         hopper_rowblocks = (
             ("K3", lib.mtt_rowblock_fwd_sm90_ok, lib.mtt_rowblock_fwd_sm90_smem,
-             _lib.k3_sm90_takes, _lib.k3_sm90_smem),
+             _lib.k3_sm90_takes, _lib.k3_sm90_smem, torch.bfloat16),
             ("K4", lib.mtt_rowblock_bwd_sm90_ok, lib.mtt_rowblock_bwd_sm90_smem,
-             _lib.k4_sm90_takes, _lib.k4_sm90_smem))
+             _lib.k4_sm90_takes, _lib.k4_sm90_smem, torch.bfloat16),
+            ("float32 K4", lib.mtt_rowblock_bwd_f32_sm90_ok, lib.mtt_rowblock_bwd_f32_sm90_smem,
+             _lib.k4_f32_sm90_takes, _lib.k4_f32_sm90_smem, torch.float32))
         for stage in (0, 1, 2):
             for w_in in range(D, 4 * D + 1, D):
                 for w_hid in (D, 2 * D):
+                    if stage < 2:
+                        for rows in (1, 100003, 262144, 729088):
+                            out = (ctypes.c_longlong * 5)()
+                            lib.mtt_rowblock_bwd_dw_f32_sm90_plan(stage, rows, w_in, w_hid, D, 132,
+                                                                  out)
+                            py_side = _lib.k4dw_plan(stage, rows, w_in, w_hid, 132)[:5]
+                            if tuple(out) != tuple(py_side):
+                                fail(f"K4-dW plan at stage {stage}, {rows} rows, {w_in}/{w_hid}: "
+                                     f"C {tuple(out)} != Python {py_side}")
+                            checked += 1
                     for w_out in sorted({D, 128}):
-                        for kernel, c_ok, c_smem, py_takes, py_smem in hopper_rowblocks:
+                        for kernel, c_ok, c_smem, py_takes, py_smem, dt in hopper_rowblocks:
                             widths = (stage, D, w_in, w_hid, w_out)
                             c_side = (bool(c_ok(*widths)), c_smem(*widths))
-                            py_side = (py_takes(torch.bfloat16, *widths), py_smem(*widths))
+                            py_side = (py_takes(dt, *widths), py_smem(*widths))
                             if c_side != py_side:
                                 fail(f"Hopper {kernel} rule at stage {stage}, D={D}, "
                                      f"{w_in}/{w_hid}/{w_out}: C {c_side} != Python {py_side}")
@@ -1345,13 +1404,16 @@ def stage_cases(rows, D, gen, device):
 
 
 def rowblock_sizes(stage, xs, weights, g):
-    """(bytes, operations) of K3 (and the Hopper K3), K4 (and the Hopper K4)
-    and K4-dW at these inputs. K3 reads every input and writes the output,
-    and runs the stage's two products. K4 reads the inputs it differentiates (compress: the parts;
-    combination: edges and reversed, not the messages), g and the weights
-    but b1, writes one cotangent per input it reads, and runs three products
-    (pre, g w1^T, d_pre w0^T); the head recomputes both layers (b1 read,
-    four products)."""
+    """(bytes, operations) of K3 (and the Hopper K3), K4 (and the Hopper K4,
+    the Hopper float32 K4) and K4-dW at these inputs. K3 reads every input
+    and writes the output, and runs the stage's two products. K4 reads the
+    inputs it differentiates (compress: the parts; combination: edges and
+    reversed, not the messages), g and the weights but b1, writes one
+    cotangent per input it reads, and runs three products (pre, g w1^T,
+    d_pre w0^T); the head recomputes both layers (b1 read, four products).
+    K4-dW moves K4's bytes and writes the float weight gradients, and runs
+    K4's products and the two X^T dY (X^T d_pre, h^T g); the head's six
+    (its two layers recomputed, two input-side and two X^T dY)."""
     from metatrain_tpu_torch.ops.kernels import rowblock as rb
 
     (_, _), (w0, _, w1, b1) = rb._split_weights(stage, weights)
@@ -1368,11 +1430,16 @@ def rowblock_sizes(stage, xs, weights, g):
     head = stage.code == rb.HEAD_CODE
     k4 = (2 * io_d + io_g + (n_w - (0 if head else b1.numel())) * s_,
           2 * flops if head else 2 * rows_ * (w_in * w_hid + w_out * w_hid + w_hid * w_in))
+    k4dw = ((io_in + io_g + io_d + n_w * (s_ + 4), 3 * flops) if head else
+            (2 * io_d + io_g + n_w * (s_ + 4),
+             2 * rows_ * (3 * w_in * w_hid + 2 * w_hid * w_out)))
     return {f"rowblock_fwd[{stage.name}]": (io_in + io_g + n_w * s_, flops),
             f"rowblock_fwd_sm90[{stage.name}]": (io_in + io_g + n_w * s_, flops),
             f"rowblock_bwd[{stage.name}]": k4,
             f"rowblock_bwd_sm90[{stage.name}]": k4,
-            f"rowblock_bwd_dw[{stage.name}]": (io_in + io_g + io_d + n_w * (s_ + 4), 3 * flops)}
+            f"rowblock_bwd_f32_sm90[{stage.name}]": k4,
+            f"rowblock_bwd_dw[{stage.name}]": k4dw,
+            f"rowblock_bwd_dw_f32_sm90[{stage.name}]": k4dw}
 
 
 def check_rowblock_sm90(kind, stage, xs, weights, g, k_out, p_out, size):
@@ -1491,11 +1558,102 @@ def check_rowblock(rows, D, gen, device, report):
                          *sizes[dw_name], dtype)
             check_dw(
                 f"rowblock_bwd_dw[{stage.name}]", tag, dtype,
-                lambda: rb.rowblock_bwd_cuda(stage, xs, weights, g, weight_grads=True),
+                lambda: rb.rowblock_bwd_cuda(stage, xs, weights, g, weight_grads=True, sm90=False),
                 lambda: stage.bwd(xs, weights, g, weight_grads=True),
                 len(xs), dw_report,
             )
+            if dtype == torch.float32 and stage.code != rb.HEAD_CODE:
+                check_k4_f32(stage, xs, weights, g, sizes, report)
         torch.cuda.empty_cache()
+
+
+def k4_f32_bounds(entry, tag, size):
+    """The bound of ``size`` (bytes, operations) as 3xTF32 products
+    (``bound_ms``) and on the FFMA pipes (``bound_ms_ffma``)."""
+    record_bound(entry, tag, *size, torch.float32, peak=PEAK_3XTF32_OPS_PER_S)
+    ffma = {}
+    record_bound(ffma, "x", *size, torch.float32)
+    entry[f"bound_ms_ffma_{tag}"] = ffma["bound_ms_x"]
+
+
+def check_k4_f32(stage, xs, weights, g, sizes, report, key=None):
+    """The Hopper float32 K4 and the two-pass K4-dW at one shape (float32):
+    the rule's kernels ran; the input cotangents within 1e-4 of max |plain|,
+    the weight gradients within ``compare_dw``'s bounds, every output
+    bitwise equal over two launches, and K4-dW's input cotangents equal to
+    K4's bit for bit (one body, two modes); the general body's time beside
+    (``sm90=False``). With ``key`` the numbers go under the entries'
+    ``shapes``; at the served rows (no ``key``) also the bounds, the
+    spill's bytes, and the second pass alone on one chunk of the plan
+    against ``rowblock_dw_from_operands`` (``product_ms``)."""
+    from metatrain_tpu_torch.ops.kernels import _lib
+    from metatrain_tpu_torch.ops.kernels import rowblock as rb
+
+    (_, _), (w0, _, _, _) = rb._split_weights(stage, weights)
+    w_in, w_hid = w0.shape
+    rows = xs[0].shape[0]
+    n = rb._n_input_grads(stage, len(xs))
+    k4_name, dw_name = f"rowblock_bwd_f32_sm90[{stage.name}]", f"rowblock_bwd_dw_f32_sm90[{stage.name}]"
+    before = _lib.LAUNCHES[k4_name], _lib.LAUNCHES[dw_name]
+    k_out = rb.rowblock_bwd_cuda(stage, xs, weights, g)
+    dw_out = rb.rowblock_bwd_cuda(stage, xs, weights, g, weight_grads=True)
+    torch.cuda.synchronize()
+    ran = (_lib.LAUNCHES[k4_name] - before[0], _lib.LAUNCHES[dw_name] - before[1])
+    takes = _lib.k4_f32_sm90_takes(torch.float32, stage.code, xs[0].shape[1], w_in, w_hid,
+                                   g.shape[1])
+    if ran != ((1, 1) if takes else (0, 0)):
+        fail(f"the Hopper float32 K4 ({stage.name}, {rows} rows) launched {ran}, the rule says "
+             f"{takes}")
+    if not all(torch.equal(a, b) for a, b in zip(k_out[:n], dw_out[:n])):
+        fail(f"the two-pass K4-dW's input cotangents differ from the Hopper float32 K4's "
+             f"({stage.name}, {rows} rows)")
+    again = rb.rowblock_bwd_cuda(stage, xs, weights, g)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(k_out, again)):
+        fail(f"the Hopper float32 K4 ({stage.name}) gave different outputs in two launches")
+    del again, dw_out
+    err, worst = compare(k_out[:n], stage.bwd(xs, weights, g)[:n], torch.float32)
+    del k_out
+    general = lambda: rb.rowblock_bwd_cuda(stage, xs, weights, g, sm90=False)  # noqa: E731
+    k4 = {"max_abs_err": err, "bound_ratio": worst, "bitwise_repeat": True,
+          "ms": cuda_ms(lambda: rb.rowblock_bwd_cuda(stage, xs, weights, g)),
+          "general_ms": cuda_ms(general)}
+    dw = {}
+    check_dw(dw_name, "x", torch.float32,
+             lambda: rb.rowblock_bwd_cuda(stage, xs, weights, g, weight_grads=True),
+             lambda: stage.bwd(xs, weights, g, weight_grads=True), n, {dw_name: dw})
+    dw = {k[:-2]: v for k, v in dw.items()} | {"inputs_equal_k4": True, "general_ms": cuda_ms(
+        lambda: rb.rowblock_bwd_cuda(stage, xs, weights, g, weight_grads=True, sm90=False), 3)}
+    if key is not None:
+        for name, sub in ((k4_name, k4), (dw_name, dw)):
+            report.setdefault(name, {"library_ms": None}).setdefault("shapes", {})[key] = sub
+        return
+    sms = _lib.sm_count(g.device)
+    plan = _lib.k4dw_plan(stage.code, rows, w_in, w_hid, sms)
+    dw["workspace_bytes"] = plan.spill_bytes + 4 * max(plan.max_slices, 1) * sum(
+        x.numel() for x in weights)
+    dw["chunks"], dw["chunk_rows"] = plan.chunks, plan.chunk_tiles * _lib.ROW_TILE
+    r1 = min(rows, dw["chunk_rows"])
+    sub = [x[:r1] for x in xs]
+    ops = rb.rowblock_dw_operands(stage, sub, weights, g[:r1])
+    one = _lib.k4dw_plan(stage.code, r1, w_in, w_hid, sms, cap=1 << 62)
+    k_dw = rb.rowblock_dw_product_cuda(stage, sub, g[:r1], ops, sms)
+    p_dw = rb.rowblock_dw_from_operands(stage, sub, g[:r1], ops, one)
+    torch.cuda.synchronize()
+    dw["product_max_abs_err"], dw["product_bound_ratio"] = compare_dw(k_dw, p_dw, torch.float32)
+    dw["product_ms"] = cuda_ms(lambda: rb.rowblock_dw_product_cuda(stage, sub, g[:r1], ops, sms))
+    dw["product_plain_ms"] = cuda_ms(lambda: rb.rowblock_dw_from_operands(stage, sub, g[:r1], ops,
+                                                                          one), 2)
+    del ops, k_dw, p_dw
+    for name, sub_entry in ((k4_name, k4), (dw_name, dw)):
+        entry = report.setdefault(name, {"library_ms": None})
+        if len(xs) < 3 and stage.name == "compress":
+            entry.setdefault("shapes", {})[f"rows{rows}_compress2"] = sub_entry
+            continue
+        entry.update({f"{k}_f32": v for k, v in sub_entry.items()})
+        entry["plain_ms_f32"] = cuda_ms(lambda: stage.bwd(xs, weights, g, weight_grads="_dw" in name))
+        k4_f32_bounds(entry, "f32", sizes[name])
+    torch.cuda.empty_cache()
 
 
 def check_rowblock_sm90_shapes(gen, device, report, D=128):
@@ -1529,6 +1687,14 @@ def check_rowblock_sm90_shapes(gen, device, report, D=128):
                 sub = check_rowblock_sm90(kind, stage, xs, weights, g, k_out, p_fn(), sizes[name])
                 report.setdefault(name, {}).setdefault("shapes", {})[key] = sub
                 del k_out
+        torch.cuda.empty_cache()
+    # the Hopper float32 K4 and the two-pass K4-dW: the 3-part compress and
+    # the combination at A = 11,000 x M = 48 and at a partial last tile
+    for rows in (11000 * 48, 100003):
+        for stage, inputs, weights in stage_cases(rows, D, gen, device)[::2][:2]:
+            g = torch.randn(rows, D, generator=gen).to(device)
+            check_k4_f32(stage, inputs, weights, g, None, report,
+                         key=f"rows{rows}_{stage.name}{len(inputs) if stage.name == 'compress' else ''}")
         torch.cuda.empty_cache()
 
 
@@ -1763,7 +1929,7 @@ def profile_calls(fn, calls=2):
         us = getattr(evt, "self_device_time_total", None)
         kernels[evt.key] = (evt.self_cuda_time_total if us is None else us) / 1e3 / calls
     busy = sum(kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:16]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:24]
     return {"wall_ms_per_call": wall, "device_busy_ms_per_call": busy,
             "idle_share": 1.0 - busy / wall, "kernels_ms_per_call": dict(top)}
 
@@ -2061,9 +2227,9 @@ def check_physics(device, report, workdir):
         torch.cuda.empty_cache()
         report[f"training_parity_{key}"] = check_training_parity(
             workdir / "cu_lj_charged.xyz", state, device, hypers,
-            expected=("fused_layer_fwd", *K2DW_F32, "rowblock_fwd[compress]",
-                      "rowblock_bwd_dw[compress]"), replayed=("fused_layer",),
-            absent=K2DW_F32_NEVER, per_step={k: K2DW_PER_STEP for k in K2DW_F32})
+            expected=("fused_layer_fwd", *K2DW_F32, "rowblock_fwd[compress]", *K4DW_F32),
+            replayed=("fused_layer",), absent=K2DW_F32_NEVER + K4_F32_NEVER,
+            per_step={k: K2DW_PER_STEP for k in K2DW_F32} | K4DW_F32_PER_STEP)
         torch.cuda.empty_cache()
 
 
@@ -2257,8 +2423,8 @@ def check_generic_training(path, device):
     # the general K1 and K3, K2-dW and K4-dW; a K3 head per target and at
     # least one K4-dW head per target
     check_k2dw_launches(launches, per_step=K2DW_PER_STEP)
-    missing = [k for k in ("fused_layer_fwd", "rowblock_fwd[compress]",
-                           "rowblock_bwd_dw[compress]") if not launches.get(k)]
+    check_k4dw_launches(launches)
+    missing = [k for k in ("fused_layer_fwd", "rowblock_fwd[compress]") if not launches.get(k)]
     if (missing or launches.get("rowblock_fwd[head]") != len(infos)
             or launches.get("rowblock_bwd_dw[head]", 0) < len(infos)):
         fail(f"generic training step launched {launches}; missing {missing}, expected "
@@ -2744,13 +2910,13 @@ def check_training(device, report, workdir):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches, replays = dict(_lib.LAUNCHES), dict(_lib.REPLAYS)
-    expected = ["fused_layer_fwd", *K2DW_F32] + [
-        f"rowblock_{d}[{s}]" for d in ("fwd", "bwd_dw") for s in STAGE_NAMES
-    ]
+    expected = ["fused_layer_fwd", *K2DW_F32, *K4DW_F32, "rowblock_bwd_dw[head]"] + [
+        f"rowblock_fwd[{s}]" for s in STAGE_NAMES]
     missing = [k for k in expected if launches.get(k, 0) == 0]
     if missing:
         fail(f"kernels not launched in the training run: {missing}")
     check_k2dw_launches(launches)
+    check_k4dw_launches(launches)
     no_replay = [k for k in ["fused_layer"] + [f"rowblock[{s}]" for s in STAGE_NAMES]
                  if replays.get(k, 0) == 0]
     if no_replay:
@@ -2901,6 +3067,7 @@ def time_training(workdir, state, device, report, steps=3):
         ms = (time.perf_counter() - t0) / steps * 1e3
         if key.startswith("kernel") and not fused_gnn:
             check_k2dw_launches(dict(_lib.LAUNCHES), per_step=K2DW_PER_STEP * steps)
+            check_k4dw_launches(dict(_lib.LAUNCHES), steps)
         if not math.isfinite(loss.item()):
             fail(f"{key}: training loss not finite")
         timing[key] = {"ms_per_step": ms, "atoms": n_atoms,
@@ -2985,12 +3152,13 @@ def check_entry_points(device, report, workdir):
         torch.cuda.synchronize()
         out["train_s"] = time.perf_counter() - t0
         launches = dict(_lib.LAUNCHES)
-        expected = ["fused_layer_fwd", *K2DW_F32] + [
-            f"rowblock_{d}[{s}]" for d in ("fwd", "bwd_dw") for s in STAGE_NAMES]
+        expected = ["fused_layer_fwd", *K2DW_F32, *K4DW_F32, "rowblock_bwd_dw[head]"] + [
+            f"rowblock_fwd[{s}]" for s in STAGE_NAMES]
         missing = [k for k in expected if launches.get(k, 0) == 0]
         if missing:
             fail(f"kernels not launched by the train command: {missing}")
         check_k2dw_launches(launches)
+        check_k4dw_launches(launches)
         out["train_launches"] = launches
         final = {split: logged_metrics(messages, split + " ") for split in ("train", "validation")}
         values = [v for metrics in final.values() for v in metrics.values()]
@@ -3171,6 +3339,11 @@ SOURCES = {
                            "metatrain_tpu/ops/pallas/fused_layer.py:1269 (weight_grads=True)"),
     "rowblock_bwd_dw": ("metatrain_tpu_torch/csrc/rowblock_bwd.cu",
                         "metatrain_tpu/ops/pallas/rowblock.py:279 (weight_grads=True)"),
+    "rowblock_bwd_f32_sm90": ("metatrain_tpu_torch/csrc/rowblock_bwd_f32_sm90.cu",
+                              "metatrain_tpu/ops/pallas/rowblock.py:279 (float32, d_part 128)"),
+    "rowblock_bwd_dw_f32_sm90": ("metatrain_tpu_torch/csrc/rowblock_bwd_f32_sm90.cu",
+                                 "metatrain_tpu/ops/pallas/rowblock.py:279 "
+                                 "(weight_grads=True, float32, d_part 128)"),
     "permute": ("metatrain_tpu_torch/csrc/permute.cu",
                 "metatrain_tpu/ops/pallas/color_gather.py:834 and :635"),
     "permute_acc": ("metatrain_tpu_torch/csrc/permute.cu",
@@ -3200,7 +3373,7 @@ SOURCES = {
                                 "(weight_grads=True, int8 scores)"),
 }
 UNFUSED_PATH = ("permute", "permute_acc", "window_attention_fwd", "window_attention_bwd")
-N_ENTRIES = 33
+N_ENTRIES = 37
 
 
 def launch_count(report, name):
@@ -3214,14 +3387,19 @@ def launch_count(report, name):
     force calls for the rest; the int8 scores' from their force calls and
     (K2-dW-int8) their training step. K2-dW and K2-dW-int8 count the
     two-pass kernels' launches (K2-dW in the float32 training run: the
-    Hopper float32 K2's spill mode); the Hopper float32 K2 its launches in
-    one call of phase 3's float32 kernel path."""
+    Hopper float32 K2's spill mode); the Hopper float32 K2 and K4 their
+    launches in one call of phase 3's float32 kernel path; the general
+    K4-dW's compress and combination theirs in the exact bf16 step (the
+    float32 steps run the two-pass K4-dW)."""
     if name == "fused_layer_bwd_dw_int8":
         return report["training_parity_int8"]["launches"]["fused_layer_bwd_dw_int8_sm90"]
     if name == "fused_layer_bwd_dw":
         return report["train_launches"][K2DW_F32[0]]
-    if name == "fused_layer_bwd_f32_sm90":
+    if name == "fused_layer_bwd_f32_sm90" or name.startswith("rowblock_bwd_f32_sm90"):
         return report["slice"]["launches_f32_per_call"][name]
+    if name in ("rowblock_bwd_dw[compress]", "rowblock_bwd_dw[combination]"):
+        # float32 steps run the two-pass K4-dW, bf16 steps this body
+        return report["training_parity_bf16"]["launches"][name]
     if name.endswith("_int8") or name == "int8_absmax":
         source = report["slice_int8"]["launches"]
     elif name.endswith("_w8a8"):
@@ -3237,6 +3415,52 @@ def launch_count(report, name):
     if name == "fused_layer_bwd":  # the served bf16 calls run the Hopper K2
         return source["fused_layer_bwd_sm90"]
     return source[name]
+
+
+def kernel_entries(report, kernels):
+    """The ``kernels`` line's entries, one per kernel of ``kernels``."""
+    # the served paths run in bfloat16 and the training path in float32:
+    # each entry leads with the errors and times of its path's dtype, and
+    # its launches are those of its path's run (the unfused force calls for
+    # the kernels that path added)
+    entries = []
+    for name, entry in kernels.items():
+        source, replaces = SOURCES[name.split("[")[0]]
+        # the float32 kernels lead with float32 (the Hopper float32 K2 has
+        # no bf16 numbers)
+        trains = (("_dw" in name or name == "fused_layer_fwd") and "ms_f32" in entry
+                  or "ms_bf16" not in entry and "ms_f32" in entry)
+        lead, other = ("f32", "bf16") if trains else ("bf16", "f32")
+        out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": launch_count(report, name),
+               "dtype": "float32" if trains else "bfloat16"}
+        for tag, suffix in ((lead, ""), (other, f"_{other}")):
+            if f"ms_{tag}" not in entry:  # the W8A8 kernels run in bfloat16 only
+                continue
+            out[f"max_abs_err{suffix}"] = entry[f"max_abs_err_{tag}"]
+            out[f"ms{suffix}"] = entry[f"ms_{tag}"]
+            out[f"plain_ms{suffix}"] = entry[f"plain_ms_{tag}"]
+            out[f"bound_ms{suffix}"] = entry[f"bound_ms_{tag}"]
+            out[f"bound_by{suffix}"] = entry[f"bound_by_{tag}"]
+            out[f"library_ms{suffix}"] = entry.get(f"library_ms_{tag}", entry.get("library_ms"))
+            if f"per_layer_ms_{tag}" in entry:
+                out[f"per_layer_ms{suffix}"] = entry[f"per_layer_ms_{tag}"]
+            if f"general_ms_{tag}" in entry:  # the Hopper kernels' general bodies
+                out[f"general_ms{suffix}"] = entry[f"general_ms_{tag}"]
+            if f"workspace_bytes_{tag}" in entry:  # the two-pass K2-dW's spill
+                out[f"workspace_bytes{suffix}"] = entry[f"workspace_bytes_{tag}"]
+            if f"bound_ms_ffma_{tag}" in entry:  # the Hopper float32 K2 on FFMA pipes
+                out[f"bound_ms_ffma{suffix}"] = entry[f"bound_ms_ffma_{tag}"]
+        if name.startswith("fused_layer_bwd_dw"):  # the two-pass K2-dW's second kernel
+            out["product_launches"] = (
+                report["training_parity_int8"]["launches"] if name.endswith("_int8")
+                else report["train_launches"])["layer_dw_product"]
+        if name.startswith("rowblock_bwd_dw_f32_sm90"):  # the two-pass K4-dW's second pass
+            out["product_launches"] = report["train_launches"]["rowblock_dw_product"]
+        if "shapes" in entry:
+            out["shapes"] = entry["shapes"]
+        entries.append(out)
+    return entries
 
 
 def check_neighbor_backend(report):
@@ -3286,6 +3510,10 @@ def main() -> int:
     if f32_call.get("fused_layer_bwd_f32_sm90") != 4 or f32_call.get("fused_layer_bwd", 0):
         fail(f"the f32 force call launched {f32_call}: 4 Hopper float32 K2 and no general K2 "
              "expected")
+    if ({k: f32_call.get(k, 0) for k in K4_F32} != dict.fromkeys(K4_F32, 2)
+            or any(f32_call.get(k, 0) for k in K4_F32_NEVER)):
+        fail(f"the f32 force call launched {f32_call}: 2 + 2 Hopper float32 K4 and no general "
+             "compress or combination K4 expected")
     A, M = report["slice"]["padded"]
     print("slice:", json.dumps({k: report["slice"][k] for k in (
         "padded", "launches", "launches_f32_per_call", "parity")}
@@ -3411,8 +3639,9 @@ def main() -> int:
               flush=True)
         torch.cuda.empty_cache()
         report["training_parity"] = check_training_parity(
-            workdir / "cu_lj.xyz", state, device, expected=K2DW_F32, absent=K2DW_F32_NEVER,
-            per_step={k: K2DW_PER_STEP for k in K2DW_F32})
+            workdir / "cu_lj.xyz", state, device, expected=K2DW_F32 + K4DW_F32,
+            absent=K2DW_F32_NEVER + K4_F32_NEVER,
+            per_step={k: K2DW_PER_STEP for k in K2DW_F32} | K4DW_F32_PER_STEP)
         print("training parity:", json.dumps(report["training_parity"]), flush=True)
         report["training_parity_unfused"] = check_training_parity(
             workdir / "cu_lj.xyz", random_state(UNFUSED), device, UNFUSED,
@@ -3441,7 +3670,7 @@ def main() -> int:
                       "rowblock_bwd_dw[combination]"),
             replayed=("fused_layer",), dtype=torch.bfloat16,
             absent=("fused_layer_fwd_sm90", "fused_layer_bwd_sm90", "fused_layer_bwd_dw",
-                    *ROWBLOCK_SM90_KERNELS),
+                    *ROWBLOCK_SM90_KERNELS, *K4_F32, *K4DW_F32),
             per_step={k: K2DW_PER_STEP for k in K2DW})
         print("training step, exact bf16:", json.dumps(report["training_parity_bf16"]), flush=True)
         torch.cuda.empty_cache()
@@ -3482,6 +3711,18 @@ def main() -> int:
     check_rowblock(A * M, D, gen, device, kernels)
     check_rowblock_sm90_shapes(gen, device, kernels, D)
     lib = _lib.library()
+    for code, stage in enumerate(("compress", "combination")):
+        w_in, w_hid = (3 * D, D) if code == 0 else (2 * D, 2 * D)
+        for name in (f"rowblock_bwd_f32_sm90[{stage}]", f"rowblock_bwd_dw_f32_sm90[{stage}]"):
+            kernels[name]["smem_bytes"] = lib.mtt_rowblock_bwd_f32_sm90_smem(code, D, w_in, w_hid, D)
+            if build_log.exists():  # the plain and spill-mode instantiations (mangled names)
+                kernels[name]["ptxas_f32"] = ptxas_usage(build_log.read_text(),
+                                                         f"k4_f32_sm90_kernelILi{code}E")
+            print(f"Hopper float32 {name} (general body's ms beside):", json.dumps(
+                {key: kernels[name].get(key) for key in (
+                    "ms_f32", "general_ms_f32", "bound_ms_f32", "bound_ms_ffma_f32",
+                    "bound_ratio_f32", "product_ms_f32", "chunks_f32", "ptxas_f32", "smem_bytes",
+                    "shapes")}), flush=True)
     for k in (3, 4):
         kind = "fwd" if k == 3 else "bwd"
         for code, stage in enumerate(STAGE_NAMES):
@@ -3516,45 +3757,7 @@ def main() -> int:
 
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    # the served paths run in bfloat16 and the training path in float32:
-    # each entry leads with the errors and times of its path's dtype, and
-    # its launches are those of its path's run (the unfused force calls for
-    # the kernels that path added)
-    entries = []
-    for name, entry in kernels.items():
-        source, replaces = SOURCES[name.split("[")[0]]
-        # the float32 kernels lead with float32 (the Hopper float32 K2 has
-        # no bf16 numbers)
-        trains = (("_dw" in name or name == "fused_layer_fwd") and "ms_f32" in entry
-                  or "ms_bf16" not in entry and "ms_f32" in entry)
-        lead, other = ("f32", "bf16") if trains else ("bf16", "f32")
-        out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-               "launches": launch_count(report, name),
-               "dtype": "float32" if trains else "bfloat16"}
-        for tag, suffix in ((lead, ""), (other, f"_{other}")):
-            if f"ms_{tag}" not in entry:  # the W8A8 kernels run in bfloat16 only
-                continue
-            out[f"max_abs_err{suffix}"] = entry[f"max_abs_err_{tag}"]
-            out[f"ms{suffix}"] = entry[f"ms_{tag}"]
-            out[f"plain_ms{suffix}"] = entry[f"plain_ms_{tag}"]
-            out[f"bound_ms{suffix}"] = entry[f"bound_ms_{tag}"]
-            out[f"bound_by{suffix}"] = entry[f"bound_by_{tag}"]
-            out[f"library_ms{suffix}"] = entry.get(f"library_ms_{tag}", entry.get("library_ms"))
-            if f"per_layer_ms_{tag}" in entry:
-                out[f"per_layer_ms{suffix}"] = entry[f"per_layer_ms_{tag}"]
-            if f"general_ms_{tag}" in entry:  # the Hopper kernels' general bodies
-                out[f"general_ms{suffix}"] = entry[f"general_ms_{tag}"]
-            if f"workspace_bytes_{tag}" in entry:  # the two-pass K2-dW's spill
-                out[f"workspace_bytes{suffix}"] = entry[f"workspace_bytes_{tag}"]
-            if f"bound_ms_ffma_{tag}" in entry:  # the Hopper float32 K2 on FFMA pipes
-                out[f"bound_ms_ffma{suffix}"] = entry[f"bound_ms_ffma_{tag}"]
-        if name.startswith("fused_layer_bwd_dw"):  # the two-pass K2-dW's second kernel
-            out["product_launches"] = (
-                report["training_parity_int8"]["launches"] if name.endswith("_int8")
-                else report["train_launches"])["layer_dw_product"]
-        if "shapes" in entry:
-            out["shapes"] = entry["shapes"]
-        entries.append(out)
+    entries = kernel_entries(report, kernels)
     if len(entries) != N_ENTRIES:
         fail(f"expected {N_ENTRIES} kernel entries, got {sorted(kernels)}")
     print(json.dumps({"kernels": entries}))

@@ -141,7 +141,7 @@ int run(Pass1Args<T> p, long long A, int ws_blocks, int sms, float* partials, fl
         if (err != 0) return err;
         const dwp::ProductArgs<T> a = dwp::product_args<T>(p.sp.rows, p.sp.R, p.g_edge + p.a0 * p.M * p.D,
                                                            atoms * p.M, p.M, p.D, p.F, sms, partials);
-        err = dwp::run_products<T>(a, p.sp.vec, atoms, dw, c == 0, stream);
+        err = dwp::run_products<T>(a, p.sp.vec, atoms, dwp::k2_vec_map(p.D, p.F), dw, c == 0, stream);
         if (err != 0) return err;
     }
     return 0;
@@ -250,9 +250,9 @@ extern "C" int mtt_layer_dw_product(int dtype, const void* spill, const float* v
     if (dtype == 0) {
         const auto a = mtt::dwp::product_args<float>((const float*)spill, R, (const float*)g_edge, R, M, D, F,
                                                      sms, partials);
-        return mtt::dwp::run_products<float>(a, vec, atoms, dw, true, s);
+        return mtt::dwp::run_products<float>(a, vec, atoms, mtt::dwp::k2_vec_map(D, F), dw, true, s);
     }
     using bf = __nv_bfloat16;
     const auto a = mtt::dwp::product_args<bf>((const bf*)spill, R, (const bf*)g_edge, R, M, D, F, sms, partials);
-    return mtt::dwp::run_products<bf>(a, vec, atoms, dw, true, s);
+    return mtt::dwp::run_products<bf>(a, vec, atoms, mtt::dwp::k2_vec_map(D, F), dw, true, s);
 }

@@ -1,7 +1,10 @@
 // K2-dW's plan and its second pass (fused_layer_bwd_dw_sm90.cu describes
 // the design): the weight gradients dW = X^T dY of one chunk of spilled
 // rows as a deterministic split-K product, the per-atom vector rows summed
-// the same way, and the sum of the slices' partials.
+// the same way, and the sum of the slices' partials. The float32 K4-dW
+// (rowblock_bwd_f32_sm90.cu) runs the same second pass on its own products
+// (each product's shape in tiles comes from its arguments) and its per-tile
+// vector rows.
 //
 // The plan (mirrored by _lib.k2dw_plan): atoms in chunks whose spill (the
 // operand rows in T, then one float row of vector sums per atom) stays
@@ -19,7 +22,7 @@
 
 namespace mtt {
 namespace dwp {
-namespace {  // one translation unit includes this header
+namespace {  // each translation unit that includes this header has its own copy
 
 using sm90::bf16;
 
@@ -48,18 +51,26 @@ struct Plan {
 // wave (2 SMs / tiles, at least 1), fewer where a slice would hold under
 // kMinSliceRows rows; `step` rows each (a multiple of kStepRows), the last
 // one shorter.
-__host__ __device__ inline long long slice_target(long long R, int D, int F, int sms) {
-    const long long tiles = product_tiles(D, F) > 1 ? product_tiles(D, F) : 1;
-    long long s = 2LL * sms / tiles;
+// tiles: the products' output tiles.
+__host__ __device__ inline long long slice_target_tiles(long long R, int tiles, int sms) {
+    long long s = 2LL * sms / (tiles > 1 ? tiles : 1);
     const long long most = R / kMinSliceRows;
     if (s > most) s = most;
     return s < 1 ? 1 : s;
 }
 
-__host__ __device__ inline long long slice_step(long long R, int D, int F, int sms) {
-    const long long s = slice_target(R, D, F, sms);
+__host__ __device__ inline long long slice_step_tiles(long long R, int tiles, int sms) {
+    const long long s = slice_target_tiles(R, tiles, sms);
     const long long step = (R + s - 1) / s;
     return (step + kStepRows - 1) / kStepRows * kStepRows;
+}
+
+__host__ __device__ inline long long slice_target(long long R, int D, int F, int sms) {
+    return slice_target_tiles(R, product_tiles(D, F), sms);
+}
+
+__host__ __device__ inline long long slice_step(long long R, int D, int F, int sms) {
+    return slice_step_tiles(R, product_tiles(D, F), sms);
 }
 
 __host__ __device__ inline long long vector_floats(int D, int F) { return DwLayout(D, F, true).total; }
@@ -91,15 +102,22 @@ __host__ __device__ inline bool product_shape(int D, int F) {
 
 // ---- the products -------------------------------------------------------
 
+// Up to four products dW_q = X_q^T Y_q over the chunk's rows, product q
+// tr[q] x tc[q] output tiles of 128 x 128 (the rest 0 x 0). K2-dW's four:
+// X = n1, attn, h_norm, ffn_h; Y = d_qkv, d_attn_out, d_vg, the cotangent
+// g_edge, whose rows m % M == M - 1 read as 0 (geo_q = 3).
 template <typename T>
 struct ProductArgs {
-    const T* X[4];     // the chunk's rows: n1, attn, h_norm, ffn_h
-    const T* Y[4];     // d_qkv, d_attn_out, d_vg, the cotangent g_edge
+    const T* X[4];
+    const T* Y[4];
     int ldx[4], ldy[4];
-    long long out[4];  // offsets of w_qkv, w_out, w_in, w_ffn_out in a partial
+    long long out[4];  // offsets of the products' outputs in a partial
     int ldo[4];
+    int tr[4], tc[4];  // each product's output tiles: rows, columns
+    int tiles;         // all the products' tiles: the grid's x
+    int geo_q;         // the product whose Y skips rows m % M == M - 1 (-1: none)
     long long rows, step;  // the chunk's rows, rows per slice
-    int M, D, F;           // rows m % M == M - 1 of the cotangent read as 0
+    int M;
     float* partials;       // (slices, n_dw)
     long long n_dw;
 };
@@ -117,6 +135,8 @@ ProductArgs<T> product_args(const T* spill, long long R_cap, const T* g_edge, lo
     const int ldx[4] = {D, D, D, F}, ldy[4] = {3 * D, D, 2 * F, D};
     const long long out[4] = {L.w_qkv, L.w_out, L.w_in, L.w_ffn_out};
     const int ldo[4] = {3 * D, D, 2 * F, D};
+    const int nD = D / kTile;
+    const int tr[4] = {nD, nD, nD, F / kTile}, tc[4] = {3 * nD, nD, 2 * F / kTile, nD};
     for (int q = 0; q < 4; ++q) {
         a.X[q] = X[q];
         a.Y[q] = Y[q];
@@ -124,12 +144,14 @@ ProductArgs<T> product_args(const T* spill, long long R_cap, const T* g_edge, lo
         a.ldy[q] = ldy[q];
         a.out[q] = out[q];
         a.ldo[q] = ldo[q];
+        a.tr[q] = tr[q];
+        a.tc[q] = tc[q];
     }
+    a.tiles = product_tiles(D, F);
+    a.geo_q = 3;
     a.rows = rows;
     a.step = slice_step(rows, D, F, sms);
     a.M = M;
-    a.D = D;
-    a.F = F;
     a.partials = partials;
     a.n_dw = L.total;
     return a;
@@ -139,14 +161,13 @@ struct TileOf {
     int q, i0, j0;  // product, first output row, first output column
 };
 
-__device__ __forceinline__ TileOf tile_of(int t, int D, int F) {
-    const int nD = D / kTile;
-    const int rows[4] = {nD, nD, nD, F / kTile};
-    const int cols[4] = {3 * nD, nD, 2 * F / kTile, nD};
+// Tile t of the products, in product order, each product's tiles row-major.
+template <typename T>
+__device__ __forceinline__ TileOf tile_of(int t, const ProductArgs<T>& p) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-        const int n = rows[q] * cols[q];
-        if (t < n) return TileOf{q, (t / cols[q]) * kTile, (t % cols[q]) * kTile};
+        const int n = p.tr[q] * p.tc[q];
+        if (t < n) return TileOf{q, (t / p.tc[q]) * kTile, (t % p.tc[q]) * kTile};
         t -= n;
     }
     return TileOf{3, 0, 0};
@@ -180,12 +201,12 @@ constexpr int kF32SmemBytes = kF32Stages * kF32StageFloats * 4;
 
 __global__ void __launch_bounds__(kThreads, 2) product_f32_kernel(ProductArgs<float> p) {
     extern __shared__ __align__(16) float fsm[];
-    const TileOf tl = tile_of(blockIdx.x, p.D, p.F);
+    const TileOf tl = tile_of(blockIdx.x, p);
     const SliceRows<float> sr(p);
     const float* X = p.X[tl.q] + tl.i0;
     const float* Y = p.Y[tl.q] + tl.j0;
     const int ldx = p.ldx[tl.q], ldy = p.ldy[tl.q];
-    const bool geo = tl.q == 3;
+    const bool geo = tl.q == p.geo_q;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int ty = (warp >> 1) * 4 + (lane >> 3), tx = (warp & 1) * 8 + (lane & 7);
     const long long nk = (sr.r1 - sr.r0 + kF32K - 1) / kF32K;
@@ -285,12 +306,12 @@ __device__ __forceinline__ void wgmma_mn_m64n64k16(float (&acc)[8][4], uint64_t 
 
 __global__ void __launch_bounds__(kThreads, 2) product_bf16_kernel(ProductArgs<bf16> p) {
     extern __shared__ __align__(1024) unsigned char bsm[];
-    const TileOf tl = tile_of(blockIdx.x, p.D, p.F);
+    const TileOf tl = tile_of(blockIdx.x, p);
     const SliceRows<bf16> sr(p);
     const bf16* X = p.X[tl.q] + tl.i0;
     const bf16* Y = p.Y[tl.q] + tl.j0;
     const int ldx = p.ldx[tl.q], ldy = p.ldy[tl.q];
-    const bool geo = tl.q == 3;
+    const bool geo = tl.q == p.geo_q;
     const int tid = threadIdx.x;
     const long long nk = (sr.r1 - sr.r0 + kBfK - 1) / kBfK;
     unsigned char* const base = bsm;
@@ -359,27 +380,37 @@ __global__ void __launch_bounds__(kThreads, 2) product_bf16_kernel(ProductArgs<b
             }
 }
 
-// The vector sums: partial s, vector element c (its DwLayout offset) = the
-// sum over the slice's atoms [s A / S, (s + 1) A / S) of their rows'
-// element c, in atom order.
-__global__ void __launch_bounds__(256) vector_sums_kernel(const float* __restrict__ vec, long long atoms,
-                                                          int D, int F, float* __restrict__ partials,
+// Where a vector row's elements go in a partial: segment i, its len[i]
+// elements after those of the segments before it, to off[i] on.
+struct VecMap {
+    int len[6];
+    long long off[6];
+    int total;  // the row's elements
+};
+
+// K2-dW's per-atom row: norm_attn, b_qkv, b_out, norm_mlp, b_in, b_ffn_out.
+__host__ __device__ inline VecMap k2_vec_map(int D, int F) {
+    const DwLayout L(D, F);
+    return VecMap{{D, 3 * D, D, D, 2 * F, D},
+                  {L.norm_attn, L.b_qkv, L.b_out, L.norm_mlp, L.b_in, L.b_ffn_out},
+                  (int)DwLayout(D, F, true).total};
+}
+
+// The vector sums: partial s, vector element c (at its map's offset) = the
+// sum over the slice's units (atoms, or tiles of rows) [s U / S, (s + 1) U
+// / S) of their rows' element c, in unit order.
+__global__ void __launch_bounds__(256) vector_sums_kernel(const float* __restrict__ vec, long long units,
+                                                          VecMap map, float* __restrict__ partials,
                                                           long long n_dw) {
-    const DwLayout V(D, F, true), L(D, F);
     const int c = blockIdx.x * blockDim.x + threadIdx.x;
-    if (c >= V.total) return;
+    if (c >= map.total) return;
     const long long S = gridDim.y, s = blockIdx.y;
-    const long long a0 = atoms * s / S, a1 = atoms * (s + 1) / S;
+    const long long u0 = units * s / S, u1 = units * (s + 1) / S;
     float sum = 0.f;
-    for (long long a = a0; a < a1; ++a) sum += vec[a * V.total + c];
-    long long o;
-    if (c < V.b_qkv) o = L.norm_attn + c;
-    else if (c < V.b_out) o = L.b_qkv + (c - V.b_qkv);
-    else if (c < V.norm_mlp) o = L.b_out + (c - V.b_out);
-    else if (c < V.b_in) o = L.norm_mlp + (c - V.norm_mlp);
-    else if (c < V.b_ffn_out) o = L.b_in + (c - V.b_in);
-    else o = L.b_ffn_out + (c - V.b_ffn_out);
-    partials[s * n_dw + o] = sum;
+    for (long long u = u0; u < u1; ++u) sum += vec[u * map.total + c];
+    int i = 0, c0 = 0;
+    while (c >= c0 + map.len[i]) c0 += map.len[i++];
+    partials[s * n_dw + map.off[i] + (c - c0)] = sum;
 }
 
 // out[e] (+)= sum over slices s < S of partials[s, e], s in order: the
@@ -393,13 +424,14 @@ __global__ void __launch_bounds__(256) sum_slices_kernel(const float* __restrict
     out[e] = first ? s : out[e] + s;
 }
 
-// Pass 2 of one chunk: the products, the vector sums, then the slices
-// summed into dw. T = float or bf16.
+// Pass 2 of one chunk: the products, the vector sums (units rows of
+// map.total floats at vec), then the slices summed into dw. T = float or
+// bf16.
 template <typename T>
-int run_products(const ProductArgs<T>& a, const float* vec, long long atoms, float* dw, bool first,
-                 cudaStream_t stream) {
+int run_products(const ProductArgs<T>& a, const float* vec, long long units, const VecMap& map, float* dw,
+                 bool first, cudaStream_t stream) {
     const long long S = (a.rows + a.step - 1) / a.step;
-    const dim3 grid((unsigned)product_tiles(a.D, a.F), (unsigned)S);
+    const dim3 grid((unsigned)a.tiles, (unsigned)S);
     cudaError_t err;
     if constexpr (sizeof(T) == 4) {
         err = cudaFuncSetAttribute(product_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -414,9 +446,8 @@ int run_products(const ProductArgs<T>& a, const float* vec, long long atoms, flo
     }
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    const long long nv = vector_floats(a.D, a.F);
-    vector_sums_kernel<<<dim3((unsigned)((nv + 255) / 256), (unsigned)S), 256, 0, stream>>>(
-        vec, atoms, a.D, a.F, a.partials, a.n_dw);
+    vector_sums_kernel<<<dim3((unsigned)((map.total + 255) / 256), (unsigned)S), 256, 0, stream>>>(
+        vec, units, map, a.partials, a.n_dw);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     sum_slices_kernel<<<(unsigned)((a.n_dw + 255) / 256), 256, 0, stream>>>(a.partials, (int)S, a.n_dw, dw,

@@ -88,7 +88,9 @@ def _rows_t(a, b, acc):
     return a.to(acc).T @ b.to(acc)
 
 
-def compress_bwd(inputs, weights, g, weight_grads=False):
+def _compress_terms(inputs, weights, g):
+    """The compress backward's input cotangents and the per-row terms of its
+    weight gradients (``compress_bwd`` sums them over rows)."""
     w0, b0, w1, _ = weights
     cd = inputs[0].dtype
     acc = _acc(cd)
@@ -103,18 +105,34 @@ def compress_bwd(inputs, weights, g, weight_grads=False):
     d_inputs = tuple(
         _dot_t(d_pre_c, w0[i * D : (i + 1) * D], acc).to(cd) for i in range(len(inputs))
     )
+    return d_inputs, {"d_pre": d_pre, "d_pre_c": d_pre_c, "h": (pre * sig).to(cd), "g_c": g_c}
+
+
+def compress_bwd(inputs, weights, g, weight_grads=False):
+    d_inputs, t = _compress_terms(inputs, weights, g)
     if not weight_grads:
         return d_inputs
-    h = (pre * sig).to(cd)
+    acc = t["d_pre"].dtype
     return d_inputs + (
-        torch.cat([_rows_t(part, d_pre_c, acc) for part in inputs]),
-        d_pre.sum(0),
-        _rows_t(h, g_c, acc),
-        g_c.to(acc).sum(0),
+        torch.cat([_rows_t(part, t["d_pre_c"], acc) for part in inputs]),
+        t["d_pre"].sum(0),
+        _rows_t(t["h"], t["g_c"], acc),
+        t["g_c"].to(acc).sum(0),
     )
 
 
-def combination_bwd(inputs, weights, g, weight_grads=False):
+def compress_operands(inputs, weights, g):
+    """What the two-pass K4-dW's first pass gives for the compress: the input
+    cotangents, the spilled rows (d_pre, h) and the rows of its vector sums
+    (d_pre, g): the parts and g themselves are the other operands."""
+    d_inputs, t = _compress_terms(inputs, weights, g)
+    acc = t["d_pre"].dtype
+    return d_inputs, (t["d_pre_c"], t["h"]), torch.cat([t["d_pre"], t["g_c"].to(acc)], dim=1)
+
+
+def _combination_terms(inputs, weights, g):
+    """The combination backward's input cotangents and the per-row terms of
+    its weight gradients (``combination_bwd`` sums them over rows)."""
     edges, reversed_edges, _ = inputs
     ln_scale, ln_bias, w0, b0, w1, _ = weights
     cd = edges.dtype
@@ -134,17 +152,33 @@ def combination_bwd(inputs, weights, g, weight_grads=False):
     )
     De = edges.shape[-1]
     d_inputs = ((d_x[:, :De] + g_c.to(acc)).to(cd), d_x[:, De:].to(cd), g_c)
+    return d_inputs, {"xn0": xn0, "xn": xn, "d_pre": d_pre0, "d_pre_c": d_pre0_c, "d_xn": d_xn,
+                      "h": (pre0 * sig0).to(cd), "g_c": g_c}
+
+
+def combination_bwd(inputs, weights, g, weight_grads=False):
+    d_inputs, t = _combination_terms(inputs, weights, g)
     if not weight_grads:
         return d_inputs
-    h = (pre0 * sig0).to(cd)
+    acc = t["d_pre"].dtype
     return d_inputs + (
-        (d_xn * xn0).sum(0),
-        d_xn.sum(0),
-        _rows_t(xn, d_pre0_c, acc),
-        d_pre0.sum(0),
-        _rows_t(h, g_c, acc),
-        g_c.to(acc).sum(0),
+        (t["d_xn"] * t["xn0"]).sum(0),
+        t["d_xn"].sum(0),
+        _rows_t(t["xn"], t["d_pre_c"], acc),
+        t["d_pre"].sum(0),
+        _rows_t(t["h"], t["g_c"], acc),
+        t["g_c"].to(acc).sum(0),
     )
+
+
+def combination_operands(inputs, weights, g):
+    """What the two-pass K4-dW's first pass gives for the combination: the
+    input cotangents (d_edges, d_reversed), the spilled rows (xn, d_pre, h)
+    and the rows of its vector sums (d_xn xn0, d_xn, d_pre, g)."""
+    d_inputs, t = _combination_terms(inputs, weights, g)
+    acc = t["d_pre"].dtype
+    vec = torch.cat([t["d_xn"] * t["xn0"], t["d_xn"], t["d_pre"], t["g_c"].to(acc)], dim=1)
+    return d_inputs[:2], (t["xn"], t["d_pre_c"], t["h"]), vec
 
 
 def head_bwd(inputs, weights, g, weight_grads=False):
@@ -171,6 +205,7 @@ def head_bwd(inputs, weights, g, weight_grads=False):
     )
 
 
-COMPRESS = Stage("compress", COMPRESS_CODE, compress_math, compress_bwd)
-COMBINATION = Stage("combination", COMBINATION_CODE, combination_math, combination_bwd)
+COMPRESS = Stage("compress", COMPRESS_CODE, compress_math, compress_bwd, compress_operands)
+COMBINATION = Stage("combination", COMBINATION_CODE, combination_math, combination_bwd,
+                    combination_operands)
 HEAD = Stage("head", HEAD_CODE, head_math, head_bwd)

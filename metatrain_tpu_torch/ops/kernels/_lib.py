@@ -47,6 +47,7 @@ SOURCES = (
     "rowblock_fwd_sm90.cu",
     "rowblock_bwd.cu",
     "rowblock_bwd_sm90.cu",
+    "rowblock_bwd_f32_sm90.cu",
     "permute.cu",
     "window_attention_fwd.cu",
     "window_attention_bwd.cu",
@@ -94,6 +95,15 @@ _SIGNATURES = {
     "mtt_rowblock_fwd_sm90": [_I, _P, _P, _P, _I] + [_P] * 7 + [_L, _I, _I, _I, _I, _I, _P],
     "mtt_rowblock_bwd": [_I, _I, _P, _P, _P, _I] + [_P] * 13 + [_I, _P] + [_L, _I, _I, _I, _I, _P],
     "mtt_rowblock_bwd_sm90": [_I, _P, _P, _P, _I] + [_P] * 13 + [_L, _I, _I, _I, _I, _I, _P],
+    # stage, x0..x2, n_parts, ln_scale, ln_bias, b0, w0_t, w1, w0, g, d0..d2,
+    # rows, d_part, w_in, w_hid, w_out, blocks, stream
+    "mtt_rowblock_bwd_f32_sm90": [_I, _P, _P, _P, _I] + [_P] * 10 + [_L, _I, _I, _I, _I, _I, _P],
+    # ... d0..d2, dw, spill, partials, rows, d_part, w_in, w_hid, w_out, sms, stream
+    "mtt_rowblock_bwd_dw_f32_sm90": [_I, _P, _P, _P, _I] + [_P] * 13 + [_L, _I, _I, _I, _I, _I, _P],
+    "mtt_rowblock_bwd_dw_f32_sm90_plan": [_I, _L, _I, _I, _I, _I, _LP],
+    # stage, x0..x2, n_parts, g, spill, vec, rows, w_in, w_hid, w_out, sms,
+    # partials, dw, stream
+    "mtt_rowblock_dw_product": [_I, _P, _P, _P, _I, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P],
     "mtt_permute": [_I, _P, _P, _P, _P, _L, _I, _P],
     "mtt_window_attention_fwd": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _L, _I, _I, _I, _F, _P],
     "mtt_window_attention_bwd": [_I] + [_P] * 4 + [_I] * 4 + [_P] * 5 + [_L, _I, _I, _I, _F, _P],
@@ -117,6 +127,8 @@ _SIGNATURES = {
     "mtt_rowblock_bwd_smem": [_I, _I, _I, _I, _I, _IP],
     "mtt_rowblock_bwd_sm90_ok": [_I] * 5,
     "mtt_rowblock_bwd_sm90_smem": [_I] * 5,
+    "mtt_rowblock_bwd_f32_sm90_ok": [_I] * 5,
+    "mtt_rowblock_bwd_f32_sm90_smem": [_I] * 5,
     "mtt_window_attention_fwd_smem": [_I, _I, _I, _I],
     "mtt_window_attention_bwd_smem": [_I, _I, _I, _I],
     "mtt_gnn_block_fwd_smem": [_I] * 4 + [_LP],
@@ -404,19 +416,31 @@ def dw_vector_floats(D: int, F: int) -> int:
     return 7 * D + 2 * F
 
 
-def dw_slice_target(R: int, D: int, F: int, sms: int) -> int:
-    s = 2 * sms // max(dw_product_tiles(D, F), 1)
+def dw_slice_target_tiles(R: int, tiles: int, sms: int) -> int:
+    """The slices of a chunk of R rows whose products have ``tiles`` output
+    tiles (``dwp::slice_target_tiles``)."""
+    s = 2 * sms // max(tiles, 1)
     return max(1, min(s, R // DW_MIN_SLICE_ROWS))
 
 
-def k2dw_slices(R: int, D: int, F: int, sms: int):
-    """``(step, slices)`` of a chunk of R rows (``mtt_layer_dw_slices``):
-    as many slices as fill two blocks per SM in one wave (2 SMs / tiles, at
-    least 1), fewer where one would hold under 256 rows, of ``step`` rows
-    each (a multiple of 64), the last one shorter."""
-    per_slice = -(-R // dw_slice_target(R, D, F, sms))
+def dw_slice_target(R: int, D: int, F: int, sms: int) -> int:
+    return dw_slice_target_tiles(R, dw_product_tiles(D, F), sms)
+
+
+def dw_slices(R: int, tiles: int, sms: int):
+    """``(step, slices)`` of a chunk of R rows whose products have ``tiles``
+    output tiles: as many slices as fill two blocks per SM in one wave (2
+    SMs / tiles, at least 1), fewer where one would hold under 256 rows, of
+    ``step`` rows each (a multiple of 64), the last one shorter."""
+    per_slice = -(-R // dw_slice_target_tiles(R, tiles, sms))
     step = -(-per_slice // DW_STEP_ROWS) * DW_STEP_ROWS
     return step, -(-R // step)
+
+
+def k2dw_slices(R: int, D: int, F: int, sms: int):
+    """``(step, slices)`` of a chunk of R rows of K2-dW (``mtt_layer_dw_slices``):
+    :func:`dw_slices` with its four products' tiles."""
+    return dw_slices(R, dw_product_tiles(D, F), sms)
 
 
 class K2dwPlan(NamedTuple):
@@ -502,6 +526,94 @@ def k4_sm90_smem(stage: int, d_part: int, w_in: int, w_hid: int, w_out: int) -> 
     if stage == 1:
         nbytes += rows * (w_in + 8) * 2 + 6 * rows * 4
     return nbytes
+
+
+# ---- the Hopper float32 K4 and the two-pass K4-dW (csrc/rowblock_bwd_f32_sm90.cu)
+
+K4DW_SPILL_CAP = K2DW_SPILL_CAP  # bytes of spill per chunk, at most
+ROW_TILE = 64
+
+
+def k4_f32_sm90_takes(dtype: torch.dtype, stage: int, d_part: int, w_in: int, w_hid: int, w_out: int,
+                      weight_grads: bool = False) -> bool:
+    """Whether ``rowblock_bwd_cuda`` launches the Hopper float32 K4 (its C
+    query ``mtt_rowblock_bwd_f32_sm90_ok``): float32, the compress (stage 0)
+    or the combination (stage 1) at the widths of :func:`k4_sm90_shape`.
+    Without ``weight_grads`` it is K4 (counter
+    ``rowblock_bwd_f32_sm90[<stage>]``); with them, the two-pass K4-dW's first
+    pass (``rowblock_bwd_dw_f32_sm90[<stage>]``, then ``rowblock_dw_product``)."""
+    return dtype == torch.float32 and stage in (0, 1) and k4_sm90_shape(stage, d_part, w_in, w_hid, w_out)
+
+
+def k4_f32_sm90_smem(stage: int, d_part: int, w_in: int, w_hid: int, w_out: int) -> int:
+    """``mtt_rowblock_bwd_f32_sm90_smem``: its shared bytes per block (both
+    modes), 0 where it does not take the stage. The C source's layout, every
+    buffer float: three weight chunks of 128 x 16; the x tile (rows of w_in +
+    4), the d_pre tile (rows of w_hid + 4), two g tiles (rows of 132); the
+    combination also ln_scale and ln_bias; rs and 4 x 128 of sum scratch."""
+    if not k4_f32_sm90_takes(torch.float32, stage, d_part, w_in, w_hid, w_out):
+        return 0
+    rows = ROW_TILE
+    floats = 3 * 128 * 16 + rows * (w_in + 4) + rows * (w_hid + 4) + 2 * rows * (d_part + 4)
+    floats += (2 * w_in if stage == 1 else 0) + rows + 4 * 128
+    return 4 * floats
+
+
+def k4dw_row_floats(stage: int, w_in: int, w_hid: int) -> int:
+    """The floats the two-pass K4-dW spills a row: d_pre and h, and for the
+    combination xn."""
+    return (w_in if stage == 1 else 0) + 2 * w_hid
+
+
+def k4dw_vector_floats(stage: int, w_in: int, w_hid: int) -> int:
+    """A 64-row tile's vector row: [ln_scale, ln_bias,] b0, b1 sums (w_out
+    = 128)."""
+    return (2 * w_in if stage == 1 else 0) + w_hid + 128
+
+
+def k4dw_product_tiles(stage: int, n_parts: int) -> int:
+    """The second pass's 128 x 128 output tiles: the compress one per part
+    and h^T g; the combination xn^T d_pre (2 x 2) and h^T g (2 x 1)."""
+    return 6 if stage == 1 else n_parts + 1
+
+
+class K4dwPlan(NamedTuple):
+    chunk_tiles: int  # 64-row tiles a chunk (the last one may hold fewer)
+    chunks: int
+    vec_offset: int   # bytes: the per-tile vector rows start here in the spill
+    spill_bytes: int  # the spill of one chunk: operand rows, then vector rows
+    max_slices: int   # rows of the partials
+    sms: int          # the card's SMs, which the slices depend on
+
+
+def k4dw_plan(stage: int, rows: int, w_in: int, w_hid: int, sms: int,
+              cap: int = K4DW_SPILL_CAP) -> K4dwPlan:
+    """The two-pass K4-dW's chunks (``mtt_rowblock_bwd_dw_f32_sm90_plan``):
+    as many 64-row tiles a chunk as keep its spill (:func:`k4dw_row_floats`
+    a row and :func:`k4dw_vector_floats` a tile, float32) under ``cap``
+    bytes; where that is not all of them, a multiple of ``sms`` (whole waves
+    of the first pass, one tile a block), the last chunk holding the rest."""
+    tiles = -(-rows // ROW_TILE)
+    if tiles <= 0:
+        return K4dwPlan(0, 0, 0, 0, 0, sms)
+    row_bytes = 4 * k4dw_row_floats(stage, w_in, w_hid)
+    tile_bytes = ROW_TILE * row_bytes + 4 * k4dw_vector_floats(stage, w_in, w_hid)
+    per = max(cap // tile_bytes, 1)
+    if sms < per < tiles:
+        per = per // sms * sms
+    per = min(per, tiles)
+    vec_offset = -(-per * ROW_TILE * row_bytes // 256) * 256
+    n_parts = w_in // 128
+    return K4dwPlan(per, -(-tiles // per), vec_offset,
+                    vec_offset + per * 4 * k4dw_vector_floats(stage, w_in, w_hid),
+                    dw_slice_target_tiles(min(per * ROW_TILE, rows), k4dw_product_tiles(stage, n_parts),
+                                          sms), sms)
+
+
+def k4dw_chunks(plan: K4dwPlan, rows: int):
+    """The chunks' rows ``[(r0, r1), ...]``, in the order they run."""
+    step = plan.chunk_tiles * ROW_TILE
+    return [(r0, min(r0 + step, rows)) for r0 in range(0, rows, step)] if plan.chunks else []
 
 
 # ---- the Hopper K3 (csrc/rowblock_fwd_sm90.cu) -------------------------------

@@ -19,7 +19,13 @@ backward the Hopper K4 (``csrc/rowblock_bwd_sm90.cu``,
 ``_lib.k4_sm90_takes``). Both share ``csrc/rowblock_sm90.cuh``: the
 streamed row tiles, the combination's LayerNorm and the head's forward
 up to pre1 (its weights resident in shared memory), so the served
-forward's xn and h and the backward's recompute round alike.
+forward's xn and h and the backward's recompute round alike. The float32
+compress and combination at d_part 128 run the Hopper float32 K4
+(``csrc/rowblock_bwd_f32_sm90.cu``, ``_lib.k4_f32_sm90_takes``, 3xTF32 on
+the tensor cores): without weight gradients as K4, with them as the
+two-pass K4-dW, its spill mode followed by K2-dW's split-K product
+(``csrc/layer_dw_sm90.cuh``); :func:`rowblock_dw_operands` and
+:func:`rowblock_dw_from_operands` are the two passes' plain versions.
 The backward is differentiable again (training with forces): its
 gradient replays ``stage.bwd`` under autograd, as the JAX package's
 ``bwd_op_bwd`` differentiates ``_bwd_math_reference``.
@@ -31,6 +37,7 @@ compute dtype (the dtype of ``inputs[0]``).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Callable, NamedTuple, Sequence
 
 import torch
@@ -43,13 +50,16 @@ COMPRESS_CODE, COMBINATION_CODE, HEAD_CODE = 0, 1, 2
 
 
 class Stage(NamedTuple):
-    """A row-block stage: its kernel instantiation ``code`` and its plain
-    forward/backward."""
+    """A row-block stage: its kernel instantiation ``code``, its plain
+    forward/backward and, where the two-pass K4-dW takes it, ``operands(inputs,
+    weights, g) -> (input cotangents, spilled rows, rows of the vector sums)``,
+    the plain version of that first pass per row."""
 
     name: str
     code: int
     math: Callable
     bwd: Callable
+    operands: Callable = None
 
 
 def _split_weights(stage: Stage, weights):
@@ -170,7 +180,12 @@ def rowblock_bwd_cuda(stage: Stage, inputs: Sequence[torch.Tensor], weights, g,
     block per SM over a contiguous range of 64-row tiles, each block
     summing into its own float32 partial, then a second pass that adds the
     partials in block order (the same sum in every run). Tiles are 64 rows,
-    or 32 or 16 for stages too wide for 64 (``_lib.rowblock_bwd_rows``)."""
+    or 32 or 16 for stages too wide for 64 (``_lib.rowblock_bwd_rows``). In
+    float32 the compress and combination at the widths of
+    :func:`_lib.k4_f32_sm90_takes` launch the Hopper float32 K4 instead
+    (counter ``rowblock_bwd_f32_sm90[<stage>]``), and with ``weight_grads``
+    the two-pass K4-dW (``rowblock_bwd_dw_f32_sm90[<stage>]`` and
+    ``rowblock_dw_product``); ``sm90=False`` keeps the general body."""
     code, parts, (ln_s, ln_b, w0, b0, w1, b1), geometry = _prepare(stage, inputs, weights)
     rows, d_part, w_in, w_hid, w_out = geometry
     _lib.require({"g": g}, g.device, inputs[0].dtype)
@@ -179,6 +194,10 @@ def rowblock_bwd_cuda(stage: Stage, inputs: Sequence[torch.Tensor], weights, g,
     if sm90 and _lib.k4_sm90_takes(inputs[0].dtype, stage.code, d_part, w_in, w_hid, w_out,
                                    weight_grads):
         return _k4_sm90(stage, inputs, (ln_s, ln_b, w0, b0, w1, b1), g, geometry)
+    if sm90 and _lib.k4_f32_sm90_takes(inputs[0].dtype, stage.code, d_part, w_in, w_hid, w_out,
+                                       weight_grads):
+        return _k4_f32_sm90(stage, inputs, weights, (ln_s, ln_b, w0, b0, w1, b1), g, geometry,
+                            weight_grads)
     name = f"rowblock_bwd{'_dw' if weight_grads else ''}[{stage.name}]"
     lib = _lib.library()
     tile = ctypes.c_int(0)
@@ -248,6 +267,152 @@ def _k4_sm90(stage: Stage, inputs, weights, g, geometry, front_out=None):
     )
     _lib.LAUNCHES[name] += 1
     return (*d, g) if stage.code == COMBINATION_CODE else tuple(d)
+
+
+def _k4_f32_sm90(stage: Stage, inputs, weights, wc, g, geometry, weight_grads):
+    """The Hopper float32 K4 on checked float32 tensors (``wc`` = ln_scale,
+    ln_bias, w0, b0, w1, b1, ln_scale and ln_bias None but for the
+    combination): one persistent block per SM. Its weights go in as w0^T
+    (the forward product), w1 and w0 (the backward ones). With
+    ``weight_grads`` the two-pass K4-dW: per chunk of :func:`_lib.k4dw_plan`
+    the body's spill mode, then the split-K product; returns the input
+    cotangents and then the float32 weight gradients in the order of
+    ``weights``."""
+    rows, d_part, w_in, w_hid, w_out = geometry
+    ln_s, ln_b, w0, b0, w1, _ = wc
+    name = f"rowblock_bwd{'_dw' if weight_grads else ''}_f32_sm90[{stage.name}]"
+    n_grads = _n_input_grads(stage, len(inputs))
+    d = [torch.empty_like(inputs[i]) for i in range(n_grads)]
+    tail = (g,) if stage.code == COMBINATION_CODE else ()
+    shapes = [tuple(x.shape) for x in weights]
+    if rows == 0:
+        dw = tuple(torch.zeros(s, dtype=torch.float32, device=g.device) for s in shapes)
+        return (*d, *tail, *(dw if weight_grads else ()))
+    if any(x.data_ptr() % 16 for x in (*inputs[:n_grads], g)):
+        raise ValueError(f"{name} copies rows in 16-byte pieces: its inputs must start on 16 bytes")
+    lib = _lib.library()
+    _lib.check_shared(lib.mtt_rowblock_bwd_f32_sm90_smem(stage.code, d_part, w_in, w_hid, w_out), name)
+    w0_t = w0.t().contiguous()  # held here until the launch
+    xs = [x.data_ptr() for x in inputs[:n_grads]] + [None] * (3 - n_grads)
+    head = (stage.code, *xs, len(inputs), _lib.ptr(ln_s), _lib.ptr(ln_b), b0.data_ptr(),
+            w0_t.data_ptr(), w1.data_ptr(), w0.data_ptr(), g.data_ptr(),
+            *(x.data_ptr() for x in d), *[None] * (3 - n_grads))
+    stream = _lib.stream_ptr(g.device)
+    if not weight_grads:
+        _lib.check(lib.mtt_rowblock_bwd_f32_sm90(
+            *head, rows, d_part, w_in, w_hid, w_out,
+            _lib.dw_blocks(-(-rows // _lib.ROW_TILE), g.device), stream), name)
+        _lib.LAUNCHES[name] += 1
+        return (*d, *tail)
+    plan = _lib.k4dw_plan(stage.code, rows, w_in, w_hid, _lib.sm_count(g.device))
+    sizes = [math.prod(s) for s in shapes]
+    spill = torch.empty(plan.spill_bytes, dtype=torch.uint8, device=g.device)
+    partials = torch.empty((max(plan.max_slices, 1), sum(sizes)), dtype=torch.float32,
+                           device=g.device)
+    dw = torch.empty(sum(sizes), dtype=torch.float32, device=g.device)
+    _lib.check(lib.mtt_rowblock_bwd_dw_f32_sm90(
+        *head, dw.data_ptr(), spill.data_ptr(), partials.data_ptr(), rows, d_part, w_in, w_hid,
+        w_out, plan.sms, stream), name)
+    _lib.LAUNCHES[name] += 1
+    _lib.LAUNCHES["rowblock_dw_product"] += 1
+    return (*d, *tail, *(x.view(s) for x, s in zip(torch.split(dw, sizes), shapes)))
+
+
+class RowDwOperands(NamedTuple):
+    """What the two-pass K4-dW's first pass gives: the input cotangents, the
+    spilled rows (compress: d_pre, h; combination: xn, d_pre, h) and per
+    64-row tile its vector sums (tiles, [ln_scale, ln_bias,] b0, b1), in
+    the accumulation dtype."""
+
+    d_inputs: tuple
+    rows: tuple
+    vectors: torch.Tensor
+
+
+def rowblock_dw_operands(stage: Stage, inputs, weights, g) -> RowDwOperands:
+    """Plain version of the two-pass K4-dW's first pass (``stage.operands``,
+    the vector rows summed per 64-row tile in row order);
+    :func:`rowblock_dw_from_operands` sums them as the second pass does."""
+    d_inputs, rows_, vec = stage.operands(inputs, weights, g)
+    tiles = -(-vec.shape[0] // _lib.ROW_TILE)
+    pad = torch.zeros((tiles * _lib.ROW_TILE - vec.shape[0], vec.shape[1]), dtype=vec.dtype,
+                      device=vec.device)
+    return RowDwOperands(d_inputs, rows_, torch.cat([vec, pad]).reshape(
+        tiles, _lib.ROW_TILE, -1).sum(1))
+
+
+def _dw_pairs(stage: Stage, inputs, g, ops: RowDwOperands):
+    """The second pass's products (X, Y) of dW = X^T Y, in its tile order."""
+    if stage.code == COMBINATION_CODE:
+        xn, d_pre, h = ops.rows
+        return [(xn, d_pre), (h, g)]
+    d_pre, h = ops.rows
+    return [(x, d_pre) for x in inputs] + [(h, g)]
+
+
+def rowblock_dw_from_operands(stage: Stage, inputs, g, ops: RowDwOperands,
+                              plan: "_lib.K4dwPlan"):
+    """Plain version of the two-pass K4-dW's second pass: the weight
+    gradients (the accumulation dtype, in the order of the stage's weights)
+    of ``ops``, summed in the kernels' order: per chunk of ``plan``
+    (:func:`_lib.k4dw_plan`) and per slice of it (:func:`_lib.dw_slices`) a
+    partial (the slice's rows' products, its share of the chunk's tiles'
+    vector rows), the slices added in order, then the chunks in order."""
+    acc = ops.vectors.dtype
+    pairs = _dw_pairs(stage, inputs, g, ops)
+    rows = g.shape[0]
+    n_tiles = _lib.k4dw_product_tiles(stage.code, len(inputs))
+    w_hid, w_out = ops.rows[-1].shape[1], g.shape[1]
+    sizes = [ops.vectors.shape[1] - w_hid - w_out, w_hid, w_out]  # [ln_scale, ln_bias,] b0, b1
+    total = None
+    for r0, r1 in _lib.k4dw_chunks(plan, rows):
+        step, slices = _lib.dw_slices(r1 - r0, n_tiles, plan.sms)
+        t0, tiles = r0 // _lib.ROW_TILE, -(-(r1 - r0) // _lib.ROW_TILE)
+        chunk = None
+        for s in range(slices):
+            a, b = r0 + s * step, min(r1, r0 + (s + 1) * step)
+            mats = [x[a:b].to(acc).T @ y[a:b].to(acc) for x, y in pairs]
+            vec = ops.vectors[t0 + tiles * s // slices:t0 + tiles * (s + 1) // slices].sum(0)
+            if stage.code == COMBINATION_CODE:
+                ln, b0, b1 = torch.split(vec, sizes)
+                part = (*torch.split(ln, ln.shape[0] // 2), mats[0], b0, mats[1], b1)
+            else:
+                _, b0, b1 = torch.split(vec, sizes)
+                part = (torch.cat(mats[:-1]), b0, mats[-1], b1)
+            chunk = part if chunk is None else tuple(c + p for c, p in zip(chunk, part))
+        total = chunk if total is None else tuple(x + c for x, c in zip(total, chunk))
+    return total
+
+
+def rowblock_dw_product_cuda(stage: Stage, inputs, g, ops: RowDwOperands, sms: int = None):
+    """The two-pass K4-dW's second pass alone (``mtt_rowblock_dw_product``)
+    on one chunk of rows (``ops`` of ``inputs`` and ``g``, float32, on the
+    card): the weight gradients of :func:`rowblock_dw_from_operands` with a
+    one-chunk plan. For checks on the card; the training path runs it inside
+    the two-pass K4-dW."""
+    rows, d_part = g.shape
+    n_grads = _n_input_grads(stage, len(inputs))
+    spill = torch.cat([x.reshape(-1) for x in ops.rows]).to(torch.float32).contiguous()
+    vec = ops.vectors.to(torch.float32).contiguous()
+    _lib.require({"spill": spill, "vectors": vec, "g": g,
+                  **{f"x{i}": x for i, x in enumerate(inputs[:n_grads])}}, g.device, torch.float32)
+    w_hid = ops.rows[-1].shape[1]
+    w_in = 2 * d_part if stage.code == COMBINATION_CODE else len(inputs) * d_part
+    sms = sms or _lib.sm_count(g.device)
+    n_dw = (2 * w_in if stage.code == COMBINATION_CODE else 0) + w_in * w_hid + w_hid + w_hid * d_part + d_part
+    partials = torch.empty((_lib.dw_slice_target_tiles(rows, _lib.k4dw_product_tiles(
+        stage.code, len(inputs)), sms), n_dw), dtype=torch.float32, device=g.device)
+    dw = torch.empty(n_dw, dtype=torch.float32, device=g.device)
+    lib = _lib.library()
+    xs = [x.data_ptr() for x in inputs[:n_grads]] + [None] * (3 - n_grads)
+    _lib.check(lib.mtt_rowblock_dw_product(
+        stage.code, *xs, len(inputs), g.data_ptr(), spill.data_ptr(), vec.data_ptr(), rows, w_in,
+        w_hid, d_part, sms, partials.data_ptr(), dw.data_ptr(), _lib.stream_ptr(g.device)),
+        "rowblock_dw_product")
+    _lib.LAUNCHES["rowblock_dw_product"] += 1
+    ln = (w_in, w_in) if stage.code == COMBINATION_CODE else ()
+    shapes = [(n,) for n in ln] + [(w_in, w_hid), (w_hid,), (w_hid, d_part), (d_part,)]
+    return tuple(x.view(s) for x, s in zip(torch.split(dw, [math.prod(s) for s in shapes]), shapes))
 
 
 def k4_sm90_head_front(stage: Stage, inputs, weights, g):

@@ -1,11 +1,12 @@
-"""Phase split of K2, of the Hopper K1, or of the Hopper K3 and K4 heads, by
-``clock64()`` stamps, on a CUDA device.
+"""Phase split of K2, of the Hopper K1, of the Hopper K3 and K4 heads, or of
+K4 / K4-dW's float32 compress and combination, by ``clock64()`` stamps, on a
+CUDA device.
 
 Usage, on a machine with a CUDA device and nvcc::
 
     python metatrain_tpu_torch/tools/k2_split.py
-        --body hopper|general|f32-hopper|k1-hopper|k3-head|k4-head
-        [--dtype bfloat16|float32] [--A 11392] [--M 64]
+        --body hopper|general|f32-hopper|k1-hopper|k3-head|k4-head|k4dw-general|k4-f32
+        [--dtype bfloat16|float32] [--dw] [--A 11392] [--M 64]
 
 Copies the body's sources (``--body hopper``: the Hopper K2,
 ``csrc/fused_layer_bwd_sm90.cu``; ``general``: K2's general body,
@@ -20,7 +21,8 @@ thread 0's ``clock64()`` that adds the phase's cycles to a device counter,
 builds that copy alone with nvcc, runs it on a seeded case (D = 128, 8
 heads, F = 256, inputs as ``layer_times.py`` makes them, in bfloat16 but
 for ``f32-hopper`` and ``--dtype float32``; the heads at A x M
-rows) and prints one JSON line: the card (``nvidia-smi`` name and power
+rows; the float32 K4 bodies at A x M rows, the 3-part compress and the
+combination) and prints one JSON line (the K4 bodies: one per stage): the card (``nvidia-smi`` name and power
 limit), the cycles per atom (the heads: per 64-row tile of a block), each
 phase's share of them and the instrumented launch's mean CUDA-event ms.
 The checkout's sources are not changed: they carry no instrumentation.
@@ -41,13 +43,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
-STAMP = ('__device__ unsigned long long g_split[8];\n'
+STAMP = ('__device__ unsigned long long g_split[16];\n'
          '#define SPLIT(i) if (threadIdx.x == 0) { long long t_ = clock64(); '
          'atomicAdd(&g_split[i], (unsigned long long)(t_ - t_prev)); t_prev = t_; }\n')
 COUNTERS = ('\nextern "C" int split_read(unsigned long long* out) '
-            '{ return (int)cudaMemcpyFromSymbol(out, g_split, 64); }\n'
-            'extern "C" int split_zero() { unsigned long long z[8] = {}; '
-            'return (int)cudaMemcpyToSymbol(g_split, z, 64); }\n')
+            '{ return (int)cudaMemcpyFromSymbol(out, g_split, 128); }\n'
+            'extern "C" int split_zero() { unsigned long long z[16] = {}; '
+            'return (int)cudaMemcpyToSymbol(g_split, z, 128); }\n')
 
 # (text, stamp before it rather than after, the stamp): each text occurs
 # once; a stamp of None is the next phase's SPLIT
@@ -130,6 +132,52 @@ K4_HEAD = (
 )
 K4_HEAD_PHASES = ["pre0 product", "h0 epilogue", "pre1 product", "d_pre1 epilogue",
                   "d_h0 product", "d_pre0 epilogue", "d_x product, store", "wait for the next tile"]
+# K4-dW's general body (rowblock_bwd.cu) in its compress and combination
+# tiles: the compress stamps phases 0-5, the combination 0-4 and 6-8
+K4DW_GENERAL = (
+    ('#include "common.cuh"\n', False, STAMP),
+    ("    float* HH = RS + tile;            // DW: (tile, Wh) hidden activation h\n", False,
+     "    long long t_prev = clock64();\n"),
+    ("    block_mm<16>(IN, Win, tile, Win, p.w0, Wh, Wh,", True, None),
+    ("    if (DW) {\n        accum_atb<T, false>(P + L.w1", True, None),
+    ("    block_mm<16>(G, Wo, tile, Wo, p.w1_t, Wh, Wh,", True, None),
+    ("    if (DW) {\n        accum_atb<T, true>(P + L.w0, Wh, IN,", True, None),
+    ("    if (STAGE == kCompress) {\n        block_mm<16>(PRE,", True, None),
+    ("            if (m < valid) douts[n / Dp][(row0 + m) * Dp + n % Dp] = from_f<T>(acc);\n"
+     "        });\n", False, None),
+    ("    if (DW) {\n        for (int c = threadIdx.x; c < Win;", True, None),
+    ("    for (int r = warp; r < valid; r += nw) {\n        const float* dxn", True, None),
+    ("            douts[c / Dp][o] = from_f<T>(dx);\n        }\n    }\n", False, None),
+)
+K4DW_GENERAL_PHASES = ["loads (combination: and LayerNorm)", "pre product", "dW: h^T g, db1",
+                       "g w1^T product, d_pre", "dW: X^T d_pre, db0", "d_part products, stores",
+                       "d_xn product", "dW: ln_scale, ln_bias (inputs re-read)",
+                       "LayerNorm backward, stores"]
+# the Hopper float32 K4 (rowblock_bwd_f32_sm90.cu)
+K4_F32 = (
+    ('#include "tf32_sm90.cuh"\n', False, STAMP),
+    ("    float pre[4][4], dh[4][4];\n    zero(pre);\n", False, "    long long t_prev = clock64();\n"),
+    ("    zero(dh);\n    panel_mm<8>(ring, c, [&](int r, int& ld) { ld = G::LG; return Gt + r * kCK; }, dh, "
+     "kRows);\n    // d_pre into", True, None),
+    ("    if constexpr (SP) {\n        float* v = p.vec + t * G::NV;", True, None),
+    ("    // d_part q = d_pre w0_q^T", True, None),
+    ("            if (m < valid) st2(out + (size_t)m * kPart + n, acc[j][2 * h], acc[j][2 * h + 1]);\n"
+     "        });\n    }\n", False, None),
+    ("    using G = Geo<kCombination, 2>;\n    const long long row0 = t * kRows;\n", False,
+     "    long long t_prev = clock64();\n"),
+    ("    // (the first consume's barrier orders these stores before the reads)", True, None),
+    ("        zero(dh);\n        panel_mm<8>", True, None),
+    ("        if constexpr (SP)\n            panel_col_sums(RED,", True, None),
+    ("    // d_xn = d_pre w0^T, in registers", True, None),
+    ("    __syncthreads();  // every warp has read DP", True, None),
+    ("    // d = d_xn ln_scale; LayerNorm backward", True, None),
+    ("            rs * (dx[1][j][2 * h + 1] - ma - xn0(m, kCN + n + 1) * mb));\n    });\n", False, None),
+)
+# compress 0-3, combination 4-10
+K4_F32_PHASES = ["pre product (rows waited for)", "g w1^T product, d_pre, spill", "vector sums",
+                 "d_part products, stores", "loads, LayerNorm", "pre products",
+                 "g w1^T products, d_pre, spill", "b0 sums", "d_xn products",
+                 "next x issued, ln and b1 sums", "LayerNorm backward, stores"]
 GENERAL_LAUNCHER = '''#include "layer_bwd.cuh"
 using namespace mtt;
 using T = STORAGE;
@@ -177,14 +225,14 @@ def instrument(text: str, marks, phase: int = 0) -> str:
 
 
 def build(work: Path, body: str, dtype: str) -> Path:
-    for name in ("common.cuh", "layer_bwd.cuh", "layer_sm90.cuh", "fused_layer_bwd_sm90.cu",
-                 "fused_layer_fwd_sm90.cu", "rowblock_sm90.cuh", "rowblock_fwd_sm90.cu",
-                 "rowblock_bwd_sm90.cu", "k2_f32_sm90.cuh", "fused_layer_bwd_f32_sm90.cu"):
-        shutil.copy(CSRC / name, work / name)
-    if body in ("hopper", "k1-hopper", "f32-hopper"):
+    for source in CSRC.glob("*.cu*"):
+        shutil.copy(source, work / source.name)
+    if body in ("hopper", "k1-hopper", "f32-hopper", "k4dw-general", "k4-f32"):
         unit, marks = {"hopper": ("fused_layer_bwd_sm90.cu", HOPPER),
                        "k1-hopper": ("fused_layer_fwd_sm90.cu", K1_HOPPER),
-                       "f32-hopper": ("fused_layer_bwd_f32_sm90.cu", F32_HOPPER)}[body]
+                       "f32-hopper": ("fused_layer_bwd_f32_sm90.cu", F32_HOPPER),
+                       "k4dw-general": ("rowblock_bwd.cu", K4DW_GENERAL),
+                       "k4-f32": ("rowblock_bwd_f32_sm90.cu", K4_F32)}[body]
         unit = work / unit
         unit.write_text(instrument(unit.read_text(), marks) + COUNTERS)
     elif body in ("k3-head", "k4-head"):
@@ -210,12 +258,104 @@ def build(work: Path, body: str, dtype: str) -> Path:
     return lib
 
 
+def k4_split(args, card: str) -> int:
+    """The float32 K4 bodies' split: the 3-part compress and the combination
+    at A x M rows (d_part 128), inputs and weights from a seeded generator,
+    one JSON line per stage: cycles per 64-row tile (each block's tiles run
+    one after another), each phase's share, the instrumented launch's ms."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(0)
+    rows, D = args.A * args.M, 128
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = -(-rows // 64)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    names = K4DW_GENERAL_PHASES if args.body == "k4dw-general" else K4_F32_PHASES
+
+    def t(*shape, scale=1.0, base=0.0):
+        return (base + scale * torch.randn(*shape, generator=gen)).to(dev).contiguous()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = ctypes.CDLL(str(build(Path(tmp), args.body, "float32")))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for stage, n_parts in ((0, 3), (1, 3)):
+            w_in = n_parts * D if stage == 0 else 2 * D
+            w_hid = D if stage == 0 else 2 * D
+            xs = [t(rows, D) for _ in range(n_parts)]
+            ln_s, ln_b = (t(w_in, scale=0.1, base=1.0), t(w_in, scale=0.1)) if stage else (None, None)
+            w0, b0 = t(w_in, w_hid, scale=w_in ** -0.5), t(w_hid, scale=0.1)
+            w1, b1 = t(w_hid, D, scale=w_hid ** -0.5), t(D, scale=0.1)
+            w0_t, w1_t = w0.t().contiguous(), w1.t().contiguous()
+            g = t(rows, D)
+            n_d = 2 if stage else n_parts
+            d = [torch.empty_like(xs[0]) for _ in range(n_d)] + [None] * (3 - n_d)
+            ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+            n_dw = sum(x.numel() for x in (ln_s, ln_b, w0, b0, w1, b1) if x is not None)
+            dw = torch.empty(n_dw, device=dev)
+            if args.body == "k4dw-general":
+                partials = torch.empty(sms, n_dw, device=dev)
+                fn = lib.mtt_rowblock_bwd
+                fn.argtypes = [I, I, P, P, P, I] + [P] * 13 + [I, P] + [L, I, I, I, I, P]
+                vals = [0, stage, *map(ptr, xs + [None] * (3 - n_parts)), n_parts,
+                        *map(ptr, (ln_s, ln_b, w0, b0, w1, b1, w0_t, w1_t, g, *d, partials)),
+                        sms, dw.data_ptr()]
+            elif args.dw:
+                plan = (ctypes.c_longlong * 5)()
+                lib.mtt_rowblock_bwd_dw_f32_sm90_plan.argtypes = [I, L, I, I, I, I, P]
+                lib.mtt_rowblock_bwd_dw_f32_sm90_plan(stage, rows, w_in, w_hid, D, sms, plan)
+                spill = torch.empty(plan[3], dtype=torch.uint8, device=dev)
+                partials = torch.empty(max(plan[4], 1), n_dw, device=dev)
+                fn = lib.mtt_rowblock_bwd_dw_f32_sm90
+                fn.argtypes = [I, P, P, P, I] + [P] * 13 + [L, I, I, I, I, I, P]
+                vals = [stage, *map(ptr, xs + [None] * (3 - n_parts)), n_parts,
+                        *map(ptr, (ln_s, ln_b, b0, w0_t, w1, w0, g, *d, dw, spill, partials))]
+            else:
+                fn = lib.mtt_rowblock_bwd_f32_sm90
+                fn.argtypes = [I, P, P, P, I] + [P] * 10 + [L, I, I, I, I, I, P]
+                vals = [stage, *map(ptr, xs + [None] * (3 - n_parts)), n_parts,
+                        *map(ptr, (ln_s, ln_b, b0, w0_t, w1, w0, g, *d))]
+            # the general body takes no grid; the Hopper K4 its blocks, its K4-dW the SMs
+            tail = ([D, w_in, w_hid, D] if args.body == "k4dw-general" else
+                    [D, w_in, w_hid, D, sms] if args.dw else [D, w_in, w_hid, D, min(sms, tiles)])
+
+            def run():
+                return fn(*vals, rows, *tail, stream)
+
+            if run() != 0:
+                raise RuntimeError("launch failed")
+            torch.cuda.synchronize()
+            lib.split_zero()
+            run()
+            torch.cuda.synchronize()
+            counts = (ctypes.c_ulonglong * 16)()
+            lib.split_read(counts)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(5):
+                run()
+            end.record()
+            torch.cuda.synchronize()
+            cycles = list(counts)[:len(names)]
+            total = sum(cycles)
+            print(json.dumps({"card": card, "body": args.body, "dw": args.dw or args.body == "k4dw-general",
+                              "stage": "compress3" if stage == 0 else "combination",
+                              "rows": rows, "cycles_per_tile": total / tiles,
+                              "share": {n: x / total for n, x in zip(names, cycles) if x},
+                              "instrumented_ms": start.elapsed_time(end) / 5}), flush=True)
+            del xs, g, d, dw
+            torch.cuda.empty_cache()
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--body", choices=("hopper", "general", "f32-hopper", "k1-hopper", "k3-head",
-                                           "k4-head"), required=True)
+                                           "k4-head", "k4dw-general", "k4-f32"), required=True)
     parser.add_argument("--dtype", choices=("bfloat16", "float32"), default=None,
                         help="the general body's storage type (the Hopper bodies have one each)")
+    parser.add_argument("--dw", action="store_true",
+                        help="k4-f32: the spill mode (K4-dW's first pass) and its second pass")
     parser.add_argument("--A", type=int, default=11392)
     parser.add_argument("--M", type=int, default=64)
     args = parser.parse_args()
@@ -227,6 +367,8 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()[0]
+    if args.body in ("k4dw-general", "k4-f32"):
+        return k4_split(args, card)
     own = "float32" if args.body == "f32-hopper" else "bfloat16"
     if args.dtype not in (None, own) and args.body != "general":
         parser.error(f"--body {args.body} runs in {own}")
