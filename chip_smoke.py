@@ -19,8 +19,10 @@ device and exits non-zero without one. Phases (any failure propagates):
    general K3 and K4 never, the permute and the accumulate permute) must
    have launched in them; the pair searches must have run in the native
    neighbor library. One call of the f32 kernel path, every counter at 0
-   just before it, must launch the Hopper float32 K2 of
-   ``csrc/fused_layer_bwd_f32_sm90.cu`` 4 times and the general K2 never,
+   just before it, must launch the Hopper float32 K1 of
+   ``csrc/fused_layer_fwd_f32_sm90.cu`` and the Hopper float32 K2 of
+   ``csrc/fused_layer_bwd_f32_sm90.cu`` 4 times each and the general K1
+   and K2 never,
    and the Hopper float32 K4 of ``csrc/rowblock_bwd_f32_sm90.cu`` (``K4_F32``)
    2 + 2 times and the general compress and combination K4 never. Energy, forces and virial must be finite; the bf16
    kernel path must match the f32 plain path (energy rel <= 1 %, force
@@ -44,8 +46,9 @@ device and exits non-zero without one. Phases (any failure propagates):
    multiplicity 2 (``extra_keys``, ``evaluate_model``) another energy than
    the neutral singlet, the adaptive cutoffs in [0.5, 4.5] and not 4.5.
    One f32 training step of each on phase 5's first two frames (a charge
-   and a spin each), kernel vs plain with phase 6's gates: K1, K2-dW, K3
-   and K4-dW must launch and the layer's replay run. Reported, not gated:
+   and a spin each), kernel vs plain with phase 6's gates: the Hopper
+   float32 K1 (4 times, the general K1 never), K2-dW, K3 and K4-dW must
+   launch and the layer's replay run. Reported, not gated:
    ms per call and atom-steps/s beside phase 3's, each option's own
    CUDA-event time (forward and backward to the positions) and whether
    the long-range featurizer repeats bit for bit, a profile of (b).
@@ -72,7 +75,8 @@ device and exits non-zero without one. Phases (any failure propagates):
    from their positions (mse energy and forces, huber charges, mae
    dipole, shift-agnostic mse polarizability; both batches rotated by an
    O3 augmenter of seed 0), kernel vs plain with phase 6's gates, the
-   general K1, K3, K2-dW and K4-dW launched, a K3 head per target and at
+   Hopper float32 K1 4 times (the general K1 never), K3, K2-dW and K4-dW
+   launched, a K3 head per target and at
    least one K4-dW head per target. ``mtt::aux::cutoff_stats`` of phase
    3b's adaptive model (b), bf16 kernel vs f32 plain path, 1e-5. The
    ``eval`` command in this process on the model saved as ``.mtt`` and the
@@ -106,7 +110,8 @@ device and exits non-zero without one. Phases (any failure propagates):
    cutoff (the calculator's buckets give M = 96 on the crystal; any M >= 80
    passes, a smaller one fails) and with d_pet 256, d_ff 512, 8 heads of 32,
    each served as phase 3 (its launches and gates, 2 steps; the general K1
-   and K2 bodies; at M = 96 the Hopper K3 and K4, at d_pet 256 the general
+   and K2 bodies, the f32 call's too: 4 general K1 and no Hopper float32
+   K1; at M = 96 the Hopper K3 and K4, at d_pet 256 the general
    K3 and K4: the compress and combination 2 per call each, the head 1),
    the kernel paths timed.
 4d. int8 scores: the fused model built with ``int8_scores=True`` in
@@ -123,7 +128,8 @@ device and exits non-zero without one. Phases (any failure propagates):
    analytic forces, written as extended xyz, then the port's
    ``train_model`` at the PET defaults in float32 (batch 2, 2 epochs,
    validation 0.25, forces weight 10). Every counter starts at 0 just
-   before it; K1, K3, K2-dW and K4-dW (all three stages) must launch in it
+   before it; the Hopper float32 K1 (and never the general K1), K3, K2-dW
+   and K4-dW (all three stages) must launch in it
    (K2-dW: the two-pass kernels with the Hopper float32 K2's spill mode as
    first pass, ``K2DW_F32``, and never the accumulate body or the general
    body's first pass; the compress and combination K4-dW: the two-pass
@@ -143,6 +149,7 @@ device and exits non-zero without one. Phases (any failure propagates):
    block's forward and weight-gradient kernels and replay the block's
    backward): loss rel <= 1e-5, global gradient rel L2 <= 1e-4, each
    parameter tensor rel L2 <= 1e-3; the fused step must launch the
+   Hopper float32 K1 4 times and the general K1 never, the
    two-pass K2-dW's kernels (``K2DW_F32``) 8 times each (4 layers, in the
    forces' backward and in the loss's) and the accumulate body and the
    general body's first pass never, and ``K4DW_F32`` 4 + 4 times (8 products)
@@ -154,22 +161,24 @@ device and exits non-zero without one. Phases (any failure propagates):
    one exact bfloat16 step (the trained model), kernel vs plain path, with
    the same gates: a weight requires grad, so the general K1, the two-pass
    K2-dW (8 each; its first pass the general body, ``K2DW``) and K4-dW must
-   launch and the Hopper K1, K2, K3 and K4, the float32 K4 and K4-dW and
-   the accumulate K2-dW never. Phase 3b's f32 steps hold the f32 step's
+   launch and the Hopper K1, K2, K3 and K4, the float32 K1, K4 and K4-dW
+   and the accumulate K2-dW never. Phase 3b's f32 steps hold the f32 step's
    K2-dW and K4-dW counts, phase 3c's its K2-dW counts and K4-dW's kernels.
 7. training timing: ms per step and atom-steps/s (host clock around
    synchronised steps after a warm-up step) with the peak device memory,
    for the kernel, plain and GNN-block paths on the 2 x 2,048-atom batch
    (the kernel paths with a torch.profiler breakdown of one step) and for
    the kernel path on the 10,976-atom crystal as a batch of one; the timed
-   steps of the (non-block) kernel paths must launch ``K2DW_F32`` 8 times a
+   steps of the (non-block) kernel paths must launch the Hopper float32 K1
+   4 times a step and the general K1 never, ``K2DW_F32`` 8 times a
    step each, the general first pass and the accumulate body never, and
    ``K4DW_F32`` 4 + 4 (+ 8) times a step, the general K4-dW compress and
    combination never.
 7b. user entry points, ``metatrain_tpu_torch.__main__.main`` called in
    this process from a temporary directory: ``train`` on phase 5's frames
    (options written as JSON, 1 epoch, float32; every counter starts at 0
-   just before it: K1, K3, the two-pass K2-dW (``K2DW_F32``), the two-pass
+   just before it: the Hopper float32 K1 (never the general K1), K3, the
+   two-pass K2-dW (``K2DW_F32``), the two-pass
    K4-dW (``K4DW_F32``) and the K4-dW head must launch, the accumulate
    K2-dW, the general first pass and the general compress and combination
    K4-dW never; the final
@@ -178,8 +187,10 @@ device and exits non-zero without one. Phases (any failure propagates):
    ``model.mtt``'s weights must equal the checkpoint's best weights bit for
    bit); ``eval model.mtt`` on the frames with ``-o preds.xyz`` (the f32
    kernel path's metrics within 1e-4 relative of the same eval on a
-   ``plain=True`` model). Then ``Calculator("model.mtt")`` on the crystal,
-   f32 kernel vs f32 plain path with phase 3's f32 gates; ``run_md_nve``
+   ``plain=True`` model; the Hopper float32 K1 launched, the general K1
+   never). Then ``Calculator("model.mtt")`` on the crystal,
+   f32 kernel vs f32 plain path with phase 3's f32 gates (the Hopper
+   float32 K1 and K2 4 times in its call, the general K1 never); ``run_md_nve``
    with the trained weights in bf16 (``pet_from_checkpoint(...,
    compute_dtype=torch.bfloat16)``) on the crystal, 100 steps of 1 fs with
    ``check_interval`` 10 after a 10-step warm-up: every counter starts at
@@ -250,7 +261,14 @@ device and exits non-zero without one. Phases (any failure propagates):
    an entry of its own (``fused_layer_fwd_sm90``) with the same checks
    (both outputs bitwise equal across two launches); the entry of K1
    (``fused_layer_fwd``) keeps the general body, in bf16 with
-   ``sm90=False``, and its launches are the training run's. K4's compress
+   ``sm90=False``, and its launches are the exact bf16 step's. K1 in
+   float32 at those shapes is the Hopper float32 K1, an entry of its own
+   (``fused_layer_fwd_f32_sm90``) with the Hopper float32 K2's checks (max
+   |kernel - plain| <= 1e-4 max |plain|, both outputs bitwise equal across
+   two launches, the general body held to the same bound and timed beside
+   it, registers and spills, shared bytes, its bound at the 3xTF32 peak and
+   on the FFMA pipes, the same shapes); K1's entry keeps the general body
+   in float32 too (``sm90=False``). K4's compress
    and combination in bf16 are the Hopper K4, entries of their own
    (``rowblock_bwd_sm90[<stage>]``): every output within relative RMS 2e-2
    of the plain version and bitwise equal across two launches, the general
@@ -289,15 +307,15 @@ device and exits non-zero without one. Phases (any failure propagates):
 9. shapes: the C side's layout plans (shared bytes, workspace floats, row
    tiles) and the Hopper K1's, K2's, K3's and K4's dispatch rules and budgets,
    and the two-pass K2-dW's rule, chunk plan and slices, equal
-   ``_lib``'s Python ones (the Hopper float32 K2's too) for M = 16..256 and
-   D of 64 to 256;
+   ``_lib``'s Python ones (the Hopper float32 K1's and K2's too) for M =
+   16..256 and D of 64 to 256;
    K1, K2, K2-dW, the block's three kernels and, in bf16, K1-W8A8 and
    K2-W8A8 vs plain at M = 80, 96, 128 (D 128) and M = 64, 128 (D 256), A =
    256; K3, K4 and K4-dW at D = 256; the attention pair, K1, K2, K2-dW (and
    W8A8) at head widths 8, 12, 24 and 64; the bounds of phase 8, times under
    each entry's ``shapes``.
 
-The second-to-last line is a JSON object with one entry per kernel (33);
+The second-to-last line is a JSON object with one entry per kernel (38);
 the last line is ``{"ok": true, "device": {...}}``. Details also go to
 ``chiprun_out/chip_smoke.json``, the compiler's ``-Xptxas -v`` output to
 ``chiprun_out/chip_smoke_build.log``.
@@ -339,6 +357,11 @@ K4_F32 = ("rowblock_bwd_f32_sm90[compress]", "rowblock_bwd_f32_sm90[combination]
 K4DW_F32 = ("rowblock_bwd_dw_f32_sm90[compress]", "rowblock_bwd_dw_f32_sm90[combination]",
             "rowblock_dw_product")
 K4DW_F32_PER_STEP = dict(zip(K4DW_F32, (4, 4, 8)))
+# the Hopper float32 K1, at the served shapes the forward of every float32
+# call and step (4 layers: 4 a force call, 4 a training step), with or
+# without weight gradients; the general K1 then never
+K1_F32 = "fused_layer_fwd_f32_sm90"
+K1_F32_PER_STEP = 4
 K4_F32_NEVER = ("rowblock_bwd[compress]", "rowblock_bwd[combination]",
                 "rowblock_bwd_dw[compress]", "rowblock_bwd_dw[combination]")
 
@@ -598,6 +621,7 @@ def check_fused_layer(A, M, D, H, F, gen, device, report):
                 k2_bound = (nbytes, flops)
         e, c, ge, gc = (x.to(dtype) for x in (edges, center, g_edge, g_center))
         before_k1 = fl._lib.LAUNCHES["fused_layer_fwd_sm90"]
+        before_k1_f32 = fl._lib.LAUNCHES[K1_F32]
         fwd_k = fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale)
         fwd_p = fl.layer_math(e, c, cf, w, H, scale)
         before = fl._lib.LAUNCHES["fused_layer_bwd_sm90"]
@@ -609,6 +633,10 @@ def check_fused_layer(A, M, D, H, F, gen, device, report):
         k1_sm90 = fl._lib.LAUNCHES["fused_layer_fwd_sm90"] > before_k1
         if k1_sm90 != fl._lib.k1_sm90_takes(dtype, M, D, H, F):
             fail(f"K1 {dtype} at M={M}: the Hopper kernel ran: {k1_sm90}, the rule says otherwise")
+        k1_f32 = fl._lib.LAUNCHES[K1_F32] > before_k1_f32
+        if k1_f32 != fl._lib.k1_f32_sm90_takes(dtype, M, D, H, F):
+            fail(f"K1 {dtype} at M={M}: the Hopper float32 K1 ran: {k1_f32}, the rule says "
+                 "otherwise")
         sm90 = fl._lib.LAUNCHES["fused_layer_bwd_sm90"] > before
         if sm90 != fl._lib.k2_sm90_takes(dtype, M, D, H, F):
             fail(f"K2 {dtype} at M={M}: the Hopper kernel ran: {sm90}, the rule says otherwise")
@@ -621,11 +649,19 @@ def check_fused_layer(A, M, D, H, F, gen, device, report):
         if k2_f32:
             # the Hopper float32 K2: an entry of its own; K2's entry keeps the
             # general body in float32
-            check_k2_f32_sm90_entry(report, e, c, cf, w, ge, gc, H, scale, bwd_k, bwd_p, k2_bound)
+            check_f32_sm90_entry(
+                report, "fused_layer_bwd_f32_sm90",
+                lambda **kw: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, **kw),
+                lambda: fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale), bwd_k, bwd_p, k2_bound)
             bwd_k = fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, sm90=False)
         general = lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale, sm90=False)  # noqa: E731
-        fwd_checks = [("fused_layer_fwd", general() if k1_sm90 else fwd_k, fwd_p, general,
+        # K1's entry keeps the general body where a Hopper K1 took the call
+        fwd_checks = [("fused_layer_fwd", general() if k1_sm90 or k1_f32 else fwd_k, fwd_p, general,
                        lambda: fl.layer_math(e, c, cf, w, H, scale))]
+        if k1_f32:
+            check_f32_sm90_entry(
+                report, K1_F32, lambda **kw: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale, **kw),
+                lambda: fl.layer_math(e, c, cf, w, H, scale), fwd_k, fwd_p, k1_bound[:2])
         if k1_sm90:
             k1_entry = report.setdefault("fused_layer_fwd_sm90", {"library_ms": None})
             record_bound(k1_entry, tag, *k1_bound)
@@ -695,43 +731,39 @@ def check_k2_sm90_entry(entry, e, c, cf, w, ge, gc, H, scale, k_out, p_out):
     entry["general_ms_bf16"] = cuda_ms(general)
 
 
-def check_k2_f32_sm90_entry(report, e, c, cf, w, ge, gc, H, scale, k_out, p_out, bound):
-    """The Hopper float32 K2 (``fused_layer_bwd_f32_sm90``) at the served
-    shape (``check_k2_f32_sm90_shape``), its plain version's ms and its
-    bound at the 3xTF32 tensor-core peak (``bound_ms``) and on the FFMA
-    pipes (``bound_ms_ffma``)."""
-    from metatrain_tpu_torch.ops.kernels import fused_layer as fl
-
-    entry = report.setdefault("fused_layer_bwd_f32_sm90", {"library_ms": None})
-    sub = check_k2_f32_sm90_shape(e, c, cf, w, ge, gc, H, scale, k_out, p_out)
-    for key, value in sub.items():
+def check_f32_sm90_entry(report, name, launch, plain, k_out, p_out, bound):
+    """A Hopper float32 kernel (``name``: ``fused_layer_fwd_f32_sm90`` or
+    ``fused_layer_bwd_f32_sm90``) at the served shape
+    (``check_f32_sm90_shape``), its plain version's ms and its bound at the
+    3xTF32 tensor-core peak (``bound_ms``) and on the FFMA pipes
+    (``bound_ms_ffma``)."""
+    entry = report.setdefault(name, {"library_ms": None})
+    for key, value in check_f32_sm90_shape(name, launch, k_out, p_out).items():
         entry[f"{key}_f32"] = value
     record_bound(entry, "f32", *bound, torch.float32, peak=PEAK_3XTF32_OPS_PER_S)
     ffma = {}
     record_bound(ffma, "f32", *bound, torch.float32)
     entry["bound_ms_ffma_f32"] = ffma["bound_ms_f32"]
-    entry["plain_ms_f32"] = cuda_ms(lambda: fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale))
+    entry["plain_ms_f32"] = cuda_ms(plain)
 
 
-def check_k2_f32_sm90_shape(e, c, cf, w, ge, gc, H, scale, k_out, p_out):
-    """The Hopper float32 K2's checks at one shape (``k_out`` from the
-    default path, ``p_out`` the plain version's): max |kernel - plain| <=
-    1e-4 max |plain|, the three outputs bitwise equal across two launches,
-    CUDA-event ms beside the general body's (``sm90=False``,
-    ``general_ms``, itself held to the same bound)."""
-    from metatrain_tpu_torch.ops.kernels import fused_layer as fl
-
+def check_f32_sm90_shape(name, launch, k_out, p_out):
+    """A Hopper float32 kernel's checks at one shape (``launch(**kw)`` its
+    wrapper on the shape's inputs, ``k_out`` from the default path, ``p_out``
+    the plain version's): max |kernel - plain| <= 1e-4 max |plain|, every
+    output bitwise equal across two launches, CUDA-event ms beside the
+    general body's (``sm90=False``, ``general_ms``, itself held to the same
+    bound)."""
     err, worst = compare(k_out, p_out, torch.float32)
-    again = fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale)
+    again = launch()
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(k_out, again)):
-        fail("the Hopper float32 K2 gave different outputs in two launches")
+        fail(f"{name} gave different outputs in two launches")
     del again
-    general = lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, sm90=False)  # noqa: E731
+    general = lambda: launch(sm90=False)  # noqa: E731
     return {"max_abs_err": err, "bound_ratio": worst, "bitwise_repeat": True,
             "general_bound_ratio": compare(general(), p_out, torch.float32)[1],
-            "ms": cuda_ms(lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale)),
-            "general_ms": cuda_ms(general)}
+            "ms": cuda_ms(launch), "general_ms": cuda_ms(general)}
 
 
 def check_k1_sm90_entry(entry, e, c, cf, w, H, scale, k_out, p_out):
@@ -757,8 +789,8 @@ def check_sm90_shapes(gen, device, report, D=128, H=8, F=256):
     pair of atoms) and M = 32 at A = 1,000; bf16 relative RMS <= 2e-2, K1's
     outputs and K2's d_cf bitwise equal across two launches, CUDA-event ms
     beside the general bodies', under each entry's ``shapes``; the Hopper
-    float32 K2 at the same shapes with its own checks
-    (``check_k2_f32_sm90_shape``)."""
+    float32 K1 and K2 at the same shapes with their own checks
+    (``check_f32_sm90_shape``)."""
     from metatrain_tpu_torch.ops.kernels import fused_layer as fl
 
     for A, M in ((11000, 64), (11000, 48), (11000, 16), (1000, 32)):
@@ -793,6 +825,17 @@ def check_sm90_shapes(gen, device, report, D=128, H=8, F=256):
         report.setdefault("fused_layer_bwd", {}).setdefault("shapes", {})[
             f"sm90_A{A}_M{M}_bf16"] = sub
         del k_out, p_out, e, c, ge, gc
+        before = fl._lib.LAUNCHES[K1_F32]
+        k_out = fl.fused_layer_fwd_cuda(edges, center, cf, w, H, scale)
+        torch.cuda.synchronize()
+        if fl._lib.LAUNCHES[K1_F32] != before + 1:
+            fail(f"the Hopper float32 K1 did not take A={A}, M={M}")
+        p_out = fl.layer_math(edges, center, cf, w, H, scale)
+        report.setdefault(K1_F32, {}).setdefault("shapes", {})[f"A{A}_M{M}_f32"] = (
+            check_f32_sm90_shape(
+                K1_F32, lambda **kw: fl.fused_layer_fwd_cuda(edges, center, cf, w, H, scale, **kw),
+                k_out, p_out))
+        del k_out, p_out
         before = fl._lib.LAUNCHES["fused_layer_bwd_f32_sm90"]
         k_out = fl.fused_layer_bwd_cuda(edges, center, cf, w, g_edge, g_center, H, scale)
         torch.cuda.synchronize()
@@ -800,8 +843,11 @@ def check_sm90_shapes(gen, device, report, D=128, H=8, F=256):
             fail(f"the Hopper float32 K2 did not take A={A}, M={M}")
         p_out = fl.layer_bwd_math(edges, center, cf, w, g_edge, g_center, H, scale)
         report.setdefault("fused_layer_bwd_f32_sm90", {}).setdefault("shapes", {})[
-            f"A{A}_M{M}_f32"] = check_k2_f32_sm90_shape(edges, center, cf, w, g_edge, g_center, H,
-                                                        scale, k_out, p_out)
+            f"A{A}_M{M}_f32"] = check_f32_sm90_shape(
+                "fused_layer_bwd_f32_sm90",
+                lambda **kw: fl.fused_layer_bwd_cuda(edges, center, cf, w, g_edge, g_center, H, scale,
+                                                     **kw),
+                k_out, p_out)
         del k_out, p_out
         torch.cuda.empty_cache()
 
@@ -977,8 +1023,8 @@ def plan_table():
             b = _lib.layer_bwd_plan(M, D, H, F, False, True)
             pairs.append((_lib.plan_query(lib.mtt_fused_layer_bwd_w8a8_smem, M, D, H, F),
                           (4 * b.smem_floats, b.ws_floats)))
-            # the Hopper K1's and K2's dispatch rules and budgets, C vs
-            # Python, at heads of 16 and of 8
+            # the Hopper K1's and K2's dispatch rules and budgets (bf16 and
+            # float32), C vs Python, at heads of 16 and of 8
             for heads in (H, 2 * H):
                 pairs.append(((bool(lib.mtt_fused_layer_bwd_sm90_ok(M, D, heads, F)),
                                lib.mtt_fused_layer_bwd_sm90_smem(M, D, heads, F)),
@@ -992,6 +1038,10 @@ def plan_table():
                                lib.mtt_fused_layer_bwd_f32_sm90_smem(M, D, heads, F)),
                               (_lib.k2_f32_sm90_takes(torch.float32, M, D, heads, F),
                                _lib.k2_f32_sm90_smem(M, D, heads, F))))
+                pairs.append(((bool(lib.mtt_fused_layer_fwd_f32_sm90_ok(M, D, heads, F)),
+                               lib.mtt_fused_layer_fwd_f32_sm90_smem(M, D, heads, F)),
+                              (_lib.k1_f32_sm90_takes(torch.float32, M, D, heads, F),
+                               _lib.k1_f32_sm90_smem(M, D, heads, F))))
             # the two-pass K2-dW's rule (both dtypes, int8 scores or not), its
             # chunk plan and its slices, C vs Python
             for heads in (H, 2 * H):
@@ -2227,9 +2277,10 @@ def check_physics(device, report, workdir):
         torch.cuda.empty_cache()
         report[f"training_parity_{key}"] = check_training_parity(
             workdir / "cu_lj_charged.xyz", state, device, hypers,
-            expected=("fused_layer_fwd", *K2DW_F32, "rowblock_fwd[compress]", *K4DW_F32),
-            replayed=("fused_layer",), absent=K2DW_F32_NEVER + K4_F32_NEVER,
-            per_step={k: K2DW_PER_STEP for k in K2DW_F32} | K4DW_F32_PER_STEP)
+            expected=(K1_F32, *K2DW_F32, "rowblock_fwd[compress]", *K4DW_F32),
+            replayed=("fused_layer",), absent=("fused_layer_fwd",) + K2DW_F32_NEVER + K4_F32_NEVER,
+            per_step={K1_F32: K1_F32_PER_STEP} | {k: K2DW_PER_STEP for k in K2DW_F32}
+            | K4DW_F32_PER_STEP)
         torch.cuda.empty_cache()
 
 
@@ -2420,15 +2471,18 @@ def check_generic_training(path, device):
         torch.cuda.empty_cache()
     (lk, gk, names, polar_k), (lp, gp, _, polar_p) = results["kernel"], results["plain"]
     launches = report["launches"]
-    # the general K1 and K3, K2-dW and K4-dW; a K3 head per target and at
-    # least one K4-dW head per target
+    # the Hopper float32 K1 (4) and never the general K1, the general K3,
+    # K2-dW and K4-dW; a K3 head per target and at least one K4-dW head per
+    # target
     check_k2dw_launches(launches, per_step=K2DW_PER_STEP)
     check_k4dw_launches(launches)
-    missing = [k for k in ("fused_layer_fwd", "rowblock_fwd[compress]") if not launches.get(k)]
-    if (missing or launches.get("rowblock_fwd[head]") != len(infos)
+    missing = [k for k in (K1_F32, "rowblock_fwd[compress]") if not launches.get(k)]
+    if (missing or launches.get(K1_F32) != K1_F32_PER_STEP or launches.get("fused_layer_fwd", 0)
+            or launches.get("rowblock_fwd[head]") != len(infos)
             or launches.get("rowblock_bwd_dw[head]", 0) < len(infos)):
         fail(f"generic training step launched {launches}; missing {missing}, expected "
-             f"{len(infos)} K3 heads and at least {len(infos)} K4-dW heads")
+             f"{K1_F32_PER_STEP} Hopper float32 K1 and no general K1, {len(infos)} K3 heads and "
+             f"at least {len(infos)} K4-dW heads")
     if not torch.equal(polar_k, polar_p):
         fail("the two paths' augmented polarizabilities differ")
     loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
@@ -2910,11 +2964,12 @@ def check_training(device, report, workdir):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches, replays = dict(_lib.LAUNCHES), dict(_lib.REPLAYS)
-    expected = ["fused_layer_fwd", *K2DW_F32, *K4DW_F32, "rowblock_bwd_dw[head]"] + [
+    expected = [K1_F32, *K2DW_F32, *K4DW_F32, "rowblock_bwd_dw[head]"] + [
         f"rowblock_fwd[{s}]" for s in STAGE_NAMES]
     missing = [k for k in expected if launches.get(k, 0) == 0]
-    if missing:
-        fail(f"kernels not launched in the training run: {missing}")
+    if missing or launches.get("fused_layer_fwd", 0):
+        fail(f"kernels not launched in the training run: {missing}, or the general K1 launched: "
+             f"{launches.get('fused_layer_fwd', 0)}")
     check_k2dw_launches(launches)
     check_k4dw_launches(launches)
     no_replay = [k for k in ["fused_layer"] + [f"rowblock[{s}]" for s in STAGE_NAMES]
@@ -3068,6 +3123,10 @@ def time_training(workdir, state, device, report, steps=3):
         if key.startswith("kernel") and not fused_gnn:
             check_k2dw_launches(dict(_lib.LAUNCHES), per_step=K2DW_PER_STEP * steps)
             check_k4dw_launches(dict(_lib.LAUNCHES), steps)
+            if (_lib.LAUNCHES.get(K1_F32) != K1_F32_PER_STEP * steps
+                    or _lib.LAUNCHES.get("fused_layer_fwd", 0)):
+                fail(f"{key}: the timed steps launched {dict(_lib.LAUNCHES)}: "
+                     f"{K1_F32_PER_STEP} Hopper float32 K1 a step and no general K1 expected")
         if not math.isfinite(loss.item()):
             fail(f"{key}: training loss not finite")
         timing[key] = {"ms_per_step": ms, "atoms": n_atoms,
@@ -3152,11 +3211,12 @@ def check_entry_points(device, report, workdir):
         torch.cuda.synchronize()
         out["train_s"] = time.perf_counter() - t0
         launches = dict(_lib.LAUNCHES)
-        expected = ["fused_layer_fwd", *K2DW_F32, *K4DW_F32, "rowblock_bwd_dw[head]"] + [
+        expected = [K1_F32, *K2DW_F32, *K4DW_F32, "rowblock_bwd_dw[head]"] + [
             f"rowblock_fwd[{s}]" for s in STAGE_NAMES]
         missing = [k for k in expected if launches.get(k, 0) == 0]
-        if missing:
-            fail(f"kernels not launched by the train command: {missing}")
+        if missing or launches.get("fused_layer_fwd", 0):
+            fail(f"kernels not launched by the train command: {missing}, or the general K1 "
+                 f"launched: {launches.get('fused_layer_fwd', 0)}")
         check_k2dw_launches(launches)
         check_k4dw_launches(launches)
         out["train_launches"] = launches
@@ -3185,6 +3245,9 @@ def check_entry_points(device, report, workdir):
             cli(["eval", "model.mtt", "eval.json", "-o", "preds.xyz"])
         torch.cuda.synchronize()
         out["eval_launches"] = dict(_lib.LAUNCHES)
+        if not out["eval_launches"].get(K1_F32) or out["eval_launches"].get("fused_layer_fwd", 0):
+            fail(f"eval launched {out['eval_launches']}: the Hopper float32 K1 and no general K1 "
+                 "expected")
         kernel = logged_metrics([m for m in messages if not m.startswith("Evaluation time")])
         plain = eval_model("model.mtt", dataset_section(frames), device=device, plain=True)
         worst = max(abs(kernel[k] - plain[k]) / abs(plain[k]) for k in plain)
@@ -3200,13 +3263,20 @@ def check_entry_points(device, report, workdir):
         n = len(crystal)
         calc = Calculator("model.mtt")
         plain_calc = Calculator(load_model("model.mtt", device=device, plain=True))
+        _lib.LAUNCHES.clear()
         res = calc.compute(crystal, forces=True, stress=True)
+        torch.cuda.synchronize()
+        mtt_launches = dict(_lib.LAUNCHES)
+        if (mtt_launches.get(K1_F32) != 4 or mtt_launches.get("fused_layer_fwd", 0)
+                or mtt_launches.get("fused_layer_bwd_f32_sm90") != 4):
+            fail(f"Calculator(model.mtt) launched {mtt_launches}: 4 Hopper float32 K1 and K2 and "
+                 "no general K1 expected")
         ref = plain_calc.compute(crystal, forces=True, stress=True)
         e32, f32 = rel_errors(res, ref)
         if not (e32 <= 1e-5 and f32 <= 1e-4):
             fail(f"Calculator(model.mtt), f32 kernel path vs f32 plain: energy {e32:.3g}, "
                  f"forces {f32:.3g}")
-        out["mtt_f32"] = {"energy_rel": e32, "force_rel_rmse": f32}
+        out["mtt_f32"] = {"energy_rel": e32, "force_rel_rmse": f32, "launches": mtt_launches}
         del plain_calc
         torch.cuda.empty_cache()
 
@@ -3322,6 +3392,8 @@ SOURCES = {
                         "metatrain_tpu/ops/pallas/fused_layer.py:1161"),
     "fused_layer_fwd_sm90": ("metatrain_tpu_torch/csrc/fused_layer_fwd_sm90.cu",
                              "metatrain_tpu/ops/pallas/fused_layer.py:1161 (exact bf16)"),
+    "fused_layer_fwd_f32_sm90": ("metatrain_tpu_torch/csrc/fused_layer_fwd_f32_sm90.cu",
+                                 "metatrain_tpu/ops/pallas/fused_layer.py:1161 (float32)"),
     "fused_layer_bwd": ("metatrain_tpu_torch/csrc/fused_layer_bwd_sm90.cu",
                         "metatrain_tpu/ops/pallas/fused_layer.py:1269 (exact bf16; f32: "
                         "csrc/fused_layer_bwd.cu)"),
@@ -3373,21 +3445,23 @@ SOURCES = {
                                 "(weight_grads=True, int8 scores)"),
 }
 UNFUSED_PATH = ("permute", "permute_acc", "window_attention_fwd", "window_attention_bwd")
-N_ENTRIES = 37
+N_ENTRIES = 38
 
 
 def launch_count(report, name):
     """Launches of ``name`` in the run of its path: the block's force calls
     and training step for the GNN block's kernels, the training run for the
-    other weight-gradient kernels and for K1's general body (the served bf16
-    calls run the Hopper K1), the d_pet 256 force calls for the general K3
+    other weight-gradient kernels, the exact bf16 training step for K1's
+    general body (the served bf16 calls run the Hopper K1, the float32
+    calls and steps at the served shapes the Hopper float32 K1), the d_pet
+    256 force calls for the general K3
     and K4 (the served d_pet 128 calls run the Hopper K3 and K4 for every
     stage), the unfused force calls for the kernels
     that path added, the W8A8 force calls for the W8A8 kernels, the fused
     force calls for the rest; the int8 scores' from their force calls and
     (K2-dW-int8) their training step. K2-dW and K2-dW-int8 count the
     two-pass kernels' launches (K2-dW in the float32 training run: the
-    Hopper float32 K2's spill mode); the Hopper float32 K2 and K4 their
+    Hopper float32 K2's spill mode); the Hopper float32 K1, K2 and K4 their
     launches in one call of phase 3's float32 kernel path; the general
     K4-dW's compress and combination theirs in the exact bf16 step (the
     float32 steps run the two-pass K4-dW)."""
@@ -3395,8 +3469,10 @@ def launch_count(report, name):
         return report["training_parity_int8"]["launches"]["fused_layer_bwd_dw_int8_sm90"]
     if name == "fused_layer_bwd_dw":
         return report["train_launches"][K2DW_F32[0]]
-    if name == "fused_layer_bwd_f32_sm90" or name.startswith("rowblock_bwd_f32_sm90"):
+    if name in (K1_F32, "fused_layer_bwd_f32_sm90") or name.startswith("rowblock_bwd_f32_sm90"):
         return report["slice"]["launches_f32_per_call"][name]
+    if name == "fused_layer_fwd":  # float32 runs the Hopper float32 K1 at these shapes
+        return report["training_parity_bf16"]["launches"][name]
     if name in ("rowblock_bwd_dw[compress]", "rowblock_bwd_dw[combination]"):
         # float32 steps run the two-pass K4-dW, bf16 steps this body
         return report["training_parity_bf16"]["launches"][name]
@@ -3406,7 +3482,7 @@ def launch_count(report, name):
         source = report["slice_w8a8"]["launches"]
     elif name.startswith("gnn_block"):
         source = report["training_parity_gnn" if "_dw" in name else "slice_gnn"]["launches"]
-    elif "_dw" in name or name == "fused_layer_fwd":
+    elif "_dw" in name:
         source = report["train_launches"]
     elif name in ROWBLOCK_KERNELS:
         source = report["slice_d256"]["launches"]
@@ -3426,9 +3502,9 @@ def kernel_entries(report, kernels):
     entries = []
     for name, entry in kernels.items():
         source, replaces = SOURCES[name.split("[")[0]]
-        # the float32 kernels lead with float32 (the Hopper float32 K2 has
-        # no bf16 numbers)
-        trains = (("_dw" in name or name == "fused_layer_fwd") and "ms_f32" in entry
+        # the float32 kernels lead with float32 (the Hopper float32 K1 and K2
+        # have no bf16 numbers)
+        trains = ("_dw" in name and "ms_f32" in entry
                   or "ms_bf16" not in entry and "ms_f32" in entry)
         lead, other = ("f32", "bf16") if trains else ("bf16", "f32")
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3449,7 +3525,7 @@ def kernel_entries(report, kernels):
                 out[f"general_ms{suffix}"] = entry[f"general_ms_{tag}"]
             if f"workspace_bytes_{tag}" in entry:  # the two-pass K2-dW's spill
                 out[f"workspace_bytes{suffix}"] = entry[f"workspace_bytes_{tag}"]
-            if f"bound_ms_ffma_{tag}" in entry:  # the Hopper float32 K2 on FFMA pipes
+            if f"bound_ms_ffma_{tag}" in entry:  # the Hopper float32 K1 and K2 on FFMA pipes
                 out[f"bound_ms_ffma{suffix}"] = entry[f"bound_ms_ffma_{tag}"]
         if name.startswith("fused_layer_bwd_dw"):  # the two-pass K2-dW's second kernel
             out["product_launches"] = (
@@ -3507,9 +3583,10 @@ def main() -> int:
     check_neighbor_backend(report)
     check_hopper_launches("slice", report["slice"])
     f32_call = report["slice"]["launches_f32_per_call"]
-    if f32_call.get("fused_layer_bwd_f32_sm90") != 4 or f32_call.get("fused_layer_bwd", 0):
-        fail(f"the f32 force call launched {f32_call}: 4 Hopper float32 K2 and no general K2 "
-             "expected")
+    if (f32_call.get("fused_layer_bwd_f32_sm90") != 4 or f32_call.get("fused_layer_bwd", 0)
+            or f32_call.get(K1_F32) != 4 or f32_call.get("fused_layer_fwd", 0)):
+        fail(f"the f32 force call launched {f32_call}: 4 Hopper float32 K1 and K2 and no general "
+             "K1 or K2 expected")
     if ({k: f32_call.get(k, 0) for k in K4_F32} != dict.fromkeys(K4_F32, 2)
             or any(f32_call.get(k, 0) for k in K4_F32_NEVER)):
         fail(f"the f32 force call launched {f32_call}: 2 + 2 Hopper float32 K4 and no general "
@@ -3604,6 +3681,11 @@ def main() -> int:
         M_served = report[key]["padded"][1]
         if key == "slice_m96" and M_served < 80:
             fail(f"the 5.5 A cutoff served M = {M_served}, expected at least 80")
+        # the Hopper float32 K1 does not take these shapes: the general K1
+        f32_call = report[key]["launches_f32_per_call"]
+        if f32_call.get("fused_layer_fwd") != 4 or f32_call.get(K1_F32, 0):
+            fail(f"{key}: the f32 force call launched {f32_call}: 4 general K1 and no Hopper "
+                 "float32 K1 expected")
         print(f"{key} (M = {M_served}):", json.dumps({k: report[key][k] for k in (
             "padded", "launches", "parity")}), flush=True)
         print(f"{key} force call ({card}):", json.dumps(report[key]["timing"]), flush=True)
@@ -3639,9 +3721,10 @@ def main() -> int:
               flush=True)
         torch.cuda.empty_cache()
         report["training_parity"] = check_training_parity(
-            workdir / "cu_lj.xyz", state, device, expected=K2DW_F32 + K4DW_F32,
-            absent=K2DW_F32_NEVER + K4_F32_NEVER,
-            per_step={k: K2DW_PER_STEP for k in K2DW_F32} | K4DW_F32_PER_STEP)
+            workdir / "cu_lj.xyz", state, device, expected=(K1_F32,) + K2DW_F32 + K4DW_F32,
+            absent=("fused_layer_fwd",) + K2DW_F32_NEVER + K4_F32_NEVER,
+            per_step={K1_F32: K1_F32_PER_STEP} | {k: K2DW_PER_STEP for k in K2DW_F32}
+            | K4DW_F32_PER_STEP)
         print("training parity:", json.dumps(report["training_parity"]), flush=True)
         report["training_parity_unfused"] = check_training_parity(
             workdir / "cu_lj.xyz", random_state(UNFUSED), device, UNFUSED,
@@ -3669,7 +3752,7 @@ def main() -> int:
             expected=("fused_layer_fwd", *K2DW, "rowblock_bwd_dw[compress]",
                       "rowblock_bwd_dw[combination]"),
             replayed=("fused_layer",), dtype=torch.bfloat16,
-            absent=("fused_layer_fwd_sm90", "fused_layer_bwd_sm90", "fused_layer_bwd_dw",
+            absent=("fused_layer_fwd_sm90", K1_F32, "fused_layer_bwd_sm90", "fused_layer_bwd_dw",
                     *ROWBLOCK_SM90_KERNELS, *K4_F32, *K4DW_F32),
             per_step={k: K2DW_PER_STEP for k in K2DW})
         print("training step, exact bf16:", json.dumps(report["training_parity_bf16"]), flush=True)
@@ -3693,10 +3776,13 @@ def main() -> int:
         # the plain and the spill-mode instantiation
         kernels["fused_layer_bwd_f32_sm90"]["ptxas_f32"] = ptxas_usage(
             build_log.read_text(), "k2_f32_sm90_kernel")
+        kernels[K1_F32]["ptxas_f32"] = ptxas_usage(build_log.read_text(), "k1_f32_sm90_kernel")
     kernels["fused_layer_bwd_f32_sm90"]["smem_bytes"] = _lib.library(
     ).mtt_fused_layer_bwd_f32_sm90_smem(M, D, H, F)
+    kernels[K1_F32]["smem_bytes"] = _lib.library().mtt_fused_layer_fwd_f32_sm90_smem(M, D, H, F)
     for title, name, tag in (("Hopper K1", "fused_layer_fwd_sm90", "bf16"),
                              ("Hopper K2", "fused_layer_bwd", "bf16"),
+                             ("Hopper float32 K1", K1_F32, "f32"),
                              ("Hopper float32 K2", "fused_layer_bwd_f32_sm90", "f32")):
         print(f"{title} (general body's ms beside):", json.dumps(
             {k: kernels[name].get(k) for k in (

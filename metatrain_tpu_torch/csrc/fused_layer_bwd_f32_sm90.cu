@@ -13,7 +13,11 @@
 // SP mode writes (DwSpill's seven arrays, DwLayout(D, F, true)'s vector row
 // per atom), so the second pass (layer_dw_sm90.cuh) is unchanged, and its
 // input gradients equal this kernel's bit for bit (one body, the spill
-// adds stores only).
+// adds stores only). Its recompute of the forward up to h_norm is
+// layer_f32_sm90.cuh's phases, which the Hopper float32 K1
+// (fused_layer_fwd_f32_sm90.cu) runs as its first half: the forward that
+// gives the f32 energy and the recompute its gradient starts from are the
+// same bits.
 //
 // What bounds it on the H100: operations. At the served shape (A = 11,392,
 // M = 64, F = 256) the dense products (16 D^2 + 10 D F a row: the forward
@@ -63,27 +67,17 @@
 // version computes it.
 
 #include "k2_f32_sm90.cuh"
+#include "layer_f32_sm90.cuh"
 #include "layer_sm90.cuh"
-#include "tf32_sm90.cuh"
 
 namespace mtt {
 namespace k2f32 {
 namespace {
 
-using namespace tf32;  // 3xTF32, the weight ring, the panel products
-using sm90::kRows;  // sm90's, not common.cuh's
-using sm90::kThreads;
-using sm90::D;
-using sm90::H;
-using sm90::HD;
-using sm90::quad_max;
-using sm90::zero;
+using namespace lf32;  // the forward phases up to h_norm, 3xTF32, the ring
+using lf32::kRows;  // sm90's, not common.cuh's
+using lf32::kThreads;
 
-constexpr int LQ = 3 * D + 4;  // q|k|v row (floats)
-constexpr int LT = D + 4;      // a 64 x 128 tile's row
-
-constexpr int kQkvBytes = kRows * LQ * 4;
-constexpr int kTileBytes = kRows * LT * 4;
 constexpr int kOffOp = kQkvBytes;
 constexpr int kOffRes = kOffOp + kTileBytes;
 constexpr int kOffVg = kOffRes + kTileBytes;
@@ -92,57 +86,6 @@ constexpr int kOffStats = kOffRing + kStages * kChunk * 4;
 constexpr int kSmemBytes = kOffStats + 7 * kRows * 4;  // cf, r1, r2, 4 x 64 row-sum scratch
 static_assert(kSmemBytes <= 232448, "one block per SM");
 static_assert(4 * H * kRows <= kRows * LT, "the statistics fit the res buffer");
-
-// s[j] (16 x 8, C fragments) = A (16 x 16 at X, ld lda) B_j^T with B_j rows
-// 8 j .. 8 j + 7 of Y (16 columns, ld ldy), for the tiles j with 8 j < n.
-__device__ __forceinline__ void abt16(float (&s)[8][4], const float* X, int lda, const float* Y, int ldy,
-                                      int n) {
-    uint32_t ah[2][4], al[2][4];
-    load_a(ah[0], al[0], X, lda);
-    load_a(ah[1], al[1], X + 8, lda);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-        if (8 * j < n) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
-#pragma unroll
-            for (int ks = 0; ks < 2; ++ks) {
-                uint32_t bh[2], bl[2];
-                load_b(bh, bl, Y + (size_t)8 * j * ldy + 8 * ks, ldy);
-                mma3(s[j], ah[ks], al[ks], bh, bl);
-            }
-        }
-    }
-}
-
-// acc[nt] (16 x 8) += X Y: X (16 x 8 NJ) held as C fragments x[j] of its
-// 8-column tiles, Y (8 NJ x 16, rows at Y, ld ldy) column tile nt. The C
-// fragment of tile j is an A fragment of the product whose k runs over
-// columns 8 j + 2 t (k = t) and 8 j + 2 t + 1 (k = t + 4), so B takes Y's
-// rows in that order.
-template <int NJ>
-__device__ __forceinline__ void acc_xy(float (&acc)[2][4], const float (&x)[NJ][4], const float* Y, int ldy,
-                                       int nj) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-        if (j < nj) {
-            uint32_t ah[4], al[4];
-            split(x[j][0], ah[0], al[0]);
-            split(x[j][2], ah[1], al[1]);
-            split(x[j][1], ah[2], al[2]);
-            split(x[j][3], ah[3], al[3]);
-            const float* y = Y + (size_t)(8 * j + 2 * t) * ldy + g;
-#pragma unroll
-            for (int nt = 0; nt < 2; ++nt) {
-                uint32_t bh[2], bl[2];
-                split(y[8 * nt], bh[0], bl[0]);
-                split(y[ldy + 8 * nt], bh[1], bl[1]);
-                mma3(acc[nt], ah, al, bh, bl);
-            }
-        }
-    }
-}
 
 // ---- the weight ring -------------------------------------------------------
 
@@ -178,21 +121,6 @@ struct Chunks {
 };
 
 __host__ __device__ constexpr int chunk_count(int F) { return 64 + 40 * (F / kCN); }
-
-// Y = x r w for rows m < M, r = rsqrt(mean(x^2) + eps), one warp per row:
-// x = src(m) (D floats), r to RS[m].
-template <typename Src>
-__device__ __forceinline__ void rms_rows(Src src, const float* w, float* RS, float* Y, int M, float eps) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const float4 wv = *reinterpret_cast<const float4*>(w + 4 * lane);
-    for (int m = warp; m < M; m += kThreads / 32) {
-        const float4 x = *reinterpret_cast<const float4*>(src(m) + 4 * lane);
-        const float r = rsqrtf(warp_sum(x.x * x.x + x.y * x.y + x.z * x.z + x.w * x.w) / D + eps);
-        if (lane == 0) RS[m] = r;
-        *reinterpret_cast<float4*>(Y + m * LT + 4 * lane) =
-            make_float4(x.x * r * wv.x, x.y * r * wv.y, x.z * r * wv.z, x.w * r * wv.w);
-    }
-}
 
 // SP: K2-dW's first pass (the spill mode). p is grid-constant: the spill's
 // pointers are read from the parameters where they are written.
@@ -244,80 +172,28 @@ __global__ void __launch_bounds__(kThreads, 1) k2_f32_sm90_kernel(const __grid_c
     }
 
     // q|k|v = n1 w_qkv + b
-    for (int pn = 0; pn < 3; ++pn) {
-        float acc[4][4];
-        zero(acc);
-        panel_mm<8>(ring, c, op_cols, acc, M);
-        panel_pairs([&](int j, int h, int m, int n) {
-            const int col = pn * kCN + n;
-            const float2 b = ld2(p.b_qkv + col);
-            st2(QKV + m * LQ + col, acc[j][2 * h] + b.x, acc[j][2 * h + 1] + b.y);
-        });
-    }
+    qkv_panels(ring, c, OP, QKV, p.b_qkv, M);
     __syncthreads();
 
     // ---- recompute: attention, one warp per (head, 16-row query tile) -------
     // attn = P v with P = cf e / z, e = exp(s - max), z = sum_k cf e
-    for (int task = warp; task < H * QT; task += kThreads / 32) {
-        const int h = task / QT, q0 = 16 * (task % QT);
-        float s[8][4];
-        abt16(s, QKV + q0 * LQ + h * HD, LQ, QKV + D + h * HD, LQ, M);
-        float mx[2] = {-INFINITY, -INFINITY}, z[2] = {0.f, 0.f};
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-            if (8 * j < M)
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    s[j][i] *= scale;
-                    mx[i >> 1] = fmaxf(mx[i >> 1], s[j][i]);
-                }
-        mx[0] = quad_max(mx[0]);
-        mx[1] = quad_max(mx[1]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-            if (8 * j < M)
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    s[j][i] = expf(s[j][i] - mx[i >> 1]);
-                    z[i >> 1] = fmaf(CF[8 * j + 2 * t + (i & 1)], s[j][i], z[i >> 1]);
-                }
-        z[0] = quad_sum(z[0]);
-        z[1] = quad_sum(z[1]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-            if (8 * j < M)
-#pragma unroll
-                for (int i = 0; i < 4; ++i) s[j][i] = CF[8 * j + 2 * t + (i & 1)] * (s[j][i] / z[i >> 1]);
-        float o[2][4] = {};
-        acc_xy<8>(o, s, QKV + 2 * D + h * HD, LQ, M / 8);
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-            float* y = OP + (q0 + g) * LT + h * HD + 8 * nt + 2 * t;
-            st2(y, o[nt][0], o[nt][1]);
-            st2(y + 8 * LT, o[nt][2], o[nt][3]);
-        }
-    }
+    attention_fwd(QKV, CF, OP, M, scale);
     __syncthreads();
     if constexpr (SP) spill_rows(rows(kDwAttn, 0), D, OP, LT, M, D);
 
     // res = x1 + (attn w_out + b), to RES and to this thread's d_edges rows
-    {
-        float acc[4][4];
-        zero(acc);
-        panel_mm<8>(ring, c, op_cols, acc, M);
-        panel_pairs([&](int j, int h, int m, int n) {
-            if (m >= M) return;
-            const float2 x = ld2(token(m) + n), b = ld2(p.b_out + n);
-            const float r0 = x.x + (acc[j][2 * h] + b.x), r1 = x.y + (acc[j][2 * h + 1] + b.y);
-            st2(RES + m * LT + n, r0, r1);
-            st2(de + (size_t)m * D + n, r0, r1);
-        });
-    }
+    out_proj(ring, c, OP, p.b_out, M, [&](int m, int n, float o0, float o1) {
+        const float2 x = ld2(token(m) + n);
+        const float r0 = x.x + o0, r1 = x.y + o1;
+        st2(RES + m * LT + n, r0, r1);
+        st2(de + (size_t)m * D + n, r0, r1);
+    });
     __syncthreads();
 
     // r2, h_norm = res r2 w; then g_eo takes res's place
     rms_rows([&](int m) { return (const float*)RES + m * LT; }, p.norm_mlp, RS2, OP, M, p.eps);
     __syncthreads();
+    // g_eo into res's buffer (rows from M - 1 on zero)
     for (int i = threadIdx.x; i < kRows * D / 4; i += kThreads) {
         const int m = i / (D / 4), k = 4 * (i % (D / 4));
         const float4 v = m < M - 1 ? *reinterpret_cast<const float4*>(ge + (size_t)m * D + k)
@@ -337,11 +213,8 @@ __global__ void __launch_bounds__(kThreads, 1) k2_f32_sm90_kernel(const __grid_c
     auto vg_cols = [&](int r, int& ld) { ld = LT; return (const float*)DVG + r * kCK; };
     for (int j0 = 0; j0 < F; j0 += kCN) {
         float av[4][4], ag[4][4], ad[4][4];
-        zero(av);
-        zero(ag);
+        vg_panels(ring, c, OP, av, ag, M);
         zero(ad);
-        panel_mm<8>(ring, c, op_cols, av, M);
-        panel_mm<8>(ring, c, op_cols, ag, M);
         panel_mm<8>(ring, c, geo_cols, ad, M);
         // d_vg = (d_ffn_h s, d_ffn_h v s (1 - s)), v and s from vg = h_norm
         // w_in + b: the value half to DVG, the gate half kept in ag
@@ -601,9 +474,7 @@ int launch_mode(const Args& a, long long atoms, cudaStream_t stream) {
 
 }  // namespace
 
-bool takes(int M, int D_, int H_, int F) {
-    return D_ == D && H_ == H && M >= 16 && M <= kRows && M % 16 == 0 && F >= kCN && F % kCN == 0;
-}
+bool takes(int M, int D_, int H_, int F) { return lf32::takes(M, D_, H_, F); }
 
 size_t smem_bytes() { return (size_t)kSmemBytes; }
 

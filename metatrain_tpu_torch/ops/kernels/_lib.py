@@ -39,6 +39,7 @@ CSRC = PACKAGE_DIR / "csrc"
 SOURCES = (
     "fused_layer_fwd.cu",
     "fused_layer_fwd_sm90.cu",
+    "fused_layer_fwd_f32_sm90.cu",
     "fused_layer_bwd.cu",
     "fused_layer_bwd_sm90.cu",
     "fused_layer_bwd_f32_sm90.cu",
@@ -76,6 +77,7 @@ _SIGNATURES = {
     "mtt_fused_layer_fwd": [_I] + [_P] * 15 + _LAYER_TAIL,
     "mtt_fused_layer_bwd": [_I] + [_P] * 22 + _LAYER_TAIL,
     "mtt_fused_layer_fwd_sm90": [_P] * 15 + [_L, _I, _I, _I, _I, _F, _F, _P],
+    "mtt_fused_layer_fwd_f32_sm90": [_P] * 15 + [_L, _I, _I, _I, _I, _F, _F, _P],
     "mtt_fused_layer_bwd_sm90": [_P] * 20 + [_L, _I, _I, _I, _I, _F, _F, _P],
     "mtt_fused_layer_bwd_f32_sm90": [_P] * 20 + [_L, _I, _I, _I, _I, _F, _F, _P],
     # dtype, the Hopper float32 first pass or not, 26 pointers (the inputs,
@@ -117,6 +119,8 @@ _SIGNATURES = {
     "mtt_int8_absmax_smem": [_I],
     "mtt_fused_layer_fwd_sm90_smem": [_I] * 4,
     "mtt_fused_layer_fwd_sm90_ok": [_I] * 4,
+    "mtt_fused_layer_fwd_f32_sm90_smem": [_I] * 4,
+    "mtt_fused_layer_fwd_f32_sm90_ok": [_I] * 4,
     "mtt_fused_layer_bwd_sm90_smem": [_I] * 4,
     "mtt_fused_layer_bwd_sm90_ok": [_I] * 4,
     "mtt_fused_layer_bwd_f32_sm90_smem": [_I] * 4,
@@ -325,6 +329,31 @@ def k1_sm90_smem(M: int, D: int, H: int, F: int) -> int:
     rows = 64
     atom = rows * (3 * D + 8) * 2 + rows * (D + 8) * 2
     return 2 * atom + 3 * 128 * 64 * 2 + 2 * 4 * 3 * rows
+
+
+def k1_f32_sm90_takes(dtype: torch.dtype, M: int, D: int, H: int, F: int, w8a8: bool = False,
+                      int8: bool = False) -> bool:
+    """Whether ``fused_layer_fwd_cuda`` launches the Hopper float32 K1
+    (``csrc/fused_layer_fwd_f32_sm90.cu``, counter
+    ``fused_layer_fwd_f32_sm90``): float32 at the shapes of
+    :func:`sm90_shape` (its C query ``mtt_fused_layer_fwd_f32_sm90_ok``),
+    without W8A8 or the int8 scores, with or without weight gradients: its
+    forward up to h_norm is the Hopper float32 K2's recompute, bit for bit,
+    and K2-dW's float32 first pass is that kernel, so the energy and its
+    gradient come from one function."""
+    return dtype == torch.float32 and not (w8a8 or int8) and sm90_shape(M, D, H, F)
+
+
+def k1_f32_sm90_smem(M: int, D: int, H: int, F: int) -> int:
+    """``mtt_fused_layer_fwd_f32_sm90_smem``: its shared bytes per block
+    (one atom, padded to 64 rows), 0 for a shape it does not take. The C
+    source's layout, every buffer float: q|k|v, then the ffn_h tile (rows
+    of 3D + 4), the operand tile (n1, attn, h_norm) and res (rows of D + 4
+    each), three weight chunks of 128 x 16, and cf, r1, r2."""
+    if not k1_f32_sm90_takes(torch.float32, M, D, H, F):
+        return 0
+    rows = 64
+    return 4 * (rows * (3 * D + 4) + 2 * rows * (D + 4) + 3 * 128 * 16 + 3 * rows)
 
 
 def k2_sm90_takes(dtype: torch.dtype, M: int, D: int, H: int, F: int, weight_grads: bool = False,

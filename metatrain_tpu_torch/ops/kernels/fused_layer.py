@@ -17,7 +17,8 @@ attention output of slot M-1.
 - :func:`fused_transformer_layer` is the ``autograd.Function`` entry: a
   tensor on the CPU runs the plain versions; a CUDA tensor launches K1
   (``csrc/fused_layer_fwd.cu``; the exact bfloat16 one at the served
-  shapes, where no weight requires grad, ``csrc/fused_layer_fwd_sm90.cu``)
+  shapes, where no weight requires grad, ``csrc/fused_layer_fwd_sm90.cu``,
+  and in float32 at those shapes ``csrc/fused_layer_fwd_f32_sm90.cu``)
   and, for its gradient, K2
   (``csrc/fused_layer_bwd.cu``; likewise ``csrc/fused_layer_bwd_sm90.cu``,
   and in float32 at those shapes ``csrc/fused_layer_bwd_f32_sm90.cu``):
@@ -745,6 +746,13 @@ def fused_layer_fwd_cuda(edges, center, cf, w: LayerWeights, num_heads, scale, w
     do; ``sm90=False`` keeps the general body there too, for comparisons.
     ``weight_grads`` (a weight requires grad, so the backward is K2-dW and
     the replay, which keep P float) keeps the general body as well.
+    float32 at the same shapes (:func:`_lib.k1_f32_sm90_takes`, with or
+    without ``weight_grads``) launches the Hopper float32 K1
+    (``csrc/fused_layer_fwd_f32_sm90.cu``, counter
+    ``fused_layer_fwd_f32_sm90``: its products as three TF32 tensor-core
+    products each, its forward up to h_norm the bits the Hopper float32 K2
+    and K2-dW's float32 first pass recompute); ``sm90=False`` keeps the
+    general body there too.
 
     With ``w8a8`` (``(Int8Calib, quantize_layer_weights(...))``, int8
     weights on the device) launch K1-W8A8 instead: bfloat16 only. With
@@ -766,6 +774,9 @@ def fused_layer_fwd_cuda(edges, center, cf, w: LayerWeights, num_heads, scale, w
     if sm90 and _lib.k1_sm90_takes(cd, M, D, num_heads, F, w8a8 is not None,
                                    int8_scales is not None, weight_grads):
         return _k1_sm90(edges, center, cf, wc, num_heads, scale)
+    if sm90 and _lib.k1_f32_sm90_takes(cd, M, D, num_heads, F, w8a8 is not None,
+                                       int8_scales is not None):
+        return _k1_sm90(edges, center, cf, wc, num_heads, scale, "fused_layer_fwd_f32_sm90")
     lib = _lib.library()
     _, ws_floats = _lib.plan_query(lib.mtt_fused_layer_fwd_smem, M, D, F)
     grid = _lib.layer_grid(A, ws_floats, edges.device)
@@ -805,28 +816,32 @@ def k1_sm90_w_vg(w_in):
     return w_in.t().reshape(2, F // 64, 64, D).transpose(0, 1).reshape(2 * F, D).contiguous()
 
 
-def _k1_sm90(edges, center, cf, wc: LayerWeights, num_heads, scale):
-    """The Hopper K1 on checked bfloat16 tensors (``wc`` in the compute
-    dtype): one block per two atoms, no workspace. Its weights go in as
-    w_qkv^T, w_out^T, :func:`k1_sm90_w_vg` and w_ffn_out^T."""
+def _k1_sm90(edges, center, cf, wc: LayerWeights, num_heads, scale, name="fused_layer_fwd_sm90"):
+    """The Hopper K1 on checked bfloat16 tensors, or (``name``
+    ``fused_layer_fwd_f32_sm90``) the Hopper float32 K1 on float32 ones
+    (``wc`` in the compute dtype): one block per two atoms (bf16) or per
+    atom (f32), no workspace. Both take the same arguments: the weights as
+    w_qkv^T, w_out^T, w_in^T (bf16: :func:`k1_sm90_w_vg`'s arrangement of
+    it) and w_ffn_out^T."""
     A, M, D = edges.shape
     F = wc.w_ffn_out.shape[0]
     lib = _lib.library()
-    _lib.check_shared(lib.mtt_fused_layer_fwd_sm90_smem(M, D, num_heads, F), "fused_layer_fwd_sm90")
+    _lib.check_shared(getattr(lib, f"mtt_{name}_smem")(M, D, num_heads, F), name)
     vectors = (wc.norm_attn, wc.b_qkv, wc.b_out, wc.norm_mlp, wc.b_in, wc.b_ffn_out)
-    matrices = (wc.w_qkv.t().contiguous(), wc.w_out.t().contiguous(), k1_sm90_w_vg(wc.w_in),
+    w_in_t = k1_sm90_w_vg(wc.w_in) if name == "fused_layer_fwd_sm90" else wc.w_in.t().contiguous()
+    matrices = (wc.w_qkv.t().contiguous(), wc.w_out.t().contiguous(), w_in_t,
                 wc.w_ffn_out.t().contiguous())
     edge_out = torch.empty_like(edges)
     center_out = torch.empty_like(center)
     _lib.check(
-        lib.mtt_fused_layer_fwd_sm90(
+        getattr(lib, f"mtt_{name}")(
             edges.data_ptr(), center.data_ptr(), cf.data_ptr(), *(x.data_ptr() for x in vectors),
             *(x.data_ptr() for x in matrices), edge_out.data_ptr(), center_out.data_ptr(),
             A, M, D, num_heads, F, float(scale), rmsnorm_eps(edges.dtype),
             _lib.stream_ptr(edges.device)),
-        "fused_layer_fwd_sm90",
+        name,
     )
-    _lib.LAUNCHES["fused_layer_fwd_sm90"] += 1
+    _lib.LAUNCHES[name] += 1
     return edge_out, center_out
 
 
@@ -1196,7 +1211,9 @@ class _FusedLayerBwd(torch.autograd.Function):
 def _first_forward(edges, center, cf, w, num_heads, scale, int8_scales, weight_grads):
     """K1 on the card, :func:`layer_math` on the CPU. ``weight_grads``: a
     weight requires grad, so the backward will be K2-dW and the replay;
-    the Hopper K1, which rounds P where they do not, is then not taken."""
+    the bf16 Hopper K1, which rounds P where they do not, is then not
+    taken (the Hopper float32 K1, whose forward K2-dW's float32 first pass
+    recomputes bit for bit, is)."""
     if edges.is_cuda:
         return fused_layer_fwd_cuda(edges, center, cf, w, num_heads, scale,
                                     int8_scales=int8_scales, weight_grads=weight_grads)

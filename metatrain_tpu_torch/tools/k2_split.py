@@ -1,11 +1,11 @@
-"""Phase split of K2, of the Hopper K1, of the Hopper K3 and K4 heads, or of
-K4 / K4-dW's float32 compress and combination, by ``clock64()`` stamps, on a
-CUDA device.
+"""Phase split of K2, of the Hopper K1 (bf16 or float32), of the Hopper K3 and
+K4 heads, or of K4 / K4-dW's float32 compress and combination, by
+``clock64()`` stamps, on a CUDA device.
 
 Usage, on a machine with a CUDA device and nvcc::
 
     python metatrain_tpu_torch/tools/k2_split.py
-        --body hopper|general|f32-hopper|k1-hopper|k3-head|k4-head|k4dw-general|k4-f32
+        --body hopper|general|f32-hopper|k1-hopper|k1-f32|k1-general|k3-head|k4-head|k4dw-general|k4-f32
         [--dtype bfloat16|float32] [--dw] [--A 11392] [--M 64]
 
 Copies the body's sources (``--body hopper``: the Hopper K2,
@@ -13,14 +13,17 @@ Copies the body's sources (``--body hopper``: the Hopper K2,
 ``csrc/layer_bwd.cuh`` with a one-kernel launcher, in ``--dtype``;
 ``f32-hopper``: the Hopper float32 K2,
 ``csrc/fused_layer_bwd_f32_sm90.cu``; ``k1-hopper``: the
-Hopper K1, ``csrc/fused_layer_fwd_sm90.cu``; ``k3-head`` / ``k4-head``: the
+Hopper K1, ``csrc/fused_layer_fwd_sm90.cu``; ``k1-f32``: the Hopper float32
+K1, ``csrc/fused_layer_fwd_f32_sm90.cu``; ``k1-general``: K1's general
+body, ``csrc/layer_fwd.cuh`` in ``csrc/fused_layer_fwd.cu``, in
+``--dtype``; ``k3-head`` / ``k4-head``: the
 Hopper K3 / K4 head, ``csrc/rowblock_{fwd,bwd}_sm90.cu`` with the shared
 ``head_front`` of ``csrc/rowblock_sm90.cuh``) into a
 temporary directory, inserts after each phase's closing barrier a stamp of
 thread 0's ``clock64()`` that adds the phase's cycles to a device counter,
 builds that copy alone with nvcc, runs it on a seeded case (D = 128, 8
 heads, F = 256, inputs as ``layer_times.py`` makes them, in bfloat16 but
-for ``f32-hopper`` and ``--dtype float32``; the heads at A x M
+for ``f32-hopper``, ``k1-f32`` and ``--dtype float32``; the heads at A x M
 rows; the float32 K4 bodies at A x M rows, the 3-part compress and the
 combination) and prints one JSON line (the K4 bodies: one per stage): the card (``nvidia-smi`` name and power
 limit), the cycles per atom (the heads: per 64-row tile of a block), each
@@ -90,6 +93,28 @@ K1_HOPPER = (
     ("}\n\n}  // namespace\n", True, None),
 )
 K1_HOPPER_PHASES = ["norm, QKV", "attention", "out-projection, h_norm", "SwiGLU tiles", "edge_out"]
+K1_F32 = (
+    ('#include "layer_sm90.cuh"\n', False, STAMP),
+    ("    int c = 0;\n", False, "    long long t_prev = clock64();\n"),
+    ("    // ---- attention, one warp per", True, None),
+    ("    // ---- res = x1 + (attn w_out + b)", True, None),
+    ("    // ---- SwiGLU over F tiles", True, None),
+    ("    // ---- edge_out = res + (", True, None),
+    ("}\n\n}  // namespace\n", True, None),
+)
+K1_F32_PHASES = K1_HOPPER_PHASES
+# K1's general body (layer_fwd.cuh), one atom per block where it is all shared
+K1_GENERAL = (
+    ('#include "common.cuh"\n', False, STAMP),
+    ("    float* CF = b.CF;\n", False, "    long long t_prev = clock64();\n"),
+    ("    for (int h = 0; h < H; ++h) {\n", True, None),
+    ("    block_mm<16>(N, D, M, D, w.w_out, D, D,", True, None),
+    ("    rmsnorm_rows<T, !W8>(X, N, nullptr, M, D, w.norm_mlp, eps);", True, None),
+    ("    // each output element reads and writes only its own X entry", True, None),
+    ("}\n\n}  // namespace mtt", True, None),
+)
+K1_GENERAL_PHASES = ["norm, QKV", "attention, head by head", "out-projection, residual",
+                     "h_norm, FFN-in, SwiGLU", "FFN-out, edge_out"]
 GENERAL = (
     ('#include "common.cuh"\n', False, STAMP),
     ("    const DwLayout L(D, F, SP);\n", False, "    long long t_prev = clock64();\n"),
@@ -227,14 +252,20 @@ def instrument(text: str, marks, phase: int = 0) -> str:
 def build(work: Path, body: str, dtype: str) -> Path:
     for source in CSRC.glob("*.cu*"):
         shutil.copy(source, work / source.name)
-    if body in ("hopper", "k1-hopper", "f32-hopper", "k4dw-general", "k4-f32"):
+    if body in ("hopper", "k1-hopper", "k1-f32", "f32-hopper", "k4dw-general", "k4-f32"):
         unit, marks = {"hopper": ("fused_layer_bwd_sm90.cu", HOPPER),
                        "k1-hopper": ("fused_layer_fwd_sm90.cu", K1_HOPPER),
+                       "k1-f32": ("fused_layer_fwd_f32_sm90.cu", K1_F32),
                        "f32-hopper": ("fused_layer_bwd_f32_sm90.cu", F32_HOPPER),
                        "k4dw-general": ("rowblock_bwd.cu", K4DW_GENERAL),
                        "k4-f32": ("rowblock_bwd_f32_sm90.cu", K4_F32)}[body]
         unit = work / unit
         unit.write_text(instrument(unit.read_text(), marks) + COUNTERS)
+    elif body == "k1-general":
+        header = work / "layer_fwd.cuh"
+        header.write_text(instrument(header.read_text(), K1_GENERAL))
+        unit = work / "fused_layer_fwd.cu"
+        unit.write_text(unit.read_text() + COUNTERS)
     elif body in ("k3-head", "k4-head"):
         header = work / "rowblock_sm90.cuh"
         text = instrument(header.read_text(), HEAD_FRONT)
@@ -350,10 +381,12 @@ def k4_split(args, card: str) -> int:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--body", choices=("hopper", "general", "f32-hopper", "k1-hopper", "k3-head",
-                                           "k4-head", "k4dw-general", "k4-f32"), required=True)
+    parser.add_argument("--body", choices=("hopper", "general", "f32-hopper", "k1-hopper", "k1-f32",
+                                           "k1-general", "k3-head", "k4-head", "k4dw-general",
+                                           "k4-f32"),
+                        required=True)
     parser.add_argument("--dtype", choices=("bfloat16", "float32"), default=None,
-                        help="the general body's storage type (the Hopper bodies have one each)")
+                        help="the general bodies' storage type (the Hopper bodies have one each)")
     parser.add_argument("--dw", action="store_true",
                         help="k4-f32: the spill mode (K4-dW's first pass) and its second pass")
     parser.add_argument("--A", type=int, default=11392)
@@ -369,8 +402,8 @@ def main() -> int:
                           timeout=60).stdout.strip().splitlines()[0]
     if args.body in ("k4dw-general", "k4-f32"):
         return k4_split(args, card)
-    own = "float32" if args.body == "f32-hopper" else "bfloat16"
-    if args.dtype not in (None, own) and args.body != "general":
+    own = "float32" if args.body in ("f32-hopper", "k1-f32") else "bfloat16"
+    if args.dtype not in (None, own) and args.body not in ("general", "k1-general"):
         parser.error(f"--body {args.body} runs in {own}")
     args.dtype = args.dtype or own
     dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
@@ -429,6 +462,24 @@ def main() -> int:
 
             def run():
                 return fn(*(x.data_ptr() for x in ptrs), A, M, D, H, F, scale, eps, stream)
+        elif args.body == "k1-f32":
+            # w_in^T as it is
+            ptrs = [e, c, cf, *(w[i] for i in (0, 2, 4, 5, 7, 9)),
+                    *(w[i].t().contiguous() for i in (1, 3, 6, 8)), de, dc]
+            lib.mtt_fused_layer_fwd_f32_sm90.argtypes = [P] * 15 + [L, I, I, I, I, F_, F_, P]
+
+            def run():
+                return lib.mtt_fused_layer_fwd_f32_sm90(*(x.data_ptr() for x in ptrs), A, M, D, H,
+                                                        F, scale, eps, stream)
+        elif args.body == "k1-general":
+            # the weights as they are, no workspace: one block per atom
+            ptrs = [e, c, cf, *w, de, dc]
+            lib.mtt_fused_layer_fwd.argtypes = [I] + [P] * 15 + [L, I, I, I, I, F_, F_, I, P, P]
+            code = 0 if dtype == torch.float32 else 1
+
+            def run():
+                return lib.mtt_fused_layer_fwd(code, *(x.data_ptr() for x in ptrs), A, M, D, H, F,
+                                               scale, eps, A, None, stream)
         elif args.body == "k1-hopper":
             # w_in^T with value and gate rows interleaved in blocks of 64, as
             # fused_layer.k1_sm90_w_vg arranges it
@@ -455,7 +506,7 @@ def main() -> int:
         lib.split_zero()
         run()
         torch.cuda.synchronize()
-        counts = (ctypes.c_ulonglong * 8)()
+        counts = (ctypes.c_ulonglong * 16)()  # split_read copies all 16 counters
         lib.split_read(counts)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -464,7 +515,7 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
     names = {"hopper": HOPPER_PHASES, "general": GENERAL_PHASES, "f32-hopper": F32_HOPPER_PHASES,
-             "k1-hopper": K1_HOPPER_PHASES,
+             "k1-hopper": K1_HOPPER_PHASES, "k1-f32": K1_F32_PHASES, "k1-general": K1_GENERAL_PHASES,
              "k3-head": K3_HEAD_PHASES, "k4-head": K4_HEAD_PHASES}[args.body]
     cycles = list(counts)[:len(names)]
     total = sum(cycles)

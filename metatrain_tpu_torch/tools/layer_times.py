@@ -16,7 +16,11 @@ after one warm-up launch. Where the tree has the Hopper K2
 (``fused_layer_bwd_cuda(..., sm90=)``), ``fused_layer_bwd_ms_bf16`` is
 its time at shapes it takes and ``fused_layer_bwd_general_ms_bf16`` the
 general body's; likewise ``fused_layer_fwd_ms_bf16`` and
-``fused_layer_fwd_general_ms_bf16`` where it has the Hopper K1. Then K4
+``fused_layer_fwd_general_ms_bf16`` where it has the Hopper K1, and
+``fused_layer_fwd_ms_f32`` and ``fused_layer_fwd_general_ms_f32`` where it
+has the Hopper float32 K1 (``_lib.k1_f32_sm90_takes``; the general body's
+digest then under ``fused_layer_fwd_general_f32``, which a tree without it
+gives under ``fused_layer_fwd_f32``). Then K4
 (``rowblock_bwd_cuda``) in bfloat16 at A x M rows for the 3-part and the
 2-part compress, the combination and the head
 (``rowblock_bwd[<stage>]_ms_bf16``:
@@ -100,11 +104,16 @@ def main() -> int:
     times, digests = {}, {}
     has_sm90 = "sm90" in inspect.signature(fl.fused_layer_bwd_cuda).parameters
     has_k1_sm90 = "sm90" in inspect.signature(fl.fused_layer_fwd_cuda).parameters
+    has_k1_f32 = hasattr(fl._lib, "k1_f32_sm90_takes")
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         e, c, ge, gc = (x.to(dev, dtype) for x in tensors)
         if has_k1_sm90 and dtype == torch.bfloat16:
             times["fused_layer_fwd_general_ms_bf16"] = cuda_ms(
                 lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale, sm90=False))
+        if has_k1_f32 and dtype == torch.float32:
+            general = lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale, sm90=False)  # noqa: E731
+            digests["fused_layer_fwd_general_f32"] = digest(general())
+            times["fused_layer_fwd_general_ms_f32"] = cuda_ms(general)
         if has_sm90 and dtype == torch.bfloat16:
             times["fused_layer_bwd_general_ms_bf16"] = cuda_ms(
                 lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, sm90=False))

@@ -1,21 +1,25 @@
 """Check on a CUDA device that the Hopper K1 and the Hopper K2's recompute
-compute attn, res and h_norm to the same bits.
+compute attn, res and h_norm to the same bits, in bfloat16 or in float32.
 
 Usage, on a machine with a CUDA device and nvcc::
 
-    python metatrain_tpu_torch/tools/sm90_front.py [--A 2047] [--M 64]
+    python metatrain_tpu_torch/tools/sm90_front.py [--dtype bfloat16|float32] [--A 2047] [--M 64]
 
-Both kernels run the forward phases of ``csrc/layer_sm90.cuh`` up to
-h_norm, K1 in its two-atom layout (m64n64k16 panels) and K2 in its
-one-atom layout (m64n32k16). The tool copies the sources into a temporary
-directory, inserts into each kernel a copy of the atom's attn (after the
-attention) and of res and h_norm (after the second norm) to a global
-buffer, builds each copy alone with nvcc, runs both on one seeded case
-(D = 128, 8 heads, F = 256, inputs as ``layer_times.py`` makes them; an
-odd A, so that K1's last block holds one atom) and prints one JSON line:
-the card (``nvidia-smi`` name and power limit), the shape, and per
-activation whether the two kernels' copies are bitwise equal. The
-checkout's sources are not changed: they carry no such copies.
+In bfloat16 both kernels run the forward phases of ``csrc/layer_sm90.cuh``
+up to h_norm, K1 in its two-atom layout (m64n64k16 panels) and K2 in its
+one-atom layout (m64n32k16). In float32 the Hopper float32 K1
+(``csrc/fused_layer_fwd_f32_sm90.cu``) and the Hopper float32 K2
+(``csrc/fused_layer_bwd_f32_sm90.cu``) both run those of
+``csrc/layer_f32_sm90.cuh``, one atom per block. The tool copies the
+sources into a temporary directory, inserts into each kernel a copy of the
+atom's attn (after the attention) and of res and h_norm (after the second
+norm) to a global buffer, builds each copy alone with nvcc, runs both on
+one seeded case (D = 128, 8 heads, F = 256, inputs as ``layer_times.py``
+makes them, in ``--dtype``; an odd A, so that the bf16 K1's last block
+holds one atom) and prints one JSON line: the card (``nvidia-smi`` name
+and power limit), the dtype, the shape, and per activation whether the
+two kernels' copies are bitwise equal. The checkout's sources are not
+changed: they carry no such copies.
 """
 
 from __future__ import annotations
@@ -33,19 +37,22 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
-# g_dump is (A, M, 3, D) bf16: attn, res, h_norm of each atom's rows
+# g_dump is (A, M, 3, D) bf16 (float32 for the float32 kernels): attn, res,
+# h_norm of each atom's rows
 DUMP = '__device__ __nv_bfloat16* g_dump;\n'
+DUMP_F32 = '__device__ float* g_dump;\n'
 SETTER = ('\nextern "C" int dump_set(void* p) '
           '{ return (int)cudaMemcpyToSymbol(g_dump, &p, sizeof(p)); }\n')
 
 
-def _copy(slot: int, rows: str, src: str) -> str:
-    """Code that copies ``src`` rows (bf16, rows of LA) of atom ``rows`` into
-    slot ``slot`` of g_dump; ``rows`` names the atom index expression."""
+def _copy(slot: int, rows: str, src: str, ld: str = "LA") -> str:
+    """Code that copies ``src`` rows (bf16 rows of LA, or float rows of
+    ``ld``) of atom ``rows`` into slot ``slot`` of g_dump; ``rows`` names the
+    atom index expression."""
     return (f"    __syncthreads();\n"
             f"    for (int i_ = threadIdx.x; i_ < M * D; i_ += blockDim.x)\n"
             f"        g_dump[(({rows}) * M + i_ / D) * 3 * D + {slot} * D + i_ % D] = "
-            f"{src}[(i_ / D) * LA + i_ % D];\n")
+            f"{src}[(i_ / D) * {ld} + i_ % D];\n")
 
 
 def _k1_copy(slot: int, buf: str) -> str:
@@ -67,6 +74,24 @@ K2_MARKS = (
 )
 
 
+# the float32 kernels: one atom per block, float tiles in rows of LT
+K1_F32_MARKS = (
+    ('#include "layer_sm90.cuh"\n', False, DUMP_F32),
+    ("    // ---- res = x1 + (attn w_out + b)", True, _copy(0, "a", "OP", "LT")),
+    ("    // ---- SwiGLU over F tiles", True, _copy(1, "a", "RES", "LT") + _copy(2, "a", "OP", "LT")),
+)
+K2_F32_MARKS = (
+    ('#include "layer_sm90.cuh"\n', False, DUMP_F32),
+    ("    // res = x1 + (attn w_out + b)", True, _copy(0, "a", "OP", "LT")),
+    ("    // g_eo into res's buffer", True, _copy(1, "a", "RES", "LT") + _copy(2, "a", "OP", "LT")),
+)
+KERNELS = {
+    "bfloat16": (("k1", "fused_layer_fwd_sm90.cu", K1_MARKS), ("k2", "fused_layer_bwd_sm90.cu", K2_MARKS)),
+    "float32": (("k1", "fused_layer_fwd_f32_sm90.cu", K1_F32_MARKS),
+                ("k2", "fused_layer_bwd_f32_sm90.cu", K2_F32_MARKS)),
+}
+
+
 def instrument(text: str, marks) -> str:
     for mark, before, code in marks:
         if text.count(mark) != 1:
@@ -76,13 +101,12 @@ def instrument(text: str, marks) -> str:
     return text + SETTER
 
 
-def build(work: Path) -> dict:
-    for name in ("common.cuh", "layer_sm90.cuh"):
-        shutil.copy(CSRC / name, work / name)
+def build(work: Path, dtype: str = "bfloat16") -> dict:
+    for header in CSRC.glob("*.cuh"):
+        shutil.copy(header, work / header.name)
     nvcc = shutil.which("nvcc") or str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
     procs = {}
-    for key, source, marks in (("k1", "fused_layer_fwd_sm90.cu", K1_MARKS),
-                               ("k2", "fused_layer_bwd_sm90.cu", K2_MARKS)):
+    for key, source, marks in KERNELS[dtype]:
         unit = work / source
         unit.write_text(instrument((CSRC / source).read_text(), marks))
         procs[key] = subprocess.Popen(
@@ -96,6 +120,7 @@ def build(work: Path) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     parser.add_argument("--A", type=int, default=2047)
     parser.add_argument("--M", type=int, default=64)
     args = parser.parse_args()
@@ -118,12 +143,13 @@ def main() -> int:
          0.1 * torch.randn(3 * D, generator=gen), lecun(D, D), 0.1 * torch.randn(D, generator=gen),
          1 + 0.1 * torch.randn(D, generator=gen), lecun(D, 2 * F),
          0.1 * torch.randn(2 * F, generator=gen), lecun(F, D), 0.1 * torch.randn(D, generator=gen)]
-    w = [x.to(dev, torch.bfloat16).contiguous() for x in w]
+    dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
+    w = [x.to(dev, dtype).contiguous() for x in w]
     n_real = torch.randint(M // 2, M - 1, (A, 1), generator=gen)
     cf = torch.rand(A, M, generator=gen) * (torch.arange(M)[None] < n_real)
     cf[:, M - 1] = 1.0
     cf = cf.to(dev)
-    e, c, ge, gc = (torch.randn(*s, generator=gen).to(dev, torch.bfloat16)
+    e, c, ge, gc = (torch.randn(*s, generator=gen).to(dev, dtype)
                     for s in ((A, M, D), (A, D), (A, M, D), (A, D)))
     scale, eps = 1.0 / math.sqrt(D // H), float(torch.finfo(torch.float32).eps)
     # w_in^T with value and gate rows interleaved in blocks of 64, as
@@ -133,9 +159,17 @@ def main() -> int:
     P, I, L, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     dumps = {}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(Path(tmp))
+        libs = build(Path(tmp), args.dtype)
         stream = torch.cuda.current_stream(dev).cuda_stream
+        # the float32 K1 reads w_in^T as it is
         runs = {
+            "k1": ("mtt_fused_layer_fwd_f32_sm90", [P] * 15,
+                   [e, c, cf, *(w[i] for i in (0, 2, 4, 5, 7, 9)), t[1], t[3], t[6], t[8],
+                    torch.empty_like(e), torch.empty_like(c)]),
+            "k2": ("mtt_fused_layer_bwd_f32_sm90", [P] * 20,
+                   [e, c, cf, *w[:9], t[1], t[3], t[6], ge, gc, torch.empty_like(e),
+                    torch.empty_like(c), torch.empty_like(cf)]),
+        } if args.dtype == "float32" else {
             "k1": ("mtt_fused_layer_fwd_sm90", [P] * 15,
                    [e, c, cf, *(w[i] for i in (0, 2, 4, 5, 7, 9)), t[1], t[3], w_vg, t[8],
                     torch.empty_like(e), torch.empty_like(c)]),
@@ -144,7 +178,7 @@ def main() -> int:
                     torch.empty_like(c), torch.empty_like(cf)]),
         }
         for key, (entry, ptypes, ptrs) in runs.items():
-            dump = torch.zeros(A, M, 3, D, dtype=torch.bfloat16, device=dev)
+            dump = torch.zeros(A, M, 3, D, dtype=dtype, device=dev)
             lib = libs[key]
             fn = getattr(lib, entry)
             fn.argtypes = ptypes + [L, I, I, I, I, F_, F_, P]
@@ -157,7 +191,7 @@ def main() -> int:
             dumps[key] = dump
     equal = {name: torch.equal(dumps["k1"][:, :, i], dumps["k2"][:, :, i])
              for i, name in enumerate(("attn", "res", "h_norm"))}
-    print(json.dumps({"card": card, "shape": [A, M, D, H, F], "bitwise_equal": equal,
+    print(json.dumps({"card": card, "dtype": args.dtype, "shape": [A, M, D, H, F], "bitwise_equal": equal,
                       "finite": bool(torch.isfinite(dumps["k1"].float()).all())}))
     return 0 if all(equal.values()) else 2
 
