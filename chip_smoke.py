@@ -24,7 +24,9 @@ device and exits non-zero without one. Phases (any failure propagates):
    ``csrc/fused_layer_bwd_f32_sm90.cu`` 4 times each and the general K1
    and K2 never,
    and the Hopper float32 K4 of ``csrc/rowblock_bwd_f32_sm90.cu`` (``K4_F32``)
-   2 + 2 times and the general compress and combination K4 never. Energy, forces and virial must be finite; the bf16
+   and the Hopper float32 K3 of ``csrc/rowblock_fwd_f32_sm90.cu``
+   (``K3_F32``) 2 + 2 times each and the general compress and combination
+   K3 and K4 never. Energy, forces and virial must be finite; the bf16
    kernel path must match the f32 plain path (energy rel <= 1 %, force
    rel-RMSE <= 5 %, or 1.25 x the bf16 plain path's own error where that
    is larger) and the f32 kernel path the f32 plain path (energy rel <=
@@ -47,8 +49,9 @@ device and exits non-zero without one. Phases (any failure propagates):
    the neutral singlet, the adaptive cutoffs in [0.5, 4.5] and not 4.5.
    One f32 training step of each on phase 5's first two frames (a charge
    and a spin each), kernel vs plain with phase 6's gates: the Hopper
-   float32 K1 (4 times, the general K1 never), K2-dW, K3 and K4-dW must
-   launch and the layer's replay run. Reported, not gated:
+   float32 K1 (4 times, the general K1 never), K2-dW, the Hopper float32
+   K3 (``K3_F32``, 2 + 2 times; the general compress and combination K3
+   never) and K4-dW must launch and the layer's replay run. Reported, not gated:
    ms per call and atom-steps/s beside phase 3's, each option's own
    CUDA-event time (forward and backward to the positions) and whether
    the long-range featurizer repeats bit for bit, a profile of (b).
@@ -112,8 +115,10 @@ device and exits non-zero without one. Phases (any failure propagates):
    each served as phase 3 (its launches and gates, 2 steps; the general K1
    and K2 bodies, the f32 call's too: 4 general K1 and no Hopper float32
    K1; at M = 96 the Hopper K3 and K4, at d_pet 256 the general
-   K3 and K4: the compress and combination 2 per call each, the head 1),
-   the kernel paths timed.
+   K3 and K4: the compress and combination 2 per call each, the head 1;
+   the f32 call's compress and combination forward at M = 96 the Hopper
+   float32 K3 2 + 2 times, at d_pet 256 the general K3), the kernel paths
+   timed.
 4d. int8 scores: the fused model built with ``int8_scores=True`` in
    bfloat16: every counter starts at 0 just before its served calls; the
    absmax pass, K1-int8 and K2-int8 must launch 4 times per call each and
@@ -128,7 +133,9 @@ device and exits non-zero without one. Phases (any failure propagates):
    analytic forces, written as extended xyz, then the port's
    ``train_model`` at the PET defaults in float32 (batch 2, 2 epochs,
    validation 0.25, forces weight 10). Every counter starts at 0 just
-   before it; the Hopper float32 K1 (and never the general K1), K3, K2-dW
+   before it; the Hopper float32 K1 (and never the general K1), K3 (the
+   compress and combination the Hopper float32 K3, ``K3_F32``, and never
+   the general body; the head the general body), K2-dW
    and K4-dW (all three stages) must launch in it
    (K2-dW: the two-pass kernels with the Hopper float32 K2's spill mode as
    first pass, ``K2DW_F32``, and never the accumulate body or the general
@@ -152,8 +159,9 @@ device and exits non-zero without one. Phases (any failure propagates):
    Hopper float32 K1 4 times and the general K1 never, the
    two-pass K2-dW's kernels (``K2DW_F32``) 8 times each (4 layers, in the
    forces' backward and in the loss's) and the accumulate body and the
-   general body's first pass never, and ``K4DW_F32`` 4 + 4 times (8 products)
-   and the general compress and combination K4-dW never. Then one
+   general body's first pass never, ``K4DW_F32`` 4 + 4 times (8 products)
+   and ``K3_F32`` 2 + 2 times, and the general compress and combination
+   K3 and K4-dW never. Then one
    bfloat16 step with the int8 scores (the trained model), kernel vs plain
    path: the absmax pass, K1-int8 and the two-pass K2-dW-int8 (8 each) must
    launch, the accumulate K2-dW-int8 never, and the layer's replay run;
@@ -161,8 +169,8 @@ device and exits non-zero without one. Phases (any failure propagates):
    one exact bfloat16 step (the trained model), kernel vs plain path, with
    the same gates: a weight requires grad, so the general K1, the two-pass
    K2-dW (8 each; its first pass the general body, ``K2DW``) and K4-dW must
-   launch and the Hopper K1, K2, K3 and K4, the float32 K1, K4 and K4-dW
-   and the accumulate K2-dW never. Phase 3b's f32 steps hold the f32 step's
+   launch and the Hopper K1, K2, K3 and K4, the float32 K1, K3, K4 and
+   K4-dW and the accumulate K2-dW never. Phase 3b's f32 steps hold the f32 step's
    K2-dW and K4-dW counts, phase 3c's its K2-dW counts and K4-dW's kernels.
 7. training timing: ms per step and atom-steps/s (host clock around
    synchronised steps after a warm-up step) with the peak device memory,
@@ -291,7 +299,16 @@ device and exits non-zero without one. Phases (any failure propagates):
    the same for the 2-part compress, and for the 3-part compress and the
    combination at A = 11,000 x M = 48 and at 100,003 rows, under
    ``shapes``. ``rowblock_bwd_dw[<stage>]`` keeps the general body
-   (``sm90=False``), its launches the exact bf16 step's. K3's compress and combination in bf16 are the
+   (``sm90=False``), its launches the exact bf16 step's. K3's compress
+   and combination in float32 are the Hopper float32 K3, entries of their
+   own (``rowblock_fwd_f32_sm90[<stage>]``): output within 1e-4 of max
+   |plain|, bitwise equal across two launches and with ``weight_grads``,
+   the general body timed beside (``general_ms``), bounds at the 3xTF32
+   peak and on the FFMA pipes, registers and shared bytes; the same for
+   the 2-part compress, and for the 3-part compress and the combination
+   at A = 11,000 x M = 64, 48 and 16 and at 100,003 rows, under
+   ``shapes``. ``rowblock_fwd[<stage>]`` keeps the general body in
+   float32 (``sm90=False``). K3's compress and combination in bf16 are the
    Hopper K3, entries of their own (``rowblock_fwd_sm90[<stage>]``) with
    the same checks, and whether the output equals the general body's bit
    for bit (reported, not gated); the same for the 2-part compress and at
@@ -307,7 +324,8 @@ device and exits non-zero without one. Phases (any failure propagates):
 9. shapes: the C side's layout plans (shared bytes, workspace floats, row
    tiles) and the Hopper K1's, K2's, K3's and K4's dispatch rules and budgets,
    and the two-pass K2-dW's rule, chunk plan and slices, equal
-   ``_lib``'s Python ones (the Hopper float32 K1's and K2's too) for M =
+   ``_lib``'s Python ones (the Hopper float32 K1's, K2's, K3's and K4's
+   too) for M =
    16..256 and D of 64 to 256;
    K1, K2, K2-dW, the block's three kernels and, in bf16, K1-W8A8 and
    K2-W8A8 vs plain at M = 80, 96, 128 (D 128) and M = 64, 128 (D 256), A =
@@ -315,7 +333,7 @@ device and exits non-zero without one. Phases (any failure propagates):
    W8A8) at head widths 8, 12, 24 and 64; the bounds of phase 8, times under
    each entry's ``shapes``.
 
-The second-to-last line is a JSON object with one entry per kernel (38);
+The second-to-last line is a JSON object with one entry per kernel (40);
 the last line is ``{"ok": true, "device": {...}}``. Details also go to
 ``chiprun_out/chip_smoke.json``, the compiler's ``-Xptxas -v`` output to
 ``chiprun_out/chip_smoke_build.log``.
@@ -364,6 +382,13 @@ K1_F32 = "fused_layer_fwd_f32_sm90"
 K1_F32_PER_STEP = 4
 K4_F32_NEVER = ("rowblock_bwd[compress]", "rowblock_bwd[combination]",
                 "rowblock_bwd_dw[compress]", "rowblock_bwd_dw[combination]")
+# the Hopper float32 K3, the forward of the float32 compress and combination
+# at d_part 128 with or without weight gradients (2 + 2 a force call, 2 + 2
+# a training step: its forward up to h is the f32 K4's and K4-dW's
+# recompute); never the general K3's compress and combination there
+K3_F32 = ("rowblock_fwd_f32_sm90[compress]", "rowblock_fwd_f32_sm90[combination]")
+K3_F32_PER_STEP = dict.fromkeys(K3_F32, 2)
+K3_F32_NEVER = ("rowblock_fwd[compress]", "rowblock_fwd[combination]")
 
 
 def check_k2dw_launches(launches, kernels=K2DW_F32, never=K2DW_F32_NEVER, per_step=None):
@@ -379,16 +404,30 @@ def check_k2dw_launches(launches, kernels=K2DW_F32, never=K2DW_F32_NEVER, per_st
 
 
 def check_k4dw_launches(launches, steps=None):
-    """The two-pass K4-dW's kernels launched (``steps`` x K4DW_F32_PER_STEP
-    times each where given) and the general body's compress and combination
-    not at all."""
-    counts = {k: launches.get(k, 0) for k in K4DW_F32}
-    ran = {k: launches[k] for k in K4_F32_NEVER if launches.get(k, 0)}
+    """The float32 row blocks of a training run: the two-pass K4-dW's kernels
+    and the Hopper float32 K3 launched (``steps`` x K4DW_F32_PER_STEP and
+    K3_F32_PER_STEP times each where given) and the general body's compress
+    and combination, forward and backward, not at all."""
+    per_step = K4DW_F32_PER_STEP | K3_F32_PER_STEP
+    counts = {k: launches.get(k, 0) for k in per_step}
+    never = K4_F32_NEVER + K3_F32_NEVER
+    ran = {k: launches[k] for k in never if launches.get(k, 0)}
     if (not all(counts.values()) or ran or (
-            steps is not None and counts != {k: n * steps for k, n in K4DW_F32_PER_STEP.items()})):
-        fail(f"K4-dW launches {counts}, {ran}: expected "
-             f"{'some' if steps is None else {k: n * steps for k, n in K4DW_F32_PER_STEP.items()}} "
-             f"and none of {K4_F32_NEVER}")
+            steps is not None and counts != {k: n * steps for k, n in per_step.items()})):
+        fail(f"K4-dW and float32 K3 launches {counts}, {ran}: expected "
+             f"{'some' if steps is None else {k: n * steps for k, n in per_step.items()}} "
+             f"and none of {never}")
+
+
+def check_k3_f32_call(key, f32_call, general=False):
+    """One f32 force call's compress and combination forwards: the Hopper
+    float32 K3 (``K3_F32``) 2 + 2 times and the general K3's never, or with
+    ``general`` (d_pet 256) the reverse."""
+    want, never = (K3_F32_NEVER, K3_F32) if general else (K3_F32, K3_F32_NEVER)
+    if ({k: f32_call.get(k, 0) for k in want} != dict.fromkeys(want, 2)
+            or any(f32_call.get(k, 0) for k in never)):
+        fail(f"{key}: the f32 force call launched {f32_call}: 2 + 2 of {want} and none of "
+             f"{never} expected")
 
 
 def fail(message: str):
@@ -1066,14 +1105,16 @@ def plan_table():
         # the Hopper K3's and K4's dispatch rules and budgets, C vs Python,
         # for every stage at d_part D, w_in of 1-4 parts, w_hid D or 2D,
         # w_out D or 128
-        # (the float32 K4 in float32, and its two-pass K4-dW's plan)
+        # (the float32 K3 and K4 in float32, and the two-pass K4-dW's plan)
         hopper_rowblocks = (
             ("K3", lib.mtt_rowblock_fwd_sm90_ok, lib.mtt_rowblock_fwd_sm90_smem,
              _lib.k3_sm90_takes, _lib.k3_sm90_smem, torch.bfloat16),
             ("K4", lib.mtt_rowblock_bwd_sm90_ok, lib.mtt_rowblock_bwd_sm90_smem,
              _lib.k4_sm90_takes, _lib.k4_sm90_smem, torch.bfloat16),
             ("float32 K4", lib.mtt_rowblock_bwd_f32_sm90_ok, lib.mtt_rowblock_bwd_f32_sm90_smem,
-             _lib.k4_f32_sm90_takes, _lib.k4_f32_sm90_smem, torch.float32))
+             _lib.k4_f32_sm90_takes, _lib.k4_f32_sm90_smem, torch.float32),
+            ("float32 K3", lib.mtt_rowblock_fwd_f32_sm90_ok, lib.mtt_rowblock_fwd_f32_sm90_smem,
+             _lib.k3_f32_sm90_takes, _lib.k3_f32_sm90_smem, torch.float32))
         for stage in (0, 1, 2):
             for w_in in range(D, 4 * D + 1, D):
                 for w_hid in (D, 2 * D):
@@ -1454,7 +1495,7 @@ def stage_cases(rows, D, gen, device):
 
 
 def rowblock_sizes(stage, xs, weights, g):
-    """(bytes, operations) of K3 (and the Hopper K3), K4 (and the Hopper K4,
+    """(bytes, operations) of K3 (and the Hopper K3, the Hopper float32 K3), K4 (and the Hopper K4,
     the Hopper float32 K4) and K4-dW at these inputs. K3 reads every input
     and writes the output, and runs the stage's two products. K4 reads the
     inputs it differentiates (compress: the parts; combination: edges and
@@ -1485,6 +1526,7 @@ def rowblock_sizes(stage, xs, weights, g):
              2 * rows_ * (3 * w_in * w_hid + 2 * w_hid * w_out)))
     return {f"rowblock_fwd[{stage.name}]": (io_in + io_g + n_w * s_, flops),
             f"rowblock_fwd_sm90[{stage.name}]": (io_in + io_g + n_w * s_, flops),
+            f"rowblock_fwd_f32_sm90[{stage.name}]": (io_in + io_g + n_w * s_, flops),
             f"rowblock_bwd[{stage.name}]": k4,
             f"rowblock_bwd_sm90[{stage.name}]": k4,
             f"rowblock_bwd_f32_sm90[{stage.name}]": k4,
@@ -1614,6 +1656,7 @@ def check_rowblock(rows, D, gen, device, report):
             )
             if dtype == torch.float32 and stage.code != rb.HEAD_CODE:
                 check_k4_f32(stage, xs, weights, g, sizes, report)
+                check_k3_f32(stage, xs, weights, sizes, report)
         torch.cuda.empty_cache()
 
 
@@ -1706,6 +1749,42 @@ def check_k4_f32(stage, xs, weights, g, sizes, report, key=None):
     torch.cuda.empty_cache()
 
 
+def check_k3_f32(stage, xs, weights, sizes, report, key=None):
+    """The Hopper float32 K3 at one shape (float32): the rule's kernel ran,
+    with and without ``weight_grads``, to the same bits; the checks of
+    ``check_f32_sm90_shape`` (within 1e-4 of max |plain|, bitwise repeat,
+    the general body's time beside). With ``key`` the numbers go under the
+    entry's ``shapes``; at the served rows (no ``key``) also the plain
+    version's time and the bounds (the 2-part compress under ``shapes``)."""
+    from metatrain_tpu_torch.ops.kernels import _lib
+    from metatrain_tpu_torch.ops.kernels import rowblock as rb
+
+    (_, _), (w0, _, w1, _) = rb._split_weights(stage, weights)
+    rows = xs[0].shape[0]
+    name = f"rowblock_fwd_f32_sm90[{stage.name}]"
+    launch = lambda **kw: (rb.rowblock_fwd_cuda(stage, xs, weights, **kw),)  # noqa: E731
+    before = _lib.LAUNCHES[name]
+    k_out = launch()
+    k_dw = launch(weight_grads=True)
+    torch.cuda.synchronize()
+    ran = _lib.LAUNCHES[name] - before
+    takes = _lib.k3_f32_sm90_takes(torch.float32, stage.code, xs[0].shape[1], *w0.shape, w1.shape[1])
+    if ran != (2 if takes else 0):
+        fail(f"the Hopper float32 K3 ({stage.name}, {rows} rows) launched {ran} times in two "
+             f"calls, the rule says {takes}")
+    if not torch.equal(k_out[0], k_dw[0]):
+        fail(f"the Hopper float32 K3 ({stage.name}, {rows} rows) gave other bits with weight_grads")
+    del k_dw
+    sub = check_f32_sm90_shape(name, launch, k_out, (stage.math(xs, weights),))
+    entry = report.setdefault(name, {"library_ms": None})
+    if key is not None or (len(xs) < 3 and stage.name == "compress"):
+        entry.setdefault("shapes", {})[key or f"rows{rows}_compress2"] = sub
+        return
+    entry.update({f"{k}_f32": v for k, v in sub.items()})
+    entry["plain_ms_f32"] = cuda_ms(lambda: stage.math(xs, weights))
+    k4_f32_bounds(entry, "f32", sizes[name])
+
+
 def check_rowblock_sm90_shapes(gen, device, report, D=128):
     """The Hopper K3 and K4 against the plain versions beyond the served
     rows: A x M rows at M = 64 (K3 only), 48 and 16 (A = 11,000) and a row
@@ -1739,12 +1818,15 @@ def check_rowblock_sm90_shapes(gen, device, report, D=128):
                 del k_out
         torch.cuda.empty_cache()
     # the Hopper float32 K4 and the two-pass K4-dW: the 3-part compress and
-    # the combination at A = 11,000 x M = 48 and at a partial last tile
-    for rows in (11000 * 48, 100003):
+    # the combination at A = 11,000 x M = 48 and at a partial last tile; the
+    # Hopper float32 K3 also at M = 64 and 16
+    for rows in (11000 * 64, 11000 * 48, 11000 * 16, 100003):
         for stage, inputs, weights in stage_cases(rows, D, gen, device)[::2][:2]:
-            g = torch.randn(rows, D, generator=gen).to(device)
-            check_k4_f32(stage, inputs, weights, g, None, report,
-                         key=f"rows{rows}_{stage.name}{len(inputs) if stage.name == 'compress' else ''}")
+            key = f"rows{rows}_{stage.name}{len(inputs) if stage.name == 'compress' else ''}"
+            check_k3_f32(stage, inputs, weights, None, report, key=key)
+            if rows in (11000 * 48, 100003):
+                g = torch.randn(rows, D, generator=gen).to(device)
+                check_k4_f32(stage, inputs, weights, g, None, report, key=key)
         torch.cuda.empty_cache()
 
 
@@ -2277,10 +2359,10 @@ def check_physics(device, report, workdir):
         torch.cuda.empty_cache()
         report[f"training_parity_{key}"] = check_training_parity(
             workdir / "cu_lj_charged.xyz", state, device, hypers,
-            expected=(K1_F32, *K2DW_F32, "rowblock_fwd[compress]", *K4DW_F32),
-            replayed=("fused_layer",), absent=("fused_layer_fwd",) + K2DW_F32_NEVER + K4_F32_NEVER,
+            expected=(K1_F32, *K2DW_F32, *K3_F32, *K4DW_F32), replayed=("fused_layer",),
+            absent=("fused_layer_fwd",) + K2DW_F32_NEVER + K4_F32_NEVER + K3_F32_NEVER,
             per_step={K1_F32: K1_F32_PER_STEP} | {k: K2DW_PER_STEP for k in K2DW_F32}
-            | K4DW_F32_PER_STEP)
+            | K4DW_F32_PER_STEP | K3_F32_PER_STEP)
         torch.cuda.empty_cache()
 
 
@@ -2471,12 +2553,12 @@ def check_generic_training(path, device):
         torch.cuda.empty_cache()
     (lk, gk, names, polar_k), (lp, gp, _, polar_p) = results["kernel"], results["plain"]
     launches = report["launches"]
-    # the Hopper float32 K1 (4) and never the general K1, the general K3,
-    # K2-dW and K4-dW; a K3 head per target and at least one K4-dW head per
-    # target
+    # the Hopper float32 K1 (4) and never the general K1, the Hopper
+    # float32 K3 and never the general compress and combination K3, K2-dW
+    # and K4-dW; a K3 head per target and at least one K4-dW head per target
     check_k2dw_launches(launches, per_step=K2DW_PER_STEP)
     check_k4dw_launches(launches)
-    missing = [k for k in (K1_F32, "rowblock_fwd[compress]") if not launches.get(k)]
+    missing = [k for k in (K1_F32, *K3_F32) if not launches.get(k)]
     if (missing or launches.get(K1_F32) != K1_F32_PER_STEP or launches.get("fused_layer_fwd", 0)
             or launches.get("rowblock_fwd[head]") != len(infos)
             or launches.get("rowblock_bwd_dw[head]", 0) < len(infos)):
@@ -2964,8 +3046,8 @@ def check_training(device, report, workdir):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches, replays = dict(_lib.LAUNCHES), dict(_lib.REPLAYS)
-    expected = [K1_F32, *K2DW_F32, *K4DW_F32, "rowblock_bwd_dw[head]"] + [
-        f"rowblock_fwd[{s}]" for s in STAGE_NAMES]
+    expected = [K1_F32, *K2DW_F32, *K4DW_F32, *K3_F32, "rowblock_bwd_dw[head]",
+                "rowblock_fwd[head]"]
     missing = [k for k in expected if launches.get(k, 0) == 0]
     if missing or launches.get("fused_layer_fwd", 0):
         fail(f"kernels not launched in the training run: {missing}, or the general K1 launched: "
@@ -3211,8 +3293,8 @@ def check_entry_points(device, report, workdir):
         torch.cuda.synchronize()
         out["train_s"] = time.perf_counter() - t0
         launches = dict(_lib.LAUNCHES)
-        expected = [K1_F32, *K2DW_F32, *K4DW_F32, "rowblock_bwd_dw[head]"] + [
-            f"rowblock_fwd[{s}]" for s in STAGE_NAMES]
+        expected = [K1_F32, *K2DW_F32, *K4DW_F32, *K3_F32, "rowblock_bwd_dw[head]",
+                    "rowblock_fwd[head]"]
         missing = [k for k in expected if launches.get(k, 0) == 0]
         if missing or launches.get("fused_layer_fwd", 0):
             fail(f"kernels not launched by the train command: {missing}, or the general K1 "
@@ -3401,6 +3483,8 @@ SOURCES = {
                      "metatrain_tpu/ops/pallas/rowblock.py:113"),
     "rowblock_fwd_sm90": ("metatrain_tpu_torch/csrc/rowblock_fwd_sm90.cu",
                           "metatrain_tpu/ops/pallas/rowblock.py:113 (exact bf16, d_part 128)"),
+    "rowblock_fwd_f32_sm90": ("metatrain_tpu_torch/csrc/rowblock_fwd_f32_sm90.cu",
+                              "metatrain_tpu/ops/pallas/rowblock.py:113 (float32, d_part 128)"),
     "rowblock_bwd": ("metatrain_tpu_torch/csrc/rowblock_bwd.cu",
                      "metatrain_tpu/ops/pallas/rowblock.py:279"),
     "rowblock_bwd_sm90": ("metatrain_tpu_torch/csrc/rowblock_bwd_sm90.cu",
@@ -3445,7 +3529,7 @@ SOURCES = {
                                 "(weight_grads=True, int8 scores)"),
 }
 UNFUSED_PATH = ("permute", "permute_acc", "window_attention_fwd", "window_attention_bwd")
-N_ENTRIES = 38
+N_ENTRIES = 40
 
 
 def launch_count(report, name):
@@ -3461,15 +3545,16 @@ def launch_count(report, name):
     force calls for the rest; the int8 scores' from their force calls and
     (K2-dW-int8) their training step. K2-dW and K2-dW-int8 count the
     two-pass kernels' launches (K2-dW in the float32 training run: the
-    Hopper float32 K2's spill mode); the Hopper float32 K1, K2 and K4 their
-    launches in one call of phase 3's float32 kernel path; the general
+    Hopper float32 K2's spill mode); the Hopper float32 K1, K2, K3 and K4
+    their launches in one call of phase 3's float32 kernel path; the general
     K4-dW's compress and combination theirs in the exact bf16 step (the
     float32 steps run the two-pass K4-dW)."""
     if name == "fused_layer_bwd_dw_int8":
         return report["training_parity_int8"]["launches"]["fused_layer_bwd_dw_int8_sm90"]
     if name == "fused_layer_bwd_dw":
         return report["train_launches"][K2DW_F32[0]]
-    if name in (K1_F32, "fused_layer_bwd_f32_sm90") or name.startswith("rowblock_bwd_f32_sm90"):
+    if name in (K1_F32, "fused_layer_bwd_f32_sm90") or name.startswith(
+            ("rowblock_bwd_f32_sm90", "rowblock_fwd_f32_sm90")):
         return report["slice"]["launches_f32_per_call"][name]
     if name == "fused_layer_fwd":  # float32 runs the Hopper float32 K1 at these shapes
         return report["training_parity_bf16"]["launches"][name]
@@ -3591,6 +3676,7 @@ def main() -> int:
             or any(f32_call.get(k, 0) for k in K4_F32_NEVER)):
         fail(f"the f32 force call launched {f32_call}: 2 + 2 Hopper float32 K4 and no general "
              "compress or combination K4 expected")
+    check_k3_f32_call("slice", f32_call)
     A, M = report["slice"]["padded"]
     print("slice:", json.dumps({k: report["slice"][k] for k in (
         "padded", "launches", "launches_f32_per_call", "parity")}
@@ -3686,6 +3772,9 @@ def main() -> int:
         if f32_call.get("fused_layer_fwd") != 4 or f32_call.get(K1_F32, 0):
             fail(f"{key}: the f32 force call launched {f32_call}: 4 general K1 and no Hopper "
                  "float32 K1 expected")
+        # the row blocks do not depend on M: at M = 96 the Hopper float32 K3,
+        # at d_pet 256 the general K3
+        check_k3_f32_call(key, f32_call, general=key == "slice_d256")
         print(f"{key} (M = {M_served}):", json.dumps({k: report[key][k] for k in (
             "padded", "launches", "parity")}), flush=True)
         print(f"{key} force call ({card}):", json.dumps(report[key]["timing"]), flush=True)
@@ -3721,10 +3810,10 @@ def main() -> int:
               flush=True)
         torch.cuda.empty_cache()
         report["training_parity"] = check_training_parity(
-            workdir / "cu_lj.xyz", state, device, expected=(K1_F32,) + K2DW_F32 + K4DW_F32,
-            absent=("fused_layer_fwd",) + K2DW_F32_NEVER + K4_F32_NEVER,
+            workdir / "cu_lj.xyz", state, device, expected=(K1_F32,) + K2DW_F32 + K4DW_F32 + K3_F32,
+            absent=("fused_layer_fwd",) + K2DW_F32_NEVER + K4_F32_NEVER + K3_F32_NEVER,
             per_step={K1_F32: K1_F32_PER_STEP} | {k: K2DW_PER_STEP for k in K2DW_F32}
-            | K4DW_F32_PER_STEP)
+            | K4DW_F32_PER_STEP | K3_F32_PER_STEP)
         print("training parity:", json.dumps(report["training_parity"]), flush=True)
         report["training_parity_unfused"] = check_training_parity(
             workdir / "cu_lj.xyz", random_state(UNFUSED), device, UNFUSED,
@@ -3753,7 +3842,7 @@ def main() -> int:
                       "rowblock_bwd_dw[combination]"),
             replayed=("fused_layer",), dtype=torch.bfloat16,
             absent=("fused_layer_fwd_sm90", K1_F32, "fused_layer_bwd_sm90", "fused_layer_bwd_dw",
-                    *ROWBLOCK_SM90_KERNELS, *K4_F32, *K4DW_F32),
+                    *ROWBLOCK_SM90_KERNELS, *K4_F32, *K4DW_F32, *K3_F32),
             per_step={k: K2DW_PER_STEP for k in K2DW})
         print("training step, exact bf16:", json.dumps(report["training_parity_bf16"]), flush=True)
         torch.cuda.empty_cache()
@@ -3809,6 +3898,15 @@ def main() -> int:
                     "ms_f32", "general_ms_f32", "bound_ms_f32", "bound_ms_ffma_f32",
                     "bound_ratio_f32", "product_ms_f32", "chunks_f32", "ptxas_f32", "smem_bytes",
                     "shapes")}), flush=True)
+        name = f"rowblock_fwd_f32_sm90[{stage}]"
+        kernels[name]["smem_bytes"] = lib.mtt_rowblock_fwd_f32_sm90_smem(code, D, w_in, w_hid, D)
+        if build_log.exists():  # the instantiations per stage (mangled names)
+            kernels[name]["ptxas_f32"] = ptxas_usage(build_log.read_text(),
+                                                     f"k3_f32_sm90_kernelILi{code}E")
+        print(f"Hopper float32 {name} (general body's ms beside):", json.dumps(
+            {key: kernels[name].get(key) for key in (
+                "ms_f32", "general_ms_f32", "plain_ms_f32", "bound_ms_f32", "bound_ms_ffma_f32",
+                "bound_ratio_f32", "ptxas_f32", "smem_bytes", "shapes")}), flush=True)
     for k in (3, 4):
         kind = "fwd" if k == 3 else "bwd"
         for code, stage in enumerate(STAGE_NAMES):

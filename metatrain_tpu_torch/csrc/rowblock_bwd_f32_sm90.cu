@@ -28,6 +28,10 @@
 // mtt_rowblock_bwd_f32_sm90_ok is the shape rule (rowblock_sm90.cuh's
 // compress and combination); the wrapper sends the head, bfloat16 K4-dW,
 // d_pet 256 and every other shape to the general body (rowblock_bwd.cu).
+// Its recompute up to h (the tile streaming, the LayerNorm, the pre
+// products, SiLU) is rowblock_f32_sm90.cuh's, which the Hopper float32 K3
+// (rowblock_fwd_f32_sm90.cu) runs as its forward: one device code, so the
+// f32 energy's pre-activations are the ones the forces differentiate.
 //
 // What bounds it on the H100: operations. At the crystal's rows (A = 11,392
 // x M = 64 = 729,088) K4 runs three products a row (pre, g w1^T, d_pre
@@ -97,32 +101,27 @@
 // spill mode's (one body: the spill adds stores only).
 
 #include "layer_dw_sm90.cuh"
-#include "rowblock_sm90.cuh"
-#include "tf32_sm90.cuh"
+#include "rowblock_f32_sm90.cuh"
 
 namespace mtt {
 namespace k4f32 {
 namespace {
 
-using namespace tf32;  // 3xTF32, the weight ring, the panel products
+// the tile streaming, the forward up to h (the f32 K3's), 3xTF32, the
+// weight ring and the panel products
+using namespace rf32;
 using sm90::kRows;  // sm90's, not common.cuh's
 using sm90::kThreads;
 using sm90::zero;
 
-enum Stage { kCompress = 0, kCombination = 1 };
-constexpr int kPart = 128;         // d_part = w_out: every streamed and written row
-constexpr int kPieces = kPart / 4;  // 16-byte copies per row of one array
-
-// The layout of one instantiation: NP arrays make up the x tile (compress:
-// the parts; combination: edges and reversed).
+// The layout of one instantiation (rowblock_f32_sm90.cuh Widths: NP arrays
+// make up the x tile).
 template <int STAGE, int NP>
 struct Geo {
-    static constexpr int W_IN = NP * kPart;
-    static constexpr int W_HID = STAGE == kCompress ? kPart : 2 * kPart;
-    static constexpr int LX = W_IN + 4;   // x (xn0) rows, floats
+    using W = Widths<STAGE, NP>;
+    static constexpr int W_IN = W::W_IN, W_HID = W::W_HID, LX = W::LX, PRE = W::PRE;
     static constexpr int LP = W_HID + 4;  // d_pre rows
     static constexpr int LG = kPart + 4;  // g rows
-    static constexpr int PRE = STAGE == kCompress ? 8 * NP : 16;  // chunks of a pre product
     static constexpr int NCH = STAGE == kCompress ? 16 * NP + 8 : 80;  // chunks per tile
     static constexpr int NV = (STAGE == kCombination ? 2 * W_IN : 0) + W_HID + kPart;  // vector row
     static constexpr int kX = kRows * LX * 4;
@@ -197,24 +196,6 @@ struct Chunks {
     }
 };
 
-// Units [lo, hi) of a tile's rows from row0 (of `rows`): unit u is 16-byte
-// piece u % 32 of row u / 32 % 64 of array u / 2048, copied to dst (rows of
-// ld floats, array a at column 128 a); rows past the end zero-filled.
-template <int NA>
-__device__ __forceinline__ void copy_rows(const float* const (&src)[3], float* dst, int ld, long long row0,
-                                          long long rows, int lo, int hi) {
-    for (int u = lo + threadIdx.x; u < hi; u += kThreads) {
-        const int a = u / (kRows * kPieces), row = (u / kPieces) % kRows, piece = u % kPieces;
-        const bool valid = row0 + row < rows;
-        const float* s = src[0];
-#pragma unroll
-        for (int k = 1; k < NA; ++k)
-            if (a == k) s = src[k];  // a select, not an indexed (local-memory) load
-        dwp::cp_async16_zfill(dst + row * ld + a * kPart + piece * 4,
-                              valid ? s + (row0 + row) * kPart + piece * 4 : s, valid);
-    }
-}
-
 // The next tile's rows, issued with the weight chunks of this tile: chunk c
 // = t NCH + r carries slice r - 2 of tile t + 1's g (2 <= r < NCH) into g
 // buffer (t + 1) % 2 and, in the compress, slice r - PRE - 2 of its parts
@@ -229,7 +210,7 @@ struct NextRows {
     long long t0;   // the block's first tile
     int T;          // the block's tiles
 
-    static constexpr int kXUnits = kRows * NP * kPieces;
+    static constexpr int kXUnits = Widths<STAGE, NP>::kXUnits;
     static constexpr int kGUnits = kRows * kPieces;
 
     __device__ void operator()(int c) const {
@@ -237,17 +218,12 @@ struct NextRows {
         const int t = c / Gm::NCH + 1, r = c % Gm::NCH;
         if (t >= T) return;
         const long long row0 = (t0 + t) * kRows;
-        if (r >= 2) {
-            constexpr int n = (kGUnits + Gm::NCH - 3) / (Gm::NCH - 2);
-            copy_rows<1>({p.g, p.g, p.g}, G + (t & 1) * kRows * Gm::LG, Gm::LG, row0, p.rows, (r - 2) * n,
-                         min(kGUnits, (r - 1) * n));
-        }
+        int lo, hi;
+        if (rows_slice<Gm::NCH, 2, kGUnits>(r, lo, hi))
+            copy_rows<1>({p.g, p.g, p.g}, G + (t & 1) * kRows * Gm::LG, Gm::LG, row0, p.rows, lo, hi);
         if constexpr (STAGE == kCompress) {
-            if (r >= Gm::PRE + 2) {
-                constexpr int n = (kXUnits + Gm::NCH - Gm::PRE - 3) / (Gm::NCH - Gm::PRE - 2);
-                const int s = r - Gm::PRE - 2;
-                copy_rows<NP>(p.x, X, Gm::LX, row0, p.rows, s * n, min(kXUnits, (s + 1) * n));
-            }
+            if (rows_slice<Gm::NCH, Gm::PRE + 2, kXUnits>(r, lo, hi))
+                copy_rows<NP>(p.x, X, Gm::LX, row0, p.rows, lo, hi);
         }
     }
 
@@ -278,14 +254,12 @@ __device__ __forceinline__ void compress_tile(R& ring, int& c, const Args& p, co
     using G = Geo<kCompress, NP>;
     const long long row0 = t * kRows;
     float pre[4][4], dh[4][4];
-    zero(pre);
-    panel_mm<G::PRE>(ring, c, [&](int r, int& ld) { ld = G::LX; return X + r * kCK; }, pre, kRows);
+    compress_pre<NP>(ring, c, X, p.b0, pre);
     zero(dh);
     panel_mm<8>(ring, c, [&](int r, int& ld) { ld = G::LG; return Gt + r * kCK; }, dh, kRows);
     // d_pre into DP and dh; the spill: d_pre and h = silu(pre)
     panel_pairs([&](int j, int h, int m, int n) {
-        const float2 b = ld2(p.b0 + n);
-        const float p0 = pre[j][2 * h] + b.x, p1 = pre[j][2 * h + 1] + b.y;
+        const float p0 = pre[j][2 * h], p1 = pre[j][2 * h + 1];
         dh[j][2 * h] = d_pre(dh[j][2 * h], p0);
         dh[j][2 * h + 1] = d_pre(dh[j][2 * h + 1], p1);
         st2(DP + m * G::LP + n, dh[j][2 * h], dh[j][2 * h + 1]);
@@ -293,7 +267,7 @@ __device__ __forceinline__ void compress_tile(R& ring, int& c, const Args& p, co
             if (m < valid) {
                 const size_t o = (size_t)(row0 + m) * kPart + n;
                 spill2(p.dpre + o, dh[j][2 * h], dh[j][2 * h + 1]);
-                spill2(p.h + o, siluf_(p0), siluf_(p1));
+                spill2(p.h + o, hidden(p0), hidden(p1));
             }
         }
     });
@@ -315,49 +289,6 @@ __device__ __forceinline__ void compress_tile(R& ring, int& c, const Args& p, co
     }
 }
 
-// The combination's LayerNorm over the 64 rows of X = [edges | reversed]
-// (rows of LX): per row rs = rsqrt(var + 1e-5) (two passes) to RS[m] and
-// xn0 = (x - mean) rs in place; the spill mode writes xn = xn0 ln_scale +
-// ln_bias for the valid rows. One warp per row, lane l on columns 4 l ..
-// 4 l + 3 and 128 + 4 l .. + 3.
-template <bool SP>
-__device__ __forceinline__ void layer_norm_rows(float* X, const float* LN, float* RS, float* xn, long long row0,
-                                                int valid) {
-    constexpr int W = 2 * kPart, LX = W + 4;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int m = warp; m < kRows; m += kThreads / 32) {
-        float4* x = reinterpret_cast<float4*>(X + m * LX);
-        float4 v[2] = {x[lane], x[32 + lane]};
-        float s = 0.f;
-#pragma unroll
-        for (int k = 0; k < 2; ++k) s += (v[k].x + v[k].y) + (v[k].z + v[k].w);
-        const float mean = warp_sum(s) / W;
-        float var = 0.f;
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-            v[k] = make_float4(v[k].x - mean, v[k].y - mean, v[k].z - mean, v[k].w - mean);
-            var = fmaf(v[k].x, v[k].x, fmaf(v[k].y, v[k].y, fmaf(v[k].z, v[k].z, fmaf(v[k].w, v[k].w, var))));
-        }
-        const float rs = rsqrtf(warp_sum(var) / W + 1e-5f);
-        if (lane == 0) RS[m] = rs;
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-            const float4 y = make_float4(v[k].x * rs, v[k].y * rs, v[k].z * rs, v[k].w * rs);
-            x[32 * k + lane] = y;
-            if constexpr (SP) {
-                if (m < valid) {
-                    const int col = 128 * k + 4 * lane;
-                    const float4 ls = *reinterpret_cast<const float4*>(LN + col);
-                    const float4 lb = *reinterpret_cast<const float4*>(LN + W + col);
-                    __stcs(reinterpret_cast<float4*>(xn + (size_t)(row0 + m) * W + col),
-                           make_float4(fmaf(y.x, ls.x, lb.x), fmaf(y.y, ls.y, lb.y), fmaf(y.z, ls.z, lb.z),
-                                       fmaf(y.w, ls.w, lb.w)));
-                }
-            }
-        }
-    }
-}
-
 // combination, one tile: X (xn0 after the LayerNorm) and g in shared
 // memory, DP the other x | d_pre buffer; LN holds ln_scale then ln_bias.
 // The next tile's x goes into DP after the last product (next_x).
@@ -369,25 +300,33 @@ __device__ __forceinline__ void combination_tile(R& ring, int& c, const Args& p,
     const long long row0 = t * kRows;
     cp_async_wait<0>();  // this tile's x
     __syncthreads();
-    layer_norm_rows<SP>(X, LN, RS, p.xn, row0, valid);
+    // the spill mode writes xn = xn0 ln_scale + ln_bias for the valid rows
+    layer_norm_rows(X, RS, [&](int m, int col, float4 y) {
+        if constexpr (SP) {
+            if (m < valid) {
+                constexpr int W = G::W_IN;
+                const float4 ls = *reinterpret_cast<const float4*>(LN + col);
+                const float4 lb = *reinterpret_cast<const float4*>(LN + W + col);
+                __stcs(reinterpret_cast<float4*>(p.xn + (size_t)(row0 + m) * W + col),
+                       make_float4(fmaf(y.x, ls.x, lb.x), fmaf(y.y, ls.y, lb.y), fmaf(y.z, ls.z, lb.z),
+                                   fmaf(y.w, ls.w, lb.w)));
+            }
+        }
+    });
     // (the first consume's barrier orders these stores before the reads)
     float* v = p.vec + t * G::NV;  // spill mode: ln_scale, ln_bias, b0, b1 sums
 
     // per hidden panel q: pre = xn w0 + b0, xn formed as the A fragments
     // load; d_h = g w1^T; d_pre = d_h silu'(pre) into DP (columns 128 q ..)
-    const auto xn = [&](float x, int k) { return fmaf(x, LN[k], LN[G::W_IN + k]); };
 #pragma unroll 1
     for (int q = 0; q < 2; ++q) {
         float pre[4][4], dh[4][4];
-        zero(pre);
-        panel_mm<16>(ring, c, [&](int r, int& ld) { ld = G::LX; return (const float*)X + r * kCK; }, pre, kRows,
-                     xn);
+        combination_pre(ring, c, X, LN, p.b0, q, pre);
         zero(dh);
         panel_mm<8>(ring, c, [&](int r, int& ld) { ld = G::LG; return Gt + r * kCK; }, dh, kRows);
         panel_pairs([&](int j, int h, int m, int n) {
             const int col = q * kCN + n;
-            const float2 b = ld2(p.b0 + col);
-            const float p0 = pre[j][2 * h] + b.x, p1 = pre[j][2 * h + 1] + b.y;
+            const float p0 = pre[j][2 * h], p1 = pre[j][2 * h + 1];
             dh[j][2 * h] = d_pre(dh[j][2 * h], p0);
             dh[j][2 * h + 1] = d_pre(dh[j][2 * h + 1], p1);
             st2(DP + m * G::LP + col, dh[j][2 * h], dh[j][2 * h + 1]);
@@ -395,7 +334,7 @@ __device__ __forceinline__ void combination_tile(R& ring, int& c, const Args& p,
                 if (m < valid) {
                     const size_t o = (size_t)(row0 + m) * G::W_HID + col;
                     spill2(p.dpre + o, dh[j][2 * h], dh[j][2 * h + 1]);
-                    spill2(p.h + o, siluf_(p0), siluf_(p1));
+                    spill2(p.h + o, hidden(p0), hidden(p1));
                 }
             }
         });

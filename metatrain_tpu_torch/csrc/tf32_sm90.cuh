@@ -1,11 +1,12 @@
 // 3xTF32 on mma.sync for the Hopper float32 kernels, the Hopper float32 K1
 // and K2 (fused_layer_{fwd,bwd}_f32_sm90.cu, through layer_f32_sm90.cuh) and
-// the Hopper float32 K4 (rowblock_bwd_f32_sm90.cu): the split of float
-// operands into tf32 hi + lo and the three products, the ring of staged
-// float weight chunks (128 rows x 16 k, cp.async, swizzled), and the block's
-// 64 x 128 panel product and its row and column sums (16 warps, the
-// mma.sync C fragments' layout). fused_layer_bwd_f32_sm90.cu describes the
-// design; an edit here changes all three kernels.
+// the Hopper float32 K3 and K4 (rowblock_{fwd,bwd}_f32_sm90.cu, through
+// rowblock_f32_sm90.cuh): the split of float operands into tf32 hi + lo and
+// the three products, the ring of staged float weight chunks (128 rows x 16
+// k, cp.async, swizzled), and the block's 64 x 128 panel product and its row
+// and column sums (16 warps, the mma.sync C fragments' layout).
+// fused_layer_bwd_f32_sm90.cu describes the design; an edit here changes all
+// four kernels.
 
 #pragma once
 

@@ -46,6 +46,7 @@ SOURCES = (
     "fused_layer_bwd_dw_sm90.cu",
     "rowblock_fwd.cu",
     "rowblock_fwd_sm90.cu",
+    "rowblock_fwd_f32_sm90.cu",
     "rowblock_bwd.cu",
     "rowblock_bwd_sm90.cu",
     "rowblock_bwd_f32_sm90.cu",
@@ -95,6 +96,7 @@ _SIGNATURES = {
     "mtt_int8_absmax": [_P] * 6 + [_L, _I, _I, _I, _F, _P],
     "mtt_rowblock_fwd": [_I, _I, _P, _P, _P, _I] + [_P] * 7 + [_L, _I, _I, _I, _I, _P],
     "mtt_rowblock_fwd_sm90": [_I, _P, _P, _P, _I] + [_P] * 7 + [_L, _I, _I, _I, _I, _I, _P],
+    "mtt_rowblock_fwd_f32_sm90": [_I, _P, _P, _P, _I] + [_P] * 7 + [_L, _I, _I, _I, _I, _I, _P],
     "mtt_rowblock_bwd": [_I, _I, _P, _P, _P, _I] + [_P] * 13 + [_I, _P] + [_L, _I, _I, _I, _I, _P],
     "mtt_rowblock_bwd_sm90": [_I, _P, _P, _P, _I] + [_P] * 13 + [_L, _I, _I, _I, _I, _I, _P],
     # stage, x0..x2, n_parts, ln_scale, ln_bias, b0, w0_t, w1, w0, g, d0..d2,
@@ -128,6 +130,8 @@ _SIGNATURES = {
     "mtt_rowblock_fwd_smem": [_I, _I, _IP],
     "mtt_rowblock_fwd_sm90_ok": [_I] * 5,
     "mtt_rowblock_fwd_sm90_smem": [_I] * 5,
+    "mtt_rowblock_fwd_f32_sm90_ok": [_I] * 5,
+    "mtt_rowblock_fwd_f32_sm90_smem": [_I] * 5,
     "mtt_rowblock_bwd_smem": [_I, _I, _I, _I, _I, _IP],
     "mtt_rowblock_bwd_sm90_ok": [_I] * 5,
     "mtt_rowblock_bwd_sm90_smem": [_I] * 5,
@@ -682,6 +686,34 @@ def k3_sm90_smem(stage: int, d_part: int, w_in: int, w_hid: int, w_out: int) -> 
     if stage == 1:
         nbytes += 2 * rows * (d_part + 8) * 2 + rows * (w_in + 8) * 2 + 2 * rows * 4
     return nbytes
+
+
+# ---- the Hopper float32 K3 (csrc/rowblock_fwd_f32_sm90.cu) -------------------
+
+def k3_f32_sm90_takes(dtype: torch.dtype, stage: int, d_part: int, w_in: int, w_hid: int, w_out: int,
+                      weight_grads: bool = False) -> bool:
+    """Whether ``rowblock_fwd_cuda`` launches the Hopper float32 K3 (its C
+    query ``mtt_rowblock_fwd_f32_sm90_ok``, counter
+    ``rowblock_fwd_f32_sm90[<stage>]``): the stages and widths of the Hopper
+    float32 K4, :func:`k4_f32_sm90_takes`. ``weight_grads`` does not enter
+    the rule: its forward up to h is the recompute of the f32 K4 and of
+    K4-dW's first pass, so the training step's forward runs it too."""
+    return k4_f32_sm90_takes(dtype, stage, d_part, w_in, w_hid, w_out)
+
+
+def k3_f32_sm90_smem(stage: int, d_part: int, w_in: int, w_hid: int, w_out: int) -> int:
+    """``mtt_rowblock_fwd_f32_sm90_smem``: its shared bytes per block, 0
+    where it does not take the stage. The C source's layout, every buffer
+    float: three weight chunks of 128 x 16, the x tile (rows of w_in + 4),
+    the h tile (rows of w_hid + 4); the combination also the edges |
+    messages tile (rows of w_in + 4), ln_scale and ln_bias, and rs."""
+    if not k3_f32_sm90_takes(torch.float32, stage, d_part, w_in, w_hid, w_out):
+        return 0
+    rows = ROW_TILE
+    floats = 3 * 128 * 16 + rows * (w_in + 4) + rows * (w_hid + 4)
+    if stage == 1:
+        floats += rows * (w_in + 4) + 2 * w_in + rows
+    return 4 * floats
 
 
 def center_fwd_floats(N: int, D: int) -> int:

@@ -20,12 +20,16 @@ backward the Hopper K4 (``csrc/rowblock_bwd_sm90.cu``,
 streamed row tiles, the combination's LayerNorm and the head's forward
 up to pre1 (its weights resident in shared memory), so the served
 forward's xn and h and the backward's recompute round alike. The float32
-compress and combination at d_part 128 run the Hopper float32 K4
-(``csrc/rowblock_bwd_f32_sm90.cu``, ``_lib.k4_f32_sm90_takes``, 3xTF32 on
-the tensor cores): without weight gradients as K4, with them as the
-two-pass K4-dW, its spill mode followed by K2-dW's split-K product
-(``csrc/layer_dw_sm90.cuh``); :func:`rowblock_dw_operands` and
-:func:`rowblock_dw_from_operands` are the two passes' plain versions.
+compress and combination at d_part 128 run the Hopper float32 K3 and K4
+(``csrc/rowblock_fwd_f32_sm90.cu``, ``_lib.k3_f32_sm90_takes``, and
+``csrc/rowblock_bwd_f32_sm90.cu``, ``_lib.k4_f32_sm90_takes``; 3xTF32 on
+the tensor cores), with or without weight gradients. Both run the
+forward up to h from ``csrc/rowblock_f32_sm90.cuh``, so the f32 K4's
+recompute is K3's forward bit for bit. Without weight gradients the
+backward is K4, with them the two-pass K4-dW, its spill mode followed by
+K2-dW's split-K product (``csrc/layer_dw_sm90.cuh``);
+:func:`rowblock_dw_operands` and :func:`rowblock_dw_from_operands` are the
+two passes' plain versions.
 The backward is differentiable again (training with forces): its
 gradient replays ``stage.bwd`` under autograd, as the JAX package's
 ``bwd_op_bwd`` differentiates ``_bwd_math_reference``.
@@ -116,12 +120,18 @@ def rowblock_fwd_cuda(stage: Stage, inputs: Sequence[torch.Tensor], weights, *,
     :func:`_lib.k3_sm90_takes` (d_part 128) launch the Hopper K3
     (``csrc/rowblock_fwd_sm90.cu``, counter ``rowblock_fwd_sm90[<stage>]``)
     unless ``weight_grads`` (a weight requires grad: the backward is then
-    K4-dW, and the training step keeps the general K3); ``sm90=False``
-    keeps the general body there too, for comparisons."""
+    K4-dW, and the training step keeps the general K3). In float32 the
+    compress and combination at the widths of :func:`_lib.k3_f32_sm90_takes`
+    launch the Hopper float32 K3 (``csrc/rowblock_fwd_f32_sm90.cu``,
+    counter ``rowblock_fwd_f32_sm90[<stage>]``), with or without
+    ``weight_grads``. ``sm90=False`` keeps the general body, for
+    comparisons."""
     code, parts, (ln_s, ln_b, w0, b0, w1, b1), geometry = _prepare(stage, inputs, weights)
     rows, d_part, w_in, w_hid, w_out = geometry
-    if sm90 and _lib.k3_sm90_takes(inputs[0].dtype, stage.code, d_part, w_in, w_hid, w_out,
-                                   weight_grads):
+    dtype = inputs[0].dtype
+    if sm90 and (_lib.k3_sm90_takes(dtype, stage.code, d_part, w_in, w_hid, w_out, weight_grads)
+                 or _lib.k3_f32_sm90_takes(dtype, stage.code, d_part, w_in, w_hid, w_out,
+                                           weight_grads)):
         return _k3_sm90(stage, inputs, (ln_s, ln_b, w0, b0, w1, b1), geometry)
     lib = _lib.library()
     _lib.check_shared(lib.mtt_rowblock_fwd_smem(w_in, w_hid, None), "rowblock_fwd")
@@ -139,23 +149,26 @@ def rowblock_fwd_cuda(stage: Stage, inputs: Sequence[torch.Tensor], weights, *,
 
 
 def _k3_sm90(stage: Stage, inputs, weights, geometry):
-    """The Hopper K3 on checked bfloat16 tensors (``weights`` = ln_scale,
-    ln_bias, w0, b0, w1, b1 in the compute dtype; ln_scale and ln_bias None
-    but for the combination): one persistent block per SM, no scratch. Its
-    weights go in as w0^T and w1^T, the (N, K) layouts its products take."""
+    """The Hopper K3 on checked bfloat16 tensors, or the Hopper float32 K3
+    on float32 ones (``weights`` = ln_scale, ln_bias, w0, b0, w1, b1 in the
+    compute dtype; ln_scale and ln_bias None but for the combination): one
+    persistent block per SM, no scratch. Their weights go in as w0^T and
+    w1^T, the (N, K) layouts their products take; both take the same
+    arguments."""
     rows, d_part, w_in, w_hid, w_out = geometry
     ln_s, ln_b, w0, b0, w1, b1 = weights
-    name = f"rowblock_fwd_sm90[{stage.name}]"
+    kernel = "rowblock_fwd_f32_sm90" if inputs[0].dtype == torch.float32 else "rowblock_fwd_sm90"
+    name = f"{kernel}[{stage.name}]"
     out = torch.empty((rows, w_out), dtype=inputs[0].dtype, device=inputs[0].device)
     if rows == 0:
         return out
     if any(x.data_ptr() % 16 for x in inputs):
         raise ValueError(f"{name} copies rows in 16-byte pieces: its inputs must start on 16 bytes")
     lib = _lib.library()
-    _lib.check_shared(lib.mtt_rowblock_fwd_sm90_smem(stage.code, d_part, w_in, w_hid, w_out), name)
+    _lib.check_shared(getattr(lib, f"mtt_{kernel}_smem")(stage.code, d_part, w_in, w_hid, w_out), name)
     w0_t, w1_t = w0.t().contiguous(), w1.t().contiguous()  # held here until the launch
     _lib.check(
-        lib.mtt_rowblock_fwd_sm90(
+        getattr(lib, f"mtt_{kernel}")(
             stage.code, *(x.data_ptr() for x in inputs), *[None] * (3 - len(inputs)),
             len(inputs), _lib.ptr(ln_s), _lib.ptr(ln_b), w0_t.data_ptr(), b0.data_ptr(),
             w1_t.data_ptr(), b1.data_ptr(), out.data_ptr(), rows, d_part, w_in, w_hid, w_out,
@@ -510,8 +523,9 @@ class _RowBlockBwd(torch.autograd.Function):
 def _first_forward(stage: Stage, inputs, weights, weight_grads):
     """K3 on the card, ``stage.math`` on the CPU. ``weight_grads``: a
     weight requires grad, so the backward will be K4-dW and the replay;
-    the Hopper K3 is then not taken and the training step keeps the
-    general K3."""
+    the bfloat16 Hopper K3 is then not taken and the bf16 training step
+    keeps the general K3, while the Hopper float32 K3 runs either way (its
+    forward is K4-dW's float32 recompute)."""
     if inputs[0].is_cuda:
         return rowblock_fwd_cuda(stage, inputs, weights, weight_grads=weight_grads)
     return stage.math(inputs, weights)

@@ -180,8 +180,8 @@ K4DW_GENERAL_PHASES = ["loads (combination: and LayerNorm)", "pre product", "dW:
                        "LayerNorm backward, stores"]
 # the Hopper float32 K4 (rowblock_bwd_f32_sm90.cu)
 K4_F32 = (
-    ('#include "tf32_sm90.cuh"\n', False, STAMP),
-    ("    float pre[4][4], dh[4][4];\n    zero(pre);\n", False, "    long long t_prev = clock64();\n"),
+    ('#include "rowblock_f32_sm90.cuh"\n', False, STAMP),
+    ("    float pre[4][4], dh[4][4];\n    compress_pre", True, "    long long t_prev = clock64();\n"),
     ("    zero(dh);\n    panel_mm<8>(ring, c, [&](int r, int& ld) { ld = G::LG; return Gt + r * kCK; }, dh, "
      "kRows);\n    // d_pre into", True, None),
     ("    if constexpr (SP) {\n        float* v = p.vec + t * G::NV;", True, None),

@@ -1,5 +1,6 @@
 """CUDA-event times of the fused-layer kernels K1, K2 and K2-dW at one shape,
-and of K3's and K4's bf16 compress, combination and head at A x M rows.
+of K3's and K4's bf16 compress, combination and head at A x M rows, and of
+the float32 compress and combination's K3, K4 and K4-dW there.
 
 Usage, on a machine with a CUDA device::
 
@@ -28,9 +29,15 @@ the Hopper K4 where the tree has it, ``rowblock_bwd_cuda(..., sm90=)``;
 ``..._general_ms_bf16`` its general body there), then K3
 (``rowblock_fwd_cuda``) on the same inputs (``rowblock_fwd[<stage>]_ms_bf16``:
 the Hopper K3 where the tree has it, ``rowblock_fwd_cuda(..., sm90=)``;
-``..._general_ms_bf16`` its general body there). Under ``digests``, a
-SHA-256 prefix of each output's bytes per kernel and dtype, from the first
-launch: two trees whose digests agree computed the same bits.
+``..._general_ms_bf16`` its general body there). Then the float32
+3-part and 2-part compress and the combination at A x M rows: K4
+(``rowblock_bwd[<stage>]_ms_f32``: the Hopper float32 K4 where the tree has
+it), K4-dW (``rowblock_bwd_dw[<stage>]_ms_f32``, the two-pass K4-dW there)
+and K3 (``rowblock_fwd[<stage>]_ms_f32``: the Hopper float32 K3 where the
+tree has it, ``_lib.k3_f32_sm90_takes``; ``..._general_ms_f32`` its general
+body there). Under ``digests``, a SHA-256 prefix of each output's bytes per
+kernel and dtype, from the first launch: two trees whose digests agree
+computed the same bits.
 """
 
 from __future__ import annotations
@@ -159,6 +166,29 @@ def main() -> int:
             fn = lambda: (rb.rowblock_fwd_cuda(stage, xs, weights, **kw),)  # noqa: E731
             digests[f"rowblock_fwd[{key}]{suffix}_bf16"] = digest(fn())
             times[f"rowblock_fwd[{key}]{suffix}_ms_bf16"] = cuda_ms(fn)
+        del xs, g
+        torch.cuda.empty_cache()
+    # the float32 compress and combination: K4, K4-dW and K3
+    has_k3_f32 = hasattr(rb._lib, "k3_f32_sm90_takes")
+    for key, stage, n_parts in (("compress3", COMPRESS, 3), ("compress2", COMPRESS, 2),
+                                ("combination", COMBINATION, 3)):
+        xs = tuple(torch.randn(rows, D, generator=gen).to(dev) for _ in range(n_parts))
+        if stage is not COMBINATION:
+            weights = (lecun(n_parts * D, D).to(dev), vec(D), lecun(D, D).to(dev), vec(D))
+        else:
+            weights = (vec(2 * D, 1.0), vec(2 * D), lecun(2 * D, 2 * D).to(dev), vec(2 * D),
+                       lecun(2 * D, D).to(dev), vec(D))
+        g = torch.randn(rows, D, generator=gen).to(dev)
+        runs = [("rowblock_bwd", lambda: rb.rowblock_bwd_cuda(stage, xs, weights, g)),
+                ("rowblock_bwd_dw",
+                 lambda: rb.rowblock_bwd_cuda(stage, xs, weights, g, weight_grads=True)),
+                ("rowblock_fwd", lambda: (rb.rowblock_fwd_cuda(stage, xs, weights),))]
+        if has_k3_f32:
+            runs.append(("rowblock_fwd_general",
+                         lambda: (rb.rowblock_fwd_cuda(stage, xs, weights, sm90=False),)))
+        for name, fn in runs:
+            digests[f"{name}[{key}]_f32"] = digest(fn())
+            times[f"{name}[{key}]_ms_f32"] = cuda_ms(fn)
         del xs, g
         torch.cuda.empty_cache()
     print(json.dumps({"card": card, "root": args.root, "shape": [A, M, D, H, F], **times,

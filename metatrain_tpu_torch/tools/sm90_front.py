@@ -1,9 +1,13 @@
 """Check on a CUDA device that the Hopper K1 and the Hopper K2's recompute
-compute attn, res and h_norm to the same bits, in bfloat16 or in float32.
+compute attn, res and h_norm to the same bits, in bfloat16 or in float32;
+or that the Hopper float32 K3 and the Hopper float32 K4's recompute compute
+a row-block stage's pre, h, xn0 and rs to the same bits.
 
 Usage, on a machine with a CUDA device and nvcc::
 
     python metatrain_tpu_torch/tools/sm90_front.py [--dtype bfloat16|float32] [--A 2047] [--M 64]
+    python metatrain_tpu_torch/tools/sm90_front.py --kernel rowblock --dtype float32 \
+        --stage compress|combination [--rows 100003]
 
 In bfloat16 both kernels run the forward phases of ``csrc/layer_sm90.cuh``
 up to h_norm, K1 in its two-atom layout (m64n64k16 panels) and K2 in its
@@ -20,6 +24,18 @@ holds one atom) and prints one JSON line: the card (``nvidia-smi`` name
 and power limit), the dtype, the shape, and per activation whether the
 two kernels' copies are bitwise equal. The checkout's sources are not
 changed: they carry no such copies.
+
+With ``--kernel rowblock`` (float32 only) the Hopper float32 K3
+(``csrc/rowblock_fwd_f32_sm90.cu``) and the Hopper float32 K4
+(``csrc/rowblock_bwd_f32_sm90.cu``) both run the forward up to h of
+``csrc/rowblock_f32_sm90.cuh``. The copies take, per row, pre (after the
+pre product and its bias), h (K3: its h tile as the second product reads
+it; K4: ``hidden(pre)``, as K4-dW spills it) and, for the combination, xn0
+and rs (after the LayerNorm), on one seeded case of ``--rows`` rows (odd by
+default, so that the last 64-row tile is partial: the 3-part compress, or
+edges, reversed and messages, with the weights ``layer_times.py`` makes);
+the JSON line says per activation whether the two kernels' copies are
+bitwise equal, and whether every valid row was written.
 """
 
 from __future__ import annotations
@@ -91,6 +107,71 @@ KERNELS = {
                 ("k2", "fused_layer_bwd_f32_sm90.cu", K2_F32_MARKS)),
 }
 
+# the row-block stages: g_dump is (rows, RB_STRIDE) float, per row pre at 0,
+# h at 256, xn0 at 512 and rs at 768 (the tile's rows from row0, those
+# below valid)
+RB_STRIDE = 1024
+RB_SLOTS = {"pre": 0, "h": 256, "xn0": 512, "rs": 768}
+
+
+def _rb_pre(col: str, with_h: bool) -> str:
+    """Code that copies the pre panel (registers, columns ``col`` + n) and,
+    with ``with_h``, hidden(pre) of the tile's valid rows."""
+    h = ("            d_[256] = hidden(pre[j_][2 * h_]);\n"
+         "            d_[257] = hidden(pre[j_][2 * h_ + 1]);\n") if with_h else ""
+    return ("    panel_pairs([&](int j_, int h_, int m_, int n_) {\n"
+            "        if (m_ < valid) {\n"
+            f"            float* d_ = g_dump + (size_t)(row0 + m_) * {RB_STRIDE} + {col} + n_;\n"
+            "            d_[0] = pre[j_][2 * h_];\n"
+            "            d_[1] = pre[j_][2 * h_ + 1];\n"
+            f"{h}"
+            "        }\n"
+            "    });\n")
+
+
+def _rb_rows(slot: int, src: str, ld: str, width: str) -> str:
+    """Code that copies ``width`` columns of the tile's valid rows of
+    ``src`` (rows of ``ld`` floats) into ``slot``."""
+    return ("    __syncthreads();\n"
+            f"    for (int i_ = threadIdx.x; i_ < kRows * ({width}); i_ += blockDim.x) {{\n"
+            f"        const int m_ = i_ / ({width}), k_ = i_ % ({width});\n"
+            f"        if (m_ < valid) g_dump[(size_t)(row0 + m_) * {RB_STRIDE} + {slot} + k_] = "
+            f"{src}[m_ * {ld} + k_];\n"
+            "    }\n")
+
+
+_RB_LN = (_rb_rows(512, "X", "G::LX", "G::W_IN")
+          + f"    if ((int)threadIdx.x < valid) g_dump[(size_t)(row0 + threadIdx.x) * {RB_STRIDE} + 768] = "
+          "RS[threadIdx.x];\n")
+_RB_DUMP = '#include "rowblock_f32_sm90.cuh"\n'
+ROWBLOCK_KERNELS = {
+    "compress": (
+        ("k3", "rowblock_fwd_f32_sm90.cu", (
+            (_RB_DUMP, False, DUMP_F32),
+            ("    compress_pre<NP>(ring, c, X, p.b0, pre);\n", False, _rb_pre("0", False)),
+            ("    // (the first consume's barrier orders these stores before the reads)\n"
+             "    out_panel<kCompress", True, _rb_rows(256, "H", "G::LH", "G::W_HID")))),
+        ("k4", "rowblock_bwd_f32_sm90.cu", (
+            (_RB_DUMP, False, DUMP_F32),
+            ("    compress_pre<NP>(ring, c, X, p.b0, pre);\n", False, _rb_pre("0", True)))),
+    ),
+    "combination": (
+        ("k3", "rowblock_fwd_f32_sm90.cu", (
+            (_RB_DUMP, False, DUMP_F32),
+            ("    layer_norm_rows(X, RS);\n", False, _RB_LN),
+            ("        combination_pre(ring, c, X, LN, p.b0, q, pre);\n", False,
+             _rb_pre("q * kCN", False)),
+            ("    // out = (messages + edges) + (h w1 + b1)", True,
+             _rb_rows(256, "H", "G::LH", "G::W_HID")))),
+        ("k4", "rowblock_bwd_f32_sm90.cu", (
+            (_RB_DUMP, False, DUMP_F32),
+            ("    // (the first consume's barrier orders these stores before the reads)\n"
+             "    float* v = p.vec", True, _RB_LN),
+            ("        combination_pre(ring, c, X, LN, p.b0, q, pre);\n", False,
+             _rb_pre("q * kCN", True)))),
+    ),
+}
+
 
 def instrument(text: str, marks) -> str:
     for mark, before, code in marks:
@@ -101,12 +182,12 @@ def instrument(text: str, marks) -> str:
     return text + SETTER
 
 
-def build(work: Path, dtype: str = "bfloat16") -> dict:
+def build(work: Path, dtype: str = "bfloat16", kernels=None) -> dict:
     for header in CSRC.glob("*.cuh"):
         shutil.copy(header, work / header.name)
     nvcc = shutil.which("nvcc") or str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
     procs = {}
-    for key, source, marks in KERNELS[dtype]:
+    for key, source, marks in kernels or KERNELS[dtype]:
         unit = work / source
         unit.write_text(instrument((CSRC / source).read_text(), marks))
         procs[key] = subprocess.Popen(
@@ -120,9 +201,12 @@ def build(work: Path, dtype: str = "bfloat16") -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernel", choices=("layer", "rowblock"), default="layer")
     parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
+    parser.add_argument("--stage", choices=tuple(ROWBLOCK_KERNELS), default="compress")
     parser.add_argument("--A", type=int, default=2047)
     parser.add_argument("--M", type=int, default=64)
+    parser.add_argument("--rows", type=int, default=100003)
     args = parser.parse_args()
     import torch
 
@@ -132,6 +216,10 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()[0]
+    if args.kernel == "rowblock":
+        if args.dtype != "float32":
+            parser.error("--kernel rowblock compares the float32 K3 and K4")
+        return rowblock_main(args, card)
     A, M, D, H, F = args.A, args.M, 128, 8, 256
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
@@ -194,6 +282,74 @@ def main() -> int:
     print(json.dumps({"card": card, "dtype": args.dtype, "shape": [A, M, D, H, F], "bitwise_equal": equal,
                       "finite": bool(torch.isfinite(dumps["k1"].float()).all())}))
     return 0 if all(equal.values()) else 2
+
+
+def rowblock_main(args, card: str) -> int:
+    """The row-block stage's pre, h (and xn0, rs) of the Hopper float32 K3
+    and the Hopper float32 K4's recompute, bitwise."""
+    import torch
+
+    rows, D, stage = args.rows, 128, args.stage
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(0)
+
+    def lecun(*shape):
+        return (torch.randn(*shape, generator=gen) / math.sqrt(shape[0])).to(dev)
+
+    def vec(n, base=0.0):
+        return (base + 0.1 * torch.randn(n, generator=gen)).to(dev)
+
+    xs = [torch.randn(rows, D, generator=gen).to(dev) for _ in range(3)]
+    if stage == "compress":
+        code, w_in, w_hid = 0, 3 * D, D
+        ln_s = ln_b = None
+        w0, b0, w1, b1 = lecun(w_in, w_hid), vec(w_hid), lecun(w_hid, D), vec(D)
+    else:
+        code, w_in, w_hid = 1, 2 * D, 2 * D
+        ln_s, ln_b = vec(w_in, 1.0), vec(w_in)
+        w0, b0, w1, b1 = lecun(w_in, w_hid), vec(w_hid), lecun(w_hid, D), vec(D)
+    g = torch.randn(rows, D, generator=gen).to(dev)
+    w0_t, w1_t = w0.t().contiguous(), w1.t().contiguous()
+    blocks = min(-(-rows // 64), torch.cuda.get_device_properties(dev).multi_processor_count)
+    out, d = torch.empty(rows, D, device=dev), [torch.empty(rows, D, device=dev) for _ in range(3)]
+    n_d = 3 if code == 0 else 2
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    dumps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build(Path(tmp), kernels=ROWBLOCK_KERNELS[stage])
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        runs = {
+            "k3": ("mtt_rowblock_fwd_f32_sm90", [I, P, P, P, I] + [P] * 7,
+                   [code, *map(ptr, xs), 3, ptr(ln_s), ptr(ln_b), ptr(w0_t), ptr(b0), ptr(w1_t),
+                    ptr(b1), ptr(out)]),
+            "k4": ("mtt_rowblock_bwd_f32_sm90", [I, P, P, P, I] + [P] * 10,
+                   [code, *map(ptr, xs), 3, ptr(ln_s), ptr(ln_b), ptr(b0), ptr(w0_t), ptr(w1),
+                    ptr(w0), ptr(g), *(ptr(x) for x in d[:n_d]), *[None] * (3 - n_d)]),
+        }
+        for key, (entry, ptypes, call) in runs.items():
+            dump = torch.full((rows, RB_STRIDE), float("nan"), device=dev)
+            lib = libs[key]
+            fn = getattr(lib, entry)
+            fn.argtypes = ptypes + [L, I, I, I, I, I, P]
+            lib.dump_set.argtypes = [P]
+            if lib.dump_set(dump.data_ptr()) != 0:
+                raise RuntimeError("could not set the dump buffer")
+            if fn(*call, rows, D, w_in, w_hid, D, blocks, stream) != 0:
+                raise RuntimeError(f"{entry} failed to launch")
+            torch.cuda.synchronize()
+            dumps[key] = dump
+    slots = {"pre": slice(0, w_hid), "h": slice(256, 256 + w_hid)}
+    if code == 1:
+        slots |= {"xn0": slice(512, 512 + w_in), "rs": slice(768, 769)}
+    equal = {name: torch.equal(dumps["k3"][:, s], dumps["k4"][:, s]) for name, s in slots.items()}
+    written = all(bool(torch.isfinite(dumps[k][:, s]).all()) for k in dumps for s in slots.values())
+    print(json.dumps({"card": card, "kernel": "rowblock", "dtype": "float32", "stage": stage,
+                      "rows": rows, "bitwise_equal": equal, "every_row_written": written}))
+    return 0 if all(equal.values()) and written else 2
 
 
 if __name__ == "__main__":
