@@ -25,8 +25,8 @@ device and exits non-zero without one. Phases (any failure propagates):
    and K2 never,
    and the Hopper float32 K4 of ``csrc/rowblock_bwd_f32_sm90.cu`` (``K4_F32``)
    and the Hopper float32 K3 of ``csrc/rowblock_fwd_f32_sm90.cu``
-   (``K3_F32``) 2 + 2 times each and the general compress and combination
-   K3 and K4 never. Energy, forces and virial must be finite; the bf16
+   (``K3_F32``) 2 + 2 + 1 times each (compress, combination, head) and the
+   general K3 and K4 never. Energy, forces and virial must be finite; the bf16
    kernel path must match the f32 plain path (energy rel <= 1 %, force
    rel-RMSE <= 5 %, or 1.25 x the bf16 plain path's own error where that
    is larger) and the f32 kernel path the f32 plain path (energy rel <=
@@ -50,8 +50,8 @@ device and exits non-zero without one. Phases (any failure propagates):
    One f32 training step of each on phase 5's first two frames (a charge
    and a spin each), kernel vs plain with phase 6's gates: the Hopper
    float32 K1 (4 times, the general K1 never), K2-dW, the Hopper float32
-   K3 (``K3_F32``, 2 + 2 times; the general compress and combination K3
-   never) and K4-dW must launch and the layer's replay run. Reported, not gated:
+   K3 (``K3_F32``, 2 + 2 + 1 times; the general K3 never) and K4-dW must
+   launch and the layer's replay run. Reported, not gated:
    ms per call and atom-steps/s beside phase 3's, each option's own
    CUDA-event time (forward and backward to the positions) and whether
    the long-range featurizer repeats bit for bit, a profile of (b).
@@ -79,8 +79,8 @@ device and exits non-zero without one. Phases (any failure propagates):
    dipole, shift-agnostic mse polarizability; both batches rotated by an
    O3 augmenter of seed 0), kernel vs plain with phase 6's gates, the
    Hopper float32 K1 4 times (the general K1 never), K3, K2-dW and K4-dW
-   launched, a K3 head per target and at
-   least one K4-dW head per target. ``mtt::aux::cutoff_stats`` of phase
+   launched, a Hopper float32 K3 head per target and at least one Hopper
+   float32 K4-dW head per target. ``mtt::aux::cutoff_stats`` of phase
    3b's adaptive model (b), bf16 kernel vs f32 plain path, 1e-5. The
    ``eval`` command in this process on the model saved as ``.mtt`` and the
    two frames: its ``.xyz`` read back equals the in-process predictions to
@@ -116,9 +116,9 @@ device and exits non-zero without one. Phases (any failure propagates):
    and K2 bodies, the f32 call's too: 4 general K1 and no Hopper float32
    K1; at M = 96 the Hopper K3 and K4, at d_pet 256 the general
    K3 and K4: the compress and combination 2 per call each, the head 1;
-   the f32 call's compress and combination forward at M = 96 the Hopper
-   float32 K3 2 + 2 times, at d_pet 256 the general K3), the kernel paths
-   timed.
+   the f32 call's row blocks at M = 96 the Hopper float32 K3 and K4 2 + 2
+   + 1 times each, at d_pet 256 the general K3 and K4, the head's
+   included), the kernel paths timed.
 4d. int8 scores: the fused model built with ``int8_scores=True`` in
    bfloat16: every counter starts at 0 just before its served calls; the
    absmax pass, K1-int8 and K2-int8 must launch 4 times per call each and
@@ -133,15 +133,14 @@ device and exits non-zero without one. Phases (any failure propagates):
    analytic forces, written as extended xyz, then the port's
    ``train_model`` at the PET defaults in float32 (batch 2, 2 epochs,
    validation 0.25, forces weight 10). Every counter starts at 0 just
-   before it; the Hopper float32 K1 (and never the general K1), K3 (the
-   compress and combination the Hopper float32 K3, ``K3_F32``, and never
-   the general body; the head the general body), K2-dW
-   and K4-dW (all three stages) must launch in it
+   before it; the Hopper float32 K1 (and never the general K1), K3 (every
+   stage the Hopper float32 K3, ``K3_F32``, and never the general body),
+   K2-dW and K4-dW (all three stages) must launch in it
    (K2-dW: the two-pass kernels with the Hopper float32 K2's spill mode as
    first pass, ``K2DW_F32``, and never the accumulate body or the general
-   body's first pass; the compress and combination K4-dW: the two-pass
-   kernels with the Hopper float32 K4's spill mode as first pass,
-   ``K4DW_F32``, and never the general body)
+   body's first pass; K4-dW: the two-pass kernels with the Hopper float32
+   K4's spill mode as first pass, ``K4DW_F32``, and never the general
+   body)
    and the second-order replays must run; every logged loss must be
    finite; ``model.ckpt`` must reload into a PET that gives the trained
    model's energy. Then W8A8 at the trained weights: ``model.ckpt``
@@ -159,9 +158,9 @@ device and exits non-zero without one. Phases (any failure propagates):
    Hopper float32 K1 4 times and the general K1 never, the
    two-pass K2-dW's kernels (``K2DW_F32``) 8 times each (4 layers, in the
    forces' backward and in the loss's) and the accumulate body and the
-   general body's first pass never, ``K4DW_F32`` 4 + 4 times (8 products)
-   and ``K3_F32`` 2 + 2 times, and the general compress and combination
-   K3 and K4-dW never. Then one
+   general body's first pass never, ``K4DW_F32`` 4 + 4 + 2 times (10
+   products) and ``K3_F32`` 2 + 2 + 1 times, and the general K3 and K4-dW
+   never. Then one
    bfloat16 step with the int8 scores (the trained model), kernel vs plain
    path: the absmax pass, K1-int8 and the two-pass K2-dW-int8 (8 each) must
    launch, the accumulate K2-dW-int8 never, and the layer's replay run;
@@ -180,16 +179,14 @@ device and exits non-zero without one. Phases (any failure propagates):
    steps of the (non-block) kernel paths must launch the Hopper float32 K1
    4 times a step and the general K1 never, ``K2DW_F32`` 8 times a
    step each, the general first pass and the accumulate body never, and
-   ``K4DW_F32`` 4 + 4 (+ 8) times a step, the general K4-dW compress and
-   combination never.
+   ``K4DW_F32`` 4 + 4 + 2 (+ 10) times a step, the general K4-dW never.
 7b. user entry points, ``metatrain_tpu_torch.__main__.main`` called in
    this process from a temporary directory: ``train`` on phase 5's frames
    (options written as JSON, 1 epoch, float32; every counter starts at 0
    just before it: the Hopper float32 K1 (never the general K1), K3, the
-   two-pass K2-dW (``K2DW_F32``), the two-pass
-   K4-dW (``K4DW_F32``) and the K4-dW head must launch, the accumulate
-   K2-dW, the general first pass and the general compress and combination
-   K4-dW never; the final
+   two-pass K2-dW (``K2DW_F32``) and the two-pass K4-dW (``K4DW_F32``, the
+   head's included) must launch, the accumulate K2-dW, the general first
+   pass and the general K4-dW never; the final
    evaluation's logged train and validation metrics must be finite);
    ``export`` of its ``model.ckpt`` (the exported and the trained
    ``model.mtt``'s weights must equal the checkpoint's best weights bit for
@@ -287,8 +284,9 @@ device and exits non-zero without one. Phases (any failure propagates):
    (``sm90=False``), its launches the d_pet 256 calls'. K4's bound counts
    the inputs it reads (not the combination's messages), g, its outputs and
    its three products; K4-dW's (compress, combination) the same bytes, the
-   float weight gradients and five products. K4 and K4-dW's compress and
-   combination in float32 are the Hopper float32 K4 and the two-pass K4-dW,
+   float weight gradients and five products. K4 and K4-dW's compress,
+   combination and head in float32 are the Hopper float32 K4 and the
+   two-pass K4-dW,
    entries of their own (``rowblock_bwd_f32_sm90[<stage>]``,
    ``rowblock_bwd_dw_f32_sm90[<stage>]``): input cotangents within 1e-4 of
    max |plain|, weight gradients at ``compare_dw``'s bounds, every output
@@ -297,18 +295,23 @@ device and exits non-zero without one. Phases (any failure propagates):
    the second pass alone on one chunk of the plan (``product_ms``), bounds
    at the 3xTF32 peak and on the FFMA pipes, registers and shared bytes;
    the same for the 2-part compress, and for the 3-part compress and the
-   combination at A = 11,000 x M = 48 and at 100,003 rows, under
-   ``shapes``. ``rowblock_bwd_dw[<stage>]`` keeps the general body
-   (``sm90=False``), its launches the exact bf16 step's. K3's compress
-   and combination in float32 are the Hopper float32 K3, entries of their
+   combination at A = 11,000 x M = 48 and at 100,003 rows, and for the
+   head also at M = 64 and 16, under ``shapes``.
+   ``rowblock_bwd_dw[<stage>]`` keeps the general body (``sm90=False``),
+   its launches the exact bf16 step's. K3's compress, combination and head
+   in float32 are the Hopper float32 K3, entries of their
    own (``rowblock_fwd_f32_sm90[<stage>]``): output within 1e-4 of max
    |plain|, bitwise equal across two launches and with ``weight_grads``,
    the general body timed beside (``general_ms``), bounds at the 3xTF32
    peak and on the FFMA pipes, registers and shared bytes; the same for
    the 2-part compress, and for the 3-part compress and the combination
    at A = 11,000 x M = 64, 48 and 16 and at 100,003 rows, under
-   ``shapes``. ``rowblock_fwd[<stage>]`` keeps the general body in
-   float32 (``sm90=False``). K3's compress and combination in bf16 are the
+   ``shapes`` (the head at the same rows). ``rowblock_fwd[<stage>]`` keeps
+   the general body in float32 (``sm90=False``). The f32 heads share one
+   forward: copies of the f32 K3 head and the f32 K4 head instrumented by
+   ``tools/sm90_front.py`` (built beside the kernels) must give pre0, h0
+   and pre1 bitwise equal at 100,003 rows (``front_equal_k3``,
+   ``front_equal_k4``). K3's compress and combination in bf16 are the
    Hopper K3, entries of their own (``rowblock_fwd_sm90[<stage>]``) with
    the same checks, and whether the output equals the general body's bit
    for bit (reported, not gated); the same for the 2-part compress and at
@@ -333,7 +336,7 @@ device and exits non-zero without one. Phases (any failure propagates):
    W8A8) at head widths 8, 12, 24 and 64; the bounds of phase 8, times under
    each entry's ``shapes``.
 
-The second-to-last line is a JSON object with one entry per kernel (40);
+The second-to-last line is a JSON object with one entry per kernel (43);
 the last line is ``{"ok": true, "device": {...}}``. Details also go to
 ``chiprun_out/chip_smoke.json``, the compiler's ``-Xptxas -v`` output to
 ``chiprun_out/chip_smoke_build.log``.
@@ -341,6 +344,7 @@ the last line is ``{"ok": true, "device": {...}}``. Details also go to
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import subprocess
@@ -367,28 +371,32 @@ K2DW_PER_STEP = 8
 # what a float32 step at those shapes never launches: the accumulate body
 # and the general body's first pass
 K2DW_F32_NEVER = ("fused_layer_bwd_dw", "fused_layer_bwd_dw_sm90")
-# the float32 compress and combination at d_part 128: the Hopper float32 K4
-# (2 + 2 a force call) and the two-pass K4-dW, its spill mode (4 + 4 a
-# training step: 2 + 2 in the forces' backward and in the loss's) and its
-# product (8); never the general body's compress and combination
-K4_F32 = ("rowblock_bwd_f32_sm90[compress]", "rowblock_bwd_f32_sm90[combination]")
+# the float32 compress, combination and head at d_part 128: the Hopper
+# float32 K4 (2 + 2 + 1 a force call) and the two-pass K4-dW, its spill mode
+# (4 + 4 + 2 a training step: 2 + 2 + 1 in the forces' backward and in the
+# loss's) and its product (10); never the general body's
+K4_F32 = ("rowblock_bwd_f32_sm90[compress]", "rowblock_bwd_f32_sm90[combination]",
+          "rowblock_bwd_f32_sm90[head]")
+K4_F32_PER_CALL = dict(zip(K4_F32, (2, 2, 1)))
 K4DW_F32 = ("rowblock_bwd_dw_f32_sm90[compress]", "rowblock_bwd_dw_f32_sm90[combination]",
-            "rowblock_dw_product")
-K4DW_F32_PER_STEP = dict(zip(K4DW_F32, (4, 4, 8)))
+            "rowblock_bwd_dw_f32_sm90[head]", "rowblock_dw_product")
+K4DW_F32_PER_STEP = dict(zip(K4DW_F32, (4, 4, 2, 10)))
 # the Hopper float32 K1, at the served shapes the forward of every float32
 # call and step (4 layers: 4 a force call, 4 a training step), with or
 # without weight gradients; the general K1 then never
 K1_F32 = "fused_layer_fwd_f32_sm90"
 K1_F32_PER_STEP = 4
-K4_F32_NEVER = ("rowblock_bwd[compress]", "rowblock_bwd[combination]",
-                "rowblock_bwd_dw[compress]", "rowblock_bwd_dw[combination]")
-# the Hopper float32 K3, the forward of the float32 compress and combination
-# at d_part 128 with or without weight gradients (2 + 2 a force call, 2 + 2
-# a training step: its forward up to h is the f32 K4's and K4-dW's
-# recompute); never the general K3's compress and combination there
-K3_F32 = ("rowblock_fwd_f32_sm90[compress]", "rowblock_fwd_f32_sm90[combination]")
-K3_F32_PER_STEP = dict.fromkeys(K3_F32, 2)
-K3_F32_NEVER = ("rowblock_fwd[compress]", "rowblock_fwd[combination]")
+K4_GENERAL = ("rowblock_bwd[compress]", "rowblock_bwd[combination]", "rowblock_bwd[head]")
+K4DW_GENERAL = ("rowblock_bwd_dw[compress]", "rowblock_bwd_dw[combination]", "rowblock_bwd_dw[head]")
+K4_F32_NEVER = K4_GENERAL + K4DW_GENERAL
+# the Hopper float32 K3, the forward of the float32 compress, combination
+# and head at d_part 128 with or without weight gradients (2 + 2 + 1 a force
+# call and a training step: its forward up to h, the head's up to pre1, is
+# the f32 K4's and K4-dW's recompute); never the general K3 there
+K3_F32 = ("rowblock_fwd_f32_sm90[compress]", "rowblock_fwd_f32_sm90[combination]",
+          "rowblock_fwd_f32_sm90[head]")
+K3_F32_PER_STEP = dict(zip(K3_F32, (2, 2, 1)))
+K3_F32_NEVER = ("rowblock_fwd[compress]", "rowblock_fwd[combination]", "rowblock_fwd[head]")
 
 
 def check_k2dw_launches(launches, kernels=K2DW_F32, never=K2DW_F32_NEVER, per_step=None):
@@ -419,15 +427,17 @@ def check_k4dw_launches(launches, steps=None):
              f"and none of {never}")
 
 
-def check_k3_f32_call(key, f32_call, general=False):
-    """One f32 force call's compress and combination forwards: the Hopper
-    float32 K3 (``K3_F32``) 2 + 2 times and the general K3's never, or with
+def check_rowblock_f32_call(key, f32_call, general=False):
+    """One f32 force call's row-block stages: the Hopper float32 K3
+    (``K3_F32``) and K4 (``K4_F32``) 2 + 2 + 1 times each (compress,
+    combination, head) and the general K3's and K4's never, or with
     ``general`` (d_pet 256) the reverse."""
-    want, never = (K3_F32_NEVER, K3_F32) if general else (K3_F32, K3_F32_NEVER)
-    if ({k: f32_call.get(k, 0) for k in want} != dict.fromkeys(want, 2)
-            or any(f32_call.get(k, 0) for k in never)):
-        fail(f"{key}: the f32 force call launched {f32_call}: 2 + 2 of {want} and none of "
-             f"{never} expected")
+    hopper = K3_F32_PER_STEP | K4_F32_PER_CALL
+    bodies = dict(zip(K3_F32_NEVER + K4_GENERAL, hopper.values()))
+    want, never = (bodies, hopper) if general else (hopper, bodies)
+    if {k: f32_call.get(k, 0) for k in want} != want or any(f32_call.get(k, 0) for k in never):
+        fail(f"{key}: the f32 force call launched {f32_call}: {want} and none of "
+             f"{sorted(never)} expected")
 
 
 def fail(message: str):
@@ -1654,7 +1664,7 @@ def check_rowblock(rows, D, gen, device, report):
                 lambda: stage.bwd(xs, weights, g, weight_grads=True),
                 len(xs), dw_report,
             )
-            if dtype == torch.float32 and stage.code != rb.HEAD_CODE:
+            if dtype == torch.float32:
                 check_k4_f32(stage, xs, weights, g, sizes, report)
                 check_k3_f32(stage, xs, weights, sizes, report)
         torch.cuda.empty_cache()
@@ -1819,14 +1829,17 @@ def check_rowblock_sm90_shapes(gen, device, report, D=128):
         torch.cuda.empty_cache()
     # the Hopper float32 K4 and the two-pass K4-dW: the 3-part compress and
     # the combination at A = 11,000 x M = 48 and at a partial last tile; the
-    # Hopper float32 K3 also at M = 64 and 16
+    # Hopper float32 K3 also at M = 64 and 16; the head (K3, K4, K4-dW) at
+    # all four
     for rows in (11000 * 64, 11000 * 48, 11000 * 16, 100003):
-        for stage, inputs, weights in stage_cases(rows, D, gen, device)[::2][:2]:
+        cases = stage_cases(rows, D, gen, device)
+        for stage, inputs, weights in (cases[0], cases[2], cases[3]):
             key = f"rows{rows}_{stage.name}{len(inputs) if stage.name == 'compress' else ''}"
             check_k3_f32(stage, inputs, weights, None, report, key=key)
-            if rows in (11000 * 48, 100003):
+            if rows in (11000 * 48, 100003) or stage.name == "head":
                 g = torch.randn(rows, D, generator=gen).to(device)
                 check_k4_f32(stage, inputs, weights, g, None, report, key=key)
+        del cases
         torch.cuda.empty_cache()
 
 
@@ -2554,17 +2567,17 @@ def check_generic_training(path, device):
     (lk, gk, names, polar_k), (lp, gp, _, polar_p) = results["kernel"], results["plain"]
     launches = report["launches"]
     # the Hopper float32 K1 (4) and never the general K1, the Hopper
-    # float32 K3 and never the general compress and combination K3, K2-dW
-    # and K4-dW; a K3 head per target and at least one K4-dW head per target
+    # float32 K3 and never the general K3, K2-dW and K4-dW; a Hopper float32
+    # K3 head per target and at least one Hopper float32 K4-dW head per target
     check_k2dw_launches(launches, per_step=K2DW_PER_STEP)
     check_k4dw_launches(launches)
     missing = [k for k in (K1_F32, *K3_F32) if not launches.get(k)]
     if (missing or launches.get(K1_F32) != K1_F32_PER_STEP or launches.get("fused_layer_fwd", 0)
-            or launches.get("rowblock_fwd[head]") != len(infos)
-            or launches.get("rowblock_bwd_dw[head]", 0) < len(infos)):
+            or launches.get("rowblock_fwd_f32_sm90[head]") != len(infos)
+            or launches.get("rowblock_bwd_dw_f32_sm90[head]", 0) < len(infos)):
         fail(f"generic training step launched {launches}; missing {missing}, expected "
-             f"{K1_F32_PER_STEP} Hopper float32 K1 and no general K1, {len(infos)} K3 heads and "
-             f"at least {len(infos)} K4-dW heads")
+             f"{K1_F32_PER_STEP} Hopper float32 K1 and no general K1, {len(infos)} f32 K3 heads "
+             f"and at least {len(infos)} f32 K4-dW heads")
     if not torch.equal(polar_k, polar_p):
         fail("the two paths' augmented polarizabilities differ")
     loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
@@ -3046,8 +3059,7 @@ def check_training(device, report, workdir):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches, replays = dict(_lib.LAUNCHES), dict(_lib.REPLAYS)
-    expected = [K1_F32, *K2DW_F32, *K4DW_F32, *K3_F32, "rowblock_bwd_dw[head]",
-                "rowblock_fwd[head]"]
+    expected = [K1_F32, *K2DW_F32, *K4DW_F32, *K3_F32]
     missing = [k for k in expected if launches.get(k, 0) == 0]
     if missing or launches.get("fused_layer_fwd", 0):
         fail(f"kernels not launched in the training run: {missing}, or the general K1 launched: "
@@ -3293,8 +3305,7 @@ def check_entry_points(device, report, workdir):
         torch.cuda.synchronize()
         out["train_s"] = time.perf_counter() - t0
         launches = dict(_lib.LAUNCHES)
-        expected = [K1_F32, *K2DW_F32, *K4DW_F32, *K3_F32, "rowblock_bwd_dw[head]",
-                    "rowblock_fwd[head]"]
+        expected = [K1_F32, *K2DW_F32, *K4DW_F32, *K3_F32]
         missing = [k for k in expected if launches.get(k, 0) == 0]
         if missing or launches.get("fused_layer_fwd", 0):
             fail(f"kernels not launched by the train command: {missing}, or the general K1 "
@@ -3529,7 +3540,7 @@ SOURCES = {
                                 "(weight_grads=True, int8 scores)"),
 }
 UNFUSED_PATH = ("permute", "permute_acc", "window_attention_fwd", "window_attention_bwd")
-N_ENTRIES = 40
+N_ENTRIES = 43
 
 
 def launch_count(report, name):
@@ -3558,7 +3569,7 @@ def launch_count(report, name):
         return report["slice"]["launches_f32_per_call"][name]
     if name == "fused_layer_fwd":  # float32 runs the Hopper float32 K1 at these shapes
         return report["training_parity_bf16"]["launches"][name]
-    if name in ("rowblock_bwd_dw[compress]", "rowblock_bwd_dw[combination]"):
+    if name in K4DW_GENERAL:
         # float32 steps run the two-pass K4-dW, bf16 steps this body
         return report["training_parity_bf16"]["launches"][name]
     if name.endswith("_int8") or name == "int8_absmax":
@@ -3624,6 +3635,28 @@ def kernel_entries(report, kernels):
     return entries
 
 
+def load_tool(name):
+    """``metatrain_tpu_torch/tools/<name>.py`` of this checkout as a module."""
+    path = Path(__file__).resolve().parent / "metatrain_tpu_torch" / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"chip_smoke_{name}", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def check_head_front(front, libs, report, rows=100003):
+    """The Hopper float32 head's shared forward: ``tools/sm90_front.py``'s
+    copies of the f32 K3 head and the f32 K4 head (``libs``, built beside the
+    kernels) must compute pre0, h0 and pre1 to the same bits on every row of
+    ``rows`` (the last tile partial); the K3 head's output is silu(pre1), so
+    it equals the K4 head's recompute."""
+    res = front.rowblock_compare("head", rows, libs)
+    if not (all(res["bitwise_equal"].values()) and res["every_row_written"]):
+        fail(f"the f32 K3 head's forward differs from the f32 K4 head's recompute: {res}")
+    for name in ("rowblock_fwd_f32_sm90[head]", "rowblock_bwd_f32_sm90[head]"):
+        report[name]["front_equal_k4" if "fwd" in name else "front_equal_k3"] = res
+
+
 def check_neighbor_backend(report):
     """The served calls' pair searches ran in the native cell list."""
     from metatrain_tpu_torch.ops import neighbors
@@ -3651,10 +3684,18 @@ def main() -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
+    # the f32 heads' shared forward is checked on copies instrumented by
+    # tools/sm90_front.py: their nvcc runs beside the kernels' build
+    front = load_tool("sm90_front")
+    front_dir = tempfile.TemporaryDirectory()
+    front_procs = front.spawn(Path(front_dir.name), front.ROWBLOCK_KERNELS["head"])
     t0 = time.perf_counter()
-    _lib.library()
-    build_s = time.perf_counter() - t0
-    print(f"build: {build_s:.1f} s", flush=True)
+    try:
+        _lib.library()
+        build_s = time.perf_counter() - t0
+    finally:
+        front_libs = front.load(Path(front_dir.name), front_procs)
+    print(f"build: {build_s:.1f} s (the head copies {time.perf_counter() - t0:.1f} s)", flush=True)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     # the compiler's registers and spills per kernel (nvcc -Xptxas -v)
@@ -3672,11 +3713,7 @@ def main() -> int:
             or f32_call.get(K1_F32) != 4 or f32_call.get("fused_layer_fwd", 0)):
         fail(f"the f32 force call launched {f32_call}: 4 Hopper float32 K1 and K2 and no general "
              "K1 or K2 expected")
-    if ({k: f32_call.get(k, 0) for k in K4_F32} != dict.fromkeys(K4_F32, 2)
-            or any(f32_call.get(k, 0) for k in K4_F32_NEVER)):
-        fail(f"the f32 force call launched {f32_call}: 2 + 2 Hopper float32 K4 and no general "
-             "compress or combination K4 expected")
-    check_k3_f32_call("slice", f32_call)
+    check_rowblock_f32_call("slice", f32_call)
     A, M = report["slice"]["padded"]
     print("slice:", json.dumps({k: report["slice"][k] for k in (
         "padded", "launches", "launches_f32_per_call", "parity")}
@@ -3774,7 +3811,7 @@ def main() -> int:
                  "float32 K1 expected")
         # the row blocks do not depend on M: at M = 96 the Hopper float32 K3,
         # at d_pet 256 the general K3
-        check_k3_f32_call(key, f32_call, general=key == "slice_d256")
+        check_rowblock_f32_call(key, f32_call, general=key == "slice_d256")
         print(f"{key} (M = {M_served}):", json.dumps({k: report[key][k] for k in (
             "padded", "launches", "parity")}), flush=True)
         print(f"{key} force call ({card}):", json.dumps(report[key]["timing"]), flush=True)
@@ -3838,8 +3875,7 @@ def main() -> int:
         # kernels, K4-dW for the row blocks
         report["training_parity_bf16"] = check_training_parity(
             workdir / "cu_lj.xyz", state, device,
-            expected=("fused_layer_fwd", *K2DW, "rowblock_bwd_dw[compress]",
-                      "rowblock_bwd_dw[combination]"),
+            expected=("fused_layer_fwd", *K2DW, *K4DW_GENERAL),
             replayed=("fused_layer",), dtype=torch.bfloat16,
             absent=("fused_layer_fwd_sm90", K1_F32, "fused_layer_bwd_sm90", "fused_layer_bwd_dw",
                     *ROWBLOCK_SM90_KERNELS, *K4_F32, *K4DW_F32, *K3_F32),
@@ -3885,9 +3921,11 @@ def main() -> int:
           json.dumps(report["gnn_block_variants"]), flush=True)
     check_rowblock(A * M, D, gen, device, kernels)
     check_rowblock_sm90_shapes(gen, device, kernels, D)
+    check_head_front(front, front_libs, kernels)
+    front_dir.cleanup()
     lib = _lib.library()
-    for code, stage in enumerate(("compress", "combination")):
-        w_in, w_hid = (3 * D, D) if code == 0 else (2 * D, 2 * D)
+    for code, stage in enumerate(STAGE_NAMES):
+        w_in, w_hid = {"compress": (3 * D, D), "combination": (2 * D, 2 * D), "head": (D, D)}[stage]
         for name in (f"rowblock_bwd_f32_sm90[{stage}]", f"rowblock_bwd_dw_f32_sm90[{stage}]"):
             kernels[name]["smem_bytes"] = lib.mtt_rowblock_bwd_f32_sm90_smem(code, D, w_in, w_hid, D)
             if build_log.exists():  # the plain and spill-mode instantiations (mangled names)
@@ -3895,9 +3933,9 @@ def main() -> int:
                                                          f"k4_f32_sm90_kernelILi{code}E")
             print(f"Hopper float32 {name} (general body's ms beside):", json.dumps(
                 {key: kernels[name].get(key) for key in (
-                    "ms_f32", "general_ms_f32", "bound_ms_f32", "bound_ms_ffma_f32",
+                    "ms_f32", "general_ms_f32", "plain_ms_f32", "bound_ms_f32", "bound_ms_ffma_f32",
                     "bound_ratio_f32", "product_ms_f32", "chunks_f32", "ptxas_f32", "smem_bytes",
-                    "shapes")}), flush=True)
+                    "front_equal_k3", "shapes")}), flush=True)
         name = f"rowblock_fwd_f32_sm90[{stage}]"
         kernels[name]["smem_bytes"] = lib.mtt_rowblock_fwd_f32_sm90_smem(code, D, w_in, w_hid, D)
         if build_log.exists():  # the instantiations per stage (mangled names)
@@ -3906,7 +3944,8 @@ def main() -> int:
         print(f"Hopper float32 {name} (general body's ms beside):", json.dumps(
             {key: kernels[name].get(key) for key in (
                 "ms_f32", "general_ms_f32", "plain_ms_f32", "bound_ms_f32", "bound_ms_ffma_f32",
-                "bound_ratio_f32", "ptxas_f32", "smem_bytes", "shapes")}), flush=True)
+                "bound_ratio_f32", "ptxas_f32", "smem_bytes", "front_equal_k4", "shapes")}),
+            flush=True)
     for k in (3, 4):
         kind = "fwd" if k == 3 else "bwd"
         for code, stage in enumerate(STAGE_NAMES):

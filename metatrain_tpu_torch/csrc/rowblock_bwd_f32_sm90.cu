@@ -1,16 +1,17 @@
-// K4 and K4-dW on Hopper in float32: the backward of PET's compress and
-// combination row-block stages, redesigned for the H100, in two modes of one
-// body. Plain mode is K4 (the input cotangents); spill mode is K4-dW's first
-// pass, whose second pass is K2-dW's split-K product (layer_dw_sm90.cuh).
+// K4 and K4-dW on Hopper in float32: the backward of PET's compress,
+// combination and head row-block stages, redesigned for the H100, in two
+// modes of one body. Plain mode is K4 (the input cotangents); spill mode is
+// K4-dW's first pass, whose second pass is K2-dW's split-K product
+// (layer_dw_sm90.cuh).
 //
 // Replaces the TPU kernel metatrain_tpu/ops/pallas/rowblock.py
-// `_make_bwd_op` (:213; pallas_call at :279) in float32 for two of its
+// `_make_bwd_op` (:213; pallas_call at :279) in float32 for its three
 // stages, with weight_grads=False (K4) and True (K4-dW): the hand-written
-// backwards `compress_bwd` (:112) and `combination_bwd` (:148) of
-// metatrain_tpu/models/pet/fused_stages.py. It computes the function of the
-// plain versions `compress_bwd` / `combination_bwd` of
-// metatrain_tpu_torch/models/pet/fused_stages.py (`stage.bwd(...,
-// weight_grads=False/True)`) at d_part = 128:
+// backwards `compress_bwd` (:112), `combination_bwd` (:148) and `head_bwd`
+// (:198) of metatrain_tpu/models/pet/fused_stages.py. It computes the
+// function of the plain versions `compress_bwd` / `combination_bwd` /
+// `head_bwd` of metatrain_tpu_torch/models/pet/fused_stages.py
+// (`stage.bwd(..., weight_grads=False/True)`) at d_part = 128:
 //   compress    (2 or 3 parts: w_in 256 or 384, w_hid = w_out = 128)
 //                 pre = X w0 + b0, d_pre = (g w1^T) silu'(pre),
 //                 d_part_i = d_pre w0_i^T
@@ -21,17 +22,24 @@
 //                 d_x = rs (d - mean(d) - xn0 mean(d xn0)),
 //                 d_edges = d_x[:, :128] + g, d_reversed = d_x[:, 128:];
 //                 d_messages = g is returned by the caller without a launch
+//   head        (w_in = w_hid = w_out = 128)
+//                 pre0 = x w0 + b0, h0 = silu(pre0), pre1 = h0 w1 + b1,
+//                 d_pre1 = g silu'(pre1), d_pre0 = (d_pre1 w1^T) silu'(pre0),
+//                 d_x = d_pre0 w0^T
 // and K4-dW's weight gradients, summed over rows in float:
 //   dw0 = X^T d_pre (compress: part_i^T d_pre per part; combination: xn^T
 //   d_pre), db0 = sum d_pre, dw1 = h^T g with h = silu(pre), db1 = sum g,
-//   and for the combination d ln_scale = sum d_xn xn0, d ln_bias = sum d_xn.
-// mtt_rowblock_bwd_f32_sm90_ok is the shape rule (rowblock_sm90.cuh's
-// compress and combination); the wrapper sends the head, bfloat16 K4-dW,
-// d_pet 256 and every other shape to the general body (rowblock_bwd.cu).
+//   and for the combination d ln_scale = sum d_xn xn0, d ln_bias = sum d_xn;
+//   the head's dw0 = x^T d_pre0, db0 = sum d_pre0, dw1 = h0^T d_pre1, db1 =
+//   sum d_pre1.
+// mtt_rowblock_bwd_f32_sm90_ok is the shape rule (rowblock_sm90.cuh's);
+// the wrapper sends bfloat16 K4-dW, d_pet 256 and every other shape to the
+// general body (rowblock_bwd.cu).
 // Its recompute up to h (the tile streaming, the LayerNorm, the pre
-// products, SiLU) is rowblock_f32_sm90.cuh's, which the Hopper float32 K3
-// (rowblock_fwd_f32_sm90.cu) runs as its forward: one device code, so the
-// f32 energy's pre-activations are the ones the forces differentiate.
+// products, SiLU; the head's up to pre1) is rowblock_f32_sm90.cuh's, which
+// the Hopper float32 K3 (rowblock_fwd_f32_sm90.cu) runs as its forward: one
+// device code, so the f32 energy's pre-activations are the ones the forces
+// differentiate.
 //
 // What bounds it on the H100: operations. At the crystal's rows (A = 11,392
 // x M = 64 = 729,088) K4 runs three products a row (pre, g w1^T, d_pre
@@ -48,7 +56,8 @@
 //   float chunks (cp.async, swizzled) in one fixed sequence per tile
 //   (Chunks): compress 8 NP (pre) + 8 (g w1^T) + 8 NP (d_part), 56 chunks
 //   at 3 parts and 40 at 2; combination per hidden panel of 128 columns 16
-//   (pre) + 8 (g w1^T), then 2 x 16 (d_pre w0^T): 80.
+//   (pre) + 8 (g w1^T), then 2 x 16 (d_pre w0^T): 80; head 8 (pre0, w0^T)
+//   + 8 (pre1, w1^T) + 8 (d_pre1 w1^T, w1) + 8 (d_pre0 w0^T, w0): 32.
 // - one 64-row tile at a time, loaded by scalar loads with an integer
 //   division per element: here one persistent 512-thread block per SM
 //   walks a contiguous range of 64-row tiles, and the next tile's rows are
@@ -68,18 +77,23 @@
 //   LayerNorm backward at the tile's end, so its buffer and d_pre's swap
 //   roles every tile: the next tile's edges | reversed go into this tile's
 //   d_pre buffer once the last product has read it, during the LayerNorm
-//   backward; g rides as in the compress. Rows past the end are
-//   zero-filled and never stored.
+//   backward; g rides as in the compress. The head streams like the
+//   compress (its x tile's last read is the pre0 product); h0 waits in a
+//   tile of its own for the pre1 product, which then takes d_pre0, and
+//   d_pre1 goes into the d_pre tile. Rows past the end are zero-filled and
+//   never stored.
 // - the weight gradients' products X^T dY read, add and write the block's
 //   float partial in global memory for every tile (about 12 KB of L2
 //   traffic a row for the combination): here the spill mode writes, once
 //   per row, the operands that no input holds (compress: d_pre and h, 1,024
-//   B a row: X is the parts; combination: xn, d_pre and h, 3,072 B), and
-//   per tile one float row of its vector sums; the second pass then forms
+//   B a row: X is the parts; combination: xn, d_pre and h, 3,072 B; head:
+//   d_pre0, h0 and d_pre1, 1,536 B), and per tile one float row of its
+//   vector sums; the second pass then forms
 //   dW = X^T dY as layer_dw_sm90.cuh's deterministic split-K product (FFMA
 //   register tiles, one partial per 128 x 128 tile and slice, the slices
 //   added in order, then the chunks), reading the parts and g from the
-//   inputs.
+//   inputs (the head's second product takes the spilled d_pre1 in g's
+//   place: dw1 = h0^T d_pre1).
 // - the LayerNorm re-reading the inputs from global memory, one thread per
 //   column: here its statistics come from the x tile (one warp per row),
 //   xn0 = (x - mean) rs replaces x in place, and xn = xn0 ln_scale + ln_bias
@@ -91,7 +105,8 @@
 // + 4) x 4, d_pre 64 x 132 x 4, two g tiles 2 x 33,792; combination: two x
 // | d_pre buffers 2 x 66,560, two g tiles, ln_scale and ln_bias 2,048; rs
 // 256 and the row and column sums' scratch 2,048: 227,584 at 3 parts,
-// 194,816 at 2, 229,632 for the combination: one block per SM.
+// 194,816 at 2, 229,632 for the combination: one block per SM. The head:
+// the compress's at 1 part and the h0 tile 64 x 132 x 4, 195,840.
 // The memory the spill takes: rows go in chunks of whole waves of tiles
 // whose spill stays under 512 MiB (k4dw_plan); each chunk's first pass is
 // followed by its second, and the chunks' sums are added in chunk order.
@@ -122,7 +137,7 @@ struct Geo {
     static constexpr int W_IN = W::W_IN, W_HID = W::W_HID, LX = W::LX, PRE = W::PRE;
     static constexpr int LP = W_HID + 4;  // d_pre rows
     static constexpr int LG = kPart + 4;  // g rows
-    static constexpr int NCH = STAGE == kCompress ? 16 * NP + 8 : 80;  // chunks per tile
+    static constexpr int NCH = STAGE == kCompress ? 16 * NP + 8 : STAGE == kHead ? 32 : 80;  // chunks per tile
     static constexpr int NV = (STAGE == kCombination ? 2 * W_IN : 0) + W_HID + kPart;  // vector row
     static constexpr int kX = kRows * LX * 4;
     static constexpr int kP = kRows * LP * 4;
@@ -133,7 +148,8 @@ struct Geo {
     static constexpr int kOffLn = kOffG + 2 * kG;
     static constexpr int kOffRS = kOffLn + (STAGE == kCombination ? 2 * W_IN * 4 : 0);
     static constexpr int kOffRed = kOffRS + kRows * 4;
-    static constexpr int kSmem = kOffRed + 4 * kCN * 4;
+    static constexpr int kOffH = kOffRed + 4 * kCN * 4;  // head: h0, then d_pre0 (rows of LH)
+    static constexpr int kSmem = kOffH + (STAGE == kHead ? kRows * W::LH * 4 : 0);
     static_assert(STAGE == kCompress || kX == kP, "the combination's x and d_pre buffers swap");
     static_assert(kSmem <= 232448, "one block per SM");
 };
@@ -147,13 +163,16 @@ struct Args {
     const float* w0_t;  // (w_hid, w_in): the pre product's B
     const float* w1;    // (w_hid, 128): g w1^T's
     const float* w0;    // (w_in, w_hid): d_pre w0^T's
+    const float* w1_t;  // head: (128, w_hid): pre1's
+    const float* b1;    // head: (128,)
     float* d[3];        // (rows, 128): the input cotangents
     long long rows;     // the launch's rows (spill mode: the chunk's)
     // spill mode, row r of the launch and tile t of it
-    float* xn;    // combination: (rows, 256)
-    float* dpre;  // (rows, w_hid)
-    float* h;     // (rows, w_hid)
-    float* vec;   // (tiles, NV): [ln_scale, ln_bias,] b0, b1 sums
+    float* xn;     // combination: (rows, 256)
+    float* dpre;   // (rows, w_hid): the head's d_pre0
+    float* h;      // (rows, w_hid): the head's h0
+    float* dpre1;  // head: (rows, 128)
+    float* vec;    // (tiles, NV): [ln_scale, ln_bias,] b0, b1 sums
 };
 
 // A tile's weight chunks in the order its products consume them, each 128
@@ -161,14 +180,20 @@ struct Args {
 // compress: pre (w0^T, 8 NP), g w1^T (w1, 8), d_part q (w0 rows 128 q ..,
 // 8 per part); combination: per hidden panel q, pre (w0^T rows 128 q ..,
 // 16) and g w1^T (w1 rows 128 q .., 8), then d_pre w0^T per output panel q
-// (w0 rows 128 q .., 16).
+// (w0 rows 128 q .., 16); head: pre0 (w0^T, 8), pre1 (w1^T, 8), d_pre1
+// w1^T (w1, 8), d_pre0 w0^T (w0, 8), every weight 128 x 128.
 template <int STAGE, int NP>
 struct Chunks {
-    const float *w0_t, *w1, *w0;
+    const float *w0_t, *w1, *w0, *w1_t;
 
     __device__ const float* operator()(int c, int& ld) const {
         using G = Geo<STAGE, NP>;
         int r = c % G::NCH;
+        if (STAGE == kHead) {
+            const int q = r >> 3;
+            ld = kPart;
+            return (q == 0 ? w0_t : q == 1 ? w1_t : q == 2 ? w1 : w0) + (r & 7) * kCK;
+        }
         if (STAGE == kCompress) {
             if (r < 8 * NP) {
                 ld = G::W_IN;
@@ -198,10 +223,10 @@ struct Chunks {
 
 // The next tile's rows, issued with the weight chunks of this tile: chunk c
 // = t NCH + r carries slice r - 2 of tile t + 1's g (2 <= r < NCH) into g
-// buffer (t + 1) % 2 and, in the compress, slice r - PRE - 2 of its parts
-// (PRE + 2 <= r < NCH: after the barrier that ends the pre product, the x
-// tile's last read) into the x tile. The combination's x goes in with
-// issue_x, after the tile's last product.
+// buffer (t + 1) % 2 and, in the compress (the head), slice r - PRE - 2 of
+// its parts (its x) (PRE + 2 <= r < NCH: after the barrier that ends the
+// pre (pre0) product, the x tile's last read) into the x tile. The
+// combination's x goes in with issue_x, after the tile's last product.
 template <int STAGE, int NP>
 struct NextRows {
     const Args& p;  // the kernel's (grid-constant) parameters: x, g, rows
@@ -221,7 +246,7 @@ struct NextRows {
         int lo, hi;
         if (rows_slice<Gm::NCH, 2, kGUnits>(r, lo, hi))
             copy_rows<1>({p.g, p.g, p.g}, G + (t & 1) * kRows * Gm::LG, Gm::LG, row0, p.rows, lo, hi);
-        if constexpr (STAGE == kCompress) {
+        if constexpr (STAGE != kCombination) {
             if (rows_slice<Gm::NCH, Gm::PRE + 2, kXUnits>(r, lo, hi))
                 copy_rows<NP>(p.x, X, Gm::LX, row0, p.rows, lo, hi);
         }
@@ -287,6 +312,61 @@ __device__ __forceinline__ void compress_tile(R& ring, int& c, const Args& p, co
             if (m < valid) st2(out + (size_t)m * kPart + n, acc[j][2 * h], acc[j][2 * h + 1]);
         });
     }
+}
+
+// head, one tile: x (64 x LX) and g in shared memory; H takes h0, then
+// d_pre0 (after the d_pre1 w1^T product, behind the pre1 product's last
+// read), DP d_pre1
+template <bool SP, typename R>
+__device__ __forceinline__ void head_tile(R& ring, int& c, const Args& p, const float* X, const float* Gt,
+                                          float* DP, float* H, float* RED, long long t, int valid) {
+    using G = Geo<kHead, 1>;
+    constexpr int LH = G::W::LH;
+    const long long row0 = t * kRows;
+    float pre0[4][4], pre1[4][4];
+    head_pre1(ring, c, X, H, p.b0, p.b1, pre0, pre1);
+    // d_pre1 = g silu'(pre1) into DP and pre1's registers; the spill: d_pre1
+    // and h0 (each thread's own elements of H)
+    panel_pairs([&](int j, int h, int m, int n) {
+        const float2 g = ld2(Gt + m * G::LG + n);
+        pre1[j][2 * h] = d_pre(g.x, pre1[j][2 * h]);
+        pre1[j][2 * h + 1] = d_pre(g.y, pre1[j][2 * h + 1]);
+        st2(DP + m * G::LP + n, pre1[j][2 * h], pre1[j][2 * h + 1]);
+        if constexpr (SP) {
+            if (m < valid) {
+                const size_t o = (size_t)(row0 + m) * kPart + n;
+                const float2 h0 = ld2(H + m * LH + n);
+                spill2(p.dpre1 + o, pre1[j][2 * h], pre1[j][2 * h + 1]);
+                spill2(p.h + o, h0.x, h0.y);
+            }
+        }
+    });
+    float* v = p.vec + t * G::NV;  // spill mode: b0, b1 sums
+    if constexpr (SP)
+        panel_col_sums(RED, [&](int j, int i, int m, int n) { return m < valid ? pre1[j][i] : 0.f; },
+                       v + G::W_HID);
+    // d_h0 = d_pre1 w1^T; d_pre0 = d_h0 silu'(pre0) into H
+    float dh[4][4];
+    zero(dh);
+    panel_mm<8>(ring, c, [&](int r, int& ld) { ld = G::LP; return (const float*)DP + r * kCK; }, dh, kRows);
+    panel_pairs([&](int j, int h, int m, int n) {
+        dh[j][2 * h] = d_pre(dh[j][2 * h], pre0[j][2 * h]);
+        dh[j][2 * h + 1] = d_pre(dh[j][2 * h + 1], pre0[j][2 * h + 1]);
+        st2(H + m * LH + n, dh[j][2 * h], dh[j][2 * h + 1]);
+        if constexpr (SP) {
+            if (m < valid) spill2(p.dpre + (size_t)(row0 + m) * kPart + n, dh[j][2 * h], dh[j][2 * h + 1]);
+        }
+    });
+    if constexpr (SP)
+        panel_col_sums(RED, [&](int j, int i, int m, int n) { return m < valid ? dh[j][i] : 0.f; }, v);
+    // d_x = d_pre0 w0^T
+    float acc[4][4];
+    zero(acc);
+    panel_mm<8>(ring, c, [&](int r, int& ld) { ld = LH; return (const float*)H + r * kCK; }, acc, kRows);
+    float* out = p.d[0] + row0 * kPart;
+    panel_pairs([&](int j, int h, int m, int n) {
+        if (m < valid) st2(out + (size_t)m * kPart + n, acc[j][2 * h], acc[j][2 * h + 1]);
+    });
 }
 
 // combination, one tile: X (xn0 after the LayerNorm) and g in shared
@@ -403,6 +483,7 @@ __global__ void __launch_bounds__(kThreads, 1) k4_f32_sm90_kernel(const __grid_c
     float* LN = reinterpret_cast<float*>(smem + G::kOffLn);
     float* RS = reinterpret_cast<float*>(smem + G::kOffRS);
     float* RED = reinterpret_cast<float*>(smem + G::kOffRed);
+    float* HB = reinterpret_cast<float*>(smem + G::kOffH);
 
     const long long tiles = (p.rows + kRows - 1) / kRows;
     const long long t0 = tiles * blockIdx.x / gridDim.x, t1 = tiles * (blockIdx.x + 1) / gridDim.x;
@@ -419,7 +500,8 @@ __global__ void __launch_bounds__(kThreads, 1) k4_f32_sm90_kernel(const __grid_c
         }
     }
     Ring<Chunks<STAGE, NP>, NextRows<STAGE, NP>> ring{reinterpret_cast<float*>(smem),
-                                                      Chunks<STAGE, NP>{p.w0_t, p.w1, p.w0}, T * G::NCH, next};
+                                                      Chunks<STAGE, NP>{p.w0_t, p.w1, p.w0, p.w1_t}, T * G::NCH,
+                                                      next};
     ring.start();
     int c = 0;
 #pragma unroll 1
@@ -429,6 +511,8 @@ __global__ void __launch_bounds__(kThreads, 1) k4_f32_sm90_kernel(const __grid_c
         const float* Gt = GB + (t & 1) * kRows * G::LG;
         if constexpr (STAGE == kCompress) {
             compress_tile<NP, SP>(ring, c, p, XB, Gt, PB, RED, tile, valid);
+        } else if constexpr (STAGE == kHead) {
+            head_tile<SP>(ring, c, p, XB, Gt, PB, HB, RED, tile, valid);
         } else {
             // tile t's x is in buffer t % 2 (XB, PB); the other one takes d_pre
             float* X = (t & 1) ? PB : XB;
@@ -459,11 +543,12 @@ struct DwLayout {
 };
 
 bool takes(int stage, int d_part, int w_in, int w_hid, int w_out) {
-    return (stage == kCompress || stage == kCombination) && sm90::rowblock_sm90_ok(stage, d_part, w_in, w_hid, w_out);
+    return sm90::rowblock_sm90_ok(stage, d_part, w_in, w_hid, w_out);
 }
 
 size_t smem_bytes(int stage, int w_in) {
     if (stage == kCombination) return Geo<kCombination, 2>::kSmem;
+    if (stage == kHead) return Geo<kHead, 1>::kSmem;
     return w_in == 3 * kPart ? Geo<kCompress, 3>::kSmem : Geo<kCompress, 2>::kSmem;
 }
 
@@ -471,11 +556,14 @@ int vector_floats(int stage, int w_in, int w_hid) {
     return (stage == kCombination ? 2 * w_in : 0) + w_hid + kPart;
 }
 
-// The spilled floats a row: compress d_pre and h; combination also xn.
-int row_floats(int stage, int w_in, int w_hid) { return (stage == kCombination ? w_in : 0) + 2 * w_hid; }
+// The spilled floats a row: compress d_pre and h; combination also xn;
+// head d_pre0, h0 and d_pre1.
+int row_floats(int stage, int w_in, int w_hid) {
+    return stage == kHead ? 3 * w_hid : (stage == kCombination ? w_in : 0) + 2 * w_hid;
+}
 
 // The products' output tiles: compress one per part and h^T g; combination
-// xn^T d_pre (2 x 2) and h^T g (2 x 1).
+// xn^T d_pre (2 x 2) and h^T g (2 x 1); head x^T d_pre0 and h0^T d_pre1.
 int product_tiles(int stage, int n_parts) { return stage == kCombination ? 6 : n_parts + 1; }
 
 struct Plan {
@@ -523,18 +611,21 @@ int launch_mode(const Args& a, int blocks, cudaStream_t stream) {
 template <bool SP>
 int launch(int stage, int w_in, const Args& a, int blocks, cudaStream_t stream) {
     if (stage == kCombination) return launch_mode<kCombination, 2, SP>(a, blocks, stream);
+    if (stage == kHead) return launch_mode<kHead, 1, SP>(a, blocks, stream);
     if (w_in == 3 * kPart) return launch_mode<kCompress, 3, SP>(a, blocks, stream);
     return launch_mode<kCompress, 2, SP>(a, blocks, stream);
 }
 
 // The second pass's products over a chunk of `rows` rows: x the chunk's
-// parts, g its cotangent, S the chunk's spill arrays (R_cap rows each).
+// parts (the head's x), g its cotangent, xn, dpre, h and dpre1 the chunk's
+// spill arrays. The head's are the one-part compress's with d_pre1 in g's
+// place.
 dwp::ProductArgs<float> product_args(int stage, const float* const (&x)[3], int n_parts, const float* g,
-                                     const float* xn, const float* dpre, const float* h, long long rows, int w_in,
-                                     int w_hid, int sms, float* partials) {
+                                     const float* xn, const float* dpre, const float* h, const float* dpre1,
+                                     long long rows, int w_in, int w_hid, int sms, float* partials) {
     const DwLayout L(stage, w_in, w_hid, kPart);
     dwp::ProductArgs<float> a{};
-    if (stage == kCompress) {
+    if (stage != kCombination) {
         for (int q = 0; q < n_parts; ++q) {
             a.X[q] = x[q];
             a.Y[q] = dpre;
@@ -543,7 +634,7 @@ dwp::ProductArgs<float> product_args(int stage, const float* const (&x)[3], int 
             a.tr[q] = a.tc[q] = 1;
         }
         a.X[n_parts] = h;
-        a.Y[n_parts] = g;
+        a.Y[n_parts] = stage == kHead ? dpre1 : g;
         a.ldx[n_parts] = a.ldy[n_parts] = a.ldo[n_parts] = kPart;
         a.out[n_parts] = L.w1;
         a.tr[n_parts] = a.tc[n_parts] = 1;
@@ -575,18 +666,21 @@ dwp::ProductArgs<float> product_args(int stage, const float* const (&x)[3], int 
 
 dwp::VecMap vec_map(int stage, int w_in, int w_hid) {
     const DwLayout L(stage, w_in, w_hid, kPart);
-    if (stage == kCompress) return dwp::VecMap{{w_hid, kPart, 0, 0, 0, 0}, {L.b0, L.b1, 0, 0, 0, 0}, w_hid + kPart};
+    if (stage != kCombination)  // compress b0, b1 (g); head b0 (d_pre0), b1 (d_pre1)
+        return dwp::VecMap{{w_hid, kPart, 0, 0, 0, 0}, {L.b0, L.b1, 0, 0, 0, 0}, w_hid + kPart};
     return dwp::VecMap{{w_in, w_in, w_hid, kPart, 0, 0},
                        {L.ln_scale, L.ln_bias, L.b0, L.b1, 0, 0},
                        vector_floats(stage, w_in, w_hid)};
 }
 
 // The spill's arrays (R rows each): compress d_pre, h; combination xn,
-// d_pre, h.
-void spill_arrays(int stage, float* spill, long long R, int w_in, int w_hid, float*& xn, float*& dpre, float*& h) {
+// d_pre, h; head d_pre0, h0, d_pre1.
+void spill_arrays(int stage, float* spill, long long R, int w_in, int w_hid, float*& xn, float*& dpre, float*& h,
+                  float*& dpre1) {
     xn = stage == kCombination ? spill : nullptr;
     dpre = spill + (stage == kCombination ? R * w_in : 0);
     h = dpre + R * w_hid;
+    dpre1 = stage == kHead ? h + R * w_hid : nullptr;
 }
 
 bool valid_call(int stage, int n_parts, int d_part, int w_in, int w_hid, int w_out) {
@@ -594,12 +688,19 @@ bool valid_call(int stage, int n_parts, int d_part, int w_in, int w_hid, int w_o
            (stage == kCombination ? n_parts == 3 : n_parts * d_part == w_in);
 }
 
+// The head's recompute also takes w1^T and b1 (its pre1 product).
+bool valid_call(int stage, int n_parts, int d_part, int w_in, int w_hid, int w_out, const float* w1_t,
+                const float* b1) {
+    return valid_call(stage, n_parts, d_part, w_in, w_hid, w_out) && (stage != kHead || (w1_t && b1));
+}
+
 }  // namespace
 }  // namespace k4f32
 }  // namespace mtt
 
-// Whether the Hopper float32 K4 takes a stage (0 compress, 1 combination)
-// and its widths: those of the Hopper K4 (rowblock_sm90.cuh), d_part 128.
+// Whether the Hopper float32 K4 takes a stage (0 compress, 1 combination, 2
+// head) and its widths: those of the Hopper K4 (rowblock_sm90.cuh), d_part
+// 128.
 extern "C" int mtt_rowblock_bwd_f32_sm90_ok(int stage, int d_part, int w_in, int w_hid, int w_out) {
     return mtt::k4f32::takes(stage, d_part, w_in, w_hid, w_out) ? 1 : 0;
 }
@@ -624,22 +725,26 @@ extern "C" void mtt_rowblock_bwd_dw_f32_sm90_plan(int stage, long long rows, int
 }
 
 // float32 tensors. x0..x2: the compress parts (n_parts of them) or edges,
-// reversed and messages (n_parts 3; the messages are not read); b0 (w_hid),
-// w0_t (w_hid, w_in), w1 (w_hid, w_out), w0 (w_in, w_hid); g (rows,
-// w_out); d0..d2 receive the input cotangents (one per part, or d_edges
-// and d_reversed). `blocks` persistent blocks (one per SM) walk contiguous
-// ranges of 64-row tiles on `stream`. Returns the CUDA error code
-// (cudaErrorInvalidValue for a shape it does not take).
+// reversed and messages (n_parts 3; the messages are not read), or the
+// head's x (n_parts 1); b0 (w_hid), w0_t (w_hid, w_in), w1 (w_hid, w_out),
+// w0 (w_in, w_hid), w1_t (w_out, w_hid; the head's, else unread), b1
+// (w_out; the head's, else unread); g (rows, w_out); d0..d2 receive the
+// input cotangents (one per part, or d_edges and d_reversed, or d_x).
+// `blocks` persistent blocks (one per SM) walk contiguous ranges of 64-row
+// tiles on `stream`. Returns the CUDA error code (cudaErrorInvalidValue for
+// a shape it does not take).
 extern "C" int mtt_rowblock_bwd_f32_sm90(int stage, const float* x0, const float* x1, const float* x2,
                                          int n_parts, const float* ln_scale, const float* ln_bias, const float* b0,
-                                         const float* w0_t, const float* w1, const float* w0, const float* g,
-                                         float* d0, float* d1, float* d2, long long rows, int d_part, int w_in,
-                                         int w_hid, int w_out, int blocks, void* stream) {
+                                         const float* w0_t, const float* w1, const float* w0, const float* w1_t,
+                                         const float* b1, const float* g, float* d0, float* d1, float* d2,
+                                         long long rows, int d_part, int w_in, int w_hid, int w_out, int blocks,
+                                         void* stream) {
     using namespace mtt::k4f32;
-    if (!valid_call(stage, n_parts, d_part, w_in, w_hid, w_out) || blocks <= 0) return (int)cudaErrorInvalidValue;
+    if (!valid_call(stage, n_parts, d_part, w_in, w_hid, w_out, w1_t, b1) || blocks <= 0)
+        return (int)cudaErrorInvalidValue;
     if (rows == 0) return 0;
-    const Args a{{x0, x1, x2}, g, ln_scale, ln_bias, b0, w0_t, w1, w0, {d0, d1, d2}, rows,
-                 nullptr, nullptr, nullptr, nullptr};
+    const Args a{{x0, x1, x2}, g, ln_scale, ln_bias, b0, w0_t, w1, w0, w1_t, b1, {d0, d1, d2}, rows,
+                 nullptr, nullptr, nullptr, nullptr, nullptr};
     return launch<false>(stage, w_in, a, blocks, (cudaStream_t)stream);
 }
 
@@ -651,29 +756,32 @@ extern "C" int mtt_rowblock_bwd_f32_sm90(int stage, const float* x0, const float
 extern "C" int mtt_rowblock_bwd_dw_f32_sm90(int stage, const float* x0, const float* x1, const float* x2,
                                             int n_parts, const float* ln_scale, const float* ln_bias,
                                             const float* b0, const float* w0_t, const float* w1, const float* w0,
-                                            const float* g, float* d0, float* d1, float* d2, float* dw, void* spill,
-                                            float* partials, long long rows, int d_part, int w_in, int w_hid,
-                                            int w_out, int sms, void* stream) {
+                                            const float* w1_t, const float* b1, const float* g, float* d0,
+                                            float* d1, float* d2, float* dw, void* spill, float* partials,
+                                            long long rows, int d_part, int w_in, int w_hid, int w_out, int sms,
+                                            void* stream) {
     using namespace mtt::k4f32;
-    if (!valid_call(stage, n_parts, d_part, w_in, w_hid, w_out) || sms <= 0) return (int)cudaErrorInvalidValue;
+    if (!valid_call(stage, n_parts, d_part, w_in, w_hid, w_out, w1_t, b1) || sms <= 0)
+        return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
     const long long n_dw = DwLayout(stage, w_in, w_hid, w_out).total;
     if (rows == 0) return (int)cudaMemsetAsync(dw, 0, n_dw * sizeof(float), s);
     const Plan plan = make_plan(stage, rows, w_in, w_hid, sms);
-    float *xn, *dpre, *h;
-    spill_arrays(stage, (float*)spill, plan.chunk_tiles * mtt::sm90::kRows, w_in, w_hid, xn, dpre, h);
+    float *xn, *dpre, *h, *dpre1;
+    spill_arrays(stage, (float*)spill, plan.chunk_tiles * mtt::sm90::kRows, w_in, w_hid, xn, dpre, h, dpre1);
     float* vec = (float*)((unsigned char*)spill + plan.vec_offset);
     const long long chunk_rows = plan.chunk_tiles * mtt::sm90::kRows;
     for (long long k = 0; k < plan.chunks; ++k) {
         const long long r0 = k * chunk_rows, n = rows - r0 < chunk_rows ? rows - r0 : chunk_rows;
         const auto at = [&](auto* ptr) { return ptr == nullptr ? ptr : ptr + r0 * d_part; };
         const float* const x[3] = {at(x0), at(x1), at(x2)};
-        const Args a{{x[0], x[1], x[2]}, g + r0 * w_out, ln_scale, ln_bias, b0, w0_t, w1, w0,
-                     {at(d0), at(d1), at(d2)}, n, xn, dpre, h, vec};
+        const Args a{{x[0], x[1], x[2]}, g + r0 * w_out, ln_scale, ln_bias, b0, w0_t, w1, w0, w1_t, b1,
+                     {at(d0), at(d1), at(d2)}, n, xn, dpre, h, dpre1, vec};
         const long long tiles = (n + mtt::sm90::kRows - 1) / mtt::sm90::kRows;
         int err = launch<true>(stage, w_in, a, (int)(tiles < sms ? tiles : sms), s);
         if (err != 0) return err;
-        const auto pa = product_args(stage, x, n_parts, g + r0 * w_out, xn, dpre, h, n, w_in, w_hid, sms, partials);
+        const auto pa =
+            product_args(stage, x, n_parts, g + r0 * w_out, xn, dpre, h, dpre1, n, w_in, w_hid, sms, partials);
         err = mtt::dwp::run_products<float>(pa, vec, tiles, vec_map(stage, w_in, w_hid), dw, k == 0, s);
         if (err != 0) return err;
     }
@@ -682,7 +790,8 @@ extern "C" int mtt_rowblock_bwd_dw_f32_sm90(int stage, const float* x0, const fl
 
 // The second pass alone on one chunk of `rows` rows (for checks against its
 // plain version): spill holds the chunk's operand arrays (rows rows each:
-// compress d_pre, h; combination xn, d_pre, h), vec its tiles' vector rows;
+// compress d_pre, h; combination xn, d_pre, h; head d_pre0, h0, d_pre1), vec
+// its tiles' vector rows;
 // x0..x2 and g the chunk's inputs. dw receives its weight gradients.
 extern "C" int mtt_rowblock_dw_product(int stage, const float* x0, const float* x1, const float* x2, int n_parts,
                                        const float* g, const float* spill, const float* vec, long long rows,
@@ -691,10 +800,10 @@ extern "C" int mtt_rowblock_dw_product(int stage, const float* x0, const float* 
     using namespace mtt::k4f32;
     if (!valid_call(stage, n_parts, kPart, w_in, w_hid, w_out) || rows <= 0 || sms <= 0)
         return (int)cudaErrorInvalidValue;
-    float *xn, *dpre, *h;
-    spill_arrays(stage, (float*)spill, rows, w_in, w_hid, xn, dpre, h);
+    float *xn, *dpre, *h, *dpre1;
+    spill_arrays(stage, (float*)spill, rows, w_in, w_hid, xn, dpre, h, dpre1);
     const float* const x[3] = {x0, x1, x2};
-    const auto pa = product_args(stage, x, n_parts, g, xn, dpre, h, rows, w_in, w_hid, sms, partials);
+    const auto pa = product_args(stage, x, n_parts, g, xn, dpre, h, dpre1, rows, w_in, w_hid, sms, partials);
     const long long tiles = (rows + mtt::sm90::kRows - 1) / mtt::sm90::kRows;
     return mtt::dwp::run_products<float>(pa, vec, tiles, vec_map(stage, w_in, w_hid), dw, true,
                                          (cudaStream_t)stream);

@@ -1,10 +1,12 @@
-// The float32 compress and combination forward on Hopper up to h, shared by
-// the Hopper float32 K3 (rowblock_fwd_f32_sm90.cu), which runs it as its
-// forward, and the Hopper float32 K4 and K4-dW's first pass
-// (rowblock_bwd_f32_sm90.cu), which run it as their recompute: one device
-// code in one order, so the f32 forward's pre, xn and h and the backward's
-// are the same bits, and the f32 row-block stages' energy and forces come
-// from one function. It holds, in the order the kernels run them:
+// The float32 compress and combination forward on Hopper up to h, and the
+// head's up to pre1, shared by the Hopper float32 K3
+// (rowblock_fwd_f32_sm90.cu), which runs it as its forward, and the Hopper
+// float32 K4 and K4-dW's first pass (rowblock_bwd_f32_sm90.cu), which run
+// it as their recompute: one device code in one order, so the f32
+// forward's pre, xn and h (the head's pre0, h0 and pre1) and the
+// backward's are the same bits, and the f32 row-block stages' energy and
+// forces come from one function. It holds, in the order the kernels run
+// them:
 // - copy_rows and rows_slice: the tile streaming. A tile's rows are copied
 //   with 16-byte cp.async (rows past the end zero-filled); the next tile's
 //   rows ride in slices in the cp.async groups of the weight chunks from a
@@ -14,7 +16,9 @@
 // - compress_pre: pre = X w0 + b0 over the ring's next 8 NP chunks;
 // - combination_pre: hidden panel q of pre = xn w0 + b0 over the next 16,
 //   xn = xn0 ln_scale + ln_bias formed where the A fragments load;
-// - hidden: h = silu(pre).
+// - hidden: h = silu(pre);
+// - head_pre1: the head's pre0 = X w0 + b0 (compress_pre over 8 chunks),
+//   h0 = silu(pre0) into an h tile, pre1 = h0 w1 + b1 over the next 8.
 // The 3xTF32 helpers, the weight ring and the panel product are
 // tf32_sm90.cuh's; an edit here changes both kernels (check the f32 K4's
 // and K4-dW's digests with tools/layer_times.py, parent vs change, and
@@ -34,19 +38,21 @@ using sm90::kRows;  // sm90's, not common.cuh's
 using sm90::kThreads;
 using sm90::zero;
 
-enum Stage { kCompress = 0, kCombination = 1 };
+enum Stage { kCompress = 0, kCombination = 1, kHead = 2 };
 constexpr int kPart = 128;          // d_part = w_out: every streamed and written row
 constexpr int kPieces = kPart / 4;  // 16-byte copies per row of one array
 
 // The widths of an instantiation: NP arrays make up the x tile (compress:
-// the parts; combination: edges and reversed).
+// the parts; combination: edges and reversed; head: x, NP = 1).
 template <int STAGE, int NP>
 struct Widths {
+    static_assert(STAGE != kHead || NP == 1, "the head takes one input");
     static constexpr int W_IN = NP * kPart;
-    static constexpr int W_HID = STAGE == kCompress ? kPart : 2 * kPart;
-    static constexpr int LX = W_IN + 4;                           // x (xn0) rows, floats
-    static constexpr int PRE = STAGE == kCompress ? 8 * NP : 16;  // chunks of a pre product
-    static constexpr int kXUnits = kRows * NP * kPieces;          // 16-byte pieces of the x tile
+    static constexpr int W_HID = STAGE == kCombination ? 2 * kPart : kPart;
+    static constexpr int LX = W_IN + 4;                              // x (xn0) rows, floats
+    static constexpr int LH = W_HID + 4;                             // h (h0) rows, floats
+    static constexpr int PRE = STAGE == kCombination ? 16 : 8 * NP;  // chunks of a pre product
+    static constexpr int kXUnits = kRows * NP * kPieces;             // 16-byte pieces of the x tile
 };
 
 // Units [lo, hi) of a tile's rows from row0 (of `rows`): unit u is 16-byte
@@ -152,6 +158,26 @@ __device__ __forceinline__ void combination_pre(R& ring, int& c, const float* X,
 
 // h = silu(pre): the f32 K3's second product's A, K4-dW's spilled h
 __device__ __forceinline__ float hidden(float pre) { return siluf_(pre); }
+
+// head: pre0 = X w0 + b0 over the ring's next 8 chunks (w0^T; X the x tile,
+// rows of LX), h0 = silu(pre0) into H (rows of LH), then pre1 = h0 w1 + b1
+// over the next 8 (w1^T), both in the panel layout; pre0 stays for the
+// backward's silu'(pre0). The previous reads of H lie behind the pre0
+// product's barriers, and the pre1 product's first consume orders these
+// stores before its reads.
+template <typename R>
+__device__ __forceinline__ void head_pre1(R& ring, int& c, const float* X, float* H, const float* b0,
+                                          const float* b1, float (&pre0)[4][4], float (&pre1)[4][4]) {
+    using W = Widths<kHead, 1>;
+    compress_pre<1>(ring, c, X, b0, pre0);
+    panel_pairs([&](int j, int h, int m, int n) {
+        st2(H + m * W::LH + n, hidden(pre0[j][2 * h]), hidden(pre0[j][2 * h + 1]));
+    });
+    zero(pre1);
+    panel_mm<W::W_HID / kCK>(ring, c, [&](int r, int& ld) { ld = W::LH; return (const float*)H + r * kCK; },
+                             pre1, kRows);
+    add_bias(pre1, b1);
+}
 
 }  // namespace rf32
 }  // namespace mtt

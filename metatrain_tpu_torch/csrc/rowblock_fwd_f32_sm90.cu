@@ -1,28 +1,33 @@
-// K3 on Hopper in float32: the forward of PET's compress and combination
-// row-block stages, redesigned for the H100 on the Hopper float32 K4's
+// K3 on Hopper in float32: the forward of PET's compress, combination and
+// head row-block stages, redesigned for the H100 on the Hopper float32 K4's
 // recompute code.
 //
 // Replaces the TPU kernel metatrain_tpu/ops/pallas/rowblock.py
-// `_forward_impl` (:93; pallas_call at :113) in float32 for two of the math
-// functions it is traced over: `compress_math` (:26) and `combination_math`
-// (:45) of metatrain_tpu/models/pet/fused_stages.py. It computes the plain
-// versions `compress_math` / `combination_math` of
-// metatrain_tpu_torch/models/pet/fused_stages.py at d_part = 128:
+// `_forward_impl` (:93; pallas_call at :113) in float32 for the three math
+// functions it is traced over: `compress_math` (:26), `combination_math`
+// (:45) and `head_math` (:66) of metatrain_tpu/models/pet/fused_stages.py.
+// It computes the plain versions `compress_math` / `combination_math` /
+// `head_math` of metatrain_tpu_torch/models/pet/fused_stages.py at d_part =
+// 128:
 //   compress    (2 or 3 parts: w_in 256 or 384, w_hid = w_out = 128)
 //                 pre = sum_i X_i w0_i + b0, h = silu(pre), out = h w1 + b1
 //   combination (w_in = w_hid = 256, w_out = 128; X = [edges | reversed])
 //                 xn0 = (X - mean) rs, rs = rsqrt(var + 1e-5) (two passes),
 //                 xn = xn0 ln_scale + ln_bias, h = silu(xn w0 + b0),
 //                 out = (messages + edges) + (h w1 + b1)
+//   head        (w_in = w_hid = w_out = 128)
+//                 pre0 = x w0 + b0, h0 = silu(pre0), pre1 = h0 w1 + b1,
+//                 out = silu(pre1)
 // with or without weight gradients: the f32 call's forward and the f32
 // training step's (mtt_rowblock_fwd_f32_sm90_ok is the shape rule; the
-// wrapper sends the head, bfloat16, d_pet 256 and every other shape to
+// wrapper sends bfloat16, d_pet 256 and every other shape to
 // rowblock_fwd.cu or the bf16 Hopper K3).
 //
 // One function with K4: everything up to h is rowblock_f32_sm90.cuh's
-// (layer_norm_rows, compress_pre, combination_pre, hidden), the device code
-// the Hopper float32 K4 and K4-dW's first pass run as their recompute, on the
-// same weight chunks in the same order. So pre, xn0, rs, xn and h are the
+// (layer_norm_rows, compress_pre, combination_pre, hidden; the head's
+// head_pre1, up to pre1), the device code the Hopper float32 K4 and K4-dW's
+// first pass run as their recompute, on the same weight chunks in the same
+// order. So pre, xn0, rs, xn and h (the head's pre0, h0 and pre1) are the
 // f32 K4's bit for bit (tools/sm90_front.py --kernel rowblock checks it on
 // the card), and the forces differentiate the pre-activations that made the
 // energy.
@@ -41,7 +46,7 @@
 //   ring of three 128 x 16 float chunks in one fixed sequence per tile
 //   (Chunks): compress 8 NP (pre, w0^T) + 8 (h w1, w1^T), 32 chunks at 3
 //   parts and 24 at 2; combination 2 x 16 (pre per hidden panel) + 16
-//   (h w1): 48.
+//   (h w1): 48; head 8 (pre0) + 8 (pre1): 16.
 // - one persistent 512-thread block per SM walks a contiguous range of
 //   64-row tiles. The x tile is single-buffered, as in the f32 K4: the next
 //   tile's parts (or edges | reversed) ride in the cp.async groups of the
@@ -53,13 +58,18 @@
 //   that ends the previous tile's epilogue, their last read.
 // - h goes from the pre accumulators through SiLU into an h tile, the A
 //   operand of the second product; the output (with b1, and for the
-//   combination messages and edges from the streamed tile) is stored from
-//   registers. Rows past the end are zero-filled and never stored.
+//   combination messages and edges from the streamed tile; the head's
+//   silu(pre1)) is stored from registers. Rows past the end are
+//   zero-filled and never stored.
+// - the head's four 128 x 128 float weights (256 KB) do not fit in shared
+//   memory as the bf16 Hopper head keeps them: they stream through the
+//   ring like the compress's.
 // Shared memory (bytes): the ring 24,576; the x tile 64 x (128 NP + 4) x 4;
 // the h tile 64 x (w_hid + 4) x 4; the combination also the edges |
 // messages tile 64 x 260 x 4, ln_scale and ln_bias 2,048 and rs 256:
 // 157,696 at 3 parts, 124,928 at 2, 226,560 for the combination: one block
-// per SM.
+// per SM. The head: 92,160 (the ring, the x and h0 tiles); one block per SM
+// too (its 512 threads take the registers of two).
 // No atomics: every output element is written once by one thread in an
 // order fixed by the shape, so every launch gives the same bits.
 
@@ -80,9 +90,8 @@ using sm90::zero;
 template <int STAGE, int NP>
 struct Geo {
     using W = Widths<STAGE, NP>;
-    static constexpr int W_IN = W::W_IN, W_HID = W::W_HID, LX = W::LX, PRE = W::PRE;
-    static constexpr int LH = W_HID + 4;  // h rows
-    static constexpr int PRES = STAGE == kCompress ? PRE : 2 * PRE;  // chunks of the pre products
+    static constexpr int W_IN = W::W_IN, W_HID = W::W_HID, LX = W::LX, LH = W::LH, PRE = W::PRE;
+    static constexpr int PRES = STAGE == kCombination ? 2 * PRE : PRE;  // chunks of the pre products
     static constexpr int NCH = PRES + W_HID / kCK;                    // chunks per tile
     static constexpr int kX = kRows * LX * 4;
     static constexpr int kH = kRows * LH * 4;
@@ -92,12 +101,12 @@ struct Geo {
     static constexpr int kOffLn = kOffEM + (STAGE == kCombination ? kX : 0);
     static constexpr int kOffRS = kOffLn + (STAGE == kCombination ? 2 * W_IN * 4 : 0);
     static constexpr int kSmem = kOffRS + (STAGE == kCombination ? kRows * 4 : 0);
-    static_assert(STAGE == kCompress || LX == 2 * kPart + 4, "edges | messages in rows of the x tile's");
+    static_assert(STAGE != kCombination || LX == 2 * kPart + 4, "edges | messages in rows of the x tile's");
     static_assert(kSmem <= 232448, "one block per SM");
 };
 
 struct Args {
-    const float* x[3];  // (rows, 128): the parts, or edges, reversed and messages
+    const float* x[3];  // (rows, 128): the parts, or edges, reversed and messages, or x
     const float* ln_scale;
     const float* ln_bias;
     const float* w0_t;  // (w_hid, w_in): the pre product's B
@@ -111,8 +120,9 @@ struct Args {
 // A tile's weight chunks in the order its products consume them, each 128
 // rows (n) x 16 columns (k) of a weight in its (N, K) row-major layout:
 // compress: pre (w0^T, 8 NP), then h w1 (w1^T, 8); combination: pre per
-// hidden panel q (w0^T rows 128 q .., 16 each), then h w1 (w1^T, 16). The
-// pre chunks are the f32 K4's.
+// hidden panel q (w0^T rows 128 q .., 16 each), then h w1 (w1^T, 16); head:
+// pre0 (w0^T, 8), then pre1 (w1^T, 8). The pre chunks (the head's pre0 and
+// pre1 chunks) are the f32 K4's.
 template <int STAGE, int NP>
 struct Chunks {
     const float *w0_t, *w1_t;
@@ -207,6 +217,20 @@ __device__ __forceinline__ void compress_tile(R& ring, int& c, const Args& p, co
     out_panel<kCompress, NP>(ring, c, p, H, nullptr, row0, valid);
 }
 
+// head, one tile: x (64 x LX) in shared memory, h0 to H; out = silu(pre1)
+// stored from registers
+template <typename R>
+__device__ __forceinline__ void head_tile(R& ring, int& c, const Args& p, const float* X, float* H, long long t,
+                                          int valid) {
+    const long long row0 = t * kRows;
+    float pre0[4][4], pre1[4][4];
+    head_pre1(ring, c, X, H, p.b0, p.b1, pre0, pre1);
+    float* out = p.out + row0 * kPart;
+    panel_pairs([&](int j, int h, int m, int n) {
+        if (m < valid) st2(out + (size_t)m * kPart + n, siluf_(pre1[j][2 * h]), siluf_(pre1[j][2 * h + 1]));
+    });
+}
+
 // combination, one tile: X (xn0 after the LayerNorm) and EM (edges |
 // messages) in shared memory, h to H; LN holds ln_scale then ln_bias.
 template <typename R>
@@ -264,6 +288,8 @@ __global__ void __launch_bounds__(kThreads, 1) k3_f32_sm90_kernel(const __grid_c
         const int valid = (int)min((long long)kRows, p.rows - tile * kRows);
         if constexpr (STAGE == kCompress) {
             compress_tile<NP>(ring, c, p, X, H, tile, valid);
+        } else if constexpr (STAGE == kHead) {
+            head_tile(ring, c, p, X, H, tile, valid);
         } else {
             if (t == 0) {  // tile 0's rows and LN, before the LayerNorm (later tiles': the ring's waits)
                 cp_async_wait<0>();
@@ -286,11 +312,12 @@ int launch(const Args& a, int blocks, cudaStream_t stream) {
 }
 
 bool takes(int stage, int d_part, int w_in, int w_hid, int w_out) {
-    return (stage == kCompress || stage == kCombination) && sm90::rowblock_sm90_ok(stage, d_part, w_in, w_hid, w_out);
+    return sm90::rowblock_sm90_ok(stage, d_part, w_in, w_hid, w_out);
 }
 
 size_t smem_bytes(int stage, int w_in) {
     if (stage == kCombination) return Geo<kCombination, 2>::kSmem;
+    if (stage == kHead) return Geo<kHead, 1>::kSmem;
     return w_in == 3 * kPart ? Geo<kCompress, 3>::kSmem : Geo<kCompress, 2>::kSmem;
 }
 
@@ -298,9 +325,9 @@ size_t smem_bytes(int stage, int w_in) {
 }  // namespace k3f32
 }  // namespace mtt
 
-// Whether the Hopper float32 K3 takes a stage (0 compress, 1 combination)
-// and its widths: those of the Hopper float32 K4 (rowblock_sm90.cuh),
-// d_part 128.
+// Whether the Hopper float32 K3 takes a stage (0 compress, 1 combination,
+// 2 head) and its widths: those of the Hopper float32 K4
+// (rowblock_sm90.cuh), d_part 128.
 extern "C" int mtt_rowblock_fwd_f32_sm90_ok(int stage, int d_part, int w_in, int w_hid, int w_out) {
     return mtt::k3f32::takes(stage, d_part, w_in, w_hid, w_out) ? 1 : 0;
 }
@@ -313,7 +340,7 @@ extern "C" size_t mtt_rowblock_fwd_f32_sm90_smem(int stage, int d_part, int w_in
 
 // float32 tensors, the arguments of mtt_rowblock_fwd_sm90. x0..x2: the
 // compress parts (n_parts of them), or edges, reversed and messages
-// (n_parts 3); w0_t (w_hid, w_in) and w1_t (w_out, w_hid), the transposes of
+// (n_parts 3), or the head's x (n_parts 1); w0_t (w_hid, w_in) and w1_t (w_out, w_hid), the transposes of
 // w0 and w1; out (rows, w_out). `blocks` persistent blocks (one per SM) walk
 // contiguous ranges of 64-row tiles on `stream`. Returns the CUDA error code
 // (cudaErrorInvalidValue for a shape it does not take).
@@ -324,12 +351,13 @@ extern "C" int mtt_rowblock_fwd_f32_sm90(int stage, const float* x0, const float
                                          int blocks, void* stream) {
     using namespace mtt::k3f32;
     if (!takes(stage, d_part, w_in, w_hid, w_out) || blocks <= 0 ||
-        (stage == kCompress ? n_parts * d_part != w_in : n_parts != 3))
+        (stage == kCombination ? n_parts != 3 : n_parts * d_part != w_in))
         return (int)cudaErrorInvalidValue;
     if (rows == 0) return 0;
     const Args a{{x0, x1, x2}, ln_scale, ln_bias, w0_t, b0, w1_t, b1, out, rows};
     const cudaStream_t s = (cudaStream_t)stream;
     if (stage == kCombination) return launch<kCombination, 2>(a, blocks, s);
+    if (stage == kHead) return launch<kHead, 1>(a, blocks, s);
     if (w_in == 3 * kPart) return launch<kCompress, 3>(a, blocks, s);
     return launch<kCompress, 2>(a, blocks, s);
 }

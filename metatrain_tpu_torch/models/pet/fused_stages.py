@@ -181,7 +181,9 @@ def combination_operands(inputs, weights, g):
     return d_inputs[:2], (t["xn"], t["d_pre_c"], t["h"]), vec
 
 
-def head_bwd(inputs, weights, g, weight_grads=False):
+def _head_terms(inputs, weights, g):
+    """The head backward's input cotangent and the per-row terms of its
+    weight gradients (``head_bwd`` sums them over rows)."""
     (x,) = inputs
     w0, b0, w1, b1 = weights
     cd = x.dtype
@@ -195,17 +197,33 @@ def head_bwd(inputs, weights, g, weight_grads=False):
     d_pre0 = _dot_t(d_pre1_c, w1, acc) * _silu_grad(pre0, sig0)
     d_pre0_c = d_pre0.to(cd)
     d_inputs = (_dot_t(d_pre0_c, w0, acc).to(cd),)
+    return d_inputs, {"d_pre0": d_pre0, "d_pre0_c": d_pre0_c, "h0": h0, "d_pre1": d_pre1,
+                      "d_pre1_c": d_pre1_c}
+
+
+def head_bwd(inputs, weights, g, weight_grads=False):
+    d_inputs, t = _head_terms(inputs, weights, g)
     if not weight_grads:
         return d_inputs
+    acc = t["d_pre0"].dtype
     return d_inputs + (
-        _rows_t(x, d_pre0_c, acc),
-        d_pre0.sum(0),
-        _rows_t(h0, d_pre1_c, acc),
-        d_pre1.sum(0),
+        _rows_t(inputs[0], t["d_pre0_c"], acc),
+        t["d_pre0"].sum(0),
+        _rows_t(t["h0"], t["d_pre1_c"], acc),
+        t["d_pre1"].sum(0),
     )
+
+
+def head_operands(inputs, weights, g):
+    """What the two-pass K4-dW's first pass gives for the head: the input
+    cotangent, the spilled rows (d_pre0, h0, d_pre1) and the rows of its
+    vector sums (d_pre0, d_pre1): x is the other operand."""
+    d_inputs, t = _head_terms(inputs, weights, g)
+    vec = torch.cat([t["d_pre0"], t["d_pre1"]], dim=1)
+    return d_inputs, (t["d_pre0_c"], t["h0"], t["d_pre1_c"]), vec
 
 
 COMPRESS = Stage("compress", COMPRESS_CODE, compress_math, compress_bwd, compress_operands)
 COMBINATION = Stage("combination", COMBINATION_CODE, combination_math, combination_bwd,
                     combination_operands)
-HEAD = Stage("head", HEAD_CODE, head_math, head_bwd)
+HEAD = Stage("head", HEAD_CODE, head_math, head_bwd, head_operands)

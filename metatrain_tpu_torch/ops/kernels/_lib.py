@@ -99,11 +99,11 @@ _SIGNATURES = {
     "mtt_rowblock_fwd_f32_sm90": [_I, _P, _P, _P, _I] + [_P] * 7 + [_L, _I, _I, _I, _I, _I, _P],
     "mtt_rowblock_bwd": [_I, _I, _P, _P, _P, _I] + [_P] * 13 + [_I, _P] + [_L, _I, _I, _I, _I, _P],
     "mtt_rowblock_bwd_sm90": [_I, _P, _P, _P, _I] + [_P] * 13 + [_L, _I, _I, _I, _I, _I, _P],
-    # stage, x0..x2, n_parts, ln_scale, ln_bias, b0, w0_t, w1, w0, g, d0..d2,
-    # rows, d_part, w_in, w_hid, w_out, blocks, stream
-    "mtt_rowblock_bwd_f32_sm90": [_I, _P, _P, _P, _I] + [_P] * 10 + [_L, _I, _I, _I, _I, _I, _P],
+    # stage, x0..x2, n_parts, ln_scale, ln_bias, b0, w0_t, w1, w0, w1_t, b1, g,
+    # d0..d2, rows, d_part, w_in, w_hid, w_out, blocks, stream
+    "mtt_rowblock_bwd_f32_sm90": [_I, _P, _P, _P, _I] + [_P] * 12 + [_L, _I, _I, _I, _I, _I, _P],
     # ... d0..d2, dw, spill, partials, rows, d_part, w_in, w_hid, w_out, sms, stream
-    "mtt_rowblock_bwd_dw_f32_sm90": [_I, _P, _P, _P, _I] + [_P] * 13 + [_L, _I, _I, _I, _I, _I, _P],
+    "mtt_rowblock_bwd_dw_f32_sm90": [_I, _P, _P, _P, _I] + [_P] * 15 + [_L, _I, _I, _I, _I, _I, _P],
     "mtt_rowblock_bwd_dw_f32_sm90_plan": [_I, _L, _I, _I, _I, _I, _LP],
     # stage, x0..x2, n_parts, g, spill, vec, rows, w_in, w_hid, w_out, sms,
     # partials, dw, stream
@@ -570,12 +570,12 @@ ROW_TILE = 64
 def k4_f32_sm90_takes(dtype: torch.dtype, stage: int, d_part: int, w_in: int, w_hid: int, w_out: int,
                       weight_grads: bool = False) -> bool:
     """Whether ``rowblock_bwd_cuda`` launches the Hopper float32 K4 (its C
-    query ``mtt_rowblock_bwd_f32_sm90_ok``): float32, the compress (stage 0)
-    or the combination (stage 1) at the widths of :func:`k4_sm90_shape`.
-    Without ``weight_grads`` it is K4 (counter
+    query ``mtt_rowblock_bwd_f32_sm90_ok``): float32, the compress (stage 0),
+    the combination (stage 1) or the head (stage 2) at the widths of
+    :func:`k4_sm90_shape`. Without ``weight_grads`` it is K4 (counter
     ``rowblock_bwd_f32_sm90[<stage>]``); with them, the two-pass K4-dW's first
     pass (``rowblock_bwd_dw_f32_sm90[<stage>]``, then ``rowblock_dw_product``)."""
-    return dtype == torch.float32 and stage in (0, 1) and k4_sm90_shape(stage, d_part, w_in, w_hid, w_out)
+    return dtype == torch.float32 and k4_sm90_shape(stage, d_part, w_in, w_hid, w_out)
 
 
 def k4_f32_sm90_smem(stage: int, d_part: int, w_in: int, w_hid: int, w_out: int) -> int:
@@ -583,30 +583,35 @@ def k4_f32_sm90_smem(stage: int, d_part: int, w_in: int, w_hid: int, w_out: int)
     modes), 0 where it does not take the stage. The C source's layout, every
     buffer float: three weight chunks of 128 x 16; the x tile (rows of w_in +
     4), the d_pre tile (rows of w_hid + 4), two g tiles (rows of 132); the
-    combination also ln_scale and ln_bias; rs and 4 x 128 of sum scratch."""
+    combination also ln_scale and ln_bias; rs and 4 x 128 of sum scratch;
+    the head also the h0 tile (rows of w_hid + 4)."""
     if not k4_f32_sm90_takes(torch.float32, stage, d_part, w_in, w_hid, w_out):
         return 0
     rows = ROW_TILE
     floats = 3 * 128 * 16 + rows * (w_in + 4) + rows * (w_hid + 4) + 2 * rows * (d_part + 4)
     floats += (2 * w_in if stage == 1 else 0) + rows + 4 * 128
+    floats += rows * (w_hid + 4) if stage == 2 else 0
     return 4 * floats
 
 
 def k4dw_row_floats(stage: int, w_in: int, w_hid: int) -> int:
     """The floats the two-pass K4-dW spills a row: d_pre and h, and for the
-    combination xn."""
+    combination xn; the head's d_pre0, h0 and d_pre1."""
+    if stage == 2:
+        return 3 * w_hid
     return (w_in if stage == 1 else 0) + 2 * w_hid
 
 
 def k4dw_vector_floats(stage: int, w_in: int, w_hid: int) -> int:
     """A 64-row tile's vector row: [ln_scale, ln_bias,] b0, b1 sums (w_out
-    = 128)."""
+    = 128; the head's b0 and b1 sums are those of d_pre0 and d_pre1)."""
     return (2 * w_in if stage == 1 else 0) + w_hid + 128
 
 
 def k4dw_product_tiles(stage: int, n_parts: int) -> int:
     """The second pass's 128 x 128 output tiles: the compress one per part
-    and h^T g; the combination xn^T d_pre (2 x 2) and h^T g (2 x 1)."""
+    and h^T g; the combination xn^T d_pre (2 x 2) and h^T g (2 x 1); the
+    head (one part) x^T d_pre0 and h0^T d_pre1."""
     return 6 if stage == 1 else n_parts + 1
 
 
@@ -695,9 +700,10 @@ def k3_f32_sm90_takes(dtype: torch.dtype, stage: int, d_part: int, w_in: int, w_
     """Whether ``rowblock_fwd_cuda`` launches the Hopper float32 K3 (its C
     query ``mtt_rowblock_fwd_f32_sm90_ok``, counter
     ``rowblock_fwd_f32_sm90[<stage>]``): the stages and widths of the Hopper
-    float32 K4, :func:`k4_f32_sm90_takes`. ``weight_grads`` does not enter
-    the rule: its forward up to h is the recompute of the f32 K4 and of
-    K4-dW's first pass, so the training step's forward runs it too."""
+    float32 K4, :func:`k4_f32_sm90_takes` (the head's too). ``weight_grads``
+    does not enter the rule: its forward up to h (the head's up to pre1) is
+    the recompute of the f32 K4 and of K4-dW's first pass, so the training
+    step's forward runs it too."""
     return k4_f32_sm90_takes(dtype, stage, d_part, w_in, w_hid, w_out)
 
 
@@ -705,8 +711,9 @@ def k3_f32_sm90_smem(stage: int, d_part: int, w_in: int, w_hid: int, w_out: int)
     """``mtt_rowblock_fwd_f32_sm90_smem``: its shared bytes per block, 0
     where it does not take the stage. The C source's layout, every buffer
     float: three weight chunks of 128 x 16, the x tile (rows of w_in + 4),
-    the h tile (rows of w_hid + 4); the combination also the edges |
-    messages tile (rows of w_in + 4), ln_scale and ln_bias, and rs."""
+    the h tile (rows of w_hid + 4; the head's h0); the combination also the
+    edges | messages tile (rows of w_in + 4), ln_scale and ln_bias, and
+    rs."""
     if not k3_f32_sm90_takes(torch.float32, stage, d_part, w_in, w_hid, w_out):
         return 0
     rows = ROW_TILE

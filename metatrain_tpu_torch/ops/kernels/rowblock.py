@@ -20,14 +20,15 @@ backward the Hopper K4 (``csrc/rowblock_bwd_sm90.cu``,
 streamed row tiles, the combination's LayerNorm and the head's forward
 up to pre1 (its weights resident in shared memory), so the served
 forward's xn and h and the backward's recompute round alike. The float32
-compress and combination at d_part 128 run the Hopper float32 K3 and K4
-(``csrc/rowblock_fwd_f32_sm90.cu``, ``_lib.k3_f32_sm90_takes``, and
+compress, combination and head at d_part 128 run the Hopper float32 K3
+and K4 (``csrc/rowblock_fwd_f32_sm90.cu``, ``_lib.k3_f32_sm90_takes``, and
 ``csrc/rowblock_bwd_f32_sm90.cu``, ``_lib.k4_f32_sm90_takes``; 3xTF32 on
 the tensor cores), with or without weight gradients. Both run the
-forward up to h from ``csrc/rowblock_f32_sm90.cuh``, so the f32 K4's
-recompute is K3's forward bit for bit. Without weight gradients the
-backward is K4, with them the two-pass K4-dW, its spill mode followed by
-K2-dW's split-K product (``csrc/layer_dw_sm90.cuh``);
+forward up to h (the head's up to pre1) from
+``csrc/rowblock_f32_sm90.cuh``, so the f32 K4's recompute is K3's forward
+bit for bit. Without weight gradients the backward is K4, with them the
+two-pass K4-dW, its spill mode followed by K2-dW's split-K product
+(``csrc/layer_dw_sm90.cuh``);
 :func:`rowblock_dw_operands` and :func:`rowblock_dw_from_operands` are the
 two passes' plain versions.
 The backward is differentiable again (training with forces): its
@@ -121,11 +122,11 @@ def rowblock_fwd_cuda(stage: Stage, inputs: Sequence[torch.Tensor], weights, *,
     (``csrc/rowblock_fwd_sm90.cu``, counter ``rowblock_fwd_sm90[<stage>]``)
     unless ``weight_grads`` (a weight requires grad: the backward is then
     K4-dW, and the training step keeps the general K3). In float32 the
-    compress and combination at the widths of :func:`_lib.k3_f32_sm90_takes`
-    launch the Hopper float32 K3 (``csrc/rowblock_fwd_f32_sm90.cu``,
-    counter ``rowblock_fwd_f32_sm90[<stage>]``), with or without
-    ``weight_grads``. ``sm90=False`` keeps the general body, for
-    comparisons."""
+    compress, combination and head at the widths of
+    :func:`_lib.k3_f32_sm90_takes` launch the Hopper float32 K3
+    (``csrc/rowblock_fwd_f32_sm90.cu``, counter
+    ``rowblock_fwd_f32_sm90[<stage>]``), with or without ``weight_grads``.
+    ``sm90=False`` keeps the general body, for comparisons."""
     code, parts, (ln_s, ln_b, w0, b0, w1, b1), geometry = _prepare(stage, inputs, weights)
     rows, d_part, w_in, w_hid, w_out = geometry
     dtype = inputs[0].dtype
@@ -194,7 +195,7 @@ def rowblock_bwd_cuda(stage: Stage, inputs: Sequence[torch.Tensor], weights, g,
     summing into its own float32 partial, then a second pass that adds the
     partials in block order (the same sum in every run). Tiles are 64 rows,
     or 32 or 16 for stages too wide for 64 (``_lib.rowblock_bwd_rows``). In
-    float32 the compress and combination at the widths of
+    float32 the compress, combination and head at the widths of
     :func:`_lib.k4_f32_sm90_takes` launch the Hopper float32 K4 instead
     (counter ``rowblock_bwd_f32_sm90[<stage>]``), and with ``weight_grads``
     the two-pass K4-dW (``rowblock_bwd_dw_f32_sm90[<stage>]`` and
@@ -286,13 +287,14 @@ def _k4_f32_sm90(stage: Stage, inputs, weights, wc, g, geometry, weight_grads):
     """The Hopper float32 K4 on checked float32 tensors (``wc`` = ln_scale,
     ln_bias, w0, b0, w1, b1, ln_scale and ln_bias None but for the
     combination): one persistent block per SM. Its weights go in as w0^T
-    (the forward product), w1 and w0 (the backward ones). With
+    (the forward product), w1 and w0 (the backward ones), and for the head
+    also w1^T and b1 (its recompute's pre1 product). With
     ``weight_grads`` the two-pass K4-dW: per chunk of :func:`_lib.k4dw_plan`
     the body's spill mode, then the split-K product; returns the input
     cotangents and then the float32 weight gradients in the order of
     ``weights``."""
     rows, d_part, w_in, w_hid, w_out = geometry
-    ln_s, ln_b, w0, b0, w1, _ = wc
+    ln_s, ln_b, w0, b0, w1, b1 = wc
     name = f"rowblock_bwd{'_dw' if weight_grads else ''}_f32_sm90[{stage.name}]"
     n_grads = _n_input_grads(stage, len(inputs))
     d = [torch.empty_like(inputs[i]) for i in range(n_grads)]
@@ -305,11 +307,13 @@ def _k4_f32_sm90(stage: Stage, inputs, weights, wc, g, geometry, weight_grads):
         raise ValueError(f"{name} copies rows in 16-byte pieces: its inputs must start on 16 bytes")
     lib = _lib.library()
     _lib.check_shared(lib.mtt_rowblock_bwd_f32_sm90_smem(stage.code, d_part, w_in, w_hid, w_out), name)
-    w0_t = w0.t().contiguous()  # held here until the launch
+    # held here until the launch
+    w0_t = w0.t().contiguous()
+    w1_t, b1 = (w1.t().contiguous(), b1) if stage.code == HEAD_CODE else (None, None)
     xs = [x.data_ptr() for x in inputs[:n_grads]] + [None] * (3 - n_grads)
     head = (stage.code, *xs, len(inputs), _lib.ptr(ln_s), _lib.ptr(ln_b), b0.data_ptr(),
-            w0_t.data_ptr(), w1.data_ptr(), w0.data_ptr(), g.data_ptr(),
-            *(x.data_ptr() for x in d), *[None] * (3 - n_grads))
+            w0_t.data_ptr(), w1.data_ptr(), w0.data_ptr(), _lib.ptr(w1_t), _lib.ptr(b1),
+            g.data_ptr(), *(x.data_ptr() for x in d), *[None] * (3 - n_grads))
     stream = _lib.stream_ptr(g.device)
     if not weight_grads:
         _lib.check(lib.mtt_rowblock_bwd_f32_sm90(
@@ -333,9 +337,9 @@ def _k4_f32_sm90(stage: Stage, inputs, weights, wc, g, geometry, weight_grads):
 
 class RowDwOperands(NamedTuple):
     """What the two-pass K4-dW's first pass gives: the input cotangents, the
-    spilled rows (compress: d_pre, h; combination: xn, d_pre, h) and per
-    64-row tile its vector sums (tiles, [ln_scale, ln_bias,] b0, b1), in
-    the accumulation dtype."""
+    spilled rows (compress: d_pre, h; combination: xn, d_pre, h; head:
+    d_pre0, h0, d_pre1) and per 64-row tile its vector sums (tiles,
+    [ln_scale, ln_bias,] b0, b1), in the accumulation dtype."""
 
     d_inputs: tuple
     rows: tuple
@@ -359,6 +363,9 @@ def _dw_pairs(stage: Stage, inputs, g, ops: RowDwOperands):
     if stage.code == COMBINATION_CODE:
         xn, d_pre, h = ops.rows
         return [(xn, d_pre), (h, g)]
+    if stage.code == HEAD_CODE:  # the one-part compress's, d_pre1 in g's place
+        d_pre0, h0, d_pre1 = ops.rows
+        return [(inputs[0], d_pre0), (h0, d_pre1)]
     d_pre, h = ops.rows
     return [(x, d_pre) for x in inputs] + [(h, g)]
 

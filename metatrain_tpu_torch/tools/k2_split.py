@@ -338,14 +338,15 @@ def k4_split(args, card: str) -> int:
                 spill = torch.empty(plan[3], dtype=torch.uint8, device=dev)
                 partials = torch.empty(max(plan[4], 1), n_dw, device=dev)
                 fn = lib.mtt_rowblock_bwd_dw_f32_sm90
-                fn.argtypes = [I, P, P, P, I] + [P] * 13 + [L, I, I, I, I, I, P]
+                fn.argtypes = [I, P, P, P, I] + [P] * 15 + [L, I, I, I, I, I, P]
                 vals = [stage, *map(ptr, xs + [None] * (3 - n_parts)), n_parts,
-                        *map(ptr, (ln_s, ln_b, b0, w0_t, w1, w0, g, *d, dw, spill, partials))]
+                        *map(ptr, (ln_s, ln_b, b0, w0_t, w1, w0, None, None, g, *d, dw, spill,
+                                   partials))]
             else:
                 fn = lib.mtt_rowblock_bwd_f32_sm90
-                fn.argtypes = [I, P, P, P, I] + [P] * 10 + [L, I, I, I, I, I, P]
+                fn.argtypes = [I, P, P, P, I] + [P] * 12 + [L, I, I, I, I, I, P]
                 vals = [stage, *map(ptr, xs + [None] * (3 - n_parts)), n_parts,
-                        *map(ptr, (ln_s, ln_b, b0, w0_t, w1, w0, g, *d))]
+                        *map(ptr, (ln_s, ln_b, b0, w0_t, w1, w0, None, None, g, *d))]
             # the general body takes no grid; the Hopper K4 its blocks, its K4-dW the SMs
             tail = ([D, w_in, w_hid, D] if args.body == "k4dw-general" else
                     [D, w_in, w_hid, D, sms] if args.dw else [D, w_in, w_hid, D, min(sms, tiles)])

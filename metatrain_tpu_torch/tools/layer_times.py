@@ -35,9 +35,12 @@ the Hopper K3 where the tree has it, ``rowblock_fwd_cuda(..., sm90=)``;
 it), K4-dW (``rowblock_bwd_dw[<stage>]_ms_f32``, the two-pass K4-dW there)
 and K3 (``rowblock_fwd[<stage>]_ms_f32``: the Hopper float32 K3 where the
 tree has it, ``_lib.k3_f32_sm90_takes``; ``..._general_ms_f32`` its general
-body there). Under ``digests``, a SHA-256 prefix of each output's bytes per
-kernel and dtype, from the first launch: two trees whose digests agree
-computed the same bits.
+body there). Then the float32 head at A x M rows, last: K4, K4-dW and K3
+(``rowblock_{bwd,bwd_dw,fwd}[head]_ms_f32``: the Hopper float32 head where
+the tree has it) and their general bodies (``sm90=False``,
+``..._general[head]_ms_f32``). Under ``digests``, a SHA-256 prefix of
+each output's bytes per kernel and dtype, from the first launch: two
+trees whose digests agree computed the same bits.
 """
 
 from __future__ import annotations
@@ -191,6 +194,23 @@ def main() -> int:
             times[f"{name}[{key}]_ms_f32"] = cuda_ms(fn)
         del xs, g
         torch.cuda.empty_cache()
+    # the float32 head last (so the earlier stages' inputs are those of
+    # trees without it): K4, K4-dW and K3, and the general bodies beside
+    xs = (torch.randn(rows, D, generator=gen).to(dev),)
+    weights = (lecun(D, D).to(dev), vec(D), lecun(D, D).to(dev), vec(D))
+    g = torch.randn(rows, D, generator=gen).to(dev)
+    for name, fn in (
+            ("rowblock_bwd", lambda: rb.rowblock_bwd_cuda(HEAD, xs, weights, g)),
+            ("rowblock_bwd_dw", lambda: rb.rowblock_bwd_cuda(HEAD, xs, weights, g, weight_grads=True)),
+            ("rowblock_fwd", lambda: (rb.rowblock_fwd_cuda(HEAD, xs, weights),)),
+            ("rowblock_bwd_general", lambda: rb.rowblock_bwd_cuda(HEAD, xs, weights, g, sm90=False)),
+            ("rowblock_bwd_dw_general",
+             lambda: rb.rowblock_bwd_cuda(HEAD, xs, weights, g, weight_grads=True, sm90=False)),
+            ("rowblock_fwd_general", lambda: (rb.rowblock_fwd_cuda(HEAD, xs, weights, sm90=False),))):
+        digests[f"{name}[head]_f32"] = digest(fn())
+        times[f"{name}[head]_ms_f32"] = cuda_ms(fn)
+    del xs, g
+    torch.cuda.empty_cache()
     print(json.dumps({"card": card, "root": args.root, "shape": [A, M, D, H, F], **times,
                       "digests": digests}))
     return 0

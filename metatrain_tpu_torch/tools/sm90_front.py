@@ -1,13 +1,14 @@
 """Check on a CUDA device that the Hopper K1 and the Hopper K2's recompute
 compute attn, res and h_norm to the same bits, in bfloat16 or in float32;
 or that the Hopper float32 K3 and the Hopper float32 K4's recompute compute
-a row-block stage's pre, h, xn0 and rs to the same bits.
+a row-block stage's pre, h, xn0 and rs (the head's pre0, h0 and pre1) to
+the same bits.
 
 Usage, on a machine with a CUDA device and nvcc::
 
     python metatrain_tpu_torch/tools/sm90_front.py [--dtype bfloat16|float32] [--A 2047] [--M 64]
     python metatrain_tpu_torch/tools/sm90_front.py --kernel rowblock --dtype float32 \
-        --stage compress|combination [--rows 100003]
+        --stage compress|combination|head [--rows 100003]
 
 In bfloat16 both kernels run the forward phases of ``csrc/layer_sm90.cuh``
 up to h_norm, K1 in its two-atom layout (m64n64k16 panels) and K2 in its
@@ -31,11 +32,17 @@ With ``--kernel rowblock`` (float32 only) the Hopper float32 K3
 ``csrc/rowblock_f32_sm90.cuh``. The copies take, per row, pre (after the
 pre product and its bias), h (K3: its h tile as the second product reads
 it; K4: ``hidden(pre)``, as K4-dW spills it) and, for the combination, xn0
-and rs (after the LayerNorm), on one seeded case of ``--rows`` rows (odd by
-default, so that the last 64-row tile is partial: the 3-part compress, or
-edges, reversed and messages, with the weights ``layer_times.py`` makes);
-the JSON line says per activation whether the two kernels' copies are
-bitwise equal, and whether every valid row was written.
+and rs (after the LayerNorm); for the head, pre0 and pre1 (after
+``head_pre1``) and h0 (its h tile, as the pre1 product reads it, in both).
+One seeded case of ``--rows`` rows (odd by default, so that the last 64-row
+tile is partial: the 3-part compress, or edges, reversed and messages, or
+the head's x, with the weights ``layer_times.py`` makes); the JSON line
+says per activation whether the two kernels' copies are bitwise equal, and
+whether every valid row was written. The head's output is silu(pre1), so
+its pre1 equal means the f32 K3 head's output is the f32 K4 head's
+recompute. ``chip_smoke.py`` runs the head's check through
+:func:`spawn` (the copies built beside the kernels) and
+:func:`rowblock_compare`.
 """
 
 from __future__ import annotations
@@ -109,7 +116,7 @@ KERNELS = {
 
 # the row-block stages: g_dump is (rows, RB_STRIDE) float, per row pre at 0,
 # h at 256, xn0 at 512 and rs at 768 (the tile's rows from row0, those
-# below valid)
+# below valid); the head's pre0 at 0, h0 at 256 and pre1 at 512
 RB_STRIDE = 1024
 RB_SLOTS = {"pre": 0, "h": 256, "xn0": 512, "rs": 768}
 
@@ -140,6 +147,19 @@ def _rb_rows(slot: int, src: str, ld: str, width: str) -> str:
             "    }\n")
 
 
+# the head (both kernels' head_tile): pre0 and pre1 from registers, h0
+# from the h tile
+_RB_HEAD = ("    panel_pairs([&](int j_, int h_, int m_, int n_) {\n"
+            "        if (m_ < valid) {\n"
+            f"            float* d_ = g_dump + (size_t)(row0 + m_) * {RB_STRIDE} + n_;\n"
+            "            d_[0] = pre0[j_][2 * h_];\n"
+            "            d_[1] = pre0[j_][2 * h_ + 1];\n"
+            "            d_[512] = pre1[j_][2 * h_];\n"
+            "            d_[513] = pre1[j_][2 * h_ + 1];\n"
+            "        }\n"
+            "    });\n"
+            + _rb_rows(256, "H", "Widths<kHead, 1>::LH", "128"))
+_RB_HEAD_MARK = "    head_pre1(ring, c, X, H, p.b0, p.b1, pre0, pre1);\n"
 _RB_LN = (_rb_rows(512, "X", "G::LX", "G::W_IN")
           + f"    if ((int)threadIdx.x < valid) g_dump[(size_t)(row0 + threadIdx.x) * {RB_STRIDE} + 768] = "
           "RS[threadIdx.x];\n")
@@ -170,6 +190,9 @@ ROWBLOCK_KERNELS = {
             ("        combination_pre(ring, c, X, LN, p.b0, q, pre);\n", False,
              _rb_pre("q * kCN", True)))),
     ),
+    "head": tuple((key, source, ((_RB_DUMP, False, DUMP_F32), (_RB_HEAD_MARK, False, _RB_HEAD)))
+                  for key, source in (("k3", "rowblock_fwd_f32_sm90.cu"),
+                                      ("k4", "rowblock_bwd_f32_sm90.cu"))),
 }
 
 
@@ -182,21 +205,39 @@ def instrument(text: str, marks) -> str:
     return text + SETTER
 
 
-def build(work: Path, dtype: str = "bfloat16", kernels=None) -> dict:
+def spawn(work: Path, kernels) -> dict:
+    """Start one nvcc per instrumented copy of ``kernels`` in ``work``;
+    returns the processes by key (:func:`load` waits for them)."""
     for header in CSRC.glob("*.cuh"):
         shutil.copy(header, work / header.name)
     nvcc = shutil.which("nvcc") or str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
     procs = {}
-    for key, source, marks in kernels or KERNELS[dtype]:
+    for key, source, marks in kernels:
         unit = work / source
         unit.write_text(instrument((CSRC / source).read_text(), marks))
         procs[key] = subprocess.Popen(
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler",
              "-fPIC", "-shared", str(unit), "-o", str(work / f"{key}.so")])
-    for key, proc in procs.items():
-        if proc.wait(timeout=600) != 0:
-            raise RuntimeError(f"nvcc failed on the {key} copy")
+    return procs
+
+
+def load(work: Path, procs: dict) -> dict:
+    """Wait for :func:`spawn`'s builds and load the copies (killing the
+    others where one fails)."""
+    try:
+        for key, proc in procs.items():
+            if proc.wait(timeout=600) != 0:
+                raise RuntimeError(f"nvcc failed on the {key} copy")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     return {key: ctypes.CDLL(str(work / f"{key}.so")) for key in procs}
+
+
+def build(work: Path, dtype: str = "bfloat16", kernels=None) -> dict:
+    return load(work, spawn(work, kernels or KERNELS[dtype]))
 
 
 def main() -> int:
@@ -285,11 +326,23 @@ def main() -> int:
 
 
 def rowblock_main(args, card: str) -> int:
-    """The row-block stage's pre, h (and xn0, rs) of the Hopper float32 K3
-    and the Hopper float32 K4's recompute, bitwise."""
+    """The row-block stage's pre, h (and xn0, rs; the head's pre0, h0,
+    pre1) of the Hopper float32 K3 and the Hopper float32 K4's recompute,
+    bitwise."""
+    with tempfile.TemporaryDirectory() as tmp:
+        res = rowblock_compare(args.stage, args.rows, build(Path(tmp), kernels=ROWBLOCK_KERNELS[args.stage]))
+    print(json.dumps({"card": card, "kernel": "rowblock", "dtype": "float32", **res}))
+    return 0 if all(res["bitwise_equal"].values()) and res["every_row_written"] else 2
+
+
+def rowblock_compare(stage: str, rows: int, libs: dict) -> dict:
+    """Run the instrumented copies ``libs`` (:func:`build` of
+    ``ROWBLOCK_KERNELS[stage]``) on one seeded case of ``rows`` rows;
+    returns the stage, the rows, per activation whether the two copies are
+    bitwise equal, and whether every valid row was written."""
     import torch
 
-    rows, D, stage = args.rows, 128, args.stage
+    D = 128
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
 
@@ -300,8 +353,14 @@ def rowblock_main(args, card: str) -> int:
         return (base + 0.1 * torch.randn(n, generator=gen)).to(dev)
 
     xs = [torch.randn(rows, D, generator=gen).to(dev) for _ in range(3)]
+    n_parts = 3
     if stage == "compress":
         code, w_in, w_hid = 0, 3 * D, D
+        ln_s = ln_b = None
+        w0, b0, w1, b1 = lecun(w_in, w_hid), vec(w_hid), lecun(w_hid, D), vec(D)
+    elif stage == "head":
+        code, w_in, w_hid, n_parts = 2, D, D, 1
+        xs = xs[:1] + [None, None]
         ln_s = ln_b = None
         w0, b0, w1, b1 = lecun(w_in, w_hid), vec(w_hid), lecun(w_hid, D), vec(D)
     else:
@@ -312,44 +371,44 @@ def rowblock_main(args, card: str) -> int:
     w0_t, w1_t = w0.t().contiguous(), w1.t().contiguous()
     blocks = min(-(-rows // 64), torch.cuda.get_device_properties(dev).multi_processor_count)
     out, d = torch.empty(rows, D, device=dev), [torch.empty(rows, D, device=dev) for _ in range(3)]
-    n_d = 3 if code == 0 else 2
+    n_d = {0: 3, 1: 2, 2: 1}[code]
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
+    # the head's K4 also takes w1^T and b1
+    w1_t4, b1_4 = (w1_t, b1) if code == 2 else (None, None)
     dumps = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        libs = build(Path(tmp), kernels=ROWBLOCK_KERNELS[stage])
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        runs = {
-            "k3": ("mtt_rowblock_fwd_f32_sm90", [I, P, P, P, I] + [P] * 7,
-                   [code, *map(ptr, xs), 3, ptr(ln_s), ptr(ln_b), ptr(w0_t), ptr(b0), ptr(w1_t),
-                    ptr(b1), ptr(out)]),
-            "k4": ("mtt_rowblock_bwd_f32_sm90", [I, P, P, P, I] + [P] * 10,
-                   [code, *map(ptr, xs), 3, ptr(ln_s), ptr(ln_b), ptr(b0), ptr(w0_t), ptr(w1),
-                    ptr(w0), ptr(g), *(ptr(x) for x in d[:n_d]), *[None] * (3 - n_d)]),
-        }
-        for key, (entry, ptypes, call) in runs.items():
-            dump = torch.full((rows, RB_STRIDE), float("nan"), device=dev)
-            lib = libs[key]
-            fn = getattr(lib, entry)
-            fn.argtypes = ptypes + [L, I, I, I, I, I, P]
-            lib.dump_set.argtypes = [P]
-            if lib.dump_set(dump.data_ptr()) != 0:
-                raise RuntimeError("could not set the dump buffer")
-            if fn(*call, rows, D, w_in, w_hid, D, blocks, stream) != 0:
-                raise RuntimeError(f"{entry} failed to launch")
-            torch.cuda.synchronize()
-            dumps[key] = dump
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    runs = {
+        "k3": ("mtt_rowblock_fwd_f32_sm90", [I, P, P, P, I] + [P] * 7,
+               [code, *map(ptr, xs), n_parts, ptr(ln_s), ptr(ln_b), ptr(w0_t), ptr(b0), ptr(w1_t),
+                ptr(b1), ptr(out)]),
+        "k4": ("mtt_rowblock_bwd_f32_sm90", [I, P, P, P, I] + [P] * 12,
+               [code, *map(ptr, xs), n_parts, ptr(ln_s), ptr(ln_b), ptr(b0), ptr(w0_t), ptr(w1),
+                ptr(w0), ptr(w1_t4), ptr(b1_4), ptr(g), *(ptr(x) for x in d[:n_d]), *[None] * (3 - n_d)]),
+    }
+    for key, (entry, ptypes, call) in runs.items():
+        dump = torch.full((rows, RB_STRIDE), float("nan"), device=dev)
+        lib = libs[key]
+        fn = getattr(lib, entry)
+        fn.argtypes = ptypes + [L, I, I, I, I, I, P]
+        lib.dump_set.argtypes = [P]
+        if lib.dump_set(dump.data_ptr()) != 0:
+            raise RuntimeError("could not set the dump buffer")
+        if fn(*call, rows, D, w_in, w_hid, D, blocks, stream) != 0:
+            raise RuntimeError(f"{entry} failed to launch")
+        torch.cuda.synchronize()
+        dumps[key] = dump
     slots = {"pre": slice(0, w_hid), "h": slice(256, 256 + w_hid)}
     if code == 1:
         slots |= {"xn0": slice(512, 512 + w_in), "rs": slice(768, 769)}
+    if code == 2:
+        slots = {"pre0": slice(0, D), "h0": slice(256, 256 + D), "pre1": slice(512, 512 + D)}
     equal = {name: torch.equal(dumps["k3"][:, s], dumps["k4"][:, s]) for name, s in slots.items()}
     written = all(bool(torch.isfinite(dumps[k][:, s]).all()) for k in dumps for s in slots.values())
-    print(json.dumps({"card": card, "kernel": "rowblock", "dtype": "float32", "stage": stage,
-                      "rows": rows, "bitwise_equal": equal, "every_row_written": written}))
-    return 0 if all(equal.values()) and written else 2
+    return {"stage": stage, "rows": rows, "bitwise_equal": equal, "every_row_written": written}
 
 
 if __name__ == "__main__":

@@ -83,8 +83,8 @@ def _stages(name):
     (F32, 0, 128, 256, 128, 128, True, True),
     (F32, 1, 128, 256, 256, 128, False, True),   # the combination
     (F32, 1, 128, 256, 256, 128, True, True),
-    (F32, 2, 128, 128, 128, 128, False, False),  # the head keeps the general body
-    (F32, 2, 128, 128, 128, 128, True, False),
+    (F32, 2, 128, 128, 128, 128, False, True),   # the head: the Hopper float32 head
+    (F32, 2, 128, 128, 128, 128, True, True),
     (BF16, 0, 128, 384, 128, 128, False, False),  # bf16: the Hopper K3's
     (BF16, 1, 128, 256, 256, 128, True, False),   # bf16 training: the general body
     (F32, 0, 256, 768, 256, 256, False, False),   # d_pet 256
@@ -116,9 +116,9 @@ def test_smem_budget_fits_wherever_the_rule_takes():
                     if nbytes:
                         assert nbytes <= _lib.MAX_SHARED_BYTES
                         taken[(stage, w_in)] = nbytes
-    # the ring, the x tile, the h tile; the combination also the edges |
-    # messages tile, ln_scale and ln_bias, rs
-    assert taken == {(0, 256): 124928, (0, 384): 157696, (1, 256): 226560}
+    # the ring, the x tile, the h tile (the head's h0); the combination also
+    # the edges | messages tile, ln_scale and ln_bias, rs
+    assert taken == {(0, 256): 124928, (0, 384): 157696, (1, 256): 226560, (2, 128): 92160}
     # the C source states the same layout
     text = (_lib.CSRC / "rowblock_fwd_f32_sm90.cu").read_text()
     assert "157,696 at 3 parts, 124,928 at 2, 226,560 for the combination" in text

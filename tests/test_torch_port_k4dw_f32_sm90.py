@@ -179,8 +179,8 @@ def test_plan_at_the_crystal():
     (F32, 0, 128, 256, 128, 128, True, True),
     (F32, 1, 128, 256, 256, 128, False, True),   # the combination
     (F32, 1, 128, 256, 256, 128, True, True),
-    (F32, 2, 128, 128, 128, 128, False, False),  # the head keeps the general body
-    (F32, 2, 128, 128, 128, 128, True, False),
+    (F32, 2, 128, 128, 128, 128, False, True),   # the head: the Hopper float32 head
+    (F32, 2, 128, 128, 128, 128, True, True),
     (BF16, 0, 128, 384, 128, 128, False, False),  # bf16: the Hopper K4's
     (BF16, 1, 128, 256, 256, 128, True, False),   # bf16 K4-dW: the general body
     (F32, 0, 256, 768, 256, 256, True, False),    # d_pet 256
@@ -205,8 +205,8 @@ def test_smem_budget_fits_wherever_the_rule_takes():
                         assert nbytes <= _lib.MAX_SHARED_BYTES
                         taken[(stage, w_in)] = nbytes
     # the ring, the x tile, d_pre, two g tiles, rs and the sums' scratch;
-    # the combination also ln_scale and ln_bias
-    assert taken == {(0, 256): 194816, (0, 384): 227584, (1, 256): 229632}
+    # the combination also ln_scale and ln_bias, the head the h0 tile
+    assert taken == {(0, 256): 194816, (0, 384): 227584, (1, 256): 229632, (2, 128): 195840}
     # the C source states the same layout
     text = (_lib.CSRC / "rowblock_bwd_f32_sm90.cu").read_text()
     assert "227,584 at 3 parts,\n// 194,816 at 2, 229,632 for the combination" in text
