@@ -34,9 +34,14 @@ device and exits non-zero without one. Phases (any failure propagates):
    of the kernel and plain paths in both dtypes, and a torch.profiler
    breakdown of the bf16 kernel path.
    GNN block: the same for PET with ``fused_gnn=True``, each GNN layer's
-   fused layers and node stream as one block: the block's forward and
-   backward kernels must launch twice per call each (one GNN layer each)
-   and K1/K2 not at all; the plain paths run the block's plain version.
+   fused layers and node stream as one block. In bf16 that is the Hopper
+   block, a sequence of launches: per call (``GNN_SM90_PER_CALL``) the
+   Hopper K1 8 times (4 forward, 4 in the backward's recompute), the Hopper
+   K2 4, the node-stream forward kernel of ``csrc/gnn_node_sm90.cu`` 10 and
+   its backward 6, 6 block calls each way in the 3 calls, and the general
+   block and K1/K2 bodies never; the f32 call launches the general block's
+   forward and backward kernels twice each (one GNN layer each) and no
+   Hopper block kernel. The plain paths run the block's plain version.
 3b. physics options: two PETs at the defaults on the crystal, served as
    phase 3 in bf16 and f32, kernel and plain, with phase 3's launch counts
    (the Hopper K1/K2, K3/K4 and heads, the general bodies never, both
@@ -241,7 +246,18 @@ device and exits non-zero without one. Phases (any failure propagates):
    two launches on the same inputs must give bitwise-equal weight
    gradients. The GNN block (2 attention layers, d_node = 256) also gets
    the time of the per-layer path it replaces (``per_layer_ms``: K1 or K2
-   per layer and the node stream in PyTorch ops). K1-W8A8 and K2-W8A8 at
+   per layer and the node stream in PyTorch ops; the forward with no weight
+   requiring grad, as served). Its general kernels are held with
+   ``sm90=False`` (``gnn_block_{fwd,bwd,bwd_dw}``); the Hopper block
+   (``gnn_block_{fwd,bwd}_sm90``, bf16) is held to the plain version at 2e-2
+   relative RMS at the served shape and, under ``shapes``, at M = 64, 48, 16
+   and 1 or 3 layers with and without the expansion (d_node 256; 128 at M
+   = 64, 2 layers; A = 1,024; each run launching the Hopper K1/K2 and the
+   node kernels and never the general block); its backward's recomputed
+   per-layer edges and node features must equal the forward's bit for bit
+   and two launches of it the same bits. The node-stream kernels
+   (``gnn_node_{fwd,bwd}_sm90``) alone in every mode against
+   ``node_stream_{fwd,bwd}_math``, timed in the middle layer's. K1-W8A8 and K2-W8A8 at
    the served shape in bfloat16 only (relative RMS <= 2e-2 per output), a
    calibration from the plain probe on the same inputs; their bound counts
    the int8 products at 1,979 TOPS and the bf16 ones at 989 TFLOP/s. The
@@ -1072,6 +1088,14 @@ def plan_table():
             b = _lib.layer_bwd_plan(M, D, H, F, False, True)
             pairs.append((_lib.plan_query(lib.mtt_fused_layer_bwd_w8a8_smem, M, D, H, F),
                           (4 * b.smem_floats, b.ws_floats)))
+            # the Hopper node-stream kernels' widths and budgets
+            if M == 16:
+                for Nn in range(64, 1025, 64):
+                    for bwd in (0, 1):
+                        pairs.append(((bool(lib.mtt_gnn_node_sm90_ok(Nn, D)),
+                                       lib.mtt_gnn_node_sm90_smem(Nn, D, bwd)),
+                                      (_lib.gnn_node_sm90_shape(Nn, D),
+                                       _lib.gnn_node_sm90_smem(Nn, D, bool(bwd)))))
             # the Hopper K1's and K2's dispatch rules and budgets (bf16 and
             # float32), C vs Python, at heads of 16 and of 8
             for heads in (H, 2 * H):
@@ -1229,10 +1253,12 @@ def check_layer_shapes_on_card(gen, device, report, A=256):
         for dtype in (torch.float32, torch.bfloat16):
             e, n, ge, gn = (x.to(dtype) for x in (edges_b, node, g_edge_b, g_node))
             for name, k_fn, p_fn in (
-                ("gnn_block_fwd", lambda: gb.gnn_block_fwd_cuda(e, n, cf_b, flat, H, scale, 2, True),
+                ("gnn_block_fwd",
+                 lambda: gb.gnn_block_fwd_cuda(e, n, cf_b, flat, H, scale, 2, True, sm90=False),
                  lambda: gb.gnn_block_math(e, n, cf_b, lws, cws, H, scale, True)),
                 ("gnn_block_bwd",
-                 lambda: gb.gnn_block_bwd_cuda(e, n, cf_b, flat, ge, gn, H, scale, 2, True),
+                 lambda: gb.gnn_block_bwd_cuda(e, n, cf_b, flat, ge, gn, H, scale, 2, True,
+                                               sm90=False),
                  lambda: gb.gnn_block_bwd_math(e, n, cf_b, lws, cws, ge, gn, H, scale, True)),
             ):
                 err, worst = compare(k_fn(), p_fn(), dtype)
@@ -1333,11 +1359,12 @@ def gnn_case(A, M, D, H, F, N, L, gen, device, expanded=True):
 
 
 def check_gnn_block_variants(M, D, H, F, N, gen, device, A=256):
-    """The block's kernels vs their plain versions in the configurations
-    the default model does not run: without the node expansion (d_node ==
-    d_pet) over 3 layers (two edge-cotangent buffers) and with it over one
-    layer; float32 and bfloat16, the bounds of :func:`compare` and
-    :func:`compare_dw`. Returns the errors; raises past a bound."""
+    """The block's general kernels (``sm90=False``) vs their plain versions
+    in the configurations the default model does not run: without the node
+    expansion (d_node == d_pet) over 3 layers (two edge-cotangent buffers)
+    and with it over one layer; float32 and bfloat16, the bounds of
+    :func:`compare` and :func:`compare_dw`. Returns the errors; raises past a
+    bound."""
     from metatrain_tpu_torch.ops.kernels import gnn_block as gb
 
     scale = 1.0 / math.sqrt(D // H)
@@ -1347,7 +1374,7 @@ def check_gnn_block_variants(M, D, H, F, N, gen, device, A=256):
                                                                    device, expanded)
         for dtype in (torch.float32, torch.bfloat16):
             e, n, ge, gn = (x.to(dtype) for x in (edges, node, g_edge, g_node))
-            fwd = compare(gb.gnn_block_fwd_cuda(e, n, cf, flat, H, scale, L, expanded),
+            fwd = compare(gb.gnn_block_fwd_cuda(e, n, cf, flat, H, scale, L, expanded, sm90=False),
                           gb.gnn_block_math(e, n, cf, lws, cws, H, scale, expanded), dtype)
             k = gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, expanded, True)
             p = gb.gnn_block_bwd_math(e, n, cf, lws, cws, ge, gn, H, scale, expanded, True)
@@ -1388,16 +1415,23 @@ def per_layer_layers(lws, cws, H, N, dtype, device):
 
 def per_layer_fns(layers, edges, node, cf, g_edge, g_node):
     """(forward, backward, backward with weight gradients) callables of the
-    per-layer path: the forward; ``autograd.grad`` of its outputs to the
-    inputs (2 x K2 and the node stream's backward); and to the inputs and
-    the weights (2 x K2-dW), on a retained graph."""
+    per-layer path: the forward, with no weight requiring grad (as the served
+    call runs it: the Hopper K1 in bf16); ``autograd.grad`` of its outputs
+    to the inputs (2 x K2 and the node stream's backward); and to the inputs
+    and the weights (2 x K2-dW), on a retained graph."""
+    params = [p for layer in layers for p in layer.parameters()]
+
     def fwd():
+        flags = [p.requires_grad for p in params]
+        for p in params:
+            p.requires_grad_(False)
         n, e = node, edges
         for layer in layers:
             n, e = layer(n, e, cf)
+        for p, flag in zip(params, flags):
+            p.requires_grad_(flag)
         return e, n
 
-    params = [p for layer in layers for p in layer.parameters()]
     x = [t.detach().requires_grad_(True) for t in (edges, node)]
 
     def graph(weights):
@@ -1416,43 +1450,75 @@ def per_layer_fns(layers, edges, node, cf, g_edge, g_node):
     return fwd, bwd_fn(False), bwd_fn(True)
 
 
+def gnn_bounds(A, M, D, H, F, N, n_weights, dtype, L):
+    """(bytes, operations) of the block's forward, backward and
+    weight-gradient backward and of the Hopper node-stream kernels
+    (forward: the update and the next contraction; backward: the
+    contraction's backward of the layer above and the update's, its forward
+    recomputed), at A atoms: each input read once, each output written once.
+    The dense products per attention layer as check_fused_layer counts
+    them, the node stream's per atom (contraction, expansion, center
+    MLP)."""
+    s_ = torch.tensor([], dtype=dtype).element_size()
+    dense = A * M * (8 * D * D + 6 * D * F)
+    attention = 4 * A * H * M * M * (D // H)
+    center = 2 * A * (2 * N * D + 6 * N * N)
+    act = A * M * D * s_ + A * N * s_  # one (edges, node) pair
+    update = N * D + D * N + 6 * N * N + 7 * N  # w_contr, w_exp, w_in_c, w_out_c, vectors
+    return {
+        "gnn_block_fwd": (2 * act + A * M * 4 + n_weights * s_, L * (dense + attention + center)),
+        "gnn_block_bwd": (4 * act + 2 * A * M * 4 + n_weights * s_,
+                          L * (2 * dense + 3 * attention + 2 * center)),
+        "gnn_block_bwd_dw": (4 * act + 2 * A * M * 4 + n_weights * (s_ + 4),
+                             L * (3 * dense + 3 * attention + 3 * center)),
+        "gnn_node_fwd_sm90": (2 * A * (2 * N + 2 * D) + 2 * (update + D),
+                              2 * A * (2 * N * D + 6 * N * N)),
+        "gnn_node_bwd_sm90": (A * (2 * N + 2 * D + 4 * N + 2 * D) + A * (2 * D + 4 * N)
+                              + 2 * update, 2 * A * (3 * N * D + 10 * N * N)),
+    }
+
+
 def check_gnn_block(A, M, D, H, F, N, gen, device, report, L=2):
-    """The GNN block's kernels vs their plain versions at the served shape,
-    float32 and bfloat16, with the per-layer path's time beside them."""
+    """The GNN block vs its plain versions at the served shape: the general
+    kernels (``sm90=False``) in float32 and bfloat16, the Hopper block
+    (``gnn_block_{fwd,bwd}_sm90``, the served bf16 path) and its node-stream
+    kernels in bfloat16, with the per-layer path's time beside the block's
+    entries. The Hopper backward's recompute must give the forward's
+    per-layer edges and node features bit for bit, and two launches of it
+    the same bits."""
     from metatrain_tpu_torch.ops.kernels import gnn_block as gb
 
     edges, node, cf, lws, cws, flat, g_edge, g_node = gnn_case(A, M, D, H, F, N, L, gen, device)
     scale = 1.0 / math.sqrt(D // H)
-    # products per attention layer, as check_fused_layer counts them, and
-    # the node stream's per atom (contraction, expansion, center MLP)
-    dense = A * M * (8 * D * D + 6 * D * F)
-    attention = 4 * A * H * M * M * (D // H)
-    center = 2 * A * (2 * N * D + 6 * N * N)
     n_weights = sum(x.numel() for x in flat)
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
-        s_ = torch.tensor([], dtype=dtype).element_size()
-        act = A * M * D * s_ + A * N * s_  # one (edges, node) pair
-        for name, nbytes, flops in (
-            ("gnn_block_fwd", 2 * act + A * M * 4 + n_weights * s_,
-             L * (dense + attention + center)),
-            ("gnn_block_bwd", 4 * act + 2 * A * M * 4 + n_weights * s_,
-             L * (2 * dense + 3 * attention + 2 * center)),
-            ("gnn_block_bwd_dw", 4 * act + 2 * A * M * 4 + n_weights * (s_ + 4),
-             L * (3 * dense + 3 * attention + 3 * center)),
-        ):
+        bounds = gnn_bounds(A, M, D, H, F, N, n_weights, dtype, L)
+        names = ["gnn_block_fwd", "gnn_block_bwd", "gnn_block_bwd_dw"]
+        if dtype == torch.bfloat16:
+            names += ["gnn_block_fwd_sm90", "gnn_block_bwd_sm90"]
+        for name in names:
             entry = report.setdefault(name, {"library_ms": None})
-            record_bound(entry, tag, nbytes, flops, dtype)
+            record_bound(entry, tag, *bounds[name.replace("_sm90", "")], dtype)
         e, n, ge, gn = (x.to(dtype) for x in (edges, node, g_edge, g_node))
         plain_ws = (lws, cws)
-        cases = (
+        cases = [
             ("gnn_block_fwd",
-             lambda: gb.gnn_block_fwd_cuda(e, n, cf, flat, H, scale, L, True),
+             lambda: gb.gnn_block_fwd_cuda(e, n, cf, flat, H, scale, L, True, sm90=False),
              lambda: gb.gnn_block_math(e, n, cf, *plain_ws, H, scale, True)),
             ("gnn_block_bwd",
-             lambda: gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, True),
+             lambda: gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, True, sm90=False),
              lambda: gb.gnn_block_bwd_math(e, n, cf, *plain_ws, ge, gn, H, scale, True)),
-        )
+        ]
+        if dtype == torch.bfloat16:
+            cases += [
+                ("gnn_block_fwd_sm90",
+                 lambda: gb.gnn_block_fwd_cuda(e, n, cf, flat, H, scale, L, True),
+                 lambda: gb.gnn_block_math(e, n, cf, *plain_ws, H, scale, True)),
+                ("gnn_block_bwd_sm90",
+                 lambda: gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, True),
+                 lambda: gb.gnn_block_bwd_math(e, n, cf, *plain_ws, ge, gn, H, scale, True)),
+            ]
         for name, k_fn, p_fn in cases:
             k_out, p_out = k_fn(), p_fn()
             torch.cuda.synchronize()
@@ -1473,12 +1539,133 @@ def check_gnn_block(A, M, D, H, F, N, gen, device, report, L=2):
             3, report,
         )
         torch.cuda.empty_cache()
+        if dtype == torch.bfloat16:
+            check_gnn_sm90_recompute(e, n, cf, flat, ge, gn, H, scale, L, report)
+            check_gnn_node_kernels(A, D, N, cws, bounds, gen, device, report)
         layers = per_layer_layers(lws, cws, H, N, dtype, device)
         fns = per_layer_fns(layers, e, n, cf, ge, gn)
         for name, fn in zip(("gnn_block_fwd", "gnn_block_bwd", "gnn_block_bwd_dw"), fns):
             with torch.no_grad() if name == "gnn_block_fwd" else torch.enable_grad():
                 report[name][f"per_layer_ms_{tag}"] = cuda_ms(fn)
+                if dtype == torch.bfloat16 and name != "gnn_block_bwd_dw":
+                    report[f"{name}_sm90"]["per_layer_ms_bf16"] = report[name]["per_layer_ms_bf16"]
         del layers, fns
+        torch.cuda.empty_cache()
+
+
+def check_gnn_sm90_recompute(e, n, cf, flat, ge, gn, H, scale, L, report):
+    """The Hopper backward's recomputed per-layer edges and node features
+    equal the forward's bit for bit (one launch sequence), and two backward
+    launches give the same bits."""
+    from metatrain_tpu_torch.ops.kernels import gnn_block as gb
+
+    fwd_trace, bwd_trace = [], []
+    gb.gnn_block_fwd_cuda(e, n, cf, flat, H, scale, L, True, trace=fwd_trace)
+    first = gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, True, trace=bwd_trace)
+    again = gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, True)
+    torch.cuda.synchronize()
+    same = all(torch.equal(f[0], b[0]) and torch.equal(f[1], b[1])
+               for f, b in zip(fwd_trace, bwd_trace))
+    if len(fwd_trace) != L or len(bwd_trace) != L or not same:
+        fail("the Hopper block's recompute differs from its forward")
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        fail("two launches of the Hopper block's backward differ")
+    report["gnn_block_bwd_sm90"]["recompute_equal_forward"] = True
+    report["gnn_block_bwd_sm90"]["bitwise_repeat_bf16"] = True
+    del fwd_trace, bwd_trace, first, again
+    torch.cuda.empty_cache()
+
+
+def check_gnn_node_kernels(A, D, N, cws, bounds, gen, device, report):
+    """The Hopper node-stream kernels alone at the served shape, bf16, in
+    the modes of a middle layer boundary (the update and the next
+    contraction; the contraction's backward and the update's): kernel vs
+    plain (``node_stream_{fwd,bwd}_math``) and times; the other modes (the
+    first contraction, the last update, the last contraction's backward)
+    held to the plain version too."""
+    from metatrain_tpu_torch.ops.kernels import gnn_block as gb
+
+    bf = torch.bfloat16
+    node = torch.randn(A, N, generator=gen).to(device, bf)
+    cattn = torch.randn(A, D, generator=gen).to(device, bf)
+    dn = torch.randn(A, N, generator=gen).to(device)
+    d_center = torch.randn(A, D, generator=gen).to(device, bf)
+    cw, cn = cws[0], cws[1]
+    nw, nn_ = gb.node_sm90_weights(cw), gb.node_sm90_weights(cn)
+    fwd = lambda: gb.gnn_node_fwd_cuda(node, cattn, nw, nn_)  # noqa: E731
+    bwd = lambda: gb.gnn_node_bwd_cuda(node, cattn, dn, d_center, nn_, nw)  # noqa: E731
+    cases = {
+        "gnn_node_fwd_sm90": [(fwd, lambda: gb.node_stream_fwd_math(node, cattn, cw, cn)),
+                              (lambda: gb.gnn_node_fwd_cuda(node, None, None, nn_)[1:],
+                               lambda: gb.node_stream_fwd_math(node, None, None, cn)[1:]),
+                              (lambda: gb.gnn_node_fwd_cuda(node, cattn, nw, None)[:1],
+                               lambda: gb.node_stream_fwd_math(node, cattn, cw, None)[:1])],
+        "gnn_node_bwd_sm90": [(bwd, lambda: gb.node_stream_bwd_math(node, cattn, dn, d_center,
+                                                                    cn, cw)),
+                              (lambda: gb.gnn_node_bwd_cuda(node, cattn, dn.to(bf), None, None, nw),
+                               lambda: gb.node_stream_bwd_math(node, cattn, dn.to(bf), None, None,
+                                                               cw)),
+                              (lambda: (gb.gnn_node_bwd_cuda(None, None, dn, d_center, nw, None),),
+                               lambda: (gb.node_stream_bwd_math(None, None, dn, d_center, cw,
+                                                                None),))],
+    }
+    for name, runs in cases.items():
+        entry = report.setdefault(name, {"library_ms": None})
+        record_bound(entry, "bf16", *bounds[name], bf)
+        errs, worst = [], 0.0
+        for k_fn, p_fn in runs:
+            k_out, p_out = k_fn(), p_fn()
+            torch.cuda.synchronize()
+            err, ratio = compare(k_out, p_out, bf)
+            errs.append(err)
+            worst = max(worst, ratio)
+        entry["max_abs_err_bf16"] = errs[0]
+        entry["other_modes_max_abs_err_bf16"] = errs[1:]
+        entry["bound_ratio_bf16"] = worst
+        k_fn, p_fn = runs[0]
+        entry["ms_bf16"] = cuda_ms(k_fn)
+        entry["plain_ms_bf16"] = cuda_ms(p_fn)
+    torch.cuda.empty_cache()
+
+
+def check_gnn_sm90_shapes(D, H, F, gen, device, report, A=1024):
+    """The Hopper block vs its plain versions at M = 64, 48, 16 and 1 or 3
+    layers, with and without the node expansion (d_node 256; and d_node 128
+    at M = 64, 2 layers), bf16, A atoms: relative RMS <= 2e-2 per output
+    and times under the Hopper entries' ``shapes``. Each run must launch the
+    Hopper K1 and K2 and, with the expansion, the node kernels, and never
+    the general block."""
+    from metatrain_tpu_torch.ops.kernels import _lib
+    from metatrain_tpu_torch.ops.kernels import gnn_block as gb
+
+    bf = torch.bfloat16
+    configs = [(M, L, expanded, 256) for M in (64, 48, 16) for L in (1, 3)
+               for expanded in (True, False)] + [(64, 2, True, 128)]
+    for M, L, expanded, N in configs:
+        edges, node, cf, lws, cws, flat, g_edge, g_node = gnn_case(A, M, D, H, F, N, L, gen, device,
+                                                                   expanded)
+        e, n, ge, gn = (x.to(bf) for x in (edges, node, g_edge, g_node))
+        scale = 1.0 / math.sqrt(D // H)
+        key = f"M{M}_L{L}_{f'N{N}' if expanded else 'plain_node'}_A{A}"
+        for name, k_fn, p_fn in (
+            ("gnn_block_fwd_sm90",
+             lambda: gb.gnn_block_fwd_cuda(e, n, cf, flat, H, scale, L, expanded),
+             lambda: gb.gnn_block_math(e, n, cf, lws, cws, H, scale, expanded)),
+            ("gnn_block_bwd_sm90",
+             lambda: gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, expanded),
+             lambda: gb.gnn_block_bwd_math(e, n, cf, lws, cws, ge, gn, H, scale, expanded)),
+        ):
+            _lib.LAUNCHES.clear()
+            k_out = k_fn()
+            torch.cuda.synchronize()
+            launched = dict(_lib.LAUNCHES)
+            want = {"fused_layer_fwd_sm90"} | ({"fused_layer_bwd_sm90"} if "bwd" in name else set())
+            want |= {"gnn_node_fwd_sm90"} | ({"gnn_node_bwd_sm90"} if "bwd" in name else set()) \
+                if expanded else set()
+            if set(launched) != want:
+                fail(f"{name} at {key} launched {launched}, expected {sorted(want)}")
+            err, worst = compare(k_out, p_fn(), bf)
+            shape_entry(report, name, key, bf, err, worst, cuda_ms(k_fn, 3), cuda_ms(p_fn, 2))
         torch.cuda.empty_cache()
 
 
@@ -1987,7 +2174,16 @@ FUSED_KERNELS = ["fused_layer_fwd", "fused_layer_bwd", "permute", "permute_acc"]
 # the served shape (M = 64, D = 128) in bf16 takes the Hopper K1 and K2
 FUSED_SM90_KERNELS = ["fused_layer_fwd_sm90", "fused_layer_bwd_sm90", "permute",
                       "permute_acc"] + ROWBLOCK_SM90_KERNELS
-GNN_KERNELS = ["gnn_block_fwd", "gnn_block_bwd", "permute", "permute_acc"] + ROWBLOCK_SM90_KERNELS
+# the served bf16 call takes the Hopper block: each attention layer on the
+# Hopper K1 and K2, the node stream on the node-stream kernels
+GNN_KERNELS = (["gnn_node_fwd_sm90", "gnn_node_bwd_sm90", "fused_layer_fwd_sm90",
+                "fused_layer_bwd_sm90", "permute", "permute_acc"] + ROWBLOCK_SM90_KERNELS)
+# its launches per call (two blocks of two layers, d_node 256): the forward
+# K1 2 and node 3 a block; the backward recomputes with the forward's
+# sequence (K1 2, node 2: no last update), then K2 2 and node backward 3
+GNN_SM90_PER_CALL = {"fused_layer_fwd_sm90": 8, "fused_layer_bwd_sm90": 4,
+                     "gnn_node_fwd_sm90": 10, "gnn_node_bwd_sm90": 6}
+GNN_GENERAL = ("gnn_block_fwd", "gnn_block_bwd", "gnn_block_bwd_dw")
 UNFUSED_KERNELS = ["window_attention_fwd", "window_attention_bwd", "permute", "permute_acc",
                    "rowblock_fwd_sm90[compress]", "rowblock_bwd_sm90[compress]",
                    "rowblock_fwd_sm90[head]", "rowblock_bwd_sm90[head]"]
@@ -2128,6 +2324,7 @@ def check_slice(device, hypers, expected, n_cells=14, steps=3, timing=True, fuse
     # the served force calls: every counter starts at 0 here
     calc = calcs["kernel_bf16"]
     _lib.LAUNCHES.clear()
+    _lib.CALLS.clear()
     positions = system.positions.copy()
     for _ in range(steps):
         current = System(positions, system.types, system.cell, system.pbc)
@@ -2145,6 +2342,7 @@ def check_slice(device, hypers, expected, n_cells=14, steps=3, timing=True, fuse
         fail(f"kernels not launched in the served force calls: {missing}")
     report["launches"] = launches
     report["launches_per_call"] = {k: v / steps for k, v in launches.items()}
+    report["calls"] = dict(_lib.CALLS)
     report["padded"] = [calc._last_batch.n_atoms_padded, calc._last_batch.max_neighbors]
 
     final = System(positions, system.types, system.cell, system.pbc)
@@ -3525,6 +3723,16 @@ SOURCES = {
                       "metatrain_tpu/ops/pallas/fused_layer.py:1805"),
     "gnn_block_bwd_dw": ("metatrain_tpu_torch/csrc/gnn_block_bwd.cu",
                          "metatrain_tpu/ops/pallas/fused_layer.py:1805 (weight_grads=True)"),
+    "gnn_block_fwd_sm90": ("metatrain_tpu_torch/ops/kernels/gnn_block.py (block_forward: "
+                           "csrc/fused_layer_fwd_sm90.cu, csrc/gnn_node_sm90.cu)",
+                           "metatrain_tpu/ops/pallas/fused_layer.py:1759 (exact bf16)"),
+    "gnn_block_bwd_sm90": ("metatrain_tpu_torch/ops/kernels/gnn_block.py (block_backward: "
+                           "csrc/fused_layer_{fwd,bwd}_sm90.cu, csrc/gnn_node_sm90.cu)",
+                           "metatrain_tpu/ops/pallas/fused_layer.py:1805 (exact bf16)"),
+    "gnn_node_fwd_sm90": ("metatrain_tpu_torch/csrc/gnn_node_sm90.cu",
+                          "metatrain_tpu/ops/pallas/fused_layer.py:1759 (the node stream, bf16)"),
+    "gnn_node_bwd_sm90": ("metatrain_tpu_torch/csrc/gnn_node_sm90.cu",
+                          "metatrain_tpu/ops/pallas/fused_layer.py:1805 (the node stream, bf16)"),
     "fused_layer_fwd_w8a8": ("metatrain_tpu_torch/csrc/fused_layer_fwd.cu",
                              "metatrain_tpu/ops/pallas/fused_layer.py:1161 (calib, W8A8)"),
     "fused_layer_bwd_w8a8": ("metatrain_tpu_torch/csrc/fused_layer_bwd.cu",
@@ -3540,12 +3748,15 @@ SOURCES = {
                                 "(weight_grads=True, int8 scores)"),
 }
 UNFUSED_PATH = ("permute", "permute_acc", "window_attention_fwd", "window_attention_bwd")
-N_ENTRIES = 43
+N_ENTRIES = 47
 
 
 def launch_count(report, name):
-    """Launches of ``name`` in the run of its path: the block's force calls
-    and training step for the GNN block's kernels, the training run for the
+    """Launches of ``name`` in the run of its path: the block's bf16 force
+    calls for the Hopper block's node-stream kernels (and, for the Hopper
+    block's entries, its calls: a sequence of launches), its f32 call for
+    the general block's forward and backward, its training step for the
+    general block's weight-gradient kernel, the training run for the
     other weight-gradient kernels, the exact bf16 training step for K1's
     general body (the served bf16 calls run the Hopper K1, the float32
     calls and steps at the served shapes the Hopper float32 K1), the d_pet
@@ -3576,7 +3787,11 @@ def launch_count(report, name):
         source = report["slice_int8"]["launches"]
     elif name.endswith("_w8a8"):
         source = report["slice_w8a8"]["launches"]
-    elif name.startswith("gnn_block"):
+    elif name in ("gnn_block_fwd", "gnn_block_bwd"):  # the bf16 call runs the Hopper block
+        return report["slice_gnn"]["launches_f32_per_call"][name]
+    elif name.startswith("gnn_block") and name.endswith("_sm90"):  # sequences, not kernels
+        return report["slice_gnn"]["calls"][name]
+    elif name.startswith(("gnn_block", "gnn_node")):
         source = report["training_parity_gnn" if "_dw" in name else "slice_gnn"]["launches"]
     elif "_dw" in name:
         source = report["train_launches"]
@@ -3601,7 +3816,8 @@ def kernel_entries(report, kernels):
         # the float32 kernels lead with float32 (the Hopper float32 K1 and K2
         # have no bf16 numbers)
         trains = ("_dw" in name and "ms_f32" in entry
-                  or "ms_bf16" not in entry and "ms_f32" in entry)
+                  or "ms_bf16" not in entry and "ms_f32" in entry
+                  or name in ("gnn_block_fwd", "gnn_block_bwd"))
         lead, other = ("f32", "bf16") if trains else ("bf16", "f32")
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": launch_count(report, name),
@@ -3751,15 +3967,20 @@ def main() -> int:
     print("generic targets eval round trip:", json.dumps(generic["eval_round_trip"]), flush=True)
     torch.cuda.empty_cache()
 
-    # each GNN layer as one block: the block's kernels replace K1 and K2,
-    # two launches each per force call (one per GNN layer)
+    # each GNN layer as one block: in bf16 the Hopper block (the Hopper K1
+    # and K2 and the node-stream kernels, the general block never), in f32
+    # the general block's kernels, two launches each per force call
     report["slice_gnn"] = check_slice(device, {}, GNN_KERNELS, fused_gnn=True)
     gnn = report["slice_gnn"]
-    per_call = gnn["launches_per_call"]
-    if any(k in gnn["launches"] for k in ("fused_layer_fwd", "fused_layer_bwd", "fused_layer_fwd_sm90",
-                                          "fused_layer_bwd_sm90")) or not (
-            per_call["gnn_block_fwd"] == per_call["gnn_block_bwd"] == 2):
-        fail(f"the block's force call launched {gnn['launches']}")
+    per_call, f32_call = gnn["launches_per_call"], gnn["launches_f32_per_call"]
+    general = ("fused_layer_fwd", "fused_layer_bwd") + GNN_GENERAL
+    if any(k in gnn["launches"] for k in general) or any(
+            per_call.get(k) != v for k, v in GNN_SM90_PER_CALL.items()) or gnn["calls"] != {
+            "gnn_block_fwd_sm90": 6, "gnn_block_bwd_sm90": 6}:
+        fail(f"the block's bf16 force calls launched {gnn['launches']} in {gnn['calls']}")
+    if not (f32_call.get("gnn_block_fwd") == f32_call.get("gnn_block_bwd") == 2) or any(
+            k in f32_call for k in GNN_SM90_PER_CALL):
+        fail(f"the block's f32 force call launched {f32_call}")
     check_rowblock_launches("slice_gnn", gnn, ROWBLOCK_SM90_PER_CALL)
     print("GNN block slice:", json.dumps({k: gnn[k] for k in ("padded", "launches", "parity")}),
           flush=True)
@@ -3860,7 +4081,7 @@ def main() -> int:
               flush=True)
         report["training_parity_gnn"] = check_training_parity(
             workdir / "cu_lj.xyz", state, device, expected=("gnn_block_fwd", "gnn_block_bwd_dw"),
-            replayed=("gnn_block",), fused_gnn=True)
+            replayed=("gnn_block",), fused_gnn=True, absent=tuple(GNN_SM90_PER_CALL))
         print("training parity, GNN block:", json.dumps(report["training_parity_gnn"]),
               flush=True)
         report["training_parity_int8"] = check_training_parity(
@@ -3916,6 +4137,25 @@ def main() -> int:
              if k in kernels[name]}), flush=True)
     check_gnn_block(A, M, D, H, F, hp["d_node"], gen, device, kernels,
                     hp["num_attention_layers"])
+    if build_log.exists():
+        for name, kernel in (("gnn_node_fwd_sm90", "node_fwd_kernel"),
+                             ("gnn_node_bwd_sm90", "node_bwd_kernel")):
+            kernels[name]["ptxas_bf16"] = ptxas_usage(build_log.read_text(), kernel)
+    for name in ("gnn_node_fwd_sm90", "gnn_node_bwd_sm90"):
+        kernels[name]["smem_bytes"] = _lib.library().mtt_gnn_node_sm90_smem(
+            hp["d_node"], D, int("bwd" in name))
+    check_gnn_sm90_shapes(D, H, F, gen, device, kernels)
+    for title, name in (("Hopper GNN block forward", "gnn_block_fwd_sm90"),
+                        ("Hopper GNN block backward", "gnn_block_bwd_sm90"),
+                        ("Hopper node-stream forward", "gnn_node_fwd_sm90"),
+                        ("Hopper node-stream backward", "gnn_node_bwd_sm90")):
+        print(f"{title} ({card}; the general block's ms beside):", json.dumps(
+            {k: kernels[name].get(k) for k in (
+                "ms_bf16", "plain_ms_bf16", "per_layer_ms_bf16", "bound_ms_bf16",
+                "bound_ratio_bf16", "recompute_equal_forward", "ptxas_bf16", "smem_bytes",
+                "shapes") if k in kernels[name]}
+            | {"general_ms_bf16": kernels.get(name.replace("_sm90", ""), {}).get("ms_bf16")}),
+            flush=True)
     report["gnn_block_variants"] = check_gnn_block_variants(M, D, H, F, hp["d_node"], gen, device)
     print("GNN block variants (max abs error, bound ratio):",
           json.dumps(report["gnn_block_variants"]), flush=True)

@@ -11,7 +11,9 @@ current PyTorch stream and returns ``cudaGetLastError()``, which
 
 ``LAUNCHES`` counts kernel launches by name; each wrapper adds one where
 it launches its kernel, and nowhere else. ``REPLAYS`` counts the
-second-order replays (plain PyTorch, no kernel) by the op they replay.
+second-order replays (plain PyTorch, no kernel) by the op they replay,
+``CALLS`` the calls of the Hopper GNN block, a sequence of launches that
+``LAUNCHES`` counts kernel by kernel.
 
 The fused-layer kernels (K1, K2 and their variants, the GNN block) place
 their per-atom buffers with a layout plan (``csrc/common.cuh``
@@ -55,6 +57,7 @@ SOURCES = (
     "window_attention_bwd.cu",
     "gnn_block_fwd.cu",
     "gnn_block_bwd.cu",
+    "gnn_node_sm90.cu",
     "int8_absmax.cu",
 )
 LIBRARY = "libmtt_kernels.so"
@@ -63,6 +66,7 @@ MAX_SHARED_FLOATS = MAX_SHARED_BYTES // 4
 
 LAUNCHES: collections.Counter = collections.Counter()
 REPLAYS: collections.Counter = collections.Counter()
+CALLS: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -114,6 +118,13 @@ _SIGNATURES = {
     "mtt_gnn_block_fwd": [_I, _P, _P, _P, _PP, _PP, _P, _P, _L] + [_I] * 7 + [_F, _F, _I, _P, _P],
     "mtt_gnn_block_bwd": [_I, _P, _P, _P, _PP, _PP, _PP] + [_P] * 7 + [_I] + [_P] * 4 + [_L]
     + [_I] * 7 + [_F, _F, _I, _P, _P],
+    # node, cattn, 9 weights, node_out, center_out, A, N, D, eps, stream
+    "mtt_gnn_node_fwd_sm90": [_P] * 13 + [_L, _I, _I, _F, _P],
+    # node, cattn, dn_f, dn_h, d_center, 9 weights, d_cattn, d_nmid, d_node,
+    # A, N, D, eps, stream
+    "mtt_gnn_node_bwd_sm90": [_P] * 17 + [_L, _I, _I, _F, _P],
+    "mtt_gnn_node_sm90_ok": [_I, _I],
+    "mtt_gnn_node_sm90_smem": [_I, _I, _I],
     "mtt_fused_layer_fwd_smem": [_I, _I, _I, _LP],
     "mtt_fused_layer_bwd_smem": [_I, _I, _I, _I, _I, _LP],
     "mtt_fused_layer_bwd_w8a8_smem": [_I, _I, _I, _I, _LP],
@@ -744,6 +755,50 @@ def gnn_block_sizes(M: int, D: int, H: int, F: int, N: int, dw: bool, backward: 
     b = layer_bwd_plan(M, D, H, F, dw, False)
     smem = max(f.smem_floats + center_fwd_floats(N, D), b.smem_floats, center_bwd_floats(N, D))
     return 4 * smem, max(f.ws_floats, b.ws_floats)
+
+
+# ---- the Hopper GNN block (ops/kernels/gnn_block.py, csrc/gnn_node_sm90.cu) --
+
+def gnn_node_sm90_shape(N: int, D: int) -> bool:
+    """The widths the Hopper node-stream kernels take (their C query
+    ``mtt_gnn_node_sm90_ok``): d_pet D = 128 and the node width N = 128 or
+    256 (PET's default d_node), each a whole number of 128-column panels
+    whose accumulators stay in registers."""
+    return D == 128 and N in (128, 256)
+
+
+def gnn_sm90_takes(dtype: torch.dtype, M: int, D: int, H: int, F: int, N: int, expanded: bool,
+                   weight_grads: bool = False) -> bool:
+    """Whether ``gnn_block_{fwd,bwd}_cuda`` run the Hopper GNN block: each
+    attention layer on the Hopper K1 and K2 and, with the node expansion,
+    the node stream on ``csrc/gnn_node_sm90.cu``. bfloat16 at the shapes of
+    :func:`sm90_shape`, where no weight requires grad (K1's rule: the
+    Hopper K1 rounds P, the weight-gradient body and the replay do not),
+    with the expansion at the node widths of :func:`gnn_node_sm90_shape`.
+    Everything else keeps ``csrc/gnn_block_{fwd,bwd}.cu``."""
+    return (dtype == torch.bfloat16 and not weight_grads and sm90_shape(M, D, H, F)
+            and (not expanded or gnn_node_sm90_shape(N, D)))
+
+
+def gnn_node_sm90_smem(N: int, D: int, backward: bool) -> int:
+    """``mtt_gnn_node_sm90_smem``: the node-stream kernels' shared bytes per
+    block (one tile of 64 atoms), 0 for widths they do not take. The C
+    source's layout, bf16 tiles of 64 rows with 8 elements of padding: the
+    ring of three 128 x 64 weight chunks; forward cattn (D wide), n_mid and
+    hn (N wide), the h tile (128), r2; backward d_center and cattn (D),
+    n_mid, hn and rnd(d_n) (N), the d_v and d_g tiles (128), r2 and 4 x 64
+    floats of row-sum scratch."""
+    if not gnn_node_sm90_shape(N, D):
+        return 0
+    rows = 64
+
+    def tile(width):
+        return rows * (width + 8) * 2
+
+    ring = 3 * 128 * 64 * 2
+    if not backward:
+        return ring + tile(D) + 2 * tile(N) + tile(128) + 4 * rows
+    return ring + 2 * tile(D) + 3 * tile(N) + 2 * tile(128) + 4 * 5 * rows
 
 
 def rowblock_fwd_rows(w_in: int, w_hid: int) -> int:

@@ -807,13 +807,14 @@ def fused_layer_fwd_cuda(edges, center, cf, w: LayerWeights, num_heads, scale, w
     return edge_out, center_out
 
 
-def k1_sm90_w_vg(w_in):
+def k1_sm90_w_vg(w_in, block: int = 64):
     """w_in (D, 2F) as the Hopper K1 reads it: transposed to (2F, D) with the
     rows in blocks of 64, value columns 64 i .. 64 i + 63 then the same gate
     columns, so that one staged chunk holds both halves of a 64-column F
-    tile."""
+    tile. ``block``: another block height (the Hopper node stream's 128)."""
     D, F = w_in.shape[0], w_in.shape[1] // 2
-    return w_in.t().reshape(2, F // 64, 64, D).transpose(0, 1).reshape(2 * F, D).contiguous()
+    return (w_in.t().reshape(2, F // block, block, D).transpose(0, 1).reshape(2 * F, D)
+            .contiguous())
 
 
 def _k1_sm90(edges, center, cf, wc: LayerWeights, num_heads, scale, name="fused_layer_fwd_sm90"):

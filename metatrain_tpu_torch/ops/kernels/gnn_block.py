@@ -23,6 +23,15 @@ token layout of :mod:`.fused_layer`:
   is itself differentiable (training with forces): its gradient replays
   :func:`gnn_block_bwd_math` under autograd, chunk by chunk over atoms
   (:func:`replay_gnn_block_bwd`).
+- The Hopper GNN block: bfloat16 at the served shapes where no weight
+  requires grad (:func:`_lib.gnn_sm90_takes`), the block is a fixed
+  sequence of launches instead (:func:`block_forward`,
+  :func:`block_backward`): each attention layer on the Hopper K1 / K2
+  (``csrc/fused_layer_{fwd,bwd}_sm90.cu``) and, with the expansion, the
+  node stream between them on ``csrc/gnn_node_sm90.cu``
+  (:func:`gnn_node_fwd_cuda`, :func:`gnn_node_bwd_cuda`; plain versions
+  :func:`node_stream_fwd_math`, :func:`node_stream_bwd_math`). The
+  backward recomputes the forward by running the same sequence.
 
 Weights come as one flat list in the JAX package's order
 (:func:`flatten_gnn_weights`: the 10 :class:`LayerWeights` of each layer,
@@ -39,11 +48,14 @@ import torch
 from . import _lib
 from .fused_layer import (
     LayerWeights,
+    _k1_sm90,
+    _k2_sm90,
     _matmul_bias,
     _rms_stats,
     accumulation_dtype,
     check_layer_shapes,
     chunked_replay,
+    k1_sm90_w_vg,
     layer_bwd_math,
     layer_math,
     rmsnorm_eps,
@@ -100,6 +112,26 @@ def _center_forward(node, cattn, wc: CenterWeights, cd):
     v, sig = vg[:, :d_ff], torch.sigmoid(vg[:, d_ff:])
     h = (v * sig).to(cd)
     return n_mid, x2, r2, hn, v, sig, h, n_mid + _matmul_bias(h, wc.w_out_c, wc.b_out_c, cd)
+
+
+def _center_backward(d_n, extras, wa: CenterWeights, cd):
+    """The node update's backward from ``d_n`` (the cotangent of its output,
+    in the accumulation dtype), given ``_center_forward``'s intermediates
+    and the weights ``wa`` in the accumulation dtype: ``(d_n_cd, d_vg, d_hn,
+    d_nmid, d_cattn)``, each cotangent rounded to ``cd`` where the JAX
+    package's ``_gnn_block_bwd_math`` rounds it."""
+    acc = wa.w_exp.dtype
+    _, x2, r2, _, v, sig, _, _ = extras
+    # node' = n_mid + h w_out_c + b_out_c, h = v sig(g), [v | g] = hn w_in_c + b_in_c
+    d_n_cd = d_n.to(cd)
+    d_h = d_n_cd.to(acc) @ wa.w_out_c.T
+    d_vg = torch.cat([d_h * sig, d_h * v * sig * (1.0 - sig)], dim=-1).to(cd)
+    d_hn = d_vg.to(acc) @ wa.w_in_c.T
+    gs = d_hn * (r2 * wa.norm_c)
+    N = x2.shape[-1]
+    d_nmid = d_n + (gs - x2 * (r2 * r2 * torch.sum(gs * x2, dim=-1, keepdim=True) / N))
+    d_cattn = (d_nmid.to(cd).to(acc) @ wa.w_exp.T).to(cd)
+    return d_n_cd, d_vg, d_hn, d_nmid, d_cattn
 
 
 def center_update(node, cattn, cw: CenterWeights, cd):
@@ -169,16 +201,8 @@ def gnn_block_bwd_math(edges, node, cf, layer_ws, center_ws, g_edge, g_node, num
         if expanded:
             n_mid, x2, r2, hn, v, sig, h, _ = extras
             wa = CenterWeights(*(x.to(acc) for x in wc))
-            # node' = n_mid + h w_out_c + b_out_c, h = v sig(g), [v | g] = hn w_in_c + b_in_c
-            d_n_cd = d_n.to(cd)
-            d_h = d_n_cd.to(acc) @ wa.w_out_c.T
-            d_vg = torch.cat([d_h * sig, d_h * v * sig * (1.0 - sig)], dim=-1).to(cd)
-            d_hn = d_vg.to(acc) @ wa.w_in_c.T
-            gs = d_hn * (r2 * wa.norm_c)
-            N = x2.shape[-1]
-            d_nmid = d_n + (gs - x2 * (r2 * r2 * torch.sum(gs * x2, dim=-1, keepdim=True) / N))
+            d_n_cd, d_vg, d_hn, d_nmid, d_cattn = _center_backward(d_n, extras, wa, cd)
             d_nmid_cd = d_nmid.to(cd)
-            d_cattn = (d_nmid_cd.to(acc) @ wa.w_exp.T).to(cd)
         else:
             d_cattn = d_n.to(cd)
         out = layer_bwd_math(e_in, center, cf, layer_ws[i], d_e, d_cattn, num_heads, scale,
@@ -202,6 +226,270 @@ def gnn_block_bwd_math(edges, node, cf, layer_ws, center_ws, g_edge, g_node, num
     if not weight_grads:
         return d_inputs
     return (*d_inputs, flatten_gnn_weights(dws, dcs, expanded))
+
+
+# ---------------------------------------------------------------------------
+# The Hopper block: a fixed sequence of launches
+# ---------------------------------------------------------------------------
+
+
+def node_stream_fwd_math(node, cattn, cw, cw_next):
+    """Plain version of the node-stream forward kernel at one layer
+    boundary: ``(node_out, center)``. With ``cw`` (the layer's
+    :class:`CenterWeights`) the update of ``node`` by the layer's center
+    attention output ``cattn`` (else ``node_out`` is ``None``); with
+    ``cw_next`` the next layer's contraction of the updated node (of
+    ``node`` without ``cw``; else ``center`` is ``None``)."""
+    cd = node.dtype
+    if cw is not None:
+        node = center_update(node, cattn, cw, cd)
+    center = (None if cw_next is None else
+              _matmul_bias(node, cw_next.w_contr.to(cd), cw_next.b_contr.to(cd), cd))
+    return (node if cw is not None else None), center
+
+
+def node_stream_bwd_math(node, cattn, dn, d_center, cw_con, cw):
+    """Plain version of the node-stream backward kernel at one layer
+    boundary. ``d_n = dn`` (the cotangent of the node features out of the
+    layer, accumulated in float32, float64 for float64 inputs), plus with
+    ``d_center`` the contraction's backward of the layer above,
+    ``d_center w_contr^T`` (``cw_con`` that layer's weights). With ``cw``
+    (the layer's, ``node`` and ``cattn`` its inputs) the node update's
+    backward: ``(d_cattn, d_nmid)``, d_nmid in the accumulation dtype; else
+    ``d_node``, d_n in the compute dtype."""
+    cd = node.dtype if cw is not None else d_center.dtype
+    acc = accumulation_dtype(cd)
+    d_n = dn.to(acc)
+    if d_center is not None:
+        d_n = d_n + d_center.to(acc) @ cw_con.w_contr.to(cd).to(acc).T
+    if cw is None:
+        return d_n.to(cd)
+    wc = CenterWeights(*(x.to(cd) for x in cw))
+    extras = _center_forward(node, cattn, wc, cd)
+    _, _, _, d_nmid, d_cattn = _center_backward(
+        d_n, extras, CenterWeights(*(x.to(acc) for x in wc)), cd)
+    return d_cattn, d_nmid
+
+
+class BlockPieces(NamedTuple):
+    """The launches of the Hopper block's sequence, or their plain
+    versions: ``k1(edges, center, cf, w) -> (edge_out, cattn)``,
+    ``k2(edges, center, cf, w, g_edge, g_center) -> (d_edges, d_center,
+    d_cf)``, ``node_fwd`` and ``node_bwd`` as :func:`node_stream_fwd_math`
+    and :func:`node_stream_bwd_math`."""
+
+    k1: object
+    k2: object
+    node_fwd: object
+    node_bwd: object
+
+
+def plain_pieces(num_heads: int, scale: float) -> BlockPieces:
+    """The plain versions of the sequence's launches: :func:`layer_math`,
+    :func:`layer_bwd_math` and the node stream's."""
+    return BlockPieces(
+        k1=lambda e, c, cf, w: layer_math(e, c, cf, w, num_heads, scale),
+        k2=lambda e, c, cf, w, ge, gc: layer_bwd_math(e, c, cf, w, ge, gc, num_heads, scale),
+        node_fwd=node_stream_fwd_math,
+        node_bwd=node_stream_bwd_math,
+    )
+
+
+def block_forward(edges, node, cf, layer_ws, center_ws, expanded: bool, pieces: BlockPieces,
+                  trace=None, final: bool = True):
+    """The Hopper block's forward as its sequence of launches: with the
+    expansion the first contraction, then per layer the layer (``k1``) and
+    the node stream to the next layer's center; ``(edge_out, node_out)``.
+
+    :param center_ws: what ``pieces.node_*`` take for each layer's node
+        weights (:class:`CenterWeights`, or the kernels'
+        :class:`NodeWeights`); unused without the expansion.
+    :param trace: a list that receives each layer's ``(edges, node,
+        center, cattn)`` as the sequence computed them.
+    :param final: ``False`` skips the last layer's node update (the
+        backward's recompute reads no node past the last layer);
+        ``node_out`` is then ``None`` with the expansion.
+    """
+    n_layers = len(layer_ws)
+    center = pieces.node_fwd(node, None, None, center_ws[0])[1] if expanded else node
+    for i, w in enumerate(layer_ws):
+        e_next, cattn = pieces.k1(edges, center, cf, w)
+        if trace is not None:
+            trace.append((edges, node, center, cattn))
+        if not expanded:
+            node = center = cattn
+        elif i + 1 < n_layers:
+            node, center = pieces.node_fwd(node, cattn, center_ws[i], center_ws[i + 1])
+        else:
+            node = pieces.node_fwd(node, cattn, center_ws[i], None)[0] if final else None
+        edges = e_next
+    return edges, node
+
+
+def block_backward(edges, node, cf, layer_ws, center_ws, g_edge, g_node, expanded: bool,
+                   pieces: BlockPieces, trace=None):
+    """The Hopper block's input-gradient backward as its sequence of
+    launches: ``(d_edges, d_node, d_cf)``. The forward is recomputed by
+    :func:`block_forward` itself, saving each layer's inputs; then, last
+    layer first, the node stream's backward (with the contraction's backward
+    of the layer above), the layer's (``k2``), and d_cf summed over the
+    layers in float32 (float64 for float64 inputs), last layer first; the
+    first contraction's backward gives d_node. ``trace`` receives the
+    recompute's per-layer values as :func:`block_forward`'s does."""
+    saved = [] if trace is None else trace
+    block_forward(edges, node, cf, layer_ws, center_ws, expanded, pieces, saved, final=False)
+    d_e, d_cf, dn, d_center = g_edge, None, g_node, None
+    for i in reversed(range(len(layer_ws))):
+        e_in, n_in, center, cattn = saved[i]
+        if expanded:
+            d_cattn, dn = pieces.node_bwd(n_in, cattn, dn, d_center,
+                                          None if d_center is None else center_ws[i + 1],
+                                          center_ws[i])
+        else:
+            d_cattn = dn
+        d_e, d_center, d_cf_l = pieces.k2(e_in, center, cf, layer_ws[i], d_e, d_cattn)
+        d_cf = d_cf_l if d_cf is None else d_cf + d_cf_l
+        if not expanded:
+            dn = d_center
+    d_node = pieces.node_bwd(None, None, dn, d_center, center_ws[0], None) if expanded else dn
+    return d_e, d_node, d_cf
+
+
+class NodeWeights(NamedTuple):
+    """One layer's node-stream weights as ``csrc/gnn_node_sm90.cu`` reads
+    them (bfloat16, contiguous): the forward's matrices as (out, in) row-major
+    (w_contr^T, w_exp^T, w_out_c^T, and w_vg: w_in_c^T with its rows in
+    blocks of 128, value columns 128 i .. 128 i + 127 then the same gate
+    columns, so that a 128-column hidden tile's value chunks and gate chunks
+    follow each other in the weight stream), the backward's as they are,
+    the vectors as they are."""
+
+    w_contr_t: torch.Tensor  # (D, N)
+    b_contr: torch.Tensor  # (D,)
+    w_exp_t: torch.Tensor  # (N, D)
+    b_exp: torch.Tensor  # (N,)
+    norm_c: torch.Tensor  # (N,)
+    w_vg: torch.Tensor  # (4N, N)
+    b_in_c: torch.Tensor  # (4N,)
+    w_out_t: torch.Tensor  # (N, 2N)
+    b_out_c: torch.Tensor  # (N,)
+    w_contr: torch.Tensor  # (N, D)
+    w_exp: torch.Tensor  # (D, N)
+    w_in_c: torch.Tensor  # (N, 4N)
+    w_out_c: torch.Tensor  # (2N, N)
+
+
+def node_sm90_weights(cw: CenterWeights) -> NodeWeights:
+    """The kernels' arrangement of one layer's :class:`CenterWeights`
+    (cast to bfloat16)."""
+    cw = CenterWeights(*(_cuda_tensor(x, torch.bfloat16) for x in cw))
+    return NodeWeights(
+        w_contr_t=cw.w_contr.t().contiguous(), b_contr=cw.b_contr,
+        w_exp_t=cw.w_exp.t().contiguous(), b_exp=cw.b_exp, norm_c=cw.norm_c,
+        w_vg=k1_sm90_w_vg(cw.w_in_c, block=128), b_in_c=cw.b_in_c,
+        w_out_t=cw.w_out_c.t().contiguous(), b_out_c=cw.b_out_c,
+        w_contr=cw.w_contr, w_exp=cw.w_exp, w_in_c=cw.w_in_c, w_out_c=cw.w_out_c,
+    )
+
+
+def _node_check(tensors: dict, N: int, D: int, device) -> None:
+    if not _lib.gnn_node_sm90_shape(N, D):
+        raise ValueError(f"the Hopper node-stream kernels take D = 128 and N = 128 or 256, got "
+                         f"N={N}, D={D}")
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    _lib.require(tensors, device, torch.bfloat16)
+
+
+def gnn_node_fwd_cuda(node, cattn, nw: NodeWeights, nw_next: NodeWeights):
+    """Launch the node-stream forward kernel (``csrc/gnn_node_sm90.cu``,
+    counter ``gnn_node_fwd_sm90``) as :func:`node_stream_fwd_math`: with
+    ``nw`` the layer's update of ``node`` (A, N) by ``cattn`` (A, D), with
+    ``nw_next`` the next layer's contraction; bfloat16 tensors on the card,
+    the weights as :func:`node_sm90_weights` gives them."""
+    A, N = node.shape
+    w = nw if nw is not None else nw_next
+    D = w.w_exp_t.shape[1]
+    tensors = {"node": node, "cattn": cattn, **{f"w.{k}": v for k, v in w._asdict().items()}}
+    if nw is not None and nw_next is not None:
+        tensors.update({f"next.{k}": v for k, v in nw_next._asdict().items()})
+    _node_check(tensors, N, D, node.device)
+    if nw is not None and cattn.shape != (A, D):
+        raise ValueError(f"cattn {tuple(cattn.shape)} does not fit node {tuple(node.shape)}")
+    lib = _lib.library()
+    _lib.check_shared(lib.mtt_gnn_node_sm90_smem(N, D, 0), "gnn_node_fwd_sm90")
+    node_out = torch.empty_like(node) if nw is not None else None
+    center = (torch.empty((A, D), dtype=node.dtype, device=node.device) if nw_next is not None
+              else None)
+    upd = (nw.w_exp_t, nw.b_exp, nw.norm_c, nw.w_vg, nw.b_in_c, nw.w_out_t, nw.b_out_c) if (
+        nw is not None) else (None,) * 7
+    con = (nw_next.w_contr_t, nw_next.b_contr) if nw_next is not None else (None, None)
+    _lib.check(
+        lib.mtt_gnn_node_fwd_sm90(
+            node.data_ptr(), _lib.ptr(cattn if nw is not None else None),
+            *(_lib.ptr(x) for x in upd + con), _lib.ptr(node_out), _lib.ptr(center),
+            A, N, D, rmsnorm_eps(torch.bfloat16), _lib.stream_ptr(node.device)),
+        "gnn_node_fwd_sm90",
+    )
+    _lib.LAUNCHES["gnn_node_fwd_sm90"] += 1
+    return node_out, center
+
+
+def gnn_node_bwd_cuda(node, cattn, dn, d_center, nw_con: NodeWeights, nw: NodeWeights):
+    """Launch the node-stream backward kernel (``csrc/gnn_node_sm90.cu``,
+    counter ``gnn_node_bwd_sm90``) as :func:`node_stream_bwd_math`: ``dn``
+    (A, N) float32 or bfloat16, the rest bfloat16 on the card; with
+    ``d_center`` (A, D) the contraction's backward of the layer above
+    (``nw_con``), with ``nw`` the layer's update's backward, ``(d_cattn,
+    d_nmid)`` with d_nmid float32; else ``d_node`` (bfloat16)."""
+    A, N = dn.shape
+    D = (nw if nw is not None else nw_con).w_exp.shape[0]
+    tensors = {"d_center": d_center}
+    if nw is not None:
+        tensors.update({"node": node, "cattn": cattn,
+                        **{f"w.{k}": v for k, v in nw._asdict().items()}})
+    if d_center is not None:
+        tensors["w_contr"] = nw_con.w_contr
+    _node_check(tensors, N, D, dn.device)
+    if dn.dtype not in (torch.float32, torch.bfloat16) or not dn.is_contiguous() or (
+            dn.data_ptr() % 16):
+        raise ValueError("dn must be a contiguous, 16-byte aligned float32 or bfloat16 tensor")
+    lib = _lib.library()
+    _lib.check_shared(lib.mtt_gnn_node_sm90_smem(N, D, 1), "gnn_node_bwd_sm90")
+    dev = dn.device
+    d_cattn = d_nmid = d_node = None
+    if nw is not None:
+        d_cattn = torch.empty((A, D), dtype=torch.bfloat16, device=dev)
+        d_nmid = torch.empty((A, N), dtype=torch.float32, device=dev)
+        weights = (nw.w_exp_t, nw.b_exp, nw.norm_c, nw.w_vg, nw.b_in_c, nw.w_out_c, nw.w_in_c,
+                   nw.w_exp)
+    else:
+        d_node = torch.empty((A, N), dtype=torch.bfloat16, device=dev)
+        weights = (None,) * 8
+    f32 = dn.dtype == torch.float32
+    _lib.check(
+        lib.mtt_gnn_node_bwd_sm90(
+            _lib.ptr(node if nw is not None else None), _lib.ptr(cattn if nw is not None else None),
+            dn.data_ptr() if f32 else None, None if f32 else dn.data_ptr(), _lib.ptr(d_center),
+            _lib.ptr(nw_con.w_contr if d_center is not None else None),
+            *(_lib.ptr(x) for x in weights), _lib.ptr(d_cattn), _lib.ptr(d_nmid),
+            _lib.ptr(d_node), A, N, D, rmsnorm_eps(torch.bfloat16), _lib.stream_ptr(dev)),
+        "gnn_node_bwd_sm90",
+    )
+    _lib.LAUNCHES["gnn_node_bwd_sm90"] += 1
+    return (d_cattn, d_nmid) if nw is not None else d_node
+
+
+def sm90_pieces(num_heads: int, scale: float) -> BlockPieces:
+    """The Hopper block's launches: the Hopper K1 and K2 (layer weights in
+    bfloat16 on the card) and the node-stream kernels (:class:`NodeWeights`)."""
+    return BlockPieces(
+        k1=lambda e, c, cf, w: _k1_sm90(e, c, cf, w, num_heads, scale),
+        k2=lambda e, c, cf, w, ge, gc: _k2_sm90(e, c, cf, w, ge, gc, num_heads, scale),
+        node_fwd=gnn_node_fwd_cuda,
+        node_bwd=gnn_node_bwd_cuda,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -233,11 +521,15 @@ def _check_shapes(edges, node, cf, layer_ws, center_ws, num_heads, expanded):
     return A, M, D, F, Nn
 
 
-def _cuda_tensor(x, cd):
-    """``x`` in the compute dtype, contiguous and 16-byte aligned (the
-    node stream reads weights in pairs)."""
-    x = x.detach().to(cd).contiguous()
+def _aligned(x):
+    """``x``, or a copy of it where it does not start on 16 bytes (the node
+    streams read it in pairs or 16-byte pieces)."""
     return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _cuda_tensor(x, cd):
+    """``x`` in the compute dtype, contiguous and 16-byte aligned."""
+    return _aligned(x.detach().to(cd).contiguous())
 
 
 def _cuda_weights(flat_w, n_layers, expanded, cd):
@@ -257,14 +549,26 @@ def _require(edges, node, cf, layer_ws, center_ws, extra=None):
     _lib.require({"cf": cf}, edges.device, torch.float32)
 
 
-def gnn_block_fwd_cuda(edges, node, cf, flat_w, num_heads, scale, n_layers, expanded):
+def gnn_block_fwd_cuda(edges, node, cf, flat_w, num_heads, scale, n_layers, expanded, *,
+                       sm90: bool = True, weight_grads: bool = False, trace=None):
     """Launch the block's forward. ``edges``/``node`` float32 or bfloat16
-    (the same), ``cf`` float32."""
+    (the same), ``cf`` float32.
+
+    Where :func:`_lib.gnn_sm90_takes` says so (bfloat16 at the served shapes,
+    no weight requiring grad: ``weight_grads``) the Hopper block runs, a
+    sequence of launches (:func:`block_forward` with :func:`sm90_pieces`;
+    ``trace`` receives its per-layer values); ``sm90=False`` keeps the
+    general kernel ``csrc/gnn_block_fwd.cu`` there too, for comparisons."""
     cd = edges.dtype
     code = _lib.dtype_code(cd)
     layer_ws, center_ws = _cuda_weights(flat_w, n_layers, expanded, cd)
     A, M, D, F, Nn = _check_shapes(edges, node, cf, layer_ws, center_ws, num_heads, expanded)
     _require(edges, node, cf, layer_ws, center_ws)
+    if sm90 and _lib.gnn_sm90_takes(cd, M, D, num_heads, F, Nn, expanded, weight_grads):
+        _lib.CALLS["gnn_block_fwd_sm90"] += 1
+        return block_forward(edges, _aligned(node), cf, layer_ws,
+                             [node_sm90_weights(cw) for cw in center_ws], expanded,
+                             sm90_pieces(num_heads, scale), trace)
     lib = _lib.library()
     _, ws_floats = _lib.plan_query(lib.mtt_gnn_block_fwd_smem, M, D, F, Nn)
     grid = _lib.layer_grid(A, ws_floats, edges.device)
@@ -287,9 +591,16 @@ def gnn_block_fwd_cuda(edges, node, cf, flat_w, num_heads, scale, n_layers, expa
 
 
 def gnn_block_bwd_cuda(edges, node, cf, flat_w, g_edge, g_node, num_heads, scale, n_layers,
-                       expanded, weight_grads: bool = False):
+                       expanded, weight_grads: bool = False, *, sm90: bool = True, trace=None):
     """Launch the block's backward: ``(d_edges, d_node, d_cf)`` with
     ``d_cf`` float32.
+
+    Where :func:`_lib.gnn_sm90_takes` says so (bfloat16 at the served
+    shapes, without ``weight_grads``) the Hopper block's backward runs
+    (:func:`block_backward` with :func:`sm90_pieces`, the forward recomputed
+    by the forward's own sequence; ``trace`` receives the recompute's
+    per-layer values); ``sm90=False`` keeps the general kernel
+    ``csrc/gnn_block_bwd.cu`` there too.
 
     With ``weight_grads=True`` launch its weight-gradient variant instead,
     which also returns the float32 gradients of every weight summed over
@@ -304,6 +615,11 @@ def gnn_block_bwd_cuda(edges, node, cf, flat_w, g_edge, g_node, num_heads, scale
     _require(edges, node, cf, layer_ws, center_ws, {"g_edge": g_edge, "g_node": g_node})
     if g_edge.shape != edges.shape or g_node.shape != node.shape:
         raise ValueError("the cotangents must have the shapes of the outputs")
+    if sm90 and _lib.gnn_sm90_takes(cd, M, D, num_heads, F, Nn, expanded, weight_grads):
+        _lib.CALLS["gnn_block_bwd_sm90"] += 1
+        return block_backward(edges, _aligned(node), cf, layer_ws,
+                              [node_sm90_weights(cw) for cw in center_ws], g_edge,
+                              _aligned(g_node), expanded, sm90_pieces(num_heads, scale), trace)
     transposed = [x.t().contiguous() for w in layer_ws
                   for x in (w.w_qkv, w.w_out, w.w_in, w.w_ffn_out)]
     name = "gnn_block_bwd_dw" if weight_grads else "gnn_block_bwd"
@@ -425,8 +741,10 @@ class _GnnBlock(torch.autograd.Function):
         ctx.save_for_backward(edges, node, cf, *flat_w)
         ctx.args = (num_heads, scale, n_layers, expanded, chunk)
         if edges.is_cuda:
+            # the backward takes the weight-gradient variant whenever a
+            # weight requires grad: the forward then keeps the general body
             return gnn_block_fwd_cuda(edges, node, cf, flat_w, num_heads, scale, n_layers,
-                                      expanded)
+                                      expanded, weight_grads=any(ctx.needs_input_grad[8:]))
         layer_ws, center_ws = unflatten_gnn_weights(flat_w, n_layers, expanded)
         return gnn_block_math(edges, node, cf, layer_ws, center_ws, num_heads, scale, expanded)
 
