@@ -39,9 +39,14 @@ device and exits non-zero without one. Phases (any failure propagates):
    Hopper K1 8 times (4 forward, 4 in the backward's recompute), the Hopper
    K2 4, the node-stream forward kernel of ``csrc/gnn_node_sm90.cu`` 10 and
    its backward 6, 6 block calls each way in the 3 calls, and the general
-   block and K1/K2 bodies never; the f32 call launches the general block's
-   forward and backward kernels twice each (one GNN layer each) and no
-   Hopper block kernel. The plain paths run the block's plain version.
+   block and K1/K2 bodies never; the f32 call is the Hopper float32 block
+   (``GNN_F32_PER_CALL``: the Hopper float32 K1 8, K2 4, the float32
+   node-stream kernels of ``csrc/gnn_node_f32_sm90.cu`` 10 and 6, 2 block
+   calls each way) and launches neither the general block nor a bf16
+   Hopper kernel. The plain paths run the block's plain version. The same
+   model at a 5.5 A cutoff on 8^3 cells (2,048 atoms, M = 96, 2 steps, no
+   timing) runs the general block pair in both dtypes, 2 + 2 a call, and
+   no Hopper block.
 3b. physics options: two PETs at the defaults on the crystal, served as
    phase 3 in bf16 and f32, kernel and plain, with phase 3's launch counts
    (the Hopper K1/K2, K3/K4 and heads, the general bodies never, both
@@ -156,9 +161,12 @@ device and exits non-zero without one. Phases (any failure propagates):
    float32 kernel path vs float32 plain path, for the trained fused model,
    for a random unfused one (whose step must launch the attention and
    permute kernels and replay the attention's backward) and for the
-   trained model with ``fused_gnn=True`` (whose step must launch the
-   block's forward and weight-gradient kernels and replay the block's
-   backward): loss rel <= 1e-5, global gradient rel L2 <= 1e-4, each
+   trained model with ``fused_gnn=True`` (whose step is the Hopper float32
+   block's: exactly ``GNN_F32_PER_STEP``, the Hopper float32 K1 12, the
+   two-pass K2-dW 8, the node forward 14, the node backward's spill mode 12
+   and its products 8, block calls 2 forward and 4 weight-gradient
+   backward, the general block never; and the block's backward replayed):
+   loss rel <= 1e-5, global gradient rel L2 <= 1e-4, each
    parameter tensor rel L2 <= 1e-3; the fused step must launch the
    Hopper float32 K1 4 times and the general K1 never, the
    two-pass K2-dW's kernels (``K2DW_F32``) 8 times each (4 layers, in the
@@ -174,13 +182,17 @@ device and exits non-zero without one. Phases (any failure propagates):
    the same gates: a weight requires grad, so the general K1, the two-pass
    K2-dW (8 each; its first pass the general body, ``K2DW``) and K4-dW must
    launch and the Hopper K1, K2, K3 and K4, the float32 K1, K3, K4 and
-   K4-dW and the accumulate K2-dW never. Phase 3b's f32 steps hold the f32 step's
+   K4-dW and the accumulate K2-dW never; then the exact bfloat16 step of
+   the ``fused_gnn`` model (the same gates): the general block's forward
+   and weight-gradient kernels, no Hopper block kernel. Phase 3b's f32
+   steps hold the f32 step's
    K2-dW and K4-dW counts, phase 3c's its K2-dW counts and K4-dW's kernels.
 7. training timing: ms per step and atom-steps/s (host clock around
    synchronised steps after a warm-up step) with the peak device memory,
    for the kernel, plain and GNN-block paths on the 2 x 2,048-atom batch
    (the kernel paths with a torch.profiler breakdown of one step) and for
-   the kernel path on the 10,976-atom crystal as a batch of one; the timed
+   the kernel path on the 10,976-atom crystal as a batch of one (the
+   GNN-block steps launching ``GNN_F32_PER_STEP`` each); the timed
    steps of the (non-block) kernel paths must launch the Hopper float32 K1
    4 times a step and the general K1 never, ``K2DW_F32`` 8 times a
    step each, the general first pass and the accumulate body never, and
@@ -249,15 +261,22 @@ device and exits non-zero without one. Phases (any failure propagates):
    per layer and the node stream in PyTorch ops; the forward with no weight
    requiring grad, as served). Its general kernels are held with
    ``sm90=False`` (``gnn_block_{fwd,bwd,bwd_dw}``); the Hopper block
-   (``gnn_block_{fwd,bwd}_sm90``, bf16) is held to the plain version at 2e-2
-   relative RMS at the served shape and, under ``shapes``, at M = 64, 48, 16
-   and 1 or 3 layers with and without the expansion (d_node 256; 128 at M
-   = 64, 2 layers; A = 1,024; each run launching the Hopper K1/K2 and the
-   node kernels and never the general block); its backward's recomputed
-   per-layer edges and node features must equal the forward's bit for bit
-   and two launches of it the same bits. The node-stream kernels
-   (``gnn_node_{fwd,bwd}_sm90``) alone in every mode against
-   ``node_stream_{fwd,bwd}_math``, timed in the middle layer's. K1-W8A8 and K2-W8A8 at
+   (``gnn_block_{fwd,bwd}_sm90``, bf16; ``gnn_block_{fwd,bwd,bwd_dw}_f32_sm90``,
+   float32 at the float32 bounds and the weight-gradient bound, its bound
+   at the 3xTF32 peak and the FFMA bound beside, the general block's ms
+   beside) is held to the plain version at the served shape and, under
+   ``shapes``, at M = 64, 48, 16 and 1 or 3 layers with and without the
+   expansion (d_node 256; 128 at M = 64, 2 layers; A = 1,024; each run
+   launching the Hopper layer kernels and the node kernels and never the
+   general block); its backward's recomputed per-layer values must equal
+   the forward's bit for bit (float32: the weight-gradient backward's too,
+   against the forward with weight gradients) and two launches of it the
+   same bits. The node-stream kernels (``gnn_node_{fwd,bwd}_sm90``,
+   ``gnn_node_{fwd,bwd,bwd_dw}_f32_sm90``) alone in every mode against
+   ``node_stream_{fwd,bwd,bwd_dw}_math``, timed in the middle layer's; the
+   float32 spill mode's outputs bitwise the input-gradient mode's, its
+   products against ``node_stream_dw_math`` and bitwise on a repeat
+   (``product_ms``). K1-W8A8 and K2-W8A8 at
    the served shape in bfloat16 only (relative RMS <= 2e-2 per output), a
    calibration from the plain probe on the same inputs; their bound counts
    the int8 products at 1,979 TOPS and the bf16 ones at 989 TFLOP/s. The
@@ -1376,7 +1395,8 @@ def check_gnn_block_variants(M, D, H, F, N, gen, device, A=256):
             e, n, ge, gn = (x.to(dtype) for x in (edges, node, g_edge, g_node))
             fwd = compare(gb.gnn_block_fwd_cuda(e, n, cf, flat, H, scale, L, expanded, sm90=False),
                           gb.gnn_block_math(e, n, cf, lws, cws, H, scale, expanded), dtype)
-            k = gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, expanded, True)
+            k = gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, expanded, True,
+                                      sm90=False)
             p = gb.gnn_block_bwd_math(e, n, cf, lws, cws, ge, gn, H, scale, expanded, True)
             torch.cuda.synchronize()
             bwd = compare(k[:3], p[:3], dtype)
@@ -1455,37 +1475,59 @@ def gnn_bounds(A, M, D, H, F, N, n_weights, dtype, L):
     weight-gradient backward and of the Hopper node-stream kernels
     (forward: the update and the next contraction; backward: the
     contraction's backward of the layer above and the update's, its forward
-    recomputed), at A atoms: each input read once, each output written once.
-    The dense products per attention layer as check_fused_layer counts
-    them, the node stream's per atom (contraction, expansion, center
-    MLP)."""
+    recomputed; float32 also the backward's spill mode, whose operands and
+    tile sums are outputs of its function), at A atoms: each input read
+    once, each output written once. The dense products per attention layer
+    as check_fused_layer counts them, the node stream's per atom
+    (contraction, expansion, center MLP)."""
     s_ = torch.tensor([], dtype=dtype).element_size()
     dense = A * M * (8 * D * D + 6 * D * F)
     attention = 4 * A * H * M * M * (D // H)
     center = 2 * A * (2 * N * D + 6 * N * N)
     act = A * M * D * s_ + A * N * s_  # one (edges, node) pair
     update = N * D + D * N + 6 * N * N + 7 * N  # w_contr, w_exp, w_in_c, w_out_c, vectors
+    node_bwd = (A * (s_ * N + s_ * D + 4 * N + s_ * D) + A * (s_ * D + 4 * N) + s_ * update,
+                2 * A * (3 * N * D + 10 * N * N))
+    spill = 4 * (A * 8 * N + -(-A // 64) * (D + 7 * N))  # hn, h, d_vg, d_n; the tiles' sums
     return {
         "gnn_block_fwd": (2 * act + A * M * 4 + n_weights * s_, L * (dense + attention + center)),
         "gnn_block_bwd": (4 * act + 2 * A * M * 4 + n_weights * s_,
                           L * (2 * dense + 3 * attention + 2 * center)),
         "gnn_block_bwd_dw": (4 * act + 2 * A * M * 4 + n_weights * (s_ + 4),
                              L * (3 * dense + 3 * attention + 3 * center)),
-        "gnn_node_fwd_sm90": (2 * A * (2 * N + 2 * D) + 2 * (update + D),
-                              2 * A * (2 * N * D + 6 * N * N)),
-        "gnn_node_bwd_sm90": (A * (2 * N + 2 * D + 4 * N + 2 * D) + A * (2 * D + 4 * N)
-                              + 2 * update, 2 * A * (3 * N * D + 10 * N * N)),
+        "gnn_node_fwd": (s_ * (A * (2 * N + 2 * D) + update + D), 2 * A * (2 * N * D + 6 * N * N)),
+        "gnn_node_bwd": node_bwd,
+        "gnn_node_bwd_dw": (node_bwd[0] + spill, node_bwd[1]),
     }
+
+
+def hopper_gnn_names(dtype):
+    """The Hopper block's entries in ``dtype``: the bf16 call's forward and
+    backward, or the float32 call's and step's with the weight-gradient
+    backward; and the node-stream kernels' entries."""
+    if dtype == torch.bfloat16:
+        return (["gnn_block_fwd_sm90", "gnn_block_bwd_sm90"],
+                ["gnn_node_fwd_sm90", "gnn_node_bwd_sm90"])
+    return (["gnn_block_fwd_f32_sm90", "gnn_block_bwd_f32_sm90", "gnn_block_bwd_dw_f32_sm90"],
+            ["gnn_node_fwd_f32_sm90", "gnn_node_bwd_f32_sm90", "gnn_node_bwd_dw_f32_sm90"])
+
+
+def general_name(name):
+    """The general kernel (or plain bound) a Hopper entry stands beside."""
+    return name.replace("_f32_sm90", "").replace("_sm90", "")
 
 
 def check_gnn_block(A, M, D, H, F, N, gen, device, report, L=2):
     """The GNN block vs its plain versions at the served shape: the general
-    kernels (``sm90=False``) in float32 and bfloat16, the Hopper block
-    (``gnn_block_{fwd,bwd}_sm90``, the served bf16 path) and its node-stream
-    kernels in bfloat16, with the per-layer path's time beside the block's
-    entries. The Hopper backward's recompute must give the forward's
-    per-layer edges and node features bit for bit, and two launches of it
-    the same bits."""
+    kernels (``sm90=False``) in float32 and bfloat16; the Hopper block in
+    bfloat16 (``gnn_block_{fwd,bwd}_sm90``, the served bf16 path) and in
+    float32 (``gnn_block_{fwd,bwd,bwd_dw}_f32_sm90``, the f32 call and the
+    f32 step) and its node-stream kernels, with the per-layer path's time
+    and the general kernel's beside the Hopper entries (float32 bounds at
+    the 3xTF32 peak, the FFMA bound beside). The Hopper backward's recompute
+    must give the forward's per-layer values bit for bit (float32: the
+    weight-gradient backward's too, against the forward with weight
+    gradients), and two launches of it the same bits."""
     from metatrain_tpu_torch.ops.kernels import gnn_block as gb
 
     edges, node, cf, lws, cws, flat, g_edge, g_node = gnn_case(A, M, D, H, F, N, L, gen, device)
@@ -1494,31 +1536,27 @@ def check_gnn_block(A, M, D, H, F, N, gen, device, report, L=2):
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
         bounds = gnn_bounds(A, M, D, H, F, N, n_weights, dtype, L)
-        names = ["gnn_block_fwd", "gnn_block_bwd", "gnn_block_bwd_dw"]
-        if dtype == torch.bfloat16:
-            names += ["gnn_block_fwd_sm90", "gnn_block_bwd_sm90"]
-        for name in names:
+        blocks, _ = hopper_gnn_names(dtype)
+        for name in list(GNN_GENERAL) + blocks:
             entry = report.setdefault(name, {"library_ms": None})
-            record_bound(entry, tag, *bounds[name.replace("_sm90", "")], dtype)
+            if name in GNN_GENERAL or dtype == torch.bfloat16:
+                record_bound(entry, tag, *bounds[general_name(name)], dtype)
+            else:
+                k4_f32_bounds(entry, tag, bounds[general_name(name)])
         e, n, ge, gn = (x.to(dtype) for x in (edges, node, g_edge, g_node))
         plain_ws = (lws, cws)
+        fwd = lambda: gb.gnn_block_math(e, n, cf, *plain_ws, H, scale, True)  # noqa: E731
+        bwd = lambda: gb.gnn_block_bwd_math(e, n, cf, *plain_ws, ge, gn, H, scale, True)  # noqa: E731
         cases = [
             ("gnn_block_fwd",
-             lambda: gb.gnn_block_fwd_cuda(e, n, cf, flat, H, scale, L, True, sm90=False),
-             lambda: gb.gnn_block_math(e, n, cf, *plain_ws, H, scale, True)),
+             lambda: gb.gnn_block_fwd_cuda(e, n, cf, flat, H, scale, L, True, sm90=False), fwd),
             ("gnn_block_bwd",
              lambda: gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, True, sm90=False),
-             lambda: gb.gnn_block_bwd_math(e, n, cf, *plain_ws, ge, gn, H, scale, True)),
+             bwd),
+            (blocks[0], lambda: gb.gnn_block_fwd_cuda(e, n, cf, flat, H, scale, L, True), fwd),
+            (blocks[1], lambda: gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, True),
+             bwd),
         ]
-        if dtype == torch.bfloat16:
-            cases += [
-                ("gnn_block_fwd_sm90",
-                 lambda: gb.gnn_block_fwd_cuda(e, n, cf, flat, H, scale, L, True),
-                 lambda: gb.gnn_block_math(e, n, cf, *plain_ws, H, scale, True)),
-                ("gnn_block_bwd_sm90",
-                 lambda: gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, True),
-                 lambda: gb.gnn_block_bwd_math(e, n, cf, *plain_ws, ge, gn, H, scale, True)),
-            ]
         for name, k_fn, p_fn in cases:
             k_out, p_out = k_fn(), p_fn()
             torch.cuda.synchronize()
@@ -1530,142 +1568,219 @@ def check_gnn_block(A, M, D, H, F, N, gen, device, report, L=2):
             entry[f"bound_ratio_{tag}"] = worst
             entry[f"ms_{tag}"] = cuda_ms(k_fn)
             entry[f"plain_ms_{tag}"] = cuda_ms(p_fn)
-        check_dw(
-            "gnn_block_bwd_dw", tag, dtype,
-            lambda: (lambda o: (*o[:3], *o[3]))(
-                gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, True, True)),
-            lambda: (lambda o: (*o[:3], *o[3]))(
-                gb.gnn_block_bwd_math(e, n, cf, *plain_ws, ge, gn, H, scale, True, True)),
-            3, report,
-        )
-        torch.cuda.empty_cache()
-        if dtype == torch.bfloat16:
-            check_gnn_sm90_recompute(e, n, cf, flat, ge, gn, H, scale, L, report)
-            check_gnn_node_kernels(A, D, N, cws, bounds, gen, device, report)
+        plain_dw = lambda: (lambda o: (*o[:3], *o[3]))(  # noqa: E731
+            gb.gnn_block_bwd_math(e, n, cf, *plain_ws, ge, gn, H, scale, True, True))
+        for name, sm90 in (("gnn_block_bwd_dw", False),) + (
+                ((blocks[2], True),) if dtype == torch.float32 else ()):
+            check_dw(name, tag, dtype, lambda: (lambda o: (*o[:3], *o[3]))(
+                gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, True, True,
+                                      sm90=sm90)), plain_dw, 3, report)
+            torch.cuda.empty_cache()
+        check_gnn_sm90_recompute(e, n, cf, flat, ge, gn, H, scale, L, report)
+        check_gnn_node_kernels(A, D, N, cws, bounds, gen, device, report, dtype)
         layers = per_layer_layers(lws, cws, H, N, dtype, device)
         fns = per_layer_fns(layers, e, n, cf, ge, gn)
-        for name, fn in zip(("gnn_block_fwd", "gnn_block_bwd", "gnn_block_bwd_dw"), fns):
+        for name, fn in zip(GNN_GENERAL, fns):
             with torch.no_grad() if name == "gnn_block_fwd" else torch.enable_grad():
                 report[name][f"per_layer_ms_{tag}"] = cuda_ms(fn)
-                if dtype == torch.bfloat16 and name != "gnn_block_bwd_dw":
-                    report[f"{name}_sm90"]["per_layer_ms_bf16"] = report[name]["per_layer_ms_bf16"]
+        for name in blocks:
+            general = report[general_name(name)]
+            report[name][f"per_layer_ms_{tag}"] = general[f"per_layer_ms_{tag}"]
+            report[name][f"general_ms_{tag}"] = general[f"ms_{tag}"]
         del layers, fns
         torch.cuda.empty_cache()
 
 
 def check_gnn_sm90_recompute(e, n, cf, flat, ge, gn, H, scale, L, report):
-    """The Hopper backward's recomputed per-layer edges and node features
-    equal the forward's bit for bit (one launch sequence), and two backward
+    """The Hopper backward's recomputed per-layer values (edges, node,
+    center, cattn) equal the forward's bit for bit (one launch sequence;
+    float32: also the weight-gradient backward's against the forward with
+    weight gradients, the f32 step's energy and forces), and two backward
     launches give the same bits."""
     from metatrain_tpu_torch.ops.kernels import gnn_block as gb
 
-    fwd_trace, bwd_trace = [], []
-    gb.gnn_block_fwd_cuda(e, n, cf, flat, H, scale, L, True, trace=fwd_trace)
-    first = gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, True, trace=bwd_trace)
-    again = gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, True)
-    torch.cuda.synchronize()
-    same = all(torch.equal(f[0], b[0]) and torch.equal(f[1], b[1])
-               for f, b in zip(fwd_trace, bwd_trace))
-    if len(fwd_trace) != L or len(bwd_trace) != L or not same:
-        fail("the Hopper block's recompute differs from its forward")
-    if not all(torch.equal(a, b) for a, b in zip(first, again)):
-        fail("two launches of the Hopper block's backward differ")
-    report["gnn_block_bwd_sm90"]["recompute_equal_forward"] = True
-    report["gnn_block_bwd_sm90"]["bitwise_repeat_bf16"] = True
-    del fwd_trace, bwd_trace, first, again
+    f32 = e.dtype == torch.float32
+    blocks, _ = hopper_gnn_names(e.dtype)
+    tag = "f32" if f32 else "bf16"
+    runs = [(False, False)] + ([(True, True)] if f32 else [])
+    for weight_grads, dw in runs:
+        fwd_trace, bwd_trace = [], []
+        gb.gnn_block_fwd_cuda(e, n, cf, flat, H, scale, L, True, weight_grads=weight_grads,
+                              trace=fwd_trace)
+        first = gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, True, dw,
+                                      trace=bwd_trace)
+        again = gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, True, dw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for f, b in zip(fwd_trace, bwd_trace) for x, y in zip(f, b))
+        if len(fwd_trace) != L or len(bwd_trace) != L or not same:
+            fail(f"the Hopper block's recompute differs from its forward ({tag}, dW {dw})")
+        flat_out = lambda o: list(o[:3]) + (list(o[3]) if dw else [])  # noqa: E731
+        if not all(torch.equal(a, b) for a, b in zip(flat_out(first), flat_out(again))):
+            fail(f"two launches of the Hopper block's backward differ ({tag}, dW {dw})")
+        name = blocks[2] if dw else blocks[1]
+        report[name]["recompute_equal_forward"] = True
+        report[name][f"bitwise_repeat_{tag}"] = True
+        del fwd_trace, bwd_trace, first, again
     torch.cuda.empty_cache()
 
 
-def check_gnn_node_kernels(A, D, N, cws, bounds, gen, device, report):
-    """The Hopper node-stream kernels alone at the served shape, bf16, in
-    the modes of a middle layer boundary (the update and the next
-    contraction; the contraction's backward and the update's): kernel vs
-    plain (``node_stream_{fwd,bwd}_math``) and times; the other modes (the
-    first contraction, the last update, the last contraction's backward)
-    held to the plain version too."""
+def check_gnn_node_kernels(A, D, N, cws, bounds, gen, device, report, dtype=torch.bfloat16):
+    """The Hopper node-stream kernels alone at the served shape, in the modes
+    of a middle layer boundary (the update and the next contraction; the
+    contraction's backward and the update's): kernel vs plain
+    (``node_stream_{fwd,bwd}_math``) and times; the other modes (the first
+    contraction, the last update, the last contraction's backward) held to
+    the plain version too. float32 also the spill mode
+    (``gnn_node_bwd_dw_f32_sm90``): its outputs equal the input-gradient
+    mode's bit for bit, its operands and tile sums within the bounds of
+    ``node_stream_bwd_dw_math``'s, and the layer's second pass
+    (``gnn_node_dw_cuda``) against ``node_stream_dw_math`` at the
+    weight-gradient bound, bitwise on a repeat, timed (``product_ms``)."""
+    from metatrain_tpu_torch.ops.kernels import _lib
     from metatrain_tpu_torch.ops.kernels import gnn_block as gb
 
-    bf = torch.bfloat16
-    node = torch.randn(A, N, generator=gen).to(device, bf)
-    cattn = torch.randn(A, D, generator=gen).to(device, bf)
+    bf, f32 = torch.bfloat16, dtype == torch.float32
+    tag = "f32" if f32 else "bf16"
+    node = torch.randn(A, N, generator=gen).to(device, dtype)
+    cattn = torch.randn(A, D, generator=gen).to(device, dtype)
     dn = torch.randn(A, N, generator=gen).to(device)
-    d_center = torch.randn(A, D, generator=gen).to(device, bf)
+    d_center = torch.randn(A, D, generator=gen).to(device, dtype)
     cw, cn = cws[0], cws[1]
-    nw, nn_ = gb.node_sm90_weights(cw), gb.node_sm90_weights(cn)
+    nw, nn_ = gb.node_sm90_weights(cw, dtype), gb.node_sm90_weights(cn, dtype)
     fwd = lambda: gb.gnn_node_fwd_cuda(node, cattn, nw, nn_)  # noqa: E731
     bwd = lambda: gb.gnn_node_bwd_cuda(node, cattn, dn, d_center, nn_, nw)  # noqa: E731
     cases = {
-        "gnn_node_fwd_sm90": [(fwd, lambda: gb.node_stream_fwd_math(node, cattn, cw, cn)),
-                              (lambda: gb.gnn_node_fwd_cuda(node, None, None, nn_)[1:],
-                               lambda: gb.node_stream_fwd_math(node, None, None, cn)[1:]),
-                              (lambda: gb.gnn_node_fwd_cuda(node, cattn, nw, None)[:1],
-                               lambda: gb.node_stream_fwd_math(node, cattn, cw, None)[:1])],
-        "gnn_node_bwd_sm90": [(bwd, lambda: gb.node_stream_bwd_math(node, cattn, dn, d_center,
-                                                                    cn, cw)),
-                              (lambda: gb.gnn_node_bwd_cuda(node, cattn, dn.to(bf), None, None, nw),
-                               lambda: gb.node_stream_bwd_math(node, cattn, dn.to(bf), None, None,
-                                                               cw)),
-                              (lambda: (gb.gnn_node_bwd_cuda(None, None, dn, d_center, nw, None),),
-                               lambda: (gb.node_stream_bwd_math(None, None, dn, d_center, cw,
-                                                                None),))],
+        "fwd": [(fwd, lambda: gb.node_stream_fwd_math(node, cattn, cw, cn)),
+                (lambda: gb.gnn_node_fwd_cuda(node, None, None, nn_)[1:],
+                 lambda: gb.node_stream_fwd_math(node, None, None, cn)[1:]),
+                (lambda: gb.gnn_node_fwd_cuda(node, cattn, nw, None)[:1],
+                 lambda: gb.node_stream_fwd_math(node, cattn, cw, None)[:1])],
+        "bwd": [(bwd, lambda: gb.node_stream_bwd_math(node, cattn, dn, d_center, cn, cw)),
+                (lambda: gb.gnn_node_bwd_cuda(node, cattn, dn.to(dtype), None, None, nw),
+                 lambda: gb.node_stream_bwd_math(node, cattn, dn.to(dtype), None, None, cw)),
+                (lambda: (gb.gnn_node_bwd_cuda(None, None, dn, d_center, nw, None),),
+                 lambda: (gb.node_stream_bwd_math(None, None, dn, d_center, cw, None),))],
     }
-    for name, runs in cases.items():
+    _, names = hopper_gnn_names(dtype)
+    for (kind, runs), name in zip(cases.items(), names):
         entry = report.setdefault(name, {"library_ms": None})
-        record_bound(entry, "bf16", *bounds[name], bf)
+        if f32:
+            k4_f32_bounds(entry, tag, bounds[general_name(name)])
+        else:
+            record_bound(entry, tag, *bounds[general_name(name)], bf)
         errs, worst = [], 0.0
         for k_fn, p_fn in runs:
             k_out, p_out = k_fn(), p_fn()
             torch.cuda.synchronize()
-            err, ratio = compare(k_out, p_out, bf)
+            err, ratio = compare(k_out, p_out, dtype)
             errs.append(err)
             worst = max(worst, ratio)
-        entry["max_abs_err_bf16"] = errs[0]
-        entry["other_modes_max_abs_err_bf16"] = errs[1:]
-        entry["bound_ratio_bf16"] = worst
+        entry[f"max_abs_err_{tag}"] = errs[0]
+        entry[f"other_modes_max_abs_err_{tag}"] = errs[1:]
+        entry[f"bound_ratio_{tag}"] = worst
         k_fn, p_fn = runs[0]
-        entry["ms_bf16"] = cuda_ms(k_fn)
-        entry["plain_ms_bf16"] = cuda_ms(p_fn)
+        entry[f"ms_{tag}"] = cuda_ms(k_fn)
+        entry[f"plain_ms_{tag}"] = cuda_ms(p_fn)
+    if f32:
+        entry = report.setdefault(names[2], {"library_ms": None})
+        k4_f32_bounds(entry, tag, bounds["gnn_node_bwd_dw"])
+        tiles = -(-A // 64)
+        above = gb.NodeSpill(*(None,) * 5, torch.zeros(tiles, D + 7 * N, device=device))
+        spill = lambda: gb.gnn_node_bwd_dw_cuda(node, cattn, dn, d_center, nn_, nw, above)  # noqa: E731
+        plain = lambda: gb.node_stream_bwd_dw_math(node, cattn, dn, d_center, cn, cw)  # noqa: E731
+        (k_out, ops), (p_out, p_ops) = spill(), plain()
+        # the layer's own b_contr sums: the contraction's backward below it
+        d_center_0 = torch.randn(A, D, generator=gen).to(device)
+        gb.gnn_node_bwd_dw_cuda(None, None, dn, d_center_0, nw, None, ops)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(k_out, bwd())):
+            fail("the f32 node backward's spill mode changed its outputs")
+        ratio = compare(k_out, p_out, dtype)[1]
+        fields = ("hn", "h", "d_vg", "d_n", "d_nmid")
+        err, r_ops = compare([getattr(ops, f) for f in fields], [getattr(p_ops, f) for f in fields],
+                             dtype)
+        sums = [above.vec[:, :D].sum(0), ops.vec[:, :D].sum(0)]
+        r_sums = compare_dw(sums, [d_center.sum(0), d_center_0.sum(0)], dtype)[1]
+        product = lambda: gb.gnn_node_dw_cuda(node, cattn, d_center_0, ops)  # noqa: E731
+        p_dw = lambda: gb.node_stream_dw_math(node, cattn, d_center_0, p_ops,  # noqa: E731
+                                              _lib.sm_count(device))
+        k_dw, again = product(), product()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(k_dw, again)):
+            fail("two launches of the f32 node products differ")
+        err_dw, r_dw = compare_dw(k_dw, p_dw(), dtype)
+        entry.update({f"max_abs_err_{tag}": max(err, err_dw),
+                      f"bound_ratio_{tag}": max(ratio, r_ops, r_sums, r_dw),
+                      f"dw_max_abs_err_{tag}": err_dw, f"outputs_equal_bwd_{tag}": True,
+                      f"bitwise_repeat_{tag}": True, f"ms_{tag}": cuda_ms(spill),
+                      f"plain_ms_{tag}": cuda_ms(plain), f"product_ms_{tag}": cuda_ms(product),
+                      f"product_plain_ms_{tag}": cuda_ms(p_dw)})
+        del ops, p_ops, k_dw, again
     torch.cuda.empty_cache()
 
 
 def check_gnn_sm90_shapes(D, H, F, gen, device, report, A=1024):
     """The Hopper block vs its plain versions at M = 64, 48, 16 and 1 or 3
     layers, with and without the node expansion (d_node 256; and d_node 128
-    at M = 64, 2 layers), bf16, A atoms: relative RMS <= 2e-2 per output
-    and times under the Hopper entries' ``shapes``. Each run must launch the
-    Hopper K1 and K2 and, with the expansion, the node kernels, and never
-    the general block."""
+    at M = 64, 2 layers), bf16 (forward, backward: relative RMS <= 2e-2 per
+    output) and float32 (forward, backward, weight-gradient backward: the
+    float32 bounds), A atoms, times under the Hopper entries' ``shapes``.
+    Each run must launch the Hopper layer kernels and, with the expansion,
+    the node kernels (float32 weight gradients: K2-dW, the spill mode and
+    its products), and never the general block."""
     from metatrain_tpu_torch.ops.kernels import _lib
     from metatrain_tpu_torch.ops.kernels import gnn_block as gb
 
-    bf = torch.bfloat16
     configs = [(M, L, expanded, 256) for M in (64, 48, 16) for L in (1, 3)
                for expanded in (True, False)] + [(64, 2, True, 128)]
     for M, L, expanded, N in configs:
         edges, node, cf, lws, cws, flat, g_edge, g_node = gnn_case(A, M, D, H, F, N, L, gen, device,
                                                                    expanded)
-        e, n, ge, gn = (x.to(bf) for x in (edges, node, g_edge, g_node))
         scale = 1.0 / math.sqrt(D // H)
         key = f"M{M}_L{L}_{f'N{N}' if expanded else 'plain_node'}_A{A}"
-        for name, k_fn, p_fn in (
-            ("gnn_block_fwd_sm90",
-             lambda: gb.gnn_block_fwd_cuda(e, n, cf, flat, H, scale, L, expanded),
-             lambda: gb.gnn_block_math(e, n, cf, lws, cws, H, scale, expanded)),
-            ("gnn_block_bwd_sm90",
-             lambda: gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, expanded),
-             lambda: gb.gnn_block_bwd_math(e, n, cf, lws, cws, ge, gn, H, scale, expanded)),
-        ):
-            _lib.LAUNCHES.clear()
-            k_out = k_fn()
-            torch.cuda.synchronize()
-            launched = dict(_lib.LAUNCHES)
-            want = {"fused_layer_fwd_sm90"} | ({"fused_layer_bwd_sm90"} if "bwd" in name else set())
-            want |= {"gnn_node_fwd_sm90"} | ({"gnn_node_bwd_sm90"} if "bwd" in name else set()) \
-                if expanded else set()
-            if set(launched) != want:
-                fail(f"{name} at {key} launched {launched}, expected {sorted(want)}")
-            err, worst = compare(k_out, p_fn(), bf)
-            shape_entry(report, name, key, bf, err, worst, cuda_ms(k_fn, 3), cuda_ms(p_fn, 2))
+        for dtype in (torch.bfloat16, torch.float32):
+            f32 = dtype == torch.float32
+            e, n, ge, gn = (x.to(dtype) for x in (edges, node, g_edge, g_node))
+            blocks, _ = hopper_gnn_names(dtype)
+            k1, node_fwd = (K1_F32, "gnn_node_fwd_f32_sm90") if f32 else (
+                "fused_layer_fwd_sm90", "gnn_node_fwd_sm90")
+            k2 = "fused_layer_bwd_f32_sm90" if f32 else "fused_layer_bwd_sm90"
+            node_bwd = "gnn_node_bwd_f32_sm90" if f32 else "gnn_node_bwd_sm90"
+            runs = [
+                (blocks[0], lambda: gb.gnn_block_fwd_cuda(e, n, cf, flat, H, scale, L, expanded),
+                 lambda: gb.gnn_block_math(e, n, cf, lws, cws, H, scale, expanded),
+                 {k1}, {node_fwd}),
+                (blocks[1],
+                 lambda: gb.gnn_block_bwd_cuda(e, n, cf, flat, ge, gn, H, scale, L, expanded),
+                 lambda: gb.gnn_block_bwd_math(e, n, cf, lws, cws, ge, gn, H, scale, expanded),
+                 {k1, k2}, {node_fwd, node_bwd}),
+            ]
+            if f32:
+                runs.append((
+                    blocks[2],
+                    lambda: (lambda o: (*o[:3], *o[3]))(gb.gnn_block_bwd_cuda(
+                        e, n, cf, flat, ge, gn, H, scale, L, expanded, True)),
+                    lambda: (lambda o: (*o[:3], *o[3]))(gb.gnn_block_bwd_math(
+                        e, n, cf, lws, cws, ge, gn, H, scale, expanded, True)),
+                    {k1, *K2DW_F32}, {node_fwd, "gnn_node_bwd_dw_f32_sm90", "gnn_node_dw_product"}))
+            for name, k_fn, p_fn, layer_kernels, node_kernels in runs:
+                _lib.LAUNCHES.clear()
+                k_out = k_fn()
+                torch.cuda.synchronize()
+                launched = dict(_lib.LAUNCHES)
+                want = layer_kernels | (node_kernels if expanded else set())
+                if set(launched) != want:
+                    fail(f"{name} at {key} launched {launched}, expected {sorted(want)}")
+                p_out = p_fn()
+                if name.startswith("gnn_block_bwd_dw"):
+                    err, worst = compare(k_out[:3], p_out[:3], dtype)
+                    err_w, worst_w = compare_dw(k_out[3:], p_out[3:], dtype)
+                    err, worst = max(err, err_w), max(worst, worst_w)
+                else:
+                    err, worst = compare(k_out, p_out, dtype)
+                del k_out, p_out
+                shape_entry(report, name, key, dtype, err, worst, cuda_ms(k_fn, 3),
+                            cuda_ms(p_fn, 2))
         torch.cuda.empty_cache()
 
 
@@ -2184,6 +2299,16 @@ GNN_KERNELS = (["gnn_node_fwd_sm90", "gnn_node_bwd_sm90", "fused_layer_fwd_sm90"
 GNN_SM90_PER_CALL = {"fused_layer_fwd_sm90": 8, "fused_layer_bwd_sm90": 4,
                      "gnn_node_fwd_sm90": 10, "gnn_node_bwd_sm90": 6}
 GNN_GENERAL = ("gnn_block_fwd", "gnn_block_bwd", "gnn_block_bwd_dw")
+GNN_M96_KERNELS = ["gnn_block_fwd", "gnn_block_bwd", "permute", "permute_acc"]
+# the f32 call takes the Hopper float32 block: the Hopper float32 K1 and K2
+# and the float32 node-stream kernels, the bf16 call's counts
+GNN_F32_PER_CALL = {K1_F32: 8, "fused_layer_bwd_f32_sm90": 4, "gnn_node_fwd_f32_sm90": 10,
+                    "gnn_node_bwd_f32_sm90": 6}
+# the f32 G step: per block the forward (K1 2, node 3) and two
+# weight-gradient backwards (the forces' and the loss's), each recomputing
+# (K1 2, node 2) and then K2-dW 2, the node spill mode 3, its products 2
+GNN_F32_PER_STEP = {K1_F32: 12, K2DW_F32[0]: 8, K2DW_F32[1]: 8, "gnn_node_fwd_f32_sm90": 14,
+                    "gnn_node_bwd_dw_f32_sm90": 12, "gnn_node_dw_product": 8}
 UNFUSED_KERNELS = ["window_attention_fwd", "window_attention_bwd", "permute", "permute_acc",
                    "rowblock_fwd_sm90[compress]", "rowblock_bwd_sm90[compress]",
                    "rowblock_fwd_sm90[head]", "rowblock_bwd_sm90[head]"]
@@ -2348,9 +2473,11 @@ def check_slice(device, hypers, expected, n_cells=14, steps=3, timing=True, fuse
     final = System(positions, system.types, system.cell, system.pbc)
     # the f32 kernel path's launches in one call: every counter at 0 here
     _lib.LAUNCHES.clear()
+    _lib.CALLS.clear()
     results = {"kernel_f32": calcs["kernel_f32"].compute(final, forces=True, stress=True)}
     torch.cuda.synchronize()
     report["launches_f32_per_call"] = dict(_lib.LAUNCHES)
+    report["calls_f32_per_call"] = dict(_lib.CALLS)
     results.update({k: c.compute(final, forces=True, stress=True) for k, c in calcs.items()
                     if k != "kernel_f32"})
     for key, res in results.items():
@@ -3341,11 +3468,13 @@ def check_training_parity(path, state, device, hypers=None, expected=(), replaye
         if not plain:
             _lib.LAUNCHES.clear()
             _lib.REPLAYS.clear()
+            _lib.CALLS.clear()
         loss, _ = loss_fn(batch, True)
         grads = torch.autograd.grad(loss, params)
         if not plain:
             torch.cuda.synchronize()
             report["launches"], report["replays"] = dict(_lib.LAUNCHES), dict(_lib.REPLAYS)
+            report["calls"] = dict(_lib.CALLS)
             missing = [k for k in expected if _lib.LAUNCHES.get(k, 0) == 0]
             missing += [f"replay {k}" for k in replayed if _lib.REPLAYS.get(k, 0) == 0]
             if missing:
@@ -3412,7 +3541,12 @@ def time_training(workdir, state, device, report, steps=3):
             loss, _ = train_step(params, optimizer, loss_fn, batch, 1e-5, 1.0)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / steps * 1e3
-        if key.startswith("kernel") and not fused_gnn:
+        if fused_gnn:
+            want = {k: n * steps for k, n in GNN_F32_PER_STEP.items()}
+            if {k: _lib.LAUNCHES.get(k, 0) for k in want} != want or any(
+                    _lib.LAUNCHES.get(k, 0) for k in GNN_GENERAL):
+                fail(f"{key}: the timed steps launched {dict(_lib.LAUNCHES)}: {want} expected")
+        elif key.startswith("kernel"):
             check_k2dw_launches(dict(_lib.LAUNCHES), per_step=K2DW_PER_STEP * steps)
             check_k4dw_launches(dict(_lib.LAUNCHES), steps)
             if (_lib.LAUNCHES.get(K1_F32) != K1_F32_PER_STEP * steps
@@ -3733,6 +3867,26 @@ SOURCES = {
                           "metatrain_tpu/ops/pallas/fused_layer.py:1759 (the node stream, bf16)"),
     "gnn_node_bwd_sm90": ("metatrain_tpu_torch/csrc/gnn_node_sm90.cu",
                           "metatrain_tpu/ops/pallas/fused_layer.py:1805 (the node stream, bf16)"),
+    "gnn_block_fwd_f32_sm90": ("metatrain_tpu_torch/ops/kernels/gnn_block.py (block_forward: "
+                               "csrc/fused_layer_fwd_f32_sm90.cu, csrc/gnn_node_f32_sm90.cu)",
+                               "metatrain_tpu/ops/pallas/fused_layer.py:1759 (float32)"),
+    "gnn_block_bwd_f32_sm90": ("metatrain_tpu_torch/ops/kernels/gnn_block.py (block_backward: "
+                               "csrc/fused_layer_{fwd,bwd}_f32_sm90.cu, csrc/gnn_node_f32_sm90.cu)",
+                               "metatrain_tpu/ops/pallas/fused_layer.py:1805 (float32)"),
+    "gnn_block_bwd_dw_f32_sm90": ("metatrain_tpu_torch/ops/kernels/gnn_block.py (block_backward: "
+                                  "csrc/fused_layer_fwd_f32_sm90.cu, "
+                                  "csrc/fused_layer_bwd_dw_sm90.cu, csrc/gnn_node_f32_sm90.cu)",
+                                  "metatrain_tpu/ops/pallas/fused_layer.py:1805 "
+                                  "(weight_grads=True, float32)"),
+    "gnn_node_fwd_f32_sm90": ("metatrain_tpu_torch/csrc/gnn_node_f32_sm90.cu",
+                              "metatrain_tpu/ops/pallas/fused_layer.py:1759 "
+                              "(the node stream, float32)"),
+    "gnn_node_bwd_f32_sm90": ("metatrain_tpu_torch/csrc/gnn_node_f32_sm90.cu",
+                              "metatrain_tpu/ops/pallas/fused_layer.py:1805 "
+                              "(the node stream, float32)"),
+    "gnn_node_bwd_dw_f32_sm90": ("metatrain_tpu_torch/csrc/gnn_node_f32_sm90.cu",
+                                 "metatrain_tpu/ops/pallas/fused_layer.py:1805 "
+                                 "(the node stream, weight_grads=True, float32)"),
     "fused_layer_fwd_w8a8": ("metatrain_tpu_torch/csrc/fused_layer_fwd.cu",
                              "metatrain_tpu/ops/pallas/fused_layer.py:1161 (calib, W8A8)"),
     "fused_layer_bwd_w8a8": ("metatrain_tpu_torch/csrc/fused_layer_bwd.cu",
@@ -3748,14 +3902,16 @@ SOURCES = {
                                 "(weight_grads=True, int8 scores)"),
 }
 UNFUSED_PATH = ("permute", "permute_acc", "window_attention_fwd", "window_attention_bwd")
-N_ENTRIES = 47
+N_ENTRIES = 53
 
 
 def launch_count(report, name):
     """Launches of ``name`` in the run of its path: the block's bf16 force
     calls for the Hopper block's node-stream kernels (and, for the Hopper
     block's entries, its calls: a sequence of launches), its f32 call for
-    the general block's forward and backward, its training step for the
+    the float32 ones (its f32 training step for the weight-gradient
+    backward and the spill mode), its f32 call at M = 96 for the general
+    block's forward and backward, its exact bf16 training step for the
     general block's weight-gradient kernel, the training run for the
     other weight-gradient kernels, the exact bf16 training step for K1's
     general body (the served bf16 calls run the Hopper K1, the float32
@@ -3787,12 +3943,22 @@ def launch_count(report, name):
         source = report["slice_int8"]["launches"]
     elif name.endswith("_w8a8"):
         source = report["slice_w8a8"]["launches"]
-    elif name in ("gnn_block_fwd", "gnn_block_bwd"):  # the bf16 call runs the Hopper block
-        return report["slice_gnn"]["launches_f32_per_call"][name]
-    elif name.startswith("gnn_block") and name.endswith("_sm90"):  # sequences, not kernels
+    elif name in ("gnn_block_fwd", "gnn_block_bwd"):  # the served calls run the Hopper block
+        return report["slice_gnn_m96"]["launches_f32_per_call"][name]
+    elif name == "gnn_block_bwd_dw":  # the f32 step runs the Hopper block
+        return report["training_parity_gnn_bf16"]["launches"][name]
+    elif name == "gnn_block_bwd_dw_f32_sm90":  # sequences, not kernels
+        return report["training_parity_gnn"]["calls"][name]
+    elif name.startswith("gnn_block") and name.endswith("_f32_sm90"):
+        return report["slice_gnn"]["calls_f32_per_call"][name]
+    elif name.startswith("gnn_block") and name.endswith("_sm90"):
         return report["slice_gnn"]["calls"][name]
+    elif name == "gnn_node_bwd_dw_f32_sm90":
+        return report["training_parity_gnn"]["launches"][name]
+    elif name.startswith("gnn_node") and name.endswith("_f32_sm90"):
+        return report["slice_gnn"]["launches_f32_per_call"][name]
     elif name.startswith(("gnn_block", "gnn_node")):
-        source = report["training_parity_gnn" if "_dw" in name else "slice_gnn"]["launches"]
+        source = report["slice_gnn"]["launches"]
     elif "_dw" in name:
         source = report["train_launches"]
     elif name in ROWBLOCK_KERNELS:
@@ -3818,6 +3984,8 @@ def kernel_entries(report, kernels):
         trains = ("_dw" in name and "ms_f32" in entry
                   or "ms_bf16" not in entry and "ms_f32" in entry
                   or name in ("gnn_block_fwd", "gnn_block_bwd"))
+        if name == "gnn_block_bwd_dw":  # launched by the exact bf16 G step
+            trains = False
         lead, other = ("f32", "bf16") if trains else ("bf16", "f32")
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": launch_count(report, name),
@@ -3845,6 +4013,10 @@ def kernel_entries(report, kernels):
                 else report["train_launches"])["layer_dw_product"]
         if name.startswith("rowblock_bwd_dw_f32_sm90"):  # the two-pass K4-dW's second pass
             out["product_launches"] = report["train_launches"]["rowblock_dw_product"]
+        if name == "gnn_node_bwd_dw_f32_sm90":  # the node weights' second pass
+            out["product_launches"] = report["training_parity_gnn"]["launches"][
+                "gnn_node_dw_product"]
+            out["product_ms"] = entry["product_ms_f32"]
         if "shapes" in entry:
             out["shapes"] = entry["shapes"]
         entries.append(out)
@@ -3978,14 +4150,34 @@ def main() -> int:
             per_call.get(k) != v for k, v in GNN_SM90_PER_CALL.items()) or gnn["calls"] != {
             "gnn_block_fwd_sm90": 6, "gnn_block_bwd_sm90": 6}:
         fail(f"the block's bf16 force calls launched {gnn['launches']} in {gnn['calls']}")
-    if not (f32_call.get("gnn_block_fwd") == f32_call.get("gnn_block_bwd") == 2) or any(
-            k in f32_call for k in GNN_SM90_PER_CALL):
-        fail(f"the block's f32 force call launched {f32_call}")
+    if any(f32_call.get(k) != v for k, v in GNN_F32_PER_CALL.items()) or any(
+            k in f32_call for k in general + tuple(GNN_SM90_PER_CALL)) or gnn[
+            "calls_f32_per_call"] != {"gnn_block_fwd_f32_sm90": 2, "gnn_block_bwd_f32_sm90": 2}:
+        fail(f"the block's f32 force call launched {f32_call} in {gnn['calls_f32_per_call']}")
     check_rowblock_launches("slice_gnn", gnn, ROWBLOCK_SM90_PER_CALL)
-    print("GNN block slice:", json.dumps({k: gnn[k] for k in ("padded", "launches", "parity")}),
-          flush=True)
+    print("GNN block slice:", json.dumps({k: gnn[k] for k in (
+        "padded", "launches", "launches_f32_per_call", "parity")}), flush=True)
     print(f"GNN block force call ({card}):", json.dumps(gnn["timing"]), flush=True)
     print("GNN block force call profile:", json.dumps(gnn["profile_kernel_bf16"]), flush=True)
+    torch.cuda.empty_cache()
+
+    # outside the Hopper shapes the general block pair serves both dtypes:
+    # the block at a 5.5 A cutoff (M = 96)
+    # (8^3 cells, 2,048 atoms: the plain paths' block at M = 96 outgrows the
+    # card on the crystal)
+    report["slice_gnn_m96"] = check_slice(device, M96, GNN_M96_KERNELS, n_cells=8, steps=2,
+                                          timing=False, fused_gnn=True)
+    m96 = report["slice_gnn_m96"]
+    hopper = tuple(GNN_SM90_PER_CALL) + tuple(GNN_F32_PER_CALL)
+    for key, calls in (("bf16", m96["launches_per_call"]), ("f32", m96["launches_f32_per_call"])):
+        if (calls.get("gnn_block_fwd") != 2 or calls.get("gnn_block_bwd") != 2
+                or any(k in calls for k in hopper)):
+            fail(f"the block's {key} force call at M = 96 launched {calls}: the general pair "
+                 "2 + 2 and no Hopper block expected")
+    if m96["padded"][1] < 80:
+        fail(f"the 5.5 A cutoff served M = {m96['padded'][1]}, expected at least 80")
+    print("GNN block at M = 96:", json.dumps({k: m96[k] for k in (
+        "padded", "launches_per_call", "launches_f32_per_call", "parity")}), flush=True)
     torch.cuda.empty_cache()
 
     for key, hypers, kwargs in (("unfused", UNFUSED, {}),
@@ -4079,11 +4271,27 @@ def main() -> int:
             replayed=("window_attention",))
         print("training parity, unfused:", json.dumps(report["training_parity_unfused"]),
               flush=True)
+        # the f32 G step: the Hopper float32 block, its weight gradients from
+        # K2-dW and the node stream's spill mode and products
         report["training_parity_gnn"] = check_training_parity(
-            workdir / "cu_lj.xyz", state, device, expected=("gnn_block_fwd", "gnn_block_bwd_dw"),
-            replayed=("gnn_block",), fused_gnn=True, absent=tuple(GNN_SM90_PER_CALL))
+            workdir / "cu_lj.xyz", state, device, expected=tuple(GNN_F32_PER_STEP),
+            replayed=("gnn_block",), fused_gnn=True,
+            absent=GNN_GENERAL + tuple(GNN_SM90_PER_CALL) + ("fused_layer_fwd",
+                                                            "gnn_node_bwd_f32_sm90")
+            + K2DW_F32_NEVER, per_step=GNN_F32_PER_STEP)
+        if report["training_parity_gnn"]["calls"] != {"gnn_block_fwd_f32_sm90": 2,
+                                                      "gnn_block_bwd_dw_f32_sm90": 4}:
+            fail(f"the f32 G step's block calls: {report['training_parity_gnn']['calls']}")
         print("training parity, GNN block:", json.dumps(report["training_parity_gnn"]),
               flush=True)
+        # the exact bf16 G step keeps the general block (the Hopper K1 rounds
+        # P, the weight-gradient backward and the replay do not)
+        report["training_parity_gnn_bf16"] = check_training_parity(
+            workdir / "cu_lj.xyz", state, device, expected=("gnn_block_fwd", "gnn_block_bwd_dw"),
+            replayed=("gnn_block",), fused_gnn=True, dtype=torch.bfloat16,
+            absent=tuple(GNN_SM90_PER_CALL) + tuple(GNN_F32_PER_STEP))
+        print("training step, exact bf16 GNN block:",
+              json.dumps(report["training_parity_gnn_bf16"]), flush=True)
         report["training_parity_int8"] = check_training_parity(
             workdir / "cu_lj.xyz", state, device,
             expected=("int8_absmax", "fused_layer_fwd_int8", *K2DW_INT8),
@@ -4138,23 +4346,40 @@ def main() -> int:
     check_gnn_block(A, M, D, H, F, hp["d_node"], gen, device, kernels,
                     hp["num_attention_layers"])
     if build_log.exists():
-        for name, kernel in (("gnn_node_fwd_sm90", "node_fwd_kernel"),
-                             ("gnn_node_bwd_sm90", "node_bwd_kernel")):
-            kernels[name]["ptxas_bf16"] = ptxas_usage(build_log.read_text(), kernel)
+        # the float32 backward's instantiations hold the spill mode's too
+        for name, kernel, tag in (("gnn_node_fwd_sm90", "node_fwd_kernel", "bf16"),
+                                  ("gnn_node_bwd_sm90", "node_bwd_kernel", "bf16"),
+                                  ("gnn_node_fwd_f32_sm90", "node_fwd_f32_kernel", "f32"),
+                                  ("gnn_node_bwd_f32_sm90", "node_bwd_f32_kernel", "f32"),
+                                  ("gnn_node_bwd_dw_f32_sm90", "node_bwd_f32_kernel", "f32")):
+            kernels[name][f"ptxas_{tag}"] = ptxas_usage(build_log.read_text(), kernel)
+    lib = _lib.library()
     for name in ("gnn_node_fwd_sm90", "gnn_node_bwd_sm90"):
-        kernels[name]["smem_bytes"] = _lib.library().mtt_gnn_node_sm90_smem(
-            hp["d_node"], D, int("bwd" in name))
+        kernels[name]["smem_bytes"] = lib.mtt_gnn_node_sm90_smem(hp["d_node"], D,
+                                                                 int("bwd" in name))
+    for name in ("gnn_node_fwd_f32_sm90", "gnn_node_bwd_f32_sm90", "gnn_node_bwd_dw_f32_sm90"):
+        kernels[name]["smem_bytes"] = lib.mtt_gnn_node_f32_sm90_smem(hp["d_node"], D,
+                                                                     int("bwd" in name))
     check_gnn_sm90_shapes(D, H, F, gen, device, kernels)
-    for title, name in (("Hopper GNN block forward", "gnn_block_fwd_sm90"),
-                        ("Hopper GNN block backward", "gnn_block_bwd_sm90"),
-                        ("Hopper node-stream forward", "gnn_node_fwd_sm90"),
-                        ("Hopper node-stream backward", "gnn_node_bwd_sm90")):
+    for title, name, tag in (
+            ("Hopper GNN block forward", "gnn_block_fwd_sm90", "bf16"),
+            ("Hopper GNN block backward", "gnn_block_bwd_sm90", "bf16"),
+            ("Hopper node-stream forward", "gnn_node_fwd_sm90", "bf16"),
+            ("Hopper node-stream backward", "gnn_node_bwd_sm90", "bf16"),
+            ("Hopper float32 GNN block forward", "gnn_block_fwd_f32_sm90", "f32"),
+            ("Hopper float32 GNN block backward", "gnn_block_bwd_f32_sm90", "f32"),
+            ("Hopper float32 GNN block weight-gradient backward", "gnn_block_bwd_dw_f32_sm90",
+             "f32"),
+            ("Hopper float32 node-stream forward", "gnn_node_fwd_f32_sm90", "f32"),
+            ("Hopper float32 node-stream backward", "gnn_node_bwd_f32_sm90", "f32"),
+            ("Hopper float32 node-stream spill mode", "gnn_node_bwd_dw_f32_sm90", "f32")):
         print(f"{title} ({card}; the general block's ms beside):", json.dumps(
             {k: kernels[name].get(k) for k in (
-                "ms_bf16", "plain_ms_bf16", "per_layer_ms_bf16", "bound_ms_bf16",
-                "bound_ratio_bf16", "recompute_equal_forward", "ptxas_bf16", "smem_bytes",
+                f"ms_{tag}", f"plain_ms_{tag}", f"per_layer_ms_{tag}", f"general_ms_{tag}",
+                f"bound_ms_{tag}", "bound_ms_ffma_f32", f"bound_ratio_{tag}",
+                "recompute_equal_forward", f"product_ms_{tag}", f"ptxas_{tag}", "smem_bytes",
                 "shapes") if k in kernels[name]}
-            | {"general_ms_bf16": kernels.get(name.replace("_sm90", ""), {}).get("ms_bf16")}),
+            | {f"general_ms_{tag}": kernels.get(general_name(name), {}).get(f"ms_{tag}")}),
             flush=True)
     report["gnn_block_variants"] = check_gnn_block_variants(M, D, H, F, hp["d_node"], gen, device)
     print("GNN block variants (max abs error, bound ratio):",

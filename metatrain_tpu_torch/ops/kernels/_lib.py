@@ -58,6 +58,7 @@ SOURCES = (
     "gnn_block_fwd.cu",
     "gnn_block_bwd.cu",
     "gnn_node_sm90.cu",
+    "gnn_node_f32_sm90.cu",
     "int8_absmax.cu",
 )
 LIBRARY = "libmtt_kernels.so"
@@ -125,6 +126,16 @@ _SIGNATURES = {
     "mtt_gnn_node_bwd_sm90": [_P] * 17 + [_L, _I, _I, _F, _P],
     "mtt_gnn_node_sm90_ok": [_I, _I],
     "mtt_gnn_node_sm90_smem": [_I, _I, _I],
+    # the float32 pair: the forward as the bf16 one's; the backward's node,
+    # cattn, dn, d_center, 9 weights, d_cattn, d_nmid, d_node, the spill
+    # (s_hn, s_h, s_dvg, s_dn, vec, vec_con), A, N, D, eps, stream
+    "mtt_gnn_node_fwd_f32_sm90": [_P] * 13 + [_L, _I, _I, _F, _P],
+    "mtt_gnn_node_bwd_f32_sm90": [_P] * 22 + [_L, _I, _I, _F, _P],
+    # node, cattn, d_center, d_nmid, s_hn, s_h, s_dvg, s_dn, vec, partials,
+    # dw, A, N, D, SMs, partials' rows, stream
+    "mtt_gnn_node_dw_f32_sm90": [_P] * 11 + [_L, _I, _I, _I, _I, _P],
+    "mtt_gnn_node_f32_sm90_ok": [_I, _I],
+    "mtt_gnn_node_f32_sm90_smem": [_I, _I, _I],
     "mtt_fused_layer_fwd_smem": [_I, _I, _I, _LP],
     "mtt_fused_layer_bwd_smem": [_I, _I, _I, _I, _I, _LP],
     "mtt_fused_layer_bwd_w8a8_smem": [_I, _I, _I, _I, _LP],
@@ -767,17 +778,76 @@ def gnn_node_sm90_shape(N: int, D: int) -> bool:
     return D == 128 and N in (128, 256)
 
 
+def gnn_node_f32_sm90_shape(N: int, D: int) -> bool:
+    """The widths the Hopper float32 node-stream kernels take (their C query
+    ``mtt_gnn_node_f32_sm90_ok``): d_pet D = 128 and the node width N = 128
+    or 256 (PET's default d_node), the widths whose float tiles fit the
+    shared-memory plan of :func:`gnn_node_f32_sm90_smem` (N = 384 would
+    need 324,864 B for the backward) with their 64 x N sums in registers."""
+    return D == 128 and N in (128, 256)
+
+
 def gnn_sm90_takes(dtype: torch.dtype, M: int, D: int, H: int, F: int, N: int, expanded: bool,
                    weight_grads: bool = False) -> bool:
     """Whether ``gnn_block_{fwd,bwd}_cuda`` run the Hopper GNN block: each
-    attention layer on the Hopper K1 and K2 and, with the node expansion,
-    the node stream on ``csrc/gnn_node_sm90.cu``. bfloat16 at the shapes of
-    :func:`sm90_shape`, where no weight requires grad (K1's rule: the
-    Hopper K1 rounds P, the weight-gradient body and the replay do not),
-    with the expansion at the node widths of :func:`gnn_node_sm90_shape`.
+    attention layer on the Hopper kernels and, with the node expansion, the
+    node stream on a Hopper node-stream pair, at the shapes of
+    :func:`sm90_shape`:
+
+    - bfloat16 where no weight requires grad (K1's rule: the Hopper K1
+      rounds P, the weight-gradient body and the replay do not): the Hopper
+      K1 and K2, the node stream on ``csrc/gnn_node_sm90.cu`` at the widths
+      of :func:`gnn_node_sm90_shape`;
+    - float32 with or without ``weight_grads``: the Hopper float32 K1, K2
+      or two-pass K2-dW, the node stream on ``csrc/gnn_node_f32_sm90.cu``
+      (its spill mode and split-K product for the weight gradients) at the
+      widths of :func:`gnn_node_f32_sm90_shape`, d_node 128 or 256. The f32
+      call and the f32 training step both run this forward, so energy and
+      forces come from one function.
+
     Everything else keeps ``csrc/gnn_block_{fwd,bwd}.cu``."""
-    return (dtype == torch.bfloat16 and not weight_grads and sm90_shape(M, D, H, F)
+    if not sm90_shape(M, D, H, F):
+        return False
+    if dtype == torch.float32:
+        return not expanded or gnn_node_f32_sm90_shape(N, D)
+    return (dtype == torch.bfloat16 and not weight_grads
             and (not expanded or gnn_node_sm90_shape(N, D)))
+
+
+def gnn_node_f32_sm90_smem(N: int, D: int, backward: bool) -> int:
+    """``mtt_gnn_node_f32_sm90_smem``: the float32 node-stream kernels'
+    shared bytes per block (one tile of 64 atoms, the backward's in either
+    mode), 0 for widths they do not take. The C source's plan, float tiles
+    of 64 rows with 4 floats of padding: the ring of three 128 x 16 weight
+    chunks; forward cattn (D wide), n_mid and hn (N wide), the sigmoid /
+    h tile (128), r2; backward the rooms that phases share: U (two 128
+    tiles, or one N tile where wider: d_center, n_mid, d_v | d_g, cattn),
+    HN (cattn, hn, n_mid again), DN (d_n, then d_nmid), r2 and 4 x 128
+    floats of sum scratch."""
+    if not gnn_node_f32_sm90_shape(N, D):
+        return 0
+    rows = 64
+
+    def tile(width):
+        return rows * (width + 4)
+
+    ring = 3 * 128 * 16
+    if not backward:
+        return 4 * (ring + tile(D) + 2 * tile(N) + tile(128) + rows)
+    return 4 * (ring + max(2 * tile(128), tile(N)) + 2 * tile(N) + rows + 4 * 128)
+
+
+def gnn_node_dw_tiles(N: int, D: int) -> int:
+    """The 128 x 128 output tiles of the node weights' four products in the
+    float32 second pass: w_contr (N x D), w_exp (D x N), w_in_c (N x 4N),
+    w_out_c (2N x N)."""
+    n, d = N // DW_TILE, D // DW_TILE
+    return n * d + d * n + n * 4 * n + 2 * n * n
+
+
+def gnn_node_dw_floats(N: int, D: int) -> int:
+    """The node weights' gradients of one layer (``CenterWeights``)."""
+    return 2 * N * D + D + 6 * N * N + 7 * N
 
 
 def gnn_node_sm90_smem(N: int, D: int, backward: bool) -> int:

@@ -23,14 +23,19 @@ token layout of :mod:`.fused_layer`:
   is itself differentiable (training with forces): its gradient replays
   :func:`gnn_block_bwd_math` under autograd, chunk by chunk over atoms
   (:func:`replay_gnn_block_bwd`).
-- The Hopper GNN block: bfloat16 at the served shapes where no weight
-  requires grad (:func:`_lib.gnn_sm90_takes`), the block is a fixed
-  sequence of launches instead (:func:`block_forward`,
-  :func:`block_backward`): each attention layer on the Hopper K1 / K2
-  (``csrc/fused_layer_{fwd,bwd}_sm90.cu``) and, with the expansion, the
-  node stream between them on ``csrc/gnn_node_sm90.cu``
-  (:func:`gnn_node_fwd_cuda`, :func:`gnn_node_bwd_cuda`; plain versions
-  :func:`node_stream_fwd_math`, :func:`node_stream_bwd_math`). The
+- The Hopper GNN block: at the served shapes (:func:`_lib.gnn_sm90_takes`:
+  bfloat16 where no weight requires grad, float32 with or without weight
+  gradients) the block is a fixed sequence of launches instead
+  (:func:`block_forward`, :func:`block_backward`): each attention layer on
+  the Hopper K1 / K2 (``csrc/fused_layer_{fwd,bwd}_sm90.cu``; float32 the
+  Hopper float32 K1 / K2 and, for the weight gradients, the two-pass
+  K2-dW) and, with the expansion, the node stream between them on
+  ``csrc/gnn_node_sm90.cu`` (float32: ``csrc/gnn_node_f32_sm90.cu``, whose
+  spill mode and split-K product give the node weights' gradients;
+  :func:`gnn_node_fwd_cuda`, :func:`gnn_node_bwd_cuda`,
+  :func:`gnn_node_bwd_dw_cuda`, :func:`gnn_node_dw_cuda`; plain versions
+  :func:`node_stream_fwd_math`, :func:`node_stream_bwd_math`,
+  :func:`node_stream_bwd_dw_math`, :func:`node_stream_dw_math`). The
   backward recomputes the forward by running the same sequence.
 
 Weights come as one flat list in the JAX package's order
@@ -41,6 +46,7 @@ the (in, out) layout, cast to the compute dtype (the dtype of ``edges``).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -50,6 +56,7 @@ from .fused_layer import (
     LayerWeights,
     _k1_sm90,
     _k2_sm90,
+    _k2dw_sm90,
     _matmul_bias,
     _rms_stats,
     accumulation_dtype,
@@ -77,6 +84,12 @@ class CenterWeights(NamedTuple):
     b_in_c: torch.Tensor  # (4N,)
     w_out_c: torch.Tensor  # (2N, N)
     b_out_c: torch.Tensor  # (N,)
+
+
+def center_shapes(N: int, D: int):
+    """The shapes of the 9 node-stream weights (:class:`CenterWeights`
+    order)."""
+    return ((N, D), (D,), (D, N), (N,), (N,), (N, 4 * N), (4 * N,), (2 * N, N), (N,))
 
 
 def flatten_gnn_weights(layer_ws, center_ws, expanded: bool) -> list:
@@ -257,18 +270,78 @@ def node_stream_bwd_math(node, cattn, dn, d_center, cw_con, cw):
     (the layer's, ``node`` and ``cattn`` its inputs) the node update's
     backward: ``(d_cattn, d_nmid)``, d_nmid in the accumulation dtype; else
     ``d_node``, d_n in the compute dtype."""
+    return node_stream_bwd_dw_math(node, cattn, dn, d_center, cw_con, cw)[0]
+
+
+class NodeOperands(NamedTuple):
+    """What the plain weight-gradient backward keeps of one layer's node
+    update for its weights' sums (:func:`node_stream_bwd_dw_math`): per atom
+    hn, h and d_vg (the compute dtype), d_n, d_nmid and the rows of norm_c's
+    gradient d_hn x2 r2 (the accumulation dtype)."""
+
+    hn: torch.Tensor  # (A, N)
+    h: torch.Tensor  # (A, 2N)
+    d_vg: torch.Tensor  # (A, 4N)
+    d_n: torch.Tensor  # (A, N)
+    d_nmid: torch.Tensor  # (A, N)
+    norm_rows: torch.Tensor  # (A, N)
+
+
+def node_stream_bwd_dw_math(node, cattn, dn, d_center, cw_con, cw, spill_con=None):
+    """Plain version of the node-stream backward kernel's spill mode:
+    ``(out, ops)`` with ``out`` :func:`node_stream_bwd_math`'s and, with
+    ``cw``, the layer's :class:`NodeOperands` (else ``None``), from the
+    same operations. ``spill_con`` (the layer above's, where the kernel
+    writes the tiles' b_contr sums) is not read: :func:`node_stream_dw_math`
+    sums d_center itself."""
     cd = node.dtype if cw is not None else d_center.dtype
     acc = accumulation_dtype(cd)
     d_n = dn.to(acc)
     if d_center is not None:
         d_n = d_n + d_center.to(acc) @ cw_con.w_contr.to(cd).to(acc).T
     if cw is None:
-        return d_n.to(cd)
+        return d_n.to(cd), None
     wc = CenterWeights(*(x.to(cd) for x in cw))
     extras = _center_forward(node, cattn, wc, cd)
-    _, _, _, d_nmid, d_cattn = _center_backward(
+    _, d_vg, d_hn, d_nmid, d_cattn = _center_backward(
         d_n, extras, CenterWeights(*(x.to(acc) for x in wc)), cd)
-    return d_cattn, d_nmid
+    _, x2, r2, hn, _, _, h, _ = extras
+    return (d_cattn, d_nmid), NodeOperands(hn, h, d_vg, d_n, d_nmid, d_hn * (x2 * r2))
+
+
+def node_stream_dw_math(node, cattn, d_center, ops: NodeOperands, sms: int = 132) -> CenterWeights:
+    """Plain version of the node weights' second pass: one layer's
+    :class:`CenterWeights` gradients (the accumulation dtype) from its
+    inputs ``node`` and ``cattn``, the layer's ``d_center`` (from its K2-dW)
+    and :class:`NodeOperands`, summed in the kernels' order: per slice of
+    the atoms (:func:`_lib.dw_slices` with the products' 128 x 128 tiles,
+    :func:`_lib.gnn_node_dw_tiles`, on ``sms`` SMs) a partial (the slice's
+    X^T dY products; its share of the 64-atom tiles' vector sums), the
+    slices added in order. ``sms`` defaults to the H100's 132."""
+    A, N = node.shape
+    D = cattn.shape[1]
+    cd, acc = ops.hn.dtype, ops.d_nmid.dtype
+    if A == 0:
+        return CenterWeights(*(torch.zeros(s, dtype=acc, device=node.device)
+                               for s in center_shapes(N, D)))
+    pairs = ((node, d_center), (cattn, ops.d_nmid.to(cd)), (ops.hn, ops.d_vg),
+             (ops.h, ops.d_n.to(cd)))
+    rows = torch.cat([d_center.to(acc), ops.d_nmid, ops.norm_rows, ops.d_vg.to(acc), ops.d_n],
+                     dim=1)
+    n_tiles = -(-A // 64)
+    pad = rows.new_zeros((n_tiles * 64 - A, rows.shape[1]))
+    tile_rows = torch.cat([rows, pad]).reshape(n_tiles, 64, -1).sum(1)
+    step, slices = _lib.dw_slices(A, _lib.gnn_node_dw_tiles(N, D), sms)
+    total = None
+    for s in range(slices):
+        r0, r1 = s * step, min(A, (s + 1) * step)
+        mats = [x[r0:r1].to(acc).T @ y[r0:r1].to(acc) for x, y in pairs]
+        vec = tile_rows[n_tiles * s // slices:n_tiles * (s + 1) // slices].sum(0)
+        b_contr, b_exp, norm_c, b_in_c, b_out_c = torch.split(vec, [D, N, N, 4 * N, N])
+        part = CenterWeights(mats[0], b_contr, mats[1], b_exp, norm_c, mats[2], b_in_c, mats[3],
+                             b_out_c)
+        total = part if total is None else CenterWeights(*(t + p for t, p in zip(total, part)))
+    return total
 
 
 class BlockPieces(NamedTuple):
@@ -276,22 +349,33 @@ class BlockPieces(NamedTuple):
     versions: ``k1(edges, center, cf, w) -> (edge_out, cattn)``,
     ``k2(edges, center, cf, w, g_edge, g_center) -> (d_edges, d_center,
     d_cf)``, ``node_fwd`` and ``node_bwd`` as :func:`node_stream_fwd_math`
-    and :func:`node_stream_bwd_math`."""
+    and :func:`node_stream_bwd_math`; for the weight gradients ``k2dw`` (as
+    ``k2`` with the layer's :class:`LayerWeights` gradients fourth),
+    ``node_bwd_dw`` and ``node_dw`` as :func:`node_stream_bwd_dw_math` and
+    :func:`node_stream_dw_math` (``None`` where the pieces have none)."""
 
     k1: object
     k2: object
     node_fwd: object
     node_bwd: object
+    k2dw: object = None
+    node_bwd_dw: object = None
+    node_dw: object = None
 
 
 def plain_pieces(num_heads: int, scale: float) -> BlockPieces:
     """The plain versions of the sequence's launches: :func:`layer_math`,
-    :func:`layer_bwd_math` and the node stream's."""
+    :func:`layer_bwd_math` (with and without the weight gradients) and the
+    node stream's."""
     return BlockPieces(
         k1=lambda e, c, cf, w: layer_math(e, c, cf, w, num_heads, scale),
         k2=lambda e, c, cf, w, ge, gc: layer_bwd_math(e, c, cf, w, ge, gc, num_heads, scale),
         node_fwd=node_stream_fwd_math,
         node_bwd=node_stream_bwd_math,
+        k2dw=lambda e, c, cf, w, ge, gc: layer_bwd_math(e, c, cf, w, ge, gc, num_heads, scale,
+                                                       True),
+        node_bwd_dw=node_stream_bwd_dw_math,
+        node_dw=node_stream_dw_math,
     )
 
 
@@ -327,37 +411,68 @@ def block_forward(edges, node, cf, layer_ws, center_ws, expanded: bool, pieces: 
 
 
 def block_backward(edges, node, cf, layer_ws, center_ws, g_edge, g_node, expanded: bool,
-                   pieces: BlockPieces, trace=None):
-    """The Hopper block's input-gradient backward as its sequence of
-    launches: ``(d_edges, d_node, d_cf)``. The forward is recomputed by
-    :func:`block_forward` itself, saving each layer's inputs; then, last
-    layer first, the node stream's backward (with the contraction's backward
-    of the layer above), the layer's (``k2``), and d_cf summed over the
-    layers in float32 (float64 for float64 inputs), last layer first; the
-    first contraction's backward gives d_node. ``trace`` receives the
-    recompute's per-layer values as :func:`block_forward`'s does."""
+                   pieces: BlockPieces, trace=None, weight_grads: bool = False):
+    """The Hopper block's backward as its sequence of launches: ``(d_edges,
+    d_node, d_cf)``. The forward is recomputed by :func:`block_forward`
+    itself, saving each layer's inputs; then, last layer first, the node
+    stream's backward (with the contraction's backward of the layer above),
+    the layer's (``k2``), and d_cf summed over the layers in float32
+    (float64 for float64 inputs), last layer first; the first contraction's
+    backward gives d_node. ``trace`` receives the recompute's per-layer
+    values as :func:`block_forward`'s does.
+
+    With ``weight_grads`` the same sequence with each layer on ``k2dw`` and
+    the node stream's backward in its spill mode (``node_bwd_dw``); once a
+    layer's node operands are complete (its b_contr sums come with the
+    contraction's backward, the next launch below it) ``node_dw`` sums its
+    node weights' gradients. A fourth output holds every weight's gradient
+    in the order of :func:`flatten_gnn_weights`."""
     saved = [] if trace is None else trace
     block_forward(edges, node, cf, layer_ws, center_ws, expanded, pieces, saved, final=False)
+    n_layers = len(layer_ws)
     d_e, d_cf, dn, d_center = g_edge, None, g_node, None
-    for i in reversed(range(len(layer_ws))):
+    dws, dcs, spills = [None] * n_layers, [None] * n_layers, [None] * (n_layers + 1)
+
+    def node_dw(i):  # layer i's node weights, once the launch below it ran
+        dcs[i] = pieces.node_dw(saved[i][1], saved[i][3], d_center, spills[i])
+
+    for i in reversed(range(n_layers)):
         e_in, n_in, center, cattn = saved[i]
         if expanded:
-            d_cattn, dn = pieces.node_bwd(n_in, cattn, dn, d_center,
-                                          None if d_center is None else center_ws[i + 1],
-                                          center_ws[i])
+            cw_con = None if d_center is None else center_ws[i + 1]
+            if weight_grads:
+                (d_cattn, dn), spills[i] = pieces.node_bwd_dw(n_in, cattn, dn, d_center, cw_con,
+                                                              center_ws[i], spills[i + 1])
+                if d_center is not None:
+                    node_dw(i + 1)
+            else:
+                d_cattn, dn = pieces.node_bwd(n_in, cattn, dn, d_center, cw_con, center_ws[i])
         else:
             d_cattn = dn
-        d_e, d_center, d_cf_l = pieces.k2(e_in, center, cf, layer_ws[i], d_e, d_cattn)
+        if weight_grads:
+            d_e, d_center, d_cf_l, dws[i] = pieces.k2dw(e_in, center, cf, layer_ws[i], d_e,
+                                                        d_cattn)
+        else:
+            d_e, d_center, d_cf_l = pieces.k2(e_in, center, cf, layer_ws[i], d_e, d_cattn)
         d_cf = d_cf_l if d_cf is None else d_cf + d_cf_l
         if not expanded:
             dn = d_center
-    d_node = pieces.node_bwd(None, None, dn, d_center, center_ws[0], None) if expanded else dn
-    return d_e, d_node, d_cf
+    if not expanded:
+        d_node = dn
+    elif weight_grads:
+        d_node = pieces.node_bwd_dw(None, None, dn, d_center, center_ws[0], None, spills[0])[0]
+        node_dw(0)
+    else:
+        d_node = pieces.node_bwd(None, None, dn, d_center, center_ws[0], None)
+    if not weight_grads:
+        return d_e, d_node, d_cf
+    return d_e, d_node, d_cf, flatten_gnn_weights(dws, dcs, expanded)
 
 
 class NodeWeights(NamedTuple):
-    """One layer's node-stream weights as ``csrc/gnn_node_sm90.cu`` reads
-    them (bfloat16, contiguous): the forward's matrices as (out, in) row-major
+    """One layer's node-stream weights as the Hopper node-stream kernels read
+    them (``csrc/gnn_node_sm90.cu`` bfloat16, ``csrc/gnn_node_f32_sm90.cu``
+    float32; contiguous): the forward's matrices as (out, in) row-major
     (w_contr^T, w_exp^T, w_out_c^T, and w_vg: w_in_c^T with its rows in
     blocks of 128, value columns 128 i .. 128 i + 127 then the same gate
     columns, so that a 128-column hidden tile's value chunks and gate chunks
@@ -379,10 +494,11 @@ class NodeWeights(NamedTuple):
     w_out_c: torch.Tensor  # (2N, N)
 
 
-def node_sm90_weights(cw: CenterWeights) -> NodeWeights:
+def node_sm90_weights(cw: CenterWeights, dtype: torch.dtype = torch.bfloat16) -> NodeWeights:
     """The kernels' arrangement of one layer's :class:`CenterWeights`
-    (cast to bfloat16)."""
-    cw = CenterWeights(*(_cuda_tensor(x, torch.bfloat16) for x in cw))
+    (cast to ``dtype``: bfloat16 for ``csrc/gnn_node_sm90.cu``, float32 for
+    ``csrc/gnn_node_f32_sm90.cu``)."""
+    cw = CenterWeights(*(_cuda_tensor(x, dtype) for x in cw))
     return NodeWeights(
         w_contr_t=cw.w_contr.t().contiguous(), b_contr=cw.b_contr,
         w_exp_t=cw.w_exp.t().contiguous(), b_exp=cw.b_exp, norm_c=cw.norm_c,
@@ -392,33 +508,38 @@ def node_sm90_weights(cw: CenterWeights) -> NodeWeights:
     )
 
 
-def _node_check(tensors: dict, N: int, D: int, device) -> None:
-    if not _lib.gnn_node_sm90_shape(N, D):
+def _node_check(tensors: dict, N: int, D: int, device, dtype=torch.bfloat16) -> None:
+    shape = _lib.gnn_node_f32_sm90_shape if dtype == torch.float32 else _lib.gnn_node_sm90_shape
+    if not shape(N, D):
         raise ValueError(f"the Hopper node-stream kernels take D = 128 and N = 128 or 256, got "
                          f"N={N}, D={D}")
     for name, t in tensors.items():
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    _lib.require(tensors, device, torch.bfloat16)
+    _lib.require(tensors, device, dtype)
 
 
 def gnn_node_fwd_cuda(node, cattn, nw: NodeWeights, nw_next: NodeWeights):
-    """Launch the node-stream forward kernel (``csrc/gnn_node_sm90.cu``,
-    counter ``gnn_node_fwd_sm90``) as :func:`node_stream_fwd_math`: with
-    ``nw`` the layer's update of ``node`` (A, N) by ``cattn`` (A, D), with
-    ``nw_next`` the next layer's contraction; bfloat16 tensors on the card,
-    the weights as :func:`node_sm90_weights` gives them."""
+    """Launch the node-stream forward kernel as :func:`node_stream_fwd_math`:
+    with ``nw`` the layer's update of ``node`` (A, N) by ``cattn`` (A, D),
+    with ``nw_next`` the next layer's contraction; tensors on the card, the
+    weights as :func:`node_sm90_weights` gives them. bfloat16 launches
+    ``csrc/gnn_node_sm90.cu`` (counter ``gnn_node_fwd_sm90``), float32
+    ``csrc/gnn_node_f32_sm90.cu`` (counter ``gnn_node_fwd_f32_sm90``)."""
     A, N = node.shape
     w = nw if nw is not None else nw_next
     D = w.w_exp_t.shape[1]
+    f32 = node.dtype == torch.float32
     tensors = {"node": node, "cattn": cattn, **{f"w.{k}": v for k, v in w._asdict().items()}}
     if nw is not None and nw_next is not None:
         tensors.update({f"next.{k}": v for k, v in nw_next._asdict().items()})
-    _node_check(tensors, N, D, node.device)
+    _node_check(tensors, N, D, node.device, node.dtype)
     if nw is not None and cattn.shape != (A, D):
         raise ValueError(f"cattn {tuple(cattn.shape)} does not fit node {tuple(node.shape)}")
+    name = "gnn_node_fwd_f32_sm90" if f32 else "gnn_node_fwd_sm90"
     lib = _lib.library()
-    _lib.check_shared(lib.mtt_gnn_node_sm90_smem(N, D, 0), "gnn_node_fwd_sm90")
+    smem = lib.mtt_gnn_node_f32_sm90_smem if f32 else lib.mtt_gnn_node_sm90_smem
+    _lib.check_shared(smem(N, D, 0), name)
     node_out = torch.empty_like(node) if nw is not None else None
     center = (torch.empty((A, D), dtype=node.dtype, device=node.device) if nw_next is not None
               else None)
@@ -426,23 +547,27 @@ def gnn_node_fwd_cuda(node, cattn, nw: NodeWeights, nw_next: NodeWeights):
         nw is not None) else (None,) * 7
     con = (nw_next.w_contr_t, nw_next.b_contr) if nw_next is not None else (None, None)
     _lib.check(
-        lib.mtt_gnn_node_fwd_sm90(
+        getattr(lib, f"mtt_{name}")(
             node.data_ptr(), _lib.ptr(cattn if nw is not None else None),
             *(_lib.ptr(x) for x in upd + con), _lib.ptr(node_out), _lib.ptr(center),
-            A, N, D, rmsnorm_eps(torch.bfloat16), _lib.stream_ptr(node.device)),
-        "gnn_node_fwd_sm90",
+            A, N, D, rmsnorm_eps(node.dtype), _lib.stream_ptr(node.device)),
+        name,
     )
-    _lib.LAUNCHES["gnn_node_fwd_sm90"] += 1
+    _lib.LAUNCHES[name] += 1
     return node_out, center
 
 
 def gnn_node_bwd_cuda(node, cattn, dn, d_center, nw_con: NodeWeights, nw: NodeWeights):
-    """Launch the node-stream backward kernel (``csrc/gnn_node_sm90.cu``,
-    counter ``gnn_node_bwd_sm90``) as :func:`node_stream_bwd_math`: ``dn``
-    (A, N) float32 or bfloat16, the rest bfloat16 on the card; with
-    ``d_center`` (A, D) the contraction's backward of the layer above
+    """Launch the node-stream backward kernel as :func:`node_stream_bwd_math`:
+    with ``d_center`` (A, D) the contraction's backward of the layer above
     (``nw_con``), with ``nw`` the layer's update's backward, ``(d_cattn,
-    d_nmid)`` with d_nmid float32; else ``d_node`` (bfloat16)."""
+    d_nmid)`` with d_nmid float32; else ``d_node``. bfloat16 weights launch
+    ``csrc/gnn_node_sm90.cu`` (counter ``gnn_node_bwd_sm90``; ``dn`` (A, N)
+    float32 or bfloat16, d_cattn and d_node bfloat16), float32 ones
+    ``csrc/gnn_node_f32_sm90.cu`` (counter ``gnn_node_bwd_f32_sm90``; every
+    tensor float32)."""
+    if (nw if nw is not None else nw_con).w_exp.dtype == torch.float32:
+        return _node_bwd_f32(node, cattn, dn, d_center, nw_con, nw)
     A, N = dn.shape
     D = (nw if nw is not None else nw_con).w_exp.shape[0]
     tensors = {"d_center": d_center}
@@ -481,15 +606,161 @@ def gnn_node_bwd_cuda(node, cattn, dn, d_center, nw_con: NodeWeights, nw: NodeWe
     return (d_cattn, d_nmid) if nw is not None else d_node
 
 
+class NodeSpill(NamedTuple):
+    """What the float32 node-stream backward's spill mode writes for one
+    layer (float32 on the card): per atom hn (A, N), h (A, 2N), d_vg (A,
+    4N), d_n (A, N; after the last layer ``dn`` itself, which it reads)
+    and d_nmid (A, N), and per tile of 64 atoms its vector row ``vec``
+    (tiles, D + 7N): the sums of b_contr (written by the launch below the
+    layer, with the contraction's backward), b_exp, norm_c, b_in_c and
+    b_out_c's rows."""
+
+    hn: torch.Tensor
+    h: torch.Tensor
+    d_vg: torch.Tensor
+    d_n: torch.Tensor
+    d_nmid: torch.Tensor
+    vec: torch.Tensor
+
+
+def _node_bwd_f32(node, cattn, dn, d_center, nw_con: NodeWeights, nw: NodeWeights,
+                  spill_con: NodeSpill = None, spill: bool = False):
+    """``csrc/gnn_node_f32_sm90.cu``'s backward on float32 tensors, in its
+    spill mode with ``spill`` (``spill_con``: the layer above's, where the
+    tiles' b_contr sums go)."""
+    A, N = dn.shape
+    D = (nw if nw is not None else nw_con).w_exp.shape[0]
+    tensors = {"dn": dn, "d_center": d_center}
+    if nw is not None:
+        tensors.update({"node": node, "cattn": cattn,
+                        **{f"w.{k}": v for k, v in nw._asdict().items()}})
+    if d_center is not None:
+        tensors["w_contr"] = nw_con.w_contr
+        if spill:
+            tensors["spill_con.vec"] = spill_con.vec
+    _node_check(tensors, N, D, dn.device, torch.float32)
+    tiles = -(-A // 64)
+    if spill and d_center is not None and spill_con.vec.shape != (tiles, D + 7 * N):
+        raise ValueError(f"spill_con.vec {tuple(spill_con.vec.shape)} does not fit dn "
+                         f"{tuple(dn.shape)}")
+    name = "gnn_node_bwd_dw_f32_sm90" if spill else "gnn_node_bwd_f32_sm90"
+    lib = _lib.library()
+    _lib.check_shared(lib.mtt_gnn_node_f32_sm90_smem(N, D, 1), name)
+    dev = dn.device
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    d_cattn = d_nmid = d_node = None
+    s_hn = s_h = s_dvg = s_dn = vec = None
+    if nw is not None:
+        d_cattn, d_nmid = empty(A, D), empty(A, N)
+        weights = (nw.w_exp_t, nw.b_exp, nw.norm_c, nw.w_vg, nw.b_in_c, nw.w_out_c, nw.w_in_c,
+                   nw.w_exp)
+        if spill:
+            s_hn, s_h, s_dvg, vec = empty(A, N), empty(A, 2 * N), empty(A, 4 * N), empty(
+                tiles, D + 7 * N)
+            s_dn = empty(A, N) if d_center is not None else None
+    else:
+        d_node = empty(A, N)
+        weights = (None,) * 8
+    vec_con = spill_con.vec if spill and d_center is not None else None
+    _lib.check(
+        lib.mtt_gnn_node_bwd_f32_sm90(
+            _lib.ptr(node if nw is not None else None), _lib.ptr(cattn if nw is not None else None),
+            dn.data_ptr(), _lib.ptr(d_center),
+            _lib.ptr(nw_con.w_contr if d_center is not None else None),
+            *(_lib.ptr(x) for x in weights), _lib.ptr(d_cattn), _lib.ptr(d_nmid),
+            _lib.ptr(d_node), *(_lib.ptr(x) for x in (s_hn, s_h, s_dvg, s_dn, vec, vec_con)),
+            A, N, D, rmsnorm_eps(torch.float32), _lib.stream_ptr(dev)),
+        name,
+    )
+    _lib.LAUNCHES[name] += 1
+    out = (d_cattn, d_nmid) if nw is not None else d_node
+    if not spill:
+        return out
+    ops = None if nw is None else NodeSpill(s_hn, s_h, s_dvg, dn if s_dn is None else s_dn,
+                                            d_nmid, vec)
+    return out, ops
+
+
+def gnn_node_bwd_dw_cuda(node, cattn, dn, d_center, nw_con: NodeWeights, nw: NodeWeights,
+                         spill_con: NodeSpill = None):
+    """The float32 node-stream backward in its spill mode (counter
+    ``gnn_node_bwd_dw_f32_sm90``) as :func:`node_stream_bwd_dw_math`:
+    ``(out, spill)`` with ``out`` :func:`gnn_node_bwd_cuda`'s and, with
+    ``nw``, the layer's :class:`NodeSpill`; with ``d_center`` the tiles'
+    b_contr sums go to ``spill_con.vec`` (the layer above's)."""
+    return _node_bwd_f32(node, cattn, dn, d_center, nw_con, nw, spill_con, spill=True)
+
+
+def gnn_node_dw_cuda(node, cattn, d_center, spill: NodeSpill, sms: int = None) -> CenterWeights:
+    """The node weights' second pass (``csrc/gnn_node_f32_sm90.cu``'s
+    ``mtt_gnn_node_dw_f32_sm90``, counter ``gnn_node_dw_product``): one
+    layer's :class:`CenterWeights` gradients (float32) from its inputs
+    ``node`` (A, N) and ``cattn`` (A, D), its ``d_center`` and ``spill``,
+    as :func:`node_stream_dw_math` on ``sms`` SMs (the card's by default)."""
+    A, N = node.shape
+    D = cattn.shape[1]
+    dev = node.device
+    _lib.require({"node": node, "cattn": cattn, "d_center": d_center, **spill._asdict()}, dev,
+                 torch.float32)
+    if not _lib.gnn_node_f32_sm90_shape(N, D) or spill.vec.shape != (-(-A // 64), D + 7 * N):
+        raise ValueError(f"the node weights' products take D = 128, N = 128 or 256 and the "
+                         f"spill of node {tuple(node.shape)}")
+    sms = sms or _lib.sm_count(dev)
+    n = _lib.gnn_node_dw_floats(N, D)
+    slices = _lib.dw_slices(A, _lib.gnn_node_dw_tiles(N, D), sms)[1] if A else 1
+    partials = torch.empty((slices, n), dtype=torch.float32, device=dev)
+    dw = torch.empty(n, dtype=torch.float32, device=dev)
+    lib = _lib.library()
+    _lib.check(
+        lib.mtt_gnn_node_dw_f32_sm90(
+            node.data_ptr(), cattn.data_ptr(), d_center.data_ptr(), spill.d_nmid.data_ptr(),
+            spill.hn.data_ptr(), spill.h.data_ptr(), spill.d_vg.data_ptr(), spill.d_n.data_ptr(),
+            spill.vec.data_ptr(), partials.data_ptr(), dw.data_ptr(), A, N, D, sms, slices,
+            _lib.stream_ptr(dev)),
+        "gnn_node_dw_product",
+    )
+    _lib.LAUNCHES["gnn_node_dw_product"] += 1
+    shapes = center_shapes(N, D)
+    return CenterWeights(*(p.view(s) for p, s in zip(
+        torch.split(dw, [math.prod(s) for s in shapes]), shapes)))
+
+
 def sm90_pieces(num_heads: int, scale: float) -> BlockPieces:
-    """The Hopper block's launches: the Hopper K1 and K2 (layer weights in
-    bfloat16 on the card) and the node-stream kernels (:class:`NodeWeights`)."""
+    """The Hopper block's launches in bfloat16: the Hopper K1 and K2 (layer
+    weights in bfloat16 on the card) and the node-stream kernels
+    (:class:`NodeWeights`)."""
     return BlockPieces(
         k1=lambda e, c, cf, w: _k1_sm90(e, c, cf, w, num_heads, scale),
         k2=lambda e, c, cf, w, ge, gc: _k2_sm90(e, c, cf, w, ge, gc, num_heads, scale),
         node_fwd=gnn_node_fwd_cuda,
         node_bwd=gnn_node_bwd_cuda,
     )
+
+
+def sm90_f32_pieces(num_heads: int, scale: float) -> BlockPieces:
+    """The Hopper block's launches in float32: the Hopper float32 K1 and K2
+    and the two-pass K2-dW (its first pass the Hopper float32 K2's spill
+    mode), unchanged, and the float32 node-stream kernels with their spill
+    mode and second pass (:class:`NodeWeights` in float32)."""
+    return BlockPieces(
+        k1=lambda e, c, cf, w: _k1_sm90(e, c, cf, w, num_heads, scale, "fused_layer_fwd_f32_sm90"),
+        k2=lambda e, c, cf, w, ge, gc: _k2_sm90(e, c, cf, w, ge, gc, num_heads, scale,
+                                                "fused_layer_bwd_f32_sm90"),
+        node_fwd=gnn_node_fwd_cuda,
+        node_bwd=gnn_node_bwd_cuda,
+        k2dw=lambda e, c, cf, w, ge, gc: _k2dw_sm90(e, c, cf, w, ge, gc, num_heads, scale),
+        node_bwd_dw=gnn_node_bwd_dw_cuda,
+        node_dw=gnn_node_dw_cuda,
+    )
+
+
+def _hopper_block(dtype, num_heads: int, scale: float, center_ws):
+    """``(pieces, node weights)`` of the Hopper block in ``dtype``."""
+    pieces = (sm90_f32_pieces if dtype == torch.float32 else sm90_pieces)(num_heads, scale)
+    return pieces, [node_sm90_weights(cw, dtype) for cw in center_ws]
 
 
 # ---------------------------------------------------------------------------
@@ -554,21 +825,21 @@ def gnn_block_fwd_cuda(edges, node, cf, flat_w, num_heads, scale, n_layers, expa
     """Launch the block's forward. ``edges``/``node`` float32 or bfloat16
     (the same), ``cf`` float32.
 
-    Where :func:`_lib.gnn_sm90_takes` says so (bfloat16 at the served shapes,
-    no weight requiring grad: ``weight_grads``) the Hopper block runs, a
-    sequence of launches (:func:`block_forward` with :func:`sm90_pieces`;
-    ``trace`` receives its per-layer values); ``sm90=False`` keeps the
-    general kernel ``csrc/gnn_block_fwd.cu`` there too, for comparisons."""
+    Where :func:`_lib.gnn_sm90_takes` says so (at the served shapes bfloat16
+    with no weight requiring grad, float32 with or without: ``weight_grads``)
+    the Hopper block runs, a sequence of launches (:func:`block_forward` with
+    :func:`sm90_pieces` or :func:`sm90_f32_pieces`; ``trace`` receives its
+    per-layer values); ``sm90=False`` keeps the general kernel
+    ``csrc/gnn_block_fwd.cu`` there too, for comparisons."""
     cd = edges.dtype
     code = _lib.dtype_code(cd)
     layer_ws, center_ws = _cuda_weights(flat_w, n_layers, expanded, cd)
     A, M, D, F, Nn = _check_shapes(edges, node, cf, layer_ws, center_ws, num_heads, expanded)
     _require(edges, node, cf, layer_ws, center_ws)
     if sm90 and _lib.gnn_sm90_takes(cd, M, D, num_heads, F, Nn, expanded, weight_grads):
-        _lib.CALLS["gnn_block_fwd_sm90"] += 1
-        return block_forward(edges, _aligned(node), cf, layer_ws,
-                             [node_sm90_weights(cw) for cw in center_ws], expanded,
-                             sm90_pieces(num_heads, scale), trace)
+        _lib.CALLS[f"gnn_block_fwd{'_f32' if cd == torch.float32 else ''}_sm90"] += 1
+        pieces, node_ws = _hopper_block(cd, num_heads, scale, center_ws)
+        return block_forward(edges, _aligned(node), cf, layer_ws, node_ws, expanded, pieces, trace)
     lib = _lib.library()
     _, ws_floats = _lib.plan_query(lib.mtt_gnn_block_fwd_smem, M, D, F, Nn)
     grid = _lib.layer_grid(A, ws_floats, edges.device)
@@ -595,19 +866,22 @@ def gnn_block_bwd_cuda(edges, node, cf, flat_w, g_edge, g_node, num_heads, scale
     """Launch the block's backward: ``(d_edges, d_node, d_cf)`` with
     ``d_cf`` float32.
 
-    Where :func:`_lib.gnn_sm90_takes` says so (bfloat16 at the served
-    shapes, without ``weight_grads``) the Hopper block's backward runs
-    (:func:`block_backward` with :func:`sm90_pieces`, the forward recomputed
-    by the forward's own sequence; ``trace`` receives the recompute's
-    per-layer values); ``sm90=False`` keeps the general kernel
-    ``csrc/gnn_block_bwd.cu`` there too.
+    Where :func:`_lib.gnn_sm90_takes` says so (at the served shapes
+    bfloat16 without ``weight_grads``, float32 with or without) the Hopper
+    block's backward runs (:func:`block_backward` with :func:`sm90_pieces`
+    or :func:`sm90_f32_pieces`, the forward recomputed by the forward's own
+    sequence; ``trace`` receives the recompute's per-layer values);
+    ``sm90=False`` keeps the general kernel ``csrc/gnn_block_bwd.cu`` there
+    too.
 
-    With ``weight_grads=True`` launch its weight-gradient variant instead,
-    which also returns the float32 gradients of every weight summed over
-    atoms, as a flat list in the order of ``flat_w``: the layer weights
-    through per-block partials summed in block order (as K2-dW), the node
+    With ``weight_grads=True`` it also returns the float32 gradients of
+    every weight summed over atoms, as a flat list in the order of
+    ``flat_w``. The Hopper block sums them with K2-dW's split-K products
+    (the layers' and the node stream's, each over atoms in a fixed slice
+    order); the general kernel's weight-gradient variant through per-block
+    partials summed in block order (as K2-dW's accumulate body), the node
     stream's through a second kernel over the saved row vectors in atom
-    order, so the sums are the same from run to run."""
+    order. Either sum is the same from run to run."""
     cd = edges.dtype
     code = _lib.dtype_code(cd)
     layer_ws, center_ws = _cuda_weights(flat_w, n_layers, expanded, cd)
@@ -616,10 +890,11 @@ def gnn_block_bwd_cuda(edges, node, cf, flat_w, g_edge, g_node, num_heads, scale
     if g_edge.shape != edges.shape or g_node.shape != node.shape:
         raise ValueError("the cotangents must have the shapes of the outputs")
     if sm90 and _lib.gnn_sm90_takes(cd, M, D, num_heads, F, Nn, expanded, weight_grads):
-        _lib.CALLS["gnn_block_bwd_sm90"] += 1
-        return block_backward(edges, _aligned(node), cf, layer_ws,
-                              [node_sm90_weights(cw) for cw in center_ws], g_edge,
-                              _aligned(g_node), expanded, sm90_pieces(num_heads, scale), trace)
+        f32 = "_f32" if cd == torch.float32 else ""
+        _lib.CALLS[f"gnn_block_bwd{'_dw' if weight_grads else ''}{f32}_sm90"] += 1
+        pieces, node_ws = _hopper_block(cd, num_heads, scale, center_ws)
+        return block_backward(edges, _aligned(node), cf, layer_ws, node_ws, g_edge,
+                              _aligned(g_node), expanded, pieces, trace, weight_grads)
     transposed = [x.t().contiguous() for w in layer_ws
                   for x in (w.w_qkv, w.w_out, w.w_in, w.w_ffn_out)]
     name = "gnn_block_bwd_dw" if weight_grads else "gnn_block_bwd"
@@ -742,7 +1017,10 @@ class _GnnBlock(torch.autograd.Function):
         ctx.args = (num_heads, scale, n_layers, expanded, chunk)
         if edges.is_cuda:
             # the backward takes the weight-gradient variant whenever a
-            # weight requires grad: the forward then keeps the general body
+            # weight requires grad: in float32 the Hopper block's forward is
+            # then the sequence that variant recomputes; bfloat16 keeps the
+            # general body (its Hopper K1 rounds P, the weight-gradient
+            # backward and the replay do not)
             return gnn_block_fwd_cuda(edges, node, cf, flat_w, num_heads, scale, n_layers,
                                       expanded, weight_grads=any(ctx.needs_input_grad[8:]))
         layer_ws, center_ws = unflatten_gnn_weights(flat_w, n_layers, expanded)

@@ -58,7 +58,7 @@ F32 = torch.float32
     (BF16, 64, 128, 8, 256, 128, False, False, True),   # no expansion: no node stream
     (BF16, 64, 128, 8, 512, 256, True, False, True),
     (BF16, 64, 128, 8, 256, 256, True, True, False),    # training: a weight requires grad
-    (F32, 64, 128, 8, 256, 256, True, False, False),    # the f32 block
+    (F32, 64, 128, 8, 256, 256, True, False, True),     # the f32 block (the Hopper f32 pair)
     (BF16, 96, 128, 8, 256, 256, True, False, False),   # M = 96
     (BF16, 64, 256, 8, 512, 256, False, False, False),  # d_pet 256
     (BF16, 64, 128, 8, 256, 384, True, False, False),   # d_node 384
@@ -68,10 +68,15 @@ F32 = torch.float32
 ])
 def test_dispatch_rule(dtype, M, D, H, F, N, expanded, weight_grads, takes):
     assert _lib.gnn_sm90_takes(dtype, M, D, H, F, N, expanded, weight_grads) is takes
-    if takes:
+    if takes and dtype == BF16:
         # each attention layer on the Hopper K1 and K2
         assert _lib.k1_sm90_takes(dtype, M, D, H, F) and _lib.k2_sm90_takes(dtype, M, D, H, F)
         assert not expanded or _lib.gnn_node_sm90_smem(N, D, True) > 0
+    elif takes:
+        # on the Hopper float32 K1 and K2 (test_torch_port_gnn_f32_sm90.py)
+        assert _lib.k1_f32_sm90_takes(dtype, M, D, H, F) and _lib.k2_f32_sm90_takes(
+            dtype, M, D, H, F)
+        assert not expanded or _lib.gnn_node_f32_sm90_smem(N, D, True) > 0
 
 
 def test_node_smem_fits_every_width_it_takes():
@@ -395,4 +400,4 @@ def test_chip_smoke_expects_the_hopper_block():
     for name in ("gnn_block_fwd_sm90", "gnn_block_bwd_sm90", "gnn_node_fwd_sm90",
                  "gnn_node_bwd_sm90"):
         assert name in cs.SOURCES
-    assert cs.N_ENTRIES == 47
+    assert cs.N_ENTRIES == 53

@@ -407,4 +407,4 @@ def test_chip_smoke_expects_the_f32_heads():
         assert name in cs.K3_F32_NEVER + cs.K4_F32_NEVER, name
     for name in ("rowblock_fwd_f32_sm90", "rowblock_bwd_f32_sm90", "rowblock_bwd_dw_f32_sm90"):
         assert name in cs.SOURCES
-    assert cs.N_ENTRIES == 47
+    assert cs.N_ENTRIES == 53
