@@ -131,8 +131,10 @@ device and exits non-zero without one. Phases (any failure propagates):
    included), the kernel paths timed.
 4d. int8 scores: the fused model built with ``int8_scores=True`` in
    bfloat16: every counter starts at 0 just before its served calls; the
-   absmax pass, K1-int8 and K2-int8 must launch 4 times per call each and
-   K1/K2 never, the row-block backward as on the fused path. Gates: finite
+   absmax pass and the Hopper K1-int8 and K2-int8 (the int8-score mode of
+   the Hopper K1 and K2, ``INT8_SM90``) must launch 4 times per call each,
+   the general K1-int8 and K2-int8 and the exact K1/K2 never, the
+   row-block backward as on the fused path. Gates: finite
    outputs; the int8 kernel path vs its plain
    path energy rel <= 1 %, force rel-RMSE <= 5 %; its forces differ from
    the exact bf16 kernel path's (rel-RMSE > 1e-4). Reported, not gated: its
@@ -175,8 +177,10 @@ device and exits non-zero without one. Phases (any failure propagates):
    products) and ``K3_F32`` 2 + 2 + 1 times, and the general K3 and K4-dW
    never. Then one
    bfloat16 step with the int8 scores (the trained model), kernel vs plain
-   path: the absmax pass, K1-int8 and the two-pass K2-dW-int8 (8 each) must
-   launch, the accumulate K2-dW-int8 never, and the layer's replay run;
+   path: the absmax pass and the general K1-int8 (4 each: weights require
+   grad, so not the Hopper pair) and the two-pass K2-dW-int8 (8) must
+   launch, the accumulate K2-dW-int8 and the Hopper int8 pair never, and
+   the layer's replay run;
    loss rel <= 2e-2, global gradient rel L2 <= 0.1, finite gradients. Then
    one exact bfloat16 step (the trained model), kernel vs plain path, with
    the same gates: a weight requires grad, so the general K1, the two-pass
@@ -281,9 +285,14 @@ device and exits non-zero without one. Phases (any failure propagates):
    calibration from the plain probe on the same inputs; their bound counts
    the int8 products at 1,979 TOPS and the bf16 ones at 989 TFLOP/s. The
    int8 scores' absmax pass (scales within one bf16 ulp of the plain
-   version's), K1-int8, K2-int8 and K2-dW-int8 at the served shape and at
-   M = 48 (A = 11,000: blocks of 128, the last one partial), bfloat16,
-   relative RMS <= 2e-2. K2 in bf16 at the served shape is the Hopper K2:
+   version's), K1-int8 and K2-int8 (the Hopper pair, the general bodies
+   through ``sm90=False`` beside, ``general_ms``, each held to the plain
+   version too; both bitwise on a repeat; each also told from the exact
+   mode by ``compare_int8_mode``: its error under half the int8 plain
+   version's distance from the exact one, and its step from the exact
+   plain version along the int8 mode's, 1 +- 0.2) and K2-dW-int8 at the served
+   shape and at M = 48 and 16 (A = 11,000: blocks of 128, the last one
+   partial), bfloat16, relative RMS <= 2e-2. K2 in bf16 at the served shape is the Hopper K2:
    its d_cf must be bitwise equal across two launches, the general body
    (``sm90=False``) is held to the same twin and timed beside it
    (``general_ms``), its ``-Xptxas -v`` registers and spills are
@@ -371,7 +380,7 @@ device and exits non-zero without one. Phases (any failure propagates):
    W8A8) at head widths 8, 12, 24 and 64; the bounds of phase 8, times under
    each entry's ``shapes``.
 
-The second-to-last line is a JSON object with one entry per kernel (43);
+The second-to-last line is a JSON object with one entry per kernel (54);
 the last line is ``{"ok": true, "device": {...}}``. Details also go to
 ``chiprun_out/chip_smoke.json``, the compiler's ``-Xptxas -v`` output to
 ``chiprun_out/chip_smoke_build.log``.
@@ -520,6 +529,42 @@ def compare(kernel_outs, plain_outs, dtype):
     if worst > 1.0:
         fail(f"kernel disagrees with its plain version ({dtype}): {worst:.3g} x the bound")
     return max_err, worst
+
+
+# the int8-score kernels against the exact mode, per output: the kernel's
+# relative RMS from its int8 plain version under this share of the int8
+# plain version's distance from the exact one, and the share of that step
+# which the kernel takes within this much of 1
+INT8_MODE_SHARE, INT8_MODE_ALIGN = 0.5, 0.2
+
+
+def compare_int8_mode(kernel_outs, int8_outs, exact_outs):
+    """Tell the int8-score mode from the exact one, which the 2e-2 bound of
+    :func:`compare` cannot (the int8 plain version lies about 5e-3 to 2e-2
+    relative RMS from the exact one): per output, ``rel_int8`` (kernel vs
+    int8 plain) must stay under ``INT8_MODE_SHARE`` x ``mode_distance``
+    (int8 plain vs exact plain), and ``alignment`` = <k - x, i - x> /
+    |i - x|^2, the share of the int8 mode's step that the kernel takes,
+    within ``INT8_MODE_ALIGN`` of 1: a kernel on the exact scores gives
+    about 0, one that quantizes half the way about 0.5. Returns the
+    readings (``rel_exact`` too: kernel vs exact plain); raises when either
+    gate fails."""
+    readings = {"rel_int8": [], "rel_exact": [], "mode_distance": [], "alignment": []}
+    for k, i, x in zip(kernel_outs, int8_outs, exact_outs):
+        k, i, x = k.double(), i.double(), x.double()
+        step, norm = i - x, i.pow(2).mean().sqrt().clamp_min(1e-30)
+        dist = step.pow(2).mean().sqrt().item() / norm.item()
+        readings["rel_int8"].append((k - i).pow(2).mean().sqrt().item() / norm.item())
+        readings["rel_exact"].append((k - x).pow(2).mean().sqrt().item() / norm.item())
+        readings["mode_distance"].append(dist)
+        readings["alignment"].append(
+            ((k - x) * step).sum().item() / max(step.pow(2).sum().item(), 1e-300))
+        del k, i, x, step
+    for rel, dist, align in zip(readings["rel_int8"], readings["mode_distance"],
+                                readings["alignment"]):
+        if not (rel < INT8_MODE_SHARE * dist and abs(align - 1.0) <= INT8_MODE_ALIGN):
+            fail(f"int8-score kernel does not follow the int8 mode: {readings}")
+    return readings
 
 
 def compare_dw(kernel_dw, plain_dw, dtype):
@@ -991,9 +1036,14 @@ def check_w8a8_layer(A, M, D, H, F, gen, device, report):
 def check_int8_layer(A, M, D, H, F, gen, device, report, tag=None):
     """The dynamic int8 scores' kernels vs their plain versions (bfloat16):
     the absmax pass (scales within one bf16 ulp of the plain version's),
-    K1-int8, K2-int8 and K2-dW-int8 (relative RMS <= 2e-2 per output) at
+    K1-int8 and K2-int8, the Hopper pair (``INT8_SM90``; each bitwise on a
+    repeat) and the general bodies through ``sm90=False`` (K1-int8's entry
+    ``fused_layer_fwd_int8``, K2-int8's the Hopper K2-int8's
+    ``general_ms``), and K2-dW-int8 (relative RMS <= 2e-2 per output) at
     (A, M), with CUDA-event times and bounds (the score products at 1,979
-    TOPS, the rest at 989 TFLOP/s). ``tag`` keys a second shape's numbers
+    TOPS, the rest at 989 TFLOP/s). K1-int8 and K2-int8, both bodies, must
+    also be told from the exact mode (:func:`compare_int8_mode`, against
+    ``layer_math`` / ``layer_bwd_math`` without scales). ``tag`` keys a second shape's numbers
     under ``shapes`` instead of the entries' own."""
     from metatrain_tpu_torch.ops.kernels import fused_layer as fl
 
@@ -1014,34 +1064,76 @@ def check_int8_layer(A, M, D, H, F, gen, device, report, tag=None):
     ffn_out = 2 * M * F * D  # the backward's recompute skips it
     n_w = sum(x.numel() for x in w)
     act = A * M * D * 2 + A * D * 2
+    fwd_size = (2 * act + A * M * 4 + A * 8 + n_w * 2, A * (qkv + head + out + ffn), A * head)
     sizes = {  # bytes, bf16 flops, int8 ops
         "int8_absmax": (A * M * D * 2 + A * D * 2 + 3 * D * D * 2, A * 2 * qkv // 3, 0),
-        "fused_layer_fwd_int8": (2 * act + A * M * 4 + A * 8 + n_w * 2,
-                                 A * (qkv + head + out + ffn), A * head),
-        "fused_layer_bwd_int8": (4 * act + 2 * A * M * 4 + A * 8 + n_w * 2,
-                                 A * (2 * qkv + 5 * head + 2 * out + 2 * ffn - ffn_out), A * head),
+        "fused_layer_fwd_int8": fwd_size,
+        "fused_layer_fwd_int8_sm90": fwd_size,
+        "fused_layer_bwd_int8_sm90": (4 * act + 2 * A * M * 4 + A * 8 + n_w * 2,
+                                      A * (2 * qkv + 5 * head + 2 * out + 2 * ffn - ffn_out),
+                                      A * head),
         "fused_layer_bwd_dw_int8": (4 * act + 2 * A * M * 4 + A * 8 + n_w * 6,
                                     A * (3 * qkv + 5 * head + 3 * out + 3 * ffn - ffn_out),
                                     A * head),
     }
+
+    def k1(**kw):
+        return fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale, int8_scales=scales, **kw)
+
+    def k2(**kw):
+        return fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, int8_scales=scales, **kw)
+
+    def k1_plain():
+        return fl.layer_math(e, c, cf, w, H, scale, int8_scales=scales)
+
+    def k2_plain():
+        return fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale, int8_scales=scales)
+
+    def k1_exact():
+        return fl.layer_math(e, c, cf, w, H, scale)
+
+    def k2_exact():
+        return fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale)
+
+    # (entry, its launch, the counter it must add one to, plain version,
+    # the exact plain version the int8 mode must be told from); the general
+    # K2-int8 runs on no path, so it stands as the Hopper K2-int8's general_*
     cases = (
-        ("int8_absmax", lambda: (fl.int8_absmax_cuda(e, c, w, BA),),
-         lambda: (fl.int8_block_scales(e, c, w, BA),)),
-        ("fused_layer_fwd_int8",
-         lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale, int8_scales=scales),
-         lambda: fl.layer_math(e, c, cf, w, H, scale, int8_scales=scales)),
-        ("fused_layer_bwd_int8",
-         lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, int8_scales=scales),
-         lambda: fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale, int8_scales=scales)),
+        ("int8_absmax", lambda: (fl.int8_absmax_cuda(e, c, w, BA),), "int8_absmax",
+         lambda: (fl.int8_block_scales(e, c, w, BA),), None),
+        ("fused_layer_fwd_int8", lambda: k1(sm90=False), "fused_layer_fwd_int8", k1_plain,
+         k1_exact),
+        ("fused_layer_fwd_int8_sm90", k1, INT8_SM90[0], k1_plain, k1_exact),
+        ("fused_layer_bwd_int8_sm90", k2, INT8_SM90[1], k2_plain, k2_exact),
     )
     results = {}
-    for name, k_fn, p_fn in cases:
+    for name, k_fn, counter, p_fn, x_fn in cases:
+        before = fl._lib.LAUNCHES[counter]
         k_out, p_out = k_fn(), p_fn()
         torch.cuda.synchronize()
+        if fl._lib.LAUNCHES[counter] != before + 1:
+            fail(f"{name} at A={A}, M={M} did not launch {counter}")
         err, worst = compare(k_out, p_out, torch.bfloat16)
-        del k_out, p_out
-        results[name] = {"max_abs_err_bf16": err, "bound_ratio_bf16": worst,
-                         "ms_bf16": cuda_ms(k_fn), "plain_ms_bf16": cuda_ms(p_fn)}
+        entry = {"max_abs_err_bf16": err, "bound_ratio_bf16": worst}
+        x_out = x_fn() if x_fn else None
+        if x_out is not None:
+            entry["int8_mode_bf16"] = compare_int8_mode(k_out, p_out, x_out)
+        if counter in INT8_SM90:
+            again = k_fn()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(k_out, again)):
+                fail(f"{counter} gave different outputs in two launches")
+            entry["bitwise_repeat_bf16"] = True
+            del again
+            general = lambda: k_fn(sm90=False)  # noqa: E731
+            g_out = general()
+            entry["general_bound_ratio_bf16"] = compare(g_out, p_out, torch.bfloat16)[1]
+            entry["general_int8_mode_bf16"] = compare_int8_mode(g_out, p_out, x_out)
+            del g_out
+            entry["general_ms_bf16"] = cuda_ms(general)
+        del k_out, p_out, x_out
+        entry.update(ms_bf16=cuda_ms(k_fn), plain_ms_bf16=cuda_ms(p_fn))
+        results[name] = entry
         torch.cuda.empty_cache()
     dw_report = {}
     check_dw(
@@ -1057,6 +1149,11 @@ def check_int8_layer(A, M, D, H, F, gen, device, report, tag=None):
                      scales)
     results.update(dw_report)
     results["int8_absmax"]["scale_ulps_bf16"] = ulps
+    lib = fl._lib.library()
+    results["fused_layer_fwd_int8_sm90"]["smem_bytes"] = lib.mtt_fused_layer_fwd_int8_sm90_smem(
+        M, D, H, F)
+    results["fused_layer_bwd_int8_sm90"]["smem_bytes"] = lib.mtt_fused_layer_bwd_int8_sm90_smem(
+        M, D, H, F)
     for name, entry in results.items():
         record_bound(entry, "bf16", *sizes[name][:2], torch.bfloat16, sizes[name][2])
         entry["library_ms"] = None
@@ -1115,9 +1212,18 @@ def plan_table():
                                        lib.mtt_gnn_node_sm90_smem(Nn, D, bwd)),
                                       (_lib.gnn_node_sm90_shape(Nn, D),
                                        _lib.gnn_node_sm90_smem(Nn, D, bool(bwd)))))
-            # the Hopper K1's and K2's dispatch rules and budgets (bf16 and
-            # float32), C vs Python, at heads of 16 and of 8
+            # the Hopper K1's and K2's dispatch rules and budgets (bf16, its
+            # int8-score mode and float32), C vs Python, at heads of 16 and of 8
             for heads in (H, 2 * H):
+                for kind in ("fwd", "bwd"):
+                    rule, budget = ((_lib.k1_sm90_takes, _lib.k1_sm90_smem) if kind == "fwd"
+                                    else (_lib.k2_sm90_takes, _lib.k2_sm90_smem))
+                    pairs.append(((bool(getattr(lib, f"mtt_fused_layer_{kind}_int8_sm90_ok")(
+                                       M, D, heads, F)),
+                                   getattr(lib, f"mtt_fused_layer_{kind}_int8_sm90_smem")(
+                                       M, D, heads, F)),
+                                  (rule(torch.bfloat16, M, D, heads, F, int8=True),
+                                   budget(M, D, heads, F, int8=True))))
                 pairs.append(((bool(lib.mtt_fused_layer_bwd_sm90_ok(M, D, heads, F)),
                                lib.mtt_fused_layer_bwd_sm90_smem(M, D, heads, F)),
                               (_lib.k2_sm90_takes(torch.bfloat16, M, D, heads, F),
@@ -3227,16 +3333,20 @@ def check_w8a8_slice(device, make, steps=3, timing=True):
     return report
 
 
-INT8_KERNELS = ["int8_absmax", "fused_layer_fwd_int8", "fused_layer_bwd_int8", "permute",
-                "permute_acc"] + ROWBLOCK_SM90_KERNELS
+# the served int8 call's K1-int8 and K2-int8: the Hopper K1 and K2's
+# int8-score mode; the general bodies and the exact kernels never there
+INT8_SM90 = ("fused_layer_fwd_int8_sm90", "fused_layer_bwd_int8_sm90")
+INT8_NEVER = ("fused_layer_fwd_int8", "fused_layer_bwd_int8", "fused_layer_fwd", "fused_layer_bwd",
+              "fused_layer_fwd_sm90", "fused_layer_bwd_sm90")
+INT8_KERNELS = ["int8_absmax", *INT8_SM90, "permute", "permute_acc"] + ROWBLOCK_SM90_KERNELS
 
 
 def check_int8_slice(device, state, steps=3):
     """Serve the dynamic int8 scores' force call (PET at its defaults with
     ``int8_scores=True``, bfloat16) on the 10,976-atom crystal: every
     counter starts at 0 just before its served calls, where the absmax
-    pass, K1-int8 and K2-int8 must launch 4 times per call each (2 GNN x 2
-    layers) and K1/K2 never. Gates: finite outputs; the int8 kernel path vs
+    pass and the Hopper K1-int8 and K2-int8 must launch 4 times per call
+    each (2 GNN x 2 layers), the general int8 bodies and K1/K2 never. Gates: finite outputs; the int8 kernel path vs
     its plain path (both bf16) energy rel <= 1 %, force rel-RMSE <= 5 %; the
     int8 forces differ from the exact bf16 kernel path's (rel-RMSE > 1e-4).
     Reported: both bf16 paths' errors against the f32 exact plain path,
@@ -3274,8 +3384,7 @@ def check_int8_slice(device, state, steps=3):
     launches = dict(_lib.LAUNCHES)
     per_call = {k: v / steps for k, v in launches.items()}
     missing = [k for k in INT8_KERNELS if launches.get(k, 0) == 0]
-    if (missing or launches.get("fused_layer_fwd", 0) or launches.get("fused_layer_bwd", 0)
-            or launches.get("fused_layer_bwd_sm90", 0) or launches.get("fused_layer_fwd_sm90", 0)
+    if (missing or any(launches.get(k, 0) for k in INT8_NEVER)
             or any(per_call.get(k) != 4 for k in INT8_KERNELS[:3])):
         fail(f"the int8 force calls launched {launches} (not launched: {missing})")
     report = {"atoms": n, "launches": launches, "launches_per_call": per_call,
@@ -3895,14 +4004,18 @@ SOURCES = {
                     "metatrain_tpu/ops/pallas/fused_layer.py:163 (_quantize_i8, per block)"),
     "fused_layer_fwd_int8": ("metatrain_tpu_torch/csrc/fused_layer_fwd.cu",
                              "metatrain_tpu/ops/pallas/fused_layer.py:1161 (int8 scores)"),
-    "fused_layer_bwd_int8": ("metatrain_tpu_torch/csrc/fused_layer_bwd.cu",
-                             "metatrain_tpu/ops/pallas/fused_layer.py:1269 (int8 scores)"),
+    "fused_layer_fwd_int8_sm90": ("metatrain_tpu_torch/csrc/fused_layer_fwd_sm90.cu",
+                                  "metatrain_tpu/ops/pallas/fused_layer.py:1161 "
+                                  "(int8 scores, bf16)"),
+    "fused_layer_bwd_int8_sm90": ("metatrain_tpu_torch/csrc/fused_layer_bwd_sm90.cu",
+                                  "metatrain_tpu/ops/pallas/fused_layer.py:1269 "
+                                  "(int8 scores, bf16)"),
     "fused_layer_bwd_dw_int8": ("metatrain_tpu_torch/csrc/fused_layer_bwd_dw_sm90.cu",
                                 "metatrain_tpu/ops/pallas/fused_layer.py:1269 "
                                 "(weight_grads=True, int8 scores)"),
 }
 UNFUSED_PATH = ("permute", "permute_acc", "window_attention_fwd", "window_attention_bwd")
-N_ENTRIES = 53
+N_ENTRIES = 54
 
 
 def launch_count(report, name):
@@ -3921,7 +4034,7 @@ def launch_count(report, name):
     stage), the unfused force calls for the kernels
     that path added, the W8A8 force calls for the W8A8 kernels, the fused
     force calls for the rest; the int8 scores' from their force calls and
-    (K2-dW-int8) their training step. K2-dW and K2-dW-int8 count the
+    (K2-dW-int8, the general K1-int8) their training step. K2-dW and K2-dW-int8 count the
     two-pass kernels' launches (K2-dW in the float32 training run: the
     Hopper float32 K2's spill mode); the Hopper float32 K1, K2, K3 and K4
     their launches in one call of phase 3's float32 kernel path; the general
@@ -3929,6 +4042,8 @@ def launch_count(report, name):
     float32 steps run the two-pass K4-dW)."""
     if name == "fused_layer_bwd_dw_int8":
         return report["training_parity_int8"]["launches"]["fused_layer_bwd_dw_int8_sm90"]
+    if name == "fused_layer_fwd_int8":  # the served int8 calls run the Hopper K1-int8
+        return report["training_parity_int8"]["launches"][name]
     if name == "fused_layer_bwd_dw":
         return report["train_launches"][K2DW_F32[0]]
     if name in (K1_F32, "fused_layer_bwd_f32_sm90") or name.startswith(
@@ -3939,7 +4054,7 @@ def launch_count(report, name):
     if name in K4DW_GENERAL:
         # float32 steps run the two-pass K4-dW, bf16 steps this body
         return report["training_parity_bf16"]["launches"][name]
-    if name.endswith("_int8") or name == "int8_absmax":
+    if name.endswith("_int8") or name in ("int8_absmax", *INT8_SM90):
         source = report["slice_int8"]["launches"]
     elif name.endswith("_w8a8"):
         source = report["slice_w8a8"]["launches"]
@@ -4292,11 +4407,15 @@ def main() -> int:
             absent=tuple(GNN_SM90_PER_CALL) + tuple(GNN_F32_PER_STEP))
         print("training step, exact bf16 GNN block:",
               json.dumps(report["training_parity_gnn_bf16"]), flush=True)
+        # weights require grad: the general K1-int8, whose P is float like
+        # K2-dW-int8's first pass and the replay's, never the Hopper pair
         report["training_parity_int8"] = check_training_parity(
             workdir / "cu_lj.xyz", state, device,
             expected=("int8_absmax", "fused_layer_fwd_int8", *K2DW_INT8),
-            replayed=("fused_layer",), int8_scores=True, absent=("fused_layer_bwd_dw_int8",),
-            per_step={k: K2DW_PER_STEP for k in K2DW_INT8})
+            replayed=("fused_layer",), int8_scores=True,
+            absent=("fused_layer_bwd_dw_int8", "fused_layer_bwd_int8", *INT8_SM90),
+            per_step={"int8_absmax": 4, "fused_layer_fwd_int8": 4}
+            | {k: K2DW_PER_STEP for k in K2DW_INT8})
         print("training step, int8 scores (bf16):", json.dumps(report["training_parity_int8"]),
               flush=True)
         # the exact bf16 step: a weight requires grad, so the general K1
@@ -4324,8 +4443,8 @@ def main() -> int:
     check_fused_layer(A, M, D, H, F, gen, device, kernels)
     check_sm90_shapes(gen, device, kernels, D, H, F)
     if build_log.exists():
-        for name, kernel in (("fused_layer_fwd_sm90", "k1_sm90_kernel"),
-                             ("fused_layer_bwd", "k2_sm90_kernel")):
+        for name, kernel in (("fused_layer_fwd_sm90", "k1_sm90_kernelILb0E"),
+                             ("fused_layer_bwd", "k2_sm90_kernelILb0E")):
             kernels[name]["ptxas_bf16"] = ptxas_usage(build_log.read_text(), kernel)
         # the plain and the spill-mode instantiation
         kernels["fused_layer_bwd_f32_sm90"]["ptxas_f32"] = ptxas_usage(
@@ -4434,7 +4553,19 @@ def main() -> int:
     check_attention(A_u, M_u + 1, D, H, gen, device, kernels)
     check_w8a8_layer(A, M, D, H, F, gen, device, kernels)
     check_int8_layer(A, M, D, H, F, gen, device, kernels)
-    check_int8_layer(11000, 48, D, H, F, gen, device, kernels, tag="A11000_M48")
+    for M_shape in (48, 16):
+        check_int8_layer(11000, M_shape, D, H, F, gen, device, kernels, tag=f"A11000_M{M_shape}")
+    if build_log.exists():  # the int8-score instantiations (I8 = true)
+        for name, kernel in (("fused_layer_fwd_int8_sm90", "k1_sm90_kernelILb1E"),
+                             ("fused_layer_bwd_int8_sm90", "k2_sm90_kernelILb1E")):
+            kernels[name]["ptxas_bf16"] = ptxas_usage(build_log.read_text(), kernel)
+    for title, name in (("Hopper K1-int8", "fused_layer_fwd_int8_sm90"),
+                        ("Hopper K2-int8", "fused_layer_bwd_int8_sm90")):
+        print(f"{title} ({card}; the general body's ms beside):", json.dumps(
+            {k: kernels[name].get(k) for k in (
+                "ms_bf16", "general_ms_bf16", "plain_ms_bf16", "bound_ms_bf16", "bound_ratio_bf16",
+                "general_bound_ratio_bf16", "int8_mode_bf16", "general_int8_mode_bf16",
+                "ptxas_bf16", "smem_bytes", "shapes")}), flush=True)
     report["plans"] = plan_table()
     print("layout plans, C vs Python:", json.dumps(report["plans"]), flush=True)
     check_layer_shapes_on_card(gen, device, kernels)

@@ -1,5 +1,6 @@
 // K2 on Hopper: the exact bfloat16 input-gradient backward of the fused PET
-// transformer layer, redesigned for the H100 at the served shapes.
+// transformer layer, redesigned for the H100 at the served shapes; and,
+// as its int8-score mode, K2-int8 there (below).
 //
 // Replaces the TPU kernel metatrain_tpu/ops/pallas/fused_layer.py
 // `_bwd_kernel` (pallas_call in `_make_bwd_op`) with weight_grads=False,
@@ -57,6 +58,21 @@
 // The recompute up to h_norm is layer_sm90.cuh's forward phases, which the
 // Hopper K1 (fused_layer_fwd_sm90.cu) runs too: the served bf16 call's
 // forces are the gradient of the function whose energy K1 computes.
+//
+// K2-int8 (mtt_fused_layer_bwd_int8_sm90, the kernel's I8 flag) replaces
+// `_bwd_kernel` with int8 and weight_grads=False: the plain version is
+// `layer_bwd_math(..., int8_scales=)`, the general body K2-int8 of
+// fused_layer_bwd.cu. Its recompute is K1-int8's forward (the int8 copy of
+// q and k, 64 x 272 bytes: 218,880 B a block), and both attention passes
+// recompute the scores from that copy (the same int32 sums, transposed in
+// pass 2) and the rounded weights P = rnd(cf e) / z from them and the
+// stored (max, 1 / z): E and P as products with 1 / z, where the exact
+// kernel divides each score by z. The softmax gradient is the general I8
+// body's, the rounding taken as the identity: delta = sum_k P dP, dS = cf
+// E (dP - delta) with E = e / z, and dQ = dS K, dK = dS^T Q on the bf16 q
+// and k (straight through). P, dO and dS round to bf16 for the tensor
+// cores as in the exact kernel; d_cf keeps its fixed order. Bound as K2:
+// 0.501 ms.
 
 #include "layer_sm90.cuh"
 
@@ -79,7 +95,9 @@ constexpr int kOffVg = kOffRes + kResBytes;
 constexpr int kOffRing = kOffVg + kVgBytes;
 constexpr int kOffStats = kOffRing + kRingBytes;
 constexpr int kSmemBytes = kOffStats + kStatFloats * 4;
-static_assert(kSmemBytes <= 232448, "one block per SM");
+// K2-int8: the int8 copy of q and k, after the rest
+constexpr int kSmemBytesI8 = kSmemBytes + kRows * LQ8;
+static_assert(kSmemBytesI8 <= 232448, "one block per SM");
 
 struct Args {
     const bf16* edges;      // (A, M, D)
@@ -92,6 +110,7 @@ struct Args {
     const bf16* b_in;       // (2F,)
     const bf16* g_edge;     // (A, M, D)
     const bf16* g_center;   // (A, D)
+    const float* i8_scales;  // K2-int8: (A, 2) s_q, s_k
     bf16* d_edges;          // (A, M, D)
     bf16* d_center;         // (A, D)
     float* d_cf;            // (A, M)
@@ -131,6 +150,11 @@ struct Chunks {
 
 __host__ __device__ constexpr int chunk_count(int F) { return 16 + 10 * (F / kChunkN); }
 
+// I8: K2-int8, the scores recomputed from the int8 products and the
+// rounded softmax weights P = rnd(cf e) / z from them and the stored (max,
+// 1 / z); the rest as the exact kernel (straight through: dS times the
+// bf16 q and k).
+template <bool I8>
 __global__ void __launch_bounds__(kThreads, 1)
     k2_sm90_kernel(Args p, Chunks chunks) {
     extern __shared__ __align__(1024) unsigned char smem[];
@@ -145,7 +169,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     float* RS1 = CF + kRows;
     float* RS2 = RS1 + kRows;
     float* SMAX = RS2 + kRows;       // (H, 64): each row's score max
-    float* SZ = SMAX + H * kRows;    // sum_k cf_k exp(s - max)
+    float* SZ = SMAX + H * kRows;    // sum_k cf_k exp(s - max) (I8: 1 / sum_k ecf)
     float* SDEL = SZ + H * kRows;    // delta = sum_k P dP
     float* DCFP = SDEL + H * kRows;  // (H, 4 query tiles, 64): column sums of T
     float* RED = DCFP + H * 4 * kRows;
@@ -158,6 +182,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const int QT = M / 16;
     const float scale = p.scale;
+    int8_t* Q8 = reinterpret_cast<int8_t*>(smem + kSmemBytes);  // K2-int8: q and k in int8
+    ScoresI8 i8;
+    if constexpr (I8) i8 = scores_i8(p.i8_scales + 2 * a, scale);
 
     WeightRing<Chunks> ring{reinterpret_cast<bf16*>(smem + kOffRing), chunks, chunk_count(F)};
     ring.start();
@@ -175,12 +202,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
 
     // ---- recompute: attention, one warp per (head, 16-row query tile) ----
-    attention_fwd(QKV, OP, CF, M, scale, [&](int h, int row, const float (&mx)[2], const float (&z)[2]) {
+    if constexpr (I8) {
+        quantize_qk(QKV, Q8, M, i8);
+        __syncthreads();
+    }
+    attention_fwd<I8>(QKV, OP, CF, M, scale, [&](int h, int row, const float (&mx)[2], const float (&z)[2]) {
         SMAX[h * kRows + row] = mx[0];
         SMAX[h * kRows + row + 8] = mx[1];
-        SZ[h * kRows + row] = z[0];
-        SZ[h * kRows + row + 8] = z[1];
-    });
+        SZ[h * kRows + row] = I8 ? 1.f / z[0] : z[0];
+        SZ[h * kRows + row + 8] = I8 ? 1.f / z[1] : z[1];
+    }, Q8, i8.factor);
     __syncthreads();
 
     // res = rnd(x1 + rnd(attn w_out + b))
@@ -258,26 +289,40 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
 
     // ---- attention backward, pass 1: one warp per (head, query tile) -----
-    // dP = dO v^T, delta, T = E (dP - delta), dS = cf T, dq = rnd(scale dS k);
-    // the column sums of T go to DCFP
+    // dP = dO v^T, delta = sum_k P dP, T = E (dP - delta), dS = cf T, dq =
+    // rnd(scale dS k); the column sums of T go to DCFP. E = e / z, and P =
+    // cf E (I8: rnd(cf e) / z, the forward's AV weights; both as products
+    // with the stored 1 / z).
     for (int task = warp; task < H * QT; task += kThreads / 32) {
         const int h = task / QT, qt = task % QT, q0 = 16 * qt;
-        uint32_t qa[4], oa[4];
-        load_a(qa, QKV, LQ, q0, h * HD);
+        uint32_t oa[4];
         load_a(oa, DO, LA, q0, h * HD);
         float s[8][4], dp[8][4];
-        head_scores(s, qa, QKV + D + h * HD, M);
+        if constexpr (I8) {
+            head_scores_i8(s, Q8, h, q0, M, i8.factor);
+        } else {
+            uint32_t qa[4];
+            load_a(qa, QKV, LQ, q0, h * HD);
+            head_scores(s, qa, QKV + D + h * HD, M);
+        }
         head_scores(dp, oa, QKV + 2 * D + h * HD, M);
         const float mx[2] = {SMAX[h * kRows + q0 + g], SMAX[h * kRows + q0 + g + 8]};
-        const float z[2] = {SZ[h * kRows + q0 + g], SZ[h * kRows + q0 + g + 8]};
+        const float z[2] = {SZ[h * kRows + q0 + g], SZ[h * kRows + q0 + g + 8]};  // I8: 1 / z
         float delta[2] = {0.f, 0.f};
 #pragma unroll
         for (int j = 0; j < 8; ++j)
             if (8 * j < M)
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
-                    s[j][i] = expf(s[j][i] * scale - mx[i >> 1]) / z[i >> 1];  // E
-                    delta[i >> 1] = fmaf(CF[8 * j + 2 * t + (i & 1)] * s[j][i], dp[j][i], delta[i >> 1]);
+                    const float cf = CF[8 * j + 2 * t + (i & 1)];
+                    if constexpr (I8) {
+                        const float e = expf(s[j][i] - mx[i >> 1]);
+                        s[j][i] = e * z[i >> 1];  // E
+                        delta[i >> 1] = fmaf(rnd<bf16>(cf * e) * z[i >> 1], dp[j][i], delta[i >> 1]);
+                    } else {
+                        s[j][i] = expf(s[j][i] * scale - mx[i >> 1]) / z[i >> 1];  // E
+                        delta[i >> 1] = fmaf(cf * s[j][i], dp[j][i], delta[i >> 1]);
+                    }
                 }
         delta[0] = quad_sum(delta[0]);
         delta[1] = quad_sum(delta[1]);
@@ -333,16 +378,25 @@ __global__ void __launch_bounds__(kThreads, 1)
     // dk = rnd(scale dS^T q), dv = rnd(P^T dO), over this tile's k and v
     for (int task = warp; task < H * QT; task += kThreads / 32) {
         const int h = task / QT, k0 = 16 * (task % QT);
-        uint32_t ka[4], va[4];
-        load_a(ka, QKV, LQ, k0, D + h * HD);
+        uint32_t ka[4], va[4], ka8[2];
+        if constexpr (I8)
+            load_a_s8(ka8, Q8, k0, D + h * HD);
+        else
+            load_a(ka, QKV, LQ, k0, D + h * HD);
         load_a(va, QKV, LQ, k0, 2 * D + h * HD);
         const float cfr[2] = {CF[k0 + g], CF[k0 + g + 8]};
         float dk[2][4] = {}, dv[2][4] = {};
         for (int q0 = 0; q0 < M; q0 += 16) {
             uint32_t b[4];
             float sT[2][4] = {}, dpT[2][4] = {};
-            load_b_nk(b, QKV + h * HD, LQ, q0, 0);
-            mma_pair(sT[0], sT[1], ka, b);
+            if constexpr (I8) {
+                // the forward's scores transposed: the same int32 sums
+                scores_s8_tile(sT[0], ka8, Q8 + h * HD, q0, i8.factor);
+                scores_s8_tile(sT[1], ka8, Q8 + h * HD, q0 + 8, i8.factor);
+            } else {
+                load_b_nk(b, QKV + h * HD, LQ, q0, 0);
+                mma_pair(sT[0], sT[1], ka, b);
+            }
             load_b_nk(b, DO + h * HD, LA, q0, 0);
             mma_pair(dpT[0], dpT[1], va, b);
 #pragma unroll
@@ -350,9 +404,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
                     const int q = h * kRows + q0 + 8 * nt + 2 * t + (i & 1);
-                    const float E = expf(sT[nt][i] * scale - SMAX[q]) / SZ[q];
-                    sT[nt][i] = cfr[i >> 1] * E;                          // P^T
-                    dpT[nt][i] = cfr[i >> 1] * (E * (dpT[nt][i] - SDEL[q]));  // dS^T
+                    const float cf = cfr[i >> 1];
+                    float E;
+                    if constexpr (I8) {
+                        const float e = expf(sT[nt][i] - SMAX[q]);
+                        E = e * SZ[q];
+                        sT[nt][i] = rnd<bf16>(cf * e) * SZ[q];  // P^T
+                    } else {
+                        E = expf(sT[nt][i] * scale - SMAX[q]) / SZ[q];
+                        sT[nt][i] = cf * E;  // P^T
+                    }
+                    dpT[nt][i] = cf * (E * (dpT[nt][i] - SDEL[q]));  // dS^T
                 }
             uint32_t pa[4], sa[4];
             acc_to_a(pa, sT[0], sT[1]);
@@ -421,7 +483,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // Whether the Hopper K2 takes a shape: D = 128, heads of 16, 16 <= M <= 64
 // with M % 16 == 0, F a multiple of 128 (the wrapper checks the variant:
-// bfloat16, no weight gradients, no W8A8, no int8 scores).
+// bfloat16, no weight gradients, no W8A8; exact or int8 scores).
 extern "C" int mtt_fused_layer_bwd_sm90_ok(int M, int D, int H, int F) {
     return D == mtt::sm90::D && H == mtt::sm90::H && M >= 16 && M <= mtt::sm90::kRows && M % 16 == 0 &&
            F >= mtt::sm90::kChunkN && F % mtt::sm90::kChunkN == 0;
@@ -430,6 +492,43 @@ extern "C" int mtt_fused_layer_bwd_sm90_ok(int M, int D, int H, int F) {
 // Its shared memory per block (one atom), 0 where it does not take the shape.
 extern "C" size_t mtt_fused_layer_bwd_sm90_smem(int M, int D, int H, int F) {
     return mtt_fused_layer_bwd_sm90_ok(M, D, H, F) ? (size_t)mtt::sm90::kSmemBytes : 0;
+}
+
+// K2-int8 takes the same shapes; its blocks hold the atom's int8 q and k
+// besides.
+extern "C" int mtt_fused_layer_bwd_int8_sm90_ok(int M, int D, int H, int F) {
+    return mtt_fused_layer_bwd_sm90_ok(M, D, H, F);
+}
+
+extern "C" size_t mtt_fused_layer_bwd_int8_sm90_smem(int M, int D, int H, int F) {
+    return mtt_fused_layer_bwd_sm90_ok(M, D, H, F) ? (size_t)mtt::sm90::kSmemBytesI8 : 0;
+}
+
+// The launch of either mode.
+template <bool I8>
+static int launch_k2(const void* edges, const void* center, const float* cf, const void* norm_attn,
+                     const void* w_qkv, const void* b_qkv, const void* w_out, const void* b_out,
+                     const void* norm_mlp, const void* w_in, const void* b_in, const void* w_ffn_out,
+                     const void* w_qkv_t, const void* w_out_t, const void* w_in_t, const float* i8_scales,
+                     const void* g_edge, const void* g_center, void* d_edges, void* d_center, float* d_cf,
+                     long long A, int M, int D, int H, int F, float scale, float eps, void* stream) {
+    using mtt::sm90::bf16;
+    if (!mtt_fused_layer_bwd_sm90_ok(M, D, H, F)) return (int)cudaErrorInvalidValue;
+    if (A == 0) return 0;
+    const mtt::sm90::Args args{(const bf16*)edges, (const bf16*)center, cf, (const bf16*)norm_attn,
+                               (const bf16*)b_qkv, (const bf16*)b_out, (const bf16*)norm_mlp,
+                               (const bf16*)b_in, (const bf16*)g_edge, (const bf16*)g_center, i8_scales,
+                               (bf16*)d_edges, (bf16*)d_center, d_cf, M, F, scale, eps};
+    const mtt::sm90::Chunks chunks{(const bf16*)w_qkv_t, (const bf16*)w_out_t, (const bf16*)w_in_t,
+                                   (const bf16*)w_ffn_out, (const bf16*)w_in, (const bf16*)w_out,
+                                   (const bf16*)w_qkv, F};
+    const int bytes = I8 ? mtt::sm90::kSmemBytesI8 : mtt::sm90::kSmemBytes;
+    cudaError_t err = cudaFuncSetAttribute(mtt::sm90::k2_sm90_kernel<I8>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    mtt::sm90::k2_sm90_kernel<I8><<<(unsigned)A, mtt::sm90::kThreads, bytes, (cudaStream_t)stream>>>(args,
+                                                                                                     chunks);
+    return (int)cudaGetLastError();
 }
 
 // bfloat16 tensors; the weights in the (in, out) layout and the transposed
@@ -445,20 +544,23 @@ extern "C" int mtt_fused_layer_bwd_sm90(
     const void* g_edge, const void* g_center,
     void* d_edges, void* d_center, float* d_cf,
     long long A, int M, int D, int H, int F, float scale, float eps, void* stream) {
-    using mtt::sm90::bf16;
-    if (!mtt_fused_layer_bwd_sm90_ok(M, D, H, F)) return (int)cudaErrorInvalidValue;
-    if (A == 0) return 0;
-    const mtt::sm90::Args args{(const bf16*)edges, (const bf16*)center, cf, (const bf16*)norm_attn,
-                               (const bf16*)b_qkv, (const bf16*)b_out, (const bf16*)norm_mlp,
-                               (const bf16*)b_in, (const bf16*)g_edge, (const bf16*)g_center,
-                               (bf16*)d_edges, (bf16*)d_center, d_cf, M, F, scale, eps};
-    const mtt::sm90::Chunks chunks{(const bf16*)w_qkv_t, (const bf16*)w_out_t, (const bf16*)w_in_t,
-                                   (const bf16*)w_ffn_out, (const bf16*)w_in, (const bf16*)w_out,
-                                   (const bf16*)w_qkv, F};
-    const int bytes = mtt::sm90::kSmemBytes;
-    cudaError_t err = cudaFuncSetAttribute(mtt::sm90::k2_sm90_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    mtt::sm90::k2_sm90_kernel<<<(unsigned)A, mtt::sm90::kThreads, bytes, (cudaStream_t)stream>>>(args, chunks);
-    return (int)cudaGetLastError();
+    return launch_k2<false>(edges, center, cf, norm_attn, w_qkv, b_qkv, w_out, b_out, norm_mlp, w_in, b_in,
+                            w_ffn_out, w_qkv_t, w_out_t, w_in_t, nullptr, g_edge, g_center, d_edges, d_center,
+                            d_cf, A, M, D, H, F, scale, eps, stream);
+}
+
+// K2-int8: the Hopper K2's arguments and the (A, 2) float32 scales K1-int8
+// took, after the transposed weights.
+extern "C" int mtt_fused_layer_bwd_int8_sm90(
+    const void* edges, const void* center, const float* cf,
+    const void* norm_attn, const void* w_qkv, const void* b_qkv,
+    const void* w_out, const void* b_out, const void* norm_mlp,
+    const void* w_in, const void* b_in, const void* w_ffn_out,
+    const void* w_qkv_t, const void* w_out_t, const void* w_in_t, const float* i8_scales,
+    const void* g_edge, const void* g_center,
+    void* d_edges, void* d_center, float* d_cf,
+    long long A, int M, int D, int H, int F, float scale, float eps, void* stream) {
+    return launch_k2<true>(edges, center, cf, norm_attn, w_qkv, b_qkv, w_out, b_out, norm_mlp, w_in, b_in,
+                           w_ffn_out, w_qkv_t, w_out_t, w_in_t, i8_scales, g_edge, g_center, d_edges, d_center,
+                           d_cf, A, M, D, H, F, scale, eps, stream);
 }

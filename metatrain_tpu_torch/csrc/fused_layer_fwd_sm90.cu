@@ -1,5 +1,6 @@
 // K1 on Hopper: the exact bfloat16 forward of the fused PET transformer
-// layer, redesigned for the H100 at the served shapes.
+// layer, redesigned for the H100 at the served shapes; and, as its
+// int8-score mode, K1-int8 there (below).
 //
 // Replaces the TPU kernel metatrain_tpu/ops/pallas/fused_layer.py
 // `_fwd_kernel` (pallas_call in `_forward_impl`, body `_layer_math`)
@@ -57,6 +58,22 @@
 // two-atom instantiation), so K1's attn, res and h_norm are the bits K2
 // recomputes. edge_out = rnd(res + rnd(sum + b_ffn_out)), the general
 // body's order of rounding. No atomics: the same bits in every launch.
+//
+// K1-int8 (mtt_fused_layer_fwd_int8_sm90, the kernel's I8 flag) replaces
+// the same `_fwd_kernel` with the dynamic int8 scores (`_qside_scores` /
+// `_qside_tail` with int8, `_quantize_i8`) where no weight requires grad:
+// the plain version is `layer_math(..., int8_scales=)`, the general body
+// K1-int8 of fused_layer_fwd.cu. Each atom's q and k are quantized once,
+// clamp(rint(x / s), +-127) with its block's absmax scales (the (A, 2)
+// array of int8_absmax.cu), into an int8 copy in shared memory (per atom
+// 64 x 272 bytes: 220,672 B a block); the scores are int32 sums on
+// mma.sync m16n8k16 .s8 times (s_q s_k) scale, the plain version's bits;
+// the softmax is rounded as the JAX package's: ecf = rnd(cf e) in bf16,
+// attn = rnd((ecf v) / z), z = sum_k ecf. Bound at the served shape as
+// K1: 0.260 ms (the score products at 1,979 TOPS); the int8 work adds
+// one pass over q and k and no weight traffic. The forward phases are
+// K2-int8's recompute, so its energy and K2-int8's forces come from one
+// function.
 
 #include "layer_sm90.cuh"
 
@@ -78,9 +95,12 @@ constexpr int kOffRing = 2 * kAtomBytes;
 constexpr int kOffStats = kOffRing + kRingBytes;
 constexpr int kStatFloats = 3 * kRows;  // per atom: cf, r1, r2
 constexpr int kSmemBytes = kOffStats + 2 * kStatFloats * 4;
+// K1-int8: per atom the int8 copy of q and k, after the rest
+constexpr int kQ8Bytes = kRows * LQ8;
+constexpr int kSmemBytesI8 = kSmemBytes + 2 * kQ8Bytes;
 static_assert(kAtomBytes % 1024 == 0, "the swizzled ring needs 1024-byte aligned stages");
 static_assert(kOffFh + kRows * LH * 2 <= kQkvBytes, "res and the ffn_h tile go where q|k|v was");
-static_assert(kSmemBytes <= 232448, "one block per SM");
+static_assert(kSmemBytesI8 <= 232448, "one block per SM");
 
 struct Args {
     const bf16* edges;      // (A, M, D)
@@ -92,6 +112,7 @@ struct Args {
     const bf16* norm_mlp;   // (D,)
     const bf16* b_in;       // (2F,)
     const bf16* b_ffn_out;  // (D,)
+    const float* i8_scales;  // K1-int8: (A, 2) s_q, s_k
     bf16* edge_out;         // (A, M, D)
     bf16* center_out;       // (A, D)
     long long A;
@@ -160,7 +181,9 @@ __device__ __forceinline__ void glu_mm(Ring& ring, int& c, const bf16* HN, float
 // and stored once). Warps 0-7 run atom 0's part of every dense product and
 // warps 8-15 atom 1's, each warpgroup on 64 columns (m64n64k16), so each
 // staged chunk serves both atoms; the norms and the attention run atom
-// after atom on all 16 warps.
+// after atom on all 16 warps. I8: K1-int8, each atom's scores from its own
+// scale pair.
+template <bool I8>
 __global__ void __launch_bounds__(kThreads, 1)
     k1_sm90_kernel(Args p, Chunks chunks) {
     extern __shared__ __align__(1024) unsigned char smem[];
@@ -200,8 +223,20 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // ---- attention, one warp per (head, 16-row query tile) ---------------
     auto no_stats = [](int, int, const float (&)[2], const float (&)[2]) {};
-    attention_fwd(QKV, OP, STATS, M, p.scale, no_stats);
-    attention_fwd(QKV + kStride, OP + kStride, STATS + kStatFloats, M, p.scale, no_stats);
+    int8_t* Q8 = reinterpret_cast<int8_t*>(smem + kSmemBytes);  // K1-int8: q and k in int8
+    float f0 = 0.f, f1 = 0.f;
+    if constexpr (I8) {
+        const ScoresI8 i80 = scores_i8(p.i8_scales + 2 * a0, p.scale);
+        const ScoresI8 i81 = scores_i8(p.i8_scales + 2 * a1, p.scale);
+        quantize_qk(QKV, Q8, M, i80);
+        quantize_qk(QKV + kStride, Q8 + kQ8Bytes, M, i81);
+        f0 = i80.factor;
+        f1 = i81.factor;
+        __syncthreads();
+    }
+    attention_fwd<I8>(QKV, OP, STATS, M, p.scale, no_stats, Q8, f0);
+    attention_fwd<I8>(QKV + kStride, OP + kStride, STATS + kStatFloats, M, p.scale, no_stats, Q8 + kQ8Bytes,
+                      f1);
     __syncthreads();
 
     // ---- res = rnd(x1 + rnd(attn w_out + b)); center_out = slot M-1's ----
@@ -264,7 +299,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // Whether the Hopper K1 takes a shape: D = 128, heads of 16, 16 <= M <= 64
 // with M % 16 == 0, F a multiple of 128 (the wrapper checks the variant:
-// bfloat16, no W8A8, no int8 scores).
+// bfloat16, no W8A8, no weight requiring grad; exact or int8 scores).
 extern "C" int mtt_fused_layer_fwd_sm90_ok(int M, int D, int H, int F) {
     return D == mtt::sm90::D && H == mtt::sm90::H && M >= 16 && M <= mtt::sm90::kRows && M % 16 == 0 &&
            F >= mtt::sm90::kChunkN && F % mtt::sm90::kChunkN == 0;
@@ -273,6 +308,41 @@ extern "C" int mtt_fused_layer_fwd_sm90_ok(int M, int D, int H, int F) {
 // Its shared memory per block (two atoms), 0 where it does not take the shape.
 extern "C" size_t mtt_fused_layer_fwd_sm90_smem(int M, int D, int H, int F) {
     return mtt_fused_layer_fwd_sm90_ok(M, D, H, F) ? (size_t)mtt::sm90::kSmemBytes : 0;
+}
+
+// K1-int8 takes the same shapes; its blocks hold the int8 q and k of both
+// atoms besides.
+extern "C" int mtt_fused_layer_fwd_int8_sm90_ok(int M, int D, int H, int F) {
+    return mtt_fused_layer_fwd_sm90_ok(M, D, H, F);
+}
+
+extern "C" size_t mtt_fused_layer_fwd_int8_sm90_smem(int M, int D, int H, int F) {
+    return mtt_fused_layer_fwd_sm90_ok(M, D, H, F) ? (size_t)mtt::sm90::kSmemBytesI8 : 0;
+}
+
+// The launch of either mode.
+template <bool I8>
+static int launch_k1(const void* edges, const void* center, const float* cf, const void* norm_attn,
+                     const void* b_qkv, const void* b_out, const void* norm_mlp, const void* b_in,
+                     const void* b_ffn_out, const void* w_qkv_t, const void* w_out_t, const void* w_vg,
+                     const void* w_ffn_out_t, const float* i8_scales, void* edge_out, void* center_out,
+                     long long A, int M, int D, int H, int F, float scale, float eps, void* stream) {
+    using mtt::sm90::bf16;
+    if (!mtt_fused_layer_fwd_sm90_ok(M, D, H, F)) return (int)cudaErrorInvalidValue;
+    if (A == 0) return 0;
+    const mtt::sm90::Args args{(const bf16*)edges, (const bf16*)center, cf, (const bf16*)norm_attn,
+                               (const bf16*)b_qkv, (const bf16*)b_out, (const bf16*)norm_mlp,
+                               (const bf16*)b_in, (const bf16*)b_ffn_out, i8_scales, (bf16*)edge_out,
+                               (bf16*)center_out, A, M, F, scale, eps};
+    const mtt::sm90::Chunks chunks{(const bf16*)w_qkv_t, (const bf16*)w_out_t, (const bf16*)w_vg,
+                                   (const bf16*)w_ffn_out_t, F};
+    const int bytes = I8 ? mtt::sm90::kSmemBytesI8 : mtt::sm90::kSmemBytes;
+    cudaError_t err = cudaFuncSetAttribute(mtt::sm90::k1_sm90_kernel<I8>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    mtt::sm90::k1_sm90_kernel<I8><<<(unsigned)((A + 1) / 2), mtt::sm90::kThreads, bytes,
+                                    (cudaStream_t)stream>>>(args, chunks);
+    return (int)cudaGetLastError();
 }
 
 // bfloat16 tensors: the norm scales and biases, then the weight matrices
@@ -288,20 +358,21 @@ extern "C" int mtt_fused_layer_fwd_sm90(
     const void* w_qkv_t, const void* w_out_t, const void* w_vg, const void* w_ffn_out_t,
     void* edge_out, void* center_out,
     long long A, int M, int D, int H, int F, float scale, float eps, void* stream) {
-    using mtt::sm90::bf16;
-    if (!mtt_fused_layer_fwd_sm90_ok(M, D, H, F)) return (int)cudaErrorInvalidValue;
-    if (A == 0) return 0;
-    const mtt::sm90::Args args{(const bf16*)edges, (const bf16*)center, cf, (const bf16*)norm_attn,
-                               (const bf16*)b_qkv, (const bf16*)b_out, (const bf16*)norm_mlp,
-                               (const bf16*)b_in, (const bf16*)b_ffn_out, (bf16*)edge_out,
-                               (bf16*)center_out, A, M, F, scale, eps};
-    const mtt::sm90::Chunks chunks{(const bf16*)w_qkv_t, (const bf16*)w_out_t, (const bf16*)w_vg,
-                                   (const bf16*)w_ffn_out_t, F};
-    const int bytes = mtt::sm90::kSmemBytes;
-    cudaError_t err = cudaFuncSetAttribute(mtt::sm90::k1_sm90_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    mtt::sm90::k1_sm90_kernel<<<(unsigned)((A + 1) / 2), mtt::sm90::kThreads, bytes, (cudaStream_t)stream>>>(
-        args, chunks);
-    return (int)cudaGetLastError();
+    return launch_k1<false>(edges, center, cf, norm_attn, b_qkv, b_out, norm_mlp, b_in, b_ffn_out, w_qkv_t,
+                            w_out_t, w_vg, w_ffn_out_t, nullptr, edge_out, center_out, A, M, D, H, F, scale,
+                            eps, stream);
+}
+
+// K1-int8: the Hopper K1's arguments and the (A, 2) float32 scales s_q, s_k
+// of each atom's block (mtt_int8_absmax), after the weight matrices.
+extern "C" int mtt_fused_layer_fwd_int8_sm90(
+    const void* edges, const void* center, const float* cf,
+    const void* norm_attn, const void* b_qkv, const void* b_out, const void* norm_mlp,
+    const void* b_in, const void* b_ffn_out,
+    const void* w_qkv_t, const void* w_out_t, const void* w_vg, const void* w_ffn_out_t,
+    const float* i8_scales, void* edge_out, void* center_out,
+    long long A, int M, int D, int H, int F, float scale, float eps, void* stream) {
+    return launch_k1<true>(edges, center, cf, norm_attn, b_qkv, b_out, norm_mlp, b_in, b_ffn_out, w_qkv_t,
+                           w_out_t, w_vg, w_ffn_out_t, i8_scales, edge_out, center_out, A, M, D, H, F, scale,
+                           eps, stream);
 }

@@ -4,7 +4,10 @@
 // loads, the block's 64 x 128 panel product on wgmma, and the layer's
 // forward up to h_norm (the phases at the end), which K1 runs as its first
 // half and K2 as its recompute: the same device code, so the two kernels
-// compute q|k|v, attn, res and h_norm to the same bits.
+// compute q|k|v, attn, res and h_norm to the same bits. Their int8-score
+// mode (K1-int8, K2-int8: the I8 flag of attention_fwd and the kernels)
+// quantizes q and k once per atom into an int8 copy and forms the scores
+// on int8 tensor cores.
 //
 // Every dense product of the kernels is, per atom, Y (64 x N) = A (64 x K)
 // B (K x N) with A in bf16 in shared memory and B a weight matrix in global
@@ -336,6 +339,68 @@ __device__ __forceinline__ void head_scores(float (&s)[8][4], const uint32_t (&q
     }
 }
 
+// ---- the dynamic int8 scores (K1-int8, K2-int8) --------------------------
+// Once q|k|v is in shared memory, all threads quantize the atom's q and k
+// into an int8 copy (Q8: rows of LQ8 bytes, q then k), x / s rounded once
+// to float, then to the nearest integer (ties to even) and clamped to +-127
+// (quant_s8<true>, the plain version's quantize_i8). The score products
+// read their fragments from it: mma.sync m16n8k16 .s8, where lane l holds
+// columns 4 (l % 4) .. + 3 of row l / 4 (A: and of row l / 4 + 8; B: of
+// key row l / 4), one 32-bit load each; the C fragment is the bf16 one's.
+// The int32 sums are exact, so a product of the same rows gives the same
+// score wherever it is formed.
+
+constexpr int LQ8 = 2 * D + 16;  // int8 q|k row: 68 words, a fragment's 8 rows in distinct banks
+
+// x[0..3] (bf16, 8-byte aligned) quantized by the scale s and packed
+__device__ __forceinline__ uint32_t quant4_bf16(const bf16* x, float s) {
+    const uint2 u = *reinterpret_cast<const uint2*>(x);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return quant4_s8<true>(make_float4(lo.x, lo.y, hi.x, hi.y), s);
+}
+
+// Q8 = q and k of rows m < M quantized by the atom's scales (the caller
+// puts a barrier between this and the reads).
+__device__ __forceinline__ void quantize_qk(const bf16* QKV, int8_t* Q8, int M, const ScoresI8& i8) {
+    constexpr int kQuads = 2 * D / 4;
+    for (int p = threadIdx.x; p < M * kQuads; p += kThreads) {
+        const int m = p / kQuads, c = 4 * (p % kQuads);
+        *reinterpret_cast<uint32_t*>(Q8 + m * LQ8 + c) = quant4_bf16(QKV + m * LQ + c, c < D ? i8.s_q : i8.s_k);
+    }
+}
+
+// The int8 A fragment of the 16 x 16 tile at (r0, c0) of Q8.
+__device__ __forceinline__ void load_a_s8(uint32_t (&a)[2], const int8_t* Q8, int r0, int c0) {
+    const int lane = threadIdx.x & 31;
+    const int8_t* x = Q8 + (r0 + (lane >> 2)) * LQ8 + c0 + 4 * (lane & 3);
+    a[0] = *reinterpret_cast<const uint32_t*>(x);
+    a[1] = *reinterpret_cast<const uint32_t*>(x + 8 * LQ8);
+}
+
+// One head's int8 scores of the 16 rows of qa against rows n0 .. n0 + 7 of
+// Y (the head's columns of Q8; a 16-deep B fragment), each int32 sum times
+// factor rounded once to float.
+__device__ __forceinline__ void scores_s8_tile(float (&s)[4], const uint32_t (&qa)[2], const int8_t* Y, int n0,
+                                               float factor) {
+    const int lane = threadIdx.x & 31;
+    int c[4] = {0, 0, 0, 0};
+    mma_s8_16816(c, qa, *reinterpret_cast<const uint32_t*>(Y + (n0 + (lane >> 2)) * LQ8 + 4 * (lane & 3)));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i] = __fmul_rn((float)c[i], factor);
+}
+
+// head_scores with the int8 scores: query rows q0 .. q0 + 15 of head h
+// against its keys, from Q8, the attention scale in factor.
+__device__ __forceinline__ void head_scores_i8(float (&s)[8][4], const int8_t* Q8, int h, int q0, int M,
+                                               float factor) {
+    uint32_t qa[2];
+    load_a_s8(qa, Q8, q0, h * HD);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+        if (8 * j < M) scores_s8_tile(s[j], qa, Q8 + D + h * HD, 8 * j, factor);
+}
+
 __device__ __forceinline__ float quad_sum(float v) {
     v += __shfl_xor_sync(0xffffffffu, v, 1);
     return v + __shfl_xor_sync(0xffffffffu, v, 2);
@@ -394,24 +459,33 @@ __device__ __forceinline__ void qkv_panels(Ring& ring, int& c, const bf16* N1, b
 // sum_k cf e: one warp per (head, 16-row query tile), all heads at once.
 // stats(h, row, mx, z) takes the rows' max and sum (rows row and row + 8)
 // from the quad's first lane.
-template <typename Stats>
+//
+// I8: the dynamic int8 scores (from Q8, quantize_qk's, times factor) and
+// the rounded softmax of the JAX package's _qside_tail: ecf = rnd(cf e) in
+// bf16, z = sum_k ecf, attn = rnd((ecf v) / z), the AV product on ecf
+// itself.
+template <bool I8 = false, typename Stats>
 __device__ __forceinline__ void attention_fwd(const bf16* QKV, bf16* O, const float* CF, int M, float scale,
-                                              Stats stats) {
+                                              Stats stats, const int8_t* Q8 = nullptr, float factor = 0.f) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const int QT = M / 16;
     for (int task = warp; task < H * QT; task += kThreads / 32) {
         const int h = task / QT, q0 = 16 * (task % QT);
-        uint32_t qa[4];
-        load_a(qa, QKV, LQ, q0, h * HD);
         float s[8][4];
-        head_scores(s, qa, QKV + D + h * HD, M);
+        if constexpr (I8) {
+            head_scores_i8(s, Q8, h, q0, M, factor);
+        } else {
+            uint32_t qa[4];
+            load_a(qa, QKV, LQ, q0, h * HD);
+            head_scores(s, qa, QKV + D + h * HD, M);
+        }
         float mx[2] = {-INFINITY, -INFINITY}, z[2] = {0.f, 0.f};
 #pragma unroll
         for (int j = 0; j < 8; ++j)
             if (8 * j < M)
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
-                    s[j][i] *= scale;
+                    if constexpr (!I8) s[j][i] *= scale;
                     mx[i >> 1] = fmaxf(mx[i >> 1], s[j][i]);
                 }
         mx[0] = quad_max(mx[0]);
@@ -421,8 +495,14 @@ __device__ __forceinline__ void attention_fwd(const bf16* QKV, bf16* O, const fl
             if (8 * j < M)
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
+                    const float cf = CF[8 * j + 2 * t + (i & 1)];
                     s[j][i] = expf(s[j][i] - mx[i >> 1]);
-                    z[i >> 1] = fmaf(CF[8 * j + 2 * t + (i & 1)], s[j][i], z[i >> 1]);
+                    if constexpr (I8) {
+                        s[j][i] = rnd<bf16>(cf * s[j][i]);  // ecf
+                        z[i >> 1] += s[j][i];
+                    } else {
+                        z[i >> 1] = fmaf(cf, s[j][i], z[i >> 1]);
+                    }
                 }
         z[0] = quad_sum(z[0]);
         z[1] = quad_sum(z[1]);
@@ -435,8 +515,8 @@ __device__ __forceinline__ void attention_fwd(const bf16* QKV, bf16* O, const fl
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
                     const int k = 16 * kp + 2 * t + (i & 1);
-                    p0[i] = CF[k] * (s[2 * kp][i] / z[i >> 1]);
-                    p1[i] = CF[k + 8] * (s[2 * kp + 1][i] / z[i >> 1]);
+                    p0[i] = I8 ? s[2 * kp][i] : CF[k] * (s[2 * kp][i] / z[i >> 1]);
+                    p1[i] = I8 ? s[2 * kp + 1][i] : CF[k + 8] * (s[2 * kp + 1][i] / z[i >> 1]);
                 }
                 uint32_t pa[4], b[4];
                 acc_to_a(pa, p0, p1);
@@ -446,6 +526,10 @@ __device__ __forceinline__ void attention_fwd(const bf16* QKV, bf16* O, const fl
         }
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt) {
+            if constexpr (I8) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) o[nt][i] /= z[i >> 1];
+            }
             bf16* y = O + (q0 + g) * LA + h * HD + 8 * nt + 2 * t;
             store2(y, o[nt][0], o[nt][1]);
             store2(y + 8 * LA, o[nt][2], o[nt][3]);

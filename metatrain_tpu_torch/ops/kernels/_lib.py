@@ -83,8 +83,12 @@ _SIGNATURES = {
     "mtt_fused_layer_fwd": [_I] + [_P] * 15 + _LAYER_TAIL,
     "mtt_fused_layer_bwd": [_I] + [_P] * 22 + _LAYER_TAIL,
     "mtt_fused_layer_fwd_sm90": [_P] * 15 + [_L, _I, _I, _I, _I, _F, _F, _P],
+    # the Hopper K1's arguments and the int8 scales after the weight matrices
+    "mtt_fused_layer_fwd_int8_sm90": [_P] * 16 + [_L, _I, _I, _I, _I, _F, _F, _P],
     "mtt_fused_layer_fwd_f32_sm90": [_P] * 15 + [_L, _I, _I, _I, _I, _F, _F, _P],
     "mtt_fused_layer_bwd_sm90": [_P] * 20 + [_L, _I, _I, _I, _I, _F, _F, _P],
+    # the Hopper K2's arguments and the int8 scales after the transposed weights
+    "mtt_fused_layer_bwd_int8_sm90": [_P] * 21 + [_L, _I, _I, _I, _I, _F, _F, _P],
     "mtt_fused_layer_bwd_f32_sm90": [_P] * 20 + [_L, _I, _I, _I, _I, _F, _F, _P],
     # dtype, the Hopper float32 first pass or not, 26 pointers (the inputs,
     # 13 weights, int8 scales, cotangents, outputs, dw, spill, partials,
@@ -143,10 +147,14 @@ _SIGNATURES = {
     "mtt_int8_absmax_smem": [_I],
     "mtt_fused_layer_fwd_sm90_smem": [_I] * 4,
     "mtt_fused_layer_fwd_sm90_ok": [_I] * 4,
+    "mtt_fused_layer_fwd_int8_sm90_smem": [_I] * 4,
+    "mtt_fused_layer_fwd_int8_sm90_ok": [_I] * 4,
     "mtt_fused_layer_fwd_f32_sm90_smem": [_I] * 4,
     "mtt_fused_layer_fwd_f32_sm90_ok": [_I] * 4,
     "mtt_fused_layer_bwd_sm90_smem": [_I] * 4,
     "mtt_fused_layer_bwd_sm90_ok": [_I] * 4,
+    "mtt_fused_layer_bwd_int8_sm90_smem": [_I] * 4,
+    "mtt_fused_layer_bwd_int8_sm90_ok": [_I] * 4,
     "mtt_fused_layer_bwd_f32_sm90_smem": [_I] * 4,
     "mtt_fused_layer_bwd_f32_sm90_ok": [_I] * 4,
     "mtt_rowblock_fwd_smem": [_I, _I, _IP],
@@ -333,28 +341,33 @@ def sm90_shape(M: int, D: int, H: int, F: int) -> bool:
 
 def k1_sm90_takes(dtype: torch.dtype, M: int, D: int, H: int, F: int, w8a8: bool = False,
                   int8: bool = False, weight_grads: bool = False) -> bool:
-    """Whether ``fused_layer_fwd_cuda`` launches the Hopper K1: the exact
-    bfloat16 variant at the shapes of :func:`sm90_shape`, where no weight
-    requires grad. It rounds the softmax weights P to bf16 as the Hopper K2
-    does; with ``weight_grads`` the backward is K2-dW's general body and
-    the replay, which keep P float, so the forward is the general K1 too
-    and the energy and its gradient come from one function."""
-    return (dtype == torch.bfloat16 and not (w8a8 or int8 or weight_grads)
+    """Whether ``fused_layer_fwd_cuda`` launches the Hopper K1: bfloat16,
+    exact or with the dynamic int8 scores (``int8``: K1-int8, counter
+    ``fused_layer_fwd_int8_sm90``), at the shapes of :func:`sm90_shape`,
+    where no weight requires grad. W8A8 keeps the general body. It rounds
+    the softmax weights to bf16 as the Hopper K2 does; with
+    ``weight_grads`` the backward is K2-dW's general first pass and the
+    replay, which keep them float, so the forward is the general K1 (K1-int8)
+    too and the energy and its gradient come from one function."""
+    return (dtype == torch.bfloat16 and not (w8a8 or weight_grads)
             and sm90_shape(M, D, H, F))
 
 
-def k1_sm90_smem(M: int, D: int, H: int, F: int) -> int:
-    """``mtt_fused_layer_fwd_sm90_smem``: its shared bytes per block (two
+def k1_sm90_smem(M: int, D: int, H: int, F: int, int8: bool = False) -> int:
+    """``mtt_fused_layer_fwd_sm90_smem`` (``int8``:
+    ``mtt_fused_layer_fwd_int8_sm90_smem``): its shared bytes per block (two
     atoms, each padded to 64 rows), 0 for a shape it does not take. The C
     source's layout: per atom q|k|v, where res and the ffn_h tile go later
     (bf16 rows of 3D + 8), and the operand tile (n1, attn, h_norm; bf16 rows
     of D + 8); three weight chunks of 128 x 64 bf16; per atom the floats
-    cf, r1, r2."""
-    if not k1_sm90_takes(torch.bfloat16, M, D, H, F):
+    cf, r1, r2; with ``int8``, per atom the int8 copy of q and k (rows of
+    2D + 16 bytes)."""
+    if not k1_sm90_takes(torch.bfloat16, M, D, H, F, int8=int8):
         return 0
     rows = 64
     atom = rows * (3 * D + 8) * 2 + rows * (D + 8) * 2
-    return 2 * atom + 3 * 128 * 64 * 2 + 2 * 4 * 3 * rows
+    q8 = rows * (2 * D + 16) if int8 else 0
+    return 2 * atom + 3 * 128 * 64 * 2 + 2 * 4 * 3 * rows + 2 * q8
 
 
 def k1_f32_sm90_takes(dtype: torch.dtype, M: int, D: int, H: int, F: int, w8a8: bool = False,
@@ -384,29 +397,34 @@ def k1_f32_sm90_smem(M: int, D: int, H: int, F: int) -> int:
 
 def k2_sm90_takes(dtype: torch.dtype, M: int, D: int, H: int, F: int, weight_grads: bool = False,
                   w8a8: bool = False, int8: bool = False) -> bool:
-    """Whether ``fused_layer_bwd_cuda`` launches the Hopper K2: the exact
-    bfloat16 input-gradient variant at D = 128 with heads of 16, 16 <= M <=
-    64 with M % 16 == 0, F a multiple of 128 (the shape rule is the C
-    side's ``mtt_fused_layer_bwd_sm90_ok``)."""
-    return dtype == torch.bfloat16 and not (weight_grads or w8a8 or int8) and sm90_shape(M, D, H, F)
+    """Whether ``fused_layer_bwd_cuda`` launches the Hopper K2: the bfloat16
+    input-gradient variant, exact or with the dynamic int8 scores
+    (``int8``: K2-int8, counter ``fused_layer_bwd_int8_sm90``), at D = 128
+    with heads of 16, 16 <= M <= 64 with M % 16 == 0, F a multiple of 128
+    (the shape rule is the C side's ``mtt_fused_layer_bwd_sm90_ok``). W8A8
+    and the weight gradients (K2-dW, K2-dW-int8) keep their own bodies."""
+    return dtype == torch.bfloat16 and not (weight_grads or w8a8) and sm90_shape(M, D, H, F)
 
 
-def k2_sm90_smem(M: int, D: int, H: int, F: int) -> int:
-    """``mtt_fused_layer_bwd_sm90_smem``: its shared bytes per block (one
+def k2_sm90_smem(M: int, D: int, H: int, F: int, int8: bool = False) -> int:
+    """``mtt_fused_layer_bwd_sm90_smem`` (``int8``:
+    ``mtt_fused_layer_bwd_int8_sm90_smem``): its shared bytes per block (one
     atom, padded to 64 rows), 0 for a shape it does not take. The C
     source's layout: q|k|v (bf16 rows of 3D + 8), the operand tile (n1,
     attn, h_norm, d_attn_out, dq; rows of D + 8), res and g_eo then d_res
     (float rows of D + 8), the d_vg tile then d_attn (rows of 2D + 8), three
     weight chunks of 128 x 64 bf16, and floats: cf, r1, r2, the
     softmax max, sum and delta per head, d_cf's column sums per (head,
-    query tile) and the row-sum scratch."""
-    if not k2_sm90_takes(torch.bfloat16, M, D, H, F):
+    query tile) and the row-sum scratch; with ``int8``, the int8 copy of q
+    and k (rows of 2D + 16 bytes)."""
+    if not k2_sm90_takes(torch.bfloat16, M, D, H, F, int8=int8):
         return 0
     rows, heads = 64, 8
     tiles = rows * (3 * D + 8) * 2 + rows * (D + 8) * 2 + rows * (D + 8) * 4 + rows * (2 * D + 8) * 2
     ring = 3 * 128 * 64 * 2
     stats = 3 * rows + 3 * heads * rows + heads * 4 * rows + 4 * rows
-    return tiles + ring + 4 * stats
+    q8 = rows * (2 * D + 16) if int8 else 0
+    return tiles + ring + 4 * stats + q8
 
 
 def k2_f32_sm90_takes(dtype: torch.dtype, M: int, D: int, H: int, F: int,

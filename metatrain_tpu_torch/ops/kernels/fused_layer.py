@@ -44,7 +44,10 @@ pass ``csrc/int8_absmax.cu``; the blocks are the JAX forward's,
 :func:`int8_block_atoms`), computed once per layer call and handed to the
 forward, the backward and the second-order replay alike as per-atom
 ``int8_scales`` (A, 2). ``fused_transformer_layer(..., int8_scores=True)``
-runs K1-int8 and K2-int8 / K2-dW-int8 on the card.
+runs K1-int8 and K2-int8 / K2-dW-int8 on the card: at the served shapes,
+where no weight requires grad, as the int8-score mode of the Hopper K1 and
+K2 (``csrc/fused_layer_{fwd,bwd}_sm90.cu``), elsewhere on the general
+bodies.
 
 Weights keep the JAX package's (in, out) layout and are cast to the
 compute dtype (the dtype of ``edges``); accumulation is float32 (float64
@@ -757,7 +760,11 @@ def fused_layer_fwd_cuda(edges, center, cf, w: LayerWeights, num_heads, scale, w
     With ``w8a8`` (``(Int8Calib, quantize_layer_weights(...))``, int8
     weights on the device) launch K1-W8A8 instead: bfloat16 only. With
     ``int8_scales`` ((A, 2) float32, :func:`int8_scales_for`) launch
-    K1-int8: bfloat16 only.
+    K1-int8: bfloat16 only; at the shapes of :func:`_lib.k1_sm90_takes`
+    (no ``weight_grads``) the Hopper K1's int8-score mode (counter
+    ``fused_layer_fwd_int8_sm90``: the int8 scores and the rounded softmax
+    on the same forward phases as K2-int8's recompute), elsewhere or with
+    ``sm90=False`` the general body (``fused_layer_fwd_int8``).
 
     Windows whose buffers do not fit in shared memory run with a global
     workspace (one block per SM looping over the atoms)."""
@@ -773,7 +780,7 @@ def fused_layer_fwd_cuda(edges, center, cf, w: LayerWeights, num_heads, scale, w
     _lib.require({"cf": cf}, edges.device, torch.float32)
     if sm90 and _lib.k1_sm90_takes(cd, M, D, num_heads, F, w8a8 is not None,
                                    int8_scales is not None, weight_grads):
-        return _k1_sm90(edges, center, cf, wc, num_heads, scale)
+        return _k1_sm90(edges, center, cf, wc, num_heads, scale, int8_scales=int8_scales)
     if sm90 and _lib.k1_f32_sm90_takes(cd, M, D, num_heads, F, w8a8 is not None,
                                        int8_scales is not None):
         return _k1_sm90(edges, center, cf, wc, num_heads, scale, "fused_layer_fwd_f32_sm90")
@@ -817,27 +824,33 @@ def k1_sm90_w_vg(w_in, block: int = 64):
             .contiguous())
 
 
-def _k1_sm90(edges, center, cf, wc: LayerWeights, num_heads, scale, name="fused_layer_fwd_sm90"):
-    """The Hopper K1 on checked bfloat16 tensors, or (``name``
+def _k1_sm90(edges, center, cf, wc: LayerWeights, num_heads, scale, name="fused_layer_fwd_sm90",
+             int8_scales=None):
+    """The Hopper K1 on checked bfloat16 tensors, with ``int8_scales`` its
+    int8-score mode (``fused_layer_fwd_int8_sm90``), or (``name``
     ``fused_layer_fwd_f32_sm90``) the Hopper float32 K1 on float32 ones
     (``wc`` in the compute dtype): one block per two atoms (bf16) or per
-    atom (f32), no workspace. Both take the same arguments: the weights as
-    w_qkv^T, w_out^T, w_in^T (bf16: :func:`k1_sm90_w_vg`'s arrangement of
-    it) and w_ffn_out^T."""
+    atom (f32), no workspace. All take the same arguments (K1-int8 the
+    scales after the weights): the weights as w_qkv^T, w_out^T, w_in^T
+    (bf16: :func:`k1_sm90_w_vg`'s arrangement of it) and w_ffn_out^T."""
+    if int8_scales is not None:
+        name = "fused_layer_fwd_int8_sm90"
     A, M, D = edges.shape
     F = wc.w_ffn_out.shape[0]
     lib = _lib.library()
     _lib.check_shared(getattr(lib, f"mtt_{name}_smem")(M, D, num_heads, F), name)
     vectors = (wc.norm_attn, wc.b_qkv, wc.b_out, wc.norm_mlp, wc.b_in, wc.b_ffn_out)
-    w_in_t = k1_sm90_w_vg(wc.w_in) if name == "fused_layer_fwd_sm90" else wc.w_in.t().contiguous()
+    w_in_t = (k1_sm90_w_vg(wc.w_in) if edges.dtype == torch.bfloat16
+              else wc.w_in.t().contiguous())
     matrices = (wc.w_qkv.t().contiguous(), wc.w_out.t().contiguous(), w_in_t,
                 wc.w_ffn_out.t().contiguous())
+    scales = () if int8_scales is None else (int8_scales.data_ptr(),)
     edge_out = torch.empty_like(edges)
     center_out = torch.empty_like(center)
     _lib.check(
         getattr(lib, f"mtt_{name}")(
             edges.data_ptr(), center.data_ptr(), cf.data_ptr(), *(x.data_ptr() for x in vectors),
-            *(x.data_ptr() for x in matrices), edge_out.data_ptr(), center_out.data_ptr(),
+            *(x.data_ptr() for x in matrices), *scales, edge_out.data_ptr(), center_out.data_ptr(),
             A, M, D, num_heads, F, float(scale), rmsnorm_eps(edges.dtype),
             _lib.stream_ptr(edges.device)),
         name,
@@ -862,7 +875,10 @@ def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, n
 
     With ``w8a8`` launch K2-W8A8 (bfloat16, input gradients only): the W8A8
     layer's straight-through backward. With ``int8_scales`` (the forward's)
-    launch K2-int8 (bfloat16), or K2-dW-int8 with ``weight_grads``.
+    launch K2-int8 (bfloat16): at the shapes of :func:`_lib.k2_sm90_takes`
+    the Hopper K2's int8-score mode (counter ``fused_layer_bwd_int8_sm90``),
+    elsewhere or with ``sm90=False`` the general body
+    (``fused_layer_bwd_int8``); or K2-dW-int8 with ``weight_grads``.
 
     With ``weight_grads=True`` launch K2-dW instead, which also returns the
     float32 weight gradients summed over atoms as a fourth output
@@ -898,7 +914,8 @@ def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, n
         _int8_kernel_scales(edges, int8_scales)
     if sm90 and _lib.k2_sm90_takes(cd, M, D, num_heads, F, weight_grads, w8a8 is not None,
                                    int8_scales is not None):
-        return _k2_sm90(edges, center, cf, wc, g_edge, g_center, num_heads, scale)
+        return _k2_sm90(edges, center, cf, wc, g_edge, g_center, num_heads, scale,
+                        int8_scales=int8_scales)
     if sm90 and not weight_grads and _lib.k2_f32_sm90_takes(
             cd, M, D, num_heads, F, w8a8=w8a8 is not None, int8=int8_scales is not None):
         return _k2_sm90(edges, center, cf, wc, g_edge, g_center, num_heads, scale,
@@ -954,23 +971,28 @@ def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, n
 
 
 def _k2_sm90(edges, center, cf, wc: LayerWeights, g_edge, g_center, num_heads, scale,
-             name="fused_layer_bwd_sm90"):
-    """The Hopper K2 on checked bfloat16 tensors, or (``name``
+             name="fused_layer_bwd_sm90", int8_scales=None):
+    """The Hopper K2 on checked bfloat16 tensors, with ``int8_scales`` its
+    int8-score mode (``fused_layer_bwd_int8_sm90``), or (``name``
     ``fused_layer_bwd_f32_sm90``) the Hopper float32 K2 on float32 ones
-    (``wc`` in the compute dtype): one block per atom, no workspace. Both
-    take the same arguments."""
+    (``wc`` in the compute dtype): one block per atom, no workspace. All
+    take the same arguments (K2-int8 the scales after the transposed
+    weights)."""
+    if int8_scales is not None:
+        name = "fused_layer_bwd_int8_sm90"
     A, M, D = edges.shape
     F = wc.w_ffn_out.shape[0]
     lib = _lib.library()
     _lib.check_shared(getattr(lib, f"mtt_{name}_smem")(M, D, num_heads, F), name)
     transposed = [x.t().contiguous() for x in (wc.w_qkv, wc.w_out, wc.w_in)]
+    scales = () if int8_scales is None else (int8_scales.data_ptr(),)
     d_edges = torch.empty_like(edges)
     d_center = torch.empty_like(center)
     d_cf = torch.empty_like(cf)
     _lib.check(
         getattr(lib, f"mtt_{name}")(
             edges.data_ptr(), center.data_ptr(), cf.data_ptr(), *(x.data_ptr() for x in wc[:9]),
-            *(x.data_ptr() for x in transposed), g_edge.data_ptr(), g_center.data_ptr(),
+            *(x.data_ptr() for x in transposed), *scales, g_edge.data_ptr(), g_center.data_ptr(),
             d_edges.data_ptr(), d_center.data_ptr(), d_cf.data_ptr(), A, M, D, num_heads, F,
             float(scale), rmsnorm_eps(edges.dtype), _lib.stream_ptr(edges.device)),
         name,

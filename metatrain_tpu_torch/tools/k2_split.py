@@ -6,6 +6,7 @@ Usage, on a machine with a CUDA device and nvcc::
 
     python metatrain_tpu_torch/tools/k2_split.py
         --body hopper|general|f32-hopper|k1-hopper|k1-f32|k1-general|k3-head|k4-head|k4dw-general|k4-f32
+        |hopper-int8|k1-int8
         [--dtype bfloat16|float32] [--dw] [--A 11392] [--M 64]
 
 Copies the body's sources (``--body hopper``: the Hopper K2,
@@ -13,7 +14,9 @@ Copies the body's sources (``--body hopper``: the Hopper K2,
 ``csrc/layer_bwd.cuh`` with a one-kernel launcher, in ``--dtype``;
 ``f32-hopper``: the Hopper float32 K2,
 ``csrc/fused_layer_bwd_f32_sm90.cu``; ``k1-hopper``: the
-Hopper K1, ``csrc/fused_layer_fwd_sm90.cu``; ``k1-f32``: the Hopper float32
+Hopper K1, ``csrc/fused_layer_fwd_sm90.cu``; ``hopper-int8`` /
+``k1-int8``: K2-int8 / K1-int8, the same sources and phases in their
+int8-score mode, on the port's scales (``sm90_front.port_int8_scales``); ``k1-f32``: the Hopper float32
 K1, ``csrc/fused_layer_fwd_f32_sm90.cu``; ``k1-general``: K1's general
 body, ``csrc/layer_fwd.cuh`` in ``csrc/fused_layer_fwd.cu``, in
 ``--dtype``; ``k3-head`` / ``k4-head``: the
@@ -252,9 +255,12 @@ def instrument(text: str, marks, phase: int = 0) -> str:
 def build(work: Path, body: str, dtype: str) -> Path:
     for source in CSRC.glob("*.cu*"):
         shutil.copy(source, work / source.name)
-    if body in ("hopper", "k1-hopper", "k1-f32", "f32-hopper", "k4dw-general", "k4-f32"):
+    if body in ("hopper", "k1-hopper", "k1-f32", "f32-hopper", "k4dw-general", "k4-f32",
+                "hopper-int8", "k1-int8"):
         unit, marks = {"hopper": ("fused_layer_bwd_sm90.cu", HOPPER),
+                       "hopper-int8": ("fused_layer_bwd_sm90.cu", HOPPER),
                        "k1-hopper": ("fused_layer_fwd_sm90.cu", K1_HOPPER),
+                       "k1-int8": ("fused_layer_fwd_sm90.cu", K1_HOPPER),
                        "k1-f32": ("fused_layer_fwd_f32_sm90.cu", K1_F32),
                        "f32-hopper": ("fused_layer_bwd_f32_sm90.cu", F32_HOPPER),
                        "k4dw-general": ("rowblock_bwd.cu", K4DW_GENERAL),
@@ -384,7 +390,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--body", choices=("hopper", "general", "f32-hopper", "k1-hopper", "k1-f32",
                                            "k1-general", "k3-head", "k4-head", "k4dw-general",
-                                           "k4-f32"),
+                                           "k4-f32", "hopper-int8", "k1-int8"),
                         required=True)
     parser.add_argument("--dtype", choices=("bfloat16", "float32"), default=None,
                         help="the general bodies' storage type (the Hopper bodies have one each)")
@@ -403,6 +409,7 @@ def main() -> int:
                           timeout=60).stdout.strip().splitlines()[0]
     if args.body in ("k4dw-general", "k4-f32"):
         return k4_split(args, card)
+    from sm90_front import port_int8_scales  # this directory's
     own = "float32" if args.body in ("f32-hopper", "k1-f32") else "bfloat16"
     if args.dtype not in (None, own) and args.body not in ("general", "k1-general"):
         parser.error(f"--body {args.body} runs in {own}")
@@ -455,11 +462,14 @@ def main() -> int:
 
             def run():
                 return fn(2, *vals, rows, D, D, D, D, blocks, stream)
-        elif args.body in ("hopper", "f32-hopper"):
+        elif args.body in ("hopper", "f32-hopper", "hopper-int8"):
             ptrs = [e, c, cf, *w[:9], *(w[i].t().contiguous() for i in (1, 3, 6)), ge, gc, de, dc,
                     dcf]
-            fn = lib.mtt_fused_layer_bwd_sm90 if args.body == "hopper" else lib.mtt_fused_layer_bwd_f32_sm90
-            fn.argtypes = [P] * 20 + [L, I, I, I, I, F_, F_, P]
+            fn = getattr(lib, {"hopper": "mtt_fused_layer_bwd_sm90", "f32-hopper": "mtt_fused_layer_bwd_f32_sm90",
+                               "hopper-int8": "mtt_fused_layer_bwd_int8_sm90"}[args.body])
+            if args.body == "hopper-int8":  # the scales after the transposed weights
+                ptrs.insert(15, port_int8_scales(e, c, w))
+            fn.argtypes = [P] * len(ptrs) + [L, I, I, I, I, F_, F_, P]
 
             def run():
                 return fn(*(x.data_ptr() for x in ptrs), A, M, D, H, F, scale, eps, stream)
@@ -481,17 +491,20 @@ def main() -> int:
             def run():
                 return lib.mtt_fused_layer_fwd(code, *(x.data_ptr() for x in ptrs), A, M, D, H, F,
                                                scale, eps, A, None, stream)
-        elif args.body == "k1-hopper":
+        elif args.body in ("k1-hopper", "k1-int8"):
             # w_in^T with value and gate rows interleaved in blocks of 64, as
             # fused_layer.k1_sm90_w_vg arranges it
             w_vg = w[6].t().reshape(2, F // 64, 64, D).transpose(0, 1).reshape(2 * F, D).contiguous()
             ptrs = [e, c, cf, *(w[i] for i in (0, 2, 4, 5, 7, 9)), w[1].t().contiguous(),
                     w[3].t().contiguous(), w_vg, w[8].t().contiguous(), de, dc]
-            lib.mtt_fused_layer_fwd_sm90.argtypes = [P] * 15 + [L, I, I, I, I, F_, F_, P]
+            fn = lib.mtt_fused_layer_fwd_sm90
+            if args.body == "k1-int8":  # the scales after the weight matrices
+                fn = lib.mtt_fused_layer_fwd_int8_sm90
+                ptrs.insert(13, port_int8_scales(e, c, w))
+            fn.argtypes = [P] * len(ptrs) + [L, I, I, I, I, F_, F_, P]
 
             def run():
-                return lib.mtt_fused_layer_fwd_sm90(*(x.data_ptr() for x in ptrs), A, M, D, H, F,
-                                                    scale, eps, stream)
+                return fn(*(x.data_ptr() for x in ptrs), A, M, D, H, F, scale, eps, stream)
         else:
             wl = w[:8] + [w[i].t().contiguous() for i in (1, 3, 6, 8)]
             arr = (ctypes.c_void_p * 12)(*(x.data_ptr() for x in wl))
@@ -516,7 +529,7 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
     names = {"hopper": HOPPER_PHASES, "general": GENERAL_PHASES, "f32-hopper": F32_HOPPER_PHASES,
-             "k1-hopper": K1_HOPPER_PHASES, "k1-f32": K1_F32_PHASES, "k1-general": K1_GENERAL_PHASES,
+             "hopper-int8": HOPPER_PHASES, "k1-int8": K1_HOPPER_PHASES, "k1-hopper": K1_HOPPER_PHASES, "k1-f32": K1_F32_PHASES, "k1-general": K1_GENERAL_PHASES,
              "k3-head": K3_HEAD_PHASES, "k4-head": K4_HEAD_PHASES}[args.body]
     cycles = list(counts)[:len(names)]
     total = sum(cycles)

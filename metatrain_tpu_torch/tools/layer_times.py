@@ -21,7 +21,12 @@ general body's; likewise ``fused_layer_fwd_ms_bf16`` and
 ``fused_layer_fwd_ms_f32`` and ``fused_layer_fwd_general_ms_f32`` where it
 has the Hopper float32 K1 (``_lib.k1_f32_sm90_takes``; the general body's
 digest then under ``fused_layer_fwd_general_f32``, which a tree without it
-gives under ``fused_layer_fwd_f32``). Then K4
+gives under ``fused_layer_fwd_f32``). In bfloat16, also the dynamic int8
+scores' K1-int8 and K2-int8 on scales from the absmax pass
+(``fused_layer_{fwd,bwd}_int8_ms_bf16``: the Hopper K1 and K2's int8-score
+mode where the tree has it, the general bodies before) and their general
+bodies (``sm90=False``, ``fused_layer_{fwd,bwd}_int8_general_ms_bf16``).
+Then K4
 (``rowblock_bwd_cuda``) in bfloat16 at A x M rows for the 3-part and the
 2-part compress, the combination and the head
 (``rowblock_bwd[<stage>]_ms_bf16``:
@@ -135,6 +140,18 @@ def main() -> int:
         ):
             digests[f"{name}_{tag}"] = digest(fn())
             times[f"{name}_ms_{tag}"] = cuda_ms(fn)
+        if dtype == torch.bfloat16:
+            scales = fl.int8_scales_for(e, c, w)
+            for name, kw in (("fused_layer_fwd_int8", {}), ("fused_layer_bwd_int8", {}),
+                             ("fused_layer_fwd_int8_general", {"sm90": False}),
+                             ("fused_layer_bwd_int8_general", {"sm90": False})):
+                if "fwd" in name:
+                    fn = lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale, int8_scales=scales, **kw)  # noqa: E731
+                else:
+                    fn = lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale,  # noqa: E731
+                                                         int8_scales=scales, **kw)
+                digests[f"{name}_{tag}"] = digest(fn())
+                times[f"{name}_ms_{tag}"] = cuda_ms(fn)
         del e, c, ge, gc
         torch.cuda.empty_cache()
     # K3's and K4's bf16 stages at the row-block stages' rows

@@ -7,6 +7,7 @@ the same bits.
 Usage, on a machine with a CUDA device and nvcc::
 
     python metatrain_tpu_torch/tools/sm90_front.py [--dtype bfloat16|float32] [--A 2047] [--M 64]
+    python metatrain_tpu_torch/tools/sm90_front.py --int8 [--A 2047] [--M 64]
     python metatrain_tpu_torch/tools/sm90_front.py --kernel rowblock --dtype float32 \
         --stage compress|combination|head [--rows 100003]
 
@@ -25,6 +26,12 @@ holds one atom) and prints one JSON line: the card (``nvidia-smi`` name
 and power limit), the dtype, the shape, and per activation whether the
 two kernels' copies are bitwise equal. The checkout's sources are not
 changed: they carry no such copies.
+
+With ``--int8`` (bfloat16) the two kernels run their int8-score mode
+(K1-int8 and K2-int8, the entries ``mtt_fused_layer_{fwd,bwd}_int8_sm90``)
+on the port's per-atom scales (``fused_layer.int8_scales_for``), and the
+copies take q|k|v too (before the attention): the line says whether
+K1-int8's q|k|v, attn, res and h_norm equal K2-int8's recompute.
 
 With ``--kernel rowblock`` (float32 only) the Hopper float32 K3
 (``csrc/rowblock_fwd_f32_sm90.cu``) and the Hopper float32 K4
@@ -68,20 +75,20 @@ SETTER = ('\nextern "C" int dump_set(void* p) '
           '{ return (int)cudaMemcpyToSymbol(g_dump, &p, sizeof(p)); }\n')
 
 
-def _copy(slot: int, rows: str, src: str, ld: str = "LA") -> str:
-    """Code that copies ``src`` rows (bf16 rows of LA, or float rows of
-    ``ld``) of atom ``rows`` into slot ``slot`` of g_dump; ``rows`` names the
-    atom index expression."""
+def _copy(slot: int, rows: str, src: str, ld: str = "LA", slots: int = 3, width: str = "D") -> str:
+    """Code that copies ``width`` columns of ``src`` rows (bf16 rows of LA,
+    or rows of ``ld``) of atom ``rows`` into g_dump from slot ``slot`` on
+    (rows of ``slots`` x D); ``rows`` names the atom index expression."""
     return (f"    __syncthreads();\n"
-            f"    for (int i_ = threadIdx.x; i_ < M * D; i_ += blockDim.x)\n"
-            f"        g_dump[(({rows}) * M + i_ / D) * 3 * D + {slot} * D + i_ % D] = "
-            f"{src}[(i_ / D) * {ld} + i_ % D];\n")
+            f"    for (int i_ = threadIdx.x; i_ < M * {width}; i_ += blockDim.x)\n"
+            f"        g_dump[(({rows}) * M + i_ / {width}) * {slots} * D + {slot} * D + i_ % {width}] = "
+            f"{src}[(i_ / {width}) * {ld} + i_ % {width}];\n")
 
 
-def _k1_copy(slot: int, buf: str) -> str:
+def _k1_copy(slot: int, buf: str, **kw) -> str:
     # both atoms of the block, atom 1 only where it exists
-    return (_copy(slot, "a0", buf)
-            + "    if (has1) {\n" + _copy(slot, "a1", f"({buf} + kStride)") + "    }\n")
+    return (_copy(slot, "a0", buf, **kw)
+            + "    if (has1) {\n" + _copy(slot, "a1", f"({buf} + kStride)", **kw) + "    }\n")
 
 
 # (text, insert before it, code): each text occurs once in its source
@@ -94,6 +101,22 @@ K2_MARKS = (
     ('#include "layer_sm90.cuh"\n', False, DUMP),
     ("    // res = rnd(x1 + rnd(attn w_out + b))", True, _copy(0, "a", "OP")),
     ("    // ---- SwiGLU backward", True, _copy(1, "a", "RES") + _copy(2, "a", "OP")),
+)
+
+# the int8-score mode (--int8): g_dump is (A, M, 6, D), attn, res and
+# h_norm, then q|k|v (copied before the attention)
+QKV6 = dict(ld="LQ", slots=6, width="(3 * D)")
+K1_INT8_MARKS = (
+    ('#include "layer_sm90.cuh"\n', False, DUMP),
+    ("    // ---- attention, one warp per", True, _k1_copy(3, "QKV", **QKV6)),
+    ("    // ---- res = rnd(x1", True, _k1_copy(0, "OP", slots=6)),
+    ("    // ---- SwiGLU over F tiles", True, _k1_copy(1, "RES", slots=6) + _k1_copy(2, "OP", slots=6)),
+)
+K2_INT8_MARKS = (
+    ('#include "layer_sm90.cuh"\n', False, DUMP),
+    ("    // ---- recompute: attention", True, _copy(3, "a", "QKV", **QKV6)),
+    ("    // res = rnd(x1 + rnd(attn w_out + b))", True, _copy(0, "a", "OP", slots=6)),
+    ("    // ---- SwiGLU backward", True, _copy(1, "a", "RES", slots=6) + _copy(2, "a", "OP", slots=6)),
 )
 
 
@@ -112,6 +135,8 @@ KERNELS = {
     "bfloat16": (("k1", "fused_layer_fwd_sm90.cu", K1_MARKS), ("k2", "fused_layer_bwd_sm90.cu", K2_MARKS)),
     "float32": (("k1", "fused_layer_fwd_f32_sm90.cu", K1_F32_MARKS),
                 ("k2", "fused_layer_bwd_f32_sm90.cu", K2_F32_MARKS)),
+    "int8": (("k1", "fused_layer_fwd_sm90.cu", K1_INT8_MARKS),
+             ("k2", "fused_layer_bwd_sm90.cu", K2_INT8_MARKS)),
 }
 
 # the row-block stages: g_dump is (rows, RB_STRIDE) float, per row pre at 0,
@@ -236,14 +261,25 @@ def load(work: Path, procs: dict) -> dict:
     return {key: ctypes.CDLL(str(work / f"{key}.so")) for key in procs}
 
 
-def build(work: Path, dtype: str = "bfloat16", kernels=None) -> dict:
-    return load(work, spawn(work, kernels or KERNELS[dtype]))
+def build(work: Path, mode: str = "bfloat16", kernels=None) -> dict:
+    return load(work, spawn(work, kernels or KERNELS[mode]))
+
+
+def port_int8_scales(e, c, w):
+    """The (A, 2) int8 score scales of one layer call, as the port takes
+    them (``fused_layer.int8_scales_for``, its plain absmax pass: the
+    kernels under test are the tool's copies, not the port's library)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))  # the checkout
+    from metatrain_tpu_torch.ops.kernels import fused_layer as fl
+
+    return fl.int8_scales_for(e, c, fl.LayerWeights(*w), plain=True)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernel", choices=("layer", "rowblock"), default="layer")
     parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
+    parser.add_argument("--int8", action="store_true", help="the int8-score mode (bfloat16)")
     parser.add_argument("--stage", choices=tuple(ROWBLOCK_KERNELS), default="compress")
     parser.add_argument("--A", type=int, default=2047)
     parser.add_argument("--M", type=int, default=64)
@@ -261,6 +297,8 @@ def main() -> int:
         if args.dtype != "float32":
             parser.error("--kernel rowblock compares the float32 K3 and K4")
         return rowblock_main(args, card)
+    if args.int8 and args.dtype != "bfloat16":
+        parser.error("--int8 runs the bfloat16 kernels")
     A, M, D, H, F = args.A, args.M, 128, 8, 256
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
@@ -287,8 +325,9 @@ def main() -> int:
     t = {i: w[i].t().contiguous() for i in (1, 3, 6, 8)}
     P, I, L, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     dumps = {}
+    slots = ("attn", "res", "h_norm") + (("q", "k", "v") if args.int8 else ())
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(Path(tmp), args.dtype)
+        libs = build(Path(tmp), "int8" if args.int8 else args.dtype)
         stream = torch.cuda.current_stream(dev).cuda_stream
         # the float32 K1 reads w_in^T as it is
         runs = {
@@ -306,8 +345,15 @@ def main() -> int:
                    [e, c, cf, *w[:9], t[1], t[3], t[6], ge, gc, torch.empty_like(e),
                     torch.empty_like(c), torch.empty_like(cf)]),
         }
+        if args.int8:
+            # the scales after K1's weight matrices and K2's transposed weights
+            s8 = port_int8_scales(e, c, w)
+            for key, at in (("k1", 13), ("k2", 15)):
+                entry, ptypes, ptrs = runs[key]
+                runs[key] = (entry.replace("_sm90", "_int8_sm90"), ptypes + [P],
+                             ptrs[:at] + [s8] + ptrs[at:])
         for key, (entry, ptypes, ptrs) in runs.items():
-            dump = torch.zeros(A, M, 3, D, dtype=dtype, device=dev)
+            dump = torch.zeros(A, M, len(slots), D, dtype=dtype, device=dev)
             lib = libs[key]
             fn = getattr(lib, entry)
             fn.argtypes = ptypes + [L, I, I, I, I, F_, F_, P]
@@ -318,10 +364,9 @@ def main() -> int:
                 raise RuntimeError(f"{entry} failed to launch")
             torch.cuda.synchronize()
             dumps[key] = dump
-    equal = {name: torch.equal(dumps["k1"][:, :, i], dumps["k2"][:, :, i])
-             for i, name in enumerate(("attn", "res", "h_norm"))}
-    print(json.dumps({"card": card, "dtype": args.dtype, "shape": [A, M, D, H, F], "bitwise_equal": equal,
-                      "finite": bool(torch.isfinite(dumps["k1"].float()).all())}))
+    equal = {name: torch.equal(dumps["k1"][:, :, i], dumps["k2"][:, :, i]) for i, name in enumerate(slots)}
+    print(json.dumps({"card": card, "dtype": args.dtype, "int8": args.int8, "shape": [A, M, D, H, F],
+                      "bitwise_equal": equal, "finite": bool(torch.isfinite(dumps["k1"].float()).all())}))
     return 0 if all(equal.values()) else 2
 
 

@@ -5,7 +5,8 @@ margin that its one extra bf16 rounding spends.
 The kernel itself runs only on the card (``chip_smoke.py`` holds it
 against ``layer_math`` there). Here:
 
-- the dispatch rule ``_lib.k1_sm90_takes``: the exact bfloat16 variant at
+- the dispatch rule ``_lib.k1_sm90_takes``: the bfloat16 variant, exact or
+  with the dynamic int8 scores (K1-int8, the kernel's int8-score mode), at
   D = 128, heads of 16, 16 <= M <= 64 with M % 16 == 0, F a multiple of
   128 (the Hopper K2's shapes);
 - its budget ``_lib.k1_sm90_smem`` (the C side's layout, mirrored) fits
@@ -46,7 +47,7 @@ BF16 = torch.bfloat16
     (BF16, 64, 128, 8, 512, False, False, True),
     (torch.float32, 64, 128, 8, 256, False, False, False),
     (BF16, 64, 128, 8, 256, True, False, False),   # K1-W8A8
-    (BF16, 64, 128, 8, 256, False, True, False),   # K1-int8
+    (BF16, 64, 128, 8, 256, False, True, True),    # K1-int8 (the int8-score mode)
     (BF16, 80, 128, 8, 256, False, False, False),  # M > 64
     (BF16, 56, 128, 8, 256, False, False, False),  # M % 16
     (BF16, 64, 256, 16, 512, False, False, False),  # D = 256

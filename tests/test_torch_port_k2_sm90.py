@@ -5,9 +5,10 @@ extra bf16 roundings spend.
 The kernel itself runs only on the card (``chip_smoke.py`` holds it
 against ``layer_bwd_math`` there). Here:
 
-- the dispatch rule ``_lib.k2_sm90_takes``: the exact bfloat16
-  input-gradient variant at D = 128, heads of 16, 16 <= M <= 64 with
-  M % 16 == 0, F a multiple of 128;
+- the dispatch rule ``_lib.k2_sm90_takes``: the bfloat16 input-gradient
+  variant, exact or with the dynamic int8 scores (K2-int8, the kernel's
+  int8-score mode), at D = 128, heads of 16, 16 <= M <= 64 with M % 16 ==
+  0, F a multiple of 128;
 - its budget ``_lib.k2_sm90_smem`` (the C side's layout, mirrored) fits
   the 232,448 bytes a block may have at every shape it takes;
 - on the CPU the layer's backward still runs the plain version, and the
@@ -41,7 +42,7 @@ BF16 = torch.bfloat16
     (torch.float32, 64, 128, 8, 256, False, False, False, False),
     (BF16, 64, 128, 8, 256, True, False, False, False),   # K2-dW
     (BF16, 64, 128, 8, 256, False, True, False, False),   # K2-W8A8
-    (BF16, 64, 128, 8, 256, False, False, True, False),   # K2-int8
+    (BF16, 64, 128, 8, 256, False, False, True, True),    # K2-int8 (the int8-score mode)
     (BF16, 80, 128, 8, 256, False, False, False, False),  # M > 64
     (BF16, 56, 128, 8, 256, False, False, False, False),  # M % 16
     (BF16, 64, 256, 16, 512, False, False, False, False),  # D = 256

@@ -45,6 +45,7 @@ PORT = Path(metatrain_tpu_torch.__file__).resolve().parent
 ROOT = PORT.parent
 JAX_PATH = re.compile(r"metatrain_tpu/")
 KERNEL_REFERENCE = re.compile(r"^metatrain_tpu/\S+\.py:\d+")
+C_SUFFIXES = (".cu", ".cuh", ".cpp")
 
 
 def _docstrings(tree):
@@ -79,19 +80,47 @@ def _offences(code):
     return bad
 
 
+def _c_includes_of_jax_paths(root):
+    """``#include`` lines that name a path of the JAX package, per C source
+    under ``root`` (the suffixes of ``C_SUFFIXES`` only: bytecode and the
+    build's outputs beside the sources are not read)."""
+    found = {}
+    for source in sorted(p for p in root.rglob("*") if p.suffix in C_SUFFIXES):
+        includes = [line for line in source.read_text().splitlines()
+                    if line.lstrip().startswith("#include") and "metatrain_tpu/" in line]
+        if includes:
+            found[str(source.relative_to(root))] = includes
+    return found
+
+
 def test_port_names_no_path_of_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offences = {str(f.relative_to(ROOT)): _offences(f.read_text()) for f in files}
     assert {f: b for f, b in offences.items() if b} == {}
-    for source in sorted(PORT.rglob("*.c*")):  # .cu, .cuh, .cpp
-        includes = [line for line in source.read_text().splitlines()
-                    if line.lstrip().startswith("#include") and "metatrain_tpu/" in line]
-        assert includes == [], source
+    assert _c_includes_of_jax_paths(PORT) == {}
     # the check itself catches a path that is opened
     assert _offences('open(ROOT / "metatrain_tpu/native/neighbors.cpp")')
     assert _offences('PACKAGE_DIR.parent / "metatrain_tpu" / "native"')
     assert _offences("from metatrain_tpu.ops import neighbors")
     assert not _offences('REPLACES = "metatrain_tpu/ops/pallas/attention.py:412"')
+
+
+def test_c_include_check_catches_a_jax_path(tmp_path):
+    """The C half of the check above still fails on a source that includes
+    a path of the JAX package, whatever its suffix among ``C_SUFFIXES``,
+    and reads no bytecode (a ``.pyc`` is not UTF-8 text)."""
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "own.cuh").write_text('#pragma once\n#include "common.cuh"\n')
+    (tmp_path / "csrc" / "bad.cu").write_text('#include "own.cuh"\n'
+                                              '  #include "../../metatrain_tpu/native/x.h"\n')
+    (tmp_path / "native").mkdir()
+    (tmp_path / "native" / "bad.cpp").write_text("#include <metatrain_tpu/native/neighbors.cpp>\n")
+    (tmp_path / "__pycache__").mkdir()
+    (tmp_path / "__pycache__" / "mod.cpython-312.pyc").write_bytes(bytes(range(256)) * 4)
+    assert _c_includes_of_jax_paths(tmp_path) == {
+        "csrc/bad.cu": ['  #include "../../metatrain_tpu/native/x.h"'],
+        "native/bad.cpp": ["#include <metatrain_tpu/native/neighbors.cpp>"],
+    }
 
 
 def test_neighbor_source_is_the_ports_own():
