@@ -107,10 +107,11 @@ device and exits non-zero without one. Phases (any failure propagates):
    ``int8_static=True`` in bfloat16, ``calibrate_int8`` on the crystal's
    served batch (the calibration carried to the W8A8 plain model with
    ``int8_calib_from_jax(int8_calib_to_jax(...))``), then the same served
-   calls: every counter starts at 0 just before them; K1-W8A8 and K2-W8A8
-   must launch 4 times per call each (2 GNN x 2 layers) and K1/K2 never,
-   K3, K4 (the Hopper K3 and K4 included) and both permutes as on the
-   fused path.
+   calls: every counter starts at 0 just before them; the Hopper K1-W8A8
+   and K2-W8A8 (the W8A8 mode of the Hopper K1 and K2, ``W8A8_SM90``) must
+   launch 4 times per call each (2 GNN x 2 layers), the general W8A8
+   bodies and the exact K1/K2 never, K3, K4 (the Hopper K3 and K4
+   included) and both permutes as on the fused path.
    Gates: finite outputs;
    W8A8 kernel path vs W8A8 plain path (both bf16) energy rel <= 1 %,
    force rel-RMSE <= 5 %; the W8A8 forces differ from the exact bf16 kernel
@@ -280,8 +281,12 @@ device and exits non-zero without one. Phases (any failure propagates):
    ``node_stream_{fwd,bwd,bwd_dw}_math``, timed in the middle layer's; the
    float32 spill mode's outputs bitwise the input-gradient mode's, its
    products against ``node_stream_dw_math`` and bitwise on a repeat
-   (``product_ms``). K1-W8A8 and K2-W8A8 at
-   the served shape in bfloat16 only (relative RMS <= 2e-2 per output), a
+   (``product_ms``). K1-W8A8 and K2-W8A8 (the Hopper pair, the general
+   bodies through ``sm90=False`` beside, ``general_ms``) at the served
+   shape and at M = 48 and 16 (A = 11,000) in bfloat16 only (relative RMS
+   <= 2e-2 per output, and told from the exact mode by
+   ``compare_int8_mode``, both bodies; the Hopper pair bitwise on a repeat,
+   its shared bytes and ``-Xptxas -v`` registers and spills reported), a
    calibration from the plain probe on the same inputs; their bound counts
    the int8 products at 1,979 TOPS and the bf16 ones at 989 TFLOP/s. The
    int8 scores' absmax pass (scales within one bf16 ulp of the plain
@@ -375,7 +380,8 @@ device and exits non-zero without one. Phases (any failure propagates):
    too) for M =
    16..256 and D of 64 to 256;
    K1, K2, K2-dW, the block's three kernels and, in bf16, K1-W8A8 and
-   K2-W8A8 vs plain at M = 80, 96, 128 (D 128) and M = 64, 128 (D 256), A =
+   K2-W8A8 (the general bodies: under the Hopper pair's entries, keyed
+   ``general_``) vs plain at M = 80, 96, 128 (D 128) and M = 64, 128 (D 256), A =
    256; K3, K4 and K4-dW at D = 256; the attention pair, K1, K2, K2-dW (and
    W8A8) at head widths 8, 12, 24 and 64; the bounds of phase 8, times under
    each entry's ``shapes``.
@@ -981,10 +987,17 @@ def check_sm90_shapes(gen, device, report, D=128, H=8, F=256):
         torch.cuda.empty_cache()
 
 
-def check_w8a8_layer(A, M, D, H, F, gen, device, report):
-    """K1-W8A8 and K2-W8A8 vs their plain versions (bfloat16, a
-    calibration from the plain probe on the same inputs), CUDA-event times
-    and bounds: int8 products at 1,979 TOPS, the bf16 ones at 989 TFLOP/s."""
+def check_w8a8_layer(A, M, D, H, F, gen, device, report, tag=None):
+    """K1-W8A8 and K2-W8A8 vs their plain versions (bfloat16, a calibration
+    from the plain probe on the same inputs) at (A, M): the Hopper pair
+    (``W8A8_SM90``: the W8A8 mode of the Hopper K1 and K2; each bitwise on a
+    repeat) and the general bodies through ``sm90=False`` (the entries'
+    ``general_*``), relative RMS <= 2e-2 per output and told from the exact
+    mode (:func:`compare_int8_mode` against ``layer_math`` /
+    ``layer_bwd_math`` without ``w8a8``: a kernel whose dense products
+    stayed bf16 fails it), with CUDA-event times and bounds (the int8
+    products at 1,979 TOPS, the bf16 ones at 989 TFLOP/s). ``tag`` keys a
+    second shape's numbers under ``shapes`` instead of the entries' own."""
     from metatrain_tpu_torch.ops.kernels import fused_layer as fl
 
     edges, center, cf, w, g_edge, g_center = layer_case(A, M, D, H, F, gen, device)
@@ -1002,35 +1015,57 @@ def check_w8a8_layer(A, M, D, H, F, gen, device, report):
     n_w, n_i8 = sum(x.numel() for x in w), 3 * D * D + 2 * D * F
     act = A * M * D * 2 + A * D * 2
     sizes = {
-        "fused_layer_fwd_w8a8": (2 * act + A * M * 4 + n_w * 2 + n_i8 + F * D,
-                                 A * (head + out), A * (qkv + head + ffn_in + ffn_out)),
-        "fused_layer_bwd_w8a8": (4 * act + 2 * A * M * 4 + n_w * 2 + n_i8,
-                                 A * (5 * head + 2 * out + ffn_out + ffn_in + qkv),
-                                 A * (qkv + head + ffn_in)),
+        W8A8_SM90[0]: (2 * act + A * M * 4 + n_w * 2 + n_i8 + F * D,
+                       A * (head + out), A * (qkv + head + ffn_in + ffn_out)),
+        W8A8_SM90[1]: (4 * act + 2 * A * M * 4 + n_w * 2 + n_i8,
+                       A * (5 * head + 2 * out + ffn_out + ffn_in + qkv),
+                       A * (qkv + head + ffn_in)),
     }
-    cases = (
-        ("fused_layer_fwd_w8a8", lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale, w8a8=w8a8),
-         lambda: fl.layer_math(e, c, cf, w, H, scale, w8a8=w8a8)),
-        ("fused_layer_bwd_w8a8",
-         lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, w8a8=w8a8),
-         lambda: fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale, w8a8=w8a8)),
+
+    def k1(**kw):
+        return fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale, w8a8=w8a8, **kw)
+
+    def k2(**kw):
+        return fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, w8a8=w8a8, **kw)
+
+    cases = (  # (entry, launch, plain, exact plain)
+        (W8A8_SM90[0], k1, lambda: fl.layer_math(e, c, cf, w, H, scale, w8a8=w8a8),
+         lambda: fl.layer_math(e, c, cf, w, H, scale)),
+        (W8A8_SM90[1], k2, lambda: fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale, w8a8=w8a8),
+         lambda: fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale)),
     )
-    for name, k_fn, p_fn in cases:
-        k_out, p_out = k_fn(), p_fn()
+    lib = fl._lib.library()
+    for name, k_fn, p_fn, x_fn in cases:
+        before = fl._lib.LAUNCHES[name]
+        k_out, p_out, x_out = k_fn(), p_fn(), x_fn()
         torch.cuda.synchronize()
+        if fl._lib.LAUNCHES[name] != before + 1:
+            fail(f"{name} at A={A}, M={M} did not launch")
         err, worst = compare(k_out, p_out, torch.bfloat16)
-        del k_out, p_out
+        entry = {"max_abs_err_bf16": err, "bound_ratio_bf16": worst,
+                 "int8_mode_bf16": compare_int8_mode(k_out, p_out, x_out)}
+        again = k_fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(k_out, again)):
+            fail(f"{name} gave different outputs in two launches")
+        entry["bitwise_repeat_bf16"] = True
+        del again
+        general = lambda: k_fn(sm90=False)  # noqa: E731
+        g_out = general()
+        entry["general_bound_ratio_bf16"] = compare(g_out, p_out, torch.bfloat16)[1]
+        entry["general_int8_mode_bf16"] = compare_int8_mode(g_out, p_out, x_out)
+        del g_out, k_out, p_out, x_out
         torch.cuda.empty_cache()
-        entry = report.setdefault(name, {"library_ms": None})
-        nbytes, flops, int8_ops = sizes[name]
-        record_bound(entry, "bf16", nbytes, flops, torch.bfloat16, int8_ops)
-        entry["max_abs_err_bf16"] = err
-        entry["bound_ratio_bf16"] = worst
-        entry["ms_bf16"] = cuda_ms(k_fn)
-        entry["plain_ms_bf16"] = cuda_ms(p_fn)
-    report["fused_layer_bwd_w8a8"]["smem_bytes"] = fl._lib.plan_query(
-        fl._lib.library().mtt_fused_layer_bwd_w8a8_smem, M, D, H, F)[0]
-    torch.cuda.empty_cache()
+        entry.update(ms_bf16=cuda_ms(k_fn), general_ms_bf16=cuda_ms(general),
+                     plain_ms_bf16=cuda_ms(p_fn))
+        entry["smem_bytes"] = getattr(lib, f"mtt_{name}_smem")(M, D, H, F)
+        record_bound(entry, "bf16", *sizes[name][:2], torch.bfloat16, sizes[name][2])
+        entry["library_ms"] = None
+        if tag is None:
+            report.setdefault(name, {}).update(entry)
+        else:
+            report.setdefault(name, {}).setdefault("shapes", {})[tag] = entry
+        torch.cuda.empty_cache()
 
 
 def check_int8_layer(A, M, D, H, F, gen, device, report, tag=None):
@@ -1213,17 +1248,19 @@ def plan_table():
                                       (_lib.gnn_node_sm90_shape(Nn, D),
                                        _lib.gnn_node_sm90_smem(Nn, D, bool(bwd)))))
             # the Hopper K1's and K2's dispatch rules and budgets (bf16, its
-            # int8-score mode and float32), C vs Python, at heads of 16 and of 8
+            # int8-score and W8A8 modes, which take the exact mode's shapes,
+            # and float32), C vs Python, at heads of 16 and of 8
             for heads in (H, 2 * H):
                 for kind in ("fwd", "bwd"):
                     rule, budget = ((_lib.k1_sm90_takes, _lib.k1_sm90_smem) if kind == "fwd"
                                     else (_lib.k2_sm90_takes, _lib.k2_sm90_smem))
-                    pairs.append(((bool(getattr(lib, f"mtt_fused_layer_{kind}_int8_sm90_ok")(
-                                       M, D, heads, F)),
-                                   getattr(lib, f"mtt_fused_layer_{kind}_int8_sm90_smem")(
-                                       M, D, heads, F)),
-                                  (rule(torch.bfloat16, M, D, heads, F, int8=True),
-                                   budget(M, D, heads, F, int8=True))))
+                    for mode in ("int8", "w8a8"):
+                        pairs.append(((bool(getattr(lib, f"mtt_fused_layer_{kind}_sm90_ok")(
+                                           M, D, heads, F)),
+                                       getattr(lib, f"mtt_fused_layer_{kind}_{mode}_sm90_smem")(
+                                           M, D, heads, F)),
+                                      (rule(torch.bfloat16, M, D, heads, F, **{mode: True}),
+                                       budget(M, D, heads, F, **{mode: True}))))
                 pairs.append(((bool(lib.mtt_fused_layer_bwd_sm90_ok(M, D, heads, F)),
                                lib.mtt_fused_layer_bwd_sm90_smem(M, D, heads, F)),
                               (_lib.k2_sm90_takes(torch.bfloat16, M, D, heads, F),
@@ -1345,18 +1382,20 @@ def check_layer_shapes_on_card(gen, device, report, A=256):
                 calib = fl.Int8Calib.from_stats(
                     fl.layer_probe_stats(e, c, cf, w, H, scale).tolist(), w)
                 w8a8 = (calib, fl.quantize_layer_weights(w, calib))
+                # these shapes run the general W8A8 bodies: under the Hopper
+                # pair's entries, keyed general_
                 cases += [
-                    ("fused_layer_fwd_w8a8",
+                    (W8A8_SM90[0],
                      lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale, w8a8=w8a8),
                      lambda: fl.layer_math(e, c, cf, w, H, scale, w8a8=w8a8)),
-                    ("fused_layer_bwd_w8a8",
+                    (W8A8_SM90[1],
                      lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale, w8a8=w8a8),
                      lambda: fl.layer_bwd_math(e, c, cf, w, ge, gc, H, scale, w8a8=w8a8)),
                 ]
             for name, k_fn, p_fn in cases:
                 err, worst = compare(k_fn(), p_fn(), dtype)
-                shape_entry(report, name, key, dtype, err, worst, cuda_ms(k_fn, 3),
-                            cuda_ms(p_fn, 2))
+                shape_entry(report, name, f"general_{key}" if name in W8A8_SM90 else key, dtype,
+                            err, worst, cuda_ms(k_fn, 3), cuda_ms(p_fn, 2))
             sub = {}
             check_dw(
                 "fused_layer_bwd_dw", "x", dtype,
@@ -3235,8 +3274,12 @@ def check_generic(device, report, workdir):
     report["generic"] = out
 
 
-W8A8_KERNELS = ["fused_layer_fwd_w8a8", "fused_layer_bwd_w8a8", "permute", "permute_acc"] + \
-    ROWBLOCK_SM90_KERNELS
+# the served W8A8 call's K1-W8A8 and K2-W8A8: the Hopper K1 and K2's W8A8
+# mode; the general W8A8 bodies and the exact kernels never there
+W8A8_SM90 = ("fused_layer_fwd_w8a8_sm90", "fused_layer_bwd_w8a8_sm90")
+W8A8_NEVER = ("fused_layer_fwd_w8a8", "fused_layer_bwd_w8a8", "fused_layer_fwd", "fused_layer_bwd",
+              "fused_layer_fwd_sm90", "fused_layer_bwd_sm90")
+W8A8_KERNELS = [*W8A8_SM90, "permute", "permute_acc"] + ROWBLOCK_SM90_KERNELS
 
 
 def mae_terms(res, ref, n):
@@ -3254,8 +3297,9 @@ def check_w8a8_slice(device, make, steps=3, timing=True):
     builds PET (the same weights each time). The W8A8 kernel model is
     calibrated on the served batch of the 10,976-atom crystal (its
     calibration carried to the W8A8 plain model); every counter starts at 0
-    just before its served calls, where K1-W8A8 and K2-W8A8 must launch 4
-    times per call and K1/K2 never. Gates: finite outputs; W8A8 kernel vs
+    just before its served calls, where the Hopper K1-W8A8 and K2-W8A8
+    (``W8A8_SM90``) must launch 4 times per call and the general W8A8
+    bodies and the exact K1/K2 (``W8A8_NEVER``) never. Gates: finite outputs; W8A8 kernel vs
     W8A8 plain energy rel <= 1 %, force rel-RMSE <= 5 %; the W8A8 forces
     differ from the exact bf16 kernel path's. Reported: both bf16 paths'
     errors against the f32 exact plain path and, with ``timing``, ms per
@@ -3295,9 +3339,8 @@ def check_w8a8_slice(device, make, steps=3, timing=True):
     launches = dict(_lib.LAUNCHES)
     per_call = {k: v / steps for k, v in launches.items()}
     missing = [k for k in W8A8_KERNELS if launches.get(k, 0) == 0]
-    if (missing or launches.get("fused_layer_fwd", 0) or launches.get("fused_layer_bwd", 0)
-            or launches.get("fused_layer_bwd_sm90", 0) or launches.get("fused_layer_fwd_sm90", 0)
-            or per_call.get("fused_layer_fwd_w8a8") != 4 or per_call.get("fused_layer_bwd_w8a8") != 4):
+    if (missing or any(launches.get(k, 0) for k in W8A8_NEVER)
+            or any(per_call.get(k) != 4 for k in W8A8_SM90)):
         fail(f"the W8A8 force calls launched {launches} (not launched: {missing})")
     report.update(launches=launches, launches_per_call=per_call,
                   padded=[calc._last_batch.n_atoms_padded, calc._last_batch.max_neighbors])
@@ -3996,10 +4039,10 @@ SOURCES = {
     "gnn_node_bwd_dw_f32_sm90": ("metatrain_tpu_torch/csrc/gnn_node_f32_sm90.cu",
                                  "metatrain_tpu/ops/pallas/fused_layer.py:1805 "
                                  "(the node stream, weight_grads=True, float32)"),
-    "fused_layer_fwd_w8a8": ("metatrain_tpu_torch/csrc/fused_layer_fwd.cu",
-                             "metatrain_tpu/ops/pallas/fused_layer.py:1161 (calib, W8A8)"),
-    "fused_layer_bwd_w8a8": ("metatrain_tpu_torch/csrc/fused_layer_bwd.cu",
-                             "metatrain_tpu/ops/pallas/fused_layer.py:1269 (calib, W8A8)"),
+    "fused_layer_fwd_w8a8_sm90": ("metatrain_tpu_torch/csrc/fused_layer_fwd_sm90.cu",
+                                  "metatrain_tpu/ops/pallas/fused_layer.py:1161 (calib, W8A8)"),
+    "fused_layer_bwd_w8a8_sm90": ("metatrain_tpu_torch/csrc/fused_layer_bwd_sm90.cu",
+                                  "metatrain_tpu/ops/pallas/fused_layer.py:1269 (calib, W8A8)"),
     "int8_absmax": ("metatrain_tpu_torch/csrc/int8_absmax.cu",
                     "metatrain_tpu/ops/pallas/fused_layer.py:163 (_quantize_i8, per block)"),
     "fused_layer_fwd_int8": ("metatrain_tpu_torch/csrc/fused_layer_fwd.cu",
@@ -4032,7 +4075,8 @@ def launch_count(report, name):
     256 force calls for the general K3
     and K4 (the served d_pet 128 calls run the Hopper K3 and K4 for every
     stage), the unfused force calls for the kernels
-    that path added, the W8A8 force calls for the W8A8 kernels, the fused
+    that path added, the W8A8 force calls for the Hopper W8A8 pair (the
+    general W8A8 bodies run on no path: its entries' general_ms), the fused
     force calls for the rest; the int8 scores' from their force calls and
     (K2-dW-int8, the general K1-int8) their training step. K2-dW and K2-dW-int8 count the
     two-pass kernels' launches (K2-dW in the float32 training run: the
@@ -4056,7 +4100,7 @@ def launch_count(report, name):
         return report["training_parity_bf16"]["launches"][name]
     if name.endswith("_int8") or name in ("int8_absmax", *INT8_SM90):
         source = report["slice_int8"]["launches"]
-    elif name.endswith("_w8a8"):
+    elif name in W8A8_SM90:
         source = report["slice_w8a8"]["launches"]
     elif name in ("gnn_block_fwd", "gnn_block_bwd"):  # the served calls run the Hopper block
         return report["slice_gnn_m96"]["launches_f32_per_call"][name]
@@ -4308,8 +4352,8 @@ def main() -> int:
           flush=True)
     A_u, M_u = report["unfused"]["padded"]
 
-    # the static W8A8 layers: K1-W8A8 and K2-W8A8 replace K1 and K2, four
-    # launches each per force call
+    # the static W8A8 layers: the Hopper K1-W8A8 and K2-W8A8 replace K1 and
+    # K2, four launches each per force call
     state = random_state({})
     report["slice_w8a8"] = check_w8a8_slice(
         device, lambda dtype, plain, int8: make_pet(dtype, plain, state, device, int8_static=int8))
@@ -4443,8 +4487,8 @@ def main() -> int:
     check_fused_layer(A, M, D, H, F, gen, device, kernels)
     check_sm90_shapes(gen, device, kernels, D, H, F)
     if build_log.exists():
-        for name, kernel in (("fused_layer_fwd_sm90", "k1_sm90_kernelILb0E"),
-                             ("fused_layer_bwd", "k2_sm90_kernelILb0E")):
+        for name, kernel in (("fused_layer_fwd_sm90", "k1_sm90_kernelILi0E"),
+                             ("fused_layer_bwd", "k2_sm90_kernelILi0E")):
             kernels[name]["ptxas_bf16"] = ptxas_usage(build_log.read_text(), kernel)
         # the plain and the spill-mode instantiation
         kernels["fused_layer_bwd_f32_sm90"]["ptxas_f32"] = ptxas_usage(
@@ -4554,13 +4598,18 @@ def main() -> int:
     check_w8a8_layer(A, M, D, H, F, gen, device, kernels)
     check_int8_layer(A, M, D, H, F, gen, device, kernels)
     for M_shape in (48, 16):
+        check_w8a8_layer(11000, M_shape, D, H, F, gen, device, kernels, tag=f"A11000_M{M_shape}")
         check_int8_layer(11000, M_shape, D, H, F, gen, device, kernels, tag=f"A11000_M{M_shape}")
-    if build_log.exists():  # the int8-score instantiations (I8 = true)
-        for name, kernel in (("fused_layer_fwd_int8_sm90", "k1_sm90_kernelILb1E"),
-                             ("fused_layer_bwd_int8_sm90", "k2_sm90_kernelILb1E")):
+    if build_log.exists():  # the int8-score and W8A8 instantiations (MODE 1, 2)
+        for name, kernel in (("fused_layer_fwd_int8_sm90", "k1_sm90_kernelILi1E"),
+                             ("fused_layer_bwd_int8_sm90", "k2_sm90_kernelILi1E"),
+                             (W8A8_SM90[0], "k1_sm90_kernelILi2E"),
+                             (W8A8_SM90[1], "k2_sm90_kernelILi2E")):
             kernels[name]["ptxas_bf16"] = ptxas_usage(build_log.read_text(), kernel)
     for title, name in (("Hopper K1-int8", "fused_layer_fwd_int8_sm90"),
-                        ("Hopper K2-int8", "fused_layer_bwd_int8_sm90")):
+                        ("Hopper K2-int8", "fused_layer_bwd_int8_sm90"),
+                        ("Hopper K1-W8A8", W8A8_SM90[0]),
+                        ("Hopper K2-W8A8", W8A8_SM90[1])):
         print(f"{title} ({card}; the general body's ms beside):", json.dumps(
             {k: kernels[name].get(k) for k in (
                 "ms_bf16", "general_ms_bf16", "plain_ms_bf16", "bound_ms_bf16", "bound_ratio_bf16",

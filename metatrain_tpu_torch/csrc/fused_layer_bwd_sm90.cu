@@ -1,6 +1,7 @@
 // K2 on Hopper: the exact bfloat16 input-gradient backward of the fused PET
 // transformer layer, redesigned for the H100 at the served shapes; and,
-// as its int8-score mode, K2-int8 there (below).
+// as its int8-score mode, K2-int8 there, and as its W8A8 mode, K2-W8A8
+// (below).
 //
 // Replaces the TPU kernel metatrain_tpu/ops/pallas/fused_layer.py
 // `_bwd_kernel` (pallas_call in `_make_bwd_op`) with weight_grads=False,
@@ -59,7 +60,7 @@
 // Hopper K1 (fused_layer_fwd_sm90.cu) runs too: the served bf16 call's
 // forces are the gradient of the function whose energy K1 computes.
 //
-// K2-int8 (mtt_fused_layer_bwd_int8_sm90, the kernel's I8 flag) replaces
+// K2-int8 (mtt_fused_layer_bwd_int8_sm90, the kernel's mode kInt8) replaces
 // `_bwd_kernel` with int8 and weight_grads=False: the plain version is
 // `layer_bwd_math(..., int8_scales=)`, the general body K2-int8 of
 // fused_layer_bwd.cu. Its recompute is K1-int8's forward (the int8 copy of
@@ -73,6 +74,24 @@
 // and k (straight through). P, dO and dS round to bf16 for the tensor
 // cores as in the exact kernel; d_cf keeps its fixed order. Bound as K2:
 // 0.501 ms.
+//
+// K2-W8A8 (mtt_fused_layer_bwd_w8a8_sm90, the kernel's W8A8 mode) replaces
+// `_bwd_kernel` with w8a8 (its W8A8 recompute): the plain version is
+// `layer_bwd_math(..., w8a8=)`, the general body K2-W8A8 of
+// fused_layer_bwd.cu. Its recompute is K1-W8A8's forward up to vg, with
+// the same device code in the same order: n1 and h_norm quantized from
+// their floats into the operand tile, QKV and FFN-in as s8 wgmma on int8
+// chunks (w_qkv^T and w_in^T in int8; FFN-in as two int8 chunks per F
+// tile of 128, value rows then gate rows, vg = (acc deq_in) + b_in in
+// float: the int32 sums are exact, so vg is K1-W8A8's bit for bit), q and
+// k into the int8 copy from their dequantized floats, the scores and the
+// rounded softmax of K2-int8 with factor = deq(q, k) scale. The backward
+// is K2-int8's: every gradient product in bf16 on the exact bf16 weights
+// and the bf16 q, k, v (straight through), P, dO and dS rounded to bf16.
+// Inference only: no weight gradients. 13 + 8 F / 128 chunks (29 at F =
+// 256, of which 5 int8), the shared memory of K2-int8 (218,880 B). Bound
+// at the served shape: 0.417 ms (the recompute's int8 products at 1,979
+// TOPS, the rest at 989 TFLOP/s).
 
 #include "layer_sm90.cuh"
 
@@ -150,16 +169,55 @@ struct Chunks {
 
 __host__ __device__ constexpr int chunk_count(int F) { return 16 + 10 * (F / kChunkN); }
 
-// I8: K2-int8, the scores recomputed from the int8 products and the
-// rounded softmax weights P = rnd(cf e) / z from them and the stored (max,
-// 1 / z); the rest as the exact kernel (straight through: dS times the
-// bf16 q and k).
-template <bool I8>
+// K2-W8A8's chunks: QKV (w_qkv^T int8, 3 panels of 128 k), out-projection
+// (w_out^T, 2), per F tile of 128 columns j0: value and gate of FFN-in (the
+// int8 w_in^T rows j0 and F + j0, 1 + 1), d_ffn_h (w_ffn_out rows j0, 2), d_h
+// (w_in columns j0, j0 + 64, F + j0, F + j0 + 64, 4); d_attn (w_out, 2);
+// d_n1 (w_qkv, 6). The backward's chunks are the exact kernel's, bf16. The
+// mode's static scales travel here, beside its int8 weights: a LayerI8 in
+// Args (its members have default initializers) took registers from the
+// exact and int8 modes and slowed them by 2-3 % on the H100.
+struct ChunksW8 {
+    const int8_t *w_qkv_t, *w_in_t;
+    const bf16 *w_out_t, *w_ffn_out, *w_in, *w_out, *w_qkv;
+    int F;
+    LayerI8 s8;
+
+    __device__ const bf16* operator()(int c, int& ld) const {
+        if (c < 3) return chunk8(w_qkv_t + (size_t)c * kChunkN * D, D, ld);
+        c -= 3;
+        ld = D;
+        if (c < 2) return w_out_t + c * kChunkK;
+        c -= 2;
+        if (c < 8 * (F / kChunkN)) {
+            const int j0 = c / 8 * kChunkN, r = c % 8;
+            if (r < 2) return chunk8(w_in_t + (size_t)(r * F + j0) * D, D, ld);
+            if (r < 4) return w_ffn_out + (size_t)j0 * D + (r - 2) * kChunkK;
+            ld = 2 * F;
+            return w_in + (r < 6 ? j0 : F + j0) + (r & 1) * kChunkK;
+        }
+        c -= 8 * (F / kChunkN);
+        if (c < 2) return w_out + c * kChunkK;
+        ld = 3 * D;
+        return w_qkv + (c - 2) * kChunkK;
+    }
+};
+
+__host__ __device__ constexpr int chunk_count_w8(int F) { return 13 + 8 * (F / kChunkN); }
+
+// MODE kInt8: K2-int8, the scores recomputed from the int8 products and
+// the rounded softmax weights P = rnd(cf e) / z from them and the stored
+// (max, 1 / z); the rest as the exact kernel (straight through: dS times
+// the bf16 q and k). kW8A8: K2-W8A8, the same on K1-W8A8's recompute.
+template <int MODE, typename Ch>
 __global__ void __launch_bounds__(kThreads, 1)
-    k2_sm90_kernel(Args p, Chunks chunks) {
+    k2_sm90_kernel(Args p, Ch chunks) {
+    constexpr bool I8 = MODE != kExact;  // the int8 scores and the rounded softmax
+    constexpr bool W8 = MODE == kW8A8;
     extern __shared__ __align__(1024) unsigned char smem[];
     bf16* QKV = reinterpret_cast<bf16*>(smem);               // q|k|v, then q|dk|dv
     bf16* OP = reinterpret_cast<bf16*>(smem + kOffA);        // n1, attn, h_norm, d_attn_out, dq
+    int8_t* OP8 = reinterpret_cast<int8_t*>(OP);             // W8A8: n1 and h_norm in int8
     bf16* RES = reinterpret_cast<bf16*>(smem + kOffRes);     // res
     bf16* GEO = RES + kRows * LA;                            // g_eo
     float* DRES = reinterpret_cast<float*>(smem + kOffRes);  // d_res (over res and g_eo)
@@ -182,27 +240,36 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const int QT = M / 16;
     const float scale = p.scale;
-    int8_t* Q8 = reinterpret_cast<int8_t*>(smem + kSmemBytes);  // K2-int8: q and k in int8
+    int8_t* Q8 = reinterpret_cast<int8_t*>(smem + kSmemBytes);  // K2-int8, K2-W8A8: q and k in int8
     ScoresI8 i8;
-    if constexpr (I8) i8 = scores_i8(p.i8_scales + 2 * a, scale);
+    if constexpr (MODE == kInt8) i8 = scores_i8(p.i8_scales + 2 * a, scale);
+    if constexpr (W8) i8.factor = chunks.s8.deq_scores;
 
-    WeightRing<Chunks> ring{reinterpret_cast<bf16*>(smem + kOffRing), chunks, chunk_count(F)};
+    WeightRing<Ch> ring{reinterpret_cast<bf16*>(smem + kOffRing), chunks,
+                        W8 ? chunk_count_w8(F) : chunk_count(F)};
     ring.start();
     int c = 0;
     auto token = [&](int m) { return m == M - 1 ? c_in : e + (size_t)m * D; };
 
-    // ---- recompute: r1, n1 = rnd(x1 r1 w) ---------------------------------
-    rms_rows(token, p.norm_attn, RS1, OP, M, p.eps, [](int) {});
+    // ---- recompute: r1, n1 = rnd(x1 r1 w) (W8A8: quantized) -------------
+    if constexpr (W8)
+        rms_rows_s8(token, p.norm_attn, RS1, OP8, M, p.eps, chunks.s8.inv_normed, [](int) {});
+    else
+        rms_rows(token, p.norm_attn, RS1, OP, M, p.eps, [](int) {});
     for (int m = threadIdx.x; m < M; m += kThreads) CF[m] = p.cf[a * M + m];
 
     auto op_cols = [&](int r, int& ld) { ld = LA; return (const bf16*)OP + r * kChunkK; };
+    auto op8 = [&](int, int& ld) { ld = LA8; return (const int8_t*)OP8; };
 
-    // q|k|v = rnd(n1 w_qkv + b)
-    qkv_panels(ring, c, OP, QKV, p.b_qkv);
+    // q|k|v = rnd(n1 w_qkv + b) (W8A8: of the int8 product; q and k into Q8)
+    if constexpr (W8)
+        qkv_panels_s8(ring, c, OP8, QKV, Q8, p.b_qkv, chunks.s8);
+    else
+        qkv_panels(ring, c, OP, QKV, p.b_qkv);
     __syncthreads();
 
     // ---- recompute: attention, one warp per (head, 16-row query tile) ----
-    if constexpr (I8) {
+    if constexpr (MODE == kInt8) {
         quantize_qk(QKV, Q8, M, i8);
         __syncthreads();
     }
@@ -218,13 +285,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     out_proj_res(ring, c, OP, RES, token, p.b_out, M, [](int, int, float, float) {});
     __syncthreads();
 
-    // r2, h_norm = rnd(res r2 w); g_eo = rnd(g_edge), row M-1 zero
-    rms_rows([&](int m) { return (const bf16*)RES + m * LA; }, p.norm_mlp, RS2, OP, M, p.eps, [&](int m) {
+    // r2, h_norm = rnd(res r2 w) (W8A8: quantized); g_eo = rnd(g_edge), row M-1 zero
+    auto res_row = [&](int m) { return (const bf16*)RES + m * LA; };
+    auto g_eo = [&](int m) {
         const float2 g0 = m == M - 1 ? make_float2(0.f, 0.f) : ld2(ge + (size_t)m * D + 4 * lane);
         const float2 g1 = m == M - 1 ? make_float2(0.f, 0.f) : ld2(ge + (size_t)m * D + 4 * lane + 2);
         store2(GEO + m * LA + 4 * lane, g0.x, g0.y);
         store2(GEO + m * LA + 4 * lane + 2, g1.x, g1.y);
-    });
+    };
+    if constexpr (W8)
+        rms_rows_s8(res_row, p.norm_mlp, RS2, OP8, M, p.eps, chunks.s8.inv_hnorm, g_eo);
+    else
+        rms_rows(res_row, p.norm_mlp, RS2, OP, M, p.eps, g_eo);
 
     // ---- SwiGLU backward over F tiles of 128 columns -> d_h (registers) --
     float dh[4][4];
@@ -234,8 +306,21 @@ __global__ void __launch_bounds__(kThreads, 1)
         zero(av);
         zero(ag);
         zero(ad);
-        panel_mm<2>(ring, c, op_cols, av);
-        panel_mm<2>(ring, c, op_cols, ag);
+        if constexpr (W8) {
+            // vg = (h_norm w_in deq_in) + b_in in float, from the int8 products
+            int v8[4][4], g8[4][4];
+            zero(v8);
+            zero(g8);
+            panel_mm_s8<1>(ring, c, op8, v8);
+            panel_mm_s8<1>(ring, c, op8, g8);
+            panel_each([&](int j, int i, int m, int n) {
+                av[j][i] = dequant(v8[j][i], chunks.s8.deq_in, to_f(p.b_in[j0 + n]));
+                ag[j][i] = dequant(g8[j][i], chunks.s8.deq_in, to_f(p.b_in[F + j0 + n]));
+            });
+        } else {
+            panel_mm<2>(ring, c, op_cols, av);
+            panel_mm<2>(ring, c, op_cols, ag);
+        }
         panel_mm<2>(ring, c, [&](int r, int& ld) { ld = LA; return (const bf16*)GEO + r * kChunkK; }, ad);
         // d_vg = rnd(d_ffn_h s, d_ffn_h v s (1 - s)), v and s from vg = h_norm w_in + b
         panel_pairs([&](int j, int h, int m, int n) {
@@ -244,8 +329,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
             for (int u = 0; u < 2; ++u) {
                 const int i = 2 * h + u;
-                const float v = av[j][i] + (u ? bv.y : bv.x);
-                const float s = sigmoidf_(ag[j][i] + (u ? bg.y : bg.x));
+                const float v = W8 ? av[j][i] : av[j][i] + (u ? bv.y : bv.x);
+                const float s = sigmoidf_(W8 ? ag[j][i] : ag[j][i] + (u ? bg.y : bg.x));
                 const float d = ad[j][i];
                 dv[u] = d * s;
                 dg[u] = d * v * s * (1.f - s);
@@ -483,7 +568,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // Whether the Hopper K2 takes a shape: D = 128, heads of 16, 16 <= M <= 64
 // with M % 16 == 0, F a multiple of 128 (the wrapper checks the variant:
-// bfloat16, no weight gradients, no W8A8; exact or int8 scores).
+// bfloat16, no weight gradients; exact, int8 scores or W8A8). Every mode
+// takes these shapes.
 extern "C" int mtt_fused_layer_bwd_sm90_ok(int M, int D, int H, int F) {
     return D == mtt::sm90::D && H == mtt::sm90::H && M >= 16 && M <= mtt::sm90::kRows && M % 16 == 0 &&
            F >= mtt::sm90::kChunkN && F % mtt::sm90::kChunkN == 0;
@@ -494,27 +580,42 @@ extern "C" size_t mtt_fused_layer_bwd_sm90_smem(int M, int D, int H, int F) {
     return mtt_fused_layer_bwd_sm90_ok(M, D, H, F) ? (size_t)mtt::sm90::kSmemBytes : 0;
 }
 
-// K2-int8 takes the same shapes; its blocks hold the atom's int8 q and k
-// besides.
-extern "C" int mtt_fused_layer_bwd_int8_sm90_ok(int M, int D, int H, int F) {
-    return mtt_fused_layer_bwd_sm90_ok(M, D, H, F);
-}
-
+// K2-int8's blocks hold the atom's int8 q and k besides.
 extern "C" size_t mtt_fused_layer_bwd_int8_sm90_smem(int M, int D, int H, int F) {
     return mtt_fused_layer_bwd_sm90_ok(M, D, H, F) ? (size_t)mtt::sm90::kSmemBytesI8 : 0;
 }
 
-// The launch of either mode.
-template <bool I8>
-static int launch_k2(const void* edges, const void* center, const float* cf, const void* norm_attn,
-                     const void* w_qkv, const void* b_qkv, const void* w_out, const void* b_out,
-                     const void* norm_mlp, const void* w_in, const void* b_in, const void* w_ffn_out,
-                     const void* w_qkv_t, const void* w_out_t, const void* w_in_t, const float* i8_scales,
-                     const void* g_edge, const void* g_center, void* d_edges, void* d_center, float* d_cf,
-                     long long A, int M, int D, int H, int F, float scale, float eps, void* stream) {
-    using mtt::sm90::bf16;
+// K2-W8A8's too (its int8 n1 and h_norm reuse the operand tile's room).
+extern "C" size_t mtt_fused_layer_bwd_w8a8_sm90_smem(int M, int D, int H, int F) {
+    return mtt_fused_layer_bwd_sm90_ok(M, D, H, F) ? (size_t)mtt::sm90::kSmemBytesI8 : 0;
+}
+
+// The launch of a mode, with its chunks and its Args (but for the shape).
+template <int MODE, typename Ch>
+static int launch_k2(mtt::sm90::Args args, Ch chunks, long long A, int M, int D, int H, int F, void* stream) {
     if (!mtt_fused_layer_bwd_sm90_ok(M, D, H, F)) return (int)cudaErrorInvalidValue;
     if (A == 0) return 0;
+    args.M = M;
+    args.F = F;
+    const int bytes = MODE == mtt::sm90::kExact ? mtt::sm90::kSmemBytes : mtt::sm90::kSmemBytesI8;
+    cudaError_t err = cudaFuncSetAttribute(mtt::sm90::k2_sm90_kernel<MODE, Ch>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    mtt::sm90::k2_sm90_kernel<MODE, Ch><<<(unsigned)A, mtt::sm90::kThreads, bytes, (cudaStream_t)stream>>>(
+        args, chunks);
+    return (int)cudaGetLastError();
+}
+
+// The exact and the int8-score modes: the same weights, the same chunks.
+template <int MODE>
+static int launch_k2_bf16(const void* edges, const void* center, const float* cf, const void* norm_attn,
+                          const void* w_qkv, const void* b_qkv, const void* w_out, const void* b_out,
+                          const void* norm_mlp, const void* w_in, const void* b_in, const void* w_ffn_out,
+                          const void* w_qkv_t, const void* w_out_t, const void* w_in_t,
+                          const float* i8_scales, const void* g_edge, const void* g_center, void* d_edges,
+                          void* d_center, float* d_cf, long long A, int M, int D, int H, int F, float scale,
+                          float eps, void* stream) {
+    using mtt::sm90::bf16;
     const mtt::sm90::Args args{(const bf16*)edges, (const bf16*)center, cf, (const bf16*)norm_attn,
                                (const bf16*)b_qkv, (const bf16*)b_out, (const bf16*)norm_mlp,
                                (const bf16*)b_in, (const bf16*)g_edge, (const bf16*)g_center, i8_scales,
@@ -522,13 +623,7 @@ static int launch_k2(const void* edges, const void* center, const float* cf, con
     const mtt::sm90::Chunks chunks{(const bf16*)w_qkv_t, (const bf16*)w_out_t, (const bf16*)w_in_t,
                                    (const bf16*)w_ffn_out, (const bf16*)w_in, (const bf16*)w_out,
                                    (const bf16*)w_qkv, F};
-    const int bytes = I8 ? mtt::sm90::kSmemBytesI8 : mtt::sm90::kSmemBytes;
-    cudaError_t err = cudaFuncSetAttribute(mtt::sm90::k2_sm90_kernel<I8>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    mtt::sm90::k2_sm90_kernel<I8><<<(unsigned)A, mtt::sm90::kThreads, bytes, (cudaStream_t)stream>>>(args,
-                                                                                                     chunks);
-    return (int)cudaGetLastError();
+    return launch_k2<MODE>(args, chunks, A, M, D, H, F, stream);
 }
 
 // bfloat16 tensors; the weights in the (in, out) layout and the transposed
@@ -544,9 +639,10 @@ extern "C" int mtt_fused_layer_bwd_sm90(
     const void* g_edge, const void* g_center,
     void* d_edges, void* d_center, float* d_cf,
     long long A, int M, int D, int H, int F, float scale, float eps, void* stream) {
-    return launch_k2<false>(edges, center, cf, norm_attn, w_qkv, b_qkv, w_out, b_out, norm_mlp, w_in, b_in,
-                            w_ffn_out, w_qkv_t, w_out_t, w_in_t, nullptr, g_edge, g_center, d_edges, d_center,
-                            d_cf, A, M, D, H, F, scale, eps, stream);
+    return launch_k2_bf16<mtt::sm90::kExact>(edges, center, cf, norm_attn, w_qkv, b_qkv, w_out, b_out,
+                                             norm_mlp, w_in, b_in, w_ffn_out, w_qkv_t, w_out_t, w_in_t,
+                                             nullptr, g_edge, g_center, d_edges, d_center, d_cf, A, M, D, H,
+                                             F, scale, eps, stream);
 }
 
 // K2-int8: the Hopper K2's arguments and the (A, 2) float32 scales K1-int8
@@ -560,7 +656,35 @@ extern "C" int mtt_fused_layer_bwd_int8_sm90(
     const void* g_edge, const void* g_center,
     void* d_edges, void* d_center, float* d_cf,
     long long A, int M, int D, int H, int F, float scale, float eps, void* stream) {
-    return launch_k2<true>(edges, center, cf, norm_attn, w_qkv, b_qkv, w_out, b_out, norm_mlp, w_in, b_in,
-                           w_ffn_out, w_qkv_t, w_out_t, w_in_t, i8_scales, g_edge, g_center, d_edges, d_center,
-                           d_cf, A, M, D, H, F, scale, eps, stream);
+    return launch_k2_bf16<mtt::sm90::kInt8>(edges, center, cf, norm_attn, w_qkv, b_qkv, w_out, b_out,
+                                            norm_mlp, w_in, b_in, w_ffn_out, w_qkv_t, w_out_t, w_in_t,
+                                            i8_scales, g_edge, g_center, d_edges, d_center, d_cf, A, M, D, H,
+                                            F, scale, eps, stream);
+}
+
+// K2-W8A8: bfloat16 tensors, the weights the backward's products read in
+// the (in, out) layout (w_qkv, w_out, w_in, w_ffn_out) and w_out^T for the
+// recompute's out-projection; the int8 w_qkv^T (3D, D) and w_in^T (2F, D:
+// value rows, then gate rows); then the 11 static scales of the general
+// entry (a host array: common.cuh layer_i8's order). `scale` is the
+// attention scale of dq and dk (the scores' factor holds it already).
+extern "C" int mtt_fused_layer_bwd_w8a8_sm90(
+    const void* edges, const void* center, const float* cf,
+    const void* norm_attn, const void* w_qkv, const void* b_qkv,
+    const void* w_out, const void* b_out, const void* norm_mlp,
+    const void* w_in, const void* b_in, const void* w_ffn_out, const void* w_out_t,
+    const void* w_qkv8_t, const void* w_in8_t, const float* scales,
+    const void* g_edge, const void* g_center,
+    void* d_edges, void* d_center, float* d_cf,
+    long long A, int M, int D, int H, int F, float scale, float eps, void* stream) {
+    using mtt::sm90::bf16;
+    const mtt::sm90::Args args{(const bf16*)edges, (const bf16*)center, cf, (const bf16*)norm_attn,
+                               (const bf16*)b_qkv, (const bf16*)b_out, (const bf16*)norm_mlp,
+                               (const bf16*)b_in, (const bf16*)g_edge, (const bf16*)g_center, nullptr,
+                               (bf16*)d_edges, (bf16*)d_center, d_cf, M, F, scale, eps};
+    const mtt::sm90::ChunksW8 chunks{(const int8_t*)w_qkv8_t, (const int8_t*)w_in8_t, (const bf16*)w_out_t,
+                                     (const bf16*)w_ffn_out, (const bf16*)w_in, (const bf16*)w_out,
+                                     (const bf16*)w_qkv, F,
+                                     mtt::layer_i8(nullptr, nullptr, nullptr, scales)};
+    return launch_k2<mtt::sm90::kW8A8>(args, chunks, A, M, D, H, F, stream);
 }

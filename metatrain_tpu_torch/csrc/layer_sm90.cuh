@@ -5,9 +5,12 @@
 // forward up to h_norm (the phases at the end), which K1 runs as its first
 // half and K2 as its recompute: the same device code, so the two kernels
 // compute q|k|v, attn, res and h_norm to the same bits. Their int8-score
-// mode (K1-int8, K2-int8: the I8 flag of attention_fwd and the kernels)
+// mode (K1-int8, K2-int8: the kernels' mode kInt8, attention_fwd's I8 flag)
 // quantizes q and k once per atom into an int8 copy and forms the scores
-// on int8 tensor cores.
+// on int8 tensor cores. Their W8A8 mode (K1-W8A8, K2-W8A8) runs QKV and
+// FFN-in (K1: FFN-out too) as s8 wgmma on int8 operand tiles and int8
+// weight chunks (the W8A8 section below) and the scores as the int8 mode
+// does.
 //
 // Every dense product of the kernels is, per atom, Y (64 x N) = A (64 x K)
 // B (K x N) with A in bf16 in shared memory and B a weight matrix in global
@@ -43,6 +46,10 @@ constexpr int kChunkElems = kChunkN * kChunkK;  // 16 KB, 1024-byte aligned stag
 constexpr int D = 128, HD = 16, H = 8;
 constexpr int LQ = 3 * D + 8;  // q|k|v row (bf16)
 constexpr int LA = D + 8;      // 64 x 128 bf16 operand rows
+
+// The kernels' modes: exact, the dynamic int8 scores (K1-int8, K2-int8) and
+// the static W8A8 layer (K1-W8A8, K2-W8A8).
+enum Mode : int { kExact = 0, kInt8 = 1, kW8A8 = 2 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
     return (unsigned)__cvta_generic_to_shared(p);
@@ -170,6 +177,14 @@ __device__ __forceinline__ void acc_fence(float (&acc)[N8][4]) {
         for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(acc[j][i])::"memory");
 }
 
+template <int N8>
+__device__ __forceinline__ void acc_fence(int (&acc)[N8][4]) {
+#pragma unroll
+    for (int j = 0; j < N8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(acc[j][i])::"memory");
+}
+
 // acc += A B for one warpgroup: the 64 x 16 A tile in registers (each warp
 // its 16 rows, the m16n8k16 fragment), B 16 (k) x 32 (n) by descriptor.
 __device__ __forceinline__ void wgmma_m64n32k16(float (&acc)[4][4], const uint32_t (&a)[4], uint64_t desc) {
@@ -260,12 +275,12 @@ __device__ __forceinline__ void panel_mm(Ring& ring, int& c, AOf a_of, float (&a
     }
 }
 
-template <int N8>
-__device__ __forceinline__ void zero(float (&acc)[N8][4]) {
+template <int N8, typename T>
+__device__ __forceinline__ void zero(T (&acc)[N8][4]) {
 #pragma unroll
     for (int j = 0; j < N8; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+        for (int i = 0; i < 4; ++i) acc[j][i] = 0;
 }
 
 // Calls f(j, i, m, n) for every element of a warp's panel tile.
@@ -416,11 +431,12 @@ __device__ __forceinline__ float quad_max(float v) {
 // them. Rows of a 64-row buffer from M on are never written here: the
 // products carry them along, and nothing reads them into a row below M.
 
-// Y = rnd(x r w) for rows m < M, r = rsqrt(mean(x^2) + eps), one warp per
-// row: x = src(m) (D bf16), r to RS[m]; then extra(m) on the same warp.
-template <typename Src, typename Extra>
-__device__ __forceinline__ void rms_rows(Src src, const bf16* w, float* RS, bf16* Y, int M, float eps,
-                                         Extra extra) {
+// y = x r w (float) for rows m < M, r = rsqrt(mean(x^2) + eps), one warp
+// per row: x = src(m) (D bf16), r to RS[m]; put(m, y) takes the lane's
+// columns 4 lane .. + 3; then extra(m) on the same warp.
+template <typename Src, typename Put, typename Extra>
+__device__ __forceinline__ void rms_rows_each(Src src, const bf16* w, float* RS, int M, float eps, Put put,
+                                              Extra extra) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     for (int m = warp; m < M; m += kThreads / 32) {
         const bf16* x = src(m) + 4 * lane;
@@ -428,11 +444,21 @@ __device__ __forceinline__ void rms_rows(Src src, const bf16* w, float* RS, bf16
         const float r = rsqrtf(warp_sum(x0.x * x0.x + x0.y * x0.y + x1.x * x1.x + x1.y * x1.y) / D + eps);
         if (lane == 0) RS[m] = r;
         const float2 w0 = ld2(w + 4 * lane), w1 = ld2(w + 4 * lane + 2);
-        bf16* y = Y + m * LA + 4 * lane;
-        store2(y, x0.x * r * w0.x, x0.y * r * w0.y);
-        store2(y + 2, x1.x * r * w1.x, x1.y * r * w1.y);
+        put(m, make_float4(x0.x * r * w0.x, x0.y * r * w0.y, x1.x * r * w1.x, x1.y * r * w1.y));
         extra(m);
     }
+}
+
+// Y = rnd(x r w) (rows of LA)
+template <typename Src, typename Extra>
+__device__ __forceinline__ void rms_rows(Src src, const bf16* w, float* RS, bf16* Y, int M, float eps,
+                                         Extra extra) {
+    const int lane = threadIdx.x & 31;
+    rms_rows_each(src, w, RS, M, eps, [&](int m, float4 y4) {
+        bf16* y = Y + m * LA + 4 * lane;
+        store2(y, y4.x, y4.y);
+        store2(y + 2, y4.z, y4.w);
+    }, extra);
 }
 
 // q|k|v = rnd(n1 w_qkv + b): three panels over the ring's next 6 chunks
@@ -557,6 +583,153 @@ __device__ __forceinline__ void out_proj_res(Ring& ring, int& c, const bf16* ATT
         store2(RES + m * LA + n, x.x + o0, x.y + o1);
         center(m, n, o0, o1);
     });
+}
+
+
+// ---- the static W8A8 layer (K1-W8A8, K2-W8A8) ---------------------------
+// The plain version's quantizers and int8 products (fused_layer.py
+// rms_norm_q, qs_static, dot_i8): an activation quantizes from its float,
+// clamp(rint(x * inv), +-127) with the static inverse scale (quant_s8), and
+// an int8 product dequantizes its exact int32 sum as (acc * deq) + b, two
+// roundings (dequant). The int8 operand tiles (n1, h_norm, K1's ffn_h) are
+// 64 rows of LA8 bytes; the weight chunks of an int8 product are 128 rows
+// (n) x 128 k bytes: the same 16 KB stage and the same 128-byte swizzle as
+// a bf16 chunk of 64 k, so a k32 step of s8 wgmma advances the same 32
+// bytes as a k16 step of bf16. wgmma takes 8-bit A and B K-major only: the
+// chunks are (N, K) rows and the operand tiles row-major, both K-major.
+
+constexpr int LA8 = D + 16;    // int8 operand rows: 36 words, a fragment's 8 rows in distinct banks
+constexpr int kChunkK8 = 128;  // k of an int8 chunk (its 128-byte rows)
+
+// An int8 chunk's first element and row stride as the ring copies them:
+// bf16 units of 2 bytes (16-byte pieces either way).
+__device__ __forceinline__ const bf16* chunk8(const int8_t* p, int ld_bytes, int& ld) {
+    ld = ld_bytes / 2;
+    return reinterpret_cast<const bf16*>(p);
+}
+
+// The int8 A fragment of the 16 x 32 tile at (r0, c0) of a row-major int8
+// matrix (rows of ld bytes), as wgmma k32 and mma.sync m16n8k32 take it:
+// lane l holds bytes 4 (l % 4) .. + 3 of rows l / 4 (a[0], a[2]: + 16) and
+// l / 4 + 8 (a[1], a[3]).
+__device__ __forceinline__ void load_a_s8_k32(uint32_t (&a)[4], const int8_t* X, int ld, int r0, int c0) {
+    const int lane = threadIdx.x & 31;
+    const int8_t* x = X + (r0 + (lane >> 2)) * ld + c0 + 4 * (lane & 3);
+    a[0] = *reinterpret_cast<const uint32_t*>(x);
+    a[1] = *reinterpret_cast<const uint32_t*>(x + 8 * ld);
+    a[2] = *reinterpret_cast<const uint32_t*>(x + 16);
+    a[3] = *reinterpret_cast<const uint32_t*>(x + 8 * ld + 16);
+}
+
+// acc += A B for one warpgroup in int32: the 64 x 32 int8 A tile in
+// registers (each warp its 16 rows), B 32 (k) x 32 (n) int8 by descriptor.
+__device__ __forceinline__ void wgmma_m64n32k32_s8(int (&acc)[4][4], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, {%16,%17,%18,%19}, %20, p;\n}\n"
+        : "+r"(acc[0][0]), "+r"(acc[0][1]), "+r"(acc[0][2]), "+r"(acc[0][3]), "+r"(acc[1][0]),
+          "+r"(acc[1][1]), "+r"(acc[1][2]), "+r"(acc[1][3]), "+r"(acc[2][0]), "+r"(acc[2][1]),
+          "+r"(acc[2][2]), "+r"(acc[2][3]), "+r"(acc[3][0]), "+r"(acc[3][1]), "+r"(acc[3][2]),
+          "+r"(acc[3][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+
+// The same with B 32 (k) x 64 (n): acc[j] holds columns 8 j .. 8 j + 7.
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int (&acc)[8][4], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+        "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+        "{%32,%33,%34,%35}, %36, p;\n}\n"
+        : "+r"(acc[0][0]), "+r"(acc[0][1]), "+r"(acc[0][2]), "+r"(acc[0][3]), "+r"(acc[1][0]),
+          "+r"(acc[1][1]), "+r"(acc[1][2]), "+r"(acc[1][3]), "+r"(acc[2][0]), "+r"(acc[2][1]),
+          "+r"(acc[2][2]), "+r"(acc[2][3]), "+r"(acc[3][0]), "+r"(acc[3][1]), "+r"(acc[3][2]),
+          "+r"(acc[3][3]), "+r"(acc[4][0]), "+r"(acc[4][1]), "+r"(acc[4][2]), "+r"(acc[4][3]),
+          "+r"(acc[5][0]), "+r"(acc[5][1]), "+r"(acc[5][2]), "+r"(acc[5][3]), "+r"(acc[6][0]),
+          "+r"(acc[6][1]), "+r"(acc[6][2]), "+r"(acc[6][3]), "+r"(acc[7][0]), "+r"(acc[7][1]),
+          "+r"(acc[7][2]), "+r"(acc[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+
+__device__ __forceinline__ void wgmma_k32(int (&acc)[4][4], const uint32_t (&a)[4], uint64_t desc) {
+    wgmma_m64n32k32_s8(acc, a, desc);
+}
+
+__device__ __forceinline__ void wgmma_k32(int (&acc)[8][4], const uint32_t (&a)[4], uint64_t desc) {
+    wgmma_m64n64k32_s8(acc, a, desc);
+}
+
+// panel_mm over int8: acc += A (64 x 128 NCH, int8) B over the next NCH int8
+// chunks of the ring, the int32 sums exact (|acc| <= K 127^2 < 2^24 for the
+// widths taken, so their conversion to float is too). a_of(r, &ld) gives
+// chunk r's 128 columns of the calling thread's atom's A (rows of ld bytes).
+template <int NCH, typename Ring, typename AOf, int N8>
+__device__ __forceinline__ void panel_mm_s8(Ring& ring, int& c, AOf a_of, int (&acc)[N8][4]) {
+    const int warp = threadIdx.x >> 5;
+    const int r0 = 16 * (warp & 3), n0 = panel_col0<N8>();
+#pragma unroll 1
+    for (int r = 0; r < NCH; ++r) {
+        const bf16* B = ring.consume(c++);
+        int lda;
+        const int8_t* A = a_of(r, lda);
+        uint32_t a[kChunkK8 / 32][4];
+#pragma unroll
+        for (int ks = 0; ks < kChunkK8 / 32; ++ks) load_a_s8_k32(a[ks], A, lda, r0, 32 * ks);
+        const uint64_t desc = desc_sw128(B + n0 * kChunkK);
+        acc_fence(acc);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int ks = 0; ks < kChunkK8 / 32; ++ks) wgmma_k32(acc, a[ks], desc + 2 * ks);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        acc_fence(acc);
+    }
+}
+
+// Y8 = clamp(rint((x r w) inv), +-127) for rows m < M (rms_norm_q), rows of
+// LA8 bytes: the float quantized without a rounding to bf16 first.
+template <typename Src, typename Extra>
+__device__ __forceinline__ void rms_rows_s8(Src src, const bf16* w, float* RS, int8_t* Y8, int M, float eps,
+                                            float inv, Extra extra) {
+    const int lane = threadIdx.x & 31;
+    rms_rows_each(src, w, RS, M, eps, [&](int m, float4 y4) {
+        *reinterpret_cast<uint32_t*>(Y8 + m * LA8 + 4 * lane) = quant4_s8(y4, inv);
+    }, extra);
+}
+
+// W8A8 q|k|v: per panel p (q, k, v) over the ring's next int8 chunk (w_qkv^T
+// rows 128 p .. + 127, int8), x_f = (acc deq_p) + b in float (dot_i8);
+// q|k|v = rnd(x_f) (v the AV operand, q and k K2-W8A8's straight-through
+// operands), and q and k quantized from x_f with inv_q / inv_k into Q8
+// (quantize_qk's layout). With two atoms per block (N8 = 8), atom 1's n1,
+// q|k|v and Q8 lie stride_n1 bytes, stride elements and stride_q8 bytes
+// after atom 0's.
+template <int N8 = 4, typename Ring>
+__device__ __forceinline__ void qkv_panels_s8(Ring& ring, int& c, const int8_t* N1, bf16* QKV,
+                                              int8_t* Q8, const bf16* b_qkv, const LayerI8& s8,
+                                              size_t stride = 0, size_t stride_n1 = 0,
+                                              size_t stride_q8 = 0) {
+    N1 += panel_atom<N8>() * stride_n1;
+    QKV += panel_atom<N8>() * stride;
+    Q8 += panel_atom<N8>() * stride_q8;
+    for (int pn = 0; pn < 3; ++pn) {
+        int acc[N8][4];
+        zero(acc);
+        panel_mm_s8<1>(ring, c, [&](int, int& ld) { ld = LA8; return N1; }, acc);
+        const float deq = pn == 0 ? s8.deq_q : pn == 1 ? s8.deq_k : s8.deq_v;
+        const float inv = pn == 0 ? s8.inv_q : s8.inv_k;
+        panel_pairs<N8>([&](int j, int h, int m, int n) {
+            const int col = pn * kChunkN + n;
+            const float2 b = ld2(b_qkv + col);
+            const float x0 = dequant(acc[j][2 * h], deq, b.x), x1 = dequant(acc[j][2 * h + 1], deq, b.y);
+            store2(QKV + m * LQ + col, x0, x1);
+            if (pn < 2)
+                *reinterpret_cast<uint16_t*>(Q8 + m * LQ8 + col) =
+                    (uint16_t)(quant_s8(x0, inv) | quant_s8(x1, inv) << 8);
+        });
+    }
 }
 
 }  // namespace sm90

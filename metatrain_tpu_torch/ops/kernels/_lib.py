@@ -90,6 +90,12 @@ _SIGNATURES = {
     # the Hopper K2's arguments and the int8 scales after the transposed weights
     "mtt_fused_layer_bwd_int8_sm90": [_P] * 21 + [_L, _I, _I, _I, _I, _F, _F, _P],
     "mtt_fused_layer_bwd_f32_sm90": [_P] * 20 + [_L, _I, _I, _I, _I, _F, _F, _P],
+    # K1-W8A8 on Hopper: the inputs, six vectors, w_out^T, the three int8
+    # matrices, the 11 scales (a host array), the outputs; A, M, D, H, F, eps
+    "mtt_fused_layer_fwd_w8a8_sm90": [_P] * 13 + [_FP, _P, _P, _L, _I, _I, _I, _I, _F, _P],
+    # K2-W8A8 on Hopper: the inputs, nine bf16 weights, w_out^T, the two int8
+    # matrices, the scales, the cotangents and outputs; A, M, D, H, F, scale, eps
+    "mtt_fused_layer_bwd_w8a8_sm90": [_P] * 15 + [_FP] + [_P] * 5 + [_L, _I, _I, _I, _I, _F, _F, _P],
     # dtype, the Hopper float32 first pass or not, 26 pointers (the inputs,
     # 13 weights, int8 scales, cotangents, outputs, dw, spill, partials,
     # workspace), A, M, D, H, F, scale, eps, workspace blocks, SMs, stream
@@ -148,13 +154,13 @@ _SIGNATURES = {
     "mtt_fused_layer_fwd_sm90_smem": [_I] * 4,
     "mtt_fused_layer_fwd_sm90_ok": [_I] * 4,
     "mtt_fused_layer_fwd_int8_sm90_smem": [_I] * 4,
-    "mtt_fused_layer_fwd_int8_sm90_ok": [_I] * 4,
+    "mtt_fused_layer_fwd_w8a8_sm90_smem": [_I] * 4,
     "mtt_fused_layer_fwd_f32_sm90_smem": [_I] * 4,
     "mtt_fused_layer_fwd_f32_sm90_ok": [_I] * 4,
     "mtt_fused_layer_bwd_sm90_smem": [_I] * 4,
     "mtt_fused_layer_bwd_sm90_ok": [_I] * 4,
     "mtt_fused_layer_bwd_int8_sm90_smem": [_I] * 4,
-    "mtt_fused_layer_bwd_int8_sm90_ok": [_I] * 4,
+    "mtt_fused_layer_bwd_w8a8_sm90_smem": [_I] * 4,
     "mtt_fused_layer_bwd_f32_sm90_smem": [_I] * 4,
     "mtt_fused_layer_bwd_f32_sm90_ok": [_I] * 4,
     "mtt_rowblock_fwd_smem": [_I, _I, _IP],
@@ -342,31 +348,35 @@ def sm90_shape(M: int, D: int, H: int, F: int) -> bool:
 def k1_sm90_takes(dtype: torch.dtype, M: int, D: int, H: int, F: int, w8a8: bool = False,
                   int8: bool = False, weight_grads: bool = False) -> bool:
     """Whether ``fused_layer_fwd_cuda`` launches the Hopper K1: bfloat16,
-    exact or with the dynamic int8 scores (``int8``: K1-int8, counter
-    ``fused_layer_fwd_int8_sm90``), at the shapes of :func:`sm90_shape`,
-    where no weight requires grad. W8A8 keeps the general body. It rounds
-    the softmax weights to bf16 as the Hopper K2 does; with
-    ``weight_grads`` the backward is K2-dW's general first pass and the
-    replay, which keep them float, so the forward is the general K1 (K1-int8)
-    too and the energy and its gradient come from one function."""
-    return (dtype == torch.bfloat16 and not (w8a8 or weight_grads)
-            and sm90_shape(M, D, H, F))
+    exact, with the dynamic int8 scores (``int8``: K1-int8, counter
+    ``fused_layer_fwd_int8_sm90``) or W8A8 (``w8a8``: K1-W8A8, counter
+    ``fused_layer_fwd_w8a8_sm90``; it wins over ``int8``), at the shapes of
+    :func:`sm90_shape`, where no weight requires grad. It rounds the
+    softmax weights to bf16 as the Hopper K2 does; with ``weight_grads``
+    the backward is K2-dW's general first pass and the replay, which keep
+    them float, so the forward is the general K1 (K1-int8) too and the
+    energy and its gradient come from one function (W8A8 has no weight
+    gradients)."""
+    return dtype == torch.bfloat16 and not weight_grads and sm90_shape(M, D, H, F)
 
 
-def k1_sm90_smem(M: int, D: int, H: int, F: int, int8: bool = False) -> int:
+def k1_sm90_smem(M: int, D: int, H: int, F: int, int8: bool = False, w8a8: bool = False) -> int:
     """``mtt_fused_layer_fwd_sm90_smem`` (``int8``:
-    ``mtt_fused_layer_fwd_int8_sm90_smem``): its shared bytes per block (two
+    ``mtt_fused_layer_fwd_int8_sm90_smem``; ``w8a8``:
+    ``mtt_fused_layer_fwd_w8a8_sm90_smem``): its shared bytes per block (two
     atoms, each padded to 64 rows), 0 for a shape it does not take. The C
     source's layout: per atom q|k|v, where res and the ffn_h tile go later
     (bf16 rows of 3D + 8), and the operand tile (n1, attn, h_norm; bf16 rows
     of D + 8); three weight chunks of 128 x 64 bf16; per atom the floats
-    cf, r1, r2; with ``int8``, per atom the int8 copy of q and k (rows of
-    2D + 16 bytes)."""
-    if not k1_sm90_takes(torch.bfloat16, M, D, H, F, int8=int8):
+    cf, r1, r2; with ``int8`` or ``w8a8``, per atom the int8 copy of q and k
+    (rows of 2D + 16 bytes). W8A8's int8 n1, h_norm (rows of D + 16 bytes)
+    and ffn_h tile (64 x 128 in the same rows) take the rooms of their bf16
+    versions."""
+    if not k1_sm90_takes(torch.bfloat16, M, D, H, F, w8a8, int8):
         return 0
     rows = 64
     atom = rows * (3 * D + 8) * 2 + rows * (D + 8) * 2
-    q8 = rows * (2 * D + 16) if int8 else 0
+    q8 = rows * (2 * D + 16) if int8 or w8a8 else 0
     return 2 * atom + 3 * 128 * 64 * 2 + 2 * 4 * 3 * rows + 2 * q8
 
 
@@ -398,32 +408,36 @@ def k1_f32_sm90_smem(M: int, D: int, H: int, F: int) -> int:
 def k2_sm90_takes(dtype: torch.dtype, M: int, D: int, H: int, F: int, weight_grads: bool = False,
                   w8a8: bool = False, int8: bool = False) -> bool:
     """Whether ``fused_layer_bwd_cuda`` launches the Hopper K2: the bfloat16
-    input-gradient variant, exact or with the dynamic int8 scores
-    (``int8``: K2-int8, counter ``fused_layer_bwd_int8_sm90``), at D = 128
-    with heads of 16, 16 <= M <= 64 with M % 16 == 0, F a multiple of 128
-    (the shape rule is the C side's ``mtt_fused_layer_bwd_sm90_ok``). W8A8
-    and the weight gradients (K2-dW, K2-dW-int8) keep their own bodies."""
-    return dtype == torch.bfloat16 and not (weight_grads or w8a8) and sm90_shape(M, D, H, F)
+    input-gradient variant, exact, with the dynamic int8 scores (``int8``:
+    K2-int8, counter ``fused_layer_bwd_int8_sm90``) or W8A8 (``w8a8``:
+    K2-W8A8, counter ``fused_layer_bwd_w8a8_sm90``; it wins over ``int8``),
+    at D = 128 with heads of 16, 16 <= M <= 64 with M % 16 == 0, F a
+    multiple of 128 (the shape rule is the C side's
+    ``mtt_fused_layer_bwd_sm90_ok``). The weight gradients (K2-dW,
+    K2-dW-int8) keep their own bodies."""
+    return dtype == torch.bfloat16 and not weight_grads and sm90_shape(M, D, H, F)
 
 
-def k2_sm90_smem(M: int, D: int, H: int, F: int, int8: bool = False) -> int:
+def k2_sm90_smem(M: int, D: int, H: int, F: int, int8: bool = False, w8a8: bool = False) -> int:
     """``mtt_fused_layer_bwd_sm90_smem`` (``int8``:
-    ``mtt_fused_layer_bwd_int8_sm90_smem``): its shared bytes per block (one
+    ``mtt_fused_layer_bwd_int8_sm90_smem``; ``w8a8``:
+    ``mtt_fused_layer_bwd_w8a8_sm90_smem``): its shared bytes per block (one
     atom, padded to 64 rows), 0 for a shape it does not take. The C
     source's layout: q|k|v (bf16 rows of 3D + 8), the operand tile (n1,
     attn, h_norm, d_attn_out, dq; rows of D + 8), res and g_eo then d_res
     (float rows of D + 8), the d_vg tile then d_attn (rows of 2D + 8), three
     weight chunks of 128 x 64 bf16, and floats: cf, r1, r2, the
     softmax max, sum and delta per head, d_cf's column sums per (head,
-    query tile) and the row-sum scratch; with ``int8``, the int8 copy of q
-    and k (rows of 2D + 16 bytes)."""
-    if not k2_sm90_takes(torch.bfloat16, M, D, H, F, int8=int8):
+    query tile) and the row-sum scratch; with ``int8`` or ``w8a8``, the
+    int8 copy of q and k (rows of 2D + 16 bytes). W8A8's int8 n1 and h_norm
+    (rows of D + 16 bytes) take the operand tile's room."""
+    if not k2_sm90_takes(torch.bfloat16, M, D, H, F, w8a8=w8a8, int8=int8):
         return 0
     rows, heads = 64, 8
     tiles = rows * (3 * D + 8) * 2 + rows * (D + 8) * 2 + rows * (D + 8) * 4 + rows * (2 * D + 8) * 2
     ring = 3 * 128 * 64 * 2
     stats = 3 * rows + 3 * heads * rows + heads * 4 * rows + 4 * rows
-    q8 = rows * (2 * D + 16) if int8 else 0
+    q8 = rows * (2 * D + 16) if int8 or w8a8 else 0
     return tiles + ring + 4 * stats + q8
 
 

@@ -758,7 +758,12 @@ def fused_layer_fwd_cuda(edges, center, cf, w: LayerWeights, num_heads, scale, w
     general body there too.
 
     With ``w8a8`` (``(Int8Calib, quantize_layer_weights(...))``, int8
-    weights on the device) launch K1-W8A8 instead: bfloat16 only. With
+    weights on the device) launch K1-W8A8 instead: bfloat16 only; at the
+    shapes of :func:`_lib.k1_sm90_takes` the Hopper K1's W8A8 mode (counter
+    ``fused_layer_fwd_w8a8_sm90``: QKV, FFN-in and FFN-out on int8
+    ``wgmma``, the scores and softmax of K1-int8, its forward up to h_norm
+    and vg the bits K2-W8A8 recomputes), elsewhere or with ``sm90=False``
+    the general body (``fused_layer_fwd_w8a8``). With
     ``int8_scales`` ((A, 2) float32, :func:`int8_scales_for`) launch
     K1-int8: bfloat16 only; at the shapes of :func:`_lib.k1_sm90_takes`
     (no ``weight_grads``) the Hopper K1's int8-score mode (counter
@@ -780,6 +785,8 @@ def fused_layer_fwd_cuda(edges, center, cf, w: LayerWeights, num_heads, scale, w
     _lib.require({"cf": cf}, edges.device, torch.float32)
     if sm90 and _lib.k1_sm90_takes(cd, M, D, num_heads, F, w8a8 is not None,
                                    int8_scales is not None, weight_grads):
+        if w8a8 is not None:
+            return _k1_w8a8_sm90(edges, center, cf, wc, num_heads, int8_t, scales)
         return _k1_sm90(edges, center, cf, wc, num_heads, scale, int8_scales=int8_scales)
     if sm90 and _lib.k1_f32_sm90_takes(cd, M, D, num_heads, F, w8a8 is not None,
                                        int8_scales is not None):
@@ -859,6 +866,33 @@ def _k1_sm90(edges, center, cf, wc: LayerWeights, num_heads, scale, name="fused_
     return edge_out, center_out
 
 
+def _k1_w8a8_sm90(edges, center, cf, wc: LayerWeights, num_heads, int8_t, scales):
+    """K1-W8A8 on Hopper (``fused_layer_fwd_w8a8_sm90``) on checked bfloat16
+    tensors: one block per two atoms, no workspace. ``int8_t`` and
+    ``scales`` are :func:`_w8a8_kernel_args`' (the int8 w_qkv^T, w_in^T and
+    w_ffn_out^T; the 11 scales); the kernel reads w_in^T in
+    :func:`k1_sm90_w_vg`'s blocks of 64 and, of the bf16 matrices, only
+    w_out^T."""
+    name = "fused_layer_fwd_w8a8_sm90"
+    A, M, D = edges.shape
+    F = wc.w_ffn_out.shape[0]
+    lib = _lib.library()
+    _lib.check_shared(lib.mtt_fused_layer_fwd_w8a8_sm90_smem(M, D, num_heads, F), name)
+    vectors = (wc.norm_attn, wc.b_qkv, wc.b_out, wc.norm_mlp, wc.b_in, wc.b_ffn_out)
+    matrices = (wc.w_out.t().contiguous(), int8_t[0], k1_sm90_w_vg(int8_t[1].t()), int8_t[2])
+    edge_out = torch.empty_like(edges)
+    center_out = torch.empty_like(center)
+    _lib.check(
+        lib.mtt_fused_layer_fwd_w8a8_sm90(
+            edges.data_ptr(), center.data_ptr(), cf.data_ptr(), *(x.data_ptr() for x in vectors),
+            *(x.data_ptr() for x in matrices), scales, edge_out.data_ptr(), center_out.data_ptr(),
+            A, M, D, num_heads, F, rmsnorm_eps(edges.dtype), _lib.stream_ptr(edges.device)),
+        name,
+    )
+    _lib.LAUNCHES[name] += 1
+    return edge_out, center_out
+
+
 def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, num_heads, scale,
                          weight_grads: bool = False, w8a8=None, int8_scales=None, *,
                          sm90: bool = True):
@@ -874,7 +908,12 @@ def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, n
     comparisons.
 
     With ``w8a8`` launch K2-W8A8 (bfloat16, input gradients only): the W8A8
-    layer's straight-through backward. With ``int8_scales`` (the forward's)
+    layer's straight-through backward; at the shapes of
+    :func:`_lib.k2_sm90_takes` the Hopper K2's W8A8 mode (counter
+    ``fused_layer_bwd_w8a8_sm90``: K1-W8A8's forward recomputed on int8
+    ``wgmma``, the backward's products in bf16), elsewhere or with
+    ``sm90=False`` the general body (``fused_layer_bwd_w8a8``). With
+    ``int8_scales`` (the forward's)
     launch K2-int8 (bfloat16): at the shapes of :func:`_lib.k2_sm90_takes`
     the Hopper K2's int8-score mode (counter ``fused_layer_bwd_int8_sm90``),
     elsewhere or with ``sm90=False`` the general body
@@ -914,6 +953,9 @@ def fused_layer_bwd_cuda(edges, center, cf, w: LayerWeights, g_edge, g_center, n
         _int8_kernel_scales(edges, int8_scales)
     if sm90 and _lib.k2_sm90_takes(cd, M, D, num_heads, F, weight_grads, w8a8 is not None,
                                    int8_scales is not None):
+        if w8a8 is not None:
+            return _k2_w8a8_sm90(edges, center, cf, wc, g_edge, g_center, num_heads, scale, int8_t,
+                                 scales)
         return _k2_sm90(edges, center, cf, wc, g_edge, g_center, num_heads, scale,
                         int8_scales=int8_scales)
     if sm90 and not weight_grads and _lib.k2_f32_sm90_takes(
@@ -995,6 +1037,35 @@ def _k2_sm90(edges, center, cf, wc: LayerWeights, g_edge, g_center, num_heads, s
             *(x.data_ptr() for x in transposed), *scales, g_edge.data_ptr(), g_center.data_ptr(),
             d_edges.data_ptr(), d_center.data_ptr(), d_cf.data_ptr(), A, M, D, num_heads, F,
             float(scale), rmsnorm_eps(edges.dtype), _lib.stream_ptr(edges.device)),
+        name,
+    )
+    _lib.LAUNCHES[name] += 1
+    return d_edges, d_center, d_cf
+
+
+def _k2_w8a8_sm90(edges, center, cf, wc: LayerWeights, g_edge, g_center, num_heads, scale, int8_t,
+                  scales):
+    """K2-W8A8 on Hopper (``fused_layer_bwd_w8a8_sm90``) on checked bfloat16
+    tensors: one block per atom, no workspace. The kernel reads the bf16
+    weights its backward multiplies by (w_qkv, w_out, w_in, w_ffn_out in the
+    (in, out) layout), w_out^T for the recompute's out-projection, and
+    :func:`_w8a8_kernel_args`' int8 w_qkv^T and w_in^T and its scales."""
+    name = "fused_layer_bwd_w8a8_sm90"
+    A, M, D = edges.shape
+    F = wc.w_ffn_out.shape[0]
+    lib = _lib.library()
+    _lib.check_shared(lib.mtt_fused_layer_bwd_w8a8_sm90_smem(M, D, num_heads, F), name)
+    w_out_t = wc.w_out.t().contiguous()
+    d_edges = torch.empty_like(edges)
+    d_center = torch.empty_like(center)
+    d_cf = torch.empty_like(cf)
+    _lib.check(
+        lib.mtt_fused_layer_bwd_w8a8_sm90(
+            edges.data_ptr(), center.data_ptr(), cf.data_ptr(), *(x.data_ptr() for x in wc[:9]),
+            w_out_t.data_ptr(), int8_t[0].data_ptr(), int8_t[1].data_ptr(), scales,
+            g_edge.data_ptr(), g_center.data_ptr(), d_edges.data_ptr(), d_center.data_ptr(),
+            d_cf.data_ptr(), A, M, D, num_heads, F, float(scale), rmsnorm_eps(edges.dtype),
+            _lib.stream_ptr(edges.device)),
         name,
     )
     _lib.LAUNCHES[name] += 1

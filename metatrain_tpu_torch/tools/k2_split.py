@@ -6,7 +6,7 @@ Usage, on a machine with a CUDA device and nvcc::
 
     python metatrain_tpu_torch/tools/k2_split.py
         --body hopper|general|f32-hopper|k1-hopper|k1-f32|k1-general|k3-head|k4-head|k4dw-general|k4-f32
-        |hopper-int8|k1-int8
+        |hopper-int8|k1-int8|hopper-w8a8
         [--dtype bfloat16|float32] [--dw] [--A 11392] [--M 64]
 
 Copies the body's sources (``--body hopper``: the Hopper K2,
@@ -16,7 +16,9 @@ Copies the body's sources (``--body hopper``: the Hopper K2,
 ``csrc/fused_layer_bwd_f32_sm90.cu``; ``k1-hopper``: the
 Hopper K1, ``csrc/fused_layer_fwd_sm90.cu``; ``hopper-int8`` /
 ``k1-int8``: K2-int8 / K1-int8, the same sources and phases in their
-int8-score mode, on the port's scales (``sm90_front.port_int8_scales``); ``k1-f32``: the Hopper float32
+int8-score mode, on the port's scales (``sm90_front.port_int8_scales``);
+``hopper-w8a8``: K2-W8A8, the same source and phases in its W8A8 mode, on
+the port's int8 weights and scales (``sm90_front.port_w8a8``); ``k1-f32``: the Hopper float32
 K1, ``csrc/fused_layer_fwd_f32_sm90.cu``; ``k1-general``: K1's general
 body, ``csrc/layer_fwd.cuh`` in ``csrc/fused_layer_fwd.cu``, in
 ``--dtype``; ``k3-head`` / ``k4-head``: the
@@ -256,9 +258,10 @@ def build(work: Path, body: str, dtype: str) -> Path:
     for source in CSRC.glob("*.cu*"):
         shutil.copy(source, work / source.name)
     if body in ("hopper", "k1-hopper", "k1-f32", "f32-hopper", "k4dw-general", "k4-f32",
-                "hopper-int8", "k1-int8"):
+                "hopper-int8", "k1-int8", "hopper-w8a8"):
         unit, marks = {"hopper": ("fused_layer_bwd_sm90.cu", HOPPER),
                        "hopper-int8": ("fused_layer_bwd_sm90.cu", HOPPER),
+                       "hopper-w8a8": ("fused_layer_bwd_sm90.cu", HOPPER),
                        "k1-hopper": ("fused_layer_fwd_sm90.cu", K1_HOPPER),
                        "k1-int8": ("fused_layer_fwd_sm90.cu", K1_HOPPER),
                        "k1-f32": ("fused_layer_fwd_f32_sm90.cu", K1_F32),
@@ -390,7 +393,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--body", choices=("hopper", "general", "f32-hopper", "k1-hopper", "k1-f32",
                                            "k1-general", "k3-head", "k4-head", "k4dw-general",
-                                           "k4-f32", "hopper-int8", "k1-int8"),
+                                           "k4-f32", "hopper-int8", "k1-int8", "hopper-w8a8"),
                         required=True)
     parser.add_argument("--dtype", choices=("bfloat16", "float32"), default=None,
                         help="the general bodies' storage type (the Hopper bodies have one each)")
@@ -409,7 +412,7 @@ def main() -> int:
                           timeout=60).stdout.strip().splitlines()[0]
     if args.body in ("k4dw-general", "k4-f32"):
         return k4_split(args, card)
-    from sm90_front import port_int8_scales  # this directory's
+    from sm90_front import port_int8_scales, port_w8a8  # this directory's
     own = "float32" if args.body in ("f32-hopper", "k1-f32") else "bfloat16"
     if args.dtype not in (None, own) and args.body not in ("general", "k1-general"):
         parser.error(f"--body {args.body} runs in {own}")
@@ -473,6 +476,19 @@ def main() -> int:
 
             def run():
                 return fn(*(x.data_ptr() for x in ptrs), A, M, D, H, F, scale, eps, stream)
+        elif args.body == "hopper-w8a8":
+            # the inputs, nine bf16 weights, w_out^T, the int8 w_qkv^T and
+            # w_in^T, the scales (a host array), the cotangents and outputs
+            int8_t, _, scales = port_w8a8(e, c, cf, w, H, scale)
+            before = [e, c, cf, *w[:9], w[3].t().contiguous(), int8_t[0], int8_t[1]]
+            after = [ge, gc, de, dc, dcf]
+            fn = lib.mtt_fused_layer_bwd_w8a8_sm90
+            fn.argtypes = ([P] * len(before) + [ctypes.POINTER(ctypes.c_float)] + [P] * len(after)
+                           + [L, I, I, I, I, F_, F_, P])
+
+            def run():
+                return fn(*(x.data_ptr() for x in before), scales, *(x.data_ptr() for x in after),
+                          A, M, D, H, F, scale, eps, stream)
         elif args.body == "k1-f32":
             # w_in^T as it is
             ptrs = [e, c, cf, *(w[i] for i in (0, 2, 4, 5, 7, 9)),
@@ -529,7 +545,7 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
     names = {"hopper": HOPPER_PHASES, "general": GENERAL_PHASES, "f32-hopper": F32_HOPPER_PHASES,
-             "hopper-int8": HOPPER_PHASES, "k1-int8": K1_HOPPER_PHASES, "k1-hopper": K1_HOPPER_PHASES, "k1-f32": K1_F32_PHASES, "k1-general": K1_GENERAL_PHASES,
+             "hopper-int8": HOPPER_PHASES, "hopper-w8a8": HOPPER_PHASES, "k1-int8": K1_HOPPER_PHASES, "k1-hopper": K1_HOPPER_PHASES, "k1-f32": K1_F32_PHASES, "k1-general": K1_GENERAL_PHASES,
              "k3-head": K3_HEAD_PHASES, "k4-head": K4_HEAD_PHASES}[args.body]
     cycles = list(counts)[:len(names)]
     total = sum(cycles)

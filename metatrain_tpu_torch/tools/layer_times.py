@@ -25,7 +25,11 @@ gives under ``fused_layer_fwd_f32``). In bfloat16, also the dynamic int8
 scores' K1-int8 and K2-int8 on scales from the absmax pass
 (``fused_layer_{fwd,bwd}_int8_ms_bf16``: the Hopper K1 and K2's int8-score
 mode where the tree has it, the general bodies before) and their general
-bodies (``sm90=False``, ``fused_layer_{fwd,bwd}_int8_general_ms_bf16``).
+bodies (``sm90=False``, ``fused_layer_{fwd,bwd}_int8_general_ms_bf16``);
+and the static W8A8 layer's K1-W8A8 and K2-W8A8 on a calibration from the
+plain probe (``fused_layer_{fwd,bwd}_w8a8_ms_bf16``: the Hopper K1 and K2's
+W8A8 mode where the tree has it, the general bodies before) and their
+general bodies (``fused_layer_{fwd,bwd}_w8a8_general_ms_bf16``).
 Then K4
 (``rowblock_bwd_cuda``) in bfloat16 at A x M rows for the 3-part and the
 2-part compress, the combination and the head
@@ -150,6 +154,19 @@ def main() -> int:
                 else:
                     fn = lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale,  # noqa: E731
                                                          int8_scales=scales, **kw)
+                digests[f"{name}_{tag}"] = digest(fn())
+                times[f"{name}_ms_{tag}"] = cuda_ms(fn)
+            # the W8A8 layer (its calibration draws nothing from gen)
+            calib = fl.Int8Calib.from_stats(fl.layer_probe_stats(e, c, cf, w, H, scale).tolist(), w)
+            w8a8 = (calib, fl.quantize_layer_weights(w, calib))
+            for name, kw in (("fused_layer_fwd_w8a8", {}), ("fused_layer_bwd_w8a8", {}),
+                             ("fused_layer_fwd_w8a8_general", {"sm90": False}),
+                             ("fused_layer_bwd_w8a8_general", {"sm90": False})):
+                if "fwd" in name:
+                    fn = lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale, w8a8=w8a8, **kw)  # noqa: E731
+                else:
+                    fn = lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale,  # noqa: E731
+                                                         w8a8=w8a8, **kw)
                 digests[f"{name}_{tag}"] = digest(fn())
                 times[f"{name}_ms_{tag}"] = cuda_ms(fn)
         del e, c, ge, gc

@@ -8,6 +8,7 @@ Usage, on a machine with a CUDA device and nvcc::
 
     python metatrain_tpu_torch/tools/sm90_front.py [--dtype bfloat16|float32] [--A 2047] [--M 64]
     python metatrain_tpu_torch/tools/sm90_front.py --int8 [--A 2047] [--M 64]
+    python metatrain_tpu_torch/tools/sm90_front.py --w8a8 [--A 2047] [--M 64]
     python metatrain_tpu_torch/tools/sm90_front.py --kernel rowblock --dtype float32 \
         --stage compress|combination|head [--rows 100003]
 
@@ -32,6 +33,15 @@ With ``--int8`` (bfloat16) the two kernels run their int8-score mode
 on the port's per-atom scales (``fused_layer.int8_scales_for``), and the
 copies take q|k|v too (before the attention): the line says whether
 K1-int8's q|k|v, attn, res and h_norm equal K2-int8's recompute.
+
+With ``--w8a8`` (bfloat16) the two kernels run their W8A8 mode (K1-W8A8 and
+K2-W8A8, the entries ``mtt_fused_layer_{fwd,bwd}_w8a8_sm90``) on the port's
+int8 weights and scales (``fused_layer._w8a8_kernel_args`` of a calibration
+from the plain probe), and the copies, in float, take q|k|v, the int8 q and
+k, attn, res, the int8 h_norm and vg (the FFN-in product, dequantized and
+biased, before the SwiGLU): the line says whether K1-W8A8's copies equal
+K2-W8A8's recompute's. The buffer starts as NaN, so a slot that either
+kernel leaves unwritten is unequal.
 
 With ``--kernel rowblock`` (float32 only) the Hopper float32 K3
 (``csrc/rowblock_fwd_f32_sm90.cu``) and the Hopper float32 K4
@@ -78,11 +88,14 @@ SETTER = ('\nextern "C" int dump_set(void* p) '
 def _copy(slot: int, rows: str, src: str, ld: str = "LA", slots: int = 3, width: str = "D") -> str:
     """Code that copies ``width`` columns of ``src`` rows (bf16 rows of LA,
     or rows of ``ld``) of atom ``rows`` into g_dump from slot ``slot`` on
-    (rows of ``slots`` x D); ``rows`` names the atom index expression."""
+    (rows of ``slots`` x D); ``rows`` names the atom index expression. A
+    float g_dump of 12 slots (``--w8a8``) takes bf16 and int8 values as
+    floats."""
+    pre, post = ("dump_f(", ")") if slots == 12 else ("", "")
     return (f"    __syncthreads();\n"
             f"    for (int i_ = threadIdx.x; i_ < M * {width}; i_ += blockDim.x)\n"
             f"        g_dump[(({rows}) * M + i_ / {width}) * {slots} * D + {slot} * D + i_ % {width}] = "
-            f"{src}[(i_ / {width}) * {ld} + i_ % {width}];\n")
+            f"{pre}{src}[(i_ / {width}) * {ld} + i_ % {width}]{post};\n")
 
 
 def _k1_copy(slot: int, buf: str, **kw) -> str:
@@ -131,12 +144,71 @@ K2_F32_MARKS = (
     ("    // res = x1 + (attn w_out + b)", True, _copy(0, "a", "OP", "LT")),
     ("    // g_eo into res's buffer", True, _copy(1, "a", "RES", "LT") + _copy(2, "a", "OP", "LT")),
 )
+# the W8A8 mode (--w8a8): g_dump is float, (A, M, 12, D): attn, res, the
+# int8 h_norm, q|k|v, the int8 q|k, then vg (value columns, then gate)
+DUMP_W8 = ('__device__ float* g_dump;\n'
+           '__device__ __forceinline__ float dump_f(__nv_bfloat16 x) { return __bfloat162float(x); }\n'
+           '__device__ __forceinline__ float dump_f(int8_t x) { return (float)x; }\n')
+W8 = dict(slots=12)
+VG_SLOT = 8
+
+
+def _k1_vg() -> str:
+    """K1-W8A8's vg of the calling thread's atom after each FFN-in chunk
+    (ffn_w8a8: the atom from its edge_out rows), dequantized as the kernel
+    dequantizes it."""
+    return ("            panel_pairs([&](int j_, int h_, int m_, int n_) {\n"
+            "                const int col_ = j0 + 64 * r + n_ % 32 + 32 * ((threadIdx.x >> 7) & 1);\n"
+            "                if (m_ >= M || !store) return;\n"
+            "                const long long a_ = (eo - p.edge_out) / ((long long)M * D);\n"
+            f"                float* d_ = g_dump + (size_t)(a_ * M + m_) * 12 * D + {VG_SLOT} * D + col_;\n"
+            "                for (int u_ = 0; u_ < 2; ++u_) {\n"
+            "                    d_[u_] = dequant(av[j_][2 * h_ + u_], s8.deq_in, to_f(p.b_in[col_ + u_]));\n"
+            "                    d_[F + u_] = dequant(ag[j_][2 * h_ + u_], s8.deq_in, to_f(p.b_in[F + col_ + u_]));\n"
+            "                }\n"
+            "            });\n")
+
+
+_K2_VG = ("        if constexpr (W8) {\n"
+          "            panel_each([&](int j_, int i_, int m_, int n_) {\n"
+          "                if (m_ >= M) return;\n"
+          f"                float* d_ = g_dump + (size_t)(a * M + m_) * 12 * D + {VG_SLOT} * D + j0 + n_;\n"
+          "                d_[0] = av[j_][i_];\n"
+          "                d_[F] = ag[j_][i_];\n"
+          "            });\n"
+          "        }\n")
+QKV8 = dict(ld="LQ8", slots=12, width="(2 * D)")
+K1_W8A8_MARKS = (
+    ('#include "layer_sm90.cuh"\n', False, DUMP_W8),
+    ("    // ---- attention, one warp per", True,
+     _k1_copy(3, "QKV", ld="LQ", slots=12, width="(3 * D)") + _k1_copy(6, "Q8", **QKV8)
+     .replace("(Q8 + kStride)", "(Q8 + kQ8Bytes)")),
+    ("    // ---- res = rnd(x1", True, _k1_copy(0, "OP", **W8)),
+    ("        ffn_w8a8(ring, c, p,", True,
+     (_k1_copy(1, "RES", **W8) + _k1_copy(2, "OP8", ld="LA8", **W8)).replace("(OP8 + kStride)",
+                                                                               "(OP8 + kAtomBytes)")),
+    ("            glu_mm_s8(ring, c, HN, av, ag);\n", False, _k1_vg()),
+)
+K2_W8A8_MARKS = (
+    ('#include "layer_sm90.cuh"\n', False, DUMP_W8),
+    ("    // ---- recompute: attention", True,
+     _copy(3, "a", "QKV", ld="LQ", slots=12, width="(3 * D)") + _copy(6, "a", "Q8", **QKV8)),
+    ("    // res = rnd(x1 + rnd(attn w_out + b))", True, _copy(0, "a", "OP", **W8)),
+    ("    // ---- SwiGLU backward", True, _copy(1, "a", "RES", **W8) + _copy(2, "a", "OP8", ld="LA8", **W8)),
+    ("        panel_mm<2>(ring, c, [&](int r, int& ld) { ld = LA; return (const bf16*)GEO + r * kChunkK; }, ad);\n",
+     True, _K2_VG),
+)
+W8A8_SLOTS = {"attn": (0, 1), "res": (1, 2), "h_norm_int8": (2, 3), "q": (3, 4), "k": (4, 5),
+              "v": (5, 6), "q_int8": (6, 7), "k_int8": (7, 8), "vg": (8, 12)}
+
 KERNELS = {
     "bfloat16": (("k1", "fused_layer_fwd_sm90.cu", K1_MARKS), ("k2", "fused_layer_bwd_sm90.cu", K2_MARKS)),
     "float32": (("k1", "fused_layer_fwd_f32_sm90.cu", K1_F32_MARKS),
                 ("k2", "fused_layer_bwd_f32_sm90.cu", K2_F32_MARKS)),
     "int8": (("k1", "fused_layer_fwd_sm90.cu", K1_INT8_MARKS),
              ("k2", "fused_layer_bwd_sm90.cu", K2_INT8_MARKS)),
+    "w8a8": (("k1", "fused_layer_fwd_sm90.cu", K1_W8A8_MARKS),
+             ("k2", "fused_layer_bwd_sm90.cu", K2_W8A8_MARKS)),
 }
 
 # the row-block stages: g_dump is (rows, RB_STRIDE) float, per row pre at 0,
@@ -275,11 +347,27 @@ def port_int8_scales(e, c, w):
     return fl.int8_scales_for(e, c, fl.LayerWeights(*w), plain=True)
 
 
+def port_w8a8(e, c, cf, w, H, scale):
+    """The W8A8 kernels' int8 weights and scales for one layer call, as the
+    port passes them: a calibration from the plain probe on these inputs,
+    ``fused_layer._w8a8_kernel_args`` (the int8 w_qkv^T, w_in^T, w_ffn_out^T
+    and the 11 scales) and K1's arrangement of w_in^T
+    (``k1_sm90_w_vg``)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))  # the checkout
+    from metatrain_tpu_torch.ops.kernels import fused_layer as fl
+
+    lw = fl.LayerWeights(*w)
+    calib = fl.Int8Calib.from_stats(fl.layer_probe_stats(e, c, cf, lw, H, scale).tolist(), lw)
+    int8_t, scales = fl._w8a8_kernel_args(e, (calib, fl.quantize_layer_weights(lw, calib)), H, scale)
+    return int8_t, fl.k1_sm90_w_vg(int8_t[1].t()), scales
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernel", choices=("layer", "rowblock"), default="layer")
     parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     parser.add_argument("--int8", action="store_true", help="the int8-score mode (bfloat16)")
+    parser.add_argument("--w8a8", action="store_true", help="the W8A8 mode (bfloat16)")
     parser.add_argument("--stage", choices=tuple(ROWBLOCK_KERNELS), default="compress")
     parser.add_argument("--A", type=int, default=2047)
     parser.add_argument("--M", type=int, default=64)
@@ -297,8 +385,10 @@ def main() -> int:
         if args.dtype != "float32":
             parser.error("--kernel rowblock compares the float32 K3 and K4")
         return rowblock_main(args, card)
-    if args.int8 and args.dtype != "bfloat16":
-        parser.error("--int8 runs the bfloat16 kernels")
+    if (args.int8 or args.w8a8) and args.dtype != "bfloat16":
+        parser.error("--int8 and --w8a8 run the bfloat16 kernels")
+    if args.int8 and args.w8a8:
+        parser.error("one mode at a time")
     A, M, D, H, F = args.A, args.M, 128, 8, 256
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
@@ -324,6 +414,8 @@ def main() -> int:
     w_vg = w[6].t().reshape(2, F // 64, 64, D).transpose(0, 1).reshape(2 * F, D).contiguous()
     t = {i: w[i].t().contiguous() for i in (1, 3, 6, 8)}
     P, I, L, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    if args.w8a8:
+        return w8a8_main(card, A, M, D, H, F, e, c, cf, w, t, ge, gc, scale, eps)
     dumps = {}
     slots = ("attn", "res", "h_norm") + (("q", "k", "v") if args.int8 else ())
     with tempfile.TemporaryDirectory() as tmp:
@@ -367,6 +459,49 @@ def main() -> int:
     equal = {name: torch.equal(dumps["k1"][:, :, i], dumps["k2"][:, :, i]) for i, name in enumerate(slots)}
     print(json.dumps({"card": card, "dtype": args.dtype, "int8": args.int8, "shape": [A, M, D, H, F],
                       "bitwise_equal": equal, "finite": bool(torch.isfinite(dumps["k1"].float()).all())}))
+    return 0 if all(equal.values()) else 2
+
+
+def w8a8_main(card, A, M, D, H, F, e, c, cf, w, t, ge, gc, scale, eps) -> int:
+    """K1-W8A8's q|k|v, int8 q|k, attn, res, int8 h_norm and vg against
+    K2-W8A8's recompute, bitwise (one float dump of 12 slots per row)."""
+    import torch
+
+    dev = e.device
+    int8_t, w_vg8, scales = port_w8a8(e, c, cf, w, H, scale)
+    P, I, L, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    FP = ctypes.POINTER(ctypes.c_float)
+    # (entry, tensors before the scales, tensors after them, the scale too)
+    runs = {
+        "k1": ("mtt_fused_layer_fwd_w8a8_sm90",
+               [e, c, cf, *(w[i] for i in (0, 2, 4, 5, 7, 9)), t[3], int8_t[0], w_vg8, int8_t[2]],
+               [torch.empty_like(e), torch.empty_like(c)], False),
+        "k2": ("mtt_fused_layer_bwd_w8a8_sm90", [e, c, cf, *w[:9], t[3], int8_t[0], int8_t[1]],
+               [ge, gc, torch.empty_like(e), torch.empty_like(c), torch.empty_like(cf)], True),
+    }
+    dumps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build(Path(tmp), "w8a8")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for key, (entry, before, after, with_scale) in runs.items():
+            dump = torch.full((A, M, 12, D), float("nan"), device=dev)
+            lib = libs[key]
+            fn = getattr(lib, entry)
+            fn.argtypes = ([P] * len(before) + [FP] + [P] * len(after) + [L, I, I, I, I]
+                           + [F_] * (2 if with_scale else 1) + [P])
+            lib.dump_set.argtypes = [P]
+            if lib.dump_set(dump.data_ptr()) != 0:
+                raise RuntimeError("could not set the dump buffer")
+            tail = (scale, eps) if with_scale else (eps,)
+            if fn(*(x.data_ptr() for x in before), scales, *(x.data_ptr() for x in after),
+                  A, M, D, H, F, *tail, stream) != 0:
+                raise RuntimeError(f"{entry} failed to launch")
+            torch.cuda.synchronize()
+            dumps[key] = dump
+    equal = {name: torch.equal(dumps["k1"][:, :, a:b], dumps["k2"][:, :, a:b])
+             for name, (a, b) in W8A8_SLOTS.items()}
+    print(json.dumps({"card": card, "dtype": "bfloat16", "w8a8": True, "shape": [A, M, D, H, F],
+                      "bitwise_equal": equal, "finite": bool(torch.isfinite(dumps["k1"]).all())}))
     return 0 if all(equal.values()) else 2
 
 

@@ -8,7 +8,7 @@ The kernels run only on the card (``chip_smoke.py`` holds them against
 - the dispatch rule: ``_lib.k1_sm90_takes`` and ``_lib.k2_sm90_takes`` take
   the int8 scores at the served shapes where no weight requires grad; with
   weight gradients the step keeps the general K1-int8 and the two-pass
-  K2-dW-int8; W8A8 never takes the Hopper kernels. The wrappers call the
+  K2-dW-int8; W8A8 takes the pair's W8A8 mode. The wrappers call the
   new entry points with the scales and count them (the library and the
   device checks stubbed);
 - ``_lib``'s budgets of the int8 mode fit the 232,448 bytes a block may
@@ -54,7 +54,7 @@ ROOT = TOOLS.parents[1]
     (16, 128, 8, 256, False, False, True),
     (32, 128, 8, 512, False, False, True),
     (64, 128, 8, 256, False, True, False),    # the int8 training step
-    (64, 128, 8, 256, True, False, False),    # W8A8 keeps the general bodies
+    (64, 128, 8, 256, True, False, True),     # W8A8 wins: the pair's W8A8 mode
     (96, 128, 8, 256, False, False, False),   # M > 64
     (64, 256, 8, 512, False, False, False),   # d_pet 256
     (64, 128, 16, 256, False, False, False),  # heads of 8
@@ -91,23 +91,28 @@ def test_smem_budget_fits_every_shape_it_takes():
 
 @pytest.mark.parametrize("source, names", [
     ("fused_layer_fwd_sm90.cu", ["mtt_fused_layer_fwd_sm90_ok", "mtt_fused_layer_fwd_sm90_smem",
-                                 "mtt_fused_layer_fwd_int8_sm90_ok",
-                                 "mtt_fused_layer_fwd_int8_sm90_smem", "mtt_fused_layer_fwd_sm90",
-                                 "mtt_fused_layer_fwd_int8_sm90"]),
+                                 "mtt_fused_layer_fwd_int8_sm90_smem",
+                                 "mtt_fused_layer_fwd_w8a8_sm90_smem", "mtt_fused_layer_fwd_sm90",
+                                 "mtt_fused_layer_fwd_int8_sm90", "mtt_fused_layer_fwd_w8a8_sm90"]),
     ("fused_layer_bwd_sm90.cu", ["mtt_fused_layer_bwd_sm90_ok", "mtt_fused_layer_bwd_sm90_smem",
-                                 "mtt_fused_layer_bwd_int8_sm90_ok",
-                                 "mtt_fused_layer_bwd_int8_sm90_smem", "mtt_fused_layer_bwd_sm90",
-                                 "mtt_fused_layer_bwd_int8_sm90"]),
+                                 "mtt_fused_layer_bwd_int8_sm90_smem",
+                                 "mtt_fused_layer_bwd_w8a8_sm90_smem", "mtt_fused_layer_bwd_sm90",
+                                 "mtt_fused_layer_bwd_int8_sm90", "mtt_fused_layer_bwd_w8a8_sm90"]),
 ])
 def test_entry_points_take_the_bound_parameters(source, names):
     """Every entry of the two sources takes the parameters ``_lib`` binds
-    (a device pointer of any type as ``c_void_p``)."""
+    (a device pointer of any type as ``c_void_p``). Every mode takes the
+    shapes of the exact ``_ok`` query: the int8 mode has no ``_ok`` of its
+    own."""
     text = (_lib.CSRC / source).read_text()
     assert re.findall(r'extern "C" [\w ]+?\b(mtt_\w+)\(', text) == names
     scalars = (ctypes.c_int, ctypes.c_longlong, ctypes.c_float)
     for name in names:
         params = [t if t in scalars else ctypes.c_void_p for t in _params(text, name)]
-        assert params == _lib._SIGNATURES[name], name
+        # the W8A8 entries' scales are a host array of floats, a pointer
+        # here (tests/test_torch_port_w8a8_sm90.py holds their exact types)
+        bound = [ctypes.c_void_p if t is _lib._FP else t for t in _lib._SIGNATURES[name]]
+        assert params == bound, name
 
 
 def _case(A, M, D, F, seed=0):

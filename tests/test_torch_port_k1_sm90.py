@@ -46,7 +46,7 @@ BF16 = torch.bfloat16
     (BF16, 64, 128, 8, 128, False, False, True),
     (BF16, 64, 128, 8, 512, False, False, True),
     (torch.float32, 64, 128, 8, 256, False, False, False),
-    (BF16, 64, 128, 8, 256, True, False, False),   # K1-W8A8
+    (BF16, 64, 128, 8, 256, True, False, True),    # K1-W8A8 (the W8A8 mode)
     (BF16, 64, 128, 8, 256, False, True, True),    # K1-int8 (the int8-score mode)
     (BF16, 80, 128, 8, 256, False, False, False),  # M > 64
     (BF16, 56, 128, 8, 256, False, False, False),  # M % 16

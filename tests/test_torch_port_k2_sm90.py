@@ -41,7 +41,7 @@ BF16 = torch.bfloat16
     (BF16, 64, 128, 8, 128, False, False, False, True),
     (torch.float32, 64, 128, 8, 256, False, False, False, False),
     (BF16, 64, 128, 8, 256, True, False, False, False),   # K2-dW
-    (BF16, 64, 128, 8, 256, False, True, False, False),   # K2-W8A8
+    (BF16, 64, 128, 8, 256, False, True, False, True),    # K2-W8A8 (the W8A8 mode)
     (BF16, 64, 128, 8, 256, False, False, True, True),    # K2-int8 (the int8-score mode)
     (BF16, 80, 128, 8, 256, False, False, False, False),  # M > 64
     (BF16, 56, 128, 8, 256, False, False, False, False),  # M % 16
