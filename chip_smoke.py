@@ -132,9 +132,10 @@ device and exits non-zero without one. Phases (any failure propagates):
    included), the kernel paths timed.
 4d. int8 scores: the fused model built with ``int8_scores=True`` in
    bfloat16: every counter starts at 0 just before its served calls; the
-   absmax pass and the Hopper K1-int8 and K2-int8 (the int8-score mode of
-   the Hopper K1 and K2, ``INT8_SM90``) must launch 4 times per call each,
-   the general K1-int8 and K2-int8 and the exact K1/K2 never, the
+   Hopper absmax pass (``int8_absmax_sm90``) and the Hopper K1-int8 and
+   K2-int8 (the int8-score mode of the Hopper K1 and K2, ``INT8_SM90``)
+   must launch 4 times per call each, the general absmax pass, the general
+   K1-int8 and K2-int8 and the exact K1/K2 never, the
    row-block backward as on the fused path. Gates: finite
    outputs; the int8 kernel path vs its plain
    path energy rel <= 1 %, force rel-RMSE <= 5 %; its forces differ from
@@ -178,9 +179,10 @@ device and exits non-zero without one. Phases (any failure propagates):
    products) and ``K3_F32`` 2 + 2 + 1 times, and the general K3 and K4-dW
    never. Then one
    bfloat16 step with the int8 scores (the trained model), kernel vs plain
-   path: the absmax pass and the general K1-int8 (4 each: weights require
-   grad, so not the Hopper pair) and the two-pass K2-dW-int8 (8) must
-   launch, the accumulate K2-dW-int8 and the Hopper int8 pair never, and
+   path: the general absmax pass and the general K1-int8 (4 each: weights
+   require grad, so not the Hopper pair) and the two-pass K2-dW-int8 (8)
+   must launch, the accumulate K2-dW-int8 and the Hopper int8 pair and
+   absmax pass never, and
    the layer's replay run;
    loss rel <= 2e-2, global gradient rel L2 <= 0.1, finite gradients. Then
    one exact bfloat16 step (the trained model), kernel vs plain path, with
@@ -289,9 +291,13 @@ device and exits non-zero without one. Phases (any failure propagates):
    its shared bytes and ``-Xptxas -v`` registers and spills reported), a
    calibration from the plain probe on the same inputs; their bound counts
    the int8 products at 1,979 TOPS and the bf16 ones at 989 TFLOP/s. The
-   int8 scores' absmax pass (scales within one bf16 ulp of the plain
-   version's), K1-int8 and K2-int8 (the Hopper pair, the general bodies
-   through ``sm90=False`` beside, ``general_ms``, each held to the plain
+   int8 scores' absmax passes (the general one and the Hopper one, its
+   general_ms the general pass's; scales within one bf16 ulp of the plain
+   version's, the Hopper pass bitwise on a repeat and, through
+   ``tools/sm90_front.py``'s K1-int8 copy at A = 2,047 and M = 64, 48, 16,
+   bitwise the per-block max of the q and k that the Hopper K1-int8
+   quantizes; registers and spills), K1-int8 and K2-int8 (the Hopper
+   pair, the general bodies through ``sm90=False`` beside, ``general_ms``, each held to the plain
    version too; both bitwise on a repeat; each also told from the exact
    mode by ``compare_int8_mode``: its error under half the int8 plain
    version's distance from the exact one, and its step from the exact
@@ -1070,7 +1076,9 @@ def check_w8a8_layer(A, M, D, H, F, gen, device, report, tag=None):
 
 def check_int8_layer(A, M, D, H, F, gen, device, report, tag=None):
     """The dynamic int8 scores' kernels vs their plain versions (bfloat16):
-    the absmax pass (scales within one bf16 ulp of the plain version's),
+    the absmax passes, general and Hopper (scales within one bf16 ulp of the
+    plain version's; the Hopper pass bitwise on a repeat, the general
+    pass's time as its ``general_ms``),
     K1-int8 and K2-int8, the Hopper pair (``INT8_SM90``; each bitwise on a
     repeat) and the general bodies through ``sm90=False`` (K1-int8's entry
     ``fused_layer_fwd_int8``, K2-int8's the Hopper K2-int8's
@@ -1087,12 +1095,16 @@ def check_int8_layer(A, M, D, H, F, gen, device, report, tag=None):
     scale = 1.0 / math.sqrt(D // H)
     BA = fl.int8_block_atoms(M)
     k_blocks = fl.int8_absmax_cuda(e, c, w, BA)
+    h_blocks = fl.int8_absmax_sm90_cuda(e, c, w, H, BA)
     p_blocks = fl.int8_block_scales(e, c, w, BA)
     torch.cuda.synchronize()
-    # one bf16 ulp of the absmax (2^-7 relative), the scales' quotient by 127
-    ulps = ((k_blocks - p_blocks).abs() / (p_blocks.abs() * 2.0 ** -7)).max().item()
-    if not ulps <= 1.0:
-        fail(f"int8 absmax scales differ from the plain version's by {ulps:.3g} bf16 ulps")
+    # one bf16 ulp of the absmax (2^-7 relative), the scales' quotient by
+    # 127: both passes form q and k in another order than the plain version
+    ulps = {}
+    for name, blocks in (("int8_absmax", k_blocks), ("int8_absmax_sm90", h_blocks)):
+        ulps[name] = ((blocks - p_blocks).abs() / (p_blocks.abs() * 2.0 ** -7)).max().item()
+        if not ulps[name] <= 1.0:
+            fail(f"{name} scales differ from the plain version's by {ulps[name]:.3g} bf16 ulps")
     scales = fl.int8_atom_scales(k_blocks, A, BA)
     qkv, ffn, head, out = 2 * M * D * 3 * D, 2 * M * D * 3 * F, 2 * H * M * M * (D // H), \
         2 * M * D * D
@@ -1100,8 +1112,12 @@ def check_int8_layer(A, M, D, H, F, gen, device, report, tag=None):
     n_w = sum(x.numel() for x in w)
     act = A * M * D * 2 + A * D * 2
     fwd_size = (2 * act + A * M * 4 + A * 8 + n_w * 2, A * (qkv + head + out + ffn), A * head)
+    # both passes: edge rows 0 .. M - 2 and the center (K1's rows), the q
+    # and k columns of w_qkv, the scales
+    absmax_bytes = A * (M - 1) * D * 2 + A * D * 2 + 2 * D * D * 2 + 8 * -(-A // BA)
     sizes = {  # bytes, bf16 flops, int8 ops
-        "int8_absmax": (A * M * D * 2 + A * D * 2 + 3 * D * D * 2, A * 2 * qkv // 3, 0),
+        "int8_absmax": (absmax_bytes, A * 2 * qkv // 3, 0),
+        "int8_absmax_sm90": (absmax_bytes, A * 2 * qkv // 3, 0),
         "fused_layer_fwd_int8": fwd_size,
         "fused_layer_fwd_int8_sm90": fwd_size,
         "fused_layer_bwd_int8_sm90": (4 * act + 2 * A * M * 4 + A * 8 + n_w * 2,
@@ -1136,6 +1152,8 @@ def check_int8_layer(A, M, D, H, F, gen, device, report, tag=None):
     cases = (
         ("int8_absmax", lambda: (fl.int8_absmax_cuda(e, c, w, BA),), "int8_absmax",
          lambda: (fl.int8_block_scales(e, c, w, BA),), None),
+        ("int8_absmax_sm90", lambda: (fl.int8_absmax_sm90_cuda(e, c, w, H, BA),),
+         "int8_absmax_sm90", lambda: (fl.int8_block_scales(e, c, w, BA),), None),
         ("fused_layer_fwd_int8", lambda: k1(sm90=False), "fused_layer_fwd_int8", k1_plain,
          k1_exact),
         ("fused_layer_fwd_int8_sm90", k1, INT8_SM90[0], k1_plain, k1_exact),
@@ -1153,13 +1171,16 @@ def check_int8_layer(A, M, D, H, F, gen, device, report, tag=None):
         x_out = x_fn() if x_fn else None
         if x_out is not None:
             entry["int8_mode_bf16"] = compare_int8_mode(k_out, p_out, x_out)
-        if counter in INT8_SM90:
+        if counter in (*INT8_SM90, "int8_absmax_sm90"):
             again = k_fn()
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(k_out, again)):
                 fail(f"{counter} gave different outputs in two launches")
             entry["bitwise_repeat_bf16"] = True
             del again
+        if counter == "int8_absmax_sm90":  # the general pass beside it
+            entry["general_ms_bf16"] = cuda_ms(cases[0][1])
+        elif counter in INT8_SM90:
             general = lambda: k_fn(sm90=False)  # noqa: E731
             g_out = general()
             entry["general_bound_ratio_bf16"] = compare(g_out, p_out, torch.bfloat16)[1]
@@ -1183,8 +1204,10 @@ def check_int8_layer(A, M, D, H, F, gen, device, report, tag=None):
     check_k2dw_entry(dw_report["fused_layer_bwd_dw_int8"], "bf16", e, c, cf, w, ge, gc, H, scale,
                      scales)
     results.update(dw_report)
-    results["int8_absmax"]["scale_ulps_bf16"] = ulps
+    for name, ulp in ulps.items():
+        results[name]["scale_ulps_bf16"] = ulp
     lib = fl._lib.library()
+    results["int8_absmax_sm90"]["smem_bytes"] = lib.mtt_int8_absmax_sm90_smem(M, D, H, F)
     results["fused_layer_fwd_int8_sm90"]["smem_bytes"] = lib.mtt_fused_layer_fwd_int8_sm90_smem(
         M, D, H, F)
     results["fused_layer_bwd_int8_sm90"]["smem_bytes"] = lib.mtt_fused_layer_bwd_int8_sm90_smem(
@@ -1269,6 +1292,11 @@ def plan_table():
                                lib.mtt_fused_layer_fwd_sm90_smem(M, D, heads, F)),
                               (_lib.k1_sm90_takes(torch.bfloat16, M, D, heads, F),
                                _lib.k1_sm90_smem(M, D, heads, F))))
+                # the Hopper absmax pass: the Hopper K1-int8's rule
+                pairs.append(((bool(lib.mtt_int8_absmax_sm90_ok(M, D, heads, F)),
+                               lib.mtt_int8_absmax_sm90_smem(M, D, heads, F)),
+                              (_lib.absmax_sm90_takes(torch.bfloat16, M, D, heads, F),
+                               _lib.absmax_sm90_smem(M, D, heads, F))))
                 pairs.append(((bool(lib.mtt_fused_layer_bwd_f32_sm90_ok(M, D, heads, F)),
                                lib.mtt_fused_layer_bwd_f32_sm90_smem(M, D, heads, F)),
                               (_lib.k2_f32_sm90_takes(torch.float32, M, D, heads, F),
@@ -3377,19 +3405,21 @@ def check_w8a8_slice(device, make, steps=3, timing=True):
 
 
 # the served int8 call's K1-int8 and K2-int8: the Hopper K1 and K2's
-# int8-score mode; the general bodies and the exact kernels never there
+# int8-score mode, their scales from the Hopper absmax pass; the general
+# bodies, the general pass and the exact kernels never there
 INT8_SM90 = ("fused_layer_fwd_int8_sm90", "fused_layer_bwd_int8_sm90")
-INT8_NEVER = ("fused_layer_fwd_int8", "fused_layer_bwd_int8", "fused_layer_fwd", "fused_layer_bwd",
-              "fused_layer_fwd_sm90", "fused_layer_bwd_sm90")
-INT8_KERNELS = ["int8_absmax", *INT8_SM90, "permute", "permute_acc"] + ROWBLOCK_SM90_KERNELS
+INT8_NEVER = ("int8_absmax", "fused_layer_fwd_int8", "fused_layer_bwd_int8", "fused_layer_fwd",
+              "fused_layer_bwd", "fused_layer_fwd_sm90", "fused_layer_bwd_sm90")
+INT8_KERNELS = ["int8_absmax_sm90", *INT8_SM90, "permute", "permute_acc"] + ROWBLOCK_SM90_KERNELS
 
 
 def check_int8_slice(device, state, steps=3):
     """Serve the dynamic int8 scores' force call (PET at its defaults with
     ``int8_scores=True``, bfloat16) on the 10,976-atom crystal: every
-    counter starts at 0 just before its served calls, where the absmax
-    pass and the Hopper K1-int8 and K2-int8 must launch 4 times per call
-    each (2 GNN x 2 layers), the general int8 bodies and K1/K2 never. Gates: finite outputs; the int8 kernel path vs
+    counter starts at 0 just before its served calls, where the Hopper
+    absmax pass and the Hopper K1-int8 and K2-int8 must launch 4 times per
+    call each (2 GNN x 2 layers), the general pass, the general int8 bodies
+    and K1/K2 never. Gates: finite outputs; the int8 kernel path vs
     its plain path (both bf16) energy rel <= 1 %, force rel-RMSE <= 5 %; the
     int8 forces differ from the exact bf16 kernel path's (rel-RMSE > 1e-4).
     Reported: both bf16 paths' errors against the f32 exact plain path,
@@ -4045,6 +4075,9 @@ SOURCES = {
                                   "metatrain_tpu/ops/pallas/fused_layer.py:1269 (calib, W8A8)"),
     "int8_absmax": ("metatrain_tpu_torch/csrc/int8_absmax.cu",
                     "metatrain_tpu/ops/pallas/fused_layer.py:163 (_quantize_i8, per block)"),
+    "int8_absmax_sm90": ("metatrain_tpu_torch/csrc/int8_absmax_sm90.cu",
+                         "metatrain_tpu/ops/pallas/fused_layer.py:163 "
+                         "(_quantize_i8, per block; the Hopper K1-int8's q and k)"),
     "fused_layer_fwd_int8": ("metatrain_tpu_torch/csrc/fused_layer_fwd.cu",
                              "metatrain_tpu/ops/pallas/fused_layer.py:1161 (int8 scores)"),
     "fused_layer_fwd_int8_sm90": ("metatrain_tpu_torch/csrc/fused_layer_fwd_sm90.cu",
@@ -4058,7 +4091,7 @@ SOURCES = {
                                 "(weight_grads=True, int8 scores)"),
 }
 UNFUSED_PATH = ("permute", "permute_acc", "window_attention_fwd", "window_attention_bwd")
-N_ENTRIES = 54
+N_ENTRIES = 55
 
 
 def launch_count(report, name):
@@ -4078,7 +4111,8 @@ def launch_count(report, name):
     that path added, the W8A8 force calls for the Hopper W8A8 pair (the
     general W8A8 bodies run on no path: its entries' general_ms), the fused
     force calls for the rest; the int8 scores' from their force calls and
-    (K2-dW-int8, the general K1-int8) their training step. K2-dW and K2-dW-int8 count the
+    (K2-dW-int8, the general K1-int8, the general absmax pass) their
+    training step. K2-dW and K2-dW-int8 count the
     two-pass kernels' launches (K2-dW in the float32 training run: the
     Hopper float32 K2's spill mode); the Hopper float32 K1, K2, K3 and K4
     their launches in one call of phase 3's float32 kernel path; the general
@@ -4086,7 +4120,8 @@ def launch_count(report, name):
     float32 steps run the two-pass K4-dW)."""
     if name == "fused_layer_bwd_dw_int8":
         return report["training_parity_int8"]["launches"]["fused_layer_bwd_dw_int8_sm90"]
-    if name == "fused_layer_fwd_int8":  # the served int8 calls run the Hopper K1-int8
+    if name in ("fused_layer_fwd_int8", "int8_absmax"):
+        # the served int8 calls run the Hopper K1-int8 and the Hopper pass
         return report["training_parity_int8"]["launches"][name]
     if name == "fused_layer_bwd_dw":
         return report["train_launches"][K2DW_F32[0]]
@@ -4098,7 +4133,7 @@ def launch_count(report, name):
     if name in K4DW_GENERAL:
         # float32 steps run the two-pass K4-dW, bf16 steps this body
         return report["training_parity_bf16"]["launches"][name]
-    if name.endswith("_int8") or name in ("int8_absmax", *INT8_SM90):
+    if name.endswith("_int8") or name in ("int8_absmax_sm90", *INT8_SM90):
         source = report["slice_int8"]["launches"]
     elif name in W8A8_SM90:
         source = report["slice_w8a8"]["launches"]
@@ -4204,6 +4239,45 @@ def check_head_front(front, libs, report, rows=100003):
         report[name]["front_equal_k4" if "fwd" in name else "front_equal_k3"] = res
 
 
+def check_absmax_front(front, libs, report, seeds=(0, 1, 2)):
+    """The Hopper absmax pass's scales against the per-block max of the
+    Hopper K1-int8's own q and k, bit for bit: ``tools/sm90_front.py``'s
+    K1-int8 copy (``libs["k1_int8"]``, built beside the kernels) dumps the
+    q|k it quantizes. At an odd A = 2,047 (the last pair holds one atom,
+    the last scale block is partial) and M = 64, 48, 16 in the served
+    blocks (8 and 128 atoms), and at the served A = 11,392, M = 64; each
+    also in blocks of 2 atoms (one atom pair: a maximum over 8 to 128 atoms
+    hides a value one ulp off, one over a pair rarely does), there on
+    ``seeds``. Reported beside, not gated: how many blocks of the general
+    pass (q and k of the general bodies, another summation order) differ
+    from that max, per run and in all (``general_pair_blocks_differ``)."""
+    from metatrain_tpu_torch.ops.kernels import fused_layer as fl
+
+    def hopper(e, c, w, H, block_atoms):
+        return fl.int8_absmax_sm90_cuda(e, c, fl.LayerWeights(*w), H, block_atoms)
+
+    def general(e, c, w, block_atoms):
+        return fl.int8_absmax_cuda(e, c, fl.LayerWeights(*w), block_atoms)
+
+    shapes, pair_blocks, pair_differ = {}, 0, 0
+    for A, M in ((2047, 64), (2047, 48), (2047, 16), (11392, 64)):
+        for BA in (fl.int8_block_atoms(M), 2):
+            for seed in seeds if BA == 2 else seeds[:1]:
+                res = front.absmax_compare(libs["k1_int8"], A, M, hopper, seed=seed,
+                                           general_blocks=general, block_atoms=BA)
+                if not (res["bitwise_equal"] and res["qk_finite"]):
+                    fail(f"the Hopper absmax pass's scales are not the Hopper K1-int8's q|k max: "
+                         f"{res}")
+                shapes[f"A{A}_M{M}_blocks{BA}_seed{seed}"] = res
+                if BA == 2:
+                    pair_blocks += res["blocks"]
+                    pair_differ += res["general_blocks_differ"]
+                torch.cuda.empty_cache()
+    report["int8_absmax_sm90"]["equal_k1_int8_qk"] = shapes
+    report["int8_absmax_sm90"]["general_pair_blocks_differ"] = {
+        "differ": pair_differ, "blocks": pair_blocks}
+
+
 def check_neighbor_backend(report):
     """The served calls' pair searches ran in the native cell list."""
     from metatrain_tpu_torch.ops import neighbors
@@ -4231,11 +4305,13 @@ def main() -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    # the f32 heads' shared forward is checked on copies instrumented by
+    # the f32 heads' shared forward, and the Hopper absmax pass against the
+    # Hopper K1-int8's own q and k, are checked on copies instrumented by
     # tools/sm90_front.py: their nvcc runs beside the kernels' build
     front = load_tool("sm90_front")
     front_dir = tempfile.TemporaryDirectory()
-    front_procs = front.spawn(Path(front_dir.name), front.ROWBLOCK_KERNELS["head"])
+    front_procs = front.spawn(Path(front_dir.name),
+                              front.ROWBLOCK_KERNELS["head"] + (front.K1_INT8,))
     t0 = time.perf_counter()
     try:
         _lib.library()
@@ -4389,8 +4465,8 @@ def main() -> int:
         print(f"{key} force call ({card}):", json.dumps(report[key]["timing"]), flush=True)
         torch.cuda.empty_cache()
 
-    # the dynamic int8 scores: the absmax pass, K1-int8 and K2-int8 replace
-    # K1 and K2, four launches each per force call
+    # the dynamic int8 scores: the Hopper absmax pass, K1-int8 and K2-int8
+    # replace K1 and K2, four launches each per force call
     report["slice_int8"] = check_int8_slice(device, state)
     i8 = report["slice_int8"]
     check_rowblock_launches("slice_int8", i8, ROWBLOCK_SM90_PER_CALL)
@@ -4452,12 +4528,14 @@ def main() -> int:
         print("training step, exact bf16 GNN block:",
               json.dumps(report["training_parity_gnn_bf16"]), flush=True)
         # weights require grad: the general K1-int8, whose P is float like
-        # K2-dW-int8's first pass and the replay's, never the Hopper pair
+        # K2-dW-int8's first pass and the replay's, and the general absmax
+        # pass, whose q and k are its; never the Hopper pair or pass
         report["training_parity_int8"] = check_training_parity(
             workdir / "cu_lj.xyz", state, device,
             expected=("int8_absmax", "fused_layer_fwd_int8", *K2DW_INT8),
             replayed=("fused_layer",), int8_scores=True,
-            absent=("fused_layer_bwd_dw_int8", "fused_layer_bwd_int8", *INT8_SM90),
+            absent=("fused_layer_bwd_dw_int8", "fused_layer_bwd_int8", "int8_absmax_sm90",
+                    *INT8_SM90),
             per_step={"int8_absmax": 4, "fused_layer_fwd_int8": 4}
             | {k: K2DW_PER_STEP for k in K2DW_INT8})
         print("training step, int8 scores (bf16):", json.dumps(report["training_parity_int8"]),
@@ -4550,7 +4628,6 @@ def main() -> int:
     check_rowblock(A * M, D, gen, device, kernels)
     check_rowblock_sm90_shapes(gen, device, kernels, D)
     check_head_front(front, front_libs, kernels)
-    front_dir.cleanup()
     lib = _lib.library()
     for code, stage in enumerate(STAGE_NAMES):
         w_in, w_hid = {"compress": (3 * D, D), "combination": (2 * D, 2 * D), "head": (D, D)}[stage]
@@ -4600,12 +4677,19 @@ def main() -> int:
     for M_shape in (48, 16):
         check_w8a8_layer(11000, M_shape, D, H, F, gen, device, kernels, tag=f"A11000_M{M_shape}")
         check_int8_layer(11000, M_shape, D, H, F, gen, device, kernels, tag=f"A11000_M{M_shape}")
+    check_absmax_front(front, front_libs, kernels)
+    front_dir.cleanup()
     if build_log.exists():  # the int8-score and W8A8 instantiations (MODE 1, 2)
         for name, kernel in (("fused_layer_fwd_int8_sm90", "k1_sm90_kernelILi1E"),
                              ("fused_layer_bwd_int8_sm90", "k2_sm90_kernelILi1E"),
                              (W8A8_SM90[0], "k1_sm90_kernelILi2E"),
-                             (W8A8_SM90[1], "k2_sm90_kernelILi2E")):
+                             (W8A8_SM90[1], "k2_sm90_kernelILi2E"),
+                             ("int8_absmax_sm90", "absmax_sm90_kernel")):
             kernels[name]["ptxas_bf16"] = ptxas_usage(build_log.read_text(), kernel)
+    print(f"Hopper absmax pass ({card}; the general pass's ms beside):", json.dumps(
+        {k: kernels["int8_absmax_sm90"].get(k) for k in (
+            "ms_bf16", "general_ms_bf16", "plain_ms_bf16", "bound_ms_bf16", "scale_ulps_bf16",
+            "general_pair_blocks_differ", "ptxas_bf16", "smem_bytes", "shapes")}), flush=True)
     for title, name in (("Hopper K1-int8", "fused_layer_fwd_int8_sm90"),
                         ("Hopper K2-int8", "fused_layer_bwd_int8_sm90"),
                         ("Hopper K1-W8A8", W8A8_SM90[0]),

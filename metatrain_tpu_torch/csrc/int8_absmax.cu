@@ -14,20 +14,25 @@
 // then quantize alike.
 //
 // Per atom, one thread block recomputes RMSNorm and the q and k columns of
-// the QKV product exactly as K1 rounds them (the same rmsnorm_rows and
-// block_mm, so the same float values), 64 rows at a time, and reduces |q|
-// and |k| to the block's maxima with atomicMax on the float bits (the
+// the QKV product exactly as the general bodies round them (K1-int8 of
+// fused_layer_fwd.cu and K2-dW-int8's first pass: the same rmsnorm_rows
+// and block_mm, so the same float values), 64 rows at a time, and reduces
+// |q| and |k| to the block's maxima with atomicMax on the float bits (the
 // values are non-negative, so their bits order as unsigned integers and
-// the result does not depend on the order). A second small kernel folds in
-// the padding of a partial last block (the JAX package pads it with atoms
-// whose tokens are 0 and cf 1: their q rows are b_q and their k rows b_k)
-// and turns the maxima into scales.
+// the result does not depend on the order). A second small kernel
+// (int8_scales, shared with the Hopper pass) folds in the padding of a
+// partial last block (the JAX package pads it with atoms whose tokens are 0
+// and cf 1: their q rows are b_q and their k rows b_k) and turns the maxima
+// into scales. The Hopper K1-int8 and K2-int8 form q and k on wgmma, in
+// another order of summation: where they run (the served int8 call), the
+// scales come from int8_absmax_sm90.cu, which forms q and k with their code.
 //
 // What bounds it on the H100: 2/3 of K1's QKV product (2 M D 2D operations
 // per atom, on bf16 tensor cores) and one read of the edges; the product
 // dominates, about a fifth of K1's time.
 
 #include "common.cuh"
+#include "int8_absmax.cuh"
 
 namespace mtt {
 namespace {
@@ -105,6 +110,14 @@ __global__ void int8_scales_kernel(const T* __restrict__ b_qkv, long long A, int
 }
 
 }  // namespace
+
+int int8_scales(const void* b_qkv, float* scales, long long A, int D, int block_atoms, cudaStream_t stream) {
+    using T = __nv_bfloat16;
+    const long long n_blocks = (A + block_atoms - 1) / block_atoms;
+    int8_scales_kernel<T><<<(unsigned)n_blocks, 32, 0, stream>>>((const T*)b_qkv, A, D, block_atoms, scales);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace mtt
 
 extern "C" size_t mtt_int8_absmax_smem(int D) {
@@ -134,7 +147,5 @@ extern "C" int mtt_int8_absmax(
         M, D, block_atoms, eps, reinterpret_cast<unsigned*>(scales));
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    mtt::int8_scales_kernel<T><<<(unsigned)n_blocks, 32, 0, s>>>((const T*)b_qkv, A, D, block_atoms,
-                                                                 scales);
-    return (int)cudaGetLastError();
+    return mtt::int8_scales(b_qkv, scales, A, D, block_atoms, s);
 }

@@ -1,5 +1,6 @@
 // Helpers of the Hopper K1 (fused_layer_fwd_sm90.cu) and the Hopper K2
-// (fused_layer_bwd_sm90.cu), the two sources that include this header:
+// (fused_layer_bwd_sm90.cu), and of the Hopper absmax pass
+// (int8_absmax_sm90.cu: K1's RMSNorm and q and k panels, no ring):
 // cp.async copies into a ring of staged weight tiles, ldmatrix fragment
 // loads, the block's 64 x 128 panel product on wgmma, and the layer's
 // forward up to h_norm (the phases at the end), which K1 runs as its first
@@ -461,24 +462,35 @@ __device__ __forceinline__ void rms_rows(Src src, const bf16* w, float* RS, bf16
     }, extra);
 }
 
-// q|k|v = rnd(n1 w_qkv + b): three panels over the ring's next 6 chunks
-// (w_qkv^T rows 128 p .. + 127, two k halves each). With two atoms per block
-// (N8 = 8), atom 1's n1 and q|k|v lie `stride` elements after atom 0's.
+// Panel pn of q|k|v (columns 128 pn .. + 127: q, k or v) over the ring's
+// next 2 chunks (w_qkv^T rows 128 pn .. + 127, two k halves), N1 the calling
+// thread's atom's n1: put(m, col, y0, y1) takes columns col and col + 1 of
+// row m as n1 w_qkv + b in float, the bias added after the sum. K1, K2 and
+// the Hopper absmax pass (int8_absmax_sm90.cu) all form q and k here.
+template <int N8, typename Ring, typename Put>
+__device__ __forceinline__ void qkv_panel(Ring& ring, int& c, const bf16* N1, int pn, const bf16* b_qkv,
+                                          Put put) {
+    float acc[N8][4];
+    zero(acc);
+    panel_mm<2>(ring, c, [&](int r, int& ld) { ld = LA; return N1 + r * kChunkK; }, acc);
+    panel_pairs<N8>([&](int j, int h, int m, int n) {
+        const int col = pn * kChunkN + n;
+        const float2 b = ld2(b_qkv + col);
+        put(m, col, acc[j][2 * h] + b.x, acc[j][2 * h + 1] + b.y);
+    });
+}
+
+// q|k|v = rnd(n1 w_qkv + b): three panels over the ring's next 6 chunks.
+// With two atoms per block (N8 = 8), atom 1's n1 and q|k|v lie `stride`
+// elements after atom 0's.
 template <int N8 = 4, typename Ring>
 __device__ __forceinline__ void qkv_panels(Ring& ring, int& c, const bf16* N1, bf16* QKV, const bf16* b_qkv,
                                            size_t stride = 0) {
     N1 += panel_atom<N8>() * stride;
     QKV += panel_atom<N8>() * stride;
-    for (int pn = 0; pn < 3; ++pn) {
-        float acc[N8][4];
-        zero(acc);
-        panel_mm<2>(ring, c, [&](int r, int& ld) { ld = LA; return N1 + r * kChunkK; }, acc);
-        panel_pairs<N8>([&](int j, int h, int m, int n) {
-            const int col = pn * kChunkN + n;
-            const float2 b = ld2(b_qkv + col);
-            store2(QKV + m * LQ + col, acc[j][2 * h] + b.x, acc[j][2 * h + 1] + b.y);
-        });
-    }
+    for (int pn = 0; pn < 3; ++pn)
+        qkv_panel<N8>(ring, c, N1, pn, b_qkv,
+                      [&](int m, int col, float y0, float y1) { store2(QKV + m * LQ + col, y0, y1); });
 }
 
 // attn = rnd(P v) with P = cf e / z rounded to bf16, e = exp(s - max), z =

@@ -274,7 +274,7 @@ class FusedTransformerLayer(nn.Module):
         elif (self.int8_scores and self.int8_probe is None
               and int8_scores_applicable(args[0], self.num_heads)):
             if self.plain:
-                scales = int8_scales_for(args[0], args[1], w, plain=True)
+                scales = int8_scales_for(args[0], args[1], w, self.num_heads, plain=True)
                 edge_out, center_attn = layer_math(*args, int8_scales=scales)
             else:
                 edge_out, center_attn = fused_transformer_layer(*args, int8_scores=True)

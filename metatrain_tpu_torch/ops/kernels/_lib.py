@@ -60,6 +60,7 @@ SOURCES = (
     "gnn_node_sm90.cu",
     "gnn_node_f32_sm90.cu",
     "int8_absmax.cu",
+    "int8_absmax_sm90.cu",
 )
 LIBRARY = "libmtt_kernels.so"
 MAX_SHARED_BYTES = 232448  # per block on sm_90 (227 KB)
@@ -109,6 +110,11 @@ _SIGNATURES = {
     "mtt_fused_layer_fwd_int8": [_P] * 16 + _LAYER_TAIL,
     "mtt_fused_layer_bwd_int8": [_P] * 23 + _LAYER_TAIL,
     "mtt_int8_absmax": [_P] * 6 + [_L, _I, _I, _I, _F, _P],
+    # edges, center, norm_attn, w_qkv^T, b_qkv, scales; A, M, D, H, F,
+    # block_atoms, eps, SMs, stream
+    "mtt_int8_absmax_sm90": [_P] * 6 + [_L, _I, _I, _I, _I, _I, _F, _I, _P],
+    "mtt_int8_absmax_sm90_ok": [_I] * 4,
+    "mtt_int8_absmax_sm90_smem": [_I] * 4,
     "mtt_rowblock_fwd": [_I, _I, _P, _P, _P, _I] + [_P] * 7 + [_L, _I, _I, _I, _I, _P],
     "mtt_rowblock_fwd_sm90": [_I, _P, _P, _P, _I] + [_P] * 7 + [_L, _I, _I, _I, _I, _I, _P],
     "mtt_rowblock_fwd_f32_sm90": [_I, _P, _P, _P, _I] + [_P] * 7 + [_L, _I, _I, _I, _I, _I, _P],
@@ -378,6 +384,30 @@ def k1_sm90_smem(M: int, D: int, H: int, F: int, int8: bool = False, w8a8: bool 
     atom = rows * (3 * D + 8) * 2 + rows * (D + 8) * 2
     q8 = rows * (2 * D + 16) if int8 or w8a8 else 0
     return 2 * atom + 3 * 128 * 64 * 2 + 2 * 4 * 3 * rows + 2 * q8
+
+
+def absmax_sm90_takes(dtype: torch.dtype, M: int, D: int, H: int, F: int,
+                      weight_grads: bool = False) -> bool:
+    """Whether the int8 scores' scales come from the Hopper absmax pass
+    (``csrc/int8_absmax_sm90.cu``, counter ``int8_absmax_sm90``; C
+    ``mtt_int8_absmax_sm90_ok``): exactly where the forward is the Hopper
+    K1-int8 (:func:`k1_sm90_takes` with ``int8``), whose q and k it forms
+    with the same code. Everywhere else (weight gradients, M above 64,
+    d_pet 256) the general K1-int8 and K2-dW-int8 quantize, and the general
+    pass (``int8_absmax``) forms q and k as they do."""
+    return k1_sm90_takes(dtype, M, D, H, F, int8=True, weight_grads=weight_grads)
+
+
+def absmax_sm90_smem(M: int, D: int, H: int, F: int) -> int:
+    """``mtt_int8_absmax_sm90_smem``: its shared bytes per block, 0 for a
+    shape it does not take. The C source's layout: the q and k rows of
+    w_qkv^T as four resident 128 x 64 bf16 chunks, the n1 tiles of two atoms
+    (bf16 rows of D + 8), two buffers of a pair's token rows (64 x D bf16
+    per atom) and the norms' factors of two atoms (64 floats each)."""
+    if not absmax_sm90_takes(torch.bfloat16, M, D, H, F):
+        return 0
+    rows = 64
+    return 4 * 128 * 64 * 2 + 2 * rows * (D + 8) * 2 + 4 * rows * D * 2 + 2 * rows * 4
 
 
 def k1_f32_sm90_takes(dtype: torch.dtype, M: int, D: int, H: int, F: int, w8a8: bool = False,

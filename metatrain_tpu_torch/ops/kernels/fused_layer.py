@@ -40,7 +40,8 @@ K2-W8A8 on the card (the same sources), the plain versions on the CPU.
 The dynamic int8 scores (the JAX package's ``MTT_INT8_SCORES=1``,
 bfloat16 in the q-side layout) quantize q and k with one absmax scale per
 block of atoms (:func:`int8_block_scales`, the plain version of the absmax
-pass ``csrc/int8_absmax.cu``; the blocks are the JAX forward's,
+passes ``csrc/int8_absmax.cu`` and, where the Hopper K1-int8 runs,
+``csrc/int8_absmax_sm90.cu``; the blocks are the JAX forward's,
 :func:`int8_block_atoms`), computed once per layer call and handed to the
 forward, the backward and the second-order replay alike as per-atom
 ``int8_scales`` (A, 2). ``fused_transformer_layer(..., int8_scores=True)``
@@ -696,15 +697,24 @@ def _int8_kernel_scales(edges, int8_scales):
     return int8_scales
 
 
-def int8_absmax_cuda(edges, center, w: LayerWeights, block_atoms: int = None):
-    """Launch the absmax pass (``csrc/int8_absmax.cu``, bfloat16): the
-    ``(n_blocks, 2)`` float32 scales of :func:`int8_block_scales`."""
+def _absmax_check(edges, center, w: LayerWeights):
     A, M, D = edges.shape
     if center.shape != (A, D) or w.w_qkv.shape != (D, 3 * D):
         raise ValueError(f"center {tuple(center.shape)} or w_qkv {tuple(w.w_qkv.shape)} do not "
                          f"match edges {tuple(edges.shape)}")
     if edges.dtype != torch.bfloat16:
         raise TypeError(f"the absmax pass takes bfloat16, got {edges.dtype}")
+
+
+def int8_absmax_cuda(edges, center, w: LayerWeights, block_atoms: int = None):
+    """Launch the general absmax pass (``csrc/int8_absmax.cu``, bfloat16):
+    the ``(n_blocks, 2)`` float32 scales of :func:`int8_block_scales`, of q
+    and k formed as the general bodies form them (K1-int8 of
+    ``fused_layer_fwd.cu``, K2-dW-int8's first pass). Where the Hopper
+    K1-int8 quantizes (the served int8 call), :func:`int8_absmax_sm90_cuda`
+    forms them with its code instead."""
+    A, M, D = edges.shape
+    _absmax_check(edges, center, w)
     cd = edges.dtype
     wc = [x.detach().to(cd).contiguous() for x in (w.norm_attn, w.w_qkv, w.b_qkv)]
     _lib.require({"edges": edges, "center": center, "norm_attn": wc[0], "w_qkv": wc[1],
@@ -725,16 +735,58 @@ def int8_absmax_cuda(edges, center, w: LayerWeights, block_atoms: int = None):
     return scales
 
 
-def int8_scales_for(edges, center, w: LayerWeights, plain: bool = False):
-    """The (A, 2) per-atom int8 score scales of one layer call: the absmax
-    pass on the card (its plain version on the CPU or with ``plain``),
-    expanded from the blocks of :func:`int8_block_atoms` to their atoms."""
-    A, M = edges.shape[:2]
+def int8_absmax_sm90_cuda(edges, center, w: LayerWeights, num_heads: int, block_atoms: int = None):
+    """Launch the Hopper absmax pass (``csrc/int8_absmax_sm90.cu``,
+    bfloat16, at the shapes of :func:`_lib.absmax_sm90_takes`): the
+    ``(n_blocks, 2)`` float32 scales of :func:`int8_block_scales`, the
+    absmax of q and k as the Hopper K1-int8 forms them (its RMSNorm and q
+    and k panels on wgmma, bit for bit). Raises for a shape it does not
+    take."""
+    A, M, D = edges.shape
+    _absmax_check(edges, center, w)
+    F = w.w_ffn_out.shape[0]
+    if not _lib.absmax_sm90_takes(edges.dtype, M, D, num_heads, F):
+        raise ValueError(f"the Hopper absmax pass does not take M={M}, D={D}, heads={num_heads}, "
+                         f"F={F}")
+    BA = block_atoms or int8_block_atoms(M)
+    cd = edges.dtype
+    norm_attn, b_qkv = (x.detach().to(cd).contiguous() for x in (w.norm_attn, w.b_qkv))
+    w_qkv_t = w.w_qkv.detach().to(cd).t().contiguous()
+    _lib.require({"edges": edges, "center": center, "norm_attn": norm_attn, "w_qkv": w_qkv_t,
+                  "b_qkv": b_qkv}, edges.device, cd)
+    lib = _lib.library()
+    _lib.check_shared(lib.mtt_int8_absmax_sm90_smem(M, D, num_heads, F), "int8_absmax_sm90")
+    scales = torch.empty((-(-A // BA), 2), dtype=torch.float32, device=edges.device)
+    _lib.check(
+        lib.mtt_int8_absmax_sm90(edges.data_ptr(), center.data_ptr(), norm_attn.data_ptr(),
+                                 w_qkv_t.data_ptr(), b_qkv.data_ptr(), scales.data_ptr(), A, M, D,
+                                 num_heads, F, BA, rmsnorm_eps(cd), _lib.sm_count(edges.device),
+                                 _lib.stream_ptr(edges.device)),
+        "int8_absmax_sm90",
+    )
+    _lib.LAUNCHES["int8_absmax_sm90"] += 1
+    return scales
+
+
+def int8_scales_for(edges, center, w: LayerWeights, num_heads: int, *, plain: bool = False,
+                    weight_grads: bool = False, sm90: bool = True):
+    """The (A, 2) per-atom int8 score scales of one layer call, expanded
+    from the blocks of :func:`int8_block_atoms` to their atoms. On the card
+    they come from the pass whose q and k are those of the K1-int8 the call
+    runs: the Hopper pass where :func:`_lib.absmax_sm90_takes` holds, the
+    general pass for ``weight_grads`` (the forward is the general K1-int8),
+    ``sm90=False`` (the caller forces the general bodies) or another shape.
+    On the CPU, or with ``plain``, their plain version
+    :func:`int8_block_scales`."""
+    A, M, D = edges.shape
     BA = int8_block_atoms(M)
-    if edges.is_cuda and not plain:
-        blocks = int8_absmax_cuda(edges, center, w, BA)
-    else:
+    if plain or not edges.is_cuda:
         blocks = int8_block_scales(edges, center, w, BA)
+    elif sm90 and _lib.absmax_sm90_takes(edges.dtype, M, D, num_heads, w.w_ffn_out.shape[0],
+                                         weight_grads):
+        blocks = int8_absmax_sm90_cuda(edges, center, w, num_heads, BA)
+    else:
+        blocks = int8_absmax_cuda(edges, center, w, BA)
     return int8_atom_scales(blocks, A, BA)
 
 
@@ -1318,14 +1370,16 @@ class _FusedLayer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, edges, center, cf, num_heads, scale, chunk, int8_scores, *weights):
         w = LayerWeights(*weights)
+        # the test backward makes for the weight gradients
+        weight_grads = any(ctx.needs_input_grad[7:])
         # the dynamic int8 scores' scales: once per call, for the forward,
-        # the backward and the replay alike (constants)
-        int8_scales = int8_scales_for(edges, center, w) if int8_scores else None
+        # the backward and the replay alike (constants), from the pass whose
+        # q and k are the forward's
+        int8_scales = int8_scales_for(edges, center, w, num_heads,
+                                      weight_grads=weight_grads) if int8_scores else None
         ctx.save_for_backward(edges, center, cf, int8_scales, *weights)
         ctx.num_heads, ctx.scale, ctx.chunk = num_heads, scale, chunk
-        # the test backward makes for the weight gradients
-        return _first_forward(edges, center, cf, w, num_heads, scale, int8_scales,
-                              any(ctx.needs_input_grad[7:]))
+        return _first_forward(edges, center, cf, w, num_heads, scale, int8_scales, weight_grads)
 
     @staticmethod
     def backward(ctx, g_edge, g_center):

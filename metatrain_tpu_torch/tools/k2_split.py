@@ -6,7 +6,7 @@ Usage, on a machine with a CUDA device and nvcc::
 
     python metatrain_tpu_torch/tools/k2_split.py
         --body hopper|general|f32-hopper|k1-hopper|k1-f32|k1-general|k3-head|k4-head|k4dw-general|k4-f32
-        |hopper-int8|k1-int8|hopper-w8a8
+        |hopper-int8|k1-int8|hopper-w8a8|absmax
         [--dtype bfloat16|float32] [--dw] [--A 11392] [--M 64]
 
 Copies the body's sources (``--body hopper``: the Hopper K2,
@@ -23,7 +23,9 @@ K1, ``csrc/fused_layer_fwd_f32_sm90.cu``; ``k1-general``: K1's general
 body, ``csrc/layer_fwd.cuh`` in ``csrc/fused_layer_fwd.cu``, in
 ``--dtype``; ``k3-head`` / ``k4-head``: the
 Hopper K3 / K4 head, ``csrc/rowblock_{fwd,bwd}_sm90.cu`` with the shared
-``head_front`` of ``csrc/rowblock_sm90.cuh``) into a
+``head_front`` of ``csrc/rowblock_sm90.cuh``; ``absmax``: the Hopper absmax
+pass, ``csrc/int8_absmax_sm90.cu`` with ``csrc/int8_absmax.cu``, its loop
+over atom pairs in phases) into a
 temporary directory, inserts after each phase's closing barrier a stamp of
 thread 0's ``clock64()`` that adds the phase's cycles to a device counter,
 builds that copy alone with nvcc, runs it on a seeded case (D = 128, 8
@@ -184,6 +186,17 @@ K4DW_GENERAL_PHASES = ["loads (combination: and LayerNorm)", "pre product", "dW:
                        "d_xn product", "dW: ln_scale, ln_bias (inputs re-read)",
                        "LayerNorm backward, stores"]
 # the Hopper float32 K4 (rowblock_bwd_f32_sm90.cu)
+# the Hopper absmax pass: its loop over atom pairs (the stamps inside it)
+ABSMAX = (
+    ('#include "layer_sm90.cuh"\n', False, STAMP),
+    ("    float mq = 0.f, mk = 0.f;\n", False, "    long long t_prev = clock64();\n"),
+    ("        const bf16* X = TOK + buf", True, None),
+    ("        int c = 0;\n", True, None),
+    ("        qkv_panel<8>(res, c, n1, 1, b_qkv,", True, None),
+    ("        // both atoms of a pair lie", True, None),
+    ("    }\n    cp_async_wait<0>();\n", True, None),
+)
+ABSMAX_PHASES = ["stage next, wait tokens", "RMSNorm", "q panel", "k panel", "flush"]
 K4_F32 = (
     ('#include "rowblock_f32_sm90.cuh"\n', False, STAMP),
     ("    float pre[4][4], dh[4][4];\n    compress_pre", True, "    long long t_prev = clock64();\n"),
@@ -257,8 +270,9 @@ def instrument(text: str, marks, phase: int = 0) -> str:
 def build(work: Path, body: str, dtype: str) -> Path:
     for source in CSRC.glob("*.cu*"):
         shutil.copy(source, work / source.name)
+    extra = []
     if body in ("hopper", "k1-hopper", "k1-f32", "f32-hopper", "k4dw-general", "k4-f32",
-                "hopper-int8", "k1-int8", "hopper-w8a8"):
+                "hopper-int8", "k1-int8", "hopper-w8a8", "absmax"):
         unit, marks = {"hopper": ("fused_layer_bwd_sm90.cu", HOPPER),
                        "hopper-int8": ("fused_layer_bwd_sm90.cu", HOPPER),
                        "hopper-w8a8": ("fused_layer_bwd_sm90.cu", HOPPER),
@@ -267,9 +281,12 @@ def build(work: Path, body: str, dtype: str) -> Path:
                        "k1-f32": ("fused_layer_fwd_f32_sm90.cu", K1_F32),
                        "f32-hopper": ("fused_layer_bwd_f32_sm90.cu", F32_HOPPER),
                        "k4dw-general": ("rowblock_bwd.cu", K4DW_GENERAL),
-                       "k4-f32": ("rowblock_bwd_f32_sm90.cu", K4_F32)}[body]
+                       "k4-f32": ("rowblock_bwd_f32_sm90.cu", K4_F32),
+                       "absmax": ("int8_absmax_sm90.cu", ABSMAX)}[body]
         unit = work / unit
         unit.write_text(instrument(unit.read_text(), marks) + COUNTERS)
+        if body == "absmax":  # its quotient step
+            extra = [str(work / "int8_absmax.cu")]
     elif body == "k1-general":
         header = work / "layer_fwd.cuh"
         header.write_text(instrument(header.read_text(), K1_GENERAL))
@@ -293,7 +310,7 @@ def build(work: Path, body: str, dtype: str) -> Path:
     lib = work / "split.so"
     nvcc = shutil.which("nvcc") or str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
     subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                    "-Xcompiler", "-fPIC", "-shared", str(unit), "-o", str(lib)], check=True,
+                    "-Xcompiler", "-fPIC", "-shared", str(unit), *extra, "-o", str(lib)], check=True,
                    timeout=600)
     return lib
 
@@ -393,7 +410,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--body", choices=("hopper", "general", "f32-hopper", "k1-hopper", "k1-f32",
                                            "k1-general", "k3-head", "k4-head", "k4dw-general",
-                                           "k4-f32", "hopper-int8", "k1-int8", "hopper-w8a8"),
+                                           "k4-f32", "hopper-int8", "k1-int8", "hopper-w8a8",
+                                           "absmax"),
                         required=True)
     parser.add_argument("--dtype", choices=("bfloat16", "float32"), default=None,
                         help="the general bodies' storage type (the Hopper bodies have one each)")
@@ -412,7 +430,7 @@ def main() -> int:
                           timeout=60).stdout.strip().splitlines()[0]
     if args.body in ("k4dw-general", "k4-f32"):
         return k4_split(args, card)
-    from sm90_front import port_int8_scales, port_w8a8  # this directory's
+    from sm90_front import port_fused_layer, port_int8_scales, port_w8a8  # this directory's
     own = "float32" if args.body in ("f32-hopper", "k1-f32") else "bfloat16"
     if args.dtype not in (None, own) and args.body not in ("general", "k1-general"):
         parser.error(f"--body {args.body} runs in {own}")
@@ -471,7 +489,7 @@ def main() -> int:
             fn = getattr(lib, {"hopper": "mtt_fused_layer_bwd_sm90", "f32-hopper": "mtt_fused_layer_bwd_f32_sm90",
                                "hopper-int8": "mtt_fused_layer_bwd_int8_sm90"}[args.body])
             if args.body == "hopper-int8":  # the scales after the transposed weights
-                ptrs.insert(15, port_int8_scales(e, c, w))
+                ptrs.insert(15, port_int8_scales(e, c, w, H))
             fn.argtypes = [P] * len(ptrs) + [L, I, I, I, I, F_, F_, P]
 
             def run():
@@ -489,6 +507,19 @@ def main() -> int:
             def run():
                 return fn(*(x.data_ptr() for x in before), scales, *(x.data_ptr() for x in after),
                           A, M, D, H, F, scale, eps, stream)
+        elif args.body == "absmax":
+            # edges, center, norm_attn, w_qkv^T, b_qkv, the scales; one
+            # persistent block per SM, blocks of fused_layer.int8_block_atoms
+            block_atoms = port_fused_layer().int8_block_atoms(M)
+            ptrs = [e, c, w[0], w[1].t().contiguous(), w[2],
+                    torch.empty(-(-A // block_atoms), 2, device=dev)]
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            fn = lib.mtt_int8_absmax_sm90
+            fn.argtypes = [P] * 6 + [L, I, I, I, I, I, F_, I, P]
+
+            def run():
+                return fn(*(x.data_ptr() for x in ptrs), A, M, D, H, F, block_atoms, eps, sms,
+                          stream)
         elif args.body == "k1-f32":
             # w_in^T as it is
             ptrs = [e, c, cf, *(w[i] for i in (0, 2, 4, 5, 7, 9)),
@@ -516,7 +547,7 @@ def main() -> int:
             fn = lib.mtt_fused_layer_fwd_sm90
             if args.body == "k1-int8":  # the scales after the weight matrices
                 fn = lib.mtt_fused_layer_fwd_int8_sm90
-                ptrs.insert(13, port_int8_scales(e, c, w))
+                ptrs.insert(13, port_int8_scales(e, c, w, H))
             fn.argtypes = [P] * len(ptrs) + [L, I, I, I, I, F_, F_, P]
 
             def run():
@@ -546,7 +577,8 @@ def main() -> int:
         torch.cuda.synchronize()
     names = {"hopper": HOPPER_PHASES, "general": GENERAL_PHASES, "f32-hopper": F32_HOPPER_PHASES,
              "hopper-int8": HOPPER_PHASES, "hopper-w8a8": HOPPER_PHASES, "k1-int8": K1_HOPPER_PHASES, "k1-hopper": K1_HOPPER_PHASES, "k1-f32": K1_F32_PHASES, "k1-general": K1_GENERAL_PHASES,
-             "k3-head": K3_HEAD_PHASES, "k4-head": K4_HEAD_PHASES}[args.body]
+             "k3-head": K3_HEAD_PHASES, "k4-head": K4_HEAD_PHASES,
+             "absmax": ABSMAX_PHASES}[args.body]
     cycles = list(counts)[:len(names)]
     total = sum(cycles)
     # the heads' stamps count per 64-row tile of a block

@@ -22,10 +22,15 @@ general body's; likewise ``fused_layer_fwd_ms_bf16`` and
 has the Hopper float32 K1 (``_lib.k1_f32_sm90_takes``; the general body's
 digest then under ``fused_layer_fwd_general_f32``, which a tree without it
 gives under ``fused_layer_fwd_f32``). In bfloat16, also the dynamic int8
-scores' K1-int8 and K2-int8 on scales from the absmax pass
-(``fused_layer_{fwd,bwd}_int8_ms_bf16``: the Hopper K1 and K2's int8-score
-mode where the tree has it, the general bodies before) and their general
-bodies (``sm90=False``, ``fused_layer_{fwd,bwd}_int8_general_ms_bf16``);
+scores' absmax passes where the tree has the Hopper one
+(``int8_absmax_sm90_ms_bf16`` beside the general ``int8_absmax_ms_bf16``),
+K1-int8 and K2-int8 (``fused_layer_{fwd,bwd}_int8_ms_bf16``: the Hopper K1
+and K2's int8-score mode where the tree has it, the general bodies
+before) on the scales of the call's own pass (the Hopper pass's where the
+tree has it, else the general pass's; on the general pass's also as
+``fused_layer_{fwd,bwd}_int8_on_general_scales``, comparable with a tree
+whose Hopper pair took those) and their general bodies (``sm90=False``,
+``fused_layer_{fwd,bwd}_int8_general_ms_bf16``) on the general pass's;
 and the static W8A8 layer's K1-W8A8 and K2-W8A8 on a calibration from the
 plain probe (``fused_layer_{fwd,bwd}_w8a8_ms_bf16``: the Hopper K1 and K2's
 W8A8 mode where the tree has it, the general bodies before) and their
@@ -145,15 +150,36 @@ def main() -> int:
             digests[f"{name}_{tag}"] = digest(fn())
             times[f"{name}_ms_{tag}"] = cuda_ms(fn)
         if dtype == torch.bfloat16:
-            scales = fl.int8_scales_for(e, c, w)
-            for name, kw in (("fused_layer_fwd_int8", {}), ("fused_layer_bwd_int8", {}),
-                             ("fused_layer_fwd_int8_general", {"sm90": False}),
-                             ("fused_layer_bwd_int8_general", {"sm90": False})):
+            # each body on the scales of its own absmax pass: the general
+            # bodies on the general pass's, the Hopper K1/K2-int8 on the
+            # Hopper pass's where the tree has it (and, as *_on_general_scales,
+            # on the general pass's too: the keys a tree without it digests)
+            if hasattr(fl, "int8_absmax_sm90_cuda"):
+                BA = fl.int8_block_atoms(M)
+                for name, fn in (
+                        ("int8_absmax_sm90", lambda: (fl.int8_absmax_sm90_cuda(e, c, w, H, BA),)),
+                        ("int8_absmax", lambda: (fl.int8_absmax_cuda(e, c, w, BA),))):
+                    digests[f"{name}_{tag}"] = digest(fn())
+                    times[f"{name}_ms_{tag}"] = cuda_ms(fn)
+                general = fl.int8_scales_for(e, c, w, H, sm90=False)
+                own = fl.int8_scales_for(e, c, w, H)
+                runs = (("fused_layer_fwd_int8", {}, own), ("fused_layer_bwd_int8", {}, own),
+                        ("fused_layer_fwd_int8_on_general_scales", {}, general),
+                        ("fused_layer_bwd_int8_on_general_scales", {}, general),
+                        ("fused_layer_fwd_int8_general", {"sm90": False}, general),
+                        ("fused_layer_bwd_int8_general", {"sm90": False}, general))
+            else:
+                scales = fl.int8_scales_for(e, c, w)
+                runs = tuple((name, kw, scales) for name, kw in (
+                    ("fused_layer_fwd_int8", {}), ("fused_layer_bwd_int8", {}),
+                    ("fused_layer_fwd_int8_general", {"sm90": False}),
+                    ("fused_layer_bwd_int8_general", {"sm90": False})))
+            for name, kw, s8 in runs:
                 if "fwd" in name:
-                    fn = lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale, int8_scales=scales, **kw)  # noqa: E731
+                    fn = lambda: fl.fused_layer_fwd_cuda(e, c, cf, w, H, scale, int8_scales=s8, **kw)  # noqa: E731
                 else:
                     fn = lambda: fl.fused_layer_bwd_cuda(e, c, cf, w, ge, gc, H, scale,  # noqa: E731
-                                                         int8_scales=scales, **kw)
+                                                         int8_scales=s8, **kw)
                 digests[f"{name}_{tag}"] = digest(fn())
                 times[f"{name}_ms_{tag}"] = cuda_ms(fn)
             # the W8A8 layer (its calibration draws nothing from gen)

@@ -32,7 +32,12 @@ With ``--int8`` (bfloat16) the two kernels run their int8-score mode
 (K1-int8 and K2-int8, the entries ``mtt_fused_layer_{fwd,bwd}_int8_sm90``)
 on the port's per-atom scales (``fused_layer.int8_scales_for``), and the
 copies take q|k|v too (before the attention): the line says whether
-K1-int8's q|k|v, attn, res and h_norm equal K2-int8's recompute.
+K1-int8's q|k|v, attn, res and h_norm equal K2-int8's recompute. Beside
+them the tool builds a plain copy of the Hopper absmax pass
+(``csrc/int8_absmax_sm90.cu`` with ``csrc/int8_absmax.cu``) and reports
+under ``absmax_sm90`` whether its scales equal, bit for bit, the per-block
+max of the q and k that K1-int8 quantizes (:func:`absmax_compare`, which
+``chip_smoke.py`` runs on the port's own pass at M = 64, 48 and 16).
 
 With ``--w8a8`` (bfloat16) the two kernels run their W8A8 mode (K1-W8A8 and
 K2-W8A8, the entries ``mtt_fused_layer_{fwd,bwd}_w8a8_sm90``) on the port's
@@ -117,7 +122,9 @@ K2_MARKS = (
 )
 
 # the int8-score mode (--int8): g_dump is (A, M, 6, D), attn, res and
-# h_norm, then q|k|v (copied before the attention)
+# h_norm, then q|k|v (copied before the attention); beside the pair, a
+# plain copy of the Hopper absmax pass, whose scales must be those of
+# K1-int8's q and k (absmax_compare; chip_smoke.py builds K1_INT8 alone)
 QKV6 = dict(ld="LQ", slots=6, width="(3 * D)")
 K1_INT8_MARKS = (
     ('#include "layer_sm90.cuh"\n', False, DUMP),
@@ -132,6 +139,7 @@ K2_INT8_MARKS = (
     ("    // ---- SwiGLU backward", True, _copy(1, "a", "RES", slots=6) + _copy(2, "a", "OP", slots=6)),
 )
 
+K1_INT8 = ("k1_int8", "fused_layer_fwd_sm90.cu", K1_INT8_MARKS)
 
 # the float32 kernels: one atom per block, float tiles in rows of LT
 K1_F32_MARKS = (
@@ -206,7 +214,8 @@ KERNELS = {
     "float32": (("k1", "fused_layer_fwd_f32_sm90.cu", K1_F32_MARKS),
                 ("k2", "fused_layer_bwd_f32_sm90.cu", K2_F32_MARKS)),
     "int8": (("k1", "fused_layer_fwd_sm90.cu", K1_INT8_MARKS),
-             ("k2", "fused_layer_bwd_sm90.cu", K2_INT8_MARKS)),
+             ("k2", "fused_layer_bwd_sm90.cu", K2_INT8_MARKS),
+             ("absmax", ("int8_absmax_sm90.cu", "int8_absmax.cu"), ())),
     "w8a8": (("k1", "fused_layer_fwd_sm90.cu", K1_W8A8_MARKS),
              ("k2", "fused_layer_bwd_sm90.cu", K2_W8A8_MARKS)),
 }
@@ -303,18 +312,24 @@ def instrument(text: str, marks) -> str:
 
 
 def spawn(work: Path, kernels) -> dict:
-    """Start one nvcc per instrumented copy of ``kernels`` in ``work``;
+    """Start one nvcc per instrumented copy of ``kernels`` in ``work`` (a
+    tuple of sources without marks: one library of the plain copies);
     returns the processes by key (:func:`load` waits for them)."""
     for header in CSRC.glob("*.cuh"):
         shutil.copy(header, work / header.name)
     nvcc = shutil.which("nvcc") or str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
     procs = {}
     for key, source, marks in kernels:
-        unit = work / source
-        unit.write_text(instrument((CSRC / source).read_text(), marks))
+        if isinstance(source, tuple):
+            units = [work / f"{key}_{s}" for s in source]
+            for unit, s in zip(units, source):
+                unit.write_text((CSRC / s).read_text())
+        else:
+            units = [work / f"{key}_{source}"]
+            units[0].write_text(instrument((CSRC / source).read_text(), marks))
         procs[key] = subprocess.Popen(
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler",
-             "-fPIC", "-shared", str(unit), "-o", str(work / f"{key}.so")])
+             "-fPIC", "-shared", *map(str, units), "-o", str(work / f"{key}.so")])
     return procs
 
 
@@ -337,14 +352,21 @@ def build(work: Path, mode: str = "bfloat16", kernels=None) -> dict:
     return load(work, spawn(work, kernels or KERNELS[mode]))
 
 
-def port_int8_scales(e, c, w):
-    """The (A, 2) int8 score scales of one layer call, as the port takes
-    them (``fused_layer.int8_scales_for``, its plain absmax pass: the
-    kernels under test are the tool's copies, not the port's library)."""
+def port_fused_layer():
+    """The port's ``ops.kernels.fused_layer`` of this checkout (its rules
+    and plain versions: the kernels under test are the tool's copies, not
+    the port's library)."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))  # the checkout
     from metatrain_tpu_torch.ops.kernels import fused_layer as fl
 
-    return fl.int8_scales_for(e, c, fl.LayerWeights(*w), plain=True)
+    return fl
+
+
+def port_int8_scales(e, c, w, H):
+    """The (A, 2) int8 score scales of one layer call, as the port takes
+    them (``fused_layer.int8_scales_for``, its plain absmax pass)."""
+    fl = port_fused_layer()
+    return fl.int8_scales_for(e, c, fl.LayerWeights(*w), H, plain=True)
 
 
 def port_w8a8(e, c, cf, w, H, scale):
@@ -391,28 +413,9 @@ def main() -> int:
         parser.error("one mode at a time")
     A, M, D, H, F = args.A, args.M, 128, 8, 256
     dev = torch.device("cuda", 0)
-    gen = torch.Generator().manual_seed(0)
-
-    def lecun(*shape):
-        return torch.randn(*shape, generator=gen) / math.sqrt(shape[0])
-
-    w = [1 + 0.1 * torch.randn(D, generator=gen), lecun(D, 3 * D),
-         0.1 * torch.randn(3 * D, generator=gen), lecun(D, D), 0.1 * torch.randn(D, generator=gen),
-         1 + 0.1 * torch.randn(D, generator=gen), lecun(D, 2 * F),
-         0.1 * torch.randn(2 * F, generator=gen), lecun(F, D), 0.1 * torch.randn(D, generator=gen)]
     dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
-    w = [x.to(dev, dtype).contiguous() for x in w]
-    n_real = torch.randint(M // 2, M - 1, (A, 1), generator=gen)
-    cf = torch.rand(A, M, generator=gen) * (torch.arange(M)[None] < n_real)
-    cf[:, M - 1] = 1.0
-    cf = cf.to(dev)
-    e, c, ge, gc = (torch.randn(*s, generator=gen).to(dev, dtype)
-                    for s in ((A, M, D), (A, D), (A, M, D), (A, D)))
-    scale, eps = 1.0 / math.sqrt(D // H), float(torch.finfo(torch.float32).eps)
-    # w_in^T with value and gate rows interleaved in blocks of 64, as
-    # fused_layer.k1_sm90_w_vg arranges it
-    w_vg = w[6].t().reshape(2, F // 64, 64, D).transpose(0, 1).reshape(2 * F, D).contiguous()
-    t = {i: w[i].t().contiguous() for i in (1, 3, 6, 8)}
+    w, e, c, cf, ge, gc, t, w_vg = make_case(A, M, dtype, dev)
+    scale, eps = 1.0 / math.sqrt(D // H), EPS
     P, I, L, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     if args.w8a8:
         return w8a8_main(card, A, M, D, H, F, e, c, cf, w, t, ge, gc, scale, eps)
@@ -439,11 +442,13 @@ def main() -> int:
         }
         if args.int8:
             # the scales after K1's weight matrices and K2's transposed weights
-            s8 = port_int8_scales(e, c, w)
+            s8 = port_int8_scales(e, c, w, H)
             for key, at in (("k1", 13), ("k2", 15)):
                 entry, ptypes, ptrs = runs[key]
                 runs[key] = (entry.replace("_sm90", "_int8_sm90"), ptypes + [P],
                              ptrs[:at] + [s8] + ptrs[at:])
+            # the Hopper absmax pass (the tool's copy) against K1-int8's q|k
+            absmax = absmax_compare(libs["k1"], A, M, copy_absmax(libs["absmax"]))
         for key, (entry, ptypes, ptrs) in runs.items():
             dump = torch.zeros(A, M, len(slots), D, dtype=dtype, device=dev)
             lib = libs[key]
@@ -457,9 +462,140 @@ def main() -> int:
             torch.cuda.synchronize()
             dumps[key] = dump
     equal = {name: torch.equal(dumps["k1"][:, :, i], dumps["k2"][:, :, i]) for i, name in enumerate(slots)}
-    print(json.dumps({"card": card, "dtype": args.dtype, "int8": args.int8, "shape": [A, M, D, H, F],
-                      "bitwise_equal": equal, "finite": bool(torch.isfinite(dumps["k1"].float()).all())}))
+    line = {"card": card, "dtype": args.dtype, "int8": args.int8, "shape": [A, M, D, H, F],
+            "bitwise_equal": equal, "finite": bool(torch.isfinite(dumps["k1"].float()).all())}
+    if args.int8:
+        line["absmax_sm90"] = absmax
+        equal = equal | {"absmax_sm90": absmax["bitwise_equal"]}
+    print(json.dumps(line))
     return 0 if all(equal.values()) else 2
+
+
+EPS = 1.1920928955078125e-07  # float32's machine epsilon: the kernels' RMSNorm eps in bf16 and f32
+
+
+def make_case(A: int, M: int, dtype, dev, seed: int = 0):
+    """One seeded layer case (D = 128, 8 heads, F = 256; inputs as
+    ``layer_times.py`` makes them): the ten weights in ``dtype`` on
+    ``dev``, edges, center, cf, the cotangents, the transposed matrices
+    ``t`` (w_qkv, w_out, w_in, w_ffn_out by their index) and w_in^T in
+    ``fused_layer.k1_sm90_w_vg``'s blocks of 64 (value rows, then gate)."""
+    import torch
+
+    D, F = 128, 256
+    gen = torch.Generator().manual_seed(seed)
+
+    def lecun(*shape):
+        return torch.randn(*shape, generator=gen) / math.sqrt(shape[0])
+
+    w = [1 + 0.1 * torch.randn(D, generator=gen), lecun(D, 3 * D),
+         0.1 * torch.randn(3 * D, generator=gen), lecun(D, D), 0.1 * torch.randn(D, generator=gen),
+         1 + 0.1 * torch.randn(D, generator=gen), lecun(D, 2 * F),
+         0.1 * torch.randn(2 * F, generator=gen), lecun(F, D), 0.1 * torch.randn(D, generator=gen)]
+    w = [x.to(dev, dtype).contiguous() for x in w]
+    n_real = torch.randint(M // 2, M - 1, (A, 1), generator=gen)
+    cf = torch.rand(A, M, generator=gen) * (torch.arange(M)[None] < n_real)
+    cf[:, M - 1] = 1.0
+    cf = cf.to(dev)
+    e, c, ge, gc = (torch.randn(*s, generator=gen).to(dev, dtype)
+                    for s in ((A, M, D), (A, D), (A, M, D), (A, D)))
+    w_vg = w[6].t().reshape(2, F // 64, 64, D).transpose(0, 1).reshape(2 * F, D).contiguous()
+    t = {i: w[i].t().contiguous() for i in (1, 3, 6, 8)}
+    return w, e, c, cf, ge, gc, t, w_vg
+
+
+def block_scales(q, k, b_qkv, block_atoms: int):
+    """The int8 score scales of blocks of ``block_atoms`` atoms from given q
+    and k (A, M, D) in bf16: the absmax over each block's atoms, a partial
+    last block taking max |b_q| and max |b_k| (its padding atoms' rows),
+    then max(absmax, 1e-12) / 127 rounded once to float32, on ``q``'s
+    device (``int8_block_scales``'s reduction, here on the values a kernel
+    quantizes). The quotient is numpy's on the host, as the kernels'
+    ``__fdiv_rn``: PyTorch's CUDA division by a scalar multiplies by its
+    reciprocal, one float ulp off in some blocks."""
+    import numpy as np
+    import torch
+
+    A, _, D = q.shape
+    am = torch.stack([x.float().abs().amax(dim=(1, 2)) for x in (q, k)], dim=1)
+    n = -(-A // block_atoms)
+    pad = n * block_atoms - A
+    am = torch.cat([am, am.new_zeros(pad, 2)]).reshape(n, block_atoms, 2).amax(dim=1)
+    if pad:
+        b = b_qkv.to(torch.bfloat16).float().abs()
+        am[-1] = torch.maximum(am[-1], torch.stack([b[:D].amax(), b[D:2 * D].amax()]))
+    quotient = torch.clamp_min(am, 1e-12).cpu().numpy() / np.float32(127.0)
+    return torch.from_numpy(quotient).to(q.device)
+
+
+def copy_absmax(lib):
+    """The Hopper absmax pass of the tool's copy (``ABSMAX_COPY``) as a
+    function (e, c, w, H, block_atoms) -> (n_blocks, 2) scales."""
+    import torch
+
+    fn = lib.mtt_int8_absmax_sm90
+    P, I, L, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    fn.argtypes = [P] * 6 + [L, I, I, I, I, I, F_, I, P]
+
+    def run(e, c, w, H, block_atoms):
+        A, M, D = e.shape
+        out = torch.empty(-(-A // block_atoms), 2, device=e.device)
+        w_qkv_t = w[1].t().contiguous()
+        sms = torch.cuda.get_device_properties(e.device).multi_processor_count
+        code = fn(e.data_ptr(), c.data_ptr(), w[0].data_ptr(), w_qkv_t.data_ptr(), w[2].data_ptr(),
+                  out.data_ptr(), A, M, D, H, w[8].shape[0], block_atoms, EPS, sms,
+                  torch.cuda.current_stream(e.device).cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"mtt_int8_absmax_sm90 failed to launch ({code})")
+        return out
+    return run
+
+
+def absmax_compare(k1_lib, A: int, M: int, hopper_blocks, seed: int = 0,
+                   general_blocks=None, block_atoms: int = None) -> dict:
+    """The Hopper absmax pass's scales (``hopper_blocks(e, c, w, H,
+    block_atoms)``: the port's wrapper or the tool's copy) against those
+    of the q|k that the Hopper K1-int8 itself forms, bit for bit: one
+    seeded case (:func:`make_case`, bfloat16) through ``k1_lib`` (the
+    instrumented K1-int8 copy of ``K1_INT8_MARKS``, whose dump takes
+    q|k|v before the attention) on the pass's own scales; the dump's q and
+    k reduced by :func:`block_scales`, in blocks of ``block_atoms`` (the
+    port's ``int8_block_atoms(M)`` by default; 2, one atom pair a block,
+    keeps a per-block maximum from hiding a differing value). Returns the
+    shape, the blocks, and whether the two are bitwise equal; with
+    ``general_blocks`` (the general pass, ``fused_layer.int8_absmax_cuda(e,
+    c, w, block_atoms)``) also how many of its blocks differ from K1-int8's
+    q|k max."""
+    import torch
+
+    D, H, F = 128, 8, 256
+    dev = torch.device("cuda", 0)
+    w, e, c, cf, _, _, t, w_vg = make_case(A, M, torch.bfloat16, dev, seed)
+    block_atoms = block_atoms or port_fused_layer().int8_block_atoms(M)
+    blocks = hopper_blocks(e, c, w, H, block_atoms)
+    s8 = blocks.repeat_interleave(block_atoms, dim=0)[:A].contiguous()
+    dump = torch.full((A, M, 6, D), float("nan"), dtype=torch.bfloat16, device=dev)
+    P, I, L, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    fn = k1_lib.mtt_fused_layer_fwd_int8_sm90
+    fn.argtypes = [P] * 16 + [L, I, I, I, I, F_, F_, P]
+    k1_lib.dump_set.argtypes = [P]
+    if k1_lib.dump_set(dump.data_ptr()) != 0:
+        raise RuntimeError("could not set the dump buffer")
+    args = [e, c, cf, *(w[i] for i in (0, 2, 4, 5, 7, 9)), t[1], t[3], w_vg, t[8], s8,
+            torch.empty_like(e), torch.empty_like(c)]
+    if fn(*(x.data_ptr() for x in args), A, M, D, H, F, 1.0 / math.sqrt(D // H), EPS,
+          torch.cuda.current_stream(dev).cuda_stream) != 0:
+        raise RuntimeError("mtt_fused_layer_fwd_int8_sm90 failed to launch")
+    torch.cuda.synchronize()
+    q, k = dump[:, :, 3], dump[:, :, 4]
+    want = block_scales(q, k, w[2], block_atoms)
+    res = {"A": A, "M": M, "block_atoms": block_atoms, "blocks": int(blocks.shape[0]),
+           "qk_finite": bool(torch.isfinite(dump[:, :, 3:5].float()).all()),
+           "bitwise_equal": torch.equal(blocks, want)}
+    if general_blocks is not None:
+        general = general_blocks(e, c, w, block_atoms)
+        res["general_blocks_differ"] = int((general != want).any(dim=1).sum())
+    return res
 
 
 def w8a8_main(card, A, M, D, H, F, e, c, cf, w, t, ge, gc, scale, eps) -> int:

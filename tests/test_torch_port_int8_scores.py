@@ -235,7 +235,7 @@ def test_bfloat16_function_matches_jax_interpret_kernels(monkeypatch, M, A):
     # the input-gradient variant (K2-int8's plain version) gives the same
     xd = [t.detach() for t in x]
     wd = tfl.LayerWeights(*(t.detach() for t in tw))
-    scales = tfl.int8_scales_for(xd[0], xd[1], wd)
+    scales = tfl.int8_scales_for(xd[0], xd[1], wd, H)
     t_in = tfl.layer_bwd_math(*xd, wd, *cot, H, SCALE, int8_scales=scales)
     for t, j in zip(t_in, j_in[:3]):
         assert rel_rms(t.float(), np.asarray(j, np.float32)) < 1e-2

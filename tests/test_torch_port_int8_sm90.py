@@ -177,7 +177,7 @@ def test_forward_wrapper_launches_what_the_rule_says(fake, M, sm90, entry, count
     each, and no exact K1."""
     H = 8
     edges, center, cf, w, _, _ = _torch_case(3, M, 128, 256)
-    scales = tfl.int8_scales_for(edges, center, w, plain=True)
+    scales = tfl.int8_scales_for(edges, center, w, H, plain=True)
     names = ("fused_layer_fwd_int8_sm90", "fused_layer_fwd_int8", "fused_layer_fwd_sm90",
              "fused_layer_fwd")
     before = {k: _lib.LAUNCHES[k] for k in names}
@@ -204,7 +204,7 @@ def test_backward_wrapper_launches_what_the_rule_says(fake, M, sm90, weight_grad
     pair."""
     H = 8
     edges, center, cf, w, ge, gc = _torch_case(3, M, 128, 256)
-    scales = tfl.int8_scales_for(edges, center, w, plain=True)
+    scales = tfl.int8_scales_for(edges, center, w, H, plain=True)
     names = ("fused_layer_bwd_int8_sm90", "fused_layer_bwd_int8", "fused_layer_bwd_sm90",
              "fused_layer_bwd_dw_int8_sm90", "fused_layer_bwd_dw_int8")
     before = {k: _lib.LAUNCHES[k] for k in names}
@@ -233,7 +233,7 @@ def test_cpu_layer_runs_the_plain_versions_at_the_served_shape():
     scale = 1.0 / math.sqrt(D // H)
     assert _lib.k1_sm90_takes(BF16, M, D, H, F, int8=True)
     assert _lib.k2_sm90_takes(BF16, M, D, H, F, int8=True)
-    scales = tfl.int8_scales_for(edges, center, w, plain=True)
+    scales = tfl.int8_scales_for(edges, center, w, H, plain=True)
     x = [t.clone().requires_grad_(True) for t in (edges, center, cf)]
     out = tfl.fused_transformer_layer(*x, w, H, scale, int8_scores=True)
     grads = torch.autograd.grad(out, x, (ge, gc))
@@ -350,7 +350,7 @@ def test_kernel_roundings_stay_within_the_kernel_bound(M):
     D, H, F = 128, 8, 256
     edges, center, cf, w, ge, gc = _torch_case(8, M, D, F, seed=M)
     scale = 1.0 / math.sqrt(D // H)
-    scales = tfl.int8_scales_for(edges, center, w, plain=True)
+    scales = tfl.int8_scales_for(edges, center, w, H, plain=True)
     fwd = _forward(edges, center, cf, w, H, scale, scales)[0]
     for a, b in zip(fwd, tfl.layer_math(edges, center, cf, w, H, scale, int8_scales=scales)):
         assert _rel_rms(a.float(), b.float()) < 1e-2
@@ -386,7 +386,7 @@ def test_kernel_roundings_against_the_jax_int8_layer_in_bf16(monkeypatch):
     j_in = jfl._make_bwd_op(H, scale, weight_grads=False, int8=True)(*jx, jw, _jax(ge, bf),
                                                                      _jax(gc, bf))
     t = _torch_case(A, M, D, F, seed=5)
-    scales = tfl.int8_scales_for(t[0], t[1], t[3], plain=True)
+    scales = tfl.int8_scales_for(t[0], t[1], t[3], H, plain=True)
     emulated = (*_forward(*t[:4], H, scale, scales)[0],
                 *_backward(*t, H, scale, scales))
     plain = (*tfl.layer_math(*t[:4], H, scale, int8_scales=scales),
@@ -410,11 +410,14 @@ def test_front_bits_tool_finds_its_int8_marks():
     attn, res and h_norm out of copies of the Hopper K1 and K2 at marks
     each source holds once, into rows of six slots; the copies run the
     int8 entries with the scales after the same arguments as ``_lib``
-    binds."""
+    binds. Beside them the tool builds a plain copy of the Hopper absmax
+    pass (its two sources), whose scales it holds against K1-int8's q|k."""
     tool = _tool("sm90_front")
     kernels = dict((key, (source, marks)) for key, source, marks in tool.KERNELS["int8"])
-    assert {k: s for k, (s, _) in kernels.items()} == {"k1": "fused_layer_fwd_sm90.cu",
-                                                       "k2": "fused_layer_bwd_sm90.cu"}
+    assert {k: s for k, (s, _) in kernels.items()} == {
+        "k1": "fused_layer_fwd_sm90.cu", "k2": "fused_layer_bwd_sm90.cu",
+        "absmax": ("int8_absmax_sm90.cu", "int8_absmax.cu")}
+    assert kernels.pop("absmax")[1] == ()
     for key, (source, marks) in kernels.items():
         text = tool.instrument((tool.CSRC / source).read_text(), marks)
         # K1: both atoms of a block, four copies each
@@ -449,31 +452,36 @@ def test_phase_split_and_times_tools_find_the_int8_kernels():
 
 def test_chip_smoke_expects_the_hopper_int8_pair():
     """``chip_smoke.py``'s launch tables: the served int8 call launches the
-    absmax pass and the Hopper K1-int8 and K2-int8 four times each and the
-    general int8 bodies and the exact K1/K2 never; the int8 step the
-    general K1-int8 and never the Hopper pair. The kernel line has the new
-    K1-int8 and K2-int8 entries beside the general K1-int8's (the general
-    K2-int8 runs on no path: the Hopper K2-int8's ``general_ms``), each
-    entry's launches from the run of its path."""
+    Hopper absmax pass and the Hopper K1-int8 and K2-int8 four times each
+    and the general pass, the general int8 bodies and the exact K1/K2
+    never; the int8 step the general pass and the general K1-int8 and
+    never the Hopper pair. The kernel line has the new K1-int8 and K2-int8
+    entries beside the general K1-int8's (the general K2-int8 runs on no
+    path: the Hopper K2-int8's ``general_ms``), and the Hopper absmax pass
+    beside the general one, each entry's launches from the run of its
+    path."""
     spec = importlib.util.spec_from_file_location("chip_smoke_for_int8", ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     assert cs.INT8_SM90 == ("fused_layer_fwd_int8_sm90", "fused_layer_bwd_int8_sm90")
-    assert cs.INT8_KERNELS[:3] == ["int8_absmax", *cs.INT8_SM90]
-    assert set(cs.INT8_NEVER) == {"fused_layer_fwd_int8", "fused_layer_bwd_int8", "fused_layer_fwd",
-                                  "fused_layer_bwd", "fused_layer_fwd_sm90", "fused_layer_bwd_sm90"}
+    assert cs.INT8_KERNELS[:3] == ["int8_absmax_sm90", *cs.INT8_SM90]
+    assert set(cs.INT8_NEVER) == {"int8_absmax", "fused_layer_fwd_int8", "fused_layer_bwd_int8",
+                                  "fused_layer_fwd", "fused_layer_bwd", "fused_layer_fwd_sm90",
+                                  "fused_layer_bwd_sm90"}
     assert cs.SOURCES["fused_layer_fwd_int8_sm90"][0].endswith("csrc/fused_layer_fwd_sm90.cu")
     assert cs.SOURCES["fused_layer_bwd_int8_sm90"][0].endswith("csrc/fused_layer_bwd_sm90.cu")
+    assert cs.SOURCES["int8_absmax_sm90"][0].endswith("csrc/int8_absmax_sm90.cu")
+    assert cs.SOURCES["int8_absmax"][0].endswith("csrc/int8_absmax.cu")
     assert "fused_layer_bwd_int8" not in cs.SOURCES
     assert cs.SOURCES["fused_layer_fwd_int8"][0].endswith("csrc/fused_layer_fwd.cu")
-    assert cs.N_ENTRIES == 54
-    report = {"slice_int8": {"launches": {"int8_absmax": 12, "fused_layer_fwd_int8_sm90": 12,
+    assert cs.N_ENTRIES == 55
+    report = {"slice_int8": {"launches": {"int8_absmax_sm90": 12, "fused_layer_fwd_int8_sm90": 12,
                                           "fused_layer_bwd_int8_sm90": 12}},
-              "training_parity_int8": {"launches": {"fused_layer_fwd_int8": 4,
+              "training_parity_int8": {"launches": {"int8_absmax": 4, "fused_layer_fwd_int8": 4,
                                                     "fused_layer_bwd_dw_int8_sm90": 8}}}
     assert [cs.launch_count(report, k) for k in (
-        "int8_absmax", *cs.INT8_SM90, "fused_layer_fwd_int8",
-        "fused_layer_bwd_dw_int8")] == [12, 12, 12, 4, 8]
+        "int8_absmax_sm90", *cs.INT8_SM90, "int8_absmax", "fused_layer_fwd_int8",
+        "fused_layer_bwd_dw_int8")] == [12, 12, 12, 4, 4, 8]
 
 
 def _chip_smoke():
@@ -497,7 +505,7 @@ def test_chip_smoke_tells_the_int8_mode_from_the_exact_one(monkeypatch, mode, fo
     D, H, F = 128, 8, 256
     edges, center, cf, w, ge, gc = _torch_case(16, 64, D, F, seed=7)
     scale = 1.0 / math.sqrt(D // H)
-    scales = tfl.int8_scales_for(edges, center, w, plain=True)
+    scales = tfl.int8_scales_for(edges, center, w, H, plain=True)
     i1 = tfl.layer_math(edges, center, cf, w, H, scale, int8_scales=scales)
     x1 = tfl.layer_math(edges, center, cf, w, H, scale)
     i2 = tfl.layer_bwd_math(edges, center, cf, w, ge, gc, H, scale, int8_scales=scales)

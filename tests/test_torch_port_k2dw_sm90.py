@@ -116,7 +116,7 @@ def test_two_passes_with_int8_scores_match_jax(chunks):
     assert tfl.int8_block_atoms(M) == A
     t = [torch.from_numpy(a) for a in (edges, center, cf, g_edge, g_center)]
     tw = tfl.LayerWeights(*(torch.from_numpy(a) for a in w))
-    scales = tfl.int8_scales_for(t[0], t[1], tw)
+    scales = tfl.int8_scales_for(t[0], t[1], tw, H)
     ops = tfl.layer_dw_operands(t[0], t[1], t[2], tw, t[3], t[4], H, scale, int8_scales=scales)
     two_pass = tfl.dw_from_operands(ops, t[3], _plan(t[0], A, M, D, F, chunks))
     plain = tfl.layer_bwd_math(t[0], t[1], t[2], tw, t[3], t[4], H, scale, weight_grads=True,

@@ -505,7 +505,7 @@ def test_chip_smoke_expects_the_hopper_w8a8_pair():
     assert cs.SOURCES["fused_layer_fwd_w8a8_sm90"][1].startswith(
         "metatrain_tpu/ops/pallas/fused_layer.py:1161")
     assert "fused_layer_fwd_w8a8" not in cs.SOURCES and "fused_layer_bwd_w8a8" not in cs.SOURCES
-    assert cs.N_ENTRIES == 54
+    assert cs.N_ENTRIES == 55
     report = {"slice_w8a8": {"launches": {"fused_layer_fwd_w8a8_sm90": 12,
                                           "fused_layer_bwd_w8a8_sm90": 12}}}
     assert [cs.launch_count(report, k) for k in cs.W8A8_SM90] == [12, 12]
