@@ -239,6 +239,46 @@ device and exits non-zero without one. Phases (any failure propagates):
    model, and the times of one forced list rebuild
    (``compute_neighbor_data`` at cutoff + skin) and one
    ``batch_from_systems`` on the crystal (three each).
+7c. disk data, the writers and the MD-engine servers, in 7b's directory
+   on its ``model.mtt`` (the 30-epoch weights): (a) phase 5's frames as
+   7b's ``train`` read them, written to ``frames.zip``
+   (``DiskDatasetWriter``) and ``frames.memmap/``
+   (``write_memmap_dataset``); ``train`` for 1 epoch from each with 7b's
+   options, each in a directory of its own, every counter at 0 just
+   before it: 7b's kernel checks (the Hopper float32 K1 and never the
+   general K1, ``K2DW_F32``, ``K4DW_F32`` and ``K3_F32``, never the
+   accumulate K2-dW or the general K4-dW), the final evaluation's train
+   and validation metrics within 1e-6 relative of 7b's extended-xyz run,
+   whether the final weights equal that run's bit for bit and its epoch
+   time beside theirs; (b) ``eval model.mtt`` with ``-o`` ``preds.xyz``,
+   ``preds.zip``, ``preds.mts`` and ``preds/``, read back with
+   ``DiskDataset``, ``load_mts`` and ``MemmapDataset``: the energies equal
+   to the ``.xyz``'s bit for bit, the forces within its text's 5e-11, the
+   three float64 formats equal to each other bit for bit; ``eval`` with
+   the energy target read from an ``.mts`` file (``save_mts`` of the
+   frames' labels) within 1e-6 relative of the extended xyz's metrics;
+   (c) ``main(["serve", "model.mtt", "--unix", ...])`` in a thread, a
+   ``ForceClient`` sending the crystal with a fresh 0.01 A jitter 2 times
+   as a warm-up and then 10 times, every counter at 0 before those 10:
+   the Hopper float32 K1 and K2 4 times a request, the float32 K3 and K4
+   2 + 2 + 1 each, the general K1 and K2 never; each answer within 1e-6
+   of max |F| (forces) and 1e-6 relative (energy, virial) of
+   ``Calculator("model.mtt").compute(..., stress=True)`` on the same
+   positions in the same order, and whether they are equal bit for bit;
+   ms per request (host clock at the client) beside ``compute``'s ms per
+   call; (d) ``main(["drive", "model.mtt", "crystal.xyz", "--unix", ...])``
+   against a minimal i-PI server in a thread (INIT, 5 POSDATA / GETFORCE
+   rounds), ms per round at the server: forces within 1e-5 of max |F| and
+   energies within 1e-5 relative of a new ``Calculator("model.mtt")``
+   given the positions and cell as the wire gave them (through bohr) in
+   the same order, so on the driver's reused lists; against calculators
+   whose lists are built on each round's own positions, the same pairs
+   within the cutoff (checked exactly), forces within 1e-4 of max |F| and
+   within 4 times the float32 order noise (the rounds with their atoms
+   relabelled), and in float64 on the plain path (the 2,048-atom crystal)
+   within 1e-9. Details
+   under ``disk_and_servers`` in
+   ``chip_smoke.json``.
 8. kernel vs plain at the shapes the served calls gave the kernels (the
    calculator's padded atom count A and slot count M, D = 128, 8 heads,
    d_ff = 256; rows = A * M for the row-block stages and the permutes;
@@ -3787,6 +3827,7 @@ def check_entry_points(device, report, workdir):
     """Phase 7b: the user's entry points, ``python -m metatrain_tpu_torch``
     called in this process (``__main__.main``), on phase 5's frames; then
     ``Calculator`` from the exported file and ``run_md_nve`` on the crystal."""
+    import csv
     import glob
     import os
 
@@ -3835,6 +3876,9 @@ def check_entry_points(device, report, workdir):
 
         # export: model.ckpt's weights (its best ones) bit for bit in the file
         ckpt = Path(glob.glob("outputs/*/*/model.ckpt")[0])
+        out["train_dir"] = str(ckpt.parent.resolve())
+        with open(ckpt.parent / "train.csv") as f:
+            out["train_epoch_s"] = float(next(csv.DictReader(f))["epoch time (s)"])
         cli(["export", str(ckpt), "-o", "exported.mtt"])
         raw = load_checkpoint_file(ckpt)
         best = raw["params"] if raw["best_params"] is None else raw["best_params"]
@@ -3983,6 +4027,463 @@ def check_entry_points(device, report, workdir):
     finally:
         os.chdir(cwd)
     report["entry_points"] = out
+
+
+def disk_copies(workdir):
+    """Phase 5's frames as 7b's ``train`` reads them (the extended xyz's
+    float64 values), written to ``frames.zip`` and ``frames.memmap/``."""
+    from metatrain_tpu_torch.data.disk import DiskDatasetWriter, write_memmap_dataset
+    from metatrain_tpu_torch.data.readers.extxyz import read_xyz
+
+    frames = read_xyz(str(workdir / "cu_lj.xyz"))
+    energies = [float(f.extra["energy"]) for f in frames]
+    forces = [np.asarray(f.extra["forces"], dtype=np.float64) for f in frames]
+    with DiskDatasetWriter(str(workdir / "frames.zip")) as writer:
+        for frame, energy, force in zip(frames, energies, forces):
+            writer.write(frame, {"energy": {"values": np.asarray([energy]),
+                                            "positions_gradient": -force}})
+    write_memmap_dataset(str(workdir / "frames.memmap"), frames, np.asarray(energies), forces)
+    return frames, energies, forces
+
+
+def train_from_disk(cli, workdir, read_from, first):
+    """``train`` (7b's options, ``read_from`` the disk copy) in a directory
+    of its own: its launches, its final evaluation, its epoch time and
+    whether its final weights equal 7b's extxyz run's bit for bit."""
+    import csv
+    import glob
+    import os
+
+    from metatrain_tpu_torch.ops.kernels import _lib
+    from metatrain_tpu_torch.utils.io import load_checkpoint_file
+
+    run_dir = workdir / f"run_{Path(read_from).suffix.lstrip('.')}"
+    run_dir.mkdir()
+    os.chdir(run_dir)
+    options = json.loads((workdir / "options.json").read_text())
+    options["training_set"]["systems"]["read_from"] = str(read_from)
+    Path("options.json").write_text(json.dumps(options))
+    _lib.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with CapturedLog("metatrain_tpu_torch.train") as messages:
+        cli(["train", "options.json"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    expected = [K1_F32, *K2DW_F32, *K4DW_F32, *K3_F32]
+    missing = [k for k in expected if launches.get(k, 0) == 0]
+    if missing or launches.get("fused_layer_fwd", 0):
+        fail(f"train from {read_from}: kernels not launched: {missing}, or the general K1 "
+             f"launched: {launches.get('fused_layer_fwd', 0)}")
+    check_k2dw_launches(launches)
+    check_k4dw_launches(launches)
+    final = {split: logged_metrics(messages, split + " ") for split in ("train", "validation")}
+    ref = first["final_evaluation"]
+    if any(final[s].keys() != ref[s].keys() for s in ref):
+        fail(f"train from {read_from}: final evaluation {final}, the extxyz run's {ref}")
+    worst = max(abs(final[s][k] - ref[s][k]) / abs(ref[s][k]) for s in ref for k in ref[s])
+    if not worst <= 1e-6:
+        fail(f"train from {read_from}: final evaluation {final}, the extxyz run's "
+             f"{first['final_evaluation']} (worst relative difference {worst})")
+    ckpt = Path(glob.glob("outputs/*/*/model.ckpt")[0])
+    with open(ckpt.parent / "train.csv") as f:
+        epoch_s = float(next(csv.DictReader(f))["epoch time (s)"])
+    ours = dict(flatten(load_checkpoint_file(ckpt)["params"]))
+    theirs = dict(flatten(load_checkpoint_file(Path(first["train_dir"]) / "model.ckpt")["params"]))
+    equal = ours.keys() == theirs.keys() and all(np.array_equal(ours[k], theirs[k])
+                                                 for k in theirs)
+    return {"seconds": seconds, "epoch_s": epoch_s, "launches": launches,
+            "launches_equal_extxyz": launches == first["train_launches"],
+            "final_evaluation": final, "worst_rel_vs_extxyz": worst,
+            "weights_equal_extxyz": equal}
+
+
+def check_writers(cli, workdir, device):
+    """``eval model.mtt`` written to ``.xyz``, ``.zip``, ``.mts`` and a
+    memmap directory, each read back; then ``eval`` with the energy target
+    read from an ``.mts`` file against the extended xyz's."""
+    from metatrain_tpu_torch.cli.eval import eval_model
+    from metatrain_tpu_torch.containers import Labels, TensorBlock, TensorMap
+    from metatrain_tpu_torch.data.disk import DiskDataset, MemmapDataset
+    from metatrain_tpu_torch.data.readers.extxyz import read_xyz
+    from metatrain_tpu_torch.data.readers.mts import load_mts, save_mts
+
+    out = {}
+    t0 = time.perf_counter()
+    for name in ("preds.xyz", "preds.zip", "preds.mts", "preds/"):
+        cli(["eval", "model.mtt", "eval.json", "-o", name])
+    torch.cuda.synchronize()
+    out["eval_s"] = time.perf_counter() - t0
+    frames = read_xyz("preds.xyz")
+    offsets = np.cumsum([0] + [len(f) for f in frames])
+    xyz_e = np.array([float(f.extra["energy"]) for f in frames])
+    xyz_f = np.concatenate([f.extra["energy_forces"] for f in frames])
+    block = load_mts("preds_energy.mts").block(0)
+    read = {"mts": (np.asarray(block.values)[:, 0],
+                    -np.asarray(block.gradient("positions").values)[:, :, 0])}
+    for key, dataset in (("zip", DiskDataset("preds.zip")), ("memmap", MemmapDataset("preds"))):
+        blocks = [dataset[i].targets["energy"].block(0) for i in range(len(dataset))]
+        read[key] = (np.array([float(np.asarray(b.values)[0, 0]) for b in blocks]),
+                     np.concatenate([-np.asarray(b.gradient("positions").values)[:, :, 0]
+                                     for b in blocks]))
+        positions = np.concatenate([dataset[i].system.positions for i in range(len(dataset))])
+        if len(dataset) != len(frames) or np.abs(
+                positions - np.concatenate([f.positions for f in frames])).max() > 5.1e-11:
+            fail(f"eval -o {key}: its systems are not preds.xyz's")
+    for key, (energies, forces) in read.items():
+        # the xyz holds the energies as repr(float), the forces as "%.10f"
+        if not (np.array_equal(energies, xyz_e) and forces.shape == xyz_f.shape
+                and np.abs(forces - xyz_f).max() <= 5.1e-11):
+            fail(f"eval -o {key}: energies or forces read back differ from preds.xyz's")
+        if not (np.array_equal(forces, read["mts"][1]) and np.array_equal(energies,
+                                                                          read["mts"][0])):
+            fail(f"eval -o {key}: its float64 values differ from the .mts file's")
+    out["read_back"] = {"systems": len(frames), "atoms": int(offsets[-1]),
+                        "energies_equal_xyz": True, "float64_formats_equal": True,
+                        "max_abs_force_vs_xyz": float(np.abs(read["mts"][1] - xyz_f).max())}
+
+    # the energy target from an .mts file (save_mts of the frames' labels)
+    labelled = read_xyz("cu_lj.xyz")
+    props = Labels(["energy"], np.zeros((1, 1), np.int32))
+    energy = TensorBlock(np.array([[float(f.extra["energy"])] for f in labelled]),
+                         Labels(["system"], np.arange(len(labelled)).reshape(-1, 1)), [], props)
+    samples = np.array([[s, s, a] for s, f in enumerate(labelled) for a in range(len(f))])
+    energy.add_gradient("positions", TensorBlock(
+        -np.concatenate([f.extra["forces"] for f in labelled]).reshape(-1, 3, 1),
+        Labels(["sample", "system", "atom"], samples),
+        [Labels(["xyz"], np.arange(3).reshape(-1, 1))], props))
+    save_mts(TensorMap(Labels.single(), [energy]), "energy.mts")
+    section = dataset_section("cu_lj.xyz")
+    via_xyz = eval_model("model.mtt", section, device=device)
+    section["targets"] = {"energy": {"read_from": "energy.mts", "unit": "eV"}}
+    via_mts = eval_model("model.mtt", section, device=device)
+    worst = max(abs(via_mts[k] - via_xyz[k]) / abs(via_xyz[k]) for k in via_xyz)
+    if via_mts.keys() != via_xyz.keys() or not worst <= 1e-6:
+        fail(f"eval with an .mts energy target: {via_mts}, with the extended xyz's: {via_xyz}")
+    out["mts_target"] = {"metrics": via_mts, "metrics_xyz": via_xyz, "worst_rel": worst}
+    return out
+
+
+def jittered(crystal, n, seed):
+    """``n`` copies of the crystal's positions, each with a fresh 0.01 A jitter."""
+    rng = np.random.default_rng(seed)
+    return [crystal.positions + rng.normal(0, 0.01, crystal.positions.shape) for _ in range(n)]
+
+
+def check_serve(cli, workdir, crystal, direct):
+    """``serve model.mtt`` in a thread, a ``ForceClient`` sending the crystal
+    2 + 10 times; the answers against ``direct`` on the same positions."""
+    import threading
+
+    from metatrain_tpu_torch.containers import System
+    from metatrain_tpu_torch.ops.kernels import _lib
+    from metatrain_tpu_torch.serve import ForceClient
+
+    sock = str(workdir / "serve.sock")
+    ended = {}
+
+    def serve():
+        try:
+            ended["rc"] = cli(["serve", "model.mtt", "--unix", sock])
+        except Exception as err:  # noqa: BLE001 - the phase fails on it below
+            ended["error"] = repr(err)
+
+    thread = threading.Thread(target=serve, daemon=True)
+    thread.start()
+    client = None
+    for _ in range(1200):
+        try:
+            client = ForceClient(unix=sock)
+            break
+        except (FileNotFoundError, ConnectionRefusedError):
+            if not thread.is_alive():
+                fail(f"serve ended before it listened: {ended}")
+            time.sleep(0.1)
+    if client is None:
+        fail("serve did not listen within 120 s")
+    positions = jittered(crystal, 12, seed=31)
+    types, cell, pbc = crystal.types, crystal.cell, crystal.pbc
+    answers, ms = [], []
+    for i, pos in enumerate(positions):
+        if i == 2:  # after the warm-up: every counter starts at 0
+            torch.cuda.synchronize()
+            _lib.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        answers.append(client.compute(pos, types, cell, pbc))
+        if i >= 2:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_lib.LAUNCHES)
+    client.close()
+    thread.join(timeout=120)
+    if thread.is_alive() or ended.get("rc") != 0:
+        fail(f"serve did not end with 0 after its client left: {ended}")
+    per_request = {k: v / 10 for k, v in launches.items()}
+    if (per_request.get(K1_F32) != 4 or per_request.get("fused_layer_bwd_f32_sm90") != 4
+            or launches.get("fused_layer_fwd", 0) or launches.get("fused_layer_bwd", 0)):
+        fail(f"serve launched {launches} in 10 requests: the Hopper float32 K1 and K2 4 times "
+             "each a request, the general K1 and K2 never expected")
+    check_rowblock_f32_call("serve", per_request)
+
+    # the direct calculator on the same positions in the same order
+    worst = {"energy": 0.0, "forces": 0.0, "virial": 0.0}
+    bitwise, direct_ms = True, []
+    volume = abs(np.linalg.det(cell))
+    for i, (pos, answer) in enumerate(zip(positions, answers)):
+        t0 = time.perf_counter()
+        ref = direct.compute(System(pos, types, cell, pbc), forces=True, stress=True)
+        if i >= 2:
+            direct_ms.append((time.perf_counter() - t0) * 1e3)
+        virial = -ref["stress"] * volume
+        worst["energy"] = max(worst["energy"], abs(answer["energy"] - ref["energy"])
+                              / abs(ref["energy"]))
+        worst["forces"] = max(worst["forces"], float(np.abs(answer["forces"] - ref["forces"]).max()
+                                                     / np.abs(ref["forces"]).max()))
+        worst["virial"] = max(worst["virial"], float(np.abs(answer["virial"] - virial).max()
+                                                     / np.abs(virial).max()))
+        bitwise &= (answer["energy"] == ref["energy"] and np.array_equal(answer["forces"],
+                                                                         ref["forces"])
+                    and np.array_equal(answer["virial"], virial))
+    if not all(v <= 1e-6 for v in worst.values()):
+        fail(f"serve's answers vs Calculator.compute: worst relative differences {worst}")
+    return {"atoms": len(crystal), "requests": 10, "warm_up": 2, "ms_per_request": ms,
+            "mean_ms_per_request": float(np.mean(ms)), "compute_ms_per_call": direct_ms,
+            "mean_compute_ms": float(np.mean(direct_ms)),
+            "protocol_ms": float(np.mean(ms) - np.mean(direct_ms)), "launches": launches,
+            "worst_rel": worst, "bitwise_equal_compute": bool(bitwise)}
+
+
+IPI_HDR = 12
+
+
+def ipi_server(sock, crystal, positions_list, results):
+    """A minimal i-PI server: INIT, then POSDATA + GETFORCE per position
+    set, then EXIT; each round's answer in atomic units and its ms."""
+    from metatrain_tpu_torch.ipi import BOHR
+
+    def send(conn, msg):
+        conn.sendall(msg.ljust(IPI_HDR).encode())
+
+    def recv(conn, n):
+        data = b""
+        while len(data) < n:
+            chunk = conn.recv(n - len(data))
+            if not chunk:
+                raise ConnectionError("the i-PI driver closed the connection")
+            data += chunk
+        return data
+
+    def expect(conn, word):
+        got = recv(conn, IPI_HDR).strip()
+        if got != word:
+            raise RuntimeError(f"i-PI driver answered {got!r}, expected {word!r}")
+
+    conn, _ = sock.accept()
+    try:
+        send(conn, "STATUS")
+        expect(conn, b"NEEDINIT")
+        send(conn, "INIT")
+        conn.sendall(np.int32(0).tobytes() + np.int32(0).tobytes())
+        for positions in positions_list:
+            send(conn, "STATUS")
+            expect(conn, b"READY")
+            t0 = time.perf_counter()
+            send(conn, "POSDATA")
+            conn.sendall((crystal.cell / BOHR).T.astype(np.float64).tobytes()
+                         + np.zeros((3, 3)).tobytes() + np.int32(len(crystal)).tobytes()
+                         + (positions / BOHR).astype(np.float64).tobytes())
+            send(conn, "STATUS")
+            expect(conn, b"HAVEDATA")
+            send(conn, "GETFORCE")
+            expect(conn, b"FORCEREADY")
+            energy = np.frombuffer(recv(conn, 8), np.float64)[0]
+            natoms = int(np.frombuffer(recv(conn, 4), np.int32)[0])
+            forces = np.frombuffer(recv(conn, 24 * natoms), np.float64).reshape(natoms, 3)
+            virial = np.frombuffer(recv(conn, 72), np.float64).reshape(3, 3)
+            if np.frombuffer(recv(conn, 4), np.int32)[0] != 0:
+                raise RuntimeError("the i-PI driver sent an extra string")
+            results.append({"energy": energy, "forces": forces.copy(), "virial": virial.copy(),
+                            "ms": (time.perf_counter() - t0) * 1e3})
+        send(conn, "EXIT")
+    except Exception as err:  # noqa: BLE001 - the caller fails on it
+        results.append({"error": repr(err)})
+    finally:
+        conn.close()
+
+
+def pairs_within(system, nbr, cutoff):
+    """The sorted ``(center, neighbor, shift)`` rows of a NEF list whose
+    distance on ``system``'s positions is below ``cutoff``."""
+    centers, slots = np.nonzero(nbr.mask)
+    neighbors = nbr.indices[centers, slots]
+    shifts = nbr.shifts[centers, slots]
+    d = system.positions[neighbors] - system.positions[centers] + shifts @ system.cell
+    keep = np.linalg.norm(d, axis=1) < cutoff
+    rows = np.column_stack([centers[keep], neighbors[keep], shifts[keep]]).astype(np.int64)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def max_force_rel(forces, ref):
+    return float(np.abs(forces - ref).max() / np.abs(ref).max())
+
+
+def check_drive(cli, workdir, crystal, device):
+    """``drive model.mtt crystal.xyz`` against the i-PI server above, 5
+    rounds, the answers in eV and A against direct ``compute`` calls on the
+    positions and cell as the wire gave them (through bohr):
+
+    - ``same_lists``: a new ``Calculator("model.mtt")`` given the rounds in
+      the driver's order, so with the driver's neighbor lists (built on the
+      first round at cutoff + skin and reused): forces within 1e-5 of max
+      |F| and energies within 1e-5 relative; what the wire adds.
+    - ``fresh_lists``: a calculator whose list is built on each round's own
+      positions. Its pairs within the cutoff are the driver's (checked
+      exactly); only the skin shell's pairs, whose cutoff factor is 0,
+      and the slot order differ, so the float32 sums run in another order.
+      Two witnesses tell that order from a difference in what is summed:
+      the same comparison in float64 on the plain path, on the 2,048-atom
+      crystal (within 1e-9 of max |F|: a pair that counted would show
+      there as in float32), and the
+      round with its atoms relabelled in a random order on fresh lists
+      (forces put back), whose distance from ``fresh_lists`` is the
+      float32 order noise at this size. ``fresh_lists`` must stay within
+      1e-4 of max |F|, the float32 tolerance phase 7b holds the kernel path
+      to against the plain one on this crystal, and within 4 times that
+      noise."""
+    import socket
+    import threading
+
+    from metatrain_tpu_torch.calculator import Calculator
+    from metatrain_tpu_torch.containers import System
+    from metatrain_tpu_torch.data.readers.extxyz import write_xyz
+    from metatrain_tpu_torch.ipi import BOHR, HARTREE
+    from metatrain_tpu_torch.ops.neighbors import compute_neighbor_data
+    from metatrain_tpu_torch.utils.io import load_model
+
+    write_xyz(str(workdir / "crystal.xyz"), [crystal])
+    path = str(workdir / "ipi.sock")
+    sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    sock.bind(path)
+    sock.listen(1)
+    positions = jittered(crystal, 5, seed=32)
+    results = []
+    thread = threading.Thread(target=ipi_server, args=(sock, crystal, positions, results),
+                              daemon=True)
+    thread.start()
+    try:
+        rc = cli(["drive", "model.mtt", "crystal.xyz", "--unix", path])
+    finally:
+        thread.join(timeout=120)
+        sock.close()
+    errors = [r["error"] for r in results if "error" in r]
+    if rc != 0 or errors or len(results) != 5 or thread.is_alive():
+        fail(f"drive: rc {rc}, {len(results)} rounds, errors {errors}")
+
+    # the positions and cell as the i-PI driver has them, through bohr
+    cell = (crystal.cell / BOHR) * BOHR
+    seen = [System((pos / BOHR) * BOHR, crystal.types, cell, crystal.pbc) for pos in positions]
+    answers = [r["forces"] * (HARTREE / BOHR) for r in results]
+    model = load_model("model.mtt", device=device)
+    same = Calculator(model)
+    cutoff, skin = same.cutoff, same.skin
+    worst = {"same_lists": 0.0, "fresh_lists": 0.0, "relabelled": 0.0}
+    rng = np.random.default_rng(33)
+    built, pairs_equal = seen[0], True
+    for k, (answer, result, system) in enumerate(zip(answers, results, seen)):
+        ref = same.compute(system, forces=True, stress=True)
+        worst["same_lists"] = max(worst["same_lists"], max_force_rel(answer, ref["forces"]))
+        if not abs(result["energy"] * HARTREE - ref["energy"]) <= 1e-5 * abs(ref["energy"]):
+            fail(f"drive: energy {result['energy'] * HARTREE} eV, compute's {ref['energy']}")
+        # the driver's list: the rule of VerletNeighborList.update
+        if np.linalg.norm(system.positions - built.positions, axis=1).max() >= skin / 2:
+            built = system
+        if k == 0:
+            continue  # the round the driver's list was built on
+        pairs_equal &= np.array_equal(
+            pairs_within(system, compute_neighbor_data(built, cutoff + skin), cutoff),
+            pairs_within(system, compute_neighbor_data(system, cutoff + skin), cutoff))
+        fresh = Calculator(model).compute(system, forces=True)["forces"]
+        worst["fresh_lists"] = max(worst["fresh_lists"], max_force_rel(answer, fresh))
+        order = rng.permutation(len(system))
+        moved = Calculator(model).compute(
+            System(system.positions[order], system.types[order], cell, crystal.pbc),
+            forces=True)["forces"]
+        back = np.empty_like(moved)
+        back[order] = moved
+        worst["relabelled"] = max(worst["relabelled"], max_force_rel(back, fresh))
+    del same, model
+    torch.cuda.empty_cache()
+    if not worst["same_lists"] <= 1e-5:
+        fail(f"drive: forces {worst['same_lists']:.3g} of max |F| from Calculator.compute's "
+             "on the same lists")
+    if not pairs_equal:
+        fail("drive: the driver's reused list and a fresh one hold other pairs within the cutoff")
+
+    # float64 on the plain path (whose activations at 10,976 atoms would
+    # not fit beside the rest): the 2,048-atom crystal, its lists built on
+    # a first jitter and reused on a second vs built on the second
+    small = bench_crystal(8)
+    first, second = (System(pos, small.types, small.cell, small.pbc)
+                     for pos in jittered(small, 2, seed=34))
+    model64 = load_model("model.mtt", device=device, plain=True, compute_dtype=torch.float64)
+    history = Calculator(model64, dtype=torch.float64)
+    history.compute(first, forces=True)
+    f64_history = history.compute(second, forces=True)["forces"]
+    f64_fresh = Calculator(model64, dtype=torch.float64).compute(second, forces=True)["forces"]
+    worst["float64_fresh_lists"] = max_force_rel(f64_history, f64_fresh)
+    f64_pairs_equal = np.array_equal(
+        pairs_within(second, compute_neighbor_data(first, cutoff + skin), cutoff),
+        pairs_within(second, compute_neighbor_data(second, cutoff + skin), cutoff))
+    del history, model64
+    torch.cuda.empty_cache()
+    if not f64_pairs_equal:
+        fail("drive: the 2,048-atom crystal's reused list lost a pair within the cutoff")
+    if not worst["float64_fresh_lists"] <= 1e-9:
+        fail(f"drive: in float64 the driver's lists and fresh ones give forces "
+             f"{worst['float64_fresh_lists']:.3g} of max |F| apart: they sum other pairs")
+    if not (worst["fresh_lists"] <= 1e-4 and worst["fresh_lists"] <= 4 * worst["relabelled"]):
+        fail(f"drive: forces {worst['fresh_lists']:.3g} of max |F| from compute on fresh lists, "
+             f"the float32 order noise (atoms relabelled) {worst['relabelled']:.3g}")
+    ms = [r["ms"] for r in results]
+    return {"rounds": 5, "ms_per_round": ms, "mean_ms_per_round": float(np.mean(ms)),
+            "worst_force_rel": worst, "pairs_within_cutoff_equal": bool(pairs_equal),
+            "driver_list_rebuilt": built is not seen[0]}
+
+
+def check_disk_and_servers(device, report, workdir):
+    """Phase 7c: training from the ``.zip`` and memmap copies of phase 5's
+    frames, the ``.zip`` / ``.mts`` / memmap prediction writers and the
+    ``.mts`` target reader, ``serve`` and ``drive``; in 7b's directory, on
+    its ``model.mtt``."""
+    import os
+
+    from metatrain_tpu_torch.__main__ import main as cli
+    from metatrain_tpu_torch.calculator import Calculator
+
+    first = report["entry_points"]
+    out = report["disk_and_servers"] = {}
+    cwd = os.getcwd()
+    t_phase = time.perf_counter()
+    try:
+        disk_copies(workdir)
+        for key, read_from in (("zip", workdir / "frames.zip"),
+                               ("memmap", workdir / "frames.memmap")):
+            out[f"train_{key}"] = train_from_disk(cli, workdir, read_from, first)
+            torch.cuda.empty_cache()
+        out["train_epoch_s"] = {"extxyz": first["train_epoch_s"],
+                                "zip": out["train_zip"]["epoch_s"],
+                                "memmap": out["train_memmap"]["epoch_s"]}
+        os.chdir(workdir)
+        out["writers"] = check_writers(cli, workdir, device)
+        torch.cuda.empty_cache()
+        crystal = bench_crystal()
+        direct = Calculator("model.mtt")
+        out["serve"] = check_serve(cli, workdir, crystal, direct)
+        del direct
+        torch.cuda.empty_cache()
+        out["drive"] = check_drive(cli, workdir, crystal, device)
+    finally:
+        os.chdir(cwd)
+    out["seconds"] = time.perf_counter() - t_phase
 
 
 def flatten(tree, prefix=""):
@@ -4557,6 +5058,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         check_entry_points(device, report, workdir)
         print(f"entry points ({card}):", json.dumps(report["entry_points"]), flush=True)
+        torch.cuda.empty_cache()
+        check_disk_and_servers(device, report, workdir)
+        print(f"disk data, writers and servers ({card}):",
+              json.dumps(report["disk_and_servers"]), flush=True)
 
     hp = DEFAULT_MODEL_HYPERS
     D, H, F = hp["d_pet"], hp["num_heads"], hp["d_feedforward"]

@@ -1,12 +1,14 @@
-"""The command line of the port: ``python -m metatrain_tpu_torch train|eval|export``.
+"""The command line of the port: ``python -m metatrain_tpu_torch <command>``.
 
-Counterpart of ``metatrain_tpu/__main__.py`` for its ``train``, ``eval``
-and ``export`` subcommands, with their arguments: ``train`` writes into a
-timestamped ``outputs/<date>/<time>/`` (``train.log``, the checkpoints),
-and any command that fails writes ``error.log`` there (``eval`` and
-``export``: in the working directory) and re-raises. ``eval`` also takes
-``--device`` (default ``auto``: the first card, and an error without one).
-Options files may be JSON, read without PyYAML (``utils.config``).
+Counterpart of ``metatrain_tpu/__main__.py`` for its ``train``, ``eval``,
+``drive``, ``serve``, ``defaults`` and ``export`` subcommands, with their
+arguments: ``train`` writes into a timestamped ``outputs/<date>/<time>/``
+(``train.log``, the checkpoints), and any command that fails writes
+``error.log`` there (the others: in the working directory) and re-raises.
+``eval``, ``drive`` and ``serve`` also take ``--device`` (default
+``auto``: the first card, and an error without one). Options files may be
+JSON, read without PyYAML (``utils.config``); ``defaults`` writes YAML
+and needs PyYAML.
 """
 
 from __future__ import annotations
@@ -52,6 +54,34 @@ def build_parser() -> argparse.ArgumentParser:
     evaluate.add_argument("--device", default="auto",
                           help="'auto' (the first CUDA device), 'cuda:N' or 'cpu'")
 
+    drive = sub.add_parser("drive", help="serve force calls to an i-PI server")
+    drive.add_argument("model", help="exported .mtt file or checkpoint")
+    drive.add_argument("template", help="structure file giving the atom types in server order")
+    drive.add_argument("--address", default="localhost")
+    drive.add_argument("--port", type=int, default=31415)
+    drive.add_argument("--unix", default=None, metavar="NAME",
+                       help="unix socket: a path, or a bare name for /tmp/ipi_<NAME>")
+    drive.add_argument("--device", default="auto",
+                       help="'auto' (the first CUDA device), 'cuda:N' or 'cpu'")
+
+    serve = sub.add_parser("serve", help="socket force server for MD-engine coupling (LAMMPS "
+                                          "fix external adapter in examples/lammps/)")
+    serve.add_argument("model", help="exported .mtt file or checkpoint")
+    serve.add_argument("--host", default="127.0.0.1")
+    serve.add_argument("--port", type=int, default=31415)
+    serve.add_argument("--unix", default=None, metavar="PATH", help="unix socket path")
+    serve.add_argument("--persist", action="store_true",
+                       help="keep listening after a client disconnects")
+    serve.add_argument("--device", default="auto",
+                       help="'auto' (the first CUDA device), 'cuda:N' or 'cpu'")
+
+    defaults = sub.add_parser("defaults", help="print an architecture's default hypers as an "
+                                               "options-file skeleton (YAML; needs PyYAML)")
+    defaults.add_argument("architecture", nargs="?", default=None,
+                          help="architecture name; omit to list all")
+    defaults.add_argument("-o", "--output", default=None,
+                          help="write the YAML skeleton to a file instead of stdout")
+
     export = sub.add_parser("export", help="export a checkpoint")
     export.add_argument("checkpoint",
                         help="checkpoint path, URL, or hf://<org>/<repo>/<file> reference")
@@ -80,6 +110,35 @@ def _apply_overrides(options: dict, overrides: list) -> dict:
             target = target.setdefault(part, {})
         target[parts[-1]] = parse_override_value(value)
     return options
+
+
+def _print_defaults(architecture, output) -> None:
+    """The architecture names, or one architecture's default hypers as an
+    options-file skeleton in YAML."""
+    from .utils.architectures import available_architectures, get_default_hypers
+
+    if architecture is None:
+        print("\n".join(available_architectures()))
+        return
+    try:
+        import yaml
+    except ImportError:
+        from .utils.config import MetatrainConfigError
+
+        raise MetatrainConfigError(
+            "defaults writes a YAML skeleton and needs PyYAML, which is not installed") from None
+    skeleton = {
+        "architecture": {"name": architecture, **get_default_hypers(architecture)},
+        "training_set": {"systems": {"read_from": "dataset.xyz"},
+                         "targets": {"energy": {"key": "energy"}}},
+        "validation_set": 0.1,
+        "test_set": 0.0,
+    }
+    text = yaml.safe_dump(skeleton, sort_keys=False)
+    if output:
+        Path(output).write_text(text)
+    else:
+        print(text, end="")
 
 
 def main(argv=None) -> int:
@@ -114,6 +173,22 @@ def main(argv=None) -> int:
                                batch_size=args.batch_size,
                                check_consistency=args.check_consistency,
                                warm_up=args.warm_up, device=args.device)
+            elif args.command == "drive":
+                from .calculator import Calculator
+                from .data.readers import read_systems
+                from .ipi import run_driver
+
+                template = read_systems(args.template)[0]
+                run_driver(Calculator(args.model, device=args.device), template.types,
+                           address=args.address, port=args.port, unixsocket=args.unix,
+                           pbc=template.pbc)
+            elif args.command == "serve":
+                from .serve import run_server
+
+                run_server(args.model, unix=args.unix, host=args.host, port=args.port,
+                           persist=args.persist, device=args.device)
+            elif args.command == "defaults":
+                _print_defaults(args.architecture, args.output)
             elif args.command == "export":
                 from .cli.export import export_model
 

@@ -3,8 +3,10 @@
 Counterpart of ``metatrain_tpu/data/dataset.py`` (a copy; numpy only):
 ``Dataset``, ``DatasetView``, ``get_dataset``, ``get_dataset_info``,
 ``train_val_test_split`` (the same permutation from the same seed) and
-``get_stats``. Disk-backed datasets (``.zip``, memmap directories) are not
-ported yet.
+``get_stats``. ``get_dataset`` also opens the disk-backed datasets of
+``data/disk.py`` (a ``.zip`` or a memmap directory), which serve their
+samples one at a time through the same ``iter_samples`` and
+``DatasetView``.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 
 from ..containers import System, TensorMap
 from .readers import read_systems, read_targets
-from .target_info import DatasetInfo, TargetInfo, collect_atomic_types
+from .target_info import DatasetInfo, TargetInfo, collect_atomic_types, get_energy_target_info
 
 
 @dataclasses.dataclass
@@ -178,19 +180,59 @@ def get_dataset(
 
 
 def _open_disk_dataset(read_from: str, target_config: Dict[str, Any]):
-    """Disk-backed datasets (a ``.zip`` DiskDataset or a memmap directory)
-    are not ported yet: raise for them, return None for the file formats
-    the frame readers handle."""
+    """Open a ``.zip`` DiskDataset or a memmap directory (a name ending in
+    ``.memmap``, or a directory holding ``ns.npy``) with its TargetInfos,
+    or return None for the file formats the frame readers handle.
+
+    These formats store per-structure scalar targets with optional
+    position and strain gradients, so the target metadata comes from what
+    is stored; the ``targets:`` section may restrict the names and set
+    ``unit``, but a section asking for what the format cannot hold
+    (``per_atom``, a ``type`` other than scalar) is an error."""
     import os
 
-    if read_from.endswith(".zip") or read_from.rstrip("/").endswith(".memmap") or (
+    from .disk import DiskDataset, MemmapDataset
+
+    if read_from.endswith(".zip"):
+        dataset = DiskDataset(read_from)
+    elif read_from.rstrip("/").endswith(".memmap") or (
         os.path.isdir(read_from) and os.path.exists(os.path.join(read_from, "ns.npy"))
     ):
-        raise NotImplementedError(
-            f"disk-backed datasets ({read_from!r}) are not ported yet; "
-            "use an extended-xyz file"
-        )
-    return None
+        dataset = MemmapDataset(read_from, target_names=tuple(target_config) or ("energy",))
+    else:
+        return None
+
+    infos = dataset.infer_target_infos()
+    if target_config:
+        missing = set(target_config) - set(infos)
+        if missing:
+            raise ValueError(
+                f"targets {sorted(missing)} not found in disk dataset {read_from!r} "
+                f"(stored targets: {sorted(infos)})"
+            )
+        for name, cfg in target_config.items():
+            cfg = cfg or {}
+            if cfg.get("per_atom"):
+                raise ValueError(
+                    f"target '{name}': disk datasets store per-structure scalar targets; "
+                    "per_atom targets are not supported by this format"
+                )
+            type_spec = cfg.get("type", "scalar")
+            if type_spec not in (None, "scalar"):
+                raise ValueError(
+                    f"target '{name}': disk datasets store scalar targets; "
+                    f"type {type_spec!r} is not supported by this format"
+                )
+            if cfg.get("unit") or cfg.get("quantity"):
+                info = infos[name]
+                infos[name] = get_energy_target_info(
+                    cfg.get("unit") or info.unit,
+                    add_position_gradients="positions" in info.gradients,
+                    add_strain_gradients="strain" in info.gradients,
+                )
+        infos = {name: infos[name] for name in target_config}
+    dataset.target_infos = infos
+    return dataset, infos
 
 
 def get_dataset_info(

@@ -3,8 +3,9 @@
 Counterpart of ``metatrain_tpu/data/readers/__init__.py`` (a copy: the JAX
 package cannot be imported here) for the extended-xyz reader: energy
 targets and generic scalar, Cartesian and spherical targets, per structure
-or per atom; all numeric data is float64 on the host. The metatensor
-(``.mts``) target reader is not ported.
+or per atom, and any target from a metatensor ``.mts`` file (``mts.py``:
+one joined TensorMap, split per system); all numeric data is float64 on
+the host.
 
 Sign conventions (as the JAX package's):
 
@@ -221,7 +222,11 @@ def read_targets(
             name == "energy" and "type" not in config
         )
         if read_from and read_from.endswith(".mts"):
-            raise NotImplementedError("the metatensor (.mts) target reader is not ported yet")
+            from .mts import read_mts_target
+
+            targets[name], infos[name] = read_mts_target(read_from, config, len(systems),
+                                                         is_energy)
+            continue
         if read_from:
             source_systems = read_systems(read_from)
             if len(source_systems) != len(systems):

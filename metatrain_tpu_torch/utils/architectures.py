@@ -10,7 +10,7 @@ from __future__ import annotations
 import copy
 import difflib
 import importlib
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 ARCHITECTURES = {"pet": "metatrain_tpu_torch.models.pet"}
 
@@ -33,3 +33,7 @@ def import_architecture(name: str):
 
 def get_default_hypers(name: str) -> Dict[str, Any]:
     return copy.deepcopy(import_architecture(name).DEFAULT_HYPERS)
+
+
+def available_architectures() -> List[str]:
+    return sorted(ARCHITECTURES)

@@ -19,7 +19,10 @@ On the CPU, tiny PET, the 6 Lennard-Jones-labelled Cu frames of
   energies and forces written to ``.xyz`` and ``.npz``, to 1e-5 relative
   (of the largest value);
 - ``load_options`` of a JSON file with PyYAML blocked equals PyYAML's
-  reading; the writers and the restart left unported raise and say why.
+  reading; the restart left unported raises and says why;
+- ``eval`` with ``-o`` ``.zip``, ``.mts`` and a trailing ``/``: the port's
+  predictions and the JAX package's, both read with the JAX package's
+  readers, agree to 1e-5 relative as the ``.xyz`` ones do.
 """
 
 import copy
@@ -51,7 +54,6 @@ from metatrain_tpu_torch.cli.export import export_model_object
 from metatrain_tpu_torch.containers import System
 from metatrain_tpu_torch.data.readers.extxyz import read_xyz, write_xyz
 from metatrain_tpu_torch.data.target_info import DatasetInfo, get_energy_target_info
-from metatrain_tpu_torch.data.writers import write_predictions
 from metatrain_tpu_torch.interop.jax_params import state_dict_to_flax
 from metatrain_tpu_torch.models.pet import PET
 from metatrain_tpu_torch.utils import config as tconfig
@@ -346,10 +348,40 @@ def test_load_options_reads_json_without_yaml(data_file, tmp_path, monkeypatch):
         tconfig.load_options(yaml_file)
 
 
+def _read_disk_predictions(path):
+    """Energies and forces of ``.zip`` / ``.mts`` / memmap predictions, read
+    with the JAX package's readers."""
+    import metatrain_tpu.data.disk as jdisk
+    import metatrain_tpu.data.readers.mts as jmts
+
+    if path.endswith(".mts"):
+        block = jmts.load_mts(path.replace(".mts", "_energy.mts")).block(0)
+        return (np.asarray(block.values)[:, 0],
+                -np.asarray(block.gradient("positions").values)[:, :, 0])
+    dataset = jdisk.DiskDataset(path) if path.endswith(".zip") else jdisk.MemmapDataset(path)
+    blocks = [dataset[i].targets["energy"].block(0) for i in range(len(dataset))]
+    return (np.array([float(np.asarray(b.values)[0, 0]) for b in blocks]),
+            np.concatenate([-np.asarray(b.gradient("positions").values)[:, :, 0]
+                            for b in blocks]))
+
+
 @pytest.mark.parametrize("suffix", ["preds.zip", "preds.mts", "preds/"])
-def test_unported_writers_name_what_they_wait_for(tmp_path, suffix):
-    with pytest.raises(NotImplementedError, match="disk datasets"):
-        write_predictions(f"{tmp_path}/{suffix}", [], {})
+def test_unported_writers_name_what_they_wait_for(float32_mtt, data_file, tmp_path, suffix):
+    """The ``.zip``, ``.mts`` and memmap writers, through ``eval``: the
+    port's and the JAX package's predictions of the same float32 ``.mtt``,
+    both read with the JAX package's readers, agree as ``.xyz`` ones do."""
+    from metatrain_tpu.cli.eval import eval_model as jax_eval_model
+
+    options = _dataset(data_file)
+    jax_eval_model(str(float32_mtt), copy.deepcopy(options), batch_size=4,
+                   output_path=f"{tmp_path}/jax_{suffix}")
+    eval_model(str(float32_mtt), copy.deepcopy(options), batch_size=4, device="cpu",
+               output_path=f"{tmp_path}/port_{suffix}")
+    ours = _read_disk_predictions(f"{tmp_path}/port_{suffix}")
+    theirs = _read_disk_predictions(f"{tmp_path}/jax_{suffix}")
+    assert len(ours[0]) == len(read_xyz(str(data_file)))
+    for o, t in zip(ours, theirs):
+        assert o.shape == t.shape and rel(o, t) < EVAL_TOL
 
 
 def test_restart_onto_new_targets_and_types():
